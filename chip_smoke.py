@@ -14,21 +14,37 @@ Phases (any failure exits non-zero; nothing is caught):
    accumulator, against torch.matmul / torch.addmm; SpDMM n1=4096, f=128,
    w in {8, 64, 512}, strided views as the executor passes them) and at
    the ragged sweep shapes of ``tests/test_kernels.py``, fp32 tolerance
-   rtol 1e-5 / atol 1e-4.  Median times of kernel, plain version and the
+   rtol 1e-5 / atol 1e-4 (SDDMM's unmasked sweep: rtol 1e-4 / atol 1e-4,
+   the JAX sweep's).  Median times of kernel, plain version and the
    PyTorch library call, and the bound (bytes over 3.35 TB/s or flops
    over 67 TFLOP/s fp32, the H100 SXM data-sheet peaks).
-3. Main path: ``Engine(device="cuda").serve`` answers b1-b8 on Cora (CO)
-   and three b2 (GCN, hidden 128) requests on full-scale Flickr (FL,
-   89,250 vertices, 989,006 edges with self loops), weights random from
-   seed 0.  Every output is held against the port's plain torch reference
-   (``run_reference``, index_add_ / scatter_reduce) on the card at rtol
-   2e-4 / atol 2e-5; the FL repeats must be cache hits; the kernels'
-   launch counts over the serve loop must be > 0 and equal the
-   executor's GEMM and SUM/MEAN SpDMM tile ops.
-4. One more FL request (a cache hit) under ``torch.profiler``: device
-   time by kernel and the device's busy share.  Then the SpDMM kernel
-   timed again on the widest real ELL slice of the FL program, which is
-   the kernel's entry in the ``kernels`` line.
+3. Engine.serve path: ``Engine(device="cuda").serve`` answers b1-b8 on
+   Cora (CO) and three b2 (GCN, hidden 128) requests on full-scale Flickr
+   (FL, 89,250 vertices, 989,006 edges with self loops), weights random
+   from seed 0.  Every output is held against the port's plain torch
+   reference (``run_reference``, index_add_ / scatter_reduce) in float64
+   on the card at rtol 2e-4 / atol 2e-5; the FL repeats must be cache
+   hits; the kernels' launch counts over the serve loop must be > 0 and
+   equal the executor's GEMM and SUM/MEAN SpDMM tile ops.  One more FL
+   request (a cache hit) under ``torch.profiler``: device time by kernel
+   and the device's busy share.  Then the SpDMM kernel timed again on the
+   widest real ELL slice of the FL program, which is the kernel's entry
+   in the ``kernels`` line.
+4. Runtime path: ``ServeLoop(OverlayPool(engines=[<the Engine above>,
+   Engine()]), max_batch=4)`` with a worker thread per overlay serves 11
+   requests: gat-dot (a dot-product-attention GAT, hidden 64, 2 layers)
+   and b2 on FL, gat-dot on CO, in batches of 4, 4 and 3
+   (``Engine.submit_batch`` -> ``BinaryExecutor.run_batch``).  Checks:
+   admission order, batch sizes, b2@FL hits on the overlay that compiled
+   it, every output against the float64 reference, lane 0 of each batch
+   bit-identical to the same request served alone, and launches of each
+   kernel equal to lanes x the pass's tile ops of its mode.  One gat-dot
+   FL hit under ``torch.profiler``, and the SDDMM kernel timed on the
+   widest real ELL slice of the gat-dot FL program (with its real mask
+   and an accumulator), the kernel's entry in the ``kernels`` line.
+
+``launches`` in the ``kernels`` line is a kernel's count over both paths,
+each counted from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
 the host enqueues 20 back-to-back calls while the device is busy, and a
@@ -61,6 +77,9 @@ GEMM_SWEEP = [(128, 128, 128), (256, 128, 384), (64, 32, 16),
               (100, 60, 33), (8, 8, 8), (1, 128, 1), (130, 70, 258)]
 SPDMM_SWEEP = [(128, 16, 128, 128), (64, 8, 128, 32), (100, 24, 70, 33),
                (32, 64, 32, 8), (8, 8, 8, 8)]
+SDDMM_SWEEP = [(128, 16, 128, 128), (64, 8, 96, 256), (56, 24, 70, 33),
+               (8, 8, 8, 8)]
+SDDMM_RTOL, SDDMM_ATOL = 1e-4, 1e-4
 
 
 def log(*a) -> None:
@@ -150,8 +169,16 @@ def kernel_phase(torch, ops, ref):
     torch.cuda.synchronize()
     if float(zero.abs().max()) != 0.0:
         fail("spdmm: zero padding is not inert")
+    for n1, w, ns, f in SDDMM_SWEEP:
+        cols = torch.randint(0, ns, (n1, w), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        hd, hs = randn(n1, 2 * f)[:, f:], randn(ns, f)
+        check_close(torch, f"sddmm {n1}x{w} ns={ns} f={f}",
+                    ops.sddmm(hd, hs, cols), ref.sddmm_ref(hd, hs, cols),
+                    SDDMM_RTOL, SDDMM_ATOL)
     log("kernels: ragged sweeps within tolerance "
-        f"({len(GEMM_SWEEP)} gemm, {len(SPDMM_SWEEP)} spdmm shapes)")
+        f"({len(GEMM_SWEEP)} gemm, {len(SPDMM_SWEEP)} spdmm, "
+        f"{len(SDDMM_SWEEP)} sddmm shapes)")
 
     # GEMM at the executor's tile shape: a [4096, 128] sub-fiber view of a
     # padded [4096, 512] layer tensor times a [128, 128] weight block view,
@@ -240,9 +267,8 @@ def _spdmm_bound(n1, w, n_src, f, nnz):
 # --------------------------------------------------------------------------- #
 def path_phase(torch):
     from repro_torch.core import graph as G
-    from repro_torch.core.gnn_builders import BENCHMARKS, build
+    from repro_torch.core.gnn_builders import BENCHMARKS
     from repro_torch.core.ir import AggOp, LayerType
-    from repro_torch.core.reference import run_reference
     from repro_torch.engine import Engine, InferenceRequest
     from repro_torch.kernels import ops
 
@@ -309,13 +335,27 @@ def path_phase(torch):
         fail(f"spdmm launches {launches['spdmm']} != SUM/MEAN tile ops "
              f"{exp['spdmm_sum_mean']} / all {exp['spdmm']}")
 
-    # Every output against the port's plain reference on the card, run in
-    # float64 so that the reference's own rounding does not count; the
-    # fp32 reference's distance is printed beside it for comparison.
+    worst = hold_against_reference(torch, reqs, responses)
+    log(f"path: {len(responses)} outputs within rtol {PATH_RTOL} / atol "
+        f"{PATH_ATOL} of run_reference in float64 (worst max|err| "
+        f"{worst:.3e})")
+    profile_request(torch, engine, reqs[-1], "b2@FL hit")
+    fl_prog = engine.cache.get(responses[-1].cache_key)
+    return launches, fl_prog, responses, peak, engine, co, fl
+
+
+def hold_against_reference(torch, reqs, responses) -> float:
+    """Every output against the port's plain reference on the card, run
+    in float64 so that the reference's own rounding does not count; the
+    fp32 reference's distance is printed beside it for comparison.
+    Returns the worst max|err|; fails past rtol 2e-4 / atol 2e-5."""
+    from repro_torch.core.gnn_builders import build
+    from repro_torch.core.reference import run_reference
     worst, bad = 0.0, []
     for req, resp in zip(reqs, responses):
         g = req.graph
-        model = build(req.model, g, req.seed)
+        model = build(req.model, g, req.seed) if isinstance(
+            req.model, str) else req.model
         x = torch.as_tensor(req.features, device="cuda")
         y64 = run_reference(model, g, x, dtype=torch.float64)
         y32 = run_reference(model, g, x)
@@ -341,35 +381,27 @@ def path_phase(torch):
     if bad:
         fail(f"outputs outside rtol {PATH_RTOL} / atol {PATH_ATOL} of the "
              f"float64 reference: {bad}")
-    log(f"path: {len(responses)} outputs within rtol {PATH_RTOL} / atol "
-        f"{PATH_ATOL} of run_reference in float64 (worst max|err| "
-        f"{worst:.3e})")
-    profile_request(torch, engine, reqs[-1])
-    fl_prog = engine.cache.get(responses[-1].cache_key)
-    return launches, fl_prog, responses, layer_times, peak
+    return worst
 
 
-def profile_request(torch, engine, req) -> None:
-    """One more FL request (a cache hit) under torch.profiler: device time
+def profile_request(torch, engine, req, label: str) -> None:
+    """One more request (a cache hit) under torch.profiler: device time
     by kernel name and the device's busy share of the request's wall
-    time.  A measurement beside the smoke run, not one of its checks:
-    when the profiler yields no device events it says "not measured"."""
+    time.  When the profiler yields no device events it says "not
+    measured"; a profiler that raises fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.serve([req])
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    except Exception as exc:            # the profiler is optional here
-        log(f"profile: not measured ({type(exc).__name__}: {exc})")
-        return
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.serve([req])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
-        log("profile: no device events; device busy share not measured")
+        log(f"profile {label}: no device events; device busy share not "
+            "measured")
         return
     by_name, ivs = {}, []
     for e in kern:
@@ -380,10 +412,10 @@ def profile_request(torch, engine, req) -> None:
         if b > end:
             busy += b - max(a, end)
             end = b
-    log(f"profile b2@FL hit: wall {wall_us / 1e3:.2f} ms under the "
+    log(f"profile {label}: wall {wall_us / 1e3:.2f} ms under the "
         f"profiler, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}%), {len(kern)} device events")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {us / 1e3:9.3f} ms  {name[:90]}")
 
 
@@ -431,6 +463,232 @@ def fl_spdmm_entry(torch, ops, ref, prog):
 
 
 # --------------------------------------------------------------------------- #
+def build_gat_dot(B, g, hidden: int = 64, n_layers: int = 2, seed: int = 0):
+    """gat-dot: a single-head dot-product-attention GAT (the DP attention
+    of SuperGAT, Kim & Oh, ICLR 2021; PyG ``SuperGATConv(attention_type=
+    "DP")``, negative slope 0.2; b6's widths, paper Table 5) built from the
+    builder module ``B``'s primitives.  A copy of ``build_gat_dot`` in
+    ``tests/_torch_models.py``."""
+    b = B._B(g, f"gatdot{n_layers}x{hidden}", seed)
+    f, prev = g.feat_dim, None
+    for i in range(n_layers):
+        fo = hidden if i < n_layers - 1 else g.n_classes
+        h = b.linear(prev, f, fo)
+        e = b.vector_inner(h, fo, mode="dot")
+        e = b.activation(e, 1, B.Activation.LRELU, on_edges=True)
+        e = b.activation(e, 1, B.Activation.EDGE_SOFTMAX, on_edges=True)
+        prev = b.aggregate(h, fo, B.AggOp.SUM, edge_weight_layer=e)
+        if i < n_layers - 1:
+            prev = b.activation(prev, fo, B.Activation.RELU)
+        f = fo
+    return b.m
+
+
+def plan_tile_ops(prog) -> dict:
+    """Tile ops of one pass of ``prog`` that launch each kernel: GEMM
+    steps of LINEAR layers, SUM/MEAN SpDMM steps, dot-mode SDDMM steps."""
+    from repro_torch.core.ir import AggOp, LayerType
+    out = {"gemm": 0, "spdmm": 0, "sddmm": 0}
+    for lp in prog.plan().layers:
+        steps = sum(len(tp.compute) for tp in lp.tiles)
+        if lp.layer_type == LayerType.LINEAR:
+            out["gemm"] += steps
+        elif lp.layer_type == LayerType.AGGREGATE and AggOp(lp.mode) in (
+                AggOp.SUM, AggOp.MEAN):
+            out["spdmm"] += steps
+        elif lp.layer_type == LayerType.VECTOR_INNER and lp.mode == 0:
+            out["sddmm"] += steps
+    return out
+
+
+def runtime_phase(torch, engine, co, fl):
+    """ServeLoop over OverlayPool(engines=[engine, Engine()]): gat-dot and
+    b2 on FL, gat-dot on CO, batched; see the module docstring."""
+    from repro_torch.core import gnn_builders as TB
+    from repro_torch.core import graph as G
+    from repro_torch.engine import Engine, InferenceRequest
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import OverlayPool, ServeLoop
+
+    gat_fl, gat_co = build_gat_dot(TB, fl), build_gat_dot(TB, co)
+    reqs = []
+    for i in range(4):
+        reqs.append(InferenceRequest(
+            model=gat_fl, graph=fl, features=G.random_features(
+                fl, seed=20 + i), request_id=f"gat-dot@FL#{i}"))
+        reqs.append(InferenceRequest(
+            model="b2", graph=fl, features=G.random_features(
+                fl, seed=30 + i), request_id=f"b2@FL#{i}"))
+        if i < 3:
+            reqs.append(InferenceRequest(
+                model=gat_co, graph=co, features=G.random_features(
+                    co, seed=40 + i), request_id=f"gat-dot@CO#{i}"))
+    home = 0                                # engine compiled b2@FL above
+    pool = OverlayPool(engines=[engine, Engine()])
+    loop = ServeLoop(pool, max_batch=4, max_wait_us=1e9)
+    # Record each batch's pass (per-layer CUDA-event times, tile ops by
+    # mode) in the overlay's worker thread, right after its pass: an
+    # overlay runs its batches FIFO, so its exec_stats are that batch's.
+    batches = []
+    execute_on = pool.execute_on
+
+    def recorded(idx, batch):
+        resps = execute_on(idx, batch)
+        st = pool.engines[idx].exec_stats
+        batches.append({
+            "overlay": idx, "indices": list(batch.indices),
+            "size": len(batch), "key": batch.key,
+            "modes": dict(st.tile_ops_by_mode or {}),
+            "layers": [(r["layer"], r["kernel"], r["tile_ops"],
+                        r["wall_s"] * 1e3) for r in st.per_layer]})
+        return resps
+    pool.execute_on = recorded
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # ---- the runtime path: counts are zeroed just above, read below.
+    t0 = time.perf_counter()
+    try:
+        resps = loop.serve(reqs)
+    finally:
+        loop.shutdown()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the runtime path.
+
+    batches.sort(key=lambda b: b["indices"][0])
+    for req, r in zip(reqs, resps):
+        log(f"runtime {r.request_id}: T_LoC {r.t_loc * 1e3:.2f} ms, T_LoH "
+            f"{r.t_loh * 1e3:.2f} ms, batch {r.batch_size}, overlay "
+            f"{r.overlay}, cache_hit {r.cache_hit}")
+    exp = {"gemm": 0, "spdmm": 0, "sddmm": 0}
+    for b in batches:
+        prog = pool.engines[b["overlay"]].cache.get(
+            pool.engine_key(b["key"]))
+        per_pass = plan_tile_ops(prog)
+        for k in exp:
+            exp[k] += b["size"] * per_pass[k]
+        if per_pass["gemm"] != b["modes"].get("gemm", 0) or \
+                per_pass["sddmm"] != b["modes"].get("sddmm", 0):
+            fail(f"batch {b['indices']}: executor tile ops {b['modes']} "
+                 f"disagree with the plan's {per_pass}")
+        log(f"batch {reqs[b['indices'][0]].request_id} x{b['size']} on "
+            f"overlay {b['overlay']}: tile ops per pass {per_pass}; "
+            "per-layer CUDA-event ms: " + ", ".join(
+                f"L{lid}:{k}x{n}={ms:.3f}" for lid, k, n, ms in b["layers"]))
+    log(f"runtime: {len(resps)} responses in {wall:.2f} s; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    log("pool stats: " + json.dumps(pool.stats_snapshot()))
+    log("metrics: " + json.dumps(pool.metrics.snapshot(max_batch=4)))
+    log(f"launches on the runtime path: {launches}; expected lanes x tile "
+        f"ops: {exp}")
+
+    if [r.request_id for r in resps] != [r.request_id for r in reqs]:
+        fail("runtime responses are not in admission order: "
+             f"{[r.request_id for r in resps]}")
+    want_sizes = {"gat-dot@FL": 4, "b2@FL": 4, "gat-dot@CO": 3}
+    sizes = [r.batch_size for r in resps]
+    if sizes != [want_sizes[r.request_id.split("#")[0]] for r in resps] \
+            or sorted(b["size"] for b in batches) != [3, 4, 4]:
+        fail(f"runtime batch sizes {sizes} / "
+             f"{[b['size'] for b in batches]}, expected 4, 4 and 3")
+    b2 = [r for r in resps if r.request_id.startswith("b2@FL")]
+    if not all(r.cache_hit and r.overlay == home for r in b2):
+        fail("b2@FL must hit on overlay 0, got "
+             f"{[(r.cache_hit, r.overlay) for r in b2]}")
+    for k in exp:
+        if not (launches[k] == exp[k] > 0):
+            fail(f"{k} launches {launches[k]} != lanes x tile ops {exp[k]}")
+    worst = hold_against_reference(torch, reqs, resps)
+    log(f"runtime: {len(resps)} outputs within rtol {PATH_RTOL} / atol "
+        f"{PATH_ATOL} of run_reference in float64 (worst max|err| "
+        f"{worst:.3e})")
+    # Lane 0 of each batch against the same request served alone on the
+    # same overlay (after the launch counts were read).
+    for b in batches:
+        i = b["indices"][0]
+        solo = pool.engines[b["overlay"]].submit(reqs[i])
+        if not torch.equal(solo.output, resps[i].output):
+            diff = float((solo.output - resps[i].output).abs().max())
+            fail(f"{reqs[i].request_id}: batched lane 0 differs from the "
+                 f"solo serve by {diff:.3e}")
+        st = pool.engines[b["overlay"]].exec_stats
+        log(f"solo {reqs[i].request_id} on overlay {b['overlay']}: "
+            f"bit-identical to lane 0 of its batch; T_LoH "
+            f"{solo.t_loh * 1e3:.2f} ms, cache_hit {solo.cache_hit}; "
+            "per-layer CUDA-event ms: " + ", ".join(
+                f"L{r['layer']}:{r['kernel']}x{r['tile_ops']}="
+                f"{r['wall_s'] * 1e3:.3f}" for r in st.per_layer))
+    gat_eng = pool.engines[resps[0].overlay]
+    profile_request(torch, gat_eng, reqs[0], "gat-dot@FL hit")
+    gat_prog = gat_eng.cache.get(resps[0].cache_key)
+    return launches, gat_prog, resps, peak, wall
+
+
+def fl_sddmm_entry(torch, ops, ref, prog):
+    """The SDDMM kernel on the widest real ELL slice of the gat-dot FL
+    program, with its real mask, an accumulator, and the source / target
+    views the executor passes it."""
+    from repro_torch.engine.executor import _staged
+    pg = prog.pgraph
+    st = _staged(pg, torch.device("cuda"))
+    cols_d, mask_d = st.tiles("cols"), st.tiles("mask")
+    key = max(cols_d, key=lambda k3: (cols_d[k3].shape[1],
+                                      pg.tiles[k3[:2]][k3[2]].nnz))
+    cols, mask = cols_d[key], mask_d[key]
+    n1, w = cols.shape
+    f = pg.config.n2
+    j, k = key[0], key[1]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h = torch.randn(pg.n_blocks * n1, f, generator=gen, device="cuda")
+    hd, hs = h[j * n1:(j + 1) * n1], h[k * n1:(k + 1) * n1]
+    acc = torch.randn(n1, w, generator=gen, device="cuda")
+    err = check_close(torch, "sddmm FL tile", ops.sddmm(hd, hs, cols, mask,
+                                                        acc),
+                      ref.sddmm_step_ref(hd, hs, cols, mask, acc),
+                      KERNEL_RTOL, KERNEL_ATOL)
+    if not torch.equal(ops.sddmm(hd, hs, cols, mask, acc)[~mask],
+                       acc[~mask]):
+        fail("sddmm: a masked slot does not keep its accumulator")
+    # Library yardstick: torch.sparse.sampled_addmm on the CSR pattern of
+    # the live slots (acc + h_dst @ h_src^T sampled there).
+    rows, slots = torch.nonzero(mask, as_tuple=True)
+    counts = torch.bincount(rows, minlength=n1)
+    crow = torch.zeros(n1 + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(counts, 0)
+    live_cols = cols[rows, slots].long()
+    csr = torch.sparse_csr_tensor(crow, live_cols, acc[rows, slots],
+                                  size=(n1, n1))
+    hdc, hst = hd.contiguous(), hs.t().contiguous()
+    lib = torch.sparse.sampled_addmm(csr, hdc, hst)
+    check_close(torch, "sampled_addmm yardstick", lib.values(),
+                ref.sddmm_step_ref(hd, hs, cols, mask, acc)[rows, slots],
+                KERNEL_RTOL, KERNEL_ATOL)
+    t_k = median_ms(torch, lambda: ops.sddmm(hd, hs, cols, mask, acc))
+    t_p = median_ms(torch, lambda: ref.sddmm_step_ref(hd, hs, cols, mask,
+                                                      acc))
+    t_l = median_ms(torch, lambda: torch.sparse.sampled_addmm(csr, hdc,
+                                                              hst))
+    nnz = int(rows.numel())
+    src_rows = int(torch.unique(live_cols).numel())
+    # Bytes: cols (4) + mask (1) + acc in (4) + out (4) per slot, h_dst
+    # once and the live source rows once; operations: 2 f per live slot.
+    b_ms, b_by = bound_ms(13 * n1 * w + 4 * f * (n1 + src_rows),
+                          2.0 * nnz * f)
+    log(f"kernel sddmm on gat-dot FL slice (j,k,s)={key} n1={n1} w={w} "
+        f"f={f} live={nnz} ({src_rows} source rows): kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, torch.sparse.sampled_addmm {t_l:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
+    return {"name": "sddmm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sddmm.cu",
+            "replaces": "src/repro/kernels/sddmm.py:46",
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", default=None,
@@ -464,11 +722,14 @@ def main() -> int:
     log(f"build: {len(build.SOURCES)} kernels in {t_build:.2f} s")
 
     gemm_entry = kernel_phase(torch, ops, ref)
-    launches, fl_prog, responses, _, peak = path_phase(torch)
+    launches, fl_prog, responses, peak, engine, co, fl = path_phase(torch)
     spdmm_entry = fl_spdmm_entry(torch, ops, ref, fl_prog)
-    gemm_entry["launches"] = launches["gemm"]
-    spdmm_entry["launches"] = launches["spdmm"]
-    kernels = [gemm_entry, spdmm_entry]
+    rt_launches, gat_prog, rt_resps, rt_peak, rt_wall = runtime_phase(
+        torch, engine, co, fl)
+    sddmm_entry = fl_sddmm_entry(torch, ops, ref, gat_prog)
+    kernels = [gemm_entry, spdmm_entry, sddmm_entry]
+    for e in kernels:
+        e["launches"] = launches.get(e["name"], 0) + rt_launches[e["name"]]
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
@@ -487,6 +748,17 @@ def main() -> int:
                                      "t_loh_s": r.t_loh,
                                      "cache_hit": r.cache_hit}
                                     for r in responses],
+                       "runtime": {
+                           "wall_s": rt_wall,
+                           "max_memory_allocated": rt_peak,
+                           "launches": rt_launches,
+                           "requests": [{"id": r.request_id,
+                                         "t_loc_s": r.t_loc,
+                                         "t_loh_s": r.t_loh,
+                                         "batch_size": r.batch_size,
+                                         "overlay": r.overlay,
+                                         "cache_hit": r.cache_hit}
+                                        for r in rt_resps]},
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,14 +6,16 @@ affine epilogues of the Activation Unit.  It mirrors
 ``repro/core/ack.py`` mode for mode.
 
 Backends:
-  * ``torch`` — plain torch tile ops (gathers, matmul), the counterpart
-                of the JAX package's ``xla`` backend.  CPU tensors only.
-  * ``cuda``  — GEMM and SUM/MEAN SpDMM run the hand-written kernels of
-                :mod:`repro_torch.kernels` (on CPU tensors their wrappers
-                use the plain versions).  MAX/MIN SpDMM, SDDMM and the
-                vector / activation modes stay torch ops, as the JAX
-                ``pallas`` backend leaves them to XLA.  It is the only
-                backend on a CUDA device.
+  * ``torch`` — plain torch tile ops (gathers, matmul; dot-mode SDDMM is
+                the kernel's plain version, ``kernels.ref``), the
+                counterpart of the JAX package's ``xla`` backend.  CPU
+                tensors only.
+  * ``cuda``  — GEMM, SUM/MEAN SpDMM and dot-mode SDDMM run the
+                hand-written kernels of :mod:`repro_torch.kernels` (on CPU
+                tensors their wrappers use the plain versions).  MAX/MIN
+                SpDMM, pair-sum SDDMM (GAT) and the vector / activation
+                modes stay torch ops, as the JAX ``pallas`` backend leaves
+                them to XLA.  It is the only backend on a CUDA device.
 
 ``compile_counter`` counts tile-kernel dispatches per *tile shape* (and
 mode / backend).  The overlay property is that changing the GNN model or
@@ -26,6 +28,8 @@ import threading
 from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.kernels.ref import sddmm_step_ref
 
 from .ir import Activation
 from .reference import apply_activation
@@ -118,17 +122,20 @@ class ACK:
 
     # -- SDDMM ---------------------------------------------------------- #
     def sddmm(self, h_dst, h_src, cols, mask, acc, pair_sum: bool = False):
+        """One edge-scoring tile step, ``acc + where(mask, score, 0)``;
+        ``acc=None`` is a zero accumulator."""
         _count(("sddmm", _shape(h_dst), _shape(cols), pair_sum,
                 self.backend))
+        if self.backend == "cuda" and not pair_sum:
+            return self._kops.sddmm(h_dst, h_src, cols, mask, acc)
         if self.backend == "torch":
             self._torch_only(h_dst)
-        idx = cols.long()
-        if pair_sum:
-            # GAT pair scores: score[r,k] = h_src[cols[r,k], 0] + h_dst[r, 1]
-            part = h_src[:, 0][idx] + h_dst[:, 1][:, None]
-        else:
-            part = torch.einsum("rwf,rf->rw", h_src[idx], h_dst)
-        return acc + torch.where(mask, part, torch.zeros_like(part))
+        if not pair_sum:
+            return sddmm_step_ref(h_dst, h_src, cols, mask, acc)
+        # GAT pair scores: score[r,k] = h_src[cols[r,k], 0] + h_dst[r, 1]
+        part = h_src[:, 0][cols.long()] + h_dst[:, 1][:, None]
+        part = torch.where(mask, part, torch.zeros_like(part))
+        return part if acc is None else acc + part
 
     # -- Vector addition / epilogues ------------------------------------ #
     def vadd(self, a, b, alpha: float, beta: float):

@@ -3,11 +3,19 @@
 For every adjacent {Aggregate, Linear} pair where the aggregation operator is
 linear (Definition 1) and the exchange lowers total complexity (Theorem 2),
 exchange the two layers.  Applied to a fixpoint.
+
+This is the one place where the port's copy departs from
+``repro/core/passes/order_opt.py``: a Linear whose bias has a non-zero
+entry is never exchanged, because Agg(HW + b) is not Agg(H)W + b (SUM adds
+deg * b, MEAN drops b on vertices without in-edges).  The builders' biases
+are zeros, so their binaries stay byte-identical to the JAX compiler's.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Tuple
+
+import numpy as np
 
 from ..ir import LayerType, ModelIR
 
@@ -55,6 +63,10 @@ def _try_pairs(m: ModelIR) -> List[Tuple[int, int]]:
             continue
         # Fused epilogues pin the order (act(agg(x))·W != act(agg(x·W))).
         if "fused_act" in l.attrs:
+            continue
+        # A non-zero bias pins the order: Agg(HW + b) != Agg(H)W + b.
+        bkey = lin.attrs.get("b")
+        if bkey is not None and np.any(np.asarray(m.weights[bkey]) != 0):
             continue
         # Check: exchanging reduces complexity (Theorem 2).
         before = l.complexity() + ml.complexity()

@@ -1,7 +1,8 @@
 """repro_torch.engine — the GraphAGILE engine API on torch.
 
   * :class:`Engine` — one overlay instance on one device; ``compile`` /
-    ``run`` / ``load`` / ``submit`` / ``serve``.
+    ``run`` / ``run_batch`` / ``load`` / ``submit`` / ``submit_batch`` /
+    ``serve``.
   * :class:`CompiledProgram` — 128-bit ISA binary + weights/graph
     manifest; ``save``/``load`` round-trip ``.gagi`` files, the same
     format the JAX package writes.
@@ -10,7 +11,8 @@
 from .cache import LRUCache
 from .decoder import ExecutionPlan, LayerPlan, TilePlan, decode_binary
 from .engine import (Engine, EngineStats, InferenceRequest,
-                     InferenceResponse, graph_signature, model_signature)
+                     InferenceResponse, graph_signature, model_signature,
+                     stack_features)
 from .executor import BinaryExecutor, ExecStats, ResidentBudgetError
 from .program import CompiledProgram, build_manifest, from_program
 
@@ -20,4 +22,5 @@ __all__ = [
     "ResidentBudgetError", "LRUCache",
     "ExecutionPlan", "LayerPlan", "TilePlan", "decode_binary",
     "build_manifest", "from_program", "graph_signature", "model_signature",
+    "stack_features",
 ]

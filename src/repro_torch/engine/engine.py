@@ -14,7 +14,17 @@ new graph changes the instruction binary only, never the kernels.
 ``engine.submit(request)`` / ``engine.serve(requests)`` run a streaming
 loop with an LRU program cache keyed by (model schema hash, graph
 partition signature, geometry): repeated (model, graph) pairs skip
-compilation and report ``T_LoC == 0``.
+compilation and report ``T_LoC == 0``.  ``engine.submit_batch(requests)``
+serves N requests of one cache key with ONE binary pass (``run_batch``);
+batched, multi-overlay serving is :mod:`repro_torch.runtime`.
+
+On a CUDA device each Engine issues its work on a CUDA stream of its own,
+and ``T_LoH`` is read after that stream has finished, so two engines on
+one card (the runtime's overlays, each in its own thread) overlap and do
+not time each other's work.  The engine's stream first waits for what the
+caller's current stream has queued (it may still be writing the features
+or weights), and every output handed back is recorded on the caller's
+stream, so the caller may use and free it there.
 
 The device defaults to ``"cuda"`` and there is no silent CPU fallback:
 without a CUDA device the constructor raises, and CPU execution (what the
@@ -23,11 +33,12 @@ the compiled binary are the same as the JAX package's for the same inputs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import time
 import warnings
-from typing import Any, Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -110,6 +121,26 @@ def model_signature(model: ModelSpec, seed: int = 0) -> str:
 # --------------------------------------------------------------------------- #
 # Streaming request interface.
 # --------------------------------------------------------------------------- #
+def stack_features(features: Sequence[Any]) -> torch.Tensor:
+    """Pad N ``[V, F]`` feature arrays to a common shape and stack them
+    into the ``[N, V, F]`` float32 tensor ``run_batch`` consumes (on the
+    device of the first input when they are tensors, else the CPU).
+
+    Requests that share a cache key come from the same deployed graph,
+    so shapes normally already agree; zero-padding is safe regardless
+    because the executor zero-pads features *and* weight rows to the
+    tile grid — extra zero columns contribute nothing.
+    """
+    ts = [torch.as_tensor(f, dtype=torch.float32) for f in features]
+    v = max(t.shape[0] for t in ts)
+    f = max(t.shape[1] for t in ts)
+    out = torch.zeros((len(ts), v, f), dtype=torch.float32,
+                      device=ts[0].device)
+    for i, t in enumerate(ts):
+        out[i, : t.shape[0], : t.shape[1]] = t
+    return out
+
+
 @dataclasses.dataclass
 class InferenceRequest:
     """One unit of serving traffic: (model, graph, features)."""
@@ -119,7 +150,7 @@ class InferenceRequest:
     features: Any                 # [V, F] array (numpy or tensor)
     request_id: Optional[str] = None
     seed: int = 0                 # builder seed when model is a name
-    graph_data: Optional[dict] = None   # not ported: must stay None
+    graph_data: Optional[dict] = None   # not ported (ROADMAP A11)
 
 
 @dataclasses.dataclass
@@ -132,6 +163,8 @@ class InferenceResponse:
     cache_key: str
     model_name: str
     graph_name: str
+    batch_size: int = 1           # requests coalesced into this binary pass
+    overlay: Optional[int] = None  # pool overlay (set by repro_torch.runtime)
 
 
 @dataclasses.dataclass
@@ -171,6 +204,10 @@ class Engine:
             device=self.device, backend=backend,
             resident_budget_bytes=resident_budget_bytes)
         self.backend = self._executor.ack.backend
+        # This engine's own CUDA stream (None on the CPU, where
+        # torch.cuda.stream(None) is a no-op).
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
         self.cache: LRUCache[CompiledProgram] = LRUCache(cache_capacity)
         self.stats = EngineStats()
 
@@ -247,21 +284,58 @@ class Engine:
             self.cache.put(key, dataclasses.replace(prog, source=None))
         return prog
 
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Issue the enclosed work on this engine's stream, after all the
+        caller's current stream has queued so far.  Yields the caller's
+        stream (None on the CPU)."""
+        if self.stream is None:
+            yield None
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            yield caller
+
+    @staticmethod
+    def _hand_back(y: torch.Tensor, caller) -> torch.Tensor:
+        """Record ``y`` (allocated on the engine's stream) on the caller's
+        stream, so that its memory is not reused for the engine's next
+        pass while work the caller queued on its own stream still reads
+        it."""
+        if caller is not None:
+            y.record_stream(caller)
+        return y
+
     def run(self, prog: CompiledProgram, x,
             weights: Optional[Dict[str, Any]] = None,
             graph_data: Optional[dict] = None,
             residency: Optional[str] = None, mesh=None) -> torch.Tensor:
         """Execute a compiled program by decoding its ISA binary, on this
-        engine's device; returns the [V, f_out] output tensor there."""
-        return self._executor.run(prog, x, weights=weights,
-                                  graph_data=graph_data,
-                                  residency=residency or "device",
-                                  mesh=mesh)
+        engine's device and stream; returns the [V, f_out] output tensor
+        there, computed (the stream has been synchronized)."""
+        with self._on_stream() as caller:
+            y = self._executor.run(prog, x, weights=weights,
+                                   graph_data=graph_data,
+                                   residency=residency or "device",
+                                   mesh=mesh)
+        return self._hand_back(y, caller)
 
-    def run_batch(self, prog: CompiledProgram, xs, **kw):
-        raise NotImplementedError(
-            "batched execution (run_batch / submit_batch) is not ported "
-            "yet (ROADMAP A6)")
+    def run_batch(self, prog: CompiledProgram, xs,
+                  weights: Optional[Dict[str, Any]] = None,
+                  graph_data: Optional[dict] = None,
+                  residency: Optional[str] = None,
+                  mesh=None) -> torch.Tensor:
+        """One binary pass for stacked ``[N, V, F]`` features ->
+        ``[N, V, f_out]``; lane n equals ``run(prog, xs[n])`` bit for bit.
+        ``graph_data`` (ROADMAP A11), ``residency="host"`` (A7) and
+        ``mesh`` (A13) are not ported and raise NotImplementedError."""
+        with self._on_stream() as caller:
+            ys = self._executor.run_batch(prog, xs, weights=weights,
+                                          graph_data=graph_data,
+                                          residency=residency or "device",
+                                          mesh=mesh)
+        return self._hand_back(ys, caller)
 
     def load(self, path: str) -> CompiledProgram:
         """Load a ``.gagi`` bundle (saved by either package)."""
@@ -280,12 +354,14 @@ class Engine:
 
     # ------------------------------------------------------------------ #
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for this engine's stream (not the whole device)."""
+        if self.stream is not None:
+            self.stream.synchronize()
 
     def submit(self, req: InferenceRequest) -> InferenceResponse:
         """Serve one request: cached compile -> binary-driven execution.
-        ``t_loh`` is read after the device has finished the pass."""
+        ``t_loh`` is read after this engine's stream has finished the
+        pass."""
         key = self.cache_key(req.model, req.graph, seed=req.seed)
         hit = key in self.cache
         prog = self.compile(req.model, req.graph, seed=req.seed, _key=key)
@@ -305,12 +381,79 @@ class Engine:
             cache_hit=hit, cache_key=key, model_name=prog.model_name,
             graph_name=req.graph.name)
 
-    def submit_batch(self, reqs) -> List[InferenceResponse]:
-        raise NotImplementedError(
-            "batched execution (run_batch / submit_batch) is not ported "
-            "yet (ROADMAP A6)")
+    def submit_batch(self, reqs: Sequence[InferenceRequest]
+                     ) -> List[InferenceResponse]:
+        """Serve N coalesced requests with ONE binary pass.
+
+        All requests must share this engine's cache key — same model
+        schema + weights, same deployed graph, same compile options —
+        which is exactly the grouping ``repro_torch.runtime.Batcher``
+        produces.  Features are padded/stacked to ``[N, V, F]`` and
+        executed by a single traversal of the instruction stream
+        (``run_batch``).
+
+        Latency accounting reflects what each request *experienced*:
+        every response reports the batch's compile latency (they all
+        waited for the one compile on a miss) and the batch's execution
+        wall time.  (Live-graph admission comes with ROADMAP A12, as in
+        :meth:`submit`.)
+        """
+        if not reqs:
+            return []
+        return self._submit_batch_resolved(reqs)
+
+    def _submit_batch_resolved(self, reqs: Sequence[InferenceRequest]
+                               ) -> List[InferenceResponse]:
+        key = self.cache_key(reqs[0].model, reqs[0].graph,
+                             seed=reqs[0].seed)
+        for r in reqs[1:]:
+            k = self.cache_key(r.model, r.graph, seed=r.seed)
+            if k != key:
+                raise ValueError(
+                    "submit_batch requires one cache key per batch: "
+                    f"request {r.request_id!r} has key {k[:12]}… but the "
+                    f"batch was opened with {key[:12]}…")
+        with_gd = sum(r.graph_data is not None for r in reqs)
+        if 0 < with_gd < len(reqs):
+            raise ValueError(
+                "submit_batch cannot mix graph-as-data requests with "
+                "baked-topology requests in one batch")
+        hit = key in self.cache
+        prog = self.compile(reqs[0].model, reqs[0].graph,
+                            seed=reqs[0].seed, _key=key)
+        if not hit:
+            # Execute the long-lived cached copy, whose pgraph carries the
+            # staged tiles repeat batches will reuse.
+            prog = self.cache.get(key) or prog
+        # No lane padding to a power of two: the JAX engine pads only so
+        # that ragged batch sizes reuse its traced executables, and this
+        # port has no traced executables yet (ROADMAP A6).
+        n = len(reqs)
+        gd = [r.graph_data for r in reqs] if with_gd else None
+        with self._on_stream() as caller:
+            # Stacked on the stream that reads the stack.
+            xs = stack_features([r.features for r in reqs])
+            t0 = time.perf_counter()
+            ys = self._executor.run_batch(prog, xs, graph_data=gd)
+            self._sync()
+            t_loh = time.perf_counter() - t0
+        ys = self._hand_back(ys, caller)
+        t_loc = 0.0 if hit else prog.t_loc
+
+        base = self.stats.requests
+        self.stats.requests += n
+        self.stats.cache_hits += n * int(hit)
+        self.stats.cache_misses += n * int(not hit)
+        self.stats.total_t_loh += t_loh
+        return [InferenceResponse(
+            request_id=r.request_id or f"req{base + i}", output=ys[i],
+            t_loc=t_loc, t_loh=t_loh, cache_hit=hit, cache_key=key,
+            model_name=prog.model_name, graph_name=r.graph.name,
+            batch_size=n) for i, r in enumerate(reqs)]
 
     def serve(self, requests: Iterable[InferenceRequest]
               ) -> List[InferenceResponse]:
-        """Drain a request stream through :meth:`submit`."""
+        """Drain a request stream through :meth:`submit`.  For batched,
+        multi-overlay serving use :class:`repro_torch.runtime.OverlayPool`
+        / ``ServeLoop`` instead."""
         return [self.submit(r) for r in requests]

@@ -9,24 +9,44 @@ compiled in-process.
 This port covers the **device-resident** path: every padded layer output
 lives on the executor's device and tiles are issued in PE-interleaved
 order straight off the resident tensors.  On a CUDA device the ACK runs
-the hand-written GEMM and SpDMM kernels; on the CPU it runs plain torch.
-Host streaming (``residency="host"``), multi-device meshes, graph-as-data
-and batched runs are not ported yet and raise ``NotImplementedError``.
+the hand-written GEMM, SpDMM and SDDMM kernels; on the CPU it runs plain
+torch.  Host streaming (``residency="host"``, ROADMAP A7), multi-device
+meshes (A13) and graph-as-data (A11) are not ported yet and raise
+``NotImplementedError``.
+
+Batches: :meth:`BinaryExecutor.run_batch` executes N feature sets over one
+program in ONE traversal of the decoded binary.  Layer outputs carry a
+leading lane axis (``[N, vp, w]``; edge vectors ``[N, E]``) and every tile
+op is issued once per lane on that lane's views, so a lane computes
+exactly what a single run computes (bit for bit) while the decode, the
+plan walk and the per-tile index work are shared.  ``run`` is
+``run_batch`` of one lane.  Per-run ``stats`` count one traversal (its
+tile ops), kernel launches are lanes x tile ops.
 
 Device-resident data:
 
 * The baked ELL tiles are uploaded ONCE per partitioned graph and device
   (:class:`_Staged`, cached on ``prog.pgraph``, the object the engine's
   cached program and the handles it returns share): ``cols`` and ``vals``
-  for every aggregation, ``mask`` / ``epos`` only for the layers that read
-  them (MAX/MIN, dynamic edge weights, edge-valued layers).  The padded
-  weights and the inverse in-degree are uploaded once as well.
+  for every aggregation, ``mask`` and the live slots (``live_pos`` /
+  ``live_epos``: each tile's flat positions of real edges and their edge
+  ids) only for the layers that read them (MAX/MIN, dynamic edge weights,
+  edge-valued layers).  The padded weights and the inverse in-degree are
+  uploaded once as well.
+* Edge vectors move between tiles and the [E] edge order through the
+  live slots only: scattering a tile's scores, gathering a tile's edge
+  weights and the edge softmax touch the real edges, not the pad slots
+  (over 99% of the slots on a power-law graph), with the same result.
 * Tiles are strided views of the padded layer tensors; the kernels take
   row strides, so no tile is copied on its way in.
+* Every launch goes to the caller's current CUDA stream, and a run ends
+  by synchronizing that stream only, so two engines on one card (each on
+  its own stream) do not wait for each other.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -219,6 +239,9 @@ class _Staged:
         self.uploaded = 0               # bytes copied to the device so far
         self._tiles: Dict[str, Dict[Tuple[int, int, int], torch.Tensor]] = {}
         self._params: Dict[Tuple, Tuple[Any, torch.Tensor]] = {}
+        # Overlays run in their own threads; two that share a program
+        # must not upload (or replace) the same entry twice.
+        self._lock = threading.RLock()
         self.inv_deg = self._put(np.asarray(pg.inv_in_degree, np.float32))
 
     def _put(self, a) -> torch.Tensor:
@@ -230,36 +253,45 @@ class _Staged:
         return t
 
     def tiles(self, kind: str) -> Dict[Tuple[int, int, int], torch.Tensor]:
-        """``kind`` in cols (int32) / vals (f32) / mask (bool) / epos
-        (int32, -1 on pad slots), keyed (j, k, slice)."""
-        got = self._tiles.get(kind)
-        if got is None:
-            got = {}
-            n1 = self.pg.config.n1
-            for (j, k), ts in self.pg.tiles.items():
-                for s, t in enumerate(ts):
-                    arr = _tile_array(t, kind)
-                    # The SpDMM kernel gathers h rows at these indices
-                    # unchecked; a malformed bundle must not reach it.
-                    if kind == "cols" and arr.size and (
-                            arr.min() < 0 or arr.max() >= n1):
-                        raise ValueError(
-                            f"ELL tile ({j}, {k}, {s}) has column indices "
-                            f"outside [0, {n1})")
-                    got[(j, k, s)] = self._put(arr)
-            self._tiles[kind] = got
+        """``kind`` in cols (int32) / vals (f32) / mask (bool) /
+        live_pos (int64 flat positions of the edge slots) / live_epos
+        (int64 edge ids of those slots), keyed (j, k, slice)."""
+        got = self._tiles.get(kind)     # uploaded: no lock on the hot path
+        if got is not None:
+            return got
+        with self._lock:
+            got = self._tiles.get(kind)
+            if got is None:
+                got = self._tiles[kind] = self._upload(kind)
+            return got
+
+    def _upload(self, kind: str) -> Dict[Tuple[int, int, int], torch.Tensor]:
+        got = {}
+        n1 = self.pg.config.n1
+        for (j, k), ts in self.pg.tiles.items():
+            for s, t in enumerate(ts):
+                arr = _tile_array(t, kind)
+                # The SpDMM and SDDMM kernels gather h rows at these
+                # indices unchecked; a malformed bundle must not reach them.
+                if kind == "cols" and arr.size and (
+                        arr.min() < 0 or arr.max() >= n1):
+                    raise ValueError(
+                        f"ELL tile ({j}, {k}, {s}) has column indices "
+                        f"outside [0, {n1})")
+                got[(j, k, s)] = self._put(arr)
         return got
 
     def param(self, key: Tuple, srcs: Tuple, build) -> torch.Tensor:
         """Device tensor ``build()`` memoized under ``key`` for as long as
         the source arrays ``srcs`` are the same objects."""
-        hit = self._params.get(key)
-        if hit is not None and len(hit[0]) == len(srcs) and all(
-                a is b for a, b in zip(hit[0], srcs)):
-            return hit[1]
-        t = self._put(build())
-        self._params[key] = (srcs, t)
-        return t
+        with self._lock:
+            hit = self._params.get(key)
+            if hit is not None and len(hit[0]) == len(srcs) and all(
+                    a is b for a, b in zip(hit[0], srcs)):
+                return hit[1]
+            t = self._put(build())
+            self._params[key] = (srcs, t)
+            return t
 
 
 def _tile_array(t, kind: str) -> np.ndarray:
@@ -269,17 +301,24 @@ def _tile_array(t, kind: str) -> np.ndarray:
         return t.vals
     if kind == "mask":
         return t.edge_pos >= 0
-    if kind == "epos":
-        return t.edge_pos
+    if kind == "live_pos":
+        return np.flatnonzero(t.edge_pos >= 0).astype(np.int64)
+    if kind == "live_epos":
+        ep = t.edge_pos.reshape(-1)
+        return ep[ep >= 0].astype(np.int64)
     raise ValueError(kind)
 
 
+_staged_lock = threading.Lock()
+
+
 def _staged(pg, device: torch.device) -> _Staged:
-    cache = pg.__dict__.setdefault("_staged", {})
-    st = cache.get(str(device))
-    if st is None:
-        st = cache[str(device)] = _Staged(pg, device)
-    return st
+    with _staged_lock:
+        cache = pg.__dict__.setdefault("_staged", {})
+        st = cache.get(str(device))
+        if st is None:
+            st = cache[str(device)] = _Staged(pg, device)
+        return st
 
 
 def _padded(a, rows: int, cols: Optional[int] = None) -> np.ndarray:
@@ -299,39 +338,75 @@ def _padded(a, rows: int, cols: Optional[int] = None) -> np.ndarray:
 # Operand environment — where a tile's operands come from (device path).
 # --------------------------------------------------------------------------- #
 class _DeviceEnv:
-    """Whole padded tensors live on the device; tiles are views of them
-    and of the staged ELL tiles."""
+    """Whole lane-stacked padded tensors ([N, vp, w]; edge vectors [N, E])
+    live on the device; a tile is a view of one lane's tensor or of a
+    staged ELL tile."""
 
-    def __init__(self, pg, st: _Staged, h=None, a=None, b=None,
+    def __init__(self, pg, st: _Staged, lanes: int, h=None, a=None, b=None,
                  ew=None) -> None:
-        self.pg, self.st = pg, st
+        self.pg, self.st, self.lanes = pg, st, lanes
         self.n1, self.n2 = pg.config.n1, pg.config.n2
-        self.h, self.a, self.b, self.ew = h, a, b, ew
+        # Per-lane [vp, w] views, taken once: slicing a 2-D view per tile
+        # costs the host less than indexing the 3-D tensor each time.
+        self.h, self.a, self.b = (None if t is None else list(t.unbind(0))
+                                  for t in (h, a, b))
+        self.ew = ew
+        # Tile views of h, made once per layer: an aggregate step reads
+        # the same few source tiles hundreds of times, and a view costs
+        # the host more than a dict lookup.
+        self._h_tiles: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
-    def h_tile(self, k: int, i: int) -> torch.Tensor:
-        n1, n2 = self.n1, self.n2
-        return self.h[k * n1:(k + 1) * n1, i * n2:(i + 1) * n2]
+    def h_tile(self, n: int, k: int, i: int) -> torch.Tensor:
+        t = self._h_tiles.get((n, k, i))
+        if t is None:
+            n1, n2 = self.n1, self.n2
+            t = self._h_tiles[(n, k, i)] = \
+                self.h[n][k * n1:(k + 1) * n1, i * n2:(i + 1) * n2]
+        return t
 
-    def operand_tile(self, which: str, j: int, i: int) -> torch.Tensor:
+    def operand_tile(self, which: str, n: int, j: int,
+                     i: int) -> torch.Tensor:
         arr = self.a if which == "a" else self.b
         n1, n2 = self.n1, self.n2
-        return arr[j * n1:(j + 1) * n1, i * n2:(i + 1) * n2]
+        return arr[n][j * n1:(j + 1) * n1, i * n2:(i + 1) * n2]
 
     def tile(self, kind: str, j: int, k: int, s: int) -> torch.Tensor:
         return self.st.tiles(kind)[(j, k, s)]
 
-    def edge_weight_tile(self, j: int, k: int, s: int) -> torch.Tensor:
-        mask = self.tile("mask", j, k, s)
-        epos = self.tile("epos", j, k, s)
-        w = self.ew[torch.clamp(epos, min=0).long()]
-        return torch.where(mask, w, torch.zeros_like(w))
+    def live(self, j: int, k: int, s: int):
+        """(flat slot positions, edge ids) of a tile's real edges."""
+        return (self.tile("live_pos", j, k, s),
+                self.tile("live_epos", j, k, s))
+
+    def edge_weight_tiles(self, j: int, k: int, s: int) -> List[torch.Tensor]:
+        """Every lane's [n1, w] edge-weight tile (0 on pad slots)."""
+        shape = self.tile("cols", j, k, s).shape
+        return [_from_live(self.ew[n], *self.live(j, k, s), shape)
+                for n in range(self.lanes)]
 
     def inv_deg_tile(self, j: int) -> torch.Tensor:
         return self.st.inv_deg[j * self.n1:(j + 1) * self.n1]
 
 
+def _from_live(ew: torch.Tensor, pos: torch.Tensor, epos: torch.Tensor,
+               shape) -> torch.Tensor:
+    """A [n1, w] tile holding ``ew[epos]`` at its live slots ``pos`` and
+    0 on the pad slots."""
+    out = torch.zeros(shape[0] * shape[1], dtype=torch.float32,
+                      device=ew.device)
+    out[pos] = ew[epos]
+    return out.view(shape)
+
+
+def _ends_in_edge_softmax(epilogue) -> bool:
+    return bool(epilogue) and epilogue[-1][0] == "act" and \
+        Activation(epilogue[-1][1]) == Activation.EDGE_SOFTMAX
+
+
 # --------------------------------------------------------------------------- #
-# Shard kernels — one tile computation per layer family.
+# Shard kernels — one tile computation per layer family.  ``tile`` returns
+# the tile of every lane; each compute instruction is one tile op, issued
+# once per lane and counted once.
 # --------------------------------------------------------------------------- #
 class _ShardKernel:
     edge_valued = False
@@ -348,7 +423,21 @@ class _ShardKernel:
     def out_width(self, io: dict) -> int:
         return self._fp(self.lp.f_in)
 
-    def tile(self, tp: TilePlan, env: _DeviceEnv) -> torch.Tensor:
+    def _op(self, mode: str) -> None:
+        self.ex.stats.tile_ops += 1
+        self.ex.stats.note_mode(mode)
+
+    def _zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.float32,
+                           device=self.st.device)
+
+    def _finish(self, tp: TilePlan, tiles: List[torch.Tensor],
+                lo: int, hi: int, epilogue=None) -> List[torch.Tensor]:
+        epi = tp.epilogue if epilogue is None else epilogue
+        return [self.ex._epilogue(epi, self.meta, v, self.weights, self.st,
+                                  lo, hi) for v in tiles]
+
+    def tile(self, tp: TilePlan, env: _DeviceEnv) -> List[torch.Tensor]:
         raise NotImplementedError
 
 
@@ -364,12 +453,16 @@ class _AggregateKernel(_ShardKernel):
 
     def tile(self, tp, env):
         j, i, n1, n2 = tp.out_j, tp.out_i, self.n1, self.n2
+        lanes = range(env.lanes)
         dev = self.st.device
-        acc = flag = None                # None: a zero SUM/MEAN accumulator
+        accs = [None] * env.lanes       # None: a zero SUM/MEAN accumulator
+        flags = [None] * env.lanes
         if self.extreme:
-            acc = torch.full((n1, n2), -_BIG if self.op == "max" else _BIG,
-                             dtype=torch.float32, device=dev)
-            flag = torch.zeros((n1,), dtype=torch.bool, device=dev)
+            accs = [torch.full((n1, n2), -_BIG if self.op == "max" else _BIG,
+                               dtype=torch.float32, device=dev)
+                    for _ in lanes]
+            flags = [torch.zeros((n1,), dtype=torch.bool, device=dev)
+                     for _ in lanes]
         for ins in tp.compute:           # SPDMM steps, stream order
             if ins.op == Opcode.GEMM:
                 raise NotImplementedError(
@@ -379,21 +472,24 @@ class _AggregateKernel(_ShardKernel):
             k, ii = ins.args[1], ins.args[2]
             s, dyn = ins.args[3] >> 1, ins.args[3] & 1
             cols = env.tile("cols", j, k, s)
-            v = (env.edge_weight_tile(j, k, s) if dyn
-                 else env.tile("vals", j, k, s))
+            vals = (env.edge_weight_tiles(j, k, s) if dyn
+                    else [env.tile("vals", j, k, s)] * env.lanes)
             mask = env.tile("mask", j, k, s) if self.extreme else None
-            acc, flag = self.ex.ack.spdmm(env.h_tile(k, ii), cols, v, mask,
-                                          acc, flag, self.op)
-            self.ex.stats.note_mode("spdmm")
-            self.ex.stats.tile_ops += 1
-        if acc is None:
-            acc = torch.zeros((n1, n2), dtype=torch.float32, device=dev)
-        if self.extreme:
-            acc = torch.where(flag[:, None], acc, torch.zeros_like(acc))
-        elif self.op == "mean":
-            acc = acc * env.inv_deg_tile(j)[:, None]
-        return self.ex._epilogue(tp, self.meta, acc, self.weights, self.st,
-                                 i * n2, (i + 1) * n2)
+            for n in lanes:
+                accs[n], flags[n] = self.ex.ack.spdmm(
+                    env.h_tile(n, k, ii), cols, vals[n], mask, accs[n],
+                    flags[n], self.op)
+            self._op("spdmm")
+        outs = []
+        for acc, flag in zip(accs, flags):
+            if acc is None:
+                acc = self._zeros((n1, n2))
+            if self.extreme:
+                acc = torch.where(flag[:, None], acc, torch.zeros_like(acc))
+            elif self.op == "mean":
+                acc = acc * env.inv_deg_tile(j)[:, None]
+            outs.append(acc)
+        return self._finish(tp, outs, i * n2, (i + 1) * n2)
 
 
 class _LinearKernel(_ShardKernel):
@@ -417,20 +513,22 @@ class _LinearKernel(_ShardKernel):
 
     def tile(self, tp, env):
         i, j, n1, n2 = tp.out_i, tp.out_j, self.n1, self.n2
-        acc = None                       # a zero accumulator
+        accs = [None] * env.lanes        # None: a zero accumulator
         for ins in tp.compute:           # GEMM steps: args=(j, k, i)
             k = ins.args[1]
             w_tile = self.W[k * n2:(k + 1) * n2, i * n2:(i + 1) * n2]
-            acc = self.ex.ack.gemm(env.h_tile(j, k), w_tile, acc)
-            self.ex.stats.tile_ops += 1
-            self.ex.stats.note_mode("gemm")
-        if acc is None:
-            acc = torch.zeros((n1, n2), dtype=torch.float32,
-                              device=self.st.device)
-        if self.b is not None:
-            acc = acc + self.b[i * n2:(i + 1) * n2]
-        return self.ex._epilogue(tp, self.meta, acc, self.weights, self.st,
-                                 i * n2, (i + 1) * n2)
+            for n in range(env.lanes):
+                accs[n] = self.ex.ack.gemm(env.h_tile(n, j, k), w_tile,
+                                           accs[n])
+            self._op("gemm")
+        outs = []
+        for acc in accs:
+            if acc is None:
+                acc = self._zeros((n1, n2))
+            if self.b is not None:
+                acc = acc + self.b[i * n2:(i + 1) * n2]
+            outs.append(acc)
+        return self._finish(tp, outs, i * n2, (i + 1) * n2)
 
 
 class _VAddKernel(_ShardKernel):
@@ -441,17 +539,16 @@ class _VAddKernel(_ShardKernel):
         self.alpha, self.beta = meta["alpha"], meta["beta"]
 
     def out_width(self, io):
-        return max(io["a"].shape[1], io["b"].shape[1])
+        return max(io["a"].shape[2], io["b"].shape[2])
 
     def tile(self, tp, env):
         i, j, n2 = tp.out_i, tp.out_j, self.n2
-        v = self.ex.ack.vadd(env.operand_tile("a", j, i),
-                             env.operand_tile("b", j, i),
-                             self.alpha, self.beta)
-        self.ex.stats.tile_ops += 1
-        self.ex.stats.note_mode("vadd")
-        return self.ex._epilogue(tp, self.meta, v, self.weights, self.st,
-                                 i * n2, (i + 1) * n2)
+        outs = [self.ex.ack.vadd(env.operand_tile("a", n, j, i),
+                                 env.operand_tile("b", n, j, i),
+                                 self.alpha, self.beta)
+                for n in range(env.lanes)]
+        self._op("vadd")
+        return self._finish(tp, outs, i * n2, (i + 1) * n2)
 
 
 class _VertexActKernel(_ShardKernel):
@@ -481,42 +578,52 @@ class _VertexActKernel(_ShardKernel):
 
     def tile(self, tp, env):
         i, j, n2 = tp.out_i, tp.out_j, self.n2
-        v = env.h_tile(j, i)
         op = tp.compute[0]               # the ACT / AFFINE instr
-        if self.bn:
-            v = self.ex.ack.affine(v, self.sc[i * n2:(i + 1) * n2],
-                                   self.sh[i * n2:(i + 1) * n2])
-        else:
-            v = self.ex.ack.act(v, Activation(op.act))
-        self.ex.stats.tile_ops += 1
-        self.ex.stats.note_mode("act")
-        return v
+        outs = []
+        for n in range(env.lanes):
+            v = env.h_tile(n, j, i)
+            if self.bn:
+                v = self.ex.ack.affine(v, self.sc[i * n2:(i + 1) * n2],
+                                       self.sh[i * n2:(i + 1) * n2])
+            else:
+                v = self.ex.ack.act(v, Activation(op.act))
+            outs.append(v)
+        self._op("act")
+        return outs
 
 
 class _EdgeScoreKernel(_ShardKernel):
     """SDDMM-mode edge scoring (paper Alg. 7): per-edge inner products
-    (or pair-sums) between destination and source sub-fibers."""
+    (or pair-sums) between destination and source sub-fibers.
+
+    A trailing EDGE_SOFTMAX in the fused epilogue normalizes over all of a
+    destination's tiles, so it cannot run per tile: the rest of the
+    epilogue runs here and the executor applies the softmax to the
+    scattered edge vector (``softmax``)."""
 
     edge_valued = True
 
     def __init__(self, ex, lp, meta, pg, weights, st):
         super().__init__(ex, lp, meta, pg, weights, st)
         self.pair = lp.mode == 1     # CSI mode bit — the binary decides
+        self.softmax = bool(lp.tiles) and _ends_in_edge_softmax(
+            lp.tiles[0].epilogue)
 
     def tile(self, tp, env):
         j, k, s = tp.out_j, tp.tile_k, tp.slice_id
         cols = env.tile("cols", j, k, s)
         mask = env.tile("mask", j, k, s)
-        acc = torch.zeros(cols.shape, dtype=torch.float32,
-                          device=self.st.device)
+        accs = [None] * env.lanes        # None: a zero accumulator
         for ins in tp.compute:           # SDDMM steps: args=(j, k, i, s)
             i = ins.args[2]
-            acc = self.ex.ack.sddmm(env.h_tile(j, i), env.h_tile(k, i),
-                                    cols, mask, acc, pair_sum=self.pair)
-            self.ex.stats.tile_ops += 1
-            self.ex.stats.note_mode("sddmm")
-        return self.ex._epilogue(tp, self.meta, acc, self.weights, self.st,
-                                 0, self.n2)
+            for n in range(env.lanes):
+                accs[n] = self.ex.ack.sddmm(env.h_tile(n, j, i),
+                                            env.h_tile(n, k, i), cols, mask,
+                                            accs[n], pair_sum=self.pair)
+            self._op("sddmm")
+        outs = [self._zeros(cols.shape) if a is None else a for a in accs]
+        epi = tp.epilogue[:-1] if self.softmax else tp.epilogue
+        return self._finish(tp, outs, 0, self.n2, epi)
 
 
 class _LayerClock:
@@ -551,9 +658,9 @@ class BinaryExecutor:
     """Executes a CompiledProgram by interpreting its decoded binary on
     one torch device.
 
-    ``stats`` holds the counters of the most recent :meth:`run` only
-    (reset at entry); ``total`` accumulates across the executor's
-    lifetime.
+    ``stats`` holds the counters of the most recent :meth:`run` /
+    :meth:`run_batch` pass only (reset at entry); ``total`` accumulates
+    across the executor's lifetime.
     """
 
     def __init__(self, device="cuda", backend: Optional[str] = None,
@@ -623,37 +730,42 @@ class BinaryExecutor:
         return static, x_bytes, live
 
     def estimate_device_peak_bytes(self, prog: CompiledProgram,
-                                   x_cols: Optional[int] = None) -> int:
+                                   x_cols: Optional[int] = None,
+                                   batch: int = 1) -> int:
         """Liveness-aware peak device bytes of a device-resident run:
         graph tiles + weights + the input feature matrix + the maximum
-        over layer steps of the concurrently-live padded outputs."""
+        over layer steps of the concurrently-live padded outputs.
+        ``batch`` scales the per-lane parts (features + live outputs) for
+        a ``run_batch`` pass; tiles and weights are shared by the lanes."""
         static, x_bytes, live = self._live_profile(prog, x_cols)
-        return static + x_bytes + max(live) if live else static
+        return static + batch * (x_bytes + max(live)) if live else static
 
     def _gate_device_budget(self, prog: CompiledProgram,
-                            x_cols: Optional[int]) -> None:
+                            x_cols: Optional[int], batch: int = 1) -> None:
         """Refuse a run whose liveness-aware peak exceeds
-        ``resident_budget_bytes``, naming the first layer step whose
-        live set pushes past it."""
+        ``resident_budget_bytes``, naming the first layer step whose live
+        set pushes past it."""
         if self.resident_budget_bytes is None:
             return
         budget = self.resident_budget_bytes
         static, x_bytes, live = self._live_profile(prog, x_cols)
-        est = (static + x_bytes + max(live)) if live else static
+        est = (static + batch * (x_bytes + max(live))) if live else static
         if est <= budget:
             return
         detail = ""
         over = [t for t, lv in enumerate(live)
-                if static + x_bytes + lv > budget]
+                if static + batch * (x_bytes + lv) > budget]
         if over:
             lp = prog.plan().layers[over[0]]
             detail = (f"; first exceeded at layer {lp.layer_id} "
                       f"({LayerType(lp.layer_type).name}, step "
                       f"{over[0] + 1}/{len(live)})")
+        batch_note = f" for a batch of {batch}" if batch > 1 else ""
         raise ResidentBudgetError(
             f"device-resident execution needs ~{est} bytes "
-            f"(liveness-aware peak) but resident_budget_bytes={budget} "
-            f"({est - budget} bytes over){detail}")
+            f"(liveness-aware peak{batch_note}) but "
+            f"resident_budget_bytes={budget} ({est - budget} bytes over)"
+            f"{detail}" + ("; shrink the batch" if batch > 1 else ""))
 
     # ------------------------------------------------------------------ #
     def _watermark(self, event: str, layer_id: int, vals: Dict,
@@ -685,9 +797,28 @@ class BinaryExecutor:
             graph_data: Optional[dict] = None,
             residency: str = "device", mesh=None) -> torch.Tensor:
         """Execute ``prog`` on features ``x`` ([V, F], numpy or tensor);
-        returns the sink layer's [V, f_out] output on the device.  On a
-        CUDA device the run ends with one synchronize (which is when the
-        per-layer CUDA-event times are read)."""
+        returns the sink layer's [V, f_out] output on the device.  It is
+        :meth:`run_batch` of one lane."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        if x.dim() != 2:
+            raise ValueError(f"run expects [V, F] features, got shape "
+                             f"{tuple(x.shape)}")
+        return self.run_batch(prog, x[None], weights=weights,
+                              graph_data=graph_data, residency=residency,
+                              mesh=mesh)[0]
+
+    def run_batch(self, prog: CompiledProgram, xs,
+                  weights: Optional[Dict[str, Any]] = None,
+                  graph_data: Optional[dict] = None,
+                  residency: str = "device", mesh=None) -> torch.Tensor:
+        """Execute ONE binary pass for stacked ``[N, V, F]`` features;
+        returns the sink's ``[N, V, f_out]`` output on the device.
+
+        The binary is decoded and traversed once; each tile op is issued
+        once per lane on that lane's views, so lane n is bit-identical to
+        ``run(prog, xs[n])``.  Per-run ``stats`` count the one traversal.
+        On a CUDA device the pass ends by synchronizing the current stream
+        (which is when the per-layer CUDA-event times are read)."""
         if residency not in ("device", "host"):
             raise ValueError("residency must be 'device' or 'host', "
                              f"got {residency!r}")
@@ -700,9 +831,16 @@ class BinaryExecutor:
                 "(ROADMAP A13)")
         if graph_data is not None:
             raise NotImplementedError(
-                "graph-as-data execution is not ported yet (ROADMAP A6)")
-        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        self._gate_device_budget(prog, int(x.shape[1]))
+                "graph-as-data execution is not ported yet; it comes with "
+                "the sampling layer (ROADMAP A11)")
+        xs = torch.as_tensor(xs, dtype=torch.float32)
+        if xs.dim() != 3:
+            raise ValueError(
+                "run_batch expects stacked [N, V, F] features, got shape "
+                f"{tuple(xs.shape)}")
+        lanes = int(xs.shape[0])
+        self._gate_device_budget(prog, int(xs.shape[2]), batch=lanes)
+        xs = xs.to(self.device)
         self.stats = ExecStats(runs=1)
         tracer = get_tracer()
         with tracer.span("decode", cat="exec", track="exec:device",
@@ -722,12 +860,12 @@ class BinaryExecutor:
         clock = _LayerClock(self.device)
 
         fin_pad0 = ((max(plan.layers[0].f_in, 1) + n2 - 1) // n2) * n2
-        xw = max(fin_pad0, ((x.shape[1] + n2 - 1) // n2) * n2)
-        x_pad = torch.zeros((vp, xw), dtype=torch.float32,
+        xw = max(fin_pad0, ((xs.shape[2] + n2 - 1) // n2) * n2)
+        x_pad = torch.zeros((lanes, vp, xw), dtype=torch.float32,
                             device=self.device)
-        x_pad[: x.shape[0], : x.shape[1]] = x
-        vals: Dict[int, torch.Tensor] = {}       # layer -> padded output
-        edge_vals: Dict[int, torch.Tensor] = {}  # layer -> (E,) edge scores
+        x_pad[:, : xs.shape[1], : xs.shape[2]] = xs
+        vals: Dict[int, torch.Tensor] = {}       # layer -> [N, vp, w]
+        edge_vals: Dict[int, torch.Tensor] = {}  # layer -> [N, E] scores
 
         sink = man["sink"]
         for t, lp in enumerate(plan.layers):
@@ -744,7 +882,7 @@ class BinaryExecutor:
                 f"layer{lp.layer_id}", cat="exec", track="exec:device",
                 args={"type": LayerType(lt).name,
                       "kernel": _KERNEL_MODES[lt], "step": t,
-                      "tiles": len(lp.tiles),
+                      "tiles": len(lp.tiles), "lanes": lanes,
                       "instr_lo": lp.instr_lo, "instr_hi": lp.instr_hi})
 
             if lt in (LayerType.ACTIVATION, LayerType.BATCHNORM) \
@@ -760,21 +898,23 @@ class BinaryExecutor:
                     io["a"] = x_pad if a_id == -1 else vals[a_id]
                     io["b"] = x_pad if b_id == -1 else vals[b_id]
                 kern = self._make_kernel(lp, meta, pg, weights, st)
-                env = _DeviceEnv(pg, st, h=io["h"], a=io.get("a"),
+                env = _DeviceEnv(pg, st, lanes, h=io["h"], a=io.get("a"),
                                  b=io.get("b"), ew=io["ew"])
                 if kern.edge_valued:
                     edge_vals[lp.layer_id] = self._scatter_edges(
-                        kern, lp, pg, env)
+                        kern, lp, pg, st, env)
                 else:
                     # Preallocated padded output; every tile is written
                     # into its slice in place (no concatenation).
-                    out = torch.empty((vp, kern.out_width(io)),
+                    out = torch.empty((lanes, vp, kern.out_width(io)),
                                       dtype=torch.float32,
                                       device=self.device)
+                    out_lanes = out.unbind(0)
                     for tp in self._block_order(lp):
-                        v = kern.tile(tp, env)
-                        out[tp.out_j * n1:(tp.out_j + 1) * n1,
-                            tp.out_i * n2:(tp.out_i + 1) * n2] = v
+                        rows = slice(tp.out_j * n1, (tp.out_j + 1) * n1)
+                        cols = slice(tp.out_i * n2, (tp.out_i + 1) * n2)
+                        for o, v in zip(out_lanes, kern.tile(tp, env)):
+                            o[rows, cols] = v
                     vals[lp.layer_id] = out
             lspan.add(tile_ops=self.stats.tile_ops - ops0).done()
             self.stats.note_layer(
@@ -788,37 +928,35 @@ class BinaryExecutor:
             self._free_dead(t, sink, last_use, vals, edge_vals)
 
         if clock.cuda:
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         for rec in self.stats.per_layer or []:
             rec["wall_s"] = _LayerClock.seconds(rec["wall_s"])
         self.stats.h2d_bytes = st.uploaded - up0
         self.total.add(self.stats)
-        return vals[sink][:nv, :man["sink_f_out"]]
+        return vals[sink][:, :nv, :man["sink_f_out"]]
 
     # ------------------------------------------------------------------ #
-    def _scatter_edges(self, kern, lp, pg, env) -> torch.Tensor:
-        """Run an edge-valued layer's tiles and scatter each tile's
-        [n1, w] scores to their global edge ids.  Pad slots all go to the
-        dummy index ``n_edges``, which is sliced off, so the duplicate
-        indices of ``index_put_`` land only there."""
-        ew = torch.zeros((pg.n_edges + 1,), dtype=torch.float32,
+    def _scatter_edges(self, kern, lp, pg, st: _Staged,
+                       env: _DeviceEnv) -> torch.Tensor:
+        """Run an edge-valued layer's tiles and scatter each lane's
+        [n1, w] scores of the live slots to their global edge ids (each
+        edge lies in exactly one slot).  A fused edge softmax then
+        normalizes the scattered scores (see _EdgeScoreKernel)."""
+        ew = torch.zeros((env.lanes, pg.n_edges), dtype=torch.float32,
                          device=self.device)
         for tp in self._block_order(lp):
-            acc = kern.tile(tp, env)
-            idx = self._edge_index(env, tp.out_j, tp.tile_k, tp.slice_id)
-            ew.index_put_((idx,), acc.reshape(-1))
-        return ew[: pg.n_edges]
+            outs = kern.tile(tp, env)
+            pos, epos = env.live(tp.out_j, tp.tile_k, tp.slice_id)
+            for n, acc in enumerate(outs):
+                ew[n][epos] = acc.reshape(-1)[pos]
+        if kern.softmax:
+            ew = self._edge_softmax(pg, st, ew)
+        return ew
 
-    @staticmethod
-    def _edge_index(env, j: int, k: int, s: int) -> torch.Tensor:
-        mask = env.tile("mask", j, k, s)
-        epos = env.tile("epos", j, k, s)
-        return torch.where(mask, epos, env.pg.n_edges).reshape(-1).long()
-
-    def _epilogue(self, tp: TilePlan, meta: dict, tile: torch.Tensor,
+    def _epilogue(self, epilogue, meta: dict, tile: torch.Tensor,
                   weights, st: _Staged, lo: int, hi: int) -> torch.Tensor:
         """Fused scale/shift + activation, in decoded instruction order."""
-        for kind, act_id in tp.epilogue:
+        for kind, act_id in epilogue:
             if kind == "affine":
                 sc0 = weights[meta["fused_scale"]]
                 sh0 = weights[meta["fused_shift"]]
@@ -847,7 +985,8 @@ class BinaryExecutor:
         return order
 
     # ------------------------------------------------------------------ #
-    def _edge_softmax_rows(self, scored) -> List[torch.Tensor]:
+    @staticmethod
+    def _edge_softmax_rows(scored) -> List[torch.Tensor]:
         """Two-pass edge softmax over one destination row's tiles.
         ``scored`` is [(raw scores [n1, w], mask)] — masked max, then
         masked exp/sum, then per-tile normalized outputs (same order)."""
@@ -865,34 +1004,38 @@ class BinaryExecutor:
             e = torch.where(mask, e, torch.zeros_like(e))
             den = den + torch.sum(e, dim=1)
             exps.append(e)
-            self.stats.tile_ops += 1
         den = torch.clamp(den, min=1e-12)
         return [e / den[:, None] for e in exps]
 
-    def _run_edge_act(self, lp, pg, st: _Staged, ew_in) -> torch.Tensor:
-        """Edge activations; EDGE_SOFTMAX uses the two-pass tile scheme
-        (max/sum accumulated per destination row across a shard's tiles,
-        the Activation Unit's exp/divide applied per tile)."""
-        act = Activation(lp.mode)
-        if act != Activation.EDGE_SOFTMAX:
-            self.stats.tile_ops += len(lp.tiles)
-            return apply_activation(ew_in, act)
-        env = _DeviceEnv(pg, st)
-        ew = torch.zeros((pg.n_edges + 1,), dtype=torch.float32,
+    def _edge_softmax(self, pg, st: _Staged, ew_in) -> torch.Tensor:
+        """EDGE_SOFTMAX of every lane's [E] scores in the two-pass tile
+        scheme (max/sum accumulated per destination row across a shard's
+        tiles, the Activation Unit's exp/divide applied per tile); one
+        tile op per tile and traversal."""
+        lanes = ew_in.shape[0]
+        env = _DeviceEnv(pg, st, lanes)
+        ew = torch.zeros((lanes, pg.n_edges), dtype=torch.float32,
                          device=self.device)
         for j in range(pg.n_blocks):
             row_tiles = _row_tiles(pg, j)
             if not row_tiles:
                 continue
-            scored, idxs = [], []
-            for k, s in row_tiles:
-                mask = env.tile("mask", j, k, s)
-                epos = env.tile("epos", j, k, s)
-                scored.append((ew_in[torch.clamp(epos, min=0).long()],
-                               mask))
-                idxs.append(self._edge_index(env, j, k, s))
-            for (_, mask), idx, out_t in zip(
-                    scored, idxs, self._edge_softmax_rows(scored)):
-                out_t = torch.where(mask, out_t, torch.zeros_like(out_t))
-                ew.index_put_((idx,), out_t.reshape(-1))
-        return ew[: pg.n_edges]
+            masks = [env.tile("mask", j, k, s) for k, s in row_tiles]
+            lives = [env.live(j, k, s) for k, s in row_tiles]
+            self.stats.tile_ops += len(row_tiles)
+            for n in range(lanes):
+                scored = [(_from_live(ew_in[n], pos, epos, m.shape), m)
+                          for m, (pos, epos) in zip(masks, lives)]
+                for (pos, epos), out_t in zip(
+                        lives, self._edge_softmax_rows(scored)):
+                    ew[n][epos] = out_t.reshape(-1)[pos]
+        return ew
+
+    def _run_edge_act(self, lp, pg, st: _Staged, ew_in) -> torch.Tensor:
+        """Standalone edge activation of every lane's [E] scores."""
+        act = Activation(lp.mode)
+        if act == Activation.EDGE_SOFTMAX:
+            return self._edge_softmax(pg, st, ew_in)
+        self.stats.tile_ops += len(lp.tiles)
+        return torch.stack([apply_activation(ew_in[n], act)
+                            for n in range(ew_in.shape[0])])

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("gemm", "spdmm")
+SOURCES = ("gemm", "spdmm", "sddmm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,6 +34,8 @@ _ARGTYPES = {
     "gemm": ("gemm_f32", [_c_void_p] * 4 + [_c_int] * 3 + [_c_ll] * 4
              + [_c_void_p]),
     "spdmm": ("spdmm_f32", [_c_void_p] * 5 + [_c_int] * 3 + [_c_ll] * 3
+              + [_c_void_p]),
+    "sddmm": ("sddmm_f32", [_c_void_p] * 6 + [_c_int] * 4 + [_c_ll] * 2
               + [_c_void_p]),
 }
 

@@ -1,18 +1,29 @@
 """Wrappers around the hand-written CUDA kernels.
 
-``gemm(x, w, acc)`` returns ``acc + x @ w`` and ``spdmm(cols, vals, h,
-acc)`` returns ``acc + ELL(cols, vals) @ h``, both in fp32 (``acc`` may be
-None).  Tensors on a CUDA device launch the kernel from ``csrc/`` on the
-current stream, after checking device, dtype, shape and strides, and raise
-on anything the kernel does not take; there is no fallback.  Tensors on
-the CPU go to the plain versions in :mod:`repro_torch.kernels.ref`.
+``gemm(x, w, acc)`` returns ``acc + x @ w``, ``spdmm(cols, vals, h, acc)``
+returns ``acc + ELL(cols, vals) @ h`` and ``sddmm(h_dst, h_src, cols, mask,
+acc)`` returns ``acc + where(mask, <h_dst[r], h_src[cols[r, k]]>, 0)``, all
+in fp32 (``acc`` and ``mask`` may be None).  Tensors on a CUDA device
+launch the kernel from ``csrc/`` on the current stream, after checking
+device, dtype, shape and strides, and raise on anything the kernel does
+not take; there is no fallback.  Tensors on the CPU go to the plain
+versions in :mod:`repro_torch.kernels.ref`.
+
+ELL column indices are not checked on the card, where a check would cost
+a device round trip per launch: the executor validates every tile's
+columns once, when it stages them.  The SpDMM kernel trusts them; the
+SDDMM kernel reads no row outside ``h_src`` and scores a live slot whose
+column is out of range NaN.  On the CPU ``sddmm`` raises ValueError for
+such a column.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, bumped
-only where a kernel is launched), so a run can show that it went through
-the kernels; ``reset_launches`` zeroes them.
+only where a kernel is launched, under a lock since overlays launch from
+their own threads), so a run can show that it went through the kernels;
+``reset_launches`` zeroes them.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -20,12 +31,19 @@ import torch
 from . import ref
 from .build import entry
 
-LAUNCHES: Dict[str, int] = {"gemm": 0, "spdmm": 0}
+LAUNCHES: Dict[str, int] = {"gemm": 0, "spdmm": 0, "sddmm": 0}
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _launched(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _on_cpu(*ts: Optional[torch.Tensor]) -> bool:
@@ -84,7 +102,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
         _ld(out), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gemm kernel launch failed: CUDA error {rc}")
-    LAUNCHES["gemm"] += 1
+    _launched("gemm")
     return out
 
 
@@ -111,5 +129,48 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
         _stream(h))
     if rc != 0:
         raise RuntimeError(f"spdmm kernel launch failed: CUDA error {rc}")
-    LAUNCHES["spdmm"] += 1
+    _launched("spdmm")
+    return out
+
+
+def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
+          mask: Optional[torch.Tensor] = None,
+          acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``acc + where(mask, SDDMM(h_dst, h_src, cols), 0)`` for one [n1, w]
+    ELL tile (fp32); ``mask`` None scores every slot (pad slots score row
+    0, as the Pallas kernel does), ``acc`` None is a zero accumulator.
+    ``cols`` index rows of ``h_src``; see the module docstring for a column
+    out of range."""
+    if _on_cpu(h_dst, h_src, cols, mask, acc):
+        if cols.numel() and (int(cols.min()) < 0
+                             or int(cols.max()) >= h_src.shape[0]):
+            raise ValueError(f"sddmm cols: indices outside [0, "
+                             f"{h_src.shape[0]})")
+        return ref.sddmm_step_ref(h_dst, h_src, cols, mask, acc)
+    n1, w = cols.shape
+    _check_matrix("sddmm cols", cols, torch.int32)
+    _check_matrix("sddmm h_dst", h_dst, torch.float32)
+    f = h_dst.shape[1]
+    if h_dst.shape[0] != n1:
+        raise ValueError(f"sddmm h_dst: expected {n1} rows, got "
+                         f"{h_dst.shape[0]}")
+    _check_matrix("sddmm h_src", h_src, torch.float32)
+    if h_src.shape[1] != f or h_src.shape[0] < 1:
+        raise ValueError(f"sddmm h_src: expected [n_src >= 1, {f}], got "
+                         f"{tuple(h_src.shape)}")
+    if mask is not None:
+        _check_matrix("sddmm mask", mask, torch.bool, (n1, w))
+    if acc is not None:
+        _check_matrix("sddmm acc", acc, torch.float32, (n1, w))
+    if not all(t is None or t.is_contiguous() for t in (cols, mask, acc)):
+        raise ValueError("sddmm: cols, mask and acc must be contiguous")
+    out = torch.empty((n1, w), dtype=torch.float32, device=cols.device)
+    rc = entry("sddmm")(
+        h_dst.data_ptr(), h_src.data_ptr(), cols.data_ptr(),
+        mask.data_ptr() if mask is not None else None,
+        acc.data_ptr() if acc is not None else None, out.data_ptr(),
+        n1, w, f, h_src.shape[0], _ld(h_dst), _ld(h_src), _stream(cols))
+    if rc != 0:
+        raise RuntimeError(f"sddmm kernel launch failed: CUDA error {rc}")
+    _launched("sddmm")
     return out

@@ -1,12 +1,16 @@
 """Plain torch versions of the hand kernels (the ``ref.py`` contract).
 
-They mirror ``repro/kernels/ref.py`` (``gemm_ref``, ``spdmm_ref``): the CPU
-tests run them, and ``chip_smoke.py`` holds each CUDA kernel against them
-on the card.  Matrix products here run in full fp32 only where the caller
-has left ``torch.backends.cuda.matmul.allow_tf32`` False (the default,
-which ``chip_smoke.py`` sets explicitly).
+They mirror ``repro/kernels/ref.py`` (``gemm_ref``, ``spdmm_ref``,
+``sddmm_ref``): the CPU tests run them, and ``chip_smoke.py`` holds each
+CUDA kernel against them on the card.  ``sddmm_step_ref`` is the ACK's
+whole SDDMM step (mask and accumulator around ``sddmm_ref``), the function
+the SDDMM kernel computes.  Matrix products here run in full fp32 only
+where the caller has left ``torch.backends.cuda.matmul.allow_tf32`` False
+(the default, which ``chip_smoke.py`` sets explicitly).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,3 +27,23 @@ def spdmm_ref(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     gathered = h.float()[cols.long()]                   # [n1, w, f]
     out = torch.sum(gathered * vals.float()[..., None], dim=1)
     return out.to(out_dtype)
+
+
+def sddmm_ref(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
+              out_dtype=torch.float32) -> torch.Tensor:
+    """score[r,k] = <h_dst[r], h_src[cols[r,k]]> (pad entries score the
+    gathered row 0 -- callers mask with edge validity)."""
+    gathered = h_src.float()[cols.long()]               # [n1, w, f]
+    out = torch.einsum("rwf,rf->rw", gathered, h_dst.float())
+    return out.to(out_dtype)
+
+
+def sddmm_step_ref(h_dst: torch.Tensor, h_src: torch.Tensor,
+                   cols: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                   acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``acc + where(mask, sddmm_ref(h_dst, h_src, cols), 0)``; ``mask``
+    None scores every slot, ``acc`` None is a zero accumulator."""
+    s = sddmm_ref(h_dst, h_src, cols)
+    if mask is not None:
+        s = torch.where(mask, s, torch.zeros_like(s))
+    return s if acc is None else acc + s

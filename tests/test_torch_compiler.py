@@ -14,6 +14,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_models import build_gat_dot  # noqa: E402
 from repro.core import compiler as JC  # noqa: E402
 from repro.core import gnn_builders as JB  # noqa: E402
 from repro.core import graph as JG  # noqa: E402
@@ -89,6 +90,22 @@ def test_no_opt_path_identical(name):
 def test_powerlaw_graph_identical(name):
     gj, gt = _graphs(nv=150, ne=1200, degree="powerlaw", seed=5)
     _assert_same_program(*_compile_both(name, gj, gt))
+
+
+@pytest.mark.parametrize("degree,lrelu", [("uniform", True),
+                                          ("powerlaw", True),
+                                          ("powerlaw", False)])
+def test_gat_dot_identical(degree, lrelu):
+    # The dot-product-attention GAT, built by each package's builders
+    # through the same helper (lrelu=False: the fused-softmax variant).
+    gj, gt = _graphs(nv=120, ne=700, degree=degree, seed=23)
+    opts = [C.CompileOptions(n_pes=4, partition=P(n1=32, n2=8))
+            for C, P in ((JC, JPC), (TC, TPC))]
+    jr = JC.run_pipeline(build_gat_dot(JB, gj, hidden=16, lrelu=lrelu), gj,
+                         opts[0])
+    tr = TC.run_pipeline(build_gat_dot(TB, gt, hidden=16, lrelu=lrelu), gt,
+                         opts[1])
+    _assert_same_program(jr, tr)
 
 
 def test_default_geometry_and_width_slicing_identical():

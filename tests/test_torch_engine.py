@@ -2,7 +2,8 @@
 
 A twin of ``tests/test_executor.py`` (b1-b8 on uniform graphs, b1/b3/b6
 on power-law graphs, the no-opt path, MAX/MIN, isolated vertices, the
-no-recompile overlay property), plus serving with the program cache,
+no-recompile overlay property), the dot-product-attention GAT (gat-dot)
+and its fused-edge-softmax variant, plus serving with the program cache,
 ``.gagi`` bundles crossing between the packages, weights carried across
 from plain arrays, the paths this slice does not port, and a subprocess
 check that the port loads neither ``jax`` nor ``repro``.  Outputs are
@@ -22,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_models import build_gat_dot  # noqa: E402
 from repro.core import gnn_builders as JB  # noqa: E402
 from repro.core import graph as JG  # noqa: E402
 from repro.core.ir import AggOp as JAgg  # noqa: E402
@@ -153,6 +155,57 @@ def test_executor_handles_isolated_vertices(jax_out, name):
 
 
 # --------------------------------------------------------------------------- #
+# gat-dot: dot-mode SDDMM scores, edge softmax, edge-weighted aggregation.
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("degree", ["uniform", "powerlaw"])
+def test_gat_dot_matches_jax(degree):
+    gj, gt = _graphs(nv=120, ne=700, degree=degree, seed=23)
+    x = JG.random_features(gj, seed=2)
+    je = _jengine()
+    want = np.asarray(je.run(je.compile(build_gat_dot(JB, gj, hidden=16),
+                                        gj), jnp.asarray(x)))
+    for backend in ("torch", "cuda"):
+        eng = _engine(backend=backend)
+        got = eng.run(eng.compile(build_gat_dot(TB, gt, hidden=16), gt), x)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+        modes = eng.exec_stats.tile_ops_by_mode
+        assert modes["sddmm"] > 0 and modes["spdmm"] > 0 and modes["gemm"]
+
+
+def test_fused_edge_softmax_on_vector_inner():
+    # Without the LeakyReLU the fusion pass folds EDGE_SOFTMAX into the
+    # VectorInner's epilogue; the JAX executor cannot run that program
+    # (ROADMAP C), so it is held against JAX compiled without fusion.
+    gj, gt = _graphs(nv=120, ne=700, degree="powerlaw", seed=24)
+    x = JG.random_features(gj, seed=2)
+    mt = build_gat_dot(TB, gt, hidden=16, lrelu=False)
+    eng = _engine(backend="cuda")
+    prog = eng.compile(mt, gt)
+    softmax = ("act", int(TB.Activation.EDGE_SOFTMAX))
+    assert any(lp.tiles and lp.tiles[0].epilogue[-1:] == [softmax]
+               for lp in prog.plan().layers)
+    got = eng.run(prog, x)
+    ref = TR.run_reference(build_gat_dot(TB, gt, hidden=16, lrelu=False),
+                           gt, torch.as_tensor(x))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    je = _jengine()
+    want = np.asarray(je.run(je.compile(
+        build_gat_dot(JB, gj, hidden=16, lrelu=False), gj, fusion=False),
+        jnp.asarray(x)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    # the softmax's tile ops are counted as the standalone layer's are
+    # (the unfused program also runs its ReLUs as standalone "act" tiles)
+    unfused = _engine(backend="cuda")
+    unfused.run(unfused.compile(build_gat_dot(TB, gt, hidden=16,
+                                              lrelu=False), gt,
+                                fusion=False), x)
+    st = unfused.exec_stats
+    assert eng.exec_stats.tile_ops == \
+        st.tile_ops - st.tile_ops_by_mode["act"]
+
+
+# --------------------------------------------------------------------------- #
 # Serving, bundles, carried-over weights.
 # --------------------------------------------------------------------------- #
 def _request_mix():
@@ -225,21 +278,22 @@ def test_weights_carried_across_from_arrays():
     gt2 = convert.graph_from_arrays(gj.n_vertices, gj.src, gj.dst,
                                     gj.weight, gj.feat_dim, gj.n_classes)
     eng, je = _engine(), _jengine()
-    # Order optimization moves each Linear (bias included) across its
-    # Aggregate, which is exact only for a zero bias: with these biases
-    # both compilers give the same, reordered result ...
-    want = np.asarray(je.run(je.compile(jm, gj), jnp.asarray(x)))
-    got = eng.run(eng.compile(tm, gt2), x)
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    # ... and without the reordering both equal the layer-by-layer
-    # reference on the carried-over weights.
+    # Order optimization may not move a Linear with a non-zero bias
+    # across its Aggregate (Agg(HW + b) != Agg(H)W + b).  The port's
+    # compiler keeps such pairs in place, so with order optimization on
+    # it equals the layer-by-layer reference and JAX's unreordered
+    # program (the JAX compiler still exchanges them: ROADMAP C).
     want = np.asarray(je.run(je.compile(jm, gj, order_opt=False),
                              jnp.asarray(x)))
-    got = eng.run(eng.compile(tm, gt2, order_opt=False), x)
+    prog = eng.compile(tm, gt2)
+    assert prog.source.order_report.exchanges == []
+    got = eng.run(prog, x)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     ref = TR.run_reference(tm, gt2, x)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=RTOL,
                                atol=ATOL)
+    got = eng.run(eng.compile(tm, gt2, order_opt=False), x)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     # weights as tensors (on the engine's device) give the same output
     tw = convert.weights_from_numpy(weights, "cpu")
     prog = eng.compile(tm, gt2, order_opt=False)
@@ -285,12 +339,12 @@ def test_unported_paths_raise(tmp_path):
         eng.run(prog, x, residency="host")
     with pytest.raises(NotImplementedError, match="A13"):
         eng.run(prog, x, mesh=2)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A11"):
         eng.run(prog, x, graph_data={"tiles": {}})
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.run_batch(prog, np.stack([x, x]))
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.submit_batch([])
+    with pytest.raises(NotImplementedError, match="A11"):
+        eng.run_batch(prog, np.stack([x, x]), graph_data={"tiles": {}})
+    with pytest.raises(NotImplementedError, match="A7"):
+        eng.run_batch(prog, np.stack([x, x]), residency="host")
     # a sparsity-remapped binary (GEMM steps in AGGREGATE layers)
     je = _jengine()
     remapped = je.remap(je.compile("b1", gj), force="gemm")
@@ -322,6 +376,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys\n"
         "from repro_torch.core import graph as G\n"
         "from repro_torch.engine import Engine, InferenceRequest\n"
+        "from repro_torch.runtime import OverlayPool, ServeLoop\n"
         "from repro_torch.core.passes.partition import PartitionConfig\n"
         "g = G.random_graph(60, 240, seed=1).gcn_normalized()\n"
         "g.feat_dim, g.n_classes = 8, 3\n"
@@ -330,6 +385,10 @@ def test_port_imports_neither_jax_nor_repro():
         "r = eng.serve([InferenceRequest('b6', g,"
         " G.random_features(g, seed=2))])[0]\n"
         "assert r.output.shape == (60, 3)\n"
+        "pool = OverlayPool(2, PartitionConfig(n1=32, n2=8), device='cpu')\n"
+        "rs = pool.serve([InferenceRequest('b1', g, G.random_features(g,"
+        " seed=s)) for s in range(3)], max_batch=2)\n"
+        "assert [x.batch_size for x in rs] == [2, 2, 1]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"

@@ -1,5 +1,6 @@
 """The port on a CUDA device: hand kernels against their plain versions,
-and the Engine against the float64 reference.
+the Engine against the float64 reference, and a batched lane against the
+same request run alone.
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -9,16 +10,22 @@ left out:
     python -m pytest -q --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from _torch_models import build_gat_dot  # noqa: E402
 from repro_torch.core import gnn_builders as TB  # noqa: E402
 from repro_torch.core import graph as TG  # noqa: E402
 from repro_torch.core import reference as TR  # noqa: E402
 from repro_torch.core.passes.partition import PartitionConfig  # noqa: E402
-from repro_torch.engine import Engine  # noqa: E402
+from repro_torch.engine import Engine, InferenceRequest  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -28,6 +35,8 @@ GEMM_SHAPES = [(128, 128, 128), (256, 128, 384), (64, 32, 16),
                (4096, 128, 128)]
 SPDMM_SHAPES = [(128, 16, 128, 128), (64, 8, 128, 32), (100, 24, 70, 33),
                 (32, 64, 32, 8), (8, 8, 8, 8), (4096, 512, 4096, 128)]
+SDDMM_SHAPES = [(128, 16, 128, 128), (64, 8, 96, 256), (56, 24, 70, 33),
+                (8, 8, 8, 8)]
 
 
 @pytest.fixture
@@ -72,6 +81,105 @@ def test_cuda_spdmm_matches_plain(cuda, n1, w, ns, f):
     _close(got, acc + ref.spdmm_ref(c, v, hd))
 
 
+@pytest.mark.parametrize("n1,w,ns,f", SDDMM_SHAPES)
+def test_cuda_sddmm_matches_plain(cuda, n1, w, ns, f):
+    # The Pallas kernel's own function (no mask, no acc; pad slots score
+    # row 0), strided operands, at the JAX sweep's rtol 1e-4 / atol 1e-4.
+    r = np.random.default_rng(5)
+    cols = torch.from_numpy(r.integers(0, ns, (n1, w)).astype(np.int32))
+    hd = torch.from_numpy(r.normal(0, 1, (n1, 2 * f)).astype(np.float32))
+    hs = torch.from_numpy(r.normal(0, 1, (ns, 2 * f)).astype(np.float32))
+    c, d, s = cols.to(cuda), hd.to(cuda)[:, f:], hs.to(cuda)[:, :f]
+    ops.reset_launches()
+    got = ops.sddmm(d, s, c)
+    assert ops.LAUNCHES["sddmm"] == 1
+    _close(got, ref.sddmm_ref(d, s, c), rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_sddmm_masked_path_tile(cuda):
+    # The executor's tile shape: n1=4096, w=512, f=128 views of a padded
+    # layer tensor, a real mask (12% live slots) and an accumulator;
+    # masked slots keep acc exactly.
+    n1, w, f = 4096, 512, 128
+    g = torch.Generator(device=cuda).manual_seed(1)
+    h = torch.randn(2 * n1, f, generator=g, device=cuda)
+    hd, hs = h[:n1], h[n1:]
+    mask = torch.rand(n1, w, generator=g, device=cuda) < 0.12
+    cols = torch.where(mask, torch.randint(0, n1, (n1, w), generator=g,
+                                           device=cuda), 0).to(torch.int32)
+    acc = torch.randn(n1, w, generator=g, device=cuda)
+    got = ops.sddmm(hd, hs, cols, mask, acc)
+    _close(got, ref.sddmm_step_ref(hd, hs, cols, mask, acc))
+    assert torch.equal(got[~mask], acc[~mask])
+    assert torch.equal(ops.sddmm(hd, hs, cols, mask, acc), got)
+
+
+def test_cuda_run_batch_lane_equals_solo(cuda):
+    g = TG.random_graph(120, 700, seed=3, degree="powerlaw").gcn_normalized()
+    g.feat_dim, g.n_classes = 12, 4
+    eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4)
+    prog = eng.compile(build_gat_dot(TB, g, hidden=16), g)
+    xs = [TG.random_features(g, seed=s) for s in range(3)]
+    ops.reset_launches()
+    ys = eng.run_batch(prog, np.stack(xs))
+    modes = eng.exec_stats.tile_ops_by_mode
+    assert eng.exec_stats.runs == 1
+    assert ops.LAUNCHES["sddmm"] == 3 * modes["sddmm"] > 0
+    assert ops.LAUNCHES["spdmm"] == 3 * modes["spdmm"] > 0
+    assert ops.LAUNCHES["gemm"] == 3 * modes["gemm"] > 0
+    for n, x in enumerate(xs):
+        assert torch.equal(ys[n], eng.run(prog, x))
+    want = TR.run_reference(build_gat_dot(TB, g, hidden=16), g,
+                            torch.as_tensor(xs[0], device=cuda),
+                            dtype=torch.float64)
+    _close(ys[0], want, rtol=2e-4, atol=2e-5)
+
+
+def test_cuda_engine_waits_for_the_callers_stream(cuda):
+    # CUDA features that the caller's stream is still writing (behind a
+    # ~0.1 s spin) when run / submit_batch is called: the engine's stream
+    # must wait for them, and the outputs equal the numpy-fed run's.
+    g = TG.random_graph(120, 700, seed=3, degree="powerlaw").gcn_normalized()
+    g.feat_dim, g.n_classes = 12, 4
+    eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4)
+    model = build_gat_dot(TB, g, hidden=16)
+    prog = eng.compile(model, g)
+    x = TG.random_features(g, seed=7)
+    want = eng.run(prog, x)
+    src = torch.as_tensor(x, device=cuda)
+    torch.cuda.synchronize()
+
+    def written_late():
+        xd = torch.zeros_like(src)
+        torch.cuda._sleep(200_000_000)
+        xd.copy_(src)
+        return xd
+
+    assert torch.equal(eng.run(prog, written_late()), want)
+    reqs = [InferenceRequest(model=model, graph=g, features=written_late(),
+                             request_id=f"r{i}") for i in range(2)]
+    for r in eng.submit_batch(reqs):
+        assert r.batch_size == 2 and torch.equal(r.output, want)
+
+
+def test_cuda_sddmm_out_of_range_column_scores_nan(cuda):
+    # A live slot with a column outside h_src reads nothing and scores
+    # NaN; the other slots are unaffected.
+    hd = torch.randn(8, 16, device=cuda)
+    hs = torch.randn(5, 16, device=cuda)
+    cols = torch.randint(0, 5, (8, 4), device=cuda, dtype=torch.int32)
+    cols[2, 1], cols[6, 3] = 5, -1
+    got = ops.sddmm(hd, hs, cols)
+    torch.cuda.synchronize()
+    bad = torch.zeros(8, 4, dtype=torch.bool, device=cuda)
+    bad[2, 1] = bad[6, 3] = True
+    assert bool(torch.isnan(got[bad]).all())
+    _close(got[~bad], ref.sddmm_ref(hd, hs, cols.clamp(0, 4))[~bad])
+    mask = ~bad                         # masked out: no gather, acc kept
+    assert torch.equal(ops.sddmm(hd, hs, cols, mask)[bad],
+                       torch.zeros(2, device=cuda))
+
+
 def test_cuda_wrappers_reject_bad_operands(cuda):
     x = torch.zeros(8, 8, device=cuda)
     with pytest.raises(TypeError):
@@ -81,6 +189,11 @@ def test_cuda_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.spdmm(torch.zeros(8, 16, dtype=torch.int32, device=cuda)[:, ::2],
                   torch.zeros(8, 8, device=cuda), x)
+    cols = torch.zeros(8, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ops.sddmm(x, x, cols, torch.ones(8, 4, device=cuda))  # mask dtype
+    with pytest.raises(ValueError, match="shape"):
+        ops.sddmm(x, x, cols, acc=torch.zeros(8, 5, device=cuda))
 
 
 @pytest.mark.parametrize("name", list(TB.BENCHMARKS))

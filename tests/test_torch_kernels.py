@@ -2,9 +2,11 @@
 
 On the CPU the wrappers in ``repro_torch.kernels.ops`` run their plain
 torch versions; these are held against ``repro.kernels.ref`` and against
-the Pallas kernels in interpret mode on the GEMM / SpDMM sweeps of
-``tests/test_kernels.py`` (fp32, rtol 1e-5 / atol 1e-4).  The CUDA kernels
-themselves are held against the plain versions in ``test_torch_gpu.py``.
+the Pallas kernels in interpret mode on the GEMM / SpDMM / SDDMM sweeps of
+``tests/test_kernels.py`` (fp32, rtol 1e-5 / atol 1e-4; SDDMM at the JAX
+sweep's rtol 1e-4 / atol 1e-4), and the masked, accumulating SDDMM step
+against the JAX ACK's ``"xla"`` SDDMM step.  The CUDA kernels themselves
+are held against the plain versions in ``test_torch_gpu.py``.
 """
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core.ack import ACK as JACK  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -23,6 +26,8 @@ GEMM_SHAPES = [(128, 128, 128), (256, 128, 384), (64, 32, 16),
                (100, 60, 33), (8, 8, 8), (1, 128, 1), (130, 70, 258)]
 SPDMM_SHAPES = [(128, 16, 128, 128), (64, 8, 128, 32), (100, 24, 70, 33),
                 (32, 64, 32, 8), (8, 8, 8, 8)]
+SDDMM_SHAPES = [(128, 16, 128, 128), (64, 8, 96, 256), (56, 24, 70, 33),
+                (8, 8, 8, 8)]
 
 
 def _close(got, want):
@@ -71,6 +76,61 @@ def test_spdmm_matches_jax(n1, w, ns, f):
     _close(got_acc, acc + got)
 
 
+def _sddmm_inputs(n1, w, ns, f, seed):
+    r = np.random.default_rng(seed)
+    cols = r.integers(0, ns, (n1, w)).astype(np.int32)
+    hd = r.normal(0, 1, (n1, f)).astype(np.float32)
+    hs = r.normal(0, 1, (ns, f)).astype(np.float32)
+    mask = r.random((n1, w)) > 0.4
+    acc = r.normal(0, 1, (n1, w)).astype(np.float32)
+    return cols, hd, hs, mask, acc
+
+
+@pytest.mark.parametrize("n1,w,ns,f", SDDMM_SHAPES)
+def test_sddmm_matches_jax(n1, w, ns, f):
+    cols, hd, hs, _, _ = _sddmm_inputs(n1, w, ns, f, seed=n1 + f)
+    got = ops.sddmm(torch.from_numpy(hd), torch.from_numpy(hs),
+                    torch.from_numpy(cols)).numpy()
+    jc, jd, js = jnp.asarray(cols), jnp.asarray(hd), jnp.asarray(hs)
+    for want in (jref.sddmm_ref(jd, js, jc),
+                 jops.sddmm(jd, js, jc, interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+    np.testing.assert_array_equal(
+        ref.sddmm_ref(torch.from_numpy(hd), torch.from_numpy(hs),
+                      torch.from_numpy(cols)).numpy(), got)
+
+
+@pytest.mark.parametrize("n1,w,ns,f", SDDMM_SHAPES)
+def test_sddmm_masked_step_matches_jax_ack(n1, w, ns, f):
+    # The ACK's whole dot-mode step: acc + where(mask, score, 0).
+    cols, hd, hs, mask, acc = _sddmm_inputs(n1, w, ns, f, seed=n1 + w)
+    got = ops.sddmm(torch.from_numpy(hd), torch.from_numpy(hs),
+                    torch.from_numpy(cols), torch.from_numpy(mask),
+                    torch.from_numpy(acc)).numpy()
+    want = JACK(backend="xla").sddmm(
+        jnp.asarray(hd), jnp.asarray(hs), jnp.asarray(cols),
+        jnp.asarray(mask), jnp.asarray(acc))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got[~mask], acc[~mask])
+    # the ACK routes a dot-mode step through the wrapper on both backends
+    from repro_torch.core.ack import ACK
+    for backend in ("torch", "cuda"):
+        step = ACK(backend=backend).sddmm(
+            torch.from_numpy(hd), torch.from_numpy(hs),
+            torch.from_numpy(cols), torch.from_numpy(mask),
+            torch.from_numpy(acc))
+        np.testing.assert_allclose(step.numpy(), got, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("bad_col", [-1, 5])
+def test_sddmm_rejects_columns_outside_h_src(bad_col):
+    cols = torch.zeros(4, 3, dtype=torch.int32)
+    cols[1, 2] = bad_col
+    with pytest.raises(ValueError, match="outside"):
+        ops.sddmm(torch.ones(4, 8), torch.ones(5, 8), cols)
+
+
 def test_zero_padding_is_inert():
     got = ops.spdmm(torch.zeros(16, 8, dtype=torch.int32),
                     torch.zeros(16, 8), torch.randn(16, 16))
@@ -82,7 +142,9 @@ def test_cpu_wrappers_do_not_count_launches():
     ops.gemm(torch.ones(4, 4), torch.ones(4, 4))
     ops.spdmm(torch.zeros(4, 8, dtype=torch.int32), torch.ones(4, 8),
               torch.ones(4, 4))
-    assert ops.LAUNCHES == {"gemm": 0, "spdmm": 0}
+    ops.sddmm(torch.ones(4, 4), torch.ones(4, 4),
+              torch.zeros(4, 8, dtype=torch.int32))
+    assert ops.LAUNCHES == {"gemm": 0, "spdmm": 0, "sddmm": 0}
 
 
 def test_wrapper_checks_reject_bad_operands():
