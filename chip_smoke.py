@@ -43,8 +43,30 @@ Phases (any failure exits non-zero; nothing is caught):
    widest real ELL slice of the gat-dot FL program (with its real mask
    and an accumulator), the kernel's entry in the ``kernels`` line.
 
-``launches`` in the ``kernels`` line is a kernel's count over both paths,
-each counted from zero just before the path runs and read just after.
+5. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
+   query / 8 KV heads of 128, vocab 151,936), weights random from
+   ``torch.Generator`` seed 0 with the JAX initializers' scales:
+   the flash kernel against its plain version (the sweep of
+   ``tests/test_kernels.py`` in fp32 at atol 2e-5, its bf16 case at
+   rtol / atol 3e-2, ragged causal Tq = Tk = 200, and the path shape
+   BH=64, T=2048, d=128 in fp32 and bf16, timed beside the plain version
+   and ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick
+   the port never calls; every bf16 case also within relative L2 2^-8
+   over the whole output and 2^-7 over each query row,
+   ``check_rows``); ``make_prefill_step`` in bf16 at B=4, T=2048 (a
+   warm-up and 3 timed prefills, 28 flash launches each, last-position
+   logits within relative L2 2e-2 of the same model run with plain
+   attention, the reading of the same model with ``_sdpa_chunked``
+   attention beside it, one more prefill under ``torch.profiler``); fp32 decode
+   against forward at B=2, T=64 (every position within 2e-4 of max
+   |logit|, the JAX test's tolerance); and the serving loop
+   ``repro_torch.launch.serve.main`` at its defaults (8 requests, prompt
+   32, 16 generated tokens, bf16).
+
+``launches`` in the ``kernels`` line is a kernel's count over the driven
+paths (the Engine.serve path, the runtime path, and the prefill and
+forward runs of phase 5), each counted from zero just before the path
+runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
 the host enqueues 20 back-to-back calls while the device is busy, and a
@@ -58,8 +80,11 @@ here, the plain versions' included, is IEEE fp32.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +95,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOP_S = 67e12        # H100 SXM fp32, CUDA cores
+PEAK_BF16_FLOP_S = 989e12       # H100 SXM bf16 tensor cores, dense
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
 PATH_RTOL, PATH_ATOL = 2e-4, 2e-5
 
@@ -80,6 +106,22 @@ SPDMM_SWEEP = [(128, 16, 128, 128), (64, 8, 128, 32), (100, 24, 70, 33),
 SDDMM_SWEEP = [(128, 16, 128, 128), (64, 8, 96, 256), (56, 24, 70, 33),
                (8, 8, 8, 8)]
 SDDMM_RTOL, SDDMM_ATOL = 1e-4, 1e-4
+# tests/test_kernels.py's flash sweep: (tq, tk, heads, d, causal).
+FLASH_SHAPES = [(128, 128, 2, 64, True), (256, 256, 4, 32, True),
+                (128, 256, 1, 64, False), (256, 128, 2, 128, True)]
+FLASH_ATOL = 2e-5                # the JAX sweep's fp32 tolerance
+FLASH_BF16_TOL = 3e-2            # its bf16 case's rtol and atol
+# bf16 flash outputs are also held at limits scaled to bf16 rounding (unit
+# roundoff u = 2^-8): relative L2 over the whole output <= u and over each
+# query row <= 2u.  Both sides round the output to bf16 (each within
+# half an ulp) and the kernel also rounds P to bf16 for the tensor cores,
+# so a right kernel reads about u/2 whole; a dropped KV tile or a 1%
+# error in the score scale reads several u.
+BF16_U = 2.0 ** -8
+FLASH_BF16_WHOLE, FLASH_BF16_ROW = BF16_U, 2 * BF16_U
+LM_ARCH, LM_B, LM_T = "qwen3-0.6b", 4, 2048
+LM_REL_L2 = 2e-2                 # bf16 prefill against plain attention
+DECODE_B, DECODE_T, DECODE_TOL = 2, 64, 2e-4
 
 
 def log(*a) -> None:
@@ -90,9 +132,9 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flop_s=PEAK_FP32_FLOP_S):
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_o = flops / PEAK_FP32_FLOP_S * 1e3
+    t_o = flops / peak_flop_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -131,6 +173,34 @@ def check_close(torch, name, got, want, rtol, atol) -> float:
         fail(f"{name}: max |err| {float(err.max()):.3e} exceeds "
              f"atol {atol} + rtol {rtol} * |want|")
     return float(err.max()) if err.numel() else 0.0
+
+
+def rows_rel(got, want):
+    """(relative L2 of ``got - want`` over the whole output, the largest
+    over one row (the last dim)); inf where ``got`` is not finite."""
+    got, want = got.float(), want.float()
+    if not bool(got.isfinite().all()):
+        return float("inf"), float("inf")
+    err = got - want
+    return (float(err.norm() / want.norm()),
+            float((err.norm(dim=-1)
+                   / want.norm(dim=-1).clamp_min(1e-30)).max()))
+
+
+def check_rows(torch, name, got, want, whole=FLASH_BF16_WHOLE,
+               row=FLASH_BF16_ROW):
+    """``rows_rel`` within ``whole`` and ``row``, else fail.  Unlike an
+    elementwise atol, the limit follows the rows' own scale, which in
+    causal attention falls with the row's position.  Returns (whole,
+    worst row)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    r_whole, r_row = rows_rel(got, want)
+    if not (r_whole <= whole and r_row <= row):
+        fail(f"{name}: relative L2 {r_whole:.3e} whole (limit {whole:.3e}),"
+             f" {r_row:.3e} worst row (limit {row:.3e})")
+    return r_whole, r_row
 
 
 # --------------------------------------------------------------------------- #
@@ -339,7 +409,7 @@ def path_phase(torch):
     log(f"path: {len(responses)} outputs within rtol {PATH_RTOL} / atol "
         f"{PATH_ATOL} of run_reference in float64 (worst max|err| "
         f"{worst:.3e})")
-    profile_request(torch, engine, reqs[-1], "b2@FL hit")
+    profile_call(torch, lambda: engine.serve([reqs[-1]]), "b2@FL hit")
     fl_prog = engine.cache.get(responses[-1].cache_key)
     return launches, fl_prog, responses, peak, engine, co, fl
 
@@ -384,25 +454,25 @@ def hold_against_reference(torch, reqs, responses) -> float:
     return worst
 
 
-def profile_request(torch, engine, req, label: str) -> None:
-    """One more request (a cache hit) under torch.profiler: device time
-    by kernel name and the device's busy share of the request's wall
-    time.  When the profiler yields no device events it says "not
-    measured"; a profiler that raises fails the run."""
+def profile_call(torch, fn, label: str):
+    """``fn()`` under torch.profiler: device time by kernel name and the
+    device's busy share of the call's wall time; returns the device ms by
+    kernel name.  When the profiler yields no device events it says "not
+    measured" (and returns None); a profiler that raises fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.serve([req])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         log(f"profile {label}: no device events; device busy share not "
             "measured")
-        return
+        return None
     by_name, ivs = {}, []
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -417,6 +487,7 @@ def profile_request(torch, engine, req, label: str) -> None:
         f"({100 * busy / wall_us:.1f}%), {len(kern)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+    return {name: us / 1e3 for name, us in by_name.items()}
 
 
 def fl_spdmm_entry(torch, ops, ref, prog):
@@ -622,7 +693,8 @@ def runtime_phase(torch, engine, co, fl):
                 f"L{r['layer']}:{r['kernel']}x{r['tile_ops']}="
                 f"{r['wall_s'] * 1e3:.3f}" for r in st.per_layer))
     gat_eng = pool.engines[resps[0].overlay]
-    profile_request(torch, gat_eng, reqs[0], "gat-dot@FL hit")
+    profile_call(torch, lambda: gat_eng.serve([reqs[0]]),
+                 "gat-dot@FL hit")
     gat_prog = gat_eng.cache.get(resps[0].cache_key)
     return launches, gat_prog, resps, peak, wall
 
@@ -689,6 +761,274 @@ def fl_sddmm_entry(torch, ops, ref, prog):
 
 
 # --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def attention_as(ops, fn):
+    """While open, ``ops.flash_attention`` is ``fn``: the check's own
+    reference runs of the model (no launch is counted)."""
+    real = ops.flash_attention
+    ops.flash_attention = fn
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def chunked_attention(q, k, v, causal=True, chunk=256):
+    """``ops.flash_attention``'s function through the port's
+    ``_sdpa_chunked``, which rounds P to the value dtype for the P.V
+    product as the kernel's bf16 body (and JAX) do: a run of the model
+    with this attention shows what that rounding alone does to the
+    logits."""
+    import torch
+
+    from repro_torch.models.attention import _sdpa_chunked
+    t, d = q.shape[1], q.shape[2]
+    pos = torch.arange(t, device=q.device)
+    o = _sdpa_chunked(*(x.transpose(0, 1)[None] for x in (q, k, v)), pos,
+                      pos, causal, 0, d ** -0.5, chunk)
+    return o[0].transpose(0, 1).contiguous()
+
+
+def flash_bound(bh, tq, tk, d, causal, elem_bytes, peak_flop_s):
+    """Bytes: q, k, v read once, out written once; operations: 4 d flops
+    (two products) per (query, key) pair the mask keeps."""
+    pairs = (sum(min(tk, i + 1) for i in range(tq)) if causal
+             else tq * tk)
+    return bound_ms(elem_bytes * d * bh * (2 * tq + 2 * tk),
+                    4.0 * d * bh * pairs, peak_flop_s)
+
+
+def flash_kernel_phase(torch, ops, ref):
+    """The flash kernel against its plain version on the JAX sweep, its
+    bf16 case, a ragged case and the path shape; returns the kernels-line
+    entry (the path shape in bf16)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def qkv(bh, tq, tk, d, dtype):
+        return [torch.randn(bh, t, d, generator=gen, device="cuda"
+                            ).to(dtype) for t in (tq, tk, tk)]
+
+    cases = [(tq, tk, h, d, c, torch.float32)
+             for tq, tk, h, d, c in FLASH_SHAPES]
+    cases += [(128, 128, 2, 64, True, torch.bfloat16),
+              (200, 200, 3, 128, True, torch.float32),
+              (200, 200, 3, 128, True, torch.bfloat16)]
+    for tq, tk, h, d, causal, dt in cases:
+        q, k, v = qkv(h, tq, tk, d, dt)
+        tol = ((0.0, FLASH_ATOL) if dt == torch.float32
+               else (FLASH_BF16_TOL, FLASH_BF16_TOL))
+        name = f"flash {tq}x{tk} h={h} d={d} causal={causal} {dt}"
+        got = ops.flash_attention(q, k, v, causal)
+        want = ref.flash_attention_plain(q, k, v, causal)
+        check_close(torch, name, got, want, *tol)
+        if dt == torch.bfloat16:
+            r_whole, r_row = check_rows(torch, name, got, want)
+            log(f"{name}: relative L2 {r_whole:.3e} whole, {r_row:.3e} "
+                "worst row")
+    log(f"flash: {len(cases)} sweep / bf16 / ragged cases within "
+        "tolerance")
+
+    bh, t, d = LM_B * 16, LM_T, 128          # qwen3-0.6b prefill heads
+    entry = None
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = qkv(bh, t, t, d, dt)
+        got = ops.flash_attention(q, k, v, True)
+        want = ref.flash_attention_plain(q, k, v, True)
+        if dt == torch.bfloat16:
+            # Late rows average ~i keys, so their values are ~0.03 and an
+            # elementwise 3e-2 would not see a dropped KV tile there.
+            r_whole, r_row = check_rows(torch, "flash path shape bf16",
+                                        got, want)
+            err = float((got.float() - want.float()).abs().max())
+            log(f"flash path shape bf16: relative L2 {r_whole:.3e} whole "
+                f"(limit {FLASH_BF16_WHOLE:.3e}), {r_row:.3e} worst row "
+                f"(limit {FLASH_BF16_ROW:.3e}), max|err| {err:.3e}")
+            path_rel = {"whole": r_whole, "worst_row": r_row}
+        else:
+            err = check_close(torch, "flash path shape fp32", got, want,
+                              0.0, FLASH_ATOL)
+        del got, want
+        q4, k4, v4 = q[None], k[None], v[None]
+        t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True))
+        t_p = median_ms(torch, lambda: ref.flash_attention_plain(
+            q, k, v, True), reps=3, launches=5)
+        t_l = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+        bf16 = dt == torch.bfloat16
+        b_ms, b_by = flash_bound(bh, t, t, d, True, 2 if bf16 else 4,
+                                 PEAK_BF16_FLOP_S if bf16
+                                 else PEAK_FP32_FLOP_S)
+        log(f"kernel flash_attention BH={bh} T={t} d={d} causal {dt}: "
+            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"F.scaled_dot_product_attention {t_l:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
+        if entry is None:
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:26",
+                     "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
+        del q, k, v, q4, k4, v4
+    return entry, path_rel
+
+
+def lm_phase(torch, ops, ref):
+    """qwen3-0.6b prefill (bf16, B=4, T=2048), fp32 decode against
+    forward, and ``launch.serve``; see the module docstring.  Returns
+    (flash launches over the counted runs, a summary dict)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.steps import (build_model, make_prefill_step,
+                                          make_serve_step)
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()     # the GNN phases' state
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"{cfg.name}: {n_par:,} parameters ({cfg.n_params():,} in "
+        f"matrices) in {cfg.dtype}, built from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_B, LM_T)).astype(
+        np.int32), device="cuda")
+    prefill = make_prefill_step(model, cfg)
+    batch = {"tokens": tokens}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # ---- the prefill path: counts are zeroed just above, read below.
+    walls = []
+    for _ in range(4):                       # a warm-up, then 3 timed
+        t0 = time.perf_counter()
+        logits = prefill(model, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    # ---- end of the prefill path.
+    n_prefill = len(walls)
+    if launches["flash_attention"] != cfg.n_layers * n_prefill:
+        fail(f"flash launches {launches['flash_attention']} over "
+             f"{n_prefill} prefills != {cfg.n_layers} per prefill")
+    if tuple(logits.shape) != (LM_B, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"prefill logits: shape {tuple(logits.shape)} or non-finite")
+    with attention_as(ops, ref.flash_attention_plain):
+        want = prefill(model, batch)
+    with attention_as(ops, chunked_attention):
+        wit = prefill(model, batch)
+    got32, want32 = logits.float(), want.float()
+    rel = float((got32 - want32).norm() / want32.norm())
+    rel_wit = float((wit.float() - want32).norm() / want32.norm())
+    agree = float((got32.argmax(-1) == want32.argmax(-1)).float().mean())
+    prefill_ms = statistics.median(walls[1:])
+    log(f"prefill {LM_B}x{LM_T}: wall ms {[round(w, 2) for w in walls]} "
+        f"(first is the warm-up), median {prefill_ms:.2f} ms, "
+        f"{LM_B * LM_T / prefill_ms * 1e3:,.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB over the {base / 2**30:.3f} GiB the "
+        f"earlier phases hold (weights included, max_memory_allocated); "
+        f"flash launches {launches['flash_attention']}")
+    log(f"prefill logits against plain attention: relative L2 {rel:.3e} "
+        f"(limit {LM_REL_L2}), argmax agreement {agree:.3f}; the same "
+        f"model with _sdpa_chunked attention (P rounded to bf16, no "
+        f"kernel) reads {rel_wit:.3e}")
+    if not rel <= LM_REL_L2:
+        fail(f"prefill logits differ from plain attention by relative L2 "
+             f"{rel:.3e}")
+    by_name = profile_call(torch, lambda: prefill(model, batch),
+                           f"prefill {LM_B}x{LM_T}")
+    flash_dev = None
+    if by_name:
+        flash_dev = sum(ms for n, ms in by_name.items()
+                        if "flash_bf16_kernel" in n)
+        dev = sum(by_name.values())
+        log(f"flash kernel device time in the profiled prefill: "
+            f"{flash_dev:.3f} ms of {dev:.3f} ms of device time "
+            f"({100 * flash_dev / dev:.1f}%); device time over the "
+            f"unprofiled median wall: {100 * dev / prefill_ms:.1f}%")
+    # One decode step at launch.serve's shape (8 requests, a 48-slot
+    # cache) under the profiler: device events and busy share of a step.
+    step = make_serve_step(model, cfg)
+    cache = model.init_cache(8, 48)
+    tok = tokens[0, :8].reshape(8, 1)
+    for pos in range(2):
+        tok, cache = step(model, cache, tok, pos)
+    profile_call(torch, lambda: step(model, cache, tok, 2),
+                 "decode step, 8 requests")
+    del model, logits, want, wit, prefill, cache
+    torch.cuda.empty_cache()
+
+    # fp32 decode against forward at full width.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32, seed=0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (DECODE_B, DECODE_T)
+                                        ).astype(np.int32), device="cuda")
+    ops.reset_launches()
+    # ---- the forward run: counts are zeroed just above, read below.
+    fwd, _ = model(toks)
+    torch.cuda.synchronize()
+    fwd_launches = ops.LAUNCHES["flash_attention"]
+    # ---- end of the forward run.
+    if fwd_launches != cfg.n_layers:
+        fail(f"forward: flash launches {fwd_launches} != {cfg.n_layers}")
+    cache = model.init_cache(DECODE_B, DECODE_T)
+    t0 = time.perf_counter()
+    worst = 0.0
+    scale = float(fwd.abs().max())
+    for i in range(DECODE_T):
+        lg, cache = model.decode_step(cache, toks[:, i:i + 1], i)
+        worst = max(worst, float((lg[:, 0] - fwd[:, i]).abs().max()))
+    dec_s = time.perf_counter() - t0
+    log(f"decode against forward, fp32, B={DECODE_B} T={DECODE_T}: max "
+        f"|decode - forward| / max |forward| = {worst / scale:.3e} (limit "
+        f"{DECODE_TOL}; {DECODE_T} steps in {dec_s:.2f} s)")
+    if not worst / scale < DECODE_TOL:
+        fail(f"decode differs from forward by {worst / scale:.3e} of max "
+             "|logit|")
+    del model, fwd, cache
+    torch.cuda.empty_cache()
+
+    # The serving loop, launch.serve, at its defaults.
+    ops.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", LM_ARCH, "--requests", "8",
+                         "--prompt-len", "32", "--gen", "16"])
+    drv_s = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"serve: {line}")
+    m = re.search(r"prefill: ([\d.]+) ms\s+decode: ([\d.]+) ms \(([\d.]+) "
+                  r"ms/token\)", out)
+    gens = re.findall(r"^\s+\[([\d, ]+)\]$", out, re.M)
+    if rc != 0 or m is None or len(gens) != 3 or any(
+            len(g.split(",")) != 16 for g in gens):
+        fail(f"launch.serve: exit {rc}, output not as expected")
+    log(f"launch.serve: prefill {m.group(1)} ms, decode {m.group(3)} "
+        f"ms/token, {drv_s:.2f} s in all; flash launches "
+        f"{ops.LAUNCHES['flash_attention']} (prefill by decode steps)")
+    summary = {"prefill_ms": walls, "prefill_median_ms": prefill_ms,
+               "prefill_peak_bytes": peak, "prefill_rel_l2": rel,
+               "prefill_rel_l2_sdpa_chunked": rel_wit,
+               "flash_device_ms_in_profiled_prefill": flash_dev,
+               "decode_vs_forward": worst / scale,
+               "serve_prefill_ms": float(m.group(1)),
+               "serve_decode_ms_per_token": float(m.group(3))}
+    return launches["flash_attention"] + fwd_launches, summary
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", default=None,
@@ -727,9 +1067,17 @@ def main() -> int:
     rt_launches, gat_prog, rt_resps, rt_peak, rt_wall = runtime_phase(
         torch, engine, co, fl)
     sddmm_entry = fl_sddmm_entry(torch, ops, ref, gat_prog)
+    t5 = time.perf_counter()
+    flash_entry, flash_rel = flash_kernel_phase(torch, ops, ref)
+    flash_launches, lm = lm_phase(torch, ops, ref)
+    lm["flash_path_shape_bf16_rel_l2"] = flash_rel
+    log(f"LM phase (flash checks, prefill, decode, launch.serve): "
+        f"{time.perf_counter() - t5:.1f} s")
+    flash_entry["launches"] = flash_launches
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = launches.get(e["name"], 0) + rt_launches[e["name"]]
+    kernels.append(flash_entry)
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
@@ -759,6 +1107,7 @@ def main() -> int:
                                          "overlay": r.overlay,
                                          "cache_hit": r.cache_hit}
                                         for r in rt_resps]},
+                       "lm": lm,
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Planted faults in the flash kernel, read by the checks that hold it.
+
+    python3 flash_faults.py [--json-out PATH]
+
+Builds the flash kernel (``src/repro_torch/kernels/csrc/flash_attention.cu``)
+and one copy of it per entry of ``FAULTS``, each with one planted fault,
+one ``nvcc`` per source, all at once.  The copies are written and built
+under the git-ignored ``src/repro_torch/kernels/_build/faults/``; the
+source in the checkout is not touched.  For the real kernel and each
+fault, called through the unchanged ``ops.flash_attention`` wrapper, it
+reads:
+
+* the path-shape output (BH=64, T=2048, d=128, bf16, causal) against
+  ``flash_attention_plain``: the JAX bf16 case's elementwise rtol / atol
+  3e-2, and ``chip_smoke.check_rows``'s relative L2 over the whole
+  output and over each query row;
+* the last-position logits of a qwen3-0.6b prefill (bf16, B=4, T=2048,
+  weights from seed 0, as in ``chip_smoke.py``) against the same model
+  with plain attention, beside ``chip_smoke.py``'s 2e-2 limit.
+
+It exits non-zero if the real kernel fails a check or a fault passes
+``check_rows``.  The last line of the output is the readings as JSON.
+Needs one CUDA card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# name -> (what the fault does, text of flash_attention.cu, its replacement)
+FAULTS = {
+    "causal_skip_early": (
+        "the causal skip one tile early: the diagonal KV tile is skipped",
+        "const int end = causal ? min(tk, q0 + BQ) : tk;",
+        "const int end = causal ? min(tk, q0) : tk;"),
+    "drop_mid_tile_late": (
+        "bf16 body: query tiles from row 1024 on skip their middle KV tile",
+        "    __syncthreads();                       // last tile's reads done",
+        "    if (q0 >= 1024 && kt == n_kt / 2) continue;\n"
+        "    __syncthreads();"),
+    "scale_1pct": (
+        "bf16 body: scores scaled by 1.01 d^-1/2",
+        "s[nt][e] = ok ? s[nt][e] * scale : -INFINITY;",
+        "s[nt][e] = ok ? s[nt][e] * (scale * 1.01f) : -INFINITY;"),
+}
+
+
+def build_faults(build) -> dict:
+    """Write and build one library per fault; returns name -> path."""
+    with open(os.path.join(build.CSRC, "flash_attention.cu")) as fh:
+        src = fh.read()
+    out_dir = os.path.join(build.BUILD_DIR, "faults")
+    os.makedirs(out_dir, exist_ok=True)
+    procs, libs = {}, {}
+    try:
+        for name, (_, old, new) in FAULTS.items():
+            if src.count(old) != 1:
+                raise SystemExit(f"flash_faults: fault {name}: its text "
+                                 "is not in the source exactly once")
+            cu = os.path.join(out_dir, f"flash_{name}.cu")
+            with open(cu, "w") as fh:
+                fh.write(src.replace(old, new))
+            libs[name] = os.path.join(out_dir, f"libflash_{name}.so")
+            procs[name] = subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", libs[name], cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        build.build_all(["flash_attention"])
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise SystemExit(f"flash_faults: nvcc failed on fault "
+                                 f"{name}:\n{log}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return libs
+
+
+def load_entry(build, path):
+    fn_name, argtypes = build._ARGTYPES["flash_attention"]
+    fn = getattr(ctypes.CDLL(path), fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json-out", default=None)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_faults: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.models.steps import build_model, make_prefill_step
+
+    cs.log(cs.card_line())
+    libs = build_faults(build)
+    real_entry = ops.entry
+    variants = {"kernel": real_entry("flash_attention")}
+    variants.update({n: load_entry(build, p) for n, p in libs.items()})
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bh, t, d = cs.LM_B * 16, cs.LM_T, 128
+    q, k, v = (torch.randn(bh, t, d, generator=gen, device="cuda"
+                           ).bfloat16() for _ in range(3))
+    want = ref.flash_attention_plain(q, k, v, True).float()
+
+    cfg = get_config(cs.LM_ARCH)
+    model = build_model(cfg, seed=0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (cs.LM_B, cs.LM_T)).astype(np.int32), device="cuda")
+    prefill = make_prefill_step(model, cfg)
+    batch = {"tokens": tokens}
+    with cs.attention_as(ops, ref.flash_attention_plain):
+        plain = prefill(model, batch).float()
+
+    readings, bad = {}, []
+    for name, fn in variants.items():
+        ops.entry = lambda n, fn=fn: fn if n == "flash_attention" \
+            else real_entry(n)
+        try:
+            got = ops.flash_attention(q, k, v, True).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            elem_ok = bool((err <= cs.FLASH_BF16_TOL * (1 + want.abs()))
+                           .all())
+            r_whole, r_row = cs.rows_rel(got, want)
+            rows_ok = (r_whole <= cs.FLASH_BF16_WHOLE
+                       and r_row <= cs.FLASH_BF16_ROW)
+            logits = prefill(model, batch).float()
+            rel = float((logits - plain).norm() / plain.norm())
+        finally:
+            ops.entry = real_entry
+        readings[name] = {"max_abs_err": float(err.max()),
+                          "elementwise_3e-2_passes": elem_ok,
+                          "rel_l2_whole": r_whole, "rel_l2_worst_row": r_row,
+                          "check_rows_passes": rows_ok,
+                          "prefill_rel_l2": rel}
+        what = "the kernel" if name == "kernel" else FAULTS[name][0]
+        cs.log(f"{name} ({what}): max|err| {float(err.max()):.3e}, "
+               f"elementwise 3e-2 {'passes' if elem_ok else 'fails'}; "
+               f"relative L2 {r_whole:.3e} whole, {r_row:.3e} worst row: "
+               f"check_rows {'passes' if rows_ok else 'fails'}; prefill "
+               f"logits relative L2 {rel:.3e} (limit {cs.LM_REL_L2})")
+        if name == "kernel":
+            if not (elem_ok and rows_ok and rel <= cs.LM_REL_L2):
+                bad.append(name)
+        elif rows_ok:
+            bad.append(name)
+    if args.json_out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
+                    exist_ok=True)
+        with open(args.json_out, "w") as fh:
+            json.dump(readings, fh, indent=1)
+    cs.log(json.dumps(readings))
+    if bad:
+        print(f"flash_faults: FAILED: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

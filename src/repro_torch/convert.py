@@ -11,16 +11,22 @@ package's bundles as they are).
   as a plain table (the per-layer fields of the program manifest plus
   type, widths and operators) and back into a port :class:`ModelIR`.
   ``layer_table`` reads any object with the ``ModelIR`` attributes.
+* :func:`lm_params_from_arrays` — a decoder LM's parameter pytree (JAX's
+  ``DecoderLM.init_params`` as nested dicts and tuples of numpy arrays,
+  segments stacked on a leading ``rep`` axis) as the port model's state
+  dict; :func:`lm_param_shapes` the same names with the shapes only.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.graph import Graph
 from repro_torch.core.ir import Activation, AggOp, LayerIR, LayerType, ModelIR
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import build_segments
 
 
 _WEIGHT_KEYS = ("W", "b", "mu", "sigma", "gamma", "beta", "fused_scale",
@@ -117,3 +123,51 @@ def model_from_arrays(layers: dict, weights: Dict[str, np.ndarray]
     m.weights = {k: np.asarray(v, np.float32) for k, v in weights.items()}
     m.validate()
     return m
+
+
+# --------------------------------------------------------------------------- #
+# Decoder LM weights.
+# --------------------------------------------------------------------------- #
+def _lm_leaves(cfg: ModelConfig, params) -> Iterator[Tuple[str, Any, Any]]:
+    """(port name, JAX leaf, rep index or None) for every parameter.  Port
+    layer i is the i-th block JAX's scan applies: segment s, repeat r,
+    superblock position b, i.e. ``params["segments"][s][b][...][r]``."""
+    for name in ("embed", "final_norm"):
+        yield name, params[name], None
+    i = 0
+    for s, (sb, rep) in enumerate(build_segments(cfg)):
+        for r in range(rep):
+            for b in range(len(sb)):
+                stack = [(f"layers.{i}", params["segments"][s][b])]
+                while stack:
+                    prefix, node = stack.pop()
+                    if isinstance(node, dict):
+                        stack.extend((f"{prefix}.{k}", v)
+                                     for k, v in node.items())
+                    else:
+                        yield prefix, node, r
+                i += 1
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.array(a)                         # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes, as JAX hands it
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_arrays(cfg: ModelConfig, params) -> Dict[str,
+                                                            torch.Tensor]:
+    """JAX's decoder-LM pytree (``jax.tree.map(np.asarray,
+    model.init_params(key))``) -> the port's state dict (CPU tensors, the
+    arrays' dtypes; load with ``model.load_state_dict``)."""
+    return {name: _to_tensor(leaf if r is None else np.asarray(leaf)[r])
+            for name, leaf, r in _lm_leaves(cfg, params)}
+
+
+def lm_param_shapes(cfg: ModelConfig, params) -> Dict[str, tuple]:
+    """The names and shapes :func:`lm_params_from_arrays` would return,
+    read from anything with a ``.shape`` (e.g. ``jax.eval_shape``'s
+    ShapeDtypeStructs), without touching data."""
+    return {name: tuple(leaf.shape[1:] if r is not None else leaf.shape)
+            for name, leaf, r in _lm_leaves(cfg, params)}

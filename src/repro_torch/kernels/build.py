@@ -24,11 +24,12 @@ from typing import Dict, List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("gemm", "spdmm", "sddmm")
+SOURCES = ("gemm", "spdmm", "sddmm", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _c_void_p, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_c_float = ctypes.c_float
 # C signatures of the entry points (see the .cu files).
 _ARGTYPES = {
     "gemm": ("gemm_f32", [_c_void_p] * 4 + [_c_int] * 3 + [_c_ll] * 4
@@ -37,6 +38,8 @@ _ARGTYPES = {
               + [_c_void_p]),
     "sddmm": ("sddmm_f32", [_c_void_p] * 6 + [_c_int] * 4 + [_c_ll] * 2
               + [_c_void_p]),
+    "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
+                        + [_c_int] * 6 + [_c_float, _c_void_p]),
 }
 
 _lock = threading.Lock()

@@ -3,7 +3,9 @@
 ``gemm(x, w, acc)`` returns ``acc + x @ w``, ``spdmm(cols, vals, h, acc)``
 returns ``acc + ELL(cols, vals) @ h`` and ``sddmm(h_dst, h_src, cols, mask,
 acc)`` returns ``acc + where(mask, <h_dst[r], h_src[cols[r, k]]>, 0)``, all
-in fp32 (``acc`` and ``mask`` may be None).  Tensors on a CUDA device
+in fp32 (``acc`` and ``mask`` may be None); ``flash_attention(q, k, v,
+causal)`` returns ``softmax(q k^T d^-1/2 [+ causal mask]) v`` per head of
+[BH, T, d] tensors in fp32 or bf16.  Tensors on a CUDA device
 launch the kernel from ``csrc/`` on the current stream, after checking
 device, dtype, shape and strides, and raise on anything the kernel does
 not take; there is no fallback.  Tensors on the CPU go to the plain
@@ -31,7 +33,8 @@ import torch
 from . import ref
 from .build import entry
 
-LAUNCHES: Dict[str, int] = {"gemm": 0, "spdmm": 0, "sddmm": 0}
+LAUNCHES: Dict[str, int] = {"gemm": 0, "spdmm": 0, "sddmm": 0,
+                            "flash_attention": 0}
 _launch_lock = threading.Lock()
 
 
@@ -173,4 +176,50 @@ def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"sddmm kernel launch failed: CUDA error {rc}")
     _launched("sddmm")
+    return out
+
+
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FLASH_MAX_D = 128
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """``softmax(q k^T d^-1/2 [+ causal mask]) v`` for q [BH, Tq, d] and
+    k / v [BH, Tk, d], all fp32 or all bf16, contiguous, d <= 128;
+    returns [BH, Tq, d] in q's dtype (fp32 math inside).  The causal mask
+    is the Pallas kernel's ``qpos >= kpos``, both counted from 0.  Callers
+    with grouped KV heads repeat them first."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_plain(q, k, v, causal)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention {name}: expected float32 or "
+                            f"bfloat16 like q ({q.dtype}), got {t.dtype}")
+        if t.dim() != 3:
+            raise ValueError(f"flash_attention {name}: expected [BH, T, d], "
+                             f"got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention {name}: must be contiguous "
+                             f"(stride {t.stride()})")
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if k.shape != (bh, tk, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k / v must be [{bh}, Tk, {d}] "
+                         f"like q, got {tuple(k.shape)} / {tuple(v.shape)}")
+    if not 1 <= d <= FLASH_MAX_D:
+        raise ValueError(f"flash_attention: head dim {d} outside [1, "
+                         f"{FLASH_MAX_D}]")
+    if tq < 1 or tk < 1:
+        raise ValueError(f"flash_attention: empty sequence (Tq={tq}, "
+                         f"Tk={tk})")
+    out = torch.empty_like(q)
+    rc = entry("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _FLASH_DTYPES[q.dtype], bh, tq, tk, d, int(bool(causal)),
+        d ** -0.5, _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    _launched("flash_attention")
     return out

@@ -3,10 +3,13 @@
 They mirror ``repro/kernels/ref.py`` (``gemm_ref``, ``spdmm_ref``,
 ``sddmm_ref``): the CPU tests run them, and ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.  ``sddmm_step_ref`` is the ACK's
-whole SDDMM step (mask and accumulator around ``sddmm_ref``), the function
-the SDDMM kernel computes.  Matrix products here run in full fp32 only
-where the caller has left ``torch.backends.cuda.matmul.allow_tf32`` False
-(the default, which ``chip_smoke.py`` sets explicitly).
+whole SDDMM step (mask and accumulator around ``sddmm_ref``), the
+function the SDDMM kernel computes; ``flash_attention_plain`` is the
+flash kernel's function in its own [BH, T, d] layout (JAX's
+``flash_attention_ref`` transposed).  Matrix products here run in full
+fp32 only where the caller has left
+``torch.backends.cuda.matmul.allow_tf32`` False (the default, which
+``chip_smoke.py`` sets explicitly).
 """
 from __future__ import annotations
 
@@ -47,3 +50,21 @@ def sddmm_step_ref(h_dst: torch.Tensor, h_src: torch.Tensor,
     if mask is not None:
         s = torch.where(mask, s, torch.zeros_like(s))
     return s if acc is None else acc + s
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = True
+                          ) -> torch.Tensor:
+    """The flash kernel's function: q [BH, Tq, d], k / v [BH, Tk, d] ->
+    [BH, Tq, d] in q's dtype.  Scores ``q k^T d^-1/2`` in fp32; under
+    ``causal`` the Pallas kernel's index mask ``qpos >= kpos`` (both
+    counted from 0) scores masked pairs -1e30."""
+    d = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
+    if causal:
+        tq, tk = q.shape[-2], k.shape[-2]
+        qpos = torch.arange(tq, device=q.device)[:, None]
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)

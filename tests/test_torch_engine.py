@@ -389,6 +389,19 @@ def test_port_imports_neither_jax_nor_repro():
         "rs = pool.serve([InferenceRequest('b1', g, G.random_features(g,"
         " seed=s)) for s in range(3)], max_batch=2)\n"
         "assert [x.batch_size for x in rs] == [2, 2, 1]\n"
+        "import torch\n"
+        "from repro_torch import convert\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.models.steps import build_model,"
+        " make_prefill_step\n"
+        "cfg = get_smoke_config('qwen3-0.6b')\n"
+        "lm = build_model(cfg, device='cpu')\n"
+        "lg = make_prefill_step(lm, cfg)(lm, {'tokens':"
+        " torch.zeros(2, 5, dtype=torch.int32)})\n"
+        "assert lg.shape == (2, cfg.vocab)\n"
+        "assert serve.main(['--smoke', '--device', 'cpu', '--requests', '2',"
+        " '--prompt-len', '3', '--gen', '2']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"

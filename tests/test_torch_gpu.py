@@ -1,6 +1,7 @@
 """The port on a CUDA device: hand kernels against their plain versions,
-the Engine against the float64 reference, and a batched lane against the
-same request run alone.
+the Engine against the float64 reference, a batched lane against the
+same request run alone, and the LM prefill through the flash kernel
+against the same model with plain attention.
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -27,6 +28,9 @@ from repro_torch.core import reference as TR  # noqa: E402
 from repro_torch.core.passes.partition import PartitionConfig  # noqa: E402
 from repro_torch.engine import Engine, InferenceRequest  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models.steps import build_model  # noqa: E402
+from repro_torch.models.steps import make_prefill_step  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -37,6 +41,18 @@ SPDMM_SHAPES = [(128, 16, 128, 128), (64, 8, 128, 32), (100, 24, 70, 33),
                 (32, 64, 32, 8), (8, 8, 8, 8), (4096, 512, 4096, 128)]
 SDDMM_SHAPES = [(128, 16, 128, 128), (64, 8, 96, 256), (56, 24, 70, 33),
                 (8, 8, 8, 8)]
+# tests/test_kernels.py's flash sweep (fp32, atol 2e-5) and bf16 case
+# (rtol / atol 3e-2), plus ragged shapes: (tq, tk, heads, d, causal, dtype)
+FLASH_CASES = [(128, 128, 2, 64, True, "float32"),
+               (256, 256, 4, 32, True, "float32"),
+               (128, 256, 1, 64, False, "float32"),
+               (256, 128, 2, 128, True, "float32"),
+               (128, 128, 2, 64, True, "bfloat16"),
+               (200, 200, 3, 128, True, "float32"),
+               (200, 200, 3, 128, True, "bfloat16"),
+               (77, 130, 2, 40, False, "bfloat16"),
+               (1, 1, 1, 16, True, "float32"),
+               (2048, 2048, 64, 128, True, "bfloat16")]   # the path shape
 
 
 @pytest.fixture
@@ -212,3 +228,67 @@ def test_cuda_engine_matches_reference(cuda, name):
                             torch.as_tensor(x, device=cuda),
                             dtype=torch.float64)
     _close(y, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("tq,tk,h,d,causal,dtype", FLASH_CASES)
+def test_cuda_flash_matches_plain(cuda, tq, tk, h, d, causal, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(h, t, d, generator=g, device=cuda).to(dt)
+               for t in (tq, tk, tk))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal)
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.dtype == dt
+    tol = (0.0, 2e-5) if dt == torch.float32 else (3e-2, 3e-2)
+    want = ref.flash_attention_plain(q, k, v, causal)
+    _close(got, want, *tol)
+    if dt == torch.bfloat16:
+        # Limits scaled to bf16 rounding (u = 2^-8), as chip_smoke.py's
+        # check_rows: relative L2 <= u whole and <= 2u in every query row.
+        err = (got.float() - want.float())
+        assert float(err.norm() / want.float().norm()) <= 2.0 ** -8
+        rows = err.norm(dim=-1) / want.float().norm(dim=-1)
+        assert float(rows.max()) <= 2.0 ** -7
+    assert torch.equal(ops.flash_attention(q, k, v, causal), got)
+
+
+def test_cuda_flash_rejects_bad_operands(cuda):
+    q = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q)
+    big = torch.zeros(2, 8, 136, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="k / v"):
+        ops.flash_attention(q, q[:1], q[:1])
+    nc = torch.zeros(2, 64, 8, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(nc, q, q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, torch.zeros(2, 8, 64))  # mixed devices
+    with pytest.raises(ValueError, match="\\[BH, T, d\\]"):
+        ops.flash_attention(q[0], q[0], q[0])
+
+
+@pytest.mark.parametrize("dtype,limit", [("bfloat16", 2e-2),
+                                         ("float32", 1e-5)])
+def test_cuda_two_layer_prefill_matches_plain_attention(cuda, dtype, limit,
+                                                        monkeypatch):
+    # qwen3-0.6b at full width, 2 layers, a ragged prompt (300 tokens):
+    # one flash launch per layer, logits as with the plain version.
+    import dataclasses
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                              dtype=dtype)
+    model = build_model(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 300)).astype(np.int32)).to(cuda)
+    prefill = make_prefill_step(model, cfg)
+    ops.reset_launches()
+    got = prefill(model, {"tokens": toks}).float()
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    monkeypatch.setattr(ops, "flash_attention", ref.flash_attention_plain)
+    want = prefill(model, {"tokens": toks}).float()
+    assert got.shape == (2, cfg.vocab) and bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) <= limit

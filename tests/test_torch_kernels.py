@@ -144,7 +144,10 @@ def test_cpu_wrappers_do_not_count_launches():
               torch.ones(4, 4))
     ops.sddmm(torch.ones(4, 4), torch.ones(4, 4),
               torch.zeros(4, 8, dtype=torch.int32))
-    assert ops.LAUNCHES == {"gemm": 0, "spdmm": 0, "sddmm": 0}
+    ops.flash_attention(torch.ones(2, 3, 4), torch.ones(2, 5, 4),
+                        torch.ones(2, 5, 4))
+    assert ops.LAUNCHES == {"gemm": 0, "spdmm": 0, "sddmm": 0,
+                            "flash_attention": 0}
 
 
 def test_wrapper_checks_reject_bad_operands():
