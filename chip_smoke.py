@@ -15,9 +15,12 @@ Phases (any failure exits non-zero; nothing is caught):
    w in {8, 64, 512}, strided views as the executor passes them) and at
    the ragged sweep shapes of ``tests/test_kernels.py``, fp32 tolerance
    rtol 1e-5 / atol 1e-4 (SDDMM's unmasked sweep: rtol 1e-4 / atol 1e-4,
-   the JAX sweep's).  Median times of kernel, plain version and the
-   PyTorch library call, and the bound (bytes over 3.35 TB/s or flops
-   over 67 TFLOP/s fp32, the H100 SXM data-sheet peaks).
+   the JAX sweep's).  SpDMM also with a live length per row (``row_len``:
+   rows of length 0, 1, w - 1 and w, pads between live slots, f in {8,
+   128, 200}, strided h), bit-identical to the full-width walk and to the
+   same call with acc aliasing out.  Median times of kernel, plain
+   version and the PyTorch library call, and the bound (bytes over 3.35
+   TB/s or flops over 67 TFLOP/s fp32, the H100 SXM data-sheet peaks).
 3. Engine.serve path: ``Engine(device="cuda").serve`` answers b1-b8 on
    Cora (CO) and three b2 (GCN, hidden 128) requests on full-scale Flickr
    (FL, 89,250 vertices, 989,006 edges with self loops), weights random
@@ -28,8 +31,9 @@ Phases (any failure exits non-zero; nothing is caught):
    equal the executor's GEMM and SUM/MEAN SpDMM tile ops.  One more FL
    request (a cache hit) under ``torch.profiler``: device time by kernel
    and the device's busy share.  Then the SpDMM kernel timed again on the
-   widest real ELL slice of the FL program, which is the kernel's entry
-   in the ``kernels`` line.
+   widest real ELL slice of the FL program with the executor's
+   ``row_len`` (beside the full-width walk of the same slice), which is
+   the kernel's entry in the ``kernels`` line.
 4. Runtime path: ``ServeLoop(OverlayPool(engines=[<the Engine above>,
    Engine()]), max_batch=4)`` with a worker thread per overlay serves 11
    requests: gat-dot (a dot-product-attention GAT, hidden 64, 2 layers)
@@ -48,16 +52,19 @@ Phases (any failure exits non-zero; nothing is caught):
    ``torch.Generator`` seed 0 with the JAX initializers' scales:
    the flash kernel against its plain version (the sweep of
    ``tests/test_kernels.py`` in fp32 at atol 2e-5, its bf16 case at
-   rtol / atol 3e-2, ragged causal Tq = Tk = 200, and the path shape
-   BH=64, T=2048, d=128 in fp32 and bf16, timed beside the plain version
-   and ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick
-   the port never calls; every bf16 case also within relative L2 2^-8
-   over the whole output and 2^-7 over each query row,
-   ``check_rows``); ``make_prefill_step`` in bf16 at B=4, T=2048 (a
-   warm-up and 3 timed prefills, 28 flash launches each, last-position
-   logits within relative L2 2e-2 of the same model run with plain
-   attention, the reading of the same model with ``_sdpa_chunked``
-   attention beside it, one more prefill under ``torch.profiler``); fp32 decode
+   rtol / atol 3e-2, ragged causal Tq = Tk = 200, grouped KV heads with
+   G = 2 and 8, and the path shape BH=64, T=2048, d=128 in fp32 and bf16
+   with the prefill's 32 KV heads (G=2) and with one KV head per query
+   head, timed beside the plain version and
+   ``F.scaled_dot_product_attention(is_causal=True)`` (with
+   ``enable_gqa=True`` for G=2 where torch takes it), a yardstick the
+   port never calls; every bf16 case also within relative L2 2^-8 over
+   the whole output and 2^-7 over each query row, ``check_rows``);
+   ``make_prefill_step`` in bf16 at B=4, T=2048 (a warm-up and 3 timed
+   prefills, 28 flash launches each, last-position logits within
+   relative L2 2e-2 of the same model run with plain attention, the
+   reading of the same model with ``_sdpa_chunked`` attention beside it,
+   one more prefill under ``torch.profiler``); fp32 decode
    against forward at B=2, T=64 (every position within 2e-4 of max
    |logit|, the JAX test's tolerance); and the serving loop
    ``repro_torch.launch.serve.main`` at its defaults (8 requests, prompt
@@ -103,6 +110,9 @@ GEMM_SWEEP = [(128, 128, 128), (256, 128, 384), (64, 32, 16),
               (100, 60, 33), (8, 8, 8), (1, 128, 1), (130, 70, 258)]
 SPDMM_SWEEP = [(128, 16, 128, 128), (64, 8, 128, 32), (100, 24, 70, 33),
                (32, 64, 32, 8), (8, 8, 8, 8)]
+# SpDMM with a live length per row: (n1, w, n_src, f).
+SPDMM_ROW_LEN = [(64, 16, 50, 8), (100, 96, 70, 128), (128, 33, 100, 200),
+                 (4096, 512, 4096, 128)]
 SDDMM_SWEEP = [(128, 16, 128, 128), (64, 8, 96, 256), (56, 24, 70, 33),
                (8, 8, 8, 8)]
 SDDMM_RTOL, SDDMM_ATOL = 1e-4, 1e-4
@@ -234,6 +244,7 @@ def kernel_phase(torch, ops, ref):
         check_close(torch, f"spdmm {n1}x{w} ns={ns} f={f}",
                     ops.spdmm(cols, vals, h), ref.spdmm_ref(cols, vals, h),
                     KERNEL_RTOL, KERNEL_ATOL)
+    spdmm_row_len_cases(torch, ops, ref, gen)
     zero = ops.spdmm(torch.zeros(16, 8, dtype=torch.int32, device="cuda"),
                      torch.zeros(16, 8, device="cuda"), randn(16, 16))
     torch.cuda.synchronize()
@@ -247,8 +258,8 @@ def kernel_phase(torch, ops, ref):
                     ops.sddmm(hd, hs, cols), ref.sddmm_ref(hd, hs, cols),
                     SDDMM_RTOL, SDDMM_ATOL)
     log("kernels: ragged sweeps within tolerance "
-        f"({len(GEMM_SWEEP)} gemm, {len(SPDMM_SWEEP)} spdmm, "
-        f"{len(SDDMM_SWEEP)} sddmm shapes)")
+        f"({len(GEMM_SWEEP)} gemm, {len(SPDMM_SWEEP)} + "
+        f"{len(SPDMM_ROW_LEN)} spdmm, {len(SDDMM_SWEEP)} sddmm shapes)")
 
     # GEMM at the executor's tile shape: a [4096, 128] sub-fiber view of a
     # padded [4096, 512] layer tensor times a [128, 128] weight block view,
@@ -316,6 +327,49 @@ def kernel_phase(torch, ops, ref):
     return gemm_entry
 
 
+def spdmm_row_len_cases(torch, ops, ref, gen):
+    """SpDMM with a live length per row: rows of length 0, 1, w - 1, w and
+    random, pads between live slots (vals 0) and after the last; strided
+    h, an accumulator, f in {8, 128, 200}.  Each is held against the plain
+    version, is bit-identical to the walk over all w slots, and to the
+    same call with acc aliasing out (through the C entry point, as the
+    wrapper always allocates out)."""
+    for n1, w, ns, f in SPDMM_ROW_LEN:
+        lens = torch.randint(0, w + 1, (n1,), generator=gen, device="cuda")
+        lens[:4] = torch.tensor([0, 1, w - 1, w], device="cuda")
+        slot = torch.arange(w, device="cuda")
+        live = (slot[None] < lens[:, None]) & (
+            torch.rand(n1, w, generator=gen, device="cuda") > 0.3)
+        live[torch.arange(n1, device="cuda"), (lens - 1).clamp_min(0)] |= \
+            lens > 0
+        cols = torch.where(live, torch.randint(
+            0, ns, (n1, w), generator=gen, device="cuda"), 0).to(
+            torch.int32).contiguous()
+        vals = torch.where(live, torch.randn(n1, w, generator=gen,
+                                             device="cuda"), 0.0)
+        row_len = (live * (slot + 1)).amax(1).to(torch.int32).contiguous()
+        if row_len[:4].tolist() != [0, 1, w - 1, w]:
+            fail(f"spdmm row_len case {n1}x{w}: lengths "
+                 f"{row_len[:4].tolist()}")
+        h = torch.randn(ns, 2 * f + 4, generator=gen, device="cuda"
+                        )[:, 4:4 + f]
+        acc = torch.randn(n1, f, generator=gen, device="cuda")
+        name = f"spdmm row_len {n1}x{w} ns={ns} f={f}"
+        got = ops.spdmm(cols, vals, h, acc, row_len)
+        check_close(torch, name, got, acc + ref.spdmm_ref(cols, vals, h),
+                    KERNEL_RTOL, KERNEL_ATOL)
+        if not torch.equal(got, ops.spdmm(cols, vals, h, acc)):
+            fail(f"{name}: not bit-identical to the full-width walk")
+        inout = acc.clone()
+        rc = ops.entry("spdmm")(
+            cols.data_ptr(), vals.data_ptr(), h.data_ptr(), inout.data_ptr(),
+            inout.data_ptr(), row_len.data_ptr(), n1, w, f, ops._ld(h),
+            ops._ld(inout), ops._ld(inout), ops._stream(h))
+        torch.cuda.synchronize()
+        if rc != 0 or not torch.equal(inout, got):
+            fail(f"{name}: acc aliasing out differs (rc {rc})")
+
+
 def _ell_to_csr(torch, cols, vals, live, n_src):
     """The true edges of an ELL tile as a CSR matrix [n1, n_src]
     (duplicate columns summed), for the library yardstick."""
@@ -326,11 +380,13 @@ def _ell_to_csr(torch, cols, vals, live, n_src):
     return coo.to_sparse_csr()
 
 
-def _spdmm_bound(n1, w, n_src, f, nnz):
-    """Bytes: cols + vals [n1, w] + h [n_src, f] + acc + out [n1, f], each
-    once; operations: 2 flops per true edge and feature (pad slots are
-    work the data does not need)."""
-    nbytes = 4 * (2 * n1 * w + n_src * f + 2 * n1 * f)
+def _spdmm_bound(n1, w, n_src, f, nnz, walked=None):
+    """Bytes: the cols + vals of the slots walked (``walked``; all n1 w
+    when None, the full-width walk), row_len [n1] when given, h
+    [n_src, f], acc + out [n1, f], each once; operations: 2 flops per
+    true edge and feature (pad slots are work the data does not need)."""
+    slot_bytes = 8 * n1 * w if walked is None else 8 * walked + 4 * n1
+    nbytes = slot_bytes + 4 * (n_src * f + 2 * n1 * f)
     return bound_ms(nbytes, 2.0 * nnz * f)
 
 
@@ -394,6 +450,9 @@ def path_phase(torch):
     log(f"launches on the main path: gemm {launches['gemm']}, spdmm "
         f"{launches['spdmm']}; executor tile ops: gemm {exp['gemm']}, "
         f"spdmm {exp['spdmm']} (SUM/MEAN {exp['spdmm_sum_mean']})")
+    hits = [r.t_loh * 1e3 for r in responses[-3:] if r.cache_hit]
+    log("b2@FL cache hits: T_LoH " + ", ".join(f"{ms:.2f}" for ms in hits)
+        + " ms")
     if [r.cache_hit for r in responses[-3:]] != [False, True, True]:
         fail("FL requests: expected one cache miss then two hits, got "
              f"{[r.cache_hit for r in responses[-3:]]}")
@@ -455,7 +514,8 @@ def hold_against_reference(torch, reqs, responses) -> float:
 
 
 def profile_call(torch, fn, label: str):
-    """``fn()`` under torch.profiler: device time by kernel name and the
+    """``fn()`` under torch.profiler: device time by kernel name (with
+    each kernel's launches and their median and longest duration) and the
     device's busy share of the call's wall time; returns the device ms by
     kernel name.  When the profiler yields no device events it says "not
     measured" (and returns None); a profiler that raises fails the run."""
@@ -475,7 +535,7 @@ def profile_call(torch, fn, label: str):
         return None
     by_name, ivs = {}, []
     for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         ivs.append((e.time_range.start, e.time_range.end))
     busy, end = 0.0, float("-inf")
     for a, b in sorted(ivs):
@@ -485,14 +545,19 @@ def profile_call(torch, fn, label: str):
     log(f"profile {label}: wall {wall_us / 1e3:.2f} ms under the "
         f"profiler, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}%), {len(kern)} device events")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"  {us / 1e3:9.3f} ms  {name[:90]}")
-    return {name: us / 1e3 for name, us in by_name.items()}
+    total = {name: sum(us) for name, us in by_name.items()}
+    for name, us in sorted(total.items(), key=lambda kv: -kv[1])[:10]:
+        each = by_name[name]
+        log(f"  {us / 1e3:9.3f} ms  {len(each):5d} x (median "
+            f"{statistics.median(each):8.2f} us, max {max(each):8.2f} us)  "
+            f"{name[:70]}")
+    return {name: us / 1e3 for name, us in total.items()}
 
 
 def fl_spdmm_entry(torch, ops, ref, prog):
     """The SpDMM kernel on the widest real ELL slice of the FL program,
-    with the source view the executor passes it."""
+    with the source view and the live lengths the executor passes it
+    (timed beside the full-width walk of the same slice)."""
     from repro_torch.engine.executor import _staged
     pg = prog.pgraph
     st = _staged(pg, torch.device("cuda"))
@@ -500,37 +565,49 @@ def fl_spdmm_entry(torch, ops, ref, prog):
     key = max(cols_d, key=lambda k3: (cols_d[k3].shape[1],
                                       pg.tiles[k3[:2]][k3[2]].nnz))
     cols, vals = cols_d[key], vals_d[key]
+    row_len = st.tiles("row_len")[key]
     n1, w = cols.shape
     f = pg.config.n2
     nnz = pg.tiles[key[:2]][key[2]].nnz
+    walked = int(row_len.sum())
     gen = torch.Generator(device="cuda").manual_seed(1)
     h_full = torch.randn(pg.n_blocks * n1, 4 * f, generator=gen,
                          device="cuda")
     k = key[1]
     h = h_full[k * n1:(k + 1) * n1, f:2 * f]
     acc = torch.randn(n1, f, generator=gen, device="cuda")
-    err = check_close(torch, "spdmm FL tile", ops.spdmm(cols, vals, h, acc),
+    got = ops.spdmm(cols, vals, h, acc, row_len)
+    err = check_close(torch, "spdmm FL tile", got,
                       acc + ref.spdmm_ref(cols, vals, h), KERNEL_RTOL,
                       KERNEL_ATOL)
+    if not torch.equal(got, ops.spdmm(cols, vals, h, acc)):
+        fail("spdmm FL tile: row_len walk not bit-identical to the "
+             "full-width walk")
     live = vals != 0
     sp, hc = _ell_to_csr(torch, cols, vals, live, n1), h.contiguous()
-    t_k = median_ms(torch, lambda: ops.spdmm(cols, vals, h, acc))
+    t_k = median_ms(torch, lambda: ops.spdmm(cols, vals, h, acc, row_len))
+    t_full = median_ms(torch, lambda: ops.spdmm(cols, vals, h, acc))
     t_p = median_ms(torch, lambda: acc + ref.spdmm_ref(cols, vals, h))
     t_l = median_ms(torch, lambda: torch.sparse.mm(sp, hc))
-    b_ms, b_by = _spdmm_bound(n1, w, n1, f, nnz)
+    b_ms, b_by = _spdmm_bound(n1, w, n1, f, nnz, walked)
+    b_pad, b_pad_by = _spdmm_bound(n1, w, n1, f, nnz)
     slots = sum(t.cols.size for ts in pg.tiles.values() for t in ts)
     log(f"FL program: {sum(len(ts) for ts in pg.tiles.values())} ELL "
         f"slices, {slots} padded slots for {pg.total_nnz()} edges "
         f"({slots / max(pg.total_nnz(), 1):.1f}x)")
     log(f"kernel spdmm on FL slice (j,k,s)={key} n1={n1} w={w} f={f} "
-        f"nnz={nnz}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"torch.sparse.mm {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"max|err| {err:.2e}")
+        f"nnz={nnz}, {walked} slots walked (sum of row_len): kernel "
+        f"{t_k:.4f} ms (full-width walk {t_full:.4f} ms), plain "
+        f"{t_p:.4f} ms, torch.sparse.mm {t_l:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; the padded slots' bound {b_pad:.4f} ms, {b_pad_by}), "
+        f"L2 gather volume {walked * 4 * f / 1e6:.1f} MB, max|err| "
+        f"{err:.2e}")
     return {"name": "spdmm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/spdmm.cu",
             "replaces": "src/repro/kernels/spdmm.py:44",
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
+            "full_walk_ms": t_full, "padded_bound_ms": b_pad}
 
 
 # --------------------------------------------------------------------------- #
@@ -789,36 +866,65 @@ def chunked_attention(q, k, v, causal=True, chunk=256):
     return o[0].transpose(0, 1).contiguous()
 
 
-def flash_bound(bh, tq, tk, d, causal, elem_bytes, peak_flop_s):
-    """Bytes: q, k, v read once, out written once; operations: 4 d flops
-    (two products) per (query, key) pair the mask keeps."""
+def flash_bound(bh, tq, tk, d, causal, elem_bytes, peak_flop_s,
+                kv_heads=None):
+    """Bytes: q, k, v read once (k / v over ``kv_heads`` heads, bh when
+    None), out written once; operations: 4 d flops (two products) per
+    (query, key) pair the mask keeps."""
+    kv = bh if kv_heads is None else kv_heads
     pairs = (sum(min(tk, i + 1) for i in range(tq)) if causal
              else tq * tk)
-    return bound_ms(elem_bytes * d * bh * (2 * tq + 2 * tk),
+    return bound_ms(elem_bytes * d * (2 * bh * tq + 2 * kv * tk),
                     4.0 * d * bh * pairs, peak_flop_s)
+
+
+def sdpa_yardstick(torch, q, k, v):
+    """``F.scaled_dot_product_attention`` (causal) on the kernel's
+    operands, k / v with one head per G query heads: ``enable_gqa=True``
+    where the installed torch takes it (2.5 on), else on heads repeated G
+    times.  Returns (the call, how grouped heads were passed)."""
+    import torch.nn.functional as F
+    g = q.shape[0] // k.shape[0]
+    q4, k4, v4 = q[None], k[None], v[None]
+    if g == 1:
+        return (lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)), "one KV head per query head"
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+        return (lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)), "enable_gqa=True"
+    kr, vr = (x.repeat_interleave(g, dim=0)[None] for x in (k, v))
+    return (lambda: F.scaled_dot_product_attention(
+        q4, kr, vr, is_causal=True)), "KV heads repeated (no enable_gqa)"
 
 
 def flash_kernel_phase(torch, ops, ref):
     """The flash kernel against its plain version on the JAX sweep, its
-    bf16 case, a ragged case and the path shape; returns the kernels-line
-    entry (the path shape in bf16)."""
-    import torch.nn.functional as F
+    bf16 case, ragged and grouped-head cases and the path shape; returns
+    the kernels-line entry (the path shape in bf16 with qwen3-0.6b's
+    grouped KV heads, as the prefill calls it)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
 
-    def qkv(bh, tq, tk, d, dtype):
-        return [torch.randn(bh, t, d, generator=gen, device="cuda"
-                            ).to(dtype) for t in (tq, tk, tk)]
+    def qkv(bh, tq, tk, d, dtype, g=1):
+        return [torch.randn(n, t, d, generator=gen, device="cuda"
+                            ).to(dtype)
+                for n, t in ((bh, tq), (bh // g, tk), (bh // g, tk))]
 
-    cases = [(tq, tk, h, d, c, torch.float32)
+    cases = [(tq, tk, h, d, c, torch.float32, 1)
              for tq, tk, h, d, c in FLASH_SHAPES]
-    cases += [(128, 128, 2, 64, True, torch.bfloat16),
-              (200, 200, 3, 128, True, torch.float32),
-              (200, 200, 3, 128, True, torch.bfloat16)]
-    for tq, tk, h, d, causal, dt in cases:
-        q, k, v = qkv(h, tq, tk, d, dt)
+    cases += [(128, 128, 2, 64, True, torch.bfloat16, 1),
+              (200, 200, 3, 128, True, torch.float32, 1),
+              (200, 200, 3, 128, True, torch.bfloat16, 1)]
+    cases += [(tq, tk, h, d, c, dt, g) for tq, tk, h, d, c, dt, g in (
+        (128, 128, 4, 64, True, torch.bfloat16, 2),
+        (200, 200, 8, 128, True, torch.bfloat16, 8),
+        (77, 130, 4, 40, False, torch.bfloat16, 2),
+        (256, 128, 4, 128, True, torch.float32, 2),
+        (200, 200, 8, 128, True, torch.float32, 8))]
+    for tq, tk, h, d, causal, dt, g in cases:
+        q, k, v = qkv(h, tq, tk, d, dt, g)
         tol = ((0.0, FLASH_ATOL) if dt == torch.float32
                else (FLASH_BF16_TOL, FLASH_BF16_TOL))
-        name = f"flash {tq}x{tk} h={h} d={d} causal={causal} {dt}"
+        name = f"flash {tq}x{tk} h={h} G={g} d={d} causal={causal} {dt}"
         got = ops.flash_attention(q, k, v, causal)
         want = ref.flash_attention_plain(q, k, v, causal)
         check_close(torch, name, got, want, *tol)
@@ -826,51 +932,59 @@ def flash_kernel_phase(torch, ops, ref):
             r_whole, r_row = check_rows(torch, name, got, want)
             log(f"{name}: relative L2 {r_whole:.3e} whole, {r_row:.3e} "
                 "worst row")
-    log(f"flash: {len(cases)} sweep / bf16 / ragged cases within "
-        "tolerance")
+    log(f"flash: {len(cases)} sweep / bf16 / ragged / grouped-head cases "
+        "within tolerance")
 
-    bh, t, d = LM_B * 16, LM_T, 128          # qwen3-0.6b prefill heads
-    entry = None
+    # qwen3-0.6b prefill heads at B=4: 64 query heads of 128 over 32 KV
+    # heads (G=2, the layout the prefill passes), and the same call with
+    # one KV head per query head (the layout before grouped heads were
+    # read in the kernel), in bf16 and fp32.
+    bh, t, d = LM_B * 16, LM_T, 128
+    entry, path_rel = None, {}
     for dt in (torch.bfloat16, torch.float32):
-        q, k, v = qkv(bh, t, t, d, dt)
-        got = ops.flash_attention(q, k, v, True)
-        want = ref.flash_attention_plain(q, k, v, True)
-        if dt == torch.bfloat16:
-            # Late rows average ~i keys, so their values are ~0.03 and an
-            # elementwise 3e-2 would not see a dropped KV tile there.
-            r_whole, r_row = check_rows(torch, "flash path shape bf16",
-                                        got, want)
-            err = float((got.float() - want.float()).abs().max())
-            log(f"flash path shape bf16: relative L2 {r_whole:.3e} whole "
-                f"(limit {FLASH_BF16_WHOLE:.3e}), {r_row:.3e} worst row "
-                f"(limit {FLASH_BF16_ROW:.3e}), max|err| {err:.3e}")
-            path_rel = {"whole": r_whole, "worst_row": r_row}
-        else:
-            err = check_close(torch, "flash path shape fp32", got, want,
-                              0.0, FLASH_ATOL)
-        del got, want
-        q4, k4, v4 = q[None], k[None], v[None]
-        t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True))
-        t_p = median_ms(torch, lambda: ref.flash_attention_plain(
-            q, k, v, True), reps=3, launches=5)
-        t_l = median_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True))
         bf16 = dt == torch.bfloat16
-        b_ms, b_by = flash_bound(bh, t, t, d, True, 2 if bf16 else 4,
-                                 PEAK_BF16_FLOP_S if bf16
-                                 else PEAK_FP32_FLOP_S)
-        log(f"kernel flash_attention BH={bh} T={t} d={d} causal {dt}: "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-            f"F.scaled_dot_product_attention {t_l:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
-        if entry is None:
-            entry = {"name": "flash_attention", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/"
-                               "flash_attention.cu",
-                     "replaces": "src/repro/kernels/flash_attention.py:26",
-                     "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
-        del q, k, v, q4, k4, v4
+        for g in (2, 1):
+            q, k, v = qkv(bh, t, t, d, dt, g)
+            name = f"flash path shape {str(dt)[6:]} G={g}"
+            got = ops.flash_attention(q, k, v, True)
+            want = ref.flash_attention_plain(q, k, v, True)
+            if bf16:
+                # Late rows average ~i keys, so their values are ~0.03 and
+                # an elementwise 3e-2 would not see a dropped KV tile there.
+                r_whole, r_row = check_rows(torch, name, got, want)
+                err = float((got.float() - want.float()).abs().max())
+                log(f"{name}: relative L2 {r_whole:.3e} whole (limit "
+                    f"{FLASH_BF16_WHOLE:.3e}), {r_row:.3e} worst row (limit "
+                    f"{FLASH_BF16_ROW:.3e}), max|err| {err:.3e}")
+                path_rel[f"G={g}"] = {"whole": r_whole, "worst_row": r_row}
+            else:
+                err = check_close(torch, name, got, want, 0.0, FLASH_ATOL)
+            del got, want
+            t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v,
+                                                               True))
+            t_p = median_ms(torch, lambda: ref.flash_attention_plain(
+                q, k, v, True), reps=3, launches=5)
+            lib, how = sdpa_yardstick(torch, q, k, v)
+            t_l = median_ms(torch, lib)
+            b_ms, b_by = flash_bound(bh, t, t, d, True, 2 if bf16 else 4,
+                                     PEAK_BF16_FLOP_S if bf16
+                                     else PEAK_FP32_FLOP_S, kv_heads=bh // g)
+            log(f"kernel flash_attention BH={bh} KV heads={bh // g} T={t} "
+                f"d={d} causal {dt}: kernel {t_k:.4f} ms, plain {t_p:.4f} "
+                f"ms, F.scaled_dot_product_attention ({how}) {t_l:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
+            path_rel.setdefault("ms", {})[f"{str(dt)[6:]} G={g}"] = {
+                "kernel": t_k, "plain": t_p, "sdpa": t_l, "bound": b_ms}
+            if entry is None:
+                entry = {"name": "flash_attention", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "flash_attention.cu",
+                         "replaces": "src/repro/kernels/flash_attention.py"
+                                     ":26",
+                         "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": t_l}
+            del q, k, v
     return entry, path_rel
 
 
@@ -1068,9 +1182,9 @@ def main() -> int:
         torch, engine, co, fl)
     sddmm_entry = fl_sddmm_entry(torch, ops, ref, gat_prog)
     t5 = time.perf_counter()
-    flash_entry, flash_rel = flash_kernel_phase(torch, ops, ref)
+    flash_entry, flash_path = flash_kernel_phase(torch, ops, ref)
     flash_launches, lm = lm_phase(torch, ops, ref)
-    lm["flash_path_shape_bf16_rel_l2"] = flash_rel
+    lm["flash_path_shape"] = flash_path
     log(f"LM phase (flash checks, prefill, decode, launch.serve): "
         f"{time.perf_counter() - t5:.1f} s")
     flash_entry["launches"] = flash_launches
@@ -1081,6 +1195,8 @@ def main() -> int:
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
+    spdmm_extra = {k: spdmm_entry[k] for k in ("full_walk_ms",
+                                               "padded_bound_ms")}
     kernels = [{k: e[k] for k in order} for e in kernels]
     result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1090,6 +1206,7 @@ def main() -> int:
                     exist_ok=True)
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "kernels": kernels,
+                       "spdmm_fl_slice": spdmm_extra,
                        "max_memory_allocated": peak,
                        "requests": [{"id": r.request_id,
                                      "t_loc_s": r.t_loc,

@@ -37,18 +37,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # name -> (what the fault does, text of flash_attention.cu, its replacement)
 FAULTS = {
     "causal_skip_early": (
-        "the causal skip one tile early: the diagonal KV tile is skipped",
-        "const int end = causal ? min(tk, q0 + BQ) : tk;",
+        "bf16 body: the causal skip one query tile early: the diagonal KV "
+        "tiles are skipped",
+        "const int end = causal ? min(tk, q0 + WG_BQ) : tk;",
         "const int end = causal ? min(tk, q0) : tk;"),
     "drop_mid_tile_late": (
         "bf16 body: query tiles from row 1024 on skip their middle KV tile",
-        "    __syncthreads();                       // last tile's reads done",
-        "    if (q0 >= 1024 && kt == n_kt / 2) continue;\n"
-        "    __syncthreads();"),
+        "    mbar_wait(full + 8 * st, (kt / WG_STAGES) & 1);\n",
+        "    mbar_wait(full + 8 * st, (kt / WG_STAGES) & 1);\n"
+        "    if (q0 >= 1024 && kt == n_kt / 2) {\n"
+        "      __syncwarp();\n"
+        "      if (lane == 0) mbar_arrive(empty + 8 * st);\n"
+        "      continue;\n"
+        "    }\n"),
     "scale_1pct": (
         "bf16 body: scores scaled by 1.01 d^-1/2",
-        "s[nt][e] = ok ? s[nt][e] * scale : -INFINITY;",
-        "s[nt][e] = ok ? s[nt][e] * (scale * 1.01f) : -INFINITY;"),
+        "const float sl2 = scale * LOG2E;",
+        "const float sl2 = scale * 1.01f * LOG2E;"),
 }
 
 

@@ -105,13 +105,16 @@ class ACK:
         return y if acc is None else acc + y
 
     # -- SpDMM ---------------------------------------------------------- #
-    def spdmm(self, h_src, cols, vals, mask, acc, flag, op: str = "sum"):
+    def spdmm(self, h_src, cols, vals, mask, acc, flag, op: str = "sum",
+              row_len=None):
         """One ELL tile step.  ``acc=None`` (SUM/MEAN only) is a zero
         accumulator.  ``flag`` (rows that saw an edge) is updated when
-        given; pass None where only MAX/MIN would read it."""
+        given; pass None where only MAX/MIN would read it.  ``row_len``
+        (int32 [n1], 1 + each row's last live slot) lets the SUM/MEAN
+        kernel stop each row's walk there; None walks every slot."""
         _count(("spdmm", _shape(h_src), _shape(cols), op, self.backend))
         if self.backend == "cuda" and op in ("sum", "mean"):
-            out = self._kops.spdmm(cols, vals, h_src, acc)
+            out = self._kops.spdmm(cols, vals, h_src, acc, row_len)
         else:
             if self.backend == "torch":
                 self._torch_only(h_src)

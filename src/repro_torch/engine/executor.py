@@ -253,9 +253,10 @@ class _Staged:
         return t
 
     def tiles(self, kind: str) -> Dict[Tuple[int, int, int], torch.Tensor]:
-        """``kind`` in cols (int32) / vals (f32) / mask (bool) /
-        live_pos (int64 flat positions of the edge slots) / live_epos
-        (int64 edge ids of those slots), keyed (j, k, slice)."""
+        """``kind`` in cols (int32) / vals (f32) / mask (bool) / row_len
+        (int32 [n1], 1 + each row's last live slot) / live_pos (int64
+        flat positions of the edge slots) / live_epos (int64 edge ids of
+        those slots), keyed (j, k, slice)."""
         got = self._tiles.get(kind)     # uploaded: no lock on the hot path
         if got is not None:
             return got
@@ -301,12 +302,23 @@ def _tile_array(t, kind: str) -> np.ndarray:
         return t.vals
     if kind == "mask":
         return t.edge_pos >= 0
+    if kind == "row_len":
+        return _row_len(t.edge_pos)
     if kind == "live_pos":
         return np.flatnonzero(t.edge_pos >= 0).astype(np.int64)
     if kind == "live_epos":
         ep = t.edge_pos.reshape(-1)
         return ep[ep >= 0].astype(np.int64)
     raise ValueError(kind)
+
+
+def _row_len(edge_pos: np.ndarray) -> np.ndarray:
+    """int32 [n1]: 1 + the last live slot of each row (0 for a row with no
+    edge).  A last-live index, not a count, so pads between live slots
+    stay inside it (they carry vals == 0)."""
+    live = np.asarray(edge_pos) >= 0
+    last = live.shape[1] - 1 - np.argmax(live[:, ::-1], axis=1)
+    return np.where(live.any(axis=1), last + 1, 0).astype(np.int32)
 
 
 _staged_lock = threading.Lock()
@@ -475,10 +487,14 @@ class _AggregateKernel(_ShardKernel):
             vals = (env.edge_weight_tiles(j, k, s) if dyn
                     else [env.tile("vals", j, k, s)] * env.lanes)
             mask = env.tile("mask", j, k, s) if self.extreme else None
+            # Dynamic edge-weight tiles are 0 on pad slots too, so the
+            # structural live length serves both.
+            row_len = (None if self.extreme
+                       else env.tile("row_len", j, k, s))
             for n in lanes:
                 accs[n], flags[n] = self.ex.ack.spdmm(
                     env.h_tile(n, k, ii), cols, vals[n], mask, accs[n],
-                    flags[n], self.op)
+                    flags[n], self.op, row_len)
             self._op("spdmm")
         outs = []
         for acc, flag in zip(accs, flags):

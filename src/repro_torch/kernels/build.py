@@ -34,12 +34,12 @@ _c_float = ctypes.c_float
 _ARGTYPES = {
     "gemm": ("gemm_f32", [_c_void_p] * 4 + [_c_int] * 3 + [_c_ll] * 4
              + [_c_void_p]),
-    "spdmm": ("spdmm_f32", [_c_void_p] * 5 + [_c_int] * 3 + [_c_ll] * 3
+    "spdmm": ("spdmm_f32", [_c_void_p] * 6 + [_c_int] * 3 + [_c_ll] * 3
               + [_c_void_p]),
     "sddmm": ("sddmm_f32", [_c_void_p] * 6 + [_c_int] * 4 + [_c_ll] * 2
               + [_c_void_p]),
     "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
-                        + [_c_int] * 6 + [_c_float, _c_void_p]),
+                        + [_c_int] * 7 + [_c_float, _c_void_p]),
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,12 @@
 """Wrappers around the hand-written CUDA kernels.
 
-``gemm(x, w, acc)`` returns ``acc + x @ w``, ``spdmm(cols, vals, h, acc)``
-returns ``acc + ELL(cols, vals) @ h`` and ``sddmm(h_dst, h_src, cols, mask,
-acc)`` returns ``acc + where(mask, <h_dst[r], h_src[cols[r, k]]>, 0)``, all
-in fp32 (``acc`` and ``mask`` may be None); ``flash_attention(q, k, v,
-causal)`` returns ``softmax(q k^T d^-1/2 [+ causal mask]) v`` per head of
-[BH, T, d] tensors in fp32 or bf16.  Tensors on a CUDA device
+``gemm(x, w, acc)`` returns ``acc + x @ w``, ``spdmm(cols, vals, h, acc,
+row_len)`` returns ``acc + ELL(cols, vals) @ h`` and ``sddmm(h_dst, h_src,
+cols, mask, acc)`` returns ``acc + where(mask, <h_dst[r], h_src[cols[r,
+k]]>, 0)``, all in fp32 (``acc``, ``row_len`` and ``mask`` may be None);
+``flash_attention(q, k, v, causal)`` returns ``softmax(q k^T d^-1/2 [+
+causal mask]) v`` per head of [BH, T, d] tensors in fp32 or bf16, with
+k / v of [BH / G, T, d] for grouped KV heads.  Tensors on a CUDA device
 launch the kernel from ``csrc/`` on the current stream, after checking
 device, dtype, shape and strides, and raise on anything the kernel does
 not take; there is no fallback.  Tensors on the CPU go to the plain
@@ -110,10 +111,15 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
 
 
 def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
-          acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``acc + ELL(cols, vals) @ h`` for one [n1, w] ELL tile (fp32)."""
-    if _on_cpu(cols, vals, h, acc):
-        y = ref.spdmm_ref(cols, vals, h)
+          acc: Optional[torch.Tensor] = None,
+          row_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``acc + ELL(cols, vals) @ h`` for one [n1, w] ELL tile (fp32).
+    ``row_len`` (int32 [n1], optional) is each row's live length, 1 + its
+    last live slot (0 for a row with no edge): slots from row_len[r] on
+    are not walked, which leaves the result unchanged when they are pads
+    (vals == 0).  None walks all w slots."""
+    if _on_cpu(cols, vals, h, acc, row_len):
+        y = ref.spdmm_ref(cols, vals, h, row_len=row_len)
         return y if acc is None else acc + y
     n1, w = cols.shape
     _check_matrix("spdmm cols", cols, torch.int32)
@@ -124,10 +130,17 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     f = h.shape[1]
     if acc is not None:
         _check_matrix("spdmm acc", acc, torch.float32, (n1, f))
+    if row_len is not None and (row_len.dtype != torch.int32
+                                or tuple(row_len.shape) != (n1,)
+                                or not row_len.is_contiguous()):
+        raise ValueError(f"spdmm row_len: expected contiguous int32 "
+                         f"[{n1}], got {row_len.dtype} "
+                         f"{tuple(row_len.shape)}")
     out = torch.empty((n1, f), dtype=torch.float32, device=h.device)
     rc = entry("spdmm")(
         cols.data_ptr(), vals.data_ptr(), h.data_ptr(),
         acc.data_ptr() if acc is not None else None, out.data_ptr(),
+        row_len.data_ptr() if row_len is not None else None,
         n1, w, f, _ld(h), _ld(acc) if acc is not None else 0, _ld(out),
         _stream(h))
     if rc != 0:
@@ -186,27 +199,32 @@ FLASH_MAX_D = 128
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """``softmax(q k^T d^-1/2 [+ causal mask]) v`` for q [BH, Tq, d] and
-    k / v [BH, Tk, d], all fp32 or all bf16, contiguous, d <= 128;
+    k / v [BH / G, Tk, d], all fp32 or all bf16, contiguous, d <= 128;
     returns [BH, Tq, d] in q's dtype (fp32 math inside).  The causal mask
-    is the Pallas kernel's ``qpos >= kpos``, both counted from 0.  Callers
-    with grouped KV heads repeat them first."""
+    is the Pallas kernel's ``qpos >= kpos``, both counted from 0.  With
+    G > 1 (G must divide BH) the query heads of a group are adjacent:
+    query head ``bh`` reads KV head ``bh // G``; G = 1 is one KV head per
+    query head."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 3:
+            raise ValueError(f"flash_attention {name}: expected [BH, T, d], "
+                             f"got shape {tuple(t.shape)}")
+    bh, tq, d = q.shape
+    bkv, tk = k.shape[0], k.shape[1]
+    if (k.shape[2] != d or v.shape != k.shape or bkv < 1
+            or bh % bkv != 0):
+        raise ValueError(f"flash_attention: k / v must be [BH / G, Tk, {d}]"
+                         f" with G dividing BH = {bh}, got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
     if _on_cpu(q, k, v):
         return ref.flash_attention_plain(q, k, v, causal)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention {name}: expected float32 or "
                             f"bfloat16 like q ({q.dtype}), got {t.dtype}")
-        if t.dim() != 3:
-            raise ValueError(f"flash_attention {name}: expected [BH, T, d], "
-                             f"got shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention {name}: must be contiguous "
                              f"(stride {t.stride()})")
-    bh, tq, d = q.shape
-    tk = k.shape[1]
-    if k.shape != (bh, tk, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: k / v must be [{bh}, Tk, {d}] "
-                         f"like q, got {tuple(k.shape)} / {tuple(v.shape)}")
     if not 1 <= d <= FLASH_MAX_D:
         raise ValueError(f"flash_attention: head dim {d} outside [1, "
                          f"{FLASH_MAX_D}]")
@@ -217,7 +235,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _FLASH_DTYPES[q.dtype], bh, tq, tk, d, int(bool(causal)),
-        d ** -0.5, _stream(q))
+        bh // bkv, d ** -0.5, _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

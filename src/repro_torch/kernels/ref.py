@@ -24,11 +24,19 @@ def gemm_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 def spdmm_ref(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
-              out_dtype=torch.float32) -> torch.Tensor:
+              out_dtype=torch.float32,
+              row_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[r] = sum_k vals[r,k] * h[cols[r,k]].  Zero-padded entries
-    (vals == 0) contribute nothing, so no mask is needed."""
+    (vals == 0) contribute nothing, so no mask is needed.  ``row_len``
+    [n1] (optional) keeps only slots k < row_len[r] of row r, as the
+    kernel walks them."""
+    v = vals.float()
+    if row_len is not None:
+        k = torch.arange(cols.shape[1], device=cols.device)
+        v = torch.where(k[None, :] < row_len.long()[:, None], v,
+                        torch.zeros_like(v))
     gathered = h.float()[cols.long()]                   # [n1, w, f]
-    out = torch.sum(gathered * vals.float()[..., None], dim=1)
+    out = torch.sum(gathered * v[..., None], dim=1)
     return out.to(out_dtype)
 
 
@@ -55,11 +63,15 @@ def sddmm_step_ref(h_dst: torch.Tensor, h_src: torch.Tensor,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool = True
                           ) -> torch.Tensor:
-    """The flash kernel's function: q [BH, Tq, d], k / v [BH, Tk, d] ->
-    [BH, Tq, d] in q's dtype.  Scores ``q k^T d^-1/2`` in fp32; under
-    ``causal`` the Pallas kernel's index mask ``qpos >= kpos`` (both
-    counted from 0) scores masked pairs -1e30."""
+    """The flash kernel's function: q [BH, Tq, d], k / v [BH / G, Tk, d]
+    -> [BH, Tq, d] in q's dtype; query head ``bh`` reads KV head
+    ``bh // G``.  Scores ``q k^T d^-1/2`` in fp32; under ``causal`` the
+    Pallas kernel's index mask ``qpos >= kpos`` (both counted from 0)
+    scores masked pairs -1e30."""
     d = q.shape[-1]
+    g = q.shape[0] // k.shape[0]
+    if g > 1:
+        k, v = (x.repeat_interleave(g, dim=0) for x in (k, v))
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
     if causal:
         tq, tk = q.shape[-2], k.shape[-2]

@@ -114,19 +114,17 @@ def _sdpa_chunked(q, k, v, qpos, kpos, causal, window, scale, chunk: int):
 
 def _flash(q, k, v):
     """Causal self-attention through the flash kernel: heads to the
-    kernel's [B*H, T, hd] layout, KV heads repeated G times (query head h
-    reads KV head h // G), and back to [B, T, H, hd]."""
+    kernel's [B*H, T, hd] layout (KV heads [B*Kh, T, hd]; query head
+    b*H + h reads KV head b*Kh + h // G, which is (b*H + h) // G, so the
+    kernel indexes grouped heads itself), and back to [B, T, H, hd]."""
     b, t, h, hd = q.shape
     kh = k.shape[2]
-    g = h // kh
 
-    def heads(x):
-        x = x.transpose(1, 2)                           # [b, kh, t, hd]
-        return x[:, :, None].expand(b, kh, g, t, hd).reshape(
-            b * h, t, hd).contiguous()
+    def heads(x, n):
+        return x.transpose(1, 2).reshape(b * n, t, hd).contiguous()
 
-    qf = q.transpose(1, 2).reshape(b * h, t, hd).contiguous()
-    o = ops.flash_attention(qf, heads(k), heads(v), causal=True)
+    o = ops.flash_attention(heads(q, h), heads(k, kh), heads(v, kh),
+                            causal=True)
     return o.reshape(b, h, t, hd).transpose(1, 2)
 
 

@@ -431,6 +431,56 @@ def test_bundle_without_residency_section_runs(tmp_path):
         derived["last_use"]
 
 
+def test_row_len_is_one_past_the_last_live_slot():
+    # The staged live length of every ELL slice of a partitioned power-law
+    # graph, and of a hand-built tile with an interior pad and an empty row.
+    from repro_torch.core.passes.partition import ELLTile
+    from repro_torch.engine.executor import _staged, _tile_array
+    _, gt = _graphs(nv=200, ne=1500, seed=21, degree="powerlaw")
+    prog = _engine().compile("b1", gt)
+    pg = prog.pgraph
+    staged = _staged(pg, torch.device("cpu")).tiles("row_len")
+    n_slices = 0
+    for (j, k), ts in pg.tiles.items():
+        for s, t in enumerate(ts):
+            want = [max((i + 1 for i in range(t.width)
+                         if t.edge_pos[r, i] >= 0), default=0)
+                    for r in range(pg.config.n1)]
+            got = staged[(j, k, s)]
+            assert got.dtype == torch.int32 and got.shape == (pg.config.n1,)
+            assert got.tolist() == want
+            n_slices += 1
+    assert n_slices == len(staged) > 1
+    ep = np.array([[3, -1, 5, -1], [-1, -1, -1, -1], [0, 1, 2, 4],
+                   [-1, 7, -1, -1]], np.int32)
+    t = ELLTile(0, 0, np.zeros_like(ep), np.zeros(ep.shape, np.float32), ep,
+                nnz=7)
+    assert _tile_array(t, "row_len").tolist() == [3, 0, 4, 2]
+
+
+def test_aggregate_passes_row_len_to_the_spdmm_kernel(monkeypatch):
+    # SUM/MEAN steps hand the staged live length to the kernel wrapper;
+    # the output is the full-width walk's.
+    from repro_torch.kernels import ops as kops
+    _, gt = _graphs(nv=120, ne=700, seed=22, degree="powerlaw")
+    x = TG.random_features(gt, seed=3)
+    eng = _engine(backend="cuda")
+    prog = eng.compile("b1", gt)
+    seen, real = [], kops.spdmm
+
+    def spy(cols, vals, h, acc=None, row_len=None):
+        seen.append(row_len)
+        return real(cols, vals, h, acc, row_len)
+    monkeypatch.setattr(kops, "spdmm", spy)
+    got = eng.run(prog, x)
+    assert seen and all(r is not None and r.dtype == torch.int32
+                        for r in seen)
+    monkeypatch.setattr(kops, "spdmm",
+                        lambda c, v, h, acc=None, row_len=None:
+                        real(c, v, h, acc))
+    assert torch.equal(eng.run(prog, x), got)
+
+
 def test_malformed_tile_columns_are_refused():
     _, gt = _graphs(seed=18)
     eng = _engine()

@@ -97,6 +97,60 @@ def test_cuda_spdmm_matches_plain(cuda, n1, w, ns, f):
     _close(got, acc + ref.spdmm_ref(c, v, hd))
 
 
+def _ell_with_row_len(n1, w, ns, seed):
+    """ELL cols / vals with rows of live length 0, 1, w - 1, w and random,
+    pads between live slots (vals 0) and after the last, and row_len =
+    1 + each row's last live slot."""
+    r = np.random.default_rng(seed)
+    lens = r.integers(0, w + 1, n1)
+    lens[:4] = [0, 1, w - 1, w]
+    live = (np.arange(w)[None, :] < lens[:, None]) & (r.random((n1, w)) > 0.3)
+    live[np.arange(n1), np.maximum(lens - 1, 0)] |= lens > 0
+    cols = np.where(live, r.integers(0, ns, (n1, w)), 0).astype(np.int32)
+    vals = np.where(live, r.normal(0, 1, (n1, w)), 0).astype(np.float32)
+    row_len = np.where(live.any(1), w - np.argmax(live[:, ::-1], 1), 0)
+    return (torch.from_numpy(cols), torch.from_numpy(vals),
+            torch.from_numpy(row_len.astype(np.int32)))
+
+
+@pytest.mark.parametrize("n1,w,ns,f", [(64, 16, 50, 8), (100, 96, 70, 128),
+                                       (128, 33, 100, 200),
+                                       (4096, 512, 4096, 128)])
+def test_cuda_spdmm_row_len_matches_plain(cuda, n1, w, ns, f):
+    # The walk stops at row_len: the result is within the kernel
+    # tolerance of the plain version and has the same bits as the walk
+    # over all w slots; strided h, acc aliasing out.
+    cols, vals, row_len = (t.to(cuda) for t in _ell_with_row_len(
+        n1, w, ns, seed=n1 + w + f))
+    assert row_len[:4].tolist() == [0, 1, w - 1, w]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    h = torch.randn(ns, 2 * f + 4, generator=g, device=cuda)[:, 4:4 + f]
+    acc = torch.randn(n1, f, generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.spdmm(cols, vals, h, acc, row_len)
+    assert ops.LAUNCHES["spdmm"] == 1
+    _close(got, acc + ref.spdmm_ref(cols, vals, h))
+    _close(got, acc + ref.spdmm_ref(cols, vals, h, row_len=row_len))
+    assert torch.equal(got, ops.spdmm(cols, vals, h, acc))
+    # acc aliasing out (the C entry point takes one pointer for both).
+    inout = acc.clone()
+    rc = ops.entry("spdmm")(
+        cols.data_ptr(), vals.data_ptr(), h.data_ptr(), inout.data_ptr(),
+        inout.data_ptr(), row_len.data_ptr(), n1, w, f, ops._ld(h),
+        ops._ld(inout), ops._ld(inout), ops._stream(h))
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(inout, got)
+
+
+def test_cuda_spdmm_rejects_a_bad_row_len(cuda):
+    cols = torch.zeros(8, 4, dtype=torch.int32, device=cuda)
+    vals, h = torch.zeros(8, 4, device=cuda), torch.zeros(8, 8, device=cuda)
+    for bad in (torch.zeros(8, device=cuda),                      # dtype
+                torch.zeros(7, dtype=torch.int32, device=cuda)):  # shape
+        with pytest.raises(ValueError, match="row_len"):
+            ops.spdmm(cols, vals, h, row_len=bad)
+
+
 @pytest.mark.parametrize("n1,w,ns,f", SDDMM_SHAPES)
 def test_cuda_sddmm_matches_plain(cuda, n1, w, ns, f):
     # The Pallas kernel's own function (no mask, no acc; pad slots score
@@ -252,6 +306,41 @@ def test_cuda_flash_matches_plain(cuda, tq, tk, h, d, causal, dtype):
     assert torch.equal(ops.flash_attention(q, k, v, causal), got)
 
 
+# Grouped KV heads (G query heads per KV head), the bf16 body under the
+# row limits and the fp32 body at 2e-5: (tq, tk, heads, G, d, causal,
+# dtype); the last is qwen3-0.6b's prefill at B=4 (16 query / 8 KV heads).
+FLASH_GQA_CASES = [(128, 128, 2, 2, 64, True, "bfloat16"),
+                   (200, 200, 8, 8, 128, True, "bfloat16"),
+                   (77, 130, 4, 2, 40, False, "bfloat16"),
+                   (256, 128, 4, 2, 128, True, "float32"),
+                   (200, 200, 8, 8, 128, True, "float32"),
+                   (2048, 2048, 64, 2, 128, True, "bfloat16")]
+
+
+@pytest.mark.parametrize("tq,tk,h,grp,d,causal,dtype", FLASH_GQA_CASES)
+def test_cuda_flash_grouped_heads_match_plain(cuda, tq, tk, h, grp, d,
+                                              causal, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(h, tq, d, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(h // grp, tk, d, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal)
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.shape == q.shape
+    want = ref.flash_attention_plain(q, k, v, causal)
+    # the same function as one KV head per query head
+    rep = [x.repeat_interleave(grp, dim=0) for x in (k, v)]
+    assert torch.equal(ops.flash_attention(q, *rep, causal), got)
+    if dt == torch.float32:
+        _close(got, want, 0.0, 2e-5)
+    else:
+        err = (got.float() - want.float())
+        assert float(err.norm() / want.float().norm()) <= 2.0 ** -8
+        rows = err.norm(dim=-1) / want.float().norm(dim=-1)
+        assert float(rows.max()) <= 2.0 ** -7
+
+
 def test_cuda_flash_rejects_bad_operands(cuda):
     q = torch.zeros(2, 8, 64, device=cuda)
     with pytest.raises(TypeError):
@@ -262,7 +351,10 @@ def test_cuda_flash_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="k / v"):
-        ops.flash_attention(q, q[:1], q[:1])
+        ops.flash_attention(q, q[:1, :, :32], q[:1, :, :32])
+    three = torch.zeros(3, 8, 64, device=cuda)       # G would be 2 / 3
+    with pytest.raises(ValueError, match="G dividing"):
+        ops.flash_attention(q, three, three)
     nc = torch.zeros(2, 64, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(nc, q, q)

@@ -76,6 +76,56 @@ def test_spdmm_matches_jax(n1, w, ns, f):
     _close(got_acc, acc + got)
 
 
+def _ell_with_row_len(n1, w, ns, f, seed):
+    """An ELL tile whose rows end at random live lengths (0 .. w) with pads
+    between live slots (vals 0), and its row_len (1 + last live slot)."""
+    r = np.random.default_rng(seed)
+    lens = r.integers(0, w + 1, n1)
+    lens[:4] = [0, 1, max(w - 1, 0), w]
+    live = (np.arange(w)[None, :] < lens[:, None]) & (r.random((n1, w)) > 0.3)
+    live[np.arange(n1), np.maximum(lens - 1, 0)] |= lens > 0
+    cols = np.where(live, r.integers(0, ns, (n1, w)), 0).astype(np.int32)
+    vals = np.where(live, r.normal(0, 1, (n1, w)), 0).astype(np.float32)
+    h = r.normal(0, 1, (ns, f)).astype(np.float32)
+    row_len = np.where(live.any(1), w - np.argmax(live[:, ::-1], 1), 0)
+    return cols, vals, h, live, row_len.astype(np.int32)
+
+
+@pytest.mark.parametrize("n1,w,ns,f", SPDMM_SHAPES)
+def test_spdmm_row_len_matches_jax(n1, w, ns, f):
+    # The ACK's SUM step with the staged live length: the plain version
+    # walks the same slots as the kernel and equals the JAX spdmm (whose
+    # pads add zeros) at the sweep tolerance.
+    from repro_torch.core.ack import ACK
+    cols, vals, h, live, row_len = _ell_with_row_len(n1, w, ns, f,
+                                                     seed=n1 * 3 + w)
+    assert list(row_len[:4]) == [0, 1, max(w - 1, 0), w][:len(row_len[:4])]
+    want = np.asarray(jref.spdmm_ref(jnp.asarray(cols), jnp.asarray(vals),
+                                     jnp.asarray(h)))
+    acc = np.full((n1, f), 0.25, np.float32)
+    for backend in ("torch", "cuda"):
+        got, _ = ACK(backend=backend).spdmm(
+            torch.from_numpy(h), torch.from_numpy(cols),
+            torch.from_numpy(vals), torch.from_numpy(live),
+            torch.from_numpy(acc), None, "sum", torch.from_numpy(row_len))
+        _close(got.numpy(), acc + want)
+    got = ops.spdmm(torch.from_numpy(cols), torch.from_numpy(vals),
+                    torch.from_numpy(h), row_len=torch.from_numpy(row_len))
+    _close(got.numpy(), want)
+
+
+def test_spdmm_plain_version_stops_at_row_len():
+    # Slots from row_len[r] on are not summed, even when they hold a value:
+    # the plain version computes what the kernel computes.
+    cols = torch.tensor([[0, 1, 2], [2, 2, 0]], dtype=torch.int32)
+    vals = torch.tensor([[1.0, 2.0, 4.0], [1.0, 1.0, 8.0]])
+    h = torch.tensor([[1.0], [10.0], [100.0]])
+    row_len = torch.tensor([2, 0], dtype=torch.int32)
+    got = ops.spdmm(cols, vals, h, row_len=row_len)
+    assert got.flatten().tolist() == [21.0, 0.0]
+    assert ops.spdmm(cols, vals, h).flatten().tolist() == [421.0, 208.0]
+
+
 def _sddmm_inputs(n1, w, ns, f, seed):
     r = np.random.default_rng(seed)
     cols = r.integers(0, ns, (n1, w)).astype(np.int32)

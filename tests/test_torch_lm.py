@@ -136,6 +136,33 @@ def test_flash_plain_bf16_matches_jax_ref():
                                atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_flash_plain_grouped_heads_match_jax_ref(g):
+    # k / v with one head per group of G adjacent query heads: query head
+    # h reads KV head h // G, as JAX computes it on repeated heads.
+    t, h, d = 96, 4, 32
+    r = np.random.default_rng(11 + g)
+    q = r.normal(0, 1, (t, h, d)).astype(np.float32)
+    k, v = (r.normal(0, 1, (t, h // g, d)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jref.flash_attention_ref(
+        q, np.repeat(k, g, axis=1), np.repeat(v, g, axis=1), causal=True))
+    tq, tk, tv = (torch.from_numpy(a).transpose(0, 1).contiguous()
+                  for a in (q, k, v))
+    assert tk.shape == (h // g, t, d)
+    got = ref.flash_attention_plain(tq, tk, tv, causal=True)
+    _close(got.transpose(0, 1), want, rtol=0, atol=2e-5)
+    assert torch.equal(ops.flash_attention(tq, tk, tv, causal=True), got)
+
+
+def test_flash_wrapper_refuses_a_group_that_does_not_divide_bh():
+    q = torch.zeros(6, 8, 16)
+    with pytest.raises(ValueError, match="G dividing"):
+        ops.flash_attention(q, torch.zeros(4, 8, 16), torch.zeros(4, 8, 16))
+    with pytest.raises(ValueError, match="k / v"):
+        ops.flash_attention(q, torch.zeros(3, 8, 16), torch.zeros(3, 8, 8))
+
+
 def test_flash_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
     r = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(r.normal(0, 1, (3, 50, 16)).astype(
