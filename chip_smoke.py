@@ -10,8 +10,11 @@ Phases (any failure exits non-zero; nothing is caught):
    ``nvcc`` per source, all at once), with the build time and ``ptxas``
    report.
 2. Kernels: each kernel against its plain torch version on the card, at
-   the executor's tile shapes (GEMM 4096x128x128 without and with the
-   accumulator, against torch.matmul / torch.addmm; SpDMM n1=4096, f=128,
+   the executor's tile shapes (GEMM 4096x128xN, N in {128, 64, 8},
+   without and with the accumulator, against torch.matmul / torch.addmm;
+   GEMM rows [r0, r1) of a call bit-identical to the same rows passed
+   alone, an unaligned view to its aligned copy, and acc aliasing C
+   through the C entry to the wrapper's result; SpDMM n1=4096, f=128,
    w in {8, 64, 512}, strided views as the executor passes them) and at
    the ragged sweep shapes of ``tests/test_kernels.py``, fp32 tolerance
    rtol 1e-5 / atol 1e-4 (SDDMM's unmasked sweep: rtol 1e-4 / atol 1e-4,
@@ -30,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught):
    hits; the kernels' launch counts over the serve loop must be > 0 and
    equal the executor's GEMM and SUM/MEAN SpDMM tile ops.  One more FL
    request (a cache hit) under ``torch.profiler``: device time by kernel
-   and the device's busy share.  Then the SpDMM kernel timed again on the
+   (each hand kernel's sum on a line of its own) and the device's busy
+   share.  Then the SpDMM kernel timed again on the
    widest real ELL slice of the FL program with the executor's
    ``row_len`` (beside the full-width walk of the same slice), which is
    the kernel's entry in the ``kernels`` line.
@@ -45,7 +49,10 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel equal to lanes x the pass's tile ops of its mode.  One gat-dot
    FL hit under ``torch.profiler``, and the SDDMM kernel timed on the
    widest real ELL slice of the gat-dot FL program (with its real mask
-   and an accumulator), the kernel's entry in the ``kernels`` line.
+   and an accumulator), the kernel's entry in the ``kernels`` line, and
+   on a synthetic hub tile of the same shape (256 rows with all 512
+   slots live, the rest 25); on both, masked slots equal acc and two runs
+   are equal.
 
 5. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
    query / 8 KV heads of 128, vocab 151,936), weights random from
@@ -132,6 +139,9 @@ FLASH_BF16_WHOLE, FLASH_BF16_ROW = BF16_U, 2 * BF16_U
 LM_ARCH, LM_B, LM_T = "qwen3-0.6b", 4, 2048
 LM_REL_L2 = 2e-2                 # bf16 prefill against plain attention
 DECODE_B, DECODE_T, DECODE_TOL = 2, 64, 2e-4
+# Kernel names of the hand kernels, as the profiler reports them.
+HAND_KERNELS = ("gemm_f32_kernel", "spdmm_f32_kernel", "sddmm_f32_kernel",
+                "flash_")
 
 
 def log(*a) -> None:
@@ -265,39 +275,44 @@ def kernel_phase(torch, ops, ref):
     # padded [4096, 512] layer tensor times a [128, 128] weight block view,
     # in both forms the executor issues: the first K step of an output
     # tile (C = A.B, the kernels-line entry, against torch.matmul) and the
-    # later ones (C = acc + A.B, against torch.addmm).
-    m, k, n = 4096, 128, 128
-    h_full, w_full = randn(m, 4 * k), randn(4 * k, 2 * n)
-    x, w = h_full[:, k:2 * k], w_full[k:2 * k, n:2 * n]
-    acc = randn(m, n)
+    # later ones (C = acc + A.B, against torch.addmm); then the narrower
+    # widths N = 64 and 8 (the n2 that choose_partition picks for feature
+    # widths under 128; the paths driven here all have n2 = 128).
+    m, k = 4096, 128
     gemm_entry = None
-    for with_acc in (False, True):
-        a = acc if with_acc else None
-        want = ref.gemm_ref(x, w) + (acc if with_acc else 0.0)
-        err = check_close(torch, "gemm path shape", ops.gemm(x, w, a), want,
-                          KERNEL_RTOL, KERNEL_ATOL)
-        t_k = median_ms(torch, lambda: ops.gemm(x, w, a))
-        if with_acc:
-            t_p = median_ms(torch, lambda: acc + ref.gemm_ref(x, w))
-            t_l = median_ms(torch, lambda: torch.addmm(acc, x, w))
-            lib = "torch.addmm"
-        else:
-            t_p = median_ms(torch, lambda: ref.gemm_ref(x, w))
-            t_l = median_ms(torch, lambda: torch.matmul(x, w))
-            lib = "torch.matmul"
-        nbytes = 4 * (m * k + k * n + (2 if with_acc else 1) * m * n)
-        b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k)
-        log(f"kernel gemm {m}x{k}x{n} (strided views"
-            f"{', +acc' if with_acc else ''}): kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms, {lib} {t_l:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), max|err| {err:.2e}")
-        if gemm_entry is None:
-            gemm_entry = {
-                "name": "gemm", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/gemm.cu",
-                "replaces": "src/repro/kernels/gemm.py:38",
-                "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
+    for n in (128, 64, 8):
+        h_full, w_full = randn(m, 4 * k), randn(4 * k, 2 * n)
+        x, w = h_full[:, k:2 * k], w_full[k:2 * k, n:2 * n]
+        acc = randn(m, n)
+        for with_acc in (False, True):
+            a = acc if with_acc else None
+            want = ref.gemm_ref(x, w) + (acc if with_acc else 0.0)
+            err = check_close(torch, f"gemm path shape N={n}",
+                              ops.gemm(x, w, a), want, KERNEL_RTOL,
+                              KERNEL_ATOL)
+            t_k = median_ms(torch, lambda: ops.gemm(x, w, a))
+            if with_acc:
+                t_p = median_ms(torch, lambda: acc + ref.gemm_ref(x, w))
+                t_l = median_ms(torch, lambda: torch.addmm(acc, x, w))
+                lib = "torch.addmm"
+            else:
+                t_p = median_ms(torch, lambda: ref.gemm_ref(x, w))
+                t_l = median_ms(torch, lambda: torch.matmul(x, w))
+                lib = "torch.matmul"
+            nbytes = 4 * (m * k + k * n + (2 if with_acc else 1) * m * n)
+            b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k)
+            log(f"kernel gemm {m}x{k}x{n} (strided views"
+                f"{', +acc' if with_acc else ''}): kernel {t_k:.4f} ms, "
+                f"plain {t_p:.4f} ms, {lib} {t_l:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
+            if gemm_entry is None:
+                gemm_entry = {
+                    "name": "gemm", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/gemm.cu",
+                    "replaces": "src/repro/kernels/gemm.py:38",
+                    "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
+    gemm_bits_cases(torch, ops, randn)
 
     # SpDMM at the executor's tile shape, synthetic ELL tiles of width w
     # (60% of slots carry an edge, the rest are pad slots: cols 0, vals 0).
@@ -325,6 +340,36 @@ def kernel_phase(torch, ops, ref):
             f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"max|err| {err:.2e}")
     return gemm_entry
+
+
+def gemm_bits_cases(torch, ops, randn):
+    """GEMM results that must be bit-identical: rows [r0, r1) of a call
+    against the same rows passed alone (r0 unaligned to any tile), an
+    unaligned view (4-byte staging) against its aligned copy (16-byte
+    staging), and acc aliasing C through the C entry point (the wrapper
+    always allocates C), on the path shape and a ragged one."""
+    for m, k, n, r0, r1 in ((4096, 128, 128, 37, 1001),
+                            (130, 70, 258, 3, 129)):
+        xf, w, acc = randn(m, k + 1), randn(k, n), randn(m, n)
+        x = xf[:, 1:]                      # 4-byte aligned only
+        xa = x.contiguous()
+        name = f"gemm {m}x{k}x{n}"
+        full = ops.gemm(xa, w, acc)
+        if not torch.equal(full[r0:r1], ops.gemm(xa[r0:r1], w,
+                                                 acc[r0:r1])):
+            fail(f"{name}: rows [{r0}, {r1}) differ from the same rows of "
+                 "the whole call")
+        if not torch.equal(full, ops.gemm(x, w, acc)):
+            fail(f"{name}: the unaligned view differs from its aligned copy")
+        inout = acc.clone()
+        rc = ops.entry("gemm")(
+            xa.data_ptr(), w.data_ptr(), inout.data_ptr(), inout.data_ptr(),
+            m, n, k, ops._ld(xa), ops._ld(w), ops._ld(inout),
+            ops._ld(inout), ops._stream(xa))
+        torch.cuda.synchronize()
+        if rc != 0 or not torch.equal(inout, full):
+            fail(f"{name}: acc aliasing C differs (rc {rc})")
+    log("gemm: row slices, unaligned views and acc aliasing C bit-identical")
 
 
 def spdmm_row_len_cases(torch, ops, ref, gen):
@@ -546,6 +591,13 @@ def profile_call(torch, fn, label: str):
         f"profiler, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}%), {len(kern)} device events")
     total = {name: sum(us) for name, us in by_name.items()}
+    hand = []
+    for kern in HAND_KERNELS:
+        runs = [u for name, us in by_name.items() if kern in name
+                for u in us]
+        if runs:
+            hand.append(f"{kern} {sum(runs) / 1e3:.3f} ms x {len(runs)}")
+    log("  hand kernels: " + (", ".join(hand) or "none"))
     for name, us in sorted(total.items(), key=lambda kv: -kv[1])[:10]:
         each = by_name[name]
         log(f"  {us / 1e3:9.3f} ms  {len(each):5d} x (median "
@@ -779,7 +831,9 @@ def runtime_phase(torch, engine, co, fl):
 def fl_sddmm_entry(torch, ops, ref, prog):
     """The SDDMM kernel on the widest real ELL slice of the gat-dot FL
     program, with its real mask, an accumulator, and the source / target
-    views the executor passes it."""
+    views the executor passes it (the kernels-line entry); then on a
+    synthetic hub tile of the same shape.  Returns (entry, hub tile
+    summary)."""
     from repro_torch.engine.executor import _staged
     pg = prog.pgraph
     st = _staged(pg, torch.device("cuda"))
@@ -794,13 +848,45 @@ def fl_sddmm_entry(torch, ops, ref, prog):
     h = torch.randn(pg.n_blocks * n1, f, generator=gen, device="cuda")
     hd, hs = h[j * n1:(j + 1) * n1], h[k * n1:(k + 1) * n1]
     acc = torch.randn(n1, w, generator=gen, device="cuda")
-    err = check_close(torch, "sddmm FL tile", ops.sddmm(hd, hs, cols, mask,
-                                                        acc),
-                      ref.sddmm_step_ref(hd, hs, cols, mask, acc),
-                      KERNEL_RTOL, KERNEL_ATOL)
-    if not torch.equal(ops.sddmm(hd, hs, cols, mask, acc)[~mask],
-                       acc[~mask]):
-        fail("sddmm: a masked slot does not keep its accumulator")
+    fl = sddmm_tile(torch, ops, ref, f"gat-dot FL slice (j,k,s)={key}", hd,
+                    hs, cols, mask, acc)
+    # Hub tile: n1 = 4096, w = 512, 256 rows with all 512 slots live, the
+    # rest with their first 25 (the FL slice's median), live slots packed
+    # at the front of each row as the partitioner packs them.
+    lens = torch.full((n1,), 25, device="cuda")
+    lens[torch.randperm(n1, generator=gen, device="cuda")[:256]] = w
+    hub_mask = (torch.arange(w, device="cuda")[None] < lens[:, None]
+                ).contiguous()
+    hub_cols = torch.where(hub_mask, torch.randint(
+        0, n1, (n1, w), generator=gen, device="cuda"), 0).to(
+        torch.int32).contiguous()
+    hub = sddmm_tile(torch, ops, ref, "synthetic hub tile", hd, hs, hub_cols,
+                     hub_mask, acc)
+    return ({"name": "sddmm", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/sddmm.cu",
+             "replaces": "src/repro/kernels/sddmm.py:46",
+             "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
+             "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
+             "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
+             "padded_bound_ms": fl["padded_bound_ms"]},
+            hub)
+
+
+def sddmm_tile(torch, ops, ref, label, hd, hs, cols, mask, acc):
+    """One [n1, w] SDDMM tile with a mask and an accumulator: held against
+    the plain version, masked slots equal to acc, two runs equal; times
+    of kernel, plain version and torch.sparse.sampled_addmm, and the
+    bound."""
+    n1, w = cols.shape
+    f = hd.shape[1]
+    want = ref.sddmm_step_ref(hd, hs, cols, mask, acc)
+    got = ops.sddmm(hd, hs, cols, mask, acc)
+    err = check_close(torch, f"sddmm {label}", got, want, KERNEL_RTOL,
+                      KERNEL_ATOL)
+    if not torch.equal(got[~mask], acc[~mask]):
+        fail(f"sddmm {label}: a masked slot does not keep its accumulator")
+    if not torch.equal(got, ops.sddmm(hd, hs, cols, mask, acc)):
+        fail(f"sddmm {label}: two runs on the same inputs differ")
     # Library yardstick: torch.sparse.sampled_addmm on the CSR pattern of
     # the live slots (acc + h_dst @ h_src^T sampled there).
     rows, slots = torch.nonzero(mask, as_tuple=True)
@@ -809,12 +895,11 @@ def fl_sddmm_entry(torch, ops, ref, prog):
     crow[1:] = torch.cumsum(counts, 0)
     live_cols = cols[rows, slots].long()
     csr = torch.sparse_csr_tensor(crow, live_cols, acc[rows, slots],
-                                  size=(n1, n1))
+                                  size=(n1, hs.shape[0]))
     hdc, hst = hd.contiguous(), hs.t().contiguous()
     lib = torch.sparse.sampled_addmm(csr, hdc, hst)
-    check_close(torch, "sampled_addmm yardstick", lib.values(),
-                ref.sddmm_step_ref(hd, hs, cols, mask, acc)[rows, slots],
-                KERNEL_RTOL, KERNEL_ATOL)
+    check_close(torch, f"sampled_addmm yardstick, {label}", lib.values(),
+                want[rows, slots], KERNEL_RTOL, KERNEL_ATOL)
     t_k = median_ms(torch, lambda: ops.sddmm(hd, hs, cols, mask, acc))
     t_p = median_ms(torch, lambda: ref.sddmm_step_ref(hd, hs, cols, mask,
                                                       acc))
@@ -822,19 +907,26 @@ def fl_sddmm_entry(torch, ops, ref, prog):
                                                               hst))
     nnz = int(rows.numel())
     src_rows = int(torch.unique(live_cols).numel())
-    # Bytes: cols (4) + mask (1) + acc in (4) + out (4) per slot, h_dst
-    # once and the live source rows once; operations: 2 f per live slot.
-    b_ms, b_by = bound_ms(13 * n1 * w + 4 * f * (n1 + src_rows),
+    dst_rows = int(torch.unique(rows).numel())
+    # Bytes the function needs: mask (1) + acc in (4) + out (4) per slot,
+    # the column (4) of each live slot only (a masked slot's output is acc
+    # whatever its column holds), and once each the h_dst rows that have a
+    # live slot and the live source rows; operations: 2 f per live slot.
+    b_ms, b_by = bound_ms(9 * n1 * w + 4 * nnz + 4 * f * (dst_rows
+                                                          + src_rows),
                           2.0 * nnz * f)
-    log(f"kernel sddmm on gat-dot FL slice (j,k,s)={key} n1={n1} w={w} "
-        f"f={f} live={nnz} ({src_rows} source rows): kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, torch.sparse.sampled_addmm {t_l:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
-    return {"name": "sddmm", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sddmm.cu",
-            "replaces": "src/repro/kernels/sddmm.py:46",
-            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
+    # The padded count: every slot's column and every h_dst row read.
+    b_pad, _ = bound_ms(13 * n1 * w + 4 * f * (n1 + src_rows),
+                        2.0 * nnz * f)
+    log(f"kernel sddmm on {label} n1={n1} w={w} f={f} live={nnz} "
+        f"({src_rows} source rows, L2 gather volume "
+        f"{nnz * 4 * f / 1e6:.1f} MB): kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f} ms, torch.sparse.sampled_addmm {t_l:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; padded {b_pad:.4f} ms), max|err| "
+        f"{err:.2e}; masked slots keep acc, two runs equal")
+    return {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
+            "live": nnz, "padded_bound_ms": b_pad}
 
 
 # --------------------------------------------------------------------------- #
@@ -1180,7 +1272,7 @@ def main() -> int:
     spdmm_entry = fl_spdmm_entry(torch, ops, ref, fl_prog)
     rt_launches, gat_prog, rt_resps, rt_peak, rt_wall = runtime_phase(
         torch, engine, co, fl)
-    sddmm_entry = fl_sddmm_entry(torch, ops, ref, gat_prog)
+    sddmm_entry, sddmm_hub = fl_sddmm_entry(torch, ops, ref, gat_prog)
     t5 = time.perf_counter()
     flash_entry, flash_path = flash_kernel_phase(torch, ops, ref)
     flash_launches, lm = lm_phase(torch, ops, ref)
@@ -1207,6 +1299,10 @@ def main() -> int:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "kernels": kernels,
                        "spdmm_fl_slice": spdmm_extra,
+                       "sddmm_fl_slice": {
+                           "padded_bound_ms": sddmm_entry[
+                               "padded_bound_ms"]},
+                       "sddmm_hub_tile": sddmm_hub,
                        "max_memory_allocated": peak,
                        "requests": [{"id": r.request_id,
                                      "t_loc_s": r.t_loc,

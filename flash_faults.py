@@ -26,10 +26,8 @@ Needs one CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -57,46 +55,6 @@ FAULTS = {
 }
 
 
-def build_faults(build) -> dict:
-    """Write and build one library per fault; returns name -> path."""
-    with open(os.path.join(build.CSRC, "flash_attention.cu")) as fh:
-        src = fh.read()
-    out_dir = os.path.join(build.BUILD_DIR, "faults")
-    os.makedirs(out_dir, exist_ok=True)
-    procs, libs = {}, {}
-    try:
-        for name, (_, old, new) in FAULTS.items():
-            if src.count(old) != 1:
-                raise SystemExit(f"flash_faults: fault {name}: its text "
-                                 "is not in the source exactly once")
-            cu = os.path.join(out_dir, f"flash_{name}.cu")
-            with open(cu, "w") as fh:
-                fh.write(src.replace(old, new))
-            libs[name] = os.path.join(out_dir, f"libflash_{name}.so")
-            procs[name] = subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", libs[name], cu],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        build.build_all(["flash_attention"])
-        for name, proc in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise SystemExit(f"flash_faults: nvcc failed on fault "
-                                 f"{name}:\n{log}")
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return libs
-
-
-def load_entry(build, path):
-    fn_name, argtypes = build._ARGTYPES["flash_attention"]
-    fn = getattr(ctypes.CDLL(path), fn_name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", default=None)
@@ -117,10 +75,14 @@ def main() -> int:
     from repro_torch.models.steps import build_model, make_prefill_step
 
     cs.log(cs.card_line())
-    libs = build_faults(build)
+    built = build.build_copies(
+        {f"flash_{n}": ("flash_attention",
+                        build.edited("flash_attention", [(old, new)]))
+         for n, (_, old, new) in FAULTS.items()},
+        os.path.join(build.BUILD_DIR, "faults"))
     real_entry = ops.entry
     variants = {"kernel": real_entry("flash_attention")}
-    variants.update({n: load_entry(build, p) for n, p in libs.items()})
+    variants.update({n: built[f"flash_{n}"][0] for n in FAULTS})
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     bh, t, d = cs.LM_B * 16, cs.LM_T, 128

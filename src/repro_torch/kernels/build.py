@@ -6,6 +6,8 @@ into ``_build/lib<name>-<hash>.so``, with a plain C interface that
 covers the source and the flags, so an edited kernel rebuilds and an
 unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per source,
 all at once, and waits for them; :func:`library` builds on first use.
+:func:`edited` and :func:`build_copies` build text-edited copies of a
+source beside the real library (planted faults, tile-shape variants).
 
 Nothing here runs when the package is imported: a machine without
 ``nvcc`` (or without a GPU) imports and tests the package on the CPU.
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -133,3 +135,54 @@ def library(name: str) -> ctypes.CDLL:
 def entry(name: str):
     """The C entry point of kernel ``name``, with its argtypes set."""
     return getattr(library(name), _ARGTYPES[name][0])
+
+
+def edited(name: str, edits: Sequence[Tuple[str, str]]) -> str:
+    """The text of ``csrc/<name>.cu`` with each (old, new) edit applied;
+    each old text must appear in the source exactly once."""
+    with open(os.path.join(CSRC, f"{name}.cu")) as fh:
+        src = fh.read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise ValueError(f"{name}.cu: edit text is not in the source "
+                             f"exactly once: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_copies(copies: Dict[str, Tuple[str, str]], out_dir: str
+                 ) -> Dict[str, Tuple[Callable, str]]:
+    """Build copies of kernel sources: ``copies`` maps a tag to (kernel
+    name, .cu text).  Each is written to ``out_dir/<tag>.cu`` and built
+    there, one ``nvcc`` per copy, all at once and together with the real
+    libraries of the kernels named.  Returns tag -> (the copy's C entry
+    point, argtypes set; its nvcc report)."""
+    os.makedirs(out_dir, exist_ok=True)
+    procs: Dict[str, subprocess.Popen] = {}
+    try:
+        for tag, (_, text) in copies.items():
+            cu = os.path.join(out_dir, f"{tag}.cu")
+            with open(cu, "w") as fh:
+                fh.write(text)
+            procs[tag] = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o",
+                 os.path.join(out_dir, f"lib{tag}.so"), cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        build_all(sorted({name for name, _ in copies.values()}))
+        out = {}
+        for tag, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {tag}.cu "
+                                   f"(exit {proc.returncode}):\n{log}")
+            fn_name, argtypes = _ARGTYPES[copies[tag][0]]
+            fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"lib{tag}.so")),
+                         fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            out[tag] = (fn, log)
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()

@@ -82,6 +82,46 @@ def test_cuda_gemm_matches_plain(cuda, m, k, n):
     _close(ops.gemm(x, w), ref.gemm_ref(x, w))
 
 
+# (m, k, n, r0, r1): the path shape and ragged ones, rows [r0, r1) off
+# every tile boundary.
+GEMM_BITS_CASES = [(4096, 128, 128, 37, 1001), (130, 70, 258, 3, 129),
+                   (100, 60, 33, 1, 99), (64, 32, 16, 5, 6),
+                   (4096, 128, 8, 63, 65)]
+
+
+def _unaligned_copy(t):
+    # The same values in a view whose rows start 4 bytes past a 16-byte
+    # boundary (row stride not a multiple of 4 floats either).
+    buf = torch.empty(t.shape[0], t.shape[1] + 1, device=t.device)
+    view = buf[:, 1:]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("m,k,n,r0,r1", GEMM_BITS_CASES)
+def test_cuda_gemm_bits_do_not_depend_on_geometry(cuda, m, k, n, r0, r1):
+    # Each output element is one fmaf chain over k with acc added last, so
+    # a row slice, unaligned operands (4-byte staging), acc aliasing C and
+    # a second run all give the same bits as the aligned whole call.
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    w = torch.randn(k, n, generator=g, device=cuda)
+    acc = torch.randn(m, n, generator=g, device=cuda)
+    full = ops.gemm(x, w, acc)
+    _close(full, acc + ref.gemm_ref(x, w))
+    assert torch.equal(full[r0:r1], ops.gemm(x[r0:r1], w, acc[r0:r1]))
+    assert torch.equal(ops.gemm(_unaligned_copy(x), _unaligned_copy(w),
+                                _unaligned_copy(acc)), full)
+    assert torch.equal(ops.gemm(x, w, acc), full)
+    inout = acc.clone()
+    rc = ops.entry("gemm")(
+        x.data_ptr(), w.data_ptr(), inout.data_ptr(), inout.data_ptr(),
+        m, n, k, ops._ld(x), ops._ld(w), ops._ld(inout), ops._ld(inout),
+        ops._stream(x))
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(inout, full)
+
+
 @pytest.mark.parametrize("n1,w,ns,f", SPDMM_SHAPES)
 def test_cuda_spdmm_matches_plain(cuda, n1, w, ns, f):
     r = np.random.default_rng(3)
@@ -184,6 +224,45 @@ def test_cuda_sddmm_masked_path_tile(cuda):
     assert torch.equal(ops.sddmm(hd, hs, cols, mask, acc), got)
 
 
+# (n1, w, n_src, f, kind): hub rows (every slot live) among rows of 25
+# live slots, w not a multiple of 32, f = 256 unmasked, f not a multiple
+# of 4 (the scalar path).
+SDDMM_STEP_CASES = [(512, 512, 600, 128, "hub"), (64, 200, 90, 128, "random"),
+                    (40, 77, 60, 256, "unmasked"), (33, 45, 50, 33, "random")]
+
+
+@pytest.mark.parametrize("n1,w,ns,f,kind", SDDMM_STEP_CASES)
+def test_cuda_sddmm_step_matches_plain(cuda, n1, w, ns, f, kind):
+    # Against ref.sddmm_step_ref; masked slots keep acc, a second run and
+    # the scalar path (unaligned copies of h_dst / h_src) give the same
+    # bits.
+    g = torch.Generator(device=cuda).manual_seed(n1 + w + f)
+    if kind == "hub":
+        lens = torch.full((n1,), 25, device=cuda)
+        lens[torch.randperm(n1, generator=g, device=cuda)[:32]] = w
+        mask = torch.arange(w, device=cuda)[None] < lens[:, None]
+    elif kind == "random":
+        mask = torch.rand(n1, w, generator=g, device=cuda) < 0.4
+    else:
+        mask = None
+    cols = torch.randint(0, ns, (n1, w), generator=g, device=cuda,
+                         dtype=torch.int32)
+    if mask is not None:
+        cols = torch.where(mask, cols, 0).to(torch.int32)
+    hd = torch.randn(n1, 2 * f, generator=g, device=cuda)[:, f:]
+    hs = torch.randn(ns, f, generator=g, device=cuda)
+    acc = torch.randn(n1, w, generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.sddmm(hd, hs, cols, mask, acc)
+    assert ops.LAUNCHES["sddmm"] == 1
+    _close(got, ref.sddmm_step_ref(hd, hs, cols, mask, acc))
+    if mask is not None:
+        assert torch.equal(got[~mask], acc[~mask])
+    assert torch.equal(ops.sddmm(hd, hs, cols, mask, acc), got)
+    assert torch.equal(ops.sddmm(_unaligned_copy(hd), _unaligned_copy(hs),
+                                 cols, mask, acc), got)
+
+
 def test_cuda_run_batch_lane_equals_solo(cuda):
     g = TG.random_graph(120, 700, seed=3, degree="powerlaw").gcn_normalized()
     g.feat_dim, g.n_classes = 12, 4
@@ -248,6 +327,26 @@ def test_cuda_sddmm_out_of_range_column_scores_nan(cuda):
     mask = ~bad                         # masked out: no gather, acc kept
     assert torch.equal(ops.sddmm(hd, hs, cols, mask)[bad],
                        torch.zeros(2, device=cuda))
+    # With a mask and an accumulator (w = 40, not a multiple of 32): live
+    # out-of-range slots NaN, the rest the plain step's values, masked
+    # slots exactly acc (a masked out-of-range column reads nothing).
+    n1, w, ns, f = 64, 40, 50, 128
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cols = torch.randint(0, ns, (n1, w), generator=g, device=cuda,
+                         dtype=torch.int32)
+    mask = torch.rand(n1, w, generator=g, device=cuda) < 0.5
+    cols[3, 39], cols[10, 0], cols[20, 17] = ns, -1, 1 << 30
+    mask[3, 39] = mask[10, 0] = True
+    mask[20, 17] = False
+    hd, hs = (torch.randn(n, f, generator=g, device=cuda) for n in (n1, ns))
+    acc = torch.randn(n1, w, generator=g, device=cuda)
+    got = ops.sddmm(hd, hs, cols, mask, acc)
+    torch.cuda.synchronize()
+    bad = mask & ((cols < 0) | (cols >= ns))
+    assert int(bad.sum()) == 2 and bool(torch.isnan(got[bad]).all())
+    want = ref.sddmm_step_ref(hd, hs, cols.clamp(0, ns - 1), mask, acc)
+    _close(got[~bad], want[~bad])
+    assert torch.equal(got[~mask], acc[~mask])
 
 
 def test_cuda_wrappers_reject_bad_operands(cuda):

@@ -232,3 +232,43 @@ def test_sources_carry_their_notes():
             head = fh.read(3000)
         assert f"src/repro/kernels/{name}.py" in head
         assert "bound" in head and "Design" in head
+
+
+def _root_script(name):
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _planted_edits():
+    variants = _root_script("kernel_variants").VARIANTS
+    faults = _root_script("flash_faults").FAULTS
+    out = [pytest.param(k, edits, id=f"{k}:{n}") for k, vs in variants.items()
+           for n, (_, edits) in vs.items()]
+    out += [pytest.param("flash_attention", [(old, new)],
+                         id=f"flash_attention:{n}")
+            for n, (_, old, new) in faults.items()]
+    return out
+
+
+@pytest.mark.parametrize("kernel,edits", _planted_edits())
+def test_planted_edits_still_fit_their_sources(kernel, edits):
+    # The tile-shape variants and planted faults are text edits of the
+    # sources in csrc/: each must still name text that appears exactly once.
+    src = build.edited(kernel, [])
+    out = build.edited(kernel, edits)
+    assert out != src
+    for _, new in edits:
+        assert new in out
+
+
+def test_edited_refuses_text_not_in_the_source_once():
+    with pytest.raises(ValueError, match="exactly once"):
+        build.edited("gemm", [("no such text in the source", "x")])
+    with pytest.raises(ValueError, match="exactly once"):
+        build.edited("gemm", [("float", "double")])
