@@ -38,7 +38,33 @@ Phases (any failure exits non-zero; nothing is caught):
    widest real ELL slice of the FL program with the executor's
    ``row_len`` (beside the full-width walk of the same slice), which is
    the kernel's entry in the ``kernels`` line.
-4. Runtime path: ``ServeLoop(OverlayPool(engines=[<the Engine above>,
+4. Host-streaming and remap paths.  (a) b2@FL with ``residency="host"``
+   on a fresh ``Engine(resident_budget_bytes=B)``, B halfway between the
+   largest double-buffered shard window plus the weights (from the plan,
+   before any run) and the device path's liveness-aware peak: a
+   device-resident run is refused with advice to re-run with
+   ``residency='host'``; ``compile(..., residency="host")`` and three runs
+   (the first pins the graph's tiles in host memory), each bit-identical
+   to phase 3's b2@FL#0 output and held to the float64 reference; the
+   rise of ``max_memory_allocated`` stays under B; T_LoH, H2D bytes and
+   rate, shards streamed, the peak staged window, per-layer wall time and
+   H2D bytes; one hit under ``torch.profiler`` (busy share, and how long
+   the H2D copies overlapped kernels); GEMM and SpDMM launches equal the
+   executor's tile ops.  (b) b1, b3 and b6 on CO remapped with
+   ``force="gemm"``, each run device-resident and host-streamed: equal
+   bits, the float64 reference, ``tiles_remapped`` equal to the flipped
+   steps, GEMM launches up (and SpDMM down) by exactly those steps, the
+   densify kernel launched.  (c) b2@FL, one profiled hit, then
+   ``Engine.remap`` with the default constants (TPU v5e figures) over its
+   ``exec_profile`` densities and with ``probe=True`` (this card's
+   kernels timed): decision counts, predicted gain, a device-resident
+   hit's T_LoH and the float64 reference.  (d) The densify kernel on the
+   widest real FL slice, bit-identical to its plain version, timed beside
+   it and ``index_put_(accumulate=True)`` (its ``kernels`` entry), and the
+   GEMM kernel at the remapped shape 4096x4096x128 (C = A.B and + acc),
+   bit-identical on a copy of the densified block and to
+   ``ACK.gemm_agg``, timed beside torch.matmul / torch.addmm.
+5. Runtime path: ``ServeLoop(OverlayPool(engines=[<the Engine above>,
    Engine()]), max_batch=4)`` with a worker thread per overlay serves 11
    requests: gat-dot (a dot-product-attention GAT, hidden 64, 2 layers)
    and b2 on FL, gat-dot on CO, in batches of 4, 4 and 3
@@ -54,7 +80,7 @@ Phases (any failure exits non-zero; nothing is caught):
    slots live, the rest 25); on both, masked slots equal acc and two runs
    are equal.
 
-5. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
+6. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
    query / 8 KV heads of 128, vocab 151,936), weights random from
    ``torch.Generator`` seed 0 with the JAX initializers' scales:
    the flash kernel against its plain version (the sweep of
@@ -78,9 +104,9 @@ Phases (any failure exits non-zero; nothing is caught):
    32, 16 generated tokens, bf16).
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
-paths (the Engine.serve path, the runtime path, and the prefill and
-forward runs of phase 5), each counted from zero just before the path
-runs and read just after.
+paths (the Engine.serve path, the host and remap runs of phase 4, the
+runtime path, and the prefill and forward runs of phase 6), each counted
+from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
 the host enqueues 20 back-to-back calls while the device is busy, and a
@@ -141,7 +167,7 @@ LM_REL_L2 = 2e-2                 # bf16 prefill against plain attention
 DECODE_B, DECODE_T, DECODE_TOL = 2, 64, 2e-4
 # Kernel names of the hand kernels, as the profiler reports them.
 HAND_KERNELS = ("gemm_f32_kernel", "spdmm_f32_kernel", "sddmm_f32_kernel",
-                "flash_")
+                "flash_", "ell_densify_kernel")
 
 
 def log(*a) -> None:
@@ -558,12 +584,25 @@ def hold_against_reference(torch, reqs, responses) -> float:
     return worst
 
 
-def profile_call(torch, fn, label: str):
+def _busy_us(ivs) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(ivs):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def profile_call(torch, fn, label: str, split=None, out=None):
     """``fn()`` under torch.profiler: device time by kernel name (with
     each kernel's launches and their median and longest duration) and the
     device's busy share of the call's wall time; returns the device ms by
     kernel name.  When the profiler yields no device events it says "not
-    measured" (and returns None); a profiler that raises fails the run."""
+    measured" (and returns None); a profiler that raises fails the run.
+    With ``split`` (a substring of event names, e.g. "HtoD") it also
+    reports the busy time of the matching events, of the others, and how
+    long the two overlapped, into the dict ``out`` when one is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -582,14 +621,24 @@ def profile_call(torch, fn, label: str):
     for e in kern:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         ivs.append((e.time_range.start, e.time_range.end))
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(ivs):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _busy_us(ivs)
     log(f"profile {label}: wall {wall_us / 1e3:.2f} ms under the "
         f"profiler, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}%), {len(kern)} device events")
+    if split is not None:
+        mine = [(e.time_range.start, e.time_range.end) for e in kern
+                if split in e.name]
+        rest = [(e.time_range.start, e.time_range.end) for e in kern
+                if split not in e.name]
+        a, b = _busy_us(mine), _busy_us(rest)
+        both = a + b - busy
+        log(f"  {split} events busy {a / 1e3:.2f} ms ({len(mine)} events), "
+            f"the rest {b / 1e3:.2f} ms, both at once {both / 1e3:.2f} ms "
+            f"({100 * both / max(min(a, b), 1e-9):.1f}% of the shorter)")
+        if out is not None:
+            out.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                       busy_share=busy / wall_us, split_ms=a / 1e3,
+                       rest_ms=b / 1e3, overlap_ms=both / 1e3)
     total = {name: sum(us) for name, us in by_name.items()}
     hand = []
     for kern in HAND_KERNELS:
@@ -660,6 +709,330 @@ def fl_spdmm_entry(torch, ops, ref, prog):
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
             "full_walk_ms": t_full, "padded_bound_ms": b_pad}
+
+
+# --------------------------------------------------------------------------- #
+def _resp(rid, y):
+    """A response-like record for ``hold_against_reference``."""
+    import types
+    return types.SimpleNamespace(request_id=rid, output=y)
+
+
+def host_phase(torch, engine, fl, fl_prog, fl_out):
+    """b2@FL host-streamed (``residency="host"``) on a fresh Engine whose
+    budget refuses the device path; see the module docstring."""
+    from repro_torch.engine import Engine, InferenceRequest
+    from repro_torch.engine import ResidentBudgetError
+    from repro_torch.engine.executor import _host_tiles
+    from repro_torch.core import graph as G
+    from repro_torch.kernels import ops
+
+    x = G.random_features(fl, seed=10)
+    ex = engine.executor
+    window = ex.estimate_host_window_bytes(fl_prog, x.shape[1])
+    weights = sum(int(w.nbytes) for w in fl_prog.weights.values())
+    dev_peak = ex.estimate_device_peak_bytes(fl_prog, x.shape[1])
+    if not window + weights < dev_peak:
+        fail(f"host window {window} + weights {weights} is not below the "
+             f"device peak {dev_peak}")
+    budget = (window + weights + dev_peak) // 2
+    log(f"host path b2@FL: largest double-buffered window {window} B + "
+        f"weights {weights} B = {window + weights} B; device path's "
+        f"liveness-aware peak {dev_peak} B; resident_budget_bytes "
+        f"{budget} B")
+
+    heng = Engine(resident_budget_bytes=budget)
+    t0 = time.perf_counter()
+    prog = heng.compile("b2", fl, residency="host")
+    t_loc = time.perf_counter() - t0
+    try:
+        heng.run(prog, x, residency="device")
+    except ResidentBudgetError as e:
+        msg = str(e)
+    else:
+        fail("a device-resident b2@FL run under the budget was not refused")
+    if "residency='host'" not in msg:
+        fail(f"the refusal does not name residency='host': {msg}")
+    log(f"device-resident run refused: {msg}")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    exp = {"gemm": 0, "spdmm": 0}
+    runs = []
+    # ---- the host path: counts are zeroed just above, read just below.
+    for i in range(3):
+        if i:
+            t0 = time.perf_counter()
+            prog = heng.compile("b2", fl, residency="host")
+            t_loc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y = heng.run(prog, x)
+        heng._sync()
+        t_loh = time.perf_counter() - t0
+        st = heng.exec_stats
+        modes = st.tile_ops_by_mode or {}
+        for k in exp:
+            exp[k] += modes.get(k, 0)
+        runs.append({"t_loc_s": t_loc, "t_loh_s": t_loh,
+                     "h2d_bytes": st.h2d_bytes,
+                     "shards_streamed": st.shards_streamed,
+                     "peak_stage_bytes": st.peak_stage_bytes,
+                     "layers": [(r["layer"], r["kernel"], r["tile_ops"],
+                                 r["wall_s"], r["h2d_bytes"])
+                                for r in st.per_layer],
+                     "y": y})
+    launches = dict(ops.LAUNCHES)
+    rise = torch.cuda.max_memory_allocated() - base
+    # ---- end of the host path.
+
+    ht = _host_tiles(prog.pgraph, True)
+    log(f"host tiles pinned once for the graph: {ht.nbytes} B "
+        f"({ht.nbytes / 2**30:.3f} GiB) of host buffers")
+    for i, r in enumerate(runs):
+        log(f"host b2@FL#{i} ({'miss, pins the tiles' if i == 0 else 'hit'})"
+            f": T_LoC {r['t_loc_s'] * 1e3:.2f} ms, T_LoH "
+            f"{r['t_loh_s'] * 1e3:.2f} ms, h2d_bytes {r['h2d_bytes']}, "
+            f"{r['h2d_bytes'] / r['t_loh_s'] / 1e9:.2f} GB/s over T_LoH, "
+            f"shards_streamed {r['shards_streamed']}, peak_stage_bytes "
+            f"{r['peak_stage_bytes']}")
+        log("  per layer (host wall ms around the synchronized layer, H2D "
+            "MB, GB/s): " + ", ".join(
+                f"L{lid}:{k}x{n}={s * 1e3:.2f} ms/{b / 1e6:.1f} MB/"
+                f"{b / max(s, 1e-9) / 1e9:.2f}"
+                for lid, k, n, s, b in r["layers"]))
+        if not torch.equal(r["y"], fl_out):
+            fail(f"host b2@FL#{i} differs from the device path's b2@FL#0 "
+                 f"by {float((r['y'] - fl_out).abs().max()):.3e}")
+    if runs[0]["peak_stage_bytes"] != window:
+        fail(f"peak_stage_bytes {runs[0]['peak_stage_bytes']} != the "
+             f"plan's window {window}")
+    log(f"host path: max_memory_allocated rose {rise} B "
+        f"({rise / 2**30:.3f} GiB) over the three runs (budget {budget} B)")
+    if rise > budget:
+        fail(f"device memory rose {rise} B over the budget {budget} B")
+    log(f"launches on the host path: gemm {launches['gemm']}, spdmm "
+        f"{launches['spdmm']}; executor tile ops: {exp}")
+    for k in exp:
+        if not (launches[k] == exp[k] > 0):
+            fail(f"host path {k} launches {launches[k]} != tile ops "
+                 f"{exp[k]}")
+    req = InferenceRequest(model="b2", graph=fl, features=x)
+    worst = hold_against_reference(
+        torch, [req] * 3, [_resp(f"host b2@FL#{i}", r["y"])
+                           for i, r in enumerate(runs)])
+    log(f"host path: 3 outputs bit-identical to the device path's and "
+        f"within rtol {PATH_RTOL} / atol {PATH_ATOL} of the float64 "
+        f"reference (worst max|err| {worst:.3e})")
+    prof = {}
+    profile_call(torch, lambda: (heng.run(prog, x), heng._sync()),
+                 "b2@FL host hit", split="HtoD", out=prof)
+    summary = {"budget": budget, "window": window, "weights": weights,
+               "device_peak_estimate": dev_peak, "memory_rise": rise,
+               "host_tile_bytes": ht.nbytes, "launches": launches,
+               "profile": prof,
+               "runs": [{k: v for k, v in r.items() if k != "y"}
+                        for r in runs]}
+    return launches, heng, x, summary
+
+
+def remap_co_phase(torch, co):
+    """b1, b3 and b6 on CO remapped with force="gemm", run device-resident
+    and host-streamed: equal bits, the float64 reference, tiles_remapped
+    and GEMM launches up by exactly the flipped steps."""
+    from repro_torch.core import graph as G
+    from repro_torch.engine import Engine, InferenceRequest
+    from repro_torch.kernels import ops
+    eng = Engine()
+    total = {k: 0 for k in ops.LAUNCHES}
+    out = []
+    for name in ("b1", "b3", "b6"):
+        x = G.random_features(co, seed=1)
+        prog = eng.compile(name, co)
+        ops.reset_launches()
+        eng.run(prog, x)                    # the canonical binary
+        canon = dict(ops.LAUNCHES)
+        rp = eng.remap(prog, force="gemm")
+        rec = rp.manifest["remap"]
+        flipped = rec["remapped_ops"]
+        ys = {}
+        for residency in ("device", "host"):
+            ops.reset_launches()
+            # ---- a remapped run: counts zeroed above, read below.
+            t0 = time.perf_counter()
+            ys[residency] = eng.run(rp, x, residency=residency)
+            eng._sync()
+            t = time.perf_counter() - t0
+            got = dict(ops.LAUNCHES)
+            # ----
+            for k in total:
+                total[k] += got[k]
+            st = eng.exec_stats
+            log(f"remap {name}@CO force=gemm {residency}: {flipped} steps "
+                f"flipped ({rec['counts']}), tiles_remapped "
+                f"{st.tiles_remapped}, launches gemm {got['gemm']} (canonical"
+                f" {canon['gemm']}), spdmm {got['spdmm']} (canonical "
+                f"{canon['spdmm']}), densify {got['densify']}; T_LoH "
+                f"{t * 1e3:.2f} ms")
+            if not (st.tiles_remapped == flipped > 0):
+                fail(f"{name}@CO: tiles_remapped {st.tiles_remapped} != "
+                     f"flipped steps {flipped}")
+            if got["gemm"] != canon["gemm"] + flipped or \
+                    got["spdmm"] != canon["spdmm"] - flipped:
+                fail(f"{name}@CO {residency}: GEMM launches {got['gemm']} "
+                     f"!= {canon['gemm']} + {flipped} or SpDMM "
+                     f"{got['spdmm']} != {canon['spdmm']} - {flipped}")
+            if got["densify"] < 1:
+                fail(f"{name}@CO {residency}: the densify kernel was not "
+                     "launched")
+        if not torch.equal(ys["device"], ys["host"]):
+            fail(f"{name}@CO forced gemm: host differs from device by "
+                 f"{float((ys['device'] - ys['host']).abs().max()):.3e}")
+        req = InferenceRequest(model=name, graph=co, features=x)
+        worst = hold_against_reference(
+            torch, [req], [_resp(f"{name}@CO gemm", ys["device"])])
+        out.append({"model": name, "flipped": flipped,
+                    "counts": rec["counts"], "worst_err": worst})
+    log("remap CO: forced-GEMM outputs bit-identical across residencies and "
+        f"within rtol {PATH_RTOL} / atol {PATH_ATOL} of the reference")
+    return total, out
+
+
+def remap_fl_phase(torch, heng, fl, x):
+    """b2@FL: one profiled hit, then remap priced by the TPU-default
+    constants over the exec_profile densities and by probing this card's
+    kernels; each run once device-resident (its T_LoH printed)."""
+    from repro_torch.engine import InferenceRequest
+    from repro_torch.kernels import ops
+    heng.executor.resident_budget_bytes = None    # device-resident hits
+    prog = heng.compile("b2", fl)
+    heng.executor.profile_tiles = True
+    heng.run(prog, x)
+    heng._sync()
+    heng.executor.profile_tiles = False
+    t0 = time.perf_counter()
+    heng.run(prog, x)
+    heng._sync()
+    t_canon = time.perf_counter() - t0
+    log(f"remap FL: canonical b2@FL device-resident hit T_LoH "
+        f"{t_canon * 1e3:.2f} ms; exec_profile kernel modes "
+        f"{prog.manifest['exec_profile']['kernel_modes']}")
+    total = {k: 0 for k in ops.LAUNCHES}
+    out = {"canonical_t_loh_s": t_canon}
+    req = InferenceRequest(model="b2", graph=fl, features=x)
+    for label, kw in (("tpu-default", {"source": "exec_profile"}),
+                      ("probe", {"probe": True})):
+        t0 = time.perf_counter()
+        rp = heng.remap(prog, **kw)
+        t_remap = time.perf_counter() - t0
+        rec = rp.manifest["remap"]
+        ops.reset_launches()
+        # ---- a remapped run: counts zeroed above, read below.
+        t0 = time.perf_counter()
+        y = heng.run(rp, x)
+        heng._sync()
+        t = time.perf_counter() - t0
+        got = dict(ops.LAUNCHES)
+        # ----
+        for k in total:
+            total[k] += got[k]
+        st = heng.exec_stats
+        log(f"remap FL {label} (source {rec['source']}, probe "
+            f"{rec['probe']}, constants {rec['constants']}): counts "
+            f"{rec['counts']}, predicted_gain_s {rec['predicted_gain_s']:.6e},"
+            f" remap {t_remap:.2f} s; hit T_LoH {t * 1e3:.2f} ms, "
+            f"tiles_remapped {st.tiles_remapped}, launches {got}")
+        worst = hold_against_reference(torch, [req],
+                                       [_resp(f"b2@FL {label}", y)])
+        out[label] = {"counts": rec["counts"],
+                      "predicted_gain_s": rec["predicted_gain_s"],
+                      "remap_s": t_remap, "t_loh_s": t,
+                      "tiles_remapped": st.tiles_remapped,
+                      "worst_err": worst}
+    return total, out
+
+
+def remap_gemm_entry(torch, ops, ref, prog):
+    """GEMM at the remapped shape, dense [4096, 4096] @ [4096, 128] with the
+    block densified from the widest real FL slice (C = A.B and + acc),
+    beside torch.matmul / torch.addmm; and the densify kernel on that
+    slice against its plain version (bit for bit) and a library
+    scatter."""
+    from repro_torch.core.ack import ACK
+    from repro_torch.engine.executor import _staged
+    pg = prog.pgraph
+    st = _staged(pg, torch.device("cuda"))
+    cols_d, vals_d = st.tiles("cols"), st.tiles("vals")
+    key = max(cols_d, key=lambda k3: (cols_d[k3].shape[1],
+                                      pg.tiles[k3[:2]][k3[2]].nnz))
+    cols, vals = cols_d[key], vals_d[key]
+    n1, w = cols.shape
+    f = pg.config.n2
+    nnz = pg.tiles[key[:2]][key[2]].nnz
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h = torch.randn(n1, 4 * f, generator=gen, device="cuda")[:, f:2 * f]
+    acc = torch.randn(n1, f, generator=gen, device="cuda")
+
+    dense = ops.densify(cols, vals, n1)
+    d_err = check_close(torch, "densify FL slice", dense,
+                        ref.densify_ref(cols, vals, n1), 0.0, 0.0)
+    if not torch.equal(dense.view(torch.int32),
+                       ref.densify_ref(cols, vals, n1).view(torch.int32)):
+        fail("densify FL slice: not bit-identical to the plain version")
+    rows = torch.arange(n1, device="cuda")[:, None].expand(n1, w)
+    cl = cols.long()
+
+    def library():
+        return torch.zeros(n1, n1, device="cuda").index_put_(
+            (rows, cl), vals, accumulate=True)
+    t_dk = median_ms(torch, lambda: ops.densify(cols, vals, n1))
+    t_dp = median_ms(torch, lambda: ref.densify_ref(cols, vals, n1),
+                     reps=3, launches=3)
+    t_dl = median_ms(torch, library)
+    db_ms, db_by = bound_ms(8 * n1 * w + 4 * n1 * n1, float(n1 * w))
+    log(f"kernel densify on FL slice (j,k,s)={key} n1={n1} w={w} nnz={nnz}"
+        f": kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, index_put_"
+        f"(accumulate) {t_dl:.4f} ms, bound {db_ms:.4f} ms ({db_by}), "
+        "bit-identical to the plain version")
+    densify_entry = {
+        "name": "densify", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
+        "replaces": "src/repro/core/ack.py:95",
+        "max_abs_err": d_err, "ms": t_dk, "plain_ms": t_dp,
+        "bound_ms": db_ms, "bound_by": db_by, "library_ms": t_dl}
+
+    info = {"slice": list(key), "w": w, "nnz": nnz}
+    for with_acc in (False, True):
+        a = acc if with_acc else None
+        got = ops.gemm(dense, h, a)
+        want = ref.gemm_ref(dense, h) + (acc if with_acc else 0.0)
+        err = check_close(torch, f"gemm remapped shape{' +acc' * with_acc}",
+                          got, want, KERNEL_RTOL, KERNEL_ATOL)
+        if not torch.equal(got, ops.gemm(dense.clone(), h, a)):
+            fail("gemm remapped shape: the densified block and its copy "
+                 "give different bits")
+        if with_acc and not torch.equal(
+                got, ACK("cuda").gemm_agg(cols, vals, h, acc)):
+            fail("gemm_agg on the FL slice differs from densify + gemm")
+        t_k = median_ms(torch, lambda: ops.gemm(dense, h, a))
+        if with_acc:
+            t_l = median_ms(torch, lambda: torch.addmm(acc, dense, h))
+            lib = "torch.addmm"
+        else:
+            t_l = median_ms(torch, lambda: torch.matmul(dense, h))
+            lib = "torch.matmul"
+        nbytes = 4 * (n1 * n1 + n1 * f + (2 if with_acc else 1) * n1 * f)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * n1 * n1 * f)
+        log(f"kernel gemm {n1}x{n1}x{f} (densified FL slice, strided h"
+            f"{', +acc' if with_acc else ''}): kernel {t_k:.4f} ms, {lib} "
+            f"{t_l:.4f} ms (TF32 off), bound {b_ms:.4f} ms ({b_by}), "
+            f"{t_k / b_ms:.2f}x the bound, max|err| {err:.2e}; bits equal "
+            "on a copy of the block")
+        info["acc" if with_acc else "plain"] = {
+            "ms": t_k, "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err}
+    return densify_entry, info
 
 
 # --------------------------------------------------------------------------- #
@@ -1270,6 +1643,14 @@ def main() -> int:
     gemm_entry = kernel_phase(torch, ops, ref)
     launches, fl_prog, responses, peak, engine, co, fl = path_phase(torch)
     spdmm_entry = fl_spdmm_entry(torch, ops, ref, fl_prog)
+    t6 = time.perf_counter()
+    host_launches, heng, fl_x, host_sum = host_phase(
+        torch, engine, fl, fl_prog, responses[-3].output)
+    co_launches, co_remap = remap_co_phase(torch, co)
+    fl_launches, fl_remap = remap_fl_phase(torch, heng, fl, fl_x)
+    densify_entry, gemm_remap = remap_gemm_entry(torch, ops, ref, fl_prog)
+    del heng
+    log(f"host and remap phase: {time.perf_counter() - t6:.1f} s")
     rt_launches, gat_prog, rt_resps, rt_peak, rt_wall = runtime_phase(
         torch, engine, co, fl)
     sddmm_entry, sddmm_hub = fl_sddmm_entry(torch, ops, ref, gat_prog)
@@ -1282,8 +1663,12 @@ def main() -> int:
     flash_entry["launches"] = flash_launches
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
-        e["launches"] = launches.get(e["name"], 0) + rt_launches[e["name"]]
+        e["launches"] = sum(run.get(e["name"], 0) for run in (
+            launches, rt_launches, host_launches, co_launches, fl_launches))
     kernels.append(flash_entry)
+    densify_entry["launches"] = co_launches["densify"] + \
+        fl_launches["densify"]
+    kernels.append(densify_entry)
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
@@ -1321,6 +1706,9 @@ def main() -> int:
                                          "cache_hit": r.cache_hit}
                                         for r in rt_resps]},
                        "lm": lm,
+                       "host_path": host_sum,
+                       "remap": {"co": co_remap, "fl": fl_remap,
+                                 "gemm_4096x4096x128": gemm_remap},
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

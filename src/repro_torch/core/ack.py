@@ -76,6 +76,24 @@ def _spdmm_torch(h_src, cols, vals, mask, acc, op: str):
     raise ValueError(op)
 
 
+# --------------------------------------------------------------------------- #
+# Dense-aggregate GEMM: densified SpDMM for remapped high-density tiles
+# (Dynasparse-style sparsity-adaptive mode switch).  The ELL tile is
+# scattered into an (n1, n_src) dense adjacency block and dispatched as a
+# matmul on the GEMM path.  Pad slots carry cols == 0 / vals == 0, so they
+# deposit zeros harmlessly; duplicate cols sum, in slot order (the
+# densify kernel and its plain version both fix that order, so a block
+# has the same bits on every call).
+# --------------------------------------------------------------------------- #
+def densify_tile(cols, vals, n_src: int) -> torch.Tensor:
+    """Scatter an ELL slice into its (n1, n_src) dense adjacency block:
+    the hand densify kernel on a CUDA device, its plain version on the
+    CPU.  Executors cache the result per (j, k, s) so one densification
+    feeds every output fiber's GEMM dispatch."""
+    from repro_torch.kernels import ops as kops
+    return kops.densify(cols, vals, int(n_src))
+
+
 class ACK:
     """Mode-switched compute engine; see module docstring."""
 
@@ -102,6 +120,20 @@ class ACK:
             return self._kops.gemm(h, w, acc)
         self._torch_only(h)
         y = torch.matmul(h, w)
+        return y if acc is None else acc + y
+
+    # -- Dense-aggregate GEMM (remapped SpDMM tiles) --------------------- #
+    def gemm_agg(self, cols, vals, h_src, acc=None):
+        """Aggregate a remapped ELL tile by densifying it and running the
+        GEMM datapath (the hand GEMM kernel on the ``cuda`` backend):
+        ``acc + dense(cols, vals) @ h_src``."""
+        _count(("gemm_agg", _shape(h_src), _shape(cols), self.backend))
+        if self.backend == "torch":
+            self._torch_only(h_src)
+        dense = densify_tile(cols, vals, h_src.shape[0])
+        if self.backend == "cuda":
+            return self._kops.gemm(dense, h_src, acc)
+        y = torch.matmul(dense, h_src)
         return y if acc is None else acc + y
 
     # -- SpDMM ---------------------------------------------------------- #

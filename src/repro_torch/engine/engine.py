@@ -243,14 +243,23 @@ class Engine:
     # ------------------------------------------------------------------ #
     def compile(self, model: ModelSpec, graph: Graph, *, seed: int = 0,
                 order_opt: bool = True, fusion: bool = True,
-                use_cache: bool = True,
+                use_cache: bool = True, residency: Optional[str] = None,
                 _key: Optional[str] = None) -> CompiledProgram:
         """Model + graph -> CompiledProgram (through the §6 pipeline).
 
         ``model`` is a benchmark name ("b1".."b8", built with ``seed``) or
         a :class:`ModelIR`.  Hits in the program cache skip compilation.
         ``_key`` lets callers that already computed the cache key (submit)
-        skip rehashing the graph/weights."""
+        skip rehashing the graph/weights.
+
+        ``residency`` ("device" | "host") sets the program's default
+        execution mode: "host" keeps features host-resident and streams
+        one destination shard's working set to the device at a time
+        (bit-identical results, bounded device footprint).  The returned
+        handle carries the default; the shared cache entry does not."""
+        if residency not in (None, "device", "host"):
+            raise ValueError("residency must be 'device' or 'host', "
+                             f"got {residency!r}")
         key = _key or self.cache_key(model, graph, seed=seed,
                                      order_opt=order_opt, fusion=fusion)
         tracer = get_tracer()
@@ -259,6 +268,9 @@ class Engine:
             if cached is not None:
                 tracer.instant("cache_hit", cat="compile",
                                track="compile", args={"key": key[:12]})
+                if residency is not None:
+                    return dataclasses.replace(
+                        cached, default_residency=residency)
                 return cached
         with tracer.span("compile", cat="compile", track="compile",
                          args={"key": key[:12],
@@ -275,14 +287,51 @@ class Engine:
         prog = from_program(cr.program, binary=cr.binary, t_loc=cr.t_loc,
                             cache_key=key, graph_name=graph.name,
                             source=cr)
+        if residency is not None:
+            prog = dataclasses.replace(prog, default_residency=residency)
         self.stats.compiles += 1
         self.stats.total_t_loc += cr.t_loc
         if use_cache:
             # The cached copy drops `source` (the full IR/Program/report
             # graph): execution needs only binary+manifest+weights+tiles.
             # It shares `pgraph`, on which the device-staged tiles live.
-            self.cache.put(key, dataclasses.replace(prog, source=None))
+            # It also drops the residency default: serving traffic runs
+            # device-resident unless a caller asks otherwise.
+            self.cache.put(key, dataclasses.replace(
+                prog, source=None, default_residency=None))
         return prog
+
+    def remap(self, prog: CompiledProgram, report: Any = None, *,
+              source: str = "auto", force: Any = None, margin: float = 0.1,
+              probe: bool = False,
+              modes: Optional[Sequence[str]] = None) -> CompiledProgram:
+        """Sparsity-adaptive kernel remapping of a compiled program
+        (:mod:`repro_torch.core.passes.remap`): re-encode each AGGREGATE
+        tile's kernel fields — SpDMM as-is, densified GEMM, or
+        skip-empty — from the tile's measured/derived density and a cost
+        oracle.  No recompile, no new partition; the cache key is kept.
+
+        ``report`` supplies the oracle's machine constants (a constants
+        dict or any object with ``calibrated_constants``), or ``None``
+        for the default roofline, whose constants are TPU v5e figures
+        (:mod:`repro_torch.core.perfmodel`).  ``probe=True`` instead
+        times the two ACK kernels at the program's tile geometry on this
+        engine's device and backend.  ``force`` / ``modes`` pin or
+        restrict decisions (oracle tests / ablations).
+
+        If ``prog`` is the cached entry for its key, the cache is updated
+        in place (slim copy, same key), so later cache hits stay
+        remapped."""
+        from repro_torch.core.passes.remap import remap_program
+        with self._on_stream():
+            new = remap_program(prog, source=source, constants=report,
+                                margin=margin, force=force, modes=modes,
+                                probe=probe, ack=self._executor.ack,
+                                device=self.device)
+        if prog.cache_key and self.cache.get(prog.cache_key) is not None:
+            self.cache.put(prog.cache_key, dataclasses.replace(
+                new, source=None, default_residency=None))
+        return new
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -313,12 +362,17 @@ class Engine:
             residency: Optional[str] = None, mesh=None) -> torch.Tensor:
         """Execute a compiled program by decoding its ISA binary, on this
         engine's device and stream; returns the [V, f_out] output tensor
-        there, computed (the stream has been synchronized)."""
+        there, computed (the stream has been synchronized).
+        ``residency="host"`` streams the partition-centric out-of-core
+        path (features host-resident, one shard's working set on the
+        device at a time); ``"device"`` keeps every padded layer output
+        on the device.  The results are bit-identical; ``None`` uses the
+        program's compile-time default."""
+        residency = residency or prog.default_residency or "device"
         with self._on_stream() as caller:
             y = self._executor.run(prog, x, weights=weights,
                                    graph_data=graph_data,
-                                   residency=residency or "device",
-                                   mesh=mesh)
+                                   residency=residency, mesh=mesh)
         return self._hand_back(y, caller)
 
     def run_batch(self, prog: CompiledProgram, xs,
@@ -328,13 +382,16 @@ class Engine:
                   mesh=None) -> torch.Tensor:
         """One binary pass for stacked ``[N, V, F]`` features ->
         ``[N, V, f_out]``; lane n equals ``run(prog, xs[n])`` bit for bit.
-        ``graph_data`` (ROADMAP A11), ``residency="host"`` (A7) and
-        ``mesh`` (A13) are not ported and raise NotImplementedError."""
+        ``residency`` as in :meth:`run` ("host" interleaves the lanes per
+        staged shard, so each shard's tile working set ships once per
+        batch; the staged window's sub-fiber half then scales with the
+        batch).  ``graph_data`` (ROADMAP A11) and ``mesh`` (A13) are not
+        ported and raise NotImplementedError."""
+        residency = residency or prog.default_residency or "device"
         with self._on_stream() as caller:
             ys = self._executor.run_batch(prog, xs, weights=weights,
                                           graph_data=graph_data,
-                                          residency=residency or "device",
-                                          mesh=mesh)
+                                          residency=residency, mesh=mesh)
         return self._hand_back(ys, caller)
 
     def load(self, path: str) -> CompiledProgram:

@@ -263,15 +263,29 @@ def from_program(program: Program, binary: Optional[bytes] = None,
                  n_devices: Optional[int] = None) -> CompiledProgram:
     """Wrap an object-graph :class:`Program` into a CompiledProgram.
 
-    Unlike the JAX package's manifest this one carries no ``dep_graph``
-    section (the static verifier is not ported); bundles that carry one
-    load and run all the same, since execution never reads it."""
+    The manifest gains a ``dep_graph`` section — the RAW/WAR/WAW hazard
+    DAG re-derived from the freshly assembled binary (see
+    :mod:`repro_torch.verify.hazards`) — so every ``.gagi`` bundle carries
+    its own dependence structure, as the JAX package's do."""
     from repro_torch.core.isa import assemble
     if binary is None:
         binary = assemble(program.all_instrs())
     weights = {k: np.asarray(v) for k, v in program.model.weights.items()}
     manifest = build_manifest(program, graph_name, n_devices=n_devices)
+    manifest["dep_graph"] = _dep_graph_section(binary, manifest,
+                                               program.pgraph)
     return CompiledProgram(
         binary=binary, manifest=manifest,
         weights=weights, pgraph=program.pgraph, t_loc=t_loc,
         cache_key=cache_key, source=source)
+
+
+def _dep_graph_section(binary: bytes, manifest: dict, pgraph) -> dict:
+    from repro_torch.verify.hazards import dep_graph_manifest
+    from repro_torch.verify.model import build_model
+
+    from .decoder import decode_binary
+    plan = decode_binary(binary)
+    model = build_model(plan, manifest["layers"], manifest["geometry"],
+                        pgraph=pgraph)
+    return dep_graph_manifest(model, manifest["layers"])

@@ -42,7 +42,11 @@ _ARGTYPES = {
               + [_c_void_p]),
     "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
                         + [_c_int] * 7 + [_c_float, _c_void_p]),
+    "densify": ("ell_densify_f32", [_c_void_p] * 3 + [_c_int] * 3
+                + [_c_ll, _c_void_p]),
 }
+# Entry points that live in another kernel's source (library).
+_SOURCE_OF = {"densify": "gemm"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -115,7 +119,8 @@ def build_all(names: Optional[List[str]] = None) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built on first use)."""
+    """The loaded library of source ``name`` (built on first use), with
+    the argtypes of every entry point it holds set."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -124,17 +129,19 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_lib_path(name))
-            fn_name, argtypes = _ARGTYPES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for ent in _ARGTYPES:
+                if _SOURCE_OF.get(ent, ent) == name:
+                    fn_name, argtypes = _ARGTYPES[ent]
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[name] = lib
     return lib
 
 
 def entry(name: str):
     """The C entry point of kernel ``name``, with its argtypes set."""
-    return getattr(library(name), _ARGTYPES[name][0])
+    return getattr(library(_SOURCE_OF.get(name, name)), _ARGTYPES[name][0])
 
 
 def edited(name: str, edits: Sequence[Tuple[str, str]]) -> str:

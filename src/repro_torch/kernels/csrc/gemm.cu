@@ -41,6 +41,26 @@
 // strides (column stride 1); acc may be null and may alias C (each thread
 // reads its acc elements before writing the same C elements).  The kernel
 // launches on the caller's stream and allocates nothing.
+//
+// The file also holds `ell_densify_f32`, which feeds this kernel the dense
+// [n1, n_src] adjacency block of a remapped ELL tile (a sparsity-remapped
+// binary runs such an AGGREGATE step as dense @ h).  It replaces the XLA
+// scatter-add of src/repro/core/ack.py `densify_tile` / `_gemm_agg_xla`,
+// which has no Pallas kernel.  A graph may hold the same column twice in
+// one row, and a scatter-add on the card sums such duplicates in no fixed
+// order, so the block would change from call to call.  Here one warp owns
+// row r and lane l owns the row's columns c with c % 32 == l.  The row is
+// built in shared memory, DCOLS columns a pass: each lane zeroes its
+// columns, the warp reads the row's slots 32 at a time (one coalesced load
+// a lane) and broadcasts the non-zero ones in slot order with shuffles,
+// the owning lane adds each to its column (lane l only touches bank l),
+// and the lanes write the pass's columns out coalesced.  Every element is
+// therefore 0.0f plus its slots in slot order, the sum a serial
+// scatter-add makes, with no atomics; skipping the zero-valued slots (the
+// pads, over 99% of a Flickr slice) changes no bit, as the loop says.  What
+// bounds it is writing the block (64 MiB at n1 = n_src = 4096, 0.02 ms at
+// 3.35 TB/s); a first design, one 256-thread CTA a row adding into global
+// memory, took 16x that (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -211,6 +231,45 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+constexpr int DW = 4;           // densify rows (warps) per CTA
+constexpr int DCOLS = 2048;     // columns a warp builds per pass (8 KB)
+
+__global__ void __launch_bounds__(DW * 32)
+ell_densify_kernel(const int* __restrict__ cols,
+                   const float* __restrict__ vals, float* D, int n1, int w,
+                   int n_src, long long ldd) {
+  __shared__ float acc_all[DW][DCOLS];
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * DW + (threadIdx.x >> 5);
+  if (r >= n1) return;                 // whole warps; no block barrier
+  float* acc = acc_all[threadIdx.x >> 5];
+  float* row = D + r * ldd;
+  const int* cr = cols + r * (long long)w;
+  const float* vr = vals + r * (long long)w;
+  for (int c0 = 0; c0 < n_src; c0 += DCOLS) {
+    const int nc = min(DCOLS, n_src - c0);
+    for (int c = lane; c < nc; c += 32) acc[c] = 0.0f;
+    for (int k0 = 0; k0 < w; k0 += 32) {
+      const int k = k0 + lane;
+      const int my_c = k < w ? cr[k] - c0 : -1;
+      const float my_v = k < w ? vr[k] : 0.0f;
+      // A sum that starts at +0.0f is never -0.0f, so adding 0.0f of
+      // either sign leaves it unchanged: zero-valued slots (the pads)
+      // are skipped without changing a bit.
+      unsigned todo = __ballot_sync(0xffffffffu, my_v != 0.0f &&
+                                                     my_c >= 0 && my_c < nc);
+      while (todo) {                   // the same mask in every lane
+        const int q = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int c = __shfl_sync(0xffffffffu, my_c, q);
+        const float v = __shfl_sync(0xffffffffu, my_v, q);
+        if ((c & 31) == lane) acc[c] += v;
+      }
+    }
+    for (int c = lane; c < nc; c += 32) row[c0 + c] = acc[c];
+  }
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -237,5 +296,19 @@ extern "C" int gemm_f32(const float* A, const float* B, const float* acc,
   else
     gemm_f32_kernel<false><<<grid, THREADS, SMEM_BYTES, s>>>(
         A, B, acc, C, M, N, K, lda, ldb, ldacc, ldc, vec_out);
+  return (int)cudaGetLastError();
+}
+
+// D[r, :] = the sum over slots k of vals[r, k] at column cols[r, k], for
+// an [n1, w] ELL tile (cols, vals contiguous) into D [n1, n_src] with row
+// stride ldd; columns outside [0, n_src) are dropped.  Returns
+// cudaGetLastError() after the launch (0 when there is nothing to do).
+extern "C" int ell_densify_f32(const int* cols, const float* vals, float* D,
+                               int n1, int w, int n_src, long long ldd,
+                               void* stream) {
+  if (n1 <= 0 || n_src <= 0) return 0;
+  ell_densify_kernel<<<(n1 + DW - 1) / DW, DW * 32, 0,
+                       (cudaStream_t)stream>>>(cols, vals, D, n1, w, n_src,
+                                               ldd);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,9 @@
 row_len)`` returns ``acc + ELL(cols, vals) @ h`` and ``sddmm(h_dst, h_src,
 cols, mask, acc)`` returns ``acc + where(mask, <h_dst[r], h_src[cols[r,
 k]]>, 0)``, all in fp32 (``acc``, ``row_len`` and ``mask`` may be None);
+``densify(cols, vals, n_src)`` returns the dense [n1, n_src] block of an
+ELL tile (duplicate columns summed in slot order), the GEMM kernel's
+operand for a sparsity-remapped aggregate step;
 ``flash_attention(q, k, v, causal)`` returns ``softmax(q k^T d^-1/2 [+
 causal mask]) v`` per head of [BH, T, d] tensors in fp32 or bf16, with
 k / v of [BH / G, T, d] for grouped KV heads.  Tensors on a CUDA device
@@ -35,7 +38,7 @@ from . import ref
 from .build import entry
 
 LAUNCHES: Dict[str, int] = {"gemm": 0, "spdmm": 0, "sddmm": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "densify": 0}
 _launch_lock = threading.Lock()
 
 
@@ -107,6 +110,28 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"gemm kernel launch failed: CUDA error {rc}")
     _launched("gemm")
+    return out
+
+
+def densify(cols: torch.Tensor, vals: torch.Tensor,
+            n_src: int) -> torch.Tensor:
+    """The [n1, n_src] fp32 block holding, at (r, c), the sum of
+    ``vals[r, k]`` over the slots k with ``cols[r, k] == c``, added in slot
+    order from 0 (so a duplicated column gives the same bits every call);
+    columns outside [0, n_src) are dropped."""
+    if _on_cpu(cols, vals):
+        return ref.densify_ref(cols, vals, n_src)
+    n1, w = cols.shape
+    _check_matrix("densify cols", cols, torch.int32)
+    _check_matrix("densify vals", vals, torch.float32, (n1, w))
+    if not (cols.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("densify: cols and vals must be contiguous")
+    out = torch.empty((n1, n_src), dtype=torch.float32, device=cols.device)
+    rc = entry("densify")(cols.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                          n1, w, n_src, _ld(out), _stream(cols))
+    if rc != 0:
+        raise RuntimeError(f"densify kernel launch failed: CUDA error {rc}")
+    _launched("densify")
     return out
 
 

@@ -40,6 +40,25 @@ def spdmm_ref(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     return out.to(out_dtype)
 
 
+def densify_ref(cols: torch.Tensor, vals: torch.Tensor,
+                n_src: int) -> torch.Tensor:
+    """The dense [n1, n_src] block of an ELL tile: ``vals[r, k]`` added at
+    (r, ``cols[r, k]``) one slot index k at a time, so a column that a row
+    holds twice sums in slot order (within one k no two rows collide);
+    columns outside [0, n_src) are dropped (sent to a spare column), as
+    JAX's scatter drops them."""
+    n1, w = cols.shape
+    out = torch.zeros((n1, n_src + 1), dtype=torch.float32,
+                      device=cols.device)
+    rows = torch.arange(n1, device=cols.device)
+    c = cols.long()
+    c = torch.where((c >= 0) & (c < n_src), c, torch.full_like(c, n_src))
+    v = vals.float()
+    for k in range(w):
+        out[rows, c[:, k]] = out[rows, c[:, k]] + v[:, k]
+    return out[:, :n_src].contiguous()
+
+
 def sddmm_ref(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
               out_dtype=torch.float32) -> torch.Tensor:
     """score[r,k] = <h_dst[r], h_src[cols[r,k]]> (pad entries score the

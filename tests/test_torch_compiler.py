@@ -2,10 +2,11 @@
 
 The ``.gagi`` format is the contract between the two packages, so the
 port's binary must be byte-identical to the JAX compiler's for the same
-(model, graph, options), and its manifest equal apart from the
-``dep_graph`` section the port does not emit.  Models are built by both
-packages' builders from the same seed (numpy generators), so their weights
-agree too.
+(model, graph, options), and its manifest equal in full, ``dep_graph``
+included.  Models are built by both packages' builders from the same seed
+(numpy generators), so their weights agree too.  The same holds of the
+remap pass: for the same program, constants and ``force`` / ``modes``,
+the port's ``remap_program`` writes JAX's bytes and ``remap`` record.
 """
 import json
 
@@ -20,12 +21,16 @@ from repro.core import gnn_builders as JB  # noqa: E402
 from repro.core import graph as JG  # noqa: E402
 from repro.core.passes.partition import PartitionConfig as JPC  # noqa: E402
 from repro.engine import Engine as JEngine  # noqa: E402
+from repro.core.passes.remap import \
+    remap_program as j_remap_program  # noqa: E402
 from repro.engine.program import from_program as j_from_program  # noqa: E402
 from repro_torch.core import compiler as TC  # noqa: E402
 from repro_torch.core import gnn_builders as TB  # noqa: E402
 from repro_torch.core import graph as TG  # noqa: E402
 from repro_torch.core.passes.partition import \
     PartitionConfig as TPC  # noqa: E402
+from repro_torch.core.passes.remap import \
+    remap_program as t_remap_program  # noqa: E402
 from repro_torch.engine import Engine as TEngine  # noqa: E402
 from repro_torch.engine.program import \
     from_program as t_from_program  # noqa: E402
@@ -55,10 +60,13 @@ def _assert_same_program(jr, tr):
     assert tr.binary == jr.binary
     jp = j_from_program(jr.program, binary=jr.binary)
     tp = t_from_program(tr.program, binary=tr.binary)
+    _assert_same_compiled(jp, tp)
+
+
+def _assert_same_compiled(jp, tp):
     jm = json.loads(json.dumps(jp.manifest))
     tm = json.loads(json.dumps(tp.manifest))
-    assert "dep_graph" in jm and "dep_graph" not in tm
-    jm.pop("dep_graph")
+    assert "dep_graph" in jm
     assert tm == jm
     assert sorted(tp.weights) == sorted(jp.weights)
     for k in jp.weights:
@@ -142,3 +150,24 @@ def test_synthesized_graphs_identical():
         np.testing.assert_array_equal(a.dst, b.dst)
         np.testing.assert_array_equal(
             JG.random_features(a, seed=3), TG.random_features(b, seed=3))
+
+
+@pytest.mark.parametrize("name", list(JB.BENCHMARKS))
+@pytest.mark.parametrize("how", [{"force": "gemm"}, {"force": "spdmm"},
+                                 {}])
+def test_remapped_binary_and_record_identical(name, how):
+    """Forced GEMM, forced SpDMM and auto (TPU default constants): the
+    same bytes, the same manifest (``dep_graph`` refreshed from the new
+    binary) and the same ``remap`` record, apart from its timing."""
+    gj, gt = _graphs(nv=150, ne=1200, degree="powerlaw", seed=5)
+    jr, tr = _compile_both(name, gj, gt)
+    jp = j_remap_program(j_from_program(jr.program, binary=jr.binary),
+                         **how)
+    tp = t_remap_program(t_from_program(tr.program, binary=tr.binary),
+                         **how)
+    assert tp.binary == jp.binary
+    if how.get("force") == "gemm":
+        assert tp.binary != tr.binary
+    for p in (jp, tp):
+        assert p.manifest["remap"].pop("remap_ms") >= 0.0
+    _assert_same_compiled(jp, tp)

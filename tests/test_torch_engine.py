@@ -335,23 +335,32 @@ def test_unported_paths_raise(tmp_path):
     x = TG.random_features(gt, seed=1)
     eng = _engine()
     prog = eng.compile("b1", gt)
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.run(prog, x, residency="host")
     with pytest.raises(NotImplementedError, match="A13"):
         eng.run(prog, x, mesh=2)
     with pytest.raises(NotImplementedError, match="A11"):
         eng.run(prog, x, graph_data={"tiles": {}})
     with pytest.raises(NotImplementedError, match="A11"):
         eng.run_batch(prog, np.stack([x, x]), graph_data={"tiles": {}})
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.run_batch(prog, np.stack([x, x]), residency="host")
-    # a sparsity-remapped binary (GEMM steps in AGGREGATE layers)
+    with pytest.raises(NotImplementedError, match="A11"):
+        eng.run(prog, x, graph_data={"tiles": {}}, residency="host")
+    # Host streaming and remapped binaries are ported now: a JAX-remapped
+    # bundle (GEMM steps in AGGREGATE layers) runs on both residencies
+    # with the same bits, within tolerance of JAX's own run of it.
+    y = eng.run(prog, x)
+    assert torch.equal(eng.run(prog, x, residency="host"), y)
+    assert torch.equal(eng.run_batch(prog, np.stack([x, x]),
+                                     residency="host")[1], y)
     je = _jengine()
     remapped = je.remap(je.compile("b1", gj), force="gemm")
     path = str(tmp_path / "remapped.gagi")
     remapped.save(path)
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.run(eng.load(path), x)
+    loaded = eng.load(path)
+    yr = eng.run(loaded, x)
+    assert eng.exec_stats.tiles_remapped > 0
+    assert torch.equal(eng.run(loaded, x, residency="host"), yr)
+    np.testing.assert_allclose(
+        yr.numpy(), np.asarray(je.run(remapped, jnp.asarray(x))),
+        rtol=RTOL, atol=ATOL)
 
 
 def test_budget_gate_and_liveness():
@@ -402,6 +411,11 @@ def test_port_imports_neither_jax_nor_repro():
         "assert lg.shape == (2, cfg.vocab)\n"
         "assert serve.main(['--smoke', '--device', 'cpu', '--requests', '2',"
         " '--prompt-len', '3', '--gen', '2']) == 0\n"
+        "import repro_torch.core.passes.remap, repro_torch.core.perfmodel\n"
+        "import repro_torch.verify.hazards\n"
+        "rp = eng.remap(eng.compile('b1', g), force='gemm')\n"
+        "y = eng.run(rp, G.random_features(g, seed=3), residency='host')\n"
+        "assert eng.exec_stats.tiles_remapped > 0 and y.shape == (60, 3)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"

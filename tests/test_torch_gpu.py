@@ -483,3 +483,106 @@ def test_cuda_two_layer_prefill_matches_plain_attention(cuda, dtype, limit,
     want = prefill(model, {"tokens": toks}).float()
     assert got.shape == (2, cfg.vocab) and bool(torch.isfinite(got).all())
     assert float((got - want).norm() / want.norm()) <= limit
+
+
+# --------------------------------------------------------------------------- #
+# Host-streaming residency and remapped binaries.
+# --------------------------------------------------------------------------- #
+def _powerlaw(nv=120, ne=700, seed=3):
+    g = TG.random_graph(nv, ne, seed=seed, degree="powerlaw").gcn_normalized()
+    g.feat_dim, g.n_classes = 12, 4
+    return g
+
+
+@pytest.mark.parametrize("which", ["b1", "gat-dot"])
+def test_cuda_host_path_equals_device(cuda, which):
+    from repro_torch.engine.executor import _host_tiles
+    g = _powerlaw()
+    model = "b1" if which == "b1" else build_gat_dot(TB, g, hidden=16)
+    eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4)
+    prog = eng.compile(model, g)
+    xs = np.stack([TG.random_features(g, seed=s) for s in range(2)])
+    want = eng.run_batch(prog, xs)
+    ops.reset_launches()
+    got = eng.run_batch(prog, xs, residency="host")
+    st = eng.exec_stats
+    assert torch.equal(got, want)
+    assert st.shards_streamed > 1 and st.h2d_bytes > 0
+    modes = st.tile_ops_by_mode
+    assert ops.LAUNCHES["gemm"] == 2 * modes["gemm"] > 0
+    assert ops.LAUNCHES["spdmm"] == 2 * modes["spdmm"] > 0
+    assert ops.LAUNCHES["sddmm"] == 2 * modes.get("sddmm", 0)
+    assert _host_tiles(prog.pgraph, True).row("cols", 0)[0].is_pinned()
+    ref_model = "b1" if which == "b1" else build_gat_dot(TB, g, hidden=16)
+    _close(got[1], TR.run_reference(
+        TB.build(ref_model, g) if isinstance(ref_model, str) else ref_model,
+        g, torch.as_tensor(xs[1], device=cuda), dtype=torch.float64),
+        rtol=2e-4, atol=2e-5)
+
+
+def test_cuda_forced_gemm_equal_across_residencies(cuda):
+    g = _powerlaw(seed=4)
+    x = TG.random_features(g, seed=2)
+    eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4)
+    prog = eng.compile("b1", g)
+    rp = eng.remap(prog, force="gemm")
+    ops.reset_launches()
+    y = eng.run(rp, x)
+    st = eng.exec_stats
+    assert st.tiles_remapped == rp.manifest["remap"]["remapped_ops"] > 0
+    assert ops.LAUNCHES["gemm"] == st.tile_ops_by_mode["gemm"]
+    assert ops.LAUNCHES["densify"] > 0
+    assert torch.equal(eng.run(rp, x, residency="host"), y)
+    assert eng.exec_stats.tiles_remapped == st.tiles_remapped
+    want = TR.run_reference(TB.build("b1", g), g,
+                            torch.as_tensor(x, device=cuda),
+                            dtype=torch.float64)
+    _close(y, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("n1,w,n_src", [(64, 24, 45), (4096, 64, 4096)])
+def test_cuda_densify_duplicates_same_bits(cuda, n1, w, n_src):
+    # A tile whose rows hold the same column many times (values of mixed
+    # sign and scale, so the sum order shows in the bits): ten calls give
+    # the same bits, those of the plain version's slot-order sum.
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cols = torch.randint(0, 4, (n1, w), generator=g, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn(n1, w, generator=g, device=cuda) * torch.where(
+        torch.rand(n1, w, generator=g, device=cuda) > 0.5, 1e4, 1.0)
+    # Zero-valued slots of either sign (which the kernel skips) and sums
+    # that cancel exactly: the bits, signs of zero included, are still
+    # the plain version's.
+    vals[0, :6] = torch.tensor([1.5, -1.5, -0.0, 0.0, 2.0, -0.0])
+    cols[0, :6] = torch.tensor([1, 1, 1, 2, 3, 3], dtype=torch.int32)
+    vals[1, :3] = -0.0
+    ops.reset_launches()
+    first = ops.densify(cols, vals, n_src)
+    assert ops.LAUNCHES["densify"] == 1
+    bits = first.view(torch.int32)
+    for _ in range(9):
+        assert torch.equal(ops.densify(cols, vals, n_src).view(torch.int32),
+                           bits)
+    assert torch.equal(ref.densify_ref(cols, vals, n_src).view(torch.int32),
+                       bits)
+    assert float(first[:, 4:].abs().max()) == 0.0
+
+
+def test_cuda_host_path_survives_delayed_streams(cuda):
+    # The host path's copies run on a side stream and its kernels on the
+    # engine's: delaying either behind a ~0.1 s spin must not change a
+    # bit.  A missing wait on the copy event (kernels reading a window
+    # still in flight) or a missing record_stream shows up here.
+    g = _powerlaw(seed=6)
+    model = build_gat_dot(TB, g, hidden=16)
+    eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4)
+    prog = eng.compile(model, g, residency="host")
+    x = TG.random_features(g, seed=8)
+    want = eng.run(prog, x, residency="device")
+    assert torch.equal(eng.run(prog, x), want)       # host default
+    side = eng.executor._copy_stream
+    assert side is not None
+    for delayed in (side, eng.stream, torch.cuda.current_stream()):
+        with torch.cuda.stream(delayed):
+            torch.cuda._sleep(100_000_000)
+        assert torch.equal(eng.run(prog, x), want)

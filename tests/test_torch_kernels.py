@@ -196,8 +196,9 @@ def test_cpu_wrappers_do_not_count_launches():
               torch.zeros(4, 8, dtype=torch.int32))
     ops.flash_attention(torch.ones(2, 3, 4), torch.ones(2, 5, 4),
                         torch.ones(2, 5, 4))
+    ops.densify(torch.zeros(4, 8, dtype=torch.int32), torch.ones(4, 8), 6)
     assert ops.LAUNCHES == {"gemm": 0, "spdmm": 0, "sddmm": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "densify": 0}
 
 
 def test_wrapper_checks_reject_bad_operands():
