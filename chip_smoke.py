@@ -55,7 +55,7 @@ Phases (any failure exits non-zero; nothing is caught):
    bits, the float64 reference, ``tiles_remapped`` equal to the flipped
    steps, GEMM launches up (and SpDMM down) by exactly those steps, the
    densify kernel launched.  (c) b2@FL, one profiled hit, then
-   ``Engine.remap`` with the default constants (TPU v5e figures) over its
+   ``Engine.remap`` with the default constants (the H100 data sheet) over its
    ``exec_profile`` densities and with ``probe=True`` (this card's
    kernels timed): decision counts, predicted gain, a device-resident
    hit's T_LoH and the float64 reference.  (d) The densify kernel on the
@@ -79,8 +79,36 @@ Phases (any failure exits non-zero; nothing is caught):
    on a synthetic hub tile of the same shape (256 rows with all 512
    slots live, the rest 25); on both, masked slots equal acc and two runs
    are equal.
-
-6. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
+6. Sampled serving: ``SamplingService`` (``repro_torch.sampling``) over
+   ``OverlayPool(2 overlays)``, ``PartitionConfig(n1=256, n2=32)`` (the
+   full-mode geometry of ``benchmarks/bench_sample.py``), max_batch 8, gcn
+   normalization, on the full-scale synthesized Flickr graph (89,250
+   vertices, 899,756 drawn edges, features of width 500 from seed 3).
+   ``warm`` compiles the programs of a disjoint stream of 384 requests;
+   then 64 requests (1-16 targets each from seed 0, fanouts (25, 10),
+   GraphSAGE's published two-hop sizes, b1 / b3 / b6 round-robin) are
+   served as graph-as-data lanes of bucket programs.  Checks: every
+   response within rtol 2e-4 / atol 2e-5 of a float64 ``run_reference``
+   of its own sampled subgraph; at least 8 (each model's first two and
+   largest bucket, and every response of the largest bucket) bit-identical
+   to the unpadded subgraph served through ``Engine.submit``; the
+   program-cache hit rate after warm-up >= 0.9; GEMM and SpDMM launches
+   equal to the sum over batches of lanes x the bucket program's tile
+   steps.  Printed: p50 / p99 latency, throughput, the bucket census, the
+   mean batch size, ``graph_data`` H2D bytes per batch, the tile steps of
+   each bucket program, and one profiled batch of 8 lanes.
+7. Conformance (``repro_torch.obs``): ``build_report`` of b1-b8 on CO
+   and b2@FL device-resident (per-layer CUDA-event times) and of b2@FL
+   host-streamed under phase 4's budget (synchronized wall times, a
+   traced and profiled hit), each program recompiled with
+   ``use_cache=False`` so it carries its source: per-mode model error
+   before and after calibration (calibrated <= uncalibrated checked), the
+   fitted constants beside the card's name and power limit,
+   ``fit_stage_bw`` (the stage spans' copy device time) within 15% of the
+   copy-engine rate ``torch.profiler`` reads for the same hit, and the
+   decisions of ``Engine.remap`` priced by the b2@FL report beside phase
+   4's (data-sheet defaults, probe).
+8. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
    query / 8 KV heads of 128, vocab 151,936), weights random from
    ``torch.Generator`` seed 0 with the JAX initializers' scales:
    the flash kernel against its plain version (the sweep of
@@ -105,8 +133,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths (the Engine.serve path, the host and remap runs of phase 4, the
-runtime path, and the prefill and forward runs of phase 6), each counted
-from zero just before the path runs and read just after.
+runtime path, the sampled stream, the reported runs of phase 7, and the
+prefill and forward runs of phase 8), each counted from zero just before
+the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
 the host enqueues 20 back-to-back calls while the device is busy, and a
@@ -900,9 +929,10 @@ def remap_co_phase(torch, co):
 
 
 def remap_fl_phase(torch, heng, fl, x):
-    """b2@FL: one profiled hit, then remap priced by the TPU-default
-    constants over the exec_profile densities and by probing this card's
-    kernels; each run once device-resident (its T_LoH printed)."""
+    """b2@FL: one profiled hit, then remap priced by the default constants
+    (the H100 data sheet) over the exec_profile densities and by probing
+    this card's kernels; each run once device-resident (its T_LoH
+    printed)."""
     from repro_torch.engine import InferenceRequest
     from repro_torch.kernels import ops
     heng.executor.resident_budget_bytes = None    # device-resident hits
@@ -921,7 +951,7 @@ def remap_fl_phase(torch, heng, fl, x):
     total = {k: 0 for k in ops.LAUNCHES}
     out = {"canonical_t_loh_s": t_canon}
     req = InferenceRequest(model="b2", graph=fl, features=x)
-    for label, kw in (("tpu-default", {"source": "exec_profile"}),
+    for label, kw in (("h100-default", {"source": "exec_profile"}),
                       ("probe", {"probe": True})):
         t0 = time.perf_counter()
         rp = heng.remap(prog, **kw)
@@ -1303,6 +1333,338 @@ def sddmm_tile(torch, ops, ref, label, hd, hs, cols, mask, acc):
 
 
 # --------------------------------------------------------------------------- #
+SAMPLE_GEOM = (256, 32)          # bench_sample.py's full-mode (n1, n2)
+SAMPLE_FANOUTS = (25, 10)        # GraphSAGE's published two-hop sizes
+SAMPLE_MODELS = ("b1", "b3", "b6")
+SAMPLE_N, SAMPLE_WARM, SAMPLE_MAX_BATCH = 64, 384, 8
+SAMPLE_MIN_HIT_RATE, SAMPLE_MIN_BITWISE = 0.9, 8
+
+
+def sample_stream(np, n_vertices, n, seed, tag):
+    """``n`` per-user requests: 1-16 distinct targets each (drawn from
+    ``seed``), fanouts (25, 10), models b1 / b3 / b6 round-robin, and a
+    sampling seed per request."""
+    from repro_torch.sampling import TargetRequest
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        t = rng.choice(n_vertices, size=int(rng.integers(1, 17)),
+                       replace=False)
+        out.append(TargetRequest(
+            targets=[int(v) for v in t], model=SAMPLE_MODELS[i % 3],
+            fanouts=SAMPLE_FANOUTS, request_id=f"{tag}{i}",
+            seed=int(rng.integers(1 << 30))))
+    return out
+
+
+def sampled_phase(torch, fl_raw):
+    """Per-user ego-network serving through ``SamplingService`` on the
+    full-scale synthesized Flickr graph; see the module docstring.
+    Returns (launches of the served stream, a summary dict)."""
+    import numpy as np
+
+    from repro_torch.core import graph as G
+    from repro_torch.core.gnn_builders import build
+    from repro_torch.core.passes.partition import PartitionConfig
+    from repro_torch.core.reference import run_reference
+    from repro_torch.engine import Engine, InferenceRequest
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Batch, request_cost
+    from repro_torch.sampling import SamplingService, sample_ego
+
+    n1, n2 = SAMPLE_GEOM
+    geom = PartitionConfig(n1=n1, n2=n2)
+    X = G.random_features(fl_raw, seed=3)
+    svc = SamplingService(fl_raw, X, n_overlays=2, geometry=geom,
+                          max_batch=SAMPLE_MAX_BATCH)
+    reqs = sample_stream(np, fl_raw.n_vertices, SAMPLE_N, 0, "u")
+    warm = sample_stream(np, fl_raw.n_vertices, SAMPLE_WARM, 1, "w")
+    t0 = time.perf_counter()
+    n_prog = svc.warm(warm)
+    torch.cuda.synchronize()
+    log(f"sampled: warmed {n_prog} programs from a disjoint stream of "
+        f"{len(warm)} requests in {time.perf_counter() - t0:.2f} s")
+
+    # Each batch's pass, recorded in the overlay's worker thread right
+    # after it (an overlay runs its batches FIFO).
+    batches = []
+    execute_on = svc.pool.execute_on
+
+    def recorded(idx, batch):
+        resps = execute_on(idx, batch)
+        st = svc.pool.engines[idx].exec_stats
+        batches.append({"overlay": idx, "key": batch.key,
+                        "size": len(batch),
+                        "modes": dict(st.tile_ops_by_mode or {}),
+                        "h2d_bytes": st.h2d_bytes,
+                        "t_loh_s": resps[0].t_loh})
+        return resps
+    svc.pool.execute_on = recorded
+    h0 = sum(e.stats.cache_hits for e in svc.pool.engines)
+    r0 = sum(e.stats.requests for e in svc.pool.engines)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    # ---- the sampled path: counts are zeroed just above, read below.
+    t0 = time.perf_counter()
+    try:
+        resps = svc.serve(reqs)
+    finally:
+        svc.shutdown()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    # ---- end of the sampled path.
+    svc.pool.execute_on = execute_on
+    hits = sum(e.stats.cache_hits for e in svc.pool.engines) - h0
+    served = sum(e.stats.requests for e in svc.pool.engines) - r0
+    hit_rate = hits / served
+
+    snap = svc.pool.metrics.snapshot(max_batch=SAMPLE_MAX_BATCH)["global"]
+    census = dict(sorted(svc.bucket_counts.items(),
+                         key=lambda kv: -kv[1]))
+    log(f"sampled: {len(resps)} responses in {wall:.3f} s "
+        f"({len(resps) / wall:.2f} requests/s), latency p50 "
+        f"{snap['p50_latency_ms']:.3f} ms, p99 {snap['p99_latency_ms']:.3f}"
+        f" ms (of {snap['requests']} requests), {len(batches)} batches, "
+        f"mean batch size {snap['mean_batch_size']:.3f}; program-cache hit "
+        f"rate after warm-up {hit_rate:.4f} ({hits}/{served})")
+    log(f"sampled: bucket census ({len(census)} buckets) {census}")
+    # Tile steps of each bucket program and its expected launches.
+    exp = {"gemm": 0, "spdmm": 0}
+    steps = {}
+    for b in batches:
+        eng = svc.pool.engines[b["overlay"]]
+        prog = eng.cache.get(svc.pool.engine_key(b["key"]))
+        if prog is None:
+            fail(f"sampled: a served program left overlay {b['overlay']}'s "
+                 "cache")
+        per_pass = plan_tile_ops(prog)
+        label = f"{prog.model_name}@{prog.graph_name}"
+        steps[label] = {"tile_steps": per_pass, "n_blocks":
+                        prog.pgraph.n_blocks}
+        for k in exp:
+            exp[k] += b["size"] * per_pass[k]
+        if per_pass["gemm"] != b["modes"].get("gemm", 0):
+            fail(f"sampled batch {label}: executor GEMM steps "
+                 f"{b['modes']} != the plan's {per_pass}")
+    for label, s in sorted(steps.items()):
+        log(f"  program {label}: nb {s['n_blocks']}, tile steps per lane "
+            f"{s['tile_steps']}")
+    h2d = [b["h2d_bytes"] for b in batches]
+    log(f"sampled: graph_data H2D bytes per batch: mean "
+        f"{statistics.mean(h2d):.0f}, max {max(h2d)}, total {sum(h2d)}; "
+        f"launches {launches}; expected lanes x tile steps {exp}")
+    for k in exp:
+        if not (launches[k] == exp[k] > 0):
+            fail(f"sampled {k} launches {launches[k]} != lanes x tile steps"
+                 f" {exp[k]}")
+    if hit_rate < SAMPLE_MIN_HIT_RATE:
+        fail(f"sampled: cache hit rate {hit_rate:.4f} < "
+             f"{SAMPLE_MIN_HIT_RATE}")
+    if [r.request_id for r in resps] != [r.request_id for r in reqs]:
+        fail("sampled responses are not in request order")
+
+    # Every response against a float64 reference of its own subgraph;
+    # the largest bucket of each model and more against the unpadded
+    # subgraph served through Engine.submit, bit for bit.
+    size = {r.bucket: tuple(int(p[1:]) for p in r.bucket.split("-")[:3])
+            for r in resps}
+    chosen = set()
+    for m in SAMPLE_MODELS:
+        mine = [i for i, q in enumerate(reqs) if q.model == m]
+        chosen.add(max(mine, key=lambda i: size[resps[i].bucket]))
+        chosen.update(mine[:2])
+    largest = max(size.values())
+    chosen.update(i for i, r in enumerate(resps) if size[r.bucket] ==
+                  largest)
+    solo = Engine(geometry=geom)
+    worst, bitwise = 0.0, 0
+    for i, (q, r) in enumerate(zip(reqs, resps)):
+        ego = sample_ego(fl_raw, q.targets, q.fanouts, seed=q.seed)
+        sub = ego.graph.gcn_normalized()
+        xs = torch.as_tensor(X[ego.vertices], device="cuda")
+        nt = ego.n_targets
+        if tuple(r.logits.shape) != (nt, fl_raw.n_classes) or not bool(
+                torch.isfinite(r.logits).all()):
+            fail(f"sampled {r.request_id}: logits {tuple(r.logits.shape)} "
+                 "or non-finite values")
+        y64 = run_reference(build(q.model, sub, q.model_seed), sub, xs,
+                            dtype=torch.float64)[:nt]
+        err = (r.logits.double() - y64).abs()
+        if bool((err > PATH_ATOL + PATH_RTOL * y64.abs()).any()):
+            fail(f"sampled {r.request_id} ({q.model}, {r.bucket}): max|err| "
+                 f"{float(err.max()):.3e} past rtol {PATH_RTOL} / atol "
+                 f"{PATH_ATOL} of the float64 reference")
+        worst = max(worst, float(err.max()))
+        if i in chosen:
+            y = solo.submit(InferenceRequest(q.model, sub, X[ego.vertices],
+                                             seed=q.model_seed)).output
+            if not torch.equal(r.logits, y[:nt]):
+                fail(f"sampled {r.request_id} ({q.model}, {r.bucket}): "
+                     "padded logits differ from the unpadded subgraph's by "
+                     f"{float((r.logits - y[:nt]).abs().max()):.3e}")
+            bitwise += 1
+    if bitwise < SAMPLE_MIN_BITWISE:
+        fail(f"sampled: only {bitwise} responses held bit for bit")
+    log(f"sampled: {len(resps)} responses within rtol {PATH_RTOL} / atol "
+        f"{PATH_ATOL} of float64 references of their subgraphs (worst "
+        f"max|err| {worst:.3e}); {bitwise} (each model, the largest bucket "
+        f"{largest}) bit-identical to the unpadded subgraph through "
+        "Engine.submit")
+
+    # One batch of the most populated key, profiled.
+    key = max({b["key"] for b in batches},
+              key=lambda k: sum(b["size"] for b in batches
+                                if b["key"] == k))
+    infs = [svc.prepare(q, count=False)[0] for q in reqs]
+    same = [inf for inf in infs if svc.pool.cache_key(inf) == key]
+    same = (same * SAMPLE_MAX_BATCH)[:SAMPLE_MAX_BATCH]
+    batch = Batch(key=key, requests=same, indices=list(range(len(same))),
+                  created_at=0.0, cost=len(same) * request_cost(same[0]))
+    prof = {}
+    profile_call(torch, lambda: svc.pool.submit_batch(batch),
+                 f"sampled batch of {len(same)} ({same[0].graph.name})",
+                 split="HtoD", out=prof)
+    return launches, {
+        "wall_s": wall, "requests_per_s": len(resps) / wall,
+        "hit_rate": hit_rate, "warmed_programs": n_prog, "metrics": snap,
+        "buckets": census, "batches": len(batches),
+        "h2d_bytes_per_batch": h2d, "tile_steps": steps,
+        "launches": launches, "worst_err": worst, "bitwise": bitwise,
+        "profile": prof}
+
+
+def _report_line(label, rep) -> str:
+    modes = ", ".join(f"{m} {rep.model_error[m]:.4f} -> "
+                      f"{rep.model_error_calibrated[m]:.4f} (scale "
+                      f"{rep.scales[m]:.4g})" for m in sorted(rep.model_error))
+    return (f"conformance {label}: predicted {rep.predicted_s * 1e3:.4f} ms, "
+            f"measured {rep.measured_s * 1e3:.4f} ms; model error "
+            f"{rep.model_error_overall:.4f} -> "
+            f"{rep.model_error_overall_calibrated:.4f} calibrated; per mode "
+            f"{modes}")
+
+
+def _checked_report(label, rep):
+    for m, e in rep.model_error.items():
+        if not rep.model_error_calibrated[m] <= e + 1e-12:
+            fail(f"conformance {label}: calibrated error "
+                 f"{rep.model_error_calibrated[m]} > uncalibrated {e} "
+                 f"({m})")
+    if rep.model_error_overall_calibrated > rep.model_error_overall + 1e-12:
+        fail(f"conformance {label}: calibrated overall error above the "
+             "uncalibrated one")
+    log(_report_line(label, rep))
+    return rep
+
+
+def conformance_phase(torch, co, fl, card, budget, fl_remap):
+    """Conformance reports on the card (b1-b8 on CO and b2@FL device-
+    resident, b2@FL host-streamed under phase 4's budget), fitted
+    constants, fit_stage_bw against the profiler's copy rate, and the
+    remap decisions a fitted report makes on FL; see the module
+    docstring.  Returns (launches of the reported runs, a summary)."""
+    from repro_torch.core import graph as G
+    from repro_torch.core.gnn_builders import BENCHMARKS
+    from repro_torch.core.perfmodel import DEFAULT_CONSTANTS
+    from repro_torch.engine import Engine, InferenceRequest
+    from repro_torch.kernels import ops
+    from repro_torch.obs import build_report, fit_stage_bw, tracing
+
+    out = {"co": {}, "card": card}
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    def counted(fn):
+        ops.reset_launches()
+        # ---- a reported run: counts zeroed above, read below.
+        y = fn()
+        torch.cuda.synchronize()
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        # ----
+        return y
+
+    ceng = Engine()
+    for name in BENCHMARKS:
+        prog = ceng.compile(name, co, use_cache=False)
+        x = G.random_features(co, seed=1)
+        ceng.run(prog, x)                                  # warm
+        counted(lambda: ceng.run(prog, x))
+        rep = _checked_report(f"{name}@CO device",
+                              build_report(prog, ceng.exec_stats))
+        out["co"][name] = rep.to_dict()
+
+    t0 = time.perf_counter()
+    prog = ceng.compile("b2", fl, use_cache=False)
+    log(f"conformance: b2@FL recompiled with its source in "
+        f"{time.perf_counter() - t0:.2f} s")
+    x = G.random_features(fl, seed=10)
+    ceng.run(prog, x)                                      # uploads tiles
+    y_dev = counted(lambda: ceng.run(prog, x))
+    dev = _checked_report("b2@FL device", build_report(prog,
+                                                       ceng.exec_stats))
+    ceng.executor.resident_budget_bytes = budget
+    y_host = ceng.run(prog, x, residency="host")           # pins tiles
+    prof = {}
+    with tracing() as t:
+        profile_call(torch, lambda: counted(
+            lambda: ceng.run(prog, x, residency="host")),
+            "b2@FL host hit, traced", split="HtoD", out=prof)
+    events = t.events()
+    host_stats = ceng.exec_stats
+    host = _checked_report("b2@FL host", build_report(
+        prog, host_stats, residency="host", events=events))
+    ceng.executor.resident_budget_bytes = None
+    if not torch.equal(y_host, y_dev):
+        fail("conformance: b2@FL host output differs from the device path")
+    stages = [e for e in events if e.get("name") == "stage"]
+    if not stages or any("copy_us" not in e["args"] for e in stages):
+        fail("conformance: host stage spans without the copies' device "
+             "time")
+    bw = fit_stage_bw(events)
+    host_dur_bw = sum(e["args"]["bytes"] ** 2 for e in stages) / sum(
+        e["args"]["bytes"] * e["dur"] / 1e6 for e in stages)
+    prof_bw = (host_stats.h2d_bytes / (prof["split_ms"] / 1e3)
+               if prof.get("split_ms") else None)
+    if prof_bw is None:
+        fail("conformance: the profiler read no HtoD copies; the copy-"
+             "engine rate was not measured")
+    gap = abs(bw - prof_bw) / prof_bw
+    log(f"conformance: fit_stage_bw {bw / 1e9:.3f} GB/s from {len(stages)} "
+        f"stage spans' copy time, the profiler's copy-engine rate "
+        f"{prof_bw / 1e9:.3f} GB/s ({host_stats.h2d_bytes} B over "
+        f"{prof['split_ms']:.3f} ms of HtoD copies), {100 * gap:.2f}% apart;"
+        f" the spans' host durations would fit {host_dur_bw / 1e9:.3f} GB/s"
+        f" ({card})")
+    if gap > 0.15:
+        fail(f"conformance: fit_stage_bw {bw:.4g} B/s is {100 * gap:.1f}% "
+             f"from the profiler's copy rate {prof_bw:.4g} B/s (limit 15%)")
+
+    fitted = dict(dev.calibrated_constants, stage_bw=bw)
+    for k, v in DEFAULT_CONSTANTS.to_dict().items():
+        run = "b2@FL host stage spans" if k == "stage_bw" else "b2@FL device"
+        got = f"{fitted[k]:.4g}" if k in fitted else "not fitted"
+        log(f"  constant {k}: data sheet {v:.4g}, fitted {got} from {run} "
+            f"({card})")
+    rp = ceng.remap(prog, report=dev)
+    rec = rp.manifest["remap"]
+    log(f"conformance: remap of b2@FL priced by the fitted constants: counts "
+        f"{rec['counts']}, predicted gain {rec['predicted_gain_s']:.6e} s; "
+        f"by the H100 data sheet {fl_remap['h100-default']['counts']}, "
+        f"by probe {fl_remap['probe']['counts']} (phase 4)")
+    if rp.binary != prog.binary:
+        y = ceng.run(rp, x)
+        hold_against_reference(torch, [InferenceRequest("b2", fl, x)],
+                               [_resp("b2@FL fitted remap", y)])
+    out.update(fl_device=dev.to_dict(), fl_host=host.to_dict(),
+               fitted_constants=fitted, fit_stage_bw=bw,
+               profiler_copy_bw=prof_bw, stage_host_duration_bw=host_dur_bw,
+               fitted_remap={"counts": rec["counts"],
+                             "predicted_gain_s": rec["predicted_gain_s"]},
+               host_profile=prof)
+    return launches, out
+
+
+# --------------------------------------------------------------------------- #
 @contextlib.contextmanager
 def attention_as(ops, fn):
     """While open, ``ops.flash_attention`` is ``fn``: the check's own
@@ -1629,6 +1991,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     warnings.filterwarnings("ignore", message="Sparse")
 
+    from repro_torch.core import graph as G
     from repro_torch.kernels import build, ops, ref
 
     t_start = time.perf_counter()
@@ -1654,6 +2017,13 @@ def main() -> int:
     rt_launches, gat_prog, rt_resps, rt_peak, rt_wall = runtime_phase(
         torch, engine, co, fl)
     sddmm_entry, sddmm_hub = fl_sddmm_entry(torch, ops, ref, gat_prog)
+    t7 = time.perf_counter()
+    sp_launches, sampled = sampled_phase(torch, G.synthesize("FL"))
+    log(f"sampled phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    conf_launches, conformance = conformance_phase(
+        torch, co, fl, card, host_sum["budget"], fl_remap)
+    log(f"conformance phase: {time.perf_counter() - t7:.1f} s")
     t5 = time.perf_counter()
     flash_entry, flash_path = flash_kernel_phase(torch, ops, ref)
     flash_launches, lm = lm_phase(torch, ops, ref)
@@ -1664,10 +2034,11 @@ def main() -> int:
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
-            launches, rt_launches, host_launches, co_launches, fl_launches))
+            launches, rt_launches, host_launches, co_launches, fl_launches,
+            sp_launches, conf_launches))
     kernels.append(flash_entry)
     densify_entry["launches"] = co_launches["densify"] + \
-        fl_launches["densify"]
+        fl_launches["densify"] + conf_launches["densify"]
     kernels.append(densify_entry)
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1709,6 +2080,7 @@ def main() -> int:
                        "host_path": host_sum,
                        "remap": {"co": co_remap, "fl": fl_remap,
                                  "gemm_4096x4096x128": gemm_remap},
+                       "sampled": sampled, "conformance": conformance,
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,7 @@
 """Cache-hit latency of two checkouts of the port, alternated on one GPU.
 
     python3 hit_pairs.py TREE_A TREE_B [--rounds 3] [--hits 8]
-                         [--json-out PATH]
+                         [--residency device|host] [--json-out PATH]
     python3 hit_pairs.py TREE --streams [--rounds 2] [--hits 12]
 
 Each round runs TREE_A, TREE_B, TREE_B, TREE_A, each in a process of its
@@ -14,6 +14,12 @@ It records each request's T_LoH and the per-layer CUDA-event times of its
 pass.  The summary gives, per tree, the median and range of the hits'
 T_LoH and of their SpDMM layers' times.  The last line of the output is
 the summary as JSON.
+
+With ``--residency host`` the program is compiled with
+``residency="host"`` and each request is one ``Engine.run`` of the
+host-streaming path, timed by the host clock around the run and the
+engine stream's synchronize (per-layer times are then synchronized wall
+times); its miss also pins the graph's tiles in host memory.
 
 With ``--streams`` one tree runs ``--rounds`` processes whose hits
 alternate between the Engine's own CUDA stream and the caller's default
@@ -30,7 +36,8 @@ import subprocess
 import sys
 
 
-def one(tree: str, hits: int, streams: bool = False) -> dict:
+def one(tree: str, hits: int, streams: bool = False,
+        residency: str = "device") -> dict:
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
     if not torch.cuda.is_available():
@@ -40,6 +47,7 @@ def one(tree: str, hits: int, streams: bool = False) -> dict:
     from repro_torch.engine import Engine, InferenceRequest
     from repro_torch.kernels import build
 
+    import time
     build.build_all()
     fl = G.synthesize("FL").gcn_normalized()
     eng = Engine()
@@ -48,10 +56,18 @@ def one(tree: str, hits: int, streams: bool = False) -> dict:
     for i in range(hits + 1):
         if streams:
             eng.stream = None if i % 2 == 0 else own
-        resp = eng.submit(InferenceRequest(
-            model="b2", graph=fl, features=G.random_features(fl, seed=10 + i),
-            request_id=f"b2@FL#{i}"))
-        out.append({"t_loh_ms": resp.t_loh * 1e3, "hit": resp.cache_hit,
+        x = G.random_features(fl, seed=10 + i)
+        if residency == "host":
+            prog = eng.compile("b2", fl, residency="host")
+            t0 = time.perf_counter()
+            eng.run(prog, x)
+            eng._sync()
+            t_loh, hit = time.perf_counter() - t0, i > 0
+        else:
+            resp = eng.submit(InferenceRequest(
+                model="b2", graph=fl, features=x, request_id=f"b2@FL#{i}"))
+            t_loh, hit = resp.t_loh, resp.cache_hit
+        out.append({"t_loh_ms": t_loh * 1e3, "hit": hit,
                     "stream": ("default" if getattr(eng, "stream", None)
                                is None else "own"),
                     "layers": [(r["kernel"], r.get("tile_ops"),
@@ -88,11 +104,13 @@ def main() -> int:
                          "stream within each process of one tree")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--hits", type=int, default=8)
+    ap.add_argument("--residency", choices=("device", "host"),
+                    default="device")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(one(args.one, args.hits, args.streams)),
-              flush=True)
+        print(json.dumps(one(args.one, args.hits, args.streams,
+                             args.residency)), flush=True)
         return 0
     if len(args.trees) != (1 if args.streams else 2):
         ap.error("give one tree with --streams, else two")
@@ -102,7 +120,7 @@ def main() -> int:
         for tree in order:
             p = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--one", tree,
-                 "--hits", str(args.hits)]
+                 "--hits", str(args.hits), "--residency", args.residency]
                 + (["--streams"] if args.streams else []),
                 capture_output=True, text=True)
             if p.returncode != 0:

@@ -110,6 +110,21 @@ class Graph:
         self.__dict__.pop("_edge_digest", None)
         return token
 
+    def in_csr(self):
+        """Cached in-adjacency CSR view (``repro_torch.sampling.csr.CSR``).
+
+        The per-user sampling layer needs O(degree) "who sends messages
+        to vertex v" lookups on the host; this hook memoizes the one-time
+        O(|V| + |E|) CSR build on the graph object (same identity-keyed
+        invalidation rule as the engine's signature memo: rebinding the
+        edge arrays invalidates).  In-place *content* mutation is
+        invisible to identity checks — mutators must call
+        :meth:`invalidate_views`, and the memo also re-checks
+        :attr:`mutation_token` on access.
+        """
+        from repro_torch.sampling.csr import in_csr  # lazy: core has no
+        return in_csr(self)             # other dependency on sampling
+
 
 # --------------------------------------------------------------------------- #
 def synthesize(

@@ -4,9 +4,10 @@ A copy of ``repro/core/passes/remap.py``: for the same program,
 constants and ``force`` / ``modes`` it writes the same binary bytes and
 the same ``remap`` record (a test holds the two equal).  Only
 ``probe_oracle`` differs: it times the port's ACK, with CUDA events on a
-CUDA device.  The default constants are the TPU v5e figures of
-:mod:`repro_torch.core.perfmodel`, so an unprobed, uncalibrated remap
-prices tiles as a TPU would.
+CUDA device.  The default constants are the H100 data-sheet figures of
+:mod:`repro_torch.core.perfmodel` (the JAX package's are its own), so
+a test that compares the two packages' remaps hands both the same
+constants.
 
 GraphAGILE fixes each layer's ACK mode at compile time from static
 geometry (paper §6.6): every AGGREGATE tile runs SpDMM.  But tile density

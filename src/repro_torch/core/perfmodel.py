@@ -1,12 +1,13 @@
-"""Analytic latency model for the overlay on TPU v5e (a copy of
-``repro/core/perfmodel.py``; the two are held equal by a test).
+"""Analytic latency model for the overlay, priced for one NVIDIA H100
+(a copy of ``repro/core/perfmodel.py`` apart from its default constants;
+the two are held equal by a test under equal constants).
 
-The port prices with the same constants as the JAX package, so that a
-remap decision, and the binary and ``remap`` record it produces, are the
-same bytes in both packages.  They are **TPU v5e data-sheet figures and
-the paper's PCIe link**, not H100 figures: a remap priced with them says
-what a TPU would prefer.  H100 constants come from fitting measured runs
-(ROADMAP A9) or from ``remap(probe=True)``, which times the port's own
+The default constants are the H100 SXM5 80GB data-sheet figures at its
+700 W power limit, so ``Engine.remap`` with no report prices the card the
+port runs on.  The port's GEMM, SpDMM and SDDMM kernels are fp32 kernels
+on the CUDA cores, so the compute peaks are the fp32 rate.  A conformance
+report (:mod:`repro_torch.obs.conformance`) fits *effective* constants
+from measured runs; ``remap(probe=True)`` instead times the port's own
 kernels on the card.
 
 The paper evaluates T_LoH with a cycle-accurate simulator of the Alveo
@@ -38,11 +39,11 @@ from typing import Dict, List, Optional
 from .ir import LayerType
 from .passes.kernel_map import Program
 
-# TPU v5e data-sheet figures and the paper's PCIe link (not the H100's).
-PEAK_FLOPS = 197e12        # bf16 MXU, per chip
-VPU_FLOPS = 8e12           # vector unit (sparse modes run on gathers/VPU)
-HBM_BW = 819e9
-STAGE_BW = 31.5e9          # host->device staging link (paper's PCIe 31.5GB/s)
+# NVIDIA H100 SXM5 80GB at its 700 W power limit, data-sheet figures.
+PEAK_FLOPS = 67e12         # H100 SXM5 80GB, 700 W: fp32 on the CUDA cores
+VPU_FLOPS = 67e12          # H100 SXM5 80GB, 700 W: fp32 (sparse modes too)
+HBM_BW = 3.35e12           # H100 SXM5 80GB, 700 W: HBM3
+STAGE_BW = 64e9            # H100 SXM5 80GB, 700 W: PCIe Gen5 x16 host link
 
 # layer-level kernel dispatch, mirroring the executor's _KERNEL_MODES
 KERNEL_OF_LAYER = {
@@ -63,7 +64,8 @@ class ModelConstants:
     """Machine constants the roofline is evaluated against.
 
     The defaults are datasheet numbers; conformance calibration
-    (the JAX package's ``repro.obs.conformance.calibrate``) produces a fitted instance.
+    (:func:`repro_torch.obs.conformance.build_report`) produces a
+    fitted instance.
     """
 
     peak_flops: float = PEAK_FLOPS
@@ -211,6 +213,7 @@ def layer_costs(prog: Program, overlap: bool = True,
 def predict_loh(prog: Program, overlap: bool = True,
                 residency: str = "device",
                 constants: Optional[ModelConstants] = None) -> float:
-    """Predicted hardware-execution latency (seconds) on TPU v5e."""
+    """Predicted hardware-execution latency (seconds) under
+    ``constants`` (the H100 data-sheet defaults when None)."""
     return sum(lc.t for lc in layer_costs(
         prog, overlap=overlap, residency=residency, constants=constants))

@@ -12,7 +12,7 @@ from .cache import LRUCache
 from .decoder import ExecutionPlan, LayerPlan, TilePlan, decode_binary
 from .engine import (Engine, EngineStats, InferenceRequest,
                      InferenceResponse, graph_signature, model_signature,
-                     stack_features)
+                     stack_features, stack_graph_data)
 from .executor import BinaryExecutor, ExecStats, ResidentBudgetError
 from .program import CompiledProgram, build_manifest, from_program
 
@@ -22,5 +22,5 @@ __all__ = [
     "ResidentBudgetError", "LRUCache",
     "ExecutionPlan", "LayerPlan", "TilePlan", "decode_binary",
     "build_manifest", "from_program", "graph_signature", "model_signature",
-    "stack_features",
+    "stack_features", "stack_graph_data",
 ]

@@ -51,7 +51,7 @@ from repro_torch.core.passes.partition import PartitionConfig
 from repro_torch.obs.tracer import get_tracer
 
 from .cache import LRUCache
-from .executor import BinaryExecutor, ExecStats
+from .executor import BinaryExecutor, ExecStats, stack_graph_data
 from .program import CompiledProgram, from_program
 
 ModelSpec = Union[str, ModelIR]
@@ -143,14 +143,21 @@ def stack_features(features: Sequence[Any]) -> torch.Tensor:
 
 @dataclasses.dataclass
 class InferenceRequest:
-    """One unit of serving traffic: (model, graph, features)."""
+    """One unit of serving traffic: (model, graph, features).
+
+    ``graph_data`` switches the request to graph-as-data execution (the
+    mini-batch sampling layer): ``graph`` is then a geometry-bucket
+    *template* shared by every request in the bucket, which makes the
+    program-cache key collide across users, and the request's actual
+    topology travels in ``graph_data`` (canonical ELL layout, see
+    ``repro_torch.sampling.buckets.layout_graph``)."""
 
     model: ModelSpec              # benchmark name ("b1".."b8") or a ModelIR
     graph: Graph
     features: Any                 # [V, F] array (numpy or tensor)
     request_id: Optional[str] = None
     seed: int = 0                 # builder seed when model is a name
-    graph_data: Optional[dict] = None   # not ported (ROADMAP A11)
+    graph_data: Optional[dict] = None   # per-request topology (sampling)
 
 
 @dataclasses.dataclass
@@ -313,11 +320,11 @@ class Engine:
 
         ``report`` supplies the oracle's machine constants (a constants
         dict or any object with ``calibrated_constants``), or ``None``
-        for the default roofline, whose constants are TPU v5e figures
-        (:mod:`repro_torch.core.perfmodel`).  ``probe=True`` instead
-        times the two ACK kernels at the program's tile geometry on this
-        engine's device and backend.  ``force`` / ``modes`` pin or
-        restrict decisions (oracle tests / ablations).
+        for the default roofline, whose constants are the H100
+        data-sheet figures (:mod:`repro_torch.core.perfmodel`).
+        ``probe=True`` instead times the two ACK kernels at the program's
+        tile geometry on this engine's device and backend.  ``force`` /
+        ``modes`` pin or restrict decisions (oracle tests / ablations).
 
         If ``prog`` is the cached entry for its key, the cache is updated
         in place (slim copy, same key), so later cache hits stay
@@ -385,8 +392,9 @@ class Engine:
         ``residency`` as in :meth:`run` ("host" interleaves the lanes per
         staged shard, so each shard's tile working set ships once per
         batch; the staged window's sub-fiber half then scales with the
-        batch).  ``graph_data`` (ROADMAP A11) and ``mesh`` (A13) are not
-        ported and raise NotImplementedError."""
+        batch).  ``graph_data`` is lane-stacked (:func:`stack_graph_data`)
+        and device-resident only; ``mesh`` (ROADMAP A13) is not ported
+        and raises NotImplementedError."""
         residency = residency or prog.default_residency or "device"
         with self._on_stream() as caller:
             ys = self._executor.run_batch(prog, xs, weights=weights,
@@ -452,8 +460,10 @@ class Engine:
         Latency accounting reflects what each request *experienced*:
         every response reports the batch's compile latency (they all
         waited for the one compile on a miss) and the batch's execution
-        wall time.  (Live-graph admission comes with ROADMAP A12, as in
-        :meth:`submit`.)
+        wall time.  Graph-as-data requests (``graph_data``, one bucket
+        per cache key) run as lanes of one pass, each on its own tiles;
+        they cannot share a batch with baked-topology requests.
+        (Live-graph admission comes with ROADMAP A12.)
         """
         if not reqs:
             return []
@@ -484,9 +494,10 @@ class Engine:
             prog = self.cache.get(key) or prog
         # No lane padding to a power of two: the JAX engine pads only so
         # that ragged batch sizes reuse its traced executables, and this
-        # port has no traced executables yet (ROADMAP A6).
+        # port has none yet (ROADMAP: the CUDA-graph replay item).
         n = len(reqs)
-        gd = [r.graph_data for r in reqs] if with_gd else None
+        gd = (stack_graph_data([r.graph_data for r in reqs], n)
+              if with_gd else None)
         with self._on_stream() as caller:
             # Stacked on the stream that reads the stack.
             xs = stack_features([r.features for r in reqs])

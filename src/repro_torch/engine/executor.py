@@ -26,8 +26,15 @@ On a CUDA device the ACK runs the hand-written GEMM, SpDMM, SDDMM and
 densify kernels; on the CPU it runs plain torch.  A sparsity-remapped
 binary (:mod:`repro_torch.core.passes.remap`) runs its GEMM steps inside
 AGGREGATE layers on the GEMM kernel over densified tiles.  Multi-device
-meshes (ROADMAP A13) and graph-as-data (A11) are not ported yet and raise
-``NotImplementedError``.
+meshes (ROADMAP A13) are not ported yet and raise ``NotImplementedError``.
+
+Graph-as-data (the sampling layer's mode): ``run`` / ``run_batch`` take
+``graph_data``, each lane's own topology in the program's canonical ELL
+layout (:class:`_LaneTiles`), in place of the baked tiles.  The program
+is compiled once per geometry bucket against the bucket's template graph
+(:mod:`repro_torch.sampling.buckets`), so N different subgraphs of one
+bucket run as ONE binary pass; every tile op is issued once per lane on
+that lane's tiles.  It is device-resident only.
 
 Batches: :meth:`BinaryExecutor.run_batch` executes N feature sets over one
 program in ONE traversal of the decoded binary.  Layer outputs carry a
@@ -336,6 +343,10 @@ def _checked_tile_array(pg, kind: str, j: int, k: int, s: int
 
 
 def _tile_array(t, kind: str) -> np.ndarray:
+    """``kind`` of an ELL tile ``t`` (``cols`` / ``vals`` / ``edge_pos``
+    of shape [n1, w]), or of a stack of tiles ([..., n1, w]; graph-as-data
+    lanes): the live-slot kinds then hold each tile's positions (within
+    its own n1 x w slots) and edge ids back to back, in C order."""
     if kind == "cols":
         return t.cols
     if kind == "vals":
@@ -345,7 +356,9 @@ def _tile_array(t, kind: str) -> np.ndarray:
     if kind == "row_len":
         return _row_len(t.edge_pos)
     if kind == "live_pos":
-        return np.flatnonzero(t.edge_pos >= 0).astype(np.int64)
+        live = t.edge_pos >= 0
+        slots = live.shape[-2] * live.shape[-1]
+        return (np.flatnonzero(live) % slots).astype(np.int64)
     if kind == "live_epos":
         ep = t.edge_pos.reshape(-1)
         return ep[ep >= 0].astype(np.int64)
@@ -353,12 +366,156 @@ def _tile_array(t, kind: str) -> np.ndarray:
 
 
 def _row_len(edge_pos: np.ndarray) -> np.ndarray:
-    """int32 [n1]: 1 + the last live slot of each row (0 for a row with no
-    edge).  A last-live index, not a count, so pads between live slots
-    stay inside it (they carry vals == 0)."""
+    """int32 [..., n1]: 1 + the last live slot of each row (0 for a row
+    with no edge).  A last-live index, not a count, so pads between live
+    slots stay inside it (they carry vals == 0)."""
     live = np.asarray(edge_pos) >= 0
-    last = live.shape[1] - 1 - np.argmax(live[:, ::-1], axis=1)
-    return np.where(live.any(axis=1), last + 1, 0).astype(np.int32)
+    last = live.shape[-1] - 1 - np.argmax(live[..., ::-1], axis=-1)
+    return np.where(live.any(axis=-1), last + 1, 0).astype(np.int32)
+
+
+_GD_KINDS = ("cols", "vals", "mask", "epos")
+
+
+def stack_graph_data(gds, pad_to: int) -> dict:
+    """Stack N per-request ``graph_data`` structures (one geometry bucket,
+    so one structure) into one with a leading lane axis on every array,
+    zero-filling up to ``pad_to`` lanes (numpy).  Zero lanes are inert:
+    their mask is False everywhere, so they compute on empty graphs."""
+    extra = max(pad_to - len(gds), 0)
+
+    def stack(arrs):
+        a = np.stack([np.asarray(x) for x in arrs])
+        if extra:
+            a = np.concatenate([a, np.zeros((extra,) + a.shape[1:],
+                                            a.dtype)])
+        return a
+    try:
+        kinds = {key: set(t) for key, t in gds[0]["tiles"].items()}
+        if any({key: set(t) for key, t in g["tiles"].items()} != kinds
+               for g in gds[1:]):
+            raise ValueError("tile keys or kinds differ between lanes")
+        return {"tiles": {key: {kind: stack([g["tiles"][key][kind]
+                                             for g in gds])
+                                for kind in gds[0]["tiles"][key]}
+                          for key in gds[0]["tiles"]},
+                "inv_in_degree": stack([g["inv_in_degree"] for g in gds])}
+    except (KeyError, TypeError, IndexError, ValueError) as e:
+        raise ValueError("graph_data of the lanes must share one "
+                         "structure: {'tiles': {'j:k:s': {cols, vals, mask,"
+                         f" epos}}}}, 'inv_in_degree'}} ({e!r})") from None
+
+
+@dataclasses.dataclass
+class _TileStack:
+    """One canonical tile of every lane: ``cols`` / ``vals`` /
+    ``edge_pos`` [N, n1, w] (``edge_pos`` -1 off the mask), read by
+    :func:`_tile_array` like a baked tile."""
+    cols: np.ndarray
+    vals: np.ndarray
+    edge_pos: np.ndarray
+
+
+class _LaneTiles:
+    """Graph-as-data: every lane's own ELL tiles in the program's
+    canonical layout, in place of the baked ones (one sampled subgraph a
+    lane).  ``graph_data`` is the lane-stacked structure of
+    :func:`stack_graph_data`::
+
+        {"tiles": {"j:k:s": {"cols": int32 [N, n1, w], "vals": f32,
+                             "mask": bool, "epos": int [N, n1, w]}},
+         "inv_in_degree": f32 [N, nb * n1]}
+
+    (``epos``: the subgraph's edge id of a slot, read where ``mask``).
+    It is checked in full on the host before any launch, since the
+    kernels gather h rows at ``cols`` and edge vectors are indexed by
+    ``epos`` unchecked.  The derived kinds come from the functions that
+    derive the baked tiles' (:func:`_tile_array`); each kind is uploaded
+    on first use, all lanes and tiles in ONE copy on the current stream,
+    and read as per-lane views."""
+
+    def __init__(self, pg, graph_data: dict, lanes: int,
+                 device: torch.device) -> None:
+        n1, nb = pg.config.n1, pg.n_blocks
+        self.device, self.lanes = device, lanes
+        self.uploaded = 0               # bytes copied to the device
+        self.keys = [(j, k, s) for (j, k), ts in sorted(pg.tiles.items())
+                     for s in range(len(ts))]
+        tiles = graph_data.get("tiles") if isinstance(graph_data, dict) \
+            else None
+        if not isinstance(tiles, dict):
+            raise ValueError("graph_data must be a dict with 'tiles' and "
+                             "'inv_in_degree'")
+        want = {f"{j}:{k}:{s}" for j, k, s in self.keys}
+        if set(tiles) != want:
+            raise ValueError(
+                "graph_data tiles do not match the program's layout: "
+                f"missing {sorted(want - set(tiles))[:4]}, extra "
+                f"{sorted(set(tiles) - want)[:4]}")
+        self._stack: List[_TileStack] = []
+        for j, k, s in self.keys:
+            name = f"{j}:{k}:{s}"
+            tile = tiles[name]
+            if not isinstance(tile, dict) or set(tile) != set(_GD_KINDS):
+                raise ValueError(f"graph_data tile {name} must hold "
+                                 f"exactly {_GD_KINDS}")
+            shape = (lanes,) + tuple(pg.tiles[(j, k)][s].cols.shape)
+            got = {kind: np.asarray(tile[kind]) for kind in _GD_KINDS}
+            for kind, a in got.items():
+                if a.shape != shape:
+                    raise ValueError(
+                        f"graph_data tile {name} {kind} has shape "
+                        f"{a.shape}, expected {shape} (lanes, n1, w)")
+            cols = got["cols"].astype(np.int32)
+            mask = got["mask"].astype(bool)
+            epos = got["epos"].astype(np.int64)
+            if cols.size and (cols.min() < 0 or cols.max() >= n1):
+                raise ValueError(f"graph_data tile {name} has column "
+                                 f"indices outside [0, {n1})")
+            live = epos[mask]
+            if live.size and (live.min() < 0 or live.max() >= pg.n_edges):
+                raise ValueError(f"graph_data tile {name} has edge ids "
+                                 f"outside [0, {pg.n_edges}) on live slots")
+            self._stack.append(_TileStack(
+                cols, got["vals"].astype(np.float32),
+                np.where(mask, epos, -1)))
+        inv = np.asarray(graph_data.get("inv_in_degree"), np.float32)
+        if inv.shape != (lanes, nb * n1):
+            raise ValueError(
+                f"graph_data inv_in_degree has shape {inv.shape}, expected "
+                f"{(lanes, nb * n1)} (lanes, nb * n1)")
+        self.inv_deg = self._put(inv)
+        self._views: Dict[str, Dict[Tuple[int, int, int], list]] = {}
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        self.uploaded += _nbytes(t)
+        return t
+
+    def tiles(self, kind: str) -> Dict[Tuple[int, int, int], list]:
+        """{(j, k, s): [lane 0's tile, lane 1's, ...]} of ``kind`` (the
+        kinds of :meth:`_Staged.tiles`)."""
+        got = self._views.get(kind)
+        if got is None:
+            got = self._views[kind] = self._upload(kind)
+        return got
+
+    def _upload(self, kind: str) -> Dict[Tuple[int, int, int], list]:
+        parts, shapes = [], []          # tile-major, then lane
+        for t in self._stack:
+            a = _tile_array(t, kind)
+            if kind in ("live_pos", "live_epos"):
+                counts = (t.edge_pos >= 0).reshape(self.lanes, -1).sum(1)
+                shapes += [(int(c),) for c in counts]
+            else:
+                shapes += [a.shape[1:]] * self.lanes
+            parts.append(a.reshape(-1))
+        flat = self._put(np.concatenate(parts))
+        runs = torch.split(flat, [int(np.prod(sh)) for sh in shapes])
+        views = [r.view(sh) for r, sh in zip(runs, shapes)]
+        n = self.lanes
+        return {key: views[i * n:(i + 1) * n]
+                for i, key in enumerate(self.keys)}
 
 
 _staged_lock = threading.Lock()
@@ -480,12 +637,14 @@ def _padded(a, rows: int, cols: Optional[int] = None) -> np.ndarray:
 # --------------------------------------------------------------------------- #
 class _DeviceEnv:
     """Whole lane-stacked padded tensors ([N, vp, w]; edge vectors [N, E])
-    live on the device; a tile is a view of one lane's tensor or of a
-    staged ELL tile."""
+    live on the device; a tile is a view of one lane's tensor or of an ELL
+    tile.  ELL lookups return one tile per lane: the staged baked tile,
+    shared by every lane, or with graph-as-data (``gd``) each lane's
+    own."""
 
     def __init__(self, pg, st: _Staged, lanes: int, h=None, a=None, b=None,
-                 ew=None) -> None:
-        self.pg, self.st, self.lanes = pg, st, lanes
+                 ew=None, gd: Optional[_LaneTiles] = None) -> None:
+        self.pg, self.st, self.lanes, self.gd = pg, st, lanes, gd
         self.n1, self.n2 = pg.config.n1, pg.config.n2
         # Per-lane [vp, w] views, taken once: slicing a 2-D view per tile
         # costs the host less than indexing the 3-D tensor each time.
@@ -511,22 +670,31 @@ class _DeviceEnv:
         n1, n2 = self.n1, self.n2
         return arr[n][j * n1:(j + 1) * n1, i * n2:(i + 1) * n2]
 
-    def tile(self, kind: str, j: int, k: int, s: int) -> torch.Tensor:
-        return self.st.tiles(kind)[(j, k, s)]
+    def tiles(self, kind: str, j: int, k: int, s: int
+              ) -> List[torch.Tensor]:
+        """Every lane's ``kind`` of ELL tile (j, k, s)."""
+        if self.gd is not None:
+            return self.gd.tiles(kind)[(j, k, s)]
+        return [self.st.tiles(kind)[(j, k, s)]] * self.lanes
 
     def live(self, j: int, k: int, s: int):
-        """(flat slot positions, edge ids) of a tile's real edges."""
-        return (self.tile("live_pos", j, k, s),
-                self.tile("live_epos", j, k, s))
+        """Every lane's (flat slot positions, edge ids) of a tile's real
+        edges."""
+        return list(zip(self.tiles("live_pos", j, k, s),
+                        self.tiles("live_epos", j, k, s)))
 
     def edge_weight_tiles(self, j: int, k: int, s: int) -> List[torch.Tensor]:
         """Every lane's [n1, w] edge-weight tile (0 on pad slots)."""
-        shape = self.tile("cols", j, k, s).shape
-        return [_from_live(self.ew[n], *self.live(j, k, s), shape)
-                for n in range(self.lanes)]
+        shape = self.pg.tiles[(j, k)][s].cols.shape
+        return [_from_live(self.ew[n], pos, epos, shape)
+                for n, (pos, epos) in enumerate(self.live(j, k, s))]
 
-    def inv_deg_tile(self, j: int) -> torch.Tensor:
-        return self.st.inv_deg[j * self.n1:(j + 1) * self.n1]
+    def inv_deg_tile(self, j: int) -> List[torch.Tensor]:
+        """Every lane's inverse in-degree of row block j."""
+        rows = slice(j * self.n1, (j + 1) * self.n1)
+        if self.gd is not None:
+            return [self.gd.inv_deg[n, rows] for n in range(self.lanes)]
+        return [self.st.inv_deg[rows]] * self.lanes
 
 
 class _HostEnv:
@@ -541,6 +709,8 @@ class _HostEnv:
     and views come out exactly as :class:`_DeviceEnv` gives them.  Edge
     ids stay on the host: gathers and scatters by edge id happen there,
     so only the slot positions (``live_pos``) are staged."""
+
+    gd = None                           # no graph-as-data on this path
 
     def __init__(self, pg, ht: _HostTiles, staged: Dict[Tuple, Any],
                  lanes: int, j: int) -> None:
@@ -576,6 +746,11 @@ class _HostEnv:
     def tile(self, kind: str, j: int, k: int, s: int) -> torch.Tensor:
         return self._slice((kind,), kind, k, s)
 
+    def tiles(self, kind: str, j: int, k: int, s: int
+              ) -> List[torch.Tensor]:
+        """Every lane's ``kind`` of ELL tile (j, k, s): the staged one."""
+        return [self.tile(kind, j, k, s)] * self.lanes
+
     def edge_weight_tiles(self, j: int, k: int, s: int) -> List[torch.Tensor]:
         """Every lane's [n1, w] edge-weight tile (0 on pad slots)."""
         shape = self.tile("cols", j, k, s).shape
@@ -583,8 +758,8 @@ class _HostEnv:
         return [_place(self._slice(("ew", n), "live_epos", k, s), pos, shape)
                 for n in range(self.lanes)]
 
-    def inv_deg_tile(self, j: int) -> torch.Tensor:
-        return self.staged[("deg",)]
+    def inv_deg_tile(self, j: int) -> List[torch.Tensor]:
+        return [self.staged[("deg",)]] * self.lanes
 
 
 def _place(v: torch.Tensor, pos: torch.Tensor, shape) -> torch.Tensor:
@@ -786,45 +961,48 @@ class _AggregateKernel(_ShardKernel):
                     for _ in lanes]
             flags = [torch.zeros((n1,), dtype=torch.bool, device=dev)
                      for _ in lanes]
+        per_lane = env.gd is not None
+        nones = [None] * env.lanes
         for ins in tp.compute:           # SPDMM/GEMM steps, stream order
             k, ii = ins.args[1], ins.args[2]
             s, dyn = ins.args[3] >> 1, ins.args[3] & 1
-            cols = env.tile("cols", j, k, s)
+            cols = env.tiles("cols", j, k, s)
             vals = (env.edge_weight_tiles(j, k, s) if dyn
-                    else [env.tile("vals", j, k, s)] * env.lanes)
+                    else env.tiles("vals", j, k, s))
             if ins.op == Opcode.GEMM:    # remapped dense-aggregate step
                 # (SUM/MEAN layers only: remap keeps MAX/MIN on SpDMM.)
-                if dyn:
-                    # per-lane edge weights: densify inline, no cache
+                if dyn or per_lane:
+                    # per-lane weights or tiles: densify inline, no cache
                     for n in lanes:
                         accs[n] = self.ex.ack.gemm_agg(
-                            cols, vals[n], env.h_tile(n, k, ii), accs[n])
+                            cols[n], vals[n], env.h_tile(n, k, ii), accs[n])
                 else:
-                    dense = self._dense_block(j, k, s, cols, vals[0])
+                    dense = self._dense_block(j, k, s, cols[0], vals[0])
                     for n in lanes:
                         accs[n] = self.ex.ack.gemm(
                             dense, env.h_tile(n, k, ii), accs[n])
                 self.ex.stats.tiles_remapped += 1
                 self._op("gemm")
                 continue
-            mask = env.tile("mask", j, k, s) if self.extreme else None
+            mask = env.tiles("mask", j, k, s) if self.extreme else nones
             # Dynamic edge-weight tiles are 0 on pad slots too, so the
             # structural live length serves both.
-            row_len = (None if self.extreme
-                       else env.tile("row_len", j, k, s))
+            row_len = (nones if self.extreme
+                       else env.tiles("row_len", j, k, s))
             for n in lanes:
                 accs[n], flags[n] = self.ex.ack.spdmm(
-                    env.h_tile(n, k, ii), cols, vals[n], mask, accs[n],
-                    flags[n], self.op, row_len)
+                    env.h_tile(n, k, ii), cols[n], vals[n], mask[n], accs[n],
+                    flags[n], self.op, row_len[n])
             self._op("spdmm")
         outs = []
-        for acc, flag in zip(accs, flags):
+        inv_deg = env.inv_deg_tile(j) if self.op == "mean" else nones
+        for acc, flag, deg in zip(accs, flags, inv_deg):
             if acc is None:
                 acc = self._zeros((n1, n2))
             if self.extreme:
                 acc = torch.where(flag[:, None], acc, torch.zeros_like(acc))
             elif self.op == "mean":
-                acc = acc * env.inv_deg_tile(j)[:, None]
+                acc = acc * deg[:, None]
             outs.append(acc)
         return self._finish(tp, outs, i * n2, (i + 1) * n2)
 
@@ -987,17 +1165,19 @@ class _EdgeScoreKernel(_ShardKernel):
 
     def tile(self, tp, env):
         j, k, s = tp.out_j, tp.tile_k, tp.slice_id
-        cols = env.tile("cols", j, k, s)
-        mask = env.tile("mask", j, k, s)
+        cols = env.tiles("cols", j, k, s)
+        mask = env.tiles("mask", j, k, s)
         accs = [None] * env.lanes        # None: a zero accumulator
         for ins in tp.compute:           # SDDMM steps: args=(j, k, i, s)
             i = ins.args[2]
             for n in range(env.lanes):
                 accs[n] = self.ex.ack.sddmm(env.h_tile(n, j, i),
-                                            env.h_tile(n, k, i), cols, mask,
-                                            accs[n], pair_sum=self.pair)
+                                            env.h_tile(n, k, i), cols[n],
+                                            mask[n], accs[n],
+                                            pair_sum=self.pair)
             self._op("sddmm")
-        outs = [self._zeros(cols.shape) if a is None else a for a in accs]
+        outs = [self._zeros(cols[0].shape) if a is None else a
+                for a in accs]
         epi = tp.epilogue[:-1] if self.softmax else tp.epilogue
         return self._finish(tp, outs, 0, self.n2, epi)
 
@@ -1028,6 +1208,20 @@ class _LayerClock:
         if isinstance(v, tuple):
             return v[0].elapsed_time(v[1]) / 1e3
         return v
+
+
+def _check_paths(residency: str, graph_data, mesh) -> None:
+    """Refuse an execution path the executor does not run."""
+    if residency not in ("device", "host"):
+        raise ValueError("residency must be 'device' or 'host', "
+                         f"got {residency!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device mesh execution is not ported yet (ROADMAP A13)")
+    if residency == "host" and graph_data is not None:
+        raise ValueError(
+            "graph-as-data execution is device-resident only "
+            "(bucketed subgraphs are small by construction)")
 
 
 class BinaryExecutor:
@@ -1366,6 +1560,9 @@ class BinaryExecutor:
         if x.dim() != 2:
             raise ValueError(f"run expects [V, F] features, got shape "
                              f"{tuple(x.shape)}")
+        _check_paths(residency, graph_data, mesh)
+        if graph_data is not None:
+            graph_data = stack_graph_data([graph_data], 1)
         return self.run_batch(prog, x[None], weights=weights,
                               graph_data=graph_data, residency=residency,
                               mesh=mesh)[0]
@@ -1380,19 +1577,12 @@ class BinaryExecutor:
         The binary is decoded and traversed once; each tile op is issued
         once per lane on that lane's views, so lane n is bit-identical to
         ``run(prog, xs[n])``.  Per-run ``stats`` count the one traversal.
+        ``graph_data`` (lane-stacked, :func:`stack_graph_data`) gives
+        each lane its own tiles in the program's layout; it is checked
+        before any launch and runs device-resident only.
         On a CUDA device the pass ends by synchronizing the current stream
         (which is when the per-layer CUDA-event times are read)."""
-        if residency not in ("device", "host"):
-            raise ValueError("residency must be 'device' or 'host', "
-                             f"got {residency!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device mesh execution is not ported yet "
-                "(ROADMAP A13)")
-        if graph_data is not None:
-            raise NotImplementedError(
-                "graph-as-data execution is not ported yet; it comes with "
-                "the sampling layer (ROADMAP A11)")
+        _check_paths(residency, graph_data, mesh)
         xs = torch.as_tensor(xs, dtype=torch.float32)
         if xs.dim() != 3:
             raise ValueError(
@@ -1404,6 +1594,9 @@ class BinaryExecutor:
             # tile working set ships once for the whole batch.
             return self._run_host(prog, xs, weights)
         lanes = int(xs.shape[0])
+        # Request topology is checked in full before any launch.
+        gd = (None if graph_data is None else
+              _LaneTiles(prog.pgraph, graph_data, lanes, self.device))
         self._gate_device_budget(prog, int(xs.shape[2]), batch=lanes)
         xs = xs.to(self.device)
         self.stats = ExecStats(runs=1)
@@ -1455,7 +1648,7 @@ class BinaryExecutor:
             if lt in (LayerType.ACTIVATION, LayerType.BATCHNORM) \
                     and lp.on_edges:
                 edge_vals[lp.layer_id] = self._run_edge_act(
-                    lp, pg, st, edge_vals[feat_parents[0]])
+                    lp, pg, st, edge_vals[feat_parents[0]], gd)
             else:
                 io = {"h": h_in,
                       "ew": edge_vals.get(ewl) if ewl is not None
@@ -1466,7 +1659,7 @@ class BinaryExecutor:
                     io["b"] = x_pad if b_id == -1 else vals[b_id]
                 kern = self._make_kernel(lp, meta, pg, weights, st)
                 env = _DeviceEnv(pg, st, lanes, h=io["h"], a=io.get("a"),
-                                 b=io.get("b"), ew=io["ew"])
+                                 b=io.get("b"), ew=io["ew"], gd=gd)
                 if kern.edge_valued:
                     edge_vals[lp.layer_id] = self._scatter_edges(
                         kern, lp, pg, st, env)
@@ -1499,7 +1692,8 @@ class BinaryExecutor:
             torch.cuda.current_stream(self.device).synchronize()
         for rec in self.stats.per_layer or []:
             rec["wall_s"] = _LayerClock.seconds(rec["wall_s"])
-        self.stats.h2d_bytes = st.uploaded - up0
+        self.stats.h2d_bytes = st.uploaded - up0 + (gd.uploaded if gd
+                                                    else 0)
         self._flush_profile(prog)
         self.total.add(self.stats)
         return vals[sink][:, :nv, :man["sink_f_out"]]
@@ -1516,11 +1710,11 @@ class BinaryExecutor:
         for tp in self._block_order(lp):
             self._profile_tile(kern, tp)
             outs = kern.tile(tp, env)
-            pos, epos = env.live(tp.out_j, tp.tile_k, tp.slice_id)
-            for n, acc in enumerate(outs):
+            lives = env.live(tp.out_j, tp.tile_k, tp.slice_id)
+            for n, (acc, (pos, epos)) in enumerate(zip(outs, lives)):
                 ew[n][epos] = acc.reshape(-1)[pos]
         if kern.softmax:
-            ew = self._edge_softmax(pg, st, ew)
+            ew = self._edge_softmax(pg, st, ew, env.gd)
         return ew
 
     def _epilogue(self, epilogue, meta: dict, tile: torch.Tensor,
@@ -1577,35 +1771,38 @@ class BinaryExecutor:
         den = torch.clamp(den, min=1e-12)
         return [e / den[:, None] for e in exps]
 
-    def _edge_softmax(self, pg, st: _Staged, ew_in) -> torch.Tensor:
+    def _edge_softmax(self, pg, st: _Staged, ew_in,
+                      gd: Optional[_LaneTiles] = None) -> torch.Tensor:
         """EDGE_SOFTMAX of every lane's [E] scores in the two-pass tile
         scheme (max/sum accumulated per destination row across a shard's
         tiles, the Activation Unit's exp/divide applied per tile); one
         tile op per tile and traversal."""
         lanes = ew_in.shape[0]
-        env = _DeviceEnv(pg, st, lanes)
+        env = _DeviceEnv(pg, st, lanes, gd=gd)
         ew = torch.zeros((lanes, pg.n_edges), dtype=torch.float32,
                          device=self.device)
         for j in range(pg.n_blocks):
             row_tiles = _row_tiles(pg, j)
             if not row_tiles:
                 continue
-            masks = [env.tile("mask", j, k, s) for k, s in row_tiles]
+            masks = [env.tiles("mask", j, k, s) for k, s in row_tiles]
             lives = [env.live(j, k, s) for k, s in row_tiles]
             self.stats.tile_ops += len(row_tiles)
             for n in range(lanes):
-                scored = [(_from_live(ew_in[n], pos, epos, m.shape), m)
-                          for m, (pos, epos) in zip(masks, lives)]
-                for (pos, epos), out_t in zip(
-                        lives, self._edge_softmax_rows(scored)):
+                scored = [(_from_live(ew_in[n], *lv[n], m[n].shape), m[n])
+                          for m, lv in zip(masks, lives)]
+                for lv, out_t in zip(lives,
+                                     self._edge_softmax_rows(scored)):
+                    pos, epos = lv[n]
                     ew[n][epos] = out_t.reshape(-1)[pos]
         return ew
 
-    def _run_edge_act(self, lp, pg, st: _Staged, ew_in) -> torch.Tensor:
+    def _run_edge_act(self, lp, pg, st: _Staged, ew_in,
+                      gd: Optional[_LaneTiles] = None) -> torch.Tensor:
         """Standalone edge activation of every lane's [E] scores."""
         act = Activation(lp.mode)
         if act == Activation.EDGE_SOFTMAX:
-            return self._edge_softmax(pg, st, ew_in)
+            return self._edge_softmax(pg, st, ew_in, gd)
         self.stats.tile_ops += len(lp.tiles)
         return torch.stack([apply_activation(ew_in[n], act)
                             for n in range(ew_in.shape[0])])
@@ -1640,28 +1837,54 @@ class BinaryExecutor:
 
     def _stage(self, arrs: Dict[Tuple, torch.Tensor], **span_args):
         """Ship one working set host -> device; returns (staged, bytes,
-        the event closing its copies or None).  ``span_args`` (``shard``,
-        ``layer``) land on the stage span."""
-        with get_tracer().span("stage", cat="h2d", track="h2d",
-                               args=span_args or None) as sp:
-            nbytes = sum(_nbytes(a) for a in arrs.values())
-            ready = None
-            if self.device.type == "cuda":
-                compute = torch.cuda.current_stream(self.device)
-                if self._copy_stream is None:
-                    self._copy_stream = torch.cuda.Stream(self.device)
-                with torch.cuda.stream(self._copy_stream):
-                    staged = {k: a.to(self.device, non_blocking=True)
-                              for k, a in arrs.items()}
-                    ready = torch.cuda.Event()
-                    ready.record(self._copy_stream)
-                for t in staged.values():
-                    t.record_stream(compute)
-            else:
-                staged = {k: a.clone() for k, a in arrs.items()}
-            sp.add(bytes=nbytes, arrays=len(arrs))
+        the event closing its copies or None, its pending stage span or
+        None).  ``span_args`` (``shard``, ``layer``) land on the span.
+
+        The span's host duration is how long the copies took to issue.
+        On a CUDA device, when tracing is on, a timing event pair on the
+        copy stream brackets the copies, and the span is emitted by
+        :meth:`_stage_done` once the host has synchronized past them,
+        with their device time as ``copy_us``: the link's time, which
+        ``obs.conformance.fit_stage_bw`` fits."""
+        tracer = get_tracer()
+        t0 = time.perf_counter_ns()
+        nbytes = sum(_nbytes(a) for a in arrs.values())
+        ready = start = None
+        if self.device.type == "cuda":
+            compute = torch.cuda.current_stream(self.device)
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            timed = tracer.enabled
+            with torch.cuda.stream(self._copy_stream):
+                if timed:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record(self._copy_stream)
+                staged = {k: a.to(self.device, non_blocking=True)
+                          for k, a in arrs.items()}
+                ready = torch.cuda.Event(enable_timing=timed)
+                ready.record(self._copy_stream)
+            for t in staged.values():
+                t.record_stream(compute)
+        else:
+            staged = {k: a.clone() for k, a in arrs.items()}
         self.stats.h2d_bytes += nbytes
-        return staged, nbytes, ready
+        span = (tracer, t0, time.perf_counter_ns(),
+                dict(span_args, bytes=nbytes, arrays=len(arrs)), start, ready)
+        if start is None:
+            self._stage_done(span)
+            span = None
+        return staged, nbytes, ready, span
+
+    @staticmethod
+    def _stage_done(span) -> None:
+        """Emit a stage span from :meth:`_stage`, with its copies' device
+        time when they were timed (the host has synchronized past them)."""
+        if span is None:
+            return
+        tracer, t0, t1, args, start, ready = span
+        if start is not None:
+            args["copy_us"] = start.elapsed_time(ready) * 1e3
+        tracer.complete("stage", t0, t1, cat="h2d", args=args, track="h2d")
 
     def _wait(self, ready) -> None:
         if ready is not None:
@@ -1681,7 +1904,7 @@ class BinaryExecutor:
         tracer = get_tracer()
         nxt = self._stage(build(order[0]), shard=int(order[0]), layer=layer)
         for idx, j in enumerate(order):
-            staged, cur_bytes, ready = nxt
+            staged, cur_bytes, ready, stage_span = nxt
             cspan = tracer.span("compute", cat="exec", track="exec:host",
                                 args={"shard": int(j), "layer": layer,
                                       "staged_bytes": cur_bytes})
@@ -1711,6 +1934,7 @@ class BinaryExecutor:
                 nxt = self._stage(arrs, shard=int(order[idx + 1]),
                                   layer=layer)
             self._sync()                 # shard j's results have landed
+            self._stage_done(stage_span)  # ... after its copies
             if after is not None:
                 after()
             del staged
@@ -1851,7 +2075,7 @@ class BinaryExecutor:
         act = Activation(lp.mode)
         if act == Activation.EDGE_SOFTMAX:
             return self._host_edge_softmax(pg, ht, ew_in)
-        staged, nbytes, ready = self._stage({("ew",): ew_in})
+        staged, nbytes, ready, span = self._stage({("ew",): ew_in})
         self.stats.peak_stage_bytes = max(self.stats.peak_stage_bytes,
                                           nbytes)
         self._wait(ready)
@@ -1863,6 +2087,7 @@ class BinaryExecutor:
                           pin_memory=ht.pin)
         out.copy_(got, non_blocking=True)
         self._sync()
+        self._stage_done(span)
         return out
 
     def _host_edge_softmax(self, pg, ht: _HostTiles,
@@ -1889,7 +2114,7 @@ class BinaryExecutor:
                                  pin_memory=ht.pin)
                 torch.index_select(ew_in[n], 0, epos, out=sc)
                 _stage_row(arrs, ("ew", n), sc, index, every)
-            staged, nbytes, ready = self._stage(arrs, shard=int(j))
+            staged, nbytes, ready, span = self._stage(arrs, shard=int(j))
             self.stats.peak_stage_bytes = max(
                 self.stats.peak_stage_bytes, nbytes)
             if (self.resident_budget_bytes is not None
@@ -1917,6 +2142,7 @@ class BinaryExecutor:
                 b.copy_(live, non_blocking=True)
                 bufs.append(b)
             self._sync()
+            self._stage_done(span)
             ids = torch.cat([_slice_of(epos, *index[ks])
                              for ks in row_tiles])
             for n, b in enumerate(bufs):

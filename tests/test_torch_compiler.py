@@ -19,6 +19,7 @@ from _torch_models import build_gat_dot  # noqa: E402
 from repro.core import compiler as JC  # noqa: E402
 from repro.core import gnn_builders as JB  # noqa: E402
 from repro.core import graph as JG  # noqa: E402
+from repro.core import perfmodel as JPM  # noqa: E402
 from repro.core.passes.partition import PartitionConfig as JPC  # noqa: E402
 from repro.engine import Engine as JEngine  # noqa: E402
 from repro.core.passes.remap import \
@@ -156,9 +157,14 @@ def test_synthesized_graphs_identical():
 @pytest.mark.parametrize("how", [{"force": "gemm"}, {"force": "spdmm"},
                                  {}])
 def test_remapped_binary_and_record_identical(name, how):
-    """Forced GEMM, forced SpDMM and auto (TPU default constants): the
-    same bytes, the same manifest (``dep_graph`` refreshed from the new
-    binary) and the same ``remap`` record, apart from its timing."""
+    """Forced GEMM, forced SpDMM and auto: the same bytes, the same
+    manifest (``dep_graph`` refreshed from the new binary) and the same
+    ``remap`` record, apart from its timing.  The packages' default
+    constants differ (the port's are the H100's) and every record carries
+    the constants it priced with, so both are handed the JAX package's
+    defaults, read here: the port carries no TPU figure, and both records
+    say ``calibrated``."""
+    how = {**how, "constants": JPM.DEFAULT_CONSTANTS.to_dict()}
     gj, gt = _graphs(nv=150, ne=1200, degree="powerlaw", seed=5)
     jr, tr = _compile_both(name, gj, gt)
     jp = j_remap_program(j_from_program(jr.program, binary=jr.binary),
@@ -170,4 +176,5 @@ def test_remapped_binary_and_record_identical(name, how):
         assert tp.binary != tr.binary
     for p in (jp, tp):
         assert p.manifest["remap"].pop("remap_ms") >= 0.0
+        assert p.manifest["remap"]["calibrated"]
     _assert_same_compiled(jp, tp)

@@ -337,11 +337,14 @@ def test_unported_paths_raise(tmp_path):
     prog = eng.compile("b1", gt)
     with pytest.raises(NotImplementedError, match="A13"):
         eng.run(prog, x, mesh=2)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # Graph-as-data is ported (tests/test_torch_sampling.py): a
+    # structure that does not match the program's layout is refused
+    # before any launch, and it runs device-resident only, as in JAX.
+    with pytest.raises(ValueError, match="graph_data"):
         eng.run(prog, x, graph_data={"tiles": {}})
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="graph_data"):
         eng.run_batch(prog, np.stack([x, x]), graph_data={"tiles": {}})
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="device-resident only"):
         eng.run(prog, x, graph_data={"tiles": {}}, residency="host")
     # Host streaming and remapped binaries are ported now: a JAX-remapped
     # bundle (GEMM steps in AGGREGATE layers) runs on both residencies
@@ -416,6 +419,14 @@ def test_port_imports_neither_jax_nor_repro():
         "rp = eng.remap(eng.compile('b1', g), force='gemm')\n"
         "y = eng.run(rp, G.random_features(g, seed=3), residency='host')\n"
         "assert eng.exec_stats.tiles_remapped > 0 and y.shape == (60, 3)\n"
+        "import repro_torch.obs\n"
+        "from repro_torch.sampling import SamplingService, TargetRequest\n"
+        "svc = SamplingService(g, G.random_features(g, seed=4),"
+        " n_overlays=1, geometry=PartitionConfig(n1=32, n2=8),"
+        " device='cpu', max_batch=1)\n"
+        "t = svc.submit(TargetRequest(targets=[3, 7], fanouts=(4, 2)))\n"
+        "svc.shutdown()\n"
+        "assert t.logits.shape == (2, 3) and t.n_vertices > 2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"

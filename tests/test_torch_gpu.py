@@ -586,3 +586,140 @@ def test_cuda_host_path_survives_delayed_streams(cuda):
         with torch.cuda.stream(delayed):
             torch.cuda._sleep(100_000_000)
         assert torch.equal(eng.run(prog, x), want)
+
+
+# --------------------------------------------------------------------------- #
+# Graph-as-data (the sampling layer's mode) and the conformance inputs.
+# --------------------------------------------------------------------------- #
+def _bucketed(g, model, targets, fanouts, seed, geom):
+    from repro_torch.sampling import (bucket_for, layout_graph, sample_ego,
+                                      template_graph)
+    X = TG.random_features(g, seed=1)
+    ego = sample_ego(g, targets, fanouts, seed=seed)
+    sub = ego.graph.gcn_normalized()
+    bucket = bucket_for(sub, geom)
+    x_pad = np.zeros((bucket.n_vertices, g.feat_dim), np.float32)
+    x_pad[: ego.vertices.shape[0]] = X[ego.vertices]
+    unpadded = InferenceRequest(model=model, graph=sub,
+                                features=X[ego.vertices])
+    bucketed = InferenceRequest(
+        model=model, graph=template_graph(bucket, geom), features=x_pad,
+        graph_data=layout_graph(sub, bucket, geom))
+    return unpadded, bucketed
+
+
+def _sampling_parent(ne=2400):
+    g = TG.random_graph(400, ne, seed=3, degree="powerlaw", dedupe=True)
+    g.feat_dim, g.n_classes = 16, 4
+    return g
+
+
+@pytest.mark.parametrize("model", ["b1", "b3", "b6"])
+def test_cuda_graph_as_data_padded_equals_unpadded(cuda, model):
+    geom = PartitionConfig(n1=32, n2=8)
+    unpadded, bucketed = _bucketed(_sampling_parent(), model, [5, 9, 77],
+                                   (6, 4), 11, geom)
+    eng = Engine(geometry=geom, n_pes=4)
+    y_ref = eng.submit(unpadded).output
+    ops.reset_launches()
+    y_bkt = eng.submit(bucketed).output
+    modes = eng.exec_stats.tile_ops_by_mode
+    assert ops.LAUNCHES["gemm"] == modes["gemm"] > 0
+    assert ops.LAUNCHES["spdmm"] == modes["spdmm"] > 0
+    assert torch.equal(y_bkt[: y_ref.shape[0]], y_ref)
+    sub = unpadded.graph
+    _close(y_ref, TR.run_reference(
+        TB.build(model, sub), sub,
+        torch.as_tensor(unpadded.features, device=cuda),
+        dtype=torch.float64), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("model", ["b1", "b6"])
+def test_cuda_graph_as_data_lanes_equal_singles(cuda, model):
+    geom = PartitionConfig(n1=32, n2=8)
+    g = _sampling_parent(ne=24000)
+    reqs = [_bucketed(g, model, [5 + i, 90 + i], (6, 4), 11 + i, geom)[1]
+            for i in range(3)]
+    eng = Engine(geometry=geom, n_pes=4)
+    singles = [eng.submit(r).output for r in reqs]
+    ops.reset_launches()
+    batched = eng.submit_batch(reqs)
+    modes = eng.exec_stats.tile_ops_by_mode
+    assert ops.LAUNCHES["spdmm"] == 3 * modes["spdmm"] > 0
+    for got, want in zip(batched, singles):
+        assert got.batch_size == 3
+        assert torch.equal(got.output, want)
+
+
+def test_cuda_malformed_graph_data_launches_nothing(cuda):
+    geom = PartitionConfig(n1=32, n2=8)
+    _, bucketed = _bucketed(_sampling_parent(), "b1", [5, 9, 77], (6, 4),
+                            11, geom)
+    eng = Engine(geometry=geom, n_pes=4)
+    prog = eng.compile("b1", bucketed.graph)
+    gd = bucketed.graph_data
+    key = sorted(gd["tiles"])[-1]
+    cols = gd["tiles"][key]["cols"].copy()
+    cols[3, 0] = geom.n1                       # one row past the block
+    bad = {"tiles": {**gd["tiles"], key: {**gd["tiles"][key],
+                                          "cols": cols}},
+           "inv_in_degree": gd["inv_in_degree"]}
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="column indices"):
+        eng.run(prog, bucketed.features, graph_data=bad)
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+def test_cuda_stage_copy_time_against_events(cuda):
+    # The stage span's copy_us is the device time of the copies on the
+    # copy stream: within an event pair recorded around the same staging
+    # on that stream, and far above the host's issue time of the
+    # asynchronous copies from pinned memory (what the span's duration
+    # measures).
+    from repro_torch.obs import fit_stage_bw, tracing
+    eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4)
+    ex = eng.executor
+    arrs = {("t", i): torch.randn(4 << 20).pin_memory() for i in range(4)}
+    nbytes = sum(a.numel() * 4 for a in arrs.values())
+    for _ in range(2):                         # warm the allocator
+        staged, _, _, span = ex._stage(arrs)
+        ex._sync()
+        ex._stage_done(span)
+        del staged
+    side = ex._copy_stream
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with tracing() as t:
+        a.record(side)
+        staged, got, ready, span = ex._stage(arrs, shard=0, layer=0)
+        b.record(side)
+        torch.cuda.current_stream().wait_event(ready)
+        ex._sync()
+        ex._stage_done(span)
+    torch.cuda.synchronize()
+    (ev,) = [e for e in t.events() if e.get("name") == "stage"]
+    outer_us = a.elapsed_time(b) * 1e3
+    assert got == nbytes == ev["args"]["bytes"]
+    assert 0.5 * outer_us <= ev["args"]["copy_us"] <= outer_us * 1.001
+    assert ev["dur"] < ev["args"]["copy_us"]
+    assert fit_stage_bw(t.events()) == pytest.approx(
+        nbytes / (ev["args"]["copy_us"] / 1e6))
+
+
+def test_cuda_conformance_reports(cuda):
+    from repro_torch.obs import build_report, tracing
+    g = _powerlaw(seed=9)
+    x = TG.random_features(g, seed=1)
+    eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4)
+    prog = eng.compile("b3", g, use_cache=False)
+    for residency in ("device", "host"):
+        eng.run(prog, x, residency=residency)          # warm
+        with tracing() as t:
+            eng.run(prog, x, residency=residency)
+        rep = build_report(prog, eng.exec_stats, residency=residency,
+                           events=t.events())
+        assert rep.measured_s > 0 and rep.per_layer
+        for m, e in rep.model_error.items():
+            assert rep.model_error_calibrated[m] <= e + 1e-12
+        assert ("stage_bw" in rep.calibrated_constants) == \
+            (residency == "host")
