@@ -108,7 +108,38 @@ Phases (any failure exits non-zero; nothing is caught):
    copy-engine rate ``torch.profiler`` reads for the same hit, and the
    decisions of ``Engine.remap`` priced by the b2@FL report beside phase
    4's (data-sheet defaults, probe).
-8. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
+8. Live graphs (``repro_torch.livegraph``) with verification on: a
+   ``GraphVersionStore`` of full-scale FL (n1=4096, n2=128, 22 blocks)
+   served through ``OverlayPool(2 overlays, verify=True)``.  v0 is FL;
+   v1 and v2 are content deltas of 32 removals of distinct existing pairs
+   and 32 additions between existing vertices (seeds 1 and 2; a draw
+   that would change the tile structure is drawn again); v3 adds 1,024
+   vertices, each with one in- and one out-edge (23 blocks).  Each
+   version's b2 first pass and two hits through ``Engine.submit``, held
+   bit for bit to a cold compile of ``version.as_graph()`` on a second
+   Engine and within rtol 2e-4 / atol 2e-5 of float64; v1 and v2 must be
+   cache hits (no compile, T_LoC 0), v3 one miss; ``_Staged.uploaded`` of
+   v1, v2 and v3 must equal the bytes of their patched tiles (from
+   ``PatchStats.patched`` and the tiles' shapes) plus ``inv_in_degree``.
+   b2 host-streamed on v0 and v1 under phase 4's budget logic, bit for
+   bit to the device path, v1's pinned bytes equal to the shards that
+   hold a patched tile, and ``verify.check_trace`` over a traced host hit
+   of v1 (0 violations; its spans are host issue times, so it proves
+   issue order only).  gat-dot on v1 (SDDMM over the version's edge ids,
+   holes included), held the same way.  A cutover stream:
+   ``ServeLoop(max_batch=4)``, 24 b2 requests on the live handle, cut
+   over to v1 after the 8th admission and to v2 after the 16th; none
+   dropped, each bit-identical to a solo serve of its pinned version,
+   v0 and v1 reclaimed, and device memory falling by at least v1's
+   copies no live version holds.  v3 compiled with ``GAGI_EXPORT_DIR``
+   set, and ``python -m repro_torch.verify``'s ``main`` run over the
+   exported bundle (exit 0).  Last, b1 on a live CO (n1=1024) remapped
+   with ``force="gemm"`` and rebound after a delta that drains one tile
+   and adds an edge to another: only those two tiles re-priced (the
+   drained one skip), the binary changed only in their words, device and
+   host runs equal, within the float64 tolerance (densify and GEMM
+   kernels).  Every verification's time is printed.
+9. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
    query / 8 KV heads of 128, vocab 151,936), weights random from
    ``torch.Generator`` seed 0 with the JAX initializers' scales:
    the flash kernel against its plain version (the sweep of
@@ -133,8 +164,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths (the Engine.serve path, the host and remap runs of phase 4, the
-runtime path, the sampled stream, the reported runs of phase 7, and the
-prefill and forward runs of phase 8), each counted from zero just before
+runtime path, the sampled stream, the reported runs of phase 7, the live
+path's runs of phase 8 (cold-compile comparisons excluded), and the
+prefill and forward runs of phase 9), each counted from zero just before
 the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
@@ -150,6 +182,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -1665,6 +1698,515 @@ def conformance_phase(torch, co, fl, card, budget, fl_remap):
 
 
 # --------------------------------------------------------------------------- #
+LIVE_GEOM = (4096, 128)         # (n1, n2): the compiler's pick for FL
+# CO in blocks of 1024 (3 x 3 tiles): draining one tile leaves the others
+# (the compiler's pick, n1 = 4096, puts CO in one tile).
+LIVE_REMAP_GEOM = (1024, 128)
+LIVE_DELTA_EDGES = 32           # removals and additions of a content delta
+LIVE_NEW_VERTICES = 1024        # the structural delta: one in-, one out-edge
+LIVE_STREAM, LIVE_CUTS = 24, {8: 1, 16: 2}   # admission index -> version
+HOST_ALIGN = 16                 # elements: a host buffer's slice alignment
+# Bytes per element of each staged tile kind, and what it spans: the
+# [n1, w] slots, one entry a row, or the live slots.
+KIND_BYTES = {"cols": (4, "slots"), "vals": (4, "slots"),
+              "mask": (1, "slots"), "row_len": (4, "rows"),
+              "live_pos": (8, "nnz"), "live_epos": (8, "nnz")}
+
+
+def kind_bytes(t, kind, align=1) -> int:
+    """Bytes of an ELL slice's staged ``kind`` (its element count rounded
+    up to ``align``), from the slice's shape and nnz alone."""
+    item, over = KIND_BYTES[kind]
+    n = {"slots": t.cols.size, "rows": t.cols.shape[0], "nnz": t.nnz}[over]
+    return item * ((int(n) + align - 1) // align * align)
+
+
+def live_delta(np, GraphDelta, version, seed):
+    """A content delta on ``version``: LIVE_DELTA_EDGES removals of
+    distinct existing (src, dst) pairs (drawn uniformly over the pairs; a
+    pair's multi-edges go together), then as many additions between
+    existing vertices, from ``seed``.  A draw that would change the tile
+    structure (a new tile, or a slice more or less where a row crosses a
+    multiple of the width cap) is not a content delta and is drawn again
+    from (seed, attempt); returns (delta, attempt)."""
+    g = version.as_graph()
+    nv = g.n_vertices
+    pairs = np.unique(g.src.astype(np.int64) * nv + g.dst)
+    for attempt in range(16):
+        rng = np.random.default_rng([seed, attempt])
+        d = GraphDelta(nv)
+        for p in rng.choice(pairs, LIVE_DELTA_EDGES, replace=False):
+            d.remove_edge(int(p // nv), int(p % nv))
+        for _ in range(LIVE_DELTA_EDGES):
+            u, v = (int(a) for a in rng.integers(0, nv, 2))
+            d.add_edge(u, v, float(rng.uniform(0.1, 1.0)))
+        if not version.store.apply(d.coalesce())[1].structural_change:
+            return d, attempt
+    fail(f"live: no content delta in 16 draws from seed {seed}")
+
+
+def structural_delta(np, GraphDelta, g, seed):
+    """LIVE_NEW_VERTICES new vertices (zero features), each with one
+    in-edge from and one out-edge to a random existing vertex."""
+    rng = np.random.default_rng(seed)
+    d = GraphDelta(g.n_vertices, feat_dim=g.feat_dim)
+    for _ in range(LIVE_NEW_VERTICES):
+        w = d.add_vertex()
+        a, b = (int(v) for v in rng.integers(0, g.n_vertices, 2))
+        d.add_edge(a, w, float(rng.uniform(0.1, 1.0)))
+        d.add_edge(w, b, float(rng.uniform(0.1, 1.0)))
+    return d
+
+
+def host_rss() -> str:
+    """This process's resident host memory, and its peak (getrusage)."""
+    import resource
+    rss = 0
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) * 1024
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return (f"host RSS {rss / 2**30:.2f} GiB (peak {peak / 2**30:.2f} "
+            "GiB)")
+
+
+def patched_tiles(v):
+    return [tuple(int(a) for a in k.split(":")) for k in v.stats.patched]
+
+
+def live_phase(torch, card):
+    """Live full-scale FL (``repro_torch.livegraph``) with verification on;
+    see the module docstring.  Returns (launches of the live path, a
+    summary)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import gnn_builders as TB
+    from repro_torch.core import graph as G
+    from repro_torch.core.passes.partition import PartitionConfig
+    from repro_torch.engine import (Engine, InferenceRequest,
+                                    ResidentBudgetError)
+    from repro_torch.engine.executor import (_host_tiles, _staged,
+                                             release_staging)
+    from repro_torch.kernels import ops
+    from repro_torch.livegraph import (GraphDelta, GraphVersionStore,
+                                       LiveGraphServer)
+    from repro_torch.obs import tracing
+    from repro_torch.runtime import OverlayPool, ServeLoop
+    from repro_torch.verify import check_trace
+    from repro_torch.verify.__main__ import main as verify_main
+
+    out = {"card": card, "versions": {}}
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    def counted(fn):
+        ops.reset_launches()
+        # ---- a run of the live path: counts zeroed above, read below.
+        y = fn()
+        torch.cuda.synchronize()
+        for k, n in ops.LAUNCHES.items():
+            launches[k] += n
+        # ----
+        return y
+
+    fl = G.synthesize("FL").gcn_normalized()
+    geom = PartitionConfig(n1=LIVE_GEOM[0], n2=LIVE_GEOM[1])
+    t0 = time.perf_counter()
+    store = GraphVersionStore(fl, geometry=geom)
+    log(f"live: tile store of FL built in {time.perf_counter() - t0:.2f} s "
+        f"({len(store.head.pgraph.tiles)} tiles, "
+        f"{sum(len(ts) for ts in store.head.pgraph.tiles.values())} slices, "
+        f"{store.head.pgraph.tile_bytes()} B of ELL on the host); "
+        + host_rss())
+    pool = OverlayPool(2, geometry=geom, verify=True)
+    eng = pool.engines[0]
+    live = LiveGraphServer(store, metrics=pool.metrics)
+    verify_s = []
+
+    def timed_verify(e, idx):
+        real = e._verify_program
+
+        def run(prog):
+            t = time.perf_counter()
+            real(prog)
+            verify_s.append((f"overlay {idx} {prog.model_name}"
+                             f"@{prog.graph_name}",
+                             time.perf_counter() - t))
+        e._verify_program = run
+    for idx, e in enumerate(pool.engines):
+        timed_verify(e, idx)
+    xs = [G.random_features(fl, seed=60 + i) for i in range(4)]
+
+    def cold(model, gv, x):
+        """The same graph as a plain Graph, cold-compiled and run on a
+        second Engine (not counted: a comparison, not the live path)."""
+        e = Engine(geometry=geom)
+        p = e.compile(model, dataclasses.replace(gv, name=gv.name + "-cold"))
+        y = e.run(p, x)
+        release_staging(p.pgraph)
+        del e, p
+        gc.collect()
+        return y
+
+    def hold(label, model, gv, x, y):
+        """y against the cold compile (bits) and float64 (tolerance)."""
+        yc = cold(model, gv, x)
+        if not torch.equal(y, yc):
+            fail(f"live {label}: differs from a cold compile of the version "
+                 f"by {float((y - yc).abs().max()):.3e}")
+        worst = hold_against_reference(
+            torch, [InferenceRequest(model, gv, x)], [_resp(label, y)])
+        log(f"live {label}: bit-identical to a cold compile, within rtol "
+            f"{PATH_RTOL} / atol {PATH_ATOL} of float64 (max|err| "
+            f"{worst:.3e})")
+
+    def serve(v, model, label, x):
+        """A first pass and two hits of ``model`` on version ``v`` through
+        Engine.submit (the program rebound to v's tiles)."""
+        gv = v.as_graph()
+        resps = [counted(lambda: eng.submit(InferenceRequest(
+            model, gv, x, request_id=f"{label}#{i}"))) for i in range(3)]
+        st = _staged(v.pgraph, eng.device)
+        for r in resps[1:]:
+            if not torch.equal(r.output, resps[0].output):
+                fail(f"live {label}: a hit differs from the first pass")
+        rec = {"t_loc_s": resps[0].t_loc, "cache_hit": resps[0].cache_hit,
+               "first_t_loh_s": resps[0].t_loh,
+               "hit_t_loh_s": [r.t_loh for r in resps[1:]],
+               "uploaded": st.uploaded, "kinds": st.kinds()}
+        log(f"live {label}: T_LoC {resps[0].t_loc * 1e3:.2f} ms (cache_hit "
+            f"{resps[0].cache_hit}), first pass T_LoH "
+            f"{resps[0].t_loh * 1e3:.2f} ms, hits "
+            + ", ".join(f"{r.t_loh * 1e3:.2f}" for r in resps[1:])
+            + f" ms; uploaded {st.uploaded} B ({', '.join(st.kinds())}); "
+            + host_rss())
+        return resps[0].output, rec
+
+    def expect_uploaded(v, rec, kinds, label):
+        want = v.pgraph.inv_in_degree.nbytes + sum(
+            kind_bytes(t, kind) for jk in patched_tiles(v)
+            for t in v.pgraph.tiles[jk] for kind in kinds)
+        log(f"live {label}: {len(v.stats.patched)} of "
+            f"{len(v.pgraph.tiles)} tiles patched "
+            f"({v.stats.tiles_created} created); uploaded {rec['uploaded']} "
+            f"B, the patched tiles' {', '.join(kinds)} plus inv_in_degree "
+            f"{want} B (a full upload: {out['versions']['v0']['uploaded']} "
+            "B)")
+        if rec["uploaded"] != want:
+            fail(f"live {label}: uploaded {rec['uploaded']} B != the patched "
+                 f"tiles' {want} B")
+        rec["uploaded_expected"] = want
+
+    # ---- v0: the first compile, host-streamed under PR 16's budget ----- #
+    v0 = store.head
+    c0 = eng.stats.compiles
+    y0, rec0 = serve(v0, "b2", "b2@FL v0", xs[0])
+    out["versions"]["v0"] = rec0
+    if rec0["cache_hit"] or eng.stats.compiles != c0 + 1:
+        fail("live v0: expected one compile")
+    kinds = rec0["kinds"]
+    hold("b2@FL v0", "b2", v0.as_graph(), xs[0], y0)
+    ex = eng.executor
+    prog0 = eng.compile("b2", v0.as_graph())
+    window = ex.estimate_host_window_bytes(prog0, xs[0].shape[1])
+    weights = sum(int(w.nbytes) for w in prog0.weights.values())
+    dev_peak = ex.estimate_device_peak_bytes(prog0, xs[0].shape[1])
+    budget = (window + weights + dev_peak) // 2
+    ex.resident_budget_bytes = budget
+    try:
+        eng.run(prog0, xs[0], residency="device")
+    except ResidentBudgetError:
+        pass
+    else:
+        fail("live: a device-resident run under the budget was not refused")
+    ex.resident_budget_bytes = None
+
+    def host_run(prog, v, label):
+        """A host-streamed pass under the budget that refuses the device
+        path."""
+        ex.resident_budget_bytes = budget
+        t = time.perf_counter()
+        y = counted(lambda: eng.run(prog, xs[0], residency="host"))
+        ex.resident_budget_bytes = None
+        ht = _host_tiles(v.pgraph, eng.device.type == "cuda")
+        log(f"live {label} host-streamed: T_LoH "
+            f"{(time.perf_counter() - t) * 1e3:.2f} ms, pinned {ht.nbytes} "
+            f"B for this version, h2d {eng.exec_stats.h2d_bytes} B; "
+            + host_rss())
+        return y, ht
+
+    yh0, ht0 = host_run(prog0, v0, "b2@FL v0")
+    if not torch.equal(yh0, y0):
+        fail("live v0: the host path differs from the device path")
+    host_kinds = sorted(ht0._rows)
+    rec0["pinned"] = ht0.nbytes
+
+    # ---- v1, v2: content deltas ---------------------------------------- #
+    applied = []
+    for seed in (1, 2):
+        d, attempt = live_delta(np, GraphDelta, store.head, seed)
+        t = time.perf_counter()
+        applied.append((store.apply(d), time.perf_counter() - t, attempt))
+    (v1, _, _), (v2, _, _) = applied
+    for v, ta, attempt in applied:
+        holes = v.store.eid_capacity - v.store.live_edges
+        log(f"live v{v.vid}: delta (draw {attempt}) applied in {ta:.2f} s: "
+            f"{json.dumps(v.stats.as_dict())}; {v.store.live_edges} live "
+            f"edges, edge-id capacity {v.store.eid_capacity} ({holes} "
+            "holes)")
+        if v.stats.structural_change:
+            fail(f"live v{v.vid}: a content delta changed the structure")
+    for v in (v1, v2):
+        c = eng.stats.compiles
+        y, rec = serve(v, "b2", f"b2@FL v{v.vid}", xs[0])
+        out["versions"][f"v{v.vid}"] = rec
+        if not rec["cache_hit"] or rec["t_loc_s"] != 0.0 or \
+                eng.stats.compiles != c:
+            fail(f"live v{v.vid}: expected a cache hit with T_LoC 0 and no "
+                 "compile")
+        expect_uploaded(v, rec, kinds, f"b2@FL v{v.vid}")
+        hold(f"b2@FL v{v.vid}", "b2", v.as_graph(), xs[0], y)
+        if v is v1:
+            y1 = y
+    prog1 = eng.compile("b2", v1.as_graph())
+    yh1, ht1 = host_run(prog1, v1, "b2@FL v1")
+    if not torch.equal(yh1, y1):
+        fail("live v1: the host path differs from the device path")
+    rows = sorted({j for j, _ in patched_tiles(v1)})
+    want = sum(kind_bytes(t, kind, HOST_ALIGN) for j in rows
+               for (jj, _), ts in v1.pgraph.tiles.items() if jj == j
+               for t in ts for kind in host_kinds)
+    if ht1._inv_deg is not None:        # pinned only if a MEAN layer ran
+        want += v1.pgraph.inv_in_degree.nbytes
+    log(f"live b2@FL v1 host: pinned {ht1.nbytes} B for the {len(rows)} of "
+        f"{v1.pgraph.n_blocks} shards that hold a patched tile "
+        f"(expected {want} B; v0 pinned {ht0.nbytes} B)")
+    if ht1.nbytes != want:
+        fail(f"live v1: pinned {ht1.nbytes} B != {want} B")
+    out["versions"]["v1"].update(pinned=ht1.nbytes, pinned_expected=want,
+                                 pinned_shards=len(rows))
+    ex.resident_budget_bytes = budget
+    with tracing() as tr:
+        counted(lambda: eng.run(prog1, xs[0], residency="host"))
+    ex.resident_budget_bytes = None
+    race = check_trace(tr.to_dict(), prog1)
+    log(f"live b2@FL v1 traced host hit: check_trace overlap_pairs "
+        f"{race.stats.get('overlap_pairs')}, {len(race.violations)} "
+        f"violations, checks {race.checks_run} (spans are host issue "
+        "times: issue order only)")
+    if not race.ok:
+        fail("live: race check failed: " + race.to_markdown())
+    out["race"] = {"overlap_pairs": race.stats.get("overlap_pairs"),
+                   "violations": len(race.violations)}
+
+    gat = build_gat_dot(TB, fl)
+    c = eng.stats.compiles
+    t = time.perf_counter()
+    gprog = eng.compile(gat, v1.as_graph())
+    t_gc = time.perf_counter() - t
+    t = time.perf_counter()
+    yg = counted(lambda: eng.run(gprog, xs[0]))
+    log(f"live gat-dot@FL v1: compiled and bound in {t_gc:.2f} s, a pass in "
+        f"{(time.perf_counter() - t) * 1e3:.2f} ms, over "
+        f"{v1.store.eid_capacity - v1.store.live_edges} edge-id holes")
+    if eng.stats.compiles != c + 1:
+        fail("live: gat-dot on v1 should compile once")
+    hold("gat-dot@FL v1", gat, v1.as_graph(), xs[0], yg)
+
+    # ---- the cutover stream --------------------------------------------- #
+    solo = {}
+    for v in (v0, v1, v2):
+        p = eng.compile("b2", v.as_graph())
+        for i, x in enumerate(xs):
+            solo[(v.vid, i)] = counted(lambda: eng.run(p, x))
+    compiles = sum(e.stats.compiles for e in pool.engines)
+    held = {}
+    for v in (v1, v2):
+        st = _staged(v.pgraph, eng.device)
+        held[v.vid] = (st.kinds(), set(st.kinds()) | st._reserved)
+    v2_ids = {id(t) for ts in v2.pgraph.tiles.values() for t in ts}
+    v1_free = sum(kind_bytes(t, kind) for ts in v1.pgraph.tiles.values()
+                  for t in ts for kind in held[1][0]
+                  if not (id(t) in v2_ids and kind in held[2][1]))
+    v1_own = sum(kind_bytes(t, kind) for jk in patched_tiles(v1)
+                 for t in v1.pgraph.tiles[jk] for kind in held[1][0])
+    loop = ServeLoop(pool, max_batch=4, max_wait_us=1e9)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    expected = {}
+    ops.reset_launches()
+    # ---- the cutover stream: counts zeroed above, read below.
+    t = time.perf_counter()
+    try:
+        for i in range(LIVE_STREAM):
+            if i in LIVE_CUTS:
+                live.cutover(v1 if LIVE_CUTS[i] == 1 else v2)
+            rid = f"live#{i}"
+            loop.submit(InferenceRequest("b2", live, xs[i % 4],
+                                         request_id=rid))
+            expected[rid] = (live.active.vid, i % 4)
+        resps = loop.drain()
+    finally:
+        loop.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for k, n in ops.LAUNCHES.items():
+        launches[k] += n
+    # ---- end of the cutover stream.
+    mem1 = torch.cuda.memory_allocated()
+    outs = {r.output.untyped_storage().data_ptr():
+            r.output.untyped_storage().nbytes() for r in resps}
+    freed = mem0 - (mem1 - sum(outs.values()))
+    by_rid = {r.request_id: r for r in resps}
+    if sorted(by_rid) != sorted(expected):
+        fail(f"live stream: {len(resps)} responses for {len(expected)} "
+             "requests")
+    for rid, (vid, fi) in expected.items():
+        r = by_rid[rid]
+        if not r.graph_name.endswith(f"@v{vid}"):
+            fail(f"live stream: {rid} admitted on v{vid}, served on "
+                 f"{r.graph_name}")
+        if not torch.equal(r.output, solo[(vid, fi)]):
+            fail(f"live stream: {rid} differs from a solo serve of v{vid}")
+    if live.reclaimed != [0, 1] or \
+            sum(e.stats.compiles for e in pool.engines) != compiles:
+        fail(f"live stream: reclaimed {live.reclaimed}, compiles changed")
+    log(f"live stream: {len(resps)} b2@FL requests, cutovers at admissions "
+        f"{sorted(LIVE_CUTS)}, served in {wall:.2f} s; none dropped, each "
+        "bit-identical to a solo serve of its pinned version; batches "
+        + ", ".join(f"{r.request_id}:{r.batch_size}@{r.graph_name}"
+                    for r in resps[::4]))
+    log(f"live stream: device memory fell {freed} B when v0 and v1 were "
+        f"reclaimed (outputs held: {sum(outs.values())} B); v1's copies no "
+        f"live version holds: {v1_free} B (v1's own patched tiles: "
+        f"{v1_own} B); " + host_rss())
+    if freed < v1_free:
+        fail(f"live: reclaiming v1 freed {freed} B < its {v1_free} B")
+    lg = pool.metrics.snapshot(max_batch=4)["livegraph"]
+    log("live metrics: " + json.dumps(lg))
+    out["stream"] = {"wall_s": wall, "freed": freed, "v1_free": v1_free,
+                     "v1_own_patched": v1_own, "livegraph": lg}
+
+    # ---- v3: a structural delta; the exported bundle verified ---------- #
+    t = time.perf_counter()
+    v3 = live.apply(structural_delta(np, GraphDelta, v2.as_graph(), 3))
+    log(f"live v3: structural delta applied in {time.perf_counter() - t:.2f}"
+        f" s: {json.dumps(v3.stats.as_dict())}; {v3.pgraph.n_blocks} blocks")
+    nb = -(-v3.n_vertices // geom.n1)
+    if not v3.stats.structural_change or \
+            not v3.pgraph.n_blocks == nb > v0.pgraph.n_blocks:
+        fail(f"live v3: expected a structural change to {nb} blocks")
+    x3 = G.random_features(v3.as_graph(), seed=64)
+    export = tempfile.mkdtemp(prefix="gagi-export-")
+    os.environ["GAGI_EXPORT_DIR"] = export
+    c = eng.stats.compiles
+    try:
+        y3, rec3 = serve(v3, "b2", "b2@FL v3", x3)
+    finally:
+        del os.environ["GAGI_EXPORT_DIR"]
+    out["versions"]["v3"] = rec3
+    if rec3["cache_hit"] or eng.stats.compiles != c + 1:
+        fail("live v3: expected a cache miss and one compile")
+    expect_uploaded(v3, rec3, kinds, "b2@FL v3")
+    hold("b2@FL v3", "b2", v3.as_graph(), x3, y3)
+    t = time.perf_counter()
+    rc = verify_main([export, "--json", os.path.join(export, "r.json")])
+    log(f"live: python -m repro_torch.verify over {len(os.listdir(export))-1}"
+        f" exported bundle(s): exit {rc} in {time.perf_counter() - t:.2f} s")
+    shutil.rmtree(export)
+    if rc != 0:
+        fail(f"live: repro_torch.verify exited {rc}")
+
+    # ---- densify: a forced-GEMM program rebound after a delta (CO) ------ #
+    out["remap_rebind"] = live_remap_rebind(torch, counted)
+
+    log("live: verification times: " + ", ".join(
+        f"{label} {s * 1e3:.1f} ms" for label, s in verify_s))
+    out["verify_s"] = verify_s
+    log(f"live phase launches: {launches}")
+    for k in ("gemm", "spdmm", "sddmm", "densify"):
+        if not launches[k] > 0:
+            fail(f"live: {k} was not launched on the live path")
+    del store, live, pool, eng, v0, v1, v2, v3, prog0, prog1, gprog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def live_remap_rebind(torch, counted):
+    """b1 on a live CO graph remapped with force="gemm", then a delta that
+    drains the smallest tile and adds an edge to the largest: the rebind
+    re-prices only the two patched tiles (the drained one becomes skip),
+    the binary differs only in their words, and the rebound program runs
+    device-resident and host-streamed with the same bits, within the
+    float64 tolerance, on the densify and GEMM kernels."""
+    import numpy as np
+
+    from repro_torch.core import graph as G
+    from repro_torch.core.isa import HEADER_BYTES, Instr
+    from repro_torch.core.passes.partition import PartitionConfig
+    from repro_torch.core.passes.remap import _scan_groups
+    from repro_torch.engine import Engine, InferenceRequest
+    from repro_torch.livegraph import GraphDelta, GraphVersionStore
+
+    co = G.synthesize("CO").gcn_normalized()
+    geom = PartitionConfig(n1=LIVE_REMAP_GEOM[0], n2=LIVE_REMAP_GEOM[1])
+    store = GraphVersionStore(co, geometry=geom)
+    eng = Engine(geometry=geom, verify=True)
+    prog = eng.compile("b1", store.head.as_graph())
+    rp0 = eng.remap(prog, force="gemm")
+    s0 = store.head.store
+    jk_empty = min(s0.edges, key=lambda k: s0.edges[k].n)
+    jk_big = max(s0.edges, key=lambda k: s0.edges[k].n)
+    d = GraphDelta(co.n_vertices)
+    te = s0.edges[jk_empty]
+    for u, w in sorted(set(zip(te.src.tolist(), te.dst.tolist()))):
+        d.remove_edge(u, w)             # a pair's multi-edges go together
+    o = s0.edges[jk_big]
+    d.add_edge(int(o.src[0]), int(o.dst[0]), 0.5)
+    v1 = store.apply(d)
+    patched = set(v1.stats.patched)
+    p1 = eng.compile("b1", v1.as_graph())
+    rec = p1.manifest["remap"]
+    if rec["tiles"][f"{jk_empty[0]}:{jk_empty[1]}"]["mode"] != "skip":
+        fail("live remap: the drained tile was not re-priced to skip")
+    kept = [jk for jk, e in rec["tiles"].items()
+            if jk not in patched and e != rp0.manifest["remap"]["tiles"][jk]]
+    words = [np.frombuffer(b, "<u4", offset=HEADER_BYTES).reshape(-1, 4)
+             for b in (rp0.binary, p1.binary)]
+    owner = {}
+    for grp in _scan_groups([Instr.decode(w) for w in words[0]]):
+        for idx in (grp.compute, *grp.mem):
+            owner[idx] = f"{grp.j}:{grp.k}"
+    stray = [r for r in np.nonzero((words[0] != words[1]).any(axis=1))[0]
+             if owner.get(int(r)) not in patched]
+    if kept or stray:
+        fail(f"live remap: untouched tiles re-priced {kept} or words changed "
+             f"outside the patched tiles {stray[:4]}")
+    x = G.random_features(co, seed=1)
+    y = counted(lambda: eng.run(p1, x))
+    st = eng.exec_stats
+    yh = counted(lambda: eng.run(p1, x, residency="host"))
+    if not torch.equal(y, yh):
+        fail("live remap: host and device runs of the rebound program "
+             "differ")
+    worst = hold_against_reference(
+        torch, [InferenceRequest("b1", v1.as_graph(), x)],
+        [_resp("b1@CO live remap", y)])
+    log(f"live remap: b1@CO forced GEMM, rebound after a delta patching "
+        f"{sorted(patched)}: counts {rec['counts']}, {st.tiles_remapped} "
+        f"GEMM steps and {st.tiles_skipped} skipped a pass, host = device "
+        f"bits, max|err| {worst:.3e} against float64")
+    return {"patched": sorted(patched), "counts": rec["counts"],
+            "tiles_remapped": st.tiles_remapped,
+            "tiles_skipped": st.tiles_skipped}
+
+
+# --------------------------------------------------------------------------- #
 @contextlib.contextmanager
 def attention_as(ops, fn):
     """While open, ``ops.flash_attention`` is ``fn``: the check's own
@@ -2024,6 +2566,12 @@ def main() -> int:
     conf_launches, conformance = conformance_phase(
         torch, co, fl, card, host_sum["budget"], fl_remap)
     log(f"conformance phase: {time.perf_counter() - t7:.1f} s")
+    del engine, fl_prog, gat_prog       # the FL programs of phases 3-5
+    gc.collect()
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    live_launches, live = live_phase(torch, card)
+    log(f"live phase: {time.perf_counter() - t7:.1f} s")
     t5 = time.perf_counter()
     flash_entry, flash_path = flash_kernel_phase(torch, ops, ref)
     flash_launches, lm = lm_phase(torch, ops, ref)
@@ -2035,10 +2583,11 @@ def main() -> int:
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
             launches, rt_launches, host_launches, co_launches, fl_launches,
-            sp_launches, conf_launches))
+            sp_launches, conf_launches, live_launches))
     kernels.append(flash_entry)
     densify_entry["launches"] = co_launches["densify"] + \
-        fl_launches["densify"] + conf_launches["densify"]
+        fl_launches["densify"] + conf_launches["densify"] + \
+        live_launches["densify"]
     kernels.append(densify_entry)
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2081,6 +2630,7 @@ def main() -> int:
                        "remap": {"co": co_remap, "fl": fl_remap,
                                  "gemm_4096x4096x128": gemm_remap},
                        "sampled": sampled, "conformance": conformance,
+                       "live": live,
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -30,12 +30,25 @@ The device defaults to ``"cuda"`` and there is no silent CPU fallback:
 without a CUDA device the constructor raises, and CPU execution (what the
 tests use) has to be asked for with ``device="cpu"``.  The cache key and
 the compiled binary are the same as the JAX package's for the same inputs.
+
+Live graphs (:mod:`repro_torch.livegraph`): a request's graph may be a
+``LiveGraphServer`` handle or a version's materialized graph.  The cache
+key is then the version's structural signature, so a content-only delta
+reuses the compiled program, rebound to the version's patched tiles;
+``submit`` / ``submit_batch`` pin the version active at admission until
+the request completes.  ``Engine(verify=True)`` (or the ``REPRO_VERIFY``
+environment variable) statically verifies every fresh compile and every
+live rebind (:mod:`repro_torch.verify`), and ``GAGI_EXPORT_DIR`` saves
+every fresh compile as a ``.gagi`` bundle there: the JAX package's
+switches, under the same names.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import hashlib
+import os
+import re
 import time
 import warnings
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
@@ -57,14 +70,54 @@ from .program import CompiledProgram, from_program
 ModelSpec = Union[str, ModelIR]
 
 
+def _env_verify_default() -> bool:
+    """Process default for ``Engine(verify=...)``: the ``REPRO_VERIFY``
+    environment variable (the JAX package's switch)."""
+    return os.environ.get("REPRO_VERIFY", "0").lower() in (
+        "1", "true", "yes", "on")
+
+
+def _export_gagi(prog: CompiledProgram) -> None:
+    """``GAGI_EXPORT_DIR``: save every freshly compiled program there as a
+    ``.gagi`` bundle (the corpus ``python -m repro_torch.verify`` reads)."""
+    out = os.environ.get("GAGI_EXPORT_DIR")
+    if not out:
+        return
+    os.makedirs(out, exist_ok=True)
+    stem = re.sub(r"[^A-Za-z0-9_.-]+", "_",
+                  f"{prog.model_name}-{prog.graph_name}")
+    prog.save(os.path.join(
+        out, f"{stem}-{prog.cache_key[:8] or 'nokey'}.gagi"))
+
+
 # --------------------------------------------------------------------------- #
 # Cache-key signatures (the same strings the JAX package computes).
 # --------------------------------------------------------------------------- #
+def _live_version_of(graph):
+    """The :class:`repro_torch.livegraph.GraphVersion` a graph-ish object
+    denotes, or ``None``.  Duck-typed (no livegraph import): a
+    ``LiveGraphServer`` handle carries ``_live_server`` and resolves to
+    its *active* version; a version's materialized graph carries
+    ``_live_version``."""
+    server = getattr(graph, "_live_server", None)
+    if server is not None:
+        return server.active
+    return getattr(graph, "_live_version", None)
+
+
 def graph_signature(g: Graph) -> str:
     """Partition signature of a graph: topology plus feat_dim/n_classes,
     which size the layers of builder-constructed models.  The O(|E|) hash
     over the edge arrays is memoized on the graph object, keyed by the
-    array objects themselves plus the graph's ``mutation_token``."""
+    array objects themselves plus the graph's ``mutation_token``.
+
+    Live-versioned graphs return their *structural* signature instead
+    (tile-grid geometry and the (j, k, n_slices) tile structure, all the
+    binary depends on), so a content-only delta keeps the program-cache
+    key."""
+    lv = _live_version_of(g)
+    if lv is not None:
+        return lv.structural_signature
     token = getattr(g, "mutation_token", 0)
     cached = g.__dict__.get("_edge_digest")
     if (cached is None or cached[0] is not g.src
@@ -153,7 +206,7 @@ class InferenceRequest:
     ``repro_torch.sampling.buckets.layout_graph``)."""
 
     model: ModelSpec              # benchmark name ("b1".."b8") or a ModelIR
-    graph: Graph
+    graph: Graph                  # or a live-graph handle / version graph
     features: Any                 # [V, F] array (numpy or tensor)
     request_id: Optional[str] = None
     seed: int = 0                 # builder seed when model is a name
@@ -202,10 +255,14 @@ class Engine:
                  n_pes: int = 8, device=None, backend: Optional[str] = None,
                  *, vmem_budget_bytes: int = 3 << 20,
                  cache_capacity: int = 32,
-                 resident_budget_bytes: Optional[int] = None) -> None:
+                 resident_budget_bytes: Optional[int] = None,
+                 verify: Optional[bool] = None) -> None:
         self.geometry = geometry
         self.n_pes = n_pes
         self.device = _resolve_device(device)
+        # Static verification of every fresh compile and live rebind
+        # (repro_torch.verify); None -> the REPRO_VERIFY env var.
+        self.verify = _env_verify_default() if verify is None else verify
         self.vmem_budget_bytes = vmem_budget_bytes
         self._executor = BinaryExecutor(
             device=self.device, backend=backend,
@@ -251,6 +308,7 @@ class Engine:
     def compile(self, model: ModelSpec, graph: Graph, *, seed: int = 0,
                 order_opt: bool = True, fusion: bool = True,
                 use_cache: bool = True, residency: Optional[str] = None,
+                verify: Optional[bool] = None,
                 _key: Optional[str] = None) -> CompiledProgram:
         """Model + graph -> CompiledProgram (through the §6 pipeline).
 
@@ -263,10 +321,27 @@ class Engine:
         execution mode: "host" keeps features host-resident and streams
         one destination shard's working set to the device at a time
         (bit-identical results, bounded device footprint).  The returned
-        handle carries the default; the shared cache entry does not."""
+        handle carries the default; the shared cache entry does not.
+
+        Live-versioned graphs (a ``repro_torch.livegraph`` handle or a
+        version's materialized graph): the cache key is the version's
+        structural signature, so a content-only delta hits the cache, and
+        the program returned is *rebound* to the version's patched tiles
+        (``GraphVersion.bind``) — fresh tiles, no recompile.
+
+        ``verify`` statically verifies the program
+        (:mod:`repro_torch.verify`, nothing executed) on every fresh
+        compile and every live rebind, raising
+        :class:`repro_torch.verify.VerifyError` on a failing report; None
+        defers to ``Engine(verify=...)``.  Plain cache hits are not
+        verified again."""
         if residency not in (None, "device", "host"):
             raise ValueError("residency must be 'device' or 'host', "
                              f"got {residency!r}")
+        do_verify = self.verify if verify is None else verify
+        lv = _live_version_of(graph)
+        if lv is not None:
+            graph = lv.as_graph()
         key = _key or self.cache_key(model, graph, seed=seed,
                                      order_opt=order_opt, fusion=fusion)
         tracer = get_tracer()
@@ -275,6 +350,10 @@ class Engine:
             if cached is not None:
                 tracer.instant("cache_hit", cat="compile",
                                track="compile", args={"key": key[:12]})
+                if lv is not None:
+                    cached = lv.bind(cached)
+                    if do_verify:
+                        self._verify_program(cached)
                 if residency is not None:
                     return dataclasses.replace(
                         cached, default_residency=residency)
@@ -306,6 +385,14 @@ class Engine:
             # device-resident unless a caller asks otherwise.
             self.cache.put(key, dataclasses.replace(
                 prog, source=None, default_residency=None))
+        if lv is not None:
+            # Rebind to the version's tile store (labels the manifest
+            # with version + tile stats); keep this caller's reports.
+            prog = dataclasses.replace(lv.bind(prog), source=prog.source,
+                                       default_residency=residency)
+        if do_verify:
+            self._verify_program(prog)
+        _export_gagi(prog)
         return prog
 
     def remap(self, prog: CompiledProgram, report: Any = None, *,
@@ -327,8 +414,9 @@ class Engine:
         ``modes`` pin or restrict decisions (oracle tests / ablations).
 
         If ``prog`` is the cached entry for its key, the cache is updated
-        in place (slim copy, same key), so later cache hits stay
-        remapped."""
+        in place (slim copy, same key), so later cache hits (and live
+        rebinds on top of them) stay remapped.  With ``Engine(verify=
+        True)`` the remapped program is verified."""
         from repro_torch.core.passes.remap import remap_program
         with self._on_stream():
             new = remap_program(prog, source=source, constants=report,
@@ -338,7 +426,19 @@ class Engine:
         if prog.cache_key and self.cache.get(prog.cache_key) is not None:
             self.cache.put(prog.cache_key, dataclasses.replace(
                 new, source=None, default_residency=None))
+        if self.verify:
+            self._verify_program(new)
         return new
+
+    def _verify_program(self, prog: CompiledProgram) -> None:
+        from repro_torch.verify import VerifyError, verify_program
+        tracer = get_tracer()
+        with tracer.span("verify", cat="compile", track="compile",
+                         args={"key": prog.cache_key[:12]}) as sp:
+            report = verify_program(prog)
+            sp.add(ok=report.ok, violations=len(report.violations))
+        if not report.ok:
+            raise VerifyError(report)
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -366,7 +466,8 @@ class Engine:
     def run(self, prog: CompiledProgram, x,
             weights: Optional[Dict[str, Any]] = None,
             graph_data: Optional[dict] = None,
-            residency: Optional[str] = None, mesh=None) -> torch.Tensor:
+            residency: Optional[str] = None, mesh=None,
+            graph=None) -> torch.Tensor:
         """Execute a compiled program by decoding its ISA binary, on this
         engine's device and stream; returns the [V, f_out] output tensor
         there, computed (the stream has been synchronized).
@@ -374,7 +475,10 @@ class Engine:
         path (features host-resident, one shard's working set on the
         device at a time); ``"device"`` keeps every padded layer output
         on the device.  The results are bit-identical; ``None`` uses the
-        program's compile-time default."""
+        program's compile-time default.  ``graph`` (a live-versioned
+        graph or ``repro_torch.livegraph`` handle) rebinds the program to
+        that version's patched tiles before it runs."""
+        prog = self._rebind_live(prog, graph)
         residency = residency or prog.default_residency or "device"
         with self._on_stream() as caller:
             y = self._executor.run(prog, x, weights=weights,
@@ -382,11 +486,18 @@ class Engine:
                                    residency=residency, mesh=mesh)
         return self._hand_back(y, caller)
 
+    @staticmethod
+    def _rebind_live(prog: CompiledProgram, graph) -> CompiledProgram:
+        if graph is None:
+            return prog
+        lv = _live_version_of(graph)
+        return lv.bind(prog) if lv is not None else prog
+
     def run_batch(self, prog: CompiledProgram, xs,
                   weights: Optional[Dict[str, Any]] = None,
                   graph_data: Optional[dict] = None,
                   residency: Optional[str] = None,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, graph=None) -> torch.Tensor:
         """One binary pass for stacked ``[N, V, F]`` features ->
         ``[N, V, f_out]``; lane n equals ``run(prog, xs[n])`` bit for bit.
         ``residency`` as in :meth:`run` ("host" interleaves the lanes per
@@ -394,7 +505,9 @@ class Engine:
         batch; the staged window's sub-fiber half then scales with the
         batch).  ``graph_data`` is lane-stacked (:func:`stack_graph_data`)
         and device-resident only; ``mesh`` (ROADMAP A13) is not ported
-        and raises NotImplementedError."""
+        and raises NotImplementedError.  ``graph`` rebinds to a live
+        version's tiles, as in :meth:`run`."""
+        prog = self._rebind_live(prog, graph)
         residency = residency or prog.default_residency or "device"
         with self._on_stream() as caller:
             ys = self._executor.run_batch(prog, xs, weights=weights,
@@ -423,28 +536,50 @@ class Engine:
         if self.stream is not None:
             self.stream.synchronize()
 
+    @staticmethod
+    def _admit_live(req: InferenceRequest):
+        """Resolve a live-graph handle at admission: pin the active
+        version (inflight refcount) and swap the request's graph for
+        that version's materialized snapshot.  Returns ``(req, pin)``;
+        callers release the pin when the request completes."""
+        server = getattr(req.graph, "_live_server", None)
+        if server is None:
+            return req, None
+        version = server.admit()
+        return (dataclasses.replace(req, graph=version.as_graph()),
+                (server, version.vid))
+
     def submit(self, req: InferenceRequest) -> InferenceResponse:
         """Serve one request: cached compile -> binary-driven execution.
         ``t_loh`` is read after this engine's stream has finished the
-        pass."""
-        key = self.cache_key(req.model, req.graph, seed=req.seed)
-        hit = key in self.cache
-        prog = self.compile(req.model, req.graph, seed=req.seed, _key=key)
-        t0 = time.perf_counter()
-        y = self.run(prog, req.features, graph_data=req.graph_data)
-        self._sync()
-        t_loh = time.perf_counter() - t0
-        t_loc = 0.0 if hit else prog.t_loc
+        pass.  ``req.graph`` may be a ``repro_torch.livegraph`` handle:
+        the request is then pinned to the version active at admission and
+        served on exactly that version's tiles, whatever cutovers happen
+        meanwhile."""
+        req, pin = self._admit_live(req)
+        try:
+            key = self.cache_key(req.model, req.graph, seed=req.seed)
+            hit = key in self.cache
+            prog = self.compile(req.model, req.graph, seed=req.seed,
+                                _key=key)
+            t0 = time.perf_counter()
+            y = self.run(prog, req.features, graph_data=req.graph_data)
+            self._sync()
+            t_loh = time.perf_counter() - t0
+            t_loc = 0.0 if hit else prog.t_loc
 
-        self.stats.requests += 1
-        self.stats.cache_hits += int(hit)
-        self.stats.cache_misses += int(not hit)
-        self.stats.total_t_loh += t_loh
-        rid = req.request_id or f"req{self.stats.requests - 1}"
-        return InferenceResponse(
-            request_id=rid, output=y, t_loc=t_loc, t_loh=t_loh,
-            cache_hit=hit, cache_key=key, model_name=prog.model_name,
-            graph_name=req.graph.name)
+            self.stats.requests += 1
+            self.stats.cache_hits += int(hit)
+            self.stats.cache_misses += int(not hit)
+            self.stats.total_t_loh += t_loh
+            rid = req.request_id or f"req{self.stats.requests - 1}"
+            return InferenceResponse(
+                request_id=rid, output=y, t_loc=t_loc, t_loh=t_loh,
+                cache_hit=hit, cache_key=key, model_name=prog.model_name,
+                graph_name=req.graph.name)
+        finally:
+            if pin is not None:
+                pin[0].release(pin[1])
 
     def submit_batch(self, reqs: Sequence[InferenceRequest]
                      ) -> List[InferenceResponse]:
@@ -462,12 +597,20 @@ class Engine:
         waited for the one compile on a miss) and the batch's execution
         wall time.  Graph-as-data requests (``graph_data``, one bucket
         per cache key) run as lanes of one pass, each on its own tiles;
-        they cannot share a batch with baked-topology requests.
-        (Live-graph admission comes with ROADMAP A12.)
+        they cannot share a batch with baked-topology requests.  Live
+        handles are pinned at admission, and one batch serves one
+        version.
         """
         if not reqs:
             return []
-        return self._submit_batch_resolved(reqs)
+        admitted = [self._admit_live(r) for r in reqs]
+        reqs = [r for r, _ in admitted]
+        pins = [p for _, p in admitted if p is not None]
+        try:
+            return self._submit_batch_resolved(reqs)
+        finally:
+            for server, vid in pins:
+                server.release(vid)
 
     def _submit_batch_resolved(self, reqs: Sequence[InferenceRequest]
                                ) -> List[InferenceResponse]:
@@ -480,6 +623,17 @@ class Engine:
                     "submit_batch requires one cache key per batch: "
                     f"request {r.request_id!r} has key {k[:12]}… but the "
                     f"batch was opened with {key[:12]}…")
+        # Live versions share the structural cache key by design, but a
+        # batch is ONE binary pass over ONE tile set: mixing versions
+        # would silently serve some requests the wrong graph.
+        lv = _live_version_of(reqs[0].graph)
+        for r in reqs[1:]:
+            if _live_version_of(r.graph) is not lv:
+                raise ValueError(
+                    "submit_batch cannot mix graph versions in one "
+                    "batch: all requests must be admitted against the "
+                    "same live version (the runtime batches per "
+                    "version for exactly this reason)")
         with_gd = sum(r.graph_data is not None for r in reqs)
         if 0 < with_gd < len(reqs):
             raise ValueError(
@@ -490,8 +644,11 @@ class Engine:
                             seed=reqs[0].seed, _key=key)
         if not hit:
             # Execute the long-lived cached copy, whose pgraph carries the
-            # staged tiles repeat batches will reuse.
+            # staged tiles repeat batches will reuse (for a live version,
+            # its stable bound copy).
             prog = self.cache.get(key) or prog
+            if lv is not None:
+                prog = lv.bind(prog)
         # No lane padding to a power of two: the JAX engine pads only so
         # that ragged batch sizes reuse its traced executables, and this
         # port has none yet (ROADMAP: the CUDA-graph replay item).

@@ -55,6 +55,12 @@ Device-resident data:
   ids) only for the layers that read them (MAX/MIN, dynamic edge weights,
   edge-valued layers).  The padded weights and the inverse in-degree are
   uploaded once as well.
+* A tile's device copy is shared by every partitioned graph that holds
+  the same :class:`ELLTile` object (:class:`_TileShare`): the versions of
+  a live graph (:mod:`repro_torch.livegraph`) share every tile their
+  deltas did not patch, so a version uploads only its patched tiles (and
+  its inverse in-degree).  :func:`release_staging` drops a graph's
+  copies; a shared tile's stay while another graph holds it.
 * Edge vectors move between tiles and the [E] edge order through the
   live slots only: scattering a tile's scores, gathering a tile's edge
   weights and the edge softmax touch the real edges, not the pad slots
@@ -68,14 +74,23 @@ Device-resident data:
 Host-streaming data: the ELL tile kinds are copied once per partitioned
 graph into host buffers, one per destination shard and kind, pinned on a
 CUDA device (:class:`_HostTiles`, cached on ``prog.pgraph`` beside
-``_Staged``), so every host-to-device copy is asynchronous.  See
-:meth:`BinaryExecutor._run_host` for the stream discipline.
+``_Staged``), so every host-to-device copy is asynchronous.  A shard's
+buffer is shared, like a device tile, by every graph whose row holds the
+same tile objects, so a live version pins only the rows its delta
+patched.  See :meth:`BinaryExecutor._run_host` for the stream
+discipline.
+
+Edge ids: a live version's ``n_edges`` is its edge-id capacity, and ids
+its deltas freed stay holes in the edge vectors.  Edge values move
+through the live slots only (``live_epos``), so no kernel, scatter or
+softmax reads a hole.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -272,29 +287,126 @@ def resolve_residency(prog: CompiledProgram) -> dict:
 # --------------------------------------------------------------------------- #
 # Device copies of a program's payload, made once per device.
 # --------------------------------------------------------------------------- #
-class _Staged:
+class _TileShare:
+    """Buffers made from ELL tiles, shared by the partitioned graphs that
+    hold the same tile objects (the versions of a live graph share every
+    tile a delta did not patch).  An entry is keyed by a name and the ids
+    of its source tiles and holds those tiles (strong references), so an
+    id cannot be a freed tile's; it counts its holders, and goes when the
+    last one releases it.  One share per device (device tensors) and per
+    pinning mode (host buffers)."""
+
+    def __init__(self) -> None:
+        # Reentrant: a holder collected during a build (its finalizer
+        # releases) may run in the thread that holds the lock.
+        self._lock = threading.RLock()
+        self._entries: Dict[Tuple, list] = {}   # key -> [srcs, value, refs]
+
+    def acquire(self, held: List[Tuple], name: Tuple, srcs: List[Any],
+                build=None) -> Any:
+        """The buffer ``build()`` makes from ``srcs``, made only if no
+        holder has it yet; its key is appended to the caller's ``held``.
+        Without ``build``, only an existing buffer is taken (None when
+        there is none)."""
+        key = name + tuple(id(t) for t in srcs)
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                if build is None:
+                    return None
+                e = self._entries[key] = [tuple(srcs), build(), 0]
+            e[2] += 1
+            held.append(key)
+            return e[1]
+
+    def release(self, held: List[Tuple]) -> None:
+        """Drop one holder's references (``held`` is emptied)."""
+        with self._lock:
+            while held:
+                key = held.pop()
+                e = self._entries[key]
+                e[2] -= 1
+                if e[2] == 0:
+                    del self._entries[key]
+
+
+_shares: Dict[Any, _TileShare] = {}
+_shares_lock = threading.Lock()
+
+
+def _tile_share(where) -> _TileShare:
+    """The share of a device (``str(device)``) or a pinning mode."""
+    with _shares_lock:
+        got = _shares.get(where)
+        if got is None:
+            got = _shares[where] = _TileShare()
+        return got
+
+
+class _Holder:
+    """A holder of :class:`_TileShare` entries: releases them when
+    :meth:`release` is called or when it is collected."""
+
+    def __init__(self, share: _TileShare) -> None:
+        self._share = share
+        self._held: List[Tuple] = []
+        fin = weakref.finalize(self, share.release, self._held)
+        fin.atexit = False
+
+    def _shared(self, name: Tuple, srcs: List[Any], build=None) -> Any:
+        return self._share.acquire(self._held, name, srcs, build)
+
+    def release(self) -> None:
+        self._share.release(self._held)
+
+
+class _Staged(_Holder):
     """The ELL tiles, inverse in-degree and padded weights of one
     partitioned graph on one device.  Tile kinds are uploaded on first
-    use, all tiles of a kind at once; weights are keyed by manifest name
-    and re-uploaded only when the caller passes a different array."""
+    use, all tiles of a kind at once; a tile another graph on the device
+    already holds (the same :class:`ELLTile` object) is not uploaded
+    again but shared (:class:`_TileShare`).  Weights are keyed by
+    manifest name and re-uploaded only when the caller passes a different
+    array.  Densified adjacency blocks of remapped GEMM steps are not
+    kept here: each pass densifies from the staged ``cols`` / ``vals``.
+
+    ``uploaded`` counts the bytes of ELL tiles and inverse in-degree this
+    graph copied to the device (shared tiles excluded), ``params_uploaded``
+    those of the padded weights."""
 
     def __init__(self, pg, device: torch.device) -> None:
+        super().__init__(_tile_share(str(device)))
         self.pg, self.device = pg, device
-        self.uploaded = 0               # bytes copied to the device so far
+        self.uploaded = 0
+        self.params_uploaded = 0
         self._tiles: Dict[str, Dict[Tuple[int, int, int], torch.Tensor]] = {}
+        self._reserved: set = set()     # kinds held by :meth:`reserve`
         self._params: Dict[Tuple, Tuple[Any, torch.Tensor]] = {}
         # Overlays run in their own threads; two that share a program
         # must not upload (or replace) the same entry twice.
         self._lock = threading.RLock()
         self.inv_deg = self._put(np.asarray(pg.inv_in_degree, np.float32))
+        self.uploaded += _nbytes(self.inv_deg)
 
     def _put(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
-            t = a.to(self.device)
-        else:
-            t = torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
-        self.uploaded += _nbytes(t)
-        return t
+            return a.to(self.device)
+        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+
+    def kinds(self) -> List[str]:
+        """The tile kinds uploaded so far."""
+        return sorted(self._tiles)
+
+    def reserve(self, other: "_Staged") -> None:
+        """Hold every copy ``other`` holds of a tile this graph also
+        holds (same object), for each kind ``other`` uploaded or reserved,
+        so that releasing ``other`` leaves them on the device."""
+        kinds = set(other.kinds()) | other._reserved
+        self._reserved |= kinds
+        for kind in sorted(kinds):
+            for ts in self.pg.tiles.values():
+                for t in ts:
+                    self._shared((kind,), [t])
 
     def tiles(self, kind: str) -> Dict[Tuple[int, int, int], torch.Tensor]:
         """``kind`` in cols (int32) / vals (f32) / mask (bool) / row_len
@@ -311,10 +423,18 @@ class _Staged:
             return got
 
     def _upload(self, kind: str) -> Dict[Tuple[int, int, int], torch.Tensor]:
-        return {(j, k, s): self._put(_checked_tile_array(self.pg, kind, j,
-                                                         k, s))
-                for (j, k), ts in self.pg.tiles.items()
-                for s in range(len(ts))}
+        out = {}
+        for (j, k), ts in self.pg.tiles.items():
+            for s, t in enumerate(ts):
+                out[(j, k, s)] = self._shared(
+                    (kind,), [t], lambda j=j, k=k, s=s: self._upload_one(
+                        kind, j, k, s))
+        return out
+
+    def _upload_one(self, kind: str, j: int, k: int, s: int) -> torch.Tensor:
+        t = self._put(_checked_tile_array(self.pg, kind, j, k, s))
+        self.uploaded += _nbytes(t)
+        return t
 
     def param(self, key: Tuple, srcs: Tuple, build) -> torch.Tensor:
         """Device tensor ``build()`` memoized under ``key`` for as long as
@@ -325,6 +445,7 @@ class _Staged:
                     a is b for a, b in zip(hit[0], srcs)):
                 return hit[1]
             t = self._put(build())
+            self.params_uploaded += _nbytes(t)
             self._params[key] = (srcs, t)
             return t
 
@@ -530,6 +651,33 @@ def _staged(pg, device: torch.device) -> _Staged:
         return st
 
 
+def inherit_staging(pg, parent) -> None:
+    """Stage ``pg`` wherever ``parent`` is staged (each device, each host
+    pinning mode), holding every copy of a tile the two graphs share, so
+    releasing ``parent`` later frees only its own tiles.  Nothing is
+    copied but ``pg``'s inverse in-degree; ``pg``'s own tiles are staged
+    on first use.  (How a new live version keeps its parent's copies.)"""
+    with _staged_lock:
+        devs = list(parent.__dict__.get("_staged", {}).values())
+        hosts = list(parent.__dict__.get("_host_tiles", {}).values())
+    for st in devs:
+        _staged(pg, st.device).reserve(st)
+    for ht in hosts:
+        _host_tiles(pg, ht.pin).reserve(ht)
+
+
+def release_staging(pg) -> None:
+    """Drop a partitioned graph's device copies (every device) and pinned
+    host buffers: the tiles no other graph holds are freed, a shared
+    tile's copy stays with the graphs that still hold it.  A later run of
+    the graph stages it again.  (The reclaim path of a live version.)"""
+    with _staged_lock:
+        holders = [*pg.__dict__.pop("_staged", {}).values(),
+                   *pg.__dict__.pop("_host_tiles", {}).values()]
+    for h in holders:
+        h.release()
+
+
 # Per-slice element counts of each tile kind (host staging and its
 # size estimate): (numel, dtype) of slice ``t``.
 _KIND_DTYPES = {"cols": torch.int32, "vals": torch.float32,
@@ -545,7 +693,7 @@ def _kind_numel(t, kind: str) -> int:
     return int(t.cols.size)
 
 
-class _HostTiles:
+class _HostTiles(_Holder):
     """The ELL tile kinds of one partitioned graph in host memory, for the
     host-streaming path: per destination shard j and kind, ONE flat
     buffer holding every (k, slice) of the shard's row back to back, with
@@ -553,14 +701,19 @@ class _HostTiles:
     executor's device is CUDA, so a shard's kind ships in one
     asynchronous copy; they are built on first use of a kind, all shards
     at once, and kept as long as the graph.  Slices start on 16-element
-    boundaries (64 bytes for the 4-byte kinds)."""
+    boundaries (64 bytes for the 4-byte kinds).  A shard's buffer is
+    shared (:class:`_TileShare`) with every graph whose row j holds the
+    same tile objects; ``nbytes`` counts the host bytes this graph built
+    itself (shared rows excluded)."""
 
     _ALIGN = 16
 
     def __init__(self, pg, pin: bool) -> None:
+        super().__init__(_tile_share(("host", pin)))
         self.pg, self.pin = pg, pin
-        self.nbytes = 0                 # host bytes held
+        self.nbytes = 0                 # host bytes built for this graph
         self._rows: Dict[str, Dict[int, Tuple[torch.Tensor, dict]]] = {}
+        self._reserved: set = set()     # kinds held by :meth:`reserve`
         self._inv_deg: Optional[torch.Tensor] = None
         self._lock = threading.Lock()
 
@@ -575,6 +728,18 @@ class _HostTiles:
                     self.nbytes += _nbytes(t)
         return self._inv_deg
 
+    def reserve(self, other: "_HostTiles") -> None:
+        """Hold every shard buffer ``other`` holds whose row holds the
+        same tiles in this graph, so that releasing ``other`` keeps it."""
+        pg = self.pg
+        kinds = set(other._rows) | other._reserved
+        self._reserved |= kinds
+        for kind in sorted(kinds):
+            for j in range(pg.n_blocks):
+                row = _row_tiles(pg, j)
+                self._shared((kind, tuple(row)),
+                             [pg.tiles[(j, k)][s] for k, s in row])
+
     def row(self, kind: str, j: int) -> Tuple[torch.Tensor, dict]:
         """(flat buffer, {(k, s): (offset, shape)}) of shard j's kind."""
         got = self._rows.get(kind)
@@ -586,23 +751,30 @@ class _HostTiles:
         return got[j]
 
     def _build(self, kind: str) -> Dict[int, Tuple[torch.Tensor, dict]]:
-        pg, a = self.pg, self._ALIGN
+        pg = self.pg
         out = {}
         for j in range(pg.n_blocks):
-            index, off = {}, 0
-            for k, s in _row_tiles(pg, j):
-                arr = _checked_tile_array(pg, kind, j, k, s)
-                index[(k, s)] = (off, tuple(arr.shape), arr)
-                off += (arr.size + a - 1) // a * a
-            flat = torch.zeros((off,), dtype=_KIND_DTYPES[kind],
-                               pin_memory=self.pin)
-            for ks, (o, shape, arr) in index.items():
-                flat[o:o + arr.size] = torch.from_numpy(
-                    np.ascontiguousarray(arr).reshape(-1))
-                index[ks] = (o, shape)
-            self.nbytes += _nbytes(flat)
-            out[j] = (flat, index)
+            row = _row_tiles(pg, j)
+            out[j] = self._shared(
+                (kind, tuple(row)), [pg.tiles[(j, k)][s] for k, s in row],
+                lambda j=j, row=row: self._build_row(kind, j, row))
         return out
+
+    def _build_row(self, kind: str, j: int, row) -> Tuple[torch.Tensor, dict]:
+        pg, a = self.pg, self._ALIGN
+        index, off = {}, 0
+        for k, s in row:
+            arr = _checked_tile_array(pg, kind, j, k, s)
+            index[(k, s)] = (off, tuple(arr.shape), arr)
+            off += (arr.size + a - 1) // a * a
+        flat = torch.zeros((off,), dtype=_KIND_DTYPES[kind],
+                           pin_memory=self.pin)
+        for ks, (o, shape, arr) in index.items():
+            flat[o:o + arr.size] = torch.from_numpy(
+                np.ascontiguousarray(arr).reshape(-1))
+            index[ks] = (o, shape)
+        self.nbytes += _nbytes(flat)
+        return flat, index
 
 
 def _host_tiles(pg, pin: bool) -> _HostTiles:
@@ -1609,7 +1781,7 @@ class BinaryExecutor:
         man = prog.manifest
         pg = prog.pgraph
         st = _staged(pg, self.device)
-        up0 = st.uploaded
+        up0 = st.uploaded + st.params_uploaded
         last_use = {int(k): v for k, v in
                     resolve_residency(prog)["last_use"].items()}
         weights = weights if weights is not None else prog.weights
@@ -1692,8 +1864,8 @@ class BinaryExecutor:
             torch.cuda.current_stream(self.device).synchronize()
         for rec in self.stats.per_layer or []:
             rec["wall_s"] = _LayerClock.seconds(rec["wall_s"])
-        self.stats.h2d_bytes = st.uploaded - up0 + (gd.uploaded if gd
-                                                    else 0)
+        self.stats.h2d_bytes = (st.uploaded + st.params_uploaded - up0
+                                + (gd.uploaded if gd else 0))
         self._flush_profile(prog)
         self.total.add(self.stats)
         return vals[sink][:, :nv, :man["sink_f_out"]]

@@ -64,36 +64,6 @@ def _layer_manifest(model: ModelIR) -> Dict[str, Dict[str, Any]]:
     return layers
 
 
-def tile_density_stats(pg: PartitionedGraph) -> dict:
-    """Per-tile nnz/density summary (manifest ``tile_stats`` section),
-    computed from the ELL metadata at every compile."""
-    n1 = pg.config.n1
-    tiles: Dict[str, dict] = {}
-    total_nnz = 0
-    padded_slots = 0
-    for (j, k) in sorted(pg.tiles):
-        slices = pg.tiles[(j, k)]
-        nnz = sum(t.nnz for t in slices)
-        width = sum(t.width for t in slices)
-        slots = n1 * width
-        total_nnz += nnz
-        padded_slots += slots
-        tiles[f"{j}:{k}"] = {
-            "nnz": int(nnz),
-            "slices": len(slices),
-            "width": int(width),
-            "density": round(nnz / slots, 6) if slots else 0.0,
-        }
-    return {
-        "n_tiles": len(tiles),
-        "total_nnz": int(total_nnz),
-        "padded_slots": int(padded_slots),
-        "mean_density": round(total_nnz / padded_slots, 6)
-        if padded_slots else 0.0,
-        "tiles": tiles,
-    }
-
-
 def build_manifest(program: Program, graph_name: str = "graph",
                    n_devices: Optional[int] = None) -> dict:
     """Everything `engine.run` needs beyond the binary + arrays.
@@ -105,10 +75,12 @@ def build_manifest(program: Program, graph_name: str = "graph",
     same backward-compat path old ``.gagi`` bundles take.
 
     ``tile_stats`` records per-tile nnz/density from the ELL metadata —
-    the observability a Dynasparse-style bind-time kernel remapper would
-    key on (see ROADMAP)."""
+    refreshed whenever ``repro_torch.livegraph`` rebinds a program to
+    patched tiles, and the observability a Dynasparse-style bind-time
+    kernel remapper would key on (see ROADMAP)."""
     from repro_torch.core.passes.schedule import (placement_schedule,
                                                   residency_schedule)
+    from repro_torch.livegraph.tiles import tile_density_stats
     m, pg = program.model, program.pgraph
     sinks = [i for i, l in m.layers.items() if not l.child_ids]
     sink = sinks[-1] if sinks else m.topo_order()[-1]

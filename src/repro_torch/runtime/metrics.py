@@ -105,7 +105,7 @@ class Metrics:
         self._depth_obs = 0
         self._served = 0
         self._serve_wall = 0.0
-        # Live-graph (ROADMAP A12) observability: which graph
+        # Live-graph (repro_torch.livegraph) observability: which graph
         # version is active, how often it changed, and how much traffic
         # each version served — version skew made visible.
         self.active_graph_version: Optional[int] = None
@@ -173,7 +173,7 @@ class Metrics:
         self._serve_wall += wall_s
 
     # ------------------------------------------------------------------ #
-    # Live-graph versioning (called by a live-graph server
+    # Live-graph versioning (called by repro_torch.livegraph's server
     # and the serving loop's admission/release path).
     # ------------------------------------------------------------------ #
     def set_active_version(self, vid: int) -> None:

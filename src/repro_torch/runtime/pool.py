@@ -71,7 +71,7 @@ class OverlayPool:
     def cache_key(self, req: InferenceRequest) -> str:
         """Pool-wide batching/routing key (identical on every overlay).
 
-        Live-versioned graphs (a live-graph layer, ROADMAP A12) get a ``@v<N>``
+        Live-versioned graphs (``repro_torch.livegraph``) get a ``@v<N>``
         suffix: versions deliberately SHARE the engine's structural
         cache key (that is the no-recompile guarantee), but a batch is
         one binary pass over one tile set, so the batcher must never

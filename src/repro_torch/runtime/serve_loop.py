@@ -98,7 +98,7 @@ class ServeLoop:
         batches.
 
         Live-graph requests (``req.graph`` is a
-        live-graph server handle, ROADMAP A12) are resolved HERE,
+        ``repro_torch.livegraph.LiveGraphServer`` handle) are resolved HERE,
         at admission: the request pins the version active right now and
         is served on exactly that version's tiles, however many
         cutovers happen before it executes.  The batch key carries the

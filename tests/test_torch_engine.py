@@ -427,6 +427,18 @@ def test_port_imports_neither_jax_nor_repro():
         "t = svc.submit(TargetRequest(targets=[3, 7], fanouts=(4, 2)))\n"
         "svc.shutdown()\n"
         "assert t.logits.shape == (2, 3) and t.n_vertices > 2\n"
+        "from repro_torch.livegraph import (GraphDelta, GraphVersionStore,"
+        " LiveGraphServer)\n"
+        "from repro_torch.verify import verify\n"
+        "live = LiveGraphServer(GraphVersionStore(g, PartitionConfig(n1=32,"
+        " n2=8)))\n"
+        "live.apply(GraphDelta(60).add_edge(1, 2, 0.5))\n"
+        "veng = Engine(PartitionConfig(n1=32, n2=8), device='cpu',"
+        " verify=True)\n"
+        "r = veng.submit(InferenceRequest('b1', live, G.random_features(g,"
+        " seed=5)))\n"
+        "assert r.graph_name.endswith('@v1') and r.output.shape == (60, 3)\n"
+        "assert verify(veng.compile('b1', live)).ok\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"

@@ -1,7 +1,8 @@
 """The port on a CUDA device: hand kernels against their plain versions,
 the Engine against the float64 reference, a batched lane against the
-same request run alone, and the LM prefill through the flash kernel
-against the same model with plain attention.
+same request run alone, the LM prefill through the flash kernel against
+the same model with plain attention, and live-graph versions against a
+cold compile (with the bytes a delta uploads and a reclaim frees).
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -11,6 +12,7 @@ left out:
     python -m pytest -q --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 """
+import dataclasses
 import os
 import sys
 
@@ -723,3 +725,114 @@ def test_cuda_conformance_reports(cuda):
             assert rep.model_error_calibrated[m] <= e + 1e-12
         assert ("stage_bw" in rep.calibrated_constants) == \
             (residency == "host")
+
+
+# --------------------------------------------------------------------------- #
+# Live graphs on the card.
+# --------------------------------------------------------------------------- #
+def _live_delta(g, seed, n_add=6, n_rm=4):
+    """A content delta: removals of distinct existing pairs, then adds
+    between existing vertices."""
+    from repro_torch.livegraph import GraphDelta
+    rng = np.random.default_rng(seed)
+    d = GraphDelta(g.n_vertices)
+    pairs = []
+    while len(pairs) < n_rm:
+        i = int(rng.integers(0, g.n_edges))
+        p = (int(g.src[i]), int(g.dst[i]))
+        if p not in pairs:
+            pairs.append(p)
+    for p in pairs:
+        d.remove_edge(*p)
+    for _ in range(n_add):
+        u, v = map(int, rng.integers(0, g.n_vertices, 2))
+        d.add_edge(u, v, float(rng.uniform(0.1, 1.0)))
+    return d
+
+
+def _kind_bytes(t, kind):
+    return {"cols": 4 * t.cols.size, "vals": 4 * t.vals.size,
+            "mask": t.cols.size, "row_len": 4 * t.cols.shape[0],
+            "live_pos": 8 * t.nnz, "live_epos": 8 * t.nnz}[kind]
+
+
+@pytest.mark.parametrize("which", ["b2", "gat-dot"])
+def test_cuda_live_rebind_equals_cold_compile(cuda, which):
+    from repro_torch.livegraph import GraphVersionStore, LiveGraphServer
+    g = _powerlaw(nv=300, ne=2400, seed=6)
+    geom = PartitionConfig(n1=64, n2=16)
+    store = GraphVersionStore(g, geometry=geom)
+    live = LiveGraphServer(store)
+    model = which if which == "b2" else build_gat_dot(TB, g)
+    eng = Engine(geom, device=cuda)
+    x = TG.random_features(g, seed=1)
+    eng.submit(InferenceRequest(model, live, x))
+    v1 = live.apply(_live_delta(g, seed=2))
+    assert v1.store.eid_capacity >= v1.store.live_edges
+    resp = eng.submit(InferenceRequest(model, live, x))
+    assert resp.cache_hit and eng.stats.compiles == 1
+    cold = Engine(geom, device=cuda)
+    g1 = dataclasses.replace(v1.as_graph(), name="cold")   # not live
+    want = cold.run(cold.compile(model, g1), x)
+    assert torch.equal(resp.output, want)
+    prog = eng.compile(model, live)
+    assert torch.equal(eng.run(prog, x, residency="host"), want)
+    y64 = TR.run_reference(TB.build(model, g1, 0) if which == "b2"
+                           else model, g1, torch.as_tensor(x, device=cuda),
+                           dtype=torch.float64)
+    _close(resp.output, y64, rtol=2e-4, atol=2e-5)
+
+
+def test_cuda_content_delta_uploads_only_patched_tiles(cuda):
+    from repro_torch.engine.executor import _staged
+    from repro_torch.livegraph import GraphVersionStore, LiveGraphServer
+    g = _powerlaw(nv=300, ne=2400, seed=7)
+    geom = PartitionConfig(n1=64, n2=16)
+    store = GraphVersionStore(g, geometry=geom)
+    live = LiveGraphServer(store)
+    eng = Engine(geom, device=cuda)
+    x = TG.random_features(g, seed=1)
+    eng.submit(InferenceRequest("b2", live, x))
+    kinds = _staged(store.head.pgraph, eng.device).kinds()
+    v1 = live.apply(_live_delta(g, seed=3, n_add=2, n_rm=2))
+    eng.submit(InferenceRequest("b2", live, x))
+    st = _staged(v1.pgraph, eng.device)
+    patched = [tuple(map(int, k.split(":"))) for k in v1.stats.patched]
+    want = v1.pgraph.inv_in_degree.nbytes + sum(
+        _kind_bytes(t, kind) for jk in patched
+        for t in v1.pgraph.tiles[jk] for kind in kinds)
+    assert 0 < len(patched) < len(v1.pgraph.tiles)
+    assert st.kinds() == kinds and st.uploaded == want
+
+
+def test_cuda_reclaimed_version_frees_its_own_bytes(cuda):
+    from repro_torch.engine.executor import _staged
+    from repro_torch.livegraph import GraphVersionStore, LiveGraphServer
+    g = _powerlaw(nv=300, ne=2400, seed=8)
+    geom = PartitionConfig(n1=64, n2=16)
+    store = GraphVersionStore(g, geometry=geom)
+    live = LiveGraphServer(store)
+    eng = Engine(geom, device=cuda)
+    x = TG.random_features(g, seed=1)
+    eng.submit(InferenceRequest("b2", live, x))
+    v1 = store.apply(_live_delta(g, seed=4))
+    v2 = store.apply(_live_delta(v1.as_graph(), seed=5))
+    for v in (v1, v2):
+        eng.submit(InferenceRequest("b2", v.as_graph(), x))
+    kinds = _staged(v1.pgraph, eng.device).kinds()
+    # What reclaiming v1 frees: its copies of the tiles v2 does not hold.
+    v2_tiles = {id(t) for ts in v2.pgraph.tiles.values() for t in ts}
+    own = sum(_kind_bytes(t, kind) for ts in v1.pgraph.tiles.values()
+              for t in ts if id(t) not in v2_tiles for kind in kinds)
+    assert own > 0
+    live.cutover(v1)                        # v0 retired and reclaimed
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    live.cutover(v2)                        # v1 retired and reclaimed
+    torch.cuda.synchronize()
+    assert live.reclaimed == [0, 1]
+    assert before - torch.cuda.memory_allocated() >= own
+    cold = Engine(geom, device=cuda)
+    g2c = dataclasses.replace(v2.as_graph(), name="cold")
+    assert torch.equal(eng.submit(InferenceRequest("b2", live, x)).output,
+                       cold.run(cold.compile("b2", g2c), x))

@@ -1,16 +1,19 @@
 """The port's sparsity-adaptive kernel remapping on the CPU.
 
-A twin of ``tests/test_remap.py`` (apart from its live-graph rebind and
-verify tests, which wait for the live-graph and verify modules): the
+A twin of ``tests/test_remap.py``: the
 remapped encoding is self-describing (forced SpDMM restores the canonical
 bytes, forced GEMM round-trips), a forced-GEMM binary runs with the same
 bits on both of the port's residency paths, auto remap restricted to
 spdmm/skip is bit-exact, MAX/MIN layers keep SpDMM, skip-empty elision
 equals a cold compile of the drained graph, and the density sources and
-calibrated constants behave as in the JAX package.  Against the JAX
-package (rtol 2e-4 / atol 2e-5): forced-GEMM runs, ``densify_tile`` and
-``ACK.gemm_agg`` (with a row that holds one column twice), and the
-per-tile ``exec_profile``.
+calibrated constants behave as in the JAX package.  Live graphs: a
+delta that drains a tile serves a skip-empty remapped program bit for bit
+like a cold compile, and a rebind re-prices only the tiles the delta
+patched (records and binary words equal to JAX's rebind).  Verify passes
+remapped programs and bundles and catches a tampered record or a GEMM
+with no record.  Against the JAX package (rtol 2e-4 / atol 2e-5):
+forced-GEMM runs, ``densify_tile`` and ``ACK.gemm_agg`` (with a row that
+holds one column twice), and the per-tile ``exec_profile``.
 """
 import copy
 import dataclasses
@@ -24,16 +27,20 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import ack as jack  # noqa: E402
 from repro.core import graph as JG  # noqa: E402
+from repro import livegraph as JL  # noqa: E402
 from repro.core.passes.partition import PartitionConfig as JPC  # noqa: E402
 from repro.engine import Engine as JEngine  # noqa: E402
 from repro_torch.core import ack as tack  # noqa: E402
 from repro_torch.core import graph as G  # noqa: E402
 from repro_torch.core.ir import AggOp  # noqa: E402
-from repro_torch.core.isa import Opcode, disassemble  # noqa: E402
+from repro_torch.core.isa import (HEADER_BYTES, Instr,  # noqa: E402
+                                  Opcode, disassemble)
 from repro_torch.core.passes.partition import PartitionConfig  # noqa: E402
 from repro_torch.core.passes.remap import (_scan_groups,  # noqa: E402
                                            remap_program, resolve_density)
 from repro_torch.engine import Engine  # noqa: E402
+from repro_torch.livegraph import GraphDelta, GraphVersionStore  # noqa: E402
+from repro_torch.verify import verify_gagi, verify_program  # noqa: E402
 
 GEOM = PartitionConfig(n1=32, n2=8)
 RTOL, ATOL = 2e-4, 2e-5
@@ -323,3 +330,141 @@ def test_exec_profile_matches_jax():
     tp = eng.remap(eng.compile("b1", gt), force="gemm")
     eng.run(tp, x, residency="host")
     assert tp.manifest["exec_profile"] == jp.manifest["exec_profile"]
+
+
+# --------------------------------------------------------------------------- #
+# Live graphs: skip-empty on a drained tile, incremental rebind remap.
+# --------------------------------------------------------------------------- #
+def _words(binary: bytes) -> np.ndarray:
+    return np.frombuffer(binary, dtype="<u4",
+                         offset=HEADER_BYTES).reshape(-1, 4)
+
+
+def _drain_smallest_tile(store, Delta=GraphDelta):
+    jk = min(store.edges, key=lambda k: store.edges[k].n)
+    te = store.edges[jk]
+    d = Delta(base_vertices=store.n_vertices)
+    for u, w in zip(te.src.tolist(), te.dst.tolist()):
+        d.remove_edge(u, w)
+    return jk, d
+
+
+def test_skip_empty_elision_on_live_graph_bit_identical_to_cold():
+    g = _g(seed=7)
+    x = G.random_features(g, seed=4)
+    live = GraphVersionStore(g, GEOM, name="lv")
+    eng = _engine()
+    prog = eng.compile("b1", live.head.as_graph())
+    eng.remap(prog, modes=("spdmm", "skip"))   # re-caches remapped copy
+    jk, d = _drain_smallest_tile(live.head.store)
+    v1 = live.apply(d)
+    assert not v1.stats.structural_change
+    compiles = eng.stats.compiles
+    p1 = eng.compile("b1", v1.as_graph())
+    assert eng.stats.compiles == compiles       # content-only: cache hit
+    rec = p1.manifest["remap"]
+    assert rec["tiles"][f"{jk[0]}:{jk[1]}"]["mode"] == "skip"
+    assert rec["counts"]["skip"] >= 1 and rec["skipped_tile_ops"] > 0
+    y = eng.run(p1, x)
+    assert eng.exec_stats.tiles_skipped == rec["skipped_tile_ops"]
+    assert torch.equal(eng.run(p1, x, residency="host"), y)
+    cold = _engine()
+    assert torch.equal(y, cold.run(cold.compile("b1", d.apply_to(g)), x))
+
+
+def test_rebind_remaps_only_patched_tiles():
+    g, gj = _g(seed=7), _g(seed=7, pkg=JG)
+    live = GraphVersionStore(g, GEOM, name="lv")
+    jlive = JL.GraphVersionStore(gj, JPC(n1=32, n2=8), name="lv")
+    eng, je = _engine(), _jengine()
+    # Both remaps priced by the JAX package's default constants: each
+    # record carries its constants, and the packages' defaults differ.
+    from repro.core.perfmodel import DEFAULT_CONSTANTS
+    consts = DEFAULT_CONSTANTS.to_dict()
+    prog = eng.compile("b1", live.head.as_graph())
+    rp0 = eng.remap(prog, consts, force="gemm")
+    je.remap(je.compile("b1", jlive.head.as_graph()), consts, force="gemm")
+
+    jk_empty, d = _drain_smallest_tile(live.head.store)
+    _, jd = _drain_smallest_tile(jlive.head.store, JL.GraphDelta)
+    jk_other = max(live.head.store.edges,
+                   key=lambda k: live.head.store.edges[k].n)
+    o = live.head.store.edges[jk_other]
+    d.add_edge(int(o.src[0]), int(o.dst[0]), 0.5)
+    jd.add_edge(int(o.src[0]), int(o.dst[0]), 0.5)
+    v1 = live.apply(d)
+    jv1 = jlive.apply(jd)
+    patched = set(v1.stats.patched)
+    assert patched == {f"{jk_empty[0]}:{jk_empty[1]}",
+                       f"{jk_other[0]}:{jk_other[1]}"}
+
+    p1 = eng.compile("b1", v1.as_graph())
+    rec = p1.manifest["remap"]
+    assert rec["tiles"][f"{jk_empty[0]}:{jk_empty[1]}"]["mode"] == "skip"
+    for jk, entry in rec["tiles"].items():
+        if jk not in patched:
+            assert entry == rp0.manifest["remap"]["tiles"][jk]
+    w0, w1 = _words(rp0.binary), _words(p1.binary)
+    assert w0.shape == w1.shape
+    diff_rows = set(np.nonzero((w0 != w1).any(axis=1))[0].tolist())
+    instrs = [Instr.decode(w) for w in w0]
+    owner = {}
+    for grp in _scan_groups(instrs):
+        for idx in (grp.compute, *grp.mem):
+            owner[idx] = f"{grp.j}:{grp.k}"
+    for row in diff_rows:
+        assert owner.get(row) in patched, row
+    for jk in v1.store.tiles:
+        if f"{jk[0]}:{jk[1]}" not in patched:
+            assert v1.store.tiles[jk] is live.get(0).store.tiles[jk]
+    again = v1.bind(eng.cache.get(prog.cache_key))
+    assert again is v1.bind(eng.cache.get(prog.cache_key))
+
+    jp1 = je.compile("b1", jv1.as_graph())
+    assert p1.binary == jp1.binary
+    jrec = jp1.manifest["remap"]
+    assert {k: v for k, v in rec.items() if k != "remap_ms"} == \
+        {k: v for k, v in jrec.items() if k != "remap_ms"}   # a wall time
+    x = G.random_features(v1.as_graph(), seed=5)
+    y = eng.run(p1, x)
+    assert torch.equal(eng.run(p1, x, residency="host"), y)
+    np.testing.assert_allclose(y.numpy(), np.asarray(je.run(jp1, x)),
+                               rtol=RTOL, atol=ATOL)
+
+
+# --------------------------------------------------------------------------- #
+# Verify on remapped programs.
+# --------------------------------------------------------------------------- #
+def test_verify_passes_on_remapped_gagi(tmp_path):
+    eng = _engine(verify=True)
+    rp = eng.remap(eng.compile("b1", _g(seed=3)), force="gemm")
+    assert verify_program(rp).ok
+    path = str(tmp_path / "remapped.gagi")
+    rp.save(path)
+    assert verify_gagi(path).ok
+
+
+def test_verify_catches_tampered_record():
+    eng = _engine()
+    rp = eng.remap(eng.compile("b1", _g(seed=3)), force="gemm")
+    bad = dataclasses.replace(rp, manifest=copy.deepcopy(rp.manifest))
+    jk = next(k for k, e in bad.manifest["remap"]["tiles"].items()
+              if e["mode"] == "gemm")
+    bad.manifest["remap"]["tiles"][jk]["mode"] = "spdmm"
+    rep = verify_program(bad)
+    assert not rep.ok
+    assert any("remap record marks it spdmm" in v.message
+               for v in rep.violations)
+
+
+def test_verify_catches_unrecorded_gemm():
+    """A GEMM smuggled into an AGGREGATE layer with NO remap record still
+    fails: the legality gate did not simply get wider."""
+    eng = _engine()
+    rp = remap_program(eng.compile("b1", _g(seed=3)), force="gemm")
+    stripped = dict(rp.manifest)
+    del stripped["remap"]
+    bad = dataclasses.replace(rp, manifest=stripped, _plan=None)
+    rep = verify_program(bad)
+    assert not rep.ok
+    assert any("no remap record" in v.message for v in rep.violations)
