@@ -162,12 +162,42 @@ Phases (any failure exits non-zero; nothing is caught):
    ``repro_torch.launch.serve.main`` at its defaults (8 requests, prompt
    32, 16 generated tokens, bf16).
 
+10. Mesh (``mesh=``, the placement-scheduled multi-device path) on
+   virtual shards of the card, ``DeviceMesh([cuda:0] * D)``: b1-b8 on CO
+   at D = 2, 3 and 4, each bit for bit the device path, launches equal to
+   the pass's tile ops and per-device tile ops summing to the device
+   path's; b2 and gat-dot on full-scale FL at D = 4 (a mesh miss, then
+   four hits in turns with four device-path hits on the same shared
+   tiles, which share the shards' copies): bit for bit,
+   within rtol 2e-4 / atol 2e-5 of float64, ``halo_bytes`` equal to the
+   manifest's ``halo_bytes_total``, with ``halo_gather_bytes``,
+   ``device_imbalance``, per-device records, per-layer gather bytes and
+   the hit times beside the device path's; ``run_batch`` of 3 b2@FL lanes
+   on the mesh, each lane bit for bit its solo run; a traced b2@FL hit
+   through ``verify.check_trace`` (0 violations) and ``build_report``'s
+   halo section; b1 on CO remapped with ``force="gemm"`` at D = 2 (densify
+   and GEMM on the mesh); a live CO (n1=1024) version after a content
+   delta on D = 2, a cache hit bit for bit to a cold compile.  It prints
+   how many times the distinct-card path ran (0 on a one-card machine;
+   with more cards, b2@FL on ``make_device_mesh(min(4, count))``).
+11. granite-8b at full width (36 layers, d_model 4096, 32 query / 8 KV
+   heads of 128, d_ff 14336, vocab 49,152, an untied head; 8.25 B
+   parameters, bf16, random from seed 0): the flash kernel at its prefill
+   shape (BH=128 over 32 KV heads, G=4, T=2048, d=128, bf16, causal) by
+   ``check_rows`` against its plain version, timed beside the plain
+   version, SDPA and the bound; ``make_prefill_step`` at B=4, T=2048 (a
+   warm-up and 2 timed, 36 flash launches each), last-position logits
+   within relative L2 2e-2 of plain attention; fp32 decode against
+   forward at full width and 4 layers (B=2, T=64, 2e-4 of max |logit|);
+   ``launch.serve --arch granite-8b`` with 4 requests of 16 tokens.
+
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths (the Engine.serve path, the host and remap runs of phase 4, the
 runtime path, the sampled stream, the reported runs of phase 7, the live
-path's runs of phase 8 (cold-compile comparisons excluded), and the
-prefill and forward runs of phase 9), each counted from zero just before
-the path runs and read just after.
+path's runs of phase 8 (cold-compile comparisons excluded), the prefill
+and forward runs of phase 9, the mesh runs of phase 10 (device-path
+comparisons excluded), and the prefill and forward runs of phase 11),
+each counted from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
 the host enqueues 20 back-to-back calls while the device is busy, and a
@@ -2207,6 +2237,450 @@ def live_remap_rebind(torch, counted):
 
 
 # --------------------------------------------------------------------------- #
+MESH_CO_DEVICES = (2, 3, 4)     # virtual shards of the card, b1-b8 on CO
+MESH_FL_DEVICES = 4             # b2 and gat-dot on full-scale FL
+MESH_LANES = 3                  # run_batch lanes on the mesh
+MESH_LIVE_GEOM = (1024, 128)    # live CO on the mesh: 3 x 3 tiles
+
+
+def mesh_phase(torch, card):
+    """The placement-scheduled multi-device path on virtual shards of the
+    card (``DeviceMesh([cuda:0] * D)``); see the module docstring.
+    Returns (launches of the mesh path, a summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import gnn_builders as TB
+    from repro_torch.core import graph as G
+    from repro_torch.core.gnn_builders import BENCHMARKS
+    from repro_torch.core.passes.partition import PartitionConfig
+    from repro_torch.engine import Engine, InferenceRequest
+    from repro_torch.engine.executor import _staged
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import DeviceMesh, make_device_mesh
+    from repro_torch.livegraph import (GraphDelta, GraphVersionStore,
+                                       LiveGraphServer)
+    from repro_torch.obs import build_report, tracing
+    from repro_torch.verify import check_trace
+
+    out = {"card": card, "co": {}, "fl": {}}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    eng = Engine()
+    dev0 = DeviceMesh([eng.device]).devices[0]      # cuda:<current>
+
+    def mesh(d):
+        return DeviceMesh([dev0] * d)
+
+    def counted(fn):
+        ops.reset_launches()
+        # ---- a run of the mesh path: counts zeroed above, read below.
+        y = fn()
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        # ----
+        for k, n in got.items():
+            launches[k] += n
+        return y, got
+
+    def expect(label, got, want, passes=1):
+        for k in ("gemm", "spdmm", "sddmm"):
+            if got[k] != passes * want[k]:
+                fail(f"mesh {label}: {k} launches {got[k]} != {passes} x "
+                     f"{want[k]} tile ops")
+
+    def same(label, got, want):
+        if not torch.equal(got, want):
+            err = float((got - want).abs().max())
+            fail(f"mesh {label}: differs from the device path (max|d| "
+                 f"{err:.3e})")
+
+    co = G.synthesize("CO").gcn_normalized()
+    fl = G.synthesize("FL").gcn_normalized()
+    t0 = time.perf_counter()
+    for name in BENCHMARKS:
+        prog = eng.compile(name, co, mesh=max(MESH_CO_DEVICES))
+        x = G.random_features(co, seed=1)
+        y = eng.run(prog, x)
+        dev_ops = eng.exec_stats.tile_ops
+        rec = {}
+        for d in MESH_CO_DEVICES:
+            ym, got = counted(lambda: eng.run(prog, x, mesh=mesh(d)))
+            st = eng.exec_stats
+            same(f"{name}@CO D={d}", ym, y)
+            expect(f"{name}@CO D={d}", got, plan_tile_ops(prog))
+            if sum(r["tile_ops"] for r in st.per_device) != dev_ops:
+                fail(f"mesh {name}@CO D={d}: per-device tile ops "
+                     f"{[r['tile_ops'] for r in st.per_device]} do not sum "
+                     f"to the device path's {dev_ops}")
+            rec[d] = {"halo_gather_bytes": st.halo_gather_bytes,
+                      "halo_bytes": st.halo_bytes,
+                      "device_imbalance": st.device_imbalance}
+        out["co"][name] = rec
+    log(f"mesh: b1-b8 on CO at D = {MESH_CO_DEVICES} virtual shards of "
+        f"{dev0}, each bit for bit the device path, launches equal to the "
+        f"tile ops ({time.perf_counter() - t0:.1f} s)")
+
+    # b2 and gat-dot on full-scale FL at D = 4: a mesh miss (compile and
+    # the tile upload) and two hits, then the device path on the same
+    # (shared) tiles.
+    fl_progs = {}
+    for label in ("b2", "gat-dot"):
+        model = "b2" if label == "b2" else build_gat_dot(TB, fl)
+        x = G.random_features(fl, seed=20)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        prog = eng.compile(model, fl, mesh=MESH_FL_DEVICES)
+        t_loc = time.perf_counter() - t0
+        fl_progs[label] = (prog, model, x)
+        walls, ys, dev_walls = [], [], []
+        # The mesh miss, then hits of the two paths in turns (device,
+        # mesh, mesh, device, twice), so that both see the same host.
+        for which in ("mesh",) + ("device", "mesh", "mesh", "device") * 2:
+            t0 = time.perf_counter()
+            if which == "mesh":
+                ym, got = counted(lambda: eng.run(
+                    prog, x, mesh=mesh(MESH_FL_DEVICES)))
+                walls.append((time.perf_counter() - t0) * 1e3)
+                ys.append(ym)
+                st = eng.exec_stats
+                expect(f"{label}@FL", got, plan_tile_ops(prog))
+                if len(walls) == 1:
+                    staged = torch.cuda.memory_allocated() - mem0
+            else:
+                y = eng.run(prog, x)
+                torch.cuda.synchronize()
+                dev_walls.append((time.perf_counter() - t0) * 1e3)
+                dev_ops = eng.exec_stats.tile_ops
+                dev_layers = [r["wall_s"] * 1e3
+                              for r in eng.exec_stats.per_layer]
+        for i, ym in enumerate(ys):
+            same(f"{label}@FL run {i}", ym, y)
+        # The device path's staging shares the virtual shards' tile
+        # copies: it uploaded its inverse in-degree and nothing else.
+        full = _staged(prog.pgraph, eng.device)
+        if full.uploaded != full.inv_deg.numel() * 4:
+            fail(f"mesh {label}@FL: the device path uploaded "
+                 f"{full.uploaded} B beside the shards' copies")
+        pl = prog.manifest["placement"]
+        if sum(r["tile_ops"] for r in st.per_device) != dev_ops:
+            fail(f"mesh {label}@FL: per-device tile ops do not sum to the "
+                 f"device path's {dev_ops}")
+        if st.halo_bytes != pl["halo_bytes_total"]:
+            fail(f"mesh {label}@FL: halo_bytes {st.halo_bytes} != the "
+                 f"manifest's {pl['halo_bytes_total']}")
+        worst = hold_against_reference(
+            torch, [InferenceRequest(model, fl, x)],
+            [_resp(f"{label}@FL mesh D={MESH_FL_DEVICES}", ys[-1])])
+        layers = [(r["layer"], r["kernel"], r["halo_gather_bytes"],
+                   r["wall_s"] * 1e3) for r in st.per_layer]
+        log(f"mesh {label}@FL D={MESH_FL_DEVICES}: T_LoC {t_loc:.2f} s; "
+            f"mesh passes (the miss, then hits) "
+            f"{', '.join(f'{w:.2f}' for w in walls)} ms; device-path hits "
+            f"on the same tiles, in turns with the mesh's "
+            f"{', '.join(f'{w:.2f}' for w in dev_walls)} ms;"
+            f" {staged} B staged by the mesh miss; halo_gather_bytes "
+            f"{st.halo_gather_bytes}, halo_bytes (placement estimate) "
+            f"{st.halo_bytes}, device_imbalance {st.device_imbalance:.4f}, "
+            f"peak_device_bytes {st.peak_device_bytes}; per device "
+            f"{st.per_device}; max|err| {worst:.3e} against float64")
+        log(f"  mesh {label}@FL per layer of the last mesh hit (id, "
+            "kernel, halo_gather_bytes, CUDA-event ms; the last device-path"
+            " hit's ms): " + ", ".join(
+                f"L{a}:{k}:{b}:{ms:.3f}:{dms:.3f}"
+                for (a, k, b, ms), dms in zip(layers, dev_layers)))
+        out["fl"][label] = {
+            "t_loc_s": t_loc, "mesh_ms": walls, "device_ms": dev_walls,
+            "device_layer_ms": dev_layers,
+            "staged_bytes": staged,
+            "halo_gather_bytes": st.halo_gather_bytes,
+            "halo_bytes": st.halo_bytes,
+            "device_imbalance": st.device_imbalance,
+            "peak_device_bytes": st.peak_device_bytes,
+            "per_device": st.per_device, "per_layer": layers,
+            "max_abs_err": worst}
+
+    # run_batch of lanes on the mesh, each lane equal to its solo run.
+    prog, model, x = fl_progs["b2"]
+    xs = np.stack([G.random_features(fl, seed=30 + i)
+                   for i in range(MESH_LANES)])
+    t0 = time.perf_counter()
+    ys, got = counted(lambda: eng.run_batch(prog, xs,
+                                            mesh=mesh(MESH_FL_DEVICES)))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    expect("b2@FL batch", got, plan_tile_ops(prog), passes=MESH_LANES)
+    if eng.exec_stats.runs != 1:
+        fail("mesh batch: stats do not merge the lanes into one pass")
+    for i in range(MESH_LANES):
+        solo, _ = counted(lambda: eng.run(prog, xs[i],
+                                          mesh=mesh(MESH_FL_DEVICES)))
+        same(f"b2@FL lane {i}", ys[i], solo)
+    log(f"mesh: run_batch of {MESH_LANES} b2@FL lanes in {batch_ms:.2f} ms,"
+        " each lane bit for bit its solo run")
+
+    # A traced mesh hit: the race detector and the conformance report's
+    # halo section (the miss's program carries its source).
+    with tracing() as tr:
+        counted(lambda: eng.run(prog, x, mesh=mesh(MESH_FL_DEVICES)))
+    trace = tr.to_dict()
+    rep = check_trace(trace, prog)
+    if not rep.ok:
+        fail(f"mesh: check_trace over a traced b2@FL hit: "
+             f"{rep.to_markdown()}")
+    halos = [e for e in trace["traceEvents"]
+             if e.get("name") == "halo_exchange"]
+    report = build_report(prog, eng.exec_stats, events=tr.events())
+    if report.halo is None or report.halo["gathered_bytes"] != \
+            eng.exec_stats.halo_gather_bytes:
+        fail(f"mesh: build_report's halo section {report.halo}")
+    copy_us = [e["args"].get("copy_us") for e in halos]
+    log(f"mesh: check_trace over a traced b2@FL hit: 0 violations "
+        f"({', '.join(rep.checks_run)} ran); {len(halos)} halo_exchange "
+        f"spans, copy_us {copy_us}; build_report halo section "
+        f"{report.halo}")
+    out["trace"] = {"checks_run": rep.checks_run, "halo_spans": len(halos),
+                    "copy_us": copy_us, "halo": report.halo}
+
+    # A forced-GEMM remap of b1 on CO at D = 2 (densify on the mesh).
+    rp = eng.remap(eng.compile("b1", co), force="gemm")
+    x = G.random_features(co, seed=1)
+    y = eng.run(rp, x)
+    ym, got = counted(lambda: eng.run(rp, x, mesh=mesh(2)))
+    same("remapped b1@CO D=2", ym, y)
+    st = eng.exec_stats
+    if not (got["densify"] > 0 and got["gemm"] == st.tile_ops_by_mode[
+            "gemm"] and st.tiles_remapped == rp.manifest["remap"][
+                "remapped_ops"] > 0):
+        fail(f"mesh remap: launches {got}, tiles_remapped "
+             f"{st.tiles_remapped}")
+    log(f"mesh: forced-GEMM b1@CO at D=2: {st.tiles_remapped} GEMM steps, "
+        f"launches {got}, bit for bit the device path")
+    del eng, rp, fl_progs, prog, model, ys, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # A live CO version after a content delta, on the mesh.
+    geom = PartitionConfig(n1=MESH_LIVE_GEOM[0], n2=MESH_LIVE_GEOM[1])
+    store = GraphVersionStore(co, geometry=geom)
+    live = LiveGraphServer(store)
+    leng = Engine(geometry=geom, verify=True)
+    leng.compile("b2", live, mesh=2)
+    d, attempt = live_delta(np, GraphDelta, store.head, seed=5)
+    live.apply(d)
+    x = G.random_features(co, seed=4)
+    prog = leng.compile("b2", live, mesh=2)
+    ym, got = counted(lambda: leng.run(prog, x, mesh=mesh(2), graph=live))
+    if leng.stats.compiles != 1:
+        fail("mesh live: a content delta recompiled")
+    g1 = store.head.as_graph()
+    cold = Engine(geometry=geom)
+    yc = cold.run(cold.compile("b2", dataclasses.replace(g1, name="cold")),
+                  x)
+    same("live b2@CO v1 D=2 (against a cold compile)", ym, yc)
+    worst = hold_against_reference(torch, [InferenceRequest("b2", g1, x)],
+                                   [_resp("b2@CO live v1 mesh", ym)])
+    log(f"mesh: live CO v1 (content delta, draw {attempt}) on D=2: a cache "
+        f"hit, bit for bit a cold compile, max|err| {worst:.3e} against "
+        f"float64; launches {got}")
+    del leng, cold, live, store
+
+    # Distinct cards, where the machine has them.
+    n_cards = torch.cuda.device_count()
+    out["distinct_card_runs"] = 0
+    if n_cards > 1:
+        d = min(MESH_FL_DEVICES, n_cards)
+        deng = Engine()
+        prog = deng.compile("b2", fl, mesh=d)
+        x = G.random_features(fl, seed=20)
+        y = deng.run(prog, x)
+        ym, _ = counted(lambda: deng.run(prog, x,
+                                         mesh=make_device_mesh(d)))
+        same(f"b2@FL on {d} distinct cards", ym.to(y.device), y)
+        out["distinct_card_runs"] = 1
+        del deng, prog
+    log(f"mesh: the distinct-card path ran {out['distinct_card_runs']} "
+        f"time(s) ({n_cards} card(s) on this machine)")
+    log("mesh: launches on the mesh path: " + ", ".join(
+        f"{k} {n}" for k, n in launches.items()))
+    out["launches"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+# --------------------------------------------------------------------------- #
+GRANITE_ARCH = "granite-8b"
+GRANITE_B, GRANITE_T = 4, 2048
+GRANITE_DECODE_LAYERS = 4       # the fp32 witness: weights near 5 GB
+
+
+def granite_phase(torch, ops, ref):
+    """granite-8b at full width: the flash kernel at its prefill shape
+    (GQA group 4), the bf16 prefill of all 36 layers against plain
+    attention, the fp32 decode witness at 4 layers, and ``launch.serve``;
+    see the module docstring.  Returns (flash launches over the counted
+    runs, the flash kernel's row at the granite shape, a summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.steps import build_model, make_prefill_step
+
+    cfg = get_config(GRANITE_ARCH)
+    g = cfg.n_heads // cfg.n_kv_heads
+    bh, kvh, t, d = (GRANITE_B * cfg.n_heads, GRANITE_B * cfg.n_kv_heads,
+                     GRANITE_T, cfg.hd)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(bh, t, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(kvh, t, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    name = f"flash granite prefill shape BH={bh} KV heads={kvh} G={g}"
+    got = ops.flash_attention(q, k, v, True)
+    want = ref.flash_attention_plain(q, k, v, True)
+    r_whole, r_row = check_rows(torch, name, got, want)
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True))
+    t_p = median_ms(torch, lambda: ref.flash_attention_plain(q, k, v, True),
+                    reps=3, launches=3)
+    lib, how = sdpa_yardstick(torch, q, k, v)
+    t_l = median_ms(torch, lib)
+    b_ms, b_by = flash_bound(bh, t, t, d, True, 2, PEAK_BF16_FLOP_S,
+                             kv_heads=kvh)
+    log(f"kernel flash_attention {name} T={t} d={d} causal bf16: kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, F.scaled_dot_product_attention "
+        f"({how}) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); relative L2 "
+        f"{r_whole:.3e} whole, {r_row:.3e} worst row, max|err| {err:.2e}")
+    flash_row = {"shape": f"BH={bh} over {kvh} KV heads, T={t}, d={d}, "
+                          "bf16, causal", "max_abs_err": err, "ms": t_k,
+                 "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": t_l, "rel_l2_whole": r_whole,
+                 "rel_l2_worst_row": r_row}
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    w_bytes = torch.cuda.memory_allocated() - base
+    log(f"{cfg.name}: {n_par:,} parameters ({cfg.n_params():,} in "
+        f"matrices), {w_bytes / 2**30:.2f} GiB in {cfg.dtype}, built from "
+        f"seed 0 in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (GRANITE_B, GRANITE_T)).astype(np.int32),
+        device="cuda")
+    prefill = make_prefill_step(model, cfg)
+    batch = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # ---- the granite prefill path: counts zeroed above, read below.
+    walls = []
+    for _ in range(3):                       # a warm-up, then 2 timed
+        t0 = time.perf_counter()
+        logits = prefill(model, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n_flash = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    # ---- end of the granite prefill path.
+    if n_flash != cfg.n_layers * len(walls):
+        fail(f"granite: flash launches {n_flash} over {len(walls)} "
+             f"prefills != {cfg.n_layers} per prefill")
+    if tuple(logits.shape) != (GRANITE_B, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"granite prefill logits: shape {tuple(logits.shape)} or "
+             "non-finite")
+    with attention_as(ops, ref.flash_attention_plain):
+        want = prefill(model, batch)
+    got32, want32 = logits.float(), want.float()
+    rel = float((got32 - want32).norm() / want32.norm())
+    agree = float((got32.argmax(-1) == want32.argmax(-1)).float().mean())
+    prefill_ms = statistics.median(walls[1:])
+    log(f"granite prefill {GRANITE_B}x{GRANITE_T}: wall ms "
+        f"{[round(w, 2) for w in walls]} (first is the warm-up), median "
+        f"{prefill_ms:.2f} ms, {GRANITE_B * GRANITE_T / prefill_ms * 1e3:,.0f}"
+        f" tokens/s; peak memory {peak / 2**30:.3f} GiB (weights "
+        f"included); flash launches {n_flash}; logits against plain "
+        f"attention: relative L2 {rel:.3e} (limit {LM_REL_L2}), argmax "
+        f"agreement {agree:.3f}")
+    if not rel <= LM_REL_L2:
+        fail(f"granite prefill logits differ from plain attention by "
+             f"relative L2 {rel:.3e}")
+    del model, logits, want, prefill, got32, want32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 decode against forward at full width, 4 layers.
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=GRANITE_DECODE_LAYERS)
+    model = build_model(cfg32, seed=0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (DECODE_B, DECODE_T)
+                                        ).astype(np.int32), device="cuda")
+    ops.reset_launches()
+    # ---- the granite forward run: counts zeroed above, read below.
+    fwd, _ = model(toks)
+    torch.cuda.synchronize()
+    fwd_launches = ops.LAUNCHES["flash_attention"]
+    # ---- end of the granite forward run.
+    if fwd_launches != cfg32.n_layers:
+        fail(f"granite forward: flash launches {fwd_launches} != "
+             f"{cfg32.n_layers}")
+    cache = model.init_cache(DECODE_B, DECODE_T)
+    worst, scale = 0.0, float(fwd.abs().max())
+    t0 = time.perf_counter()
+    for i in range(DECODE_T):
+        lg, cache = model.decode_step(cache, toks[:, i:i + 1], i)
+        worst = max(worst, float((lg[:, 0] - fwd[:, i]).abs().max()))
+    log(f"granite decode against forward, fp32, {cfg32.n_layers} layers, "
+        f"B={DECODE_B} T={DECODE_T}: max |decode - forward| / max |forward|"
+        f" = {worst / scale:.3e} (limit {DECODE_TOL}; "
+        f"{time.perf_counter() - t0:.2f} s)")
+    if not worst / scale < DECODE_TOL:
+        fail(f"granite decode differs from forward by {worst / scale:.3e}")
+    del model, fwd, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The serving loop at granite-8b: 4 requests of 16 tokens.
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", GRANITE_ARCH, "--requests", "4",
+                         "--prompt-len", "16", "--gen", "16"])
+    drv_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"serve granite: {line}")
+    m = re.search(r"prefill: ([\d.]+) ms\s+decode: ([\d.]+) ms \(([\d.]+) "
+                  r"ms/token\)", text)
+    gens = re.findall(r"^\s+\[([\d, ]+)\]$", text, re.M)
+    if rc != 0 or m is None or len(gens) != 3 or any(
+            len(x.split(",")) != 16 for x in gens):
+        fail(f"launch.serve --arch {GRANITE_ARCH}: exit {rc}, output not "
+             "as expected")
+    log(f"launch.serve granite-8b: prefill {m.group(1)} ms, decode "
+        f"{m.group(3)} ms/token, {drv_s:.2f} s with the build")
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"params": n_par, "weight_bytes": w_bytes,
+               "prefill_ms": walls, "prefill_median_ms": prefill_ms,
+               "prefill_peak_bytes": peak, "prefill_rel_l2": rel,
+               "prefill_argmax_agreement": agree,
+               "decode_vs_forward": worst / scale,
+               "serve_prefill_ms": float(m.group(1)),
+               "serve_decode_ms_per_token": float(m.group(3)),
+               "flash_granite_shape": flash_row}
+    return n_flash + fwd_launches, flash_row, summary
+
+
+# --------------------------------------------------------------------------- #
 @contextlib.contextmanager
 def attention_as(ops, fn):
     """While open, ``ops.flash_attention`` is ``fn``: the check's own
@@ -2578,16 +3052,22 @@ def main() -> int:
     lm["flash_path_shape"] = flash_path
     log(f"LM phase (flash checks, prefill, decode, launch.serve): "
         f"{time.perf_counter() - t5:.1f} s")
-    flash_entry["launches"] = flash_launches
+    t7 = time.perf_counter()
+    mesh_launches, mesh = mesh_phase(torch, card)
+    log(f"mesh phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    granite_launches, flash_granite, granite = granite_phase(torch, ops, ref)
+    log(f"granite phase: {time.perf_counter() - t7:.1f} s")
+    flash_entry["launches"] = flash_launches + granite_launches
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
             launches, rt_launches, host_launches, co_launches, fl_launches,
-            sp_launches, conf_launches, live_launches))
+            sp_launches, conf_launches, live_launches, mesh_launches))
     kernels.append(flash_entry)
     densify_entry["launches"] = co_launches["densify"] + \
         fl_launches["densify"] + conf_launches["densify"] + \
-        live_launches["densify"]
+        live_launches["densify"] + mesh_launches["densify"]
     kernels.append(densify_entry)
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2630,7 +3110,8 @@ def main() -> int:
                        "remap": {"co": co_remap, "fl": fl_remap,
                                  "gemm_4096x4096x128": gemm_remap},
                        "sampled": sampled, "conformance": conformance,
-                       "live": live,
+                       "live": live, "mesh": mesh, "granite": granite,
+                       "flash_granite_shape": flash_granite,
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

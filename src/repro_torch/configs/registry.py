@@ -1,7 +1,8 @@
 """Registry of the architectures the port runs (``--arch <id>``).
 
-Only what the port runs is listed: qwen3-0.6b, a dense GQA decoder.  The
-JAX package's other architectures (``repro.configs.registry``) raise
+Only what the port runs is listed: qwen3-0.6b and granite-8b, dense GQA
+decoders (granite's LM head is untied).  The JAX package's other
+architectures (``repro.configs.registry``) raise
 NotImplementedError here until their blocks are ported (ROADMAP A15).
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "granite-8b": "granite_8b",
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -132,8 +132,9 @@ def _lm_leaves(cfg: ModelConfig, params) -> Iterator[Tuple[str, Any, Any]]:
     """(port name, JAX leaf, rep index or None) for every parameter.  Port
     layer i is the i-th block JAX's scan applies: segment s, repeat r,
     superblock position b, i.e. ``params["segments"][s][b][...][r]``."""
-    for name in ("embed", "final_norm"):
-        yield name, params[name], None
+    for name in ("embed", "final_norm", "head"):
+        if name in params:              # "head": an untied LM head
+            yield name, params[name], None
     i = 0
     for s, (sb, rep) in enumerate(build_segments(cfg)):
         for r in range(rep):

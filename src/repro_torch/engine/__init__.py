@@ -13,7 +13,8 @@ from .decoder import ExecutionPlan, LayerPlan, TilePlan, decode_binary
 from .engine import (Engine, EngineStats, InferenceRequest,
                      InferenceResponse, graph_signature, model_signature,
                      stack_features, stack_graph_data)
-from .executor import BinaryExecutor, ExecStats, ResidentBudgetError
+from .executor import (BinaryExecutor, ExecStats, ResidentBudgetError,
+                       derive_placement, ensure_placement)
 from .program import CompiledProgram, build_manifest, from_program
 
 __all__ = [
@@ -22,5 +23,6 @@ __all__ = [
     "ResidentBudgetError", "LRUCache",
     "ExecutionPlan", "LayerPlan", "TilePlan", "decode_binary",
     "build_manifest", "from_program", "graph_signature", "model_signature",
-    "stack_features", "stack_graph_data",
+    "stack_features", "stack_graph_data", "derive_placement",
+    "ensure_placement",
 ]

@@ -41,6 +41,17 @@ environment variable) statically verifies every fresh compile and every
 live rebind (:mod:`repro_torch.verify`), and ``GAGI_EXPORT_DIR`` saves
 every fresh compile as a ``.gagi`` bundle there: the JAX package's
 switches, under the same names.
+
+Meshes: ``compile(..., mesh=D)`` records the placement schedule for D
+devices in the manifest, and ``run`` / ``run_batch(..., mesh=...)`` run
+the placement-scheduled multi-device path.  ``mesh`` is a device count
+(the first D devices of the engine's device type,
+:func:`repro_torch.launch.mesh.make_device_mesh`) or a
+:class:`repro_torch.launch.mesh.DeviceMesh`, which may repeat a device
+(virtual shards: ``DeviceMesh(["cuda:0"] * 4)`` on one card,
+``DeviceMesh(["cpu"] * 4)`` on the CPU).  One process drives every mesh
+device and the output comes back on the first one, bit for bit the
+device path's.
 """
 from __future__ import annotations
 
@@ -64,7 +75,8 @@ from repro_torch.core.passes.partition import PartitionConfig
 from repro_torch.obs.tracer import get_tracer
 
 from .cache import LRUCache
-from .executor import BinaryExecutor, ExecStats, stack_graph_data
+from .executor import (BinaryExecutor, ExecStats, ensure_placement,
+                       stack_graph_data)
 from .program import CompiledProgram, from_program
 
 ModelSpec = Union[str, ModelIR]
@@ -88,6 +100,14 @@ def _export_gagi(prog: CompiledProgram) -> None:
                   f"{prog.model_name}-{prog.graph_name}")
     prog.save(os.path.join(
         out, f"{stem}-{prog.cache_key[:8] or 'nokey'}.gagi"))
+
+
+def _mesh_count(mesh) -> Optional[int]:
+    """Device count of the ``mesh`` knob (int, DeviceMesh, or None): what
+    ``compile`` needs for a placement schedule; no device is touched."""
+    if mesh is None:
+        return None
+    return int(mesh) if isinstance(mesh, int) else int(mesh.size)
 
 
 # --------------------------------------------------------------------------- #
@@ -308,7 +328,7 @@ class Engine:
     def compile(self, model: ModelSpec, graph: Graph, *, seed: int = 0,
                 order_opt: bool = True, fusion: bool = True,
                 use_cache: bool = True, residency: Optional[str] = None,
-                verify: Optional[bool] = None,
+                mesh=None, verify: Optional[bool] = None,
                 _key: Optional[str] = None) -> CompiledProgram:
         """Model + graph -> CompiledProgram (through the §6 pipeline).
 
@@ -322,6 +342,13 @@ class Engine:
         one destination shard's working set to the device at a time
         (bit-identical results, bounded device footprint).  The returned
         handle carries the default; the shared cache entry does not.
+
+        ``mesh`` (a device count or a
+        :class:`repro_torch.launch.mesh.DeviceMesh`) records the placement
+        schedule (per-device shard orders and halo sets for that many
+        devices) in the manifest, so it round-trips ``.gagi``; a cache hit
+        gets one too.  A program compiled without it still runs on a
+        mesh: the executor derives the same schedule from the binary.
 
         Live-versioned graphs (a ``repro_torch.livegraph`` handle or a
         version's materialized graph): the cache key is the version's
@@ -339,6 +366,7 @@ class Engine:
             raise ValueError("residency must be 'device' or 'host', "
                              f"got {residency!r}")
         do_verify = self.verify if verify is None else verify
+        n_devices = _mesh_count(mesh)
         lv = _live_version_of(graph)
         if lv is not None:
             graph = lv.as_graph()
@@ -350,6 +378,8 @@ class Engine:
             if cached is not None:
                 tracer.instant("cache_hit", cat="compile",
                                track="compile", args={"key": key[:12]})
+                if n_devices is not None:
+                    ensure_placement(cached, n_devices)
                 if lv is not None:
                     cached = lv.bind(cached)
                     if do_verify:
@@ -372,7 +402,7 @@ class Engine:
                    binary_bytes=len(cr.binary))
         prog = from_program(cr.program, binary=cr.binary, t_loc=cr.t_loc,
                             cache_key=key, graph_name=graph.name,
-                            source=cr)
+                            source=cr, n_devices=n_devices)
         if residency is not None:
             prog = dataclasses.replace(prog, default_residency=residency)
         self.stats.compiles += 1
@@ -458,10 +488,19 @@ class Engine:
         """Record ``y`` (allocated on the engine's stream) on the caller's
         stream, so that its memory is not reused for the engine's next
         pass while work the caller queued on its own stream still reads
-        it."""
-        if caller is not None:
+        it.  (A mesh output on another card than the engine's was made
+        on that card's current stream and synchronized.)"""
+        if caller is not None and y.device == caller.device:
             y.record_stream(caller)
         return y
+
+    def _resolve_mesh(self, mesh):
+        """The ``mesh`` knob as a DeviceMesh: a device count takes the
+        first that many devices of this engine's device type."""
+        if isinstance(mesh, int):
+            from repro_torch.launch.mesh import make_device_mesh
+            return make_device_mesh(mesh, device_type=self.device.type)
+        return mesh
 
     def run(self, prog: CompiledProgram, x,
             weights: Optional[Dict[str, Any]] = None,
@@ -474,12 +513,16 @@ class Engine:
         ``residency="host"`` streams the partition-centric out-of-core
         path (features host-resident, one shard's working set on the
         device at a time); ``"device"`` keeps every padded layer output
-        on the device.  The results are bit-identical; ``None`` uses the
-        program's compile-time default.  ``graph`` (a live-versioned
-        graph or ``repro_torch.livegraph`` handle) rebinds the program to
-        that version's patched tiles before it runs."""
+        on the device.  ``mesh`` (a device count or a ``DeviceMesh`` of
+        this engine's device type) runs the placement-scheduled
+        multi-device path, its output on the first mesh device.  The
+        results are bit-identical; ``None`` uses the program's
+        compile-time default.  ``graph`` (a live-versioned graph or
+        ``repro_torch.livegraph`` handle) rebinds the program to that
+        version's patched tiles before it runs."""
         prog = self._rebind_live(prog, graph)
         residency = residency or prog.default_residency or "device"
+        mesh = self._resolve_mesh(mesh)
         with self._on_stream() as caller:
             y = self._executor.run(prog, x, weights=weights,
                                    graph_data=graph_data,
@@ -504,11 +547,13 @@ class Engine:
         staged shard, so each shard's tile working set ships once per
         batch; the staged window's sub-fiber half then scales with the
         batch).  ``graph_data`` is lane-stacked (:func:`stack_graph_data`)
-        and device-resident only; ``mesh`` (ROADMAP A13) is not ported
-        and raises NotImplementedError.  ``graph`` rebinds to a live
+        and device-resident only.  ``mesh`` as in :meth:`run`: the lanes
+        run as passes of their own, one after another, and ``exec_stats``
+        merge them into one logical pass.  ``graph`` rebinds to a live
         version's tiles, as in :meth:`run`."""
         prog = self._rebind_live(prog, graph)
         residency = residency or prog.default_residency or "device"
+        mesh = self._resolve_mesh(mesh)
         with self._on_stream() as caller:
             ys = self._executor.run_batch(prog, xs, weights=weights,
                                           graph_data=graph_data,

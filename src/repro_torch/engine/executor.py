@@ -6,9 +6,9 @@ manifest and the DDR payload (weights + fiber-shard ELL tiles), exactly as
 ``.gagi`` file (written by either package) executes identically to one
 compiled in-process.
 
-Two execution paths share ONE shard-step abstraction (a per-layer
+Three execution paths share ONE shard-step abstraction (a per-layer
 :class:`_ShardKernel` computing tiles through an operand environment), so
-both run the same ACK kernels on the same values in the same per-tile
+all run the same ACK kernels on the same values in the same per-tile
 order, which is what makes their results bit-identical:
 
 * **device** — every padded layer output lives on the executor's device
@@ -21,12 +21,22 @@ order, which is what makes their results bit-identical:
   a time (:class:`_HostEnv`), the next shard's already in flight on a side
   CUDA stream.  Lanes interleave per staged shard, so a batch ships each
   shard's tiles once.
+* **mesh** (``mesh=``, a :class:`repro_torch.launch.mesh.DeviceMesh`) —
+  the placement-scheduled multi-device path: destination row blocks are
+  assigned to the mesh's devices (the manifest's ``placement`` section,
+  or one derived from the binary), features live block-permuted as one
+  ``[B*n1, f]`` slab per device, and before each AGGREGATE or
+  VECTOR_INNER layer whose halo sets are non-empty every device gets the
+  gathered ``[D, B*n1, f]`` view of all slabs (:meth:`_mesh_exchange`).
+  Each device then runs its own shard order (:class:`_MeshEnv`).  One
+  process drives every device, as in the JAX package; a device may
+  appear more than once in a mesh (virtual shards), which is how the
+  path runs on one card or on the CPU.
 
 On a CUDA device the ACK runs the hand-written GEMM, SpDMM, SDDMM and
 densify kernels; on the CPU it runs plain torch.  A sparsity-remapped
 binary (:mod:`repro_torch.core.passes.remap`) runs its GEMM steps inside
-AGGREGATE layers on the GEMM kernel over densified tiles.  Multi-device
-meshes (ROADMAP A13) are not ported yet and raise ``NotImplementedError``.
+AGGREGATE layers on the GEMM kernel over densified tiles.
 
 Graph-as-data (the sampling layer's mode): ``run`` / ``run_batch`` take
 ``graph_data``, each lane's own topology in the program's canonical ELL
@@ -87,6 +97,7 @@ softmax reads a hole.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -147,8 +158,17 @@ class ExecStats:
     # first use (device mode), every staged working set (host mode).
     h2d_bytes: int = 0
     peak_stage_bytes: int = 0       # double-buffered working set peak
+    # Multi-device placement telemetry (mesh mode).
+    n_devices: int = 1              # mesh size of the last run
+    halo_bytes: int = 0             # compile-time halo exchange volume
+    # Gathered-view volume of the halo exchanges, D * B*n1 * f * 4 bytes
+    # a layer (what JAX's all_gather moves; on one device no byte moves).
+    halo_gather_bytes: int = 0
+    peak_device_bytes: int = 0      # est. per-device resident peak
+    per_device: Optional[List[dict]] = None  # {"device","tile_ops",...}
     # Per-decoded-layer attribution: {"layer","kernel","step","instr_lo",
-    # "instr_hi","wall_s","tile_ops"} (+ "h2d_bytes" in host mode).  In
+    # "instr_hi","wall_s","tile_ops"} (+ "h2d_bytes" in host mode,
+    # "halo_gather_bytes" in mesh mode).  In
     # device mode on a CUDA device ``wall_s`` is the device time between
     # two CUDA events around the layer, read after the run's one final
     # synchronize.  In host mode every shard ends in a synchronize, so a
@@ -180,6 +200,8 @@ class ExecStats:
         self.tiles_skipped += other.tiles_skipped
         self.shards_streamed += other.shards_streamed
         self.h2d_bytes += other.h2d_bytes
+        self.halo_bytes += other.halo_bytes
+        self.halo_gather_bytes += other.halo_gather_bytes
         if other.tile_ops_by_mode is not None:
             for m, n in other.tile_ops_by_mode.items():
                 self.note_mode(m, n)
@@ -209,10 +231,44 @@ class ExecStats:
                                    other.peak_live_bytes)
         self.peak_stage_bytes = max(self.peak_stage_bytes,
                                     other.peak_stage_bytes)
+        self.n_devices = max(self.n_devices, other.n_devices)
+        self.peak_device_bytes = max(self.peak_device_bytes,
+                                     other.peak_device_bytes)
+        if other.per_device is not None:
+            # MERGE per-device counters (keyed by device index) so the
+            # lifetime total keeps per-device sums across mesh runs.
+            if self.per_device is None:
+                self.per_device = [dict(d) for d in other.per_device]
+            else:
+                by_dev = {d.get("device"): d for d in self.per_device}
+                for od in other.per_device:
+                    mine = by_dev.get(od.get("device"))
+                    if mine is None:
+                        self.per_device.append(dict(od))
+                        continue
+                    for k, v in od.items():
+                        if k in ("device", "blocks"):
+                            mine[k] = v          # identity / geometry
+                        else:
+                            mine[k] = mine.get(k, 0) + v
+                self.per_device.sort(key=lambda d: d.get("device", 0))
+
+    @property
+    def device_imbalance(self) -> float:
+        """max/mean per-device tile ops of the last mesh run (1.0 when
+        single-device or perfectly balanced)."""
+        if not self.per_device:
+            return 1.0
+        loads = [d["tile_ops"] for d in self.per_device]
+        mean = sum(loads) / len(loads)
+        return (max(loads) / mean) if mean > 0 else 1.0
 
 
 def _nbytes(a) -> int:
-    """Bytes of a numpy array or a torch tensor."""
+    """Bytes of a numpy array or a torch tensor, or of a list of them
+    (a mesh value: one slab per device)."""
+    if isinstance(a, (list, tuple)):
+        return sum(_nbytes(x) for x in a)
     if isinstance(a, torch.Tensor):
         return a.numel() * a.element_size()
     return int(a.size) * a.dtype.itemsize
@@ -270,6 +326,39 @@ def derive_residency(plan, lmeta: dict) -> dict:
     return {"last_use": {str(k): int(v)
                          for k, v in sorted(last_use.items())},
             "layers": layers}
+
+
+def derive_placement(plan, residency: dict, geometry: dict,
+                     n_devices: int) -> dict:
+    """Rebuild the placement schedule from the decoded binary — the
+    fallback for ``.gagi`` bundles written before manifests carried a
+    ``placement`` section (or compiled for another mesh size).  It uses
+    the compiler pass's LPT costs (compute instructions per destination
+    row block) and its :func:`build_placement`, so the derived schedule
+    is the one ``placement_schedule`` emits."""
+    from repro_torch.core.passes.schedule import (build_placement,
+                                                  shard_block_costs)
+    costs = shard_block_costs(
+        ([(tp.out_j, len(tp.compute)) for tp in lp.tiles]
+         for lp in plan.layers),
+        int(geometry["n_blocks"]))
+    f_in = {str(lp.layer_id): int(lp.f_in) for lp in plan.layers}
+    return build_placement(residency, costs, n_devices,
+                           int(geometry["n1"]), int(geometry["n2"]), f_in)
+
+
+def ensure_placement(prog: CompiledProgram, n_devices: int) -> dict:
+    """The manifest's placement section for ``n_devices``, derived from
+    the decoded binary when the manifest lacks it (old bundles, or a
+    program compiled for another mesh size).  The derived schedule is
+    attached to the manifest, so a later ``save`` writes it."""
+    pl = prog.manifest.get("placement")
+    if pl is not None and int(pl.get("n_devices", 0)) == int(n_devices):
+        return pl
+    pl = derive_placement(prog.plan(), resolve_residency(prog),
+                          prog.manifest["geometry"], int(n_devices))
+    prog.manifest["placement"] = pl
+    return pl
 
 
 def resolve_residency(prog: CompiledProgram) -> dict:
@@ -334,8 +423,17 @@ _shares: Dict[Any, _TileShare] = {}
 _shares_lock = threading.Lock()
 
 
+def _dev_key(device) -> str:
+    """A device's name with its index (``cuda`` is the current CUDA
+    device), so that ``cuda`` and ``cuda:0`` key one staging and share."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
 def _tile_share(where) -> _TileShare:
-    """The share of a device (``str(device)``) or a pinning mode."""
+    """The share of a device (:func:`_dev_key`) or a pinning mode."""
     with _shares_lock:
         got = _shares.get(where)
         if got is None:
@@ -372,11 +470,18 @@ class _Staged(_Holder):
 
     ``uploaded`` counts the bytes of ELL tiles and inverse in-degree this
     graph copied to the device (shared tiles excluded), ``params_uploaded``
-    those of the padded weights."""
+    those of the padded weights.
 
-    def __init__(self, pg, device: torch.device) -> None:
-        super().__init__(_tile_share(str(device)))
+    ``blocks`` (a mesh device's destination row blocks) restricts the
+    tiles to those rows: a mesh device stages only the tiles of the
+    blocks it owns.  The virtual shards of one device share its copies
+    through the device's :class:`_TileShare`."""
+
+    def __init__(self, pg, device: torch.device,
+                 blocks: Optional[Tuple[int, ...]] = None) -> None:
+        super().__init__(_tile_share(_dev_key(device)))
         self.pg, self.device = pg, device
+        self.blocks = None if blocks is None else tuple(blocks)
         self.uploaded = 0
         self.params_uploaded = 0
         self._tiles: Dict[str, Dict[Tuple[int, int, int], torch.Tensor]] = {}
@@ -404,9 +509,10 @@ class _Staged(_Holder):
         kinds = set(other.kinds()) | other._reserved
         self._reserved |= kinds
         for kind in sorted(kinds):
-            for ts in self.pg.tiles.values():
-                for t in ts:
-                    self._shared((kind,), [t])
+            for (j, _), ts in self.pg.tiles.items():
+                if self.blocks is None or j in self.blocks:
+                    for t in ts:
+                        self._shared((kind,), [t])
 
     def tiles(self, kind: str) -> Dict[Tuple[int, int, int], torch.Tensor]:
         """``kind`` in cols (int32) / vals (f32) / mask (bool) / row_len
@@ -425,6 +531,8 @@ class _Staged(_Holder):
     def _upload(self, kind: str) -> Dict[Tuple[int, int, int], torch.Tensor]:
         out = {}
         for (j, k), ts in self.pg.tiles.items():
+            if self.blocks is not None and j not in self.blocks:
+                continue
             for s, t in enumerate(ts):
                 out[(j, k, s)] = self._shared(
                     (kind,), [t], lambda j=j, k=k, s=s: self._upload_one(
@@ -642,12 +750,17 @@ class _LaneTiles:
 _staged_lock = threading.Lock()
 
 
-def _staged(pg, device: torch.device) -> _Staged:
+def _staged(pg, device: torch.device,
+            blocks: Optional[Tuple[int, ...]] = None) -> _Staged:
+    """The staging of ``pg`` on ``device`` (restricted to the row
+    ``blocks`` a mesh device owns, when given)."""
+    key = (_dev_key(device) if blocks is None
+           else (_dev_key(device), tuple(blocks)))
     with _staged_lock:
         cache = pg.__dict__.setdefault("_staged", {})
-        st = cache.get(str(device))
+        st = cache.get(key)
         if st is None:
-            st = cache[str(device)] = _Staged(pg, device)
+            st = cache[key] = _Staged(pg, device, blocks)
         return st
 
 
@@ -661,7 +774,7 @@ def inherit_staging(pg, parent) -> None:
         devs = list(parent.__dict__.get("_staged", {}).values())
         hosts = list(parent.__dict__.get("_host_tiles", {}).values())
     for st in devs:
-        _staged(pg, st.device).reserve(st)
+        _staged(pg, st.device, st.blocks).reserve(st)
     for ht in hosts:
         _host_tiles(pg, ht.pin).reserve(ht)
 
@@ -932,6 +1045,62 @@ class _HostEnv:
 
     def inv_deg_tile(self, j: int) -> List[torch.Tensor]:
         return [self.staged[("deg",)]] * self.lanes
+
+
+class _MeshEnv:
+    """Multi-device path, one mesh device ``d`` (one lane): operands are
+    the device's placement slabs ``[B*n1, f]`` (B = row blocks a device),
+    plus, for a layer with a non-empty halo, the gathered view (the D
+    devices' slabs, all on device d).  Block k lives at ``place[k] =
+    (device, slot)``: rows ``slot*n1 .. (slot+1)*n1`` of that device's
+    slab, so a tile is a view of a slab with the same row stride as the
+    device path's padded tensor.  ELL tiles come from the device's own
+    staging (``st``, restricted to the blocks it owns)."""
+
+    gd = None                           # no graph-as-data on this path
+    lanes = 1
+
+    def __init__(self, pg, st: _Staged, place: Dict[int, Tuple[int, int]],
+                 h=None, gathered=None, a=None, b=None, ew=None) -> None:
+        self.pg, self.st, self.place = pg, st, place
+        self.n1, self.n2 = pg.config.n1, pg.config.n2
+        self.h, self.gathered, self.a, self.b = h, gathered, a, b
+        self.ew = ew                    # this device's [E] edge vector
+        self._h_tiles: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def _rows(self, k: int) -> slice:
+        slot = self.place[k][1]
+        return slice(slot * self.n1, (slot + 1) * self.n1)
+
+    def h_tile(self, n: int, k: int, i: int) -> torch.Tensor:
+        t = self._h_tiles.get((k, i))
+        if t is None:
+            src = (self.h if self.gathered is None
+                   else self.gathered[self.place[k][0]])
+            t = self._h_tiles[(k, i)] = \
+                src[self._rows(k), i * self.n2:(i + 1) * self.n2]
+        return t
+
+    def operand_tile(self, which: str, n: int, j: int,
+                     i: int) -> torch.Tensor:
+        arr = self.a if which == "a" else self.b
+        return arr[self._rows(j), i * self.n2:(i + 1) * self.n2]
+
+    def tiles(self, kind: str, j: int, k: int, s: int
+              ) -> List[torch.Tensor]:
+        return [self.st.tiles(kind)[(j, k, s)]]
+
+    def live(self, j: int, k: int, s: int):
+        return [(self.st.tiles("live_pos")[(j, k, s)],
+                 self.st.tiles("live_epos")[(j, k, s)])]
+
+    def edge_weight_tiles(self, j: int, k: int, s: int) -> List[torch.Tensor]:
+        shape = self.pg.tiles[(j, k)][s].cols.shape
+        (pos, epos), = self.live(j, k, s)
+        return [_from_live(self.ew, pos, epos, shape)]
+
+    def inv_deg_tile(self, j: int) -> List[torch.Tensor]:
+        return [self.st.inv_deg[j * self.n1:(j + 1) * self.n1]]
 
 
 def _place(v: torch.Tensor, pos: torch.Tensor, shape) -> torch.Tensor:
@@ -1382,14 +1551,39 @@ class _LayerClock:
         return v
 
 
-def _check_paths(residency: str, graph_data, mesh) -> None:
+def _on_device(dev: torch.device):
+    """Make ``dev`` the current CUDA device while open (a kernel is
+    launched on the current device's context); nothing on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _mesh_devices(mesh) -> List[torch.device]:
+    """The ordered devices of a ``DeviceMesh``."""
+    return [torch.device(d) for d in mesh.devices]
+
+
+def _check_paths(residency: str, graph_data, mesh,
+                 device: torch.device) -> None:
     """Refuse an execution path the executor does not run."""
     if residency not in ("device", "host"):
         raise ValueError("residency must be 'device' or 'host', "
                          f"got {residency!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device mesh execution is not ported yet (ROADMAP A13)")
+        if graph_data is not None:
+            raise ValueError(
+                "graph-as-data execution is device-resident only "
+                "(bucketed subgraphs are small by construction)")
+        if residency == "host":
+            raise ValueError(
+                "mesh execution already places shards across devices; "
+                "residency='host' does not compose with it")
+        devs = _mesh_devices(mesh)
+        if not devs or any(d.type != device.type for d in devs):
+            raise ValueError(
+                f"mesh devices {[str(d) for d in devs]} are not all of "
+                f"this executor's device type {device.type!r}")
     if residency == "host" and graph_data is not None:
         raise ValueError(
             "graph-as-data execution is device-resident only "
@@ -1732,7 +1926,7 @@ class BinaryExecutor:
         if x.dim() != 2:
             raise ValueError(f"run expects [V, F] features, got shape "
                              f"{tuple(x.shape)}")
-        _check_paths(residency, graph_data, mesh)
+        _check_paths(residency, graph_data, mesh, self.device)
         if graph_data is not None:
             graph_data = stack_graph_data([graph_data], 1)
         return self.run_batch(prog, x[None], weights=weights,
@@ -1753,13 +1947,27 @@ class BinaryExecutor:
         each lane its own tiles in the program's layout; it is checked
         before any launch and runs device-resident only.
         On a CUDA device the pass ends by synchronizing the current stream
-        (which is when the per-layer CUDA-event times are read)."""
-        _check_paths(residency, graph_data, mesh)
+        (which is when the per-layer CUDA-event times are read).
+
+        ``mesh`` (a :class:`repro_torch.launch.mesh.DeviceMesh` of this
+        executor's device type) runs the placement-scheduled multi-device
+        path (:meth:`_run_mesh`); its lanes run one after another, each a
+        pass of its own, and ``stats`` merge them into one logical pass."""
+        _check_paths(residency, graph_data, mesh, self.device)
         xs = torch.as_tensor(xs, dtype=torch.float32)
         if xs.dim() != 3:
             raise ValueError(
                 "run_batch expects stacked [N, V, F] features, got shape "
                 f"{tuple(xs.shape)}")
+        if mesh is not None:
+            batch = ExecStats()
+            ys = []
+            for n in range(int(xs.shape[0])):
+                ys.append(self._run_mesh(prog, xs[n], weights, mesh))
+                batch.add(self.stats)
+            batch.runs = 1              # one logical batched pass
+            self.stats = batch
+            return torch.stack(ys)
         if residency == "host":
             # Streaming trades latency for footprint: the lanes stream
             # TOGETHER, interleaved per staged shard, so each shard's
@@ -1944,16 +2152,18 @@ class BinaryExecutor:
         return [e / den[:, None] for e in exps]
 
     def _edge_softmax(self, pg, st: _Staged, ew_in,
-                      gd: Optional[_LaneTiles] = None) -> torch.Tensor:
+                      gd: Optional[_LaneTiles] = None,
+                      blocks: Optional[List[int]] = None) -> torch.Tensor:
         """EDGE_SOFTMAX of every lane's [E] scores in the two-pass tile
         scheme (max/sum accumulated per destination row across a shard's
         tiles, the Activation Unit's exp/divide applied per tile); one
-        tile op per tile and traversal."""
+        tile op per tile and traversal.  ``blocks`` restricts it to those
+        destination rows (a mesh device's own; the others stay 0)."""
         lanes = ew_in.shape[0]
         env = _DeviceEnv(pg, st, lanes, gd=gd)
         ew = torch.zeros((lanes, pg.n_edges), dtype=torch.float32,
-                         device=self.device)
-        for j in range(pg.n_blocks):
+                         device=st.device)
+        for j in (range(pg.n_blocks) if blocks is None else blocks):
             row_tiles = _row_tiles(pg, j)
             if not row_tiles:
                 continue
@@ -1978,6 +2188,327 @@ class BinaryExecutor:
         self.stats.tile_ops += len(lp.tiles)
         return torch.stack([apply_activation(ew_in[n], act)
                             for n in range(ew_in.shape[0])])
+
+    # ------------------------------------------------------------------ #
+    # Multi-device placement execution.
+    #
+    # The placement schedule assigns destination row blocks to the mesh's
+    # devices; each layer's output lives block-permuted as one [B*n1, f]
+    # slab per device (B = the most blocks a device owns; a device that
+    # owns fewer has zero rows at its last slots, which no block maps
+    # to).  Each layer: (1) if its halo sets are non-empty (AGGREGATE and
+    # VECTOR_INNER layers read other devices' blocks), the parent slabs
+    # are exchanged: every device gets the D slabs on itself
+    # (:meth:`_mesh_exchange`); (2) every device runs ITS OWN shard order
+    # through the same shard kernels and hand kernels as the device path,
+    # on views with the same row stride.  Each output tile sees the same
+    # kernel, the same operand values and the same within-tile order as on
+    # the device path (only the order of whole blocks changes), so the
+    # result is bit-identical to it.  One process issues every device's
+    # work in turn, lane after lane.
+    # ------------------------------------------------------------------ #
+    def _mesh_exchange(self, slabs: List[torch.Tensor],
+                       devs: List[torch.device], layer: int,
+                       est_bytes: int):
+        """Halo exchange: for each device, the D devices' slabs on that
+        device (``Tensor.to``: a peer copy between distinct cards, none
+        within one device), built once per distinct device.  Returns (the
+        gathered view of every mesh device, its pending ``halo_exchange``
+        span).  The span carries the gathered volume ``bytes`` (D * B*n1 *
+        f * 4, JAX's all_gather), ``copied_bytes`` (what crossed between
+        distinct devices) and the compile-time targeted-halo estimate
+        ``est_bytes``; on CUDA, when tracing is on, the copies' device
+        time is added as ``copy_us`` once the run has synchronized."""
+        D = len(slabs)
+        rows, width = int(slabs[0].shape[0]), int(slabs[0].shape[1])
+        t0 = time.perf_counter_ns()
+        timed = get_tracer().enabled and devs[0].type == "cuda"
+        views: Dict[str, List[torch.Tensor]] = {}
+        events, copied = [], 0
+        for dev in devs:
+            if str(dev) in views:
+                continue
+            with _on_device(dev):
+                start = torch.cuda.Event(enable_timing=True) if timed \
+                    else None
+                if start is not None:
+                    start.record()
+                views[str(dev)] = [s.to(dev, non_blocking=True)
+                                   for s in slabs]
+                if start is not None:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    events.append((start, end))
+            copied += sum(_nbytes(s) for s in slabs if s.device != dev)
+        span = (t0, time.perf_counter_ns(),
+                {"devices": D, "bytes": D * rows * width * 4,
+                 "copied_bytes": copied, "layer": layer,
+                 "est_bytes": est_bytes}, events)
+        return [views[str(dev)] for dev in devs], span
+
+    @staticmethod
+    def _halo_done(span) -> None:
+        """Emit a ``halo_exchange`` span from :meth:`_mesh_exchange`, with
+        its copies' device time when they were timed (after the run's
+        synchronize)."""
+        t0, t1, args, events = span
+        if events:
+            args["copy_us"] = sum(a.elapsed_time(b) for a, b in events) * 1e3
+        get_tracer().complete("halo_exchange", t0, t1, cat="comm",
+                              args=args, track="halo")
+
+    def _run_mesh(self, prog: CompiledProgram, x: torch.Tensor,
+                  weights: Optional[Dict[str, Any]], mesh) -> torch.Tensor:
+        """One lane ``x`` ([V, F]) through the placement-scheduled path on
+        the mesh's devices; returns the sink's [V, f_out] output on the
+        first mesh device."""
+        devs = _mesh_devices(mesh)
+        D = len(devs)
+        tracer = get_tracer()
+        self._begin_profile()
+        pl = ensure_placement(prog, D)
+        with tracer.span("decode", cat="exec", track="exec:dev0",
+                         args={"cached": prog._plan is not None,
+                               "devices": D}):
+            plan = prog.plan()
+        man = prog.manifest
+        pg = prog.pgraph
+        last_use = {int(k): v for k, v in
+                    resolve_residency(prog)["last_use"].items()}
+        wts = weights if weights is not None else prog.weights
+        lmeta = man["layers"]
+        n1, n2, nb = pg.config.n1, pg.config.n2, pg.n_blocks
+        nv = pg.n_vertices
+        sink = man["sink"]
+
+        owned: List[List[int]] = [[] for _ in range(D)]
+        for j, d in enumerate(pl["assignment"]):
+            owned[int(d)].append(j)
+        B = max(1, max(len(o) for o in owned))
+        place = {j: (d, s) for d in range(D)
+                 for s, j in enumerate(owned[d])}
+        # Each device's staging holds the tiles of its own blocks; the
+        # first staging on a device also holds the padded weights, which
+        # the virtual shards of that device share.
+        sts = [_staged(pg, dev, tuple(owned[d]))
+               for d, dev in enumerate(devs)]
+        param_st: Dict[str, _Staged] = {}
+        for dev, st in zip(devs, sts):
+            param_st.setdefault(str(dev), st)
+        stagings = list({id(st): st for st in sts}.values())
+        up0 = sum(st.uploaded + st.params_uploaded for st in stagings)
+        one_device = len({str(dev) for dev in devs}) == 1
+        # Per-layer times: CUDA events when every shard is on one card
+        # (one stream holds all the work), host issue time otherwise.
+        clock = _LayerClock(devs[0] if one_device else torch.device("cpu"))
+
+        fin_pad0 = ((max(plan.layers[0].f_in, 1) + n2 - 1) // n2) * n2
+        xw = max(fin_pad0, ((x.shape[1] + n2 - 1) // n2) * n2)
+        x_slabs: Optional[List[torch.Tensor]] = []
+        for d, dev in enumerate(devs):
+            slab = torch.zeros((B * n1, xw), dtype=torch.float32,
+                               device=dev)
+            for s, j in enumerate(owned[d]):
+                blk = x[j * n1:(j + 1) * n1]
+                slab[s * n1:s * n1 + blk.shape[0], : blk.shape[1]] = \
+                    blk.to(dev)
+            x_slabs.append(slab)
+
+        self.stats = ExecStats(runs=1, n_devices=D)
+        self._note_skips(prog)
+        per_dev = [{"device": d, "tile_ops": 0, "shards": 0,
+                    "halo_bytes": 0, "blocks": len(owned[d])}
+                   for d in range(D)]
+        peak_dev = 0
+        halo_spans = []
+        vals: Dict[int, List[torch.Tensor]] = {}       # layer -> slabs
+        edge_vals: Dict[int, List[torch.Tensor]] = {}  # layer -> [E] each
+
+        for t, lp in enumerate(plan.layers):
+            meta = lmeta[str(lp.layer_id)]
+            self.stats.layers += 1
+            ewl = meta.get("edge_weight_layer")
+            feat_parents = [p for p in meta["parents"] if p != ewl]
+            lt = lp.layer_type
+            pll = pl["layers"][str(lp.layer_id)]
+            gath_bytes = 0
+            t0 = clock.start()
+            ops0 = self.stats.tile_ops
+
+            if lt in (LayerType.ACTIVATION, LayerType.BATCHNORM) \
+                    and lp.on_edges:
+                edge_vals[lp.layer_id] = self._mesh_edge_act(
+                    lp, pg, sts, edge_vals[feat_parents[0]], owned,
+                    per_dev, t)
+            else:
+                by_j: Dict[int, List[TilePlan]] = {}
+                for tp in self._block_order(lp):
+                    by_j.setdefault(tp.out_j, []).append(tp)
+                parents = (vals.get(feat_parents[0], x_slabs)
+                           if feat_parents else x_slabs)
+                gathered = None
+                if lt in (LayerType.AGGREGATE, LayerType.VECTOR_INNER) \
+                        and any(pll["halo"][str(d)] for d in range(D)):
+                    est = sum(pll["halo_bytes"].get(str(d), 0)
+                              for d in range(D))
+                    gathered, hspan = self._mesh_exchange(
+                        parents, devs, int(lp.layer_id), est)
+                    halo_spans.append(hspan)
+                    gath_bytes = hspan[2]["bytes"]
+                    self.stats.halo_gather_bytes += gath_bytes
+                    for d in range(D):
+                        per_dev[d]["halo_bytes"] += \
+                            pll["halo_bytes"].get(str(d), 0)
+                if lt == LayerType.VECTOR_ADD:
+                    a_id, b_id = meta["operands"]
+                    ops_a = x_slabs if a_id == -1 else vals[a_id]
+                    ops_b = x_slabs if b_id == -1 else vals[b_id]
+                else:
+                    ops_a = ops_b = None
+                kerns: Dict[str, _ShardKernel] = {}
+                outs: List[torch.Tensor] = []
+                for d, dev in enumerate(devs):
+                    before = self.stats.tile_ops
+                    dspan = tracer.span(
+                        f"layer{lp.layer_id}", cat="exec",
+                        track=f"exec:dev{d}",
+                        args={"type": LayerType(lt).name,
+                              "kernel": _KERNEL_MODES[lt], "step": t,
+                              "instr_lo": lp.instr_lo,
+                              "instr_hi": lp.instr_hi})
+                    kern = kerns.get(str(dev))
+                    if kern is None:
+                        kern = kerns[str(dev)] = self._make_kernel(
+                            lp, meta, pg, wts, param_st[str(dev)])
+                    env = _MeshEnv(
+                        pg, sts[d], place, h=parents[d],
+                        gathered=gathered[d] if gathered else None,
+                        a=ops_a[d] if ops_a is not None else None,
+                        b=ops_b[d] if ops_b is not None else None,
+                        ew=edge_vals[ewl][d] if ewl is not None else None)
+                    order = [j for j in pll["order"][str(d)] if j in by_j]
+                    seen = set(order)
+                    order += [j for j in owned[d]
+                              if j in by_j and j not in seen]
+                    io = ({} if ops_a is None else
+                          {"a": ops_a[d][None], "b": ops_b[d][None]})
+                    with _on_device(dev):
+                        outs.append(self._mesh_layer(
+                            kern, env, by_j, order, owned[d], B, io))
+                    per_dev[d]["shards"] += len(order)
+                    per_dev[d]["tile_ops"] += self.stats.tile_ops - before
+                    dspan.add(tile_ops=self.stats.tile_ops - before).done()
+                if kern.edge_valued:
+                    edge_vals[lp.layer_id] = outs
+                else:
+                    vals[lp.layer_id] = outs
+            self.stats.note_layer(
+                layer=int(lp.layer_id), kernel=_KERNEL_MODES[lt],
+                step=t, instr_lo=lp.instr_lo, instr_hi=lp.instr_hi,
+                wall_s=clock.stop(t0),
+                tile_ops=self.stats.tile_ops - ops0,
+                halo_gather_bytes=gath_bytes)
+            live = sum(_nbytes(a) for dd in (vals, edge_vals)
+                       for a in dd.values())
+            peak_dev = max(peak_dev, live // D + gath_bytes)
+            self._watermark("alloc", lp.layer_id, vals, edge_vals)
+            self._free_dead(t, sink, last_use, vals, edge_vals)
+            if last_use.get(-1, -1) == t:
+                x_slabs = None          # the input's last consumer has run
+
+        # The sink, gathered back in block order on the first device.
+        first = devs[0]
+        sink_slabs = vals[sink]
+        out = torch.empty((nb * n1, int(sink_slabs[0].shape[1])),
+                          dtype=torch.float32, device=first)
+        for j in range(nb):
+            d, s = place[j]
+            out[j * n1:(j + 1) * n1] = \
+                sink_slabs[d][s * n1:(s + 1) * n1].to(first)
+        if first.type == "cuda":
+            for dev in {str(dev): dev for dev in devs}.values():
+                torch.cuda.current_stream(dev).synchronize()
+        for rec in self.stats.per_layer or []:
+            rec["wall_s"] = _LayerClock.seconds(rec["wall_s"])
+        for hspan in halo_spans:
+            self._halo_done(hspan)
+        self.stats.per_device = per_dev
+        self.stats.halo_bytes = sum(d["halo_bytes"] for d in per_dev)
+        self.stats.peak_device_bytes = peak_dev
+        self.stats.h2d_bytes = sum(st.uploaded + st.params_uploaded
+                                   for st in stagings) - up0
+        self._flush_profile(prog)
+        self.total.add(self.stats)
+        return out[:nv, : man["sink_f_out"]]
+
+    def _mesh_layer(self, kern: _ShardKernel, env: _MeshEnv, by_j, order,
+                    owned: List[int], B: int, io: dict) -> torch.Tensor:
+        """One device's part of a layer: its shards in ``order``, into a
+        fresh slab ``[B*n1, w]`` (a feature layer; ``io`` holds a vector
+        add's operands, which size it) or [E] edge vector (an edge-valued
+        layer, each tile's scores scattered to the edge ids of its live
+        slots)."""
+        pg, st, n1, n2 = env.pg, env.st, env.n1, env.n2
+        if kern.edge_valued:
+            ew = torch.zeros((pg.n_edges,), dtype=torch.float32,
+                             device=st.device)
+            for j in order:
+                for tp in by_j[j]:
+                    self._profile_tile(kern, tp)
+                    acc, = kern.tile(tp, env)
+                    (pos, epos), = env.live(tp.out_j, tp.tile_k,
+                                            tp.slice_id)
+                    ew[epos] = acc.reshape(-1)[pos]
+            if kern.softmax:
+                ew = self._edge_softmax(pg, st, ew[None], blocks=owned)[0]
+            return ew
+        out = torch.empty((B * n1, kern.out_width(io)), dtype=torch.float32,
+                          device=st.device)
+        for s in range(B):
+            if s >= len(owned) or owned[s] not in by_j:
+                out[s * n1:(s + 1) * n1].zero_()
+        for j in order:
+            rows = env._rows(j)
+            for tp in by_j[j]:
+                self._profile_tile(kern, tp)
+                v, = kern.tile(tp, env)
+                out[rows, tp.out_i * n2:(tp.out_i + 1) * n2] = v
+        return out
+
+    def _mesh_edge_act(self, lp, pg, sts: List[_Staged],
+                       ew_slabs: List[torch.Tensor], owned, per_dev,
+                       step: int) -> List[torch.Tensor]:
+        """Edge activations on the devices' [E] score vectors.  Softmax
+        rows are destination-local under the placement (a row's tiles
+        live with the device that owns the row block), so each device
+        normalizes its own rows with the device path's row math and no
+        exchange is needed."""
+        act = Activation(lp.mode)
+        outs = []
+        for d, ew_in in enumerate(ew_slabs):
+            before = self.stats.tile_ops
+            span = get_tracer().span(
+                f"layer{lp.layer_id}", cat="exec", track=f"exec:dev{d}",
+                args={"type": LayerType(lp.layer_type).name,
+                      "kernel": _KERNEL_MODES[lp.layer_type],
+                      "step": step, "instr_lo": lp.instr_lo,
+                      "instr_hi": lp.instr_hi})
+            with _on_device(sts[d].device):
+                if act == Activation.EDGE_SOFTMAX:
+                    rows = [j for j in owned[d] if _row_tiles(pg, j)]
+                    outs.append(self._edge_softmax(
+                        pg, sts[d], ew_in[None], blocks=rows)[0])
+                    per_dev[d]["shards"] += len(rows)
+                else:
+                    # One op per tile, credited to the tile's owning
+                    # device, so the per-device ops sum to the pass's.
+                    mine = set(owned[d])
+                    self.stats.tile_ops += sum(1 for tp in lp.tiles
+                                               if tp.out_j in mine)
+                    outs.append(apply_activation(ew_in, act))
+            per_dev[d]["tile_ops"] += self.stats.tile_ops - before
+            span.add(tile_ops=self.stats.tile_ops - before).done()
+        return outs
 
     # ------------------------------------------------------------------ #
     # Partition-centric out-of-core execution (paper §6.5, Alg. 6-8).

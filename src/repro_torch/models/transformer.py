@@ -8,9 +8,10 @@ the superblock).  Weights carried from JAX are unstacked by
 ``repro_torch.convert.lm_params_from_arrays``.
 
 Ported: ``gqa`` attention (full, causal; with or without qk_norm) with a
-``dense`` SwiGLU FFN, and a head tied to the embedding.  Any other block
-kind, a sliding window and an untied head raise NotImplementedError
-naming their ROADMAP item.  ``cfg.remat`` (activation
+``dense`` SwiGLU FFN, and an LM head tied to the embedding (logits ``x @
+embed.T``) or untied (a ``head`` weight [d_model, vocab], logits ``x @
+head``).  Any other block kind and a sliding window raise
+NotImplementedError naming their ROADMAP item.  ``cfg.remat`` (activation
 checkpointing for the backward pass) has no meaning at inference and is
 ignored.  Parameters are created with ``requires_grad=False``: the port
 has no train step yet.
@@ -185,10 +186,6 @@ class DecoderLM(nn.Module):
             raise NotImplementedError(
                 "encoder-decoder models (whisper) are not ported to "
                 "repro_torch yet (ROADMAP A15)")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError(
-                "an untied LM head (granite-8b) is not ported to "
-                "repro_torch yet (ROADMAP A15)")
         self.cfg = cfg
         self.specs = layer_specs(cfg)
         for spec in self.specs:
@@ -200,6 +197,11 @@ class DecoderLM(nn.Module):
         self.embed = _frozen(dense_init(gen, cfg.vocab, d, dt, std=0.02,
                                         device=device))
         self.final_norm = _frozen(torch.zeros(d, dtype=dt, device=device))
+        # JAX draws the untied head right after the embedding, with the
+        # default d_model ** -0.5 scale.
+        self.head = (None if cfg.tie_embeddings else
+                     _frozen(dense_init(gen, d, cfg.vocab, dt,
+                                        device=device)))
         self.layers = nn.ModuleList(Block(cfg, gen, device)
                                     for _ in self.specs)
 
@@ -221,7 +223,9 @@ class DecoderLM(nn.Module):
                                             device=x.device)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.embed.t())          # tied head
+        if self.head is None:
+            return torch.matmul(x, self.embed.t())      # tied head
+        return torch.matmul(x, self.head)
 
     # -- decode --------------------------------------------------------- #
     def init_cache(self, batch: int, seq_len: int

@@ -15,13 +15,19 @@ port's executor, plus parity with the JAX package:
     summaries, ``fit_stage_bw`` and the attribution table agree on one
     JAX-shaped trace; the trajectory copy agrees on the same documents;
   * the host path's ``stage`` events carry bytes and a duration, and
-    ``fit_stage_bw`` prefers the copies' device time (``copy_us``).
+    ``fit_stage_bw`` prefers the copies' device time (``copy_us``);
+  * a mesh run's halo section: none at one device in either package, and
+    at four virtual CPU shards equal to that of JAX's own 4-device run (a
+    subprocess with forced host devices); the attribution table's halo
+    column reads the port's ``halo_exchange`` spans as JAX's does.
 """
 import copy
 import dataclasses
 import glob
 import json
 import os
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -443,3 +449,57 @@ def test_remap_takes_a_report_of_the_port():
     np.testing.assert_allclose(eng.run(rp, x).numpy(),
                                eng.run(prog, x).numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# The mesh path's halo section.
+# --------------------------------------------------------------------------- #
+_JAX_HALO = r"""
+import json, sys
+import jax, jax.numpy as jnp
+sys.path.insert(0, sys.argv[1])
+from repro.core import graph as G
+from repro.core.passes.partition import PartitionConfig
+from repro.engine import Engine
+from repro.obs import build_report
+assert jax.device_count() == 4, jax.device_count()
+g = G.random_graph(150, 600, seed=0).gcn_normalized()
+g.feat_dim, g.n_classes = 8, 3
+eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4, verify=False)
+prog = eng.compile("b1", g, use_cache=False)
+eng.run(prog, jnp.asarray(G.random_features(g, seed=1)), mesh=4)
+print(json.dumps(build_report(prog, eng.exec_stats).halo))
+"""
+
+
+def test_mesh_halo_section_equals_jax():
+    from repro_torch.launch.mesh import DeviceMesh
+    gt, gj = _g(nv=150, ne=600), _g(nv=150, ne=600, pkg=JG)
+    x = G.random_features(gt, seed=1)
+    eng, je = _engine(), _jengine()
+    tprog, jprog = _compiled(eng, "b1", gt), _compiled(je, "b1", gj)
+    # One device: nothing crosses, no halo section in either package.
+    eng.run(tprog, x, mesh=DeviceMesh(["cpu"]))
+    je.run(jprog, jnp.asarray(x), mesh=1)
+    assert build_report(tprog, eng.exec_stats).halo is None
+    assert JO.build_report(jprog, je.exec_stats).halo is None
+    # Four virtual shards: the halo section of JAX's 4-device run.
+    with tracing() as t:
+        eng.run(tprog, x, mesh=DeviceMesh(["cpu"] * 4))
+    mine = build_report(tprog, eng.exec_stats, events=t.events())
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    r = subprocess.run([sys.executable, "-c", _JAX_HALO,
+                        os.path.join(ROOT, "src")], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    want = json.loads(r.stdout.strip().splitlines()[-1])
+    assert mine.halo == want and want["gathered_bytes"] > 0
+    assert mine.halo == JO.build_report(jprog, eng.exec_stats).halo
+    # The attribution table's halo column, from the port's trace.
+    trace = t.to_dict()
+    rows = attribution_table(trace)
+    assert rows == JO.attribution_table(trace)
+    halo_rows = [r for r in rows if r["halo_bytes"] > 0]
+    assert {r["track"] for r in halo_rows} == {
+        f"exec:dev{d}" for d in range(4)}

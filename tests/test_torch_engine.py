@@ -335,8 +335,14 @@ def test_unported_paths_raise(tmp_path):
     x = TG.random_features(gt, seed=1)
     eng = _engine()
     prog = eng.compile("b1", gt)
-    with pytest.raises(NotImplementedError, match="A13"):
-        eng.run(prog, x, mesh=2)
+    # The mesh path is ported (tests/test_torch_placement.py): virtual
+    # shards of the CPU give the device path's bits, and what does not
+    # compose with it is refused as in JAX.
+    from repro_torch.launch.mesh import DeviceMesh
+    assert torch.equal(eng.run(prog, x, mesh=DeviceMesh(["cpu"] * 2)),
+                       eng.run(prog, x))
+    with pytest.raises(ValueError, match="does not compose"):
+        eng.run(prog, x, mesh=DeviceMesh(["cpu"] * 2), residency="host")
     # Graph-as-data is ported (tests/test_torch_sampling.py): a
     # structure that does not match the program's layout is refused
     # before any launch, and it runs device-resident only, as in JAX.
@@ -439,6 +445,12 @@ def test_port_imports_neither_jax_nor_repro():
         " seed=5)))\n"
         "assert r.graph_name.endswith('@v1') and r.output.shape == (60, 3)\n"
         "assert verify(veng.compile('b1', live)).ok\n"
+        "from repro_torch.launch.mesh import DeviceMesh\n"
+        "y = veng.run(veng.compile('b1', live, mesh=2), G.random_features(g,"
+        " seed=5), mesh=DeviceMesh(['cpu'] * 2))\n"
+        "assert y.shape == (60, 3)\n"
+        "from repro_torch.configs import get_config\n"
+        "assert get_config('granite-8b').n_layers == 36\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"

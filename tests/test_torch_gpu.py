@@ -1,8 +1,9 @@
 """The port on a CUDA device: hand kernels against their plain versions,
 the Engine against the float64 reference, a batched lane against the
 same request run alone, the LM prefill through the flash kernel against
-the same model with plain attention, and live-graph versions against a
-cold compile (with the bytes a delta uploads and a reclaim frees).
+the same model with plain attention, live-graph versions against a cold
+compile (with the bytes a delta uploads and a reclaim frees), and the
+mesh path on virtual shards of the card against the device path.
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -520,6 +521,50 @@ def test_cuda_host_path_equals_device(cuda, which):
         TB.build(ref_model, g) if isinstance(ref_model, str) else ref_model,
         g, torch.as_tensor(xs[1], device=cuda), dtype=torch.float64),
         rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("which", ["b1", "gat-dot"])
+def test_cuda_mesh_virtual_shards_equal_device(cuda, which, d):
+    """D virtual shards of one card (``DeviceMesh([cuda:0] * D)``): the
+    device path's bits, every tile op on the hand kernels (launches equal
+    to the pass's tile ops of each mode), the per-device ops summing to
+    the device path's, and a batch of lanes equal to solo runs."""
+    from repro_torch.engine.executor import _staged
+    from repro_torch.launch.mesh import DeviceMesh
+    g = _powerlaw(seed=6)
+    model = "b1" if which == "b1" else build_gat_dot(TB, g, hidden=16)
+    eng = Engine(geometry=PartitionConfig(n1=32, n2=8), n_pes=4)
+    prog = eng.compile(model, g, mesh=d)
+    x = TG.random_features(g, seed=3)
+    want = eng.run(prog, x)
+    # The shards of cuda:0 share the tile copies the engine's "cuda"
+    # staging made: each uploads its inverse in-degree only.
+    inv = _staged(prog.pgraph, eng.device).inv_deg.numel() * 4
+    dev_ops = eng.exec_stats.tile_ops
+    mesh = DeviceMesh([torch.device("cuda", 0)] * d)
+    ops.reset_launches()
+    got = eng.run(prog, x, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    st = eng.exec_stats
+    assert got.device == torch.device("cuda", 0)
+    assert torch.equal(got, want)
+    pl = prog.manifest["placement"]["assignment"]
+    for k in range(d):
+        own = tuple(j for j, a in enumerate(pl) if a == k)
+        assert _staged(prog.pgraph, mesh.devices[k], own).uploaded == inv
+    modes = st.tile_ops_by_mode
+    assert launches["gemm"] == modes["gemm"] > 0
+    assert launches["spdmm"] == modes["spdmm"] > 0
+    assert launches["sddmm"] == modes.get("sddmm", 0)
+    assert sum(r["tile_ops"] for r in st.per_device) == dev_ops
+    assert st.halo_bytes == prog.manifest["placement"]["halo_bytes_total"]
+    assert st.halo_gather_bytes > 0
+    xs = np.stack([x, 0.5 * x])
+    ys = eng.run_batch(prog, xs, mesh=mesh)
+    assert torch.equal(ys[0], want)
+    assert torch.equal(ys[1], eng.run(prog, xs[1]))
 
 
 def test_cuda_forced_gemm_equal_across_residencies(cuda):

@@ -21,9 +21,10 @@ executor, plus parity with the JAX package:
   * gat-dot on a version whose edge ids have holes (net removals) reads
     no hole.
 
-``test_livegraph.py::test_incremental_serving_on_mesh_path`` has no twin
-yet: the port's multi-device mesh path is ROADMAP A13 (a live run with
-``mesh=`` is refused, checked below).
+``test_livegraph.py::test_incremental_serving_on_mesh_path``'s twin runs a
+live version on the port's mesh path (virtual CPU shards, D = 1 and 2),
+bit for bit to a cold compile; what does not compose with a mesh (host
+residency) is refused for a live run as for any other.
 """
 import dataclasses
 
@@ -378,13 +379,61 @@ def test_gat_dot_on_version_with_edge_id_holes():
 
 
 def test_live_run_on_mesh_path_is_refused_until_ported():
+    """The mesh path runs live versions now (the twin below); a live run
+    that asks for a mesh together with host residency is still refused,
+    as JAX refuses it."""
+    from repro_torch.launch.mesh import DeviceMesh
     store = GraphVersionStore(_g(), geometry=GEOM)
     live = LiveGraphServer(store)
     eng = _engine()
     prog = eng.compile("b1", live)
-    with pytest.raises(NotImplementedError, match="A13"):
-        eng.run(prog, G.random_features(store.head.as_graph(), seed=1),
-                mesh=1, graph=live)
+    x = G.random_features(store.head.as_graph(), seed=1)
+    with pytest.raises(ValueError, match="does not compose"):
+        eng.run(prog, x, mesh=DeviceMesh(["cpu"] * 2), graph=live,
+                residency="host")
+    assert torch.equal(eng.run(prog, x, mesh=1, graph=live),
+                       eng.run(prog, x, graph=live))
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("model", ["b1", "gat-dot"])
+def test_incremental_serving_on_mesh_path(d, model):
+    """A content delta served on the mesh path (virtual CPU shards):
+    the rebound program stages the patched tiles per mesh device and
+    gives a cold compile's bits; JAX's 1-device mesh agrees."""
+    from repro_torch.launch.mesh import DeviceMesh
+    rng = np.random.default_rng(29)
+    g_ref, jg_ref = _g(seed=6), _g(seed=6, pkg=JG)
+    store = GraphVersionStore(g_ref, geometry=GEOM)
+    jstore = JL.GraphVersionStore(jg_ref, geometry=JGEOM)
+    live, jlive = LiveGraphServer(store), JL.LiveGraphServer(jstore)
+    mk = (lambda B, g: build_gat_dot(B, g)) if model == "gat-dot" else \
+        (lambda B, g: model)
+    eng = _engine()
+    eng.compile(mk(TB, g_ref), live, mesh=d)
+    # Content only: existing pairs re-weighted, one edge removed.
+    picks = rng.choice(g_ref.n_edges, 4, replace=False)
+    ops = [op for i in picks[:3] for op in (
+        ("rm", int(g_ref.src[i]), int(g_ref.dst[i])),
+        ("add", int(g_ref.src[i]), int(g_ref.dst[i]),
+         float(rng.uniform(0.1, 1.0))))]
+    ops.append(("rm", int(g_ref.src[picks[3]]), int(g_ref.dst[picks[3]])))
+    live.apply(_delta(GraphDelta, g_ref.n_vertices, ops))
+    jlive.apply(_delta(JL.GraphDelta, g_ref.n_vertices, ops))
+    g1 = store.head.as_graph()
+    x = G.random_features(g1, seed=3)
+    prog = eng.compile(mk(TB, g_ref), live, mesh=d)
+    y_mesh = eng.run(prog, x, mesh=DeviceMesh(["cpu"] * d))
+    assert eng.stats.compiles == 1                 # content delta: a hit
+    cold = _engine()
+    y_cold = cold.run(cold.compile(mk(TB, g1), dataclasses.replace(
+        g1, name="cold")), x)
+    assert torch.equal(y_mesh, y_cold)
+    assert torch.equal(eng.run(prog, x, graph=live), y_mesh)
+    jeng = _jengine()
+    jy = jeng.run(jeng.compile(mk(JB, jg_ref), jlive), x, mesh=1)
+    np.testing.assert_allclose(y_mesh.numpy(), np.asarray(jy), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_batched_serving_on_live_version():

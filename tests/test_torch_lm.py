@@ -56,11 +56,11 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
 
 
-def _cfg32(**kw):
-    """The qwen3-0.6b smoke config in fp32, for both packages."""
-    j = dataclasses.replace(jget_smoke("qwen3-0.6b"), dtype="float32", **kw)
-    t = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32",
-                            **kw)
+def _cfg32(arch="qwen3-0.6b", **kw):
+    """An architecture's smoke config (qwen3-0.6b's by default) in fp32,
+    for both packages."""
+    j = dataclasses.replace(jget_smoke(arch), dtype="float32", **kw)
+    t = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
     return j, t
 
 
@@ -150,6 +150,23 @@ def test_flash_plain_grouped_heads_match_jax_ref(g):
     tq, tk, tv = (torch.from_numpy(a).transpose(0, 1).contiguous()
                   for a in (q, k, v))
     assert tk.shape == (h // g, t, d)
+    got = ref.flash_attention_plain(tq, tk, tv, causal=True)
+    _close(got.transpose(0, 1), want, rtol=0, atol=2e-5)
+    assert torch.equal(ops.flash_attention(tq, tk, tv, causal=True), got)
+
+
+def test_flash_plain_granite_group_matches_jax_ref():
+    # granite-8b's grouping: 32 query heads over 8 KV heads (G = 4), here
+    # 8 over 2 at d = 128, as the prefill lays them out ([BH, T, d]).
+    t, h, g, d = 80, 8, 4, 128
+    r = np.random.default_rng(44)
+    q = r.normal(0, 1, (t, h, d)).astype(np.float32)
+    k, v = (r.normal(0, 1, (t, h // g, d)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jref.flash_attention_ref(
+        q, np.repeat(k, g, axis=1), np.repeat(v, g, axis=1), causal=True))
+    tq, tk, tv = (torch.from_numpy(a).transpose(0, 1).contiguous()
+                  for a in (q, k, v))
     got = ref.flash_attention_plain(tq, tk, tv, causal=True)
     _close(got.transpose(0, 1), want, rtol=0, atol=2e-5)
     assert torch.equal(ops.flash_attention(tq, tk, tv, causal=True), got)
@@ -284,7 +301,7 @@ def test_decode_attention_matches_jax(window, s_len):
 # The model and its steps
 # --------------------------------------------------------------------------- #
 def test_port_config_equals_jax_config():
-    for arch in ("qwen3-0.6b",):
+    for arch in ("qwen3-0.6b", "granite-8b"):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jget_config(arch))
         assert dataclasses.asdict(get_smoke_config(arch)) == \
@@ -332,6 +349,87 @@ def test_decode_step_and_serve_step_match_jax():
     # serve_step itself, on a fresh cache
     nxt, _ = tstep(tm, tm.init_cache(b, t), torch.from_numpy(toks[:, :1]), 0)
     assert nxt.dtype == torch.int32 and nxt.shape == (b, 1)
+
+
+def test_granite_forward_and_prefill_match_jax():
+    """granite-8b's smoke config: no qk_norm, an untied head carried by
+    ``lm_params_from_arrays`` with the rest."""
+    jcfg, tcfg = _cfg32("granite-8b")
+    assert not tcfg.tie_embeddings and not tcfg.qk_norm
+    jm, jp, tm = _carried(jcfg, tcfg, seed=2)
+    assert torch.equal(tm.head, torch.from_numpy(np.array(jp["head"])))
+    toks = np.random.default_rng(5).integers(0, jcfg.vocab, (2, 12)).astype(
+        np.int32)
+    want, _ = jm.forward(jp, jnp.asarray(toks))
+    got, _ = tm(torch.from_numpy(toks))
+    _close(got, want)
+    last = TS.make_prefill_step(tm, tcfg)(tm, {"tokens":
+                                               torch.from_numpy(toks)})
+    _close(last, JS.make_prefill_step(jm, jcfg)(jp, {"tokens":
+                                                     jnp.asarray(toks)}))
+    # the head is the untied weight, not the embedding's transpose
+    x = tm.hidden(torch.from_numpy(toks))
+    assert torch.equal(tm._logits(x), torch.matmul(x, tm.head))
+
+
+def test_granite_decode_and_serve_step_match_jax():
+    jcfg, tcfg = _cfg32("granite-8b")
+    jm, jp, tm = _carried(jcfg, tcfg, seed=6)
+    b, t = 2, 9
+    toks = np.random.default_rng(7).integers(0, jcfg.vocab, (b, t)).astype(
+        np.int32)
+    jc, tc = jm.init_cache(b, t), tm.init_cache(b, t)
+    jstep = JS.make_serve_step(jm, jcfg)
+    for i in range(t):
+        tok = toks[:, i:i + 1]
+        want, jc = jm.decode_step(jp, jc, jnp.asarray(tok), jnp.int32(i))
+        got, tc = tm.decode_step(tc, torch.from_numpy(tok), i)
+        _close(got, want)
+    jnxt, _ = jstep(jp, jm.init_cache(b, t), jnp.asarray(toks[:, :1]),
+                    jnp.int32(0))
+    nxt, _ = TS.make_serve_step(tm, tcfg)(tm, tm.init_cache(b, t),
+                                          torch.from_numpy(toks[:, :1]), 0)
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+
+
+def test_granite_decode_matches_forward():
+    _, tcfg = _cfg32("granite-8b")
+    tm = TS.build_model(tcfg, device="cpu", seed=8)
+    b, t = 2, 10
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, tcfg.vocab, (b, t)).astype(np.int32))
+    fwd, _ = tm(toks)
+    cache = tm.init_cache(b, t)
+    outs = []
+    for i in range(t):
+        lg, cache = tm.decode_step(cache, toks[:, i:i + 1], i)
+        outs.append(lg[:, 0])
+    err = float((torch.stack(outs, dim=1) - fwd).abs().max())
+    assert err / (float(fwd.abs().max()) + 1e-9) < 2e-4
+
+
+def test_granite_launch_serve_generates_jax_tokens(monkeypatch):
+    jcfg, tcfg = _cfg32("granite-8b")
+    jm, jp, tm = _carried(jcfg, tcfg, seed=1)
+    monkeypatch.setattr(tserve, "build_model", lambda cfg, device, seed: tm)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert tserve.main(["--arch", "granite-8b", "--smoke", "--device",
+                            "cpu", "--requests", "3", "--prompt-len", "5",
+                            "--gen", "4"]) == 0
+    lines = out.getvalue().splitlines()
+    assert lines[0] == "arch=granite-8b requests=3 prompt=5 gen=4"
+    got = [eval(s) for s in lines[3:]]
+    prompts = jnp.asarray(np.random.default_rng(0).integers(
+        0, jcfg.vocab, (3, 5)).astype(np.int32))
+    cache = jm.init_cache(3, 9)
+    last, cache = jserve._prefill_with_cache(jm, jcfg, jp, prompts, cache)
+    serve = jax.jit(JS.make_serve_step(jm, jcfg))
+    tok, want = last, [np.asarray(last)]
+    for i in range(3):
+        tok, cache = serve(jp, cache, tok, jnp.int32(5 + i))
+        want.append(np.asarray(tok))
+    assert got == np.concatenate(want, axis=1).tolist()
 
 
 def test_decode_matches_forward():
@@ -395,6 +493,22 @@ def test_full_width_shapes_on_meta_match_jax_specs():
     assert norms == 28 * (2 * cfg.d_model + 2 * cfg.hd) + cfg.d_model
 
 
+def test_granite_full_width_shapes_on_meta_match_jax_specs():
+    # granite-8b at full width (8.25 B parameters), no allocation.
+    cfg = get_config("granite-8b")
+    tm = TS.build_model(cfg, device="meta")
+    got = {n: tuple(p.shape) for n, p in tm.named_parameters()}
+    want = convert.lm_param_shapes(
+        cfg, JDecoderLM(jget_config("granite-8b")).param_specs())
+    assert got == want and len(got) == 3 + 36 * 9
+    assert got["head"] == (4096, 49152) and tm.layers[0].attn[
+        "wk"].shape == (4096, 8, 128)
+    mats = sum(p.numel() for p in tm.parameters() if p.dim() > 1)
+    norms = sum(p.numel() for p in tm.parameters() if p.dim() == 1)
+    assert mats == cfg.n_params() == 8_254_390_272
+    assert norms == 36 * 2 * cfg.d_model + cfg.d_model
+
+
 # --------------------------------------------------------------------------- #
 # Entry points
 # --------------------------------------------------------------------------- #
@@ -409,7 +523,7 @@ def test_entry_points_need_a_card_unless_told_cpu():
     assert TS.build_model(cfg, device="cpu").embed.device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "gemma3-12b", "whisper-base",
+@pytest.mark.parametrize("arch", ["gemma3-12b", "whisper-base",
                                   "deepseek-v3-671b", "xlstm-125m",
                                   "no-such-arch"])
 def test_unported_architectures_raise(arch):
@@ -427,6 +541,6 @@ def test_unported_block_kinds_raise():
     for kw in ({"mla": True}, {"n_experts": 4, "top_k": 2, "d_ff_moe": 32},
                {"cross_attn_every": 2}, {"ssm_heads": 2, "ssm_state": 4},
                {"attn_pattern": "local_global", "local_window": 8},
-               {"tie_embeddings": False}, {"xlstm": True}):
+               {"xlstm": True}):
         with pytest.raises(NotImplementedError, match="A15"):
             DecoderLM(ModelConfig(**{**base, **kw}), device="cpu")

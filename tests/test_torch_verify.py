@@ -18,10 +18,11 @@ inputs):
     live rebinds (a corrupt rebind raises ``VerifyError``), and
     ``GAGI_EXPORT_DIR`` exports every fresh compile.
 
-The port's ``Engine.compile`` takes no ``mesh=`` yet (ROADMAP A13), so it
-builds no placement.  The static placement checks (``halo_completeness``)
-run here on bundles the JAX compiler built for a mesh and the port loads;
-cases that execute on a mesh wait for A13.
+The static placement checks (``halo_completeness``) run on bundles the
+JAX compiler built for a mesh and the port loads, and on programs the
+port's own ``Engine.compile(mesh=)`` builds; the race detector also reads
+a trace of the port's mesh path (its ``halo_exchange`` barriers and
+per-device layer spans).
 """
 import copy
 import json
@@ -144,6 +145,30 @@ def test_static_placement_checks_on_mesh_bundles(name, jgraph, tmp_path):
     assert rep.ok, rep.to_markdown()
     assert set(rep.checks_run) == set(ALL_CHECKS)
     _same(rep, JV.verify_gagi(path))
+
+
+@pytest.mark.parametrize("name", ["b1", "b6"])
+def test_verifier_passes_port_mesh_placements_and_matches_jax(name, graph,
+                                                              jgraph):
+    """The twin of test_verify.py's mesh case, on the port's own
+    ``compile(mesh=4)``."""
+    prog = _engine().compile(name, graph, mesh=4, use_cache=False)
+    rep = verify(prog)
+    assert rep.ok, rep.to_markdown()
+    assert set(rep.checks_run) == set(ALL_CHECKS)   # halo check ran
+    _same(rep, JV.verify(_jengine().compile(name, jgraph, mesh=4,
+                                            use_cache=False)))
+
+
+def test_verify_on_port_mesh_compile_and_run(graph):
+    """``Engine(verify=True)`` verifies a mesh compile; the program then
+    runs on virtual CPU shards with the device path's bits."""
+    from repro_torch.launch.mesh import DeviceMesh
+    eng = _engine(verify=True)
+    prog = eng.compile("b6", graph, mesh=2)
+    x = G.random_features(graph, seed=4)
+    assert torch.equal(eng.run(prog, x, mesh=DeviceMesh(["cpu"] * 2)),
+                       eng.run(prog, x))
 
 
 def test_verifier_passes_livegraph_rebind(graph, jgraph):
@@ -307,6 +332,28 @@ def test_rejects_incomplete_halo_set(jgraph, tmp_path):
     jprog = JProgram.load(path)
     _same(rep, JV.verify_binary(jprog.binary, manifest=man,
                                 pgraph=jprog.pgraph))
+
+
+def test_rejects_incomplete_halo_set_on_port_mesh_program(graph, jgraph):
+    reps = []
+    for eng, vb in ((_engine(), verify_binary), (_jengine(),
+                                                 JV.verify_binary)):
+        g = graph if vb is verify_binary else jgraph
+        prog = eng.compile("b1", g, mesh=2)
+        man = copy.deepcopy(prog.manifest)
+        stripped = False
+        for rec in man["placement"]["layers"].values():
+            for d, ks in rec["halo"].items():
+                if ks:
+                    rec["halo"][d] = ks[1:]
+                    stripped = True
+                    break
+            if stripped:
+                break
+        assert stripped, "a mesh=2 placement has a non-empty halo"
+        reps.append(vb(prog.binary, manifest=man, pgraph=prog.pgraph))
+    assert not reps[0].ok and "halo_completeness" in reps[0].checks_failed
+    _same(*reps)
 
 
 def test_rejects_residency_drift_from_budget_estimate(programs, jprograms):
@@ -485,6 +532,44 @@ def test_race_detector_flags_reordered_layer_spans(host_trace):
     lay[-1]["ts"] = lay[0]["ts"] - 5.0
     rep = check_trace(trace, prog)
     assert not rep.ok and rep.checks_failed == ["race_layer_order"]
+    _same(rep, JV.check_trace(trace, prog.manifest))
+
+
+@pytest.fixture(scope="module")
+def mesh_trace(graph):
+    from repro_torch.launch.mesh import DeviceMesh
+    eng = _engine()
+    prog = eng.compile("b6", graph, mesh=4)
+    x = G.random_features(graph, seed=2)
+    with tracing() as t:
+        eng.run(prog, x, mesh=DeviceMesh(["cpu"] * 4))
+    return t.to_dict(), prog
+
+
+def test_race_detector_over_port_mesh_trace(mesh_trace):
+    trace, prog = mesh_trace
+    rep = check_trace(trace, prog)
+    assert rep.ok, rep.to_markdown()
+    assert {"race_layer_order", "race_halo_barrier"} <= set(rep.checks_run)
+    _same(rep, JV.check_trace(trace, prog.manifest))
+    tracks = {e.get("tid") for e in trace["traceEvents"]
+              if e.get("ph") == "X" and re.match(r"^layer\d+$",
+                                                 e.get("name", ""))}
+    assert len(tracks) == 4                 # one track per mesh device
+
+
+def test_race_detector_flags_compute_inside_halo_exchange(mesh_trace):
+    trace, prog = mesh_trace
+    trace = json.loads(json.dumps(trace))
+    evs = trace["traceEvents"]
+    halo = next(e for e in evs if e.get("ph") == "X"
+                and e.get("name") == "halo_exchange")
+    lay = next(e for e in evs if e.get("ph") == "X"
+               and e.get("name") == f"layer{halo['args']['layer']}")
+    halo["dur"] = max(halo.get("dur", 0), 10.0)
+    lay["ts"], lay["dur"] = halo["ts"] + 1.0, 5.0
+    rep = check_trace(trace, prog)
+    assert not rep.ok and "race_halo_barrier" in rep.checks_failed
     _same(rep, JV.check_trace(trace, prog.manifest))
 
 
