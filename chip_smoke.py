@@ -151,7 +151,13 @@ Phases (any failure exits non-zero; nothing is caught):
    ``F.scaled_dot_product_attention(is_causal=True)`` (with
    ``enable_gqa=True`` for G=2 where torch takes it), a yardstick the
    port never calls; every bf16 case also within relative L2 2^-8 over
-   the whole output and 2^-7 over each query row, ``check_rows``);
+   the whole output and 2^-7 over each query row, ``check_rows``; at
+   gemma3's head dims 168, 240 and 256 and under sliding windows 1, 5,
+   64, 1024 and >= T, with ragged T, G in {1, 2} and windows that end
+   inside a KV tile, in fp32 and bf16; at gemma3-12b's prefill shape,
+   BH=64 over 32 KV heads, T=2048, d=240, bf16, without and with its
+   window of 1024, timed beside the plain version and SDPA, which takes
+   the window as a boolean ``attn_mask``);
    ``make_prefill_step`` in bf16 at B=4, T=2048 (a warm-up and 3 timed
    prefills, 28 flash launches each, last-position logits within
    relative L2 2e-2 of the same model run with plain attention, the
@@ -190,13 +196,39 @@ Phases (any failure exits non-zero; nothing is caught):
    within relative L2 2e-2 of plain attention; fp32 decode against
    forward at full width and 4 layers (B=2, T=64, 2e-4 of max |logit|);
    ``launch.serve --arch granite-8b`` with 4 requests of 16 tokens.
+12. gemma3 at full width (``repro_torch.configs``; random from seed 0):
+   gemma3-12b's 48 layers (40 windowed of 1024 and 8 global, d_model
+   3840, 16 query / 8 KV heads of 240, vocab 262,144; 11.62 B
+   parameters, 21.65 GiB of bf16) prefilled at B=4, T=2048 (a warm-up
+   and 2 timed, 48 flash launches each, one more under
+   ``torch.profiler``), last-position logits within relative L2 2e-2 of
+   plain attention; fp32 decode against forward at 6 layers (5 windowed,
+   1 global) over T = 1,088, past the window, so every local layer's
+   ring buffer of 1,024 slots wraps (2e-4 of max |logit|);
+   ``launch.serve --arch gemma3-12b`` with 4 requests of 16 tokens;
+   gemma3-27b (d = 168) at 8 layers, its 2-layer remainder segment and a
+   superblock, prefilled at 4x2048 against plain attention.
+13. The train step: qwen3-0.6b at full width in bf16 (596 M parameters;
+   params, fp32 master, mu and nu on the card), B=2, T=4096: the loss and
+   every gradient of ``steps.value_and_grad`` through the kernel route
+   (the flash kernel's forward, the chunked plain recompute backward)
+   against the plain route (autograd through ``flash_attention_plain``,
+   checkpointed per layer) within relative L2 2e-2, and in fp32 at 2
+   layers within 1e-4; 10 steps of ``make_train_step`` on
+   ``synthetic_batches`` (synchronized step ms, tokens/s, peak memory,
+   every loss finite, 28 flash launches a step), one under
+   ``torch.profiler``; ``checkpoint.save`` / ``restore`` of the whole
+   train state onto a fresh model on the card, bit for bit; and
+   ``python -m repro_torch.launch.train`` at 2x4096, crashed after step
+   4 (exit 42) and resumed from its own checkpoint of step 3 to step 5.
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths (the Engine.serve path, the host and remap runs of phase 4, the
 runtime path, the sampled stream, the reported runs of phase 7, the live
 path's runs of phase 8 (cold-compile comparisons excluded), the prefill
 and forward runs of phase 9, the mesh runs of phase 10 (device-path
-comparisons excluded), and the prefill and forward runs of phase 11),
+comparisons excluded), the prefill and forward runs of phases 11 and
+12, and the 10 train steps of phase 13),
 each counted from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
@@ -215,6 +247,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -2527,7 +2560,7 @@ def granite_phase(torch, ops, ref):
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.models.steps import build_model, make_prefill_step
+    from repro_torch.models.steps import build_model
 
     cfg = get_config(GRANITE_ARCH)
     g = cfg.n_heads // cfg.n_kv_heads
@@ -2562,60 +2595,9 @@ def granite_phase(torch, ops, ref):
     del q, k, v
     torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    model = build_model(cfg, seed=0)
-    torch.cuda.synchronize()
-    n_par = sum(p.numel() for p in model.parameters())
-    w_bytes = torch.cuda.memory_allocated() - base
-    log(f"{cfg.name}: {n_par:,} parameters ({cfg.n_params():,} in "
-        f"matrices), {w_bytes / 2**30:.2f} GiB in {cfg.dtype}, built from "
-        f"seed 0 in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(1)
-    tokens = torch.as_tensor(rng.integers(
-        0, cfg.vocab, (GRANITE_B, GRANITE_T)).astype(np.int32),
-        device="cuda")
-    prefill = make_prefill_step(model, cfg)
-    batch = {"tokens": tokens}
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    # ---- the granite prefill path: counts zeroed above, read below.
-    walls = []
-    for _ in range(3):                       # a warm-up, then 2 timed
-        t0 = time.perf_counter()
-        logits = prefill(model, batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    n_flash = ops.LAUNCHES["flash_attention"]
-    peak = torch.cuda.max_memory_allocated() - base
-    # ---- end of the granite prefill path.
-    if n_flash != cfg.n_layers * len(walls):
-        fail(f"granite: flash launches {n_flash} over {len(walls)} "
-             f"prefills != {cfg.n_layers} per prefill")
-    if tuple(logits.shape) != (GRANITE_B, cfg.vocab) or not bool(
-            torch.isfinite(logits).all()):
-        fail(f"granite prefill logits: shape {tuple(logits.shape)} or "
-             "non-finite")
-    with attention_as(ops, ref.flash_attention_plain):
-        want = prefill(model, batch)
-    got32, want32 = logits.float(), want.float()
-    rel = float((got32 - want32).norm() / want32.norm())
-    agree = float((got32.argmax(-1) == want32.argmax(-1)).float().mean())
-    prefill_ms = statistics.median(walls[1:])
-    log(f"granite prefill {GRANITE_B}x{GRANITE_T}: wall ms "
-        f"{[round(w, 2) for w in walls]} (first is the warm-up), median "
-        f"{prefill_ms:.2f} ms, {GRANITE_B * GRANITE_T / prefill_ms * 1e3:,.0f}"
-        f" tokens/s; peak memory {peak / 2**30:.3f} GiB (weights "
-        f"included); flash launches {n_flash}; logits against plain "
-        f"attention: relative L2 {rel:.3e} (limit {LM_REL_L2}), argmax "
-        f"agreement {agree:.3f}")
-    if not rel <= LM_REL_L2:
-        fail(f"granite prefill logits differ from plain attention by "
-             f"relative L2 {rel:.3e}")
-    del model, logits, want, prefill, got32, want32
-    gc.collect()
-    torch.cuda.empty_cache()
+    n_flash, pre = lm_prefill(torch, ops, ref, cfg, GRANITE_B, GRANITE_T,
+                              seed=1, timed=2)
+    rng = np.random.default_rng(2)
 
     # fp32 decode against forward at full width, 4 layers.
     cfg32 = dataclasses.replace(cfg, dtype="float32",
@@ -2669,15 +2651,411 @@ def granite_phase(torch, ops, ref):
         f"{m.group(3)} ms/token, {drv_s:.2f} s with the build")
     gc.collect()
     torch.cuda.empty_cache()
-    summary = {"params": n_par, "weight_bytes": w_bytes,
-               "prefill_ms": walls, "prefill_median_ms": prefill_ms,
-               "prefill_peak_bytes": peak, "prefill_rel_l2": rel,
-               "prefill_argmax_agreement": agree,
-               "decode_vs_forward": worst / scale,
+    summary = {**pre, "decode_vs_forward": worst / scale,
                "serve_prefill_ms": float(m.group(1)),
                "serve_decode_ms_per_token": float(m.group(3)),
                "flash_granite_shape": flash_row}
     return n_flash + fwd_launches, flash_row, summary
+
+
+GEMMA_ARCH, GEMMA_27B = "gemma3-12b", "gemma3-27b"
+GEMMA_B, GEMMA_T = 4, 2048
+GEMMA_DECODE_LAYERS = 6         # one superblock: 5 windowed, 1 global
+GEMMA_DECODE_T = 1088           # past the window of 1024: the rings wrap
+GEMMA_27B_LAYERS = 8            # the 2-layer rem segment + a superblock
+
+
+def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False):
+    """A bf16 prefill of ``cfg`` at b x t (tokens from numpy ``seed``)
+    with random weights from seed 0: a warm-up and ``timed`` timed runs
+    with the flash launches counted from zero, the last-position logits
+    within LM_REL_L2 of the same model with plain attention, and with
+    ``profile`` one more prefill under ``torch.profiler``.  Returns (flash
+    launches, summary)."""
+    import numpy as np
+
+    from repro_torch.models.steps import build_model, make_prefill_step
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    w_bytes = torch.cuda.memory_allocated() - base
+    log(f"{cfg.name} ({cfg.n_layers} layers): {n_par:,} parameters, "
+        f"{w_bytes / 2**30:.2f} GiB in {cfg.dtype}, built from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (b, t)).astype(np.int32), device="cuda")
+    prefill = make_prefill_step(model, cfg)
+    batch = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # ---- the prefill path: counts zeroed above, read below.
+    walls = []
+    for _ in range(1 + timed):               # a warm-up, then the timed
+        t0 = time.perf_counter()
+        logits = prefill(model, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n_flash = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    # ---- end of the prefill path.
+    if n_flash != cfg.n_layers * len(walls):
+        fail(f"{cfg.name}: flash launches {n_flash} over {len(walls)} "
+             f"prefills != {cfg.n_layers} per prefill")
+    if tuple(logits.shape) != (b, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"{cfg.name} prefill logits: shape {tuple(logits.shape)} or "
+             "non-finite")
+    with attention_as(ops, ref.flash_attention_plain):
+        want = prefill(model, batch)
+    got32, want32 = logits.float(), want.float()
+    rel = float((got32 - want32).norm() / want32.norm())
+    agree = float((got32.argmax(-1) == want32.argmax(-1)).float().mean())
+    med = statistics.median(walls[1:])
+    flops = 2.0 * cfg.n_params() * b * t
+    log(f"{cfg.name} prefill {b}x{t}: wall ms "
+        f"{[round(w, 2) for w in walls]} (first is the warm-up), median "
+        f"{med:.2f} ms, {b * t / med * 1e3:,.0f} tokens/s "
+        f"({flops:.3e} flops of weight products); peak memory "
+        f"{peak / 2**30:.3f} GiB (weights included); flash launches "
+        f"{n_flash}; logits against plain attention: relative L2 "
+        f"{rel:.3e} (limit {LM_REL_L2}), argmax agreement {agree:.3f}")
+    if not rel <= LM_REL_L2:
+        fail(f"{cfg.name} prefill logits differ from plain attention by "
+             f"relative L2 {rel:.3e}")
+    flash_dev = None
+    if profile:
+        by_name = profile_call(torch, lambda: prefill(model, batch),
+                               f"{cfg.name} prefill {b}x{t}")
+        if by_name:
+            flash_dev = sum(ms for n, ms in by_name.items()
+                            if "flash_bf16_kernel" in n)
+            dev = sum(by_name.values())
+            log(f"{cfg.name}: flash kernel device time in the profiled "
+                f"prefill {flash_dev:.3f} ms of {dev:.3f} ms of device time "
+                f"({100 * flash_dev / dev:.1f}%); device time over the "
+                f"unprofiled median wall: {100 * dev / med:.1f}%")
+    del model, logits, want, prefill, got32, want32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n_flash, {"params": n_par, "weight_bytes": w_bytes,
+                     "prefill_ms": walls, "prefill_median_ms": med,
+                     "tokens_per_s": b * t / med * 1e3,
+                     "weight_product_flops": flops,
+                     "prefill_peak_bytes": peak, "prefill_rel_l2": rel,
+                     "prefill_argmax_agreement": agree,
+                     "flash_device_ms_in_profiled_prefill": flash_dev}
+
+
+def gemma3_phase(torch, ops, ref):
+    """gemma3-12b at full width (48 layers: 40 windowed of 1024, 8 global,
+    d = 240) prefilled in bf16 against plain attention; its fp32 decode
+    against forward at 6 layers past the window (ring buffers wrap);
+    ``launch.serve --arch gemma3-12b``; gemma3-27b (d = 168) at 8 layers
+    against plain attention.  Returns (flash launches over the counted
+    runs, a summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.steps import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(GEMMA_ARCH)
+    n12, s12 = lm_prefill(torch, ops, ref, cfg, GEMMA_B, GEMMA_T, seed=1,
+                          timed=2, profile=True)
+
+    # fp32 decode against forward at full width, one superblock, past the
+    # window: every local layer's ring buffer of 1024 slots wraps.
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=GEMMA_DECODE_LAYERS)
+    model = build_model(cfg32, seed=0)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (DECODE_B, GEMMA_DECODE_T)).astype(np.int32),
+        device="cuda")
+    ops.reset_launches()
+    # ---- the gemma3 forward run: counts zeroed above, read below.
+    fwd, _ = model(toks)
+    torch.cuda.synchronize()
+    fwd_launches = ops.LAUNCHES["flash_attention"]
+    # ---- end of the gemma3 forward run.
+    if fwd_launches != cfg32.n_layers:
+        fail(f"gemma3 forward: flash launches {fwd_launches} != "
+             f"{cfg32.n_layers}")
+    cache = model.init_cache(DECODE_B, GEMMA_DECODE_T)
+    slots = sorted({lc["k"].shape[1] for lc in cache})
+    if slots != [cfg.local_window, GEMMA_DECODE_T]:
+        fail(f"gemma3 cache slots {slots}, expected ring buffers of "
+             f"{cfg.local_window} and full caches of {GEMMA_DECODE_T}")
+    t0 = time.perf_counter()
+    errs = []
+    for i in range(GEMMA_DECODE_T):
+        lg, cache = model.decode_step(cache, toks[:, i:i + 1], i)
+        errs.append((lg[:, 0] - fwd[:, i]).abs().amax())
+    worst = float(torch.stack(errs).max()) / float(fwd.abs().max())
+    dec_s = time.perf_counter() - t0
+    log(f"gemma3 decode against forward, fp32, {cfg32.n_layers} layers, "
+        f"B={DECODE_B} T={GEMMA_DECODE_T} (rings of {cfg.local_window} "
+        f"slots wrap): max |decode - forward| / max |forward| = "
+        f"{worst:.3e} (limit {DECODE_TOL}; {dec_s:.2f} s)")
+    if not worst < DECODE_TOL:
+        fail(f"gemma3 decode differs from forward by {worst:.3e}")
+    del model, fwd, cache, lg, errs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The serving loop at gemma3-12b: 4 requests of 16 tokens.
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", GEMMA_ARCH, "--requests", "4",
+                         "--prompt-len", "16", "--gen", "16"])
+    drv_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"serve gemma3: {line}")
+    m = re.search(r"prefill: ([\d.]+) ms\s+decode: ([\d.]+) ms \(([\d.]+) "
+                  r"ms/token\)", text)
+    gens = re.findall(r"^\s+\[([\d, ]+)\]$", text, re.M)
+    if rc != 0 or m is None or len(gens) != 3 or any(
+            len(x.split(",")) != 16 for x in gens):
+        fail(f"launch.serve --arch {GEMMA_ARCH}: exit {rc}, output not as "
+             "expected")
+    log(f"launch.serve gemma3-12b: prefill {m.group(1)} ms, decode "
+        f"{m.group(3)} ms/token, {drv_s:.2f} s in all")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg27 = dataclasses.replace(get_config(GEMMA_27B),
+                                n_layers=GEMMA_27B_LAYERS)
+    n27, s27 = lm_prefill(torch, ops, ref, cfg27, GEMMA_B, GEMMA_T, seed=3,
+                          timed=1)
+    return n12 + fwd_launches + n27, {
+        "gemma3_12b": s12, "gemma3_27b_8_layers": s27,
+        "decode_vs_forward": worst, "decode_s": dec_s,
+        "serve_prefill_ms": float(m.group(1)),
+        "serve_decode_ms_per_token": float(m.group(3))}
+
+
+# --------------------------------------------------------------------------- #
+TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "qwen3-0.6b", 2, 4096, 10
+TRAIN_GRAD_REL = 2e-2           # bf16 step 1, kernel route against plain
+TRAIN_GRAD_REL32 = 1e-4         # fp32, 2 layers
+
+
+@contextlib.contextmanager
+def plain_attention_route():
+    """While open, the LM's flash route is autograd through
+    ``flash_attention_plain``, checkpointed per call (its [BH, T, T]
+    scores are recomputed in the backward instead of kept for every
+    layer): the plain route the train step's gradients are held to."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as A
+
+    class Plain:
+        @staticmethod
+        def apply(q, k, v, window):
+            return checkpoint(ref.flash_attention_plain, q, k, v, True,
+                              window, use_reentrant=False)
+
+    real = A._FlashAttention
+    A._FlashAttention = Plain
+    try:
+        yield
+    finally:
+        A._FlashAttention = real
+
+
+def grads_against_plain(torch, model, cfg, batch, limit, label):
+    """The loss and every gradient of ``steps.value_and_grad`` through
+    the kernel route and the plain route, held within relative L2
+    ``limit``; returns (loss, plain loss, worst gradient's relative L2,
+    its name)."""
+    from repro_torch.models.steps import value_and_grad
+
+    _, loss, _, grads = value_and_grad(model, cfg, batch)
+    with plain_attention_route():
+        _, ploss, _, pgrads = value_and_grad(model, cfg, batch)
+    torch.cuda.synchronize()
+    rel_loss = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    worst, worst_name = 0.0, ""
+    for name, g in grads.items():
+        pg = pgrads[name].float()
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{label}: gradient {name} not finite")
+        rel = float((g.float() - pg).norm() / pg.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"{label}: loss {float(loss):.6f} (plain route {float(ploss):.6f}, "
+        f"relative {rel_loss:.3e}); worst gradient relative L2 {worst:.3e} "
+        f"({worst_name}; limit {limit}) over {len(grads)} gradients")
+    if not (rel_loss <= limit and worst <= limit):
+        fail(f"{label}: kernel route differs from the plain route (loss "
+             f"{rel_loss:.3e}, gradient {worst_name} {worst:.3e})")
+    return float(loss), float(ploss), worst, worst_name
+
+
+def train_phase(torch, ops, ref):
+    """qwen3-0.6b at full width trained in bf16 at B=2, T=4096: step 1's
+    loss and gradients against the plain route, the same in fp32 at 2
+    layers, 10 timed steps of ``make_train_step`` on
+    ``synthetic_batches``, a checkpoint round trip of the train state on
+    the card, and ``launch.train`` crashed at step 4 and resumed from its
+    own checkpoint.  Returns (flash launches over the counted steps, a
+    summary)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step, restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models.steps import (build_model, init_train_state,
+                                          make_train_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    it = synthetic_batches(cfg, TRAIN_B, TRAIN_T, seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in next(it).items()} for _ in range(TRAIN_STEPS)]
+
+    # fp32 at full width, 2 layers: kernel route against plain.
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    m32, _ = init_train_state(build_model(cfg32, seed=0))
+    r32 = grads_against_plain(torch, m32, cfg32, batches[0],
+                              TRAIN_GRAD_REL32, "train fp32, 2 layers")
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model, opt = init_train_state(build_model(cfg, seed=0))
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"train {cfg.name}: {n_par:,} parameters in {cfg.dtype}, params + "
+        f"fp32 master, mu and nu {state_bytes / 2**30:.3f} GiB")
+    r16 = grads_against_plain(torch, model, cfg, batches[0],
+                              TRAIN_GRAD_REL, "train bf16 step 1")
+    step = make_train_step(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # ---- the train path: counts zeroed above, read below.
+    walls, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        model, opt, met = step(model, opt, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    n_flash = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    # ---- end of the train path.
+    if n_flash != cfg.n_layers * TRAIN_STEPS:
+        fail(f"train: flash launches {n_flash} over {TRAIN_STEPS} steps != "
+             f"{cfg.n_layers} per step")
+    if not all(math.isfinite(x) for x in losses) or int(opt.step) != \
+            TRAIN_STEPS:
+        fail(f"train: losses {losses}, step {int(opt.step)}")
+    med = statistics.median(walls[1:])
+    tok = TRAIN_B * TRAIN_T
+    log(f"train {cfg.name} B={TRAIN_B} T={TRAIN_T} bf16: step wall ms "
+        f"{[round(w, 2) for w in walls]} (first is the warm-up), median "
+        f"{med:.2f} ms, {tok / med * 1e3:,.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB (state included); flash launches "
+        f"{n_flash}; losses {[round(x, 4) for x in losses]}")
+    by_name = profile_call(torch, lambda: step(model, opt, batches[0]),
+                           f"train step {TRAIN_B}x{TRAIN_T}")
+    flash_dev = None
+    b_ms, b_by = flash_bound(TRAIN_B * cfg.n_heads, TRAIN_T, TRAIN_T, cfg.hd,
+                             True, 2, PEAK_BF16_FLOP_S,
+                             kv_heads=TRAIN_B * cfg.n_kv_heads)
+    if by_name:
+        flash_dev = sum(ms for n, ms in by_name.items()
+                        if "flash_bf16_kernel" in n)
+        dev = sum(by_name.values())
+        log(f"train: flash kernel device time in the profiled step "
+            f"{flash_dev:.3f} ms of {dev:.3f} ms of device time, "
+            f"{flash_dev / cfg.n_layers:.4f} ms a call against a bound of "
+            f"{b_ms:.4f} ms ({b_by})")
+
+    # Checkpoint round trip of the whole train state on the card.
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        save(ck, int(opt.step), (model, opt), meta={"loss": losses[-1]})
+        save_s = time.perf_counter() - t0
+        fresh, fopt = init_train_state(build_model(cfg, seed=1))
+        t0 = time.perf_counter()
+        (fresh, fopt), got_step, meta = restore(ck, (fresh, fopt))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = got_step == int(fopt.step) == int(opt.step) and all(
+            torch.equal(a, b) for a, b in zip(
+                model.state_dict().values(), fresh.state_dict().values()))
+        for n in opt.mu:
+            same = same and torch.equal(opt.mu[n], fopt.mu[n]) and \
+                torch.equal(opt.nu[n], fopt.nu[n]) and \
+                torch.equal(opt.master[n], fopt.master[n])
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(ck) for f in fs)
+    log(f"checkpoint of the train state: {nbytes:,} bytes, save "
+        f"{save_s:.2f} s, restore onto the card {restore_s:.2f} s, bit for "
+        f"bit: {same}")
+    if not same or fresh.embed.device != model.embed.device:
+        fail("checkpoint round trip of the train state is not bit for bit")
+    del model, opt, fresh, fopt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # launch.train, crashed after step 4 and resumed from its checkpoint.
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    with tempfile.TemporaryDirectory() as ck:
+        args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                TRAIN_ARCH, "--steps", "5", "--batch", str(TRAIN_B), "--seq",
+                str(TRAIN_T), "--log-every", "1", "--ckpt-dir", ck,
+                "--ckpt-every", "3", "--resume", "auto"]
+        t0 = time.perf_counter()
+        r1 = subprocess.run(args + ["--crash-at", "4"], env=env,
+                            capture_output=True, text=True, timeout=600)
+        r2 = subprocess.run(args, env=env, capture_output=True, text=True,
+                            timeout=600)
+        drv_s = time.perf_counter() - t0
+        last = latest_step(ck)
+    for line in (r1.stdout + r2.stdout).splitlines():
+        log(f"launch.train: {line}")
+    if (r1.returncode != 42 or r2.returncode != 0 or last != 3
+            or "[resume] restored step 3" not in r2.stdout
+            or "done: 5 steps" not in r2.stdout):
+        fail(f"launch.train crash / resume: exits {r1.returncode}, "
+             f"{r2.returncode}, latest step {last}:\n{r1.stderr[-2000:]}"
+             f"\n{r2.stderr[-2000:]}")
+    log(f"launch.train --arch {TRAIN_ARCH} --batch {TRAIN_B} --seq "
+        f"{TRAIN_T}: crashed after step 4 (exit 42), resumed from step 3, "
+        f"done at 5; {drv_s:.2f} s for both processes")
+    return n_flash, {
+        "params": n_par, "state_bytes": state_bytes, "step_ms": walls,
+        "step_median_ms": med, "tokens_per_s": tok / med * 1e3,
+        "peak_bytes": peak, "losses": losses,
+        "flash_device_ms_in_profiled_step": flash_dev,
+        "flash_bound_ms": b_ms,
+        "step1_bf16": {"loss": r16[0], "plain_loss": r16[1],
+                       "worst_grad_rel_l2": r16[2], "worst_grad": r16[3]},
+        "fp32_2_layers": {"loss": r32[0], "plain_loss": r32[1],
+                          "worst_grad_rel_l2": r32[2],
+                          "worst_grad": r32[3]},
+        "checkpoint": {"bytes": nbytes, "save_s": save_s,
+                       "restore_s": restore_s},
+        "launch_train_s": drv_s}
 
 
 # --------------------------------------------------------------------------- #
@@ -2693,7 +3071,7 @@ def attention_as(ops, fn):
         ops.flash_attention = real
 
 
-def chunked_attention(q, k, v, causal=True, chunk=256):
+def chunked_attention(q, k, v, causal=True, window=0, chunk=256):
     """``ops.flash_attention``'s function through the port's
     ``_sdpa_chunked``, which rounds P to the value dtype for the P.V
     product as the kernel's bf16 body (and JAX) do: a run of the model
@@ -2705,46 +3083,61 @@ def chunked_attention(q, k, v, causal=True, chunk=256):
     t, d = q.shape[1], q.shape[2]
     pos = torch.arange(t, device=q.device)
     o = _sdpa_chunked(*(x.transpose(0, 1)[None] for x in (q, k, v)), pos,
-                      pos, causal, 0, d ** -0.5, chunk)
+                      pos, causal, window, d ** -0.5, chunk)
     return o[0].transpose(0, 1).contiguous()
 
 
 def flash_bound(bh, tq, tk, d, causal, elem_bytes, peak_flop_s,
-                kv_heads=None):
+                kv_heads=None, window=0):
     """Bytes: q, k, v read once (k / v over ``kv_heads`` heads, bh when
     None), out written once; operations: 4 d flops (two products) per
-    (query, key) pair the mask keeps."""
+    (query, key) pair the mask keeps (under a window W, query i keeps
+    keys max(0, i - W + 1) .. i)."""
     kv = bh if kv_heads is None else kv_heads
-    pairs = (sum(min(tk, i + 1) for i in range(tq)) if causal
-             else tq * tk)
+    if causal:
+        pairs = sum(min(tk, i + 1) - (max(0, i - window + 1) if window
+                                      else 0) for i in range(tq))
+    else:
+        pairs = tq * tk
     return bound_ms(elem_bytes * d * (2 * bh * tq + 2 * kv * tk),
                     4.0 * d * bh * pairs, peak_flop_s)
 
 
-def sdpa_yardstick(torch, q, k, v):
-    """``F.scaled_dot_product_attention`` (causal) on the kernel's
-    operands, k / v with one head per G query heads: ``enable_gqa=True``
-    where the installed torch takes it (2.5 on), else on heads repeated G
-    times.  Returns (the call, how grouped heads were passed)."""
+def sdpa_yardstick(torch, q, k, v, window=0):
+    """``F.scaled_dot_product_attention`` (causal; under a window W with
+    a boolean ``attn_mask`` holding ``0 <= qpos - kpos < W``) on the
+    kernel's operands, k / v with one head per G query heads:
+    ``enable_gqa=True`` where the installed torch takes it (2.5 on), else
+    on heads repeated G times.  Returns (the call, how grouped heads and
+    the mask were passed)."""
     import torch.nn.functional as F
     g = q.shape[0] // k.shape[0]
     q4, k4, v4 = q[None], k[None], v[None]
+    kw, how = {"is_causal": True}, ""
+    if window:
+        t = q.shape[1]
+        dif = (torch.arange(t, device=q.device)[:, None]
+               - torch.arange(k.shape[1], device=q.device)[None, :])
+        kw = {"attn_mask": (dif >= 0) & (dif < window)}
+        how = ", boolean attn_mask"
     if g == 1:
-        return (lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True)), "one KV head per query head"
+        return (lambda: F.scaled_dot_product_attention(q4, k4, v4, **kw)), \
+            "one KV head per query head" + how
     if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
         return (lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True)), "enable_gqa=True"
+            q4, k4, v4, enable_gqa=True, **kw)), "enable_gqa=True" + how
     kr, vr = (x.repeat_interleave(g, dim=0)[None] for x in (k, v))
-    return (lambda: F.scaled_dot_product_attention(
-        q4, kr, vr, is_causal=True)), "KV heads repeated (no enable_gqa)"
+    return (lambda: F.scaled_dot_product_attention(q4, kr, vr, **kw)), \
+        "KV heads repeated (no enable_gqa)" + how
 
 
 def flash_kernel_phase(torch, ops, ref):
     """The flash kernel against its plain version on the JAX sweep, its
-    bf16 case, ragged and grouped-head cases and the path shape; returns
-    the kernels-line entry (the path shape in bf16 with qwen3-0.6b's
-    grouped KV heads, as the prefill calls it)."""
+    bf16 case, ragged and grouped-head cases, gemma3's head dims and
+    sliding windows, and the path shape; returns the kernels-line entry
+    (the path shape in bf16 with qwen3-0.6b's grouped KV heads, as the
+    prefill calls it), the path-shape readings and the rows of gemma3's
+    prefill shape."""
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def qkv(bh, tq, tk, d, dtype, g=1):
@@ -2777,6 +3170,9 @@ def flash_kernel_phase(torch, ops, ref):
                 "worst row")
     log(f"flash: {len(cases)} sweep / bf16 / ragged / grouped-head cases "
         "within tolerance")
+    n_wide = flash_window_cases(torch, ops, ref, qkv)
+    log(f"flash: {n_wide} wide-head / sliding-window cases within "
+        "tolerance")
 
     # qwen3-0.6b prefill heads at B=4: 64 query heads of 128 over 32 KV
     # heads (G=2, the layout the prefill passes), and the same call with
@@ -2828,7 +3224,80 @@ def flash_kernel_phase(torch, ops, ref):
                          "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": t_l}
             del q, k, v
-    return entry, path_rel
+    return entry, path_rel, flash_gemma3_rows(torch, ops, ref, qkv)
+
+
+# gemma3's head dims (168: gemma3-27b, 240: gemma3-12b, 256: the widest the
+# kernel takes) and windows (1, 5, 64, gemma3's 1024, and >= T: none);
+# (T, heads, G, d, window).  T is ragged against both bodies' tiles; 100
+# and 1000 end inside a KV tile.
+FLASH_WIDE_CASES = [(T, h, g, d, w)
+                    for d in (168, 240, 256)
+                    for T, h, g, w in ((300, 4, 2, 0), (300, 4, 2, 1),
+                                       (300, 4, 1, 5), (300, 4, 2, 64),
+                                       (1300, 2, 2, 1024),
+                                       (300, 2, 1, 1024))]
+FLASH_WINDOW_CASES = [(250, 4, 2, 128, 100), (1100, 2, 1, 64, 1000),
+                      (77, 2, 2, 40, 3)]
+
+
+def flash_window_cases(torch, ops, ref, qkv):
+    """The kernel at gemma3's head dims and under sliding windows, fp32
+    at atol 2e-5 and bf16 under ``check_rows``; returns the case count."""
+    n = 0
+    for T, h, g, d, w in FLASH_WIDE_CASES + FLASH_WINDOW_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(h, T, T, d, dt, g)
+            name = f"flash {T}x{T} h={h} G={g} d={d} window={w} {dt}"
+            got = ops.flash_attention(q, k, v, True, w)
+            want = ref.flash_attention_plain(q, k, v, True, w)
+            if dt == torch.float32:
+                check_close(torch, name, got, want, 0.0, FLASH_ATOL)
+            else:
+                check_rows(torch, name, got, want)
+            if not torch.equal(ops.flash_attention(q, k, v, True, w), got):
+                fail(f"{name}: two launches differ")
+            n += 1
+    return n
+
+
+GEMMA_FLASH_WINDOW = 1024
+
+
+def flash_gemma3_rows(torch, ops, ref, qkv):
+    """The kernel at gemma3-12b's prefill shape (B=4: 64 query heads of
+    240 over 32 KV heads, T=2048, bf16, causal), without and with its
+    local layers' window of 1024, timed beside the plain version and SDPA
+    with the bound; returns a row per window."""
+    bh, t, d = LM_B * 16, LM_T, 240
+    q, k, v = qkv(bh, t, t, d, torch.bfloat16, 2)
+    rows = {}
+    for w in (0, GEMMA_FLASH_WINDOW):
+        name = f"flash gemma3-12b prefill shape window={w}"
+        got = ops.flash_attention(q, k, v, True, w)
+        want = ref.flash_attention_plain(q, k, v, True, w)
+        r_whole, r_row = check_rows(torch, name, got, want)
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True, w))
+        t_p = median_ms(torch, lambda: ref.flash_attention_plain(
+            q, k, v, True, w), reps=3, launches=3)
+        lib, how = sdpa_yardstick(torch, q, k, v, w)
+        t_l = median_ms(torch, lib)
+        b_ms, b_by = flash_bound(bh, t, t, d, True, 2, PEAK_BF16_FLOP_S,
+                                 kv_heads=bh // 2, window=w)
+        log(f"kernel flash_attention BH={bh} KV heads={bh // 2} T={t} d={d} "
+            f"causal window={w} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} "
+            f"ms, F.scaled_dot_product_attention ({how}) {t_l:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); relative L2 {r_whole:.3e} "
+            f"whole, {r_row:.3e} worst row, max|err| {err:.2e}")
+        rows[f"window={w}"] = {
+            "shape": f"BH={bh} over {bh // 2} KV heads, T={t}, d={d}, bf16,"
+                     f" causal, window {w}", "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": t_l, "library": how, "rel_l2_whole": r_whole,
+            "rel_l2_worst_row": r_row}
+    return rows
 
 
 def lm_phase(torch, ops, ref):
@@ -3047,7 +3516,8 @@ def main() -> int:
     live_launches, live = live_phase(torch, card)
     log(f"live phase: {time.perf_counter() - t7:.1f} s")
     t5 = time.perf_counter()
-    flash_entry, flash_path = flash_kernel_phase(torch, ops, ref)
+    flash_entry, flash_path, flash_gemma = flash_kernel_phase(torch, ops,
+                                                              ref)
     flash_launches, lm = lm_phase(torch, ops, ref)
     lm["flash_path_shape"] = flash_path
     log(f"LM phase (flash checks, prefill, decode, launch.serve): "
@@ -3058,7 +3528,15 @@ def main() -> int:
     t7 = time.perf_counter()
     granite_launches, flash_granite, granite = granite_phase(torch, ops, ref)
     log(f"granite phase: {time.perf_counter() - t7:.1f} s")
-    flash_entry["launches"] = flash_launches + granite_launches
+    t7 = time.perf_counter()
+    gemma_launches, gemma = gemma3_phase(torch, ops, ref)
+    gemma["flash_gemma3_12b_shape"] = flash_gemma
+    log(f"gemma3 phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    train_launches, train = train_phase(torch, ops, ref)
+    log(f"train phase: {time.perf_counter() - t7:.1f} s")
+    flash_entry["launches"] = (flash_launches + granite_launches
+                               + gemma_launches + train_launches)
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
@@ -3112,6 +3590,11 @@ def main() -> int:
                        "sampled": sampled, "conformance": conformance,
                        "live": live, "mesh": mesh, "granite": granite,
                        "flash_granite_shape": flash_granite,
+                       "gemma3": gemma, "train": train,
+                       "flash_launches": {
+                           "lm": flash_launches, "granite": granite_launches,
+                           "gemma3": gemma_launches,
+                           "train": train_launches},
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -37,12 +37,12 @@ FAULTS = {
     "causal_skip_early": (
         "bf16 body: the causal skip one query tile early: the diagonal KV "
         "tiles are skipped",
-        "const int end = causal ? min(tk, q0 + WG_BQ) : tk;",
+        "const int end = causal ? min(tk, q0 + BQ_) : tk;",
         "const int end = causal ? min(tk, q0) : tk;"),
     "drop_mid_tile_late": (
         "bf16 body: query tiles from row 1024 on skip their middle KV tile",
-        "    mbar_wait(full + 8 * st, (kt / WG_STAGES) & 1);\n",
-        "    mbar_wait(full + 8 * st, (kt / WG_STAGES) & 1);\n"
+        "    mbar_wait(full + 8 * st, (step / WG_STAGES) & 1);\n",
+        "    mbar_wait(full + 8 * st, (step / WG_STAGES) & 1);\n"
         "    if (q0 >= 1024 && kt == n_kt / 2) {\n"
         "      __syncwarp();\n"
         "      if (lane == 0) mbar_arrive(empty + 8 * st);\n"

@@ -1,20 +1,20 @@
 #!/usr/bin/env python3
-"""Tile-shape variants of the GEMM and SDDMM kernels, read beside the
-kernels themselves on one GPU.
+"""Tile-shape variants of the GEMM, SDDMM and flash kernels, read beside
+the kernels themselves on one GPU.
 
     python3 kernel_variants.py [--parent DIR] [--json-out PATH]
 
-Builds ``src/repro_torch/kernels/csrc/gemm.cu`` and ``sddmm.cu`` and one
-copy of each per entry of ``VARIANTS`` (a text edit of the source that
+Builds ``src/repro_torch/kernels/csrc/gemm.cu``, ``sddmm.cu`` and
+``flash_attention.cu`` and one copy of each per entry of ``VARIANTS`` (a text edit of the source that
 changes a tile or block constant; each edited text must appear in the
 source exactly once), one ``nvcc`` per source, all at once, under the
 git-ignored ``src/repro_torch/kernels/_build/variants/``
 (``build.build_copies``); the sources in the checkout are not touched.
 With ``--parent DIR`` (a checkout of another tree, for example an
-unpacked ``git archive`` of the parent commit) that tree's two sources
-are built as the variant ``parent``.  Each variant is called through the
-unchanged ``ops.gemm`` / ``ops.sddmm`` wrappers (``ops.entry`` swapped)
-and:
+unpacked ``git archive`` of the parent commit) that tree's GEMM and SDDMM
+sources are built as the variant ``parent``.  Each variant is called
+through the unchanged ``ops.gemm`` / ``ops.sddmm`` /
+``ops.flash_attention`` wrappers (``ops.entry`` swapped) and:
 
 * held against the plain version on ``chip_smoke.py``'s ragged sweeps and
   the path shapes (fp32 rtol 1e-5 / atol 1e-4; the unmasked SDDMM sweep
@@ -28,7 +28,12 @@ and:
   (n1 = 4096, n2 = 128, the partition every FL program uses, its real
   mask), on the synthetic hub tile of ``chip_smoke.py`` and on two
   narrow tiles (w = 8 and 64, row lengths uniform in [0, w]), with an
-  accumulator, beside ``torch.sparse.sampled_addmm``.
+  accumulator, beside ``torch.sparse.sampled_addmm``; flash (bf16,
+  causal) at the B=4, T=2048 prefill shapes of gemma3-12b (d = 240,
+  without and with the window of 1024), gemma3-27b (d = 168) and
+  qwen3-0.6b (d = 128), each under ``chip_smoke.check_rows`` against the
+  plain version, with its bound and whether its bits equal the
+  checkout's kernel's.
 
 The kernel in the checkout is timed first and last (change, variants,
 change), so its two readings show the drift within the call.  It exits
@@ -91,7 +96,33 @@ VARIANTS = {
                     [("constexpr int WARPS = 4;",
                       "constexpr int WARPS = 16;")]),
     },
+    "flash_attention": {
+        "wide_two_wg": ("bf16 body past d = 128: two consumer warpgroups "
+                        "(128 query rows, 288 threads, 168 registers a "
+                        "thread) instead of one",
+                        [("  static constexpr int NWG = DP > 128 ? 1 : 2;",
+                          "  static constexpr int NWG = 2;")]),
+        "wide_pv_halves": ("bf16 body past d = 128: P.V as two m64n128 "
+                           "halves instead of one m64n256",
+                           [("        wgmma_rs_n256(o, pa[kc], dv, 1);\n",
+                             "        wgmma_rs_n128(*reinterpret_cast<"
+                             "float(*)[64]>(o), pa[kc], dv, 1);\n"
+                             "        wgmma_rs_n128(*reinterpret_cast<"
+                             "float(*)[64]>(o + 64), pa[kc], gmma_desc("
+                             "v_s + 2 * L::KV_PANEL + kc * 16 * 128, "
+                             "L::KV_PANEL, 1024), 1);\n")]),
+        "wide_kstep_break": ("bf16 body past d = 128: Q.K^T stops at the "
+                             "last k-step below d (a branch between the "
+                             "wgmma of one stage)",
+                             [("    for (int ks = 0; ks < KS; ++ks) {\n",
+                               "    for (int ks = 0; ks < KS; ++ks) {\n"
+                               "      if (DP > 128 && 16 * ks >= d) "
+                               "break;\n")]),
+    },
 }
+# Kernels whose parent source is built as the variant "parent" (the flash
+# kernel's C signature changed with its window argument).
+PARENT_KERNELS = ("gemm", "sddmm")
 
 
 def log(*a) -> None:
@@ -101,22 +132,24 @@ def log(*a) -> None:
 def build_variants(build, parent):
     """Build every variant (and the parent's sources); returns (kernel,
     name) -> C entry point, the checkout's kernels as "change"."""
-    copies = {}
+    copies, keys = {}, {}
     for kern, variants in VARIANTS.items():
         for name, (_, edits) in variants.items():
             copies[f"{kern}_{name}"] = (kern, build.edited(kern, edits))
-        if parent:
+            keys[f"{kern}_{name}"] = (kern, name)
+        if parent and kern in PARENT_KERNELS:
             with open(os.path.join(parent, "src/repro_torch/kernels/csrc",
                                    f"{kern}.cu")) as fh:
                 copies[f"{kern}_parent"] = (kern, fh.read())
+            keys[f"{kern}_parent"] = (kern, "parent")
     t0 = time.perf_counter()
     built = build.build_copies(copies, os.path.join(build.BUILD_DIR,
                                                     "variants"))
-    log(f"build: {len(copies)} copies and the checkout's two kernels in "
+    log(f"build: {len(copies)} copies and the checkout's kernels in "
         f"{time.perf_counter() - t0:.2f} s")
     fns = {}
     for tag, (fn, report) in built.items():
-        kern, name = tag.split("_", 1)
+        kern, name = keys[tag]
         regs = [ln.split("ptxas info    :")[-1].strip()
                 for ln in report.splitlines() if "Used" in ln or "spill" in ln]
         log(f"nvcc {kern} {name}: " + "; ".join(regs))
@@ -179,6 +212,53 @@ def gemm_phase(torch, cs, ops, ref, fns):
         log(f"gemm {m}x{k}x{n} ms (C = A.B / C = acc + A.B): " + ", ".join(
             f"{nm} {a:.4f} / {b:.4f}" for nm, (a, b) in row.items())
             + " (torch: matmul / addmm)")
+    return out
+
+
+# Prefill shapes of the flash kernel at B=4 (bf16, causal): (label, query
+# heads, KV heads, T, d, window).
+FLASH_SHAPES = [("gemma3-12b", 64, 32, 2048, 240, 0),
+                ("gemma3-12b local", 64, 32, 2048, 240, 1024),
+                ("gemma3-27b", 128, 64, 2048, 168, 0),
+                ("qwen3-0.6b", 64, 32, 2048, 128, 0)]
+
+
+def flash_phase(torch, cs, ops, ref, fns):
+    """Each flash build against the plain version (``check_rows``) and
+    against the checkout's kernel (equal bits or not) at the prefill
+    shapes, timed as ``chip_smoke.py`` times kernels."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    names = [n for k, n in fns if k == "flash_attention"]
+    order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
+    out = {}
+    for label, bh, kvh, t, d, w in FLASH_SHAPES:
+        q = torch.randn(bh, t, d, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(kvh, t, d, generator=gen, device="cuda"
+                            ).bfloat16() for _ in range(2))
+        want = ref.flash_attention_plain(q, k, v, True, w)
+        with entry_as(ops, fns[("flash_attention", "change")]):
+            mine = ops.flash_attention(q, k, v, True, w)
+        row = {}
+        for i, nm in enumerate(order):
+            with entry_as(ops, fns[("flash_attention", nm)]):
+                got = ops.flash_attention(q, k, v, True, w)
+                whole, worst = cs.check_rows(torch, f"flash {nm} {label}",
+                                             got, want)
+                ms = cs.median_ms(torch, lambda: ops.flash_attention(
+                    q, k, v, True, w))
+            row[nm if i < len(order) - 1 else "change_again"] = {
+                "ms": ms, "rel_l2_whole": whole, "rel_l2_worst_row": worst,
+                "equal_to_change": bool(torch.equal(got, mine))}
+        b_ms, b_by = cs.flash_bound(bh, t, t, d, True, 2,
+                                    cs.PEAK_BF16_FLOP_S, kv_heads=kvh,
+                                    window=w)
+        row["bound_ms"] = b_ms
+        out[label] = row
+        log(f"flash {label} (BH={bh} over {kvh}, T={t}, d={d}, window {w}) "
+            f"ms: " + ", ".join(f"{nm} {r['ms']:.4f}" + (
+                "" if r["equal_to_change"] else " (bits differ)")
+                for nm, r in row.items() if nm != "bound_ms")
+            + f"; bound {b_ms:.4f} ({b_by})")
     return out
 
 
@@ -314,11 +394,13 @@ def main() -> int:
     fns = build_variants(build, args.parent)
     fns[("gemm", "change")] = ops.entry("gemm")
     fns[("sddmm", "change")] = ops.entry("sddmm")
+    fns[("flash_attention", "change")] = ops.entry("flash_attention")
     result = {"card": card,
               "variants": {k: {n: d for n, (d, _) in v.items()}
                            for k, v in VARIANTS.items()},
               "gemm": gemm_phase(torch, cs, ops, ref, fns),
-              "sddmm": sddmm_phase(torch, cs, ops, ref, fns)}
+              "sddmm": sddmm_phase(torch, cs, ops, ref, fns),
+              "flash_attention": flash_phase(torch, cs, ops, ref, fns)}
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

@@ -41,7 +41,7 @@ _ARGTYPES = {
     "sddmm": ("sddmm_f32", [_c_void_p] * 6 + [_c_int] * 4 + [_c_ll] * 2
               + [_c_void_p]),
     "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
-                        + [_c_int] * 7 + [_c_float, _c_void_p]),
+                        + [_c_int] * 8 + [_c_float, _c_void_p]),
     "densify": ("ell_densify_f32", [_c_void_p] * 3 + [_c_int] * 3
                 + [_c_ll, _c_void_p]),
 }

@@ -1,28 +1,34 @@
-// Flash attention forward for the LM prefill path:
+// Flash attention forward for the LM prefill and train paths:
 //
-//   out[bh] = softmax(q[bh] . k[bh / G]^T * scale [+ causal mask]) . v[bh / G]
+//   out[bh] = softmax(q[bh] . k[bh / G]^T * scale [+ mask]) . v[bh / G]
 //
 // per row block of q, with the online max/sum recurrence and fp32 running
 // max, sum and accumulator.  The causal mask is the Pallas kernel's index
-// mask qpos >= kpos, both counted from 0.  G query heads share one KV head
-// (grouped-query attention; G = 1 is one KV head per query head).
+// mask qpos >= kpos, both counted from 0; a sliding window W >= 1 (causal
+// only) also masks keys with qpos - kpos >= W, JAX's `_mask_bias`
+// (src/repro/models/attention.py), which gemma3's local layers apply.  G
+// query heads share one KV head (grouped-query attention; G = 1 is one KV
+// head per query head).
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` /
 // `_flash_kernel` (the Pallas kernel: grid (B*H, Tq/bq), the whole [Tk, d]
 // K and V of one head in VMEM, a loop over KV blocks with fp32 m / l / acc
-// scratch, causal skip of KV blocks strictly after the query block).  On
-// the port's path it is reached through src/repro_torch/kernels/ops.py
-// `flash_attention` from src/repro_torch/models/attention.py `attention`
-// (causal self-attention with default positions, every layer of
-// DecoderLM.forward).
+// scratch, causal skip of KV blocks strictly after the query block; any
+// head dim).  On the port's path it is reached through
+// src/repro_torch/kernels/ops.py `flash_attention` from
+// src/repro_torch/models/attention.py `attention` (causal self-attention
+// with default positions, windowed or not: every layer of
+// DecoderLM.forward, in prefill and in the train step's forward).
 //
-// What bounds it on an H100: operations.  At the path shape (qwen3-0.6b
-// prefill, B=4, T=2048: BH = 64 query heads over 32 KV heads, d = 128,
-// bf16, causal) the call needs 4 * BH * d * T(T+1)/2 = 68.8 GFLOP of
-// products (0.069 ms at the 989 TFLOP/s bf16 tensor-core rate) and moves
-// q and out (67 MB) and k and v (34 MB with grouped heads, 67 MB with one
-// KV head per query head): 0.030-0.040 ms at 3.35 TB/s.  In fp32 the
-// products run on CUDA cores (67 TFLOP/s): 1.0 ms.
+// What bounds it on an H100: operations.  At qwen3-0.6b's prefill shape
+// (B=4, T=2048: BH = 64 query heads over 32 KV heads, d = 128, bf16,
+// causal) the call needs 4 * BH * d * T(T+1)/2 = 68.8 GFLOP of products
+// (0.069 ms at the 989 TFLOP/s bf16 tensor-core rate) and moves q and out
+// (67 MB) and k and v (34 MB): 0.030 ms at 3.35 TB/s.  At gemma3-12b's
+// (BH = 64 over 32, d = 240) it needs 128.9 GFLOP causal (0.130 ms) and
+// 96.7 GFLOP with the local layers' window of 1024 (0.098 ms: a row sees
+// at most 1024 keys), against 189 MB moved (0.056 ms).  In fp32 the
+// products run on CUDA cores (67 TFLOP/s): 1.0 ms at qwen3's shape.
 //
 // Design.  Hopper runs blocks in parallel, so the Pallas grid's sequential
 // KV walk becomes a loop inside one CTA per (bh, query tile), with the
@@ -32,45 +38,57 @@
 // are issued heaviest first (the last causal tiles walk the most keys).
 // Ragged edges are masked in the kernel: rows past Tq are computed on
 // zeros and not stored, keys past Tk score nothing, columns past d are zero
-// in shared memory, so any Tq, Tk >= 1 and d <= 128 work.  KV tiles
-// strictly after the query tile are skipped under causal masking, as in the
-// Pallas kernel (their keys are masked for every row, so skipping them is
-// exact).  Every sum runs in one fixed order with no atomics, so results
-// are deterministic.  Two bodies:
+// in shared memory, so any Tq, Tk >= 1 and d <= 256 work.  The walk over
+// KV tiles is bounded on both sides: tiles strictly after the query tile
+// are skipped under causal masking, as in the Pallas kernel, and under a
+// window W tiles wholly before key q0 - W + 1 (q0 the tile's first row)
+// are skipped too; their keys are masked for every row, so skipping them
+// is exact.  The mask itself is applied only on tiles that hold a masked
+// key: the causal diagonal, the window's lower edge, the ragged end of Tk.
+// A window needs Tq <= Tk, so every row sees at least its own key and no
+// row is empty.  Every sum runs in one fixed order with no atomics, so
+// results are deterministic.  Two bodies:
 //  * bf16 inputs: tensor cores through wgmma, Hopper's warpgroup MMA.  A
-//    CTA owns 128 query rows: two consumer warpgroups of 64 rows each (K
-//    and V are read from L2 once per 128 rows) and one producer warp.
-//    The producer fills a ring of two shared-memory stages, each 128 keys
-//    of K and V, ahead of the math with TMA (one thread; the hardware
-//    writes the 128-byte swizzle and zero-fills past Tq, Tk and d) and
-//    signals each stage on a `full` mbarrier; every consumer warp releases
-//    a stage on an `empty` mbarrier once its products have read it.  No
-//    CTA-wide barrier follows the start, so the two warpgroups drift apart
-//    and one's softmax overlaps the other's products.  Q, K and V lie in
-//    shared memory as 64-column panels of 128-byte rows whose 16-byte
-//    chunks are XORed by row % 8 (wgmma's 128-byte swizzle).  S = Q.K^T
-//    is wgmma m64n128k16 with both operands from shared memory (K-major);
-//    its fp32 accumulators are, per warp, the m16n8k16 A fragments of
-//    P.V, so P is rounded to bf16 in registers (as the JAX kernel rounds
-//    it) and O += P.V is wgmma m64n{64,128}k16 with A from registers and V
-//    read in its natural [keys, d] layout through the transpose bit
-//    (MN-major).  Max, sum and rescaling run in fp32, the max on the raw
-//    scores with the scale folded into the exponent's fma; the mask is
-//    applied only on tiles that hold a masked key (the causal diagonal,
-//    the ragged end of Tk).  Shared memory: Q 32 KB and two 64 KB K+V
-//    stages at d = 128 (160 KB, one CTA of 9 warps per SM); 16 KB and
-//    2 x 32 KB at d <= 64 (the staged width is at least one 64-column
-//    panel).  Tensors TMA cannot take (d not a multiple of 8, a base not
-//    16-byte aligned) are staged by the producer warp with plain loads
-//    into the same layout.
+//    CTA owns 64 query rows per consumer warpgroup (two at d <= 128: K
+//    and V are read from L2 once per 128 rows; one past d = 128) and one
+//    producer warp.  The producer fills a ring of two shared-memory
+//    stages, each BK keys of K and V, ahead of the math with TMA (one
+//    thread; the hardware writes the 128-byte swizzle and zero-fills past
+//    Tq, Tk and d) and signals each stage on a `full` mbarrier; every
+//    consumer warp releases a stage on an `empty` mbarrier once its
+//    products have read it.  No CTA-wide barrier follows the start, so two
+//    warpgroups drift apart and one's softmax overlaps the other's
+//    products.  Q, K and V lie in shared memory as 64-column panels of
+//    128-byte rows whose 16-byte chunks are XORed by row % 8 (wgmma's
+//    128-byte swizzle).  S = Q.K^T is wgmma m64n{BK}k16 with both operands
+//    from shared memory (K-major); its fp32 accumulators are, per warp,
+//    the m16n8k16 A fragments of P.V, so P is rounded to bf16 in
+//    registers (as the JAX kernel rounds it) and O += P.V is wgmma
+//    m64n{64,128,256}k16 with A from registers and V read in its natural
+//    [keys, d] layout through the transpose bit (MN-major).  Max, sum and
+//    rescaling run in fp32, the max on the raw scores with the scale
+//    folded into the exponent's fma.  Shared memory and registers set the
+//    tiles: at d <= 128, BK = 128 and Q 32 KB plus two 64 KB K+V stages
+//    (160 KB; 16 KB and 2 x 32 KB at d <= 64, the staged width being at
+//    least one 64-column panel), 9 warps; at 128 < d <= 256 (gemma3: 240
+//    and 168), BK = 64, Q 32 KB and two 64 KB stages (160 KB; 128-key
+//    stages beside 128 rows of Q would need 320 KB), 5 warps, S 32 and O
+//    128 fp32 registers a thread.  With 9 warps the compiler caps a
+//    thread at 168 registers and O spills; with 5 it takes 200 and none
+//    spill (kernel_variants.py times both).  TMA loads only the panels
+//    that hold a column below d; the others are zeroed once at the start,
+//    so every k-step runs without a branch between the wgmma of a stage
+//    (a branch serializes them).  Tensors TMA cannot take (d not a
+//    multiple of 8, a base not 16-byte aligned) are staged by the
+//    producer warp with plain loads into the same layout.
 //  * fp32 inputs: CUDA cores, IEEE fp32 throughout (the fp32 parities hold
 //    it to 2e-5).  256 threads over 64 query rows; thread (rg, cg) owns
 //    query rows 4rg..4rg+3, score columns cg + 16j and output columns
 //    cg + 16j; row max and sum are reduced over the 16 lanes of a row
 //    group by a fixed xor-shuffle tree; P goes through shared memory to
 //    the P.V product, and K and V share one staging buffer (85 KB at
-//    d = 128, two CTAs per SM).  Loads and math alternate behind
-//    __syncthreads.
+//    d = 128, two CTAs per SM; 147 KB at d = 256, one).  Loads and math
+//    alternate behind __syncthreads.
 // The kernel launches on the caller's stream and allocates nothing.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -90,6 +108,12 @@ __device__ __forceinline__ int kv_tiles(int q0, int tk, int causal) {
   // Keys after the query tile's last row are masked for every row.
   const int end = causal ? min(tk, q0 + BQ) : tk;
   return (end + BK - 1) / BK;
+}
+
+// The first KV tile (of `bk` keys) a query tile starting at row q0 walks:
+// under a window W, keys before q0 - W + 1 are masked for every row.
+__device__ __forceinline__ int kv_tile_begin(int q0, int window, int bk) {
+  return window > 0 ? max(0, q0 - window + 1) / bk : 0;
 }
 
 // ------------------------------------------------------------------------ //
@@ -120,7 +144,8 @@ template <int DP>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int tq, int tk, int d, int causal, int group, float scale) {
+                 int tq, int tk, int d, int causal, int window, int group,
+                 float scale) {
   constexpr int LD = SimtSmem<DP>::LD;
   constexpr int LDP = SimtSmem<DP>::LDP;
   constexpr int OC = DP / 16;            // output columns per thread
@@ -150,7 +175,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int n_kt = kv_tiles(q0, tk, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kv_tile_begin(q0, window, BK); kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                       // last tile's P.V reads done
     stage_f32<DP>(KVs, kb, k0, tk, d);
@@ -190,7 +215,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + cg + 16 * j;
-        const bool ok = kpos < tk && (!causal || kpos <= qpos);
+        const bool ok = kpos < tk && (!causal || kpos <= qpos) &&
+                        (window <= 0 || qpos - kpos < window);
         s[i][j] = ok ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -258,19 +284,26 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ------------------------------------------------------------------------ //
 // bf16: tensor cores through wgmma, K/V ring filled by cp.async.
 // ------------------------------------------------------------------------ //
-constexpr int WG_BQ = 128;       // query rows per CTA: two warpgroups of 64
-constexpr int WG_BK = 128;       // keys per K/V stage (one m64n128 S)
 constexpr int WG_STAGES = 2;     // K/V ring depth
-constexpr int WG_CONSUMERS = 256;              // warps 0-7: two warpgroups
-constexpr int WG_THREADS = WG_CONSUMERS + 32;  // warp 8: the producer
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
 struct WgSmem {
   static constexpr int PN = DP < 64 ? 64 : DP;  // staged width, whole panels
   static constexpr int NP = PN / 64;            // 64-column panels
-  static constexpr int Q_PANEL = WG_BQ * 128;   // bytes: 128 rows of 128 B
-  static constexpr int KV_PANEL = WG_BK * 128;  // bytes: 128 rows of 128 B
+  // Keys per K/V stage (one m64n{BK} S): 64 past d = 128, where two stages
+  // of 128 keys would not fit beside Q and S would crowd O's registers.
+  static constexpr int BK = DP > 128 ? 64 : 128;
+  // Consumer warpgroups of 64 query rows each; the producer is one warp.
+  // Past d = 128 one: with 288 threads the compiler caps a thread at 168
+  // registers (3 warps on an SM sub-partition) and O's 128 would spill;
+  // with 160 it may take 255.
+  static constexpr int NWG = DP > 128 ? 1 : 2;
+  static constexpr int BQ = 64 * NWG;           // query rows per CTA
+  static constexpr int CONSUMERS = 128 * NWG;   // consumer threads
+  static constexpr int THREADS = CONSUMERS + 32;
+  static constexpr int Q_PANEL = BQ * 128;      // bytes: BQ rows of 128 B
+  static constexpr int KV_PANEL = BK * 128;     // bytes: BK rows of 128 B
   static constexpr int Q_BYTES = NP * Q_PANEL;
   static constexpr int STAGE = 2 * NP * KV_PANEL;  // K panels, then V panels
   static constexpr int BARS = Q_BYTES + WG_STAGES * STAGE;  // mbarriers
@@ -405,6 +438,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (+)= A.B for a 64 x 64 tile, depth 16: A and B from shared memory
+// (both K-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (+)= A.B for a 64 x 64 tile, depth 16: A from registers (the
 // m16n8k16 A fragment of each warp's 16 rows), B from shared memory
 // (MN-major, 128-byte swizzle: the transpose bit is set).
@@ -471,6 +528,69 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(scale_d));
 }
 
+// D (+)= A.B for a 64 x 256 tile, depth 16: A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory
+// (MN-major, 128-byte swizzle: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 // The producer warp's fallback when TMA cannot take the tensors (d not a
 // multiple of 8, or a base not 16-byte aligned): rows [r0, r0 + ROWS) x
 // [0, PN) of a [n_rows, d] bf16 matrix, zero padded, by plain loads into
@@ -494,56 +614,61 @@ __device__ __forceinline__ void stage_tile_warp(uint8_t* dst,
   }
 }
 
+template <int BQ_, int BK_>
 __device__ __forceinline__ int wg_kv_tiles(int q0, int tk, int causal) {
   // Keys after the CTA's last query row are masked for every row.
-  const int end = causal ? min(tk, q0 + WG_BQ) : tk;
-  return (end + WG_BK - 1) / WG_BK;
+  const int end = causal ? min(tk, q0 + BQ_) : tk;
+  return (end + BK_ - 1) / BK_;
 }
 
-// Warp 8 fills Q once and the K/V ring ahead of the consumers: with TMA
-// (one thread, hardware swizzle, zero fill past Tq / Tk / d) or, for
+// Warp 8 fills Q once and the K/V ring ahead of the consumers, over KV
+// tiles kt0 .. n_kt - 1: with TMA (one thread, hardware swizzle, zero fill
+// past Tq / Tk / d; only the panels that hold a column below d) or, for
 // tensors TMA cannot take, by the whole warp with plain loads.  Each
 // stage is reused once both warpgroups have released it.
 template <int DP, bool TMA>
 __device__ __forceinline__ void produce(
     uint8_t* Qs, uint8_t* ring, uint32_t bars, const __nv_bfloat16* qb,
     const __nv_bfloat16* kb, const __nv_bfloat16* vb, int q0, int tq,
-    int tk, int d, int n_kt, int bh, int bkv, const CUtensorMap* qmap,
-    const CUtensorMap* kmap, const CUtensorMap* vmap) {
+    int tk, int d, int kt0, int n_kt, int bh, int bkv,
+    const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap) {
   using L = WgSmem<DP>;
   const int lane = threadIdx.x & 31;
   const uint32_t full = bars, empty = bars + 8 * WG_STAGES;
   const uint32_t qbar = bars + 16 * WG_STAGES;
+  const int np_live = (d + 63) / 64;       // panels holding a column < d
   if (TMA) {
     if (lane != 0) return;
-    mbar_expect_tx(qbar, L::Q_BYTES);
-    for (int p = 0; p < L::NP; ++p)
+    mbar_expect_tx(qbar, np_live * L::Q_PANEL);
+    for (int p = 0; p < np_live; ++p)
       tma_load_3d(smem_u32(Qs + p * L::Q_PANEL), qmap, qbar, 64 * p, q0, bh);
   } else {
-    stage_tile_warp<DP, WG_BQ>(Qs, qb, q0, tq, d, L::Q_PANEL, lane);
+    stage_tile_warp<DP, L::BQ>(Qs, qb, q0, tq, d, L::Q_PANEL, lane);
     fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(qbar);
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt % WG_STAGES;
-    // Tile kt - STAGES used this stage: wait for its release.
-    if (kt >= WG_STAGES)
-      mbar_wait(empty + 8 * st, ((kt / WG_STAGES) & 1) ^ 1);
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int step = kt - kt0;
+    const int st = step % WG_STAGES;
+    // Step `step - STAGES` used this stage: wait for its release.
+    if (step >= WG_STAGES)
+      mbar_wait(empty + 8 * st, ((step / WG_STAGES) & 1) ^ 1);
     uint8_t* ks = ring + st * L::STAGE;
     uint8_t* vs = ks + L::NP * L::KV_PANEL;
-    const int k0 = kt * WG_BK;
+    const int k0 = kt * L::BK;
     if (TMA) {
-      mbar_expect_tx(full + 8 * st, L::STAGE);
-      for (int p = 0; p < L::NP; ++p) {
+      mbar_expect_tx(full + 8 * st, 2 * np_live * L::KV_PANEL);
+      for (int p = 0; p < np_live; ++p) {
         tma_load_3d(smem_u32(ks + p * L::KV_PANEL), kmap, full + 8 * st,
                     64 * p, k0, bkv);
         tma_load_3d(smem_u32(vs + p * L::KV_PANEL), vmap, full + 8 * st,
                     64 * p, k0, bkv);
       }
     } else {
-      stage_tile_warp<DP, WG_BK>(ks, kb, k0, tk, d, L::KV_PANEL, lane);
-      stage_tile_warp<DP, WG_BK>(vs, vb, k0, tk, d, L::KV_PANEL, lane);
+      stage_tile_warp<DP, L::BK>(ks, kb, k0, tk, d, L::KV_PANEL, lane);
+      stage_tile_warp<DP, L::BK>(vs, vb, k0, tk, d, L::KV_PANEL, lane);
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(full + 8 * st);
@@ -552,17 +677,18 @@ __device__ __forceinline__ void produce(
 }
 
 template <int DP, bool TMA>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+__global__ void __launch_bounds__(WgSmem<DP>::THREADS, 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ out, int tq, int tk, int d,
-                  int causal, int group, float scale,
+                  int causal, int window, int group, float scale,
                   const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap) {
   using L = WgSmem<DP>;
   constexpr int KS = DP / 16;              // k-steps of Q.K^T
+  constexpr int BK = L::BK;                // keys per stage
   constexpr int ON = L::PN / 2;            // O accumulators per thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -572,25 +698,42 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t full = bars, empty = bars + 8 * WG_STAGES;
   const uint32_t qbar = bars + 16 * WG_STAGES;
 
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BQ;
   const int bh = blockIdx.x;
   const int bkv = bh / group;              // grouped KV heads: bh / G
-  const int n_kt = wg_kv_tiles(q0, tk, causal);
+  const int kt0 = kv_tile_begin(q0, window, BK);
+  const int n_kt = wg_kv_tiles<L::BQ, BK>(q0, tk, causal);
   if (threadIdx.x == 0) {
     for (int s = 0; s < WG_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);          // the producer's arrival (+ bytes)
-      mbar_init(empty + 8 * s, 8);         // one per consumer warp
+      mbar_init(empty + 8 * s, 4 * L::NWG);  // one per consumer warp
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // Panels past d's last 64-column panel are never loaded (TMA fetches
+  // the live ones): zero them once, so Q.K^T adds 0 there and P.V fills
+  // O's unstored columns with 0.
+  const int np_live = (d + 63) / 64;
+  for (int p = np_live; p < L::NP; ++p) {
+    const int chunks = L::Q_PANEL / 16, kv_chunks = L::KV_PANEL / 16;
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x)
+      reinterpret_cast<uint4*>(Qs + p * L::Q_PANEL)[c] = make_uint4(0, 0, 0, 0);
+    for (int st = 0; st < WG_STAGES; ++st)
+      for (int kv = 0; kv < 2; ++kv) {
+        uint8_t* pan = ring + st * L::STAGE + (kv * L::NP + p) * L::KV_PANEL;
+        for (int c = threadIdx.x; c < kv_chunks; c += blockDim.x)
+          reinterpret_cast<uint4*>(pan)[c] = make_uint4(0, 0, 0, 0);
+      }
+  }
+  fence_proxy_async();
   __syncthreads();   // the last CTA-wide barrier: the roles part here
 
-  if (threadIdx.x >= WG_CONSUMERS) {
+  if (threadIdx.x >= L::CONSUMERS) {
     produce<DP, TMA>(Qs, ring, bars, q + (long long)bh * tq * d,
                      k + (long long)bkv * tk * d,
-                     v + (long long)bkv * tk * d, q0, tq, tk, d, n_kt, bh,
-                     bkv, &qmap, &kmap, &vmap);
+                     v + (long long)bkv * tk * d, q0, tq, tk, d, kt0, n_kt,
+                     bh, bkv, &qmap, &kmap, &vmap);
     return;
   }
 
@@ -607,15 +750,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t q_s = smem_u32(Qs) + wg * 64 * 128;
   mbar_wait(qbar, 0);
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt % WG_STAGES;
-    const int k0 = kt * WG_BK;
-    mbar_wait(full + 8 * st, (kt / WG_STAGES) & 1);
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int step = kt - kt0;
+    const int st = step % WG_STAGES;
+    const int k0 = kt * BK;
+    mbar_wait(full + 8 * st, (step / WG_STAGES) & 1);
     const uint32_t k_s = smem_u32(ring + st * L::STAGE);
     const uint32_t v_s = k_s + L::NP * L::KV_PANEL;
 
-    // S = Q.K^T: 64 rows x 128 keys, fp32.
-    float s[64];
+    // S = Q.K^T: 64 rows x BK keys, fp32.
+    float s[BK / 2];
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
@@ -624,26 +768,34 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                     1024);
       const uint64_t db = gmma_desc(k_s + (ks >> 2) * L::KV_PANEL + koff, 16,
                                     1024);
-      wgmma_ss_n128(s, da, db, ks > 0);
+      if constexpr (BK == 128)
+        wgmma_ss_n128(s, da, db, ks > 0);
+      else
+        wgmma_ss_n64(s, da, db, ks > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
 
-    // Mask where a key of the tile is masked; s[4i + e] is row row_lo
-    // (e < 2) or row_hi, key k0 + 8i + 2 t4 + (e & 1).  The max is taken
-    // on the raw scores (the scale is positive) and the scale folded into
-    // the exponent's fma.
-    const bool masked = (causal && k0 + WG_BK - 1 > wq0) || k0 + WG_BK > tk;
+    // Mask where a key of the tile is masked for a row of this warpgroup
+    // (past its first row's diagonal, at or below its last row's window
+    // edge, past Tk); s[4i + e] is row row_lo (e < 2) or row_hi, key
+    // k0 + 8i + 2 t4 + (e & 1).  A row with no key left in the tile keeps
+    // its max and adds 0.  The max is taken on the raw scores (the scale
+    // is positive) and the scale folded into the exponent's fma.
+    const bool masked = (causal && k0 + BK - 1 > wq0) || k0 + BK > tk ||
+                        (window > 0 && wq0 + 63 - k0 >= window);
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < WG_BK / 8; ++i) {
+    for (int i = 0; i < BK / 8; ++i) {
       if (masked) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kpos = k0 + 8 * i + 2 * t4 + (e & 1);
           const int qpos = e < 2 ? row_lo : row_hi;
-          if (kpos >= tk || (causal && kpos > qpos)) s[4 * i + e] = -INFINITY;
+          if (kpos >= tk || (causal && kpos > qpos) ||
+              (window > 0 && qpos - kpos >= window))
+            s[4 * i + e] = -INFINITY;
         }
       }
       mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
@@ -661,7 +813,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     m_hi = mn_hi;
     float rs_lo = 0.0f, rs_hi = 0.0f;   // this thread's part of the row sum
 #pragma unroll
-    for (int i = 0; i < WG_BK / 8; ++i) {
+    for (int i = 0; i < BK / 8; ++i) {
       s[4 * i] = ex2(fmaf(s[4 * i], sl2, -mn_lo));   // masked: ex2(-inf) = 0
       s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], sl2, -mn_lo));
       s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], sl2, -mn_hi));
@@ -681,9 +833,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P.V: the S accumulators of keys 16 kc .. 16 kc + 15 are the A
     // fragment of k-step kc.
-    uint32_t pa[WG_BK / 16][4];
+    uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int kc = 0; kc < WG_BK / 16; ++kc) {
+    for (int kc = 0; kc < BK / 16; ++kc) {
       pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
       pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
       pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
@@ -691,12 +843,15 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < WG_BK / 16; ++kc) {
+    for (int kc = 0; kc < BK / 16; ++kc) {
       const uint64_t dv = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, 1024);
-      if constexpr (L::PN == 128)
+      if constexpr (L::PN == 256) {
+        wgmma_rs_n256(o, pa[kc], dv, 1);
+      } else if constexpr (L::PN == 128) {
         wgmma_rs_n128(o, pa[kc], dv, 1);
-      else
+      } else {
         wgmma_rs_n64(o, pa[kc], dv, 1);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -784,8 +939,8 @@ bool make_map(CUtensorMap* map, const void* base, int heads, int rows, int d,
 
 template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int bh, int tq, int tk, int d, int causal, int group,
-               float scale, cudaStream_t stream) {
+               int bh, int tq, int tk, int d, int causal, int window,
+               int group, float scale, cudaStream_t stream) {
   auto kernel = flash_f32_kernel<DP>;
   const int smem = SimtSmem<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -795,14 +950,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, SIMT_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), tq, tk, d,
-      causal, group, scale);
+      causal, window, group, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int bh, int tq, int tk, int d, int causal, int group,
-                float scale, cudaStream_t stream) {
+                int bh, int tq, int tk, int d, int causal, int window,
+                int group, float scale, cudaStream_t stream) {
   // TMA needs 16-byte row strides and bases (per-head offsets are then
   // multiples of 16 bytes too).
   CUtensorMap maps[3];
@@ -811,57 +966,62 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                    ((reinterpret_cast<uintptr_t>(q) |
                      reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
-                   make_map(&maps[0], q, bh, tq, d, WG_BQ) &&
-                   make_map(&maps[1], k, bh / group, tk, d, WG_BK) &&
-                   make_map(&maps[2], v, bh / group, tk, d, WG_BK);
+                   make_map(&maps[0], q, bh, tq, d, WgSmem<DP>::BQ) &&
+                   make_map(&maps[1], k, bh / group, tk, d, WgSmem<DP>::BK) &&
+                   make_map(&maps[2], v, bh / group, tk, d, WgSmem<DP>::BK);
   auto kernel = tma ? flash_bf16_kernel<DP, true>
                     : flash_bf16_kernel<DP, false>;
   const int smem = WgSmem<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (tq + WG_BQ - 1) / WG_BQ);
-  kernel<<<grid, WG_THREADS, smem, stream>>>(
+  dim3 grid(bh, (tq + WgSmem<DP>::BQ - 1) / WgSmem<DP>::BQ);
+  kernel<<<grid, WgSmem<DP>::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), tq, tk, d, causal, group, scale,
-      maps[0], maps[1], maps[2]);
+      static_cast<__nv_bfloat16*>(out), tq, tk, d, causal, window, group,
+      scale, maps[0], maps[1], maps[2]);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int dispatch(int dtype, const void* q, const void* k, const void* v,
-             void* out, int bh, int tq, int tk, int d, int causal, int group,
-             float scale, cudaStream_t stream) {
+             void* out, int bh, int tq, int tk, int d, int causal, int window,
+             int group, float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<DP>(q, k, v, out, bh, tq, tk, d, causal, group, scale,
-                          stream);
-  return launch_bf16<DP>(q, k, v, out, bh, tq, tk, d, causal, group, scale,
-                         stream);
+    return launch_f32<DP>(q, k, v, out, bh, tq, tk, d, causal, window, group,
+                          scale, stream);
+  return launch_bf16<DP>(q, k, v, out, bh, tq, tk, d, causal, window, group,
+                         scale, stream);
 }
 
 }  // namespace
 
-// out[bh] = softmax(q[bh] k[bh / group]^T * scale, causal: qpos >= kpos)
-// v[bh / group] for contiguous q / out [bh, tq, d] and k / v
-// [bh / group, tk, d]; dtype 0 is fp32, 1 is bf16 (all four tensors),
-// 1 <= d <= 128, group >= 1 divides bh, bh < 2^31, tq <= 4,194,240.
+// out[bh] = softmax(q[bh] k[bh / group]^T * scale, causal: qpos >= kpos;
+// window > 0: also qpos - kpos < window) v[bh / group] for contiguous q /
+// out [bh, tq, d] and k / v [bh / group, tk, d]; dtype 0 is fp32, 1 is bf16
+// (all four tensors), 1 <= d <= 256, group >= 1 divides bh, bh < 2^31,
+// tq <= 4,194,240; a window needs causal and tq <= tk (window 0: none).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // arguments the kernel does not take; 0 when there is nothing to compute).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
                                    int bh, int tq, int tk, int d, int causal,
-                                   int group, float scale, void* stream) {
+                                   int window, int group, float scale,
+                                   void* stream) {
   if (bh <= 0 || tq <= 0) return 0;
-  if (tk <= 0 || d <= 0 || d > 128 || (dtype != 0 && dtype != 1) ||
-      group <= 0 || bh % group != 0 || (tq + BQ - 1) / BQ > 65535)
+  if (tk <= 0 || d <= 0 || d > 256 || (dtype != 0 && dtype != 1) ||
+      group <= 0 || bh % group != 0 || (tq + BQ - 1) / BQ > 65535 ||
+      window < 0 || (window > 0 && (!causal || tq > tk)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 32) return dispatch<32>(dtype, q, k, v, out, bh, tq, tk, d,
-                                   causal, group, scale, s);
+                                   causal, window, group, scale, s);
   if (d <= 64) return dispatch<64>(dtype, q, k, v, out, bh, tq, tk, d,
-                                   causal, group, scale, s);
-  return dispatch<128>(dtype, q, k, v, out, bh, tq, tk, d, causal, group,
-                       scale, s);
+                                   causal, window, group, scale, s);
+  if (d <= 128) return dispatch<128>(dtype, q, k, v, out, bh, tq, tk, d,
+                                     causal, window, group, scale, s);
+  return dispatch<256>(dtype, q, k, v, out, bh, tq, tk, d, causal, window,
+                       group, scale, s);
 }

@@ -7,9 +7,10 @@ k]]>, 0)``, all in fp32 (``acc``, ``row_len`` and ``mask`` may be None);
 ``densify(cols, vals, n_src)`` returns the dense [n1, n_src] block of an
 ELL tile (duplicate columns summed in slot order), the GEMM kernel's
 operand for a sparsity-remapped aggregate step;
-``flash_attention(q, k, v, causal)`` returns ``softmax(q k^T d^-1/2 [+
-causal mask]) v`` per head of [BH, T, d] tensors in fp32 or bf16, with
-k / v of [BH / G, T, d] for grouped KV heads.  Tensors on a CUDA device
+``flash_attention(q, k, v, causal, window)`` returns ``softmax(q k^T
+d^-1/2 [+ causal / sliding-window mask]) v`` per head of [BH, T, d]
+tensors in fp32 or bf16, d <= 256, with k / v of [BH / G, T, d] for
+grouped KV heads.  Tensors on a CUDA device
 launch the kernel from ``csrc/`` on the current stream, after checking
 device, dtype, shape and strides, and raise on anything the kernel does
 not take; there is no fallback.  Tensors on the CPU go to the plain
@@ -218,18 +219,19 @@ def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
 
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FLASH_MAX_D = 128
+FLASH_MAX_D = 256
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """``softmax(q k^T d^-1/2 [+ causal mask]) v`` for q [BH, Tq, d] and
-    k / v [BH / G, Tk, d], all fp32 or all bf16, contiguous, d <= 128;
-    returns [BH, Tq, d] in q's dtype (fp32 math inside).  The causal mask
-    is the Pallas kernel's ``qpos >= kpos``, both counted from 0.  With
-    G > 1 (G must divide BH) the query heads of a group are adjacent:
-    query head ``bh`` reads KV head ``bh // G``; G = 1 is one KV head per
-    query head."""
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``softmax(q k^T d^-1/2 [+ mask]) v`` for q [BH, Tq, d] and k / v
+    [BH / G, Tk, d], all fp32 or all bf16, contiguous, d <= 256; returns
+    [BH, Tq, d] in q's dtype (fp32 math inside).  The causal mask is the
+    Pallas kernel's ``qpos >= kpos``, both counted from 0; ``window`` W > 0
+    (causal only, Tq <= Tk) also masks ``qpos - kpos >= W``, JAX's
+    ``_mask_bias`` (0 is no window).  With G > 1 (G must divide BH) the
+    query heads of a group are adjacent: query head ``bh`` reads KV head
+    ``bh // G``; G = 1 is one KV head per query head."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 3:
             raise ValueError(f"flash_attention {name}: expected [BH, T, d], "
@@ -241,8 +243,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: k / v must be [BH / G, Tk, {d}]"
                          f" with G dividing BH = {bh}, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if not 1 <= d <= FLASH_MAX_D:
+        raise ValueError(f"flash_attention: head dim {d} outside [1, "
+                         f"{FLASH_MAX_D}]")
+    window = int(window)
+    if window < 0 or (window and (not causal or tq > tk)):
+        raise ValueError(f"flash_attention: a window ({window}) must be >= "
+                         f"0 and, when set, needs causal and Tq <= Tk "
+                         f"(causal={causal}, Tq={tq}, Tk={tk})")
     if _on_cpu(q, k, v):
-        return ref.flash_attention_plain(q, k, v, causal)
+        return ref.flash_attention_plain(q, k, v, causal, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention {name}: expected float32 or "
@@ -250,16 +260,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"flash_attention {name}: must be contiguous "
                              f"(stride {t.stride()})")
-    if not 1 <= d <= FLASH_MAX_D:
-        raise ValueError(f"flash_attention: head dim {d} outside [1, "
-                         f"{FLASH_MAX_D}]")
     if tq < 1 or tk < 1:
         raise ValueError(f"flash_attention: empty sequence (Tq={tq}, "
                          f"Tk={tk})")
     out = torch.empty_like(q)
     rc = entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _FLASH_DTYPES[q.dtype], bh, tq, tk, d, int(bool(causal)),
+        _FLASH_DTYPES[q.dtype], bh, tq, tk, d, int(bool(causal)), window,
         bh // bkv, d ** -0.5, _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

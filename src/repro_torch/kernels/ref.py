@@ -80,22 +80,29 @@ def sddmm_step_ref(h_dst: torch.Tensor, h_src: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, causal: bool = True
+                          v: torch.Tensor, causal: bool = True,
+                          window: int = 0, *, q_offset: int = 0
                           ) -> torch.Tensor:
     """The flash kernel's function: q [BH, Tq, d], k / v [BH / G, Tk, d]
     -> [BH, Tq, d] in q's dtype; query head ``bh`` reads KV head
     ``bh // G``.  Scores ``q k^T d^-1/2`` in fp32; under ``causal`` the
-    Pallas kernel's index mask ``qpos >= kpos`` (both counted from 0)
-    scores masked pairs -1e30."""
+    Pallas kernel's index mask ``qpos >= kpos`` (both counted from 0) and,
+    for ``window`` W > 0, JAX's ``_mask_bias`` window ``qpos - kpos < W``
+    score masked pairs -1e30 (W = 0 is no window).  ``q_offset`` counts
+    query rows from that position (a chunk of rows; the kernel has 0)."""
     d = q.shape[-1]
     g = q.shape[0] // k.shape[0]
     if g > 1:
         k, v = (x.repeat_interleave(g, dim=0) for x in (k, v))
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
-    if causal:
+    if causal or window > 0:
         tq, tk = q.shape[-2], k.shape[-2]
-        qpos = torch.arange(tq, device=q.device)[:, None]
-        kpos = torch.arange(tk, device=q.device)[None, :]
-        s = torch.where(qpos >= kpos, s, torch.full_like(s, -1e30))
+        dif = (torch.arange(q_offset, q_offset + tq,
+                            device=q.device)[:, None]
+               - torch.arange(tk, device=q.device)[None, :])
+        ok = dif >= 0 if causal else torch.ones_like(dif, dtype=torch.bool)
+        if window > 0:
+            ok = ok & (dif < window)
+        s = torch.where(ok, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)

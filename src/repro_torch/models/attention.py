@@ -6,12 +6,19 @@ Shapes: x [B, T, D]; q [B, T, H, hd]; kv [B, S, Kh, hd].  GQA groups
 G = H // Kh query heads per KV head: query head h reads KV head h // G.
 
 Routes of :func:`attention`, chosen by what is computed, never by what
-failed: causal self-attention (``kv_x`` None) with no window and default
-positions (``positions`` None, i.e. ``arange(T)``) goes to the flash
-kernel, ``ops.flash_attention`` (on CPU tensors its plain version), which
-computes the same function as ``_sdpa`` there.  Explicit positions,
-windows, non-causal and cross-attention go to ``_sdpa``, or to
-``_sdpa_chunked`` when T > ``chunk`` and ``chunk`` divides T, as in JAX.
+failed (nor by whether a gradient is wanted):
+
+* causal self-attention (``kv_x`` None) with default positions
+  (``positions`` None, i.e. ``arange(T)``), with or without a sliding
+  window, goes to the flash kernel through :class:`_FlashAttention`: its
+  forward is ``ops.flash_attention`` (on CPU tensors the plain version),
+  which computes the same function as ``_sdpa`` with ``_mask_bias``
+  there; its backward recomputes the plain function under autograd one
+  query chunk at a time (JAX has no backward kernel either: it
+  differentiates the same function in XLA);
+* explicit positions, non-causal and cross-attention go to ``_sdpa``, or
+  to ``_sdpa_chunked`` when T > ``chunk`` and ``chunk`` divides T, as in
+  JAX.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 from .layers import Params, dense_init, rms_norm, rope
 
@@ -112,7 +119,61 @@ def _sdpa_chunked(q, k, v, qpos, kpos, causal, window, scale, chunk: int):
     return o.to(q.dtype)
 
 
-def _flash(q, k, v):
+# Query rows per chunk of the backward's recompute: its fp32 scores are
+# [BH, BWD_CHUNK, <= T] at a time, not [BH, T, T].
+BWD_CHUNK = 1024
+
+
+def _plain_grads(q, k, v, do, window: int, chunk: int):
+    """Gradients of ``ref.flash_attention_plain(q, k, v, True, window)``
+    (self-attention, Tq == Tk) for the output gradient ``do``, recomputed
+    one chunk of query rows at a time over the keys those rows can see
+    (none after the chunk's last row; under a window none before its
+    first row's window).  dk / dv sum over chunks in fp32."""
+    t = q.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for q0 in range(0, t, chunk):
+        q1 = min(t, q0 + chunk)
+        k0 = max(0, q0 - window + 1) if window > 0 else 0
+        with torch.enable_grad():
+            qc = q[:, q0:q1].detach().requires_grad_()
+            kc = k[:, k0:q1].detach().float().requires_grad_()
+            vc = v[:, k0:q1].detach().float().requires_grad_()
+            o = ref.flash_attention_plain(qc, kc, vc, True, window,
+                                          q_offset=q0 - k0)
+            gq, gk, gv = torch.autograd.grad(o, (qc, kc, vc),
+                                             do[:, q0:q1])
+        dq[:, q0:q1] = gq
+        dk[:, k0:q1] += gk
+        dv[:, k0:q1] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Causal self-attention, windowed when ``window`` > 0, on the
+    kernel's layout (q [BH, T, d], k / v [BH / G, T, d]).  Forward: the
+    flash kernel (``ops.flash_attention``).  Backward: the plain function
+    recomputed under autograd (:func:`_plain_grads`), in the spirit of
+    JAX's ``jax.checkpoint`` of the chunk body; a backward kernel is later
+    work."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.window = window
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _plain_grads(q, k, v, do.contiguous(), ctx.window,
+                                  BWD_CHUNK)
+        return dq, dk, dv, None
+
+
+def _flash(q, k, v, window: int = 0):
     """Causal self-attention through the flash kernel: heads to the
     kernel's [B*H, T, hd] layout (KV heads [B*Kh, T, hd]; query head
     b*H + h reads KV head b*Kh + h // G, which is (b*H + h) // G, so the
@@ -123,8 +184,8 @@ def _flash(q, k, v):
     def heads(x, n):
         return x.transpose(1, 2).reshape(b * n, t, hd).contiguous()
 
-    o = ops.flash_attention(heads(q, h), heads(k, kh), heads(v, kh),
-                            causal=True)
+    o = _FlashAttention.apply(heads(q, h), heads(k, kh), heads(v, kh),
+                              window)
     return o.reshape(b, h, t, hd).transpose(1, 2)
 
 
@@ -145,14 +206,14 @@ def attention(p: Params, x: torch.Tensor,
     q, k = _qk_normalize(p, q, k, eps)
     hd = q.shape[-1]
     t = x.shape[1]
-    flash = kv_x is None and causal and window == 0 and positions is None
+    flash = kv_x is None and causal and positions is None
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
     if use_rope and kv_x is None:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
     if flash:
-        o = _flash(q, k, v)
+        o = _flash(q, k, v, window)
     else:
         kpos = (positions if kv_x is None
                 else torch.arange(src.shape[1], dtype=torch.int32,

@@ -75,3 +75,12 @@ def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, p["wg"])
     h = h * torch.sigmoid(g.float()).to(h.dtype)
     return torch.matmul(h, p["wo"])
+
+
+# --------------------------------------------------------------------------- #
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; fp32 logsumexp."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)

@@ -7,14 +7,17 @@ layer, in the order the scan visits them (for each repeat, each block of
 the superblock).  Weights carried from JAX are unstacked by
 ``repro_torch.convert.lm_params_from_arrays``.
 
-Ported: ``gqa`` attention (full, causal; with or without qk_norm) with a
-``dense`` SwiGLU FFN, and an LM head tied to the embedding (logits ``x @
-embed.T``) or untied (a ``head`` weight [d_model, vocab], logits ``x @
-head``).  Any other block kind and a sliding window raise
-NotImplementedError naming their ROADMAP item.  ``cfg.remat`` (activation
-checkpointing for the backward pass) has no meaning at inference and is
-ignored.  Parameters are created with ``requires_grad=False``: the port
-has no train step yet.
+Ported: ``gqa`` attention (causal, full or over a sliding window as in
+gemma3's local layers; with or without qk_norm) with a ``dense`` SwiGLU
+FFN, and an LM head tied to the embedding (logits ``x @ embed.T``) or
+untied (a ``head`` weight [d_model, vocab], logits ``x @ head``).  Any
+other block kind raises NotImplementedError naming its ROADMAP item.  A
+windowed layer's decode cache is a ring buffer of ``min(window,
+seq_len)`` slots, as in JAX.  ``cfg.remat`` (JAX's activation
+checkpointing) is not applied: the port's backward keeps the forward's
+activations, and only attention recomputes (``attention._FlashAttention``).
+Parameters are created with ``requires_grad=False`` (serving needs no
+graph); ``steps.init_train_state`` turns gradients on.
 
 Public surface:
   DecoderLM(cfg, device, seed)          — random weights from a seed
@@ -97,7 +100,6 @@ _NOT_PORTED = {
     "moe": "MoE FFN",
     "none": "FFN-less (xLSTM) blocks",
     "cross_attn": "vision cross-attention",
-    "window": "sliding-window attention (gemma3's local layers)",
 }
 
 
@@ -105,13 +107,12 @@ def check_spec(spec: BlockSpec) -> None:
     """Raise NotImplementedError for a block kind the port does not run."""
     for kind in (spec.attn if spec.attn != "gqa" else None,
                  spec.ffn if spec.ffn != "dense" else None,
-                 "cross_attn" if spec.cross_attn else None,
-                 "window" if spec.window else None):
+                 "cross_attn" if spec.cross_attn else None):
         if kind is not None:
             raise NotImplementedError(
                 f"{_NOT_PORTED.get(kind, kind)} is not ported to "
-                f"repro_torch yet (ROADMAP A15); the port runs full gqa + "
-                f"dense blocks")
+                f"repro_torch yet (ROADMAP A15); the port runs gqa + dense "
+                f"blocks, full or windowed")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -147,17 +148,21 @@ def block_apply(cfg: ModelConfig, spec: BlockSpec, bp: Block,
     """Full-sequence (prefill) application.  Returns (x, aux)."""
     eps = cfg.norm_eps
     h = rms_norm(x, bp.ln1, eps)
-    x = x + A.attention(bp.attn, h, positions, rope_theta=cfg.rope_theta,
-                        eps=eps, chunk=cfg.attn_chunk)
+    x = x + A.attention(bp.attn, h, positions, window=spec.window,
+                        rope_theta=cfg.rope_theta, eps=eps,
+                        chunk=cfg.attn_chunk)
     x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      seq_len: int, device=None) -> Dict[str, torch.Tensor]:
-    """Decode cache for one block: K and V for ``seq_len`` positions."""
-    return A.init_cache(batch, seq_len, cfg.n_kv_heads, cfg.hd,
-                        cfg.torch_dtype, device=device)
+    """Decode cache for one block: K and V for ``seq_len`` positions, or
+    for a windowed block ``min(window, seq_len)`` slots used as a ring
+    buffer (position p in slot p % slots)."""
+    s = min(spec.window, seq_len) if spec.window else seq_len
+    return A.init_cache(batch, s, cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
+                        device=device)
 
 
 def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
@@ -166,6 +171,7 @@ def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
     eps = cfg.norm_eps
     h = rms_norm(x, bp.ln1, eps)
     a, cache = A.decode_attention(bp.attn, h, cache, pos,
+                                  window=spec.window,
                                   rope_theta=cfg.rope_theta, eps=eps)
     x = x + a
     x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))

@@ -389,7 +389,7 @@ def test_budget_gate_and_liveness():
     eng.run(prog, x)
 
 
-def test_port_imports_neither_jax_nor_repro():
+def test_port_imports_neither_jax_nor_repro(tmp_path):
     code = (
         "import sys\n"
         "from repro_torch.core import graph as G\n"
@@ -451,14 +451,27 @@ def test_port_imports_neither_jax_nor_repro():
         "assert y.shape == (60, 3)\n"
         "from repro_torch.configs import get_config\n"
         "assert get_config('granite-8b').n_layers == 36\n"
+        "assert get_config('gemma3-27b').n_layers == 62\n"
+        "from repro_torch.launch import train\n"
+        "from repro_torch.checkpoint import latest_step\n"
+        "import repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.distributed.compression\n"
+        "ck = sys.argv[1]\n"
+        "assert train.main(['--arch', 'gemma3-12b', '--smoke', '--device',"
+        " 'cpu', '--steps', '2', '--batch', '1', '--seq', '12',"
+        " '--ckpt-dir', ck, '--ckpt-every', '2', '--compress-grads']) == 0\n"
+        "assert latest_step(ck) == 2\n"
+        "assert serve.main(['--arch', 'gemma3-27b', '--smoke', '--device',"
+        " 'cpu', '--requests', '1', '--prompt-len', '6', '--gen', '4']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout
 

@@ -1,7 +1,8 @@
 """The port on a CUDA device: hand kernels against their plain versions,
 the Engine against the float64 reference, a batched lane against the
-same request run alone, the LM prefill through the flash kernel against
-the same model with plain attention, live-graph versions against a cold
+same request run alone, the LM prefill through the flash kernel
+(windowed for gemma3, and its recomputed gradient) against the same model
+or function with plain attention, live-graph versions against a cold
 compile (with the bytes a delta uploads and a reclaim frees), and the
 mesh path on virtual shards of the card against the device path.
 
@@ -449,9 +450,13 @@ def test_cuda_flash_rejects_bad_operands(cuda):
         ops.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(TypeError):
         ops.flash_attention(q, q.bfloat16(), q)
-    big = torch.zeros(2, 8, 136, device=cuda)
+    big = torch.zeros(2, 8, 264, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, False, window=4)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q[:, :4], q[:, :4], True, window=4)
     with pytest.raises(ValueError, match="k / v"):
         ops.flash_attention(q, q[:1, :, :32], q[:1, :, :32])
     three = torch.zeros(3, 8, 64, device=cuda)       # G would be 2 / 3
@@ -464,6 +469,101 @@ def test_cuda_flash_rejects_bad_operands(cuda):
         ops.flash_attention(q, q, torch.zeros(2, 8, 64))  # mixed devices
     with pytest.raises(ValueError, match="\\[BH, T, d\\]"):
         ops.flash_attention(q[0], q[0], q[0])
+
+
+# Sliding windows and gemma3's head dims (240: gemma3-12b, 168: gemma3-27b;
+# 256 the widest): (T, heads, G, d, window, dtype); window 0 is none, 100
+# ends inside a KV tile, 1024 >= T is no window.
+FLASH_WINDOW_CASES = [(300, 4, 2, 240, 1, "bfloat16"),
+                      (300, 4, 2, 240, 5, "bfloat16"),
+                      (300, 4, 1, 168, 64, "bfloat16"),
+                      (250, 2, 2, 128, 100, "bfloat16"),
+                      (200, 2, 1, 256, 0, "bfloat16"),
+                      (1000, 2, 2, 64, 1024, "bfloat16"),
+                      (2048, 8, 2, 240, 1024, "bfloat16"),
+                      (200, 2, 1, 256, 0, "float32"),
+                      (130, 4, 2, 240, 64, "float32"),
+                      (77, 2, 1, 168, 5, "float32"),
+                      (250, 2, 2, 128, 100, "float32")]
+
+
+@pytest.mark.parametrize("t,h,grp,d,window,dtype", FLASH_WINDOW_CASES)
+def test_cuda_flash_window_and_wide_heads_match_plain(cuda, t, h, grp, d,
+                                                       window, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(t + d + window)
+    q = torch.randn(h, t, d, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(h // grp, t, d, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, True, window)
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.shape == q.shape
+    want = ref.flash_attention_plain(q, k, v, True, window)
+    if dt == torch.float32:
+        _close(got, want, 0.0, 2e-5)
+    else:
+        err = (got.float() - want.float())
+        assert float(err.norm() / want.float().norm()) <= 2.0 ** -8
+        rows = err.norm(dim=-1) / want.float().norm(dim=-1)
+        assert float(rows.max()) <= 2.0 ** -7
+    assert torch.equal(ops.flash_attention(q, k, v, True, window), got)
+
+
+@pytest.mark.parametrize("dtype,limit", [("bfloat16", 2e-2),
+                                         ("float32", 1e-4)])
+@pytest.mark.parametrize("d,window", [(240, 64), (128, 0)])
+def test_cuda_flash_gradient_matches_plain_route(cuda, dtype, limit, d,
+                                                 window):
+    # _FlashAttention (the kernel forward, the chunked plain recompute
+    # backward) against autograd through the plain function alone.
+    from repro_torch.models import attention as TA
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(d + window)
+    b, t, h, kh = 2, 1100, 4, 2
+    q = torch.randn(b, t, h, d, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(b, t, kh, d, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    w = torch.randn(b, t, h, d, generator=g, device=cuda)
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        (fn(*xs).float() * w).sum().backward()
+        return [x.grad.float() for x in xs]
+
+    def plain(q, k, v):
+        def heads(x):
+            return x.transpose(1, 2).reshape(-1, t, d)
+        o = ref.flash_attention_plain(heads(q), heads(k), heads(v), True,
+                                      window)
+        return o.reshape(b, h, t, d).transpose(1, 2)
+    ops.reset_launches()
+    got = grads(lambda q, k, v: TA._flash(q, k, v, window))
+    assert ops.LAUNCHES["flash_attention"] == 1
+    for a, e in zip(got, grads(plain)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - e).norm() / e.norm()) <= limit
+
+
+@pytest.mark.parametrize("dtype,limit", [("bfloat16", 2e-2),
+                                         ("float32", 1e-5)])
+def test_cuda_gemma3_prefill_matches_plain_attention(cuda, dtype, limit,
+                                                     monkeypatch):
+    # gemma3-12b at full width, one superblock (5 windowed layers and a
+    # global one, d = 240), a prompt of 1100 tokens past the window.
+    import dataclasses
+    cfg = dataclasses.replace(get_config("gemma3-12b"), n_layers=6,
+                              dtype=dtype)
+    model = build_model(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 1100)).astype(np.int32)).to(cuda)
+    prefill = make_prefill_step(model, cfg)
+    ops.reset_launches()
+    got = prefill(model, {"tokens": toks}).float()
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    monkeypatch.setattr(ops, "flash_attention", ref.flash_attention_plain)
+    want = prefill(model, {"tokens": toks}).float()
+    assert got.shape == (1, cfg.vocab) and bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) <= limit
 
 
 @pytest.mark.parametrize("dtype,limit", [("bfloat16", 2e-2),

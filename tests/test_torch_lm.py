@@ -523,7 +523,7 @@ def test_entry_points_need_a_card_unless_told_cpu():
     assert TS.build_model(cfg, device="cpu").embed.device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "whisper-base",
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-base",
                                   "deepseek-v3-671b", "xlstm-125m",
                                   "no-such-arch"])
 def test_unported_architectures_raise(arch):
@@ -540,7 +540,6 @@ def test_unported_block_kinds_raise():
     base = dataclasses.asdict(get_smoke_config("qwen3-0.6b"))
     for kw in ({"mla": True}, {"n_experts": 4, "top_k": 2, "d_ff_moe": 32},
                {"cross_attn_every": 2}, {"ssm_heads": 2, "ssm_state": 4},
-               {"attn_pattern": "local_global", "local_window": 8},
                {"xlstm": True}):
         with pytest.raises(NotImplementedError, match="A15"):
             DecoderLM(ModelConfig(**{**base, **kw}), device="cpu")
