@@ -30,11 +30,13 @@ Phases (any failure exits non-zero; nothing is caught):
    from seed 0.  Every output is held against the port's plain torch
    reference (``run_reference``, index_add_ / scatter_reduce) in float64
    on the card at rtol 2e-4 / atol 2e-5; the FL repeats must be cache
-   hits; the kernels' launch counts over the serve loop must be > 0 and
-   equal the executor's GEMM and SUM/MEAN SpDMM tile ops.  One more FL
-   request (a cache hit) under ``torch.profiler``: device time by kernel
-   (each hand kernel's sum on a line of its own) and the device's busy
-   share.  Then the SpDMM kernel timed again on the
+   hits (the third a CUDA-graph replay: the first pass stages the tiles,
+   the second is the warm pass whose stats replays keep); the kernels'
+   launches over the serve loop (the wrappers' plus the replays') must
+   be > 0 and equal the executor's GEMM and SUM/MEAN SpDMM tile ops.
+   One more FL request (a cache hit) under ``torch.profiler``: device
+   time by kernel (each hand kernel's sum on a line of its own) and the
+   device's busy share.  Then the SpDMM kernel timed again on the
    widest real ELL slice of the FL program with the executor's
    ``row_len`` (beside the full-width walk of the same slice), which is
    the kernel's entry in the ``kernels`` line.
@@ -67,12 +69,13 @@ Phases (any failure exits non-zero; nothing is caught):
 5. Runtime path: ``ServeLoop(OverlayPool(engines=[<the Engine above>,
    Engine()]), max_batch=4)`` with a worker thread per overlay serves 11
    requests: gat-dot (a dot-product-attention GAT, hidden 64, 2 layers)
-   and b2 on FL, gat-dot on CO, in batches of 4, 4 and 3
+   and b2 on FL, gat-dot on CO, in batches of 4, 4 and 3, the last run
+   in a bucket of 4 lanes as JAX pads it
    (``Engine.submit_batch`` -> ``BinaryExecutor.run_batch``).  Checks:
    admission order, batch sizes, b2@FL hits on the overlay that compiled
    it, every output against the float64 reference, lane 0 of each batch
    bit-identical to the same request served alone, and launches of each
-   kernel equal to lanes x the pass's tile ops of its mode.  One gat-dot
+   kernel equal to bucket lanes x the pass's tile ops of its mode.  One gat-dot
    FL hit under ``torch.profiler``, and the SDDMM kernel timed on the
    widest real ELL slice of the gat-dot FL program (with its real mask
    and an accumulator), the kernel's entry in the ``kernels`` line, and
@@ -84,7 +87,9 @@ Phases (any failure exits non-zero; nothing is caught):
    full-mode geometry of ``benchmarks/bench_sample.py``), max_batch 8, gcn
    normalization, on the full-scale synthesized Flickr graph (89,250
    vertices, 899,756 drawn edges, features of width 500 from seed 3).
-   ``warm`` compiles the programs of a disjoint stream of 384 requests;
+   ``warm`` compiles the programs of a disjoint stream of 384 requests
+   and runs each at batch sizes 1, 2, 4 and 8, twice (so the stream
+   replays captured passes);
    then 64 requests (1-16 targets each from seed 0, fanouts (25, 10),
    GraphSAGE's published two-hop sizes, b1 / b3 / b6 round-robin) are
    served as graph-as-data lanes of bucket programs.  Checks: every
@@ -93,10 +98,14 @@ Phases (any failure exits non-zero; nothing is caught):
    largest bucket, and every response of the largest bucket) bit-identical
    to the unpadded subgraph served through ``Engine.submit``; the
    program-cache hit rate after warm-up >= 0.9; GEMM and SpDMM launches
-   equal to the sum over batches of lanes x the bucket program's tile
-   steps.  Printed: p50 / p99 latency, throughput, the bucket census, the
-   mean batch size, ``graph_data`` H2D bytes per batch, the tile steps of
-   each bucket program, and one profiled batch of 8 lanes.
+   (the wrappers' plus the replays') equal to the sum over batches of
+   bucket lanes x the bucket program's tile steps; the same stream on an
+   eager twin of the service (``replay=False`` overlays holding the
+   programs the service compiled), every logit bit for bit the replayed
+   one's.  Printed: p50
+   / p99 latency, throughput, the bucket census, the mean batch size,
+   ``graph_data`` H2D bytes per batch, the tile steps of each bucket
+   program, and one profiled batch of 8 lanes (of each service).
 7. Conformance (``repro_torch.obs``): ``build_report`` of b1-b8 on CO
    and b2@FL device-resident (per-layer CUDA-event times) and of b2@FL
    host-streamed under phase 4's budget (synchronized wall times, a
@@ -108,6 +117,14 @@ Phases (any failure exits non-zero; nothing is caught):
    copy-engine rate ``torch.profiler`` reads for the same hit, and the
    decisions of ``Engine.remap`` priced by the b2@FL report beside phase
    4's (data-sheet defaults, probe).
+7b. Replays against the eager route (``Engine(replay=False)``) on the
+   programs phases 3 and 5 staged: b2@FL and gat-dot@FL hits, one round
+   of eager, replayed, replayed, eager, each bit for bit the first eager
+   hit, launches of both routes equal to hits x tile ops, a replayed
+   output against float64, one hit of each route profiled (busy share);
+   phase 5's stream on two eager overlays and on two replaying ones
+   (after its warm and capturing runs), every response bit for bit, p50
+   / p99 of each.
 8. Live graphs (``repro_torch.livegraph``) with verification on: a
    ``GraphVersionStore`` of full-scale FL (n1=4096, n2=128, 22 blocks)
    served through ``OverlayPool(2 overlays, verify=True)``.  v0 is FL;
@@ -133,12 +150,14 @@ Phases (any failure exits non-zero; nothing is caught):
    v0 and v1 reclaimed, and device memory falling by at least v1's
    copies no live version holds.  v3 compiled with ``GAGI_EXPORT_DIR``
    set, and ``python -m repro_torch.verify``'s ``main`` run over the
-   exported bundle (exit 0).  Last, b1 on a live CO (n1=1024) remapped
-   with ``force="gemm"`` and rebound after a delta that drains one tile
-   and adds an edge to another: only those two tiles re-priced (the
-   drained one skip), the binary changed only in their words, device and
-   host runs equal, within the float64 tolerance (densify and GEMM
-   kernels).  Every verification's time is printed.
+   exported bundle (exit 0).  Last, b1 on a live CO remapped with
+   ``force="gemm"`` and rebound (verified) after a delta: at n1=4096 (one
+   tile) one that drains the tile, so no instruction reads the aggregate
+   layers' inputs; at n1=1024 one that drains one tile and adds an edge to
+   another: only the patched tiles re-priced (the drained one skip), the
+   binary changed only in their words, device and host runs equal, within
+   the float64 tolerance (densify and GEMM kernels at n1=1024).  Every
+   verification's time is printed.
 9. LM serving path, qwen3-0.6b at full width (28 layers, d_model 1024, 16
    query / 8 KV heads of 128, vocab 151,936), weights random from
    ``torch.Generator`` seed 0 with the JAX initializers' scales:
@@ -162,7 +181,11 @@ Phases (any failure exits non-zero; nothing is caught):
    prefills, 28 flash launches each, last-position logits within
    relative L2 2e-2 of the same model run with plain attention, the
    reading of the same model with ``_sdpa_chunked`` attention beside it,
-   one more prefill under ``torch.profiler``); fp32 decode
+   one more prefill under ``torch.profiler``); greedy decode through
+   ``launch.serve.generate`` at its defaults (8 requests, prompt 32, 16
+   tokens), eager and with the serve step captured, in turns, every
+   token equal, ms/token of each and one step of each profiled; fp32
+   decode
    against forward at B=2, T=64 (every position within 2e-4 of max
    |logit|, the JAX test's tolerance); and the serving loop
    ``repro_torch.launch.serve.main`` at its defaults (8 requests, prompt
@@ -205,7 +228,9 @@ Phases (any failure exits non-zero; nothing is caught):
    plain attention; fp32 decode against forward at 6 layers (5 windowed,
    1 global) over T = 1,088, past the window, so every local layer's
    ring buffer of 1,024 slots wraps (2e-4 of max |logit|);
-   ``launch.serve --arch gemma3-12b`` with 4 requests of 16 tokens;
+   the same eager / captured decode at gemma3-12b's 48 layers (4
+   requests, prompt 16, 16 tokens); ``launch.serve --arch gemma3-12b``
+   with 4 requests of 16 tokens;
    gemma3-27b (d = 168) at 8 layers, its 2-layer remainder segment and a
    superblock, prefilled at 4x2048 against plain attention.
 13. The train step: qwen3-0.6b at full width in bf16 (596 M parameters;
@@ -214,16 +239,25 @@ Phases (any failure exits non-zero; nothing is caught):
    (the flash kernel's forward, the chunked plain recompute backward)
    against the plain route (autograd through ``flash_attention_plain``,
    checkpointed per layer) within relative L2 2e-2, and in fp32 at 2
-   layers within 1e-4; 10 steps of ``make_train_step`` on
-   ``synthetic_batches`` (synchronized step ms, tokens/s, peak memory,
-   every loss finite, 28 flash launches a step), one under
-   ``torch.profiler``; ``checkpoint.save`` / ``restore`` of the whole
+   layers within 1e-4; 6 steps of ``make_train_step`` on
+   ``synthetic_batches`` under the config's ``remat="full"``
+   (synchronized step ms, tokens/s, peak memory, every loss finite, 56
+   flash launches a step: the forward runs again in the backward), one
+   under ``torch.profiler``; the loss and every gradient under remat
+   "full" and "dots" against "none" (bit for bit where "none" repeats
+   itself bit for bit, else within max(4 x its spread, 2^-8) relative L2),
+   2 timed steps of "none" and "dots" with their peak memory ("full"'s
+   are the train path's), and 2 steps at
+   T = 8192 under "full"; ``checkpoint.save`` / ``restore`` of the whole
    train state onto a fresh model on the card, bit for bit; and
    ``python -m repro_torch.launch.train`` at 2x4096, crashed after step
    4 (exit 42) and resumed from its own checkpoint of step 3 to step 5.
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
-paths (the Engine.serve path, the host and remap runs of phase 4, the
+paths, through its wrapper (``kernels.ops.LAUNCHES``; a CUDA-graph
+replay launches the captured kernels without one, and is counted apart,
+in ``ops.REPLAYED``, which the logs print beside it) (the Engine.serve
+path, the replay phase's hits, the host and remap runs of phase 4, the
 runtime path, the sampled stream, the reported runs of phase 7, the live
 path's runs of phase 8 (cold-compile comparisons excluded), the prefill
 and forward runs of phase 9, the mesh runs of phase 10 (device-path
@@ -631,6 +665,7 @@ def path_phase(torch):
         layer_times.append([(r["layer"], r["kernel"], r["tile_ops"],
                              r["wall_s"] * 1e3) for r in st.per_layer])
     launches = dict(ops.LAUNCHES)
+    ran = ops.launch_totals()
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the main path.
 
@@ -644,8 +679,10 @@ def path_phase(torch):
         f"{engine.stats.cache_hits} cache hits, {engine.stats.compiles} "
         f"compiles; max_memory_allocated {peak / 2**30:.3f} GiB")
     log(f"launches on the main path: gemm {launches['gemm']}, spdmm "
-        f"{launches['spdmm']}; executor tile ops: gemm {exp['gemm']}, "
-        f"spdmm {exp['spdmm']} (SUM/MEAN {exp['spdmm_sum_mean']})")
+        f"{launches['spdmm']} through the wrappers, gemm {ran['gemm']}, "
+        f"spdmm {ran['spdmm']} with the replays'; executor tile ops: gemm "
+        f"{exp['gemm']}, spdmm {exp['spdmm']} (SUM/MEAN "
+        f"{exp['spdmm_sum_mean']})")
     hits = [r.t_loh * 1e3 for r in responses[-3:] if r.cache_hit]
     log("b2@FL cache hits: T_LoH " + ", ".join(f"{ms:.2f}" for ms in hits)
         + " ms")
@@ -654,10 +691,10 @@ def path_phase(torch):
              f"{[r.cache_hit for r in responses[-3:]]}")
     if not (launches["gemm"] > 0 and launches["spdmm"] > 0):
         fail(f"a kernel was not launched on the main path: {launches}")
-    if launches["gemm"] != exp["gemm"]:
-        fail(f"gemm launches {launches['gemm']} != tile ops {exp['gemm']}")
-    if not (launches["spdmm"] == exp["spdmm_sum_mean"] == exp["spdmm"]):
-        fail(f"spdmm launches {launches['spdmm']} != SUM/MEAN tile ops "
+    if ran["gemm"] != exp["gemm"]:
+        fail(f"gemm launches {ran['gemm']} != tile ops {exp['gemm']}")
+    if not (ran["spdmm"] == exp["spdmm_sum_mean"] == exp["spdmm"]):
+        fail(f"spdmm launches {ran['spdmm']} != SUM/MEAN tile ops "
              f"{exp['spdmm_sum_mean']} / all {exp['spdmm']}")
 
     worst = hold_against_reference(torch, reqs, responses)
@@ -719,7 +756,7 @@ def _busy_us(ivs) -> float:
     return busy
 
 
-def profile_call(torch, fn, label: str, split=None, out=None):
+def profile_call(torch, fn, label: str, split=None, out=None, cpu=True):
     """``fn()`` under torch.profiler: device time by kernel name (with
     each kernel's launches and their median and longest duration) and the
     device's busy share of the call's wall time; returns the device ms by
@@ -727,12 +764,15 @@ def profile_call(torch, fn, label: str, split=None, out=None):
     measured" (and returns None); a profiler that raises fails the run.
     With ``split`` (a substring of event names, e.g. "HtoD") it also
     reports the busy time of the matching events, of the others, and how
-    long the two overlapped, into the dict ``out`` when one is given."""
+    long the two overlapped.  With ``out`` (a dict) the wall and busy
+    times and the busy share go there too (and the split's).  With
+    ``cpu=False`` only device activity is traced: a host-bound call then
+    runs (and is read back) with far less profiler overhead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -750,6 +790,9 @@ def profile_call(torch, fn, label: str, split=None, out=None):
     log(f"profile {label}: wall {wall_us / 1e3:.2f} ms under the "
         f"profiler, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}%), {len(kern)} device events")
+    if out is not None:
+        out.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                   busy_share=busy / wall_us, events=len(kern))
     if split is not None:
         mine = [(e.time_range.start, e.time_range.end) for e in kern
                 if split in e.name]
@@ -761,9 +804,8 @@ def profile_call(torch, fn, label: str, split=None, out=None):
             f"the rest {b / 1e3:.2f} ms, both at once {both / 1e3:.2f} ms "
             f"({100 * both / max(min(a, b), 1e-9):.1f}% of the shorter)")
         if out is not None:
-            out.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-                       busy_share=busy / wall_us, split_ms=a / 1e3,
-                       rest_ms=b / 1e3, overlap_ms=both / 1e3)
+            out.update(split_ms=a / 1e3, rest_ms=b / 1e3,
+                       overlap_ms=both / 1e3)
     total = {name: sum(us) for name, us in by_name.items()}
     hand = []
     for kern in HAND_KERNELS:
@@ -1183,6 +1225,12 @@ def build_gat_dot(B, g, hidden: int = 64, n_layers: int = 2, seed: int = 0):
     return b.m
 
 
+def lanes_of(n: int) -> int:
+    """The lanes ``Engine.submit_batch`` runs n requests in: JAX's bucket,
+    the next power of two."""
+    return 1 << (n - 1).bit_length()
+
+
 def plan_tile_ops(prog) -> dict:
     """Tile ops of one pass of ``prog`` that launch each kernel: GEMM
     steps of LINEAR layers, SUM/MEAN SpDMM steps, dot-mode SDDMM steps."""
@@ -1254,6 +1302,7 @@ def runtime_phase(torch, engine, co, fl):
         loop.shutdown()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    ran = ops.launch_totals()
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the runtime path.
 
@@ -1268,7 +1317,7 @@ def runtime_phase(torch, engine, co, fl):
             pool.engine_key(b["key"]))
         per_pass = plan_tile_ops(prog)
         for k in exp:
-            exp[k] += b["size"] * per_pass[k]
+            exp[k] += lanes_of(b["size"]) * per_pass[k]
         if per_pass["gemm"] != b["modes"].get("gemm", 0) or \
                 per_pass["sddmm"] != b["modes"].get("sddmm", 0):
             fail(f"batch {b['indices']}: executor tile ops {b['modes']} "
@@ -1281,8 +1330,8 @@ def runtime_phase(torch, engine, co, fl):
         f"max_memory_allocated {peak / 2**30:.3f} GiB")
     log("pool stats: " + json.dumps(pool.stats_snapshot()))
     log("metrics: " + json.dumps(pool.metrics.snapshot(max_batch=4)))
-    log(f"launches on the runtime path: {launches}; expected lanes x tile "
-        f"ops: {exp}")
+    log(f"launches on the runtime path: {launches} through the wrappers, "
+        f"{ran} with the replays'; expected lanes x tile ops: {exp}")
 
     if [r.request_id for r in resps] != [r.request_id for r in reqs]:
         fail("runtime responses are not in admission order: "
@@ -1298,8 +1347,8 @@ def runtime_phase(torch, engine, co, fl):
         fail("b2@FL must hit on overlay 0, got "
              f"{[(r.cache_hit, r.overlay) for r in b2]}")
     for k in exp:
-        if not (launches[k] == exp[k] > 0):
-            fail(f"{k} launches {launches[k]} != lanes x tile ops {exp[k]}")
+        if not (ran[k] == exp[k] > 0):
+            fail(f"{k} launches {ran[k]} != lanes x tile ops {exp[k]}")
     worst = hold_against_reference(torch, reqs, resps)
     log(f"runtime: {len(resps)} outputs within rtol {PATH_RTOL} / atol "
         f"{PATH_ATOL} of run_reference in float64 (worst max|err| "
@@ -1324,7 +1373,137 @@ def runtime_phase(torch, engine, co, fl):
     profile_call(torch, lambda: gat_eng.serve([reqs[0]]),
                  "gat-dot@FL hit")
     gat_prog = gat_eng.cache.get(resps[0].cache_key)
-    return launches, gat_prog, resps, peak, wall
+    return launches, gat_prog, resps, peak, wall, reqs, pool
+
+
+REPLAY_ROUNDS = 1        # rounds of eager, replay, replay, eager FL hits
+
+
+def replay_phase(torch, fl, fl_prog, gat_prog, rt_reqs, rt_pool):
+    """Replays against the eager route (``Engine(replay=False)``), on the
+    programs phases 3 and 5 compiled (so on their staged tiles): b2@FL and
+    gat-dot@FL hits in turns, each hit bit for bit the eager one, the
+    launches of both routes equal to hits x the pass's tile ops, one
+    replayed output of each against the float64 reference, and one hit of
+    each route under the profiler; then the runtime stream of phase 5 on
+    a pool of two eager overlays and on a pool of two replaying ones
+    (each holding the programs its phase-5 counterpart held), measured
+    after warm-up runs, every response bit for bit across the two, with
+    the pools' p50 / p99.  Returns (launches of the hits, a summary)."""
+    from repro_torch.core import graph as G
+    from repro_torch.engine import Engine, InferenceRequest
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import OverlayPool, ServeLoop
+
+    out = {}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    eag, rep = Engine(replay=False), Engine()
+    x = G.random_features(fl, seed=50)
+    models = {"b2@FL": "b2", "gat-dot@FL": rt_reqs[0].model}
+    for label, prog in (("b2@FL", fl_prog), ("gat-dot@FL", gat_prog)):
+        want = eag.run(prog, x)
+        for _ in range(3):                  # warm eager pass, capture
+            rep.run(prog, x)
+        times = {"eager": [], "replay": []}
+        ops.reset_launches()
+        # ---- hits of both routes: counts zeroed above, read below.
+        for _ in range(REPLAY_ROUNDS):
+            for mode in ("eager", "replay", "replay", "eager"):
+                eng = eag if mode == "eager" else rep
+                t0 = time.perf_counter()
+                y = eng.run(prog, x)
+                eng._sync()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                if not torch.equal(y, want):
+                    fail(f"replay {label}: a {mode} hit differs from the "
+                         f"first eager one by "
+                         f"{float((y - want).abs().max()):.3e}")
+        got, ran = dict(ops.LAUNCHES), ops.launch_totals()
+        # ----
+        for k in launches:
+            launches[k] += got[k]
+        per_pass = plan_tile_ops(prog)
+        hits = 2 * REPLAY_ROUNDS
+        for k in per_pass:
+            if got[k] != hits * per_pass[k] or \
+                    ran[k] != 2 * hits * per_pass[k]:
+                fail(f"replay {label}: {k} launches {got[k]} (wrappers) / "
+                     f"{ran[k]} (all) != {hits} / {2 * hits} hits x "
+                     f"{per_pass[k]} tile ops")
+        worst = hold_against_reference(
+            torch, [InferenceRequest(models[label], fl, x)],
+            [_resp(f"{label} replay", y)])
+        prof = {"eager": {}, "replay": {}}
+        for mode, eng in (("eager", eag), ("replay", rep)):
+            profile_call(torch, lambda: (eng.run(prog, x), eng._sync()),
+                         f"{label} {mode} hit (device activity only)",
+                         out=prof[mode], cpu=False)
+        med = {m: statistics.median(v) for m, v in times.items()}
+        for mode in prof:
+            if "busy_ms" in prof[mode]:
+                prof[mode]["busy_over_unprofiled"] = (
+                    prof[mode]["busy_ms"] / med[mode])
+                log(f"replay {label} {mode} hit: device busy "
+                    f"{prof[mode]['busy_ms']:.2f} ms over the unprofiled "
+                    f"median {med[mode]:.2f} ms: "
+                    f"{100 * prof[mode]['busy_over_unprofiled']:.1f}%")
+        log(f"replay {label}: hits in turns, eager T_LoH "
+            f"{[round(t, 2) for t in times['eager']]} ms (median "
+            f"{med['eager']:.2f}), replayed "
+            f"{[round(t, 2) for t in times['replay']]} ms (median "
+            f"{med['replay']:.2f}); every hit bit for bit; launches "
+            f"{got} through the wrappers, {ran} with the replays'; max|err| "
+            f"{worst:.3e} against float64")
+        out[label] = {"t_loh_ms": times, "median_ms": med,
+                      "launches": got, "ran": ran, "worst_err": worst,
+                      "profile": prof}
+
+    # The runtime stream on eager and on replaying overlays.
+    keys = {rt_pool.cache_key(r) for r in rt_reqs}
+    held = [{k: e.cache.get(k) for k in keys if k in e.cache}
+            for e in rt_pool.engines]
+
+    def stream(replay, runs):
+        engines = [Engine(replay=replay) for _ in held]
+        for e, progs in zip(engines, held):
+            for k, prog in progs.items():
+                e.cache.put(k, prog)
+        walls = []
+        for _ in range(runs):               # the last is measured
+            pool = OverlayPool(engines=engines)
+            loop = ServeLoop(pool, max_batch=4, max_wait_us=1e9)
+            t0 = time.perf_counter()
+            try:
+                resps = loop.serve(rt_reqs)
+            finally:
+                loop.shutdown()
+            walls.append(time.perf_counter() - t0)
+        log(f"replay stream, {'replaying' if replay else 'eager'} "
+            f"overlays: runs of {[round(w, 3) for w in walls]} s, "
+            f"{sum(e.stats.compiles for e in engines)} compiles")
+        snap = pool.metrics.snapshot(max_batch=4)["global"]
+        return resps, walls[-1], snap
+
+    # An eager overlay has nothing to warm (the programs are compiled and
+    # staged); a replaying one keeps its warm passes in the first run and
+    # captures in the second.
+    e_resps, e_wall, e_snap = stream(False, 1)
+    r_resps, r_wall, r_snap = stream(True, 3)
+    for a, b in zip(e_resps, r_resps):
+        if a.request_id != b.request_id or not torch.equal(a.output,
+                                                           b.output):
+            fail(f"replay stream: {b.request_id} differs from the eager "
+                 "stream's")
+    for label, wall, snap in (("eager", e_wall, e_snap),
+                              ("replayed", r_wall, r_snap)):
+        log(f"replay stream, {label} overlays: {len(rt_reqs)} requests in "
+            f"{wall:.3f} s, p50 {snap['p50_latency_ms']:.3f} ms, p99 "
+            f"{snap['p99_latency_ms']:.3f} ms, mean batch "
+            f"{snap['mean_batch_size']:.3f}")
+    log("replay stream: every response bit for bit across the two")
+    out["stream"] = {"eager": {"wall_s": e_wall, "metrics": e_snap},
+                     "replay": {"wall_s": r_wall, "metrics": r_snap}}
+    return launches, out
 
 
 def fl_sddmm_entry(torch, ops, ref, prog):
@@ -1508,6 +1687,7 @@ def sampled_phase(torch, fl_raw):
         svc.shutdown()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    ran = ops.launch_totals()
     # ---- end of the sampled path.
     svc.pool.execute_on = execute_on
     hits = sum(e.stats.cache_hits for e in svc.pool.engines) - h0
@@ -1538,7 +1718,7 @@ def sampled_phase(torch, fl_raw):
         steps[label] = {"tile_steps": per_pass, "n_blocks":
                         prog.pgraph.n_blocks}
         for k in exp:
-            exp[k] += b["size"] * per_pass[k]
+            exp[k] += lanes_of(b["size"]) * per_pass[k]
         if per_pass["gemm"] != b["modes"].get("gemm", 0):
             fail(f"sampled batch {label}: executor GEMM steps "
                  f"{b['modes']} != the plan's {per_pass}")
@@ -1548,10 +1728,11 @@ def sampled_phase(torch, fl_raw):
     h2d = [b["h2d_bytes"] for b in batches]
     log(f"sampled: graph_data H2D bytes per batch: mean "
         f"{statistics.mean(h2d):.0f}, max {max(h2d)}, total {sum(h2d)}; "
-        f"launches {launches}; expected lanes x tile steps {exp}")
+        f"launches {launches} through the wrappers, {ran} with the "
+        f"replays'; expected lanes x tile steps {exp}")
     for k in exp:
-        if not (launches[k] == exp[k] > 0):
-            fail(f"sampled {k} launches {launches[k]} != lanes x tile steps"
+        if not (ran[k] == exp[k] > 0):
+            fail(f"sampled {k} launches {ran[k]} != lanes x tile steps"
                  f" {exp[k]}")
     if hit_rate < SAMPLE_MIN_HIT_RATE:
         fail(f"sampled: cache hit rate {hit_rate:.4f} < "
@@ -1620,7 +1801,44 @@ def sampled_phase(torch, fl_raw):
     profile_call(torch, lambda: svc.pool.submit_batch(batch),
                  f"sampled batch of {len(same)} ({same[0].graph.name})",
                  split="HtoD", out=prof)
+
+    # The same stream on an eager twin of the service (overlays of
+    # Engine(replay=False)) holding the programs the service compiled, on
+    # the same overlays (an eager overlay has nothing else to warm): its
+    # logits equal the replayed ones bit for bit (lanes are independent,
+    # whatever batches the flushes form).
+    esvc = SamplingService(fl_raw, X, n_overlays=2, geometry=geom,
+                           max_batch=SAMPLE_MAX_BATCH, replay=False)
+    for e, src in zip(esvc.pool.engines, svc.pool.engines):
+        for prog in src.cache.values():
+            e.cache.put(prog.cache_key, prog)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        eresps = esvc.serve(reqs)
+    finally:
+        esvc.shutdown()
+    ewall = time.perf_counter() - t0
+    esnap = esvc.pool.metrics.snapshot(max_batch=SAMPLE_MAX_BATCH)["global"]
+    for a, b in zip(resps, eresps):
+        if not torch.equal(a.logits, b.logits):
+            d = float((a.logits - b.logits).abs().max())
+            fail(f"sampled {a.request_id}: replayed logits differ from the "
+                 f"eager twin's by {d:.3e}")
+    eprof = {}
+    profile_call(torch, lambda: esvc.pool.submit_batch(batch),
+                 f"sampled batch of {len(same)}, eager twin", split="HtoD",
+                 out=eprof)
+    log(f"sampled, eager twin: {len(eresps)} responses in {ewall:.3f} s "
+        f"({len(eresps) / ewall:.2f} requests/s), p50 "
+        f"{esnap['p50_latency_ms']:.3f} ms, p99 {esnap['p99_latency_ms']:.3f}"
+        f" ms; replayed: {len(resps) / wall:.2f} requests/s, p50 "
+        f"{snap['p50_latency_ms']:.3f} ms, p99 {snap['p99_latency_ms']:.3f} "
+        "ms; logits bit for bit equal")
+    del esvc
     return launches, {
+        "eager": {"wall_s": ewall, "requests_per_s": len(eresps) / ewall,
+                  "metrics": esnap, "profile": eprof},
         "wall_s": wall, "requests_per_s": len(resps) / wall,
         "hit_rate": hit_rate, "warmed_programs": n_prog, "metrics": snap,
         "buckets": census, "batches": len(batches),
@@ -1762,9 +1980,11 @@ def conformance_phase(torch, co, fl, card, budget, fl_remap):
 
 # --------------------------------------------------------------------------- #
 LIVE_GEOM = (4096, 128)         # (n1, n2): the compiler's pick for FL
-# CO in blocks of 1024 (3 x 3 tiles): draining one tile leaves the others
-# (the compiler's pick, n1 = 4096, puts CO in one tile).
-LIVE_REMAP_GEOM = (1024, 128)
+# The compiler's pick for CO, n1 = 4096, puts it in one tile: the delta
+# drains every tile the aggregate layers read (the rebind the verifier
+# once refused).  Blocks of 1024 (3 x 3 tiles) keep GEMM tiles beside the
+# drained one, so the rebound program runs the densify kernel.
+LIVE_REMAP_GEOMS = ((4096, 128), (1024, 128))
 LIVE_DELTA_EDGES = 32           # removals and additions of a content delta
 LIVE_NEW_VERTICES = 1024        # the structural delta: one in-, one out-edge
 LIVE_STREAM, LIVE_CUTS = 24, {8: 1, 16: 2}   # admission index -> version
@@ -2185,7 +2405,8 @@ def live_phase(torch, card):
         fail(f"live: repro_torch.verify exited {rc}")
 
     # ---- densify: a forced-GEMM program rebound after a delta (CO) ------ #
-    out["remap_rebind"] = live_remap_rebind(torch, counted)
+    out["remap_rebind"] = [live_remap_rebind(torch, counted, g)
+                           for g in LIVE_REMAP_GEOMS]
 
     log("live: verification times: " + ", ".join(
         f"{label} {s * 1e3:.1f} ms" for label, s in verify_s))
@@ -2200,13 +2421,14 @@ def live_phase(torch, card):
     return launches, out
 
 
-def live_remap_rebind(torch, counted):
+def live_remap_rebind(torch, counted, geometry):
     """b1 on a live CO graph remapped with force="gemm", then a delta that
-    drains the smallest tile and adds an edge to the largest: the rebind
-    re-prices only the two patched tiles (the drained one becomes skip),
-    the binary differs only in their words, and the rebound program runs
-    device-resident and host-streamed with the same bits, within the
-    float64 tolerance, on the densify and GEMM kernels."""
+    drains the smallest tile and, when there is another, adds an edge to
+    the largest: the rebind (verified) re-prices only the patched tiles
+    (the drained one becomes skip), the binary differs only in their
+    words, and the rebound program runs device-resident and host-streamed
+    with the same bits, within the float64 tolerance (on the densify and
+    GEMM kernels where a tile stays GEMM)."""
     import numpy as np
 
     from repro_torch.core import graph as G
@@ -2217,7 +2439,7 @@ def live_remap_rebind(torch, counted):
     from repro_torch.livegraph import GraphDelta, GraphVersionStore
 
     co = G.synthesize("CO").gcn_normalized()
-    geom = PartitionConfig(n1=LIVE_REMAP_GEOM[0], n2=LIVE_REMAP_GEOM[1])
+    geom = PartitionConfig(n1=geometry[0], n2=geometry[1])
     store = GraphVersionStore(co, geometry=geom)
     eng = Engine(geometry=geom, verify=True)
     prog = eng.compile("b1", store.head.as_graph())
@@ -2229,8 +2451,9 @@ def live_remap_rebind(torch, counted):
     te = s0.edges[jk_empty]
     for u, w in sorted(set(zip(te.src.tolist(), te.dst.tolist()))):
         d.remove_edge(u, w)             # a pair's multi-edges go together
-    o = s0.edges[jk_big]
-    d.add_edge(int(o.src[0]), int(o.dst[0]), 0.5)
+    if jk_big != jk_empty:
+        o = s0.edges[jk_big]
+        d.add_edge(int(o.src[0]), int(o.dst[0]), 0.5)
     v1 = store.apply(d)
     patched = set(v1.stats.patched)
     p1 = eng.compile("b1", v1.as_graph())
@@ -2260,7 +2483,8 @@ def live_remap_rebind(torch, counted):
     worst = hold_against_reference(
         torch, [InferenceRequest("b1", v1.as_graph(), x)],
         [_resp("b1@CO live remap", y)])
-    log(f"live remap: b1@CO forced GEMM, rebound after a delta patching "
+    log(f"live remap: b1@CO (n1={geom.n1}) forced GEMM, rebound and "
+        f"verified after a delta patching "
         f"{sorted(patched)}: counts {rec['counts']}, {st.tiles_remapped} "
         f"GEMM steps and {st.tiles_skipped} skipped a pass, host = device "
         f"bits, max|err| {worst:.3e} against float64")
@@ -2548,29 +2772,18 @@ GRANITE_B, GRANITE_T = 4, 2048
 GRANITE_DECODE_LAYERS = 4       # the fp32 witness: weights near 5 GB
 
 
-def granite_phase(torch, ops, ref):
-    """granite-8b at full width: the flash kernel at its prefill shape
-    (GQA group 4), the bf16 prefill of all 36 layers against plain
-    attention, the fp32 decode witness at 4 layers, and ``launch.serve``;
-    see the module docstring.  Returns (flash launches over the counted
-    runs, the flash kernel's row at the granite shape, a summary)."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve
-    from repro_torch.models.steps import build_model
-
-    cfg = get_config(GRANITE_ARCH)
-    g = cfg.n_heads // cfg.n_kv_heads
-    bh, kvh, t, d = (GRANITE_B * cfg.n_heads, GRANITE_B * cfg.n_kv_heads,
-                     GRANITE_T, cfg.hd)
+def flash_at_shape(torch, ops, ref, cfg, b, t, label):
+    """The flash kernel at ``cfg``'s attention shape for b sequences of
+    t tokens (bf16, causal, random q / k / v from seed 5): held to its
+    plain version by ``check_rows``, timed beside the plain version and
+    SDPA, with its bound.  Returns its row for the ``PERF.md`` table."""
+    bh, kvh, d = b * cfg.n_heads, b * cfg.n_kv_heads, cfg.hd
+    g = bh // kvh
     gen = torch.Generator(device="cuda").manual_seed(5)
     q = torch.randn(bh, t, d, generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn(kvh, t, d, generator=gen, device="cuda").bfloat16()
             for _ in range(2))
-    name = f"flash granite prefill shape BH={bh} KV heads={kvh} G={g}"
+    name = f"flash {label} BH={bh} KV heads={kvh} G={g}"
     got = ops.flash_attention(q, k, v, True)
     want = ref.flash_attention_plain(q, k, v, True)
     r_whole, r_row = check_rows(torch, name, got, want)
@@ -2587,13 +2800,32 @@ def granite_phase(torch, ops, ref):
         f"{t_k:.4f} ms, plain {t_p:.4f} ms, F.scaled_dot_product_attention "
         f"({how}) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); relative L2 "
         f"{r_whole:.3e} whole, {r_row:.3e} worst row, max|err| {err:.2e}")
-    flash_row = {"shape": f"BH={bh} over {kvh} KV heads, T={t}, d={d}, "
-                          "bf16, causal", "max_abs_err": err, "ms": t_k,
-                 "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": t_l, "rel_l2_whole": r_whole,
-                 "rel_l2_worst_row": r_row}
     del q, k, v
     torch.cuda.empty_cache()
+    return {"shape": f"BH={bh} over {kvh} KV heads, T={t}, d={d}, bf16, "
+                     "causal", "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": t_l, "rel_l2_whole": r_whole,
+            "rel_l2_worst_row": r_row}
+
+
+def granite_phase(torch, ops, ref):
+    """granite-8b at full width: the flash kernel at its prefill shape
+    (GQA group 4), the bf16 prefill of all 36 layers against plain
+    attention, the fp32 decode witness at 4 layers, and ``launch.serve``;
+    see the module docstring.  Returns (flash launches over the counted
+    runs, the flash kernel's row at the granite shape, a summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.steps import build_model
+
+    cfg = get_config(GRANITE_ARCH)
+    flash_row = flash_at_shape(torch, ops, ref, cfg, GRANITE_B, GRANITE_T,
+                               "granite prefill shape")
 
     n_flash, pre = lm_prefill(torch, ops, ref, cfg, GRANITE_B, GRANITE_T,
                               seed=1, timed=2)
@@ -2665,12 +2897,67 @@ GEMMA_DECODE_T = 1088           # past the window of 1024: the rings wrap
 GEMMA_27B_LAYERS = 8            # the 2-layer rem segment + a superblock
 
 
-def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False):
+def decode_pair(torch, model, cfg, b, plen, gen, label):
+    """``launch.serve.generate`` on ``model`` for b prompts of ``plen``
+    tokens (numpy seed 7) and ``gen`` generated, eagerly and with the
+    serve step captured as a CUDA graph, in turns (eager, captured,
+    captured, eager): every generated token of the captured runs equals
+    the eager runs', and each mode's ms/token (the decode's wall time
+    over gen - 1 steps, synchronized) is printed.  Then one step of each,
+    the captured one a replay, under the profiler (busy share)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    prompts = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (b, plen)).astype(np.int32), device="cuda")
+    ms = {"eager": [], "captured": []}
+    toks = {}
+    for mode in ("eager", "captured", "captured", "eager"):
+        got, _, t_dec = serve.generate(model, cfg, prompts, gen,
+                                       capture=mode == "captured")
+        ms[mode].append(t_dec / (gen - 1) * 1e3)
+        if mode in toks and not torch.equal(toks[mode], got):
+            fail(f"{label}: two {mode} decodes generated different tokens")
+        toks[mode] = got
+    if not torch.equal(toks["eager"], toks["captured"]):
+        n = int((toks["eager"] != toks["captured"]).sum())
+        fail(f"{label}: the captured decode differs from the eager one in "
+             f"{n} of {toks['eager'].numel()} tokens")
+    log(f"{label} decode, {b} requests, prompt {plen}, {gen} tokens: "
+        f"eager {[round(x, 2) for x in ms['eager']]} ms/token, captured "
+        f"{[round(x, 2) for x in ms['captured']]} ms/token; the "
+        f"{toks['eager'].numel()} generated tokens equal token for token")
+    prof = {}
+    for mode in ("eager", "captured"):
+        step = serve.Step(model, cfg, model,
+                          model.init_cache(b, plen + gen), b,
+                          capture=mode == "captured")
+        tok = prompts[:, :1]
+        for p in range(3):                  # eager, capture, replay
+            tok = step(tok, p)
+        prof[mode] = {}
+        profile_call(torch, lambda: step(tok, 3),
+                     f"{label} decode step, {mode}", out=prof[mode])
+        del step
+        if "busy_ms" in prof[mode]:
+            share = prof[mode]["busy_ms"] / statistics.median(ms[mode])
+            prof[mode]["busy_over_unprofiled"] = share
+            log(f"{label} decode step, {mode}: device busy "
+                f"{prof[mode]['busy_ms']:.2f} ms over the unprofiled "
+                f"{statistics.median(ms[mode]):.2f} ms/token: "
+                f"{100 * share:.1f}%")
+    return {"ms_per_token": ms, "profile": prof}
+
+
+def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
+               then=None):
     """A bf16 prefill of ``cfg`` at b x t (tokens from numpy ``seed``)
     with random weights from seed 0: a warm-up and ``timed`` timed runs
     with the flash launches counted from zero, the last-position logits
     within LM_REL_L2 of the same model with plain attention, and with
-    ``profile`` one more prefill under ``torch.profiler``.  Returns (flash
+    ``profile`` one more prefill under ``torch.profiler``; ``then(model)``
+    runs last, its dict in the summary under "then".  Returns (flash
     launches, summary)."""
     import numpy as np
 
@@ -2738,10 +3025,13 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False):
                 f"prefill {flash_dev:.3f} ms of {dev:.3f} ms of device time "
                 f"({100 * flash_dev / dev:.1f}%); device time over the "
                 f"unprofiled median wall: {100 * dev / med:.1f}%")
-    del model, logits, want, prefill, got32, want32
+    del logits, want, prefill, got32, want32
+    extra = then(model) if then is not None else None
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return n_flash, {"params": n_par, "weight_bytes": w_bytes,
+                     "then": extra,
                      "prefill_ms": walls, "prefill_median_ms": med,
                      "tokens_per_s": b * t / med * 1e3,
                      "weight_product_flops": flops,
@@ -2768,8 +3058,10 @@ def gemma3_phase(torch, ops, ref):
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(GEMMA_ARCH)
-    n12, s12 = lm_prefill(torch, ops, ref, cfg, GEMMA_B, GEMMA_T, seed=1,
-                          timed=2, profile=True)
+    n12, s12 = lm_prefill(
+        torch, ops, ref, cfg, GEMMA_B, GEMMA_T, seed=1, timed=2,
+        profile=True, then=lambda m: decode_pair(torch, m, cfg, 4, 16, 16,
+                                                 cfg.name))
 
     # fp32 decode against forward at full width, one superblock, past the
     # window: every local layer's ring buffer of 1024 slots wraps.
@@ -2844,7 +3136,9 @@ def gemma3_phase(torch, ops, ref):
 
 
 # --------------------------------------------------------------------------- #
-TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "qwen3-0.6b", 2, 4096, 10
+TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "qwen3-0.6b", 2, 4096, 6
+TRAIN_LONG_T = 8192             # under remat "full"; "none" cannot hold it
+TRAIN_REMAT_STEPS = 2           # timed steps of the other remat policies
 TRAIN_GRAD_REL = 2e-2           # bf16 step 1, kernel route against plain
 TRAIN_GRAD_REL32 = 1e-4         # fp32, 2 layers
 
@@ -2903,10 +3197,112 @@ def grads_against_plain(torch, model, cfg, batch, limit, label):
     return float(loss), float(ploss), worst, worst_name
 
 
+def remat_compare(torch, model, opt, cfg, batches, base, own):
+    """``cfg.remat`` on the card: the loss and every gradient of
+    ``value_and_grad`` on step 1's batch under "full" and "dots" against
+    "none", computed twice.  A tensor "none" reproduces bit for bit must
+    match it bit for bit; one it does not (atomic adds in the embedding's
+    gradient) is held to relative L2 max(4 x none's own spread, 2^-8).
+    Then ``TRAIN_REMAT_STEPS`` timed steps of each policy but the
+    config's own, whose numbers are ``own`` (the train path's steps): ms,
+    tokens/s, peak memory above ``base``; and steps at T = TRAIN_LONG_T
+    under "full".  The model is left on its own config."""
+    import dataclasses
+
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models.steps import make_train_step, value_and_grad
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+
+    got = {}
+    for tag in ("none", "full", "dots", "none again"):
+        model.cfg = dataclasses.replace(cfg, remat=tag.split()[0])
+        _, loss, _, grads = value_and_grad(model, model.cfg, batches[0])
+        got[tag] = (loss, grads)
+    torch.cuda.synchronize()
+    loss0, g0 = got["none"]
+    loss1, g1 = got["none again"]
+    spread = {n: rel(g1[n], g) for n, g in g0.items()
+              if not torch.equal(g1[n], g)}
+    if not torch.equal(loss0, loss1):
+        fail(f"remat: two 'none' losses differ ({float(loss0)!r}, "
+             f"{float(loss1)!r})")
+    worst = {}
+    for policy in ("full", "dots"):
+        loss, grads = got[policy]
+        if not torch.equal(loss, loss0):
+            fail(f"remat {policy}: loss {float(loss)!r} != none's "
+                 f"{float(loss0)!r}")
+        worst[policy] = 0.0
+        for n, g in grads.items():
+            if n not in spread:
+                if not torch.equal(g, g0[n]):
+                    fail(f"remat {policy}: gradient {n} differs from "
+                         f"none's, which none reproduces bit for bit")
+                continue
+            r = rel(g, g0[n])
+            worst[policy] = max(worst[policy], r)
+            if r > max(4 * spread[n], 2.0 ** -8):
+                fail(f"remat {policy}: gradient {n} relative L2 {r:.3e} "
+                     f"past max(4 x none's spread {spread[n]:.3e}, 2^-8)")
+    log(f"remat: losses equal bit for bit under none / full / dots "
+        f"({float(loss0):.6f}); {len(g0) - len(spread)} of {len(g0)} "
+        f"gradients equal bit for bit, the rest ({sorted(spread)}: none "
+        f"against itself {[round(v, 9) for v in spread.values()]}) within "
+        f"{worst}")
+    del got, g0, g1, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def timed(policy, batch_list, label):
+        model.cfg = dataclasses.replace(cfg, remat=policy)
+        step = make_train_step(model, model.cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for b in batch_list:
+            t0 = time.perf_counter()
+            _, _, met = step(model, opt, b)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+        peak = torch.cuda.max_memory_allocated() - base
+        tok = int(batch_list[0]["tokens"].numel())
+        med = statistics.median(walls[1:])
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"remat {label}: losses {losses}")
+        log(f"remat {label}: step ms {[round(w, 2) for w in walls]} (first "
+            f"is the warm-up), median {med:.2f} ms, "
+            f"{tok / med * 1e3:,.0f} tokens/s, peak "
+            f"{peak / 2**30:.3f} GiB (state included)")
+        return {"step_ms": walls, "median_ms": med,
+                "tokens_per_s": tok / med * 1e3, "peak_bytes": peak,
+                "losses": losses}
+
+    out = {"grad_spread_none": spread, "worst_rel_l2": worst,
+           cfg.remat: own}
+    for policy in ("none", "full", "dots"):
+        if policy != cfg.remat:
+            out[policy] = timed(policy, batches[:TRAIN_REMAT_STEPS],
+                                f"{policy} {TRAIN_B}x{TRAIN_T}")
+    it = synthetic_batches(cfg, TRAIN_B, TRAIN_LONG_T, seed=1)
+    long = [{k: torch.as_tensor(v, device="cuda")
+             for k, v in next(it).items()} for _ in range(2)]
+    out[f"full_T{TRAIN_LONG_T}"] = timed(
+        "full", long, f"full {TRAIN_B}x{TRAIN_LONG_T}")
+    del long
+    model.cfg = cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_phase(torch, ops, ref):
     """qwen3-0.6b at full width trained in bf16 at B=2, T=4096: step 1's
     loss and gradients against the plain route, the same in fp32 at 2
-    layers, 10 timed steps of ``make_train_step`` on
+    layers, 6 timed steps of ``make_train_step`` on
     ``synthetic_batches``, a checkpoint round trip of the train state on
     the card, and ``launch.train`` crashed at step 4 and resumed from its
     own checkpoint.  Returns (flash launches over the counted steps, a
@@ -2923,6 +3319,8 @@ def train_phase(torch, ops, ref):
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(TRAIN_ARCH)
+    flash_train = flash_at_shape(torch, ops, ref, cfg, TRAIN_B, TRAIN_T,
+                                 "train step shape")
     it = synthetic_batches(cfg, TRAIN_B, TRAIN_T, seed=0)
     batches = [{k: torch.as_tensor(v, device="cuda")
                 for k, v in next(it).items()} for _ in range(TRAIN_STEPS)]
@@ -2961,15 +3359,18 @@ def train_phase(torch, ops, ref):
     n_flash = ops.LAUNCHES["flash_attention"]
     peak = torch.cuda.max_memory_allocated() - base
     # ---- end of the train path.
-    if n_flash != cfg.n_layers * TRAIN_STEPS:
+    # Under remat the forward runs again in the backward: twice a step.
+    per_step = cfg.n_layers * (1 if cfg.remat == "none" else 2)
+    if n_flash != per_step * TRAIN_STEPS:
         fail(f"train: flash launches {n_flash} over {TRAIN_STEPS} steps != "
-             f"{cfg.n_layers} per step")
+             f"{per_step} per step (remat {cfg.remat!r})")
     if not all(math.isfinite(x) for x in losses) or int(opt.step) != \
             TRAIN_STEPS:
         fail(f"train: losses {losses}, step {int(opt.step)}")
     med = statistics.median(walls[1:])
     tok = TRAIN_B * TRAIN_T
-    log(f"train {cfg.name} B={TRAIN_B} T={TRAIN_T} bf16: step wall ms "
+    log(f"train {cfg.name} B={TRAIN_B} T={TRAIN_T} bf16, remat "
+        f"{cfg.remat!r}: step wall ms "
         f"{[round(w, 2) for w in walls]} (first is the warm-up), median "
         f"{med:.2f} ms, {tok / med * 1e3:,.0f} tokens/s; peak memory "
         f"{peak / 2**30:.3f} GiB (state included); flash launches "
@@ -2986,8 +3387,11 @@ def train_phase(torch, ops, ref):
         dev = sum(by_name.values())
         log(f"train: flash kernel device time in the profiled step "
             f"{flash_dev:.3f} ms of {dev:.3f} ms of device time, "
-            f"{flash_dev / cfg.n_layers:.4f} ms a call against a bound of "
+            f"{flash_dev / per_step:.4f} ms a call against a bound of "
             f"{b_ms:.4f} ms ({b_by})")
+    remat = remat_compare(torch, model, opt, cfg, batches, base, {
+        "step_ms": walls, "median_ms": med, "tokens_per_s": tok / med * 1e3,
+        "peak_bytes": peak, "losses": losses})
 
     # Checkpoint round trip of the whole train state on the card.
     with tempfile.TemporaryDirectory() as ck:
@@ -3044,6 +3448,8 @@ def train_phase(torch, ops, ref):
         f"done at 5; {drv_s:.2f} s for both processes")
     return n_flash, {
         "params": n_par, "state_bytes": state_bytes, "step_ms": walls,
+        "remat": cfg.remat, "remat_policies": remat,
+        "flash_train_shape": flash_train,
         "step_median_ms": med, "tokens_per_s": tok / med * 1e3,
         "peak_bytes": peak, "losses": losses,
         "flash_device_ms_in_profiled_step": flash_dev,
@@ -3310,8 +3716,7 @@ def lm_phase(torch, ops, ref):
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.models.steps import (build_model, make_prefill_step,
-                                          make_serve_step)
+    from repro_torch.models.steps import build_model, make_prefill_step
 
     cfg = get_config(LM_ARCH)
     torch.cuda.synchronize()
@@ -3382,16 +3787,10 @@ def lm_phase(torch, ops, ref):
             f"{flash_dev:.3f} ms of {dev:.3f} ms of device time "
             f"({100 * flash_dev / dev:.1f}%); device time over the "
             f"unprofiled median wall: {100 * dev / prefill_ms:.1f}%")
-    # One decode step at launch.serve's shape (8 requests, a 48-slot
-    # cache) under the profiler: device events and busy share of a step.
-    step = make_serve_step(model, cfg)
-    cache = model.init_cache(8, 48)
-    tok = tokens[0, :8].reshape(8, 1)
-    for pos in range(2):
-        tok, cache = step(model, cache, tok, pos)
-    profile_call(torch, lambda: step(model, cache, tok, 2),
-                 "decode step, 8 requests")
-    del model, logits, want, wit, prefill, cache
+    # Decode at launch.serve's shape (8 requests, prompt 32, 16 tokens),
+    # eager and captured, each step also under the profiler.
+    pair = decode_pair(torch, model, cfg, 8, 32, 16, cfg.name)
+    del model, logits, want, wit, prefill
     torch.cuda.empty_cache()
 
     # fp32 decode against forward at full width.
@@ -3445,6 +3844,7 @@ def lm_phase(torch, ops, ref):
         f"ms/token, {drv_s:.2f} s in all; flash launches "
         f"{ops.LAUNCHES['flash_attention']} (prefill by decode steps)")
     summary = {"prefill_ms": walls, "prefill_median_ms": prefill_ms,
+               "decode_pair": pair,
                "prefill_peak_bytes": peak, "prefill_rel_l2": rel,
                "prefill_rel_l2_sdpa_chunked": rel_wit,
                "flash_device_ms_in_profiled_prefill": flash_dev,
@@ -3499,8 +3899,8 @@ def main() -> int:
     densify_entry, gemm_remap = remap_gemm_entry(torch, ops, ref, fl_prog)
     del heng
     log(f"host and remap phase: {time.perf_counter() - t6:.1f} s")
-    rt_launches, gat_prog, rt_resps, rt_peak, rt_wall = runtime_phase(
-        torch, engine, co, fl)
+    (rt_launches, gat_prog, rt_resps, rt_peak, rt_wall, rt_reqs,
+     rt_pool) = runtime_phase(torch, engine, co, fl)
     sddmm_entry, sddmm_hub = fl_sddmm_entry(torch, ops, ref, gat_prog)
     t7 = time.perf_counter()
     sp_launches, sampled = sampled_phase(torch, G.synthesize("FL"))
@@ -3509,7 +3909,11 @@ def main() -> int:
     conf_launches, conformance = conformance_phase(
         torch, co, fl, card, host_sum["budget"], fl_remap)
     log(f"conformance phase: {time.perf_counter() - t7:.1f} s")
-    del engine, fl_prog, gat_prog       # the FL programs of phases 3-5
+    t7 = time.perf_counter()
+    replay_launches, replay = replay_phase(torch, fl, fl_prog, gat_prog,
+                                           rt_reqs, rt_pool)
+    log(f"replay phase: {time.perf_counter() - t7:.1f} s")
+    del engine, fl_prog, gat_prog, rt_pool  # the FL programs of phases 3-5
     gc.collect()
     torch.cuda.empty_cache()
     t7 = time.perf_counter()
@@ -3541,7 +3945,8 @@ def main() -> int:
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
             launches, rt_launches, host_launches, co_launches, fl_launches,
-            sp_launches, conf_launches, live_launches, mesh_launches))
+            sp_launches, conf_launches, live_launches, mesh_launches,
+            replay_launches))
     kernels.append(flash_entry)
     densify_entry["launches"] = co_launches["densify"] + \
         fl_launches["densify"] + conf_launches["densify"] + \
@@ -3589,6 +3994,7 @@ def main() -> int:
                                  "gemm_4096x4096x128": gemm_remap},
                        "sampled": sampled, "conformance": conformance,
                        "live": live, "mesh": mesh, "granite": granite,
+                       "replay": replay,
                        "flash_granite_shape": flash_granite,
                        "gemma3": gemma, "train": train,
                        "flash_launches": {

@@ -26,6 +26,14 @@ caller's current stream has queued (it may still be writing the features
 or weights), and every output handed back is recorded on the caller's
 stream, so the caller may use and free it there.
 
+On a CUDA device a repeated device-resident pass (same program, batch
+shape and staging) is replayed as a CUDA graph, the counterpart of the
+JAX engine's memoized ``jit(vmap(run))`` (see
+:mod:`repro_torch.engine.executor`); ``submit_batch`` pads a batch to the
+next power of two lanes, as JAX does, so ragged batches reuse captures.
+``Engine(replay=False)`` runs every pass eagerly: the route replays are
+held against.
+
 The device defaults to ``"cuda"`` and there is no silent CPU fallback:
 without a CUDA device the constructor raises, and CPU execution (what the
 tests use) has to be asked for with ``device="cpu"``.  The cache key and
@@ -194,10 +202,12 @@ def model_signature(model: ModelSpec, seed: int = 0) -> str:
 # --------------------------------------------------------------------------- #
 # Streaming request interface.
 # --------------------------------------------------------------------------- #
-def stack_features(features: Sequence[Any]) -> torch.Tensor:
+def stack_features(features: Sequence[Any], pad_to: int = 0
+                   ) -> torch.Tensor:
     """Pad N ``[V, F]`` feature arrays to a common shape and stack them
     into the ``[N, V, F]`` float32 tensor ``run_batch`` consumes (on the
-    device of the first input when they are tensors, else the CPU).
+    device of the first input when they are tensors, else the CPU), with
+    zero lanes up to ``pad_to`` lanes.
 
     Requests that share a cache key come from the same deployed graph,
     so shapes normally already agree; zero-padding is safe regardless
@@ -207,7 +217,7 @@ def stack_features(features: Sequence[Any]) -> torch.Tensor:
     ts = [torch.as_tensor(f, dtype=torch.float32) for f in features]
     v = max(t.shape[0] for t in ts)
     f = max(t.shape[1] for t in ts)
-    out = torch.zeros((len(ts), v, f), dtype=torch.float32,
+    out = torch.zeros((max(len(ts), pad_to), v, f), dtype=torch.float32,
                       device=ts[0].device)
     for i, t in enumerate(ts):
         out[i, : t.shape[0], : t.shape[1]] = t
@@ -276,7 +286,8 @@ class Engine:
                  *, vmem_budget_bytes: int = 3 << 20,
                  cache_capacity: int = 32,
                  resident_budget_bytes: Optional[int] = None,
-                 verify: Optional[bool] = None) -> None:
+                 verify: Optional[bool] = None,
+                 replay: bool = True) -> None:
         self.geometry = geometry
         self.n_pes = n_pes
         self.device = _resolve_device(device)
@@ -286,7 +297,7 @@ class Engine:
         self.vmem_budget_bytes = vmem_budget_bytes
         self._executor = BinaryExecutor(
             device=self.device, backend=backend,
-            resident_budget_bytes=resident_budget_bytes)
+            resident_budget_bytes=resident_budget_bytes, replay=replay)
         self.backend = self._executor.ack.backend
         # This engine's own CUDA stream (None on the CPU, where
         # torch.cuda.stream(None) is a no-op).
@@ -694,17 +705,21 @@ class Engine:
             prog = self.cache.get(key) or prog
             if lv is not None:
                 prog = lv.bind(prog)
-        # No lane padding to a power of two: the JAX engine pads only so
-        # that ragged batch sizes reuse its traced executables, and this
-        # port has none yet (ROADMAP: the CUDA-graph replay item).
+        # Bucket the batch axis to the next power of two (zero lanes,
+        # outputs sliced off), as the JAX engine does: deadline flushes
+        # give ragged sizes 1..max_batch, and each distinct shape is a
+        # replay key of its own (an eager pass, then a capture), so
+        # buckets cap them at log2(max_batch) a program for at most 2x
+        # lane waste.
         n = len(reqs)
-        gd = (stack_graph_data([r.graph_data for r in reqs], n)
+        bucket = 1 << (n - 1).bit_length()
+        gd = (stack_graph_data([r.graph_data for r in reqs], bucket)
               if with_gd else None)
         with self._on_stream() as caller:
             # Stacked on the stream that reads the stack.
-            xs = stack_features([r.features for r in reqs])
+            xs = stack_features([r.features for r in reqs], bucket)
             t0 = time.perf_counter()
-            ys = self._executor.run_batch(prog, xs, graph_data=gd)
+            ys = self._executor.run_batch(prog, xs, graph_data=gd)[:n]
             self._sync()
             t_loh = time.perf_counter() - t0
         ys = self._hand_back(ys, caller)

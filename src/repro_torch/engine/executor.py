@@ -44,7 +44,30 @@ layout (:class:`_LaneTiles`), in place of the baked tiles.  The program
 is compiled once per geometry bucket against the bucket's template graph
 (:mod:`repro_torch.sampling.buckets`), so N different subgraphs of one
 bucket run as ONE binary pass; every tile op is issued once per lane on
-that lane's tiles.  It is device-resident only.
+that lane's tiles.  It is device-resident only.  Every array a lane
+ships has a shape fixed by the program's layout, whatever the request's
+live edges: edge values move through each slot's edge id, pad slots
+pointing one past the end of the edge vector (a trash entry), so a pass
+over new lanes is a replay of the same launches.
+
+Replays (the counterpart of the JAX package's memoized
+``jit(vmap(run))``): on a CUDA device a device-resident ``run_batch``
+without a ``weights`` override or a mesh is memoized on the program
+object, keyed by batch shape, dtype, graph-as-data flag, backend, device,
+the staging it reads (:class:`_Staged`'s generation) and the executor.
+Calls run eagerly until one stages nothing (the first pass on a staging
+uploads its tiles and weights and builds the kernels): that warm pass's
+stats are kept, with their per-layer CUDA-event times.  The next call
+captures the pass as a CUDA graph over static input buffers, and every
+later one copies its features (and lanes) into those buffers and replays
+the graph.  A replay's ``stats`` are the warm eager pass's (its per-layer
+times included), with ``h2d_bytes`` the bytes it copied.
+``BinaryExecutor(replay=False)`` runs every pass eagerly.  Releasing a
+staging (:func:`release_staging`) drops the captures that read it, and an
+executor that is collected drops its own.  An executor's captures share
+one memory pool (it runs one pass at a time, each ending in a
+synchronize), and the device-budget gate counts the bytes a program's
+captures hold (:meth:`BinaryExecutor._held_bytes`) beside the pass.
 
 Batches: :meth:`BinaryExecutor.run_batch` executes N feature sets over one
 program in ONE traversal of the decoded binary.  Layer outputs carry a
@@ -53,7 +76,8 @@ op is issued once per lane on that lane's views, so a lane computes
 exactly what a single run computes (bit for bit) while the decode, the
 plan walk and the per-tile index work are shared.  ``run`` is
 ``run_batch`` of one lane.  Per-run ``stats`` count one traversal (its
-tile ops), kernel launches are lanes x tile ops.
+tile ops), kernel launches are lanes x tile ops (a replay's launches are
+counted in ``kernels.ops.REPLAYED``, the wrappers' in ``LAUNCHES``).
 
 Device-resident data:
 
@@ -71,10 +95,12 @@ Device-resident data:
   deltas did not patch, so a version uploads only its patched tiles (and
   its inverse in-degree).  :func:`release_staging` drops a graph's
   copies; a shared tile's stay while another graph holds it.
-* Edge vectors move between tiles and the [E] edge order through the
-  live slots only: scattering a tile's scores, gathering a tile's edge
-  weights and the edge softmax touch the real edges, not the pad slots
-  (over 99% of the slots on a power-law graph), with the same result.
+* Edge vectors move between baked tiles and the [E] edge order through
+  the live slots only: scattering a tile's scores, gathering a tile's
+  edge weights and the edge softmax touch the real edges, not the pad
+  slots (over 99% of the slots on a power-law graph), with the same
+  result.  (Graph-as-data lanes move every slot, pads through the trash
+  entry, so their shapes do not depend on the request.)
 * Tiles are strided views of the padded layer tensors; the kernels take
   row strides, so no tile is copied on its way in.
 * Every launch goes to the caller's current CUDA stream, and a run ends
@@ -98,7 +124,9 @@ softmax reads a hole.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import itertools
 import threading
 import time
 import weakref
@@ -111,7 +139,8 @@ from repro_torch.core.ack import ACK, densify_tile
 from repro_torch.core.ir import Activation, AggOp, LayerType
 from repro_torch.core.isa import Opcode
 from repro_torch.core.reference import apply_activation
-from repro_torch.obs.tracer import get_tracer
+from repro_torch.kernels import ops as kops
+from repro_torch.obs.tracer import NullTracer, get_tracer
 
 from .decoder import LayerPlan, TilePlan
 from .program import CompiledProgram
@@ -475,13 +504,21 @@ class _Staged(_Holder):
     ``blocks`` (a mesh device's destination row blocks) restricts the
     tiles to those rows: a mesh device stages only the tiles of the
     blocks it owns.  The virtual shards of one device share its copies
-    through the device's :class:`_TileShare`."""
+    through the device's :class:`_TileShare`.
+
+    ``generation`` is unique to this staging (a replay's key names the
+    staging it reads), and ``replays`` holds the captures that read its
+    buffers: :meth:`release` drops them."""
+
+    _generations = itertools.count(1)
 
     def __init__(self, pg, device: torch.device,
                  blocks: Optional[Tuple[int, ...]] = None) -> None:
         super().__init__(_tile_share(_dev_key(device)))
         self.pg, self.device = pg, device
         self.blocks = None if blocks is None else tuple(blocks)
+        self.generation = next(self._generations)
+        self.replays: "weakref.WeakSet[_Replay]" = weakref.WeakSet()
         self.uploaded = 0
         self.params_uploaded = 0
         self._tiles: Dict[str, Dict[Tuple[int, int, int], torch.Tensor]] = {}
@@ -497,6 +534,18 @@ class _Staged(_Holder):
         if isinstance(a, torch.Tensor):
             return a.to(self.device)
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+
+    def release(self) -> None:
+        for rp in list(self.replays):
+            rp.drop()
+        super().release()
+
+    def buffers(self) -> list:
+        """Every device buffer staged so far (tiles, inverse in-degree,
+        weights): what a capture of a pass over this staging reads."""
+        with self._lock:
+            return [self.inv_deg, dict(self._tiles),
+                    [t for _, t in self._params.values()]]
 
     def kinds(self) -> List[str]:
         """The tile kinds uploaded so far."""
@@ -574,8 +623,7 @@ def _checked_tile_array(pg, kind: str, j: int, k: int, s: int
 def _tile_array(t, kind: str) -> np.ndarray:
     """``kind`` of an ELL tile ``t`` (``cols`` / ``vals`` / ``edge_pos``
     of shape [n1, w]), or of a stack of tiles ([..., n1, w]; graph-as-data
-    lanes): the live-slot kinds then hold each tile's positions (within
-    its own n1 x w slots) and edge ids back to back, in C order."""
+    lanes, which read no live-slot kind)."""
     if kind == "cols":
         return t.cols
     if kind == "vals":
@@ -585,9 +633,7 @@ def _tile_array(t, kind: str) -> np.ndarray:
     if kind == "row_len":
         return _row_len(t.edge_pos)
     if kind == "live_pos":
-        live = t.edge_pos >= 0
-        slots = live.shape[-2] * live.shape[-1]
-        return (np.flatnonzero(live) % slots).astype(np.int64)
+        return np.flatnonzero(t.edge_pos >= 0).astype(np.int64)
     if kind == "live_epos":
         ep = t.edge_pos.reshape(-1)
         return ep[ep >= 0].astype(np.int64)
@@ -658,15 +704,21 @@ class _LaneTiles:
     (``epos``: the subgraph's edge id of a slot, read where ``mask``).
     It is checked in full on the host before any launch, since the
     kernels gather h rows at ``cols`` and edge vectors are indexed by
-    ``epos`` unchecked.  The derived kinds come from the functions that
-    derive the baked tiles' (:func:`_tile_array`); each kind is uploaded
-    on first use, all lanes and tiles in ONE copy on the current stream,
-    and read as per-lane views."""
+    ``epos`` unchecked.  The kinds of :meth:`_Staged.tiles` the lanes
+    read (``cols``, ``vals``, ``mask``, ``row_len``) come from the
+    functions that derive the baked tiles' (:func:`_tile_array`); edge
+    values move through ``slot_epos`` (int64 [n1, w]: a slot's edge id,
+    ``n_edges`` on a pad slot, the trash entry of a lane's edge vector),
+    so every kind has a shape the layout fixes.  Each kind is uploaded on
+    first use, all lanes and tiles in ONE copy on the current stream, and
+    read as per-lane views; :meth:`load` copies another request's lanes
+    into those buffers in place (how a replay takes new lanes)."""
 
     def __init__(self, pg, graph_data: dict, lanes: int,
                  device: torch.device) -> None:
         n1, nb = pg.config.n1, pg.n_blocks
         self.device, self.lanes = device, lanes
+        self.n_edges = pg.n_edges
         self.uploaded = 0               # bytes copied to the device
         self.keys = [(j, k, s) for (j, k), ts in sorted(pg.tiles.items())
                      for s in range(len(ts))]
@@ -713,7 +765,9 @@ class _LaneTiles:
             raise ValueError(
                 f"graph_data inv_in_degree has shape {inv.shape}, expected "
                 f"{(lanes, nb * n1)} (lanes, nb * n1)")
-        self.inv_deg = self._put(inv)
+        self._inv_host = np.ascontiguousarray(inv)
+        self._inv: Optional[torch.Tensor] = None
+        self._flat: Dict[str, torch.Tensor] = {}
         self._views: Dict[str, Dict[Tuple[int, int, int], list]] = {}
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -721,30 +775,65 @@ class _LaneTiles:
         self.uploaded += _nbytes(t)
         return t
 
+    @property
+    def inv_deg(self) -> torch.Tensor:
+        """Every lane's inverse in-degree [N, nb * n1]."""
+        if self._inv is None:
+            self._inv = self._put(self._inv_host)
+        return self._inv
+
+    def _kind(self, t: _TileStack, kind: str) -> np.ndarray:
+        if kind == "slot_epos":
+            return np.where(t.edge_pos >= 0, t.edge_pos, self.n_edges)
+        if kind not in ("cols", "vals", "mask", "row_len"):
+            raise ValueError(f"graph-as-data lanes have no {kind!r} tiles")
+        return _tile_array(t, kind)
+
+    def _host(self, kind: str) -> np.ndarray:
+        """``kind`` of every tile and lane back to back (tile-major)."""
+        return np.concatenate([self._kind(t, kind).reshape(-1)
+                               for t in self._stack])
+
     def tiles(self, kind: str) -> Dict[Tuple[int, int, int], list]:
-        """{(j, k, s): [lane 0's tile, lane 1's, ...]} of ``kind`` (the
-        kinds of :meth:`_Staged.tiles`)."""
+        """{(j, k, s): [lane 0's tile, lane 1's, ...]} of ``kind``."""
         got = self._views.get(kind)
         if got is None:
             got = self._views[kind] = self._upload(kind)
         return got
 
     def _upload(self, kind: str) -> Dict[Tuple[int, int, int], list]:
-        parts, shapes = [], []          # tile-major, then lane
-        for t in self._stack:
-            a = _tile_array(t, kind)
-            if kind in ("live_pos", "live_epos"):
-                counts = (t.edge_pos >= 0).reshape(self.lanes, -1).sum(1)
-                shapes += [(int(c),) for c in counts]
+        flat = self._flat[kind] = self._put(self._host(kind))
+        shapes = [self._kind(t, kind).shape[1:] for t in self._stack]
+        runs = torch.split(flat, [int(np.prod(sh)) * self.lanes
+                                  for sh in shapes])
+        return {key: list(r.view((self.lanes,) + tuple(sh)).unbind(0))
+                for key, r, sh in zip(self.keys, runs, shapes)}
+
+    def kinds(self) -> List[str]:
+        """The kinds uploaded so far (with ``"inv_deg"`` once it is)."""
+        return sorted(self._flat) + (["inv_deg"] if self._inv is not None
+                                     else [])
+
+    def preload(self, kinds: List[str]) -> None:
+        """Upload ``kinds`` (names of :meth:`kinds`) now."""
+        for kind in kinds:
+            if kind == "inv_deg":
+                self.inv_deg
             else:
-                shapes += [a.shape[1:]] * self.lanes
-            parts.append(a.reshape(-1))
-        flat = self._put(np.concatenate(parts))
-        runs = torch.split(flat, [int(np.prod(sh)) for sh in shapes])
-        views = [r.view(sh) for r, sh in zip(runs, shapes)]
-        n = self.lanes
-        return {key: views[i * n:(i + 1) * n]
-                for i, key in enumerate(self.keys)}
+                self.tiles(kind)
+
+    def load(self, other: "_LaneTiles") -> int:
+        """Copy ``other``'s lanes (same program and lane count) into this
+        one's uploaded buffers, in place on the current stream; returns
+        the bytes copied."""
+        n = 0
+        for kind, flat in self._flat.items():
+            flat.copy_(torch.from_numpy(other._host(kind)))
+            n += _nbytes(flat)
+        if self._inv is not None:
+            self._inv.copy_(torch.from_numpy(other._inv_host))
+            n += _nbytes(self._inv)
+        return n
 
 
 _staged_lock = threading.Lock()
@@ -962,17 +1051,37 @@ class _DeviceEnv:
             return self.gd.tiles(kind)[(j, k, s)]
         return [self.st.tiles(kind)[(j, k, s)]] * self.lanes
 
-    def live(self, j: int, k: int, s: int):
-        """Every lane's (flat slot positions, edge ids) of a tile's real
-        edges."""
-        return list(zip(self.tiles("live_pos", j, k, s),
-                        self.tiles("live_epos", j, k, s)))
+    def edge_len(self) -> int:
+        """Length of a lane's edge vector: ``n_edges``, plus the trash
+        entry pad slots write to with graph-as-data lanes."""
+        return self.pg.n_edges + (self.gd is not None)
+
+    def gather_edges(self, ew: torch.Tensor, n: int, j: int, k: int,
+                     s: int) -> torch.Tensor:
+        """Lane n's [n1, w] tile of its edge vector ``ew`` (0 on pad
+        slots)."""
+        if self.gd is not None:
+            key = (j, k, s)
+            return torch.where(self.gd.tiles("mask")[key][n],
+                               ew[self.gd.tiles("slot_epos")[key][n]], 0.0)
+        pos = self.st.tiles("live_pos")[(j, k, s)]
+        epos = self.st.tiles("live_epos")[(j, k, s)]
+        return _from_live(ew, pos, epos, self.pg.tiles[(j, k)][s].cols.shape)
+
+    def scatter_edges(self, ew: torch.Tensor, n: int, tile: torch.Tensor,
+                      j: int, k: int, s: int) -> None:
+        """Write lane n's [n1, w] tile of edge values into its edge vector
+        ``ew`` at the tile's real edges (each edge lies in one slot)."""
+        if self.gd is not None:
+            ew[self.gd.tiles("slot_epos")[(j, k, s)][n]] = tile
+            return
+        pos = self.st.tiles("live_pos")[(j, k, s)]
+        ew[self.st.tiles("live_epos")[(j, k, s)]] = tile.reshape(-1)[pos]
 
     def edge_weight_tiles(self, j: int, k: int, s: int) -> List[torch.Tensor]:
         """Every lane's [n1, w] edge-weight tile (0 on pad slots)."""
-        shape = self.pg.tiles[(j, k)][s].cols.shape
-        return [_from_live(self.ew[n], pos, epos, shape)
-                for n, (pos, epos) in enumerate(self.live(j, k, s))]
+        return [self.gather_edges(self.ew[n], n, j, k, s)
+                for n in range(self.lanes)]
 
     def inv_deg_tile(self, j: int) -> List[torch.Tensor]:
         """Every lane's inverse in-degree of row block j."""
@@ -1590,6 +1699,48 @@ def _check_paths(residency: str, graph_data, mesh,
             "(bucketed subgraphs are small by construction)")
 
 
+class _Replay:
+    """The memo of one replay key: the eager pass's stats and the lane
+    kinds it uploaded; once captured, the graph, its static input
+    buffers (features, graph-as-data lanes), its output and every staged
+    buffer it reads (held, so a weight re-upload cannot free one), and
+    ``held_bytes``, the pass's liveness-aware batch bytes (features and
+    peak live outputs): an upper bound on the device memory the capture
+    keeps.  It is dropped once its executor is gone."""
+
+    def __init__(self, owner, stats: ExecStats,
+                 lane_kinds: List[str]) -> None:
+        self.owner = weakref.ref(owner)
+        self.stats = copy.deepcopy(stats)
+        self.lane_kinds = lane_kinds
+        self.graph = None
+        self.xs: Optional[torch.Tensor] = None
+        self.gd: Optional[_LaneTiles] = None
+        self.out: Optional[torch.Tensor] = None
+        self.reads: Optional[list] = None
+        self.launches: Dict[str, int] = {}
+        self.held_bytes = 0
+        self.dropped = False
+
+    def drop(self) -> None:
+        """Forget the capture (its staging is being released, or its
+        executor is gone) and free what it holds on the device."""
+        self.dropped = True
+        self.graph = self.xs = self.gd = self.out = self.reads = None
+        self.held_bytes = 0
+
+
+def _drop_captures(replays: "weakref.WeakSet[_Replay]") -> None:
+    """A collected executor's finalizer: free its captures (their memo
+    entries are pruned on their program's next replayed run)."""
+    for rp in list(replays):
+        rp.drop()
+
+
+_replay_lock = threading.Lock()
+_executor_ids = itertools.count()
+
+
 class BinaryExecutor:
     """Executes a CompiledProgram by interpreting its decoded binary on
     one torch device.
@@ -1597,11 +1748,26 @@ class BinaryExecutor:
     ``stats`` holds the counters of the most recent :meth:`run` /
     :meth:`run_batch` pass only (reset at entry); ``total`` accumulates
     across the executor's lifetime.
+
+    ``replay`` (on by default) replays device passes on a CUDA device as
+    CUDA graphs (see the module docstring); ``False`` runs every pass
+    eagerly, the route replays are compared against.  An executor is
+    driven by one thread at a time.
     """
 
+    _graph_type = kops.CudaGraph
+
     def __init__(self, device="cuda", backend: Optional[str] = None,
-                 resident_budget_bytes: Optional[int] = None) -> None:
+                 resident_budget_bytes: Optional[int] = None,
+                 replay: bool = True) -> None:
         self.device = torch.device(device)
+        self.replay = replay
+        self._id = next(_executor_ids)
+        # This executor's captures (one memory pool while any is alive),
+        # dropped when it is collected.
+        self._replays: "weakref.WeakSet[_Replay]" = weakref.WeakSet()
+        self._pool = None
+        weakref.finalize(self, _drop_captures, self._replays).atexit = False
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
         on_cuda = self.device.type == "cuda"
@@ -1693,24 +1859,39 @@ class BinaryExecutor:
         static, x_bytes, live = self._live_profile(prog, x_cols)
         return static + batch * (x_bytes + max(live)) if live else static
 
+    def _held_bytes(self, prog: CompiledProgram) -> int:
+        """The device bytes this executor's live captures of ``prog``
+        keep (each capture's ``held_bytes``: an upper bound, since
+        captures that share the pool reuse each other's intermediates)."""
+        with _replay_lock:
+            return sum(rp.held_bytes for rp in
+                       prog.__dict__.get("_replays", {}).values()
+                       if rp.owner() is self)
+
     def _gate_device_budget(self, prog: CompiledProgram,
-                            x_cols: Optional[int], batch: int = 1) -> None:
+                            x_cols: Optional[int], batch: int = 1,
+                            held: int = 0, captured: bool = False) -> None:
         """Refuse a run whose liveness-aware peak exceeds
         ``resident_budget_bytes``, naming the first layer step whose live
-        set pushes past it."""
+        set pushes past it.  ``held`` bytes of captures are counted
+        beside the pass; a replay of a ``captured`` pass needs nothing
+        beyond them."""
         if self.resident_budget_bytes is None:
             return
         budget = self.resident_budget_bytes
         static, x_bytes, live = self._live_profile(prog, x_cols)
+        static += held
+        if captured:
+            live = []
         est = (static + batch * (x_bytes + max(live))) if live else static
         if est <= budget:
             return
-        detail = ""
+        detail = f"; {held} bytes held by captured passes" if held else ""
         over = [t for t, lv in enumerate(live)
                 if static + batch * (x_bytes + lv) > budget]
         if over:
             lp = prog.plan().layers[over[0]]
-            detail = (f"; first exceeded at layer {lp.layer_id} "
+            detail += (f"; first exceeded at layer {lp.layer_id} "
                       f"({LayerType(lp.layer_type).name}, step "
                       f"{over[0] + 1}/{len(live)})")
         batch_note = f" for a batch of {batch}" if batch > 1 else ""
@@ -1905,14 +2086,16 @@ class BinaryExecutor:
             self.liveness_hook(event, layer_id, live)
 
     def _free_dead(self, t: int, sink: int, last_use: Dict[int, int],
-                   vals: Dict, edge_vals: Dict) -> None:
+                   vals: Dict, edge_vals: Dict, watch: bool = True) -> None:
         """Release every value whose LAST consumer was step ``t`` —
-        interval liveness from the manifest's residency table."""
+        interval liveness from the manifest's residency table (reported
+        to the watermark unless ``watch`` is False)."""
         for d in (vals, edge_vals):
             for lid in [l for l in d
                         if l != sink and last_use.get(l, -1) == t]:
                 del d[lid]
-                self._watermark("free", lid, vals, edge_vals)
+                if watch:
+                    self._watermark("free", lid, vals, edge_vals)
 
     # ------------------------------------------------------------------ #
     def run(self, prog: CompiledProgram, x,
@@ -1977,12 +2160,125 @@ class BinaryExecutor:
         # Request topology is checked in full before any launch.
         gd = (None if graph_data is None else
               _LaneTiles(prog.pgraph, graph_data, lanes, self.device))
-        self._gate_device_budget(prog, int(xs.shape[2]), batch=lanes)
-        xs = xs.to(self.device)
+        if (self.replay and weights is None
+                and self._graph_type.supports(self.device)):
+            return self._run_replayed(prog, xs, gd)
+        self._gate_device_budget(prog, int(xs.shape[2]), batch=lanes,
+                                 held=self._held_bytes(prog))
+        return self._run_device(prog, xs.to(self.device), weights, gd)
+
+    def _run_replayed(self, prog: CompiledProgram, xs: torch.Tensor,
+                      gd: Optional[_LaneTiles]) -> torch.Tensor:
+        """The device pass memoized on ``prog`` (module docstring): run
+        eagerly until a pass stages nothing (the first pass on a staging
+        uploads its tiles and weights), captured the next time, replayed
+        from then on.  A capture or replay that fails raises; nothing
+        falls back to the eager route."""
+        dev = _dev_key(self.device)
+        with _staged_lock:      # looked up, not made: a refused run stages
+            st = prog.pgraph.__dict__.get("_staged", {}).get(dev)
+        base = (tuple(xs.shape), str(xs.dtype), gd is not None,
+                self.ack.backend, dev)
+        with _replay_lock:
+            memo = prog.__dict__.setdefault("_replays", {})
+            for k in [k for k, r in memo.items()
+                      if r.dropped or r.owner() is None]:
+                del memo[k]
+            rp = (None if st is None else
+                  memo.get(base + (st.generation, self._id)))
+        # Gated on every call, replays included (a replay runs no Python
+        # of the pass), at batch scale, beside what the captures hold.
+        self._gate_device_budget(
+            prog, int(xs.shape[2]), batch=int(xs.shape[0]),
+            held=self._held_bytes(prog),
+            captured=rp is not None and rp.graph is not None)
+        if rp is None:
+            st = _staged(prog.pgraph, self.device)
+            key = base + (st.generation, self._id)
+            up0 = st.uploaded + st.params_uploaded
+            y = self._run_device(prog, xs.to(self.device), None, gd)
+            if st.uploaded + st.params_uploaded == up0:
+                # A pass that staged nothing: its stats (per-layer times
+                # without uploads) are what its replays report.
+                rp = _Replay(self, self.stats,
+                             gd.kinds() if gd is not None else [])
+                with _replay_lock:
+                    memo[key] = rp
+                    st.replays.add(rp)
+                    self._replays.add(rp)
+            return y
+        if rp.graph is None:
+            self._capture(rp, prog, xs, gd, st)
+        return self._replay(rp, xs, gd)
+
+    def _capture(self, rp: _Replay, prog: CompiledProgram,
+                 xs: torch.Tensor, gd: Optional[_LaneTiles],
+                 st: _Staged) -> None:
+        """Capture the device pass over static copies of ``xs`` and of
+        ``gd``'s buffers.  Everything the pass uploads was uploaded by
+        the eager pass on this staging, or is uploaded here first."""
+        rp.xs = torch.empty(xs.shape, dtype=torch.float32,
+                            device=self.device)
+        if gd is not None:
+            gd.preload(rp.lane_kinds)
+            rp.gd = gd
+        rp.reads = st.buffers()
+        # A pool lives while a graph captured into it does: hold one of
+        # them through the capture (a release in another thread may drop
+        # it), or start a new pool when none is left.
+        anchor = next((r.graph for r in list(self._replays)
+                       if r.graph is not None), None)
+        if anchor is None:
+            self._pool = self._graph_type.new_pool(self.device)
+        graph = self._graph_type(self.device, self._pool)
+        with kops.capturing() as launched:
+            rp.out = graph.capture(lambda: self._run_device(
+                prog, rp.xs, None, rp.gd, eager=False))
+        del anchor
+        rp.launches = dict(launched)
+        rp.graph = graph
+        _, x_bytes, live = self._live_profile(prog, int(xs.shape[2]))
+        rp.held_bytes = (int(xs.shape[0]) * (x_bytes + max(live, default=0))
+                         + (gd.uploaded if gd is not None else 0))
+
+    def _replay(self, rp: _Replay, xs: torch.Tensor,
+                gd: Optional[_LaneTiles]) -> torch.Tensor:
+        """Copy the call's inputs into the capture's buffers, replay it,
+        and hand back a copy of its output (the next replay overwrites
+        the graph's own); ``stats`` are the eager pass's."""
+        rp.xs.copy_(xs)
+        if gd is None:
+            copied = 0
+        elif gd is rp.gd:              # the capturing call's own lanes
+            copied = gd.uploaded
+        else:
+            copied = rp.gd.load(gd)
+        with get_tracer().span("replay", cat="exec", track="exec:device",
+                               args={"lanes": int(xs.shape[0])}):
+            rp.graph.replay()
+            kops.note_replay(rp.launches)
+            y = rp.out.clone()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.stats = copy.deepcopy(rp.stats)
+        self.stats.h2d_bytes = copied
+        self.total.add(self.stats)
+        return y
+
+    def _run_device(self, prog: CompiledProgram, xs: torch.Tensor,
+                    weights, gd: Optional[_LaneTiles],
+                    eager: bool = True) -> torch.Tensor:
+        """One device-resident pass over the device tensor ``xs``.
+        ``eager=False`` is the pass a capture records: no host clock,
+        profile, span or liveness hook, and no synchronize."""
+        lanes = int(xs.shape[0])
         self.stats = ExecStats(runs=1)
         self._note_skips(prog)
-        tracer = get_tracer()
-        self._begin_profile()
+        tracer = get_tracer() if eager else NullTracer()
+        if eager:
+            self._begin_profile()
+        else:
+            self._tile_records = None
         with tracer.span("decode", cat="exec", track="exec:device",
                          args={"cached": prog._plan is not None}):
             plan = prog.plan()
@@ -1997,7 +2293,7 @@ class BinaryExecutor:
         n1, n2, nb = pg.config.n1, pg.config.n2, pg.n_blocks
         vp = nb * n1
         nv = pg.n_vertices
-        clock = _LayerClock(self.device)
+        clock = _LayerClock(self.device if eager else torch.device("cpu"))
 
         fin_pad0 = ((max(plan.layers[0].f_in, 1) + n2 - 1) // n2) * n2
         xw = max(fin_pad0, ((xs.shape[2] + n2 - 1) // n2) * n2)
@@ -2063,11 +2359,15 @@ class BinaryExecutor:
                 step=t, instr_lo=lp.instr_lo, instr_hi=lp.instr_hi,
                 wall_s=clock.stop(t0),
                 tile_ops=self.stats.tile_ops - ops0)
-            self._watermark("alloc", lp.layer_id, vals, edge_vals)
+            if eager:
+                self._watermark("alloc", lp.layer_id, vals, edge_vals)
             # Interval liveness: drop outputs whose last consumer just
             # ran, so peak memory follows the live-set, not model depth.
-            self._free_dead(t, sink, last_use, vals, edge_vals)
+            self._free_dead(t, sink, last_use, vals, edge_vals,
+                            watch=eager)
 
+        if not eager:
+            return vals[sink][:, :nv, :man["sink_f_out"]]
         if clock.cuda:
             torch.cuda.current_stream(self.device).synchronize()
         for rec in self.stats.per_layer or []:
@@ -2085,14 +2385,13 @@ class BinaryExecutor:
         [n1, w] scores of the live slots to their global edge ids (each
         edge lies in exactly one slot).  A fused edge softmax then
         normalizes the scattered scores (see _EdgeScoreKernel)."""
-        ew = torch.zeros((env.lanes, pg.n_edges), dtype=torch.float32,
+        ew = torch.zeros((env.lanes, env.edge_len()), dtype=torch.float32,
                          device=self.device)
         for tp in self._block_order(lp):
             self._profile_tile(kern, tp)
-            outs = kern.tile(tp, env)
-            lives = env.live(tp.out_j, tp.tile_k, tp.slice_id)
-            for n, (acc, (pos, epos)) in enumerate(zip(outs, lives)):
-                ew[n][epos] = acc.reshape(-1)[pos]
+            for n, acc in enumerate(kern.tile(tp, env)):
+                env.scatter_edges(ew[n], n, acc, tp.out_j, tp.tile_k,
+                                  tp.slice_id)
         if kern.softmax:
             ew = self._edge_softmax(pg, st, ew, env.gd)
         return ew
@@ -2161,22 +2460,20 @@ class BinaryExecutor:
         destination rows (a mesh device's own; the others stay 0)."""
         lanes = ew_in.shape[0]
         env = _DeviceEnv(pg, st, lanes, gd=gd)
-        ew = torch.zeros((lanes, pg.n_edges), dtype=torch.float32,
+        ew = torch.zeros((lanes, env.edge_len()), dtype=torch.float32,
                          device=st.device)
         for j in (range(pg.n_blocks) if blocks is None else blocks):
             row_tiles = _row_tiles(pg, j)
             if not row_tiles:
                 continue
             masks = [env.tiles("mask", j, k, s) for k, s in row_tiles]
-            lives = [env.live(j, k, s) for k, s in row_tiles]
             self.stats.tile_ops += len(row_tiles)
             for n in range(lanes):
-                scored = [(_from_live(ew_in[n], *lv[n], m[n].shape), m[n])
-                          for m, lv in zip(masks, lives)]
-                for lv, out_t in zip(lives,
-                                     self._edge_softmax_rows(scored)):
-                    pos, epos = lv[n]
-                    ew[n][epos] = out_t.reshape(-1)[pos]
+                scored = [(env.gather_edges(ew_in[n], n, j, k, s), m[n])
+                          for (k, s), m in zip(row_tiles, masks)]
+                for (k, s), out_t in zip(row_tiles,
+                                         self._edge_softmax_rows(scored)):
+                    env.scatter_edges(ew[n], n, out_t, j, k, s)
         return ew
 
     def _run_edge_act(self, lp, pg, st: _Staged, ew_in,

@@ -25,13 +25,20 @@ such a column.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, bumped
 only where a kernel is launched, under a lock since overlays launch from
-their own threads), so a run can show that it went through the kernels;
-``reset_launches`` zeroes them.
+their own threads), so a run can show that it went through the kernels.
+A wrapper called while its thread captures a CUDA graph
+(:func:`capturing`) launches nothing: the kernel is recorded into the
+graph and counted in the capture's own dict, not in ``LAUNCHES``.
+``REPLAYED`` counts the kernels CUDA-graph replays launch, never a
+wrapper: each replay adds its graph's captured counts
+(:func:`note_replay`).  ``LAUNCHES`` plus ``REPLAYED`` is every kernel
+the card ran (:func:`launch_totals`); ``reset_launches`` zeroes both.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -43,15 +50,101 @@ LAUNCHES: Dict[str, int] = {"gemm": 0, "spdmm": 0, "sddmm": 0,
 _launch_lock = threading.Lock()
 
 
+REPLAYED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+_tls = threading.local()
+
+
 def reset_launches() -> None:
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            REPLAYED[k] = 0
 
 
 def _launched(name: str) -> None:
+    captured = getattr(_tls, "captured", None)
+    if captured is not None:
+        captured[name] = captured.get(name, 0) + 1
+        return
     with _launch_lock:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """Open while this thread captures a CUDA graph: yield a dict that
+    counts, kernel by kernel, the kernels the wrappers record into it
+    (whatever other threads launch meanwhile)."""
+    prev = getattr(_tls, "captured", None)
+    _tls.captured = counts = {}
+    try:
+        yield counts
+    finally:
+        _tls.captured = prev
+
+
+def note_replay(launches: Dict[str, int]) -> None:
+    """Count one replay of a graph that captured ``launches``."""
+    with _launch_lock:
+        for k, n in launches.items():
+            REPLAYED[k] += n
+
+
+def launch_totals() -> Dict[str, int]:
+    """``LAUNCHES`` plus ``REPLAYED``: every launch the card ran."""
+    with _launch_lock:
+        return {k: LAUNCHES[k] + REPLAYED[k] for k in LAUNCHES}
+
+
+class CudaGraph:
+    """The port's one CUDA-graph primitive (the executor's replays and
+    the LM serve step).  :meth:`capture` records ``fn``'s launches
+    (nothing runs) and returns its output, whose memory the graph keeps;
+    :meth:`replay` launches them again on the current stream.  The
+    capture runs on the current stream, or on a side stream when that is
+    the device's default stream (which cannot capture), in thread-local
+    mode, so other threads keep issuing work.  Whatever ``fn`` needs set
+    up (kernel builds, staging) is done by an eager call before.
+
+    ``pool`` (from :meth:`new_pool`) is a memory pool shared with other
+    graphs: a later capture reuses the memory an earlier one freed while
+    capturing, so graphs that share a pool must never replay at the same
+    time, and an output stays the graph's until the graph is dropped."""
+
+    @staticmethod
+    def supports(device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    @staticmethod
+    def new_pool(device: torch.device):
+        return torch.cuda.graph_pool_handle()
+
+    def __init__(self, device: torch.device, pool=None) -> None:
+        self.device, self.pool = device, pool
+        self.graph = torch.cuda.CUDAGraph()
+
+    def capture(self, fn):
+        cur = torch.cuda.current_stream(self.device)
+        side = cur == torch.cuda.default_stream(self.device)
+        stream = torch.cuda.Stream(self.device) if side else cur
+        if side:
+            stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=self.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                out = fn()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()    # the capture is invalid
+                raise
+            self.graph.capture_end()
+        if side:
+            cur.wait_stream(stream)
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
 
 
 def _on_cpu(*ts: Optional[torch.Tensor]) -> bool:

@@ -22,7 +22,7 @@ failed (nor by whether a gradient is wanted):
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -243,15 +243,21 @@ def init_cache(batch: int, max_len: int, n_kv: int, hd: int,
 
 
 def decode_attention(p: Params, x: torch.Tensor,
-                     cache: Dict[str, torch.Tensor], pos: int, *,
+                     cache: Dict[str, torch.Tensor],
+                     pos: Union[int, torch.Tensor], *,
                      window: int = 0, rope_theta: float = 1e4,
                      eps: float = 1e-6, cross: bool = False
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step.  x [B, 1, D]; cache k/v [B, S, Kh, hd]; pos: the
-    current position (int).  Returns (out [B,1,D], cache).  Unlike JAX,
-    which returns a new cache, the self-attention cache is written in
-    place (one slot per step) and returned."""
-    pos = int(pos)
+    current position, an int or a 0-d integer tensor on x's device (as
+    JAX's jitted step takes it: the ring slot and the visibility mask are
+    then computed on the device, and a captured step reads the position
+    from the tensor; both give the same bits).  Returns (out [B,1,D],
+    cache).  Unlike JAX, which returns a new cache, the self-attention
+    cache is written in place (one slot per step) and returned."""
+    on_device = isinstance(pos, torch.Tensor)
+    if not on_device:
+        pos = int(pos)
     q = _proj(x, p["wq"])
     hd = q.shape[-1]
     if cross:
@@ -262,14 +268,23 @@ def decode_attention(p: Params, x: torch.Tensor,
         knew = _proj(x, p["wk"])
         vnew = _proj(x, p["wv"])
         q, knew = _qk_normalize(p, q, knew, eps)
-        posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                          device=x.device)
+        if on_device:
+            posv = pos.to(torch.int32).reshape(1, 1).expand(x.shape[0], 1)
+        else:
+            posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                              device=x.device)
         q = rope(q, posv, rope_theta)
         knew = rope(knew, posv, rope_theta)
         s_len = cache["k"].shape[1]
-        slot = pos % s_len   # ring buffer; full caches have s_len > pos
-        cache["k"][:, slot] = knew[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = vnew[:, 0].to(cache["v"].dtype)
+        # Ring buffer; full caches have s_len > pos.
+        if on_device:
+            slot = torch.remainder(pos, s_len).reshape(1).to(torch.int64)
+            cache["k"].index_copy_(1, slot, knew.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, slot, vnew.to(cache["v"].dtype))
+        else:
+            slot = pos % s_len
+            cache["k"][:, slot] = knew[:, 0].to(cache["k"].dtype)
+            cache["v"][:, slot] = vnew[:, 0].to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]
         # Ring-buffer slot -> absolute position (wraps for window caches);
         # unwritten slots map to negative positions (invalid).  Python's

@@ -10,7 +10,7 @@ the in-house AdamW (``repro_torch.optim``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -103,9 +103,11 @@ def init_train_state(model: DecoderLM, keep_master: bool = True
 
 def make_serve_step(model: DecoderLM, cfg: ModelConfig):
     """One-token greedy decode: (params, cache, token, pos) -> (next
-    [B, 1] int32, cache)."""
+    [B, 1] int32, cache); ``pos`` an int or a 0-d integer tensor on the
+    model's device (what a captured step reads)."""
 
-    def serve_step(params: DecoderLM, cache, token, pos: int):
+    def serve_step(params: DecoderLM, cache, token,
+                   pos: Union[int, torch.Tensor]):
         logits, cache = params.decode_step(cache, token, pos)
         nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         return nxt, cache

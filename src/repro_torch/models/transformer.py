@@ -13,11 +13,21 @@ FFN, and an LM head tied to the embedding (logits ``x @ embed.T``) or
 untied (a ``head`` weight [d_model, vocab], logits ``x @ head``).  Any
 other block kind raises NotImplementedError naming its ROADMAP item.  A
 windowed layer's decode cache is a ring buffer of ``min(window,
-seq_len)`` slots, as in JAX.  ``cfg.remat`` (JAX's activation
-checkpointing) is not applied: the port's backward keeps the forward's
-activations, and only attention recomputes (``attention._FlashAttention``).
-Parameters are created with ``requires_grad=False`` (serving needs no
-graph); ``steps.init_train_state`` turns gradients on.
+seq_len)`` slots, as in JAX.  ``cfg.remat`` is JAX's activation
+checkpointing of each segment's scan body, one superblock repeat: under
+"full" (the default, and any value but "dots" and "none", as in JAX's
+``_remat``) a repeat keeps only its input and recomputes the rest in the
+backward (``torch.utils.checkpoint``, non-reentrant); under "dots" it
+keeps the outputs of its 2-D products (``aten.mm`` / ``aten.addmm``: the
+projections and the FFN) and recomputes the rest, JAX's
+``dots_with_no_batch_dims_saveable``; "none" keeps every activation.  It
+applies only when a gradient is wanted (grad mode on and a parameter
+that requires one), so serving and prefill are unchanged; the flash
+kernel's forward then runs twice a step, the backward's attention
+recompute (``attention._FlashAttention``) once.  Losses and gradients
+are the same bits under every policy.  Parameters are created with
+``requires_grad=False`` (serving needs no graph);
+``steps.init_train_state`` turns gradients on.
 
 Public surface:
   DecoderLM(cfg, device, seed)          — random weights from a seed
@@ -28,10 +38,13 @@ Public surface:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as A
 from .config import ModelConfig
@@ -166,7 +179,8 @@ def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
 
 
 def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
-                 x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int
+                 x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 pos: Union[int, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     eps = cfg.norm_eps
     h = rms_norm(x, bp.ln1, eps)
@@ -176,6 +190,31 @@ def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
     x = x + a
     x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
     return x, cache
+
+
+# The 2-D products a "dots" policy saves: the projections and the FFN
+# (``attention._proj`` / ``_out_proj``, ``layers.swiglu``) lower to them;
+# attention's batched products (``bmm``) are recomputed, as JAX's policy
+# saves only dots with no batch dimensions.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` checkpointed under a ``cfg.remat`` policy (JAX's
+    ``_remat``)."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -210,15 +249,31 @@ class DecoderLM(nn.Module):
                                         device=device)))
         self.layers = nn.ModuleList(Block(cfg, gen, device)
                                     for _ in self.specs)
+        # Layer ranges of JAX's scan bodies: one superblock repeat each.
+        self.repeats: List[Tuple[int, int]] = []
+        for sb, rep in build_segments(cfg):
+            for _ in range(rep):
+                lo = self.repeats[-1][1] if self.repeats else 0
+                self.repeats.append((lo, lo + len(sb)))
 
     # -- forward (prefill) ---------------------------------------------- #
     def hidden(self, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Final-norm hidden states [B, T, D] of tokens [B, T]."""
         x = self.embed[tokens.long()]
-        for spec, bp in zip(self.specs, self.layers):
-            x, _ = block_apply(self.cfg, spec, bp, x, positions)
+        wanted = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        body = _remat(self._repeat, self.cfg.remat if wanted else "none")
+        for lo, hi in self.repeats:
+            x = body(x, lo, hi, positions)
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+
+    def _repeat(self, x: torch.Tensor, lo: int, hi: int,
+                positions: Optional[torch.Tensor]) -> torch.Tensor:
+        """Layers [lo, hi): one superblock repeat, JAX's scan body."""
+        for spec, bp in zip(self.specs[lo:hi], self.layers[lo:hi]):
+            x, _ = block_apply(self.cfg, spec, bp, x, positions)
+        return x
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None
@@ -242,10 +297,11 @@ class DecoderLM(nn.Module):
                 for spec in self.specs]
 
     def decode_step(self, cache: List[Dict[str, torch.Tensor]],
-                    token: torch.Tensor, pos: int
+                    token: torch.Tensor, pos: Union[int, torch.Tensor]
                     ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-        """token [B,1] int; pos: int.  Returns (logits [B,1,vocab],
-        cache), the caches written in place."""
+        """token [B,1] int; pos: an int or a 0-d integer tensor on the
+        model's device (``attention.decode_attention``).  Returns
+        (logits [B,1,vocab], cache), the caches written in place."""
         x = self.embed[token.long()]
         for spec, bp, lc in zip(self.specs, self.layers, cache):
             x, _ = block_decode(self.cfg, spec, bp, x, lc, pos)

@@ -3,9 +3,11 @@
 A copy of ``repro/sampling/service.py`` bound to the port's runtime
 (:class:`~repro_torch.runtime.OverlayPool`, ``ServeLoop``, ``Batch``,
 ``request_cost``) and tracer.  Logits stay on the engine's device, as
-``InferenceResponse.output`` does.  ``warm`` runs one batch per program:
-the JAX package also traces an executable per power-of-two batch size
-there, and the port has none.
+``InferenceResponse.output`` does.  ``warm`` runs each program at every
+power-of-two batch size, as JAX's traces an executable per size, and
+twice: a batch shape's first pass runs eagerly (after the program's
+first, which stages its weights) and its second captures the CUDA graph
+later batches replay.
 
 Request lifecycle (the dominant real-world serving scenario)::
 
@@ -168,12 +170,15 @@ class SamplingService:
             batch_size=resp.batch_size, overlay=resp.overlay)
 
     def warm(self, requests: Sequence[TargetRequest]) -> int:
-        """Pre-compile the programs of the buckets ``requests`` touch.
+        """Pre-compile and pre-capture for the programs ``requests``
+        touch.
 
-        One representative request per program is executed once on the
-        overlay the pool routes it to, so the program is compiled and
-        cached there and steady-state traffic of those buckets is pure
-        T_LoH.  Returns the number of programs warmed.
+        One representative request per program is executed at every
+        power-of-two batch size up to ``max_batch``, twice (an eager pass,
+        then the capture of its CUDA graph on a card), on the overlay the
+        pool routes it to, so steady-state traffic of those buckets
+        replays whatever ragged batch sizes deadline flushes produce.
+        Returns the number of programs warmed.
         """
         reps: Dict[str, InferenceRequest] = {}
         for r in requests:
@@ -181,10 +186,17 @@ class SamplingService:
             # one representative per PROGRAM (model x bucket x seed),
             # not per bucket: two models sharing a bucket both warm
             reps.setdefault(self.pool.cache_key(inf), inf)
+        sizes = []
+        s = 1
+        while s < self.loop.max_batch:
+            sizes.append(s)
+            s <<= 1
+        sizes.append(self.loop.max_batch)
         for key, inf in reps.items():
-            self.pool.submit_batch(Batch(
-                key=key, requests=[inf], indices=[0], created_at=0.0,
-                cost=request_cost(inf)))
+            for n in sorted(set(sizes)) * 2:
+                self.pool.submit_batch(Batch(
+                    key=key, requests=[inf] * n, indices=list(range(n)),
+                    created_at=0.0, cost=n * request_cost(inf)))
         return len(reps)
 
     # ------------------------------------------------------------------ #

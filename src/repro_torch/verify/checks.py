@@ -128,13 +128,25 @@ def check_def_before_use(model: DefUseModel,
 def derive_last_use(model: DefUseModel) -> Dict[int, int]:
     """Interval-liveness table re-derived from the def/use model: value
     id -> layer step of its last consumer (-1 = input features; the
-    sink gets one-past-the-last-layer, the executor's output slice)."""
+    sink gets one-past-the-last-layer, the executor's output slice).
+
+    A value no instruction reads dies at the step of the layer the layer
+    table names as its consumer, as the manifest's residency schedule
+    frees it: that is a remapped binary whose skip-empty elision drained
+    every tile its consumer reads.  (A departure from ``repro``, whose
+    copy keeps such a value live to the end and so reports a
+    ``resident_budget`` drift against the executor's estimate.)"""
     last: Dict[int, int] = {}
     for op in model.ops:
         for u in op.uses:
             if u[0] in ("v", "e"):
                 lid = int(u[1])
                 last[lid] = max(last.get(lid, op.step), op.step)
+    read = set(last)
+    for step, lp in enumerate(model.plan.layers):
+        for lid in model.consumes.get(lp.layer_id, ()):
+            if lid not in read:
+                last[lid] = max(last.get(lid, step), step)
     if model.plan.layers:
         last[model.plan.layers[-1].layer_id] = len(model.plan.layers)
     return last

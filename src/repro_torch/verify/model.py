@@ -77,6 +77,8 @@ class DefUseModel:
     # False when no tile universe was supplied: ("g", ...) uses are then
     # treated as always-defined (existence unverifiable).
     graph_tiles_known: bool = True
+    # lid -> value ids the layer table says it consumes (layer_consumes)
+    consumes: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
 
     def ops_of_layer(self, lid: int) -> List[TileOp]:
         return [op for op in self.ops if op.layer_id == lid]
@@ -176,12 +178,14 @@ def build_model(plan: ExecutionPlan, lmeta: dict, geometry: dict,
                 predefined.add(("g", j, k, s))
 
     layer_kind: Dict[int, str] = {}
+    consumes: Dict[int, List[int]] = {}
     for lp in plan.layers:
         edge = (lp.layer_type == LayerType.VECTOR_INNER or lp.on_edges)
         layer_kind[lp.layer_id] = "e" if edge else "v"
         meta = lmeta.get(str(lp.layer_id), {})
+        consumes[lp.layer_id] = layer_consumes(meta, lp.layer_type)
         # Input features: every (i, j) fiber tile a -1 consumer can read.
-        if -1 in layer_consumes(meta, lp.layer_type):
+        if -1 in consumes[lp.layer_id]:
             for i in range(_fibers(lp.f_in, n2)):
                 for j in range(nb):
                     predefined.add(("v", -1, i, j))
@@ -205,7 +209,8 @@ def build_model(plan: ExecutionPlan, lmeta: dict, geometry: dict,
                 defs=defs, uses=uses))
     return DefUseModel(plan=plan, ops=ops, predefined=predefined,
                        n1=n1, n2=n2, nb=nb, layer_kind=layer_kind,
-                       graph_tiles_known=graph_tiles_known)
+                       graph_tiles_known=graph_tiles_known,
+                       consumes=consumes)
 
 
 def tile_slices_from_stats(tile_stats: dict

@@ -6,6 +6,15 @@ or function with plain attention, live-graph versions against a cold
 compile (with the bytes a delta uploads and a reclaim frees), and the
 mesh path on virtual shards of the card against the device path.
 
+Replays: a device pass replayed as a CUDA graph against the eager route
+(``Engine(replay=False)``) bit for bit, for b2 and gat-dot on Cora and
+for sampled lanes of differing live counts (a batch of 3 in a bucket of
+4), with the eager pass's stats; a released staging or a reclaimed live
+version drops its captures and a re-staged replay equals eager; two
+engines of an ``OverlayPool`` replaying one program in two threads at
+once; the captured serve step against the eager one over gemma3's ring
+wrap.
+
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
 installed; there the repository's ``conftest.py`` (which imports JAX) is
@@ -792,7 +801,8 @@ def test_cuda_graph_as_data_lanes_equal_singles(cuda, model):
     ops.reset_launches()
     batched = eng.submit_batch(reqs)
     modes = eng.exec_stats.tile_ops_by_mode
-    assert ops.LAUNCHES["spdmm"] == 3 * modes["spdmm"] > 0
+    # Three requests run as JAX's bucket of 4 lanes (one zero lane).
+    assert ops.LAUNCHES["spdmm"] == 4 * modes["spdmm"] > 0
     for got, want in zip(batched, singles):
         assert got.batch_size == 3
         assert torch.equal(got.output, want)
@@ -981,3 +991,187 @@ def test_cuda_reclaimed_version_frees_its_own_bytes(cuda):
     g2c = dataclasses.replace(v2.as_graph(), name="cold")
     assert torch.equal(eng.submit(InferenceRequest("b2", live, x)).output,
                        cold.run(cold.compile("b2", g2c), x))
+
+
+# --------------------------------------------------------------------------- #
+# Replays (CUDA graphs) against the eager route.
+# --------------------------------------------------------------------------- #
+CO_GEOM = PartitionConfig(n1=1024, n2=128)
+
+
+def _stats(st):
+    d = dataclasses.asdict(st)
+    for rec in d["per_layer"] or []:
+        rec.pop("wall_s")
+    return d
+
+
+def _replays(prog):
+    return list(prog.__dict__.get("_replays", {}).values())
+
+
+@pytest.mark.parametrize("which", ["b2", "gat-dot"])
+def test_cuda_replay_equals_eager(cuda, which):
+    g = TG.synthesize("CO").gcn_normalized()
+    model = which if which == "b2" else build_gat_dot(TB, g)
+    eng, eager = Engine(CO_GEOM), Engine(CO_GEOM, replay=False)
+    prog, eprog = eng.compile(model, g), eager.compile(model, g)
+    xs = [TG.random_features(g, seed=s) for s in range(4)]
+    ops.reset_launches()
+    outs, stats = [], []
+    for x in xs:
+        y = eng.run(prog, x)
+        outs.append((y, y.clone()))
+        stats.append(_stats(eng.exec_stats))
+    launched, replayed = dict(ops.LAUNCHES), dict(ops.REPLAYED)
+    modes = eng.exec_stats.tile_ops_by_mode
+    for k in ("gemm", "spdmm", "sddmm"):
+        # Two eager passes through the wrappers (the first stages the
+        # graph), the capture launching nothing, two replays.
+        assert launched[k] == 2 * modes.get(k, 0)
+        assert replayed[k] == 2 * modes.get(k, 0)
+    assert launched["spdmm"] > 0
+    (rp,) = _replays(prog)
+    assert rp.graph is not None
+    for (y, kept), x, st in zip(outs, xs, stats):
+        assert torch.equal(y, kept)            # not overwritten since
+        assert torch.equal(y, eager.run(eprog, x))
+        assert st == _stats(eager.exec_stats)
+    assert not _replays(eprog)
+    _close(outs[-1][0], TR.run_reference(
+        TB.build(model, g) if which == "b2" else model, g,
+        torch.as_tensor(xs[-1], device=cuda), dtype=torch.float64),
+        rtol=2e-4, atol=2e-5)
+
+
+def test_cuda_replayed_sampled_lanes(cuda):
+    geom = PartitionConfig(n1=32, n2=8)
+    g = _sampling_parent(ne=24000)
+    reqs = [_bucketed(g, "b6", [5 + i, 90 + i], (6, 4), 11 + i, geom)[1]
+            for i in range(8)]
+    live = [sum(int(np.asarray(t["mask"]).sum())
+                for t in r.graph_data["tiles"].values()) for r in reqs]
+    assert len(set(live)) > 4
+    eng = Engine(geometry=geom, n_pes=4)
+    eager = Engine(geometry=geom, n_pes=4, replay=False)
+    for lo in (0, 3, 5, 1, 4):                 # 3 lanes: a bucket of 4
+        batch = reqs[lo:lo + 3]
+        got, want = eng.submit_batch(batch), eager.submit_batch(batch)
+        for a, b in zip(got, want):
+            assert a.batch_size == 3 and torch.equal(a.output, b.output)
+        assert _stats(eng.exec_stats) == _stats(eager.exec_stats)
+    (rp,) = _replays(eng.cache.get(got[0].cache_key))
+    assert rp.graph is not None and rp.xs.shape[0] == 4
+
+
+def test_cuda_released_and_reclaimed_stagings_drop_captures(cuda):
+    from repro_torch.engine.executor import release_staging
+    from repro_torch.livegraph import GraphVersionStore, LiveGraphServer
+    g = _powerlaw(nv=300, ne=2400, seed=9)
+    geom = PartitionConfig(n1=64, n2=16)
+    x = TG.random_features(g, seed=1)
+    eng, eager = Engine(geom), Engine(geom, replay=False)
+    prog = eng.compile("b2", g)
+    want = eager.run(eager.compile("b2", g), x)
+    for _ in range(3):
+        assert torch.equal(eng.run(prog, x), want)
+    (rp,) = _replays(prog)
+    release_staging(prog.pgraph)
+    assert rp.dropped and rp.graph is None and rp.reads is None
+    for _ in range(3):                         # re-staged, then replayed
+        assert torch.equal(eng.run(prog, x), want)
+    (rp2,) = _replays(prog)
+    assert rp2.graph is not None
+    live = LiveGraphServer(GraphVersionStore(g, geometry=geom))
+    for _ in range(3):
+        eng.submit(InferenceRequest("b2", live, x))
+    (rp0,) = _replays(eng.compile("b2", live))
+    assert rp0.graph is not None
+    v1 = live.apply(_live_delta(g, seed=2))
+    live.cutover(v1)                           # v0 retired and reclaimed
+    assert live.reclaimed == [0] and rp0.dropped
+    cold = Engine(geom, replay=False)
+    want1 = cold.run(cold.compile("b2", dataclasses.replace(
+        v1.as_graph(), name="cold")), x)
+    for _ in range(3):
+        assert torch.equal(eng.submit(InferenceRequest("b2", live,
+                                                       x)).output, want1)
+
+
+def test_cuda_pool_engines_replay_concurrently(cuda):
+    import threading
+    from repro_torch.runtime import OverlayPool
+    g = TG.synthesize("CO").gcn_normalized()
+    model = build_gat_dot(TB, g)
+    pool = OverlayPool(2, geometry=CO_GEOM)
+    prog = pool.engines[0].compile(model, g)
+    eager = Engine(CO_GEOM, replay=False)
+    eprog = eager.compile(model, g)
+    xs = [TG.random_features(g, seed=s) for s in range(6)]
+    want = [eager.run(eprog, x) for x in xs]
+    got = [[None] * len(xs) for _ in pool.engines]
+    errors = []
+
+    def drive(i, eng):
+        try:
+            for r in range(3):
+                for n, x in enumerate(xs):
+                    got[i][n] = eng.run(prog, x)
+        except Exception as e:                  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=drive, args=(i, e))
+               for i, e in enumerate(pool.engines)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    for outs in got:
+        for y, w in zip(outs, want):
+            assert torch.equal(y, w)
+    assert len([rp for rp in _replays(prog) if rp.graph is not None]) == 2
+
+
+def test_cuda_captured_serve_step_equals_eager_over_gemma3_ring(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    cfg = dataclasses.replace(get_smoke_config("gemma3-12b"),
+                              dtype="float32")
+    model = build_model(cfg, seed=2)
+    assert model.embed.device.type == "cuda"
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 7)).astype(np.int32), device=cuda)
+    gen = 12                                   # positions to 18 > window 8
+    captured, _, _ = generate(model, cfg, prompts, gen, capture=True)
+    eager, _, _ = generate(model, cfg, prompts, gen, capture=False)
+    assert captured.shape == (3, gen) and torch.equal(captured, eager)
+
+
+def test_cuda_collected_engine_frees_its_captures(cuda):
+    import gc
+    g = TG.synthesize("CO").gcn_normalized()
+    eng = Engine(CO_GEOM)
+    prog = eng.compile("b2", g)
+    x = TG.random_features(g, seed=0)
+    want = eng.run(prog, x)                    # stages the graph
+    torch.cuda.synchronize(cuda)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    reserved = torch.cuda.memory_reserved(cuda)
+    for lanes in (1, 2):                       # warm, capture, replay
+        for _ in range(3):
+            y = eng.run_batch(prog, np.stack([x] * lanes))
+            assert all(torch.equal(y[n], want) for n in range(lanes))
+    del y
+    rps = [rp for rp in _replays(prog) if rp.graph is not None]
+    assert len(rps) == 2 and rps[0].graph.pool == rps[1].graph.pool
+    held = torch.cuda.memory_allocated(cuda) - base
+    assert 0 < held <= eng.executor._held_bytes(prog)
+    del eng, rps
+    gc.collect()
+    assert all(rp.dropped for rp in _replays(prog))
+    assert torch.cuda.memory_allocated(cuda) <= base
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda) <= reserved

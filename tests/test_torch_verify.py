@@ -18,6 +18,14 @@ inputs):
     live rebinds (a corrupt rebind raises ``VerifyError``), and
     ``GAGI_EXPORT_DIR`` exports every fresh compile.
 
+One case departs from JAX on purpose
+(``test_drained_rebound_remap_passes_where_jax_reports_drift``): a
+remapped program rebound after a delta that drains every tile an
+aggregate layer reads.  The port's ``derive_last_use`` frees the layer's
+unread input at its consumer's step, as the manifest's schedule does, and
+passes; JAX's keeps it live to the end and reports a ``resident_budget``
+drift.  Every other report here equals JAX's.
+
 The static placement checks (``halo_completeness``) run on bundles the
 JAX compiler built for a mesh and the port loads, and on programs the
 port's own ``Engine.compile(mesh=)`` builds; the race detector also reads
@@ -369,6 +377,47 @@ def test_rejects_residency_drift_from_budget_estimate(programs, jprograms):
         reps.append(vp(bad))
     assert not reps[0].ok and "resident_budget" in reps[0].checks_failed
     _same(*reps)
+
+
+def test_drained_rebound_remap_passes_where_jax_reports_drift():
+    """Cora in one tile (n1=4096), b1 remapped with force="gemm", then a
+    delta that removes every edge, rebound: the tile is priced skip, so
+    no instruction reads the aggregate layer's input.  JAX's verifier
+    keeps that value live to the end and reports the budget drift (the
+    fault); the port's frees it at its consumer's step, as the schedule
+    does, and its report is JAX's with that drift removed."""
+    reps = {}
+    for name, pkg, L, Eng, PC, vp in (
+            ("port", G, None, Engine, PartitionConfig, verify_program),
+            ("jax", JG, JL, JEngine, JPC, JV.verify_program)):
+        co = pkg.synthesize("CO").gcn_normalized()
+        geom = PC(n1=4096, n2=128)
+        store = (GraphVersionStore if L is None else L.GraphVersionStore)(
+            co, geometry=geom)
+        eng = (Engine(geometry=geom, device="cpu", verify=True)
+               if L is None else Eng(geometry=geom, verify=False))
+        eng.remap(eng.compile("b1", store.head.as_graph()), force="gemm")
+        (jk,) = store.head.store.edges
+        te = store.head.store.edges[jk]
+        d = (GraphDelta if L is None else L.GraphDelta)(co.n_vertices)
+        for u, w in sorted(set(zip(te.src.tolist(), te.dst.tolist()))):
+            d.remove_edge(u, w)
+        p1 = eng.compile("b1", store.apply(d).as_graph())   # verified
+        assert p1.manifest["remap"]["counts"] == {"spdmm": 0, "gemm": 0,
+                                                   "skip": 1}
+        reps[name] = vp(p1)
+        if L is None:
+            x = G.random_features(co, seed=0)
+            assert torch.equal(eng.run(p1, x),
+                               eng.run(p1, x, residency="host"))
+    jrep = reps["jax"].to_dict()
+    assert not reps["jax"].ok and jrep["checks_failed"] == ["resident_budget"]
+    (v,) = jrep["violations"]
+    assert "32051292" in v["message"] and "29954140" in v["message"]
+    jrep.update(ok=True, checks_failed=[], violations=[],
+                checks_passed=list(jrep["checks_run"]))
+    jrep["stats"]["device_peak_bytes"] = 29954140
+    assert reps["port"].to_dict() == jrep
 
 
 def test_engine_compile_verify_raises_on_corrupt_rebind(graph):
