@@ -252,6 +252,37 @@ Phases (any failure exits non-zero; nothing is caught):
    train state onto a fresh model on the card, bit for bit; and
    ``python -m repro_torch.launch.train`` at 2x4096, crashed after step
    4 (exit 42) and resumed from its own checkpoint of step 3 to step 5.
+14. Cross-attention and the flash kernel's non-causal mode: the kernel
+   at llama-3.2-vision's cross shape (BH=128 over 32 KV heads, G=4,
+   Tq=2048, Tk=1,601, d=128) and whisper-base's encoder shape (BH=32,
+   T=1,500, d=64), fp32 at atol 2e-5 and bf16 by ``check_rows``, timed
+   beside the plain version, SDPA (``is_causal=False``) and the bound;
+   llama-3.2-vision-11b at full width (40 layers, 8 with cross-attention
+   over 1,601 vision tokens, d_model 4096, 32 / 8 heads of 128, vocab
+   128,256; 10.11 B parameters, random from seed 0) prefilled in bf16 at
+   B=4, T=2048 (a warm-up and 2 timed, 48 flash launches each: 40 causal,
+   8 non-causal; one more under ``torch.profiler``), last-position logits
+   within relative L2 2e-2 of plain attention, its eager / captured
+   decode pair; fp32 decode against forward at one superblock (5 layers)
+   with the cross caches filled by ``fill_cross_caches``;
+   ``launch.serve --arch llama-3.2-vision-11b``.
+15. whisper-base at full width (6 encoder and 6 decoder layers, d_model
+   512, 8 heads of 64, vocab 51,865, tied head; 83.19 M parameters):
+   ``make_prefill_step`` (encode 4 x 1,500 frames, then a bf16
+   teacher-forced forward over 448 targets; 18 flash launches a forward:
+   12 non-causal, 6 causal) against plain attention, ``encode`` timed
+   alone, the eager / captured decode pair; fp32 decode against forward
+   with the cross caches filled from ``encode``; ``launch.serve --arch
+   whisper-base``.
+16. The cross-attention train steps in bf16: whisper-base at full width
+   (B=8, 1,500 frames, 448 targets) and llama-3.2-vision-11b cut to one
+   superblock (5 layers at full width, the last with cross-attention;
+   B=2, T=2048, 1,601 vision tokens; the AdamW state of all 40 layers
+   would not fit the card): step 1's loss and every gradient against the
+   plain route within relative L2 2e-2, 4 steps of ``make_train_step``
+   (every loss finite, flash launches twice a forward's under remat
+   "full"), step ms, tokens/s, peak memory; whisper's train state saved
+   and restored bit for bit.
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths, through its wrapper (``kernels.ops.LAUNCHES``; a CUDA-graph
@@ -262,7 +293,8 @@ runtime path, the sampled stream, the reported runs of phase 7, the live
 path's runs of phase 8 (cold-compile comparisons excluded), the prefill
 and forward runs of phase 9, the mesh runs of phase 10 (device-path
 comparisons excluded), the prefill and forward runs of phases 11 and
-12, and the 10 train steps of phase 13),
+12, the 6 train steps of phase 13, and the prefill, forward and train
+runs of phases 14-16),
 each counted from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
@@ -2820,7 +2852,6 @@ def granite_phase(torch, ops, ref):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
     from repro_torch.models.steps import build_model
 
     cfg = get_config(GRANITE_ARCH)
@@ -2863,29 +2894,10 @@ def granite_phase(torch, ops, ref):
     torch.cuda.empty_cache()
 
     # The serving loop at granite-8b: 4 requests of 16 tokens.
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(["--arch", GRANITE_ARCH, "--requests", "4",
-                         "--prompt-len", "16", "--gen", "16"])
-    drv_s = time.perf_counter() - t0
-    text = buf.getvalue()
-    for line in text.splitlines():
-        log(f"serve granite: {line}")
-    m = re.search(r"prefill: ([\d.]+) ms\s+decode: ([\d.]+) ms \(([\d.]+) "
-                  r"ms/token\)", text)
-    gens = re.findall(r"^\s+\[([\d, ]+)\]$", text, re.M)
-    if rc != 0 or m is None or len(gens) != 3 or any(
-            len(x.split(",")) != 16 for x in gens):
-        fail(f"launch.serve --arch {GRANITE_ARCH}: exit {rc}, output not "
-             "as expected")
-    log(f"launch.serve granite-8b: prefill {m.group(1)} ms, decode "
-        f"{m.group(3)} ms/token, {drv_s:.2f} s with the build")
-    gc.collect()
-    torch.cuda.empty_cache()
+    srv = drive_serve(torch, GRANITE_ARCH, "granite")
     summary = {**pre, "decode_vs_forward": worst / scale,
-               "serve_prefill_ms": float(m.group(1)),
-               "serve_decode_ms_per_token": float(m.group(3)),
+               "serve_prefill_ms": srv[0],
+               "serve_decode_ms_per_token": srv[1],
                "flash_granite_shape": flash_row}
     return n_flash + fwd_launches, flash_row, summary
 
@@ -2950,15 +2962,32 @@ def decode_pair(torch, model, cfg, b, plen, gen, label):
     return {"ms_per_token": ms, "profile": prof}
 
 
+@contextlib.contextmanager
+def flash_modes(ops):
+    """While open, each ``ops.flash_attention`` call is tallied by mode
+    in the yielded dict ("causal" / "non_causal") and then made as it
+    was; the launches themselves count in ``ops.LAUNCHES`` as ever."""
+    modes = {"causal": 0, "non_causal": 0}
+    real = ops.flash_attention
+
+    def tally(q, k, v, causal=True, window=0):
+        modes["causal" if causal else "non_causal"] += 1
+        return real(q, k, v, causal, window)
+    with attention_as(ops, tally):
+        yield modes
+
+
 def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
-               then=None):
-    """A bf16 prefill of ``cfg`` at b x t (tokens from numpy ``seed``)
-    with random weights from seed 0: a warm-up and ``timed`` timed runs
-    with the flash launches counted from zero, the last-position logits
-    within LM_REL_L2 of the same model with plain attention, and with
-    ``profile`` one more prefill under ``torch.profiler``; ``then(model)``
-    runs last, its dict in the summary under "then".  Returns (flash
-    launches, summary)."""
+               then=None, extra=None, tokens_key="tokens", per_prefill=None):
+    """A bf16 prefill of ``cfg`` at b x t (``batch[tokens_key]`` from
+    numpy ``seed``, plus the tensors of ``extra``: vision tokens or audio
+    frames) with random weights from seed 0: a warm-up and ``timed`` timed
+    runs with the flash launches counted from zero (``per_prefill`` a run,
+    ``cfg.n_layers`` when None; tallied by mode under "modes"), the
+    last-position logits within LM_REL_L2 of the same model with plain
+    attention, and with ``profile`` one more prefill under
+    ``torch.profiler``; ``then(model)`` runs last, its dict in the summary
+    under "then".  Returns (flash launches, summary)."""
     import numpy as np
 
     from repro_torch.models.steps import build_model, make_prefill_step
@@ -2976,22 +3005,24 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
     tokens = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab, (b, t)).astype(np.int32), device="cuda")
     prefill = make_prefill_step(model, cfg)
-    batch = {"tokens": tokens}
+    batch = {tokens_key: tokens, **(extra or {})}
+    per = cfg.n_layers if per_prefill is None else per_prefill
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     # ---- the prefill path: counts zeroed above, read below.
     walls = []
-    for _ in range(1 + timed):               # a warm-up, then the timed
-        t0 = time.perf_counter()
-        logits = prefill(model, batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+    with flash_modes(ops) as modes:
+        for _ in range(1 + timed):           # a warm-up, then the timed
+            t0 = time.perf_counter()
+            logits = prefill(model, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
     n_flash = ops.LAUNCHES["flash_attention"]
     peak = torch.cuda.max_memory_allocated() - base
     # ---- end of the prefill path.
-    if n_flash != cfg.n_layers * len(walls):
+    if n_flash != per * len(walls) or sum(modes.values()) != n_flash:
         fail(f"{cfg.name}: flash launches {n_flash} over {len(walls)} "
-             f"prefills != {cfg.n_layers} per prefill")
+             f"prefills != {per} per prefill (calls by mode {modes})")
     if tuple(logits.shape) != (b, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         fail(f"{cfg.name} prefill logits: shape {tuple(logits.shape)} or "
@@ -3008,7 +3039,7 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
         f"{med:.2f} ms, {b * t / med * 1e3:,.0f} tokens/s "
         f"({flops:.3e} flops of weight products); peak memory "
         f"{peak / 2**30:.3f} GiB (weights included); flash launches "
-        f"{n_flash}; logits against plain attention: relative L2 "
+        f"{n_flash} {modes}; logits against plain attention: relative L2 "
         f"{rel:.3e} (limit {LM_REL_L2}), argmax agreement {agree:.3f}")
     if not rel <= LM_REL_L2:
         fail(f"{cfg.name} prefill logits differ from plain attention by "
@@ -3025,13 +3056,13 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
                 f"prefill {flash_dev:.3f} ms of {dev:.3f} ms of device time "
                 f"({100 * flash_dev / dev:.1f}%); device time over the "
                 f"unprofiled median wall: {100 * dev / med:.1f}%")
-    del logits, want, prefill, got32, want32
-    extra = then(model) if then is not None else None
+    del logits, want, prefill, got32, want32, batch
+    after = then(model) if then is not None else None
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return n_flash, {"params": n_par, "weight_bytes": w_bytes,
-                     "then": extra,
+                     "then": after, "modes": modes,
                      "prefill_ms": walls, "prefill_median_ms": med,
                      "tokens_per_s": b * t / med * 1e3,
                      "weight_product_flops": flops,
@@ -3052,7 +3083,6 @@ def gemma3_phase(torch, ops, ref):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
     from repro_torch.models.steps import build_model
 
     gc.collect()
@@ -3103,26 +3133,7 @@ def gemma3_phase(torch, ops, ref):
     torch.cuda.empty_cache()
 
     # The serving loop at gemma3-12b: 4 requests of 16 tokens.
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(["--arch", GEMMA_ARCH, "--requests", "4",
-                         "--prompt-len", "16", "--gen", "16"])
-    drv_s = time.perf_counter() - t0
-    text = buf.getvalue()
-    for line in text.splitlines():
-        log(f"serve gemma3: {line}")
-    m = re.search(r"prefill: ([\d.]+) ms\s+decode: ([\d.]+) ms \(([\d.]+) "
-                  r"ms/token\)", text)
-    gens = re.findall(r"^\s+\[([\d, ]+)\]$", text, re.M)
-    if rc != 0 or m is None or len(gens) != 3 or any(
-            len(x.split(",")) != 16 for x in gens):
-        fail(f"launch.serve --arch {GEMMA_ARCH}: exit {rc}, output not as "
-             "expected")
-    log(f"launch.serve gemma3-12b: prefill {m.group(1)} ms, decode "
-        f"{m.group(3)} ms/token, {drv_s:.2f} s in all")
-    gc.collect()
-    torch.cuda.empty_cache()
+    srv = drive_serve(torch, GEMMA_ARCH, "gemma3")
 
     cfg27 = dataclasses.replace(get_config(GEMMA_27B),
                                 n_layers=GEMMA_27B_LAYERS)
@@ -3131,8 +3142,7 @@ def gemma3_phase(torch, ops, ref):
     return n12 + fwd_launches + n27, {
         "gemma3_12b": s12, "gemma3_27b_8_layers": s27,
         "decode_vs_forward": worst, "decode_s": dec_s,
-        "serve_prefill_ms": float(m.group(1)),
-        "serve_decode_ms_per_token": float(m.group(3))}
+        "serve_prefill_ms": srv[0], "serve_decode_ms_per_token": srv[1]}
 
 
 # --------------------------------------------------------------------------- #
@@ -3156,8 +3166,8 @@ def plain_attention_route():
 
     class Plain:
         @staticmethod
-        def apply(q, k, v, window):
-            return checkpoint(ref.flash_attention_plain, q, k, v, True,
+        def apply(q, k, v, causal, window):
+            return checkpoint(ref.flash_attention_plain, q, k, v, causal,
                               window, use_reentrant=False)
 
     real = A._FlashAttention
@@ -3310,7 +3320,7 @@ def train_phase(torch, ops, ref):
     import dataclasses
     import tempfile
 
-    from repro_torch.checkpoint import latest_step, restore, save
+    from repro_torch.checkpoint import latest_step
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_batches
     from repro_torch.models.steps import (build_model, init_train_state,
@@ -3394,30 +3404,9 @@ def train_phase(torch, ops, ref):
         "peak_bytes": peak, "losses": losses})
 
     # Checkpoint round trip of the whole train state on the card.
-    with tempfile.TemporaryDirectory() as ck:
-        t0 = time.perf_counter()
-        save(ck, int(opt.step), (model, opt), meta={"loss": losses[-1]})
-        save_s = time.perf_counter() - t0
-        fresh, fopt = init_train_state(build_model(cfg, seed=1))
-        t0 = time.perf_counter()
-        (fresh, fopt), got_step, meta = restore(ck, (fresh, fopt))
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        same = got_step == int(fopt.step) == int(opt.step) and all(
-            torch.equal(a, b) for a, b in zip(
-                model.state_dict().values(), fresh.state_dict().values()))
-        for n in opt.mu:
-            same = same and torch.equal(opt.mu[n], fopt.mu[n]) and \
-                torch.equal(opt.nu[n], fopt.nu[n]) and \
-                torch.equal(opt.master[n], fopt.master[n])
-        nbytes = sum(os.path.getsize(os.path.join(dp, f))
-                     for dp, _, fs in os.walk(ck) for f in fs)
-    log(f"checkpoint of the train state: {nbytes:,} bytes, save "
-        f"{save_s:.2f} s, restore onto the card {restore_s:.2f} s, bit for "
-        f"bit: {same}")
-    if not same or fresh.embed.device != model.embed.device:
-        fail("checkpoint round trip of the train state is not bit for bit")
-    del model, opt, fresh, fopt, batches
+    ckpt = checkpoint_round_trip(torch, cfg, model, opt, losses[-1],
+                                 cfg.name)
+    del model, opt, batches
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3459,9 +3448,411 @@ def train_phase(torch, ops, ref):
         "fp32_2_layers": {"loss": r32[0], "plain_loss": r32[1],
                           "worst_grad_rel_l2": r32[2],
                           "worst_grad": r32[3]},
-        "checkpoint": {"bytes": nbytes, "save_s": save_s,
-                       "restore_s": restore_s},
-        "launch_train_s": drv_s}
+        "checkpoint": ckpt, "launch_train_s": drv_s}
+
+
+# --------------------------------------------------------------------------- #
+VISION_ARCH = "llama-3.2-vision-11b"
+VISION_B, VISION_T = 4, 2048
+VISION_SUPERBLOCK = 5           # 4 self-attention layers, then a cross one
+WHISPER_ARCH = "whisper-base"
+WHISPER_B, WHISPER_FRAMES = 4, 1500
+WHISPER_DECODE_T = 64
+WHISPER_TRAIN_B, VISION_TRAIN_B = 8, 2
+CROSS_TRAIN_STEPS = 4           # a warm-up and 3 timed, for each model
+
+
+def drive_serve(torch, arch, label):
+    """``python -m repro_torch.launch.serve --arch <arch>`` (its ``main``)
+    with 4 requests of 16 prompt and 16 generated tokens, its output
+    checked; returns (prefill ms, decode ms/token, wall s)."""
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", arch, "--requests", "4", "--prompt-len",
+                         "16", "--gen", "16"])
+    drv_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"serve {label}: {line}")
+    m = re.search(r"prefill: ([\d.]+) ms\s+decode: ([\d.]+) ms \(([\d.]+) "
+                  r"ms/token\)", text)
+    gens = re.findall(r"^\s+\[([\d, ]+)\]$", text, re.M)
+    if rc != 0 or m is None or len(gens) != 3 or any(
+            len(x.split(",")) != 16 for x in gens):
+        fail(f"launch.serve --arch {arch}: exit {rc}, output not as "
+             "expected")
+    log(f"launch.serve {arch}: prefill {m.group(1)} ms, decode "
+        f"{m.group(3)} ms/token, {drv_s:.2f} s in all")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(m.group(1)), float(m.group(3)), drv_s
+
+
+def flash_noncausal_rows(torch, ops, ref):
+    """The kernel's non-causal mode at the two shapes the new paths give
+    it: llama-3.2-vision's cross layers at B=4 (128 query heads over 32 KV
+    heads, G=4, Tq=2048 over Tk=1,601 vision tokens, d=128) and
+    whisper-base's encoder at B=4 (32 heads, T=1,500 frames, d=64).  At
+    each, fp32 at the sweep's atol 2e-5 and bf16 by ``check_rows``
+    against the plain version, two bf16 launches equal, and the bf16 call
+    timed beside the plain version, SDPA (``is_causal=False``) and the
+    bound.  Returns a row per shape."""
+    from repro_torch.configs import get_config
+
+    vis, wsp = get_config(VISION_ARCH), get_config(WHISPER_ARCH)
+    shapes = {
+        "vision cross": (VISION_B * vis.n_heads, VISION_B * vis.n_kv_heads,
+                         VISION_T, vis.n_vision_tokens, vis.hd),
+        "whisper encoder": (WHISPER_B * wsp.n_heads,
+                            WHISPER_B * wsp.n_kv_heads, WHISPER_FRAMES,
+                            WHISPER_FRAMES, wsp.hd)}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {}
+    for label, (bh, kvh, tq, tk, d) in shapes.items():
+        name = (f"flash {label} BH={bh} KV heads={kvh} Tq={tq} Tk={tk} "
+                f"d={d} non-causal")
+        q = torch.randn(bh, tq, d, generator=gen, device="cuda")
+        k, v = (torch.randn(kvh, tk, d, generator=gen, device="cuda")
+                for _ in range(2))
+        err32 = check_close(torch, f"{name} fp32",
+                            ops.flash_attention(q, k, v, False),
+                            ref.flash_attention_plain(q, k, v, False), 0.0,
+                            FLASH_ATOL)
+        q, k, v = (x.bfloat16() for x in (q, k, v))
+        got = ops.flash_attention(q, k, v, False)
+        want = ref.flash_attention_plain(q, k, v, False)
+        r_whole, r_row = check_rows(torch, f"{name} bf16", got, want)
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(ops.flash_attention(q, k, v, False), got):
+            fail(f"{name} bf16: two launches differ")
+        del got, want
+        t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, False))
+        t_p = median_ms(torch, lambda: ref.flash_attention_plain(
+            q, k, v, False), reps=3, launches=3)
+        lib, how = sdpa_yardstick(torch, q, k, v, causal=False)
+        t_l = median_ms(torch, lib)
+        b_ms, b_by = flash_bound(bh, tq, tk, d, False, 2, PEAK_BF16_FLOP_S,
+                                 kv_heads=kvh)
+        log(f"kernel flash_attention {name} bf16: kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, F.scaled_dot_product_attention ({how}) "
+            f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); relative L2 "
+            f"{r_whole:.3e} whole, {r_row:.3e} worst row, max|err| "
+            f"{err:.2e} (fp32: max|err| {err32:.2e}, atol {FLASH_ATOL})")
+        rows[label] = {
+            "shape": f"BH={bh} over {kvh} KV heads, Tq={tq}, Tk={tk}, d={d},"
+                     " bf16, non-causal", "max_abs_err": err,
+            "max_abs_err_fp32": err32, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
+            "library": how, "rel_l2_whole": r_whole,
+            "rel_l2_worst_row": r_row}
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def decode_witness(torch, ops, model, label, forward, filled, toks,
+                   want_launches):
+    """fp32 decode against forward: ``forward()`` (flash launches counted
+    from zero, tallied by mode, ``want_launches`` of them), then the cache
+    ``filled()`` returns (its cross caches filled in place) and one decode
+    step a position,
+    every logit within DECODE_TOL of max |forward logit|.  Returns (flash
+    launches, modes, worst relative error)."""
+    b, t = toks.shape
+    ops.reset_launches()
+    # ---- the forward run: counts zeroed above, read below.
+    with flash_modes(ops) as modes:
+        fwd, _ = forward()
+        torch.cuda.synchronize()
+    n_flash = ops.LAUNCHES["flash_attention"]
+    # ---- end of the forward run.
+    if n_flash != want_launches or sum(modes.values()) != n_flash:
+        fail(f"{label} forward: flash launches {n_flash} != "
+             f"{want_launches} (calls by mode {modes})")
+    cache = filled()
+    t0 = time.perf_counter()
+    errs = []
+    for i in range(t):
+        lg, cache = model.decode_step(cache, toks[:, i:i + 1], i)
+        errs.append((lg[:, 0] - fwd[:, i]).abs().amax())
+    worst = float(torch.stack(errs).max()) / float(fwd.abs().max())
+    log(f"{label} decode against forward, fp32, B={b} T={t}: max |decode "
+        f"- forward| / max |forward| = {worst:.3e} (limit {DECODE_TOL}; "
+        f"{time.perf_counter() - t0:.2f} s); forward flash launches "
+        f"{n_flash} {modes}")
+    if not worst < DECODE_TOL:
+        fail(f"{label} decode differs from forward by {worst:.3e}")
+    return n_flash, modes, worst
+
+
+def vision_phase(torch, ops, ref):
+    """llama-3.2-vision-11b at full width: the bf16 prefill of all 40
+    layers (8 with cross-attention over 1,601 vision tokens) against plain
+    attention, with its eager / captured decode pair; the fp32 decode
+    witness at one superblock with the cross caches filled by
+    ``fill_cross_caches``; ``launch.serve``.  Returns (flash launches over
+    the counted runs, their non-causal share, a summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.steps import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(VISION_ARCH)
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    rng = np.random.default_rng(4)
+    vis = torch.as_tensor(rng.normal(0, 0.1, (
+        VISION_B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32),
+        device="cuda").to(cfg.torch_dtype)
+    n_pre, pre = lm_prefill(
+        torch, ops, ref, cfg, VISION_B, VISION_T, seed=1, timed=2,
+        profile=True, extra={"vision": vis},
+        per_prefill=cfg.n_layers + n_cross,
+        then=lambda m: decode_pair(torch, m, cfg, 4, 16, 16, cfg.name))
+    runs = len(pre["prefill_ms"])
+    if pre["modes"] != {"causal": cfg.n_layers * runs,
+                        "non_causal": n_cross * runs}:
+        fail(f"vision prefill: calls by mode {pre['modes']}, expected "
+             f"{cfg.n_layers} causal and {n_cross} non-causal a prefill")
+    del vis
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=VISION_SUPERBLOCK)
+    model = build_model(cfg32, seed=0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (DECODE_B, DECODE_T)
+                                        ).astype(np.int32), device="cuda")
+    src = torch.as_tensor(rng.normal(0, 0.1, (
+        DECODE_B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32),
+        device="cuda")
+
+    def filled():
+        cache = model.init_cache(DECODE_B, DECODE_T)
+        model.fill_cross_caches(cache, src)
+        return cache
+    n_fwd, fwd_modes, worst = decode_witness(
+        torch, ops, model, f"vision ({VISION_SUPERBLOCK} layers)",
+        lambda: model(toks, cross_kv_x=src), filled, toks,
+        VISION_SUPERBLOCK + 1)
+    del model, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = drive_serve(torch, VISION_ARCH, "vision")
+    return n_pre + n_fwd, pre["modes"]["non_causal"] + fwd_modes[
+        "non_causal"], {**pre, "decode_vs_forward": worst,
+                        "serve_prefill_ms": srv[0],
+                        "serve_decode_ms_per_token": srv[1]}
+
+
+def whisper_phase(torch, ops, ref):
+    """whisper-base at full width: ``make_prefill_step`` (encode 4 x 1,500
+    frames, then a bf16 teacher-forced forward over 448 targets) against
+    plain attention, 18 flash launches a forward (6 encoder layers and 6
+    cross blocks non-causal, 6 decoder layers causal); encode timed alone;
+    the eager / captured decode pair; the fp32 decode witness with the
+    cross caches filled from ``encode``; ``launch.serve``.  Returns
+    (flash launches over the counted runs, their non-causal share, a
+    summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.steps import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER_ARCH)
+    per = cfg.n_encoder_layers + 2 * cfg.n_layers
+    rng = np.random.default_rng(5)
+    frames = torch.as_tensor(rng.normal(0, 0.1, (
+        WHISPER_B, WHISPER_FRAMES, cfg.d_model)).astype(np.float32),
+        device="cuda").to(cfg.torch_dtype)
+
+    def then(m):
+        enc_ms = median_ms(torch, lambda: m.encode(frames), reps=3,
+                           launches=5)
+        log(f"whisper encode {WHISPER_B}x{WHISPER_FRAMES} frames, bf16: "
+            f"{enc_ms:.4f} ms of device time")
+        return {"encode_ms": enc_ms,
+                "decode_pair": decode_pair(torch, m, cfg, 4, 16, 16,
+                                           cfg.name)}
+    n_pre, pre = lm_prefill(
+        torch, ops, ref, cfg, WHISPER_B, cfg.decoder_target_len, seed=6,
+        timed=2, profile=True, then=then, extra={"frames": frames},
+        tokens_key="targets", per_prefill=per)
+    runs = len(pre["prefill_ms"])
+    want = {"causal": cfg.n_layers * runs,
+            "non_causal": (cfg.n_encoder_layers + cfg.n_layers) * runs}
+    if pre["modes"] != want:
+        fail(f"whisper forward: calls by mode {pre['modes']} != {want}")
+    del frames
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32, seed=0)
+    fr = torch.as_tensor(rng.normal(0, 0.1, (
+        DECODE_B, WHISPER_FRAMES, cfg.d_model)).astype(np.float32),
+        device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        DECODE_B, WHISPER_DECODE_T)).astype(np.int32), device="cuda")
+
+    def filled():
+        cache = model.init_cache(DECODE_B, WHISPER_DECODE_T,
+                                 cross_len=WHISPER_FRAMES)
+        model.fill_cross_caches(cache, model.encode(fr))
+        return cache
+    n_fwd, fwd_modes, worst = decode_witness(
+        torch, ops, model, "whisper", lambda: model(fr, toks), filled,
+        toks, per)
+    del model, fr
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = drive_serve(torch, WHISPER_ARCH, "whisper")
+    return n_pre + n_fwd, pre["modes"]["non_causal"] + fwd_modes[
+        "non_causal"], {**pre, "decode_vs_forward": worst,
+                        "serve_prefill_ms": srv[0],
+                        "serve_decode_ms_per_token": srv[1]}
+
+
+def checkpoint_round_trip(torch, cfg, model, opt, loss, label):
+    """``checkpoint.save`` of the train state under ``TMPDIR`` and
+    ``restore`` onto a fresh model (seed 1) on the card, bit for bit, or
+    fail; returns bytes and seconds."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.models.steps import build_model, init_train_state
+
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        save(ck, int(opt.step), (model, opt), meta={"loss": loss})
+        save_s = time.perf_counter() - t0
+        fresh, fopt = init_train_state(build_model(cfg, seed=1))
+        t0 = time.perf_counter()
+        (fresh, fopt), got_step, meta = restore(ck, (fresh, fopt))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = got_step == int(fopt.step) == int(opt.step) and all(
+            torch.equal(a, b) for a, b in zip(
+                model.state_dict().values(), fresh.state_dict().values()))
+        for n in opt.mu:
+            same = same and torch.equal(opt.mu[n], fopt.mu[n]) and \
+                torch.equal(opt.nu[n], fopt.nu[n]) and \
+                torch.equal(opt.master[n], fopt.master[n])
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(ck) for f in fs)
+    log(f"checkpoint of the {label} train state: {nbytes:,} bytes, save "
+        f"{save_s:.2f} s, restore onto the card {restore_s:.2f} s, bit for "
+        f"bit: {same}")
+    if not same or fresh.embed.device != model.embed.device:
+        fail(f"checkpoint round trip of the {label} train state is not bit "
+             "for bit")
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s}
+
+
+def cross_train_phase(torch, ops, ref):
+    """``make_train_step`` in bf16 on whisper-base at full width (B=8,
+    1,500 frames, 448 targets) and on llama-3.2-vision-11b cut to one
+    superblock (5 layers at full width, the last with cross-attention;
+    B=2, T=2048, 1,601 vision tokens; its AdamW state at 40 layers is
+    past the card's 80 GB): step 1's loss and every gradient against the
+    plain route within 2e-2, ``CROSS_TRAIN_STEPS`` steps with every loss
+    finite and the flash launches counted (twice a forward's under
+    remat), step ms, tokens/s, peak memory; whisper's checkpoint round
+    trip.  Returns (flash launches, non-causal launches by model, a
+    summary)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models.steps import (build_model, init_train_state,
+                                          make_train_step)
+
+    out, launches, non_causal = {}, 0, {}
+    cases = (("whisper", get_config(WHISPER_ARCH), WHISPER_TRAIN_B,
+              WHISPER_FRAMES),
+             ("vision", dataclasses.replace(get_config(VISION_ARCH),
+                                            n_layers=VISION_SUPERBLOCK),
+              VISION_TRAIN_B, VISION_T))
+    for label, cfg, b, t in cases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        it = synthetic_batches(cfg, b, t, seed=0)
+        batches = [{k: torch.as_tensor(v, device="cuda")
+                    for k, v in next(it).items()}
+                   for _ in range(CROSS_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model, opt = init_train_state(build_model(cfg, seed=0))
+        torch.cuda.synchronize()
+        state_bytes = torch.cuda.memory_allocated() - base
+        n_par = sum(p.numel() for p in model.parameters())
+        log(f"train {cfg.name} ({cfg.n_layers} layers): {n_par:,} "
+            f"parameters in {cfg.dtype}, params + fp32 master, mu and nu "
+            f"{state_bytes / 2**30:.3f} GiB")
+        r16 = grads_against_plain(torch, model, cfg, batches[0],
+                                  TRAIN_GRAD_REL,
+                                  f"train {cfg.name} bf16 step 1")
+        step = make_train_step(model, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        # ---- the train path: counts zeroed above, read below.
+        walls, losses = [], []
+        with flash_modes(ops) as modes:
+            for bt in batches:
+                t0 = time.perf_counter()
+                model, opt, met = step(model, opt, bt)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"]))
+        n_flash = ops.LAUNCHES["flash_attention"]
+        peak = torch.cuda.max_memory_allocated() - base
+        # ---- end of the train path.
+        per_fwd = cfg.n_encoder_layers + cfg.n_layers + (
+            cfg.n_layers if cfg.encoder_decoder
+            else cfg.n_layers // cfg.cross_attn_every)
+        per_step = per_fwd * (1 if cfg.remat == "none" else 2)
+        if n_flash != per_step * len(batches) or sum(
+                modes.values()) != n_flash:
+            fail(f"train {cfg.name}: flash launches {n_flash} over "
+                 f"{len(batches)} steps != {per_step} per step (calls by "
+                 f"mode {modes})")
+        if not all(math.isfinite(x) for x in losses) or int(opt.step) != \
+                len(batches):
+            fail(f"train {cfg.name}: losses {losses}, step {int(opt.step)}")
+        med = statistics.median(walls[1:])
+        tok = int(batches[0]["targets" if cfg.encoder_decoder
+                             else "tokens"].numel())
+        log(f"train {cfg.name} B={b} T={t} bf16, remat {cfg.remat!r}: "
+            f"step wall ms {[round(w, 2) for w in walls]} (first is the "
+            f"warm-up), median {med:.2f} ms, {tok / med * 1e3:,.0f} "
+            f"{'target ' if cfg.encoder_decoder else ''}tokens/s; peak "
+            f"memory {peak / 2**30:.3f} GiB (state included); flash "
+            f"launches {n_flash} {modes}; losses "
+            f"{[round(x, 4) for x in losses]}")
+        launches += n_flash
+        non_causal[label] = modes["non_causal"]
+        out[label] = {"layers": cfg.n_layers, "batch": b, "seq": t,
+                      "params": n_par, "state_bytes": state_bytes,
+                      "step_ms": walls, "step_median_ms": med,
+                      "tokens_per_s": tok / med * 1e3, "peak_bytes": peak,
+                      "losses": losses, "modes": modes,
+                      "step1_bf16": {"loss": r16[0], "plain_loss": r16[1],
+                                     "worst_grad_rel_l2": r16[2],
+                                     "worst_grad": r16[3]}}
+        if cfg.encoder_decoder:
+            out[label]["checkpoint"] = checkpoint_round_trip(
+                torch, cfg, model, opt, losses[-1], cfg.name)
+        del model, opt, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, non_causal, out
 
 
 # --------------------------------------------------------------------------- #
@@ -3509,17 +3900,18 @@ def flash_bound(bh, tq, tk, d, causal, elem_bytes, peak_flop_s,
                     4.0 * d * bh * pairs, peak_flop_s)
 
 
-def sdpa_yardstick(torch, q, k, v, window=0):
-    """``F.scaled_dot_product_attention`` (causal; under a window W with
-    a boolean ``attn_mask`` holding ``0 <= qpos - kpos < W``) on the
-    kernel's operands, k / v with one head per G query heads:
+def sdpa_yardstick(torch, q, k, v, window=0, causal=True):
+    """``F.scaled_dot_product_attention`` (causal, or with ``causal``
+    off every key visible; under a window W with a boolean ``attn_mask``
+    holding ``0 <= qpos - kpos < W``) on the kernel's operands, k / v
+    with one head per G query heads:
     ``enable_gqa=True`` where the installed torch takes it (2.5 on), else
     on heads repeated G times.  Returns (the call, how grouped heads and
     the mask were passed)."""
     import torch.nn.functional as F
     g = q.shape[0] // k.shape[0]
     q4, k4, v4 = q[None], k[None], v[None]
-    kw, how = {"is_causal": True}, ""
+    kw, how = {"is_causal": causal}, "" if causal else ", is_causal=False"
     if window:
         t = q.shape[1]
         dif = (torch.arange(t, device=q.device)[:, None]
@@ -3939,8 +4331,25 @@ def main() -> int:
     t7 = time.perf_counter()
     train_launches, train = train_phase(torch, ops, ref)
     log(f"train phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    flash_nc = flash_noncausal_rows(torch, ops, ref)
+    vision_launches, vision_nc, vision = vision_phase(torch, ops, ref)
+    log(f"vision phase (non-causal flash rows, prefill, decode, serve): "
+        f"{time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    whisper_launches, whisper_nc, whisper = whisper_phase(torch, ops, ref)
+    log(f"whisper phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    cross_launches, cross_nc, cross_train = cross_train_phase(torch, ops,
+                                                              ref)
+    log(f"cross-attention train phase: {time.perf_counter() - t7:.1f} s")
+    flash_nc["vision cross"]["launches"] = vision_nc + cross_nc["vision"]
+    flash_nc["whisper encoder"]["launches"] = (whisper_nc
+                                               + cross_nc["whisper"])
     flash_entry["launches"] = (flash_launches + granite_launches
-                               + gemma_launches + train_launches)
+                               + gemma_launches + train_launches
+                               + vision_launches + whisper_launches
+                               + cross_launches)
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
@@ -3997,10 +4406,16 @@ def main() -> int:
                        "replay": replay,
                        "flash_granite_shape": flash_granite,
                        "gemma3": gemma, "train": train,
+                       "vision": vision, "whisper": whisper,
+                       "cross_train": cross_train,
+                       "flash_noncausal": flash_nc,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,
                            "gemma3": gemma_launches,
-                           "train": train_launches},
+                           "train": train_launches,
+                           "vision": vision_launches,
+                           "whisper": whisper_launches,
+                           "cross_train": cross_launches},
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

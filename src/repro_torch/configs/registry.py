@@ -2,7 +2,9 @@
 
 Only what the port runs is listed: qwen3-0.6b, granite-8b, gemma3-12b and
 gemma3-27b, dense GQA decoders (granite's LM head is untied; gemma3
-interleaves five sliding-window layers with one global layer).  The JAX
+interleaves five sliding-window layers with one global layer);
+llama-3.2-vision-11b, a GQA decoder with a cross-attention block every
+fifth layer; and whisper-base, an encoder-decoder.  The JAX
 package's other architectures (``repro.configs.registry``) raise
 NotImplementedError here until their blocks are ported (ROADMAP A15).
 """
@@ -18,6 +20,8 @@ _MODULES = {
     "granite-8b": "granite_8b",
     "gemma3-12b": "gemma3_12b",
     "gemma3-27b": "gemma3_27b",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
+    "whisper-base": "whisper_base",
 }
 
 ARCHS: List[str] = list(_MODULES)

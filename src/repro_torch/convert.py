@@ -14,11 +14,15 @@ package's bundles as they are).
 * :func:`lm_params_from_arrays` — a decoder LM's parameter pytree (JAX's
   ``DecoderLM.init_params`` as nested dicts and tuples of numpy arrays,
   segments stacked on a leading ``rep`` axis) as the port model's state
-  dict; :func:`lm_param_shapes` the same names with the shapes only.
+  dict; :func:`lm_param_shapes` the same names with the shapes only.  Both
+  also take JAX's ``WhisperModel`` pytree (an ``encoder_decoder`` config):
+  its encoder blocks, stacked on a leading layer axis, become
+  ``encoder.blocks.{i}``, and its decoder the ``decoder.`` names.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+import dataclasses
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,10 +132,36 @@ def model_from_arrays(layers: dict, weights: Dict[str, np.ndarray]
 # --------------------------------------------------------------------------- #
 # Decoder LM weights.
 # --------------------------------------------------------------------------- #
+def _dict_leaves(prefix: str, node, r: Optional[int]
+                 ) -> Iterator[Tuple[str, Any, Any]]:
+    """(dotted name, leaf, r) for every leaf of a nest of dicts."""
+    stack = [(prefix, node)]
+    while stack:
+        prefix, node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend((f"{prefix}.{k}", v) for k, v in node.items())
+        else:
+            yield prefix, node, r
+
+
 def _lm_leaves(cfg: ModelConfig, params) -> Iterator[Tuple[str, Any, Any]]:
-    """(port name, JAX leaf, rep index or None) for every parameter.  Port
-    layer i is the i-th block JAX's scan applies: segment s, repeat r,
-    superblock position b, i.e. ``params["segments"][s][b][...][r]``."""
+    """(port name, JAX leaf, index on its leading axis or None) for every
+    parameter.  Port layer i is the i-th block JAX's scan applies: segment
+    s, repeat r, superblock position b, i.e.
+    ``params["segments"][s][b][...][r]`` (a cross block's ``ln_x`` /
+    ``xattn`` among them).  An encoder-decoder's encoder block i is
+    ``params["encoder"]["blocks"][...][i]``, and its decoder is a decoder
+    LM on ``cross_attn_every=1`` under ``decoder.``."""
+    if cfg.encoder_decoder:
+        for i in range(cfg.n_encoder_layers):
+            yield from _dict_leaves(f"encoder.blocks.{i}",
+                                    params["encoder"]["blocks"], i)
+        yield "encoder.final_norm", params["encoder"]["final_norm"], None
+        dec = dataclasses.replace(cfg, cross_attn_every=1,
+                                  encoder_decoder=False)
+        for name, leaf, r in _lm_leaves(dec, params["decoder"]):
+            yield f"decoder.{name}", leaf, r
+        return
     for name in ("embed", "final_norm", "head"):
         if name in params:              # "head": an untied LM head
             yield name, params[name], None
@@ -139,14 +169,8 @@ def _lm_leaves(cfg: ModelConfig, params) -> Iterator[Tuple[str, Any, Any]]:
     for s, (sb, rep) in enumerate(build_segments(cfg)):
         for r in range(rep):
             for b in range(len(sb)):
-                stack = [(f"layers.{i}", params["segments"][s][b])]
-                while stack:
-                    prefix, node = stack.pop()
-                    if isinstance(node, dict):
-                        stack.extend((f"{prefix}.{k}", v)
-                                     for k, v in node.items())
-                    else:
-                        yield prefix, node, r
+                yield from _dict_leaves(f"layers.{i}",
+                                        params["segments"][s][b], r)
                 i += 1
 
 

@@ -9,6 +9,10 @@ respect to the cache), then ``--gen - 1`` more tokens are decoded greedily
 for every request at once.  Weights are random from seed 1, prompts from
 ``--seed`` (numpy).  It runs on the CUDA device unless ``--device`` says
 otherwise; both timings synchronize the device before reading the clock.
+A cross-attention decoder (``--arch llama-3.2-vision-11b``) and an
+encoder-decoder (``--arch whisper-base``) decode over zeroed cross caches
+of ``cfg.n_vision_tokens`` slots, as JAX's launch.serve does (it passes no
+image or audio).
 
 Where JAX jits the serve step once per (batch, capacity), the step here
 is captured once as a CUDA graph (:class:`Step`) and replayed for every

@@ -8,17 +8,26 @@ G = H // Kh query heads per KV head: query head h reads KV head h // G.
 Routes of :func:`attention`, chosen by what is computed, never by what
 failed (nor by whether a gradient is wanted):
 
-* causal self-attention (``kv_x`` None) with default positions
-  (``positions`` None, i.e. ``arange(T)``), with or without a sliding
-  window, goes to the flash kernel through :class:`_FlashAttention`: its
-  forward is ``ops.flash_attention`` (on CPU tensors the plain version),
-  which computes the same function as ``_sdpa`` with ``_mask_bias``
-  there; its backward recomputes the plain function under autograd one
-  query chunk at a time (JAX has no backward kernel either: it
-  differentiates the same function in XLA);
-* explicit positions, non-causal and cross-attention go to ``_sdpa``, or
-  to ``_sdpa_chunked`` when T > ``chunk`` and ``chunk`` divides T, as in
-  JAX.
+* with default positions (``positions`` None, i.e. ``arange(T)``), three
+  calls go to the flash kernel through :class:`_FlashAttention`: causal
+  self-attention (``kv_x`` None), with or without a sliding window;
+  non-causal self-attention with no window (whisper's encoder); and
+  cross-attention (``kv_x`` given, no window: keys at ``arange(S)``,
+  nothing masked, Tq = T and Tk = S, as in JAX, where
+  ``causal and kv_x is None`` is false).  Its forward is
+  ``ops.flash_attention`` (on CPU tensors the plain version), which
+  computes the same function as ``_sdpa`` with ``_mask_bias`` there; its
+  backward recomputes the plain function under autograd one query chunk
+  at a time (JAX has no backward kernel either: it differentiates the
+  same function in XLA), and the gradient reaches ``kv_x`` through the
+  K / V projections;
+* explicit positions, and non-causal self-attention under a window, go
+  to ``_sdpa``, or to ``_sdpa_chunked`` when T > ``chunk`` and ``chunk``
+  divides T, as in JAX.
+
+Operands of two dtypes (bf16 weights over an fp32 ``kv_x``) are promoted
+as JAX's einsum promotes them: K / V are then fp32, and the kernel runs
+on q, k and v in the promoted dtype, its output cast back to q's.
 """
 from __future__ import annotations
 
@@ -51,9 +60,11 @@ def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("btd,dhe->bthe", x, w)."""
+    """einsum("btd,dhe->bthe", x, w), in the promoted dtype of the two."""
     d, h, e = w.shape
-    return torch.matmul(x, w.reshape(d, h * e)).unflatten(-1, (h, e))
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.reshape(d, h * e).to(dt)).unflatten(
+        -1, (h, e))
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -124,68 +135,74 @@ def _sdpa_chunked(q, k, v, qpos, kpos, causal, window, scale, chunk: int):
 BWD_CHUNK = 1024
 
 
-def _plain_grads(q, k, v, do, window: int, chunk: int):
-    """Gradients of ``ref.flash_attention_plain(q, k, v, True, window)``
-    (self-attention, Tq == Tk) for the output gradient ``do``, recomputed
-    one chunk of query rows at a time over the keys those rows can see
-    (none after the chunk's last row; under a window none before its
-    first row's window).  dk / dv sum over chunks in fp32."""
-    t = q.shape[1]
+def _plain_grads(q, k, v, do, causal: bool, window: int, chunk: int):
+    """Gradients of ``ref.flash_attention_plain(q, k, v, causal, window)``
+    for the output gradient ``do``, recomputed one chunk of query rows at
+    a time over the keys those rows can see: causal (self-attention,
+    Tq == Tk), none after the chunk's last row and, under a window, none
+    before its first row's window; non-causal, all Tk keys.  dk / dv sum
+    over chunks in fp32, in chunk order."""
+    t, tk = q.shape[1], k.shape[1]
     dq = torch.empty_like(q)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     for q0 in range(0, t, chunk):
         q1 = min(t, q0 + chunk)
-        k0 = max(0, q0 - window + 1) if window > 0 else 0
+        if causal:
+            k0, k1 = (max(0, q0 - window + 1) if window > 0 else 0), q1
+        else:
+            k0, k1 = 0, tk
         with torch.enable_grad():
             qc = q[:, q0:q1].detach().requires_grad_()
-            kc = k[:, k0:q1].detach().float().requires_grad_()
-            vc = v[:, k0:q1].detach().float().requires_grad_()
-            o = ref.flash_attention_plain(qc, kc, vc, True, window,
+            kc = k[:, k0:k1].detach().float().requires_grad_()
+            vc = v[:, k0:k1].detach().float().requires_grad_()
+            o = ref.flash_attention_plain(qc, kc, vc, causal, window,
                                           q_offset=q0 - k0)
             gq, gk, gv = torch.autograd.grad(o, (qc, kc, vc),
                                              do[:, q0:q1])
         dq[:, q0:q1] = gq
-        dk[:, k0:q1] += gk
-        dv[:, k0:q1] += gv
+        dk[:, k0:k1] += gk
+        dv[:, k0:k1] += gv
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal self-attention, windowed when ``window`` > 0, on the
-    kernel's layout (q [BH, T, d], k / v [BH / G, T, d]).  Forward: the
-    flash kernel (``ops.flash_attention``).  Backward: the plain function
-    recomputed under autograd (:func:`_plain_grads`), in the spirit of
-    JAX's ``jax.checkpoint`` of the chunk body; a backward kernel is later
+    """Attention on the kernel's layout (q [BH, Tq, d], k / v [BH / G,
+    Tk, d]): causal self-attention, windowed when ``window`` > 0, or with
+    ``causal`` off every key visible (non-causal self- and
+    cross-attention).  Forward: the flash kernel
+    (``ops.flash_attention``).  Backward: the plain function recomputed
+    under autograd (:func:`_plain_grads`), in the spirit of JAX's
+    ``jax.checkpoint`` of the chunk body; a backward kernel is later
     work."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int):
         ctx.save_for_backward(q, k, v)
-        ctx.window = window
-        return ops.flash_attention(q, k, v, causal=True, window=window)
+        ctx.causal, ctx.window = causal, window
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = _plain_grads(q, k, v, do.contiguous(), ctx.window,
-                                  BWD_CHUNK)
-        return dq, dk, dv, None
+        dq, dk, dv = _plain_grads(q, k, v, do.contiguous(), ctx.causal,
+                                  ctx.window, BWD_CHUNK)
+        return dq, dk, dv, None, None
 
 
-def _flash(q, k, v, window: int = 0):
-    """Causal self-attention through the flash kernel: heads to the
-    kernel's [B*H, T, hd] layout (KV heads [B*Kh, T, hd]; query head
-    b*H + h reads KV head b*Kh + h // G, which is (b*H + h) // G, so the
-    kernel indexes grouped heads itself), and back to [B, T, H, hd]."""
+def _flash(q, k, v, window: int = 0, causal: bool = True):
+    """Attention through the flash kernel: heads to the kernel's
+    [B*H, Tq, hd] layout (KV heads [B*Kh, Tk, hd], each at its own length;
+    query head b*H + h reads KV head b*Kh + h // G, which is (b*H + h) //
+    G, so the kernel indexes grouped heads itself), and back to [B, Tq,
+    H, hd].  q, k and v share one dtype."""
     b, t, h, hd = q.shape
-    kh = k.shape[2]
 
-    def heads(x, n):
-        return x.transpose(1, 2).reshape(b * n, t, hd).contiguous()
+    def heads(x):
+        return x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1],
+                                         hd).contiguous()
 
-    o = _FlashAttention.apply(heads(q, h), heads(k, kh), heads(v, kh),
-                              window)
+    o = _FlashAttention.apply(heads(q), heads(k), heads(v), causal, window)
     return o.reshape(b, h, t, hd).transpose(1, 2)
 
 
@@ -206,14 +223,17 @@ def attention(p: Params, x: torch.Tensor,
     q, k = _qk_normalize(p, q, k, eps)
     hd = q.shape[-1]
     t = x.shape[1]
-    flash = kv_x is None and causal and positions is None
+    cross = kv_x is not None
+    flash = positions is None and ((causal and not cross) or window == 0)
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
     if use_rope and kv_x is None:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
     if flash:
-        o = _flash(q, k, v, window)
+        dt = torch.promote_types(q.dtype, k.dtype)
+        o = _flash(q.to(dt), k.to(dt), v.to(dt), window,
+                   causal=causal and not cross).to(q.dtype)
     else:
         kpos = (positions if kv_x is None
                 else torch.arange(src.shape[1], dtype=torch.int32,

@@ -1,9 +1,12 @@
 """Step factories: train step, prefill and serve (one-token decode)
 steps (torch; a port of ``repro/models/steps.py``).
 
-The port's weights live in the :class:`DecoderLM` module, so the
-``params`` argument of a step is that module (``model`` itself, or another
-one of the same config); the call shapes are JAX's.  The train step
+The port's weights live in the model module (:class:`DecoderLM`, or
+:class:`WhisperModel` for an encoder-decoder), so the ``params`` argument
+of a step is that module (``model`` itself, or another one of the same
+config); the call shapes are JAX's, batches included: ``tokens`` /
+``labels`` (with ``vision`` for a cross-attention decoder) or ``frames``
+/ ``targets`` / ``target_labels``.  The train step
 differentiates every parameter (``init_train_state`` turns their
 gradients on) with ``torch.autograd.grad`` and updates them in place with
 the in-house AdamW (``repro_torch.optim``).
@@ -19,7 +22,10 @@ from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
 
 from .config import ModelConfig
 from .layers import softmax_xent
-from .transformer import DecoderLM
+from .transformer import DecoderLM, check_spec, layer_specs
+from .whisper import WhisperModel
+
+Model = Union[DecoderLM, WhisperModel]
 
 
 def resolve_device(device) -> torch.device:
@@ -31,45 +37,53 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model(cfg: ModelConfig, device="cuda", seed: int = 0
-                ) -> DecoderLM:
-    """A decoder LM with random weights from ``seed`` on ``device`` (CUDA
-    unless the caller asks for another).  Encoder-decoder and non-dense
-    configurations raise NotImplementedError (ROADMAP A15)."""
-    if cfg.encoder_decoder or cfg.family != "dense" or cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}"
-            f"{', encoder-decoder' if cfg.encoder_decoder else ''}) is not "
-            "ported to repro_torch yet (ROADMAP A15); the port builds dense "
-            "decoders")
+def build_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> Model:
+    """The model of ``cfg`` with random weights from ``seed`` on
+    ``device`` (CUDA unless the caller asks for another): a
+    :class:`WhisperModel` for an encoder-decoder, else a
+    :class:`DecoderLM` (dense, or with vision cross-attention).  MoE, MLA,
+    hymba and xLSTM configurations raise NotImplementedError naming their
+    ROADMAP A15 item (``transformer.check_spec``)."""
+    if cfg.encoder_decoder:
+        return WhisperModel(cfg, device=resolve_device(device), seed=seed)
     return DecoderLM(cfg, device=resolve_device(device), seed=seed)
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
-    if cfg.encoder_decoder or cfg.cross_attn_every or cfg.is_moe:
-        kind = ("encoder-decoder" if cfg.encoder_decoder else
-                "cross-attention" if cfg.cross_attn_every else "MoE")
-        raise NotImplementedError(
-            f"training {cfg.name} ({kind}) is not ported to repro_torch yet "
-            "(ROADMAP A15); the port trains dense decoders")
+    for spec in layer_specs(cfg):
+        check_spec(spec)
 
 
-def value_and_grad(params: DecoderLM, cfg: ModelConfig,
+def _forward(params: Model, cfg: ModelConfig,
+             batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(logits, aux, labels) of JAX ``loss_fn``'s three branches."""
+    if cfg.encoder_decoder:
+        logits, aux = params(batch["frames"], batch["targets"])
+        return logits, aux, batch["target_labels"]
+    if cfg.cross_attn_every:
+        logits, aux = params(batch["tokens"], cross_kv_x=batch["vision"])
+    else:
+        logits, aux = params(batch["tokens"])
+    return logits, aux, batch["labels"]
+
+
+def value_and_grad(params: Model, cfg: ModelConfig,
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               Dict[str, torch.Tensor]]:
     """(total, loss, aux, grads by parameter name) of JAX's ``loss_fn``:
     ``softmax_xent(logits, labels) + router_aux_coef * aux``."""
     named = dict(params.named_parameters())
-    logits, aux = params(batch["tokens"])
-    loss = softmax_xent(logits, batch["labels"])
+    logits, aux, labels = _forward(params, cfg, batch)
+    loss = softmax_xent(logits, labels)
     tot = loss + cfg.router_aux_coef * aux
     grads = torch.autograd.grad(tot, list(named.values()))
     return (tot.detach(), loss.detach(), aux.detach(),
             dict(zip(named, grads)))
 
 
-def make_train_step(model: DecoderLM, cfg: ModelConfig,
+def make_train_step(model: Model, cfg: ModelConfig,
                     base_lr: float = 3e-4):
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     loss and every gradient, the cosine-scheduled learning rate of the
@@ -78,7 +92,7 @@ def make_train_step(model: DecoderLM, cfg: ModelConfig,
     ``aux`` (on the model's device) and ``lr`` (on the CPU)."""
     _check_trainable(cfg)
 
-    def train_step(params: DecoderLM, opt_state: AdamWState,
+    def train_step(params: Model, opt_state: AdamWState,
                    batch: Dict[str, torch.Tensor]):
         _, loss, aux, grads = value_and_grad(params, cfg, batch)
         lr = cosine_schedule(opt_state.step, base_lr)
@@ -89,8 +103,8 @@ def make_train_step(model: DecoderLM, cfg: ModelConfig,
     return train_step
 
 
-def init_train_state(model: DecoderLM, keep_master: bool = True
-                     ) -> Tuple[DecoderLM, AdamWState]:
+def init_train_state(model: Model, keep_master: bool = True
+                     ) -> Tuple[Model, AdamWState]:
     """The model with gradients on for every parameter (JAX
     differentiates every leaf) and a fresh AdamW state; the weights are
     the model's own (JAX draws them here from a key)."""
@@ -101,12 +115,12 @@ def init_train_state(model: DecoderLM, keep_master: bool = True
                              keep_master=keep_master)
 
 
-def make_serve_step(model: DecoderLM, cfg: ModelConfig):
+def make_serve_step(model: Model, cfg: ModelConfig):
     """One-token greedy decode: (params, cache, token, pos) -> (next
     [B, 1] int32, cache); ``pos`` an int or a 0-d integer tensor on the
     model's device (what a captured step reads)."""
 
-    def serve_step(params: DecoderLM, cache, token,
+    def serve_step(params: Model, cache, token,
                    pos: Union[int, torch.Tensor]):
         logits, cache = params.decode_step(cache, token, pos)
         nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
@@ -115,13 +129,21 @@ def make_serve_step(model: DecoderLM, cfg: ModelConfig):
     return serve_step
 
 
-def make_prefill_step(model: DecoderLM, cfg: ModelConfig):
-    """Forward over the prompt; returns the last position's logits
-    [B, vocab].  The head is applied to the last position only, which
-    gives the same numbers as slicing the full logits."""
+def make_prefill_step(model: Model, cfg: ModelConfig):
+    """Forward over the prompt (JAX's three branches, as in the train
+    step); returns the last position's logits [B, vocab].  The head is
+    applied to the last position only, which gives the same numbers as
+    slicing the full logits."""
 
-    def prefill(params: DecoderLM, batch: Dict[str, torch.Tensor]):
-        x = params.hidden(batch["tokens"])
-        return params._logits(x[:, -1, :])
+    def prefill(params: Model, batch: Dict[str, torch.Tensor]):
+        if cfg.encoder_decoder:
+            dec = params.decoder
+            x = dec.hidden(batch["targets"],
+                           cross_kv_x=params.encode(batch["frames"]))
+        else:
+            dec = params
+            x = dec.hidden(batch["tokens"], cross_kv_x=batch["vision"]
+                           if cfg.cross_attn_every else None)
+        return dec._logits(x[:, -1, :])
 
     return prefill

@@ -9,12 +9,18 @@ the superblock).  Weights carried from JAX are unstacked by
 
 Ported: ``gqa`` attention (causal, full or over a sliding window as in
 gemma3's local layers; with or without qk_norm) with a ``dense`` SwiGLU
-FFN, and an LM head tied to the embedding (logits ``x @ embed.T``) or
+FFN, the cross-attention block of llama-3.2-vision and whisper's decoder
+(``ln_x`` / ``xattn`` after the self-attention, over ``cross_kv_x``, with
+no RoPE), and an LM head tied to the embedding (logits ``x @ embed.T``) or
 untied (a ``head`` weight [d_model, vocab], logits ``x @ head``).  Any
 other block kind raises NotImplementedError naming its ROADMAP item.  A
 windowed layer's decode cache is a ring buffer of ``min(window,
-seq_len)`` slots, as in JAX.  ``cfg.remat`` is JAX's activation
-checkpointing of each segment's scan body, one superblock repeat: under
+seq_len)`` slots, as in JAX; a cross block's cache adds ``xk`` / ``xv`` of
+``cross_len`` slots (``cfg.n_vision_tokens`` by default, as in JAX), zeros
+until :meth:`DecoderLM.fill_cross_caches` writes the projected source into
+them in place.  ``cfg.remat`` is JAX's activation
+checkpointing of each segment's scan body, one superblock repeat (its
+``cross_kv_x`` passed as an argument, so that its gradient survives): under
 "full" (the default, and any value but "dots" and "none", as in JAX's
 ``_remat``) a repeat keeps only its input and recomputes the rest in the
 backward (``torch.utils.checkpoint``, non-reentrant); under "dots" it
@@ -31,9 +37,10 @@ are the same bits under every policy.  Parameters are created with
 
 Public surface:
   DecoderLM(cfg, device, seed)          — random weights from a seed
-  forward(tokens, positions)            — prefill logits, aux
-  hidden(tokens, positions)             — final-norm hidden states
+  forward(tokens, positions, cross_kv_x) — prefill logits, aux
+  hidden(tokens, positions, cross_kv_x)  — final-norm hidden states
   init_cache / decode_step              — KV caches, one token a step
+  fill_cross_caches(cache, src)         — cross caches from a source
 """
 from __future__ import annotations
 
@@ -106,57 +113,65 @@ def layer_specs(cfg: ModelConfig) -> List[BlockSpec]:
 
 
 _NOT_PORTED = {
-    "mla": "MLA attention (deepseek-v3, kimi-k2)",
-    "hymba": "hymba's parallel SSM heads",
-    "mlstm": "xLSTM blocks",
-    "slstm": "xLSTM blocks",
-    "moe": "MoE FFN",
-    "none": "FFN-less (xLSTM) blocks",
-    "cross_attn": "vision cross-attention",
+    "mla": "MLA attention (deepseek-v3, kimi-k2; ROADMAP A15.10)",
+    "hymba": "hymba's parallel SSM heads (ROADMAP A15.7)",
+    "mlstm": "xLSTM blocks (ROADMAP A15.8)",
+    "slstm": "xLSTM blocks (ROADMAP A15.8)",
+    "moe": "MoE FFN (ROADMAP A15.9)",
+    "none": "FFN-less (xLSTM) blocks (ROADMAP A15.8)",
 }
 
 
 def check_spec(spec: BlockSpec) -> None:
     """Raise NotImplementedError for a block kind the port does not run."""
     for kind in (spec.attn if spec.attn != "gqa" else None,
-                 spec.ffn if spec.ffn != "dense" else None,
-                 "cross_attn" if spec.cross_attn else None):
+                 spec.ffn if spec.ffn != "dense" else None):
         if kind is not None:
             raise NotImplementedError(
-                f"{_NOT_PORTED.get(kind, kind)} is not ported to "
-                f"repro_torch yet (ROADMAP A15); the port runs gqa + dense "
-                f"blocks, full or windowed")
+                f"{_NOT_PORTED[kind]} is not ported to repro_torch yet; the "
+                f"port runs gqa + dense blocks, full or windowed, with or "
+                f"without cross-attention")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _frozen_dict(p: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _frozen(v) for k, v in p.items()})
+
+
 class Block(nn.Module):
     """One gqa + dense block: ``ln1``, ``attn`` (wq, wk, wv, wo[, q_norm,
-    k_norm]), ``ln2``, ``mlp`` (wi, wg, wo) — JAX ``block_init``'s pytree
-    with the same names and shapes."""
+    k_norm]), with ``spec.cross_attn`` also ``ln_x`` and ``xattn`` (wq,
+    wk, wv, wo; K / V from d_model wide sources), then ``ln2``, ``mlp``
+    (wi, wg, wo) — JAX ``block_init``'s pytree with the same names and
+    shapes."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
-                 device) -> None:
+                 device, cross_attn: bool = False) -> None:
         super().__init__()
         dt, d = cfg.torch_dtype, cfg.d_model
         self.ln1 = _frozen(torch.zeros(d, dtype=dt, device=device))
-        self.attn = nn.ParameterDict({
-            k: _frozen(v) for k, v in A.attn_init(
+        self.attn = _frozen_dict(A.attn_init(
+            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt,
+            qk_norm=cfg.qk_norm, device=device))
+        if cross_attn:
+            self.ln_x = _frozen(torch.zeros(d, dtype=dt, device=device))
+            self.xattn = _frozen_dict(A.attn_init(
                 gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt,
-                qk_norm=cfg.qk_norm, device=device).items()})
+                kv_input_dim=d, device=device))
         self.ln2 = _frozen(torch.zeros(d, dtype=dt, device=device))
-        self.mlp = nn.ParameterDict({
-            k: _frozen(v) for k, v in swiglu_init(
-                gen, d, cfg.d_ff, dt, device=device).items()})
+        self.mlp = _frozen_dict(swiglu_init(gen, d, cfg.d_ff, dt,
+                                            device=device))
 
 
 # --------------------------------------------------------------------------- #
 # Block apply / cache / decode
 # --------------------------------------------------------------------------- #
 def block_apply(cfg: ModelConfig, spec: BlockSpec, bp: Block,
-                x: torch.Tensor, positions: Optional[torch.Tensor]
+                x: torch.Tensor, positions: Optional[torch.Tensor],
+                cross_kv_x: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence (prefill) application.  Returns (x, aux)."""
     eps = cfg.norm_eps
@@ -164,18 +179,32 @@ def block_apply(cfg: ModelConfig, spec: BlockSpec, bp: Block,
     x = x + A.attention(bp.attn, h, positions, window=spec.window,
                         rope_theta=cfg.rope_theta, eps=eps,
                         chunk=cfg.attn_chunk)
+    if spec.cross_attn:
+        h = rms_norm(x, bp.ln_x, eps)
+        x = x + A.attention(bp.xattn, h, positions, kv_x=cross_kv_x,
+                            causal=False, use_rope=False, eps=eps)
     x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
-                     seq_len: int, device=None) -> Dict[str, torch.Tensor]:
+                     seq_len: int, device=None,
+                     cross_len: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Decode cache for one block: K and V for ``seq_len`` positions, or
     for a windowed block ``min(window, seq_len)`` slots used as a ring
-    buffer (position p in slot p % slots)."""
+    buffer (position p in slot p % slots); a cross block also has zeroed
+    ``xk`` / ``xv`` of ``cross_len`` slots (``cfg.n_vision_tokens`` when
+    None or 0, as in JAX)."""
     s = min(spec.window, seq_len) if spec.window else seq_len
-    return A.init_cache(batch, s, cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
-                        device=device)
+    c = A.init_cache(batch, s, cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
+                     device=device)
+    if spec.cross_attn:
+        x = A.init_cache(batch, cross_len or cfg.n_vision_tokens,
+                         cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
+                         device=device)
+        c["xk"], c["xv"] = x["k"], x["v"]
+    return c
 
 
 def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
@@ -188,6 +217,12 @@ def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
                                   window=spec.window,
                                   rope_theta=cfg.rope_theta, eps=eps)
     x = x + a
+    if spec.cross_attn:
+        h = rms_norm(x, bp.ln_x, eps)
+        a, _ = A.decode_attention(bp.xattn, h,
+                                  {"k": cache["xk"], "v": cache["xv"]},
+                                  pos, cross=True, eps=eps)
+        x = x + a
     x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
     return x, cache
 
@@ -227,10 +262,6 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0
                  ) -> None:
         super().__init__()
-        if cfg.encoder_decoder:
-            raise NotImplementedError(
-                "encoder-decoder models (whisper) are not ported to "
-                "repro_torch yet (ROADMAP A15)")
         self.cfg = cfg
         self.specs = layer_specs(cfg)
         for spec in self.specs:
@@ -247,8 +278,8 @@ class DecoderLM(nn.Module):
         self.head = (None if cfg.tie_embeddings else
                      _frozen(dense_init(gen, d, cfg.vocab, dt,
                                         device=device)))
-        self.layers = nn.ModuleList(Block(cfg, gen, device)
-                                    for _ in self.specs)
+        self.layers = nn.ModuleList(Block(cfg, gen, device, s.cross_attn)
+                                    for s in self.specs)
         # Layer ranges of JAX's scan bodies: one superblock repeat each.
         self.repeats: List[Tuple[int, int]] = []
         for sb, rep in build_segments(cfg):
@@ -258,28 +289,33 @@ class DecoderLM(nn.Module):
 
     # -- forward (prefill) ---------------------------------------------- #
     def hidden(self, tokens: torch.Tensor,
-               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Final-norm hidden states [B, T, D] of tokens [B, T]."""
+               positions: Optional[torch.Tensor] = None,
+               cross_kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Final-norm hidden states [B, T, D] of tokens [B, T]; the cross
+        blocks attend to ``cross_kv_x`` [B, S, D] (JAX's; None runs them
+        as non-causal self-attention, as JAX does)."""
         x = self.embed[tokens.long()]
         wanted = torch.is_grad_enabled() and any(
             p.requires_grad for p in self.parameters())
         body = _remat(self._repeat, self.cfg.remat if wanted else "none")
         for lo, hi in self.repeats:
-            x = body(x, lo, hi, positions)
+            x = body(x, lo, hi, positions, cross_kv_x)
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
 
     def _repeat(self, x: torch.Tensor, lo: int, hi: int,
-                positions: Optional[torch.Tensor]) -> torch.Tensor:
+                positions: Optional[torch.Tensor],
+                cross_kv_x: Optional[torch.Tensor]) -> torch.Tensor:
         """Layers [lo, hi): one superblock repeat, JAX's scan body."""
         for spec, bp in zip(self.specs[lo:hi], self.layers[lo:hi]):
-            x, _ = block_apply(self.cfg, spec, bp, x, positions)
+            x, _ = block_apply(self.cfg, spec, bp, x, positions, cross_kv_x)
         return x
 
     def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None,
+                cross_kv_x: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits [B, T, vocab], aux) — aux is 0 for dense blocks."""
-        x = self.hidden(tokens, positions)
+        x = self.hidden(tokens, positions, cross_kv_x)
         return self._logits(x), torch.zeros((), dtype=torch.float32,
                                             device=x.device)
 
@@ -289,12 +325,28 @@ class DecoderLM(nn.Module):
         return torch.matmul(x, self.head)
 
     # -- decode --------------------------------------------------------- #
-    def init_cache(self, batch: int, seq_len: int
+    def init_cache(self, batch: int, seq_len: int,
+                   cross_len: Optional[int] = None
                    ) -> List[Dict[str, torch.Tensor]]:
-        """One zeroed cache dict per layer (JAX stacks them per segment)."""
+        """One zeroed cache dict per layer (JAX stacks them per segment);
+        cross blocks' ``xk`` / ``xv`` hold ``cross_len`` slots."""
         dev = self.embed.device
-        return [block_cache_init(self.cfg, spec, batch, seq_len, device=dev)
+        return [block_cache_init(self.cfg, spec, batch, seq_len, device=dev,
+                                 cross_len=cross_len)
                 for spec in self.specs]
+
+    @torch.no_grad()
+    def fill_cross_caches(self, cache: List[Dict[str, torch.Tensor]],
+                          src: torch.Tensor) -> None:
+        """Write ``src`` [B, S, D] projected through each cross block's
+        ``xattn`` wk / wv (cast to the cache dtype) into its ``xk`` /
+        ``xv`` in place, so that a captured decode step reads them.  JAX
+        has no such function: its decode starts from zeroed caches, and
+        its test fills them with this projection."""
+        for spec, bp, lc in zip(self.specs, self.layers, cache):
+            if spec.cross_attn:
+                lc["xk"].copy_(A._proj(src, bp.xattn["wk"]))
+                lc["xv"].copy_(A._proj(src, bp.xattn["wv"]))
 
     def decode_step(self, cache: List[Dict[str, torch.Tensor]],
                     token: torch.Tensor, pos: Union[int, torch.Tensor]

@@ -1,10 +1,12 @@
 """The port on a CUDA device: hand kernels against their plain versions,
 the Engine against the float64 reference, a batched lane against the
 same request run alone, the LM prefill through the flash kernel
-(windowed for gemma3, and its recomputed gradient) against the same model
-or function with plain attention, live-graph versions against a cold
-compile (with the bytes a delta uploads and a reclaim frees), and the
-mesh path on virtual shards of the card against the device path.
+(windowed for gemma3, and its recomputed gradient; non-causal at ragged Tk
+for cross-attention and whisper's encoder, with grouped KV heads) against
+the same model or function with plain attention, live-graph versions
+against a cold compile (with the bytes a delta uploads and a reclaim
+frees), and the mesh path on virtual shards of the card against the
+device path.
 
 Replays: a device pass replayed as a CUDA graph against the eager route
 (``Engine(replay=False)``) bit for bit, for b2 and gat-dot on Cora and
@@ -13,7 +15,7 @@ for sampled lanes of differing live counts (a batch of 3 in a bucket of
 version drops its captures and a re-staged replay equals eager; two
 engines of an ``OverlayPool`` replaying one program in two threads at
 once; the captured serve step against the eager one over gemma3's ring
-wrap.
+wrap, and over cross caches filled in place before and after the capture.
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -595,6 +597,144 @@ def test_cuda_two_layer_prefill_matches_plain_attention(cuda, dtype, limit,
     want = prefill(model, {"tokens": toks}).float()
     assert got.shape == (2, cfg.vocab) and bool(torch.isfinite(got).all())
     assert float((got - want).norm() / want.norm()) <= limit
+
+
+# The non-causal mode at ragged Tk, as cross-attention and whisper's
+# encoder call it: (tq, tk, heads, G, d, dtype).  The first three are the
+# path shapes: llama-3.2-vision's cross layers at B=4 (128 query heads over
+# 32 KV heads, 1,601 vision tokens), whisper-base's encoder at B=4 (1,500
+# frames) and its cross layers over 448 targets; then the sweep's odd
+# sizes (Tk below, inside and past one KV tile, one query, d up to 256).
+FLASH_NONCAUSAL_CASES = [(2048, 1601, 128, 4, 128, "bfloat16"),
+                         (1500, 1500, 32, 1, 64, "bfloat16"),
+                         (448, 1500, 32, 1, 64, "bfloat16"),
+                         (2048, 1601, 16, 4, 128, "float32"),
+                         (1500, 1500, 8, 1, 64, "float32"),
+                         (77, 130, 4, 2, 40, "bfloat16"),
+                         (300, 65, 8, 4, 128, "bfloat16"),
+                         (129, 257, 4, 1, 256, "bfloat16"),
+                         (1, 1601, 8, 4, 128, "bfloat16"),
+                         (100, 1000, 4, 2, 240, "bfloat16"),
+                         (300, 65, 8, 4, 128, "float32"),
+                         (129, 257, 4, 1, 256, "float32")]
+
+
+@pytest.mark.parametrize("tq,tk,h,grp,d,dtype", FLASH_NONCAUSAL_CASES)
+def test_cuda_flash_noncausal_ragged_tk_matches_plain(cuda, tq, tk, h, grp,
+                                                      d, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(tq + tk + d)
+    q = torch.randn(h, tq, d, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(h // grp, tk, d, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, False)
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.shape == q.shape
+    want = ref.flash_attention_plain(q, k, v, False)
+    if dt == torch.float32:
+        _close(got, want, 0.0, 2e-5)
+    else:
+        err = (got.float() - want.float())
+        assert float(err.norm() / want.float().norm()) <= 2.0 ** -8
+        rows = err.norm(dim=-1) / want.float().norm(dim=-1)
+        assert float(rows.max()) <= 2.0 ** -7
+    assert torch.equal(ops.flash_attention(q, k, v, False), got)
+
+
+@pytest.mark.parametrize("dtype,limit", [("bfloat16", 2e-2),
+                                         ("float32", 1e-4)])
+def test_cuda_cross_attention_route_g4_matches_plain(cuda, dtype, limit,
+                                                     monkeypatch):
+    # attention(kv_x=) at llama-3.2-vision's head layout (32 query heads
+    # over 8 KV heads of 128, G = 4), T = 300 over 1,601 sources: one
+    # non-causal launch; output and the gradients in x, kv_x and the
+    # weights (the chunked plain recompute) against the plain route.
+    from repro_torch.models import attention as TA
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    d, h, kh, hd, t, s = 4096, 32, 8, 128, 300, 1601
+    p = TA.attn_init(g, d, h, kh, hd, dt, kv_input_dim=d, device=cuda)
+    x = torch.randn(2, t, d, generator=g, device=cuda).to(dt)
+    src = (0.1 * torch.randn(2, s, d, generator=g, device=cuda)).to(dt)
+    w = torch.randn(2, t, d, generator=g, device=cuda)
+
+    def run():
+        ps = {n: a.clone().requires_grad_() for n, a in p.items()}
+        xs = [a.clone().requires_grad_() for a in (x, src)]
+        o = TA.attention(ps, xs[0], kv_x=xs[1], causal=False, use_rope=False)
+        (o.float() * w).sum().backward()
+        return [o.detach().float()] + [a.grad.float() for a in xs] + [
+            ps[n].grad.float() for n in sorted(ps)]
+    ops.reset_launches()
+    got = run()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    monkeypatch.setattr(ops, "flash_attention", ref.flash_attention_plain)
+    for a, e in zip(got, run()):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - e).norm() / e.norm()) <= limit
+
+
+def test_cuda_vision_superblock_prefill_matches_plain_attention(
+        cuda, monkeypatch):
+    # llama-3.2-vision at full width, one superblock (4 self layers and a
+    # cross layer), bf16, T = 300 over 1,601 vision tokens: 6 launches.
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b"),
+                              n_layers=5)
+    model = build_model(cfg, seed=0)
+    r = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab, (2, 300)
+                                                   ).astype(np.int32)),
+             "vision": torch.from_numpy(r.normal(0, 0.1, (
+                 2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+                 ).to(torch.bfloat16)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    prefill = make_prefill_step(model, cfg)
+    ops.reset_launches()
+    got = prefill(model, batch).float()
+    assert ops.LAUNCHES["flash_attention"] == 6
+    monkeypatch.setattr(ops, "flash_attention", ref.flash_attention_plain)
+    want = prefill(model, batch).float()
+    assert got.shape == (2, cfg.vocab) and bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) <= 2e-2
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
+def test_cuda_captured_decode_reads_filled_cross_caches(cuda, arch):
+    # launch.serve.Step captured over cross caches filled in place
+    # (fill_cross_caches), token for token the eager step; refilled after
+    # the capture with another source, the replays read the new values.
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Step
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg, seed=3)
+    b, plen, gen, s = 3, 5, 8, 24
+    r = np.random.default_rng(1)
+    prompts = torch.as_tensor(r.integers(0, cfg.vocab, (b, plen)).astype(
+        np.int32), device=cuda)
+    srcs = [torch.as_tensor(r.normal(0, 1.0, (b, s, cfg.d_model)).astype(
+        np.float32), device=cuda) for _ in range(2)]
+
+    def decode(step, cache, src):
+        model.fill_cross_caches(cache, src)
+        tok, out = None, []
+        for p in range(plen):
+            tok = step(prompts[:, p:p + 1], p)
+        out.append(tok)
+        for i in range(gen - 1):
+            tok = step(tok, plen + i)
+            out.append(tok)
+        return torch.cat(out, dim=1)
+    caches = {m: model.init_cache(b, plen + gen, cross_len=s)
+              for m in ("eager", "captured")}
+    steps = {m: Step(model, cfg, model, caches[m], b,
+                     capture=m == "captured") for m in caches}
+    for src in srcs:
+        want = decode(steps["eager"], caches["eager"], src)
+        got = decode(steps["captured"], caches["captured"], src)
+        assert steps["captured"].graph is not None
+        assert torch.equal(got, want)
+    first = decode(steps["eager"], caches["eager"], srcs[0])
+    assert not torch.equal(first, want)         # the source matters
 
 
 # --------------------------------------------------------------------------- #
