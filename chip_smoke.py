@@ -283,6 +283,42 @@ Phases (any failure exits non-zero; nothing is caught):
    (every loss finite, flash launches twice a forward's under remat
    "full"), step ms, tokens/s, peak memory; whisper's train state saved
    and restored bit for bit.
+17. hymba-1.5b at full width (32 layers, d_model 1600; 25 query heads over
+   5 KV heads of 64 under a window of 2,048, beside 25 SSM heads of 64
+   with state 16; d_ff 5,504, vocab 32,001; 1.31 B parameters, random
+   from seed 0): the flash kernel at its prefill shape (BH=100 over 20 KV
+   heads, G=5, T=2048, d=64, bf16, causal; the window masks nothing) and
+   at its train shape under the window (BH=50 over 10 KV heads, T=4096),
+   by ``check_rows`` against its plain version, timed beside the plain
+   version, SDPA (a boolean ``attn_mask`` under the window) and the
+   bound; ``make_prefill_step`` in bf16 at B=4, T=2048 (a warm-up and 2
+   timed, 32 causal flash launches each, one more under
+   ``torch.profiler``), and one more whose 32 flash calls are each held
+   to the plain version on their own operands by ``check_rows``; the
+   same weights in fp32, last-position logits within relative L2 2e-2 of
+   plain attention (in bf16 the model's own rounding moves them further:
+   the bf16 reading is printed beside ``_sdpa_chunked`` attention's and
+   the fp32 run's, not held); one layer's SSD scan (8 chunks) and
+   attention timed (synchronized wall, device busy, device events); the
+   eager / captured decode pair; fp32 decode against forward at 2 layers
+   over 2,304 positions (the rings of 2,048 wrap, the SSD runs 9 chunks;
+   2e-4 of max |logit|); ``launch.serve --arch hymba-1.5b``; step 1's
+   loss and every gradient at B=2, T=4096 against the plain route, held
+   within 2e-2 in fp32 and printed in bf16; the bf16 train step at B=2,
+   T=4096 under remat "full" (a warm-up and 3 timed steps, peak memory).
+18. xlstm-125m at full width (12 layers: six mLSTM / sLSTM pairs with no
+   FFN; d_model 768, 4 heads, vocab 50,304, tied head; 112.78 M
+   parameters): the bf16 prefill at B=4, T=2048 (a warm-up and 2 timed,
+   no flash launch); the first sequence's last-position logits of the
+   same weights on the card and on the CPU, within relative L2 2e-2 in
+   fp32 (in bf16 printed beside the card's bf16 against fp32, not held);
+   one mLSTM and one sLSTM layer timed (the sLSTM's loop of 2,048 steps,
+   launched eagerly: wall, device busy, device events a step); the eager
+   / captured decode pair; fp32 decode against forward at 12 layers over
+   512 positions; ``launch.serve --arch xlstm-125m``; the train step at
+   B=2, T=1024 under remat "full" (a warm-up and 1 timed, peak memory;
+   at T=4096 a step passed 30 s), then one mLSTM layer's gradient at
+   T=4096 (finite; JAX's overflows there).
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths, through its wrapper (``kernels.ops.LAUNCHES``; a CUDA-graph
@@ -294,7 +330,7 @@ path's runs of phase 8 (cold-compile comparisons excluded), the prefill
 and forward runs of phase 9, the mesh runs of phase 10 (device-path
 comparisons excluded), the prefill and forward runs of phases 11 and
 12, the 6 train steps of phase 13, and the prefill, forward and train
-runs of phases 14-16),
+runs of phases 14-17),
 each counted from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
@@ -2804,11 +2840,13 @@ GRANITE_B, GRANITE_T = 4, 2048
 GRANITE_DECODE_LAYERS = 4       # the fp32 witness: weights near 5 GB
 
 
-def flash_at_shape(torch, ops, ref, cfg, b, t, label):
+def flash_at_shape(torch, ops, ref, cfg, b, t, label, window=0):
     """The flash kernel at ``cfg``'s attention shape for b sequences of
-    t tokens (bf16, causal, random q / k / v from seed 5): held to its
-    plain version by ``check_rows``, timed beside the plain version and
-    SDPA, with its bound.  Returns its row for the ``PERF.md`` table."""
+    t tokens (bf16, causal, under ``window`` when > 0; random q / k / v
+    from seed 5): held to its plain version by ``check_rows``, timed
+    beside the plain version and SDPA (with a boolean mask under a
+    window), with its bound.  Returns its row for the ``PERF.md``
+    table."""
     bh, kvh, d = b * cfg.n_heads, b * cfg.n_kv_heads, cfg.hd
     g = bh // kvh
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -2816,28 +2854,33 @@ def flash_at_shape(torch, ops, ref, cfg, b, t, label):
     k, v = (torch.randn(kvh, t, d, generator=gen, device="cuda").bfloat16()
             for _ in range(2))
     name = f"flash {label} BH={bh} KV heads={kvh} G={g}"
-    got = ops.flash_attention(q, k, v, True)
-    want = ref.flash_attention_plain(q, k, v, True)
+    got = ops.flash_attention(q, k, v, True, window)
+    want = ref.flash_attention_plain(q, k, v, True, window)
     r_whole, r_row = check_rows(torch, name, got, want)
     err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(ops.flash_attention(q, k, v, True, window), got):
+        fail(f"{name}: two launches differ")
     del got, want
-    t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True))
-    t_p = median_ms(torch, lambda: ref.flash_attention_plain(q, k, v, True),
-                    reps=3, launches=3)
-    lib, how = sdpa_yardstick(torch, q, k, v)
+    t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True,
+                                                       window))
+    t_p = median_ms(torch, lambda: ref.flash_attention_plain(
+        q, k, v, True, window), reps=3, launches=3)
+    lib, how = sdpa_yardstick(torch, q, k, v, window)
     t_l = median_ms(torch, lib)
     b_ms, b_by = flash_bound(bh, t, t, d, True, 2, PEAK_BF16_FLOP_S,
-                             kv_heads=kvh)
-    log(f"kernel flash_attention {name} T={t} d={d} causal bf16: kernel "
-        f"{t_k:.4f} ms, plain {t_p:.4f} ms, F.scaled_dot_product_attention "
-        f"({how}) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); relative L2 "
-        f"{r_whole:.3e} whole, {r_row:.3e} worst row, max|err| {err:.2e}")
+                             kv_heads=kvh, window=window)
+    log(f"kernel flash_attention {name} T={t} d={d} causal window={window} "
+        f"bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"F.scaled_dot_product_attention ({how}) {t_l:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); relative L2 {r_whole:.3e} whole, "
+        f"{r_row:.3e} worst row, max|err| {err:.2e}")
     del q, k, v
     torch.cuda.empty_cache()
     return {"shape": f"BH={bh} over {kvh} KV heads, T={t}, d={d}, bf16, "
-                     "causal", "max_abs_err": err, "ms": t_k,
+                     "causal" + (f", window {window}" if window else ""),
+            "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": t_l, "rel_l2_whole": r_whole,
+            "library_ms": t_l, "library": how, "rel_l2_whole": r_whole,
             "rel_l2_worst_row": r_row}
 
 
@@ -2978,14 +3021,18 @@ def flash_modes(ops):
 
 
 def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
-               then=None, extra=None, tokens_key="tokens", per_prefill=None):
+               then=None, extra=None, tokens_key="tokens", per_prefill=None,
+               hold=True):
     """A bf16 prefill of ``cfg`` at b x t (``batch[tokens_key]`` from
     numpy ``seed``, plus the tensors of ``extra``: vision tokens or audio
     frames) with random weights from seed 0: a warm-up and ``timed`` timed
     runs with the flash launches counted from zero (``per_prefill`` a run,
     ``cfg.n_layers`` when None; tallied by mode under "modes"), the
     last-position logits within LM_REL_L2 of the same model with plain
-    attention, and with ``profile`` one more prefill under
+    attention (with ``hold`` off, for a model whose bf16 rounding alone
+    moves its logits further, reported beside the reading of
+    ``_sdpa_chunked`` attention, a route with no kernel, and held by the
+    caller in fp32), and with ``profile`` one more prefill under
     ``torch.profiler``; ``then(model)`` runs last, its dict in the summary
     under "then".  Returns (flash launches, summary)."""
     import numpy as np
@@ -3032,6 +3079,12 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
     got32, want32 = logits.float(), want.float()
     rel = float((got32 - want32).norm() / want32.norm())
     agree = float((got32.argmax(-1) == want32.argmax(-1)).float().mean())
+    rel_wit = None
+    if not hold:
+        with attention_as(ops, chunked_attention):
+            wit = prefill(model, batch).float()
+        rel_wit = float((wit - want32).norm() / want32.norm())
+        del wit
     med = statistics.median(walls[1:])
     flops = 2.0 * cfg.n_params() * b * t
     log(f"{cfg.name} prefill {b}x{t}: wall ms "
@@ -3040,8 +3093,11 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
         f"({flops:.3e} flops of weight products); peak memory "
         f"{peak / 2**30:.3f} GiB (weights included); flash launches "
         f"{n_flash} {modes}; logits against plain attention: relative L2 "
-        f"{rel:.3e} (limit {LM_REL_L2}), argmax agreement {agree:.3f}")
-    if not rel <= LM_REL_L2:
+        f"{rel:.3e} (limit {LM_REL_L2}" + ("" if hold else
+                                           ", not held in bf16: _sdpa_chunked "
+                                           f"attention reads {rel_wit:.3e}")
+        + f"), argmax agreement {agree:.3f}")
+    if hold and not rel <= LM_REL_L2:
         fail(f"{cfg.name} prefill logits differ from plain attention by "
              f"relative L2 {rel:.3e}")
     flash_dev = None
@@ -3067,6 +3123,7 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
                      "tokens_per_s": b * t / med * 1e3,
                      "weight_product_flops": flops,
                      "prefill_peak_bytes": peak, "prefill_rel_l2": rel,
+                     "prefill_rel_l2_sdpa_chunked": rel_wit,
                      "prefill_argmax_agreement": agree,
                      "flash_device_ms_in_profiled_prefill": flash_dev}
 
@@ -3178,10 +3235,11 @@ def plain_attention_route():
         A._FlashAttention = real
 
 
-def grads_against_plain(torch, model, cfg, batch, limit, label):
+def grads_against_plain(torch, model, cfg, batch, limit, label, hold=True):
     """The loss and every gradient of ``steps.value_and_grad`` through
     the kernel route and the plain route, held within relative L2
-    ``limit``; returns (loss, plain loss, worst gradient's relative L2,
+    ``limit`` (with ``hold`` off only reported; every gradient must still
+    be finite); returns (loss, plain loss, worst gradient's relative L2,
     its name)."""
     from repro_torch.models.steps import value_and_grad
 
@@ -3200,8 +3258,9 @@ def grads_against_plain(torch, model, cfg, batch, limit, label):
             worst, worst_name = rel, name
     log(f"{label}: loss {float(loss):.6f} (plain route {float(ploss):.6f}, "
         f"relative {rel_loss:.3e}); worst gradient relative L2 {worst:.3e} "
-        f"({worst_name}; limit {limit}) over {len(grads)} gradients")
-    if not (rel_loss <= limit and worst <= limit):
+        f"({worst_name}; limit {limit}{'' if hold else ', not held'}) over "
+        f"{len(grads)} gradients")
+    if hold and not (rel_loss <= limit and worst <= limit):
         fail(f"{label}: kernel route differs from the plain route (loss "
              f"{rel_loss:.3e}, gradient {worst_name} {worst:.3e})")
     return float(loss), float(ploss), worst, worst_name
@@ -3755,6 +3814,84 @@ def checkpoint_round_trip(torch, cfg, model, opt, loss, label):
     return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s}
 
 
+def train_case(torch, ops, cfg, b, t, steps, per_fwd, against_plain=True):
+    """``make_train_step`` on ``cfg`` (bf16, random from seed 0) over
+    ``steps`` batches of ``synthetic_batches(cfg, b, t, seed=0)``: with
+    ``against_plain``, step 1's loss and every gradient against the plain
+    route within TRAIN_GRAD_REL first; then the steps with the flash
+    launches counted (``per_fwd`` a forward, twice that a step under
+    remat), every loss finite, step ms, tokens/s and peak memory (the
+    train state included).  Returns (flash launches, calls by mode, a
+    summary, the model, its optimizer state)."""
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models.steps import (build_model, init_train_state,
+                                          make_train_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    it = synthetic_batches(cfg, b, t, seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in next(it).items()} for _ in range(steps)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model, opt = init_train_state(build_model(cfg, seed=0))
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"train {cfg.name} ({cfg.n_layers} layers): {n_par:,} "
+        f"parameters in {cfg.dtype}, params + fp32 master, mu and nu "
+        f"{state_bytes / 2**30:.3f} GiB")
+    r16 = (grads_against_plain(torch, model, cfg, batches[0],
+                               TRAIN_GRAD_REL,
+                               f"train {cfg.name} bf16 step 1")
+           if against_plain else None)
+    step = make_train_step(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # ---- the train path: counts zeroed above, read below.
+    walls, losses = [], []
+    with flash_modes(ops) as modes:
+        for bt in batches:
+            t0 = time.perf_counter()
+            model, opt, met = step(model, opt, bt)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+    n_flash = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    # ---- end of the train path.
+    per_step = per_fwd * (1 if cfg.remat == "none" else 2)
+    if n_flash != per_step * len(batches) or sum(
+            modes.values()) != n_flash:
+        fail(f"train {cfg.name}: flash launches {n_flash} over "
+             f"{len(batches)} steps != {per_step} per step (calls by "
+             f"mode {modes})")
+    if not all(math.isfinite(x) for x in losses) or int(opt.step) != \
+            len(batches):
+        fail(f"train {cfg.name}: losses {losses}, step {int(opt.step)}")
+    med = statistics.median(walls[1:])
+    tok = int(batches[0]["targets" if cfg.encoder_decoder
+                         else "tokens"].numel())
+    log(f"train {cfg.name} B={b} T={t} bf16, remat {cfg.remat!r}: "
+        f"step wall ms {[round(w, 2) for w in walls]} (first is the "
+        f"warm-up), median {med:.2f} ms, {tok / med * 1e3:,.0f} "
+        f"{'target ' if cfg.encoder_decoder else ''}tokens/s; peak "
+        f"memory {peak / 2**30:.3f} GiB (state included); flash "
+        f"launches {n_flash} {modes}; losses "
+        f"{[round(x, 4) for x in losses]}")
+    out = {"layers": cfg.n_layers, "batch": b, "seq": t, "params": n_par,
+           "state_bytes": state_bytes, "step_ms": walls,
+           "step_median_ms": med, "tokens_per_s": tok / med * 1e3,
+           "peak_bytes": peak, "losses": losses, "modes": modes}
+    if r16 is not None:
+        out["step1_bf16"] = {"loss": r16[0], "plain_loss": r16[1],
+                             "worst_grad_rel_l2": r16[2],
+                             "worst_grad": r16[3]}
+    del batches, step
+    return n_flash, modes, out, model, opt
+
+
 def cross_train_phase(torch, ops, ref):
     """``make_train_step`` in bf16 on whisper-base at full width (B=8,
     1,500 frames, 448 targets) and on llama-3.2-vision-11b cut to one
@@ -3769,9 +3906,6 @@ def cross_train_phase(torch, ops, ref):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.data import synthetic_batches
-    from repro_torch.models.steps import (build_model, init_train_state,
-                                          make_train_step)
 
     out, launches, non_causal = {}, 0, {}
     cases = (("whisper", get_config(WHISPER_ARCH), WHISPER_TRAIN_B,
@@ -3780,79 +3914,362 @@ def cross_train_phase(torch, ops, ref):
                                             n_layers=VISION_SUPERBLOCK),
               VISION_TRAIN_B, VISION_T))
     for label, cfg, b, t in cases:
-        gc.collect()
-        torch.cuda.empty_cache()
-        it = synthetic_batches(cfg, b, t, seed=0)
-        batches = [{k: torch.as_tensor(v, device="cuda")
-                    for k, v in next(it).items()}
-                   for _ in range(CROSS_TRAIN_STEPS)]
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        model, opt = init_train_state(build_model(cfg, seed=0))
-        torch.cuda.synchronize()
-        state_bytes = torch.cuda.memory_allocated() - base
-        n_par = sum(p.numel() for p in model.parameters())
-        log(f"train {cfg.name} ({cfg.n_layers} layers): {n_par:,} "
-            f"parameters in {cfg.dtype}, params + fp32 master, mu and nu "
-            f"{state_bytes / 2**30:.3f} GiB")
-        r16 = grads_against_plain(torch, model, cfg, batches[0],
-                                  TRAIN_GRAD_REL,
-                                  f"train {cfg.name} bf16 step 1")
-        step = make_train_step(model, cfg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        # ---- the train path: counts zeroed above, read below.
-        walls, losses = [], []
-        with flash_modes(ops) as modes:
-            for bt in batches:
-                t0 = time.perf_counter()
-                model, opt, met = step(model, opt, bt)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-                losses.append(float(met["loss"]))
-        n_flash = ops.LAUNCHES["flash_attention"]
-        peak = torch.cuda.max_memory_allocated() - base
-        # ---- end of the train path.
         per_fwd = cfg.n_encoder_layers + cfg.n_layers + (
             cfg.n_layers if cfg.encoder_decoder
             else cfg.n_layers // cfg.cross_attn_every)
-        per_step = per_fwd * (1 if cfg.remat == "none" else 2)
-        if n_flash != per_step * len(batches) or sum(
-                modes.values()) != n_flash:
-            fail(f"train {cfg.name}: flash launches {n_flash} over "
-                 f"{len(batches)} steps != {per_step} per step (calls by "
-                 f"mode {modes})")
-        if not all(math.isfinite(x) for x in losses) or int(opt.step) != \
-                len(batches):
-            fail(f"train {cfg.name}: losses {losses}, step {int(opt.step)}")
-        med = statistics.median(walls[1:])
-        tok = int(batches[0]["targets" if cfg.encoder_decoder
-                             else "tokens"].numel())
-        log(f"train {cfg.name} B={b} T={t} bf16, remat {cfg.remat!r}: "
-            f"step wall ms {[round(w, 2) for w in walls]} (first is the "
-            f"warm-up), median {med:.2f} ms, {tok / med * 1e3:,.0f} "
-            f"{'target ' if cfg.encoder_decoder else ''}tokens/s; peak "
-            f"memory {peak / 2**30:.3f} GiB (state included); flash "
-            f"launches {n_flash} {modes}; losses "
-            f"{[round(x, 4) for x in losses]}")
+        n_flash, modes, out[label], model, opt = train_case(
+            torch, ops, cfg, b, t, CROSS_TRAIN_STEPS, per_fwd)
         launches += n_flash
         non_causal[label] = modes["non_causal"]
-        out[label] = {"layers": cfg.n_layers, "batch": b, "seq": t,
-                      "params": n_par, "state_bytes": state_bytes,
-                      "step_ms": walls, "step_median_ms": med,
-                      "tokens_per_s": tok / med * 1e3, "peak_bytes": peak,
-                      "losses": losses, "modes": modes,
-                      "step1_bf16": {"loss": r16[0], "plain_loss": r16[1],
-                                     "worst_grad_rel_l2": r16[2],
-                                     "worst_grad": r16[3]}}
         if cfg.encoder_decoder:
             out[label]["checkpoint"] = checkpoint_round_trip(
-                torch, cfg, model, opt, losses[-1], cfg.name)
-        del model, opt, step, batches
+                torch, cfg, model, opt, out[label]["losses"][-1], cfg.name)
+        del model, opt
     gc.collect()
     torch.cuda.empty_cache()
     return launches, non_causal, out
+
+
+HYMBA_ARCH, XLSTM_ARCH = "hymba-1.5b", "xlstm-125m"
+HYMBA_B, HYMBA_T = 4, 2048
+HYMBA_DECODE_LAYERS = 2
+HYMBA_DECODE_T = 2304           # past the window of 2,048; SSD in 9 chunks
+HYMBA_TRAIN_B, HYMBA_TRAIN_T, HYMBA_TRAIN_STEPS = 2, 4096, 4
+XLSTM_B, XLSTM_T = 4, 2048
+XLSTM_DECODE_T = 512            # two query chunks of the mLSTM
+# T = 1,024, not 4,096: at 4,096 a step took 23.6-27.6 s and its warm-up
+# up to 32.3 s (the sLSTM's loop of 4,096 steps under autograd and remat).
+XLSTM_TRAIN_B, XLSTM_TRAIN_T, XLSTM_TRAIN_STEPS = 2, 1024, 2
+MLSTM_LONG_T = 4096             # one mLSTM layer's gradient, finite
+
+
+def loop_cost(torch, label, fn, steps):
+    """A host-paced piece of the model (a scan's loop): the synchronized
+    wall ms of ``fn()`` (median of 3 after a warm-up), and one call under
+    the profiler (device only): device busy ms and device events, also
+    per step of its loop."""
+    fn()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof = {}
+    profile_call(torch, fn, label, out=prof, cpu=False)
+    med = statistics.median(walls)
+    per = prof["events"] / steps if "events" in prof else None
+    log(f"{label}: wall {med:.2f} ms (of {[round(w, 2) for w in walls]}), "
+        f"device busy {prof.get('busy_ms', 'not measured')} ms, "
+        f"{prof.get('events', 'not measured')} device events over {steps} "
+        f"steps of its loop ({per} a step)")
+    return {"wall_ms": walls, "median_ms": med, "steps": steps,
+            "events_per_step": per, **prof}
+
+
+def block_input(torch, cfg, b, t):
+    """A bf16 block input [b, t, d_model] of unit RMS (an ``ln1`` output's
+    scale), from seed 9."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    return torch.randn(b, t, cfg.d_model, generator=gen,
+                       device="cuda").to(cfg.torch_dtype)
+
+
+@contextlib.contextmanager
+def flash_calls_held(torch, ops, ref, label):
+    """While open, each (bf16) ``ops.flash_attention`` call runs the
+    kernel and holds its output to the plain version on the same operands
+    by ``check_rows``; the yielded dict counts the calls and keeps the
+    worst relative L2 (whole, row)."""
+    seen = {"calls": 0, "whole": 0.0, "row": 0.0}
+    real = ops.flash_attention
+
+    def held(q, k, v, causal=True, window=0):
+        got = real(q, k, v, causal, window)
+        w, r = check_rows(torch, f"{label} call {seen['calls']}", got,
+                          ref.flash_attention_plain(q, k, v, causal, window))
+        seen.update(calls=seen["calls"] + 1, whole=max(seen["whole"], w),
+                    row=max(seen["row"], r))
+        return got
+    with attention_as(ops, held):
+        yield seen
+
+
+def hymba_phase(torch, ops, ref):
+    """hymba-1.5b at full width (32 layers; 25 query heads over 5 KV heads
+    of 64 under a window of 2,048, beside 25 SSM heads of state 16): the
+    flash kernel at its prefill shape (G = 5) and, windowed, at its train
+    shape; the bf16 prefill at 4x2048 (32 causal flash calls a prefill,
+    one profiled), every flash call of one more prefill held to the plain
+    version on its own operands, one layer's SSD scan and attention
+    timed, the eager / captured decode pair; the same weights in fp32,
+    whose prefill logits are held within LM_REL_L2 of plain attention
+    (in bf16 the model's rounding alone moves them further, so the bf16
+    logits are reported beside ``_sdpa_chunked``'s and the fp32 run's);
+    the fp32 decode witness at 2 layers over 2,304 positions (the rings
+    wrap, the SSD runs 9 chunks); ``launch.serve``; step 1's loss and
+    gradients against the plain route in fp32 (held) and bf16
+    (reported), and the bf16 train step at 2x4096 under remat "full".
+    Returns (flash launches over the counted runs, a summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models import attention as A
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.steps import build_model, make_prefill_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(HYMBA_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rows = {"prefill": flash_at_shape(torch, ops, ref, cfg, HYMBA_B,
+                                      HYMBA_T, "hymba prefill shape"),
+            "train": flash_at_shape(torch, ops, ref, cfg, HYMBA_TRAIN_B,
+                                    HYMBA_TRAIN_T, "hymba train shape",
+                                    window=cfg.local_window)}
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (HYMBA_B, HYMBA_T)).astype(np.int32), device="cuda")}
+
+    def then(m):
+        out = {}
+        with flash_calls_held(torch, ops, ref, "hymba bf16 prefill") as seen:
+            plain16 = make_prefill_step(m, cfg)(m, batch).float()
+        if seen["calls"] != cfg.n_layers:
+            fail(f"hymba: {seen['calls']} flash calls held, expected "
+                 f"{cfg.n_layers}")
+        log(f"hymba bf16 prefill: each of its {seen['calls']} flash calls "
+            f"held to the plain version on its own operands (worst relative"
+            f" L2 {seen['whole']:.3e} whole, {seen['row']:.3e} row)")
+        out["flash_calls_held"] = seen
+        bp, h = m.layers[0], block_input(torch, cfg, HYMBA_B, HYMBA_T)
+        with torch.no_grad():
+            out["ssd_one_layer"] = loop_cost(
+                torch, f"hymba SSD scan, one layer, {HYMBA_B}x{HYMBA_T}",
+                lambda: SSM.ssm_scan_ssd(bp.ssm, h, cfg.ssm_state),
+                max(1, HYMBA_T // 256))
+            out["attention_one_layer"] = loop_cost(
+                torch, "hymba attention, one layer", lambda: A.attention(
+                    bp.attn, h, window=cfg.local_window,
+                    rope_theta=cfg.rope_theta), 1)
+        del h
+        out["decode_pair"] = decode_pair(torch, m, cfg, 4, 16, 16, cfg.name)
+        # The same weights in fp32: the kernel route against plain
+        # attention (held), and against the bf16 run (the model's own
+        # bf16 rounding).
+        m32 = build_model(cfg32, seed=0)
+        m32.load_state_dict({k: v.float() for k, v in m.state_dict().items()})
+        pre32 = make_prefill_step(m32, cfg32)
+        ops.reset_launches()
+        # ---- the hymba fp32 prefill: counts zeroed above, read below.
+        got32 = pre32(m32, batch)
+        torch.cuda.synchronize()
+        n32 = ops.LAUNCHES["flash_attention"]
+        # ---- end of the hymba fp32 prefill.
+        with attention_as(ops, ref.flash_attention_plain):
+            want32 = pre32(m32, batch)
+        rel32 = float((got32 - want32).norm() / want32.norm())
+        gap = float((plain16 - want32).norm() / want32.norm())
+        log(f"hymba fp32 prefill {HYMBA_B}x{HYMBA_T}, the bf16 weights: "
+            f"logits against plain attention relative L2 {rel32:.3e} (limit "
+            f"{LM_REL_L2}); flash launches {n32}; the bf16 model's plain "
+            f"route against this one: {gap:.3e}")
+        if n32 != cfg.n_layers or not rel32 <= LM_REL_L2:
+            fail(f"hymba fp32 prefill: {n32} flash launches, logits "
+                 f"{rel32:.3e} from plain attention")
+        del m32, pre32, got32, want32, plain16
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(fp32_rel_l2=rel32, bf16_vs_fp32_rel_l2=gap,
+                   fp32_launches=n32)
+        return out
+    n_pre, pre = lm_prefill(torch, ops, ref, cfg, HYMBA_B, HYMBA_T, seed=1,
+                            timed=2, profile=True, then=then, hold=False)
+    if pre["modes"]["non_causal"]:
+        fail(f"hymba prefill: calls by mode {pre['modes']}")
+
+    dec = dataclasses.replace(cfg32, n_layers=HYMBA_DECODE_LAYERS)
+    model = build_model(dec, seed=0)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (DECODE_B, HYMBA_DECODE_T)).astype(np.int32),
+        device="cuda")
+
+    def ring():
+        cache = model.init_cache(DECODE_B, HYMBA_DECODE_T)
+        shapes = {(lc["k"].shape[1], tuple(lc["ssm"].shape), lc["ssm"].dtype)
+                  for lc in cache}
+        want = (cfg.local_window, (DECODE_B, cfg.ssm_heads,
+                                   cfg.d_model // cfg.ssm_heads,
+                                   cfg.ssm_state), torch.float32)
+        if shapes != {want}:
+            fail(f"hymba caches {shapes}, expected {want}")
+        return cache
+    n_fwd, _, worst = decode_witness(
+        torch, ops, model, f"hymba ({HYMBA_DECODE_LAYERS} layers, rings of "
+        f"{cfg.local_window} wrapped)", lambda: model(toks), ring, toks,
+        HYMBA_DECODE_LAYERS)
+    del model, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = drive_serve(torch, HYMBA_ARCH, "hymba")
+
+    # Step 1's loss and gradients against the plain route, on the same
+    # weights in fp32 (held) and bf16 (reported).
+    b1 = {k: torch.as_tensor(v, device="cuda") for k, v in next(
+        synthetic_batches(cfg, HYMBA_TRAIN_B, HYMBA_TRAIN_T, seed=0)).items()}
+    step1 = {}
+    for c, hold in ((cfg32, True), (cfg, False)):
+        model = build_model(c, seed=0)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        r = grads_against_plain(torch, model, c, b1, TRAIN_GRAD_REL,
+                                f"train {c.name} {c.dtype} step 1", hold)
+        step1[c.dtype] = {"loss": r[0], "plain_loss": r[1],
+                          "worst_grad_rel_l2": r[2], "worst_grad": r[3]}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del b1
+    n_train, _, train, model, opt = train_case(
+        torch, ops, cfg, HYMBA_TRAIN_B, HYMBA_TRAIN_T, HYMBA_TRAIN_STEPS,
+        cfg.n_layers, against_plain=False)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    n32 = pre["then"]["fp32_launches"]
+    return n_pre + n32 + n_fwd + n_train, {
+        **pre, "flash_rows": rows, "decode_vs_forward": worst,
+        "serve_prefill_ms": srv[0], "serve_decode_ms_per_token": srv[1],
+        "step1": step1, "train": train,
+        "flash_launches": {"prefill": n_pre, "fp32_prefill": n32,
+                           "fp32_forward": n_fwd, "train": n_train}}
+
+
+def xlstm_phase(torch, ops, ref):
+    """xlstm-125m at full width (12 layers: six mLSTM / sLSTM pairs, no
+    FFN, no attention): the bf16 prefill at 4x2048 with no flash launch;
+    its weights on the card and on the CPU, the first sequence's
+    last-position logits held within LM_REL_L2 in fp32 (in bf16 the
+    model's rounding alone moves them further: reported); one mLSTM and
+    one sLSTM layer timed (the sLSTM's loop over 2,048 steps, launched
+    eagerly), the eager / captured decode pair;
+    the fp32 decode witness at 12 layers over 512 positions; ``launch.serve``;
+    the train step at 2x1024.  Returns a summary."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm_blocks as XL
+    from repro_torch.models.steps import build_model, make_prefill_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(XLSTM_ARCH)
+    seed = 1
+
+    def then(m):
+        # The first sequence's last-position logits on the card and on the
+        # CPU, the same weights in bf16 (reported: the model's bf16
+        # rounding alone moves them further than LM_REL_L2) and in fp32
+        # (held within LM_REL_L2).
+        tokens = np.random.default_rng(seed).integers(
+            0, cfg.vocab, (XLSTM_B, XLSTM_T)).astype(np.int32)[:1]
+        logits, cpu_s = {}, 0.0
+        for c in (cfg, dataclasses.replace(cfg, dtype="float32")):
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                mm = build_model(c, device=dev, seed=1)
+                mm.load_state_dict({k: v.to(dev)
+                                    for k, v in m.state_dict().items()})
+                logits[c.dtype, dev] = make_prefill_step(mm, c)(mm, {
+                    "tokens": torch.as_tensor(tokens, device=dev)
+                })[0].float().cpu()
+                if dev == "cpu":
+                    cpu_s += time.perf_counter() - t0
+                del mm
+
+        def rel(a, b):
+            return float((logits[a] - logits[b]).norm()
+                         / logits[b].norm())
+        out = {"bf16_card_vs_cpu": rel(("bfloat16", "cuda"),
+                                       ("bfloat16", "cpu")),
+               "fp32_card_vs_cpu": rel(("float32", "cuda"),
+                                       ("float32", "cpu")),
+               "bf16_vs_fp32_card": rel(("bfloat16", "cuda"),
+                                        ("float32", "cuda")),
+               "cpu_s": cpu_s}
+        log(f"xlstm prefill 1x{XLSTM_T}, first sequence's last-position "
+            f"logits, card against the CPU: fp32 relative L2 "
+            f"{out['fp32_card_vs_cpu']:.3e} (limit {LM_REL_L2}); bf16 "
+            f"{out['bf16_card_vs_cpu']:.3e}, not held: bf16 against fp32 "
+            f"on the card reads {out['bf16_vs_fp32_card']:.3e} "
+            f"({cpu_s:.2f} s on the CPU)")
+        if not out["fp32_card_vs_cpu"] <= LM_REL_L2:
+            fail(f"xlstm fp32 prefill on the card differs from the CPU by "
+                 f"relative L2 {out['fp32_card_vs_cpu']:.3e}")
+        h = block_input(torch, cfg, XLSTM_B, XLSTM_T)
+        with torch.no_grad():
+            mls = loop_cost(torch, f"xlstm mLSTM scan, one layer, "
+                            f"{XLSTM_B}x{XLSTM_T}", lambda: XL.mlstm_scan(
+                                m.layers[0].core, h),
+                            max(1, XLSTM_T // 256))
+            sls = loop_cost(torch, f"xlstm sLSTM scan, one layer, "
+                            f"{XLSTM_B}x{XLSTM_T}", lambda: XL.slstm_scan(
+                                m.layers[1].core, h), XLSTM_T)
+        del h
+        return {**out, "mlstm_one_layer": mls, "slstm_one_layer": sls,
+                "decode_pair": decode_pair(torch, m, cfg, 4, 16, 16,
+                                           cfg.name)}
+    n_pre, pre = lm_prefill(torch, ops, ref, cfg, XLSTM_B, XLSTM_T,
+                            seed=seed, timed=2, then=then, per_prefill=0)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32, seed=0)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (DECODE_B, XLSTM_DECODE_T)).astype(np.int32),
+        device="cuda")
+
+    def states():
+        cache = model.init_cache(DECODE_B, XLSTM_DECODE_T)
+        if any(float(lc["m"].max()) != float(np.float32(-1e30))
+               for lc in cache):
+            fail("xlstm caches: the stabilizer does not start at -1e30")
+        return cache
+    n_fwd, _, worst = decode_witness(
+        torch, ops, model, f"xlstm ({cfg.n_layers} layers)",
+        lambda: model(toks), states, toks, 0)
+    del model, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = drive_serve(torch, XLSTM_ARCH, "xlstm")
+    n_train, _, train, model, opt = train_case(
+        torch, ops, cfg, XLSTM_TRAIN_B, XLSTM_TRAIN_T, XLSTM_TRAIN_STEPS, 0,
+        against_plain=False)
+    # One trained mLSTM layer's gradient at T = 4,096, where a later key's
+    # logD passes exp's range (JAX's where(mask, exp(logD), 0) is NaN
+    # there; the port masks before the exp).
+    core = model.layers[0].core
+    h = block_input(torch, cfg, XLSTM_TRAIN_B, MLSTM_LONG_T)
+    grads = torch.autograd.grad(XL.mlstm_scan(core, h).float().sum(),
+                                list(core.values()))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"xlstm mLSTM layer gradient at {XLSTM_TRAIN_B}x{MLSTM_LONG_T}: "
+        f"finite {finite}")
+    if not finite:
+        fail("xlstm mLSTM gradient at T=4096 is not finite")
+    train["mlstm_grad_finite_t4096"] = finite
+    del model, opt, core, h, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n_pre + n_fwd + n_train:
+        fail(f"xlstm: {n_pre + n_fwd + n_train} flash launches on a path "
+             "with no attention")
+    return {**pre, "decode_vs_forward": worst, "serve_prefill_ms": srv[0],
+            "serve_decode_ms_per_token": srv[1], "train": train}
 
 
 # --------------------------------------------------------------------------- #
@@ -4343,13 +4760,19 @@ def main() -> int:
     cross_launches, cross_nc, cross_train = cross_train_phase(torch, ops,
                                                               ref)
     log(f"cross-attention train phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    hymba_launches, hymba = hymba_phase(torch, ops, ref)
+    log(f"hymba phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    xlstm = xlstm_phase(torch, ops, ref)
+    log(f"xlstm phase: {time.perf_counter() - t7:.1f} s")
     flash_nc["vision cross"]["launches"] = vision_nc + cross_nc["vision"]
     flash_nc["whisper encoder"]["launches"] = (whisper_nc
                                                + cross_nc["whisper"])
     flash_entry["launches"] = (flash_launches + granite_launches
                                + gemma_launches + train_launches
                                + vision_launches + whisper_launches
-                               + cross_launches)
+                               + cross_launches + hymba_launches)
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
@@ -4409,13 +4832,15 @@ def main() -> int:
                        "vision": vision, "whisper": whisper,
                        "cross_train": cross_train,
                        "flash_noncausal": flash_nc,
+                       "hymba": hymba, "xlstm": xlstm,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,
                            "gemma3": gemma_launches,
                            "train": train_launches,
                            "vision": vision_launches,
                            "whisper": whisper_launches,
-                           "cross_train": cross_launches},
+                           "cross_train": cross_launches,
+                           "hymba": hymba_launches},
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,8 +4,10 @@ Only what the port runs is listed: qwen3-0.6b, granite-8b, gemma3-12b and
 gemma3-27b, dense GQA decoders (granite's LM head is untied; gemma3
 interleaves five sliding-window layers with one global layer);
 llama-3.2-vision-11b, a GQA decoder with a cross-attention block every
-fifth layer; and whisper-base, an encoder-decoder.  The JAX
-package's other architectures (``repro.configs.registry``) raise
+fifth layer; whisper-base, an encoder-decoder; hymba-1.5b, windowed GQA
+attention beside parallel SSM heads in every layer; and xlstm-125m,
+alternating mLSTM and sLSTM blocks.  The JAX package's other
+architectures (``repro.configs.registry``: the MoE and MLA models) raise
 NotImplementedError here until their blocks are ported (ROADMAP A15).
 """
 from __future__ import annotations
@@ -22,6 +24,8 @@ _MODULES = {
     "gemma3-27b": "gemma3_27b",
     "llama-3.2-vision-11b": "llama32_vision_11b",
     "whisper-base": "whisper_base",
+    "hymba-1.5b": "hymba_1_5b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -185,7 +185,11 @@ def lm_params_from_arrays(cfg: ModelConfig, params) -> Dict[str,
                                                             torch.Tensor]:
     """JAX's decoder-LM pytree (``jax.tree.map(np.asarray,
     model.init_params(key))``) -> the port's state dict (CPU tensors, the
-    arrays' dtypes; load with ``model.load_state_dict``)."""
+    arrays' dtypes; load with ``model.load_state_dict``).  A block's
+    nested dicts become dotted names (hymba's ``layers.{i}.ssm.A_log``,
+    xLSTM's ``layers.{i}.core.r_z``).  ``load_state_dict`` casts into each
+    port parameter's dtype, which is its JAX leaf's (the fp32 leaves of a
+    bf16 model stay fp32), so no value is rounded on the way."""
     return {name: _to_tensor(leaf if r is None else np.asarray(leaf)[r])
             for name, leaf, r in _lm_leaves(cfg, params)}
 

@@ -41,15 +41,18 @@ def build_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> Model:
     """The model of ``cfg`` with random weights from ``seed`` on
     ``device`` (CUDA unless the caller asks for another): a
     :class:`WhisperModel` for an encoder-decoder, else a
-    :class:`DecoderLM` (dense, or with vision cross-attention).  MoE, MLA,
-    hymba and xLSTM configurations raise NotImplementedError naming their
-    ROADMAP A15 item (``transformer.check_spec``)."""
+    :class:`DecoderLM` (dense, with vision cross-attention, hymba's
+    attention and SSM heads, or xLSTM's mLSTM / sLSTM blocks).  MoE and
+    MLA configurations raise NotImplementedError naming their ROADMAP A15
+    item (``transformer.check_spec``)."""
     if cfg.encoder_decoder:
         return WhisperModel(cfg, device=resolve_device(device), seed=seed)
     return DecoderLM(cfg, device=resolve_device(device), seed=seed)
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a configuration with a block kind the
+    port does not run (MoE, MLA)."""
     for spec in layer_specs(cfg):
         check_spec(spec)
 

@@ -11,14 +11,20 @@ Ported: ``gqa`` attention (causal, full or over a sliding window as in
 gemma3's local layers; with or without qk_norm) with a ``dense`` SwiGLU
 FFN, the cross-attention block of llama-3.2-vision and whisper's decoder
 (``ln_x`` / ``xattn`` after the self-attention, over ``cross_kv_x``, with
-no RoPE), and an LM head tied to the embedding (logits ``x @ embed.T``) or
-untied (a ``head`` weight [d_model, vocab], logits ``x @ head``).  Any
-other block kind raises NotImplementedError naming its ROADMAP item.  A
-windowed layer's decode cache is a ring buffer of ``min(window,
-seq_len)`` slots, as in JAX; a cross block's cache adds ``xk`` / ``xv`` of
-``cross_len`` slots (``cfg.n_vision_tokens`` by default, as in JAX), zeros
-until :meth:`DecoderLM.fill_cross_caches` writes the projected source into
-them in place.  ``cfg.remat`` is JAX's activation
+no RoPE), hymba's block (``attn`` and ``ssm`` on the same normed input,
+averaged, then the dense FFN; ``models/ssm.py``), xLSTM's FFN-less
+``mlstm`` / ``slstm`` blocks (``ln1`` and ``core``;
+``models/xlstm_blocks.py``), and an LM head tied to the embedding (logits
+``x @ embed.T``) or untied (a ``head`` weight [d_model, vocab], logits ``x
+@ head``).  MLA attention and the MoE FFN raise NotImplementedError
+naming their ROADMAP item.  A windowed layer's decode cache is a ring
+buffer of ``min(window, seq_len)`` slots, as in JAX; a cross block's cache
+adds ``xk`` / ``xv`` of ``cross_len`` slots (``cfg.n_vision_tokens`` by
+default, as in JAX), zeros until :meth:`DecoderLM.fill_cross_caches`
+writes the projected source into them in place; a hymba block's adds its
+fp32 SSM state ``ssm``, an mLSTM block's is ``C``, ``n``, ``m`` and an
+sLSTM block's ``c``, ``n``, ``h``, ``m`` (fp32; ``m`` starts at -1e30),
+all written in place by a decode step.  ``cfg.remat`` is JAX's activation
 checkpointing of each segment's scan body, one superblock repeat (its
 ``cross_kv_x`` passed as an argument, so that its gradient survives): under
 "full" (the default, and any value but "dots" and "none", as in JAX's
@@ -39,7 +45,7 @@ Public surface:
   DecoderLM(cfg, device, seed)          — random weights from a seed
   forward(tokens, positions, cross_kv_x) — prefill logits, aux
   hidden(tokens, positions, cross_kv_x)  — final-norm hidden states
-  init_cache / decode_step              — KV caches, one token a step
+  init_cache / decode_step              — KV / state caches, one token
   fill_cross_caches(cache, src)         — cross caches from a source
 """
 from __future__ import annotations
@@ -54,6 +60,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import attention as A
+from . import ssm as SSM
+from . import xlstm_blocks as XL
 from .config import ModelConfig
 from .layers import dense_init, rms_norm, swiglu, swiglu_init
 
@@ -112,25 +120,22 @@ def layer_specs(cfg: ModelConfig) -> List[BlockSpec]:
             for spec in sb]
 
 
+# The block kinds JAX's ``build_segments`` makes that the port does not
+# run yet, with their ROADMAP items.
 _NOT_PORTED = {
     "mla": "MLA attention (deepseek-v3, kimi-k2; ROADMAP A15.10)",
-    "hymba": "hymba's parallel SSM heads (ROADMAP A15.7)",
-    "mlstm": "xLSTM blocks (ROADMAP A15.8)",
-    "slstm": "xLSTM blocks (ROADMAP A15.8)",
     "moe": "MoE FFN (ROADMAP A15.9)",
-    "none": "FFN-less (xLSTM) blocks (ROADMAP A15.8)",
 }
 
 
 def check_spec(spec: BlockSpec) -> None:
     """Raise NotImplementedError for a block kind the port does not run."""
-    for kind in (spec.attn if spec.attn != "gqa" else None,
-                 spec.ffn if spec.ffn != "dense" else None):
-        if kind is not None:
+    for kind in (spec.attn, spec.ffn):
+        if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"{_NOT_PORTED[kind]} is not ported to repro_torch yet; the "
-                f"port runs gqa + dense blocks, full or windowed, with or "
-                f"without cross-attention")
+                f"port runs gqa (full, windowed or with cross-attention), "
+                f"hymba, mlstm and slstm blocks with dense or no FFNs")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -142,28 +147,42 @@ def _frozen_dict(p: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One gqa + dense block: ``ln1``, ``attn`` (wq, wk, wv, wo[, q_norm,
-    k_norm]), with ``spec.cross_attn`` also ``ln_x`` and ``xattn`` (wq,
-    wk, wv, wo; K / V from d_model wide sources), then ``ln2``, ``mlp``
-    (wi, wg, wo) — JAX ``block_init``'s pytree with the same names and
-    shapes."""
+    """One block of ``spec`` — JAX ``block_init``'s pytree with the same
+    names, shapes and dtypes: ``ln1``, then for gqa ``attn`` (wq, wk, wv,
+    wo[, q_norm, k_norm]), for hymba ``attn`` and ``ssm`` (w_in, w_bc,
+    w_dt, dt_bias, A_log, D, w_out), for mlstm / slstm ``core``; with
+    ``spec.cross_attn`` also ``ln_x`` and ``xattn`` (wq, wk, wv, wo; K / V
+    from d_model wide sources); with a dense FFN ``ln2``, ``mlp`` (wi, wg,
+    wo)."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
-                 device, cross_attn: bool = False) -> None:
+                 device, spec: BlockSpec = BlockSpec()) -> None:
         super().__init__()
         dt, d = cfg.torch_dtype, cfg.d_model
         self.ln1 = _frozen(torch.zeros(d, dtype=dt, device=device))
-        self.attn = _frozen_dict(A.attn_init(
-            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt,
-            qk_norm=cfg.qk_norm, device=device))
-        if cross_attn:
+        if spec.attn in ("gqa", "hymba"):
+            self.attn = _frozen_dict(A.attn_init(
+                gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt,
+                qk_norm=cfg.qk_norm, device=device))
+        if spec.attn == "hymba":
+            self.ssm = _frozen_dict(SSM.ssm_init(
+                gen, d, cfg.ssm_heads, d // cfg.ssm_heads, cfg.ssm_state, dt,
+                device=device))
+        elif spec.attn == "mlstm":
+            self.core = _frozen_dict(XL.mlstm_init(gen, d, cfg.n_heads, dt,
+                                                   device=device))
+        elif spec.attn == "slstm":
+            self.core = _frozen_dict(XL.slstm_init(gen, d, cfg.n_heads, dt,
+                                                   device=device))
+        if spec.cross_attn:
             self.ln_x = _frozen(torch.zeros(d, dtype=dt, device=device))
             self.xattn = _frozen_dict(A.attn_init(
                 gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt,
                 kv_input_dim=d, device=device))
-        self.ln2 = _frozen(torch.zeros(d, dtype=dt, device=device))
-        self.mlp = _frozen_dict(swiglu_init(gen, d, cfg.d_ff, dt,
-                                            device=device))
+        if spec.ffn == "dense":
+            self.ln2 = _frozen(torch.zeros(d, dtype=dt, device=device))
+            self.mlp = _frozen_dict(swiglu_init(gen, d, cfg.d_ff, dt,
+                                                device=device))
 
 
 # --------------------------------------------------------------------------- #
@@ -176,14 +195,25 @@ def block_apply(cfg: ModelConfig, spec: BlockSpec, bp: Block,
     """Full-sequence (prefill) application.  Returns (x, aux)."""
     eps = cfg.norm_eps
     h = rms_norm(x, bp.ln1, eps)
-    x = x + A.attention(bp.attn, h, positions, window=spec.window,
+    if spec.attn in ("gqa", "hymba"):
+        a = A.attention(bp.attn, h, positions, window=spec.window,
                         rope_theta=cfg.rope_theta, eps=eps,
                         chunk=cfg.attn_chunk)
+        if spec.attn == "hymba":
+            scan = (SSM.ssm_scan_ssd if cfg.ssm_impl == "ssd"
+                    else SSM.ssm_scan)
+            a = 0.5 * (a + scan(bp.ssm, h, cfg.ssm_state))
+        x = x + a
+    elif spec.attn == "mlstm":
+        x = x + XL.mlstm_scan(bp.core, h)
+    elif spec.attn == "slstm":
+        x = x + XL.slstm_scan(bp.core, h)
     if spec.cross_attn:
         h = rms_norm(x, bp.ln_x, eps)
         x = x + A.attention(bp.xattn, h, positions, kv_x=cross_kv_x,
                             causal=False, use_rope=False, eps=eps)
-    x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
+    if spec.ffn == "dense":
+        x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -191,14 +221,26 @@ def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      seq_len: int, device=None,
                      cross_len: Optional[int] = None
                      ) -> Dict[str, torch.Tensor]:
-    """Decode cache for one block: K and V for ``seq_len`` positions, or
-    for a windowed block ``min(window, seq_len)`` slots used as a ring
-    buffer (position p in slot p % slots); a cross block also has zeroed
-    ``xk`` / ``xv`` of ``cross_len`` slots (``cfg.n_vision_tokens`` when
-    None or 0, as in JAX)."""
+    """Decode cache for one block: for gqa and hymba, K and V for
+    ``seq_len`` positions, or for a windowed block ``min(window,
+    seq_len)`` slots used as a ring buffer (position p in slot p %
+    slots), and hymba's zeroed fp32 SSM state ``ssm`` [B, ssm_heads,
+    d_model / ssm_heads, ssm_state]; mLSTM's ``C``, ``n``, ``m`` and
+    sLSTM's ``c``, ``n``, ``h``, ``m`` (fp32, ``m`` filled with -1e30); a
+    cross block also has zeroed ``xk`` / ``xv`` of ``cross_len`` slots
+    (``cfg.n_vision_tokens`` when None or 0, as in JAX)."""
+    d, nh = cfg.d_model, cfg.n_heads
+    if spec.attn == "mlstm":
+        return XL.mlstm_decode_init(batch, nh, int(d * 2.0) // nh, device)
+    if spec.attn == "slstm":
+        return XL.slstm_decode_init(batch, nh, d // nh, device)
     s = min(spec.window, seq_len) if spec.window else seq_len
     c = A.init_cache(batch, s, cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
                      device=device)
+    if spec.attn == "hymba":
+        c["ssm"] = SSM.ssm_decode_init(batch, cfg.ssm_heads,
+                                       d // cfg.ssm_heads, cfg.ssm_state,
+                                       device)
     if spec.cross_attn:
         x = A.init_cache(batch, cross_len or cfg.n_vision_tokens,
                          cfg.n_kv_heads, cfg.hd, cfg.torch_dtype,
@@ -211,11 +253,19 @@ def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
                  x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  pos: Union[int, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token through one block; the caches are written in place."""
     eps = cfg.norm_eps
     h = rms_norm(x, bp.ln1, eps)
+    if spec.attn == "mlstm":
+        return x + XL.mlstm_decode_step(bp.core, h, cache)[0], cache
+    if spec.attn == "slstm":
+        return x + XL.slstm_decode_step(bp.core, h, cache)[0], cache
     a, cache = A.decode_attention(bp.attn, h, cache, pos,
                                   window=spec.window,
                                   rope_theta=cfg.rope_theta, eps=eps)
+    if spec.attn == "hymba":
+        s, _ = SSM.ssm_decode_step(bp.ssm, h, cache["ssm"], cfg.ssm_state)
+        a = 0.5 * (a + s)
     x = x + a
     if spec.cross_attn:
         h = rms_norm(x, bp.ln_x, eps)
@@ -223,7 +273,8 @@ def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
                                   {"k": cache["xk"], "v": cache["xv"]},
                                   pos, cross=True, eps=eps)
         x = x + a
-    x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
+    if spec.ffn == "dense":
+        x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
     return x, cache
 
 
@@ -278,7 +329,7 @@ class DecoderLM(nn.Module):
         self.head = (None if cfg.tie_embeddings else
                      _frozen(dense_init(gen, d, cfg.vocab, dt,
                                         device=device)))
-        self.layers = nn.ModuleList(Block(cfg, gen, device, s.cross_attn)
+        self.layers = nn.ModuleList(Block(cfg, gen, device, s)
                                     for s in self.specs)
         # Layer ranges of JAX's scan bodies: one superblock repeat each.
         self.repeats: List[Tuple[int, int]] = []
@@ -314,7 +365,7 @@ class DecoderLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 cross_kv_x: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(logits [B, T, vocab], aux) — aux is 0 for dense blocks."""
+        """(logits [B, T, vocab], aux) — aux is 0 (no MoE block runs)."""
         x = self.hidden(tokens, positions, cross_kv_x)
         return self._logits(x), torch.zeros((), dtype=torch.float32,
                                             device=x.device)
@@ -328,8 +379,9 @@ class DecoderLM(nn.Module):
     def init_cache(self, batch: int, seq_len: int,
                    cross_len: Optional[int] = None
                    ) -> List[Dict[str, torch.Tensor]]:
-        """One zeroed cache dict per layer (JAX stacks them per segment);
-        cross blocks' ``xk`` / ``xv`` hold ``cross_len`` slots."""
+        """One cache dict per layer (JAX stacks them per segment), zeroed
+        but for the xLSTM stabilizers' -1e30; cross blocks' ``xk`` /
+        ``xv`` hold ``cross_len`` slots."""
         dev = self.embed.device
         return [block_cache_init(self.cfg, spec, batch, seq_len, device=dev,
                                  cross_len=cross_len)

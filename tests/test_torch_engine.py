@@ -463,6 +463,10 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "assert latest_step(ck) == 2\n"
         "assert serve.main(['--arch', 'gemma3-27b', '--smoke', '--device',"
         " 'cpu', '--requests', '1', '--prompt-len', '6', '--gen', '4']) == 0\n"
+        "import repro_torch.models.ssm, repro_torch.models.xlstm_blocks\n"
+        "for arch in ('hymba-1.5b', 'xlstm-125m'):\n"
+        "    assert serve.main(['--arch', arch, '--smoke', '--device', 'cpu',"
+        " '--requests', '1', '--prompt-len', '4', '--gen', '3']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"

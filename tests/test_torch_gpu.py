@@ -15,7 +15,9 @@ for sampled lanes of differing live counts (a batch of 3 in a bucket of
 version drops its captures and a re-staged replay equals eager; two
 engines of an ``OverlayPool`` replaying one program in two threads at
 once; the captured serve step against the eager one over gemma3's ring
-wrap, and over cross caches filled in place before and after the capture.
+wrap, over cross caches filled in place before and after the capture,
+and over hymba's and xLSTM's recurrent state caches (with those smoke
+models on the card against the CPU, and flash at hymba's G = 5).
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -496,6 +498,19 @@ FLASH_WINDOW_CASES = [(300, 4, 2, 240, 1, "bfloat16"),
                       (130, 4, 2, 240, 64, "float32"),
                       (77, 2, 1, 168, 5, "float32"),
                       (250, 2, 2, 128, 100, "float32")]
+# hymba-1.5b's attention: 25 query heads over 5 KV heads (G = 5) of 64
+# under a window of 2,048; its prefill shape at B=4 and its train shape at
+# B=2 (the window masks from T = 2,049 on), then ragged T with windows
+# that end inside a KV tile, in bf16 and fp32.
+FLASH_WINDOW_CASES += [(2048, 100, 5, 64, 2048, "bfloat16"),
+                       (4096, 50, 5, 64, 2048, "bfloat16"),
+                       (300, 10, 5, 64, 0, "bfloat16"),
+                       (300, 10, 5, 64, 100, "bfloat16"),
+                       (1100, 25, 5, 64, 1000, "bfloat16"),
+                       (77, 5, 5, 64, 5, "bfloat16"),
+                       (300, 10, 5, 64, 0, "float32"),
+                       (1100, 25, 5, 64, 1000, "float32"),
+                       (77, 5, 5, 64, 5, "float32")]
 
 
 @pytest.mark.parametrize("t,h,grp,d,window,dtype", FLASH_WINDOW_CASES)
@@ -1287,6 +1302,54 @@ def test_cuda_captured_serve_step_equals_eager_over_gemma3_ring(cuda):
     captured, _, _ = generate(model, cfg, prompts, gen, capture=True)
     eager, _, _ = generate(model, cfg, prompts, gen, capture=False)
     assert captured.shape == (3, gen) and torch.equal(captured, eager)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-125m"])
+def test_cuda_recurrent_smoke_models_match_the_cpu(cuda, arch):
+    # The smoke model in fp32 on the card (hymba: the flash kernel under
+    # its window of 8, the SSD chunk loop; xLSTM: the mLSTM's quadratic
+    # form, the sLSTM's loop) against the same weights on the CPU: forward
+    # logits, then decode over 20 positions with the state caches.
+    from repro_torch.configs import get_smoke_config
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg, seed=4)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 20)).astype(np.int32))
+    ops.reset_launches()
+    got, _ = model(toks.to(cuda))
+    assert ops.LAUNCHES["flash_attention"] == (
+        cfg.n_layers if arch == "hymba-1.5b" else 0)
+    want, _ = cpu(toks)
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-5
+    caches = {"cuda": model.init_cache(2, 20), "cpu": cpu.init_cache(2, 20)}
+    for i in range(20):
+        lg, _ = model.decode_step(caches["cuda"], toks[:, i:i + 1].to(cuda),
+                                  i)
+        lc, _ = cpu.decode_step(caches["cpu"], toks[:, i:i + 1], i)
+        assert float((lg.cpu() - lc).abs().max()) / scale < 1e-5
+    for a, b in zip(caches["cuda"], caches["cpu"]):
+        for k in a:
+            assert a[k].device.type == "cuda"
+            _close(a[k], b[k], 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-125m"])
+def test_cuda_captured_decode_updates_recurrent_state_in_place(cuda, arch):
+    # launch.serve's captured step over the SSM / mLSTM / sLSTM state
+    # caches, token for token the eager step: the replays write the
+    # states in place (hymba: 18 positions wrap the rings of 8).
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg, seed=2)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 7)).astype(np.int32), device=cuda)
+    captured, _, _ = generate(model, cfg, prompts, 12, capture=True)
+    eager, _, _ = generate(model, cfg, prompts, 12, capture=False)
+    assert captured.shape == (3, 12) and torch.equal(captured, eager)
 
 
 def test_cuda_collected_engine_frees_its_captures(cuda):

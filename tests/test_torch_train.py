@@ -254,8 +254,7 @@ def test_train_steps_match_jax(arch):
 
 def test_train_step_refuses_what_the_port_does_not_train():
     base = dataclasses.asdict(get_smoke_config("qwen3-0.6b"))
-    for kw in ({"n_experts": 4, "top_k": 2, "d_ff_moe": 32}, {"mla": True},
-               {"ssm_heads": 2, "ssm_state": 4}, {"xlstm": True}):
+    for kw in ({"n_experts": 4, "top_k": 2, "d_ff_moe": 32}, {"mla": True}):
         cfg = ModelConfig(**{**base, **kw})
         with pytest.raises(NotImplementedError, match="A15"):
             TS.make_train_step(None, cfg)
