@@ -24,6 +24,11 @@ Phases (any failure exits non-zero; nothing is caught):
    same call with acc aliasing out.  Median times of kernel, plain
    version and the PyTorch library call, and the bound (bytes over 3.35
    TB/s or flops over 67 TFLOP/s fp32, the H100 SXM data-sheet peaks).
+   GEMM with bf16 x / w and SpDMM with a bf16 h (the Pallas kernels' bf16
+   sweeps) on the sweep shapes within rtol 2e-2 / atol 1e-2 of the plain
+   versions and bit for bit the fp32 kernels on the widened operands, a
+   bf16 GEMM output (``out_dtype``) the fp32 result rounded; both timed
+   at the executor's tile shape beside the fp32 kernel.
 3. Engine.serve path: ``Engine(device="cuda").serve`` answers b1-b8 on
    Cora (CO) and three b2 (GCN, hidden 128) requests on full-scale Flickr
    (FL, 89,250 vertices, 989,006 edges with self loops), weights random
@@ -319,6 +324,45 @@ Phases (any failure exits non-zero; nothing is caught):
    B=2, T=1024 under remat "full" (a warm-up and 1 timed, peak memory;
    at T=4096 a step passed 30 s), then one mLSTM layer's gradient at
    T=4096 (finite; JAX's overflows there).
+19. kimi-k2-1t-a32b cut to 2 layers at full width (``first_k_dense``: one
+   dense layer, then one MoE layer of 384 experts of 7168 x 2048, top-8,
+   and a shared expert; 64 query heads over 8 KV heads of 112, vocab
+   163,840; 19.93 B parameters, 37.13 GiB bf16, random from seed 0): the
+   flash kernel at its prefill shape (BH=256 over 32 KV heads, G=8,
+   T=2048, d=112, bf16, causal) by ``check_rows``, timed beside the plain
+   version, SDPA (``enable_gqa=True``) and the bound; the bf16 prefill at
+   B=4, T=2048 with ``moe_impl="a2a"`` over ``DeviceMesh(["cuda:0"])`` (a
+   warm-up and 2 timed, 2 flash launches each, one more profiled), its
+   last-position logits against plain attention printed beside
+   ``_sdpa_chunked``'s (not held: bf16 rounding flips routing at random
+   init), then one more prefill whose flash calls are each held to the
+   plain version on their own operands, with the (token, slot)
+   assignments dropped at capacity factor 1.25 and the tokens whose top-8
+   expert sets differ from the plain-attention prefill's counted; the
+   eager / captured decode pair (``moe_local``, 4 requests, prompt 16, 16
+   tokens); ``launch.serve`` at the cut (``moe_dense``, JAX's default);
+   the MoE block alone in fp32 (63 GiB, nothing else resident):
+   ``moe_dense`` at 64 tokens, ``moe_a2a`` at 64 and 256 tokens of one
+   sequence over four virtual entries of the card and over one, and
+   ``moe_local`` at 4 tokens over four and one, each against a plain
+   reference of the same function (router, JAX's capacity drops per
+   shard, each kept assignment through its expert) at rtol 2e-4 / atol
+   2e-5, capacity factor 4.0; the smoke config in fp32 with
+   ``moe_impl="a2a"`` on four entries of the card against four CPU
+   entries (forward and decode logits within relative L2 2e-2).
+20. deepseek-v3-671b cut to 4 layers at full width (MLA in every layer:
+   128 heads, q_lora 1536, kv_lora 512, qk 128 + 64 rope, v 128; three
+   dense layers, then one MoE layer of 256 experts top-8 and a shared
+   expert; vocab 129,280; 15.11 B parameters, 28.15 GiB bf16): the flash
+   kernel as MLA calls it (BH=512, G=1, T=2048, d=192, V of 128
+   zero-padded to 192, bf16, causal; the padded output columns zero) by
+   ``check_rows``, timed beside the plain version, SDPA with its own
+   128-wide V and the bound of the useful work (and of the padded work
+   the kernel does); the bf16 prefill at 4x2048 as kimi's (4 flash
+   launches a prefill, each flash call of one more held, drops and
+   routing flips counted), the decode pair, ``launch.serve`` at the cut;
+   the absorbed MLA decode against the forward in fp32 at the 4 layers
+   (56.3 GiB, B=2, T=64, 2e-4 of max |logit|); the smoke-width witness.
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths, through its wrapper (``kernels.ops.LAUNCHES``; a CUDA-graph
@@ -329,13 +373,17 @@ runtime path, the sampled stream, the reported runs of phase 7, the live
 path's runs of phase 8 (cold-compile comparisons excluded), the prefill
 and forward runs of phase 9, the mesh runs of phase 10 (device-path
 comparisons excluded), the prefill and forward runs of phases 11 and
-12, the 6 train steps of phase 13, and the prefill, forward and train
-runs of phases 14-17),
+12, the 6 train steps of phase 13, the prefill, forward and train
+runs of phases 14-17, the prefill runs of phase 19 and the prefill and
+fp32 forward runs of phase 20),
 each counted from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
 the host enqueues 20 back-to-back calls while the device is busy, and a
 CUDA event pair around them is divided by 20 (median of 5 trials).
+
+The flash kernel also has an entry of its own at each of the two shapes
+phases 19 and 20 give it, with the launches at that shape.
 
 The last lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout
@@ -566,6 +614,7 @@ def kernel_phase(torch, ops, ref):
                     "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
     gemm_bits_cases(torch, ops, randn)
+    gemm_entry["bf16"] = bf16_kernel_cases(torch, ops, ref, gen, randn)
 
     # SpDMM at the executor's tile shape, synthetic ELL tiles of width w
     # (60% of slots carry an edge, the rest are pad slots: cols 0, vals 0).
@@ -593,6 +642,82 @@ def kernel_phase(torch, ops, ref):
             f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"max|err| {err:.2e}")
     return gemm_entry
+
+
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-2   # tests/test_kernels.py's bf16 sweeps
+
+
+def bf16_kernel_cases(torch, ops, ref, gen, randn):
+    """GEMM with bf16 x / w and SpDMM with a bf16 h (the Pallas kernels'
+    bf16 sweeps, ``tests/test_kernels.py``): on the sweep shapes within
+    rtol 2e-2 / atol 1e-2 of the plain versions, and bit for bit the fp32
+    kernels on the widened operands (both bodies keep the fp32 kernels'
+    sum order); a bf16 GEMM output (``out_dtype``) is the fp32 result
+    rounded, from bf16 or fp32 operands.  Then both at the executor's
+    tile shape (strided views), timed beside the plain version and the
+    fp32 kernel.  Returns the readings."""
+    bf = torch.bfloat16
+    out = {}
+    for m, k, n in GEMM_SWEEP:
+        x, w = randn(m, 2 * k).to(bf)[:, k:], randn(k, n).to(bf)
+        acc = randn(m, n)
+        name = f"gemm bf16 {m}x{k}x{n}"
+        got = ops.gemm(x, w, acc)
+        check_close(torch, name, got, acc + ref.gemm_ref(x, w), BF16_RTOL,
+                    BF16_ATOL)
+        wide = ops.gemm(x.float(), w.float(), acc)
+        if not (torch.equal(got, wide) and torch.equal(
+                ops.gemm(x, w, acc, out_dtype=bf), wide.to(bf))
+                and torch.equal(ops.gemm(x.float(), w.float(), acc,
+                                         out_dtype=bf), wide.to(bf))):
+            fail(f"{name}: not the fp32 kernel's bits on widened operands")
+    for n1, w, ns, f in SPDMM_SWEEP:
+        cols = torch.randint(0, ns, (n1, w), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        vals = randn(n1, w) * (torch.rand(n1, w, generator=gen,
+                                          device="cuda") > 0.4)
+        h = randn(ns, 2 * f).to(bf)[:, f:]
+        name = f"spdmm bf16 h {n1}x{w} ns={ns} f={f}"
+        got = ops.spdmm(cols, vals, h)
+        check_close(torch, name, got, ref.spdmm_ref(cols, vals, h),
+                    BF16_RTOL, BF16_ATOL)
+        if not torch.equal(got, ops.spdmm(cols, vals, h.float())):
+            fail(f"{name}: not the fp32 kernel's bits on the widened h")
+    log(f"kernels: bf16 GEMM ({len(GEMM_SWEEP)} shapes, fp32 and bf16 "
+        f"outputs) and bf16-h SpDMM ({len(SPDMM_SWEEP)} shapes) within "
+        f"rtol {BF16_RTOL} / atol {BF16_ATOL} of their plain versions and "
+        "bit for bit the fp32 kernels on widened operands")
+    m, k, n = 4096, 128, 128
+    x, w = randn(m, 4 * k).to(bf)[:, k:2 * k], randn(k, n).to(bf)
+    err = check_close(torch, "gemm bf16 path shape", ops.gemm(x, w),
+                      ref.gemm_ref(x, w), BF16_RTOL, BF16_ATOL)
+    xw, ww = x.float(), w.float()
+    out["gemm_4096x128x128"] = {
+        "max_abs_err": err,
+        "ms": median_ms(torch, lambda: ops.gemm(x, w)),
+        "fp32_kernel_ms": median_ms(torch, lambda: ops.gemm(xw, ww)),
+        "plain_ms": median_ms(torch, lambda: ref.gemm_ref(x, w)),
+        "torch_matmul_bf16_ms": median_ms(torch, lambda: torch.matmul(x, w))}
+    n1, wd, f = 4096, 64, 128
+    live = torch.rand(n1, wd, generator=gen, device="cuda") > 0.4
+    cols = torch.where(live, torch.randint(0, n1, (n1, wd), generator=gen,
+                                           device="cuda"),
+                       0).to(torch.int32).contiguous()
+    vals = torch.where(live, randn(n1, wd), 0.0).contiguous()
+    h = randn(n1, 4 * f).to(bf)[:, f:2 * f]
+    hw = h.float()
+    err = check_close(torch, "spdmm bf16 path shape", ops.spdmm(cols, vals, h),
+                      ref.spdmm_ref(cols, vals, h), BF16_RTOL, BF16_ATOL)
+    out["spdmm_4096_w64_f128"] = {
+        "max_abs_err": err,
+        "ms": median_ms(torch, lambda: ops.spdmm(cols, vals, h)),
+        "fp32_kernel_ms": median_ms(torch, lambda: ops.spdmm(cols, vals, hw)),
+        "plain_ms": median_ms(torch, lambda: ref.spdmm_ref(cols, vals, h))}
+    for name, r in out.items():
+        log(f"kernel {name} bf16: " + ", ".join(
+            f"{k} {v:.4f}" if k.endswith("ms") else f"{k} {v:.2e}"
+            for k, v in r.items()))
+    return out
 
 
 def gemm_bits_cases(torch, ops, randn):
@@ -3022,7 +3147,7 @@ def flash_modes(ops):
 
 def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
                then=None, extra=None, tokens_key="tokens", per_prefill=None,
-               hold=True):
+               hold=True, model_kw=None):
     """A bf16 prefill of ``cfg`` at b x t (``batch[tokens_key]`` from
     numpy ``seed``, plus the tensors of ``extra``: vision tokens or audio
     frames) with random weights from seed 0: a warm-up and ``timed`` timed
@@ -3034,7 +3159,8 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
     ``_sdpa_chunked`` attention, a route with no kernel, and held by the
     caller in fp32), and with ``profile`` one more prefill under
     ``torch.profiler``; ``then(model)`` runs last, its dict in the summary
-    under "then".  Returns (flash launches, summary)."""
+    under "then".  ``model_kw`` goes to ``build_model`` (a MoE model's
+    ``moe_impl`` and ``mesh``).  Returns (flash launches, summary)."""
     import numpy as np
 
     from repro_torch.models.steps import build_model, make_prefill_step
@@ -3042,7 +3168,7 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    model = build_model(cfg, seed=0)
+    model = build_model(cfg, seed=0, **(model_kw or {}))
     torch.cuda.synchronize()
     n_par = sum(p.numel() for p in model.parameters())
     w_bytes = torch.cuda.memory_allocated() - base
@@ -3521,17 +3647,26 @@ WHISPER_TRAIN_B, VISION_TRAIN_B = 8, 2
 CROSS_TRAIN_STEPS = 4           # a warm-up and 3 timed, for each model
 
 
-def drive_serve(torch, arch, label):
+def drive_serve(torch, arch, label, cfg=None):
     """``python -m repro_torch.launch.serve --arch <arch>`` (its ``main``)
     with 4 requests of 16 prompt and 16 generated tokens, its output
-    checked; returns (prefill ms, decode ms/token, wall s)."""
+    checked; returns (prefill ms, decode ms/token, wall s).  ``cfg`` (a
+    layer cut of the arch's config) is what ``launch.serve``'s ``get_config``
+    returns for the call, for a model whose full depth the card cannot
+    hold."""
     from repro_torch.launch import serve
 
     buf = io.StringIO()
+    real = serve.get_config
+    if cfg is not None:
+        serve.get_config = lambda name: cfg
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(["--arch", arch, "--requests", "4", "--prompt-len",
-                         "16", "--gen", "16"])
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["--arch", arch, "--requests", "4",
+                             "--prompt-len", "16", "--gen", "16"])
+    finally:
+        serve.get_config = real
     drv_s = time.perf_counter() - t0
     text = buf.getvalue()
     for line in text.splitlines():
@@ -4272,6 +4407,404 @@ def xlstm_phase(torch, ops, ref):
             "serve_decode_ms_per_token": srv[1], "train": train}
 
 
+KIMI_ARCH, DEEPSEEK_ARCH = "kimi-k2-1t-a32b", "deepseek-v3-671b"
+KIMI_LAYERS = 2                 # first_k_dense: one dense, one MoE layer
+DEEPSEEK_LAYERS = 4             # three dense MLA layers, one MoE layer
+MOE_B, MOE_T = 4, 2048
+MOE_BLOCK_TOKENS = (64, 256)    # the fp32 MoE block's a2a inputs
+MOE_LOCAL_TOKENS = 4            # ... and its moe_local (decode) input
+MOE_BLOCK_CF = 4.0
+MOE_SMOKE_T = 10                # the smoke-width witness, card vs the CPU
+
+
+@contextlib.contextmanager
+def moe_taps(MOE):
+    """While open, ``moe._router`` and ``moe._dispatch_local`` run as
+    ever and the yielded dict keeps each router call's ids (sorted in each
+    row: the top-k sets), the dispatched assignments and how many of them
+    past their expert's capacity were dropped."""
+    seen = {"ids": [], "assignments": 0, "dropped": 0}
+    router, dispatch = MOE._router, MOE._dispatch_local
+
+    def tap_router(p, x, top_k):
+        w, ids, aux = router(p, x, top_k)
+        seen["ids"].append(ids.sort(dim=-1).values)
+        return w, ids, aux
+
+    def tap_dispatch(xf, ids, n_experts, cap):
+        buf, slot, keep = dispatch(xf, ids, n_experts, cap)
+        seen["assignments"] += keep.numel()
+        seen["dropped"] += int((~keep).sum())
+        return buf, slot, keep
+    MOE._router, MOE._dispatch_local = tap_router, tap_dispatch
+    try:
+        yield seen
+    finally:
+        MOE._router, MOE._dispatch_local = router, dispatch
+
+
+def moe_prefill_checks(torch, ops, ref, m, cfg, batch, label):
+    """One more bf16 prefill of a MoE model (moe_impl "a2a"): each of its
+    flash calls held to the plain version on its own operands by
+    ``check_rows``, the (token, slot) assignments dropped at the config's
+    capacity factor counted, and the tokens whose top-k expert sets differ
+    from a prefill with plain attention (random init routes on small
+    logit gaps, so the bf16 rounding of either route flips some)."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.steps import make_prefill_step
+
+    prefill = make_prefill_step(m, cfg)
+    with flash_calls_held(torch, ops, ref, f"{label} bf16 prefill") as seen, \
+            moe_taps(MOE) as taps:
+        prefill(m, batch)
+    if seen["calls"] != cfg.n_layers:
+        fail(f"{label}: {seen['calls']} flash calls held, expected "
+             f"{cfg.n_layers}")
+    with attention_as(ops, ref.flash_attention_plain), \
+            moe_taps(MOE) as plain:
+        prefill(m, batch)
+    flips = [int((a != b).any(dim=-1).sum())
+             for a, b in zip(taps["ids"], plain["ids"])]
+    n_tok = sum(a.shape[0] for a in taps["ids"])
+    log(f"{label} bf16 prefill {MOE_B}x{MOE_T}: each of its {seen['calls']} "
+        f"flash calls held to the plain version on its own operands (worst "
+        f"relative L2 {seen['whole']:.3e} whole, {seen['row']:.3e} row); "
+        f"a2a at capacity factor {cfg.capacity_factor} dropped "
+        f"{taps['dropped']} of {taps['assignments']} (token, slot) "
+        f"assignments; {sum(flips)} of {n_tok} tokens route to another "
+        f"top-{cfg.top_k} set under plain attention ({flips} a MoE layer)")
+    return {"flash_calls_held": seen, "dropped": taps["dropped"],
+            "assignments": taps["assignments"], "top_k_set_flips": flips,
+            "routed_tokens": n_tok}
+
+
+def moe_reference(torch, p, x, top_k, cap, shards):
+    """The MoE FFN's function, written plainly: x [N, d] fp32; the router
+    (fp32 softmax, top k, renormalized); in each shard (a list of token
+    rows, in order) an expert keeps its first ``cap`` assignments in
+    (token, slot) order and drops the rest; each kept assignment adds
+    weight x (x wi_e * sigmoid(x wg_e)) wo_e to its token, expert by
+    expert; then the shared expert.  Returns (y [N, d], dropped)."""
+    probs = torch.softmax(x @ p["router"], dim=-1)
+    w, ids = torch.topk(probs, top_k, dim=-1)
+    w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    ids_h = ids.cpu().tolist()
+    by_e, dropped = {}, 0
+    for rows in shards:
+        count = {}
+        for n in rows:
+            for j, e in enumerate(ids_h[n]):
+                if count.get(e, 0) < cap:
+                    by_e.setdefault(e, []).append((n, j))
+                else:
+                    dropped += 1
+                count[e] = count.get(e, 0) + 1
+    y = torch.zeros_like(x)
+    for e, pairs in by_e.items():
+        rows = torch.tensor([n for n, _ in pairs], device=x.device)
+        cols = torch.tensor([j for _, j in pairs], device=x.device)
+        xe = x[rows]
+        h = (xe @ p["wi"][e]) * torch.sigmoid(xe @ p["wg"][e])
+        y.index_add_(0, rows, (h @ p["wo"][e]) * w[rows, cols][:, None])
+    s = p["shared"]
+    y = y + (x @ s["wi"]) * torch.sigmoid(x @ s["wg"]) @ s["wo"]
+    return y, dropped
+
+
+def moe_block_phase(torch, cfg, label):
+    """The MoE block alone at full width in fp32 (kimi-k2: 384 experts of
+    7168 x 2048, 63 GiB; nothing else resident), random from seed 0:
+    ``moe_dense`` against :func:`moe_reference`, and ``moe_a2a`` (N tokens
+    of one sequence, split by sequence over the entries) and ``moe_local``
+    (MOE_LOCAL_TOKENS tokens of one position) over four virtual entries of
+    the card and over one entry, each against the reference with its own
+    shards' drops, at PATH_RTOL / PATH_ATOL."""
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import moe as MOE
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = MOE.moe_init(gen, cfg.d_model, cfg.d_ff_moe, cfg.n_experts,
+                     torch.float32, n_shared=cfg.n_shared_experts)
+    torch.cuda.synchronize()
+    w_bytes = torch.cuda.memory_allocated() - base
+    log(f"{label} MoE block in fp32: {w_bytes / 2**30:.2f} GiB of weights "
+        f"({base / 2**30:.2f} GiB resident before), built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    xgen = torch.Generator(device="cuda").manual_seed(11)
+    out = {"weight_bytes": w_bytes, "cases": []}
+
+    def held(name, got, want, dropped, ms):
+        err = check_close(torch, name, got, want, PATH_RTOL, PATH_ATOL)
+        log(f"{name}: max|err| {err:.3e} (rtol {PATH_RTOL}, atol "
+            f"{PATH_ATOL}), {dropped} assignments dropped, {ms:.3f} ms")
+        out["cases"].append({"name": name, "max_abs_err": err,
+                             "dropped": dropped, "ms": ms})
+    torch.cuda.reset_peak_memory_stats()
+    for n in MOE_BLOCK_TOKENS:
+        x = torch.randn(1, n, d, generator=xgen, device="cuda")
+        if n == min(MOE_BLOCK_TOKENS):
+            want, dropped = moe_reference(torch, p, x[0], k, n * k,
+                                          [range(n)])
+            held(f"{label} moe_dense N={n}", MOE.moe_dense(p, x, k)[0][0],
+                 want, dropped, median_ms(torch, lambda: MOE.moe_dense(
+                     p, x, k), reps=3, launches=2))
+        for n_dev in (4, 1):
+            mesh = DeviceMesh(["cuda:0"] * n_dev)
+            tl = n // n_dev
+            cap = MOE._capacity(tl, k, MOE_BLOCK_CF, e, 4)
+            want, dropped = moe_reference(
+                torch, p, x[0], k, cap,
+                [range(j * tl, (j + 1) * tl) for j in range(n_dev)])
+            held(f"{label} moe_a2a N={n} over {n_dev} entries (cap {cap})",
+                 MOE.moe_a2a(p, x, k, MOE_BLOCK_CF, mesh)[0][0], want,
+                 dropped, median_ms(torch, lambda: MOE.moe_a2a(
+                     p, x, k, MOE_BLOCK_CF, mesh), reps=3, launches=2))
+        del x, want
+    n = MOE_LOCAL_TOKENS
+    x = torch.randn(n, 1, d, generator=xgen, device="cuda")
+    cap = MOE._capacity(n, k, MOE_BLOCK_CF, e, 1)
+    want, dropped = moe_reference(torch, p, x[:, 0], k, cap, [range(n)])
+    for n_dev in (4, 1):
+        mesh = DeviceMesh(["cuda:0"] * n_dev)
+        held(f"{label} moe_local {n} tokens over {n_dev} entries (cap "
+             f"{cap})", MOE.moe_local(p, x, k, MOE_BLOCK_CF, mesh)[0][:, 0],
+             want, dropped, median_ms(torch, lambda: MOE.moe_local(
+                 p, x, k, MOE_BLOCK_CF, mesh), reps=3, launches=2))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"{label} MoE block: peak memory {out['peak_bytes'] / 2**30:.2f} "
+        f"GiB; {time.perf_counter() - t0:.2f} s")
+    del p, x, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def smoke_witness(torch, ops, arch, label):
+    """The smoke config in fp32 with moe_impl "a2a" on four virtual
+    entries of the card against the same weights on four CPU entries:
+    all logits of a forward over MOE_SMOKE_T tokens (relative L2 within
+    LM_REL_L2, the limit the card-against-CPU readings are held to) and
+    of decode over the same positions, the aux loss beside them."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.steps import build_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    models = {dev: build_model(cfg, device=dev, seed=3, moe_impl="a2a",
+                               mesh=DeviceMesh([dev] * 4))
+              for dev in ("cuda", "cpu")}
+    models["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                   models["cuda"].state_dict().items()})
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, MOE_SMOKE_T)).astype(np.int32)
+    fwd, dec = {}, {}
+    for dev, m in models.items():
+        tk = torch.as_tensor(toks, device=dev)
+        lg, aux = m(tk)
+        fwd[dev] = (lg.float().cpu(), float(aux))
+        cache = m.init_cache(2, MOE_SMOKE_T)
+        dec[dev] = torch.cat([m.decode_step(cache, tk[:, i:i + 1], i)[0]
+                              for i in range(MOE_SMOKE_T)], 1).float().cpu()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    r_fwd = rel(fwd["cuda"][0], fwd["cpu"][0])
+    r_dec = rel(dec["cuda"], dec["cpu"])
+    log(f"{label} smoke width fp32, card against the CPU (moe_impl a2a on "
+        f"4 entries each): forward logits relative L2 {r_fwd:.3e}, decode "
+        f"{r_dec:.3e} (limit {LM_REL_L2}); aux {fwd['cuda'][1]:.6f} / "
+        f"{fwd['cpu'][1]:.6f}")
+    if not (r_fwd <= LM_REL_L2 and r_dec <= LM_REL_L2):
+        fail(f"{label} smoke width: card differs from the CPU by {r_fwd:.3e}"
+             f" (forward), {r_dec:.3e} (decode)")
+    return {"forward_rel_l2": r_fwd, "decode_rel_l2": r_dec,
+            "aux": [fwd["cuda"][1], fwd["cpu"][1]]}
+
+
+def flash_shape_entry(row, name, launches):
+    """A flash row as a ``kernels``-line entry of its own."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:26",
+            "launches": launches, **{k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+
+
+def kimi_phase(torch, ops, ref):
+    """kimi-k2 cut to 2 layers at full width (d_model 7168; 64 query heads
+    over 8 KV heads of 112; a dense layer, then 384 experts top-8 and a
+    shared expert; 19.93 B parameters, 37.13 GiB bf16, random from seed
+    0): the flash kernel at its prefill shape (G = 8, d = 112), the bf16
+    prefill at 4x2048 with moe_impl "a2a" over ``DeviceMesh(["cuda:0"])``
+    (each flash call held, drops and routing flips counted), the eager /
+    captured decode pair (``moe_local``), ``launch.serve`` at the cut
+    (``moe_dense``, as JAX's), the MoE block alone in fp32, and the
+    smoke-width witness.  Returns (flash launches, the flash row, a
+    summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import DeviceMesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(KIMI_ARCH), n_layers=KIMI_LAYERS)
+    row = flash_at_shape(torch, ops, ref, cfg, MOE_B, MOE_T,
+                         "kimi prefill shape")
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (MOE_B, MOE_T)).astype(np.int32), device="cuda")}
+
+    def then(m):
+        out = moe_prefill_checks(torch, ops, ref, m, cfg, batch, "kimi")
+        out["decode_pair"] = decode_pair(torch, m, cfg, 4, 16, 16,
+                                         f"{cfg.name} ({KIMI_LAYERS} layers,"
+                                         " moe_local)")
+        return out
+    n_pre, pre = lm_prefill(
+        torch, ops, ref, cfg, MOE_B, MOE_T, seed=1, timed=2, profile=True,
+        then=then, hold=False,
+        model_kw={"moe_impl": "a2a", "mesh": DeviceMesh(["cuda:0"])})
+    del batch
+    srv = drive_serve(torch, KIMI_ARCH, f"kimi ({KIMI_LAYERS} layers)",
+                      cfg=cfg)
+    block = moe_block_phase(torch, cfg, "kimi")
+    smoke = smoke_witness(torch, ops, KIMI_ARCH, "kimi")
+    return n_pre, row, {**pre, "flash_row": row, "moe_block": block,
+                        "smoke_witness": smoke,
+                        "serve_prefill_ms": srv[0],
+                        "serve_decode_ms_per_token": srv[1]}
+
+
+def mla_flash_row(torch, ops, ref, cfg, b, t):
+    """The flash kernel as MLA calls it at b x t: BH = b heads, G = 1, d =
+    qk_nope + qk_rope (192), V of v_head_dim (128) zero-padded to d (the
+    padded output columns must stay 0), bf16, causal; held by
+    ``check_rows``, timed beside the plain version and SDPA given its own
+    v_head_dim wide V, with the bound of the useful work (2 (dqk + dv)
+    flops a kept pair) and of the padded work the kernel does (4 dqk)."""
+    import torch.nn.functional as F
+    bh, dqk, dv = b * cfg.n_heads, cfg.qk_nope + cfg.qk_rope, cfg.v_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k = (torch.randn(bh, t, dqk, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    v128 = torch.randn(bh, t, dv, generator=gen, device="cuda").bfloat16()
+    v = F.pad(v128, (0, dqk - dv))
+    name = f"flash MLA prefill shape BH={bh} G=1 d={dqk} (V {dv} padded)"
+    got = ops.flash_attention(q, k, v, True)
+    want = ref.flash_attention_plain(q, k, v, True)
+    r_whole, r_row = check_rows(torch, name, got, want)
+    err = float((got.float() - want.float()).abs().max())
+    if float(got[..., dv:].abs().max()) != 0.0:
+        fail(f"{name}: the padded output columns are not zero")
+    del got, want
+    t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True))
+    t_p = median_ms(torch, lambda: ref.flash_attention_plain(q, k, v, True),
+                    reps=3, launches=3)
+    t_l = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[None], k[None], v128[None], is_causal=True))
+    pairs = t * (t + 1) // 2
+    nbytes = 2 * bh * t * (2 * dqk + 2 * dv)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * (dqk + dv) * bh * pairs,
+                          PEAK_BF16_FLOP_S)
+    pad_ms, _ = bound_ms(2 * bh * t * 4 * dqk, 4.0 * dqk * bh * pairs,
+                         PEAK_BF16_FLOP_S)
+    log(f"kernel flash_attention {name} T={t} causal bf16: kernel {t_k:.4f} "
+        f"ms, plain {t_p:.4f} ms, F.scaled_dot_product_attention (V "
+        f"{dv} wide) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}; the "
+        f"padded work's {pad_ms:.4f} ms); relative L2 {r_whole:.3e} whole, "
+        f"{r_row:.3e} worst row, max|err| {err:.2e}")
+    del q, k, v, v128
+    torch.cuda.empty_cache()
+    return {"shape": f"BH={bh}, G=1, T={t}, d={dqk}, V {dv} padded to "
+                     f"{dqk}, bf16, causal",
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "padded_bound_ms": pad_ms,
+            "library_ms": t_l, "library": f"V {dv} wide",
+            "rel_l2_whole": r_whole, "rel_l2_worst_row": r_row}
+
+
+def deepseek_phase(torch, ops, ref):
+    """deepseek-v3 cut to 4 layers at full width (d_model 7168; MLA with
+    128 heads, q_lora 1536, kv_lora 512, qk 128 + 64, v 128; three dense
+    layers, then 256 experts top-8 and a shared expert; 15.11 B
+    parameters, 28.15 GiB bf16): the flash kernel at MLA's prefill shape
+    (d = 192, V padded), the bf16 prefill at 4x2048 (moe_impl "a2a", each
+    flash call held), the decode pair, ``launch.serve`` at the cut, the
+    fp32 witness (absorbed decode against the forward at the 4 layers,
+    56.3 GiB) and the smoke-width witness.  Returns (flash launches, the
+    flash row, a summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.steps import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(DEEPSEEK_ARCH),
+                              n_layers=DEEPSEEK_LAYERS)
+    row = mla_flash_row(torch, ops, ref, cfg, MOE_B, MOE_T)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (MOE_B, MOE_T)).astype(np.int32), device="cuda")}
+
+    def then(m):
+        out = moe_prefill_checks(torch, ops, ref, m, cfg, batch, "deepseek")
+        out["decode_pair"] = decode_pair(
+            torch, m, cfg, 4, 16, 16,
+            f"{cfg.name} ({DEEPSEEK_LAYERS} layers, moe_local)")
+        return out
+    n_pre, pre = lm_prefill(
+        torch, ops, ref, cfg, MOE_B, MOE_T, seed=1, timed=2, profile=True,
+        then=then, hold=False,
+        model_kw={"moe_impl": "a2a", "mesh": DeviceMesh(["cuda:0"])})
+    del batch
+    srv = drive_serve(torch, DEEPSEEK_ARCH,
+                      f"deepseek ({DEEPSEEK_LAYERS} layers)", cfg=cfg)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg32, seed=0)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (DECODE_B, DECODE_T)).astype(np.int32), device="cuda")
+
+    def latent():
+        cache = model.init_cache(DECODE_B, DECODE_T)
+        want = {"c": (DECODE_B, DECODE_T, cfg.kv_lora),
+                "k_rope": (DECODE_B, DECODE_T, cfg.qk_rope)}
+        if any({k: tuple(v.shape) for k, v in lc.items()} != want
+               for lc in cache):
+            fail(f"deepseek caches are not the latent {want}")
+        return cache
+    n_fwd, _, worst = decode_witness(
+        torch, ops, model, f"deepseek ({DEEPSEEK_LAYERS} layers, absorbed "
+        "MLA decode)", lambda: model(toks), latent, toks, DEEPSEEK_LAYERS)
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    del model, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = smoke_witness(torch, ops, DEEPSEEK_ARCH, "deepseek")
+    return n_pre + n_fwd, row, {
+        **pre, "flash_row": row, "decode_vs_forward": worst,
+        "fp32_weight_bytes": w_bytes, "smoke_witness": smoke,
+        "serve_prefill_ms": srv[0], "serve_decode_ms_per_token": srv[1],
+        "flash_launches": {"prefill": n_pre, "fp32_forward": n_fwd}}
+
+
 # --------------------------------------------------------------------------- #
 @contextlib.contextmanager
 def attention_as(ops, fn):
@@ -4698,6 +5231,7 @@ def main() -> int:
     log(f"build: {len(build.SOURCES)} kernels in {t_build:.2f} s")
 
     gemm_entry = kernel_phase(torch, ops, ref)
+    bf16_kernels = gemm_entry.pop("bf16")
     launches, fl_prog, responses, peak, engine, co, fl = path_phase(torch)
     spdmm_entry = fl_spdmm_entry(torch, ops, ref, fl_prog)
     t6 = time.perf_counter()
@@ -4766,13 +5300,20 @@ def main() -> int:
     t7 = time.perf_counter()
     xlstm = xlstm_phase(torch, ops, ref)
     log(f"xlstm phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    kimi_launches, flash_kimi, kimi = kimi_phase(torch, ops, ref)
+    log(f"kimi phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    mla_launches, flash_mla, deepseek = deepseek_phase(torch, ops, ref)
+    log(f"deepseek phase: {time.perf_counter() - t7:.1f} s")
     flash_nc["vision cross"]["launches"] = vision_nc + cross_nc["vision"]
     flash_nc["whisper encoder"]["launches"] = (whisper_nc
                                                + cross_nc["whisper"])
     flash_entry["launches"] = (flash_launches + granite_launches
                                + gemma_launches + train_launches
                                + vision_launches + whisper_launches
-                               + cross_launches + hymba_launches)
+                               + cross_launches + hymba_launches
+                               + kimi_launches + mla_launches)
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
@@ -4784,6 +5325,12 @@ def main() -> int:
         fl_launches["densify"] + conf_launches["densify"] + \
         live_launches["densify"] + mesh_launches["densify"]
     kernels.append(densify_entry)
+    kernels.append(flash_shape_entry(
+        flash_kimi, "flash_attention (kimi-k2 prefill: G=8, d=112)",
+        kimi_launches))
+    kernels.append(flash_shape_entry(
+        flash_mla, "flash_attention (deepseek-v3 MLA: d=192, V padded)",
+        mla_launches))
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
@@ -4833,6 +5380,8 @@ def main() -> int:
                        "cross_train": cross_train,
                        "flash_noncausal": flash_nc,
                        "hymba": hymba, "xlstm": xlstm,
+                       "kimi": kimi, "deepseek": deepseek,
+                       "bf16_kernels": bf16_kernels,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,
                            "gemma3": gemma_launches,
@@ -4840,7 +5389,8 @@ def main() -> int:
                            "vision": vision_launches,
                            "whisper": whisper_launches,
                            "cross_train": cross_launches,
-                           "hymba": hymba_launches},
+                           "hymba": hymba_launches,
+                           "kimi": kimi_launches, "deepseek": mla_launches},
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -14,7 +14,8 @@ package's bundles as they are).
 * :func:`lm_params_from_arrays` — a decoder LM's parameter pytree (JAX's
   ``DecoderLM.init_params`` as nested dicts and tuples of numpy arrays,
   segments stacked on a leading ``rep`` axis) as the port model's state
-  dict; :func:`lm_param_shapes` the same names with the shapes only.  Both
+  dict; :func:`lm_param_shapes` the same names with the shapes only (a MoE
+  block's experts permuted to the port's E-major layout, ``PERMUTED``).  Both
   also take JAX's ``WhisperModel`` pytree (an ``encoder_decoder`` config):
   its encoder blocks, stacked on a leading layer axis, become
   ``encoder.blocks.{i}``, and its decoder the ``decoder.`` names.
@@ -174,6 +175,17 @@ def _lm_leaves(cfg: ModelConfig, params) -> Iterator[Tuple[str, Any, Any]]:
                 i += 1
 
 
+# JAX's leaves that the port stores with their axes permuted: a MoE
+# block's experts, (d, E, f) / (f, E, d) in JAX, E-major in the port.
+PERMUTED = {"moe.wi": (1, 0, 2), "moe.wg": (1, 0, 2), "moe.wo": (1, 0, 2)}
+
+
+def _axes(name: str) -> Optional[Tuple[int, ...]]:
+    """The permutation from JAX's leaf to the port's parameter ``name``
+    (None: the same axes)."""
+    return PERMUTED.get(".".join(name.split(".")[-2:]))
+
+
 def _to_tensor(a) -> torch.Tensor:
     a = np.array(a)                         # a writable copy
     if a.dtype.name == "bfloat16":          # ml_dtypes, as JAX hands it
@@ -187,16 +199,28 @@ def lm_params_from_arrays(cfg: ModelConfig, params) -> Dict[str,
     model.init_params(key))``) -> the port's state dict (CPU tensors, the
     arrays' dtypes; load with ``model.load_state_dict``).  A block's
     nested dicts become dotted names (hymba's ``layers.{i}.ssm.A_log``,
-    xLSTM's ``layers.{i}.core.r_z``).  ``load_state_dict`` casts into each
-    port parameter's dtype, which is its JAX leaf's (the fp32 leaves of a
-    bf16 model stay fp32), so no value is rounded on the way."""
-    return {name: _to_tensor(leaf if r is None else np.asarray(leaf)[r])
-            for name, leaf, r in _lm_leaves(cfg, params)}
+    xLSTM's ``layers.{i}.core.r_z``, a MoE block's
+    ``layers.{i}.moe.shared.wi``).  A MoE block's ``wi`` / ``wg`` (d, E, f)
+    and ``wo`` (f, E, d) are transposed to [E, d, f] / [E, f, d]
+    (``PERMUTED``).  ``load_state_dict`` casts into each port parameter's
+    dtype, which is its JAX leaf's (the fp32 leaves of a bf16 model, such
+    as the MoE router, stay fp32), so no value is rounded on the way."""
+    out = {}
+    for name, leaf, r in _lm_leaves(cfg, params):
+        a = leaf if r is None else np.asarray(leaf)[r]
+        axes = _axes(name)
+        out[name] = _to_tensor(a if axes is None
+                               else np.transpose(np.asarray(a), axes))
+    return out
 
 
 def lm_param_shapes(cfg: ModelConfig, params) -> Dict[str, tuple]:
     """The names and shapes :func:`lm_params_from_arrays` would return,
     read from anything with a ``.shape`` (e.g. ``jax.eval_shape``'s
     ShapeDtypeStructs), without touching data."""
-    return {name: tuple(leaf.shape[1:] if r is not None else leaf.shape)
-            for name, leaf, r in _lm_leaves(cfg, params)}
+    out = {}
+    for name, leaf, r in _lm_leaves(cfg, params):
+        shape = tuple(leaf.shape[1:] if r is not None else leaf.shape)
+        axes = _axes(name)
+        out[name] = shape if axes is None else tuple(shape[i] for i in axes)
+    return out

@@ -36,8 +36,12 @@ _c_float = ctypes.c_float
 _ARGTYPES = {
     "gemm": ("gemm_f32", [_c_void_p] * 4 + [_c_int] * 3 + [_c_ll] * 4
              + [_c_void_p]),
+    "gemm_mixed": ("gemm_mixed", [_c_void_p] * 4 + [_c_int] * 5
+                   + [_c_ll] * 4 + [_c_void_p]),
     "spdmm": ("spdmm_f32", [_c_void_p] * 6 + [_c_int] * 3 + [_c_ll] * 3
               + [_c_void_p]),
+    "spdmm_bf16": ("spdmm_bf16", [_c_void_p] * 6 + [_c_int] * 3
+                   + [_c_ll] * 3 + [_c_void_p]),
     "sddmm": ("sddmm_f32", [_c_void_p] * 6 + [_c_int] * 4 + [_c_ll] * 2
               + [_c_void_p]),
     "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
@@ -46,7 +50,8 @@ _ARGTYPES = {
                 + [_c_ll, _c_void_p]),
 }
 # Entry points that live in another kernel's source (library).
-_SOURCE_OF = {"densify": "gemm"}
+_SOURCE_OF = {"densify": "gemm", "gemm_mixed": "gemm",
+              "spdmm_bf16": "spdmm"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

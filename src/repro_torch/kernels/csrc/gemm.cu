@@ -42,6 +42,15 @@
 // reads its acc elements before writing the same C elements).  The kernel
 // launches on the caller's stream and allocates nothing.
 //
+// bf16 operands (JAX's sweeps run the Pallas kernel on bf16 x and w, which
+// it widens to fp32 in VMEM) and a bf16 output (its `out_dtype`) take
+// `gemm_mixed_kernel`, a plain tiled body: a 64 x 64 output tile a CTA,
+// 256 threads of 4 x 4 micro-tiles, the A and B panels of BK = 16 widened
+// to fp32 as they are staged into shared memory.  It keeps the fp32
+// kernel's sum order (one fmaf chain over k from 0.0f, acc added last),
+// rounding only the final value to the output type, so fp32 operands give
+// the fp32 kernel's bits before that rounding.
+//
 // The file also holds `ell_densify_f32`, which feeds this kernel the dense
 // [n1, n_src] adjacency block of a remapped ELL tile (a sparsity-remapped
 // binary runs such an AGGREGATE step as dense @ h).  It replaces the XLA
@@ -61,6 +70,7 @@
 // bounds it is writing the block (64 MiB at n1 = n_src = 4096, 0.02 ms at
 // 3.35 TB/s); a first design, one 256-thread CTA a row adding into global
 // memory, took 16x that (PERF.md).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -231,6 +241,90 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+constexpr int XM = 64;          // gemm_mixed_kernel's output tile
+constexpr int XN = 64;
+constexpr int XK = 16;
+constexpr int XTHREADS = (XM / 4) * (XN / 4);
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(XTHREADS)
+gemm_mixed_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
+                  const float* acc, TOut* C, int M, int N, int K,
+                  long long lda, long long ldb, long long ldacc,
+                  long long ldc) {
+  __shared__ float As[XK][XM + 4];   // k-major: a thread reads 4 rows
+  __shared__ float Bs[XK][XN];
+  const int tid = threadIdx.x;
+  const int tx = tid % (XN / 4), ty = tid / (XN / 4);
+  const long long row0 = (long long)blockIdx.y * XM;
+  const long long col0 = (long long)blockIdx.x * XN;
+  float c[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += XK) {
+    for (int e = tid; e < XM * XK; e += XTHREADS) {
+      const int m = e / XK, kk = e % XK;
+      const long long gm = row0 + m;
+      const int gk = k0 + kk;
+      As[kk][m] = (gm < M && gk < K) ? widen(A[gm * lda + gk]) : 0.0f;
+    }
+    for (int e = tid; e < XK * XN; e += XTHREADS) {
+      const int kk = e / XN, n = e % XN;
+      const int gk = k0 + kk;
+      const long long gn = col0 + n;
+      Bs[kk][n] = (gk < K && gn < N) ? widen(B[(long long)gk * ldb + gn])
+                                     : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < XK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long gm = row0 + ty * 4 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long gn = col0 + tx * 4 + j;
+      if (gn >= N) continue;
+      const float base = acc ? acc[gm * ldacc + gn] : 0.0f;
+      store(C + gm * ldc + gn, base + c[i][j]);
+    }
+  }
+}
+
+template <typename TIn, typename TOut>
+void launch_mixed(const void* A, const void* B, const float* acc, void* C,
+                  int M, int N, int K, long long lda, long long ldb,
+                  long long ldacc, long long ldc, cudaStream_t s) {
+  dim3 grid((N + XN - 1) / XN, (M + XM - 1) / XM);
+  gemm_mixed_kernel<TIn, TOut><<<grid, XTHREADS, 0, s>>>(
+      static_cast<const TIn*>(A), static_cast<const TIn*>(B), acc,
+      static_cast<TOut*>(C), M, N, K, lda, ldb, ldacc, ldc);
+}
+
 constexpr int DW = 4;           // densify rows (warps) per CTA
 constexpr int DCOLS = 2048;     // columns a warp builds per pass (8 KB)
 
@@ -296,6 +390,31 @@ extern "C" int gemm_f32(const float* A, const float* B, const float* acc,
   else
     gemm_f32_kernel<false><<<grid, THREADS, SMEM_BYTES, s>>>(
         A, B, acc, C, M, N, K, lda, ldb, ldacc, ldc, vec_out);
+  return (int)cudaGetLastError();
+}
+
+// C = acc + A * B with A, B in bf16 (in_bf16) or fp32 and C in bf16
+// (out_bf16) or fp32; acc is fp32 (or null), the sum fp32.  Returns
+// cudaGetLastError() after the launch (0 when there is nothing to
+// compute).
+extern "C" int gemm_mixed(const void* A, const void* B, const float* acc,
+                          void* C, int in_bf16, int out_bf16, int M, int N,
+                          int K, long long lda, long long ldb,
+                          long long ldacc, long long ldc, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (in_bf16 && out_bf16)
+    launch_mixed<__nv_bfloat16, __nv_bfloat16>(A, B, acc, C, M, N, K, lda,
+                                               ldb, ldacc, ldc, s);
+  else if (in_bf16)
+    launch_mixed<__nv_bfloat16, float>(A, B, acc, C, M, N, K, lda, ldb,
+                                       ldacc, ldc, s);
+  else if (out_bf16)
+    launch_mixed<float, __nv_bfloat16>(A, B, acc, C, M, N, K, lda, ldb,
+                                       ldacc, ldc, s);
+  else
+    launch_mixed<float, float>(A, B, acc, C, M, N, K, lda, ldb, ldacc, ldc,
+                               s);
   return (int)cudaGetLastError();
 }
 

@@ -40,6 +40,13 @@
 // sub-fiber view goes in without a copy; cols and vals are contiguous
 // [n1, w].  acc may be null and may alias out.  The kernel launches on the
 // caller's stream and allocates nothing.
+//
+// h may also be bf16 (JAX's sweeps run the Pallas kernel on a bf16 source
+// tile, which it widens to fp32): `spdmm_bf16` runs the same body on it,
+// each gathered element widened to fp32 as it is read, with the scalar
+// lane layout (lane l reads features l + 32 i, a 64-byte access a warp),
+// so the sums and out (fp32) are those of the fp32 kernel on h widened.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,19 +56,26 @@ constexpr int WARPS = 8;
 constexpr int INFLIGHT = 16;   // row gathers issued before summing
 constexpr unsigned FULL = 0xffffffffu;
 
-template <bool VEC>
-__device__ __forceinline__ float4 gather(const float* row, int fc, int lane,
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// VEC (fp32 only): lane l's four features 4l .. 4l + 3 as one float4;
+// else features l, l + 32, l + 64, l + 96 of the chunk.
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 gather(const T* row, int fc, int lane,
                                          int f) {
-  if (VEC) {
+  if constexpr (VEC) {
     const int c = fc + 4 * lane;
     if (c < f) return *reinterpret_cast<const float4*>(row + c);
     return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   float4 x;
-  x.x = fc + lane < f ? row[fc + lane] : 0.0f;
-  x.y = fc + lane + 32 < f ? row[fc + lane + 32] : 0.0f;
-  x.z = fc + lane + 64 < f ? row[fc + lane + 64] : 0.0f;
-  x.w = fc + lane + 96 < f ? row[fc + lane + 96] : 0.0f;
+  x.x = fc + lane < f ? widen(row[fc + lane]) : 0.0f;
+  x.y = fc + lane + 32 < f ? widen(row[fc + lane + 32]) : 0.0f;
+  x.z = fc + lane + 64 < f ? widen(row[fc + lane + 64]) : 0.0f;
+  x.w = fc + lane + 96 < f ? widen(row[fc + lane + 96]) : 0.0f;
   return x;
 }
 
@@ -74,8 +88,8 @@ __device__ __forceinline__ void fma4(float4& s, float v, const float4& x) {
 
 // Slots j .. j + U - 1 of the warp's 32-slot chunk (column and value in
 // lane j + u of my_c / my_v): U row gathers issued, then summed in order.
-template <bool VEC, int U>
-__device__ __forceinline__ void gather_sum(float4& s, const float* h,
+template <bool VEC, int U, typename T>
+__device__ __forceinline__ void gather_sum(float4& s, const T* h,
                                            long long ldh, int my_c,
                                            float my_v, int j, int fc,
                                            int lane, int f) {
@@ -85,16 +99,16 @@ __device__ __forceinline__ void gather_sum(float4& s, const float* h,
   for (int u = 0; u < U; ++u) {
     const int c = __shfl_sync(FULL, my_c, j + u);
     v[u] = __shfl_sync(FULL, my_v, j + u);
-    x[u] = gather<VEC>(h + (long long)c * ldh, fc, lane, f);
+    x[u] = gather<VEC, T>(h + (long long)c * ldh, fc, lane, f);
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) fma4(s, v[u], x[u]);
 }
 
-template <bool VEC>
+template <bool VEC, typename T = float>
 __global__ void __launch_bounds__(WARPS * 32)
 spdmm_f32_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
-                 const float* __restrict__ h, const float* acc, float* out,
+                 const T* __restrict__ h, const float* acc, float* out,
                  const int* __restrict__ row_len, int n1, int w, int f,
                  long long ldh, long long ldacc, long long ldo) {
   const int lane = threadIdx.x & 31;
@@ -112,11 +126,11 @@ spdmm_f32_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
       const int my_c = lane < n ? crow[kb + lane] : 0;
       const float my_v = lane < n ? vrow[kb + lane] : 0.0f;
       int j = 0;
-      for (; j + INFLIGHT <= n; j += INFLIGHT) gather_sum<VEC, INFLIGHT>(
+      for (; j + INFLIGHT <= n; j += INFLIGHT) gather_sum<VEC, INFLIGHT, T>(
           s, h, ldh, my_c, my_v, j, fc, lane, f);
-      for (; j + 4 <= n; j += 4) gather_sum<VEC, 4>(
+      for (; j + 4 <= n; j += 4) gather_sum<VEC, 4, T>(
           s, h, ldh, my_c, my_v, j, fc, lane, f);
-      for (; j < n; ++j) gather_sum<VEC, 1>(
+      for (; j < n; ++j) gather_sum<VEC, 1, T>(
           s, h, ldh, my_c, my_v, j, fc, lane, f);
     }
     if (VEC && fc + 4 * lane < f) {
@@ -165,5 +179,19 @@ extern "C" int spdmm_f32(const int* cols, const float* vals, const float* h,
   else
     spdmm_f32_kernel<false><<<grid, WARPS * 32, 0, s>>>(
         cols, vals, h, acc, out, row_len, n1, w, f, ldh, ldacc, ldo);
+  return (int)cudaGetLastError();
+}
+
+// spdmm_f32 with a bf16 h (widened as it is gathered); out and acc fp32.
+extern "C" int spdmm_bf16(const int* cols, const float* vals,
+                          const __nv_bfloat16* h, const float* acc,
+                          float* out, const int* row_len, int n1, int w,
+                          int f, long long ldh, long long ldacc,
+                          long long ldo, void* stream) {
+  if (n1 <= 0 || f <= 0) return 0;
+  dim3 grid((n1 + WARPS - 1) / WARPS);
+  spdmm_f32_kernel<false, __nv_bfloat16>
+      <<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+          cols, vals, h, acc, out, row_len, n1, w, f, ldh, ldacc, ldo);
   return (int)cudaGetLastError();
 }

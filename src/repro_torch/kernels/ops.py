@@ -1,9 +1,11 @@
 """Wrappers around the hand-written CUDA kernels.
 
-``gemm(x, w, acc)`` returns ``acc + x @ w``, ``spdmm(cols, vals, h, acc,
-row_len)`` returns ``acc + ELL(cols, vals) @ h`` and ``sddmm(h_dst, h_src,
-cols, mask, acc)`` returns ``acc + where(mask, <h_dst[r], h_src[cols[r,
-k]]>, 0)``, all in fp32 (``acc``, ``row_len`` and ``mask`` may be None);
+``gemm(x, w, acc, out_dtype)`` returns ``acc + x @ w``, ``spdmm(cols, vals,
+h, acc, row_len)`` returns ``acc + ELL(cols, vals) @ h`` and ``sddmm(h_dst,
+h_src, cols, mask, acc)`` returns ``acc + where(mask, <h_dst[r],
+h_src[cols[r, k]]>, 0)``, all summed in fp32 (``acc``, ``row_len`` and
+``mask`` may be None); GEMM's x / w and SpDMM's h may also be bf16, as the
+Pallas kernels take them, and GEMM's output bf16 (its ``out_dtype``);
 ``densify(cols, vals, n_src)`` returns the dense [n1, n_src] block of an
 ELL tile (duplicate columns summed in slot order), the GEMM kernel's
 operand for a sparsity-remapped aggregate step;
@@ -183,24 +185,44 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_MATMUL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dtype(name: str, dtype: torch.dtype) -> None:
+    if dtype not in _MATMUL_DTYPES:
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {dtype}")
+
+
 def gemm(x: torch.Tensor, w: torch.Tensor,
-         acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``acc + x @ w`` (fp32 in, fp32 out)."""
+         acc: Optional[torch.Tensor] = None,
+         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``acc + x @ w`` summed in fp32 and returned in ``out_dtype`` (fp32,
+    the Pallas kernel's default, or bf16); x and w both fp32 or both bf16,
+    ``acc`` fp32.  fp32 in and out is the tiled kernel, any other pair
+    its mixed-precision body (``csrc/gemm.cu``)."""
+    _check_dtype("gemm out_dtype", out_dtype)
     if _on_cpu(x, w, acc):
         y = ref.gemm_ref(x, w)
-        return y if acc is None else acc + y
+        return (y if acc is None else acc + y).to(out_dtype)
     m, k = x.shape
-    _check_matrix("gemm x", x, torch.float32)
-    _check_matrix("gemm w", w, torch.float32, (k, w.shape[1]))
+    _check_dtype("gemm x", x.dtype)
+    _check_matrix("gemm x", x, x.dtype)
+    _check_matrix("gemm w", w, x.dtype, (k, w.shape[1]))
     n = w.shape[1]
     if acc is not None:
         _check_matrix("gemm acc", acc, torch.float32, (m, n))
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    rc = entry("gemm")(
-        x.data_ptr(), w.data_ptr(),
-        acc.data_ptr() if acc is not None else None, out.data_ptr(),
-        m, n, k, _ld(x), _ld(w), _ld(acc) if acc is not None else 0,
-        _ld(out), _stream(x))
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    acc_p = acc.data_ptr() if acc is not None else None
+    acc_ld = _ld(acc) if acc is not None else 0
+    if x.dtype == out_dtype == torch.float32:
+        rc = entry("gemm")(x.data_ptr(), w.data_ptr(), acc_p,
+                           out.data_ptr(), m, n, k, _ld(x), _ld(w), acc_ld,
+                           _ld(out), _stream(x))
+    else:
+        rc = entry("gemm_mixed")(
+            x.data_ptr(), w.data_ptr(), acc_p, out.data_ptr(),
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            m, n, k, _ld(x), _ld(w), acc_ld, _ld(out), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gemm kernel launch failed: CUDA error {rc}")
     _launched("gemm")
@@ -232,7 +254,8 @@ def densify(cols: torch.Tensor, vals: torch.Tensor,
 def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
           acc: Optional[torch.Tensor] = None,
           row_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``acc + ELL(cols, vals) @ h`` for one [n1, w] ELL tile (fp32).
+    """``acc + ELL(cols, vals) @ h`` for one [n1, w] ELL tile (fp32 sums
+    and output; h fp32 or bf16, widened as it is gathered).
     ``row_len`` (int32 [n1], optional) is each row's live length, 1 + its
     last live slot (0 for a row with no edge): slots from row_len[r] on
     are not walked, which leaves the result unchanged when they are pads
@@ -245,7 +268,8 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     _check_matrix("spdmm vals", vals, torch.float32, (n1, w))
     if not (cols.is_contiguous() and vals.is_contiguous()):
         raise ValueError("spdmm: cols and vals must be contiguous")
-    _check_matrix("spdmm h", h, torch.float32)
+    _check_dtype("spdmm h", h.dtype)
+    _check_matrix("spdmm h", h, h.dtype)
     f = h.shape[1]
     if acc is not None:
         _check_matrix("spdmm acc", acc, torch.float32, (n1, f))
@@ -256,7 +280,7 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
                          f"[{n1}], got {row_len.dtype} "
                          f"{tuple(row_len.shape)}")
     out = torch.empty((n1, f), dtype=torch.float32, device=h.device)
-    rc = entry("spdmm")(
+    rc = entry("spdmm" if h.dtype == torch.float32 else "spdmm_bf16")(
         cols.data_ptr(), vals.data_ptr(), h.data_ptr(),
         acc.data_ptr() if acc is not None else None, out.data_ptr(),
         row_len.data_ptr() if row_len is not None else None,

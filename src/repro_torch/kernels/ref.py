@@ -6,7 +6,9 @@ CUDA kernel against them on the card.  ``sddmm_step_ref`` is the ACK's
 whole SDDMM step (mask and accumulator around ``sddmm_ref``), the
 function the SDDMM kernel computes; ``flash_attention_plain`` is the
 flash kernel's function in its own [BH, T, d] layout (JAX's
-``flash_attention_ref`` transposed).  Matrix products here run in full
+``flash_attention_ref`` transposed).  ``gemm_ref`` and ``spdmm_ref``
+widen bf16 operands to fp32 before the product, as JAX's do, so they are
+also the plain versions of the bf16 kernels.  Matrix products here run in full
 fp32 only where the caller has left
 ``torch.backends.cuda.matmul.allow_tf32`` False (the default, which
 ``chip_smoke.py`` sets explicitly).

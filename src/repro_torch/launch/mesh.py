@@ -16,9 +16,14 @@ entries.  That is how a mesh is exercised on one card
 4)``), the torch counterpart of JAX's
 ``--xla_force_host_platform_device_count``.
 
-The LM's (data, model) meshes (``make_production_mesh`` /
-``make_local_mesh``) are not here: they belong to the distributed LM
-stack, which the port does not run yet.
+The LM's MoE blocks run on the same mesh (``DecoderLM(moe_impl="a2a",
+mesh=...)``, ``models/moe.py``): its one axis plays the expert axis of
+JAX's ``model`` axis, entry i owning experts [i E / D, (i + 1) E / D);
+capacity buffers move between entries with ``Tensor.to`` and JAX's
+``psum`` / ``pmean`` are sums in mesh order.  The LM's (data, model)
+meshes (``make_production_mesh`` / ``make_local_mesh``) are not here:
+sharded parameters and optimizer state belong to the distributed LM
+stack (ROADMAP A15.11), which the port does not run yet.
 """
 from __future__ import annotations
 

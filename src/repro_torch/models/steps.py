@@ -22,7 +22,7 @@ from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
 
 from .config import ModelConfig
 from .layers import softmax_xent
-from .transformer import DecoderLM, check_spec, layer_specs
+from .transformer import DecoderLM
 from .whisper import WhisperModel
 
 Model = Union[DecoderLM, WhisperModel]
@@ -37,24 +37,20 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> Model:
+def build_model(cfg: ModelConfig, device="cuda", seed: int = 0,
+                moe_impl: str = "dense", mesh=None) -> Model:
     """The model of ``cfg`` with random weights from ``seed`` on
     ``device`` (CUDA unless the caller asks for another): a
     :class:`WhisperModel` for an encoder-decoder, else a
     :class:`DecoderLM` (dense, with vision cross-attention, hymba's
-    attention and SSM heads, or xLSTM's mLSTM / sLSTM blocks).  MoE and
-    MLA configurations raise NotImplementedError naming their ROADMAP A15
-    item (``transformer.check_spec``)."""
+    attention and SSM heads, xLSTM's mLSTM / sLSTM blocks, or MLA
+    attention and MoE FFNs).  ``moe_impl`` and ``mesh`` are JAX's
+    ``build_model`` arguments: how MoE blocks run ("dense", the default,
+    or "a2a" over a ``launch.mesh.DeviceMesh``)."""
     if cfg.encoder_decoder:
         return WhisperModel(cfg, device=resolve_device(device), seed=seed)
-    return DecoderLM(cfg, device=resolve_device(device), seed=seed)
-
-
-def _check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a configuration with a block kind the
-    port does not run (MoE, MLA)."""
-    for spec in layer_specs(cfg):
-        check_spec(spec)
+    return DecoderLM(cfg, device=resolve_device(device), seed=seed,
+                     moe_impl=moe_impl, mesh=mesh)
 
 
 def _forward(params: Model, cfg: ModelConfig,
@@ -93,7 +89,6 @@ def make_train_step(model: Model, cfg: ModelConfig,
     step count before the update, one AdamW update (params and state
     written in place).  ``metrics`` holds 0-d tensors ``loss`` and
     ``aux`` (on the model's device) and ``lr`` (on the CPU)."""
-    _check_trainable(cfg)
 
     def train_step(params: Model, opt_state: AdamWState,
                    batch: Dict[str, torch.Tensor]):
@@ -111,7 +106,6 @@ def init_train_state(model: Model, keep_master: bool = True
     """The model with gradients on for every parameter (JAX
     differentiates every leaf) and a fresh AdamW state; the weights are
     the model's own (JAX draws them here from a key)."""
-    _check_trainable(model.cfg)
     for p in model.parameters():
         p.requires_grad_(True)
     return model, adamw_init(dict(model.named_parameters()),

@@ -7,18 +7,26 @@ layer, in the order the scan visits them (for each repeat, each block of
 the superblock).  Weights carried from JAX are unstacked by
 ``repro_torch.convert.lm_params_from_arrays``.
 
-Ported: ``gqa`` attention (causal, full or over a sliding window as in
-gemma3's local layers; with or without qk_norm) with a ``dense`` SwiGLU
-FFN, the cross-attention block of llama-3.2-vision and whisper's decoder
-(``ln_x`` / ``xattn`` after the self-attention, over ``cross_kv_x``, with
-no RoPE), hymba's block (``attn`` and ``ssm`` on the same normed input,
-averaged, then the dense FFN; ``models/ssm.py``), xLSTM's FFN-less
-``mlstm`` / ``slstm`` blocks (``ln1`` and ``core``;
-``models/xlstm_blocks.py``), and an LM head tied to the embedding (logits
-``x @ embed.T``) or untied (a ``head`` weight [d_model, vocab], logits ``x
-@ head``).  MLA attention and the MoE FFN raise NotImplementedError
-naming their ROADMAP item.  A windowed layer's decode cache is a ring
-buffer of ``min(window, seq_len)`` slots, as in JAX; a cross block's cache
+Ported: every block kind JAX's ``build_segments`` makes.  ``gqa``
+attention (causal, full or over a sliding window as in gemma3's local
+layers; with or without qk_norm) with a ``dense`` SwiGLU FFN, the
+cross-attention block of llama-3.2-vision and whisper's decoder (``ln_x``
+/ ``xattn`` after the self-attention, over ``cross_kv_x``, with no RoPE),
+hymba's block (``attn`` and ``ssm`` on the same normed input, averaged,
+then the dense FFN; ``models/ssm.py``), xLSTM's FFN-less ``mlstm`` /
+``slstm`` blocks (``ln1`` and ``core``; ``models/xlstm_blocks.py``),
+deepseek-v3's ``mla`` attention (``models/mla.py``) and the ``moe`` FFN of
+kimi-k2 and deepseek-v3 (``models/moe.py``), whose first
+``cfg.first_k_dense`` layers keep the dense FFN; and an LM head tied to
+the embedding (logits ``x @ embed.T``) or untied (a ``head`` weight
+[d_model, vocab], logits ``x @ head``).  A MoE block runs
+``moe.moe_dense`` under ``moe_impl="dense"`` (the default, as in JAX) and,
+under ``"a2a"``, ``moe.moe_a2a`` over the model's ``mesh`` in prefill and
+``moe.moe_local`` in decode; its router's aux loss is the ``aux`` that
+:meth:`DecoderLM.forward` sums over layers (0 without MoE blocks).  An MLA
+block's decode cache is its latent ``c`` and ``k_rope``.  A windowed
+layer's decode cache is a ring buffer of ``min(window, seq_len)`` slots,
+as in JAX; a cross block's cache
 adds ``xk`` / ``xv`` of ``cross_len`` slots (``cfg.n_vision_tokens`` by
 default, as in JAX), zeros until :meth:`DecoderLM.fill_cross_caches`
 writes the projected source into them in place; a hymba block's adds its
@@ -42,7 +50,7 @@ are the same bits under every policy.  Parameters are created with
 ``steps.init_train_state`` turns gradients on.
 
 Public surface:
-  DecoderLM(cfg, device, seed)          — random weights from a seed
+  DecoderLM(cfg, device, seed, moe_impl, mesh) — random weights from a seed
   forward(tokens, positions, cross_kv_x) — prefill logits, aux
   hidden(tokens, positions, cross_kv_x)  — final-norm hidden states
   init_cache / decode_step              — KV / state caches, one token
@@ -60,6 +68,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import attention as A
+from . import mla as MLA
+from . import moe as MOE
 from . import ssm as SSM
 from . import xlstm_blocks as XL
 from .config import ModelConfig
@@ -120,40 +130,28 @@ def layer_specs(cfg: ModelConfig) -> List[BlockSpec]:
             for spec in sb]
 
 
-# The block kinds JAX's ``build_segments`` makes that the port does not
-# run yet, with their ROADMAP items.
-_NOT_PORTED = {
-    "mla": "MLA attention (deepseek-v3, kimi-k2; ROADMAP A15.10)",
-    "moe": "MoE FFN (ROADMAP A15.9)",
-}
-
-
-def check_spec(spec: BlockSpec) -> None:
-    """Raise NotImplementedError for a block kind the port does not run."""
-    for kind in (spec.attn, spec.ffn):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{_NOT_PORTED[kind]} is not ported to repro_torch yet; the "
-                f"port runs gqa (full, windowed or with cross-attention), "
-                f"hymba, mlstm and slstm blocks with dense or no FFNs")
-
-
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _frozen_dict(p: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _frozen(v) for k, v in p.items()})
+def _frozen_dict(p: Dict[str, Any]) -> nn.ParameterDict:
+    """Frozen parameters of a dict; a nested dict (a MoE block's
+    ``shared``) becomes a nested ``ParameterDict``."""
+    return nn.ParameterDict({
+        k: _frozen_dict(v) if isinstance(v, dict) else _frozen(v)
+        for k, v in p.items()})
 
 
 class Block(nn.Module):
     """One block of ``spec`` — JAX ``block_init``'s pytree with the same
     names, shapes and dtypes: ``ln1``, then for gqa ``attn`` (wq, wk, wv,
     wo[, q_norm, k_norm]), for hymba ``attn`` and ``ssm`` (w_in, w_bc,
-    w_dt, dt_bias, A_log, D, w_out), for mlstm / slstm ``core``; with
+    w_dt, dt_bias, A_log, D, w_out), for mla ``attn`` (w_dq, q_norm, w_uq,
+    w_dkv, kv_norm, w_uk, w_uv, wo), for mlstm / slstm ``core``; with
     ``spec.cross_attn`` also ``ln_x`` and ``xattn`` (wq, wk, wv, wo; K / V
     from d_model wide sources); with a dense FFN ``ln2``, ``mlp`` (wi, wg,
-    wo)."""
+    wo); with a MoE FFN ``ln2``, ``moe`` (router, wi, wg, wo[, shared]),
+    its experts E-major (``models/moe.py``)."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  device, spec: BlockSpec = BlockSpec()) -> None:
@@ -168,6 +166,9 @@ class Block(nn.Module):
             self.ssm = _frozen_dict(SSM.ssm_init(
                 gen, d, cfg.ssm_heads, d // cfg.ssm_heads, cfg.ssm_state, dt,
                 device=device))
+        elif spec.attn == "mla":
+            self.attn = _frozen_dict(MLA.mla_init(gen, cfg, dt,
+                                                  device=device))
         elif spec.attn == "mlstm":
             self.core = _frozen_dict(XL.mlstm_init(gen, d, cfg.n_heads, dt,
                                                    device=device))
@@ -183,19 +184,42 @@ class Block(nn.Module):
             self.ln2 = _frozen(torch.zeros(d, dtype=dt, device=device))
             self.mlp = _frozen_dict(swiglu_init(gen, d, cfg.d_ff, dt,
                                                 device=device))
+        elif spec.ffn == "moe":
+            self.ln2 = _frozen(torch.zeros(d, dtype=dt, device=device))
+            self.moe = _frozen_dict(MOE.moe_init(
+                gen, d, cfg.d_ff_moe, cfg.n_experts, dt,
+                n_shared=cfg.n_shared_experts, device=device))
 
 
 # --------------------------------------------------------------------------- #
 # Block apply / cache / decode
 # --------------------------------------------------------------------------- #
+def _moe_ffn(cfg: ModelConfig, bp: Block, x: torch.Tensor, moe_impl: str,
+             mesh, decode: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN of one block on ``rms_norm(x, ln2)``: (y, aux)."""
+    h = rms_norm(x, bp.ln2, cfg.norm_eps)
+    if moe_impl == "dense":
+        return MOE.moe_dense(bp.moe, h, cfg.top_k)
+    # Decode's few tokens are not split by sequence: every entry keeps its
+    # own experts' assignments and no buffer moves (JAX's moe_local).
+    fn = MOE.moe_local if decode else MOE.moe_a2a
+    return fn(bp.moe, h, cfg.top_k, cfg.capacity_factor, mesh)
+
+
 def block_apply(cfg: ModelConfig, spec: BlockSpec, bp: Block,
                 x: torch.Tensor, positions: Optional[torch.Tensor],
-                cross_kv_x: Optional[torch.Tensor] = None
+                cross_kv_x: Optional[torch.Tensor] = None,
+                moe_impl: str = "dense", mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence (prefill) application.  Returns (x, aux)."""
+    """Full-sequence (prefill) application.  Returns (x, aux): the MoE
+    router's aux loss, or 0 for a block with no MoE FFN."""
     eps = cfg.norm_eps
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, bp.ln1, eps)
-    if spec.attn in ("gqa", "hymba"):
+    if spec.attn == "mla":
+        x = x + MLA.mla_attention(bp.attn, cfg, h, positions,
+                                  chunk=cfg.attn_chunk)
+    elif spec.attn in ("gqa", "hymba"):
         a = A.attention(bp.attn, h, positions, window=spec.window,
                         rope_theta=cfg.rope_theta, eps=eps,
                         chunk=cfg.attn_chunk)
@@ -214,7 +238,10 @@ def block_apply(cfg: ModelConfig, spec: BlockSpec, bp: Block,
                             causal=False, use_rope=False, eps=eps)
     if spec.ffn == "dense":
         x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    elif spec.ffn == "moe":
+        y, aux = _moe_ffn(cfg, bp, x, moe_impl, mesh, decode=False)
+        x = x + y
+    return x, aux
 
 
 def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
@@ -228,8 +255,13 @@ def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
     d_model / ssm_heads, ssm_state]; mLSTM's ``C``, ``n``, ``m`` and
     sLSTM's ``c``, ``n``, ``h``, ``m`` (fp32, ``m`` filled with -1e30); a
     cross block also has zeroed ``xk`` / ``xv`` of ``cross_len`` slots
-    (``cfg.n_vision_tokens`` when None or 0, as in JAX)."""
+    (``cfg.n_vision_tokens`` when None or 0, as in JAX); MLA's zeroed
+    latent ``c`` [B, seq_len, kv_lora] and ``k_rope`` [B, seq_len,
+    qk_rope]."""
     d, nh = cfg.d_model, cfg.n_heads
+    if spec.attn == "mla":
+        return MLA.mla_cache_init(batch, seq_len, cfg, cfg.torch_dtype,
+                                  device)
     if spec.attn == "mlstm":
         return XL.mlstm_decode_init(batch, nh, int(d * 2.0) // nh, device)
     if spec.attn == "slstm":
@@ -251,7 +283,8 @@ def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
 
 def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
                  x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                 pos: Union[int, torch.Tensor]
+                 pos: Union[int, torch.Tensor], moe_impl: str = "dense",
+                 mesh=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token through one block; the caches are written in place."""
     eps = cfg.norm_eps
@@ -260,9 +293,12 @@ def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
         return x + XL.mlstm_decode_step(bp.core, h, cache)[0], cache
     if spec.attn == "slstm":
         return x + XL.slstm_decode_step(bp.core, h, cache)[0], cache
-    a, cache = A.decode_attention(bp.attn, h, cache, pos,
-                                  window=spec.window,
-                                  rope_theta=cfg.rope_theta, eps=eps)
+    if spec.attn == "mla":
+        a, cache = MLA.mla_decode_step(bp.attn, cfg, h, cache, pos)
+    else:
+        a, cache = A.decode_attention(bp.attn, h, cache, pos,
+                                      window=spec.window,
+                                      rope_theta=cfg.rope_theta, eps=eps)
     if spec.attn == "hymba":
         s, _ = SSM.ssm_decode_step(bp.ssm, h, cache["ssm"], cfg.ssm_state)
         a = 0.5 * (a + s)
@@ -275,6 +311,8 @@ def block_decode(cfg: ModelConfig, spec: BlockSpec, bp: Block,
         x = x + a
     if spec.ffn == "dense":
         x = x + swiglu(bp.mlp, rms_norm(x, bp.ln2, eps))
+    elif spec.ffn == "moe":
+        x = x + _moe_ffn(cfg, bp, x, moe_impl, mesh, decode=True)[0]
     return x, cache
 
 
@@ -308,15 +346,21 @@ class DecoderLM(nn.Module):
     """The decoder LM with its weights.  ``seed`` seeds a
     ``torch.Generator`` on ``device`` from which every weight is drawn
     with the JAX initializers' scales; on the ``meta`` device nothing is
-    drawn (shapes only)."""
+    drawn (shapes only).  ``moe_impl`` ("dense" or "a2a") and ``mesh`` (a
+    ``launch.mesh.DeviceMesh``, which "a2a" needs) are JAX's
+    ``DecoderLM(cfg, moe_impl, mesh)``: how the MoE blocks run."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0
-                 ) -> None:
+    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0,
+                 moe_impl: str = "dense", mesh=None) -> None:
         super().__init__()
+        if moe_impl not in ("dense", "a2a"):
+            raise ValueError(f"moe_impl must be 'dense' or 'a2a', got "
+                             f"{moe_impl!r}")
+        if moe_impl == "a2a" and mesh is None:
+            raise ValueError("moe_impl='a2a' needs a mesh")
         self.cfg = cfg
+        self.moe_impl, self.mesh = moe_impl, mesh
         self.specs = layer_specs(cfg)
-        for spec in self.specs:
-            check_spec(spec)
         device = torch.device(device)
         gen = (None if device.type == "meta"
                else torch.Generator(device=device).manual_seed(seed))
@@ -345,30 +389,39 @@ class DecoderLM(nn.Module):
         """Final-norm hidden states [B, T, D] of tokens [B, T]; the cross
         blocks attend to ``cross_kv_x`` [B, S, D] (JAX's; None runs them
         as non-causal self-attention, as JAX does)."""
+        return self._hidden_aux(tokens, positions, cross_kv_x)[0]
+
+    def _hidden_aux(self, tokens, positions, cross_kv_x
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(:meth:`hidden`, the aux losses summed in layer order)."""
         x = self.embed[tokens.long()]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         wanted = torch.is_grad_enabled() and any(
             p.requires_grad for p in self.parameters())
         body = _remat(self._repeat, self.cfg.remat if wanted else "none")
         for lo, hi in self.repeats:
-            x = body(x, lo, hi, positions, cross_kv_x)
-        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+            x, aux = body(x, aux, lo, hi, positions, cross_kv_x)
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux
 
-    def _repeat(self, x: torch.Tensor, lo: int, hi: int,
+    def _repeat(self, x: torch.Tensor, aux: torch.Tensor, lo: int, hi: int,
                 positions: Optional[torch.Tensor],
-                cross_kv_x: Optional[torch.Tensor]) -> torch.Tensor:
+                cross_kv_x: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Layers [lo, hi): one superblock repeat, JAX's scan body."""
         for spec, bp in zip(self.specs[lo:hi], self.layers[lo:hi]):
-            x, _ = block_apply(self.cfg, spec, bp, x, positions, cross_kv_x)
-        return x
+            x, a = block_apply(self.cfg, spec, bp, x, positions, cross_kv_x,
+                               self.moe_impl, self.mesh)
+            aux = aux + a
+        return x, aux
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cross_kv_x: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(logits [B, T, vocab], aux) — aux is 0 (no MoE block runs)."""
-        x = self.hidden(tokens, positions, cross_kv_x)
-        return self._logits(x), torch.zeros((), dtype=torch.float32,
-                                            device=x.device)
+        """(logits [B, T, vocab], aux): aux sums the MoE blocks' router
+        losses (0 without MoE blocks)."""
+        x, aux = self._hidden_aux(tokens, positions, cross_kv_x)
+        return self._logits(x), aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.head is None:
@@ -408,6 +461,7 @@ class DecoderLM(nn.Module):
         (logits [B,1,vocab], cache), the caches written in place."""
         x = self.embed[token.long()]
         for spec, bp, lc in zip(self.specs, self.layers, cache):
-            x, _ = block_decode(self.cfg, spec, bp, x, lc, pos)
+            x, _ = block_decode(self.cfg, spec, bp, x, lc, pos,
+                                self.moe_impl, self.mesh)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x), cache

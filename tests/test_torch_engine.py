@@ -452,6 +452,9 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "from repro_torch.configs import get_config\n"
         "assert get_config('granite-8b').n_layers == 36\n"
         "assert get_config('gemma3-27b').n_layers == 62\n"
+        "import repro_torch.models.moe, repro_torch.models.mla\n"
+        "assert get_config('kimi-k2-1t-a32b').n_experts == 384\n"
+        "assert get_config('deepseek-v3-671b').mla\n"
         "from repro_torch.launch import train\n"
         "from repro_torch.checkpoint import latest_step\n"
         "import repro_torch.optim, repro_torch.data\n"

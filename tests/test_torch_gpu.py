@@ -17,7 +17,12 @@ engines of an ``OverlayPool`` replaying one program in two threads at
 once; the captured serve step against the eager one over gemma3's ring
 wrap, over cross caches filled in place before and after the capture,
 and over hymba's and xLSTM's recurrent state caches (with those smoke
-models on the card against the CPU, and flash at hymba's G = 5).
+models on the card against the CPU, and flash at hymba's G = 5), and over
+kimi-k2's and deepseek-v3's MoE and latent caches (those smoke models with
+moe_impl="a2a" on virtual entries of the card against CPU entries, flash
+at kimi's G = 8, d = 112 and MLA's d = 192 with V padded).  bf16 GEMM and
+SpDMM operands against the plain versions and bit for bit against the
+fp32 kernels on the widened operands.
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -1378,3 +1383,138 @@ def test_cuda_collected_engine_frees_its_captures(cuda):
     assert torch.cuda.memory_allocated(cuda) <= base
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved(cuda) <= reserved
+
+
+# --------------------------------------------------------------------------- #
+# bf16 GEMM / SpDMM operands (the Pallas kernels' bf16 sweeps)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_cuda_gemm_bf16_matches_plain_and_the_fp32_kernel(cuda, m, k, n):
+    # bf16 x / w (strided x): within the JAX sweep's bf16 tolerance of the
+    # plain version, and bit for bit the fp32 kernel on the widened
+    # operands (one fmaf chain over k in both bodies); a bf16 output is
+    # that result rounded.
+    g = torch.Generator(device=cuda).manual_seed(m + 3 * n)
+    x = torch.randn(m, 2 * k, generator=g, device=cuda).bfloat16()[:, k:]
+    w = torch.randn(k, n, generator=g, device=cuda).bfloat16()
+    acc = torch.randn(m, n, generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.gemm(x, w, acc)
+    assert ops.LAUNCHES["gemm"] == 1 and got.dtype == torch.float32
+    _close(got, acc + ref.gemm_ref(x, w), 2e-2, 1e-2)
+    wide = ops.gemm(x.float(), w.float(), acc)
+    assert torch.equal(got, wide)
+    out16 = ops.gemm(x, w, acc, out_dtype=torch.bfloat16)
+    assert torch.equal(out16, wide.bfloat16())
+    x32 = x.float()
+    assert torch.equal(ops.gemm(x32, w.float(), out_dtype=torch.bfloat16),
+                       ops.gemm(x32, w.float()).bfloat16())
+
+
+@pytest.mark.parametrize("n1,w,ns,f", SPDMM_SHAPES)
+def test_cuda_spdmm_bf16_h_matches_plain_and_the_fp32_kernel(cuda, n1, w,
+                                                             ns, f):
+    g = torch.Generator(device=cuda).manual_seed(n1 + f)
+    cols = torch.randint(0, ns, (n1, w), generator=g, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn(n1, w, generator=g, device=cuda) * (
+        torch.rand(n1, w, generator=g, device=cuda) > 0.4)
+    h = torch.randn(ns, 2 * f, generator=g, device=cuda).bfloat16()[:, f:]
+    acc = torch.randn(n1, f, generator=g, device=cuda)
+    row_len = torch.randint(0, w + 1, (n1,), generator=g, device=cuda,
+                            dtype=torch.int32)
+    ops.reset_launches()
+    got = ops.spdmm(cols, vals, h, acc)
+    assert ops.LAUNCHES["spdmm"] == 1 and got.dtype == torch.float32
+    _close(got, acc + ref.spdmm_ref(cols, vals, h), 2e-2, 1e-2)
+    assert torch.equal(got, ops.spdmm(cols, vals, h.float(), acc))
+    assert torch.equal(ops.spdmm(cols, vals, h, None, row_len),
+                       ops.spdmm(cols, vals, h.float(), None, row_len))
+
+
+# --------------------------------------------------------------------------- #
+# kimi-k2 and deepseek-v3: flash at their shapes, MoE and MLA on the card
+# --------------------------------------------------------------------------- #
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_kimi_group_and_mla_padded_v_match_plain(cuda, dtype):
+    # kimi-k2's prefill heads (G = 8, d = 112) and deepseek-v3's MLA call
+    # (d = 192, V of 128 zero-padded: the padded columns stay zero), at a
+    # ragged T.
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    t = 300
+    q = torch.randn(16, t, 112, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(2, t, 112, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, True)
+    want = ref.flash_attention_plain(q, k, v, True)
+    if dtype == "float32":
+        _close(got, want, 0.0, 2e-5)
+    else:
+        assert _rel(got, want) <= 2.0 ** -8
+    q, k = (torch.randn(4, t, 192, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    v = torch.nn.functional.pad(
+        torch.randn(4, t, 128, generator=g, device=cuda).to(dt), (0, 64))
+    got = ops.flash_attention(q, k, v, True)
+    want = ref.flash_attention_plain(q, k, v, True)
+    assert float(got[..., 128:].abs().max()) == 0.0
+    if dtype == "float32":
+        _close(got, want, 0.0, 2e-5)
+    else:
+        assert _rel(got, want) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "deepseek-v3-671b"])
+def test_cuda_moe_mla_smoke_models_match_the_cpu(cuda, arch):
+    # The smoke model in fp32 with moe_impl="a2a" on four virtual entries
+    # of the card against the same weights on four CPU entries: forward
+    # logits and aux (flash, moe_a2a), then decode over 10 positions
+    # (moe_local; MLA's absorbed step).
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import DeviceMesh
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg, seed=4, moe_impl="a2a",
+                        mesh=DeviceMesh([cuda] * 4))
+    cpu = build_model(cfg, device="cpu", seed=0, moe_impl="a2a",
+                      mesh=DeviceMesh(["cpu"] * 4))
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 10)).astype(np.int32))
+    ops.reset_launches()
+    got, aux = model(toks.to(cuda))
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    want, want_aux = cpu(toks)
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-5
+    assert abs(float(aux) - float(want_aux)) < 1e-5
+    caches = {"cuda": model.init_cache(2, 10), "cpu": cpu.init_cache(2, 10)}
+    for i in range(10):
+        lg, _ = model.decode_step(caches["cuda"], toks[:, i:i + 1].to(cuda),
+                                  torch.tensor(i, device=cuda))
+        lc, _ = cpu.decode_step(caches["cpu"], toks[:, i:i + 1], i)
+        assert float((lg.cpu() - lc).abs().max()) / scale < 1e-5
+
+
+@pytest.mark.parametrize("moe_impl", ["dense", "a2a"])
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "deepseek-v3-671b"])
+def test_cuda_captured_decode_over_moe_and_latent_caches(cuda, arch,
+                                                         moe_impl):
+    # launch.serve's captured step (router sort, capacity dispatch, the
+    # MLA caches written at the position tensor) token for token the eager
+    # step.
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.serve import generate
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg, seed=2, moe_impl=moe_impl,
+                        mesh=DeviceMesh([cuda] * 2))
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 7)).astype(np.int32), device=cuda)
+    captured, _, _ = generate(model, cfg, prompts, 12, capture=True)
+    eager, _, _ = generate(model, cfg, prompts, 12, capture=False)
+    assert captured.shape == (3, 12) and torch.equal(captured, eager)

@@ -4,8 +4,9 @@ On the CPU the wrappers in ``repro_torch.kernels.ops`` run their plain
 torch versions; these are held against ``repro.kernels.ref`` and against
 the Pallas kernels in interpret mode on the GEMM / SpDMM / SDDMM sweeps of
 ``tests/test_kernels.py`` (fp32, rtol 1e-5 / atol 1e-4; SDDMM at the JAX
-sweep's rtol 1e-4 / atol 1e-4), and the masked, accumulating SDDMM step
-against the JAX ACK's ``"xla"`` SDDMM step.  The CUDA kernels themselves
+sweep's rtol 1e-4 / atol 1e-4; the bf16 GEMM / SpDMM sweeps at its bf16
+rtol 2e-2 / atol 1e-2), and the masked, accumulating SDDMM step against
+the JAX ACK's ``"xla"`` SDDMM step.  The CUDA kernels themselves
 are held against the plain versions in ``test_torch_gpu.py``.
 """
 import numpy as np
@@ -74,6 +75,56 @@ def test_spdmm_matches_jax(n1, w, ns, f):
     got_acc = ops.spdmm(torch.from_numpy(cols), torch.from_numpy(vals),
                         torch.from_numpy(h), torch.from_numpy(acc)).numpy()
     _close(got_acc, acc + got)
+
+
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-2       # tests/test_kernels.py's bf16 case
+
+
+def _bf16(a):
+    """A numpy array rounded to bf16, as both packages' tensors."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j, np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_gemm_bf16_matches_jax(m, k, n):
+    # bf16 x and w (fp32 sums) as the Pallas kernel takes them, out fp32 by
+    # default and bf16 on request (its out_dtype).
+    r = np.random.default_rng(m * 5 + n)
+    jx, tx = _bf16(r.normal(0, 1, (m, k)))
+    jw, tw = _bf16(r.normal(0, 1, (k, n)))
+    got = ops.gemm(tx, tw)
+    assert got.dtype == torch.float32
+    want = np.asarray(jops.gemm(jx, jw, interpret=True), np.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    _close(got.numpy(), np.asarray(jref.gemm_ref(jx, jw)))
+    out16 = ops.gemm(tx, tw, out_dtype=torch.bfloat16)
+    assert out16.dtype == torch.bfloat16
+    assert torch.equal(out16, got.bfloat16())
+    np.testing.assert_allclose(
+        out16.float().numpy(),
+        np.asarray(jref.gemm_ref(jx, jw, jnp.bfloat16), np.float32),
+        rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("n1,w,ns,f", SPDMM_SHAPES)
+def test_spdmm_bf16_matches_jax(n1, w, ns, f):
+    cols, vals, h = _spdmm_inputs(n1, w, ns, f, seed=n1 * 3 + f)
+    jh, th = _bf16(h)
+    jc, jv = jnp.asarray(cols), jnp.asarray(vals)
+    got = ops.spdmm(torch.from_numpy(cols), torch.from_numpy(vals), th)
+    assert got.dtype == torch.float32
+    want = np.asarray(jops.spdmm(jc, jv, jh, interpret=True), np.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    _close(got.numpy(), np.asarray(jref.spdmm_ref(jc, jv, jh)))
+
+
+def test_gemm_refuses_an_output_dtype_the_kernels_lack():
+    with pytest.raises(TypeError, match="out_dtype"):
+        ops.gemm(torch.ones(2, 2), torch.ones(2, 2),
+                 out_dtype=torch.float16)
 
 
 def _ell_with_row_len(n1, w, ns, f, seed):

@@ -42,7 +42,6 @@ from repro_torch.distributed import compression as TC  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import steps as TS  # noqa: E402
-from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.optim import cosine_schedule  # noqa: E402
 
@@ -250,14 +249,6 @@ def test_train_steps_match_jax(arch):
         assert got.keys() == want.keys()
         for name in want:
             _close(got[name], want[name], err_msg=name)
-
-
-def test_train_step_refuses_what_the_port_does_not_train():
-    base = dataclasses.asdict(get_smoke_config("qwen3-0.6b"))
-    for kw in ({"n_experts": 4, "top_k": 2, "d_ff_moe": 32}, {"mla": True}):
-        cfg = ModelConfig(**{**base, **kw})
-        with pytest.raises(NotImplementedError, match="A15"):
-            TS.make_train_step(None, cfg)
 
 
 def test_launch_train_logs_jax_losses(monkeypatch):
