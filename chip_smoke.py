@@ -363,6 +363,30 @@ Phases (any failure exits non-zero; nothing is caught):
    routing flips counted), the decode pair, ``launch.serve`` at the cut;
    the absorbed MLA decode against the forward in fp32 at the 4 layers
    (56.3 GiB, B=2, T=64, 2e-4 of max |logit|); the smoke-width witness.
+21. Distributed, on virtual entries of the card (``launch.mesh``'s
+   (data, model) meshes): qwen3-0.6b's parameters at full width sharded
+   and gathered on 2 x 4 by ``distributed.sharding``'s rules, bit for bit,
+   each entry holding the bytes ``launch.dryrun`` reckons; two ZeRO-1
+   train steps (``distributed.zero``) at 2x4096 bf16 under remat "full"
+   with the AdamW state on 4 x 1 and on 2 x 4 (the layer stack split over
+   the data rows), bit for bit ``make_train_step``'s two steps (loss,
+   parameters, mu, nu, master, step), timed against them with the peak
+   memory; the 28 layers as a 4-stage GPipe pipeline
+   (``distributed.pipeline``) over 8 microbatches of 1x2048 bf16, bit for
+   bit the per-microbatch layer loop, timed against it, bubble 3 / 11; the
+   distinct-card branch (a toy pipeline over the first 4 cards) wherever
+   there is more than one card, its runs counted (0 on one card).
+22. Dry-run: ``launch.dryrun.analyze_cell`` of qwen3-0.6b's train step at
+   2x4096 on a 1 x 1 mesh of the card (traced on ``meta``) against a real
+   run: its argument bytes equal to the bytes of the parameters, AdamW
+   state and batch on the card and within 0.1% of the allocation's
+   growth, its predicted peak within 25% of ``max_memory_allocated``, its
+   traced flops equal to ``FlopCounterMode`` on the card plus the flash
+   kernel's formula, its roofline against the measured step; then
+   ``launch.dryrun`` (a subprocess started with phase 21, which sees no
+   card) on qwen3-0.6b, granite-8b and kimi-k2-1t-a32b at train_4k on the
+   16 x 16 mesh: per-device GiB, the three roofline terms, the dominant
+   one (its artifacts in ``artifacts/dryrun_torch/``).
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths, through its wrapper (``kernels.ops.LAUNCHES``; a CUDA-graph
@@ -374,8 +398,9 @@ path's runs of phase 8 (cold-compile comparisons excluded), the prefill
 and forward runs of phase 9, the mesh runs of phase 10 (device-path
 comparisons excluded), the prefill and forward runs of phases 11 and
 12, the 6 train steps of phase 13, the prefill, forward and train
-runs of phases 14-17, the prefill runs of phase 19 and the prefill and
-fp32 forward runs of phase 20),
+runs of phases 14-17, the prefill runs of phase 19, the prefill and
+fp32 forward runs of phase 20, the ZeRO-1 steps and the pipeline of
+phase 21 and the real train steps of phase 22),
 each counted from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
@@ -5197,6 +5222,396 @@ def lm_phase(torch, ops, ref):
 
 
 # --------------------------------------------------------------------------- #
+# --------------------------------------------------------------------------- #
+DIST_ARCH = "qwen3-0.6b"
+ZERO_MESHES = ((4, 1), (2, 4))  # (data, model) meshes of virtual entries
+ZERO_STEPS = 2
+PIPE_STAGES, PIPE_MICRO, PIPE_T = 4, 8, 2048
+DRY_CELLS = ("qwen3-0.6b", "granite-8b", "kimi-k2-1t-a32b")
+DRY_STEPS = 3                   # the real run: a warm-up and 2 timed steps
+DRY_PEAK_REL = 0.25             # predicted peak against the measured one
+DRY_GROWTH_REL = 1e-3           # argument bytes against the allocation
+
+
+def start_dryrun_cells():
+    """Phase 22's cells on ``meta`` (``launch.dryrun`` at train_4k on the
+    16 x 16 mesh for ``DRY_CELLS``) in a subprocess that sees no card:
+    host work, run while phases 21-22 use the card."""
+    code = ("from repro_torch.launch import dryrun\n"
+            f"for a in {list(DRY_CELLS)!r}:\n"
+            "    dryrun.main(['--arch', a, '--shape', 'train_4k', "
+            "'--mesh', 'single', '--force'])\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def zero_state_mismatches(torch, SH, Z, ref_opt, zs, model, mesh):
+    """Names whose mu, nu or master, gathered from the ZeRO blocks one
+    parameter at a time, differ from the unsharded state's bits."""
+    specs = Z.opt_state_specs(model, mesh).master
+    slots = SH.layer_slots(model)
+    bad = []
+    for n, p in model.named_parameters():
+        for part in ("mu", "nu", "master"):
+            full = SH.gather(getattr(zs, part)[n], specs[n], mesh, p.shape,
+                             p.device, slots.get(n))
+            if not torch.equal(full, getattr(ref_opt, part)[n]):
+                bad.append(f"{part}:{n}")
+    return bad
+
+
+def distributed_phase(torch, ops):
+    """Phase 21: qwen3-0.6b's parameters at full width shard and gather
+    on a 2 x 4 (data, model) mesh of virtual entries of the card; ZeRO-1
+    train steps on 4 x 1 and 2 x 4 meshes against ``make_train_step``; the
+    28 layers as a 4-stage GPipe pipeline against the per-microbatch loop;
+    the distinct-card branch where there is more than one card.  Returns
+    (flash launches over the ZeRO and pipeline paths, a summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import zero as Z
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import (DeviceMesh, make_device_mesh,
+                                         make_local_mesh)
+    from repro_torch.models.steps import (build_model, init_train_state,
+                                          make_train_step)
+    from repro_torch.models.transformer import block_apply
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = torch.device("cuda", 0)
+    cfg = get_config(DIST_ARCH)
+    summary = {}
+
+    # ---- placement: shard then gather every parameter at full width.
+    mesh = make_local_mesh(2, 4, [card] * 8)
+    model = build_model(cfg, device=card, seed=0)
+    specs = SH.param_specs(model, mesh)
+    held = [0] * mesh.size
+    t0 = time.perf_counter()
+    for n, p in model.named_parameters():
+        shards = SH.shard(p, specs[n], mesh)
+        for i, sh in enumerate(shards):
+            held[i] += sh.numel() * sh.element_size()
+        if not torch.equal(SH.gather(shards, specs[n], mesh, p.shape, card),
+                           p):
+            fail(f"placement: {n} does not round-trip bit for bit")
+        del shards
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    reckoned = D.param_bytes(build_model(cfg, device="meta"), mesh)
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    if set(held) != {reckoned}:
+        fail(f"placement: entries hold {sorted(set(held))} bytes, the "
+             f"dry-run reckons {reckoned}")
+    log(f"placement {cfg.name} on 2 x 4 (data, model), 8 entries of the "
+        f"card: every parameter round-trips bit for bit; each entry holds "
+        f"{reckoned:,} B ({reckoned / 2**30:.4f} GiB) = the dry-run's "
+        f"reckoning, of {total:,} B unsharded; {place_s:.2f} s")
+    summary["placement"] = {"entry_bytes": reckoned, "total_bytes": total,
+                            "seconds": place_s}
+
+    # ---- ZeRO-1 against the unsharded step.
+    it = synthetic_batches(cfg, TRAIN_B, TRAIN_T, seed=1)
+    batches = [{k: torch.as_tensor(v, device=card)
+                for k, v in next(it).items()} for _ in range(ZERO_STEPS)]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref, ropt = init_train_state(build_model(cfg, device=card, seed=0))
+    rstep = make_train_step(ref, cfg)
+    r_walls, r_loss = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        ref, ropt, met = rstep(ref, ropt, b)
+        torch.cuda.synchronize()
+        r_walls.append((time.perf_counter() - t0) * 1e3)
+        r_loss.append(met["loss"].clone())
+    r_peak = torch.cuda.max_memory_allocated() - base
+    log(f"zero: unsharded {cfg.name} {TRAIN_B}x{TRAIN_T} bf16 steps ms "
+        f"{[round(w, 2) for w in r_walls]}, peak {r_peak / 2**30:.3f} GiB "
+        f"(params, state and activations), losses "
+        f"{[round(float(x), 5) for x in r_loss]}")
+    summary["unsharded"] = {"step_ms": r_walls, "peak_bytes": r_peak,
+                            "losses": [float(x) for x in r_loss]}
+    n_flash = 0
+    for nd, nm in ZERO_MESHES:
+        zmesh = make_local_mesh(nd, nm, [card] * (nd * nm))
+        torch.cuda.synchronize()
+        zbase = torch.cuda.memory_allocated()
+        model = build_model(cfg, device=card, seed=0)
+        zs = Z.zero_init(model, zmesh)
+        zstep = Z.make_zero_train_step(model, cfg, zmesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        # ---- the ZeRO path: counts zeroed above, read below.
+        walls, losses = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            model, zs, met = zstep(model, zs, b)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(met["loss"].clone())
+        launched = ops.LAUNCHES["flash_attention"]
+        peak = torch.cuda.max_memory_allocated() - zbase
+        # ---- end of the ZeRO path.
+        n_flash += launched
+        per_step = cfg.n_layers * (1 if cfg.remat == "none" else 2)
+        if launched != per_step * ZERO_STEPS:
+            fail(f"zero {nd}x{nm}: flash launches {launched} != "
+                 f"{per_step * ZERO_STEPS}")
+        if not all(torch.equal(a, b) for a, b in zip(losses, r_loss)):
+            fail(f"zero {nd}x{nm}: losses {losses} != unsharded {r_loss}")
+        bad = [n for (n, a), (_, b) in zip(ref.named_parameters(),
+                                           model.named_parameters())
+               if not torch.equal(a, b)]
+        bad += zero_state_mismatches(torch, SH, Z, ropt, zs, model, zmesh)
+        if bad or int(zs.step) != int(ropt.step):
+            fail(f"zero {nd}x{nm}: not bit for bit the unsharded step: "
+                 f"{bad[:8]} ({len(bad)}), step {int(zs.step)}")
+        per_entry = Z.shard_bytes(zs)
+        log(f"zero {cfg.name} on {nd} x {nm} (data, model): 2 steps bit for "
+            f"bit the unsharded steps (loss, parameters, mu, nu, master, "
+            f"step); steps ms {[round(w, 2) for w in walls]} against "
+            f"{[round(w, 2) for w in r_walls]} unsharded; peak "
+            f"{peak / 2**30:.3f} GiB against {r_peak / 2**30:.3f}; state "
+            f"per entry {min(per_entry.values()) / 2**30:.3f}-"
+            f"{max(per_entry.values()) / 2**30:.3f} GiB "
+            f"(state bytes reckoned {D.state_bytes(model, zmesh) / 2**30:.3f}"
+            f"); flash launches {launched}")
+        summary[f"zero_{nd}x{nm}"] = {
+            "step_ms": walls, "peak_bytes": peak,
+            "state_bytes_per_entry": per_entry, "flash_launches": launched}
+        del model, zs, zstep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ropt, rstep, batches
+
+    # ---- GPipe: 4 stages of 7 layers, 8 microbatches of 1 x 2048.
+    pairs = list(zip(ref.specs, ref.layers))
+    per = len(pairs) // PIPE_STAGES
+    parts = [pairs[s * per:(s + 1) * per] for s in range(PIPE_STAGES)]
+    pmesh = DeviceMesh([card] * PIPE_STAGES, (PIPE_STAGES,), ("stage",))
+    gen = torch.Generator(device=card).manual_seed(5)
+
+    def stage(layers, h):
+        for spec, bp in layers:
+            h, _ = block_apply(cfg, spec, bp, h, None)
+        return h
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def pipe():
+        return pipeline_apply(stage, parts, x, pmesh)
+
+    def loop():
+        return torch.stack([stage(pairs, mb) for mb in x])
+
+    with torch.no_grad():
+        x = ref.embed[torch.randint(0, cfg.vocab, (PIPE_MICRO, 1, PIPE_T),
+                                    device=card, generator=gen).long()]
+        loop()                                               # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        # ---- the pipeline path: counts zeroed above, read below.
+        y, t_pipe = timed(pipe)
+        p_flash = ops.LAUNCHES["flash_attention"]
+        # ---- end of the pipeline path; then loop, loop, pipeline.
+        want, t_loop = timed(loop)
+        t_loop2 = timed(loop)[1]
+        t_pipe2 = timed(pipe)[1]
+    pipe_ms, seq_ms = [t_pipe, t_pipe2], [t_loop, t_loop2]
+    if p_flash != cfg.n_layers * PIPE_MICRO:
+        fail(f"pipeline: flash launches {p_flash} != "
+             f"{cfg.n_layers * PIPE_MICRO}")
+    if not torch.equal(y, want):
+        fail("pipeline: not bit for bit the per-microbatch layer loop")
+    n_flash += p_flash
+    bubble = (PIPE_STAGES - 1) / (PIPE_MICRO + PIPE_STAGES - 1)
+    log(f"pipeline {cfg.name}: {cfg.n_layers} layers in {PIPE_STAGES} "
+        f"stages of {per}, {PIPE_MICRO} microbatches of 1x{PIPE_T} bf16 on "
+        f"{PIPE_STAGES} entries of the card: bit for bit the sequential "
+        f"loop; {[round(t, 2) for t in pipe_ms]} ms against "
+        f"{[round(t, 2) for t in seq_ms]} ms sequential (pipeline, loop, "
+        f"loop, pipeline); "
+        f"bubble {PIPE_STAGES - 1}/{PIPE_MICRO + PIPE_STAGES - 1} = "
+        f"{bubble:.4f} of the ticks (one card runs the stages in turn); "
+        f"flash launches {p_flash}")
+    summary["pipeline"] = {"ms": pipe_ms, "sequential_ms": seq_ms,
+                           "bubble": bubble, "flash_launches": p_flash}
+    del ref, parts, pairs, x, y, want
+
+    # ---- the distinct-card branch (0 runs on one card).
+    distinct = 0
+    if torch.cuda.device_count() > 1:
+        devs = make_device_mesh(min(4, torch.cuda.device_count())).devices
+        ws = [torch.randn(256, 256, device=d, generator=torch.Generator(
+            device=d).manual_seed(i)) * 0.06 for i, d in enumerate(devs)]
+        xs = torch.randn(8, 4, 256, device=devs[0])
+        got = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, xs,
+                             DeviceMesh(devs, (len(devs),), ("stage",)))
+        seq = []
+        for mb in xs:
+            h = mb
+            for w in ws:
+                h = torch.tanh(h.to(w.device) @ w)
+            seq.append(h.to(devs[0]))
+        if not torch.equal(got, torch.stack(seq)):
+            fail("pipeline on distinct cards: not the sequential loop")
+        distinct += 1
+    log(f"distributed: distinct-card runs {distinct} "
+        f"({torch.cuda.device_count()} card(s))")
+    summary["distinct_card_runs"] = distinct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n_flash, summary
+
+
+def dryrun_phase(torch, ops, proc):
+    """Phase 22: the dry-run's reckoning of qwen3-0.6b's train step at
+    2 x 4096 on a 1 x 1 mesh against a real run on the card (argument
+    bytes against the tensors and the allocation, the predicted peak
+    against ``max_memory_allocated``, traced flops against
+    ``FlopCounterMode``, the roofline against the step time); then the
+    cells of ``DRY_CELLS`` traced on ``meta`` by ``proc``.  Returns (flash
+    launches over the real steps, a summary)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.steps import (build_model, init_train_state,
+                                          make_train_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = torch.device("cuda", 0)
+    cfg = get_config(DIST_ARCH)
+    cell = ShapeCell(f"train_{TRAIN_B}x{TRAIN_T}", TRAIN_T, TRAIN_B,
+                     "train")
+    t0 = time.perf_counter()
+    rec = D.analyze_cell(cfg, cell, make_local_mesh(1, 1, [card]))
+    trace_s = time.perf_counter() - t0
+    mem = rec["memory"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model, opt = init_train_state(build_model(cfg, device=card, seed=0))
+    batch = {k: torch.as_tensor(v, device=card) for k, v in
+             next(synthetic_batches(cfg, TRAIN_B, TRAIN_T, seed=2)).items()}
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    held = sum(t.numel() * t.element_size() for t in (
+        list(model.parameters()) + list(batch.values())
+        + [t for d in (opt.mu, opt.nu, opt.master) for t in d.values()]))
+    args = mem["argument_bytes"]
+    log(f"dryrun {cfg.name} {TRAIN_B}x{TRAIN_T} train on 1 x 1: traced on "
+        f"meta in {trace_s:.1f} s; argument bytes {args:,} reckoned, "
+        f"{held:,} held by the parameters, state and batch on the card, "
+        f"allocation grew {grown:,} ({(grown - args) / args:+.6%})")
+    if held != args:
+        fail(f"dryrun: argument bytes {args} != the tensors' {held}")
+    if abs(grown - args) > DRY_GROWTH_REL * args:
+        fail(f"dryrun: the allocation grew {grown}, not within "
+             f"{DRY_GROWTH_REL:.1%} of {args}")
+    step = make_train_step(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # ---- the real step: counts zeroed above, read below.
+    walls = []
+    for _ in range(DRY_STEPS):
+        t0 = time.perf_counter()
+        model, opt, met = step(model, opt, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n_flash = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    # ---- end of the real step.
+    with FlopCounterMode(display=False) as fc:
+        step(model, opt, batch)
+    torch.cuda.synchronize()
+    counted = fc.get_total_flops()
+    traced = rec["analysis"]["flops_per_device"]
+    kern = rec["analysis"]["kernel_flops"].get("flash_attention", 0.0)
+    predicted = mem["per_device_total"]
+    med_s = statistics.median(walls[1:]) / 1e3
+    rf = rec["roofline"]
+    roof_s = max(rf["compute_s"], rf["memory_s"], rf["collective_s"])
+    log(f"dryrun: predicted peak {predicted / 2**30:.3f} GiB (arguments "
+        f"{args / 2**30:.3f} + temp {mem['temp_bytes'] / 2**30:.3f} + new "
+        f"outputs), measured max_memory_allocated {peak / 2**30:.3f} GiB "
+        f"over the model's allocations: ratio {predicted / peak:.4f}")
+    log(f"dryrun: traced flops {traced:.6e} = FlopCounterMode on the card "
+        f"{counted:.6e} + the flash kernel's formula {kern:.6e} "
+        f"(difference {traced - counted - kern:.1f})")
+    log(f"dryrun: roofline compute {rf['compute_s'] * 1e3:.2f} ms, memory "
+        f"{rf['memory_s'] * 1e3:.2f} ms, collective "
+        f"{rf['collective_s'] * 1e3:.2f} ms ({rf['dominant']}); step "
+        f"{med_s * 1e3:.2f} ms measured (steps {[round(w, 2) for w in walls]}"
+        f"): the step runs at {roof_s / med_s:.4f} of its roofline; flash "
+        f"launches {n_flash}")
+    if abs(predicted / peak - 1) > DRY_PEAK_REL:
+        fail(f"dryrun: predicted peak {predicted} not within "
+             f"{DRY_PEAK_REL:.0%} of the measured {peak}")
+    if traced - kern != counted:
+        fail(f"dryrun: traced flops {traced} - kernel {kern} != "
+             f"FlopCounterMode's {counted}")
+    if n_flash != DRY_STEPS * cfg.n_layers * (1 if cfg.remat == "none"
+                                               else 2):
+        fail(f"dryrun: flash launches {n_flash}")
+    summary = {"argument_bytes": args, "held_bytes": held,
+               "allocation_growth": grown, "predicted_peak": predicted,
+               "measured_peak": peak, "traced_flops": traced,
+               "flop_counter": counted, "kernel_flops": kern,
+               "roofline": rf, "step_ms": walls, "trace_s": trace_s}
+    del model, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    for line in out.splitlines():
+        log(f"launch.dryrun: {line}")
+    if proc.returncode != 0:
+        fail(f"launch.dryrun exited {proc.returncode}")
+    cells = {}
+    for arch in DRY_CELLS:
+        with open(D.artifact_path(arch, "train_4k", "single")) as fh:
+            r = json.load(fh)
+        if r.get("status") != "ok":
+            fail(f"dryrun {arch} train_4k: {r.get('error')}")
+        rf, m = r["roofline"], r["memory"]
+        gib = m["per_device_total"] / 2**30
+        log(f"dryrun {arch} train_4k on 16 x 16: {gib:.2f} GiB a device "
+            f"(arguments {m['argument_bytes'] / 2**30:.2f}, temp "
+            f"{m['temp_bytes'] / 2**30:.2f}; over the card's 80 GB: "
+            f"{'yes' if m['per_device_total'] > 80e9 else 'no'}); compute "
+            f"{rf['compute_s']:.4f} s, memory {rf['memory_s']:.4f} s, "
+            f"collective {rf['collective_s']:.4f} s: {rf['dominant']}; "
+            f"traced in {r['trace_s']} s")
+        cells[arch] = {"memory": m, "roofline": rf, "trace_s": r["trace_s"],
+                       "collective_bytes": r["analysis"][
+                           "collective_bytes_per_device"]}
+    summary["cells"] = cells
+    summary["cells_wait_s"] = time.perf_counter() - t0
+    return n_flash, summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", default=None,
@@ -5306,6 +5721,18 @@ def main() -> int:
     t7 = time.perf_counter()
     mla_launches, flash_mla, deepseek = deepseek_phase(torch, ops, ref)
     log(f"deepseek phase: {time.perf_counter() - t7:.1f} s")
+    t7 = time.perf_counter()
+    cells_proc = start_dryrun_cells()
+    try:
+        dist_launches, distributed = distributed_phase(torch, ops)
+        log(f"distributed phase: {time.perf_counter() - t7:.1f} s")
+        t8 = time.perf_counter()
+        dry_launches, dryrun = dryrun_phase(torch, ops, cells_proc)
+        log(f"dry-run phase: {time.perf_counter() - t8:.1f} s")
+    finally:
+        if cells_proc.poll() is None:
+            cells_proc.kill()
+            cells_proc.wait()
     flash_nc["vision cross"]["launches"] = vision_nc + cross_nc["vision"]
     flash_nc["whisper encoder"]["launches"] = (whisper_nc
                                                + cross_nc["whisper"])
@@ -5313,7 +5740,8 @@ def main() -> int:
                                + gemma_launches + train_launches
                                + vision_launches + whisper_launches
                                + cross_launches + hymba_launches
-                               + kimi_launches + mla_launches)
+                               + kimi_launches + mla_launches
+                               + dist_launches + dry_launches)
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
@@ -5381,6 +5809,7 @@ def main() -> int:
                        "flash_noncausal": flash_nc,
                        "hymba": hymba, "xlstm": xlstm,
                        "kimi": kimi, "deepseek": deepseek,
+                       "distributed": distributed, "dryrun": dryrun,
                        "bf16_kernels": bf16_kernels,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,
@@ -5390,7 +5819,9 @@ def main() -> int:
                            "whisper": whisper_launches,
                            "cross_train": cross_launches,
                            "hymba": hymba_launches,
-                           "kimi": kimi_launches, "deepseek": mla_launches},
+                           "kimi": kimi_launches, "deepseek": mla_launches,
+                           "distributed": dist_launches,
+                           "dryrun": dry_launches},
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,3 +1,5 @@
-"""Distributed-training pieces the port runs (a port of part of
-``repro/distributed``): int8 gradient compression with error feedback.
-Sharding, pipelining and ZeRO are not ported yet (ROADMAP A15.5)."""
+"""Distributed-training pieces of the port (a port of
+``repro/distributed``): int8 gradient compression with error feedback
+(``compression``), the sharding rules and their placement over a
+``DeviceMesh`` (``sharding``), ZeRO-1 optimizer-state sharding (``zero``)
+and the GPipe pipeline (``pipeline``)."""

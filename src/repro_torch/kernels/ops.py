@@ -16,7 +16,12 @@ grouped KV heads.  Tensors on a CUDA device
 launch the kernel from ``csrc/`` on the current stream, after checking
 device, dtype, shape and strides, and raise on anything the kernel does
 not take; there is no fallback.  Tensors on the CPU go to the plain
-versions in :mod:`repro_torch.kernels.ref`.
+versions in :mod:`repro_torch.kernels.ref`.  Tensors on the ``meta``
+device (the dry-run's, ``launch/op_analysis.py``) run neither: the wrapper
+returns an empty meta result of the kernel's shape and dtype and reports
+the kernel's flops and bytes (the formulas of the bounds in ``PERF.md``
+§6) to the thread's :func:`meta_costs` sink, if one is open.  Operands on
+mixed devices, or on any other device type, raise.
 
 ELL column indices are not checked on the card, where a check would cost
 a device round trip per launch: the executor validates every tile's
@@ -149,14 +154,62 @@ class CudaGraph:
         self.graph.replay()
 
 
-def _on_cpu(*ts: Optional[torch.Tensor]) -> bool:
-    devs = {t.device.type for t in ts if t is not None}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in ts if t is not None}) > 1:
-        raise ValueError("kernel operands must all lie on one device, got "
+def _route(*ts: Optional[torch.Tensor]) -> str:
+    """Where the operands lie, which picks the wrapper's route: "cpu"
+    (the plain version), "cuda" (the kernel, all on one card) or "meta"
+    (shapes and costs only)."""
+    devs = {t.device for t in ts if t is not None}
+    kinds = {d.type for d in devs}
+    if len(kinds) > 1 or (kinds == {"cuda"} and len(devs) > 1):
+        raise ValueError(f"kernel operands lie on mixed devices: "
                          f"{[str(t.device) for t in ts if t is not None]}")
-    return False
+    (kind,) = kinds
+    if kind not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"kernel operands lie on {kind!r}, a device type "
+                         f"no wrapper takes (cpu, cuda or meta)")
+    return kind
+
+
+def _nbytes(*ts: Optional[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+@contextlib.contextmanager
+def meta_costs(sink) -> Iterator[None]:
+    """While open, every wrapper called on meta operands in this thread
+    calls ``sink(name, flops, nbytes)`` with its kernel's cost."""
+    prev = getattr(_tls, "meta_sink", None)
+    _tls.meta_sink = sink
+    try:
+        yield
+    finally:
+        _tls.meta_sink = prev
+
+
+def _meta(name: str, out: torch.Tensor, flops: float,
+          nbytes: float) -> torch.Tensor:
+    """A meta call's result: ``out`` (empty, on meta), its cost reported."""
+    sink = getattr(_tls, "meta_sink", None)
+    if sink is not None:
+        sink(name, float(flops), float(nbytes))
+    return out
+
+
+def flash_pairs(tq: int, tk: int, causal: bool, window: int = 0) -> int:
+    """The (query, key) pairs the flash kernel computes: all Tq Tk, or
+    under ``causal`` those with qpos >= kpos (the kernel skips the key
+    blocks past a query block's last row) and, with a window W,
+    qpos - kpos < W (it skips the blocks before the first row's window),
+    both counted from 0: the pair count of the bounds in ``PERF.md``
+    §6."""
+    if not causal:
+        return tq * tk
+    m = min(tq, tk)
+    pairs = m * (m + 1) // 2 + (tq - m) * tk     # sum of min(tk, i + 1)
+    if window > 0:
+        w = max(0, tq - window)
+        pairs -= w * (w + 1) // 2                # sum of max(0, i - W + 1)
+    return pairs
 
 
 def _check_matrix(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -201,10 +254,15 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
     ``acc`` fp32.  fp32 in and out is the tiled kernel, any other pair
     its mixed-precision body (``csrc/gemm.cu``)."""
     _check_dtype("gemm out_dtype", out_dtype)
-    if _on_cpu(x, w, acc):
+    route = _route(x, w, acc)
+    if route == "cpu":
         y = ref.gemm_ref(x, w)
         return (y if acc is None else acc + y).to(out_dtype)
     m, k = x.shape
+    if route == "meta":
+        n = w.shape[1]
+        out = torch.empty((m, n), dtype=out_dtype, device="meta")
+        return _meta("gemm", out, 2.0 * m * n * k, _nbytes(x, w, acc, out))
     _check_dtype("gemm x", x.dtype)
     _check_matrix("gemm x", x, x.dtype)
     _check_matrix("gemm w", w, x.dtype, (k, w.shape[1]))
@@ -235,9 +293,14 @@ def densify(cols: torch.Tensor, vals: torch.Tensor,
     ``vals[r, k]`` over the slots k with ``cols[r, k] == c``, added in slot
     order from 0 (so a duplicated column gives the same bits every call);
     columns outside [0, n_src) are dropped."""
-    if _on_cpu(cols, vals):
+    route = _route(cols, vals)
+    if route == "cpu":
         return ref.densify_ref(cols, vals, n_src)
     n1, w = cols.shape
+    if route == "meta":
+        out = torch.empty((n1, n_src), dtype=torch.float32, device="meta")
+        return _meta("densify", out, float(n1 * w),
+                     _nbytes(cols, vals, out))
     _check_matrix("densify cols", cols, torch.int32)
     _check_matrix("densify vals", vals, torch.float32, (n1, w))
     if not (cols.is_contiguous() and vals.is_contiguous()):
@@ -260,10 +323,17 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     last live slot (0 for a row with no edge): slots from row_len[r] on
     are not walked, which leaves the result unchanged when they are pads
     (vals == 0).  None walks all w slots."""
-    if _on_cpu(cols, vals, h, acc, row_len):
+    route = _route(cols, vals, h, acc, row_len)
+    if route == "cpu":
         y = ref.spdmm_ref(cols, vals, h, row_len=row_len)
         return y if acc is None else acc + y
     n1, w = cols.shape
+    if route == "meta":
+        # Every slot counts: a meta tile has no live lengths to skip by.
+        f = h.shape[1]
+        out = torch.empty((n1, f), dtype=torch.float32, device="meta")
+        return _meta("spdmm", out, 2.0 * n1 * w * f,
+                     _nbytes(cols, vals, h, acc, row_len, out))
     _check_matrix("spdmm cols", cols, torch.int32)
     _check_matrix("spdmm vals", vals, torch.float32, (n1, w))
     if not (cols.is_contiguous() and vals.is_contiguous()):
@@ -300,7 +370,13 @@ def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
     0, as the Pallas kernel does), ``acc`` None is a zero accumulator.
     ``cols`` index rows of ``h_src``; see the module docstring for a column
     out of range."""
-    if _on_cpu(h_dst, h_src, cols, mask, acc):
+    route = _route(h_dst, h_src, cols, mask, acc)
+    if route == "meta":
+        n1, w = cols.shape
+        out = torch.empty((n1, w), dtype=torch.float32, device="meta")
+        return _meta("sddmm", out, 2.0 * n1 * w * h_dst.shape[1],
+                     _nbytes(h_dst, h_src, cols, mask, acc, out))
+    if route == "cpu":
         if cols.numel() and (int(cols.min()) < 0
                              or int(cols.max()) >= h_src.shape[0]):
             raise ValueError(f"sddmm cols: indices outside [0, "
@@ -368,8 +444,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: a window ({window}) must be >= "
                          f"0 and, when set, needs causal and Tq <= Tk "
                          f"(causal={causal}, Tq={tq}, Tk={tk})")
-    if _on_cpu(q, k, v):
+    route = _route(q, k, v)
+    if route == "cpu":
         return ref.flash_attention_plain(q, k, v, causal, window)
+    if route == "meta":
+        out = torch.empty_like(q)
+        return _meta("flash_attention", out,
+                     4.0 * d * bh * flash_pairs(tq, tk, causal, window),
+                     q.element_size() * d * (2 * bh * tq + 2 * bkv * tk))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention {name}: expected float32 or "

@@ -1,8 +1,10 @@
 """Model configuration for the LM side of the port.
 
 A copy of ``repro/models/config.py``'s ``ModelConfig`` (the same fields
-and defaults, ``hd``, ``is_moe``, ``n_params``), so
-that a config built here equals the JAX package's field for field.  One
+and defaults, ``hd``, ``is_moe``, ``n_params``,
+``n_active_params``), so that a config built here equals the JAX
+package's field for field, and of the dry-run's cells (``ShapeCell``,
+``SHAPES``).  One
 dataclass covers every family (dense / moe / hybrid / vlm / audio / ssm);
 ``torch_dtype`` takes the place of ``jdtype``.  Configs are constructed by
 ``repro_torch.configs.<arch>`` modules.
@@ -133,3 +135,35 @@ class ModelConfig:
             enc = self.n_encoder_layers * (attn + dense_mlp)
             body += enc + L * (attn)  # decoder cross-attn approx
         return emb + body
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only top-k experts)."""
+        if not self.is_moe:
+            return self.n_params()
+        d = self.d_model
+        full = self.n_params()
+        moe_all = 3 * d * self.d_ff_moe * self.n_experts
+        moe_active = 3 * d * self.d_ff_moe * self.top_k
+        n_moe = self.n_layers - self.first_k_dense
+        return full - n_moe * (moe_all - moe_active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (architecture x input-shape) dry-run cell."""
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}

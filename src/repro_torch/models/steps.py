@@ -9,7 +9,8 @@ config); the call shapes are JAX's, batches included: ``tokens`` /
 / ``targets`` / ``target_labels``.  The train step
 differentiates every parameter (``init_train_state`` turns their
 gradients on) with ``torch.autograd.grad`` and updates them in place with
-the in-house AdamW (``repro_torch.optim``).
+the in-house AdamW (``repro_torch.optim``).  :func:`input_specs` gives a
+dry-run cell's inputs, as meta tensors or zeros.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                cosine_schedule)
 
-from .config import ModelConfig
+from .config import ModelConfig, ShapeCell
 from .layers import softmax_xent
 from .transformer import DecoderLM
 from .whisper import WhisperModel
@@ -144,3 +145,35 @@ def make_prefill_step(model: Model, cfg: ModelConfig):
         return dec._logits(x[:, -1, :])
 
     return prefill
+
+
+# --------------------------------------------------------------------------- #
+def input_specs(cfg: ModelConfig, cell: ShapeCell, device="meta",
+                zeros: bool = False) -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of one (arch x shape) dry-run cell,
+    with JAX's keys, shapes and dtypes: empty tensors on ``device`` (the
+    meta device by default: shapes only), or zeros with ``zeros``.  A
+    decode cell's inputs are ``token`` [B, 1] and ``pos`` (0-d); its cache
+    is the model's own ``init_cache``."""
+    def mk(shape, dtype):
+        fill = torch.zeros if zeros else torch.empty
+        return fill(shape, dtype=dtype, device=device)
+
+    b, t = cell.global_batch, cell.seq_len
+    dt = cfg.torch_dtype
+    if cell.kind in ("train", "prefill"):
+        if cfg.encoder_decoder:
+            tl = cfg.decoder_target_len
+            return {"frames": mk((b, t, cfg.d_model), dt),
+                    "targets": mk((b, tl), torch.int32),
+                    "target_labels": mk((b, tl), torch.int32)}
+        out = {"tokens": mk((b, t), torch.int32),
+               "labels": mk((b, t), torch.int32)}
+        if cfg.cross_attn_every:
+            out["vision"] = mk((b, cfg.n_vision_tokens, cfg.d_model), dt)
+        if cell.kind == "prefill":
+            out.pop("labels")
+        return out
+    # decode: one token + cache of seq_len
+    return {"token": mk((b, 1), torch.int32),
+            "pos": mk((), torch.int32)}

@@ -470,6 +470,15 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "for arch in ('hymba-1.5b', 'xlstm-125m'):\n"
         "    assert serve.main(['--arch', arch, '--smoke', '--device', 'cpu',"
         " '--requests', '1', '--prompt-len', '4', '--gen', '3']) == 0\n"
+        "import repro_torch.distributed.sharding"
+        ", repro_torch.distributed.zero, repro_torch.distributed.pipeline\n"
+        "from repro_torch.launch import dryrun, op_analysis, roofline\n"
+        "from repro_torch.models.config import SHAPES, ShapeCell\n"
+        "cell = ShapeCell('t', 16, 16, 'train')\n"
+        "rec = dryrun.analyze_cell(get_smoke_config('qwen3-0.6b'), cell,"
+        " dryrun.make_production_mesh())\n"
+        "assert rec['roofline']['dominant'] in ('compute_s', 'memory_s',"
+        " 'collective_s')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
         " or m.startswith('repro.'))\n"

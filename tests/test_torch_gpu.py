@@ -1518,3 +1518,85 @@ def test_cuda_captured_decode_over_moe_and_latent_caches(cuda, arch,
     captured, _, _ = generate(model, cfg, prompts, 12, capture=True)
     eager, _, _ = generate(model, cfg, prompts, 12, capture=False)
     assert captured.shape == (3, 12) and torch.equal(captured, eager)
+
+
+def test_cuda_zero_train_step_matches_the_unsharded_step(cuda):
+    # ZeRO-1 over 2 x 2 virtual entries of the card (qwen3's smoke stack
+    # of 2 layers split over the 2 data rows): loss, parameters and the
+    # gathered state bit for bit make_train_step's after 2 steps.
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import zero as Z
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.steps import init_train_state, make_train_step
+    cfg = get_smoke_config("qwen3-0.6b")
+    mesh = make_local_mesh(2, 2, [cuda] * 4)
+    ref, ropt = init_train_state(build_model(cfg, seed=1))
+    model = build_model(cfg, seed=1)
+    zs = Z.zero_init(model, mesh)
+    rstep, zstep = make_train_step(ref, cfg), Z.make_zero_train_step(
+        model, cfg, mesh)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (4, 16)),
+                                    dtype=torch.int32, device=cuda)
+                 for k in ("tokens", "labels")}
+        ref, ropt, rm = rstep(ref, ropt, batch)
+        model, zs, zm = zstep(model, zs, batch)
+        assert torch.equal(rm["loss"], zm["loss"])
+    for (n, a), (_, b) in zip(ref.named_parameters(),
+                              model.named_parameters()):
+        assert torch.equal(a, b), n
+    full = Z.zero_gather(zs, model, mesh)
+    for n in ropt.master:
+        assert torch.equal(ropt.mu[n], full.mu[n]), n
+        assert torch.equal(ropt.nu[n], full.nu[n]), n
+        assert torch.equal(ropt.master[n], full.master[n]), n
+
+
+def test_cuda_pipeline_of_layers_is_the_layer_loop(cuda):
+    # GPipe over 2 virtual stage entries: bit for bit the per-microbatch
+    # loop, each layer's attention through the flash kernel.
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.transformer import block_apply
+    cfg = get_smoke_config("qwen3-0.6b")
+    model = build_model(cfg, seed=0)
+    x = model.embed[torch.randint(0, cfg.vocab, (3, 2, 64),
+                                  device=cuda).long()]
+    pairs = list(zip(model.specs, model.layers))
+
+    def stage(layers, h):
+        for spec, bp in layers:
+            h, _ = block_apply(cfg, spec, bp, h, None)
+        return h
+
+    with torch.no_grad():
+        want = torch.stack([stage(pairs, mb) for mb in x])
+        ops.reset_launches()
+        got = pipeline_apply(stage, [pairs[:1], pairs[1:]], x,
+                             DeviceMesh([cuda] * 2, (2,), ("stage",)))
+    assert ops.LAUNCHES["flash_attention"] == 3 * cfg.n_layers
+    assert torch.equal(got, want)
+
+
+def test_cuda_argument_bytes_are_the_train_state_s_bytes(cuda):
+    # The dry-run's argument bytes of a 1 x 1 mesh: the bytes of the
+    # parameters, fp32 master / mu / nu and batch the card holds.
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.steps import init_train_state, input_specs
+    cfg = get_smoke_config("qwen3-0.6b")
+    cell = ShapeCell("s", 16, 4, "train")
+    mesh = make_local_mesh(1, 1, [cuda])
+    want = D.argument_bytes(build_model(cfg, device="meta"), cfg, cell,
+                            mesh)
+    model, opt = init_train_state(build_model(cfg, seed=0))
+    batch = input_specs(cfg, cell, device=cuda, zeros=True)
+    tensors = (list(model.parameters()) + list(batch.values())
+               + [t for d in (opt.mu, opt.nu, opt.master)
+                  for t in d.values()])
+    assert all(t.device.type == "cuda" for t in tensors)
+    assert sum(t.numel() * t.element_size() for t in tensors) == want
