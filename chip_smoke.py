@@ -387,6 +387,23 @@ Phases (any failure exits non-zero; nothing is caught):
    card) on qwen3-0.6b, granite-8b and kimi-k2-1t-a32b at train_4k on the
    16 x 16 mesh: per-device GiB, the three roofline terms, the dominant
    one (its artifacts in ``artifacts/dryrun_torch/``).
+23. The port's last contracts against the Pallas functions: the six
+   ``examples/torch_*.py`` (the user entry points: quickstart, serve_gnn,
+   compiler_tour, minibatch_serve, trace_inference, and
+   lm_pretrain_smoke on qwen3-0.6b, the flash route) in subprocesses
+   started together, each exit code checked and each one's kernel
+   launches read back; meanwhile flash past d = 256 (the d-sliced bodies)
+   at d in {257, 264, 320, 512, 1024}, fp32 and bf16, causal, non-causal
+   at ragged Tq / Tk, windowed and grouped (G = 4) against the plain
+   version (fp32 rtol 1e-5 / atol 1e-4, bf16 ``check_rows``), two
+   launches bit for bit at d = 512, and ``out_dtype`` fp32 -> bf16 and
+   bf16 -> fp32 on flash, SpDMM and SDDMM at rtol 2e-2 / atol 1e-2 (the
+   bf16 store bit for bit the fp32 result rounded, bf16 SDDMM operands
+   bit for bit the fp32 kernel on the widened operands); then flash at
+   d = 512 (BH = 32, T = 2048, bf16, causal) timed beside its bound, the
+   plain version and ``F.scaled_dot_product_attention`` with the backend
+   it dispatched to.  The FL-slice entries of phases 3 and 5 also time
+   SpDMM's bf16 store and SDDMM's bf16 store and bf16 operands.
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths, through its wrapper (``kernels.ops.LAUNCHES``; a CUDA-graph
@@ -400,7 +417,8 @@ comparisons excluded), the prefill and forward runs of phases 11 and
 12, the 6 train steps of phase 13, the prefill, forward and train
 runs of phases 14-17, the prefill runs of phase 19, the prefill and
 fp32 forward runs of phase 20, the ZeRO-1 steps and the pipeline of
-phase 21 and the real train steps of phase 22),
+phase 21, the real train steps of phase 22 and the six examples of
+phase 23, read back from their processes),
 each counted from zero just before the path runs and read just after.
 
 Kernel times are device times: each trial queues a spin kernel first, so
@@ -408,7 +426,10 @@ the host enqueues 20 back-to-back calls while the device is busy, and a
 CUDA event pair around them is divided by 20 (median of 5 trials).
 
 The flash kernel also has an entry of its own at each of the two shapes
-phases 19 and 20 give it, with the launches at that shape.
+phases 19 and 20 give it, with the launches at that shape, and one for
+its d-sliced body at d = 512; SpDMM's bf16 store and SDDMM's bf16 store
+and bf16 operands on the FL slice have one each.  Those three count the
+one call each makes right before its timing.
 
 The last lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout
@@ -428,6 +449,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -828,13 +850,17 @@ def _ell_to_csr(torch, cols, vals, live, n_src):
     return coo.to_sparse_csr()
 
 
-def _spdmm_bound(n1, w, n_src, f, nnz, walked=None):
+def _spdmm_bound(n1, w, n_src, f, nnz, walked=None, h_bytes=4,
+                 out_bytes=4):
     """Bytes: the cols + vals of the slots walked (``walked``; all n1 w
     when None, the full-width walk), row_len [n1] when given, h
-    [n_src, f], acc + out [n1, f], each once; operations: 2 flops per
-    true edge and feature (pad slots are work the data does not need)."""
+    [n_src, f] (``h_bytes`` an element), acc [n1, f] (fp32) and out
+    [n1, f] (``out_bytes`` an element), each once; operations: 2 flops
+    per true edge and feature (pad slots are work the data does not
+    need)."""
     slot_bytes = 8 * n1 * w if walked is None else 8 * walked + 4 * n1
-    nbytes = slot_bytes + 4 * (n_src * f + 2 * n1 * f)
+    nbytes = (slot_bytes + h_bytes * n_src * f + 4 * n1 * f
+              + out_bytes * n1 * f)
     return bound_ms(nbytes, 2.0 * nnz * f)
 
 
@@ -1088,12 +1114,42 @@ def fl_spdmm_entry(torch, ops, ref, prog):
         f"({b_by}; the padded slots' bound {b_pad:.4f} ms, {b_pad_by}), "
         f"L2 gather volume {walked * 4 * f / 1e6:.1f} MB, max|err| "
         f"{err:.2e}")
+    # The bf16 store (out_dtype) on the same slice, fp32 and bf16 h: the
+    # fp32 kernel's result rounded once, bit for bit.
+    store = {}
+    for tag, hh, hb in (("fp32 h", h, 4), ("bf16 h", h.bfloat16(), 2)):
+        ops.reset_launches()
+        got16 = ops.spdmm(cols, vals, hh, acc, row_len,
+                          out_dtype=torch.bfloat16)
+        n_l = ops.launch_totals()["spdmm"]
+        if not torch.equal(got16, ops.spdmm(cols, vals, hh, acc,
+                                            row_len).bfloat16()):
+            fail(f"spdmm FL tile, {tag}, bf16 store: not the fp32 "
+                 "kernel's result rounded once")
+        e16 = check_close(torch, f"spdmm FL tile {tag} bf16 store", got16,
+                          ref.spdmm_step_ref(cols, vals, hh, acc, row_len,
+                                             torch.bfloat16), 2e-2, 1e-2)
+        t16 = median_ms(torch, lambda: ops.spdmm(
+            cols, vals, hh, acc, row_len, out_dtype=torch.bfloat16))
+        t32 = median_ms(torch, lambda: ops.spdmm(cols, vals, hh, acc,
+                                                 row_len))
+        tp = median_ms(torch, lambda: ref.spdmm_step_ref(
+            cols, vals, hh, acc, row_len, torch.bfloat16))
+        b16, b16_by = _spdmm_bound(n1, w, n1, f, nnz, walked, hb, 2)
+        log(f"kernel spdmm on the FL slice, {tag}, bf16 store: kernel "
+            f"{t16:.4f} ms (fp32 store {t32:.4f} ms), plain {tp:.4f} ms, "
+            f"bound {b16:.4f} ms ({b16_by}), max|err| {e16:.2e}; the fp32 "
+            "result rounded once, bit for bit")
+        store[tag] = {"launches": n_l, "max_abs_err": e16, "ms": t16,
+                      "fp32_store_ms": t32, "plain_ms": tp,
+                      "bound_ms": b16, "bound_by": b16_by}
     return {"name": "spdmm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/spdmm.cu",
             "replaces": "src/repro/kernels/spdmm.py:44",
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
-            "full_walk_ms": t_full, "padded_bound_ms": b_pad}
+            "full_walk_ms": t_full, "padded_bound_ms": b_pad,
+            "bf16_store": store}
 
 
 # --------------------------------------------------------------------------- #
@@ -1746,6 +1802,7 @@ def fl_sddmm_entry(torch, ops, ref, prog):
     acc = torch.randn(n1, w, generator=gen, device="cuda")
     fl = sddmm_tile(torch, ops, ref, f"gat-dot FL slice (j,k,s)={key}", hd,
                     hs, cols, mask, acc)
+    fl["bf16"] = sddmm_bf16_cases(torch, ops, ref, hd, hs, cols, mask, acc)
     # Hub tile: n1 = 4096, w = 512, 256 rows with all 512 slots live, the
     # rest with their first 25 (the FL slice's median), live slots packed
     # at the front of each row as the partitioner packs them.
@@ -1764,8 +1821,51 @@ def fl_sddmm_entry(torch, ops, ref, prog):
              "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
              "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
              "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
-             "padded_bound_ms": fl["padded_bound_ms"]},
+             "padded_bound_ms": fl["padded_bound_ms"], "bf16": fl["bf16"]},
             hub)
+
+
+def sddmm_bf16_cases(torch, ops, ref, hd, hs, cols, mask, acc):
+    """On one SDDMM tile: the bf16 store (fp32 operands; the fp32
+    kernel's result rounded once, bit for bit) and bf16 operands (fp32
+    out; the fp32 kernel's result on the widened operands, bit for bit),
+    each held against the plain version and timed beside its bound."""
+    n1, w = cols.shape
+    f = hd.shape[1]
+    nnz = int(mask.sum())
+    rows, slots = torch.nonzero(mask, as_tuple=True)
+    src_rows = int(torch.unique(cols[rows, slots]).numel())
+    dst_rows = int(torch.unique(rows).numel())
+    hd16, hs16 = hd.bfloat16(), hs.bfloat16()
+    out = {}
+    for tag, a, b, odt, eb, ob in (
+            ("bf16 store", hd, hs, torch.bfloat16, 4, 2),
+            ("bf16 operands", hd16, hs16, torch.float32, 2, 4)):
+        ops.reset_launches()
+        got = ops.sddmm(a, b, cols, mask, acc, out_dtype=odt)
+        n_l = ops.launch_totals()["sddmm"]
+        same = (ops.sddmm(hd, hs, cols, mask, acc).bfloat16()
+                if odt == torch.bfloat16 else
+                ops.sddmm(a.float(), b.float(), cols, mask, acc))
+        if not torch.equal(got, same):
+            fail(f"sddmm FL slice, {tag}: not bit for bit the fp32 kernel's "
+                 "result")
+        err = check_close(torch, f"sddmm FL slice {tag}", got,
+                          ref.sddmm_step_ref(a, b, cols, mask, acc, odt),
+                          2e-2, 1e-2)
+        t_k = median_ms(torch, lambda: ops.sddmm(a, b, cols, mask, acc,
+                                                 out_dtype=odt))
+        t_p = median_ms(torch, lambda: ref.sddmm_step_ref(a, b, cols, mask,
+                                                          acc, odt))
+        b_ms, b_by = bound_ms((5 + ob) * n1 * w + 4 * nnz
+                              + eb * f * (dst_rows + src_rows),
+                              2.0 * nnz * f)
+        log(f"kernel sddmm on the FL slice, {tag}: kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max|err| "
+            f"{err:.2e}; bit for bit the fp32 kernel's result")
+        out[tag] = {"launches": n_l, "max_abs_err": err, "ms": t_k,
+                    "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by}
+    return out
 
 
 def sddmm_tile(torch, ops, ref, label, hd, hs, cols, mask, acc):
@@ -5612,6 +5712,276 @@ def dryrun_phase(torch, ops, proc):
     return n_flash, summary
 
 
+# --------------------------------------------------------------------------- #
+# Phase 23: the last contracts (any head dim, out_dtype, the examples)
+# --------------------------------------------------------------------------- #
+CONTRACT_DS = (257, 264, 320, 512, 1024)
+# (label, Tq, Tk, heads, G, causal, window): Tq / Tk ragged against the
+# 64-row tiles, Tq < Tk in the non-causal case.
+CONTRACT_MODES = (("causal", 300, 300, 4, 1, True, 0),
+                  ("non-causal", 200, 333, 4, 1, False, 0),
+                  ("windowed", 300, 300, 4, 2, True, 100),
+                  ("grouped", 300, 300, 8, 4, True, 0))
+WIDE_BH, WIDE_T, WIDE_D = 32, 2048, 512   # the timed d-sliced row
+OUT_DTYPE_TOL = (2e-2, 1e-2)    # JAX's bf16 sweep tolerance (rtol, atol)
+# (script, arguments): the user entry points, at their JAX twins' sizes.
+EXAMPLES = (("torch_quickstart.py",), ("torch_serve_gnn.py",),
+            ("torch_compiler_tour.py",), ("torch_minibatch_serve.py",),
+            ("torch_trace_inference.py", "--out", "{tmp}/trace.json"),
+            ("torch_lm_pretrain_smoke.py", "qwen3-0.6b"))
+EXAMPLE_TIMEOUT = 300
+# Runs an example's main() and prints the kernel launches it made.
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "path = sys.argv[1]\n"
+    "sys.argv = sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_path(path, run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    if e.code not in (0, None):\n"
+    "        raise\n"
+    "from repro_torch.kernels import ops\n"
+    "print('LAUNCHES ' + json.dumps(ops.launch_totals()))\n")
+
+
+def start_examples(tmp):
+    """Every example in a subprocess of its own, all at once, output to a
+    file under ``tmp``; returns name -> (process, log path)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = {}
+    for script, *args in EXAMPLES:
+        log_path = os.path.join(tmp, script + ".log")
+        with open(log_path, "w") as fh:
+            procs[script] = (subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_RUNNER,
+                 os.path.join(HERE, "examples", script),
+                 *(a.format(tmp=tmp) for a in args)],
+                cwd=HERE, env=env, stdout=fh, stderr=subprocess.STDOUT),
+                log_path)
+    return procs
+
+
+def finish_examples(procs):
+    """Wait for every example; fail on a non-zero exit.  Returns name ->
+    {"seconds", "launches"} and the launches summed over all six."""
+    t0, out, total = time.perf_counter(), {}, {}
+    try:
+        for name, (proc, log_path) in procs.items():
+            left = max(1.0, EXAMPLE_TIMEOUT - (time.perf_counter() - t0))
+            try:
+                rc = proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                fail(f"example {name}: still running after "
+                     f"{EXAMPLE_TIMEOUT} s")
+            with open(log_path) as fh:
+                text = fh.read()
+            if rc != 0:
+                fail(f"example {name}: exit {rc}\n{text[-3000:]}")
+            found = re.findall(r"^LAUNCHES (\{.*\})$", text, re.M)
+            if not found:
+                fail(f"example {name}: no launch counts printed")
+            ran = json.loads(found[-1])
+            for k, n in ran.items():
+                total[k] = total.get(k, 0) + n
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "launches": ran}
+            lines = text.strip().splitlines()
+            log(f"example {name}: exit 0 after "
+                f"{out[name]['seconds']:.1f} s, launches {ran}; its last "
+                f"line: {lines[-2][:100] if len(lines) > 1 else ''}")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out, total
+
+
+def sdpa_backend(torch, fn):
+    """The backend ``F.scaled_dot_product_attention`` dispatched to: the
+    first of flash, cuDNN, memory-efficient and math that, allowed alone
+    (``sdpa_kernel``), gives the unrestricted call's output bit for
+    bit."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    want = fn()
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                with sdpa_kernel([backend]):
+                    got = fn()
+            except RuntimeError:            # the backend cannot take it
+                continue
+        if torch.equal(got, want):
+            return backend.name
+    return "not found"
+
+
+def contract_flash_cases(torch, ops, ref, qkv):
+    """Flash past d = 256 against the plain version in every mode; returns
+    the number of cases."""
+    n = 0
+    for d in CONTRACT_DS:
+        for dt in (torch.float32, torch.bfloat16):
+            for label, tq, tk, h, g, causal, window in CONTRACT_MODES:
+                q, k, v = qkv(h, tq, tk, d, dt, g)
+                name = (f"flash d={d} {label} {tq}x{tk} h={h} G={g} "
+                        f"window={window} {str(dt)[6:]}")
+                got = ops.flash_attention(q, k, v, causal, window)
+                want = ref.flash_attention_plain(q, k, v, causal, window)
+                if dt == torch.float32:
+                    check_close(torch, name, got, want, KERNEL_RTOL,
+                                KERNEL_ATOL)
+                else:
+                    check_rows(torch, name, got, want)
+                n += 1
+    return n
+
+
+def out_dtype_cases(torch, ops, ref, qkv, gen):
+    """fp32 -> bf16 and bf16 -> fp32 on flash (both bodies), SpDMM and
+    SDDMM against the plain versions; returns the number of cases."""
+    n = 0
+    for d in (128, WIDE_D):
+        for dt, ot in ((torch.float32, torch.bfloat16),
+                       (torch.bfloat16, torch.float32)):
+            q, k, v = qkv(4, 300, 300, d, dt, 2)
+            name = f"flash out_dtype d={d} {str(dt)[6:]} -> {str(ot)[6:]}"
+            got = ops.flash_attention(q, k, v, True, out_dtype=ot)
+            if got.dtype != ot:
+                fail(f"{name}: returned {got.dtype}")
+            check_close(torch, name, got, ref.flash_attention_plain(
+                q, k, v, True, out_dtype=ot), *OUT_DTYPE_TOL)
+            if dt == torch.float32 and not torch.equal(
+                    got, ops.flash_attention(q, k, v, True).to(ot)):
+                fail(f"{name}: not the fp32 result rounded once")
+            n += 1
+    for n1, w, ns, f in SPDMM_SWEEP:
+        cols = torch.randint(0, ns, (n1, w), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        vals = torch.randn(n1, w, generator=gen, device="cuda")
+        h = torch.randn(ns, f, generator=gen, device="cuda")
+        acc = torch.randn(n1, f, generator=gen, device="cuda")
+        for hh, ot in ((h, torch.bfloat16), (h.bfloat16(), torch.float32),
+                       (h.bfloat16(), torch.bfloat16)):
+            name = f"spdmm out_dtype {n1}x{w} f={f} {hh.dtype} -> {ot}"
+            got = ops.spdmm(cols, vals, hh, acc, out_dtype=ot)
+            check_close(torch, name, got, ref.spdmm_step_ref(
+                cols, vals, hh, acc, out_dtype=ot), *OUT_DTYPE_TOL)
+            if not torch.equal(got, ops.spdmm(cols, vals, hh, acc).to(ot)):
+                fail(f"{name}: not the fp32 result rounded once")
+            n += 1
+    for n1, w, ns, f in SDDMM_SWEEP:
+        cols = torch.randint(0, ns, (n1, w), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        hd = torch.randn(n1, f, generator=gen, device="cuda")
+        hs = torch.randn(ns, f, generator=gen, device="cuda")
+        mask = torch.rand(n1, w, generator=gen, device="cuda") > 0.3
+        acc = torch.randn(n1, w, generator=gen, device="cuda")
+        for a, b, ot in ((hd, hs, torch.bfloat16),
+                         (hd.bfloat16(), hs.bfloat16(), torch.float32),
+                         (hd.bfloat16(), hs.bfloat16(), torch.bfloat16)):
+            name = f"sddmm out_dtype {n1}x{w} f={f} {a.dtype} -> {ot}"
+            got = ops.sddmm(a, b, cols, mask, acc, out_dtype=ot)
+            check_close(torch, name, got, ref.sddmm_step_ref(
+                a, b, cols, mask, acc, ot), *OUT_DTYPE_TOL)
+            if not torch.equal(got, ops.sddmm(a.float(), b.float(), cols,
+                                              mask, acc).to(ot)):
+                fail(f"{name}: not the fp32 kernel on the widened operands, "
+                     "rounded once")
+            n += 1
+    return n
+
+
+def contracts_phase(torch, ops, ref):
+    """Phase 23.  Returns (the d-sliced flash row as a kernels-line entry,
+    the examples' launches summed, the phase's readings)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def qkv(bh, tq, tk, d, dtype, g=1):
+        return [torch.randn(nh, t, d, generator=gen, device="cuda"
+                            ).to(dtype)
+                for nh, t in ((bh, tq), (bh // g, tk), (bh // g, tk))]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        procs = start_examples(tmp)
+        try:     # the kernel checks run while the examples do
+            n_flash = contract_flash_cases(torch, ops, ref, qkv)
+            log(f"flash past d = 256: {n_flash} cases (d in {CONTRACT_DS},"
+                " fp32 and bf16, causal / non-causal / windowed / G=4, "
+                "ragged) within tolerance")
+            n_out = out_dtype_cases(torch, ops, ref, qkv, gen)
+            log(f"out_dtype: {n_out} flash / SpDMM / SDDMM cases within "
+                f"rtol {OUT_DTYPE_TOL[0]} / atol {OUT_DTYPE_TOL[1]}, each "
+                "bit for bit the fp32 result rounded once")
+        except BaseException:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            raise
+        examples, ex_launches = finish_examples(procs)
+    if ex_launches.get("flash_attention", 0) <= 0 or min(
+            ex_launches.get(k, 0) for k in ("gemm", "spdmm")) <= 0:
+        fail(f"the examples launched too few kernels: {ex_launches}")
+
+    # Two identical launches, then the timed row (BH = 32, T = 2048, bf16,
+    # causal), each counted from zero around the one call that drives it.
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(8, 700, 700, WIDE_D, dt, 2)
+        if not torch.equal(ops.flash_attention(q, k, v, True),
+                           ops.flash_attention(q, k, v, True)):
+            fail(f"flash d={WIDE_D} {dt}: two launches differ")
+    q, k, v = qkv(WIDE_BH, WIDE_T, WIDE_T, WIDE_D, torch.bfloat16)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, True)
+    launches = ops.launch_totals()["flash_attention"]
+    if not torch.equal(got, ops.flash_attention(q, k, v, True)):
+        fail(f"flash d={WIDE_D} at the timed shape: two launches differ")
+    want = ref.flash_attention_plain(q, k, v, True)
+    r_whole, r_row = check_rows(torch, f"flash d={WIDE_D} timed shape", got,
+                                want)
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True),
+                    reps=3, launches=5)
+    t_p = median_ms(torch, lambda: ref.flash_attention_plain(q, k, v, True),
+                    reps=3, launches=3)
+    lib, how = sdpa_yardstick(torch, q, k, v)
+    t_l = median_ms(torch, lib, reps=3, launches=5)
+    backend = sdpa_backend(torch, lib)
+    b_ms, b_by = flash_bound(WIDE_BH, WIDE_T, WIDE_T, WIDE_D, True, 2,
+                             PEAK_BF16_FLOP_S)
+    flops = 4.0 * WIDE_D * WIDE_BH * WIDE_T * (WIDE_T + 1) / 2
+    log(f"kernel flash_attention d-sliced body BH={WIDE_BH} T={WIDE_T} "
+        f"d={WIDE_D} causal bf16: kernel {t_k:.4f} ms "
+        f"({flops / t_k / 1e9:.1f} TFLOP/s of useful work; the body "
+        f"recomputes Q.K^T in each of {-(-WIDE_D // 128)} d-slices), plain "
+        f"{t_p:.4f} ms, F.scaled_dot_product_attention ({how}; backend "
+        f"{backend}) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), relative "
+        f"L2 {r_whole:.3e} whole, {r_row:.3e} worst row, max|err| "
+        f"{err:.2e}; {launches} launch driven")
+    entry = {"name": f"flash_attention (d-sliced body, d={WIDE_D}: "
+                     f"BH={WIDE_BH} T={WIDE_T} bf16 causal)",
+             "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:26",
+             "launches": launches, "max_abs_err": err, "ms": t_k,
+             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": t_l}
+    del q, k, v
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    return entry, ex_launches, {
+        "flash_cases": n_flash, "out_dtype_cases": n_out,
+        "examples": examples, "sdpa_backend": backend,
+        "wide_row": {"kernel_ms": t_k, "plain_ms": t_p, "sdpa_ms": t_l,
+                     "bound_ms": b_ms, "whole": r_whole, "worst_row": r_row},
+        "seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", default=None,
@@ -5733,6 +6103,10 @@ def main() -> int:
         if cells_proc.poll() is None:
             cells_proc.kill()
             cells_proc.wait()
+    t7 = time.perf_counter()
+    wide_entry, ex_launches, contracts = contracts_phase(torch, ops, ref)
+    log(f"contracts phase (examples, flash past d = 256, out_dtype): "
+        f"{time.perf_counter() - t7:.1f} s")
     flash_nc["vision cross"]["launches"] = vision_nc + cross_nc["vision"]
     flash_nc["whisper encoder"]["launches"] = (whisper_nc
                                                + cross_nc["whisper"])
@@ -5741,17 +6115,19 @@ def main() -> int:
                                + vision_launches + whisper_launches
                                + cross_launches + hymba_launches
                                + kimi_launches + mla_launches
-                               + dist_launches + dry_launches)
+                               + dist_launches + dry_launches
+                               + ex_launches["flash_attention"])
     kernels = [gemm_entry, spdmm_entry, sddmm_entry]
     for e in kernels:
         e["launches"] = sum(run.get(e["name"], 0) for run in (
             launches, rt_launches, host_launches, co_launches, fl_launches,
             sp_launches, conf_launches, live_launches, mesh_launches,
-            replay_launches))
+            replay_launches, ex_launches))
     kernels.append(flash_entry)
     densify_entry["launches"] = co_launches["densify"] + \
         fl_launches["densify"] + conf_launches["densify"] + \
-        live_launches["densify"] + mesh_launches["densify"]
+        live_launches["densify"] + mesh_launches["densify"] + \
+        ex_launches["densify"]
     kernels.append(densify_entry)
     kernels.append(flash_shape_entry(
         flash_kimi, "flash_attention (kimi-k2 prefill: G=8, d=112)",
@@ -5759,11 +6135,24 @@ def main() -> int:
     kernels.append(flash_shape_entry(
         flash_mla, "flash_attention (deepseek-v3 MLA: d=192, V padded)",
         mla_launches))
+    kernels.append(wide_entry)
+    for base, tag, row in (
+            (spdmm_entry, "bf16 store, FL slice, fp32 h",
+             spdmm_entry["bf16_store"]["fp32 h"]),
+            (sddmm_entry, "bf16 store, FL slice",
+             sddmm_entry["bf16"]["bf16 store"]),
+            (sddmm_entry, "bf16 operands, FL slice",
+             sddmm_entry["bf16"]["bf16 operands"])):
+        kernels.append({**{k: base[k] for k in ("route", "source",
+                                                "replaces")},
+                        "name": f"{base['name']} ({tag})",
+                        "library_ms": None, **row})
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
     spdmm_extra = {k: spdmm_entry[k] for k in ("full_walk_ms",
-                                               "padded_bound_ms")}
+                                               "padded_bound_ms",
+                                               "bf16_store")}
     kernels = [{k: e[k] for k in order} for e in kernels]
     result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5776,7 +6165,8 @@ def main() -> int:
                        "spdmm_fl_slice": spdmm_extra,
                        "sddmm_fl_slice": {
                            "padded_bound_ms": sddmm_entry[
-                               "padded_bound_ms"]},
+                               "padded_bound_ms"],
+                           "bf16": sddmm_entry["bf16"]},
                        "sddmm_hub_tile": sddmm_hub,
                        "max_memory_allocated": peak,
                        "requests": [{"id": r.request_id,
@@ -5810,6 +6200,7 @@ def main() -> int:
                        "hymba": hymba, "xlstm": xlstm,
                        "kimi": kimi, "deepseek": deepseek,
                        "distributed": distributed, "dryrun": dryrun,
+                       "contracts": contracts,
                        "bf16_kernels": bf16_kernels,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,
@@ -5821,7 +6212,8 @@ def main() -> int:
                            "hymba": hymba_launches,
                            "kimi": kimi_launches, "deepseek": mla_launches,
                            "distributed": dist_launches,
-                           "dryrun": dry_launches},
+                           "dryrun": dry_launches,
+                           "examples": ex_launches["flash_attention"]},
                        "seconds": time.perf_counter() - t_start,
                        **result}, fh, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -307,6 +307,17 @@ class Engine:
         self.stats = EngineStats()
 
     @property
+    def resident_budget_bytes(self) -> Optional[int]:
+        """Device-residency budget enforced by the executor: the
+        device-resident path refuses runs whose liveness-aware peak
+        exceeds it, the ``residency="host"`` path streams within it."""
+        return self._executor.resident_budget_bytes
+
+    @resident_budget_bytes.setter
+    def resident_budget_bytes(self, v: Optional[int]) -> None:
+        self._executor.resident_budget_bytes = v
+
+    @property
     def exec_stats(self) -> ExecStats:
         """Counters of the most recent ``run`` only."""
         return self._executor.stats

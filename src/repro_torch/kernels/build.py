@@ -42,16 +42,23 @@ _ARGTYPES = {
               + [_c_void_p]),
     "spdmm_bf16": ("spdmm_bf16", [_c_void_p] * 6 + [_c_int] * 3
                    + [_c_ll] * 3 + [_c_void_p]),
+    "spdmm_bf16_out": ("spdmm_bf16_out", [_c_void_p] * 6 + [_c_int] * 4
+                       + [_c_ll] * 3 + [_c_void_p]),
     "sddmm": ("sddmm_f32", [_c_void_p] * 6 + [_c_int] * 4 + [_c_ll] * 2
               + [_c_void_p]),
+    "sddmm_bf16": ("sddmm_bf16", [_c_void_p] * 6 + [_c_int] * 4
+                   + [_c_ll] * 2 + [_c_void_p]),
+    "sddmm_bf16_out": ("sddmm_bf16_out", [_c_void_p] * 6 + [_c_int] * 5
+                       + [_c_ll] * 2 + [_c_void_p]),
     "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
-                        + [_c_int] * 8 + [_c_float, _c_void_p]),
+                        + [_c_int] * 9 + [_c_float, _c_void_p]),
     "densify": ("ell_densify_f32", [_c_void_p] * 3 + [_c_int] * 3
                 + [_c_ll, _c_void_p]),
 }
 # Entry points that live in another kernel's source (library).
 _SOURCE_OF = {"densify": "gemm", "gemm_mixed": "gemm",
-              "spdmm_bf16": "spdmm"}
+              "spdmm_bf16": "spdmm", "spdmm_bf16_out": "spdmm",
+              "sddmm_bf16": "sddmm", "sddmm_bf16_out": "sddmm"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -38,7 +38,8 @@
 // are issued heaviest first (the last causal tiles walk the most keys).
 // Ragged edges are masked in the kernel: rows past Tq are computed on
 // zeros and not stored, keys past Tk score nothing, columns past d are zero
-// in shared memory, so any Tq, Tk >= 1 and d <= 256 work.  The walk over
+// in shared memory, so any Tq, Tk >= 1 and d <= 256 work (d > 256 takes
+// the d-sliced bodies, the third item below).  The walk over
 // KV tiles is bounded on both sides: tiles strictly after the query tile
 // are skipped under causal masking, as in the Pallas kernel, and under a
 // window W tiles wholly before key q0 - W + 1 (q0 the tile's first row)
@@ -89,6 +90,17 @@
 //    the P.V product, and K and V share one staging buffer (85 KB at
 //    d = 128, two CTAs per SM; 147 KB at d = 256, one).  Loads and math
 //    alternate behind __syncthreads.
+//  * d > 256 (the Pallas kernel takes any d): one CTA per (bh, 64-row
+//    query tile, 128-column slice of the output), fp32 on CUDA cores with
+//    the fp32 body's layout or bf16 through mma.sync m16n8k16.  A CTA
+//    builds its rows' whole S = Q.K^T from 64-column chunks of Q and K
+//    staged in shared memory, runs the recurrence and accumulates only its
+//    slice of O, so the Q.K^T work is done ceil(d / 128) times over.  64
+//    rows of a 512-wide fp32 accumulator (128 KB) fit no warpgroup's
+//    registers; a slice of 128 columns is 64 (bf16) or 32 (fp32) a thread.
+//    Simple and slow: a single-pass design is queued (ROADMAP B4).
+// Every body writes out in fp32 or bf16 (`out_dtype`, the Pallas kernel's
+// argument), rounding the fp32 result once at the store.
 // The kernel launches on the caller's stream and allocates nothing.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -140,10 +152,16 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src,
   }
 }
 
-template <int DP>
+// The epilogue's store of one output element in the output's type.
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <int DP, typename OutT>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
+                 const float* __restrict__ v, OutT* __restrict__ out,
                  int tq, int tk, int d, int causal, int window, int group,
                  float scale) {
   constexpr int LD = SimtSmem<DP>::LD;
@@ -267,7 +285,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = out + bh * tq * d;
+  OutT* ob = out + bh * tq * d;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + rg * 4 + i;
@@ -276,7 +294,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < OC; ++j) {
       const int c = cg + 16 * j;
-      if (c < d) ob[(long long)r * d + c] = o[i][j] * inv;
+      if (c < d) put(ob + (long long)r * d + c, o[i][j] * inv);
     }
   }
 }
@@ -676,12 +694,12 @@ __device__ __forceinline__ void produce(
   }
 }
 
-template <int DP, bool TMA>
+template <int DP, bool TMA, typename OutT>
 __global__ void __launch_bounds__(WgSmem<DP>::THREADS, 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int tq, int tk, int d,
+                  OutT* __restrict__ out, int tq, int tk, int d,
                   int causal, int window, int group, float scale,
                   const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
@@ -867,7 +885,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
-  __nv_bfloat16* ob = out + (long long)bh * tq * d;
+  OutT* ob = out + (long long)bh * tq * d;
 #pragma unroll
   for (int i = 0; i < ON / 4; ++i) {
     const int c = 8 * i + 2 * t4;
@@ -876,16 +894,410 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const int r = hi ? row_hi : row_lo;
       const float inv = hi ? inv_hi : inv_lo;
       if (r >= tq) continue;
-      __nv_bfloat16* dst = ob + (long long)r * d + c;
+      OutT* dst = ob + (long long)r * d + c;
       const float x0 = o[4 * i + 2 * hi] * inv;
       const float x1 = o[4 * i + 2 * hi + 1] * inv;
       if (c + 1 < d && (d & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(dst) =
-            __floats2bfloat162_rn(x0, x1);
+        if constexpr (sizeof(OutT) == 2)
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(x0, x1);
+        else
+          *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
       } else {
-        if (c < d) dst[0] = __float2bfloat16(x0);
-        if (c + 1 < d) dst[1] = __float2bfloat16(x1);
+        if (c < d) put(dst, x0);
+        if (c + 1 < d) put(dst + 1, x1);
       }
+    }
+  }
+}
+
+// ------------------------------------------------------------------------ //
+// d > 256: the output's feature dimension split across CTAs.
+// ------------------------------------------------------------------------ //
+// A CTA owns 64 query rows and one slice of WIDE_DS output columns
+// (grid: bh, query tile, slice).  For each KV tile of 64 keys it builds
+// the whole S = Q.K^T of its rows, streaming Q and K through shared
+// memory in chunks of WIDE_DC columns (the last one zero-padded past d in
+// shared memory; global memory is never read past d), runs the online
+// max / sum recurrence on S, and accumulates only O[:, slice] += P.V[:,
+// slice].  Every slice of a query tile recomputes the same S and
+// statistics (ceil(d / WIDE_DS) times the Q.K^T work), so no CTA needs
+// another's result and no sum crosses CTAs: the chunks are summed in
+// order from column 0, with no atomics, and a rerun gives the same bits.
+// The masking is the bodies' above (causal skip of later KV tiles, the
+// window's first tile, ragged Tq / Tk).
+constexpr int WIDE_DC = 64;      // Q / K columns staged per d-chunk
+constexpr int WIDE_DS = 128;     // output columns per CTA (one d-slice)
+
+// fp32: CUDA cores, the fp32 body's thread layout.  Thread (rg, cg) owns
+// rows 4rg .. 4rg + 3, score columns cg + 16j and slice columns cg + 16j.
+struct WideF32Smem {
+  static constexpr int LDC = WIDE_DC + 4;   // a Q / K chunk row (floats)
+  static constexpr int LDV = WIDE_DS + 4;   // a V slice row
+  static constexpr int LDP = BK + 4;        // a P row
+  static constexpr int BYTES = (BQ * LDC + BK * LDC + BK * LDV + BQ * LDP) * 4;
+};
+
+// rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a [n_rows, d] fp32
+// matrix into dst (row stride LD), zero past n_rows and d.
+template <int ROWS, int COLS, int LD>
+__device__ __forceinline__ void stage_wide_f32(float* dst, const float* src,
+                                               int r0, int n_rows, int c0,
+                                               int d) {
+  for (int e = threadIdx.x; e < ROWS * COLS; e += SIMT_THREADS) {
+    const int r = e / COLS, c = e % COLS;
+    const int gr = r0 + r, gc = c0 + c;
+    dst[r * LD + c] = (gr < n_rows && gc < d)
+                          ? src[(long long)gr * d + gc] : 0.0f;
+  }
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(SIMT_THREADS)
+flash_f32_wide_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, OutT* __restrict__ out,
+                      int tq, int tk, int d, int causal, int window,
+                      int group, float scale) {
+  using L = WideF32Smem;
+  constexpr int OC = WIDE_DS / 16;       // slice columns per thread
+  extern __shared__ float4 wide_f4[];
+  float* Qc = reinterpret_cast<float*>(wide_f4);   // [BQ][LDC]
+  float* Kc = Qc + BQ * L::LDC;                    // [BK][LDC]
+  float* Vs = Kc + BK * L::LDC;                    // [BK][LDV]
+  float* Ps = Vs + BK * L::LDV;                    // [BQ][LDP]
+
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4, cg = tid & 15;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int s0 = blockIdx.z * WIDE_DS;             // the slice's column 0
+  const long long bh = blockIdx.x;
+  const long long bkv = (int)blockIdx.x / group;
+  const float* qb = q + bh * tq * d;
+  const float* kb = k + bkv * tk * d;
+  const float* vb = v + bkv * tk * d;
+
+  float m[4], l[4], o[4][OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < OC; ++j) o[i][j] = 0.0f;
+  }
+
+  const int n_kt = kv_tiles(q0, tk, causal);
+  for (int kt = kv_tile_begin(q0, window, BK); kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    for (int c0 = 0; c0 < d; c0 += WIDE_DC) {
+      __syncthreads();                     // the last reads of Qc / Kc / Vs
+      stage_wide_f32<BQ, WIDE_DC, L::LDC>(Qc, qb, q0, tq, c0, d);
+      stage_wide_f32<BK, WIDE_DC, L::LDC>(Kc, kb, k0, tk, c0, d);
+      if (c0 == 0)
+        stage_wide_f32<BK, WIDE_DS, L::LDV>(Vs, vb, k0, tk, s0, d);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < WIDE_DC; c += 4) {
+        float4 qa[4], ka[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qa[i] = *reinterpret_cast<const float4*>(
+              &Qc[(rg * 4 + i) * L::LDC + c]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          ka[j] = *reinterpret_cast<const float4*>(
+              &Kc[(cg + 16 * j) * L::LDC + c]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float a = s[i][j];
+            a = fmaf(qa[i].x, ka[j].x, a);
+            a = fmaf(qa[i].y, ka[j].y, a);
+            a = fmaf(qa[i].z, ka[j].z, a);
+            a = fmaf(qa[i].w, ka[j].w, a);
+            s[i][j] = a;
+          }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + rg * 4 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + cg + 16 * j;
+        const bool ok = kpos < tk && (!causal || kpos <= qpos) &&
+                        (window <= 0 || qpos - kpos < window);
+        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);   // masked: exp(-inf) = 0
+        Ps[(rg * 4 + i) * L::LDP + cg + 16 * j] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(FULL, rs, off);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < OC; ++j) o[i][j] *= alpha;
+    }
+    __syncwarp();                          // a row's P lies in one warp
+
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(
+            &Ps[(rg * 4 + i) * L::LDP + kk]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float* vrow = &Vs[(kk + t) * L::LDV + cg];
+#pragma unroll
+        for (int j = 0; j < OC; ++j) {
+          const float vv = vrow[16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = t == 0 ? pa[i].x : t == 1 ? pa[i].y
+                          : t == 2 ? pa[i].z : pa[i].w;
+            o[i][j] = fmaf(p, vv, o[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  OutT* ob = out + bh * tq * d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + rg * 4 + i;
+    if (r >= tq) continue;
+    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < OC; ++j) {
+      const int c = s0 + cg + 16 * j;
+      if (c < d) put(ob + (long long)r * d + c, o[i][j] * inv);
+    }
+  }
+}
+
+// bf16: tensor cores through mma.sync m16n8k16 (fp32 accumulation).  Four
+// warps, warp w owning query rows 16w .. 16w + 15 of the tile; operand
+// fragments are read from padded shared-memory rows with 32-bit loads
+// (rows 144 bytes apart: the eight rows of a fragment fall in distinct
+// banks).  V's slice is staged transposed (V^T[column][key]), so P.V's B
+// fragments are pairs of adjacent keys like Q.K^T's.  S's accumulators
+// are P.V's A fragments, P rounded to bf16 in registers as the wgmma body
+// rounds it.
+constexpr int WIDE_THREADS = 128;
+constexpr int WIDE_LDC = WIDE_DC + 8;    // bf16: a Q / K chunk row
+constexpr int WIDE_LDV = BK + 8;         // bf16: a V^T row (BK keys)
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// C (+)= A.B, m16n8k16, bf16 in, fp32 accumulators.
+__device__ __forceinline__ void mma_16816(float (&c)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bf16 of row gr from column gc of a [n_rows, d] matrix, zero past
+// n_rows and d; VEC: d % 8 == 0 and the base 16-byte aligned.
+template <bool VEC>
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, int gr,
+                                       int n_rows, int gc, int d) {
+  if (gr >= n_rows) return make_uint4(0, 0, 0, 0);
+  const __nv_bfloat16* p = src + (long long)gr * d + gc;
+  if (VEC) {
+    if (gc < d) return *reinterpret_cast<const uint4*>(p);
+    return make_uint4(0, 0, 0, 0);
+  }
+  __align__(16) __nv_bfloat16 h[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    h[i] = gc + i < d ? p[i] : __float2bfloat16(0.0f);
+  return *reinterpret_cast<uint4*>(h);
+}
+
+template <bool VEC, typename OutT>
+__global__ void __launch_bounds__(WIDE_THREADS)
+flash_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       OutT* __restrict__ out, int tq, int tk, int d,
+                       int causal, int window, int group, float scale) {
+  constexpr int NT = WIDE_DS / 8;        // n-tiles of the O slice
+  __shared__ __align__(16) __nv_bfloat16 Qc[BQ * WIDE_LDC];
+  __shared__ __align__(16) __nv_bfloat16 Kc[BK * WIDE_LDC];
+  __shared__ __align__(16) __nv_bfloat16 Vt[WIDE_DS * WIDE_LDV];
+
+  const int tid = threadIdx.x;
+  const int w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int s0 = blockIdx.z * WIDE_DS;
+  const int bh = blockIdx.x;
+  const int bkv = bh / group;
+  const __nv_bfloat16* qb = q + (long long)bh * tq * d;
+  const __nv_bfloat16* kb = k + (long long)bkv * tk * d;
+  const __nv_bfloat16* vb = v + (long long)bkv * tk * d;
+  const int row_lo = q0 + 16 * w + g, row_hi = row_lo + 8;
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m_lo = NEG, m_hi = NEG, l_lo = 0.0f, l_hi = 0.0f;
+
+  const int n_kt = kv_tiles(q0, tk, causal);
+  for (int kt = kv_tile_begin(q0, window, BK); kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+    for (int c0 = 0; c0 < d; c0 += WIDE_DC) {
+      __syncthreads();                     // the last reads of Qc / Kc / Vt
+      for (int e = tid; e < BQ * (WIDE_DC / 8); e += WIDE_THREADS) {
+        const int r = e / (WIDE_DC / 8), c = (e % (WIDE_DC / 8)) * 8;
+        *reinterpret_cast<uint4*>(&Qc[r * WIDE_LDC + c]) =
+            load8<VEC>(qb, q0 + r, tq, c0 + c, d);
+        *reinterpret_cast<uint4*>(&Kc[r * WIDE_LDC + c]) =
+            load8<VEC>(kb, k0 + r, tk, c0 + c, d);
+      }
+      if (c0 == 0) {
+        // V[k0 + key][s0 + c .. + 7] to V^T[c .. c + 7][key]; consecutive
+        // threads take consecutive keys.
+        for (int e = tid; e < BK * (WIDE_DS / 8); e += WIDE_THREADS) {
+          const int key = e % BK, c = (e / BK) * 8;
+          uint4 x = load8<VEC>(vb, k0 + key, tk, s0 + c, d);
+          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&x);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) Vt[(c + i) * WIDE_LDV + key] = h[i];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kq = 0; kq < WIDE_DC / 16; ++kq) {
+        const __nv_bfloat16* qa = &Qc[(16 * w + g) * WIDE_LDC + 16 * kq
+                                      + 2 * t4];
+        const uint32_t a[4] = {ld_pair(qa), ld_pair(qa + 8 * WIDE_LDC),
+                               ld_pair(qa + 8),
+                               ld_pair(qa + 8 * WIDE_LDC + 8)};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const __nv_bfloat16* kp = &Kc[(8 * j + g) * WIDE_LDC + 16 * kq
+                                        + 2 * t4];
+          mma_16816(sc[j], a, ld_pair(kp), ld_pair(kp + 8));
+        }
+      }
+    }
+
+    // sc[j][e]: row row_lo (e < 2) or row_hi, key k0 + 8j + 2 t4 + (e & 1).
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int qpos = e < 2 ? row_lo : row_hi;
+        const bool ok = kpos < tk && (!causal || kpos <= qpos) &&
+                        (window <= 0 || qpos - kpos < window);
+        sc[j][e] = ok ? sc[j][e] * scale : -INFINITY;
+        if (e < 2) mx_lo = fmaxf(mx_lo, sc[j][e]);
+        else mx_hi = fmaxf(mx_hi, sc[j][e]);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(FULL, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(FULL, mx_hi, off));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float rs_lo = 0.0f, rs_hi = 0.0f;      // this thread's part of the sum
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      sc[j][0] = expf(sc[j][0] - mn_lo);   // masked: exp(-inf) = 0
+      sc[j][1] = expf(sc[j][1] - mn_lo);
+      sc[j][2] = expf(sc[j][2] - mn_hi);
+      sc[j][3] = expf(sc[j][3] - mn_hi);
+      rs_lo += sc[j][0] + sc[j][1];
+      rs_hi += sc[j][2] + sc[j][3];
+    }
+    l_lo = l_lo * al_lo + rs_lo;
+    l_hi = l_hi * al_hi + rs_hi;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= al_lo;
+      o[n][1] *= al_lo;
+      o[n][2] *= al_hi;
+      o[n][3] *= al_hi;
+    }
+
+    // O[:, slice] += P.V[:, slice]: keys 16 kc .. 16 kc + 15 are n-tiles
+    // 2 kc and 2 kc + 1 of S.
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
+                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
+                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
+                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const __nv_bfloat16* vp = &Vt[(8 * n + g) * WIDE_LDV + 16 * kc
+                                      + 2 * t4];
+        mma_16816(o[n], pa, ld_pair(vp), ld_pair(vp + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(FULL, l_lo, off);
+    l_hi += __shfl_xor_sync(FULL, l_hi, off);
+  }
+  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
+  OutT* ob = out + (long long)bh * tq * d;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = s0 + 8 * n + 2 * t4;
+    if (row_lo < tq) {
+      if (c < d) put(ob + (long long)row_lo * d + c, o[n][0] * inv_lo);
+      if (c + 1 < d) put(ob + (long long)row_lo * d + c + 1, o[n][1] * inv_lo);
+    }
+    if (row_hi < tq) {
+      if (c < d) put(ob + (long long)row_hi * d + c, o[n][2] * inv_hi);
+      if (c + 1 < d) put(ob + (long long)row_hi * d + c + 1, o[n][3] * inv_hi);
     }
   }
 }
@@ -937,11 +1349,11 @@ bool make_map(CUtensorMap* map, const void* base, int heads, int rows, int d,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+template <int DP, typename OutT>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int bh, int tq, int tk, int d, int causal, int window,
                int group, float scale, cudaStream_t stream) {
-  auto kernel = flash_f32_kernel<DP>;
+  auto kernel = flash_f32_kernel<DP, OutT>;
   const int smem = SimtSmem<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -949,12 +1361,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   dim3 grid(bh, (tq + BQ - 1) / BQ);
   kernel<<<grid, SIMT_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), tq, tk, d,
+      static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d,
       causal, window, group, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, typename OutT>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int bh, int tq, int tk, int d, int causal, int window,
                 int group, float scale, cudaStream_t stream) {
@@ -969,8 +1381,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                    make_map(&maps[0], q, bh, tq, d, WgSmem<DP>::BQ) &&
                    make_map(&maps[1], k, bh / group, tk, d, WgSmem<DP>::BK) &&
                    make_map(&maps[2], v, bh / group, tk, d, WgSmem<DP>::BK);
-  auto kernel = tma ? flash_bf16_kernel<DP, true>
-                    : flash_bf16_kernel<DP, false>;
+  auto kernel = tma ? flash_bf16_kernel<DP, true, OutT>
+                    : flash_bf16_kernel<DP, false, OutT>;
   const int smem = WgSmem<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -980,20 +1392,62 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), tq, tk, d, causal, window, group,
+      static_cast<OutT*>(out), tq, tk, d, causal, window, group,
       scale, maps[0], maps[1], maps[2]);
   return (int)cudaGetLastError();
 }
 
+// d > 256: grid (bh, query tile, d-slice).
+template <typename OutT>
+int launch_wide(int dtype, const void* q, const void* k, const void* v,
+                void* out, int bh, int tq, int tk, int d, int causal,
+                int window, int group, float scale, cudaStream_t stream) {
+  dim3 grid(bh, (tq + BQ - 1) / BQ, (d + WIDE_DS - 1) / WIDE_DS);
+  if (dtype == 0) {
+    auto kernel = flash_f32_wide_kernel<OutT>;
+    const int smem = WideF32Smem::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, SIMT_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d,
+        causal, window, group, scale);
+  } else {
+    const bool vec = d % 8 == 0 &&
+                     ((reinterpret_cast<uintptr_t>(q) |
+                       reinterpret_cast<uintptr_t>(k) |
+                       reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+    auto kernel = vec ? flash_bf16_wide_kernel<true, OutT>
+                      : flash_bf16_wide_kernel<false, OutT>;
+    kernel<<<grid, WIDE_THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<OutT*>(out), tq,
+        tk, d, causal, window, group, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int DP>
-int dispatch(int dtype, const void* q, const void* k, const void* v,
-             void* out, int bh, int tq, int tk, int d, int causal, int window,
-             int group, float scale, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_f32<DP>(q, k, v, out, bh, tq, tk, d, causal, window, group,
-                          scale, stream);
-  return launch_bf16<DP>(q, k, v, out, bh, tq, tk, d, causal, window, group,
-                         scale, stream);
+int dispatch(int dtype, int out_dtype, const void* q, const void* k,
+             const void* v, void* out, int bh, int tq, int tk, int d,
+             int causal, int window, int group, float scale,
+             cudaStream_t stream) {
+  if (dtype == 0) {
+    if (out_dtype == 0)
+      return launch_f32<DP, float>(q, k, v, out, bh, tq, tk, d, causal,
+                                   window, group, scale, stream);
+    return launch_f32<DP, __nv_bfloat16>(q, k, v, out, bh, tq, tk, d,
+                                         causal, window, group, scale,
+                                         stream);
+  }
+  if (out_dtype == 1)
+    return launch_bf16<DP, __nv_bfloat16>(q, k, v, out, bh, tq, tk, d,
+                                          causal, window, group, scale,
+                                          stream);
+  return launch_bf16<DP, float>(q, k, v, out, bh, tq, tk, d, causal, window,
+                                group, scale, stream);
 }
 
 }  // namespace
@@ -1001,27 +1455,38 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
 // out[bh] = softmax(q[bh] k[bh / group]^T * scale, causal: qpos >= kpos;
 // window > 0: also qpos - kpos < window) v[bh / group] for contiguous q /
 // out [bh, tq, d] and k / v [bh / group, tk, d]; dtype 0 is fp32, 1 is bf16
-// (all four tensors), 1 <= d <= 256, group >= 1 divides bh, bh < 2^31,
-// tq <= 4,194,240; a window needs causal and tq <= tk (window 0: none).
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take; 0 when there is nothing to compute).
+// (q, k and v), out_dtype the same codes for out (converted in the
+// epilogue), any d >= 1 (past 256 the d-sliced bodies), group >= 1
+// divides bh, bh < 2^31, tq <= 4,194,240; a window needs causal and tq <=
+// tk (window 0: none).  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take; 0 when
+// there is nothing to compute).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
-                                   int bh, int tq, int tk, int d, int causal,
-                                   int window, int group, float scale,
-                                   void* stream) {
+                                   int out_dtype, int bh, int tq, int tk,
+                                   int d, int causal, int window, int group,
+                                   float scale, void* stream) {
   if (bh <= 0 || tq <= 0) return 0;
-  if (tk <= 0 || d <= 0 || d > 256 || (dtype != 0 && dtype != 1) ||
+  if (tk <= 0 || d <= 0 || (dtype != 0 && dtype != 1) ||
+      (out_dtype != 0 && out_dtype != 1) ||
       group <= 0 || bh % group != 0 || (tq + BQ - 1) / BQ > 65535 ||
       window < 0 || (window > 0 && (!causal || tq > tk)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 32) return dispatch<32>(dtype, q, k, v, out, bh, tq, tk, d,
-                                   causal, window, group, scale, s);
-  if (d <= 64) return dispatch<64>(dtype, q, k, v, out, bh, tq, tk, d,
-                                   causal, window, group, scale, s);
-  if (d <= 128) return dispatch<128>(dtype, q, k, v, out, bh, tq, tk, d,
-                                     causal, window, group, scale, s);
-  return dispatch<256>(dtype, q, k, v, out, bh, tq, tk, d, causal, window,
-                       group, scale, s);
+  if (d > 256) {
+    if (out_dtype == 0)
+      return launch_wide<float>(dtype, q, k, v, out, bh, tq, tk, d, causal,
+                                window, group, scale, s);
+    return launch_wide<__nv_bfloat16>(dtype, q, k, v, out, bh, tq, tk, d,
+                                      causal, window, group, scale, s);
+  }
+  if (d <= 32) return dispatch<32>(dtype, out_dtype, q, k, v, out, bh, tq,
+                                   tk, d, causal, window, group, scale, s);
+  if (d <= 64) return dispatch<64>(dtype, out_dtype, q, k, v, out, bh, tq,
+                                   tk, d, causal, window, group, scale, s);
+  if (d <= 128) return dispatch<128>(dtype, out_dtype, q, k, v, out, bh, tq,
+                                     tk, d, causal, window, group, scale,
+                                     s);
+  return dispatch<256>(dtype, out_dtype, q, k, v, out, bh, tq, tk, d, causal,
+                       window, group, scale, s);
 }

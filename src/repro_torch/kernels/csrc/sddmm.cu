@@ -56,6 +56,14 @@
 // NaN, so a malformed tile cannot read past h_src (checking the columns on
 // the host would cost a device round trip per launch).  The kernel
 // launches on the caller's stream and allocates nothing.
+//
+// h_dst / h_src may also be bf16 (the Pallas kernel widens any float
+// operand to fp32) and out bf16 (its `out_dtype`): `sddmm_bf16` and
+// `sddmm_bf16_out` run the same body, widening each bf16 element as it is
+// read with the scalar lane layout (the same sums, so on fp32 operands
+// widened from bf16 the same bits as `sddmm_f32`), and round each fp32
+// result, acc included, once as it is stored.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,19 +74,29 @@ constexpr int J = 2;            // slots per lane
 constexpr int SPAN = 32 * J;    // slots per warp
 constexpr unsigned FULL = 0xffffffffu;
 
-// Features c .. c + 3 of `row` (zeros from f on).  VEC: f and the row
-// start are multiples of four floats, so a quad is all in or all out.
-template <bool VEC>
-__device__ __forceinline__ float4 quad(const float* row, int c, int f) {
-  if (VEC) {
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Features c .. c + 3 of `row` (zeros from f on).  VEC (fp32 only): f and
+// the row start are multiples of four floats, so a quad is all in or all
+// out.
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 quad(const T* row, int c, int f) {
+  if constexpr (VEC) {
     if (c < f) return *reinterpret_cast<const float4*>(row + c);
     return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   float4 x;
-  x.x = c < f ? row[c] : 0.0f;
-  x.y = c + 1 < f ? row[c + 1] : 0.0f;
-  x.z = c + 2 < f ? row[c + 2] : 0.0f;
-  x.w = c + 3 < f ? row[c + 3] : 0.0f;
+  x.x = c < f ? widen(row[c]) : 0.0f;
+  x.y = c + 1 < f ? widen(row[c + 1]) : 0.0f;
+  x.z = c + 2 < f ? widen(row[c + 2]) : 0.0f;
+  x.w = c + 3 < f ? widen(row[c + 3]) : 0.0f;
   return x;
 }
 
@@ -90,12 +108,12 @@ __device__ __forceinline__ float dot4(float p, const float4& a,
   return fmaf(a.w, b.w, p);
 }
 
-template <bool VEC>
+template <bool VEC, typename T = float, typename OutT = float>
 __global__ void __launch_bounds__(WARPS * 32)
-sddmm_f32_kernel(const float* __restrict__ hd, const float* __restrict__ hs,
+sddmm_f32_kernel(const T* __restrict__ hd, const T* __restrict__ hs,
                  const int* __restrict__ cols,
                  const unsigned char* __restrict__ mask, const float* acc,
-                 float* out, int n1, int w, int f, int n_src,
+                 OutT* out, int n1, int w, int f, int n_src,
                  long long ldd, long long lds) {
   __shared__ int list_c[WARPS][SPAN];     // live slots' columns, slot order
   __shared__ float list_s[WARPS][SPAN];   // their scores
@@ -130,20 +148,21 @@ sddmm_f32_kernel(const float* __restrict__ hd, const float* __restrict__ hs,
       if (live[j]) list_c[wid][rank[j]] = cols[o + 32 * j];
     __syncwarp();
     const int g = lane >> 3, l = lane & 7;
-    const float* drow = hd + r * ldd;
+    const T* drow = hd + r * ldd;
     float4 d[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) d[i] = quad<VEC>(drow, 4 * (l + 8 * i), f);
+    for (int i = 0; i < 4; ++i) d[i] = quad<VEC, T>(drow, 4 * (l + 8 * i), f);
     for (int b0 = 0; b0 < n_live; b0 += 4) {
       // Slot b0 + g of the list goes to group g; an index past the list
       // gathers row 0 and is discarded.
       const int idx = b0 + g;
       const int c = idx < n_live ? list_c[wid][idx] : 0;
       const bool bad = (unsigned)c >= (unsigned)n_src;
-      const float* srow = hs + (long long)(bad ? 0 : c) * lds;
+      const T* srow = hs + (long long)(bad ? 0 : c) * lds;
       float4 x[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = quad<VEC>(srow, 4 * (l + 8 * i), f);
+      for (int i = 0; i < 4; ++i)
+        x[i] = quad<VEC, T>(srow, 4 * (l + 8 * i), f);
       float p = 0.0f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) p = dot4(p, d[i], x[i]);
@@ -151,7 +170,7 @@ sddmm_f32_kernel(const float* __restrict__ hd, const float* __restrict__ hs,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int c4 = fc + 4 * (l + 8 * i);
-          p = dot4(p, quad<VEC>(drow, c4, f), quad<VEC>(srow, c4, f));
+          p = dot4(p, quad<VEC, T>(drow, c4, f), quad<VEC, T>(srow, c4, f));
         }
       }
 #pragma unroll
@@ -166,7 +185,7 @@ sddmm_f32_kernel(const float* __restrict__ hd, const float* __restrict__ hs,
   }
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    if (k + 32 * j < w) out[o + 32 * j] = live[j] ? val[j] : val[j] + 0.0f;
+    if (k + 32 * j < w) put(out + o + 32 * j, live[j] ? val[j] : val[j] + 0.0f);
   }
 }
 
@@ -195,5 +214,52 @@ extern "C" int sddmm_f32(const float* h_dst, const float* h_src,
   else
     sddmm_f32_kernel<false><<<grid, WARPS * 32, 0, s>>>(
         h_dst, h_src, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
+  return (int)cudaGetLastError();
+}
+
+// sddmm_f32 with bf16 h_dst / h_src (widened as they are read); out and
+// acc fp32.
+extern "C" int sddmm_bf16(const __nv_bfloat16* h_dst,
+                          const __nv_bfloat16* h_src, const int* cols,
+                          const unsigned char* mask, const float* acc,
+                          float* out, int n1, int w, int f, int n_src,
+                          long long ldd, long long lds, void* stream) {
+  if (n1 <= 0 || w <= 0) return 0;
+  const long long warps = (long long)n1 * ((w + SPAN - 1) / SPAN);
+  dim3 grid((unsigned)((warps + WARPS - 1) / WARPS));
+  sddmm_f32_kernel<false, __nv_bfloat16>
+      <<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+          h_dst, h_src, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
+  return (int)cudaGetLastError();
+}
+
+// sddmm_f32 with a bf16 out (each score rounded once from its fp32 value
+// plus acc; acc stays fp32) and h_dst / h_src fp32 (in_bf16 0) or bf16
+// (1).
+extern "C" int sddmm_bf16_out(const void* h_dst, const void* h_src,
+                              const int* cols, const unsigned char* mask,
+                              const float* acc, __nv_bfloat16* out,
+                              int in_bf16, int n1, int w, int f, int n_src,
+                              long long ldd, long long lds, void* stream) {
+  if (n1 <= 0 || w <= 0) return 0;
+  const bool vec = !in_bf16 && f % 4 == 0 && ldd % 4 == 0 && lds % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(h_dst) |
+                     reinterpret_cast<uintptr_t>(h_src)) & 15) == 0;
+  const long long warps = (long long)n1 * ((w + SPAN - 1) / SPAN);
+  dim3 grid((unsigned)((warps + WARPS - 1) / WARPS));
+  cudaStream_t s = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
+  const float *df = static_cast<const float*>(h_dst),
+              *sf = static_cast<const float*>(h_src);
+  if (in_bf16)
+    sddmm_f32_kernel<false, bf, bf><<<grid, WARPS * 32, 0, s>>>(
+        static_cast<const bf*>(h_dst), static_cast<const bf*>(h_src), cols,
+        mask, acc, out, n1, w, f, n_src, ldd, lds);
+  else if (vec)
+    sddmm_f32_kernel<true, float, bf><<<grid, WARPS * 32, 0, s>>>(
+        df, sf, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
+  else
+    sddmm_f32_kernel<false, float, bf><<<grid, WARPS * 32, 0, s>>>(
+        df, sf, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
   return (int)cudaGetLastError();
 }

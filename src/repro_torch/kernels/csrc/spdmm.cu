@@ -46,6 +46,11 @@
 // each gathered element widened to fp32 as it is read, with the scalar
 // lane layout (lane l reads features l + 32 i, a 64-byte access a warp),
 // so the sums and out (fp32) are those of the fp32 kernel on h widened.
+//
+// out may also be bf16 (the Pallas kernel's `out_dtype`): `spdmm_bf16_out`
+// runs the same body on either h and rounds each fp32 result, acc
+// included, once as it is stored, as the Pallas kernel casts its
+// accumulator on the way out.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +84,20 @@ __device__ __forceinline__ float4 gather(const T* row, int fc, int lane,
   return x;
 }
 
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+// Four consecutive outputs (16-byte aligned fp32, 8-byte aligned bf16).
+__device__ __forceinline__ void put4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(x.x, x.y),
+                         __floats2bfloat162_rn(x.z, x.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<uint2*>(h);
+}
+
 __device__ __forceinline__ void fma4(float4& s, float v, const float4& x) {
   s.x = fmaf(v, x.x, s.x);
   s.y = fmaf(v, x.y, s.y);
@@ -105,10 +124,10 @@ __device__ __forceinline__ void gather_sum(float4& s, const T* h,
   for (int u = 0; u < U; ++u) fma4(s, v[u], x[u]);
 }
 
-template <bool VEC, typename T = float>
+template <bool VEC, typename T = float, typename OutT = float>
 __global__ void __launch_bounds__(WARPS * 32)
 spdmm_f32_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
-                 const T* __restrict__ h, const float* acc, float* out,
+                 const T* __restrict__ h, const float* acc, OutT* out,
                  const int* __restrict__ row_len, int n1, int w, int f,
                  long long ldh, long long ldacc, long long ldo) {
   const int lane = threadIdx.x & 31;
@@ -137,9 +156,8 @@ spdmm_f32_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
       const int c = fc + 4 * lane;
       float4 base = acc ? *reinterpret_cast<const float4*>(acc + r * ldacc + c)
                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      *reinterpret_cast<float4*>(out + r * ldo + c) =
-          make_float4(base.x + s.x, base.y + s.y, base.z + s.z,
-                      base.w + s.w);
+      put4(out + r * ldo + c, make_float4(base.x + s.x, base.y + s.y,
+                                          base.z + s.z, base.w + s.w));
     } else if (!VEC) {
       const float sv[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
@@ -147,7 +165,7 @@ spdmm_f32_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
         const int c = fc + lane + 32 * j;
         if (c < f) {
           const float base = acc ? acc[r * ldacc + c] : 0.0f;
-          out[r * ldo + c] = base + sv[j];
+          put(out + r * ldo + c, base + sv[j]);
         }
       }
     }
@@ -193,5 +211,40 @@ extern "C" int spdmm_bf16(const int* cols, const float* vals,
   spdmm_f32_kernel<false, __nv_bfloat16>
       <<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
           cols, vals, h, acc, out, row_len, n1, w, f, ldh, ldacc, ldo);
+  return (int)cudaGetLastError();
+}
+
+// spdmm_f32 with a bf16 out (each output rounded once from its fp32 sum
+// plus acc) and h fp32 (h_bf16 0) or bf16 (1).
+extern "C" int spdmm_bf16_out(const int* cols, const float* vals,
+                              const void* h, const float* acc,
+                              __nv_bfloat16* out, const int* row_len,
+                              int h_bf16, int n1, int w, int f,
+                              long long ldh, long long ldacc, long long ldo,
+                              void* stream) {
+  if (n1 <= 0 || f <= 0) return 0;
+  dim3 grid((n1 + WARPS - 1) / WARPS);
+  cudaStream_t s = (cudaStream_t)stream;
+  // float4 gathers and 8-byte stores: spdmm_f32's test, with the bf16
+  // out's 8-byte alignment.
+  const bool vec = !h_bf16 && (f % 4 == 0) && (ldh % 4 == 0) &&
+                   (ldo % 4 == 0) && (acc == nullptr || ldacc % 4 == 0) &&
+                   ((reinterpret_cast<uintptr_t>(h) |
+                     reinterpret_cast<uintptr_t>(acc)) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+  if (h_bf16)
+    spdmm_f32_kernel<false, __nv_bfloat16, __nv_bfloat16>
+        <<<grid, WARPS * 32, 0, s>>>(
+            cols, vals, static_cast<const __nv_bfloat16*>(h), acc, out,
+            row_len, n1, w, f, ldh, ldacc, ldo);
+  else if (vec)
+    spdmm_f32_kernel<true, float, __nv_bfloat16><<<grid, WARPS * 32, 0, s>>>(
+        cols, vals, static_cast<const float*>(h), acc, out, row_len, n1, w, f,
+        ldh, ldacc, ldo);
+  else
+    spdmm_f32_kernel<false, float, __nv_bfloat16>
+        <<<grid, WARPS * 32, 0, s>>>(
+            cols, vals, static_cast<const float*>(h), acc, out, row_len, n1,
+            w, f, ldh, ldacc, ldo);
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,21 @@
 """Wrappers around the hand-written CUDA kernels.
 
 ``gemm(x, w, acc, out_dtype)`` returns ``acc + x @ w``, ``spdmm(cols, vals,
-h, acc, row_len)`` returns ``acc + ELL(cols, vals) @ h`` and ``sddmm(h_dst,
-h_src, cols, mask, acc)`` returns ``acc + where(mask, <h_dst[r],
-h_src[cols[r, k]]>, 0)``, all summed in fp32 (``acc``, ``row_len`` and
-``mask`` may be None); GEMM's x / w and SpDMM's h may also be bf16, as the
-Pallas kernels take them, and GEMM's output bf16 (its ``out_dtype``);
+h, acc, row_len, out_dtype)`` returns ``acc + ELL(cols, vals) @ h`` and
+``sddmm(h_dst, h_src, cols, mask, acc, out_dtype)`` returns ``acc +
+where(mask, <h_dst[r], h_src[cols[r, k]]>, 0)``, all summed in fp32
+(``acc``, ``row_len`` and ``mask`` may be None) and rounded once to
+``out_dtype`` (fp32, the default, or bf16; ``acc`` stays fp32); GEMM's
+x / w, SpDMM's h and SDDMM's h_dst / h_src may also be bf16, as the
+Pallas kernels take them;
 ``densify(cols, vals, n_src)`` returns the dense [n1, n_src] block of an
 ELL tile (duplicate columns summed in slot order), the GEMM kernel's
 operand for a sparsity-remapped aggregate step;
-``flash_attention(q, k, v, causal, window)`` returns ``softmax(q k^T
-d^-1/2 [+ causal / sliding-window mask]) v`` per head of [BH, T, d]
-tensors in fp32 or bf16, d <= 256, with k / v of [BH / G, T, d] for
-grouped KV heads.  Tensors on a CUDA device
+``flash_attention(q, k, v, causal, window, out_dtype)`` returns
+``softmax(q k^T d^-1/2 [+ causal / sliding-window mask]) v`` per head of
+[BH, T, d] tensors in fp32 or bf16, any head dim d, with k / v of
+[BH / G, T, d] for grouped KV heads, in q's dtype or ``out_dtype``.
+Tensors on a CUDA device
 launch the kernel from ``csrc/`` on the current stream, after checking
 device, dtype, shape and strides, and raise on anything the kernel does
 not take; there is no fallback.  Tensors on the CPU go to the plain
@@ -316,22 +319,24 @@ def densify(cols: torch.Tensor, vals: torch.Tensor,
 
 def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
           acc: Optional[torch.Tensor] = None,
-          row_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``acc + ELL(cols, vals) @ h`` for one [n1, w] ELL tile (fp32 sums
-    and output; h fp32 or bf16, widened as it is gathered).
+          row_len: Optional[torch.Tensor] = None,
+          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``acc + ELL(cols, vals) @ h`` for one [n1, w] ELL tile (fp32 sums;
+    h fp32 or bf16, widened as it is gathered; ``acc`` fp32), rounded
+    once to ``out_dtype`` (fp32 or bf16) as it is stored.
     ``row_len`` (int32 [n1], optional) is each row's live length, 1 + its
     last live slot (0 for a row with no edge): slots from row_len[r] on
     are not walked, which leaves the result unchanged when they are pads
     (vals == 0).  None walks all w slots."""
+    _check_dtype("spdmm out_dtype", out_dtype)
     route = _route(cols, vals, h, acc, row_len)
     if route == "cpu":
-        y = ref.spdmm_ref(cols, vals, h, row_len=row_len)
-        return y if acc is None else acc + y
+        return ref.spdmm_step_ref(cols, vals, h, acc, row_len, out_dtype)
     n1, w = cols.shape
     if route == "meta":
         # Every slot counts: a meta tile has no live lengths to skip by.
         f = h.shape[1]
-        out = torch.empty((n1, f), dtype=torch.float32, device="meta")
+        out = torch.empty((n1, f), dtype=out_dtype, device="meta")
         return _meta("spdmm", out, 2.0 * n1 * w * f,
                      _nbytes(cols, vals, h, acc, row_len, out))
     _check_matrix("spdmm cols", cols, torch.int32)
@@ -349,13 +354,18 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
         raise ValueError(f"spdmm row_len: expected contiguous int32 "
                          f"[{n1}], got {row_len.dtype} "
                          f"{tuple(row_len.shape)}")
-    out = torch.empty((n1, f), dtype=torch.float32, device=h.device)
-    rc = entry("spdmm" if h.dtype == torch.float32 else "spdmm_bf16")(
-        cols.data_ptr(), vals.data_ptr(), h.data_ptr(),
-        acc.data_ptr() if acc is not None else None, out.data_ptr(),
-        row_len.data_ptr() if row_len is not None else None,
-        n1, w, f, _ld(h), _ld(acc) if acc is not None else 0, _ld(out),
-        _stream(h))
+    out = torch.empty((n1, f), dtype=out_dtype, device=h.device)
+    ptrs = (cols.data_ptr(), vals.data_ptr(), h.data_ptr(),
+            acc.data_ptr() if acc is not None else None, out.data_ptr(),
+            row_len.data_ptr() if row_len is not None else None)
+    tail = (n1, w, f, _ld(h), _ld(acc) if acc is not None else 0, _ld(out),
+            _stream(h))
+    if out_dtype == torch.float32:
+        rc = entry("spdmm" if h.dtype == torch.float32 else "spdmm_bf16")(
+            *ptrs, *tail)
+    else:
+        rc = entry("spdmm_bf16_out")(*ptrs, int(h.dtype == torch.bfloat16),
+                                     *tail)
     if rc != 0:
         raise RuntimeError(f"spdmm kernel launch failed: CUDA error {rc}")
     _launched("spdmm")
@@ -364,16 +374,20 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
 
 def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
           mask: Optional[torch.Tensor] = None,
-          acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+          acc: Optional[torch.Tensor] = None,
+          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``acc + where(mask, SDDMM(h_dst, h_src, cols), 0)`` for one [n1, w]
-    ELL tile (fp32); ``mask`` None scores every slot (pad slots score row
-    0, as the Pallas kernel does), ``acc`` None is a zero accumulator.
+    ELL tile, summed in fp32 and rounded once to ``out_dtype`` (fp32 or
+    bf16); h_dst and h_src both fp32 or both bf16 (widened as they are
+    read), ``acc`` fp32.  ``mask`` None scores every slot (pad slots score
+    row 0, as the Pallas kernel does), ``acc`` None is a zero accumulator.
     ``cols`` index rows of ``h_src``; see the module docstring for a column
     out of range."""
+    _check_dtype("sddmm out_dtype", out_dtype)
     route = _route(h_dst, h_src, cols, mask, acc)
     if route == "meta":
         n1, w = cols.shape
-        out = torch.empty((n1, w), dtype=torch.float32, device="meta")
+        out = torch.empty((n1, w), dtype=out_dtype, device="meta")
         return _meta("sddmm", out, 2.0 * n1 * w * h_dst.shape[1],
                      _nbytes(h_dst, h_src, cols, mask, acc, out))
     if route == "cpu":
@@ -381,15 +395,16 @@ def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
                              or int(cols.max()) >= h_src.shape[0]):
             raise ValueError(f"sddmm cols: indices outside [0, "
                              f"{h_src.shape[0]})")
-        return ref.sddmm_step_ref(h_dst, h_src, cols, mask, acc)
+        return ref.sddmm_step_ref(h_dst, h_src, cols, mask, acc, out_dtype)
     n1, w = cols.shape
     _check_matrix("sddmm cols", cols, torch.int32)
-    _check_matrix("sddmm h_dst", h_dst, torch.float32)
+    _check_dtype("sddmm h_dst", h_dst.dtype)
+    _check_matrix("sddmm h_dst", h_dst, h_dst.dtype)
     f = h_dst.shape[1]
     if h_dst.shape[0] != n1:
         raise ValueError(f"sddmm h_dst: expected {n1} rows, got "
                          f"{h_dst.shape[0]}")
-    _check_matrix("sddmm h_src", h_src, torch.float32)
+    _check_matrix("sddmm h_src", h_src, h_dst.dtype)
     if h_src.shape[1] != f or h_src.shape[0] < 1:
         raise ValueError(f"sddmm h_src: expected [n_src >= 1, {f}], got "
                          f"{tuple(h_src.shape)}")
@@ -399,12 +414,16 @@ def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
         _check_matrix("sddmm acc", acc, torch.float32, (n1, w))
     if not all(t is None or t.is_contiguous() for t in (cols, mask, acc)):
         raise ValueError("sddmm: cols, mask and acc must be contiguous")
-    out = torch.empty((n1, w), dtype=torch.float32, device=cols.device)
-    rc = entry("sddmm")(
-        h_dst.data_ptr(), h_src.data_ptr(), cols.data_ptr(),
-        mask.data_ptr() if mask is not None else None,
-        acc.data_ptr() if acc is not None else None, out.data_ptr(),
-        n1, w, f, h_src.shape[0], _ld(h_dst), _ld(h_src), _stream(cols))
+    out = torch.empty((n1, w), dtype=out_dtype, device=cols.device)
+    ptrs = (h_dst.data_ptr(), h_src.data_ptr(), cols.data_ptr(),
+            mask.data_ptr() if mask is not None else None,
+            acc.data_ptr() if acc is not None else None, out.data_ptr())
+    tail = (n1, w, f, h_src.shape[0], _ld(h_dst), _ld(h_src), _stream(cols))
+    in_bf16 = h_dst.dtype == torch.bfloat16
+    if out_dtype == torch.float32:
+        rc = entry("sddmm_bf16" if in_bf16 else "sddmm")(*ptrs, *tail)
+    else:
+        rc = entry("sddmm_bf16_out")(*ptrs, int(in_bf16), *tail)
     if rc != 0:
         raise RuntimeError(f"sddmm kernel launch failed: CUDA error {rc}")
     _launched("sddmm")
@@ -412,14 +431,16 @@ def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
 
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FLASH_MAX_D = 256
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``softmax(q k^T d^-1/2 [+ mask]) v`` for q [BH, Tq, d] and k / v
-    [BH / G, Tk, d], all fp32 or all bf16, contiguous, d <= 256; returns
-    [BH, Tq, d] in q's dtype (fp32 math inside).  The causal mask is the
+    [BH / G, Tk, d], all fp32 or all bf16, contiguous, any d >= 1; returns
+    [BH, Tq, d] in ``out_dtype`` (fp32 or bf16; None is q's dtype, as in
+    the Pallas kernel), fp32 math inside and one rounding at the store
+    (past d = 256 the kernel's d-sliced bodies).  The causal mask is the
     Pallas kernel's ``qpos >= kpos``, both counted from 0; ``window`` W > 0
     (causal only, Tq <= Tk) also masks ``qpos - kpos >= W``, JAX's
     ``_mask_bias`` (0 is no window).  With G > 1 (G must divide BH) the
@@ -436,9 +457,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: k / v must be [BH / G, Tk, {d}]"
                          f" with G dividing BH = {bh}, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if not 1 <= d <= FLASH_MAX_D:
-        raise ValueError(f"flash_attention: head dim {d} outside [1, "
-                         f"{FLASH_MAX_D}]")
+    if d < 1:
+        raise ValueError(f"flash_attention: head dim {d} must be >= 1")
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if out_dtype not in _FLASH_DTYPES:
+        raise TypeError(f"flash_attention out_dtype: expected float32 or "
+                        f"bfloat16, got {out_dtype}")
     window = int(window)
     if window < 0 or (window and (not causal or tq > tk)):
         raise ValueError(f"flash_attention: a window ({window}) must be >= "
@@ -446,12 +470,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"(causal={causal}, Tq={tq}, Tk={tk})")
     route = _route(q, k, v)
     if route == "cpu":
-        return ref.flash_attention_plain(q, k, v, causal, window)
+        return ref.flash_attention_plain(q, k, v, causal, window,
+                                         out_dtype=out_dtype)
     if route == "meta":
-        out = torch.empty_like(q)
+        out = torch.empty_like(q, dtype=out_dtype)
         return _meta("flash_attention", out,
                      4.0 * d * bh * flash_pairs(tq, tk, causal, window),
-                     q.element_size() * d * (2 * bh * tq + 2 * bkv * tk))
+                     q.element_size() * d * (bh * tq + 2 * bkv * tk)
+                     + out.element_size() * d * bh * tq)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention {name}: expected float32 or "
@@ -462,10 +488,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tq < 1 or tk < 1:
         raise ValueError(f"flash_attention: empty sequence (Tq={tq}, "
                          f"Tk={tk})")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype)
     rc = entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _FLASH_DTYPES[q.dtype], bh, tq, tk, d, int(bool(causal)), window,
+        _FLASH_DTYPES[q.dtype], _FLASH_DTYPES[out_dtype], bh, tq, tk, d,
+        int(bool(causal)), window,
         bh // bkv, d ** -0.5, _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -4,7 +4,10 @@ They mirror ``repro/kernels/ref.py`` (``gemm_ref``, ``spdmm_ref``,
 ``sddmm_ref``): the CPU tests run them, and ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.  ``sddmm_step_ref`` is the ACK's
 whole SDDMM step (mask and accumulator around ``sddmm_ref``), the
-function the SDDMM kernel computes; ``flash_attention_plain`` is the
+function the SDDMM kernel computes, as ``spdmm_step_ref`` (accumulator
+around ``spdmm_ref``) is the SpDMM kernel's; each step and
+``flash_attention_plain`` round their fp32 result once to an
+``out_dtype``, as the kernels store it; ``flash_attention_plain`` is the
 flash kernel's function in its own [BH, T, d] layout (JAX's
 ``flash_attention_ref`` transposed).  ``gemm_ref`` and ``spdmm_ref``
 widen bf16 operands to fp32 before the product, as JAX's do, so they are
@@ -42,6 +45,17 @@ def spdmm_ref(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     return out.to(out_dtype)
 
 
+def spdmm_step_ref(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
+                   acc: Optional[torch.Tensor] = None,
+                   row_len: Optional[torch.Tensor] = None,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """``acc + spdmm_ref(cols, vals, h, row_len=row_len)`` in fp32 (the
+    SpDMM kernel's function), rounded once to ``out_dtype``; ``acc`` None
+    is a zero accumulator."""
+    y = spdmm_ref(cols, vals, h, row_len=row_len)
+    return (y if acc is None else acc + y).to(out_dtype)
+
+
 def densify_ref(cols: torch.Tensor, vals: torch.Tensor,
                 n_src: int) -> torch.Tensor:
     """The dense [n1, n_src] block of an ELL tile: ``vals[r, k]`` added at
@@ -72,25 +86,28 @@ def sddmm_ref(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
 
 def sddmm_step_ref(h_dst: torch.Tensor, h_src: torch.Tensor,
                    cols: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                   acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``acc + where(mask, sddmm_ref(h_dst, h_src, cols), 0)``; ``mask``
-    None scores every slot, ``acc`` None is a zero accumulator."""
+                   acc: Optional[torch.Tensor] = None,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """``acc + where(mask, sddmm_ref(h_dst, h_src, cols), 0)`` in fp32,
+    rounded once to ``out_dtype``; ``mask`` None scores every slot,
+    ``acc`` None is a zero accumulator."""
     s = sddmm_ref(h_dst, h_src, cols)
     if mask is not None:
         s = torch.where(mask, s, torch.zeros_like(s))
-    return s if acc is None else acc + s
+    return (s if acc is None else acc + s).to(out_dtype)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool = True,
-                          window: int = 0, *, q_offset: int = 0
+                          window: int = 0, *, q_offset: int = 0,
+                          out_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
     """The flash kernel's function: q [BH, Tq, d], k / v [BH / G, Tk, d]
-    -> [BH, Tq, d] in q's dtype; query head ``bh`` reads KV head
-    ``bh // G``.  Scores ``q k^T d^-1/2`` in fp32; under ``causal`` the
-    Pallas kernel's index mask ``qpos >= kpos`` (both counted from 0) and,
-    for ``window`` W > 0, JAX's ``_mask_bias`` window ``qpos - kpos < W``
-    score masked pairs -1e30 (W = 0 is no window).  ``q_offset`` counts
+    -> [BH, Tq, d] in ``out_dtype`` (None: q's dtype); query head ``bh``
+    reads KV head ``bh // G``.  Scores ``q k^T d^-1/2`` in fp32; under
+    ``causal`` the Pallas kernel's index mask ``qpos >= kpos`` (both
+    counted from 0) and, for ``window`` W > 0, JAX's ``_mask_bias`` window
+    ``qpos - kpos < W`` score masked pairs -1e30 (W = 0 is no window).  ``q_offset`` counts
     query rows from that position (a chunk of rows; the kernel has 0)."""
     d = q.shape[-1]
     g = q.shape[0] // k.shape[0]
@@ -107,4 +124,4 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
             ok = ok & (dif < window)
         s = torch.where(ok, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, v.float()).to(q.dtype)
+    return torch.matmul(p, v.float()).to(out_dtype or q.dtype)

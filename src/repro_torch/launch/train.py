@@ -12,11 +12,12 @@ checkpoints are atomic (``repro_torch.checkpoint``); ``--resume auto``
 restarts from the last complete step and fast-forwards the data stream to
 it; ``--crash-at N`` simulates a failure after step N (exit code 42).
 ``--compress-grads`` sends the gradients through the int8 error-feedback
-path (``repro_torch.distributed.compression``) before the optimizer.  As
-in JAX, that path's loss is a forward over ``batch["tokens"]`` alone: a
-cross-attention decoder's cross blocks then attend to their own input (no
-``vision``), and an encoder-decoder, whose batches hold no ``tokens``,
-raises KeyError.
+path (``repro_torch.distributed.compression``) before the optimizer.  Its
+loss is the plain step's (``steps.value_and_grad``): a cross-attention
+decoder reads its ``vision`` batch and an encoder-decoder its frames and
+targets.  JAX's path reads ``batch["tokens"]`` alone, so there the cross
+blocks attend to their own input and an encoder-decoder raises KeyError;
+the port departs from it on purpose.
 """
 from __future__ import annotations
 
@@ -33,9 +34,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import synthetic_batches
 from repro_torch.distributed.compression import (ef_transform,
                                                  init_error_feedback)
-from repro_torch.models.layers import softmax_xent
 from repro_torch.models.steps import (build_model, init_train_state,
-                                      make_train_step)
+                                      make_train_step, value_and_grad)
 from repro_torch.optim import adamw_update, cosine_schedule
 
 
@@ -66,15 +66,9 @@ def main(argv=None) -> int:
     train_step = make_train_step(model, cfg, base_lr=args.lr)
 
     def train_step_compressed(params, opt_state, ef, batch):
-        # error-feedback int8 gradient path (see compression.py); JAX's
-        # loss_fn here reads batch["tokens"] alone, whatever the family
-        named = dict(params.named_parameters())
-        logits, aux = params(batch["tokens"])
-        loss = softmax_xent(logits, batch["labels"]) \
-            + cfg.router_aux_coef * aux
-        grads = dict(zip(named, torch.autograd.grad(
-            loss, list(named.values()))))
-        loss = loss.detach()
+        # error-feedback int8 gradient path (see compression.py); its loss
+        # is the total (cross-entropy plus the router's aux term), as JAX's
+        loss, _, _, grads = value_and_grad(params, cfg, batch)
         grads, ef = ef_transform(grads, ef)
         lr = cosine_schedule(opt_state.step, args.lr)
         _, opt_state = adamw_update(dict(params.named_parameters()), grads,

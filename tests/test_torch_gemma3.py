@@ -99,9 +99,9 @@ def test_flash_plain_window_matches_jax_sdpa(d, window):
 
 
 def test_flash_wrapper_takes_gemma3_head_dims_and_windows_on_cpu():
-    # The wrapper's contract is the kernel's on both devices: head dims up
-    # to 256 (gemma3-12b's 240 among them), a window only with causal
-    # masking and Tq <= Tk.
+    # The wrapper's contract is the kernel's on both devices: any head dim
+    # >= 1 (gemma3-12b's 240 among them; past 256 the kernel's d-sliced
+    # bodies), a window only with causal masking and Tq <= Tk.
     r = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(r.normal(0, 1, (2, 30, 240)).astype(
         np.float32)) for _ in range(3))
@@ -110,10 +110,13 @@ def test_flash_wrapper_takes_gemma3_head_dims_and_windows_on_cpu():
     assert got.shape == (2, 30, 240) and ops.LAUNCHES["flash_attention"] == 0
     assert torch.equal(got, ref.flash_attention_plain(q, k, v, True, 7))
     assert not torch.equal(got, ref.flash_attention_plain(q, k, v, True))
-    assert ops.FLASH_MAX_D == 256
-    wide = torch.zeros(2, 8, 264)
+    wide = torch.from_numpy(r.normal(0, 1, (2, 8, 264)).astype(np.float32))
+    assert torch.equal(ops.flash_attention(wide, wide, wide),
+                       ref.flash_attention_plain(wide, wide, wide))
+    assert ops.LAUNCHES["flash_attention"] == 0
+    empty = torch.zeros(2, 8, 0)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(wide, wide, wide)
+        ops.flash_attention(empty, empty, empty)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, v, False, window=7)
     with pytest.raises(ValueError, match="window"):

@@ -20,9 +20,12 @@ and over hymba's and xLSTM's recurrent state caches (with those smoke
 models on the card against the CPU, and flash at hymba's G = 5), and over
 kimi-k2's and deepseek-v3's MoE and latent caches (those smoke models with
 moe_impl="a2a" on virtual entries of the card against CPU entries, flash
-at kimi's G = 8, d = 112 and MLA's d = 192 with V padded).  bf16 GEMM and
-SpDMM operands against the plain versions and bit for bit against the
-fp32 kernels on the widened operands.
+at kimi's G = 8, d = 112 and MLA's d = 192 with V padded).  bf16 GEMM,
+SpDMM and SDDMM operands against the plain versions and bit for bit
+against the fp32 kernels on the widened operands; flash past d = 256 (the
+d-sliced bodies: causal, non-causal, windowed, grouped, ragged; two
+launches bit for bit) and the bf16 / fp32 ``out_dtype`` of flash, SpDMM
+and SDDMM against the plain versions.
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -468,9 +471,17 @@ def test_cuda_flash_rejects_bad_operands(cuda):
         ops.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(TypeError):
         ops.flash_attention(q, q.bfloat16(), q)
-    big = torch.zeros(2, 8, 264, device=cuda)
+    # d = 264 takes the d-sliced body (any head dim, as in Pallas); d = 0
+    # is refused
+    g = torch.Generator(device=cuda).manual_seed(3)
+    big = torch.randn(2, 8, 264, generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(big, big, big)
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.shape == big.shape
+    _close(got, ref.flash_attention_plain(big, big, big), 1e-4, 1e-5)
+    empty = torch.zeros(2, 8, 0, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(big, big, big)
+        ops.flash_attention(empty, empty, empty)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, q, q, False, window=4)
     with pytest.raises(ValueError, match="window"):
@@ -1600,3 +1611,101 @@ def test_cuda_argument_bytes_are_the_train_state_s_bytes(cuda):
                   for t in d.values()])
     assert all(t.device.type == "cuda" for t in tensors)
     assert sum(t.numel() * t.element_size() for t in tensors) == want
+
+
+# --------------------------------------------------------------------------- #
+# Flash past d = 256 and out_dtype; SpDMM / SDDMM out_dtype, bf16 SDDMM
+# --------------------------------------------------------------------------- #
+# (tq, tk, heads, G, d, causal, window, dtype)
+FLASH_WIDE_CASES = [(130, 130, 2, 1, 257, True, 0, "float32"),
+                    (130, 130, 2, 1, 257, True, 0, "bfloat16"),
+                    (64, 200, 4, 4, 264, False, 0, "bfloat16"),
+                    (100, 100, 2, 2, 320, True, 40, "float32"),
+                    (200, 257, 4, 2, 320, True, 64, "bfloat16"),
+                    (77, 150, 2, 1, 512, False, 0, "float32"),
+                    (256, 256, 4, 4, 512, True, 0, "bfloat16"),
+                    (65, 65, 1, 1, 1024, True, 0, "float32"),
+                    (128, 96, 2, 1, 1024, False, 0, "bfloat16")]
+
+
+def _flash_limits(got, want, dtype):
+    if dtype == torch.float32:
+        _close(got, want, 1e-4, 1e-5)
+    else:
+        err = got.float() - want.float()
+        assert float(err.norm() / want.float().norm()) <= 2.0 ** -8
+        rows = err.norm(dim=-1) / want.float().norm(dim=-1)
+        assert float(rows.max()) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("tq,tk,h,grp,d,causal,window,dtype",
+                         FLASH_WIDE_CASES)
+def test_cuda_flash_wide_head_dims_match_plain(cuda, tq, tk, h, grp, d,
+                                               causal, window, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(d + tq)
+    q = torch.randn(h, tq, d, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(h // grp, tk, d, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal, window)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.shape == q.shape and got.dtype == dt
+    _flash_limits(got, ref.flash_attention_plain(q, k, v, causal, window),
+                  dt)
+    assert torch.equal(ops.flash_attention(q, k, v, causal, window), got)
+
+
+@pytest.mark.parametrize("d", [64, 240, 512])
+@pytest.mark.parametrize("dtype,out", [("float32", "bfloat16"),
+                                       ("bfloat16", "float32")])
+def test_cuda_flash_out_dtype_matches_plain(cuda, d, dtype, out):
+    dt, ot = getattr(torch, dtype), getattr(torch, out)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(2, 150, d, generator=g, device=cuda).to(dt)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, True, out_dtype=ot)
+    assert got.dtype == ot
+    want = ref.flash_attention_plain(q, k, v, True, out_dtype=ot)
+    _close(got, want, 2e-2, 1e-2)
+    if dt == torch.float32:   # one rounding of the fp32 kernel's result
+        assert torch.equal(got, ops.flash_attention(q, k, v, True).to(ot))
+
+
+@pytest.mark.parametrize("n1,w,ns,f", SPDMM_SHAPES[:4])
+def test_cuda_spdmm_bf16_out_matches_plain(cuda, n1, w, ns, f):
+    g = torch.Generator(device=cuda).manual_seed(n1 + w)
+    cols = torch.randint(0, ns, (n1, w), generator=g, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn(n1, w, generator=g, device=cuda)
+    h = torch.randn(ns, f, generator=g, device=cuda)
+    acc = torch.randn(n1, f, generator=g, device=cuda)
+    for hh in (h, h.bfloat16()):
+        got = ops.spdmm(cols, vals, hh, acc, out_dtype=torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        # the fp32 kernel's result (acc included), rounded once
+        assert torch.equal(got, ops.spdmm(cols, vals, hh, acc).bfloat16())
+        _close(got, ref.spdmm_step_ref(cols, vals, hh, acc,
+                                       out_dtype=torch.bfloat16), 2e-2, 1e-2)
+
+
+@pytest.mark.parametrize("n1,w,ns,f", SDDMM_SHAPES)
+def test_cuda_sddmm_bf16_operands_and_out(cuda, n1, w, ns, f):
+    g = torch.Generator(device=cuda).manual_seed(n1 + f)
+    cols = torch.randint(0, ns, (n1, w), generator=g, device=cuda,
+                         dtype=torch.int32)
+    hd = torch.randn(n1, f, generator=g, device=cuda).bfloat16()
+    hs = torch.randn(ns, f, generator=g, device=cuda).bfloat16()
+    mask = torch.rand(n1, w, generator=g, device=cuda) > 0.3
+    acc = torch.randn(n1, w, generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.sddmm(hd, hs, cols, mask, acc)
+    assert ops.LAUNCHES["sddmm"] == 1 and got.dtype == torch.float32
+    # bit for bit the fp32 kernel on the widened operands
+    assert torch.equal(got, ops.sddmm(hd.float(), hs.float(), cols, mask,
+                                      acc))
+    _close(got, ref.sddmm_step_ref(hd, hs, cols, mask, acc), 1e-4, 1e-4)
+    for a, b in ((hd, hs), (hd.float(), hs.float())):
+        out = ops.sddmm(a, b, cols, mask, acc, out_dtype=torch.bfloat16)
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, got.bfloat16())

@@ -501,9 +501,11 @@ def test_vision_launch_serve_generates_jax_tokens(monkeypatch):
 
 
 def test_vision_launch_train_logs_jax_losses(monkeypatch):
-    # The plain path (vision batches) and JAX's error-feedback path, whose
-    # forward reads batch["tokens"] alone: the cross blocks then attend to
-    # their own input, in both packages.
+    # The plain path (vision batches) logs JAX's losses.  The port's
+    # error-feedback path reads the vision batch too (steps._forward), so
+    # its first loss, taken before any update, is the plain path's; JAX's
+    # error-feedback forward reads batch["tokens"] alone (its cross blocks
+    # attend to their own input), so its losses differ from the port's.
     jcfg, tcfg = _cfg32()
     jp = JS.build_model(jcfg).init_params(jax.random.PRNGKey(0))
     argv = ["--arch", ARCH, "--smoke", "--steps", "3", "--batch", "2",
@@ -517,6 +519,7 @@ def test_vision_launch_train_logs_jax_losses(monkeypatch):
 
     def losses(text):
         return [float(x) for x in re.findall(r"loss\s+([-\d.]+)", text)]
+    logged = {}
     for extra in ([], ["--compress-grads"]):
         out_t, out_j = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out_t):
@@ -524,8 +527,13 @@ def test_vision_launch_train_logs_jax_losses(monkeypatch):
         with contextlib.redirect_stdout(out_j):
             assert jtrain.main(argv + extra) == 0
         lt, lj = losses(out_t.getvalue()), losses(out_j.getvalue())
-        assert len(lt) == len(lj) == 4
-        np.testing.assert_allclose(lt, lj, atol=2e-4)
+        assert len(lt) == len(lj) == 4 and np.isfinite(lt).all()
+        logged[bool(extra)] = lt, lj
+    (plain_t, plain_j), (ef_t, ef_j) = logged[False], logged[True]
+    np.testing.assert_allclose(plain_t, plain_j, atol=2e-4)
+    np.testing.assert_allclose(ef_t[0], plain_j[0], atol=2e-4)
+    assert abs(ef_j[0] - plain_j[0]) > 1e-3        # JAX's fault
+    assert np.abs(np.subtract(ef_t, ef_j)).max() > 1e-3
 
 
 def test_vision_builds_and_trains_through_the_steps():

@@ -328,8 +328,10 @@ def test_whisper_launch_serve_generates_jax_tokens(monkeypatch):
 
 def test_whisper_launch_train_logs_jax_losses(monkeypatch):
     # The plain path trains on frames / targets.  JAX's error-feedback
-    # path reads batch["tokens"], which an encoder-decoder batch lacks:
-    # both packages raise KeyError there (a finding in ROADMAP C).
+    # path reads batch["tokens"], which an encoder-decoder batch lacks, and
+    # raises KeyError; the port's reads frames / targets (steps._forward)
+    # and logs finite losses, the first (before any update) the plain
+    # path's.
     jcfg, tcfg = _cfg32()
     jp = JS.build_model(jcfg).init_params(jax.random.PRNGKey(0))
     # --seq 20 covers the smoke config's decoder_target_len of 16 (the
@@ -353,8 +355,13 @@ def test_whisper_launch_train_logs_jax_losses(monkeypatch):
     lt, lj = losses(out_t.getvalue()), losses(out_j.getvalue())
     assert len(lt) == len(lj) == 4
     np.testing.assert_allclose(lt, lj, atol=2e-4)
-    with pytest.raises(KeyError, match="tokens"):
-        ttrain.main(argv + ["--compress-grads", "--device", "cpu"])
+    out_ef = io.StringIO()
+    with contextlib.redirect_stdout(out_ef):
+        assert ttrain.main(argv + ["--compress-grads", "--device",
+                                   "cpu"]) == 0
+    lef = losses(out_ef.getvalue())
+    assert len(lef) == 4 and np.isfinite(lef).all()
+    np.testing.assert_allclose(lef[0], lj[0], atol=2e-4)
     with pytest.raises(KeyError, match="tokens"):
         jtrain.main(argv + ["--compress-grads"])
 
