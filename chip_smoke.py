@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Card and build: the card's name and power limit (``nvidia-smi``), then
    every hand kernel built from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once), with the build time and ``ptxas``
-   report.
+   report; then the warp-specialised flash body's registers a thread and
+   spill bytes per instantiation from that report (the script fails if
+   one spills or ptxas ignored its ``setmaxnreg``).
 2. Kernels: each kernel against its plain torch version on the card, at
    the executor's tile shapes (GEMM 4096x128xN, N in {128, 64, 8},
    without and with the accumulator, against torch.matmul / torch.addmm;
@@ -176,12 +178,14 @@ Phases (any failure exits non-zero; nothing is caught):
    ``enable_gqa=True`` for G=2 where torch takes it), a yardstick the
    port never calls; every bf16 case also within relative L2 2^-8 over
    the whole output and 2^-7 over each query row, ``check_rows``; at
-   gemma3's head dims 168, 240 and 256 and under sliding windows 1, 5,
-   64, 1024 and >= T, with ragged T, G in {1, 2} and windows that end
-   inside a KV tile, in fp32 and bf16; at gemma3-12b's prefill shape,
-   BH=64 over 32 KV heads, T=2048, d=240, bf16, without and with its
-   window of 1024, timed beside the plain version and SDPA, which takes
-   the window as a boolean ``attn_mask``);
+   the head dims past 128 (136, 168, 170, 192, 240, 256; V d or 128
+   wide) and under sliding windows 1, 5, 64, 1024 and >= T, with ragged
+   T, G in {1, 2, 8} and windows that end inside a KV tile, in fp32 and
+   bf16, two launches bit for bit; at gemma3-12b's prefill shape, BH=64
+   over 32 KV heads, T=2048, d=240, bf16, without and with its window of
+   1024, and at gemma3-27b's, BH=128 over 64 KV heads, d=168, timed
+   beside the plain version and SDPA, which takes the window as a boolean
+   ``attn_mask``);
    ``make_prefill_step`` in bf16 at B=4, T=2048 (a warm-up and 3 timed
    prefills, 28 flash launches each, last-position logits within
    relative L2 2e-2 of the same model run with plain attention, the
@@ -354,11 +358,11 @@ Phases (any failure exits non-zero; nothing is caught):
    128 heads, q_lora 1536, kv_lora 512, qk 128 + 64 rope, v 128; three
    dense layers, then one MoE layer of 256 experts top-8 and a shared
    expert; vocab 129,280; 15.11 B parameters, 28.15 GiB bf16): the flash
-   kernel as MLA calls it (BH=512, G=1, T=2048, d=192, V of 128
-   zero-padded to 192, bf16, causal; the padded output columns zero) by
-   ``check_rows``, timed beside the plain version, SDPA with its own
-   128-wide V and the bound of the useful work (and of the padded work
-   the kernel does); the bf16 prefill at 4x2048 as kimi's (4 flash
+   kernel as MLA calls it (BH=512, G=1, T=2048, d=192, V 128 wide, bf16,
+   causal) and as it called it before V took its own width (V
+   zero-padded to 192; the padded output columns zero), each by
+   ``check_rows``, two launches bit for bit, timed beside the plain
+   version, SDPA with the 128-wide V and its own bound; the bf16 prefill at 4x2048 as kimi's (4 flash
    launches a prefill, each flash call of one more held, drops and
    routing flips counted), the decode pair, ``launch.serve`` at the cut;
    the absorbed MLA decode against the forward in fp32 at the 4 layers
@@ -487,6 +491,9 @@ FLASH_BF16_WHOLE, FLASH_BF16_ROW = BF16_U, 2 * BF16_U
 LM_ARCH, LM_B, LM_T = "qwen3-0.6b", 4, 2048
 LM_REL_L2 = 2e-2                 # bf16 prefill against plain attention
 DECODE_B, DECODE_T, DECODE_TOL = 2, 64, 2e-4
+# The bf16 flash bodies' kernel names begin so (flash_bf16_kernel,
+# flash_bf16_ws_kernel past d = 128, flash_bf16_wide_kernel past 256).
+FLASH_BF16 = "flash_bf16_"
 # Kernel names of the hand kernels, as the profiler reports them.
 HAND_KERNELS = ("gemm_f32_kernel", "spdmm_f32_kernel", "sddmm_f32_kernel",
                 "flash_", "ell_densify_kernel")
@@ -569,6 +576,66 @@ def check_rows(torch, name, got, want, whole=FLASH_BF16_WHOLE,
         fail(f"{name}: relative L2 {r_whole:.3e} whole (limit {whole:.3e}),"
              f" {r_row:.3e} worst row (limit {row:.3e})")
     return r_whole, r_row
+
+
+WS_KERNEL = "flash_bf16_ws_kernel"       # the warp-specialised flash body
+WS_INSTANTIATIONS = 4                   # (DQK, DV): (192, 128 / 192),
+                                        # (256, 128 / 256)
+
+
+def ws_nvcc_report(report: str) -> dict:
+    """The warp-specialised flash body's lines of an ``nvcc -Xptxas -v``
+    report: per instantiation "DQK=.. DV=.." its registers a thread at
+    entry (before ``setmaxnreg``) and spill bytes; and every ptxas warning
+    that names ``setmaxnreg`` or ``wgmma`` (C7508: setmaxnreg ignored;
+    wgmma serialized)."""
+    rows, cur = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            m = re.search(WS_KERNEL + r"ILi(\d+)ELi(\d+)E", ln)
+            cur = f"DQK={m.group(1)} DV={m.group(2)}" if m else None
+            if cur:
+                rows.setdefault(cur, {})
+        elif cur and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            rows[cur].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        elif cur and re.search(r"Used \d+ registers", ln):
+            rows[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    warns = [ln.strip() for ln in report.splitlines()
+             if "warning" in ln.lower() and ("setmaxnreg" in ln
+                                             or "wgmma" in ln
+                                             or "C7508" in ln)]
+    return {"instantiations": rows, "warnings": warns}
+
+
+def ws_nvcc_check(report: str) -> dict:
+    """Print the warp-specialised body's registers and spills from the
+    flash build's report; fail if an instantiation spills, is missing, or
+    ptxas ignored its ``setmaxnreg``.  A cached build (no report) is
+    said so and not checked."""
+    if report.strip() == "cached":
+        log(f"nvcc {WS_KERNEL}: cached build, no report in this run")
+        return {"cached": True}
+    got = ws_nvcc_report(report)
+    for key, r in sorted(got["instantiations"].items()):
+        log(f"nvcc {WS_KERNEL} {key}: {r.get('registers')} registers a "
+            f"thread at entry (setmaxnreg: producer 40, consumers 232), "
+            f"{r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads")
+    for w in got["warnings"]:
+        log(f"nvcc {WS_KERNEL} warning: {w}")
+    if len(got["instantiations"]) != WS_INSTANTIATIONS:
+        fail(f"{WS_KERNEL}: {len(got['instantiations'])} instantiations in "
+             f"the nvcc report, expected {WS_INSTANTIATIONS}")
+    if any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+           for r in got["instantiations"].values()):
+        fail(f"{WS_KERNEL} spills: {got['instantiations']}")
+    if any("setmaxnreg" in w or "C7508" in w for w in got["warnings"]):
+        fail(f"{WS_KERNEL}: ptxas ignored setmaxnreg: {got['warnings']}")
+    return got
 
 
 # --------------------------------------------------------------------------- #
@@ -739,8 +806,10 @@ def bf16_kernel_cases(torch, ops, ref, gen, randn):
     err = check_close(torch, "gemm bf16 path shape", ops.gemm(x, w),
                       ref.gemm_ref(x, w), BF16_RTOL, BF16_ATOL)
     xw, ww = x.float(), w.float()
+    b_ms, b_by = bound_ms(2 * (m * k + k * n) + 4 * m * n, 2.0 * m * n * k,
+                          PEAK_BF16_FLOP_S)
     out["gemm_4096x128x128"] = {
-        "max_abs_err": err,
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
         "ms": median_ms(torch, lambda: ops.gemm(x, w)),
         "fp32_kernel_ms": median_ms(torch, lambda: ops.gemm(xw, ww)),
         "plain_ms": median_ms(torch, lambda: ref.gemm_ref(x, w)),
@@ -762,7 +831,8 @@ def bf16_kernel_cases(torch, ops, ref, gen, randn):
         "plain_ms": median_ms(torch, lambda: ref.spdmm_ref(cols, vals, h))}
     for name, r in out.items():
         log(f"kernel {name} bf16: " + ", ".join(
-            f"{k} {v:.4f}" if k.endswith("ms") else f"{k} {v:.2e}"
+            f"{k} {v:.4f}" if k.endswith("ms") else
+            f"{k} {v}" if isinstance(v, str) else f"{k} {v:.2e}"
             for k, v in r.items()))
     return out
 
@@ -3357,7 +3427,7 @@ def lm_prefill(torch, ops, ref, cfg, b, t, seed, timed, profile=False,
                                f"{cfg.name} prefill {b}x{t}")
         if by_name:
             flash_dev = sum(ms for n, ms in by_name.items()
-                            if "flash_bf16_kernel" in n)
+                            if FLASH_BF16 in n)
             dev = sum(by_name.values())
             log(f"{cfg.name}: flash kernel device time in the profiled "
                 f"prefill {flash_dev:.3f} ms of {dev:.3f} ms of device time "
@@ -3703,7 +3773,7 @@ def train_phase(torch, ops, ref):
                              kv_heads=TRAIN_B * cfg.n_kv_heads)
     if by_name:
         flash_dev = sum(ms for n, ms in by_name.items()
-                        if "flash_bf16_kernel" in n)
+                        if FLASH_BF16 in n)
         dev = sum(by_name.values())
         log(f"train: flash kernel device time in the profiled step "
             f"{flash_dev:.3f} ms of {dev:.3f} ms of device time, "
@@ -4813,51 +4883,57 @@ def kimi_phase(torch, ops, ref):
 
 
 def mla_flash_row(torch, ops, ref, cfg, b, t):
-    """The flash kernel as MLA calls it at b x t: BH = b heads, G = 1, d =
-    qk_nope + qk_rope (192), V of v_head_dim (128) zero-padded to d (the
-    padded output columns must stay 0), bf16, causal; held by
-    ``check_rows``, timed beside the plain version and SDPA given its own
-    v_head_dim wide V, with the bound of the useful work (2 (dqk + dv)
-    flops a kept pair) and of the padded work the kernel does (4 dqk)."""
+    """The flash kernel as MLA calls it at b x t: BH = b heads, G = 1, dqk
+    = qk_nope + qk_rope (192), V at its own width v_head_dim (128), bf16,
+    causal; held by ``check_rows``, two launches bit for bit, timed beside
+    the plain version and SDPA on the same V, with the bound of its work
+    (2 (dqk + dv) flops a kept pair).  Then the call MLA made before V took
+    its own width: V zero-padded to dqk (the padded output columns must
+    stay 0), held and timed the same way, with its own bound (4 dqk)."""
     import torch.nn.functional as F
     bh, dqk, dv = b * cfg.n_heads, cfg.qk_nope + cfg.qk_rope, cfg.v_head_dim
     gen = torch.Generator(device="cuda").manual_seed(6)
     q, k = (torch.randn(bh, t, dqk, generator=gen, device="cuda").bfloat16()
             for _ in range(2))
-    v128 = torch.randn(bh, t, dv, generator=gen, device="cuda").bfloat16()
-    v = F.pad(v128, (0, dqk - dv))
-    name = f"flash MLA prefill shape BH={bh} G=1 d={dqk} (V {dv} padded)"
-    got = ops.flash_attention(q, k, v, True)
-    want = ref.flash_attention_plain(q, k, v, True)
-    r_whole, r_row = check_rows(torch, name, got, want)
-    err = float((got.float() - want.float()).abs().max())
-    if float(got[..., dv:].abs().max()) != 0.0:
-        fail(f"{name}: the padded output columns are not zero")
-    del got, want
-    t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True))
-    t_p = median_ms(torch, lambda: ref.flash_attention_plain(q, k, v, True),
-                    reps=3, launches=3)
-    t_l = median_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[None], k[None], v128[None], is_causal=True))
-    pairs = t * (t + 1) // 2
-    nbytes = 2 * bh * t * (2 * dqk + 2 * dv)
-    b_ms, b_by = bound_ms(nbytes, 2.0 * (dqk + dv) * bh * pairs,
-                          PEAK_BF16_FLOP_S)
-    pad_ms, _ = bound_ms(2 * bh * t * 4 * dqk, 4.0 * dqk * bh * pairs,
-                         PEAK_BF16_FLOP_S)
-    log(f"kernel flash_attention {name} T={t} causal bf16: kernel {t_k:.4f} "
-        f"ms, plain {t_p:.4f} ms, F.scaled_dot_product_attention (V "
-        f"{dv} wide) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}; the "
-        f"padded work's {pad_ms:.4f} ms); relative L2 {r_whole:.3e} whole, "
-        f"{r_row:.3e} worst row, max|err| {err:.2e}")
-    del q, k, v, v128
-    torch.cuda.empty_cache()
-    return {"shape": f"BH={bh}, G=1, T={t}, d={dqk}, V {dv} padded to "
-                     f"{dqk}, bf16, causal",
+    v = torch.randn(bh, t, dv, generator=gen, device="cuda").bfloat16()
+    vp = F.pad(v, (0, dqk - dv))
+    rows = {}
+    for tag, vv in (("V", v), ("padded", vp)):
+        w = vv.shape[2]
+        name = (f"flash MLA prefill shape BH={bh} G=1 d={dqk} (V {dv}"
+                + (f" padded to {dqk})" if w > dv else ")"))
+        got = ops.flash_attention(q, k, vv, True)
+        want = ref.flash_attention_plain(q, k, vv, True)
+        r_whole, r_row = check_rows(torch, name, got, want)
+        err = float((got.float() - want.float()).abs().max())
+        if w > dv and float(got[..., dv:].abs().max()) != 0.0:
+            fail(f"{name}: the padded output columns are not zero")
+        if not torch.equal(ops.flash_attention(q, k, vv, True), got):
+            fail(f"{name}: two launches differ")
+        del got, want
+        t_k = median_ms(torch, lambda: ops.flash_attention(q, k, vv, True))
+        t_p = median_ms(torch, lambda: ref.flash_attention_plain(
+            q, k, vv, True), reps=3, launches=3)
+        t_l = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True))
+        b_ms, b_by = flash_bound(bh, t, t, dqk, True, 2, PEAK_BF16_FLOP_S,
+                                 dv=w)
+        log(f"kernel flash_attention {name} T={t} causal bf16: kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"F.scaled_dot_product_attention (V {dv} wide) {t_l:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); relative L2 {r_whole:.3e} "
+            f"whole, {r_row:.3e} worst row, max|err| {err:.2e}")
+        rows[tag] = {
+            "shape": f"BH={bh}, G=1, T={t}, d={dqk}, V {dv}"
+                     + (f" padded to {dqk}" if w > dv else "")
+                     + ", bf16, causal",
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "padded_bound_ms": pad_ms,
-            "library_ms": t_l, "library": f"V {dv} wide",
-            "rel_l2_whole": r_whole, "rel_l2_worst_row": r_row}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
+            "library": f"V {dv} wide", "rel_l2_whole": r_whole,
+            "rel_l2_worst_row": r_row}
+    del q, k, v, vp
+    torch.cuda.empty_cache()
+    return {**rows["V"], "padded": rows["padded"]}
 
 
 def deepseek_phase(torch, ops, ref):
@@ -4865,7 +4941,7 @@ def deepseek_phase(torch, ops, ref):
     128 heads, q_lora 1536, kv_lora 512, qk 128 + 64, v 128; three dense
     layers, then 256 experts top-8 and a shared expert; 15.11 B
     parameters, 28.15 GiB bf16): the flash kernel at MLA's prefill shape
-    (d = 192, V padded), the bf16 prefill at 4x2048 (moe_impl "a2a", each
+    (d = 192, V 128 wide), the bf16 prefill at 4x2048 (moe_impl "a2a", each
     flash call held), the decode pair, ``launch.serve`` at the cut, the
     fp32 witness (absorbed decode against the forward at the 4 layers,
     56.3 GiB) and the smoke-width witness.  Returns (flash launches, the
@@ -4950,29 +5026,33 @@ def chunked_attention(q, k, v, causal=True, window=0, chunk=256):
     with this attention shows what that rounding alone does to the
     logits."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.models.attention import _sdpa_chunked
-    t, d = q.shape[1], q.shape[2]
+    t, d, dv = q.shape[1], q.shape[2], v.shape[2]
     pos = torch.arange(t, device=q.device)
-    o = _sdpa_chunked(*(x.transpose(0, 1)[None] for x in (q, k, v)), pos,
+    o = _sdpa_chunked(*(x.transpose(0, 1)[None]
+                        for x in (q, k, F.pad(v, (0, d - dv)))), pos,
                       pos, causal, window, d ** -0.5, chunk)
-    return o[0].transpose(0, 1).contiguous()
+    return o[0].transpose(0, 1)[..., :dv].contiguous()
 
 
 def flash_bound(bh, tq, tk, d, causal, elem_bytes, peak_flop_s,
-                kv_heads=None, window=0):
+                kv_heads=None, window=0, dv=None):
     """Bytes: q, k, v read once (k / v over ``kv_heads`` heads, bh when
-    None), out written once; operations: 4 d flops (two products) per
-    (query, key) pair the mask keeps (under a window W, query i keeps
-    keys max(0, i - W + 1) .. i)."""
+    None), out written once; operations: 2 (d + dv) flops (two products)
+    per (query, key) pair the mask keeps (under a window W, query i keeps
+    keys max(0, i - W + 1) .. i); v and out ``dv`` wide (d when None)."""
     kv = bh if kv_heads is None else kv_heads
+    dv = d if dv is None else dv
     if causal:
         pairs = sum(min(tk, i + 1) - (max(0, i - window + 1) if window
                                       else 0) for i in range(tq))
     else:
         pairs = tq * tk
-    return bound_ms(elem_bytes * d * (2 * bh * tq + 2 * kv * tk),
-                    4.0 * d * bh * pairs, peak_flop_s)
+    return bound_ms(elem_bytes * (d * (bh * tq + kv * tk)
+                                  + dv * (kv * tk + bh * tq)),
+                    2.0 * (d + dv) * bh * pairs, peak_flop_s)
 
 
 def sdpa_yardstick(torch, q, k, v, window=0, causal=True):
@@ -5100,28 +5180,38 @@ def flash_kernel_phase(torch, ops, ref):
     return entry, path_rel, flash_gemma3_rows(torch, ops, ref, qkv)
 
 
-# gemma3's head dims (168: gemma3-27b, 240: gemma3-12b, 256: the widest the
-# kernel takes) and windows (1, 5, 64, gemma3's 1024, and >= T: none);
-# (T, heads, G, d, window).  T is ragged against both bodies' tiles; 100
-# and 1000 end inside a KV tile.
-FLASH_WIDE_CASES = [(T, h, g, d, w)
-                    for d in (168, 240, 256)
+# The head dims past 128 (136; 168: gemma3-27b; 170, which TMA cannot take;
+# 192: deepseek-v3's MLA; 240: gemma3-12b; 256: the widest of the
+# warp-specialised body) and windows (1, 5, 64, gemma3's 1024, and >= T:
+# none); (T, heads, G, d, window, dv): V d wide, then 128 (MLA's width)
+# and G = 8.  T is ragged against every body's tiles; 100 and 1000 end
+# inside a KV tile.
+FLASH_WIDE_CASES = [(T, h, g, d, w, d)
+                    for d in (136, 168, 170, 192, 240, 256)
                     for T, h, g, w in ((300, 4, 2, 0), (300, 4, 2, 1),
                                        (300, 4, 1, 5), (300, 4, 2, 64),
                                        (1300, 2, 2, 1024),
                                        (300, 2, 1, 1024))]
-FLASH_WINDOW_CASES = [(250, 4, 2, 128, 100), (1100, 2, 1, 64, 1000),
-                      (77, 2, 2, 40, 3)]
+FLASH_WIDE_CASES += [(T, h, g, d, w, 128)
+                     for d in (168, 170, 192, 240)
+                     for T, h, g, w in ((300, 4, 2, 0), (300, 4, 1, 5),
+                                        (1300, 2, 2, 1024))]
+FLASH_WIDE_CASES += [(300, 8, 8, 240, 0, 240), (300, 8, 8, 192, 64, 128)]
+FLASH_WINDOW_CASES = [(250, 4, 2, 128, 100, 128), (1100, 2, 1, 64, 1000, 64),
+                      (77, 2, 2, 40, 3, 40)]
 
 
 def flash_window_cases(torch, ops, ref, qkv):
-    """The kernel at gemma3's head dims and under sliding windows, fp32
-    at atol 2e-5 and bf16 under ``check_rows``; returns the case count."""
+    """The kernel at the head dims past 128 (V d or 128 wide) and under
+    sliding windows, fp32 at atol 2e-5 and bf16 under ``check_rows``, two
+    launches bit for bit; returns the case count."""
     n = 0
-    for T, h, g, d, w in FLASH_WIDE_CASES + FLASH_WINDOW_CASES:
+    for T, h, g, d, w, dv in FLASH_WIDE_CASES + FLASH_WINDOW_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = qkv(h, T, T, d, dt, g)
-            name = f"flash {T}x{T} h={h} G={g} d={d} window={w} {dt}"
+            v = v[..., :dv].contiguous()
+            name = (f"flash {T}x{T} h={h} G={g} d={d} dv={dv} window={w} "
+                    f"{dt}")
             got = ops.flash_attention(q, k, v, True, w)
             want = ref.flash_attention_plain(q, k, v, True, w)
             if dt == torch.float32:
@@ -5140,17 +5230,26 @@ GEMMA_FLASH_WINDOW = 1024
 def flash_gemma3_rows(torch, ops, ref, qkv):
     """The kernel at gemma3-12b's prefill shape (B=4: 64 query heads of
     240 over 32 KV heads, T=2048, bf16, causal), without and with its
-    local layers' window of 1024, timed beside the plain version and SDPA
-    with the bound; returns a row per window."""
-    bh, t, d = LM_B * 16, LM_T, 240
-    q, k, v = qkv(bh, t, t, d, torch.bfloat16, 2)
+    local layers' window of 1024, and at gemma3-27b's (128 query heads of
+    168 over 64 KV heads), each held by ``check_rows``, two launches bit
+    for bit, timed beside the plain version and SDPA with the bound;
+    returns a row per shape."""
     rows = {}
-    for w in (0, GEMMA_FLASH_WINDOW):
-        name = f"flash gemma3-12b prefill shape window={w}"
+    for label, bh, d, w in (("window=0", LM_B * 16, 240, 0),
+                            (f"window={GEMMA_FLASH_WINDOW}", LM_B * 16,
+                             240, GEMMA_FLASH_WINDOW),
+                            ("gemma3-27b", LM_B * 32, 168, 0)):
+        t = LM_T
+        if label != f"window={GEMMA_FLASH_WINDOW}":
+            q, k, v = qkv(bh, t, t, d, torch.bfloat16, 2)
+        model = "gemma3-27b" if d == 168 else "gemma3-12b"
+        name = f"flash {model} prefill shape window={w}"
         got = ops.flash_attention(q, k, v, True, w)
         want = ref.flash_attention_plain(q, k, v, True, w)
         r_whole, r_row = check_rows(torch, name, got, want)
         err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(ops.flash_attention(q, k, v, True, w), got):
+            fail(f"{name}: two launches differ")
         del got, want
         t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True, w))
         t_p = median_ms(torch, lambda: ref.flash_attention_plain(
@@ -5159,17 +5258,20 @@ def flash_gemma3_rows(torch, ops, ref, qkv):
         t_l = median_ms(torch, lib)
         b_ms, b_by = flash_bound(bh, t, t, d, True, 2, PEAK_BF16_FLOP_S,
                                  kv_heads=bh // 2, window=w)
-        log(f"kernel flash_attention BH={bh} KV heads={bh // 2} T={t} d={d} "
-            f"causal window={w} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-            f"ms, F.scaled_dot_product_attention ({how}) {t_l:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}); relative L2 {r_whole:.3e} "
-            f"whole, {r_row:.3e} worst row, max|err| {err:.2e}")
-        rows[f"window={w}"] = {
-            "shape": f"BH={bh} over {bh // 2} KV heads, T={t}, d={d}, bf16,"
-                     f" causal, window {w}", "max_abs_err": err, "ms": t_k,
-            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+        log(f"kernel flash_attention {model} BH={bh} KV heads={bh // 2} "
+            f"T={t} d={d} causal window={w} bf16: kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, F.scaled_dot_product_attention ({how}) "
+            f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); relative L2 "
+            f"{r_whole:.3e} whole, {r_row:.3e} worst row, max|err| "
+            f"{err:.2e}")
+        rows[label] = {
+            "shape": f"{model}: BH={bh} over {bh // 2} KV heads, T={t}, "
+                     f"d={d}, bf16, causal, window {w}", "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": t_l, "library": how, "rel_l2_whole": r_whole,
             "rel_l2_worst_row": r_row}
+    del q, k, v
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -5248,7 +5350,7 @@ def lm_phase(torch, ops, ref):
     flash_dev = None
     if by_name:
         flash_dev = sum(ms for n, ms in by_name.items()
-                        if "flash_bf16_kernel" in n)
+                        if FLASH_BF16 in n)
         dev = sum(by_name.values())
         log(f"flash kernel device time in the profiled prefill: "
             f"{flash_dev:.3f} ms of {dev:.3f} ms of device time "
@@ -6014,6 +6116,7 @@ def main() -> int:
     for name, rep in build.build_log.items():
         log(f"nvcc {name}.cu:\n{rep.strip()}")
     log(f"build: {len(build.SOURCES)} kernels in {t_build:.2f} s")
+    ws_build = ws_nvcc_check(build.build_log.get("flash_attention", ""))
 
     gemm_entry = kernel_phase(torch, ops, ref)
     bf16_kernels = gemm_entry.pop("bf16")
@@ -6062,7 +6165,7 @@ def main() -> int:
     log(f"granite phase: {time.perf_counter() - t7:.1f} s")
     t7 = time.perf_counter()
     gemma_launches, gemma = gemma3_phase(torch, ops, ref)
-    gemma["flash_gemma3_12b_shape"] = flash_gemma
+    gemma["flash_gemma3_shapes"] = flash_gemma
     log(f"gemma3 phase: {time.perf_counter() - t7:.1f} s")
     t7 = time.perf_counter()
     train_launches, train = train_phase(torch, ops, ref)
@@ -6133,7 +6236,7 @@ def main() -> int:
         flash_kimi, "flash_attention (kimi-k2 prefill: G=8, d=112)",
         kimi_launches))
     kernels.append(flash_shape_entry(
-        flash_mla, "flash_attention (deepseek-v3 MLA: d=192, V padded)",
+        flash_mla, "flash_attention (deepseek-v3 MLA: d=192, dv=128)",
         mla_launches))
     kernels.append(wide_entry)
     for base, tag, row in (
@@ -6202,6 +6305,7 @@ def main() -> int:
                        "distributed": distributed, "dryrun": dryrun,
                        "contracts": contracts,
                        "bf16_kernels": bf16_kernels,
+                       "flash_ws_build": ws_build,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,
                            "gemma3": gemma_launches,

@@ -15,12 +15,15 @@ reads:
   ``flash_attention_plain``: the JAX bf16 case's elementwise rtol / atol
   3e-2, and ``chip_smoke.check_rows``'s relative L2 over the whole
   output and over each query row;
+* the same two readings at gemma3-12b's prefill shape (BH=64 over 32 KV
+  heads, T=2048, d=240, bf16, causal), which the warp-specialised body
+  past d = 128 runs;
 * the last-position logits of a qwen3-0.6b prefill (bf16, B=4, T=2048,
   weights from seed 0, as in ``chip_smoke.py``) against the same model
   with plain attention, beside ``chip_smoke.py``'s 2e-2 limit.
 
 It exits non-zero if the real kernel fails a check or a fault passes
-``check_rows``.  The last line of the output is the readings as JSON.
+``check_rows`` at both shapes.  The last line of the output is the readings as JSON.
 Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
@@ -52,7 +55,15 @@ FAULTS = {
         "bf16 body: scores scaled by 1.01 d^-1/2",
         "const float sl2 = scale * LOG2E;",
         "const float sl2 = scale * 1.01f * LOG2E;"),
+    "pingpong_pv_slot": (
+        "warp-specialised body (d > 128): a turn's deferred P.V reads the "
+        "V slot of this turn's tile, not the last tile's",
+        "    ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);",
+        "    ws_pv<DQK, DV>(o, pa, v_s + slot * L::V_SLOT);"),
 }
+# The wide reading: gemma3-12b's prefill heads at B=4 (query heads, KV
+# heads, d).
+WIDE_SHAPE = (64, 32, 240)
 
 
 def main() -> int:
@@ -89,6 +100,11 @@ def main() -> int:
     q, k, v = (torch.randn(bh, t, d, generator=gen, device="cuda"
                            ).bfloat16() for _ in range(3))
     want = ref.flash_attention_plain(q, k, v, True).float()
+    wbh, wkv, wd = WIDE_SHAPE
+    wq = torch.randn(wbh, t, wd, generator=gen, device="cuda").bfloat16()
+    wk, wv = (torch.randn(wkv, t, wd, generator=gen, device="cuda"
+                          ).bfloat16() for _ in range(2))
+    wwant = ref.flash_attention_plain(wq, wk, wv, True).float()
 
     cfg = get_config(cs.LM_ARCH)
     model = build_model(cfg, seed=0)
@@ -112,6 +128,12 @@ def main() -> int:
             r_whole, r_row = cs.rows_rel(got, want)
             rows_ok = (r_whole <= cs.FLASH_BF16_WHOLE
                        and r_row <= cs.FLASH_BF16_ROW)
+            wgot = ops.flash_attention(wq, wk, wv, True).float()
+            w_whole, w_row = cs.rows_rel(wgot, wwant)
+            w_elem = bool(((wgot - wwant).abs()
+                           <= cs.FLASH_BF16_TOL * (1 + wwant.abs())).all())
+            w_ok = (w_whole <= cs.FLASH_BF16_WHOLE
+                    and w_row <= cs.FLASH_BF16_ROW)
             logits = prefill(model, batch).float()
             rel = float((logits - plain).norm() / plain.norm())
         finally:
@@ -120,17 +142,26 @@ def main() -> int:
                           "elementwise_3e-2_passes": elem_ok,
                           "rel_l2_whole": r_whole, "rel_l2_worst_row": r_row,
                           "check_rows_passes": rows_ok,
-                          "prefill_rel_l2": rel}
+                          "prefill_rel_l2": rel,
+                          "d240": {"elementwise_3e-2_passes": w_elem,
+                                   "rel_l2_whole": w_whole,
+                                   "rel_l2_worst_row": w_row,
+                                   "check_rows_passes": w_ok}}
         what = "the kernel" if name == "kernel" else FAULTS[name][0]
         cs.log(f"{name} ({what}): max|err| {float(err.max()):.3e}, "
                f"elementwise 3e-2 {'passes' if elem_ok else 'fails'}; "
                f"relative L2 {r_whole:.3e} whole, {r_row:.3e} worst row: "
                f"check_rows {'passes' if rows_ok else 'fails'}; prefill "
-               f"logits relative L2 {rel:.3e} (limit {cs.LM_REL_L2})")
+               f"logits relative L2 {rel:.3e} (limit {cs.LM_REL_L2}); at "
+               f"d = 240: elementwise 3e-2 "
+               f"{'passes' if w_elem else 'fails'}, relative L2 "
+               f"{w_whole:.3e} whole, {w_row:.3e} worst row: check_rows "
+               f"{'passes' if w_ok else 'fails'}")
         if name == "kernel":
-            if not (elem_ok and rows_ok and rel <= cs.LM_REL_L2):
+            if not (elem_ok and rows_ok and w_elem and w_ok
+                    and rel <= cs.LM_REL_L2):
                 bad.append(name)
-        elif rows_ok:
+        elif rows_ok and w_ok:
             bad.append(name)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

@@ -2,7 +2,8 @@
 """Tile-shape variants of the GEMM, SDDMM and flash kernels, read beside
 the kernels themselves on one GPU.
 
-    python3 kernel_variants.py [--parent DIR] [--json-out PATH]
+    python3 kernel_variants.py [--parent DIR] [--only KERNEL ...]
+                               [--json-out PATH]
 
 Builds ``src/repro_torch/kernels/csrc/gemm.cu``, ``sddmm.cu`` and
 ``flash_attention.cu`` and one copy of each per entry of ``VARIANTS`` (a text edit of the source that
@@ -11,8 +12,9 @@ source exactly once), one ``nvcc`` per source, all at once, under the
 git-ignored ``src/repro_torch/kernels/_build/variants/``
 (``build.build_copies``); the sources in the checkout are not touched.
 With ``--parent DIR`` (a checkout of another tree, for example an
-unpacked ``git archive`` of the parent commit) that tree's GEMM and SDDMM
-sources are built as the variant ``parent``.  Each variant is called
+unpacked ``git archive`` of the parent commit) that tree's GEMM, SDDMM
+and flash sources are built as the variant ``parent`` (a flash source
+whose entry has no dv argument is called with V zero-padded to d).  Each variant is called
 through the unchanged ``ops.gemm`` / ``ops.sddmm`` /
 ``ops.flash_attention`` wrappers (``ops.entry`` swapped) and:
 
@@ -30,10 +32,10 @@ through the unchanged ``ops.gemm`` / ``ops.sddmm`` /
   narrow tiles (w = 8 and 64, row lengths uniform in [0, w]), with an
   accumulator, beside ``torch.sparse.sampled_addmm``; flash (bf16,
   causal) at the B=4, T=2048 prefill shapes of gemma3-12b (d = 240,
-  without and with the window of 1024), gemma3-27b (d = 168) and
-  qwen3-0.6b (d = 128), each under ``chip_smoke.check_rows`` against the
-  plain version, with its bound and whether its bits equal the
-  checkout's kernel's.
+  without and with the window of 1024), gemma3-27b (d = 168), deepseek-v3's
+  MLA call (BH = 512, d = 192, V 128 wide) and qwen3-0.6b (d = 128), each
+  under ``chip_smoke.check_rows`` against the plain version, with its
+  bound and whether its bits equal the checkout's kernel's.
 
 The kernel in the checkout is timed first and last (change, variants,
 change), so its two readings show the drift within the call.  It exits
@@ -97,43 +99,133 @@ VARIANTS = {
                       "constexpr int WARPS = 16;")]),
     },
     "flash_attention": {
-        "wide_two_wg": ("bf16 body past d = 128: two consumer warpgroups "
-                        "(128 query rows, 288 threads, 168 registers a "
-                        "thread) instead of one",
-                        [("  static constexpr int NWG = DP > 128 ? 1 : 2;",
-                          "  static constexpr int NWG = 2;")]),
+        "wide_two_wg": ("bf16 body past d = 128: the two consumer "
+                        "warpgroups without setmaxnreg (every thread at the "
+                        "launch's 168 registers)",
+                        [("    regs_dec<WS_PRODUCER_REGS>();\n", ""),
+                         ("    regs_inc<WS_CONSUMER_REGS>();\n", "")]),
         "wide_pv_halves": ("bf16 body past d = 128: P.V as two m64n128 "
-                           "halves instead of one m64n256",
-                           [("        wgmma_rs_n256(o, pa[kc], dv, 1);\n",
-                             "        wgmma_rs_n128(*reinterpret_cast<"
-                             "float(*)[64]>(o), pa[kc], dv, 1);\n"
-                             "        wgmma_rs_n128(*reinterpret_cast<"
+                           "halves instead of one m64n256 (DV = 256)",
+                           [("      wgmma_rs_n256(o, pa[kc], vd, 1);\n",
+                             "    {\n"
+                             "      wgmma_rs_n128(*reinterpret_cast<"
+                             "float(*)[64]>(o), pa[kc], vd, 1);\n"
+                             "      wgmma_rs_n128(*reinterpret_cast<"
                              "float(*)[64]>(o + 64), pa[kc], gmma_desc("
                              "v_s + 2 * L::KV_PANEL + kc * 16 * 128, "
-                             "L::KV_PANEL, 1024), 1);\n")]),
+                             "L::KV_PANEL, 1024), 1);\n"
+                             "    }\n")]),
         "wide_kstep_break": ("bf16 body past d = 128: Q.K^T stops at the "
                              "last k-step below d (a branch between the "
-                             "wgmma of one stage)",
-                             [("    for (int ks = 0; ks < KS; ++ks) {\n",
-                               "    for (int ks = 0; ks < KS; ++ks) {\n"
-                               "      if (DP > 128 && 16 * ks >= d) "
-                               "break;\n")]),
+                             "wgmma of one tile)",
+                             [("                                      "
+                               "uint32_t q_s, uint32_t k_s) {",
+                               "                                      "
+                               "uint32_t q_s, uint32_t k_s, int d) {"),
+                              ("  for (int kq = 0; kq < L::KS; ++kq) {\n",
+                               "  for (int kq = 0; kq < L::KS; ++kq) {\n"
+                               "    if (16 * kq >= d) break;\n"),
+                              ("  ws_qk<DQK, DV>(s, q_s, k_s);",
+                               "  ws_qk<DQK, DV>(s, q_s, k_s, d);"),
+                              ("    ws_qk<DQK, DV>(s, q_s, k_s + slot * "
+                               "L::K_SLOT);",
+                               "    ws_qk<DQK, DV>(s, q_s, k_s + slot * "
+                               "L::K_SLOT, d);"),
+                              ("    int tk, int dv, int causal,",
+                               "    int tk, int d, int dv, int causal,"),
+                              ("out_bf16 != 0, q0, tq, tk, dv,",
+                               "out_bf16 != 0, q0, tq, tk, d, dv,")]),
+        "wide_no_pingpong": ("bf16 body past d = 128: the consumer "
+                             "warpgroups issue their products without "
+                             "taking turns (no named barriers)",
+                             [('  asm volatile("bar.sync %0, %1;\\n" '
+                               '::"r"(id), "n"(WS_CONSUMERS) : "memory");\n',
+                               ""),
+                              ('  asm volatile("bar.arrive %0, %1;\\n" '
+                               '::"r"(id), "n"(WS_CONSUMERS)\n'
+                               '               : "memory");\n', "")]),
+        "wide_bk64": ("bf16 body past d = 128: 64-key tiles at DQK 192 / "
+                      "DV 128 (MLA) instead of 128",
+                      [("  static constexpr int BK = DQK + DV <= 320 ? 128 "
+                        ": 64;", "  static constexpr int BK = 64;")]),
+        "wide_serial_turn": (
+            "bf16 body past d = 128: a turn issues the last tile's P.V and "
+            "this tile's Q.K^T as one group and runs the whole softmax "
+            "after both (no overlap inside a warpgroup)",
+            [(
+              "      wgmma_fence();\n"
+              "      ws_qk<DQK, DV>(s, q_s, k_s + slot * L::K_SLOT);\n"
+              "      wgmma_commit();\n"
+              "      ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);\n"
+              "      wgmma_commit();\n"
+              "      turn_pass(2 - wg);\n"
+              "      wgmma_wait_one();                  // Q.K^T done, P.V in "
+              "flight\n"
+              "      fence_regs(s);\n"
+              "      __syncwarp();\n"
+              "      if (lane == 0) mbar_arrive(empty_k + 8 * slot);\n"
+              "      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt *"
+              " BK, wq0,\n"
+              "                    row_lo, row_hi, t4, tk, causal, window, sl2"
+              ");\n"
+              "      wgmma_wait_all();\n"
+              "      fence_regs(o);\n"
+              "      __syncwarp();\n"
+              "      if (lane == 0) mbar_arrive(empty_v + 8 * prev);\n",
+              "      wgmma_fence();\n"
+              "      ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);\n"
+              "      ws_qk<DQK, DV>(s, q_s, k_s + slot * L::K_SLOT);\n"
+              "      wgmma_commit();\n"
+              "      turn_pass(2 - wg);\n"
+              "      wgmma_wait_all();\n"
+              "      fence_regs(o);\n"
+              "      fence_regs(s);\n"
+              "      __syncwarp();\n"
+              "      if (lane == 0) {\n"
+              "        mbar_arrive(empty_k + 8 * slot);\n"
+              "        mbar_arrive(empty_v + 8 * prev);\n"
+              "      }\n"
+              "      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt *"
+              " BK, wq0,\n"
+              "                    row_lo, row_hi, t4, tk, causal, window, sl2"
+              ");\n")]),
     },
 }
-# Kernels whose parent source is built as the variant "parent" (the flash
-# kernel's C signature changed with its window argument).
-PARENT_KERNELS = ("gemm", "sddmm")
+# Kernels whose parent source is built as the variant "parent".
+PARENT_KERNELS = ("gemm", "sddmm", "flash_attention")
+# A flash entry without the dv argument (the signature before V took its
+# own width): the parent's, when its source has no dv.
+FLASH_NO_DV = "int d, int causal, int window,"
+
+
+def flash_without_dv(fn):
+    """The entry ``fn`` of a flash source whose C signature has no dv,
+    called as the wrappers call the current one: only with dv = d (V as
+    wide as q)."""
+    import ctypes
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_void_p])
+
+    def call(q, k, v, out, dtype, out_dtype, bh, tq, tk, d, dv, *rest):
+        if dv != d:
+            raise ValueError("this flash entry takes V as wide as q only")
+        return fn(q, k, v, out, dtype, out_dtype, bh, tq, tk, d, *rest)
+    call.no_dv = True
+    return call
 
 
 def log(*a) -> None:
     print(*a, flush=True)
 
 
-def build_variants(build, parent):
-    """Build every variant (and the parent's sources); returns (kernel,
-    name) -> C entry point, the checkout's kernels as "change"."""
+def build_variants(build, parent, kernels):
+    """Build every variant of ``kernels`` (and the parent's sources);
+    returns (kernel, name) -> C entry point, the checkout's kernels as
+    "change"."""
     copies, keys = {}, {}
     for kern, variants in VARIANTS.items():
+        if kern not in kernels:
+            continue
         for name, (_, edits) in variants.items():
             copies[f"{kern}_{name}"] = (kern, build.edited(kern, edits))
             keys[f"{kern}_{name}"] = (kern, name)
@@ -150,6 +242,8 @@ def build_variants(build, parent):
     fns = {}
     for tag, (fn, report) in built.items():
         kern, name = keys[tag]
+        if kern == "flash_attention" and FLASH_NO_DV in copies[tag][1]:
+            fn = flash_without_dv(fn)
         regs = [ln.split("ptxas info    :")[-1].strip()
                 for ln in report.splitlines() if "Used" in ln or "spill" in ln]
         log(f"nvcc {kern} {name}: " + "; ".join(regs))
@@ -216,11 +310,12 @@ def gemm_phase(torch, cs, ops, ref, fns):
 
 
 # Prefill shapes of the flash kernel at B=4 (bf16, causal): (label, query
-# heads, KV heads, T, d, window).
-FLASH_SHAPES = [("gemma3-12b", 64, 32, 2048, 240, 0),
-                ("gemma3-12b local", 64, 32, 2048, 240, 1024),
-                ("gemma3-27b", 128, 64, 2048, 168, 0),
-                ("qwen3-0.6b", 64, 32, 2048, 128, 0)]
+# heads, KV heads, T, d, window, V's width dv).
+FLASH_SHAPES = [("gemma3-12b", 64, 32, 2048, 240, 0, 240),
+                ("gemma3-12b local", 64, 32, 2048, 240, 1024, 240),
+                ("gemma3-27b", 128, 64, 2048, 168, 0, 168),
+                ("deepseek-v3 MLA", 512, 512, 2048, 192, 0, 128),
+                ("qwen3-0.6b", 64, 32, 2048, 128, 0, 128)]
 
 
 def flash_phase(torch, cs, ops, ref, fns):
@@ -231,30 +326,38 @@ def flash_phase(torch, cs, ops, ref, fns):
     names = [n for k, n in fns if k == "flash_attention"]
     order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
     out = {}
-    for label, bh, kvh, t, d, w in FLASH_SHAPES:
+    for label, bh, kvh, t, d, w, dv in FLASH_SHAPES:
         q = torch.randn(bh, t, d, generator=gen, device="cuda").bfloat16()
-        k, v = (torch.randn(kvh, t, d, generator=gen, device="cuda"
-                            ).bfloat16() for _ in range(2))
+        k, v = (torch.randn(kvh, t, n, generator=gen, device="cuda"
+                            ).bfloat16() for n in (d, dv))
+        # an entry without dv gets V zero-padded to d (the call MLA made
+        # before V took its own width); its first dv columns are compared
+        vd = torch.nn.functional.pad(v, (0, d - dv))
         want = ref.flash_attention_plain(q, k, v, True, w)
         with entry_as(ops, fns[("flash_attention", "change")]):
             mine = ops.flash_attention(q, k, v, True, w)
         row = {}
         for i, nm in enumerate(order):
+            vv = vd if getattr(fns[("flash_attention", nm)], "no_dv",
+                               False) else v
             with entry_as(ops, fns[("flash_attention", nm)]):
-                got = ops.flash_attention(q, k, v, True, w)
+                got = ops.flash_attention(q, k, vv, True, w)[..., :dv]
                 whole, worst = cs.check_rows(torch, f"flash {nm} {label}",
                                              got, want)
                 ms = cs.median_ms(torch, lambda: ops.flash_attention(
-                    q, k, v, True, w))
+                    q, k, vv, True, w))
             row[nm if i < len(order) - 1 else "change_again"] = {
                 "ms": ms, "rel_l2_whole": whole, "rel_l2_worst_row": worst,
                 "equal_to_change": bool(torch.equal(got, mine))}
         b_ms, b_by = cs.flash_bound(bh, t, t, d, True, 2,
                                     cs.PEAK_BF16_FLOP_S, kv_heads=kvh,
-                                    window=w)
+                                    window=w, dv=dv)
         row["bound_ms"] = b_ms
         out[label] = row
-        log(f"flash {label} (BH={bh} over {kvh}, T={t}, d={d}, window {w}) "
+        del q, k, v, vd, vv, want, mine, got
+        torch.cuda.empty_cache()
+        log(f"flash {label} (BH={bh} over {kvh}, T={t}, d={d}, dv={dv}, "
+            f"window {w}) "
             f"ms: " + ", ".join(f"{nm} {r['ms']:.4f}" + (
                 "" if r["equal_to_change"] else " (bits differ)")
                 for nm, r in row.items() if nm != "bound_ms")
@@ -372,8 +475,12 @@ def sddmm_phase(torch, cs, ops, ref, fns):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="another checkout whose gemm.cu / sddmm.cu to "
-                         "build and time as the variant 'parent'")
+                    help="another checkout whose gemm.cu / sddmm.cu / "
+                         "flash_attention.cu to build and time as the "
+                         "variant 'parent'")
+    ap.add_argument("--only", action="append", choices=list(VARIANTS),
+                    help="build and time only this kernel's variants "
+                         "(repeatable; default: every kernel)")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args()
     import warnings
@@ -391,16 +498,16 @@ def main() -> int:
 
     card = cs.card_line()
     log(card)
-    fns = build_variants(build, args.parent)
-    fns[("gemm", "change")] = ops.entry("gemm")
-    fns[("sddmm", "change")] = ops.entry("sddmm")
-    fns[("flash_attention", "change")] = ops.entry("flash_attention")
+    kernels = args.only or list(VARIANTS)
+    fns = build_variants(build, args.parent, kernels)
+    phases = {"gemm": gemm_phase, "sddmm": sddmm_phase,
+              "flash_attention": flash_phase}
     result = {"card": card,
               "variants": {k: {n: d for n, (d, _) in v.items()}
-                           for k, v in VARIANTS.items()},
-              "gemm": gemm_phase(torch, cs, ops, ref, fns),
-              "sddmm": sddmm_phase(torch, cs, ops, ref, fns),
-              "flash_attention": flash_phase(torch, cs, ops, ref, fns)}
+                           for k, v in VARIANTS.items() if k in kernels}}
+    for kern in kernels:
+        fns[(kern, "change")] = ops.entry(kern)
+        result[kern] = phases[kern](torch, cs, ops, ref, fns)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

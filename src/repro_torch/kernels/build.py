@@ -51,7 +51,7 @@ _ARGTYPES = {
     "sddmm_bf16_out": ("sddmm_bf16_out", [_c_void_p] * 6 + [_c_int] * 5
                        + [_c_ll] * 2 + [_c_void_p]),
     "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
-                        + [_c_int] * 9 + [_c_float, _c_void_p]),
+                        + [_c_int] * 10 + [_c_float, _c_void_p]),
     "densify": ("ell_densify_f32", [_c_void_p] * 3 + [_c_int] * 3
                 + [_c_ll, _c_void_p]),
 }

@@ -8,7 +8,9 @@
 // only) also masks keys with qpos - kpos >= W, JAX's `_mask_bias`
 // (src/repro/models/attention.py), which gemma3's local layers apply.  G
 // query heads share one KV head (grouped-query attention; G = 1 is one KV
-// head per query head).
+// head per query head).  q and k have head dim d; v and out have their own
+// width dv <= d (dv = d is the Pallas kernel's contract; deepseek-v3's MLA
+// has d = 192, dv = 128).
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` /
 // `_flash_kernel` (the Pallas kernel: grid (B*H, Tq/bq), the whole [Tk, d]
@@ -18,7 +20,8 @@
 // src/repro_torch/kernels/ops.py `flash_attention` from
 // src/repro_torch/models/attention.py `attention` (causal self-attention
 // with default positions, windowed or not: every layer of
-// DecoderLM.forward, in prefill and in the train step's forward).
+// DecoderLM.forward, in prefill and in the train step's forward) and
+// src/repro_torch/models/mla.py `mla_attention`.
 //
 // What bounds it on an H100: operations.  At qwen3-0.6b's prefill shape
 // (B=4, T=2048: BH = 64 query heads over 32 KV heads, d = 128, bf16,
@@ -27,8 +30,9 @@
 // (67 MB) and k and v (34 MB): 0.030 ms at 3.35 TB/s.  At gemma3-12b's
 // (BH = 64 over 32, d = 240) it needs 128.9 GFLOP causal (0.130 ms) and
 // 96.7 GFLOP with the local layers' window of 1024 (0.098 ms: a row sees
-// at most 1024 keys), against 189 MB moved (0.056 ms).  In fp32 the
-// products run on CUDA cores (67 TFLOP/s): 1.0 ms at qwen3's shape.
+// at most 1024 keys), against 189 MB moved (0.056 ms).  With dv < d a
+// kept pair costs 2 (d + dv) flops.  In fp32 the products run on CUDA
+// cores (67 TFLOP/s): 1.0 ms at qwen3's shape.
 //
 // Design.  Hopper runs blocks in parallel, so the Pallas grid's sequential
 // KV walk becomes a loop inside one CTA per (bh, query tile), with the
@@ -37,51 +41,66 @@
 // head in VMEM, which would not fit in 227 KB at T = 2048).  Query tiles
 // are issued heaviest first (the last causal tiles walk the most keys).
 // Ragged edges are masked in the kernel: rows past Tq are computed on
-// zeros and not stored, keys past Tk score nothing, columns past d are zero
-// in shared memory, so any Tq, Tk >= 1 and d <= 256 work (d > 256 takes
-// the d-sliced bodies, the third item below).  The walk over
-// KV tiles is bounded on both sides: tiles strictly after the query tile
-// are skipped under causal masking, as in the Pallas kernel, and under a
-// window W tiles wholly before key q0 - W + 1 (q0 the tile's first row)
-// are skipped too; their keys are masked for every row, so skipping them
-// is exact.  The mask itself is applied only on tiles that hold a masked
-// key: the causal diagonal, the window's lower edge, the ragged end of Tk.
-// A window needs Tq <= Tk, so every row sees at least its own key and no
-// row is empty.  Every sum runs in one fixed order with no atomics, so
-// results are deterministic.  Two bodies:
-//  * bf16 inputs: tensor cores through wgmma, Hopper's warpgroup MMA.  A
-//    CTA owns 64 query rows per consumer warpgroup (two at d <= 128: K
-//    and V are read from L2 once per 128 rows; one past d = 128) and one
-//    producer warp.  The producer fills a ring of two shared-memory
-//    stages, each BK keys of K and V, ahead of the math with TMA (one
-//    thread; the hardware writes the 128-byte swizzle and zero-fills past
-//    Tq, Tk and d) and signals each stage on a `full` mbarrier; every
-//    consumer warp releases a stage on an `empty` mbarrier once its
-//    products have read it.  No CTA-wide barrier follows the start, so two
-//    warpgroups drift apart and one's softmax overlaps the other's
-//    products.  Q, K and V lie in shared memory as 64-column panels of
-//    128-byte rows whose 16-byte chunks are XORed by row % 8 (wgmma's
-//    128-byte swizzle).  S = Q.K^T is wgmma m64n{BK}k16 with both operands
-//    from shared memory (K-major); its fp32 accumulators are, per warp,
-//    the m16n8k16 A fragments of P.V, so P is rounded to bf16 in
-//    registers (as the JAX kernel rounds it) and O += P.V is wgmma
-//    m64n{64,128,256}k16 with A from registers and V read in its natural
-//    [keys, d] layout through the transpose bit (MN-major).  Max, sum and
-//    rescaling run in fp32, the max on the raw scores with the scale
-//    folded into the exponent's fma.  Shared memory and registers set the
-//    tiles: at d <= 128, BK = 128 and Q 32 KB plus two 64 KB K+V stages
-//    (160 KB; 16 KB and 2 x 32 KB at d <= 64, the staged width being at
-//    least one 64-column panel), 9 warps; at 128 < d <= 256 (gemma3: 240
-//    and 168), BK = 64, Q 32 KB and two 64 KB stages (160 KB; 128-key
-//    stages beside 128 rows of Q would need 320 KB), 5 warps, S 32 and O
-//    128 fp32 registers a thread.  With 9 warps the compiler caps a
-//    thread at 168 registers and O spills; with 5 it takes 200 and none
-//    spill (kernel_variants.py times both).  TMA loads only the panels
-//    that hold a column below d; the others are zeroed once at the start,
-//    so every k-step runs without a branch between the wgmma of a stage
-//    (a branch serializes them).  Tensors TMA cannot take (d not a
-//    multiple of 8, a base not 16-byte aligned) are staged by the
-//    producer warp with plain loads into the same layout.
+// zeros and not stored, keys past Tk score nothing, columns past d (q, k)
+// and dv (v) are zero in shared memory, so any Tq, Tk >= 1 work.  The walk
+// over KV tiles is bounded on both sides: tiles strictly after the query
+// tile are skipped under causal masking, as in the Pallas kernel, and
+// under a window W tiles wholly before key q0 - W + 1 (q0 the tile's first
+// row) are skipped too; their keys are masked for every row, so skipping
+// them is exact.  The mask itself is applied only on tiles that hold a
+// masked key: the causal diagonal, the window's lower edge, the ragged end
+// of Tk.  A window needs Tq <= Tk, so every row sees at least its own key
+// and no row is empty.  Every sum runs in one fixed order with no atomics,
+// so results are deterministic.  Four bodies:
+//  * bf16 inputs, d <= 128: tensor cores through wgmma, Hopper's
+//    warpgroup MMA.  A CTA owns 128 query rows, 64 per consumer warpgroup
+//    (K and V are read from L2 once per 128 rows), and one producer warp.
+//    The producer fills a ring of two shared-memory stages, each 128 keys
+//    of K and V, ahead of the math with TMA (one thread; the hardware
+//    writes the 128-byte swizzle and zero-fills past Tq, Tk, d and dv) and
+//    signals each stage on a `full` mbarrier; every consumer warp releases
+//    a stage on an `empty` mbarrier once its products have read it.  No
+//    CTA-wide barrier follows the start, so two warpgroups drift apart and
+//    one's softmax overlaps the other's products.  Q, K and V lie in shared
+//    memory as 64-column panels of 128-byte rows whose 16-byte chunks are
+//    XORed by row % 8 (wgmma's 128-byte swizzle).  S = Q.K^T is wgmma
+//    m64n128k16 with both operands from shared memory (K-major); its fp32
+//    accumulators are, per warp, the m16n8k16 A fragments of P.V, so P is
+//    rounded to bf16 in registers (as the JAX kernel rounds it) and O +=
+//    P.V is wgmma m64n{64,128}k16 with A from registers and V read in its
+//    natural [keys, dv] layout through the transpose bit (MN-major).  Max,
+//    sum and rescaling run in fp32, the max on the raw scores with the
+//    scale folded into the exponent's fma.  Q 32 KB plus two 64 KB K+V
+//    stages (160 KB; 16 KB and 2 x 32 KB at d <= 64, the staged width being
+//    at least one 64-column panel), 9 warps.  TMA loads only the panels
+//    that hold a column below d (dv for V); the others are zeroed once at
+//    the start, so every k-step runs without a branch between the wgmma of
+//    a stage.  Tensors TMA cannot take (d or dv not a multiple of 8, a base
+//    not 16-byte aligned) are staged by the producer warp with plain loads
+//    into the same layout.
+//  * bf16 inputs, 128 < d <= 256 (gemma3: 240 and 168; MLA: 192 with dv
+//    128): warp-specialised, three warpgroups.  Two consumer warpgroups of
+//    64 query rows (128 a CTA, so K and V are read once per 128 rows) and
+//    one producer warpgroup, whose one elected thread issues TMA for Q and
+//    two rings, K and V apart.  The producer lowers its registers to 40
+//    with `setmaxnreg` and the consumers raise theirs to 232, so a
+//    consumer thread holds O (dv-wide: up to 128 fp32), S (32 or 64) and P
+//    without spilling; the roles part in one if / else that never
+//    rejoins, as `setmaxnreg` needs.  The consumers take turns at the
+//    tensor cores on two named barriers (ping-pong): a turn issues this
+//    tile's Q.K^T and the last tile's P.V, then hands over, so one
+//    warpgroup's softmax runs while the other's products, and its own
+//    P.V, do.  A K slot is released when its Q.K^T has completed, a V slot
+//    one turn later, when its P.V has; each ring has two slots, so the next tile's K loads
+//    while this one's is still read.  Instantiations by DQK (192 for d <=
+//    192, else 256: Q.K^T runs DQK / 16 k-steps) and DV (P.V's width:
+//    128 for dv <= 128, else DQK), with 128-key tiles where two slots of
+//    K and of V fit beside Q in 227 KB (DQK 192 / DV 128: Q 48 KB, a K
+//    slot 48, a V slot 32; 208 KB) and 64-key tiles elsewhere.  CTAs take
+//    the query heads in groups of 8, each group's query tiles heaviest
+//    first, so the CTAs on the card at once share the K and V of a few
+//    heads through L2.  Tensors TMA cannot take are staged by the producer
+//    warpgroup's four warps.
 //  * fp32 inputs: CUDA cores, IEEE fp32 throughout (the fp32 parities hold
 //    it to 2e-5).  256 threads over 64 query rows; thread (rg, cg) owns
 //    query rows 4rg..4rg+3, score columns cg + 16j and output columns
@@ -95,7 +114,7 @@
 //    the fp32 body's layout or bf16 through mma.sync m16n8k16.  A CTA
 //    builds its rows' whole S = Q.K^T from 64-column chunks of Q and K
 //    staged in shared memory, runs the recurrence and accumulates only its
-//    slice of O, so the Q.K^T work is done ceil(d / 128) times over.  64
+//    slice of O, so the Q.K^T work is done ceil(dv / 128) times over.  64
 //    rows of a 512-wide fp32 accumulator (128 KB) fit no warpgroup's
 //    registers; a slice of 128 columns is 64 (bf16) or 32 (fp32) a thread.
 //    Simple and slow: a single-pass design is queued (ROADMAP B4).
@@ -157,13 +176,28 @@ __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+// Columns c and c + 1 of an output row of width w at dst (column c), as
+// one 4- or 8-byte store where both lie in the row and w is even.
+template <typename OutT>
+__device__ __forceinline__ void store_pair(OutT* dst, int c, int w, float x0,
+                                           float x1) {
+  if (c + 1 < w && (w & 1) == 0) {
+    if constexpr (sizeof(OutT) == 2)
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+  } else {
+    if (c < w) put(dst, x0);
+    if (c + 1 < w) put(dst + 1, x1);
+  }
+}
 
 template <int DP, typename OutT>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, OutT* __restrict__ out,
-                 int tq, int tk, int d, int causal, int window, int group,
-                 float scale) {
+                 int tq, int tk, int d, int dv, int causal, int window,
+                 int group, float scale) {
   constexpr int LD = SimtSmem<DP>::LD;
   constexpr int LDP = SimtSmem<DP>::LDP;
   constexpr int OC = DP / 16;            // output columns per thread
@@ -179,7 +213,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long bkv = (int)blockIdx.x / group;   // grouped KV heads
   const float* qb = q + bh * tq * d;
   const float* kb = k + bkv * tk * d;
-  const float* vb = v + bkv * tk * d;
+  const float* vb = v + bkv * tk * dv;
 
   stage_f32<DP>(Qs, qb, q0, tq, d);   // BQ == BK rows
 
@@ -259,7 +293,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < OC; ++j) o[i][j] *= alpha;
     }
     __syncthreads();                       // S reads of K done, P written
-    stage_f32<DP>(KVs, vb, k0, tk, d);
+    stage_f32<DP>(KVs, vb, k0, tk, dv);   // zero past dv
     __syncthreads();
 
 #pragma unroll 2
@@ -285,7 +319,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  OutT* ob = out + bh * tq * d;
+  OutT* ob = out + bh * tq * dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + rg * 4 + i;
@@ -294,29 +328,25 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < OC; ++j) {
       const int c = cg + 16 * j;
-      if (c < d) put(ob + (long long)r * d + c, o[i][j] * inv);
+      if (c < dv) put(ob + (long long)r * dv + c, o[i][j] * inv);
     }
   }
 }
 
 // ------------------------------------------------------------------------ //
-// bf16: tensor cores through wgmma, K/V ring filled by cp.async.
+// bf16, d <= 128: tensor cores through wgmma, K/V ring filled by TMA.
 // ------------------------------------------------------------------------ //
 constexpr int WG_STAGES = 2;     // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
 struct WgSmem {
+  static_assert(DP <= 128, "past d = 128 the warp-specialised body runs");
   static constexpr int PN = DP < 64 ? 64 : DP;  // staged width, whole panels
   static constexpr int NP = PN / 64;            // 64-column panels
-  // Keys per K/V stage (one m64n{BK} S): 64 past d = 128, where two stages
-  // of 128 keys would not fit beside Q and S would crowd O's registers.
-  static constexpr int BK = DP > 128 ? 64 : 128;
+  static constexpr int BK = 128;                // keys per K/V stage
   // Consumer warpgroups of 64 query rows each; the producer is one warp.
-  // Past d = 128 one: with 288 threads the compiler caps a thread at 168
-  // registers (3 warps on an SM sub-partition) and O's 128 would spill;
-  // with 160 it may take 255.
-  static constexpr int NWG = DP > 128 ? 1 : 2;
+  static constexpr int NWG = 2;
   static constexpr int BQ = 64 * NWG;           // query rows per CTA
   static constexpr int CONSUMERS = 128 * NWG;   // consumer threads
   static constexpr int THREADS = CONSUMERS + 32;
@@ -389,6 +419,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Every committed wgmma group but the last one has completed.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // Registers that an in-flight wgmma writes: reads of them may not be moved
 // above the wait.
@@ -609,6 +643,57 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "r"(scale_d));
 }
 
+// D (+)= A.B for a 64 x 192 tile, depth 16: A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory
+// (MN-major, 128-byte swizzle: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 // The producer warp's fallback when TMA cannot take the tensors (d not a
 // multiple of 8, or a base not 16-byte aligned): rows [r0, r0 + ROWS) x
 // [0, PN) of a [n_rows, d] bf16 matrix, zero padded, by plain loads into
@@ -641,14 +726,14 @@ __device__ __forceinline__ int wg_kv_tiles(int q0, int tk, int causal) {
 
 // Warp 8 fills Q once and the K/V ring ahead of the consumers, over KV
 // tiles kt0 .. n_kt - 1: with TMA (one thread, hardware swizzle, zero fill
-// past Tq / Tk / d; only the panels that hold a column below d) or, for
-// tensors TMA cannot take, by the whole warp with plain loads.  Each
-// stage is reused once both warpgroups have released it.
+// past Tq / Tk / d / dv; only the panels that hold a column below d, dv
+// for V) or, for tensors TMA cannot take, by the whole warp with plain
+// loads.  Each stage is reused once both warpgroups have released it.
 template <int DP, bool TMA>
 __device__ __forceinline__ void produce(
     uint8_t* Qs, uint8_t* ring, uint32_t bars, const __nv_bfloat16* qb,
     const __nv_bfloat16* kb, const __nv_bfloat16* vb, int q0, int tq,
-    int tk, int d, int kt0, int n_kt, int bh, int bkv,
+    int tk, int d, int dv, int kt0, int n_kt, int bh, int bkv,
     const CUtensorMap* qmap, const CUtensorMap* kmap,
     const CUtensorMap* vmap) {
   using L = WgSmem<DP>;
@@ -656,6 +741,7 @@ __device__ __forceinline__ void produce(
   const uint32_t full = bars, empty = bars + 8 * WG_STAGES;
   const uint32_t qbar = bars + 16 * WG_STAGES;
   const int np_live = (d + 63) / 64;       // panels holding a column < d
+  const int np_v = (dv + 63) / 64;         // ... and of V, a column < dv
   if (TMA) {
     if (lane != 0) return;
     mbar_expect_tx(qbar, np_live * L::Q_PANEL);
@@ -677,16 +763,17 @@ __device__ __forceinline__ void produce(
     uint8_t* vs = ks + L::NP * L::KV_PANEL;
     const int k0 = kt * L::BK;
     if (TMA) {
-      mbar_expect_tx(full + 8 * st, 2 * np_live * L::KV_PANEL);
+      mbar_expect_tx(full + 8 * st, (np_live + np_v) * L::KV_PANEL);
       for (int p = 0; p < np_live; ++p) {
         tma_load_3d(smem_u32(ks + p * L::KV_PANEL), kmap, full + 8 * st,
                     64 * p, k0, bkv);
-        tma_load_3d(smem_u32(vs + p * L::KV_PANEL), vmap, full + 8 * st,
-                    64 * p, k0, bkv);
+        if (p < np_v)
+          tma_load_3d(smem_u32(vs + p * L::KV_PANEL), vmap, full + 8 * st,
+                      64 * p, k0, bkv);
       }
     } else {
       stage_tile_warp<DP, L::BK>(ks, kb, k0, tk, d, L::KV_PANEL, lane);
-      stage_tile_warp<DP, L::BK>(vs, vb, k0, tk, d, L::KV_PANEL, lane);
+      stage_tile_warp<DP, L::BK>(vs, vb, k0, tk, dv, L::KV_PANEL, lane);
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(full + 8 * st);
@@ -699,7 +786,7 @@ __global__ void __launch_bounds__(WgSmem<DP>::THREADS, 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  OutT* __restrict__ out, int tq, int tk, int d,
+                  OutT* __restrict__ out, int tq, int tk, int d, int dv,
                   int causal, int window, int group, float scale,
                   const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
@@ -729,16 +816,18 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // Panels past d's last 64-column panel are never loaded (TMA fetches
-  // the live ones): zero them once, so Q.K^T adds 0 there and P.V fills
-  // O's unstored columns with 0.
-  const int np_live = (d + 63) / 64;
-  for (int p = np_live; p < L::NP; ++p) {
+  // Panels past d's last 64-column panel (dv's for V) are never loaded
+  // (TMA fetches the live ones): zero them once, so Q.K^T adds 0 there and
+  // P.V fills O's unstored columns with 0.
+  const int np_live = (d + 63) / 64, np_v = (dv + 63) / 64;
+  for (int p = np_v; p < L::NP; ++p) {
     const int chunks = L::Q_PANEL / 16, kv_chunks = L::KV_PANEL / 16;
-    for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-      reinterpret_cast<uint4*>(Qs + p * L::Q_PANEL)[c] = make_uint4(0, 0, 0, 0);
+    if (p >= np_live)
+      for (int c = threadIdx.x; c < chunks; c += blockDim.x)
+        reinterpret_cast<uint4*>(Qs + p * L::Q_PANEL)[c] =
+            make_uint4(0, 0, 0, 0);
     for (int st = 0; st < WG_STAGES; ++st)
-      for (int kv = 0; kv < 2; ++kv) {
+      for (int kv = p >= np_live ? 0 : 1; kv < 2; ++kv) {
         uint8_t* pan = ring + st * L::STAGE + (kv * L::NP + p) * L::KV_PANEL;
         for (int c = threadIdx.x; c < kv_chunks; c += blockDim.x)
           reinterpret_cast<uint4*>(pan)[c] = make_uint4(0, 0, 0, 0);
@@ -750,8 +839,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (threadIdx.x >= L::CONSUMERS) {
     produce<DP, TMA>(Qs, ring, bars, q + (long long)bh * tq * d,
                      k + (long long)bkv * tk * d,
-                     v + (long long)bkv * tk * d, q0, tq, tk, d, kt0, n_kt,
-                     bh, bkv, &qmap, &kmap, &vmap);
+                     v + (long long)bkv * tk * dv, q0, tq, tk, d, dv, kt0,
+                     n_kt, bh, bkv, &qmap, &kmap, &vmap);
     return;
   }
 
@@ -786,10 +875,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                     1024);
       const uint64_t db = gmma_desc(k_s + (ks >> 2) * L::KV_PANEL + koff, 16,
                                     1024);
-      if constexpr (BK == 128)
-        wgmma_ss_n128(s, da, db, ks > 0);
-      else
-        wgmma_ss_n64(s, da, db, ks > 0);
+      wgmma_ss_n128(s, da, db, ks > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -862,14 +948,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint64_t dv = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, 1024);
-      if constexpr (L::PN == 256) {
-        wgmma_rs_n256(o, pa[kc], dv, 1);
-      } else if constexpr (L::PN == 128) {
-        wgmma_rs_n128(o, pa[kc], dv, 1);
-      } else {
-        wgmma_rs_n64(o, pa[kc], dv, 1);
-      }
+      const uint64_t vd = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, 1024);
+      if constexpr (L::PN == 128)
+        wgmma_rs_n128(o, pa[kc], vd, 1);
+      else
+        wgmma_rs_n64(o, pa[kc], vd, 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -885,7 +968,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
-  OutT* ob = out + (long long)bh * tq * d;
+  OutT* ob = out + (long long)bh * tq * dv;
 #pragma unroll
   for (int i = 0; i < ON / 4; ++i) {
     const int c = 8 * i + 2 * t4;
@@ -894,20 +977,450 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const int r = hi ? row_hi : row_lo;
       const float inv = hi ? inv_hi : inv_lo;
       if (r >= tq) continue;
-      OutT* dst = ob + (long long)r * d + c;
-      const float x0 = o[4 * i + 2 * hi] * inv;
-      const float x1 = o[4 * i + 2 * hi + 1] * inv;
-      if (c + 1 < d && (d & 1) == 0) {
-        if constexpr (sizeof(OutT) == 2)
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(x0, x1);
-        else
-          *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
-      } else {
-        if (c < d) put(dst, x0);
-        if (c + 1 < d) put(dst + 1, x1);
+      store_pair(ob + (long long)r * dv + c, c, dv,
+                 o[4 * i + 2 * hi] * inv, o[4 * i + 2 * hi + 1] * inv);
+    }
+  }
+}
+
+// ------------------------------------------------------------------------ //
+// bf16, 128 < d <= 256: warp-specialised, two consumer warpgroups.
+// ------------------------------------------------------------------------ //
+// Registers a thread after the roles part (setmaxnreg): the launch gives
+// 168 to each of 384 threads; the producer warpgroup hands 128 of them
+// back, the two consumer warpgroups take 64 more: 40 x 128 + 232 x 256 =
+// 168 x 384.
+constexpr int WS_PRODUCER_REGS = 40;
+constexpr int WS_CONSUMER_REGS = 232;
+constexpr int WS_BQ = 128;               // query rows a CTA
+// CTAs walk the query heads in groups of 8, a group's query tiles
+// heaviest first and its heads fastest, so the CTAs of a wave share the K
+// and V of a few heads through L2 (heads fastest over all BH would give
+// each CTA of a wave a head of its own, re-read from device memory).
+constexpr int WS_HEAD_GROUP = 8;
+constexpr int WS_CONSUMERS = 256;        // two consumer warpgroups
+constexpr int WS_THREADS = WS_CONSUMERS + 128;
+
+template <int DQK, int DV>
+struct WsSmem {
+  static_assert(DQK == 192 || DQK == 256, "DQK is 192 or 256");
+  static_assert(DV == 128 || DV == DQK, "DV is 128 or DQK");
+  static constexpr int NQ = DQK / 64;           // Q / K panels
+  static constexpr int NV = DV / 64;            // V panels
+  static constexpr int KS = DQK / 16;           // k-steps of Q.K^T
+  // Keys per K / V slot: 128 where two slots of each fit beside Q.
+  static constexpr int BK = DQK + DV <= 320 ? 128 : 64;
+  static constexpr int Q_PANEL = WS_BQ * 128;   // bytes: 128 rows of 128 B
+  static constexpr int KV_PANEL = BK * 128;     // bytes: BK rows of 128 B
+  static constexpr int K_SLOT = NQ * KV_PANEL;
+  static constexpr int V_SLOT = NV * KV_PANEL;
+  static constexpr int K_OFF = NQ * Q_PANEL;    // Q, two K slots, two V
+  static constexpr int V_OFF = K_OFF + 2 * K_SLOT;
+  static constexpr int BARS = V_OFF + 2 * V_SLOT;
+  // Barriers: full K[2], full V[2], empty K[2], empty V[2], Q; + 1 KB to
+  // align the base to the 1 KB swizzle period.
+  static constexpr int BYTES = BARS + 8 * 9 + 1024;
+  static_assert(BYTES <= 232448, "227 KB of shared memory a block");
+};
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// Named barriers 1 and 2 (0 is __syncthreads'), over the 256 consumer
+// threads: a warpgroup waits on its own and arrives on the other's.
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WS_CONSUMERS) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(WS_CONSUMERS)
+               : "memory");
+}
+
+// Rows [r0, r0 + ROWS) x columns [0, 64 np) of a [n_rows, w] bf16 matrix,
+// zero past n_rows and w, by the producer warpgroup's 128 threads (pt =
+// 0 .. 127) with plain loads into 128-byte-swizzled panels of `panel`
+// bytes: the layout TMA writes.
+template <int ROWS>
+__device__ __forceinline__ void ws_stage(uint8_t* dst,
+                                         const __nv_bfloat16* src, int r0,
+                                         int n_rows, int w, int np,
+                                         int panel, int pt) {
+  const int cpr = 8 * np;                       // 16-byte chunks a row
+  for (int e = pt; e < ROWS * cpr; e += 128) {
+    const int r = e / cpr, c = (e % cpr) * 8;
+    const int gr = r0 + r;
+    __align__(16) __nv_bfloat16 h[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      h[i] = (gr < n_rows && c + i < w) ? src[(long long)gr * w + c + i]
+                                        : __float2bfloat16(0.0f);
+    *reinterpret_cast<uint4*>(dst + swz(r, c, panel)) =
+        *reinterpret_cast<uint4*>(h);
+  }
+}
+
+// The producer warpgroup: Q once, then K and V of tiles kt0 .. n_kt - 1
+// into their two-slot rings.  With TMA one thread issues every copy (the
+// hardware zero-fills past Tq, Tk, d and dv; V only in the panels that
+// hold a column below dv); otherwise the four warps stage with plain
+// loads and each arrives on the barrier it filled.  A K slot is refilled
+// once both consumer warpgroups' Q.K^T of it has completed, a V slot
+// once their P.V has.
+template <int DQK, int DV>
+__device__ __forceinline__ void ws_produce(
+    uint8_t* smem, uint32_t bars, bool tma, const __nv_bfloat16* qb,
+    const __nv_bfloat16* kb, const __nv_bfloat16* vb, int q0, int tq,
+    int tk, int d, int dv, int kt0, int n_kt, int bh, int bkv,
+    const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap) {
+  using L = WsSmem<DQK, DV>;
+  const int pt = threadIdx.x - WS_CONSUMERS, lane = threadIdx.x & 31;
+  const uint32_t full_k = bars, full_v = bars + 16;
+  const uint32_t empty_k = bars + 32, empty_v = bars + 48;
+  const uint32_t qbar = bars + 64;
+  const int np_v = (dv + 63) / 64;
+  if (tma) {
+    if (pt != 0) return;
+    mbar_expect_tx(qbar, L::NQ * L::Q_PANEL);
+    for (int p = 0; p < L::NQ; ++p)
+      tma_load_3d(smem_u32(smem + p * L::Q_PANEL), qmap, qbar, 64 * p, q0,
+                  bh);
+  } else {
+    ws_stage<WS_BQ>(smem, qb, q0, tq, d, L::NQ, L::Q_PANEL, pt);
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(qbar);
+  }
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int step = kt - kt0, slot = step & 1;
+    const int k0 = kt * L::BK;
+    uint8_t* ks = smem + L::K_OFF + slot * L::K_SLOT;
+    uint8_t* vs = smem + L::V_OFF + slot * L::V_SLOT;
+    // Tile step - 2 used these slots: wait for their release.
+    if (step >= 2) mbar_wait(empty_k + 8 * slot, ((step >> 1) & 1) ^ 1);
+    if (tma) {
+      mbar_expect_tx(full_k + 8 * slot, L::K_SLOT);
+      for (int p = 0; p < L::NQ; ++p)
+        tma_load_3d(smem_u32(ks + p * L::KV_PANEL), kmap, full_k + 8 * slot,
+                    64 * p, k0, bkv);
+    } else {
+      ws_stage<L::BK>(ks, kb, k0, tk, d, L::NQ, L::KV_PANEL, pt);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full_k + 8 * slot);
+    }
+    if (step >= 2) mbar_wait(empty_v + 8 * slot, ((step >> 1) & 1) ^ 1);
+    if (tma) {
+      mbar_expect_tx(full_v + 8 * slot, np_v * L::KV_PANEL);
+      for (int p = 0; p < np_v; ++p)
+        tma_load_3d(smem_u32(vs + p * L::KV_PANEL), vmap, full_v + 8 * slot,
+                    64 * p, k0, bkv);
+    } else {
+      ws_stage<L::BK>(vs, vb, k0, tk, dv, np_v, L::KV_PANEL, pt);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full_v + 8 * slot);
+    }
+  }
+}
+
+// S = Q.K^T for this warpgroup's 64 rows and the BK keys of a K slot:
+// DQK / 16 k-steps of wgmma m64n{BK}k16, both operands K-major.
+template <int DQK, int DV>
+__device__ __forceinline__ void ws_qk(float (&s)[WsSmem<DQK, DV>::BK / 2],
+                                      uint32_t q_s, uint32_t k_s) {
+  using L = WsSmem<DQK, DV>;
+#pragma unroll
+  for (int kq = 0; kq < L::KS; ++kq) {
+    const uint32_t off = (kq >> 2) * L::Q_PANEL + (kq & 3) * 32;
+    const uint64_t da = gmma_desc(q_s + off, 16, 1024);
+    const uint64_t db = gmma_desc(
+        k_s + (kq >> 2) * L::KV_PANEL + (kq & 3) * 32, 16, 1024);
+    if constexpr (L::BK == 128)
+      wgmma_ss_n128(s, da, db, kq > 0);
+    else
+      wgmma_ss_n64(s, da, db, kq > 0);
+  }
+}
+
+// O += P.V for the BK keys of a V slot: wgmma m64n{DV}k16 with P from
+// registers and V MN-major (lbo steps a 64-column panel).
+template <int DQK, int DV>
+__device__ __forceinline__ void ws_pv(
+    float (&o)[DV / 2], uint32_t (&pa)[WsSmem<DQK, DV>::BK / 16][4],
+    uint32_t v_s) {
+  using L = WsSmem<DQK, DV>;
+#pragma unroll
+  for (int kc = 0; kc < L::BK / 16; ++kc) {
+    const uint64_t vd = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, 1024);
+    if constexpr (DV == 256)
+      wgmma_rs_n256(o, pa[kc], vd, 1);
+    else if constexpr (DV == 192)
+      wgmma_rs_n192(o, pa[kc], vd, 1);
+    else
+      wgmma_rs_n128(o, pa[kc], vd, 1);
+  }
+}
+
+// One tile's online softmax for this thread's two rows (row_lo, row_hi),
+// in two halves.  ws_scores: mask where a key of the tile is masked for a
+// row of the warpgroup (past its first row's diagonal, at or below its
+// last row's window edge, past Tk); s[4i + e] is row row_lo (e < 2) or
+// row_hi, key k0 + 8i + 2 t4 + (e & 1).  A row with no key left in the
+// tile keeps its max and adds 0.  The max is taken on the raw scores (the
+// scale is positive) and the scale folded into the exponent's fma; s
+// becomes P, and a_lo / a_hi the factors O is rescaled by.
+// ws_rescale_pack: O rescaled, P rounded to bf16 as the A fragments of
+// the next P.V.
+template <int BK>
+__device__ __forceinline__ void ws_scores(
+    float (&s)[BK / 2], float& m_lo, float& m_hi, float& l_lo, float& l_hi,
+    float& a_lo, float& a_hi, int k0, int wq0, int row_lo, int row_hi,
+    int t4, int tk, int causal, int window, float sl2) {
+  const bool masked = (causal && k0 + BK - 1 > wq0) || k0 + BK > tk ||
+                      (window > 0 && wq0 + 63 - k0 >= window);
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    if (masked) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * i + 2 * t4 + (e & 1);
+        const int qpos = e < 2 ? row_lo : row_hi;
+        if (kpos >= tk || (causal && kpos > qpos) ||
+            (window > 0 && qpos - kpos >= window))
+          s[4 * i + e] = -INFINITY;
       }
     }
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(FULL, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(FULL, mx_hi, off));
+  }
+  const float mn_lo = fmaxf(m_lo, mx_lo * sl2);
+  const float mn_hi = fmaxf(m_hi, mx_hi * sl2);
+  a_lo = ex2(m_lo - mn_lo);
+  a_hi = ex2(m_hi - mn_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  float rs_lo = 0.0f, rs_hi = 0.0f;     // this thread's part of the row sum
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    s[4 * i] = ex2(fmaf(s[4 * i], sl2, -mn_lo));   // masked: ex2(-inf) = 0
+    s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], sl2, -mn_lo));
+    s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], sl2, -mn_hi));
+    s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], sl2, -mn_hi));
+    rs_lo += s[4 * i] + s[4 * i + 1];
+    rs_hi += s[4 * i + 2] + s[4 * i + 3];
+  }
+  l_lo = l_lo * a_lo + rs_lo;
+  l_hi = l_hi * a_hi + rs_hi;
+}
+
+template <int BK, int ON>
+__device__ __forceinline__ void ws_rescale_pack(const float (&s)[BK / 2],
+                                                float (&o)[ON],
+                                                uint32_t (&pa)[BK / 16][4],
+                                                float a_lo, float a_hi) {
+#pragma unroll
+  for (int i = 0; i < ON / 4; ++i) {
+    o[4 * i] *= a_lo;
+    o[4 * i + 1] *= a_lo;
+    o[4 * i + 2] *= a_hi;
+    o[4 * i + 3] *= a_hi;
+  }
+  // The S accumulators of keys 16 kc .. 16 kc + 15 are the A fragment of
+  // P.V's k-step kc.
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) {
+    pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
+    pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+    pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+    pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+  }
+}
+
+// A consumer warpgroup: 64 query rows, tiles kt0 .. n_kt - 1.  Turn j
+// (one per tile, then one more) issues Q.K^T of tile j and P.V of tile
+// j - 1 as two wgmma groups and passes the tensor cores to the other
+// warpgroup; once Q.K^T is done it releases the K slot of j and takes
+// tile j's scores (max, exponentials, sums) while its P.V and the other
+// warpgroup's products run; once P.V is done it releases the V slot of
+// j - 1, rescales O and packs P.  Warpgroup 0 takes the first turn.
+template <int DQK, int DV>
+__device__ __forceinline__ void ws_consume(
+    uint8_t* smem, uint32_t bars, void* out, bool out_bf16, int q0, int tq,
+    int tk, int dv, int causal, int window, float scale, int kt0, int n_kt,
+    int bh) {
+  using L = WsSmem<DQK, DV>;
+  constexpr int BK = L::BK;
+  const uint32_t full_k = bars, full_v = bars + 16;
+  const uint32_t empty_k = bars + 32, empty_v = bars + 48;
+  const uint32_t qbar = bars + 64;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wq0 = q0 + 64 * wg;            // this warpgroup's first row
+  const int row_lo = wq0 + 16 * warp + g, row_hi = row_lo + 8;
+  const float sl2 = LOG2E * scale;         // scores in the exp2 domain
+  const uint32_t q_s = smem_u32(smem) + wg * 64 * 128;
+  const uint32_t k_s = smem_u32(smem + L::K_OFF);
+  const uint32_t v_s = smem_u32(smem + L::V_OFF);
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
+  float m_lo = NEG, m_hi = NEG, l_lo = 0.0f, l_hi = 0.0f;
+  float s[BK / 2];
+  uint32_t pa[BK / 16][4];
+  mbar_wait(qbar, 0);
+  if (kt0 < n_kt) {                        // else every row stores 0
+    if (wg == 1) turn_pass(1);
+
+    // Turn 0: Q.K^T of the first tile.
+    mbar_wait(full_k, 0);
+    turn_wait(1 + wg);
+    wgmma_fence();
+    ws_qk<DQK, DV>(s, q_s, k_s);
+    wgmma_commit();
+    turn_pass(2 - wg);
+    wgmma_wait_all();
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_k);
+    float a_lo, a_hi;
+    ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt0 * BK, wq0,
+                  row_lo, row_hi, t4, tk, causal, window, sl2);
+    ws_rescale_pack<BK, DV / 2>(s, o, pa, a_lo, a_hi);
+
+    for (int kt = kt0 + 1; kt < n_kt; ++kt) {
+      const int step = kt - kt0, slot = step & 1, prev = slot ^ 1;
+      mbar_wait(full_k + 8 * slot, (step >> 1) & 1);
+      mbar_wait(full_v + 8 * prev, ((step - 1) >> 1) & 1);
+      turn_wait(1 + wg);
+      wgmma_fence();
+      ws_qk<DQK, DV>(s, q_s, k_s + slot * L::K_SLOT);
+      wgmma_commit();
+      ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);
+      wgmma_commit();
+      turn_pass(2 - wg);
+      wgmma_wait_one();                  // Q.K^T done, P.V in flight
+      fence_regs(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_k + 8 * slot);
+      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt * BK, wq0,
+                    row_lo, row_hi, t4, tk, causal, window, sl2);
+      wgmma_wait_all();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_v + 8 * prev);
+      ws_rescale_pack<BK, DV / 2>(s, o, pa, a_lo, a_hi);
+    }
+
+    // The last turn: P.V of the last tile.  Warpgroup 1 passes no turn on
+    // (warpgroup 0 takes none after it), so every barrier phase completes.
+    const int last = n_kt - 1 - kt0;
+    mbar_wait(full_v + 8 * (last & 1), (last >> 1) & 1);
+    turn_wait(1 + wg);
+    wgmma_fence();
+    ws_pv<DQK, DV>(o, pa, v_s + (last & 1) * L::V_SLOT);
+    wgmma_commit();
+    if (wg == 0) turn_pass(2);
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(FULL, l_lo, off);
+    l_hi += __shfl_xor_sync(FULL, l_hi, off);
+  }
+  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
+  const long long ob = (long long)bh * tq * dv;
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) {
+    const int c = 8 * i + 2 * t4;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = hi ? row_hi : row_lo;
+      const float inv = hi ? inv_hi : inv_lo;
+      if (r >= tq || c >= dv) continue;
+      const long long at = ob + (long long)r * dv + c;
+      const float x0 = o[4 * i + 2 * hi] * inv;
+      const float x1 = o[4 * i + 2 * hi + 1] * inv;
+      if (out_bf16)
+        store_pair(static_cast<__nv_bfloat16*>(out) + at, c, dv, x0, x1);
+      else
+        store_pair(static_cast<float*>(out) + at, c, dv, x0, x1);
+    }
+  }
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bf16_ws_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, void* out,
+                     int out_bf16, int tma, int tq, int tk, int d, int dv,
+                     int causal, int window, int group, float scale,
+                     const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap) {
+  using L = WsSmem<DQK, DV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bars = smem_u32(smem + L::BARS);
+  // One CTA per (head, query tile) in a 1-D grid, ordered by head group.
+  const int n_qt = (tq + WS_BQ - 1) / WS_BQ;
+  const int per_group = WS_HEAD_GROUP * n_qt;
+  const int head0 = blockIdx.x / per_group * WS_HEAD_GROUP;
+  const int in_group = blockIdx.x % per_group;
+  const int heads = min(WS_HEAD_GROUP, (int)gridDim.x / n_qt - head0);
+  const int bh = head0 + in_group % heads;
+  const int q0 = (n_qt - 1 - in_group / heads) * WS_BQ;
+  const int bkv = bh / group;              // grouped KV heads: bh / G
+  const int kt0 = kv_tile_begin(q0, window, L::BK);
+  const int n_kt = wg_kv_tiles<WS_BQ, L::BK>(q0, tk, causal);
+  if (threadIdx.x == 0) {
+    const int fills = tma ? 1 : 4;         // TMA's one thread, or 4 warps
+    for (int b = 0; b < 4; ++b) mbar_init(bars + 8 * b, fills);  // full
+    for (int b = 4; b < 8; ++b) mbar_init(bars + 8 * b, 8);  // consumer warps
+    mbar_init(bars + 64, fills);           // Q
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // V panels past dv's last are never loaded: zero them once, so P.V
+  // fills O's unstored columns with 0.  (Q and K have none: d > 128 fills
+  // every panel of DQK.)
+  const int np_v = (dv + 63) / 64;
+  for (int p = np_v; p < L::NV; ++p)
+    for (int slot = 0; slot < 2; ++slot) {
+      uint4* pan = reinterpret_cast<uint4*>(smem + L::V_OFF +
+                                            slot * L::V_SLOT +
+                                            p * L::KV_PANEL);
+      for (int c = threadIdx.x; c < L::KV_PANEL / 16; c += WS_THREADS)
+        pan[c] = make_uint4(0, 0, 0, 0);
+    }
+  fence_proxy_async();
+  __syncthreads();   // the last CTA-wide barrier: the roles part here
+
+  if (threadIdx.x >= WS_CONSUMERS) {
+    regs_dec<WS_PRODUCER_REGS>();
+    ws_produce<DQK, DV>(smem, bars, tma != 0, q + (long long)bh * tq * d,
+                        k + (long long)bkv * tk * d,
+                        v + (long long)bkv * tk * dv, q0, tq, tk, d, dv,
+                        kt0, n_kt, bh, bkv, &qmap, &kmap, &vmap);
+  } else {
+    regs_inc<WS_CONSUMER_REGS>();
+    ws_consume<DQK, DV>(smem, bars, out, out_bf16 != 0, q0, tq, tk, dv,
+                        causal, window, scale, kt0, n_kt, bh);
   }
 }
 
@@ -957,7 +1470,7 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 flash_f32_wide_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v, OutT* __restrict__ out,
-                      int tq, int tk, int d, int causal, int window,
+                      int tq, int tk, int d, int dv, int causal, int window,
                       int group, float scale) {
   using L = WideF32Smem;
   constexpr int OC = WIDE_DS / 16;       // slice columns per thread
@@ -975,7 +1488,7 @@ flash_f32_wide_kernel(const float* __restrict__ q,
   const long long bkv = (int)blockIdx.x / group;
   const float* qb = q + bh * tq * d;
   const float* kb = k + bkv * tk * d;
-  const float* vb = v + bkv * tk * d;
+  const float* vb = v + bkv * tk * dv;
 
   float m[4], l[4], o[4][OC];
 #pragma unroll
@@ -999,7 +1512,7 @@ flash_f32_wide_kernel(const float* __restrict__ q,
       stage_wide_f32<BQ, WIDE_DC, L::LDC>(Qc, qb, q0, tq, c0, d);
       stage_wide_f32<BK, WIDE_DC, L::LDC>(Kc, kb, k0, tk, c0, d);
       if (c0 == 0)
-        stage_wide_f32<BK, WIDE_DS, L::LDV>(Vs, vb, k0, tk, s0, d);
+        stage_wide_f32<BK, WIDE_DS, L::LDV>(Vs, vb, k0, tk, s0, dv);
       __syncthreads();
 #pragma unroll 4
       for (int c = 0; c < WIDE_DC; c += 4) {
@@ -1084,7 +1597,7 @@ flash_f32_wide_kernel(const float* __restrict__ q,
     }
   }
 
-  OutT* ob = out + bh * tq * d;
+  OutT* ob = out + bh * tq * dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + rg * 4 + i;
@@ -1093,7 +1606,7 @@ flash_f32_wide_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < OC; ++j) {
       const int c = s0 + cg + 16 * j;
-      if (c < d) put(ob + (long long)r * d + c, o[i][j] * inv);
+      if (c < dv) put(ob + (long long)r * dv + c, o[i][j] * inv);
     }
   }
 }
@@ -1150,7 +1663,8 @@ flash_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        OutT* __restrict__ out, int tq, int tk, int d,
-                       int causal, int window, int group, float scale) {
+                       int dv, int causal, int window, int group,
+                       float scale) {
   constexpr int NT = WIDE_DS / 8;        // n-tiles of the O slice
   __shared__ __align__(16) __nv_bfloat16 Qc[BQ * WIDE_LDC];
   __shared__ __align__(16) __nv_bfloat16 Kc[BK * WIDE_LDC];
@@ -1165,7 +1679,7 @@ flash_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
   const int bkv = bh / group;
   const __nv_bfloat16* qb = q + (long long)bh * tq * d;
   const __nv_bfloat16* kb = k + (long long)bkv * tk * d;
-  const __nv_bfloat16* vb = v + (long long)bkv * tk * d;
+  const __nv_bfloat16* vb = v + (long long)bkv * tk * dv;
   const int row_lo = q0 + 16 * w + g, row_hi = row_lo + 8;
 
   float o[NT][4];
@@ -1197,7 +1711,7 @@ flash_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
         // threads take consecutive keys.
         for (int e = tid; e < BK * (WIDE_DS / 8); e += WIDE_THREADS) {
           const int key = e % BK, c = (e / BK) * 8;
-          uint4 x = load8<VEC>(vb, k0 + key, tk, s0 + c, d);
+          uint4 x = load8<VEC>(vb, k0 + key, tk, s0 + c, dv);
           const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&x);
 #pragma unroll
           for (int i = 0; i < 8; ++i) Vt[(c + i) * WIDE_LDV + key] = h[i];
@@ -1287,17 +1801,19 @@ flash_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
-  OutT* ob = out + (long long)bh * tq * d;
+  OutT* ob = out + (long long)bh * tq * dv;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int c = s0 + 8 * n + 2 * t4;
     if (row_lo < tq) {
-      if (c < d) put(ob + (long long)row_lo * d + c, o[n][0] * inv_lo);
-      if (c + 1 < d) put(ob + (long long)row_lo * d + c + 1, o[n][1] * inv_lo);
+      if (c < dv) put(ob + (long long)row_lo * dv + c, o[n][0] * inv_lo);
+      if (c + 1 < dv)
+        put(ob + (long long)row_lo * dv + c + 1, o[n][1] * inv_lo);
     }
     if (row_hi < tq) {
-      if (c < d) put(ob + (long long)row_hi * d + c, o[n][2] * inv_hi);
-      if (c + 1 < d) put(ob + (long long)row_hi * d + c + 1, o[n][3] * inv_hi);
+      if (c < dv) put(ob + (long long)row_hi * dv + c, o[n][2] * inv_hi);
+      if (c + 1 < dv)
+        put(ob + (long long)row_hi * dv + c + 1, o[n][3] * inv_hi);
     }
   }
 }
@@ -1351,7 +1867,7 @@ bool make_map(CUtensorMap* map, const void* base, int heads, int rows, int d,
 
 template <int DP, typename OutT>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int bh, int tq, int tk, int d, int causal, int window,
+               int bh, int tq, int tk, int d, int dv, int causal, int window,
                int group, float scale, cudaStream_t stream) {
   auto kernel = flash_f32_kernel<DP, OutT>;
   const int smem = SimtSmem<DP>::BYTES;
@@ -1361,26 +1877,29 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   dim3 grid(bh, (tq + BQ - 1) / BQ);
   kernel<<<grid, SIMT_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d,
+      static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d, dv,
       causal, window, group, scale);
   return (int)cudaGetLastError();
 }
 
+// TMA needs 16-byte row strides and bases (per-head offsets are then
+// multiples of 16 bytes too).
+bool tma_fits(const void* q, const void* k, const void* v, int d, int dv) {
+  return d % 8 == 0 && dv % 8 == 0 &&
+         ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+           reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+}
+
 template <int DP, typename OutT>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int bh, int tq, int tk, int d, int causal, int window,
-                int group, float scale, cudaStream_t stream) {
-  // TMA needs 16-byte row strides and bases (per-head offsets are then
-  // multiples of 16 bytes too).
+                int bh, int tq, int tk, int d, int dv, int causal,
+                int window, int group, float scale, cudaStream_t stream) {
   CUtensorMap maps[3];
   memset(maps, 0, sizeof(maps));
-  const bool tma = (d % 8 == 0) &&
-                   ((reinterpret_cast<uintptr_t>(q) |
-                     reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
+  const bool tma = tma_fits(q, k, v, d, dv) &&
                    make_map(&maps[0], q, bh, tq, d, WgSmem<DP>::BQ) &&
                    make_map(&maps[1], k, bh / group, tk, d, WgSmem<DP>::BK) &&
-                   make_map(&maps[2], v, bh / group, tk, d, WgSmem<DP>::BK);
+                   make_map(&maps[2], v, bh / group, tk, dv, WgSmem<DP>::BK);
   auto kernel = tma ? flash_bf16_kernel<DP, true, OutT>
                     : flash_bf16_kernel<DP, false, OutT>;
   const int smem = WgSmem<DP>::BYTES;
@@ -1392,17 +1911,44 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<OutT*>(out), tq, tk, d, causal, window, group,
+      static_cast<OutT*>(out), tq, tk, d, dv, causal, window, group,
       scale, maps[0], maps[1], maps[2]);
   return (int)cudaGetLastError();
 }
 
-// d > 256: grid (bh, query tile, d-slice).
+// 128 < d <= 256, bf16: the warp-specialised body at (DQK, DV).
+template <int DQK, int DV>
+int launch_ws(const void* q, const void* k, const void* v, void* out,
+              int out_dtype, int bh, int tq, int tk, int d, int dv,
+              int causal, int window, int group, float scale,
+              cudaStream_t stream) {
+  using L = WsSmem<DQK, DV>;
+  CUtensorMap maps[3];
+  memset(maps, 0, sizeof(maps));
+  const bool tma = tma_fits(q, k, v, d, dv) &&
+                   make_map(&maps[0], q, bh, tq, d, WS_BQ) &&
+                   make_map(&maps[1], k, bh / group, tk, d, L::BK) &&
+                   make_map(&maps[2], v, bh / group, tk, dv, L::BK);
+  auto kernel = flash_bf16_ws_kernel<DQK, DV>;
+  const long long ctas = (long long)bh * ((tq + WS_BQ - 1) / WS_BQ);
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)ctas, WS_THREADS, L::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), out, out_dtype, (int)tma, tq,
+      tk, d, dv, causal, window, group, scale, maps[0], maps[1], maps[2]);
+  return (int)cudaGetLastError();
+}
+
+// d > 256: grid (bh, query tile, dv-slice).
 template <typename OutT>
 int launch_wide(int dtype, const void* q, const void* k, const void* v,
-                void* out, int bh, int tq, int tk, int d, int causal,
+                void* out, int bh, int tq, int tk, int d, int dv, int causal,
                 int window, int group, float scale, cudaStream_t stream) {
-  dim3 grid(bh, (tq + BQ - 1) / BQ, (d + WIDE_DS - 1) / WIDE_DS);
+  dim3 grid(bh, (tq + BQ - 1) / BQ, (dv + WIDE_DS - 1) / WIDE_DS);
   if (dtype == 0) {
     auto kernel = flash_f32_wide_kernel<OutT>;
     const int smem = WideF32Smem::BYTES;
@@ -1412,62 +1958,78 @@ int launch_wide(int dtype, const void* q, const void* k, const void* v,
     kernel<<<grid, SIMT_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d,
-        causal, window, group, scale);
+        dv, causal, window, group, scale);
   } else {
-    const bool vec = d % 8 == 0 &&
-                     ((reinterpret_cast<uintptr_t>(q) |
-                       reinterpret_cast<uintptr_t>(k) |
-                       reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-    auto kernel = vec ? flash_bf16_wide_kernel<true, OutT>
+    auto kernel = tma_fits(q, k, v, d, dv)
+                      ? flash_bf16_wide_kernel<true, OutT>
                       : flash_bf16_wide_kernel<false, OutT>;
     kernel<<<grid, WIDE_THREADS, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<OutT*>(out), tq,
-        tk, d, causal, window, group, scale);
+        tk, d, dv, causal, window, group, scale);
   }
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int dispatch(int dtype, int out_dtype, const void* q, const void* k,
-             const void* v, void* out, int bh, int tq, int tk, int d,
+             const void* v, void* out, int bh, int tq, int tk, int d, int dv,
              int causal, int window, int group, float scale,
              cudaStream_t stream) {
   if (dtype == 0) {
     if (out_dtype == 0)
-      return launch_f32<DP, float>(q, k, v, out, bh, tq, tk, d, causal,
+      return launch_f32<DP, float>(q, k, v, out, bh, tq, tk, d, dv, causal,
                                    window, group, scale, stream);
-    return launch_f32<DP, __nv_bfloat16>(q, k, v, out, bh, tq, tk, d,
+    return launch_f32<DP, __nv_bfloat16>(q, k, v, out, bh, tq, tk, d, dv,
                                          causal, window, group, scale,
                                          stream);
   }
-  if (out_dtype == 1)
-    return launch_bf16<DP, __nv_bfloat16>(q, k, v, out, bh, tq, tk, d,
-                                          causal, window, group, scale,
-                                          stream);
-  return launch_bf16<DP, float>(q, k, v, out, bh, tq, tk, d, causal, window,
-                                group, scale, stream);
+  if constexpr (DP > 128) {
+    // DQK: 192 for d <= 192, else 256; DV: 128 for dv <= 128, else DQK.
+    if (d <= 192)
+      return dv <= 128
+                 ? launch_ws<192, 128>(q, k, v, out, out_dtype, bh, tq, tk,
+                                       d, dv, causal, window, group, scale,
+                                       stream)
+                 : launch_ws<192, 192>(q, k, v, out, out_dtype, bh, tq, tk,
+                                       d, dv, causal, window, group, scale,
+                                       stream);
+    return dv <= 128
+               ? launch_ws<256, 128>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                     dv, causal, window, group, scale,
+                                     stream)
+               : launch_ws<256, 256>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                     dv, causal, window, group, scale,
+                                     stream);
+  } else {
+    if (out_dtype == 1)
+      return launch_bf16<DP, __nv_bfloat16>(q, k, v, out, bh, tq, tk, d, dv,
+                                            causal, window, group, scale,
+                                            stream);
+    return launch_bf16<DP, float>(q, k, v, out, bh, tq, tk, d, dv, causal,
+                                  window, group, scale, stream);
+  }
 }
 
 }  // namespace
 
 // out[bh] = softmax(q[bh] k[bh / group]^T * scale, causal: qpos >= kpos;
-// window > 0: also qpos - kpos < window) v[bh / group] for contiguous q /
-// out [bh, tq, d] and k / v [bh / group, tk, d]; dtype 0 is fp32, 1 is bf16
-// (q, k and v), out_dtype the same codes for out (converted in the
-// epilogue), any d >= 1 (past 256 the d-sliced bodies), group >= 1
-// divides bh, bh < 2^31, tq <= 4,194,240; a window needs causal and tq <=
-// tk (window 0: none).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take; 0 when
-// there is nothing to compute).
+// window > 0: also qpos - kpos < window) v[bh / group] for contiguous q
+// [bh, tq, d], k [bh / group, tk, d], v [bh / group, tk, dv] and out [bh,
+// tq, dv]; dtype 0 is fp32, 1 is bf16 (q, k and v), out_dtype the same
+// codes for out (converted in the epilogue), any d >= 1 (past 256 the
+// d-sliced bodies) and 1 <= dv <= d, group >= 1 divides bh, bh < 2^31, tq
+// <= 4,194,240; a window needs causal and tq <= tk (window 0: none).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernel does not take; 0 when there is nothing to compute).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
                                    int out_dtype, int bh, int tq, int tk,
-                                   int d, int causal, int window, int group,
-                                   float scale, void* stream) {
+                                   int d, int dv, int causal, int window,
+                                   int group, float scale, void* stream) {
   if (bh <= 0 || tq <= 0) return 0;
-  if (tk <= 0 || d <= 0 || (dtype != 0 && dtype != 1) ||
+  if (tk <= 0 || d <= 0 || dv <= 0 || dv > d || (dtype != 0 && dtype != 1) ||
       (out_dtype != 0 && out_dtype != 1) ||
       group <= 0 || bh % group != 0 || (tq + BQ - 1) / BQ > 65535 ||
       window < 0 || (window > 0 && (!causal || tq > tk)))
@@ -1475,18 +2037,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   if (d > 256) {
     if (out_dtype == 0)
-      return launch_wide<float>(dtype, q, k, v, out, bh, tq, tk, d, causal,
-                                window, group, scale, s);
-    return launch_wide<__nv_bfloat16>(dtype, q, k, v, out, bh, tq, tk, d,
+      return launch_wide<float>(dtype, q, k, v, out, bh, tq, tk, d, dv,
+                                causal, window, group, scale, s);
+    return launch_wide<__nv_bfloat16>(dtype, q, k, v, out, bh, tq, tk, d, dv,
                                       causal, window, group, scale, s);
   }
   if (d <= 32) return dispatch<32>(dtype, out_dtype, q, k, v, out, bh, tq,
-                                   tk, d, causal, window, group, scale, s);
+                                   tk, d, dv, causal, window, group, scale,
+                                   s);
   if (d <= 64) return dispatch<64>(dtype, out_dtype, q, k, v, out, bh, tq,
-                                   tk, d, causal, window, group, scale, s);
+                                   tk, d, dv, causal, window, group, scale,
+                                   s);
   if (d <= 128) return dispatch<128>(dtype, out_dtype, q, k, v, out, bh, tq,
-                                     tk, d, causal, window, group, scale,
+                                     tk, d, dv, causal, window, group, scale,
                                      s);
-  return dispatch<256>(dtype, out_dtype, q, k, v, out, bh, tq, tk, d, causal,
-                       window, group, scale, s);
+  return dispatch<256>(dtype, out_dtype, q, k, v, out, bh, tq, tk, d, dv,
+                       causal, window, group, scale, s);
 }

@@ -13,8 +13,9 @@ ELL tile (duplicate columns summed in slot order), the GEMM kernel's
 operand for a sparsity-remapped aggregate step;
 ``flash_attention(q, k, v, causal, window, out_dtype)`` returns
 ``softmax(q k^T d^-1/2 [+ causal / sliding-window mask]) v`` per head of
-[BH, T, d] tensors in fp32 or bf16, any head dim d, with k / v of
-[BH / G, T, d] for grouped KV heads, in q's dtype or ``out_dtype``.
+[BH, T, d] tensors in fp32 or bf16, any head dim d, with k of [BH / G, T,
+d] for grouped KV heads and v of [BH / G, T, dv], 1 <= dv <= d (its own
+width: MLA's), as [BH, T, dv] in q's dtype or ``out_dtype``.
 Tensors on a CUDA device
 launch the kernel from ``csrc/`` on the current stream, after checking
 device, dtype, shape and strides, and raise on anything the kernel does
@@ -436,11 +437,12 @@ _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``softmax(q k^T d^-1/2 [+ mask]) v`` for q [BH, Tq, d] and k / v
-    [BH / G, Tk, d], all fp32 or all bf16, contiguous, any d >= 1; returns
-    [BH, Tq, d] in ``out_dtype`` (fp32 or bf16; None is q's dtype, as in
-    the Pallas kernel), fp32 math inside and one rounding at the store
-    (past d = 256 the kernel's d-sliced bodies).  The causal mask is the
+    """``softmax(q k^T d^-1/2 [+ mask]) v`` for q [BH, Tq, d], k [BH / G,
+    Tk, d] and v [BH / G, Tk, dv] with 1 <= dv <= d (dv = d is the Pallas
+    kernel's contract), all fp32 or all bf16, contiguous, any d >= 1;
+    returns [BH, Tq, dv] in ``out_dtype`` (fp32 or bf16; None is q's
+    dtype, as in the Pallas kernel), fp32 math inside and one rounding at
+    the store (past d = 256 the kernel's d-sliced bodies).  The causal mask is the
     Pallas kernel's ``qpos >= kpos``, both counted from 0; ``window`` W > 0
     (causal only, Tq <= Tk) also masks ``qpos - kpos >= W``, JAX's
     ``_mask_bias`` (0 is no window).  With G > 1 (G must divide BH) the
@@ -451,14 +453,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention {name}: expected [BH, T, d], "
                              f"got shape {tuple(t.shape)}")
     bh, tq, d = q.shape
-    bkv, tk = k.shape[0], k.shape[1]
-    if (k.shape[2] != d or v.shape != k.shape or bkv < 1
+    bkv, tk, dv = k.shape[0], k.shape[1], v.shape[2]
+    if (k.shape[2] != d or v.shape[:2] != k.shape[:2] or bkv < 1
             or bh % bkv != 0):
         raise ValueError(f"flash_attention: k / v must be [BH / G, Tk, {d}]"
-                         f" with G dividing BH = {bh}, got "
-                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+                         f" / [BH / G, Tk, dv] with G dividing BH = {bh}, "
+                         f"got {tuple(k.shape)} / {tuple(v.shape)}")
     if d < 1:
         raise ValueError(f"flash_attention: head dim {d} must be >= 1")
+    if not 1 <= dv <= d:
+        raise ValueError(f"flash_attention: v's head dim {dv} must be in "
+                         f"[1, d = {d}]")
     out_dtype = q.dtype if out_dtype is None else out_dtype
     if out_dtype not in _FLASH_DTYPES:
         raise TypeError(f"flash_attention out_dtype: expected float32 or "
@@ -473,11 +478,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_plain(q, k, v, causal, window,
                                          out_dtype=out_dtype)
     if route == "meta":
-        out = torch.empty_like(q, dtype=out_dtype)
+        out = q.new_empty((bh, tq, dv), dtype=out_dtype)
         return _meta("flash_attention", out,
-                     4.0 * d * bh * flash_pairs(tq, tk, causal, window),
-                     q.element_size() * d * (bh * tq + 2 * bkv * tk)
-                     + out.element_size() * d * bh * tq)
+                     2.0 * (d + dv) * bh * flash_pairs(tq, tk, causal,
+                                                       window),
+                     q.element_size() * (d * (bh * tq + bkv * tk)
+                                         + dv * bkv * tk)
+                     + out.element_size() * dv * bh * tq)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention {name}: expected float32 or "
@@ -488,10 +495,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tq < 1 or tk < 1:
         raise ValueError(f"flash_attention: empty sequence (Tq={tq}, "
                          f"Tk={tk})")
-    out = torch.empty_like(q, dtype=out_dtype)
+    out = q.new_empty((bh, tq, dv), dtype=out_dtype)
     rc = entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _FLASH_DTYPES[q.dtype], _FLASH_DTYPES[out_dtype], bh, tq, tk, d,
+        _FLASH_DTYPES[q.dtype], _FLASH_DTYPES[out_dtype], bh, tq, tk, d, dv,
         int(bool(causal)), window,
         bh // bkv, d ** -0.5, _stream(q))
     if rc != 0:

@@ -102,9 +102,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           window: int = 0, *, q_offset: int = 0,
                           out_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
-    """The flash kernel's function: q [BH, Tq, d], k / v [BH / G, Tk, d]
-    -> [BH, Tq, d] in ``out_dtype`` (None: q's dtype); query head ``bh``
-    reads KV head ``bh // G``.  Scores ``q k^T d^-1/2`` in fp32; under
+    """The flash kernel's function: q [BH, Tq, d], k [BH / G, Tk, d], v
+    [BH / G, Tk, dv] -> [BH, Tq, dv] in ``out_dtype`` (None: q's dtype);
+    query head ``bh`` reads KV head ``bh // G``.  Scores ``q k^T d^-1/2`` in fp32; under
     ``causal`` the Pallas kernel's index mask ``qpos >= kpos`` (both
     counted from 0) and, for ``window`` W > 0, JAX's ``_mask_bias`` window
     ``qpos - kpos < W`` score masked pairs -1e30 (W = 0 is no window).  ``q_offset`` counts

@@ -137,7 +137,8 @@ BWD_CHUNK = 1024
 
 def _plain_grads(q, k, v, do, causal: bool, window: int, chunk: int):
     """Gradients of ``ref.flash_attention_plain(q, k, v, causal, window)``
-    for the output gradient ``do``, recomputed one chunk of query rows at
+    (v and ``do`` of their own width dv <= d) for the output gradient
+    ``do``, recomputed one chunk of query rows at
     a time over the keys those rows can see: causal (self-attention,
     Tq == Tk), none after the chunk's last row and, under a window, none
     before its first row's window; non-causal, all Tk keys.  dk / dv sum
@@ -167,8 +168,9 @@ def _plain_grads(q, k, v, do, causal: bool, window: int, chunk: int):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Attention on the kernel's layout (q [BH, Tq, d], k / v [BH / G,
-    Tk, d]): causal self-attention, windowed when ``window`` > 0, or with
+    """Attention on the kernel's layout (q [BH, Tq, d], k [BH / G, Tk, d],
+    v [BH / G, Tk, dv]): causal self-attention, windowed when ``window`` >
+    0, or with
     ``causal`` off every key visible (non-causal self- and
     cross-attention).  Forward: the flash kernel
     (``ops.flash_attention``).  Backward: the plain function recomputed
@@ -195,15 +197,16 @@ def _flash(q, k, v, window: int = 0, causal: bool = True):
     [B*H, Tq, hd] layout (KV heads [B*Kh, Tk, hd], each at its own length;
     query head b*H + h reads KV head b*Kh + h // G, which is (b*H + h) //
     G, so the kernel indexes grouped heads itself), and back to [B, Tq,
-    H, hd].  q, k and v share one dtype."""
-    b, t, h, hd = q.shape
+    H, dv]; v may be narrower than q and k (dv <= hd: MLA's V).  q, k and
+    v share one dtype."""
+    b, t, h, _ = q.shape
 
     def heads(x):
         return x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1],
-                                         hd).contiguous()
+                                         x.shape[3]).contiguous()
 
     o = _FlashAttention.apply(heads(q), heads(k), heads(v), causal, window)
-    return o.reshape(b, h, t, hd).transpose(1, 2)
+    return o.reshape(b, h, t, o.shape[-1]).transpose(1, 2)
 
 
 # --------------------------------------------------------------------------- #

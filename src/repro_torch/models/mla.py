@@ -12,13 +12,14 @@ value expansion into the output, so a step never expands the history.
 k_nope + q_rope . k_rope`` scaled by ``(qk_nope + qk_rope) ** -0.5``,
 causal ``qpos >= kpos``) as one attention of head dim ``dqk = qk_nope +
 qk_rope``: Q is ``[q_nope | q_rope]``, K is ``[k_nope | k_rope]`` with
-``k_rope`` broadcast over the heads, and V (``v_head_dim`` <= dqk wide) is
-zero-padded to dqk, the output sliced back.  The kernel's ``d ** -0.5``
-is then JAX's scale.  With default positions (``positions`` None) it goes
-through the flash kernel (``attention._flash``: deepseek-v3's d = 192,
-which the kernel's wide body pads to 256); with explicit positions it is
+``k_rope`` broadcast over the heads, and V ``v_head_dim`` <= dqk wide.
+The kernel's ``d ** -0.5`` is then JAX's scale.  With default positions
+(``positions`` None) it goes through the flash kernel
+(``attention._flash``, which takes V at its own width: deepseek-v3's dqk
+= 192 and dv = 128); with explicit positions it is
 ``attention._sdpa_chunked``, query-chunked when ``chunk`` divides T as in
-JAX, the plain route.  JAX's ``_constrain`` is a sharding hint that does
+JAX, the plain route, on V zero-padded to dqk and the output sliced
+back.  JAX's ``_constrain`` is a sharding hint that does
 nothing on one device, so nothing stands for it here.
 """
 from __future__ import annotations
@@ -94,14 +95,14 @@ def mla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     k = torch.cat([A._proj(c, p["w_uk"]),
                    k_rope[:, :, None, :].expand(b, t, h, cfg.qk_rope)],
                   dim=-1)
-    v = F.pad(A._proj(c, p["w_uv"]), (0, dqk - dv))
+    v = A._proj(c, p["w_uv"])
     if flash:
         o = A._flash(q, k, v)
     else:
         step = chunk if chunk and t > chunk and t % chunk == 0 else t
-        o = A._sdpa_chunked(q, k, v, positions, positions, True, 0,
-                            dqk ** -0.5, step)
-    return A._out_proj(o[..., :dv].to(x.dtype), p["wo"])
+        o = A._sdpa_chunked(q, k, F.pad(v, (0, dqk - dv)), positions,
+                            positions, True, 0, dqk ** -0.5, step)[..., :dv]
+    return A._out_proj(o.to(x.dtype), p["wo"])
 
 
 def mla_cache_init(batch: int, max_len: int, cfg: ModelConfig,

@@ -25,7 +25,11 @@ SpDMM and SDDMM operands against the plain versions and bit for bit
 against the fp32 kernels on the widened operands; flash past d = 256 (the
 d-sliced bodies: causal, non-causal, windowed, grouped, ragged; two
 launches bit for bit) and the bf16 / fp32 ``out_dtype`` of flash, SpDMM
-and SDDMM against the plain versions.
+and SDDMM against the plain versions.  The warp-specialised bf16 flash
+body past d = 128 (d 136-256, V d or 128 wide, G 1 / 2 / 8, causal,
+windowed and non-causal at ragged Tq / Tk, the plain-load producer at d =
+170, both output types, two launches bit for bit) and MLA's call with V
+at its own width against the plain version.
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -498,6 +502,9 @@ def test_cuda_flash_rejects_bad_operands(cuda):
         ops.flash_attention(q, q, torch.zeros(2, 8, 64))  # mixed devices
     with pytest.raises(ValueError, match="\\[BH, T, d\\]"):
         ops.flash_attention(q[0], q[0], q[0])
+    for dv in (0, 65):                 # V wider than d, or empty
+        with pytest.raises(ValueError, match="v's head dim"):
+            ops.flash_attention(q, q, torch.zeros(2, 8, dv, device=cuda))
 
 
 # Sliding windows and gemma3's head dims (240: gemma3-12b, 168: gemma3-27b;
@@ -1453,7 +1460,8 @@ def _rel(got, want):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_kimi_group_and_mla_padded_v_match_plain(cuda, dtype):
     # kimi-k2's prefill heads (G = 8, d = 112) and deepseek-v3's MLA call
-    # (d = 192, V of 128 zero-padded: the padded columns stay zero), at a
+    # (d = 192, V 128 wide; and V zero-padded to 192, whose padded columns
+    # stay zero and whose first 128 columns are the same function), at a
     # ragged T.
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(8)
@@ -1478,6 +1486,18 @@ def test_cuda_flash_kimi_group_and_mla_padded_v_match_plain(cuda, dtype):
         _close(got, want, 0.0, 2e-5)
     else:
         assert _rel(got, want) <= 2.0 ** -8
+    v128 = v[..., :128].contiguous()
+    ops.reset_launches()
+    own = ops.flash_attention(q, k, v128, True)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert own.shape == (4, t, 128) and own.dtype == dt
+    if dtype == "float32":
+        _close(own, want[..., :128], 0.0, 2e-5)
+    else:
+        assert _rel(own, ref.flash_attention_plain(q, k, v128, True)) \
+            <= 2.0 ** -8
+        assert _rel(own, got[..., :128]) <= 2.0 ** -8
+    assert torch.equal(ops.flash_attention(q, k, v128, True), own)
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "deepseek-v3-671b"])
@@ -1654,6 +1674,46 @@ def test_cuda_flash_wide_head_dims_match_plain(cuda, tq, tk, h, grp, d,
     _flash_limits(got, ref.flash_attention_plain(q, k, v, causal, window),
                   dt)
     assert torch.equal(ops.flash_attention(q, k, v, causal, window), got)
+
+
+# The warp-specialised bf16 body past d = 128: (tq, tk, heads, G, d, dv,
+# causal, window).  d 136 / 168 / 192 take its DQK = 192 instantiation, 240
+# / 256 its 256; dv <= 128 its DV = 128; d = 170 (and dv = 100) the
+# producer's plain loads (no TMA); windows that end inside a tile and
+# gemma3's 1024; non-causal at ragged Tq != Tk.
+FLASH_WS_CASES = [(300, 300, 4, 2, 136, 136, True, 0),
+                  (300, 300, 4, 2, 168, 168, True, 0),
+                  (300, 300, 4, 1, 168, 128, True, 5),
+                  (257, 257, 8, 8, 170, 170, True, 0),
+                  (200, 333, 4, 2, 170, 128, False, 0),
+                  (300, 300, 4, 1, 192, 192, True, 64),
+                  (300, 300, 4, 1, 192, 128, True, 0),
+                  (77, 300, 8, 8, 192, 128, False, 0),
+                  (1300, 1300, 2, 2, 240, 240, True, 1024),
+                  (300, 400, 4, 2, 240, 128, True, 100),
+                  (129, 65, 8, 8, 240, 240, False, 0),
+                  (200, 200, 2, 1, 256, 256, True, 0),
+                  (130, 200, 4, 2, 256, 128, False, 0),
+                  (300, 300, 2, 2, 192, 100, True, 0)]
+
+
+@pytest.mark.parametrize("tq,tk,h,grp,d,dv,causal,window", FLASH_WS_CASES)
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_cuda_flash_ws_body_matches_plain(cuda, tq, tk, h, grp, d, dv,
+                                          causal, window, out):
+    ot = getattr(torch, out)
+    g = torch.Generator(device=cuda).manual_seed(d + dv + tq + tk)
+    q = torch.randn(h, tq, d, generator=g, device=cuda).bfloat16()
+    k = torch.randn(h // grp, tk, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(h // grp, tk, dv, generator=g, device=cuda).bfloat16()
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal, window, out_dtype=ot)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.shape == (h, tq, dv) and got.dtype == ot
+    want = ref.flash_attention_plain(q, k, v, causal, window, out_dtype=ot)
+    _flash_limits(got, want, torch.bfloat16)
+    assert torch.equal(ops.flash_attention(q, k, v, causal, window,
+                                           out_dtype=ot), got)
 
 
 @pytest.mark.parametrize("d", [64, 240, 512])

@@ -176,7 +176,10 @@ def test_flash_wrapper_refuses_a_group_that_does_not_divide_bh():
     with pytest.raises(ValueError, match="G dividing"):
         ops.flash_attention(q, torch.zeros(4, 8, 16), torch.zeros(4, 8, 16))
     with pytest.raises(ValueError, match="k / v"):
-        ops.flash_attention(q, torch.zeros(3, 8, 16), torch.zeros(3, 8, 8))
+        ops.flash_attention(q, torch.zeros(3, 8, 16), torch.zeros(3, 9, 8))
+    # v narrower than q and k is V at its own width (dv <= d), taken
+    assert ops.flash_attention(q, torch.zeros(3, 8, 16),
+                               torch.zeros(3, 8, 8)).shape == (6, 8, 8)
 
 
 def test_flash_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
