@@ -8,9 +8,10 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Card and build: the card's name and power limit (``nvidia-smi``), then
    every hand kernel built from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once), with the build time and ``ptxas``
-   report; then the warp-specialised flash body's registers a thread and
-   spill bytes per instantiation from that report (the script fails if
-   one spills or ptxas ignored its ``setmaxnreg``).
+   report; then the warp-specialised flash body's and the bf16 GEMM
+   body's registers a thread and spill bytes per instantiation from that
+   report (the script fails if one spills or ptxas ignored the flash
+   body's ``setmaxnreg``).
 2. Kernels: each kernel against its plain torch version on the card, at
    the executor's tile shapes (GEMM 4096x128xN, N in {128, 64, 8},
    without and with the accumulator, against torch.matmul / torch.addmm;
@@ -26,11 +27,19 @@ Phases (any failure exits non-zero; nothing is caught):
    same call with acc aliasing out.  Median times of kernel, plain
    version and the PyTorch library call, and the bound (bytes over 3.35
    TB/s or flops over 67 TFLOP/s fp32, the H100 SXM data-sheet peaks).
-   GEMM with bf16 x / w and SpDMM with a bf16 h (the Pallas kernels' bf16
-   sweeps) on the sweep shapes within rtol 2e-2 / atol 1e-2 of the plain
-   versions and bit for bit the fp32 kernels on the widened operands, a
-   bf16 GEMM output (``out_dtype``) the fp32 result rounded; both timed
-   at the executor's tile shape beside the fp32 kernel.
+   GEMM with bf16 x / w (the tensor-core body) on the sweep shapes and
+   on shapes reaching each of its tiles within rtol 2e-2 / atol 1e-2 of
+   the plain version and within K 2^-23 (|x| @ |w|) + 2^-23 |ref64| of
+   the float64 result, a bf16 output (``out_dtype``) the fp32 one
+   rounded (fp32 operands: the fp32 kernel's result rounded), row
+   slices, second launches and unaligned copies (the staged route) bit
+   for bit, the C side's TMA / staged route equal to
+   ``ops.gemm_bf16_route``; timed at 4096x128x128 (strided x),
+   4096x4096x128 and 4096x4096x4096 beside its bound, the plain version
+   and bf16 ``torch.matmul`` (its row in the ``kernels`` line is the
+   first).  SpDMM with a bf16 h (the Pallas kernel's bf16 sweep) within
+   the same tolerance and bit for bit the fp32 kernel on the widened h,
+   timed at the executor's tile shape beside the fp32 kernel.
 3. Engine.serve path: ``Engine(device="cuda").serve`` answers b1-b8 on
    Cora (CO) and three b2 (GCN, hidden 128) requests on full-scale Flickr
    (FL, 89,250 vertices, 989,006 edges with self loops), weights random
@@ -72,7 +81,8 @@ Phases (any failure exits non-zero; nothing is caught):
    it and ``index_put_(accumulate=True)`` (its ``kernels`` entry), and the
    GEMM kernel at the remapped shape 4096x4096x128 (C = A.B and + acc),
    bit-identical on a copy of the densified block and to
-   ``ACK.gemm_agg``, timed beside torch.matmul / torch.addmm.
+   ``ACK.gemm_agg``, timed beside its plain version and torch.matmul /
+   torch.addmm.
 5. Runtime path: ``ServeLoop(OverlayPool(engines=[<the Engine above>,
    Engine()]), max_batch=4)`` with a worker thread per overlay serves 11
    requests: gat-dot (a dot-product-attention GAT, hidden 64, 2 layers)
@@ -407,7 +417,11 @@ Phases (any failure exits non-zero; nothing is caught):
    d = 512 (BH = 32, T = 2048, bf16, causal) timed beside its bound, the
    plain version and ``F.scaled_dot_product_attention`` with the backend
    it dispatched to.  The FL-slice entries of phases 3 and 5 also time
-   SpDMM's bf16 store and SDDMM's bf16 store and bf16 operands.
+   SpDMM's bf16 store and SDDMM's bf16 store and bf16 operands, each
+   beside the one PyTorch call of the same function where PyTorch takes
+   it (``torch.addmm`` with a bf16 ``out``, ``torch.sparse.sampled_addmm``
+   with a bf16 ``out`` or bf16 operands; where it refuses, the error is
+   printed and ``library_ms`` is null).
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths, through its wrapper (``kernels.ops.LAUNCHES``; a CUDA-graph
@@ -432,8 +446,9 @@ CUDA event pair around them is divided by 20 (median of 5 trials).
 The flash kernel also has an entry of its own at each of the two shapes
 phases 19 and 20 give it, with the launches at that shape, and one for
 its d-sliced body at d = 512; SpDMM's bf16 store and SDDMM's bf16 store
-and bf16 operands on the FL slice have one each.  Those three count the
-one call each makes right before its timing.
+and bf16 operands on the FL slice have one each, and so has GEMM's bf16
+body at 4096x128x128 (bf16 ``torch.matmul`` its library call).  Those
+four count the one call each makes right before its timing.
 
 The last lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout
@@ -759,32 +774,212 @@ def kernel_phase(torch, ops, ref):
 
 
 BF16_RTOL, BF16_ATOL = 2e-2, 1e-2   # tests/test_kernels.py's bf16 sweeps
+# The bf16 GEMM body sums bf16 products (exact in fp32) on the tensor cores
+# into an fp32 accumulator, k-steps of 16 in order: against the float64
+# result ref64 = acc + x @ w each element is held to K u (|x| @ |w|) + u
+# |ref64| with u = 2^-23, one fp32 ulp's relative error on each of the K
+# additions' partial sums and on the final acc addition.
+F32_U = 2.0 ** -23
+# Shapes past the JAX sweep, ragged in M, N and K: the first short-K tile
+# (64 x 64, a ring of 4) with more k-stages (4) than the sweep gives it,
+# then the bf16 body's other tiles (K > 256: 64 x 64 in a ring of 8 at N
+# <= 128, 128 x 128 at N <= 1024, 128 x 256 past it).
+GEMM_BF16_TILES = [(130, 200, 100), (130, 300, 100), (300, 600, 300),
+                   (129, 333, 1100), (200, 1000, 2000)]
+# The bf16 body's timed shapes: the executor's tile (x a strided sub-fiber
+# view), the remapped aggregate (dense [4096, 4096] @ a strided [4096,
+# 128] view) and a square product at the tensor cores' rate.
+GEMM_BF16_TIMED = [(4096, 128, 128), (4096, 4096, 128), (4096, 4096, 4096)]
+GEMM_BF16_KERNEL = "gemm_bf16_kernel"
+GEMM_BF16_INSTANTIATIONS = 8            # 4 tiles x (TMA, staged)
 
 
-def bf16_kernel_cases(torch, ops, ref, gen, randn):
-    """GEMM with bf16 x / w and SpDMM with a bf16 h (the Pallas kernels'
-    bf16 sweeps, ``tests/test_kernels.py``): on the sweep shapes within
-    rtol 2e-2 / atol 1e-2 of the plain versions, and bit for bit the fp32
-    kernels on the widened operands (both bodies keep the fp32 kernels'
-    sum order); a bf16 GEMM output (``out_dtype``) is the fp32 result
-    rounded, from bf16 or fp32 operands.  Then both at the executor's
-    tile shape (strided views), timed beside the plain version and the
-    fp32 kernel.  Returns the readings."""
+def gemm_f64_excess(torch, x, w, acc, got) -> float:
+    """The largest ``|got - ref64| - (K u (|x| @ |w|) + u |ref64|)`` over
+    the elements (``F32_U``): <= 0 where the bound holds."""
+    x64, w64 = x.double(), w.double()
+    want = x64 @ w64 + (0.0 if acc is None else acc.double())
+    lim = x.shape[1] * F32_U * (x64.abs() @ w64.abs()) + F32_U * want.abs()
+    return float(((got.double() - want).abs() - lim).max())
+
+
+def unaligned_copy(torch, t):
+    """The same values in a view whose rows start one element past an
+    aligned buffer's (row stride one element longer than a row)."""
+    buf = torch.empty(t.shape[0], t.shape[1] + 1, dtype=t.dtype,
+                      device=t.device)
+    view = buf[:, 1:]
+    view.copy_(t)
+    return view
+
+
+def gemm_bf16_check(torch, ops, ref, randn) -> dict:
+    """The bf16 GEMM check: bf16 x (a strided view) and w on the JAX sweep
+    and ``GEMM_BF16_TILES`` within rtol 2e-2 / atol 1e-2 of the plain
+    version and within the float64 bound (``gemm_f64_excess``); the bf16
+    output the fp32 one rounded; fp32 operands with a bf16 output the fp32
+    kernel's result rounded; a contiguous copy (TMA where it qualifies) and
+    an unaligned copy (the staged route) of the operands the same bits.
+    Then the path shape (4096 x 128 x 128, strided x, +acc): the float64
+    bound, rows [37, 1001) alone, a second launch and an unaligned copy
+    bit for bit.  Fails at the first miss; returns the worst readings."""
     bf = torch.bfloat16
-    out = {}
-    for m, k, n in GEMM_SWEEP:
+    worst = {"max_abs_err": 0.0, "f64_excess": -math.inf}
+    for m, k, n in GEMM_SWEEP + GEMM_BF16_TILES:
         x, w = randn(m, 2 * k).to(bf)[:, k:], randn(k, n).to(bf)
         acc = randn(m, n)
         name = f"gemm bf16 {m}x{k}x{n}"
         got = ops.gemm(x, w, acc)
-        check_close(torch, name, got, acc + ref.gemm_ref(x, w), BF16_RTOL,
-                    BF16_ATOL)
-        wide = ops.gemm(x.float(), w.float(), acc)
-        if not (torch.equal(got, wide) and torch.equal(
-                ops.gemm(x, w, acc, out_dtype=bf), wide.to(bf))
-                and torch.equal(ops.gemm(x.float(), w.float(), acc,
-                                         out_dtype=bf), wide.to(bf))):
-            fail(f"{name}: not the fp32 kernel's bits on widened operands")
+        err = check_close(torch, name, got, acc + ref.gemm_ref(x, w),
+                          BF16_RTOL, BF16_ATOL)
+        over = gemm_f64_excess(torch, x, w, acc, got)
+        if over > 0:
+            fail(f"{name}: {over:.3e} past the float64 bound")
+        worst = {"max_abs_err": max(worst["max_abs_err"], err),
+                 "f64_excess": max(worst["f64_excess"], over)}
+        if not torch.equal(ops.gemm(x, w, acc, out_dtype=bf), got.to(bf)):
+            fail(f"{name}: the bf16 output is not the fp32 one rounded")
+        x32, w32 = x.float(), w.float()
+        if not torch.equal(ops.gemm(x32, w32, acc, out_dtype=bf),
+                           ops.gemm(x32, w32, acc).to(bf)):
+            fail(f"{name}: fp32 operands' bf16 output is not the fp32 "
+                 "kernel's result rounded")
+        if not torch.equal(ops.gemm(x.contiguous(), w.contiguous(), acc),
+                           got):
+            fail(f"{name}: contiguous operands give other bits")
+        if not torch.equal(ops.gemm(unaligned_copy(torch, x),
+                                    unaligned_copy(torch, w), acc), got):
+            fail(f"{name}: unaligned operands (the staged route) give "
+                 "other bits")
+    m, k, n, r0, r1 = 4096, 128, 128, 37, 1001
+    x, w = randn(m, 4 * k).to(bf)[:, k:2 * k], randn(k, n).to(bf)
+    acc = randn(m, n)
+    full = ops.gemm(x, w, acc)
+    check_close(torch, "gemm bf16 path shape +acc", full,
+                acc + ref.gemm_ref(x, w), BF16_RTOL, BF16_ATOL)
+    over = gemm_f64_excess(torch, x, w, acc, full)
+    if over > 0:
+        fail(f"gemm bf16 path shape: {over:.3e} past the float64 bound")
+    if not torch.equal(full[r0:r1], ops.gemm(x[r0:r1], w, acc[r0:r1])):
+        fail(f"gemm bf16 path shape: rows [{r0}, {r1}) differ from the "
+             "same rows of the whole call")
+    if not torch.equal(full, ops.gemm(x, w, acc)):
+        fail("gemm bf16 path shape: a second launch gives other bits")
+    if not torch.equal(full, ops.gemm(unaligned_copy(torch, x),
+                                      unaligned_copy(torch, w), acc)):
+        fail("gemm bf16 path shape: the staged route gives other bits")
+    worst["f64_excess_path"] = over
+    return worst
+
+
+def gemm_bf16_nvcc_check(report: str) -> dict:
+    """Print the bf16 GEMM body's registers and spills per instantiation
+    ("NWG=.. BN=.. STAGES=.. TMA=..") from the gemm build's ``nvcc -Xptxas
+    -v`` report; fail if one spills or is missing.  A cached build (no
+    report) is said so and not checked."""
+    if report.strip() == "cached":
+        log(f"nvcc {GEMM_BF16_KERNEL}: cached build, no report in this run")
+        return {"cached": True}
+    rows, cur = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            mt = re.search(GEMM_BF16_KERNEL + r"ILi(\d+)ELi(\d+)ELi(\d+)ELb"
+                           r"([01])E", ln)
+            cur = (f"NWG={mt.group(1)} BN={mt.group(2)} STAGES={mt.group(3)}"
+                   f" TMA={mt.group(4)}") if mt else None
+            if cur:
+                rows.setdefault(cur, {})
+        elif cur and "spill stores" in ln:
+            mt = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", ln)
+            rows[cur].update(spill_stores=int(mt.group(1)),
+                             spill_loads=int(mt.group(2)))
+        elif cur and re.search(r"Used \d+ registers", ln):
+            rows[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    for key, r in sorted(rows.items()):
+        log(f"nvcc {GEMM_BF16_KERNEL} {key}: {r.get('registers')} registers"
+            f" a thread, {r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads")
+    if len(rows) != GEMM_BF16_INSTANTIATIONS:
+        fail(f"{GEMM_BF16_KERNEL}: {len(rows)} instantiations in the nvcc "
+             f"report, expected {GEMM_BF16_INSTANTIATIONS}")
+    if any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+           for r in rows.values()):
+        fail(f"{GEMM_BF16_KERNEL} spills: {rows}")
+    return rows
+
+
+def gemm_bf16_operands(torch, randn, m, k, n):
+    """bf16 operands of a timed shape (``GEMM_BF16_TIMED``): x a strided
+    [4096, 128] sub-fiber view at K = 128, else contiguous; w a strided
+    view at N = 128 (the remapped aggregate's h), else contiguous."""
+    bf = torch.bfloat16
+    x = (randn(m, 4 * k).to(bf)[:, k:2 * k] if k == 128
+         else randn(m, k).to(bf))
+    w = (randn(k, 4 * n).to(bf)[:, n:2 * n] if n == 128 and k > 128
+         else randn(k, n).to(bf))
+    return x, w
+
+
+def bf16_kernel_cases(torch, ops, ref, gen, randn):
+    """GEMM with bf16 x / w (the tensor-core body, ``gemm_bf16_check``;
+    the route the C side takes held to ``ops.gemm_bf16_route``) and timed
+    at ``GEMM_BF16_TIMED`` beside its bound, the plain version and bf16
+    ``torch.matmul``; SpDMM with a bf16 h (the Pallas kernels' bf16
+    sweeps, ``tests/test_kernels.py``) within rtol 2e-2 / atol 1e-2 of the
+    plain version and bit for bit the fp32 kernel on the widened h (its
+    body keeps the fp32 kernel's sum order), then timed at the executor's
+    tile shape beside the plain version and the fp32 kernel.  Returns the
+    readings."""
+    bf = torch.bfloat16
+    out = {"gemm_check": gemm_bf16_check(torch, ops, ref, randn)}
+    for m, k, n in GEMM_SWEEP + GEMM_BF16_TILES + GEMM_BF16_TIMED:
+        for x, w in ((randn(m, k + 1).to(bf)[:, 1:], randn(k, n).to(bf)),
+                     (randn(m, k).to(bf), randn(k, n + 8).to(bf)[:, 8:])):
+            plan = ops.entry("gemm_plan")(x.data_ptr(), w.data_ptr(), n, k,
+                                          ops._ld(x), ops._ld(w))
+            if (plan & 1) != (ops.gemm_bf16_route(x, w) == "tma"):
+                fail(f"gemm bf16 {m}x{k}x{n}: the kernel's route "
+                     f"({plan & 1}) is not ops.gemm_bf16_route's "
+                     f"({ops.gemm_bf16_route(x, w)})")
+    log(f"kernels: bf16 GEMM ({len(GEMM_SWEEP) + len(GEMM_BF16_TILES)} "
+        f"shapes, fp32 and bf16 outputs) within rtol {BF16_RTOL} / atol "
+        f"{BF16_ATOL} of the plain version and within K 2^-23 (|x| @ |w|) "
+        "+ 2^-23 |ref64| of float64 (worst excess "
+        f"{out['gemm_check']['f64_excess']:.3e}); contiguous, unaligned "
+        "(staged) and row-sliced operands and second launches bit for bit;"
+        " the kernel's TMA / staged route is ops.gemm_bf16_route's")
+    for m, k, n in GEMM_BF16_TIMED:
+        x, w = gemm_bf16_operands(torch, randn, m, k, n)
+        ops.reset_launches()
+        got = ops.gemm(x, w)
+        n_l = ops.launch_totals()["gemm"]
+        err = check_close(torch, f"gemm bf16 {m}x{k}x{n}", got,
+                          ref.gemm_ref(x, w), BF16_RTOL, BF16_ATOL)
+        over = gemm_f64_excess(torch, x, w, None, got)
+        if over > 0:
+            fail(f"gemm bf16 {m}x{k}x{n}: {over:.3e} past the float64 "
+                 "bound")
+        if not torch.equal(got, ops.gemm(x, w)):
+            fail(f"gemm bf16 {m}x{k}x{n}: a second launch gives other bits")
+        b_ms, b_by = bound_ms(2 * (m * k + k * n) + 4 * m * n,
+                              2.0 * m * n * k, PEAK_BF16_FLOP_S)
+        plan = ops.entry("gemm_plan")(x.data_ptr(), w.data_ptr(), n, k,
+                                      ops._ld(x), ops._ld(w))
+        out[f"gemm_{m}x{k}x{n}"] = {
+            "route": ops.gemm_bf16_route(x, w), "tile": plan >> 1,
+            "launches": n_l, "max_abs_err": err, "f64_excess": over, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "ms": median_ms(torch, lambda: ops.gemm(x, w)),
+            "plain_ms": median_ms(torch, lambda: ref.gemm_ref(x, w)),
+            "torch_matmul_bf16_ms": median_ms(torch,
+                                              lambda: torch.matmul(x, w))}
+        if k == 128:
+            xw, ww = x.float(), w.float()
+            out[f"gemm_{m}x{k}x{n}"]["fp32_kernel_ms"] = median_ms(
+                torch, lambda: ops.gemm(xw, ww))
+        del x, w, got
     for n1, w, ns, f in SPDMM_SWEEP:
         cols = torch.randint(0, ns, (n1, w), generator=gen, device="cuda",
                              dtype=torch.int32)
@@ -797,23 +992,9 @@ def bf16_kernel_cases(torch, ops, ref, gen, randn):
                     BF16_RTOL, BF16_ATOL)
         if not torch.equal(got, ops.spdmm(cols, vals, h.float())):
             fail(f"{name}: not the fp32 kernel's bits on the widened h")
-    log(f"kernels: bf16 GEMM ({len(GEMM_SWEEP)} shapes, fp32 and bf16 "
-        f"outputs) and bf16-h SpDMM ({len(SPDMM_SWEEP)} shapes) within "
-        f"rtol {BF16_RTOL} / atol {BF16_ATOL} of their plain versions and "
-        "bit for bit the fp32 kernels on widened operands")
-    m, k, n = 4096, 128, 128
-    x, w = randn(m, 4 * k).to(bf)[:, k:2 * k], randn(k, n).to(bf)
-    err = check_close(torch, "gemm bf16 path shape", ops.gemm(x, w),
-                      ref.gemm_ref(x, w), BF16_RTOL, BF16_ATOL)
-    xw, ww = x.float(), w.float()
-    b_ms, b_by = bound_ms(2 * (m * k + k * n) + 4 * m * n, 2.0 * m * n * k,
-                          PEAK_BF16_FLOP_S)
-    out["gemm_4096x128x128"] = {
-        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-        "ms": median_ms(torch, lambda: ops.gemm(x, w)),
-        "fp32_kernel_ms": median_ms(torch, lambda: ops.gemm(xw, ww)),
-        "plain_ms": median_ms(torch, lambda: ref.gemm_ref(x, w)),
-        "torch_matmul_bf16_ms": median_ms(torch, lambda: torch.matmul(x, w))}
+    log(f"kernels: bf16-h SpDMM ({len(SPDMM_SWEEP)} shapes) within rtol "
+        f"{BF16_RTOL} / atol {BF16_ATOL} of the plain version and bit for "
+        "bit the fp32 kernel on the widened h")
     n1, wd, f = 4096, 64, 128
     live = torch.rand(n1, wd, generator=gen, device="cuda") > 0.4
     cols = torch.where(live, torch.randint(0, n1, (n1, wd), generator=gen,
@@ -832,7 +1013,7 @@ def bf16_kernel_cases(torch, ops, ref, gen, randn):
     for name, r in out.items():
         log(f"kernel {name} bf16: " + ", ".join(
             f"{k} {v:.4f}" if k.endswith("ms") else
-            f"{k} {v}" if isinstance(v, str) else f"{k} {v:.2e}"
+            f"{k} {v}" if isinstance(v, (str, int)) else f"{k} {v:.2e}"
             for k, v in r.items()))
     return out
 
@@ -918,6 +1099,27 @@ def _ell_to_csr(torch, cols, vals, live, n_src):
     coo = torch.sparse_coo_tensor(idx, vals[rows, slots],
                                   (cols.shape[0], n_src)).coalesce()
     return coo.to_sparse_csr()
+
+
+def library_call(torch, label, fn, want=None) -> dict:
+    """One PyTorch call offered as a kernel's library yardstick: run once,
+    and if PyTorch takes it (and its result is within rtol 2e-2 / atol
+    1e-2 of ``want``, when given) timed; if it raises, the error it
+    raised.  Returns {"call", "ms"} or {"call", "error"}."""
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        torch.cuda.synchronize()
+        msg = f"{type(e).__name__}: {str(e).strip().splitlines()[0]}"
+        log(f"library call {label}: PyTorch refuses it: {msg}")
+        return {"call": label, "error": msg}
+    if want is not None:
+        got = got.values() if got.layout != torch.strided else got
+        check_close(torch, f"library call {label}", got, want, 2e-2, 1e-2)
+    ms = median_ms(torch, fn)
+    log(f"library call {label}: {ms:.4f} ms")
+    return {"call": label, "ms": ms}
 
 
 def _spdmm_bound(n1, w, n_src, f, nnz, walked=None, h_bytes=4,
@@ -1206,13 +1408,21 @@ def fl_spdmm_entry(torch, ops, ref, prog):
         tp = median_ms(torch, lambda: ref.spdmm_step_ref(
             cols, vals, hh, acc, row_len, torch.bfloat16))
         b16, b16_by = _spdmm_bound(n1, w, n1, f, nnz, walked, hb, 2)
+        # One PyTorch call for the same function: fp32 sums of the CSR
+        # pattern times h, acc added, stored in bf16.
+        hhc = hh.contiguous()
+        out16 = torch.empty(n1, f, dtype=torch.bfloat16, device="cuda")
+        lib = library_call(
+            torch, f"torch.addmm(acc, csr, h, out=bf16) ({tag})",
+            lambda: torch.addmm(acc, sp, hhc, out=out16))
         log(f"kernel spdmm on the FL slice, {tag}, bf16 store: kernel "
             f"{t16:.4f} ms (fp32 store {t32:.4f} ms), plain {tp:.4f} ms, "
             f"bound {b16:.4f} ms ({b16_by}), max|err| {e16:.2e}; the fp32 "
             "result rounded once, bit for bit")
         store[tag] = {"launches": n_l, "max_abs_err": e16, "ms": t16,
                       "fp32_store_ms": t32, "plain_ms": tp,
-                      "bound_ms": b16, "bound_by": b16_by}
+                      "bound_ms": b16, "bound_by": b16_by,
+                      "library_ms": lib.get("ms"), "library": lib}
     return {"name": "spdmm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/spdmm.cu",
             "replaces": "src/repro/kernels/spdmm.py:44",
@@ -1528,6 +1738,8 @@ def remap_gemm_entry(torch, ops, ref, prog):
                 got, ACK("cuda").gemm_agg(cols, vals, h, acc)):
             fail("gemm_agg on the FL slice differs from densify + gemm")
         t_k = median_ms(torch, lambda: ops.gemm(dense, h, a))
+        t_p = median_ms(torch, lambda: ref.gemm_ref(dense, h) + (
+            acc if with_acc else 0.0))
         if with_acc:
             t_l = median_ms(torch, lambda: torch.addmm(acc, dense, h))
             lib = "torch.addmm"
@@ -1537,12 +1749,14 @@ def remap_gemm_entry(torch, ops, ref, prog):
         nbytes = 4 * (n1 * n1 + n1 * f + (2 if with_acc else 1) * n1 * f)
         b_ms, b_by = bound_ms(nbytes, 2.0 * n1 * n1 * f)
         log(f"kernel gemm {n1}x{n1}x{f} (densified FL slice, strided h"
-            f"{', +acc' if with_acc else ''}): kernel {t_k:.4f} ms, {lib} "
-            f"{t_l:.4f} ms (TF32 off), bound {b_ms:.4f} ms ({b_by}), "
+            f"{', +acc' if with_acc else ''}): kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, {lib} {t_l:.4f} ms (TF32 off), bound "
+            f"{b_ms:.4f} ms ({b_by}), "
             f"{t_k / b_ms:.2f}x the bound, max|err| {err:.2e}; bits equal "
             "on a copy of the block")
         info["acc" if with_acc else "plain"] = {
-            "ms": t_k, "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+            "bound_by": b_by,
             "max_abs_err": err}
     return densify_entry, info
 
@@ -1899,7 +2113,9 @@ def sddmm_bf16_cases(torch, ops, ref, hd, hs, cols, mask, acc):
     """On one SDDMM tile: the bf16 store (fp32 operands; the fp32
     kernel's result rounded once, bit for bit) and bf16 operands (fp32
     out; the fp32 kernel's result on the widened operands, bit for bit),
-    each held against the plain version and timed beside its bound."""
+    each held against the plain version and timed beside its bound and
+    beside ``torch.sparse.sampled_addmm`` where PyTorch takes the call
+    (``library_call``: else the error it raises)."""
     n1, w = cols.shape
     f = hd.shape[1]
     nnz = int(mask.sum())
@@ -1907,6 +2123,29 @@ def sddmm_bf16_cases(torch, ops, ref, hd, hs, cols, mask, acc):
     src_rows = int(torch.unique(cols[rows, slots]).numel())
     dst_rows = int(torch.unique(rows).numel())
     hd16, hs16 = hd.bfloat16(), hs.bfloat16()
+    # The CSR pattern of the live slots holding acc, for
+    # torch.sparse.sampled_addmm (acc + h_dst @ h_src^T sampled there).
+    crow = torch.zeros(n1 + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n1), 0)
+    csr = torch.sparse_csr_tensor(crow, cols[rows, slots].long(),
+                                  acc[rows, slots], size=(n1, hs.shape[0]))
+    csr16, res16 = csr.to(torch.bfloat16), csr.to(torch.bfloat16)
+    hdc, hst = hd.contiguous(), hs.t().contiguous()
+    hd16c, hs16t = hd16.contiguous(), hs16.t().contiguous()
+    calls = {
+        "bf16 store": [("torch.sparse.sampled_addmm(csr, h_dst, h_src^T, "
+                        "out=bf16 csr)",
+                        lambda: torch.sparse.sampled_addmm(
+                            csr, hdc, hst, out=res16))],
+        "bf16 operands": [("torch.sparse.sampled_addmm(csr, bf16 h_dst, "
+                           "bf16 h_src^T)",
+                           lambda: torch.sparse.sampled_addmm(csr, hd16c,
+                                                              hs16t)),
+                          ("torch.sparse.sampled_addmm(bf16 csr, bf16 "
+                           "h_dst, bf16 h_src^T): acc and the result in "
+                           "bf16, not the same function",
+                           lambda: torch.sparse.sampled_addmm(csr16, hd16c,
+                                                              hs16t))]}
     out = {}
     for tag, a, b, odt, eb, ob in (
             ("bf16 store", hd, hs, torch.bfloat16, 4, 2),
@@ -1933,8 +2172,11 @@ def sddmm_bf16_cases(torch, ops, ref, hd, hs, cols, mask, acc):
         log(f"kernel sddmm on the FL slice, {tag}: kernel {t_k:.4f} ms, "
             f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max|err| "
             f"{err:.2e}; bit for bit the fp32 kernel's result")
+        libs = [library_call(torch, label, fn, got[rows, slots])
+                for label, fn in calls[tag]]
         out[tag] = {"launches": n_l, "max_abs_err": err, "ms": t_k,
-                    "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by}
+                    "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": libs[0].get("ms"), "library": libs}
     return out
 
 
@@ -6117,6 +6359,7 @@ def main() -> int:
         log(f"nvcc {name}.cu:\n{rep.strip()}")
     log(f"build: {len(build.SOURCES)} kernels in {t_build:.2f} s")
     ws_build = ws_nvcc_check(build.build_log.get("flash_attention", ""))
+    gemm_build = gemm_bf16_nvcc_check(build.build_log.get("gemm", ""))
 
     gemm_entry = kernel_phase(torch, ops, ref)
     bf16_kernels = gemm_entry.pop("bf16")
@@ -6239,6 +6482,17 @@ def main() -> int:
         flash_mla, "flash_attention (deepseek-v3 MLA: d=192, dv=128)",
         mla_launches))
     kernels.append(wide_entry)
+    path = bf16_kernels["gemm_4096x128x128"]
+    kernels.append({**{k: gemm_entry[k] for k in ("route", "source",
+                                                  "replaces")},
+                    "name": "gemm (bf16 x / w, the wgmma body: 4096x128x128,"
+                            " strided x)",
+                    "launches": path["launches"],
+                    "max_abs_err": path["max_abs_err"],
+                    "ms": path["ms"], "plain_ms": path["plain_ms"],
+                    "bound_ms": path["bound_ms"],
+                    "bound_by": path["bound_by"],
+                    "library_ms": path["torch_matmul_bf16_ms"]})
     for base, tag, row in (
             (spdmm_entry, "bf16 store, FL slice, fp32 h",
              spdmm_entry["bf16_store"]["fp32 h"]),
@@ -6248,8 +6502,7 @@ def main() -> int:
              sddmm_entry["bf16"]["bf16 operands"])):
         kernels.append({**{k: base[k] for k in ("route", "source",
                                                 "replaces")},
-                        "name": f"{base['name']} ({tag})",
-                        "library_ms": None, **row})
+                        "name": f"{base['name']} ({tag})", **row})
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
@@ -6306,6 +6559,7 @@ def main() -> int:
                        "contracts": contracts,
                        "bf16_kernels": bf16_kernels,
                        "flash_ws_build": ws_build,
+                       "gemm_bf16_build": gemm_build,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,
                            "gemma3": gemma_launches,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Tile-shape variants of the GEMM, SDDMM and flash kernels, read beside
-the kernels themselves on one GPU.
+"""Tile-shape variants of the GEMM (its fp32 kernel and its bf16 body),
+SDDMM and flash kernels, read beside the kernels themselves on one GPU,
+and planted faults in the GEMM's bf16 body.
 
     python3 kernel_variants.py [--parent DIR] [--only KERNEL ...]
                                [--json-out PATH]
@@ -25,8 +26,9 @@ through the unchanged ``ops.gemm`` / ``ops.sddmm`` /
   so it must be equal; an SDDMM variant keeps each slot's);
 * timed as ``chip_smoke.py`` times kernels (median of 5 trials of 20
   calls queued behind a spin kernel): GEMM at 4096x128xN, N in {128, 64,
-  8}, strided views, C = A.B and C = acc + A.B, beside ``torch.matmul``
-  and ``torch.addmm``; SDDMM on the widest ELL slice of full-scale Flickr
+  8}, strided views, and at the remapped shape 4096x4096x128 (a dense
+  block times a strided view), C = A.B and C = acc + A.B, beside
+  ``torch.matmul`` and ``torch.addmm``; SDDMM on the widest ELL slice of full-scale Flickr
   (n1 = 4096, n2 = 128, the partition every FL program uses, its real
   mask), on the synthetic hub tile of ``chip_smoke.py`` and on two
   narrow tiles (w = 8 and 64, row lengths uniform in [0, w]), with an
@@ -37,10 +39,23 @@ through the unchanged ``ops.gemm`` / ``ops.sddmm`` /
   under ``chip_smoke.check_rows`` against the plain version, with its
   bound and whether its bits equal the checkout's kernel's.
 
+The GEMM's bf16 body (``--only gemm_bf16``; variants of its tile width,
+stage count and consumer warpgroups, each a text edit of ``gemm.cu``
+called through the ``gemm_mixed`` entry, and with ``--parent`` the parent
+tree's ``gemm_mixed``) is held on ``chip_smoke.py``'s bf16 sweep and tile
+shapes within rtol 2e-2 / atol 1e-2 of the plain version and, but for the
+parent, bit for bit the checkout's body, timed at
+``chip_smoke.GEMM_BF16_TIMED`` (4096x128x128 with a strided x,
+4096x4096x128, 4096x4096x4096) beside bf16 ``torch.matmul``; then each
+of ``GEMM_FAULTS`` (copies of ``gemm.cu`` with one planted fault, built
+beside the variants) must fail ``chip_smoke.gemm_bf16_check``, which the
+checkout's body passes.
+
 The kernel in the checkout is timed first and last (change, variants,
 change), so its two readings show the drift within the call.  It exits
 non-zero if a build fails, the checkout's kernel or a variant fails its
-check, or a variant that must be bit-identical is not.  The last line of
+check, a variant that must be bit-identical is not, or a planted fault
+passes.  The last line of
 the output is the readings as JSON.  Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
@@ -56,9 +71,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Past 48 KB of shared memory a launch needs the opt-in (deeper rings at
 # 64-column tiles); harmless below it.
 _OPT_IN = ("  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);\n",
-           "  cudaFuncSetAttribute(gemm_f32_kernel<true>,\n"
+           "  cudaFuncSetAttribute(gemm_f32_kernel<true, OutT>,\n"
            "      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);\n"
-           "  cudaFuncSetAttribute(gemm_f32_kernel<false>,\n"
+           "  cudaFuncSetAttribute(gemm_f32_kernel<false, OutT>,\n"
            "      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);\n"
            "  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);\n")
 
@@ -84,6 +99,35 @@ VARIANTS = {
                  [("constexpr int BN = 32;", "constexpr int BN = 64;")]),
         "bn16": ("16-column output tiles (64 threads)",
                  [("constexpr int BN = 32;", "constexpr int BN = 16;")]),
+    },
+    # The bf16 body of gemm.cu (entry gemm_mixed): tile widths, stage
+    # counts and consumer warpgroups, each a text edit of `bf16_tile` or of
+    # one launch in `gemm_mixed`'s switch.  Tiles 0 / 1 are 64 x 64 (K <=
+    # 256 / K > 256 at N <= 128), 2 is 128 x 128 and 3 is 128 x 256.
+    "gemm_bf16": {
+        "bn64": ("64-column tiles everywhere (one warpgroup, a ring of 8 "
+                 "past K = 256)",
+                 [("  if (N <= 128) return 1;", "  return 1;")]),
+        "bn128": ("128 x 128 tiles past N = 128 at K > 256",
+                  [("  return N <= 1024 ? 2 : 3;", "  return 2;")]),
+        "bn256": ("128 x 256 tiles past N = 128 at K > 256",
+                  [("  return N <= 1024 ? 2 : 3;", "  return 3;")]),
+        "short_bn128": ("K <= 256: 64 x 128 tiles",
+                        [("launch_bf16<1, 64, 4>", "launch_bf16<1, 128, 4>")]),
+        "short_two_wg": ("K <= 256: 128 x 64 tiles, two consumer warpgroups",
+                         [("launch_bf16<1, 64, 4>", "launch_bf16<2, 64, 4>")]),
+        "short_stages3": ("K <= 256: a ring of 3 k-stages",
+                          [("launch_bf16<1, 64, 4>", "launch_bf16<1, 64, 3>")]),
+        "tall_stages4": ("K > 256, N <= 128: a ring of 4",
+                         [("launch_bf16<1, 64, 8>", "launch_bf16<1, 64, 4>")]),
+        "tall_stages12": ("K > 256, N <= 128: a ring of 12",
+                          [("launch_bf16<1, 64, 8>", "launch_bf16<1, 64, 12>")]),
+        "tall_bn128": ("K > 256, N <= 128: 64 x 128 tiles, a ring of 6",
+                       [("launch_bf16<1, 64, 8>", "launch_bf16<1, 128, 6>")]),
+        "big_stages3": ("128 x 256 tiles in a ring of 3",
+                        [("launch_bf16<2, 256, 4>", "launch_bf16<2, 256, 3>")]),
+        "big_one_wg": ("64 x 256 tiles, one consumer warpgroup",
+                       [("launch_bf16<2, 256, 4>", "launch_bf16<1, 256, 4>")]),
     },
     "sddmm": {
         "span32": ("32-slot spans (one slot a lane)",
@@ -191,8 +235,39 @@ VARIANTS = {
               ");\n")]),
     },
 }
+# Planted faults in the GEMM kernel's bf16 body, each of which
+# ``chip_smoke.gemm_bf16_check`` must fail: name -> (what it does, edits).
+# None can leave a warp waiting forever (the ring's mbarrier protocol is
+# untouched); a flipped stage parity could, once a warp runs a ring round
+# ahead of the other side.
+GEMM_FAULTS = {
+    "swizzle_64b": ("wgmma descriptors say a 64-byte swizzle where TMA and "
+                    "the staged route write the 128-byte one",
+                    [("((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62)",
+                      "((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62)")]),
+    "drop_last_kstage": ("the consumers skip the last k-stage's products "
+                         "(still waiting for it and releasing it)",
+                         [("      wgmma_tb<BN>(c, gmma_desc(as + ks * 32, 16, "
+                           "1024),",
+                           "      if (kt + 1 < n_kt)\n"
+                           "      wgmma_tb<BN>(c, gmma_desc(as + ks * 32, 16, "
+                           "1024),")]),
+    "w_panel_step": ("w's descriptor steps half a panel between its "
+                     "64-column panels (only tiles wider than 64 read a "
+                     "second panel)",
+                     [("gmma_desc(bs + ks * 16 * 128, B_PANEL, 1024)",
+                       "gmma_desc(bs + ks * 16 * 128, B_PANEL / 2, 1024)")]),
+    "staged_no_swizzle": ("the staged route writes its chunks unswizzled "
+                          "(the TMA route is right)",
+                          [("((((c >> 3) & 7) ^ (r & 7)) << 4)",
+                            "(((c >> 3) & 7) << 4)")]),
+}
+# Variant keys built from another kernel's source, and the entry point
+# their copies are called through.
+SOURCE = {"gemm_bf16": "gemm"}
+ENTRY = {"gemm_bf16": "gemm_mixed"}
 # Kernels whose parent source is built as the variant "parent".
-PARENT_KERNELS = ("gemm", "sddmm", "flash_attention")
+PARENT_KERNELS = ("gemm", "gemm_bf16", "sddmm", "flash_attention")
 # A flash entry without the dv argument (the signature before V took its
 # own width): the parent's, when its source has no dv.
 FLASH_NO_DV = "int d, int causal, int window,"
@@ -226,13 +301,18 @@ def build_variants(build, parent, kernels):
     for kern, variants in VARIANTS.items():
         if kern not in kernels:
             continue
-        for name, (_, edits) in variants.items():
-            copies[f"{kern}_{name}"] = (kern, build.edited(kern, edits))
+        src, ent = SOURCE.get(kern, kern), ENTRY.get(kern, kern)
+        edits = dict((n, e) for n, (_, e) in variants.items())
+        if kern == "gemm_bf16":
+            edits.update((f"fault_{n}", e) for n, (_, e) in
+                         GEMM_FAULTS.items())
+        for name, ed in edits.items():
+            copies[f"{kern}_{name}"] = (ent, build.edited(src, ed))
             keys[f"{kern}_{name}"] = (kern, name)
         if parent and kern in PARENT_KERNELS:
             with open(os.path.join(parent, "src/repro_torch/kernels/csrc",
-                                   f"{kern}.cu")) as fh:
-                copies[f"{kern}_parent"] = (kern, fh.read())
+                                   f"{src}.cu")) as fh:
+                copies[f"{kern}_parent"] = (ent, fh.read())
             keys[f"{kern}_parent"] = (kern, "parent")
     t0 = time.perf_counter()
     built = build.build_copies(copies, os.path.join(build.BUILD_DIR,
@@ -252,16 +332,27 @@ def build_variants(build, parent, kernels):
 
 
 class entry_as:
-    """While open, the wrappers launch ``fn`` (one variant's entry)."""
+    """While open, the wrappers launch ``fn`` (one variant's entry) in
+    place of every entry point, or only of the entry ``only``."""
 
-    def __init__(self, ops, fn):
-        self.ops, self.fn, self.real = ops, fn, ops.entry
+    def __init__(self, ops, fn, only=None):
+        self.ops, self.fn, self.real, self.only = ops, fn, ops.entry, only
 
     def __enter__(self):
-        self.ops.entry = lambda name: self.fn
+        real, fn, only = self.real, self.fn, self.only
+        self.ops.entry = lambda name: fn if only in (None, name) else \
+            real(name)
 
     def __exit__(self, *exc):
         self.ops.entry = self.real
+
+
+def remapped_block(torch, gen, x):
+    """``x`` with 1.5% of its entries kept, the rest zero: a densified
+    ELL block's density (about 60 edges a row of 4096, as FL's widest
+    slice), so a 4096-deep fp32 sum adds few rounded terms and the kernel
+    tolerance holds against ``torch.matmul``'s other order."""
+    return x * (torch.rand(x.shape, generator=gen, device=x.device) < 0.015)
 
 
 def gemm_phase(torch, cs, ops, ref, fns):
@@ -271,9 +362,12 @@ def gemm_phase(torch, cs, ops, ref, fns):
         return torch.randn(*shape, generator=gen, device="cuda")
 
     names = [n for k, n in fns if k == "gemm"]
-    shapes = cs.GEMM_SWEEP + [(4096, 128, n) for n in (128, 64, 8)]
+    shapes = cs.GEMM_SWEEP + [(4096, 128, n) for n in (128, 64, 8)] + [
+        (4096, 4096, 128)]
     for m, k, n in shapes:
         x, w, acc = randn(m, 2 * k)[:, k:], randn(k, n), randn(m, n)
+        if k == 4096:
+            x = remapped_block(torch, gen, x)
         want = acc + ref.gemm_ref(x, w)
         with entry_as(ops, fns[("gemm", "change")]):
             mine = ops.gemm(x, w, acc)
@@ -289,10 +383,14 @@ def gemm_phase(torch, cs, ops, ref, fns):
         f"{len(shapes)} shapes")
     order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
     out = {}
-    m, k = 4096, 128
-    for n in (128, 64, 8):
-        h_full, w_full = randn(m, 4 * k), randn(4 * k, 2 * n)
-        x, w = h_full[:, k:2 * k], w_full[k:2 * k, n:2 * n]
+    for m, k, n in ((4096, 128, 128), (4096, 128, 64), (4096, 128, 8),
+                    (4096, 4096, 128)):
+        if k == 128:
+            h_full, w_full = randn(m, 4 * k), randn(4 * k, 2 * n)
+            x, w = h_full[:, k:2 * k], w_full[k:2 * k, n:2 * n]
+        else:                  # the remapped shape: dense block @ a view
+            x = remapped_block(torch, gen, randn(m, k))
+            w = randn(k, 4 * n)[:, n:2 * n]
         acc = randn(m, n)
         row = {}
         for i, nm in enumerate(order):
@@ -302,10 +400,90 @@ def gemm_phase(torch, cs, ops, ref, fns):
             row[nm if i < len(order) - 1 else "change_again"] = [t, ta]
         row["torch"] = [cs.median_ms(torch, lambda: torch.matmul(x, w)),
                         cs.median_ms(torch, lambda: torch.addmm(acc, x, w))]
-        out[f"N={n}"] = row
+        out[f"N={n}" if k == 128 else f"{m}x{k}x{n}"] = row
         log(f"gemm {m}x{k}x{n} ms (C = A.B / C = acc + A.B): " + ", ".join(
             f"{nm} {a:.4f} / {b:.4f}" for nm, (a, b) in row.items())
             + " (torch: matmul / addmm)")
+    return out
+
+
+def gemm_bf16_phase(torch, cs, ops, ref, fns):
+    """Each build of the bf16 body (through ``gemm_mixed``) on
+    ``chip_smoke``'s bf16 sweep, its tile shapes and its timed shapes:
+    within the JAX sweep's bf16 tolerance of the plain version and, but
+    for the parent's plain body, bit for bit the checkout's body (the
+    float64 bound holds the checkout's in ``chip_smoke``); timed at the
+    timed shapes (change, variants, parent, change) beside bf16
+    ``torch.matmul``; then every planted fault run through
+    ``chip_smoke.gemm_bf16_check``, which each must fail.  Fails if a
+    variant's bits differ, the real body fails the check or a fault
+    passes it."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    bf = torch.bfloat16
+    names = [n for k, n in fns if k == "gemm_bf16"
+             and not n.startswith("fault_")]
+    faults = [n for k, n in fns if k == "gemm_bf16" and n.startswith("fault_")]
+    differ = []
+    shapes = cs.GEMM_SWEEP + cs.GEMM_BF16_TILES + cs.GEMM_BF16_TIMED
+    for m, k, n in shapes:
+        x, w = cs.gemm_bf16_operands(torch, randn, m, k, n)
+        acc = randn(m, n)
+        want = acc + ref.gemm_ref(x, w)
+        with entry_as(ops, fns[("gemm_bf16", "change")], "gemm_mixed"):
+            mine = ops.gemm(x, w, acc)
+        for nm in names:
+            with entry_as(ops, fns[("gemm_bf16", nm)], "gemm_mixed"):
+                got = ops.gemm(x, w, acc)
+            cs.check_close(torch, f"gemm bf16 {nm} {m}x{k}x{n}", got, want,
+                           cs.BF16_RTOL, cs.BF16_ATOL)
+            if nm != "parent" and not torch.equal(got, mine):
+                differ.append(f"{nm} {m}x{k}x{n}")
+        del x, w, acc, want, mine
+    log(f"gemm bf16: {len(names)} builds within tolerance on {len(shapes)} "
+        f"shapes; bits differ from the checkout's body: {differ or 'none'}")
+    order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
+    out = {"bits_differ": differ}
+    for m, k, n in cs.GEMM_BF16_TIMED:
+        x, w = cs.gemm_bf16_operands(torch, randn, m, k, n)
+        row = {}
+        for i, nm in enumerate(order):
+            with entry_as(ops, fns[("gemm_bf16", nm)], "gemm_mixed"):
+                t = cs.median_ms(torch, lambda: ops.gemm(x, w))
+            row[nm if i < len(order) - 1 else "change_again"] = t
+        row["torch_matmul_bf16"] = cs.median_ms(torch,
+                                                lambda: torch.matmul(x, w))
+        b_ms, b_by = cs.bound_ms(2 * (m * k + k * n) + 4 * m * n,
+                                 2.0 * m * n * k, cs.PEAK_BF16_FLOP_S)
+        row["bound_ms"] = b_ms
+        out[f"{m}x{k}x{n}"] = row
+        del x, w
+        torch.cuda.empty_cache()
+        log(f"gemm bf16 {m}x{k}x{n} ms: " + ", ".join(
+            f"{nm} {t:.4f}" for nm, t in row.items()) + f" ({b_by})")
+    passed = []
+    with entry_as(ops, fns[("gemm_bf16", "change")], "gemm_mixed"):
+        cs.gemm_bf16_check(torch, ops, ref, randn)
+    log("gemm bf16: the checkout's body passes chip_smoke.gemm_bf16_check")
+    for nm in faults:
+        what = GEMM_FAULTS[nm[len("fault_"):]][0]
+        try:
+            with entry_as(ops, fns[("gemm_bf16", nm)], "gemm_mixed"):
+                cs.gemm_bf16_check(torch, ops, ref, randn)
+            verdict = "passes"
+            passed.append(nm)
+        except SystemExit as e:
+            verdict = f"fails ({e})"
+        torch.cuda.synchronize()
+        out[nm] = verdict
+        log(f"gemm bf16 {nm} ({what}): gemm_bf16_check {verdict}")
+    if differ:
+        cs.fail(f"gemm bf16 variants not bit-identical: {differ}")
+    if passed:
+        cs.fail(f"gemm bf16 faults pass the check: {passed}")
     return out
 
 
@@ -475,9 +653,9 @@ def sddmm_phase(torch, cs, ops, ref, fns):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="another checkout whose gemm.cu / sddmm.cu / "
-                         "flash_attention.cu to build and time as the "
-                         "variant 'parent'")
+                    help="another checkout whose gemm.cu (fp32 kernel and "
+                         "bf16 body) / sddmm.cu / flash_attention.cu to "
+                         "build and time as the variant 'parent'")
     ap.add_argument("--only", action="append", choices=list(VARIANTS),
                     help="build and time only this kernel's variants "
                          "(repeatable; default: every kernel)")
@@ -500,13 +678,13 @@ def main() -> int:
     log(card)
     kernels = args.only or list(VARIANTS)
     fns = build_variants(build, args.parent, kernels)
-    phases = {"gemm": gemm_phase, "sddmm": sddmm_phase,
-              "flash_attention": flash_phase}
+    phases = {"gemm": gemm_phase, "gemm_bf16": gemm_bf16_phase,
+              "sddmm": sddmm_phase, "flash_attention": flash_phase}
     result = {"card": card,
               "variants": {k: {n: d for n, (d, _) in v.items()}
                            for k, v in VARIANTS.items() if k in kernels}}
     for kern in kernels:
-        fns[(kern, "change")] = ops.entry(kern)
+        fns[(kern, "change")] = ops.entry(ENTRY.get(kern, kern))
         result[kern] = phases[kern](torch, cs, ops, ref, fns)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

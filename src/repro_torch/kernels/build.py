@@ -38,6 +38,8 @@ _ARGTYPES = {
              + [_c_void_p]),
     "gemm_mixed": ("gemm_mixed", [_c_void_p] * 4 + [_c_int] * 5
                    + [_c_ll] * 4 + [_c_void_p]),
+    "gemm_plan": ("gemm_bf16_plan", [_c_void_p] * 2 + [_c_int] * 2
+                  + [_c_ll] * 2),
     "spdmm": ("spdmm_f32", [_c_void_p] * 6 + [_c_int] * 3 + [_c_ll] * 3
               + [_c_void_p]),
     "spdmm_bf16": ("spdmm_bf16", [_c_void_p] * 6 + [_c_int] * 3
@@ -57,6 +59,7 @@ _ARGTYPES = {
 }
 # Entry points that live in another kernel's source (library).
 _SOURCE_OF = {"densify": "gemm", "gemm_mixed": "gemm",
+              "gemm_plan": "gemm",
               "spdmm_bf16": "spdmm", "spdmm_bf16_out": "spdmm",
               "sddmm_bf16": "sddmm", "sddmm_bf16_out": "sddmm"}
 
@@ -171,11 +174,12 @@ def edited(name: str, edits: Sequence[Tuple[str, str]]) -> str:
 
 def build_copies(copies: Dict[str, Tuple[str, str]], out_dir: str
                  ) -> Dict[str, Tuple[Callable, str]]:
-    """Build copies of kernel sources: ``copies`` maps a tag to (kernel
-    name, .cu text).  Each is written to ``out_dir/<tag>.cu`` and built
-    there, one ``nvcc`` per copy, all at once and together with the real
-    libraries of the kernels named.  Returns tag -> (the copy's C entry
-    point, argtypes set; its nvcc report)."""
+    """Build copies of kernel sources: ``copies`` maps a tag to (entry
+    name, .cu text of the source that holds it).  Each is written to
+    ``out_dir/<tag>.cu`` and built there, one ``nvcc`` per copy, all at
+    once and together with the real libraries of the sources named.
+    Returns tag -> (the copy's C entry point, argtypes set; its nvcc
+    report)."""
     os.makedirs(out_dir, exist_ok=True)
     procs: Dict[str, subprocess.Popen] = {}
     try:
@@ -187,7 +191,8 @@ def build_copies(copies: Dict[str, Tuple[str, str]], out_dir: str
                 [nvcc_path(), *NVCC_FLAGS, "-o",
                  os.path.join(out_dir, f"lib{tag}.so"), cu],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        build_all(sorted({name for name, _ in copies.values()}))
+        build_all(sorted({_SOURCE_OF.get(name, name)
+                          for name, _ in copies.values()}))
         out = {}
         for tag, proc in procs.items():
             log, _ = proc.communicate()

@@ -250,13 +250,34 @@ def _check_dtype(name: str, dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: expected float32 or bfloat16, got {dtype}")
 
 
+def _copy_width(ptr: int, ld: int, itemsize: int) -> int:
+    """The widest copy (16, 8, 4 or 2 bytes) that every row of an operand
+    at address ``ptr`` with row stride ``ld`` elements starts on a
+    multiple of (``copy_width`` in ``csrc/gemm.cu``)."""
+    x = ptr | (ld * itemsize) | 16
+    return x & -x
+
+
+def gemm_bf16_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """How the GEMM kernel's bf16 body loads bf16 operands x and w: "tma"
+    where both start on 16-byte boundaries and their row strides (as the
+    wrapper passes them) are multiples of 16 bytes, else "staged" (the
+    producer warp copies them with cp.async, or 2-byte loads, into the same
+    swizzled layout).  Both routes run the same products, so they give the
+    same bits; the C side applies the same rule (``gemm_bf16_plan``)."""
+    widths = [_copy_width(t.data_ptr(), _ld(t), t.element_size())
+              for t in (x, w)]
+    return "tma" if widths == [16, 16] else "staged"
+
+
 def gemm(x: torch.Tensor, w: torch.Tensor,
          acc: Optional[torch.Tensor] = None,
          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``acc + x @ w`` summed in fp32 and returned in ``out_dtype`` (fp32,
     the Pallas kernel's default, or bf16); x and w both fp32 or both bf16,
-    ``acc`` fp32.  fp32 in and out is the tiled kernel, any other pair
-    its mixed-precision body (``csrc/gemm.cu``)."""
+    ``acc`` fp32.  fp32 operands run the tiled CUDA-core kernel (a bf16
+    output is its fp32 result rounded once), bf16 ones the tensor-core body
+    (``csrc/gemm.cu``; :func:`gemm_bf16_route` says how it loads them)."""
     _check_dtype("gemm out_dtype", out_dtype)
     route = _route(x, w, acc)
     if route == "cpu":

@@ -20,9 +20,12 @@ and over hymba's and xLSTM's recurrent state caches (with those smoke
 models on the card against the CPU, and flash at hymba's G = 5), and over
 kimi-k2's and deepseek-v3's MoE and latent caches (those smoke models with
 moe_impl="a2a" on virtual entries of the card against CPU entries, flash
-at kimi's G = 8, d = 112 and MLA's d = 192 with V padded).  bf16 GEMM,
-SpDMM and SDDMM operands against the plain versions and bit for bit
-against the fp32 kernels on the widened operands; flash past d = 256 (the
+at kimi's G = 8, d = 112 and MLA's d = 192 with V padded).  bf16 GEMM
+operands (the tensor-core body) against the plain version and a float64
+bound, bit for bit across row slices, load routes, acc aliasing C and a
+CUDA-graph replay; bf16 SpDMM and SDDMM operands against the plain
+versions and bit for bit against the fp32 kernels on the widened
+operands; flash past d = 256 (the
 d-sliced bodies: causal, non-causal, windowed, grouped, ragged; two
 launches bit for bit) and the bf16 / fp32 ``out_dtype`` of flash, SpDMM
 and SDDMM against the plain versions.  The warp-specialised bf16 flash
@@ -115,13 +118,14 @@ def test_cuda_gemm_matches_plain(cuda, m, k, n):
 # every tile boundary.
 GEMM_BITS_CASES = [(4096, 128, 128, 37, 1001), (130, 70, 258, 3, 129),
                    (100, 60, 33, 1, 99), (64, 32, 16, 5, 6),
-                   (4096, 128, 8, 63, 65)]
+                   (4096, 128, 8, 63, 65), (130, 200, 100, 3, 129)]
 
 
 def _unaligned_copy(t):
-    # The same values in a view whose rows start 4 bytes past a 16-byte
-    # boundary (row stride not a multiple of 4 floats either).
-    buf = torch.empty(t.shape[0], t.shape[1] + 1, device=t.device)
+    # The same values in a view whose rows start one element past a
+    # 16-byte boundary (row stride not a multiple of 16 bytes either).
+    buf = torch.empty(t.shape[0], t.shape[1] + 1, dtype=t.dtype,
+                      device=t.device)
     view = buf[:, 1:]
     view.copy_(t)
     return view
@@ -131,7 +135,8 @@ def _unaligned_copy(t):
 def test_cuda_gemm_bits_do_not_depend_on_geometry(cuda, m, k, n, r0, r1):
     # Each output element is one fmaf chain over k with acc added last, so
     # a row slice, unaligned operands (4-byte staging), acc aliasing C and
-    # a second run all give the same bits as the aligned whole call.
+    # a second run all give the same bits as the aligned whole call; then
+    # the same with bf16 x and w.
     g = torch.Generator(device=cuda).manual_seed(m + n)
     x = torch.randn(m, k, generator=g, device=cuda)
     w = torch.randn(k, n, generator=g, device=cuda)
@@ -147,6 +152,24 @@ def test_cuda_gemm_bits_do_not_depend_on_geometry(cuda, m, k, n, r0, r1):
         x.data_ptr(), w.data_ptr(), inout.data_ptr(), inout.data_ptr(),
         m, n, k, ops._ld(x), ops._ld(w), ops._ld(inout), ops._ld(inout),
         ops._stream(x))
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(inout, full)
+    # bf16 operands (the tensor-core body): its tile is chosen from N and
+    # K only and both load routes feed the same products, so the same
+    # holds, the unaligned copy taking the staged route.
+    xb, wb = x.bfloat16(), w.bfloat16()
+    full = ops.gemm(xb, wb, acc)
+    _close(full, acc + ref.gemm_ref(xb, wb), 2e-2, 1e-2)
+    assert torch.equal(full[r0:r1], ops.gemm(xb[r0:r1], wb, acc[r0:r1]))
+    ux, uw = _unaligned_copy(xb), _unaligned_copy(wb)
+    assert ops.gemm_bf16_route(ux, uw) == "staged"
+    assert torch.equal(ops.gemm(ux, uw, _unaligned_copy(acc)), full)
+    assert torch.equal(ops.gemm(xb, wb, acc), full)
+    inout = acc.clone()
+    rc = ops.entry("gemm_mixed")(
+        xb.data_ptr(), wb.data_ptr(), inout.data_ptr(), inout.data_ptr(), 1,
+        0, m, n, k, ops._ld(xb), ops._ld(wb), ops._ld(inout),
+        ops._ld(inout), ops._stream(xb))
     torch.cuda.synchronize()
     assert rc == 0 and torch.equal(inout, full)
 
@@ -1408,10 +1431,13 @@ def test_cuda_collected_engine_frees_its_captures(cuda):
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
 def test_cuda_gemm_bf16_matches_plain_and_the_fp32_kernel(cuda, m, k, n):
-    # bf16 x / w (strided x): within the JAX sweep's bf16 tolerance of the
-    # plain version, and bit for bit the fp32 kernel on the widened
-    # operands (one fmaf chain over k in both bodies); a bf16 output is
-    # that result rounded.
+    # bf16 x / w (strided x) on the tensor-core body: within the JAX
+    # sweep's bf16 tolerance of the plain version, and within K 2^-23
+    # (|x| @ |w|) + 2^-23 |ref64| of the float64 result (bf16 products are
+    # exact in fp32; each of the K additions and the final acc addition
+    # errs by at most one fp32 ulp of its partial sum); a bf16 output is
+    # the fp32 one rounded.  fp32 operands with a bf16 output are the fp32
+    # kernel's result rounded.
     g = torch.Generator(device=cuda).manual_seed(m + 3 * n)
     x = torch.randn(m, 2 * k, generator=g, device=cuda).bfloat16()[:, k:]
     w = torch.randn(k, n, generator=g, device=cuda).bfloat16()
@@ -1420,13 +1446,41 @@ def test_cuda_gemm_bf16_matches_plain_and_the_fp32_kernel(cuda, m, k, n):
     got = ops.gemm(x, w, acc)
     assert ops.LAUNCHES["gemm"] == 1 and got.dtype == torch.float32
     _close(got, acc + ref.gemm_ref(x, w), 2e-2, 1e-2)
-    wide = ops.gemm(x.float(), w.float(), acc)
-    assert torch.equal(got, wide)
+    x64, w64 = x.double(), w.double()
+    ref64 = acc.double() + x64 @ w64
+    lim = k * 2.0 ** -23 * (x64.abs() @ w64.abs()) + 2.0 ** -23 * ref64.abs()
+    assert bool(((got.double() - ref64).abs() <= lim).all())
     out16 = ops.gemm(x, w, acc, out_dtype=torch.bfloat16)
-    assert torch.equal(out16, wide.bfloat16())
+    assert torch.equal(out16, got.bfloat16())
     x32 = x.float()
     assert torch.equal(ops.gemm(x32, w.float(), out_dtype=torch.bfloat16),
                        ops.gemm(x32, w.float()).bfloat16())
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 128, 128), (100, 60, 33),
+                                   (300, 600, 300)])
+def test_cuda_gemm_bf16_replays_bit_for_bit_from_a_cuda_graph(cuda, m, k,
+                                                              n):
+    # One bf16 ops.gemm captured in ops.CudaGraph (the TMA map is encoded
+    # on the host at capture and passed by value, and the kernel allocates
+    # nothing) replays the eager call's bits, and reads its operands anew
+    # at each replay.
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn(m, 2 * k, generator=g, device=cuda).bfloat16()[:, k:]
+    w = torch.randn(k, n, generator=g, device=cuda).bfloat16()
+    acc = torch.randn(m, n, generator=g, device=cuda)
+    want = ops.gemm(x, w, acc)
+    graph = ops.CudaGraph(cuda)
+    with ops.capturing() as counts:
+        out = graph.capture(lambda: ops.gemm(x, w, acc))
+    assert counts == {"gemm": 1}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    acc.mul_(2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.gemm(x, w, acc))
 
 
 @pytest.mark.parametrize("n1,w,ns,f", SPDMM_SHAPES)

@@ -6,7 +6,9 @@ the Pallas kernels in interpret mode on the GEMM / SpDMM / SDDMM sweeps of
 ``tests/test_kernels.py`` (fp32, rtol 1e-5 / atol 1e-4; SDDMM at the JAX
 sweep's rtol 1e-4 / atol 1e-4; the bf16 GEMM / SpDMM sweeps at its bf16
 rtol 2e-2 / atol 1e-2), and the masked, accumulating SDDMM step against
-the JAX ACK's ``"xla"`` SDDMM step.  The CUDA kernels themselves
+the JAX ACK's ``"xla"`` SDDMM step.  The GEMM kernel's host-side route
+rule for bf16 operands (TMA or staged, by alignment and row stride) is
+checked on CPU tensors.  The CUDA kernels themselves
 are held against the plain versions in ``test_torch_gpu.py``.
 """
 import numpy as np
@@ -119,6 +121,48 @@ def test_spdmm_bf16_matches_jax(n1, w, ns, f):
     np.testing.assert_allclose(got.numpy(), want, rtol=BF16_RTOL,
                                atol=BF16_ATOL)
     _close(got.numpy(), np.asarray(jref.spdmm_ref(jc, jv, jh)))
+
+
+def _bf16_view(rows, width, col0=0, cols=None):
+    """A bf16 [rows, cols] view starting at column col0 of a [rows, width]
+    buffer (CPU buffers start on 64-byte boundaries)."""
+    buf = torch.zeros(rows, width, dtype=torch.bfloat16)
+    return buf[:, col0:col0 + (cols or width - col0)]
+
+
+# (x, w, route, x's copy width): the bf16 body loads x and w by TMA where
+# both start on 16-byte boundaries with row strides of multiples of 16
+# bytes, else stages them (copies as wide as the base and stride allow).
+GEMM_ROUTE_CASES = [
+    ("aligned", lambda: (_bf16_view(64, 128), _bf16_view(128, 64)),
+     "tma", 16),
+    ("x 16 bytes in", lambda: (_bf16_view(64, 136, 8, 128),
+                               _bf16_view(128, 64)), "tma", 16),
+    ("x 8 bytes in", lambda: (_bf16_view(64, 136, 4, 128),
+                              _bf16_view(128, 64)), "staged", 8),
+    ("x 2 bytes in", lambda: (_bf16_view(64, 129, 1),
+                              _bf16_view(128, 64)), "staged", 2),
+    ("x rows of 120 bytes", lambda: (_bf16_view(64, 60),
+                                     _bf16_view(60, 64)), "staged", 8),
+    ("w rows of 2 bytes", lambda: (_bf16_view(1, 128), _bf16_view(128, 1)),
+     "staged", 16),
+    ("w rows of 66 bytes", lambda: (_bf16_view(100, 120, 60),
+                                    _bf16_view(60, 33)), "staged", 8),
+    ("a single x row, its stride its width", lambda: (
+        _bf16_view(1, 64), _bf16_view(64, 8)), "tma", 16),
+]
+
+
+@pytest.mark.parametrize("x_w,route,width",
+                         [pytest.param(f, r, wd, id=n)
+                          for n, f, r, wd in GEMM_ROUTE_CASES])
+def test_gemm_bf16_route_rule(x_w, route, width):
+    x, w = x_w()
+    assert ops.gemm_bf16_route(x, w) == route
+    assert ops._copy_width(x.data_ptr(), ops._ld(x), 2) == width
+    # The route depends on where the operands lie, not on their values.
+    assert ops.gemm_bf16_route(x.contiguous(), w.contiguous()) == (
+        "tma" if x.shape[1] % 8 == 0 and w.shape[1] % 8 == 0 else "staged")
 
 
 def test_gemm_refuses_an_output_dtype_the_kernels_lack():
@@ -298,10 +342,12 @@ def _root_script(name):
 
 
 def _planted_edits():
-    variants = _root_script("kernel_variants").VARIANTS
+    kv = _root_script("kernel_variants")
     faults = _root_script("flash_faults").FAULTS
-    out = [pytest.param(k, edits, id=f"{k}:{n}") for k, vs in variants.items()
-           for n, (_, edits) in vs.items()]
+    out = [pytest.param(kv.SOURCE.get(k, k), edits, id=f"{k}:{n}")
+           for k, vs in kv.VARIANTS.items() for n, (_, edits) in vs.items()]
+    out += [pytest.param("gemm", edits, id=f"gemm_bf16:fault_{n}")
+            for n, (_, edits) in kv.GEMM_FAULTS.items()]
     out += [pytest.param("flash_attention", [(old, new)],
                          id=f"flash_attention:{n}")
             for n, (_, old, new) in faults.items()]
