@@ -8,10 +8,10 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Card and build: the card's name and power limit (``nvidia-smi``), then
    every hand kernel built from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once), with the build time and ``ptxas``
-   report; then the warp-specialised flash body's and the bf16 GEMM
-   body's registers a thread and spill bytes per instantiation from that
-   report (the script fails if one spills or ptxas ignored the flash
-   body's ``setmaxnreg``).
+   report; then the warp-specialised and single-pass flash bodies' and
+   the bf16 GEMM body's registers a thread and spill bytes per
+   instantiation from that report (the script fails if one spills or
+   ptxas ignored a flash body's ``setmaxnreg``).
 2. Kernels: each kernel against its plain torch version on the card, at
    the executor's tile shapes (GEMM 4096x128xN, N in {128, 64, 8},
    without and with the accumulator, against torch.matmul / torch.addmm;
@@ -406,17 +406,30 @@ Phases (any failure exits non-zero; nothing is caught):
    compiler_tour, minibatch_serve, trace_inference, and
    lm_pretrain_smoke on qwen3-0.6b, the flash route) in subprocesses
    started together, each exit code checked and each one's kernel
-   launches read back; meanwhile flash past d = 256 (the d-sliced bodies)
-   at d in {257, 264, 320, 512, 1024}, fp32 and bf16, causal, non-causal
-   at ragged Tq / Tk, windowed and grouped (G = 4) against the plain
-   version (fp32 rtol 1e-5 / atol 1e-4, bf16 ``check_rows``), two
-   launches bit for bit at d = 512, and ``out_dtype`` fp32 -> bf16 and
-   bf16 -> fp32 on flash, SpDMM and SDDMM at rtol 2e-2 / atol 1e-2 (the
-   bf16 store bit for bit the fp32 result rounded, bf16 SDDMM operands
-   bit for bit the fp32 kernel on the widened operands); then flash at
-   d = 512 (BH = 32, T = 2048, bf16, causal) timed beside its bound, the
-   plain version and ``F.scaled_dot_product_attention`` with the backend
-   it dispatched to.  The FL-slice entries of phases 3 and 5 also time
+   launches read back; meanwhile flash past d = 256 (the bf16
+   single-pass body up to d = 576 with dv <= 512, the d-sliced bodies
+   past it and in fp32) at d in {257, 264, 320, 512, 1024}, fp32 and
+   bf16, and at (d, dv) in {(330, 100), (385, 256), (513, 512), (576,
+   512), (576, 256)} in bf16, causal, non-causal at ragged Tq / Tk,
+   windowed and grouped (G = 4) against the plain version (fp32 rtol 1e-5
+   / atol 1e-4, bf16 ``check_rows``), the single-pass body's staged route
+   (bases 2 bytes past 16) bit for bit its TMA route, two launches bit
+   for bit at d = 512, and ``out_dtype`` fp32 -> bf16 and bf16 -> fp32 on
+   flash (d 128, 512, 1024), SpDMM and SDDMM at rtol 2e-2 / atol 1e-2
+   (the bf16 store bit for bit the fp32 result rounded, bf16 SDDMM
+   operands bit for bit the fp32 kernel on the widened operands); then
+   four timed flash rows at T = 2048, causal, each its body named (the C
+   entry ``flash_attention_body`` held to ``ops.flash_body``), driven
+   from zero launches, two launches bit for bit, held to the plain
+   version and timed beside its bound, the plain version and
+   ``F.scaled_dot_product_attention`` with the backend it dispatched to
+   (with grouped KV heads also on the heads repeated G times, since
+   ``enable_gqa`` can leave SDPA only its math backend):
+   the single-pass body at d = 512 (BH = 32, bf16) and at the
+   absorbed-MLA shape (BH = 128 over one KV head, d = 576, dv = 512,
+   bf16; on no path), the fp32 body at qwen3-0.6b's prefill shape (BH =
+   64 over 32, d = 128) and the fp32 d-sliced body at d = 512 (BH =
+   32).  The FL-slice entries of phases 3 and 5 also time
    SpDMM's bf16 store and SDDMM's bf16 store and bf16 operands, each
    beside the one PyTorch call of the same function where PyTorch takes
    it (``torch.addmm`` with a bf16 ``out``, ``torch.sparse.sampled_addmm``
@@ -445,10 +458,10 @@ CUDA event pair around them is divided by 20 (median of 5 trials).
 
 The flash kernel also has an entry of its own at each of the two shapes
 phases 19 and 20 give it, with the launches at that shape, and one for
-its d-sliced body at d = 512; SpDMM's bf16 store and SDDMM's bf16 store
+each timed row of phase 23; SpDMM's bf16 store and SDDMM's bf16 store
 and bf16 operands on the FL slice have one each, and so has GEMM's bf16
 body at 4096x128x128 (bf16 ``torch.matmul`` its library call).  Those
-four count the one call each makes right before its timing.
+eight count the one call each makes right before its timing.
 
 The last lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  TF32 is off throughout
@@ -596,18 +609,21 @@ def check_rows(torch, name, got, want, whole=FLASH_BF16_WHOLE,
 WS_KERNEL = "flash_bf16_ws_kernel"       # the warp-specialised flash body
 WS_INSTANTIATIONS = 4                   # (DQK, DV): (192, 128 / 192),
                                         # (256, 128 / 256)
+SP_KERNEL = "flash_bf16_sp_kernel"      # the single-pass body past d = 256
+SP_INSTANTIATIONS = 3                   # (512, 256 / 512), (576, 512)
 
 
-def ws_nvcc_report(report: str) -> dict:
-    """The warp-specialised flash body's lines of an ``nvcc -Xptxas -v``
-    report: per instantiation "DQK=.. DV=.." its registers a thread at
-    entry (before ``setmaxnreg``) and spill bytes; and every ptxas warning
-    that names ``setmaxnreg`` or ``wgmma`` (C7508: setmaxnreg ignored;
-    wgmma serialized)."""
+def ws_nvcc_report(report: str, kernel: str = WS_KERNEL) -> dict:
+    """A setmaxnreg flash body's lines (``kernel``: the warp-specialised or
+    the single-pass one) of an ``nvcc -Xptxas -v`` report: per
+    instantiation "DQK=.. DV=.." its registers a thread at entry (before
+    ``setmaxnreg``) and spill bytes; and every ptxas warning that names
+    ``setmaxnreg`` or ``wgmma`` (C7508: setmaxnreg ignored; wgmma
+    serialized)."""
     rows, cur = {}, None
     for ln in report.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            m = re.search(WS_KERNEL + r"ILi(\d+)ELi(\d+)E", ln)
+            m = re.search(kernel + r"ILi(\d+)ELi(\d+)E", ln)
             cur = f"DQK={m.group(1)} DV={m.group(2)}" if m else None
             if cur:
                 rows.setdefault(cur, {})
@@ -626,30 +642,32 @@ def ws_nvcc_report(report: str) -> dict:
     return {"instantiations": rows, "warnings": warns}
 
 
-def ws_nvcc_check(report: str) -> dict:
-    """Print the warp-specialised body's registers and spills from the
-    flash build's report; fail if an instantiation spills, is missing, or
-    ptxas ignored its ``setmaxnreg``.  A cached build (no report) is
-    said so and not checked."""
+def ws_nvcc_check(report: str, kernel: str = WS_KERNEL,
+                  count: int = WS_INSTANTIATIONS) -> dict:
+    """Print a setmaxnreg flash body's registers and spills (``kernel``,
+    ``count`` instantiations) from the flash build's report; fail if an
+    instantiation spills, is missing, or ptxas ignored its
+    ``setmaxnreg``.  A cached build (no report) is said so and not
+    checked."""
     if report.strip() == "cached":
-        log(f"nvcc {WS_KERNEL}: cached build, no report in this run")
+        log(f"nvcc {kernel}: cached build, no report in this run")
         return {"cached": True}
-    got = ws_nvcc_report(report)
+    got = ws_nvcc_report(report, kernel)
     for key, r in sorted(got["instantiations"].items()):
-        log(f"nvcc {WS_KERNEL} {key}: {r.get('registers')} registers a "
+        log(f"nvcc {kernel} {key}: {r.get('registers')} registers a "
             f"thread at entry (setmaxnreg: producer 40, consumers 232), "
             f"{r.get('spill_stores')} bytes spill stores, "
             f"{r.get('spill_loads')} bytes spill loads")
     for w in got["warnings"]:
-        log(f"nvcc {WS_KERNEL} warning: {w}")
-    if len(got["instantiations"]) != WS_INSTANTIATIONS:
-        fail(f"{WS_KERNEL}: {len(got['instantiations'])} instantiations in "
-             f"the nvcc report, expected {WS_INSTANTIATIONS}")
+        log(f"nvcc {kernel} warning: {w}")
+    if len(got["instantiations"]) != count:
+        fail(f"{kernel}: {len(got['instantiations'])} instantiations in "
+             f"the nvcc report, expected {count}")
     if any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
            for r in got["instantiations"].values()):
-        fail(f"{WS_KERNEL} spills: {got['instantiations']}")
+        fail(f"{kernel} spills: {got['instantiations']}")
     if any("setmaxnreg" in w or "C7508" in w for w in got["warnings"]):
-        fail(f"{WS_KERNEL}: ptxas ignored setmaxnreg: {got['warnings']}")
+        fail(f"{kernel}: ptxas ignored setmaxnreg: {got['warnings']}")
     return got
 
 
@@ -6066,7 +6084,18 @@ CONTRACT_MODES = (("causal", 300, 300, 4, 1, True, 0),
                   ("non-causal", 200, 333, 4, 1, False, 0),
                   ("windowed", 300, 300, 4, 2, True, 100),
                   ("grouped", 300, 300, 8, 4, True, 0))
-WIDE_BH, WIDE_T, WIDE_D = 32, 2048, 512   # the timed d-sliced row
+WIDE_BH, WIDE_T, WIDE_D = 32, 2048, 512   # the timed single-pass row
+# The absorbed-MLA row (DeepSeek-V3's MLA with the latent absorbed, as
+# FlashMLA computes it: 128 query heads over one KV head, d = 576, V 512
+# wide); on no path of the repo.
+MLA_ABS_BH, MLA_ABS_D, MLA_ABS_DV = 128, 576, 512
+# (d, dv) of the single-pass body at its instantiations' edges beyond
+# CONTRACT_DS (dv = d there), in every mode; bf16.
+CONTRACT_SP = ((330, 100), (385, 256), (513, 512), (576, 512), (576, 256))
+# fp32 rows timed beside fp32 SDPA: (label, query heads, KV heads, d), T =
+# WIDE_T, causal.
+FP32_ROWS = (("fp32 body, qwen3-0.6b prefill", 64, 32, 128),
+             ("fp32 d-sliced body", WIDE_BH, WIDE_BH, WIDE_D))
 OUT_DTYPE_TOL = (2e-2, 1e-2)    # JAX's bf16 sweep tolerance (rtol, atol)
 # (script, arguments): the user entry points, at their JAX twins' sizes.
 EXAMPLES = (("torch_quickstart.py",), ("torch_serve_gnn.py",),
@@ -6163,23 +6192,42 @@ def sdpa_backend(torch, fn):
 
 
 def contract_flash_cases(torch, ops, ref, qkv):
-    """Flash past d = 256 against the plain version in every mode; returns
-    the number of cases."""
+    """Flash past d = 256 against the plain version in every mode (the
+    single-pass body and both d-sliced bodies), V also narrower than d for
+    the single-pass body, and its staged route (bases off 16 bytes) bit for
+    bit its TMA route; returns the number of cases."""
     n = 0
-    for d in CONTRACT_DS:
-        for dt in (torch.float32, torch.bfloat16):
-            for label, tq, tk, h, g, causal, window in CONTRACT_MODES:
-                q, k, v = qkv(h, tq, tk, d, dt, g)
-                name = (f"flash d={d} {label} {tq}x{tk} h={h} G={g} "
-                        f"window={window} {str(dt)[6:]}")
-                got = ops.flash_attention(q, k, v, causal, window)
-                want = ref.flash_attention_plain(q, k, v, causal, window)
-                if dt == torch.float32:
-                    check_close(torch, name, got, want, KERNEL_RTOL,
-                                KERNEL_ATOL)
-                else:
-                    check_rows(torch, name, got, want)
-                n += 1
+    cases = [(d, d, dt) for d in CONTRACT_DS
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(d, dv, torch.bfloat16) for d, dv in CONTRACT_SP]
+    for d, dv, dt in cases:
+        for label, tq, tk, h, g, causal, window in CONTRACT_MODES:
+            q, k, v = qkv(h, tq, tk, d, dt, g)
+            v = v[..., :dv].contiguous()
+            name = (f"flash d={d} dv={dv} {label} {tq}x{tk} h={h} G={g} "
+                    f"window={window} {str(dt)[6:]} "
+                    f"({ops.flash_body(dt, d, dv)})")
+            got = ops.flash_attention(q, k, v, causal, window)
+            want = ref.flash_attention_plain(q, k, v, causal, window)
+            if dt == torch.float32:
+                check_close(torch, name, got, want, KERNEL_RTOL,
+                            KERNEL_ATOL)
+            else:
+                check_rows(torch, name, got, want)
+            n += 1
+    for d, dv in ((WIDE_D, WIDE_D), (MLA_ABS_D, MLA_ABS_DV)):
+        q, k, v = qkv(4, 300, 300, d, torch.bfloat16, 2)
+        v = v[..., :dv].contiguous()
+        off = []
+        for t in (q, k, v):    # the same values from 2 bytes past 16
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            off.append(buf[1:].view(t.shape))
+            off[-1].copy_(t)
+        if not torch.equal(ops.flash_attention(*off, True),
+                           ops.flash_attention(q, k, v, True)):
+            fail(f"flash d={d} dv={dv}: the staged route's bits differ "
+                 "from the TMA route's")
+        n += 1
     return n
 
 
@@ -6187,7 +6235,7 @@ def out_dtype_cases(torch, ops, ref, qkv, gen):
     """fp32 -> bf16 and bf16 -> fp32 on flash (both bodies), SpDMM and
     SDDMM against the plain versions; returns the number of cases."""
     n = 0
-    for d in (128, WIDE_D):
+    for d in (128, WIDE_D, 1024):
         for dt, ot in ((torch.float32, torch.bfloat16),
                        (torch.bfloat16, torch.float32)):
             q, k, v = qkv(4, 300, 300, d, dt, 2)
@@ -6239,7 +6287,7 @@ def out_dtype_cases(torch, ops, ref, qkv, gen):
 
 
 def contracts_phase(torch, ops, ref):
-    """Phase 23.  Returns (the d-sliced flash row as a kernels-line entry,
+    """Phase 23.  Returns (the timed flash rows as kernels-line entries,
     the examples' launches summed, the phase's readings)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(23)
@@ -6271,22 +6319,62 @@ def contracts_phase(torch, ops, ref):
             ex_launches.get(k, 0) for k in ("gemm", "spdmm")) <= 0:
         fail(f"the examples launched too few kernels: {ex_launches}")
 
-    # Two identical launches, then the timed row (BH = 32, T = 2048, bf16,
-    # causal), each counted from zero around the one call that drives it.
+    # Two identical launches, then the timed rows, each counted from zero
+    # around the one call that drives it.
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = qkv(8, 700, 700, WIDE_D, dt, 2)
         if not torch.equal(ops.flash_attention(q, k, v, True),
                            ops.flash_attention(q, k, v, True)):
             fail(f"flash d={WIDE_D} {dt}: two launches differ")
-    q, k, v = qkv(WIDE_BH, WIDE_T, WIDE_T, WIDE_D, torch.bfloat16)
+    del q, k, v
+    bf16, fp32 = torch.bfloat16, torch.float32
+    entries, rows = [], {}
+    for label, bh, kvh, d, dv, dt in (
+            (f"single-pass body, d={WIDE_D}", WIDE_BH, WIDE_BH, WIDE_D,
+             WIDE_D, bf16),
+            ("single-pass body, absorbed MLA", MLA_ABS_BH, 1, MLA_ABS_D,
+             MLA_ABS_DV, bf16),
+            *((lab, bh_, kvh_, d_, d_, fp32) for lab, bh_, kvh_, d_
+              in FP32_ROWS)):
+        entry, rows[label] = timed_flash_row(torch, ops, ref, gen, label, bh,
+                                             kvh, d, dv, dt)
+        entries.append(entry)
+    seconds = time.perf_counter() - t0
+    return entries, ex_launches, {
+        "flash_cases": n_flash, "out_dtype_cases": n_out,
+        "examples": examples, "timed_rows": rows, "seconds": seconds}
+
+
+def timed_flash_row(torch, ops, ref, gen, label, bh, kvh, d, dv, dt):
+    """One timed flash row at T = WIDE_T, causal, with ``bh`` query heads
+    over ``kvh`` KV heads: the body ``ops.flash_body`` names, which the C
+    entry ``flash_attention_body`` must name too; the one call driven from
+    zero launches, a second launch bit for bit, held to the plain version
+    (bf16 ``check_rows``, fp32 rtol 1e-5 / atol 1e-4) and timed beside it,
+    ``F.scaled_dot_product_attention`` (its backend named by the
+    restricted call that gives its bits) and the bound.  Returns (the
+    kernels-line entry, the readings)."""
+    body = ops.flash_body(dt, d, dv)
+    code = ops.entry("flash_body")(int(dt == torch.bfloat16), d, dv)
+    if ops.FLASH_BODIES.get(code) != body:
+        fail(f"flash {label}: the C entry runs body {code}, ops.flash_body "
+             f"says {body}")
+    t = WIDE_T
+    q = torch.randn(bh, t, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(kvh, t, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(kvh, t, dv, generator=gen, device="cuda").to(dt)
     ops.reset_launches()
     got = ops.flash_attention(q, k, v, True)
     launches = ops.launch_totals()["flash_attention"]
+    name = f"flash {label} at the timed shape"
     if not torch.equal(got, ops.flash_attention(q, k, v, True)):
-        fail(f"flash d={WIDE_D} at the timed shape: two launches differ")
+        fail(f"{name}: two launches differ")
     want = ref.flash_attention_plain(q, k, v, True)
-    r_whole, r_row = check_rows(torch, f"flash d={WIDE_D} timed shape", got,
-                                want)
+    if dt == torch.bfloat16:
+        r_whole, r_row = check_rows(torch, name, got, want)
+    else:
+        check_close(torch, name, got, want, KERNEL_RTOL, KERNEL_ATOL)
+        r_whole, r_row = rows_rel(got, want)
     err = float((got.float() - want.float()).abs().max())
     del got, want
     t_k = median_ms(torch, lambda: ops.flash_attention(q, k, v, True),
@@ -6296,34 +6384,43 @@ def contracts_phase(torch, ops, ref):
     lib, how = sdpa_yardstick(torch, q, k, v)
     t_l = median_ms(torch, lib, reps=3, launches=5)
     backend = sdpa_backend(torch, lib)
-    b_ms, b_by = flash_bound(WIDE_BH, WIDE_T, WIDE_T, WIDE_D, True, 2,
-                             PEAK_BF16_FLOP_S)
-    flops = 4.0 * WIDE_D * WIDE_BH * WIDE_T * (WIDE_T + 1) / 2
-    log(f"kernel flash_attention d-sliced body BH={WIDE_BH} T={WIDE_T} "
-        f"d={WIDE_D} causal bf16: kernel {t_k:.4f} ms "
-        f"({flops / t_k / 1e9:.1f} TFLOP/s of useful work; the body "
-        f"recomputes Q.K^T in each of {-(-WIDE_D // 128)} d-slices), plain "
-        f"{t_p:.4f} ms, F.scaled_dot_product_attention ({how}; backend "
-        f"{backend}) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), relative "
-        f"L2 {r_whole:.3e} whole, {r_row:.3e} worst row, max|err| "
-        f"{err:.2e}; {launches} launch driven")
-    entry = {"name": f"flash_attention (d-sliced body, d={WIDE_D}: "
-                     f"BH={WIDE_BH} T={WIDE_T} bf16 causal)",
+    rep = ""
+    if kvh < bh:
+        # enable_gqa may leave SDPA only its math backend (fp32, or G =
+        # 128): the same call on KV heads repeated G times beside it.
+        kr, vr = (x.repeat_interleave(bh // kvh, dim=0) for x in (k, v))
+        lib_r, _ = sdpa_yardstick(torch, q, kr, vr)
+        t_r = median_ms(torch, lib_r, reps=3, launches=5)
+        rep = (f"; on KV heads repeated {bh // kvh} times {t_r:.4f} ms "
+               f"(backend {sdpa_backend(torch, lib_r)})")
+        del kr, vr, lib_r
+    peak = PEAK_BF16_FLOP_S if dt == torch.bfloat16 else PEAK_FP32_FLOP_S
+    b_ms, b_by = flash_bound(bh, t, t, d, True, q.element_size(), peak,
+                             kv_heads=kvh, dv=dv)
+    flops = 2.0 * (d + dv) * bh * t * (t + 1) / 2
+    shape = (f"BH={bh} over {kvh} KV heads, T={t}, d={d}, dv={dv}, "
+             f"{str(dt)[6:]}, causal")
+    log(f"kernel flash_attention {label} ({body} body; {shape}): kernel "
+        f"{t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s of useful work, "
+        f"{b_ms / t_k:.3f} of the bound), plain {t_p:.4f} ms, "
+        f"F.scaled_dot_product_attention ({how}; backend {backend}) "
+        f"{t_l:.4f} ms{rep}, bound {b_ms:.4f} ms ({b_by}), relative L2 "
+        f"{r_whole:.3e} whole, {r_row:.3e} worst row, max|err| {err:.2e}; "
+        f"{launches} launch driven")
+    del q, k, v
+    torch.cuda.empty_cache()
+    entry = {"name": f"flash_attention ({label}: {shape})",
              "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:26",
              "launches": launches, "max_abs_err": err, "ms": t_k,
              "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": t_l}
-    del q, k, v
-    torch.cuda.empty_cache()
-    seconds = time.perf_counter() - t0
-    return entry, ex_launches, {
-        "flash_cases": n_flash, "out_dtype_cases": n_out,
-        "examples": examples, "sdpa_backend": backend,
-        "wide_row": {"kernel_ms": t_k, "plain_ms": t_p, "sdpa_ms": t_l,
-                     "bound_ms": b_ms, "whole": r_whole, "worst_row": r_row},
-        "seconds": seconds}
+    return entry, {"body": body, "kernel_ms": t_k, "plain_ms": t_p,
+                   "sdpa_ms": t_l, "sdpa_backend": backend, "sdpa_call": how,
+                   "sdpa_repeated_heads": rep[2:],
+                   "bound_ms": b_ms, "tflop_s": flops / t_k / 1e9,
+                   "whole": r_whole, "worst_row": r_row}
 
 
 def main() -> int:
@@ -6359,6 +6456,8 @@ def main() -> int:
         log(f"nvcc {name}.cu:\n{rep.strip()}")
     log(f"build: {len(build.SOURCES)} kernels in {t_build:.2f} s")
     ws_build = ws_nvcc_check(build.build_log.get("flash_attention", ""))
+    sp_build = ws_nvcc_check(build.build_log.get("flash_attention", ""),
+                             SP_KERNEL, SP_INSTANTIATIONS)
     gemm_build = gemm_bf16_nvcc_check(build.build_log.get("gemm", ""))
 
     gemm_entry = kernel_phase(torch, ops, ref)
@@ -6450,7 +6549,7 @@ def main() -> int:
             cells_proc.kill()
             cells_proc.wait()
     t7 = time.perf_counter()
-    wide_entry, ex_launches, contracts = contracts_phase(torch, ops, ref)
+    wide_entries, ex_launches, contracts = contracts_phase(torch, ops, ref)
     log(f"contracts phase (examples, flash past d = 256, out_dtype): "
         f"{time.perf_counter() - t7:.1f} s")
     flash_nc["vision cross"]["launches"] = vision_nc + cross_nc["vision"]
@@ -6481,7 +6580,7 @@ def main() -> int:
     kernels.append(flash_shape_entry(
         flash_mla, "flash_attention (deepseek-v3 MLA: d=192, dv=128)",
         mla_launches))
-    kernels.append(wide_entry)
+    kernels.extend(wide_entries)
     path = bf16_kernels["gemm_4096x128x128"]
     kernels.append({**{k: gemm_entry[k] for k in ("route", "source",
                                                   "replaces")},
@@ -6559,6 +6658,7 @@ def main() -> int:
                        "contracts": contracts,
                        "bf16_kernels": bf16_kernels,
                        "flash_ws_build": ws_build,
+                       "flash_sp_build": sp_build,
                        "gemm_bf16_build": gemm_build,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,

@@ -17,13 +17,14 @@ reads:
   output and over each query row;
 * the same two readings at gemma3-12b's prefill shape (BH=64 over 32 KV
   heads, T=2048, d=240, bf16, causal), which the warp-specialised body
-  past d = 128 runs;
+  past d = 128 runs, and at d = 512 (BH=8 over 4 KV heads, T=2048, bf16,
+  causal), which the single-pass body past d = 256 runs;
 * the last-position logits of a qwen3-0.6b prefill (bf16, B=4, T=2048,
   weights from seed 0, as in ``chip_smoke.py``) against the same model
   with plain attention, beside ``chip_smoke.py``'s 2e-2 limit.
 
 It exits non-zero if the real kernel fails a check or a fault passes
-``check_rows`` at both shapes.  The last line of the output is the readings as JSON.
+``check_rows`` at all three shapes.  The last line of the output is the readings as JSON.
 Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
@@ -34,6 +35,30 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# The single-pass body's turn for tile kt > kt0, from its wait for the
+# last tile's V to that V slot's release (with `late`; `early` releases it
+# before its P.V is issued).
+_SP_TILE = (
+    "      mbar_wait(full_v + 8 * prev, ((step - 1) / SL) & 1);\n"
+    "{early}"
+    "      wgmma_fence();\n"
+    "      sp_qk<DQK, DV, NKQ>(s, q_s, k_s + slot * L::K_SLOT, kq0);\n"
+    "      wgmma_commit();\n"
+    "      sp_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);\n"
+    "      wgmma_commit();\n"
+    "      wgmma_wait_one();                  // Q.K^T of tile kt done\n"
+    "      fence_regs(s);\n"
+    "      __syncwarp();\n"
+    "      if (lane == 0) mbar_arrive(empty_k + 8 * slot);\n"
+    "      sp_exchange<BK>(s, x_mine, x_other, wg, false, kt + 1 == n_kt);\n"
+    "      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt * BK, q0,\n"
+    "                    row_lo, row_hi, t4, tk, causal, window, sl2);\n"
+    "      wgmma_wait_all();                  // P.V of tile kt - 1 done\n"
+    "      fence_regs(o);\n"
+    "{late}")
+_SP_RELEASE_V = ("      __syncwarp();\n"
+                 "      if (lane == 0) mbar_arrive(empty_v + 8 * prev);\n")
 
 # name -> (what the fault does, text of flash_attention.cu, its replacement)
 FAULTS = {
@@ -60,10 +85,44 @@ FAULTS = {
         "V slot of this turn's tile, not the last tile's",
         "    ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);",
         "    ws_pv<DQK, DV>(o, pa, v_s + slot * L::V_SLOT);"),
+    "sp_exchange_early": (
+        "single-pass body (d > 256): a warpgroup reads the other's partial "
+        "S before the named barrier that says it is written",
+        "  turn_wait(SP_BAR_WRITTEN);\n"
+        "#pragma unroll\n"
+        "  for (int i = 0; i < BK / 8; ++i) {\n"
+        "    const float4 x = other[128 * i];\n"
+        "    s[4 * i] += x.x;\n"
+        "    s[4 * i + 1] += x.y;\n"
+        "    s[4 * i + 2] += x.z;\n"
+        "    s[4 * i + 3] += x.w;\n"
+        "  }\n",
+        "#pragma unroll\n"
+        "  for (int i = 0; i < BK / 8; ++i) {\n"
+        "    const float4 x = other[128 * i];\n"
+        "    s[4 * i] += x.x;\n"
+        "    s[4 * i + 1] += x.y;\n"
+        "    s[4 * i + 2] += x.z;\n"
+        "    s[4 * i + 3] += x.w;\n"
+        "  }\n"
+        "  turn_wait(SP_BAR_WRITTEN);\n"),
+    "sp_v_release_early": (
+        "single-pass body (d > 256): a V slot released once it is full, "
+        "before the P.V that reads it is issued",
+        _SP_TILE.format(early="", late=_SP_RELEASE_V),
+        _SP_TILE.format(early=_SP_RELEASE_V, late="")),
+    "sp_stale_max": (
+        "single-pass body (d > 256): warpgroup 1's running max is not "
+        "updated past the first tile",
+        "      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt * BK, "
+        "q0,\n",
+        "      float mf_lo = m_lo, mf_hi = m_hi;\n"
+        "      ws_scores<BK>(s, wg ? mf_lo : m_lo, wg ? mf_hi : m_hi, l_lo, "
+        "l_hi, a_lo, a_hi, kt * BK, q0,\n"),
 }
-# The wide reading: gemma3-12b's prefill heads at B=4 (query heads, KV
-# heads, d).
-WIDE_SHAPE = (64, 32, 240)
+# The wide readings: gemma3-12b's prefill heads at B=4, and d = 512 (query
+# heads, KV heads, d).
+WIDE_SHAPES = ((64, 32, 240), (8, 4, 512))
 
 
 def main() -> int:
@@ -100,11 +159,13 @@ def main() -> int:
     q, k, v = (torch.randn(bh, t, d, generator=gen, device="cuda"
                            ).bfloat16() for _ in range(3))
     want = ref.flash_attention_plain(q, k, v, True).float()
-    wbh, wkv, wd = WIDE_SHAPE
-    wq = torch.randn(wbh, t, wd, generator=gen, device="cuda").bfloat16()
-    wk, wv = (torch.randn(wkv, t, wd, generator=gen, device="cuda"
-                          ).bfloat16() for _ in range(2))
-    wwant = ref.flash_attention_plain(wq, wk, wv, True).float()
+    wide = []
+    for wbh, wkv, wd in WIDE_SHAPES:
+        wq = torch.randn(wbh, t, wd, generator=gen, device="cuda").bfloat16()
+        wk, wv = (torch.randn(wkv, t, wd, generator=gen, device="cuda"
+                              ).bfloat16() for _ in range(2))
+        wide.append((wd, wq, wk, wv,
+                     ref.flash_attention_plain(wq, wk, wv, True).float()))
 
     cfg = get_config(cs.LM_ARCH)
     model = build_model(cfg, seed=0)
@@ -128,12 +189,18 @@ def main() -> int:
             r_whole, r_row = cs.rows_rel(got, want)
             rows_ok = (r_whole <= cs.FLASH_BF16_WHOLE
                        and r_row <= cs.FLASH_BF16_ROW)
-            wgot = ops.flash_attention(wq, wk, wv, True).float()
-            w_whole, w_row = cs.rows_rel(wgot, wwant)
-            w_elem = bool(((wgot - wwant).abs()
-                           <= cs.FLASH_BF16_TOL * (1 + wwant.abs())).all())
-            w_ok = (w_whole <= cs.FLASH_BF16_WHOLE
-                    and w_row <= cs.FLASH_BF16_ROW)
+            at_d = {}
+            for wd, wq, wk, wv, wwant in wide:
+                wgot = ops.flash_attention(wq, wk, wv, True).float()
+                w_whole, w_row = cs.rows_rel(wgot, wwant)
+                at_d[wd] = {
+                    "elementwise_3e-2_passes": bool(
+                        ((wgot - wwant).abs() <= cs.FLASH_BF16_TOL
+                         * (1 + wwant.abs())).all()),
+                    "rel_l2_whole": w_whole, "rel_l2_worst_row": w_row,
+                    "check_rows_passes": (w_whole <= cs.FLASH_BF16_WHOLE
+                                          and w_row <= cs.FLASH_BF16_ROW)}
+                del wgot
             logits = prefill(model, batch).float()
             rel = float((logits - plain).norm() / plain.norm())
         finally:
@@ -143,25 +210,26 @@ def main() -> int:
                           "rel_l2_whole": r_whole, "rel_l2_worst_row": r_row,
                           "check_rows_passes": rows_ok,
                           "prefill_rel_l2": rel,
-                          "d240": {"elementwise_3e-2_passes": w_elem,
-                                   "rel_l2_whole": w_whole,
-                                   "rel_l2_worst_row": w_row,
-                                   "check_rows_passes": w_ok}}
+                          **{f"d{wd}": r for wd, r in at_d.items()}}
         what = "the kernel" if name == "kernel" else FAULTS[name][0]
         cs.log(f"{name} ({what}): max|err| {float(err.max()):.3e}, "
                f"elementwise 3e-2 {'passes' if elem_ok else 'fails'}; "
                f"relative L2 {r_whole:.3e} whole, {r_row:.3e} worst row: "
                f"check_rows {'passes' if rows_ok else 'fails'}; prefill "
-               f"logits relative L2 {rel:.3e} (limit {cs.LM_REL_L2}); at "
-               f"d = 240: elementwise 3e-2 "
-               f"{'passes' if w_elem else 'fails'}, relative L2 "
-               f"{w_whole:.3e} whole, {w_row:.3e} worst row: check_rows "
-               f"{'passes' if w_ok else 'fails'}")
+               f"logits relative L2 {rel:.3e} (limit {cs.LM_REL_L2})" + "".join(
+                   f"; at d = {wd}: elementwise 3e-2 "
+                   f"{'passes' if r['elementwise_3e-2_passes'] else 'fails'}"
+                   f", relative L2 {r['rel_l2_whole']:.3e} whole, "
+                   f"{r['rel_l2_worst_row']:.3e} worst row: check_rows "
+                   f"{'passes' if r['check_rows_passes'] else 'fails'}"
+                   for wd, r in at_d.items()))
+        wide_ok = all(r["check_rows_passes"] for r in at_d.values())
         if name == "kernel":
-            if not (elem_ok and rows_ok and w_elem and w_ok
-                    and rel <= cs.LM_REL_L2):
+            if not (elem_ok and rows_ok and wide_ok and rel <= cs.LM_REL_L2
+                    and all(r["elementwise_3e-2_passes"]
+                            for r in at_d.values())):
                 bad.append(name)
-        elif rows_ok and w_ok:
+        elif rows_ok and wide_ok:
             bad.append(name)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

@@ -51,6 +51,18 @@ of ``GEMM_FAULTS`` (copies of ``gemm.cu`` with one planted fault, built
 beside the variants) must fail ``chip_smoke.gemm_bf16_check``, which the
 checkout's body passes.
 
+The single-pass flash body past d = 256 (``--only flash_wide``; variants
+that form the whole S in each consumer warpgroup instead of exchanging
+halves, that take 64-key tiles in one slot, or 32-key tiles in one slot,
+each a text edit of ``flash_attention.cu``, and with ``--parent`` the
+parent tree's flash source, whose d-sliced body runs there) is held to
+the plain version with ``chip_smoke.check_rows`` on
+``chip_smoke.CONTRACT_MODES`` at ``FLASH_WIDE_CHECKED`` and at the timed
+rows, each build's two launches bit for bit, and timed at
+``FLASH_WIDE_TIMED`` (d = 512 at BH = 32, T = 2048; the absorbed-MLA
+shape, BH = 128 over one KV head, d = 576, dv = 512) beside
+``F.scaled_dot_product_attention`` and the bound.
+
 The kernel in the checkout is timed first and last (change, variants,
 change), so its two readings show the drift within the call.  It exits
 non-zero if a build fails, the checkout's kernel or a variant fails its
@@ -234,6 +246,33 @@ VARIANTS = {
               "                    row_lo, row_hi, t4, tk, causal, window, sl2"
               ");\n")]),
     },
+    # The single-pass bf16 flash body past d = 256 (flash_bf16_sp_kernel),
+    # each a text edit of flash_attention.cu called through its entry.
+    "flash_wide": {
+        "whole_qk": ("single-pass body: each consumer warpgroup forms the "
+                     "whole S itself (1.5x the ideal tensor work, no "
+                     "exchange of partial S)",
+                     [("  constexpr int NKQ = L::KS / 2;",
+                       "  constexpr int NKQ = L::KS;"),
+                      ("  const int kq0 = wg * NKQ;",
+                       "  const int kq0 = 0;"),
+                      ("    sp_exchange<BK>(s, x_mine, x_other, wg, true, "
+                       "kt0 + 1 == n_kt);\n", ""),
+                      ("      sp_exchange<BK>(s, x_mine, x_other, wg, false, "
+                       "kt + 1 == n_kt);\n", "")]),
+        "bk64_one_slot": ("single-pass body: 64-key tiles, one slot a ring, "
+                          "at DQK 512 (two do not fit beside Q; at DQK 576 "
+                          "one does not either, and 32 x 2 stays)",
+                          [("  static constexpr int BK = SP_BK;",
+                            "  static constexpr int BK = DQK == 512 ? 64 "
+                            ": SP_BK;"),
+                           ("  static constexpr int SLOTS = SP_SLOTS;",
+                            "  static constexpr int SLOTS = DQK == 512 ? 1 "
+                            ": SP_SLOTS;")]),
+        "one_slot": ("single-pass body: 32-key tiles, one slot a ring",
+                     [("constexpr int SP_SLOTS = 2;",
+                       "constexpr int SP_SLOTS = 1;")]),
+    },
 }
 # Planted faults in the GEMM kernel's bf16 body, each of which
 # ``chip_smoke.gemm_bf16_check`` must fail: name -> (what it does, edits).
@@ -264,10 +303,11 @@ GEMM_FAULTS = {
 }
 # Variant keys built from another kernel's source, and the entry point
 # their copies are called through.
-SOURCE = {"gemm_bf16": "gemm"}
-ENTRY = {"gemm_bf16": "gemm_mixed"}
+SOURCE = {"gemm_bf16": "gemm", "flash_wide": "flash_attention"}
+ENTRY = {"gemm_bf16": "gemm_mixed", "flash_wide": "flash_attention"}
 # Kernels whose parent source is built as the variant "parent".
-PARENT_KERNELS = ("gemm", "gemm_bf16", "sddmm", "flash_attention")
+PARENT_KERNELS = ("gemm", "gemm_bf16", "sddmm", "flash_attention",
+                  "flash_wide")
 # A flash entry without the dv argument (the signature before V took its
 # own width): the parent's, when its source has no dv.
 FLASH_NO_DV = "int d, int causal, int window,"
@@ -322,7 +362,8 @@ def build_variants(build, parent, kernels):
     fns = {}
     for tag, (fn, report) in built.items():
         kern, name = keys[tag]
-        if kern == "flash_attention" and FLASH_NO_DV in copies[tag][1]:
+        src = SOURCE.get(kern, kern)
+        if src == "flash_attention" and FLASH_NO_DV in copies[tag][1]:
             fn = flash_without_dv(fn)
         regs = [ln.split("ptxas info    :")[-1].strip()
                 for ln in report.splitlines() if "Used" in ln or "spill" in ln]
@@ -543,6 +584,83 @@ def flash_phase(torch, cs, ops, ref, fns):
     return out
 
 
+# Flash past d = 256 (bf16, causal), timed: (label, query heads, KV heads,
+# T, d, dv): chip_smoke.py's two timed rows.
+FLASH_WIDE_TIMED = [("d=512", 32, 32, 2048, 512, 512),
+                    ("absorbed MLA", 128, 1, 2048, 576, 512)]
+# ... and held to the plain version (d, dv) in each of chip_smoke.py's
+# CONTRACT_MODES.
+FLASH_WIDE_CHECKED = ((320, 100), (385, 256), (512, 512), (576, 512))
+
+
+def flash_wide_phase(torch, cs, ops, ref, fns):
+    """Each build of the single-pass body (and the parent's, the d-sliced
+    body there) held to the plain version with ``check_rows`` on
+    ``chip_smoke.CONTRACT_MODES`` at ``FLASH_WIDE_CHECKED`` and at the
+    timed rows, its bits compared with the checkout's body and with a
+    second launch of its own, and timed at ``FLASH_WIDE_TIMED`` (change,
+    variants, parent, change) beside ``F.scaled_dot_product_attention``.
+    Fails if a build fails its check or two of its launches differ."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    names = [n for k, n in fns if k == "flash_wide"]
+    order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
+
+    def qkv(bh, kvh, tq, tk, d, dv):
+        return (torch.randn(bh, tq, d, generator=gen, device="cuda"
+                            ).bfloat16(),
+                *(torch.randn(kvh, tk, n, generator=gen, device="cuda"
+                              ).bfloat16() for n in (d, dv)))
+
+    n_checked = 0
+    for d, dv in FLASH_WIDE_CHECKED:
+        for label, tq, tk, h, g, causal, window in cs.CONTRACT_MODES:
+            q, k, v = qkv(h, h // g, tq, tk, d, dv)
+            want = ref.flash_attention_plain(q, k, v, causal, window)
+            for nm in names:
+                with entry_as(ops, fns[("flash_wide", nm)]):
+                    cs.check_rows(torch, f"flash {nm} d={d} dv={dv} {label}",
+                                  ops.flash_attention(q, k, v, causal,
+                                                      window), want)
+                n_checked += 1
+    log(f"flash past d = 256: {len(names)} builds pass check_rows on "
+        f"{len(FLASH_WIDE_CHECKED) * len(cs.CONTRACT_MODES)} cases each")
+    out = {"cases_checked": n_checked}
+    for label, bh, kvh, t, d, dv in FLASH_WIDE_TIMED:
+        q, k, v = qkv(bh, kvh, t, t, d, dv)
+        want = ref.flash_attention_plain(q, k, v, True)
+        with entry_as(ops, fns[("flash_wide", "change")]):
+            mine = ops.flash_attention(q, k, v, True)
+        row = {}
+        for i, nm in enumerate(order):
+            with entry_as(ops, fns[("flash_wide", nm)]):
+                got = ops.flash_attention(q, k, v, True)
+                whole, worst = cs.check_rows(torch, f"flash {nm} {label}",
+                                             got, want)
+                if not torch.equal(got, ops.flash_attention(q, k, v, True)):
+                    cs.fail(f"flash {nm} {label}: two launches differ")
+                ms = cs.median_ms(torch, lambda: ops.flash_attention(
+                    q, k, v, True))
+            row[nm if i < len(order) - 1 else "change_again"] = {
+                "ms": ms, "rel_l2_whole": whole, "rel_l2_worst_row": worst,
+                "equal_to_change": bool(torch.equal(got, mine))}
+            del got
+        lib, how = cs.sdpa_yardstick(torch, q, k, v)
+        row["sdpa"] = {"ms": cs.median_ms(torch, lib), "how": how}
+        b_ms, b_by = cs.flash_bound(bh, t, t, d, True, 2,
+                                    cs.PEAK_BF16_FLOP_S, kv_heads=kvh, dv=dv)
+        row["bound_ms"] = b_ms
+        out[label] = row
+        del q, k, v, want, mine
+        torch.cuda.empty_cache()
+        log(f"flash {label} (BH={bh} over {kvh}, T={t}, d={d}, dv={dv}, "
+            "causal) ms: " + ", ".join(
+                f"{nm} {r['ms']:.4f}" + ("" if r.get("equal_to_change", True)
+                                         else " (bits differ)")
+                for nm, r in row.items() if nm != "bound_ms")
+            + f" ({how}); bound {b_ms:.4f} ({b_by})")
+    return out
+
+
 def fl_widest_slice(torch):
     """cols / mask of the widest ELL slice of full-scale Flickr at the
     engine's default geometry (n1 = 4096, n2 = 128)."""
@@ -679,7 +797,8 @@ def main() -> int:
     kernels = args.only or list(VARIANTS)
     fns = build_variants(build, args.parent, kernels)
     phases = {"gemm": gemm_phase, "gemm_bf16": gemm_bf16_phase,
-              "sddmm": sddmm_phase, "flash_attention": flash_phase}
+              "sddmm": sddmm_phase, "flash_attention": flash_phase,
+              "flash_wide": flash_wide_phase}
     result = {"card": card,
               "variants": {k: {n: d for n, (d, _) in v.items()}
                            for k, v in VARIANTS.items() if k in kernels}}

@@ -54,11 +54,13 @@ _ARGTYPES = {
                        + [_c_ll] * 2 + [_c_void_p]),
     "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
                         + [_c_int] * 10 + [_c_float, _c_void_p]),
+    "flash_body": ("flash_attention_body", [_c_int] * 3),
     "densify": ("ell_densify_f32", [_c_void_p] * 3 + [_c_int] * 3
                 + [_c_ll, _c_void_p]),
 }
 # Entry points that live in another kernel's source (library).
 _SOURCE_OF = {"densify": "gemm", "gemm_mixed": "gemm",
+              "flash_body": "flash_attention",
               "gemm_plan": "gemm",
               "spdmm_bf16": "spdmm", "spdmm_bf16_out": "spdmm",
               "sddmm_bf16": "sddmm", "sddmm_bf16_out": "sddmm"}

@@ -31,8 +31,12 @@
 // (BH = 64 over 32, d = 240) it needs 128.9 GFLOP causal (0.130 ms) and
 // 96.7 GFLOP with the local layers' window of 1024 (0.098 ms: a row sees
 // at most 1024 keys), against 189 MB moved (0.056 ms).  With dv < d a
-// kept pair costs 2 (d + dv) flops.  In fp32 the products run on CUDA
-// cores (67 TFLOP/s): 1.0 ms at qwen3's shape.
+// kept pair costs 2 (d + dv) flops.  Past d = 256: 137.5 GFLOP at d = 512
+// (BH = 32, T = 2048, causal; 0.139 ms) and 584.4 GFLOP at the absorbed-MLA
+// shape (BH = 128 over one KV head, d = 576, dv = 512; 0.591 ms), where a
+// 64-row CTA does 64 flops per byte of K and V it reads through L2.  In
+// fp32 the products run on CUDA cores (67 TFLOP/s): 1.0 ms at qwen3's
+// shape.
 //
 // Design.  Hopper runs blocks in parallel, so the Pallas grid's sequential
 // KV walk becomes a loop inside one CTA per (bh, query tile), with the
@@ -51,7 +55,7 @@
 // masked key: the causal diagonal, the window's lower edge, the ragged end
 // of Tk.  A window needs Tq <= Tk, so every row sees at least its own key
 // and no row is empty.  Every sum runs in one fixed order with no atomics,
-// so results are deterministic.  Four bodies:
+// so results are deterministic.  Five bodies (`flash_body` picks one):
 //  * bf16 inputs, d <= 128: tensor cores through wgmma, Hopper's
 //    warpgroup MMA.  A CTA owns 128 query rows, 64 per consumer warpgroup
 //    (K and V are read from L2 once per 128 rows), and one producer warp.
@@ -109,15 +113,24 @@
 //    the P.V product, and K and V share one staging buffer (85 KB at
 //    d = 128, two CTAs per SM; 147 KB at d = 256, one).  Loads and math
 //    alternate behind __syncthreads.
-//  * d > 256 (the Pallas kernel takes any d): one CTA per (bh, 64-row
-//    query tile, 128-column slice of the output), fp32 on CUDA cores with
-//    the fp32 body's layout or bf16 through mma.sync m16n8k16.  A CTA
-//    builds its rows' whole S = Q.K^T from 64-column chunks of Q and K
-//    staged in shared memory, runs the recurrence and accumulates only its
-//    slice of O, so the Q.K^T work is done ceil(dv / 128) times over.  64
-//    rows of a 512-wide fp32 accumulator (128 KB) fit no warpgroup's
-//    registers; a slice of 128 columns is 64 (bf16) or 32 (fp32) a thread.
-//    Simple and slow: a single-pass design is queued (ROADMAP B4).
+//  * bf16 inputs, 256 < d <= 576 and dv <= 512 (the Pallas kernel takes
+//    any d; DeepSeek-V3's absorbed MLA has d = 576, dv = 512): one pass,
+//    O split by columns.  A CTA owns 64 query rows; two consumer
+//    warpgroups each hold half of O's columns in registers (64 x 256 fp32
+//    at dv = 512: 128 a thread), a producer warpgroup fills Q once and
+//    two-slot K and V rings of 32 keys by TMA (setmaxnreg 40 / 232, heads
+//    in groups of 8, the staged route, as above).  Each warpgroup runs
+//    Q.K^T over half of d; the two partial S tiles are exchanged through
+//    shared memory behind named barriers and summed, so both hold the same
+//    S and run the same recurrence, then each runs P.V for its half of O.
+//    Instantiations (DQK, DV): (512, 256), (512, 512), (576, 512).
+//  * past that (d > 576 or dv > 512 in bf16, and fp32 past d = 256): one
+//    CTA per (bh, 64-row query tile, 128-column slice of the output), fp32
+//    on CUDA cores with the fp32 body's layout or bf16 through mma.sync
+//    m16n8k16.  A CTA builds its rows' whole S = Q.K^T from 64-column
+//    chunks of Q and K staged in shared memory, runs the recurrence and
+//    accumulates only its slice of O, so the Q.K^T work is done ceil(dv /
+//    128) times over.  Simple and slow.
 // Every body writes out in fp32 or bf16 (`out_dtype`, the Pallas kernel's
 // argument), rounding the fp32 result once at the store.
 // The kernel launches on the caller's stream and allocates nothing.
@@ -487,6 +500,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (+)= A.B for a 64 x 32 tile, depth 16: A and B from shared memory
+// (both K-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -1425,7 +1456,384 @@ flash_bf16_ws_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ------------------------------------------------------------------------ //
-// d > 256: the output's feature dimension split across CTAs.
+// bf16, 256 < d <= 576 (dv <= 512): one pass, O split by columns.
+// ------------------------------------------------------------------------ //
+// A CTA owns 64 query rows and all of O's columns.  64 rows of a 512-wide
+// fp32 O (128 KB) fit no one warpgroup's registers, so each of two consumer
+// warpgroups holds half of O's columns (at DV = 512, 128 registers a
+// thread; setmaxnreg as in the body above), and the producer warpgroup
+// fills Q once and two-slot rings of K and of V tiles of SP_BK keys (TMA
+// from one thread, or plain loads by its four warps).  S = Q.K^T of a key
+// tile is formed once: each warpgroup runs Q.K^T over its half of the
+// k-steps (of d's columns), the two partial S tiles (64 x SP_BK fp32) are
+// exchanged through shared memory and summed (fp32 addition commutes, so
+// both warpgroups hold the same S bit for bit), and both run the same
+// online max and sum on it.  P, rounded to bf16 in registers, is wgmma's A
+// operand; each warpgroup runs O[:, its half] += P.V[:, its half], V
+// MN-major through the transpose bit.  A warpgroup's P.V of tile j - 1 is
+// issued behind its Q.K^T of tile j and runs while it exchanges and takes
+// tile j's scores.  (Each warpgroup forming the whole S itself, 1.5x the
+// ideal tensor work and no exchange, is `kernel_variants.py`'s whole_qk.)
+constexpr int SP_PRODUCER_REGS = WS_PRODUCER_REGS;   // setmaxnreg's
+constexpr int SP_CONSUMER_REGS = WS_CONSUMER_REGS;   // split, as above
+constexpr int SP_BQ = 64;            // query rows a CTA
+constexpr int SP_BK = 32;            // keys a K / V slot
+constexpr int SP_SLOTS = 2;          // slots a ring
+// Named barriers over the 256 consumer threads (0 is __syncthreads'):
+// both partials of a tile written; 2 + w: warpgroup w's partial was read
+// (the reader arrives, the writer waits before it writes the next).
+constexpr int SP_BAR_WRITTEN = 1;
+constexpr int SP_BAR_READ = 2;
+
+template <int DQK, int DV>
+struct SpSmem {
+  static_assert((DQK == 512 && (DV == 256 || DV == 512)) ||
+                    (DQK == 576 && DV == 512),
+                "(DQK, DV) is (512, 256), (512, 512) or (576, 512)");
+  static constexpr int BK = SP_BK;
+  static constexpr int SLOTS = SP_SLOTS;
+  static constexpr int NQ = DQK / 64;           // Q / K panels
+  static constexpr int NV = DV / 64;            // V panels
+  static constexpr int KS = DQK / 16;           // k-steps of the whole Q.K^T
+  static constexpr int HALF = DV / 2;           // O columns a warpgroup
+  static constexpr int Q_PANEL = SP_BQ * 128;   // bytes: 64 rows of 128 B
+  static constexpr int KV_PANEL = BK * 128;     // bytes: BK rows of 128 B
+  static constexpr int K_SLOT = NQ * KV_PANEL;
+  static constexpr int V_SLOT = NV * KV_PANEL;
+  static constexpr int X_WG = SP_BQ * BK * 4;   // one partial S, fp32
+  // Q, the K slots, the V slots, the two partial S buffers, the barriers.
+  static constexpr int K_OFF = NQ * Q_PANEL;
+  static constexpr int V_OFF = K_OFF + SLOTS * K_SLOT;
+  static constexpr int X_OFF = V_OFF + SLOTS * V_SLOT;
+  static constexpr int BARS = X_OFF + 2 * X_WG;
+  // Barriers: full K[SLOTS], full V[SLOTS], empty K[SLOTS], empty V[SLOTS],
+  // Q; + 1 KB to align the base to the 1 KB swizzle period.
+  static constexpr int BYTES = BARS + 8 * (4 * SLOTS + 1) + 1024;
+  static_assert(BYTES <= 232448, "227 KB of shared memory a block");
+  static_assert(KS % 2 == 0 && HALF % 64 == 0, "halves of whole steps");
+};
+
+// The producer warpgroup: Q once, then K and V of tiles kt0 .. n_kt - 1
+// into their rings, as ws_produce does, loading only the panels that hold a
+// column below d (Q, K) or dv (V): the others stay zero.  A slot is
+// refilled once both consumer warpgroups have released its last use.
+template <int DQK, int DV>
+__device__ __forceinline__ void sp_produce(
+    uint8_t* smem, uint32_t bars, bool tma, const __nv_bfloat16* qb,
+    const __nv_bfloat16* kb, const __nv_bfloat16* vb, int q0, int tq,
+    int tk, int d, int dv, int kt0, int n_kt, int bh, int bkv,
+    const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap) {
+  using L = SpSmem<DQK, DV>;
+  constexpr int SL = L::SLOTS;
+  const int pt = threadIdx.x - WS_CONSUMERS, lane = threadIdx.x & 31;
+  const uint32_t full_k = bars, full_v = bars + 8 * SL;
+  const uint32_t empty_k = bars + 16 * SL, empty_v = bars + 24 * SL;
+  const uint32_t qbar = bars + 32 * SL;
+  const int np_q = (d + 63) / 64, np_v = (dv + 63) / 64;
+  if (tma) {
+    if (pt != 0) return;
+    mbar_expect_tx(qbar, np_q * L::Q_PANEL);
+    for (int p = 0; p < np_q; ++p)
+      tma_load_3d(smem_u32(smem + p * L::Q_PANEL), qmap, qbar, 64 * p, q0,
+                  bh);
+  } else {
+    ws_stage<SP_BQ>(smem, qb, q0, tq, d, np_q, L::Q_PANEL, pt);
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(qbar);
+  }
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int step = kt - kt0, slot = step % SL, use = step / SL;
+    const int k0 = kt * L::BK;
+    uint8_t* ks = smem + L::K_OFF + slot * L::K_SLOT;
+    uint8_t* vs = smem + L::V_OFF + slot * L::V_SLOT;
+    // Use `use - 1` of these slots (tile step - SL): wait for its release.
+    if (step >= SL) mbar_wait(empty_k + 8 * slot, (use & 1) ^ 1);
+    if (tma) {
+      mbar_expect_tx(full_k + 8 * slot, np_q * L::KV_PANEL);
+      for (int p = 0; p < np_q; ++p)
+        tma_load_3d(smem_u32(ks + p * L::KV_PANEL), kmap, full_k + 8 * slot,
+                    64 * p, k0, bkv);
+    } else {
+      ws_stage<L::BK>(ks, kb, k0, tk, d, np_q, L::KV_PANEL, pt);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full_k + 8 * slot);
+    }
+    if (step >= SL) mbar_wait(empty_v + 8 * slot, (use & 1) ^ 1);
+    if (tma) {
+      mbar_expect_tx(full_v + 8 * slot, np_v * L::KV_PANEL);
+      for (int p = 0; p < np_v; ++p)
+        tma_load_3d(smem_u32(vs + p * L::KV_PANEL), vmap, full_v + 8 * slot,
+                    64 * p, k0, bkv);
+    } else {
+      ws_stage<L::BK>(vs, vb, k0, tk, dv, np_v, L::KV_PANEL, pt);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full_v + 8 * slot);
+    }
+  }
+}
+
+// S (+)= Q.K^T over k-steps kq0 .. kq0 + NKQ - 1 (d's columns 16 kq0 ..)
+// for the 64 query rows and the BK keys of a K slot: wgmma m64n{BK}k16,
+// both operands K-major.
+template <int DQK, int DV, int NKQ>
+__device__ __forceinline__ void sp_qk(float (&s)[SpSmem<DQK, DV>::BK / 2],
+                                      uint32_t q_s, uint32_t k_s, int kq0) {
+  using L = SpSmem<DQK, DV>;
+#pragma unroll
+  for (int i = 0; i < NKQ; ++i) {
+    const int kq = kq0 + i;
+    const uint64_t da = gmma_desc(
+        q_s + (kq >> 2) * L::Q_PANEL + (kq & 3) * 32, 16, 1024);
+    const uint64_t db = gmma_desc(
+        k_s + (kq >> 2) * L::KV_PANEL + (kq & 3) * 32, 16, 1024);
+    if constexpr (L::BK == 64)
+      wgmma_ss_n64(s, da, db, i > 0);
+    else
+      wgmma_ss_n32(s, da, db, i > 0);
+  }
+}
+
+// O[:, this warpgroup's half] += P.V[:, half] for the BK keys of a V slot
+// (v_s at the half's first panel): wgmma m64n{DV/2}k16, P from registers,
+// V MN-major (lbo steps a 64-column panel).
+template <int DQK, int DV>
+__device__ __forceinline__ void sp_pv(
+    float (&o)[DV / 4], uint32_t (&pa)[SpSmem<DQK, DV>::BK / 16][4],
+    uint32_t v_s) {
+  using L = SpSmem<DQK, DV>;
+#pragma unroll
+  for (int kc = 0; kc < L::BK / 16; ++kc) {
+    const uint64_t db = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, 1024);
+    if constexpr (L::HALF == 256)
+      wgmma_rs_n256(o, pa[kc], db, 1);
+    else
+      wgmma_rs_n128(o, pa[kc], db, 1);
+  }
+}
+
+// This warpgroup's partial S (over its half of d) into its buffer, the
+// other's read back and added: both warpgroups then hold S over all of d,
+// with the same bits.  A buffer is float4 [BK / 8][128 threads] (a thread's
+// float4s 2 KB apart: no bank conflict).  Before it writes, a warpgroup
+// waits until the other has read its last partial (not at the first tile);
+// after it reads, it says so (not at the last).
+template <int BK>
+__device__ __forceinline__ void sp_exchange(float (&s)[BK / 2], float4* mine,
+                                            const float4* other, int wg,
+                                            bool first, bool last) {
+  if (!first) turn_wait(SP_BAR_READ + wg);
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i)
+    mine[128 * i] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2],
+                                s[4 * i + 3]);
+  turn_wait(SP_BAR_WRITTEN);
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    const float4 x = other[128 * i];
+    s[4 * i] += x.x;
+    s[4 * i + 1] += x.y;
+    s[4 * i + 2] += x.z;
+    s[4 * i + 3] += x.w;
+  }
+  if (!last) turn_pass(SP_BAR_READ + (wg ^ 1));
+}
+
+// A consumer warpgroup: the CTA's 64 query rows and O's columns [wg DV / 2,
+// (wg + 1) DV / 2), over tiles kt0 .. n_kt - 1.  Each tile: Q.K^T of this
+// tile and P.V of the last as two wgmma groups; once Q.K^T is done, its K
+// slot released, S completed by the exchange and its scores taken while
+// P.V runs; once P.V is done, its V slot released, O rescaled and P packed.
+template <int DQK, int DV>
+__device__ __forceinline__ void sp_consume(
+    uint8_t* smem, uint32_t bars, void* out, bool out_bf16, int q0,
+    int tq, int tk, int dv, int causal, int window, float scale, int kt0,
+    int n_kt, int bh) {
+  using L = SpSmem<DQK, DV>;
+  constexpr int BK = L::BK, SL = L::SLOTS, ON = DV / 4;
+  constexpr int NKQ = L::KS / 2;           // k-steps a warpgroup
+  const uint32_t full_k = bars, full_v = bars + 8 * SL;
+  const uint32_t empty_k = bars + 16 * SL, empty_v = bars + 24 * SL;
+  const uint32_t qbar = bars + 32 * SL;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row_lo = q0 + 16 * warp + g, row_hi = row_lo + 8;
+  const float sl2 = LOG2E * scale;         // scores in the exp2 domain
+  const int kq0 = wg * NKQ;                // its half of d's k-steps
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t k_s = smem_u32(smem + L::K_OFF);
+  const uint32_t v_s = smem_u32(smem + L::V_OFF) +
+                       wg * (L::HALF / 64) * L::KV_PANEL;
+  float4* x_mine =
+      reinterpret_cast<float4*>(smem + L::X_OFF + wg * L::X_WG) + tid;
+  const float4* x_other =
+      reinterpret_cast<const float4*>(smem + L::X_OFF + (wg ^ 1) * L::X_WG) +
+      tid;
+  float o[ON];
+#pragma unroll
+  for (int i = 0; i < ON; ++i) o[i] = 0.0f;
+  float m_lo = NEG, m_hi = NEG, l_lo = 0.0f, l_hi = 0.0f, a_lo, a_hi;
+  float s[BK / 2];
+  uint32_t pa[BK / 16][4];
+  mbar_wait(qbar, 0);
+  if (kt0 < n_kt) {                        // else every row stores 0
+    // The first tile: Q.K^T alone.
+    mbar_wait(full_k, 0);
+    wgmma_fence();
+    sp_qk<DQK, DV, NKQ>(s, q_s, k_s, kq0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_k);
+    sp_exchange<BK>(s, x_mine, x_other, wg, true, kt0 + 1 == n_kt);
+    ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt0 * BK, q0,
+                  row_lo, row_hi, t4, tk, causal, window, sl2);
+    ws_rescale_pack<BK, ON>(s, o, pa, a_lo, a_hi);
+
+    for (int kt = kt0 + 1; kt < n_kt; ++kt) {
+      const int step = kt - kt0, slot = step % SL, prev = (step - 1) % SL;
+      mbar_wait(full_k + 8 * slot, (step / SL) & 1);
+      mbar_wait(full_v + 8 * prev, ((step - 1) / SL) & 1);
+      wgmma_fence();
+      sp_qk<DQK, DV, NKQ>(s, q_s, k_s + slot * L::K_SLOT, kq0);
+      wgmma_commit();
+      sp_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);
+      wgmma_commit();
+      wgmma_wait_one();                  // Q.K^T of tile kt done
+      fence_regs(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_k + 8 * slot);
+      sp_exchange<BK>(s, x_mine, x_other, wg, false, kt + 1 == n_kt);
+      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt * BK, q0,
+                    row_lo, row_hi, t4, tk, causal, window, sl2);
+      wgmma_wait_all();                  // P.V of tile kt - 1 done
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_v + 8 * prev);
+      ws_rescale_pack<BK, ON>(s, o, pa, a_lo, a_hi);
+    }
+
+    // P.V of the last tile.
+    const int last = n_kt - 1 - kt0;
+    mbar_wait(full_v + 8 * (last % SL), (last / SL) & 1);
+    wgmma_fence();
+    sp_pv<DQK, DV>(o, pa, v_s + (last % SL) * L::V_SLOT);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(FULL, l_lo, off);
+    l_hi += __shfl_xor_sync(FULL, l_hi, off);
+  }
+  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
+  const long long ob = (long long)bh * tq * dv;
+#pragma unroll
+  for (int i = 0; i < L::HALF / 8; ++i) {
+    const int c = wg * L::HALF + 8 * i + 2 * t4;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = hi ? row_hi : row_lo;
+      const float inv = hi ? inv_hi : inv_lo;
+      if (r >= tq || c >= dv) continue;
+      const long long at = ob + (long long)r * dv + c;
+      const float x0 = o[4 * i + 2 * hi] * inv;
+      const float x1 = o[4 * i + 2 * hi + 1] * inv;
+      if (out_bf16)
+        store_pair(static_cast<__nv_bfloat16*>(out) + at, c, dv, x0, x1);
+      else
+        store_pair(static_cast<float*>(out) + at, c, dv, x0, x1);
+    }
+  }
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bf16_sp_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, void* out,
+                     int out_bf16, int tma, int tq, int tk, int d, int dv,
+                     int causal, int window, int group, float scale,
+                     const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap) {
+  using L = SpSmem<DQK, DV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bars = smem_u32(smem + L::BARS);
+  // One CTA per (head, 64-row query tile) in a 1-D grid, ordered by head
+  // group as the body above orders its 128-row tiles.
+  const int n_qt = (tq + SP_BQ - 1) / SP_BQ;
+  const int per_group = WS_HEAD_GROUP * n_qt;
+  const int head0 = blockIdx.x / per_group * WS_HEAD_GROUP;
+  const int in_group = blockIdx.x % per_group;
+  const int heads = min(WS_HEAD_GROUP, (int)gridDim.x / n_qt - head0);
+  const int bh = head0 + in_group % heads;
+  const int q0 = (n_qt - 1 - in_group / heads) * SP_BQ;
+  const int bkv = bh / group;              // grouped KV heads: bh / G
+  const int kt0 = kv_tile_begin(q0, window, L::BK);
+  const int n_kt = wg_kv_tiles<SP_BQ, L::BK>(q0, tk, causal);
+  if (threadIdx.x == 0) {
+    const int fills = tma ? 1 : 4;         // TMA's one thread, or 4 warps
+    for (int b = 0; b < 2 * L::SLOTS; ++b)  // full K, full V
+      mbar_init(bars + 8 * b, fills);
+    for (int b = 2 * L::SLOTS; b < 4 * L::SLOTS; ++b)  // empty K, empty V
+      mbar_init(bars + 8 * b, 8);          // one per consumer warp
+    mbar_init(bars + 32 * L::SLOTS, fills);  // Q
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Panels past d's last 64-column panel (dv's for V) are never loaded:
+  // zero them once, so Q.K^T adds 0 there and P.V fills O's unstored
+  // columns with 0.
+  const int np_q = (d + 63) / 64, np_v = (dv + 63) / 64;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int p = np_q; p < L::NQ; ++p) {
+    uint4* qp = reinterpret_cast<uint4*>(smem + p * L::Q_PANEL);
+    for (int c = threadIdx.x; c < L::Q_PANEL / 16; c += WS_THREADS)
+      qp[c] = zero;
+    for (int slot = 0; slot < L::SLOTS; ++slot) {
+      uint4* kp = reinterpret_cast<uint4*>(smem + L::K_OFF +
+                                           slot * L::K_SLOT +
+                                           p * L::KV_PANEL);
+      for (int c = threadIdx.x; c < L::KV_PANEL / 16; c += WS_THREADS)
+        kp[c] = zero;
+    }
+  }
+  for (int p = np_v; p < L::NV; ++p)
+    for (int slot = 0; slot < L::SLOTS; ++slot) {
+      uint4* vp = reinterpret_cast<uint4*>(smem + L::V_OFF +
+                                           slot * L::V_SLOT +
+                                           p * L::KV_PANEL);
+      for (int c = threadIdx.x; c < L::KV_PANEL / 16; c += WS_THREADS)
+        vp[c] = zero;
+    }
+  fence_proxy_async();
+  __syncthreads();   // the last CTA-wide barrier: the roles part here
+
+  if (threadIdx.x >= WS_CONSUMERS) {
+    regs_dec<SP_PRODUCER_REGS>();
+    sp_produce<DQK, DV>(smem, bars, tma != 0, q + (long long)bh * tq * d,
+                        k + (long long)bkv * tk * d,
+                        v + (long long)bkv * tk * dv, q0, tq, tk, d, dv,
+                        kt0, n_kt, bh, bkv, &qmap, &kmap, &vmap);
+  } else {
+    regs_inc<SP_CONSUMER_REGS>();
+    sp_consume<DQK, DV>(smem, bars, out, out_bf16 != 0, q0, tq, tk,
+                        dv, causal, window, scale, kt0, n_kt, bh);
+  }
+}
+
+// ------------------------------------------------------------------------ //
+// d > 256 in fp32, and bf16 past the single-pass body's reach: the
+// output's feature dimension split across CTAs.
 // ------------------------------------------------------------------------ //
 // A CTA owns 64 query rows and one slice of WIDE_DS output columns
 // (grid: bh, query tile, slice).  For each KV tile of 64 keys it builds
@@ -1943,7 +2351,46 @@ int launch_ws(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// d > 256: grid (bh, query tile, dv-slice).
+// bf16, 256 < d <= 576, dv <= 512: the single-pass body at (DQK, DV).
+template <int DQK, int DV>
+int launch_sp(const void* q, const void* k, const void* v, void* out,
+              int out_dtype, int bh, int tq, int tk, int d, int dv,
+              int causal, int window, int group, float scale,
+              cudaStream_t stream) {
+  using L = SpSmem<DQK, DV>;
+  CUtensorMap maps[3];
+  memset(maps, 0, sizeof(maps));
+  const bool tma = tma_fits(q, k, v, d, dv) &&
+                   make_map(&maps[0], q, bh, tq, d, SP_BQ) &&
+                   make_map(&maps[1], k, bh / group, tk, d, L::BK) &&
+                   make_map(&maps[2], v, bh / group, tk, dv, L::BK);
+  auto kernel = flash_bf16_sp_kernel<DQK, DV>;
+  const long long ctas = (long long)bh * ((tq + SP_BQ - 1) / SP_BQ);
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)ctas, WS_THREADS, L::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), out, out_dtype, (int)tma, tq,
+      tk, d, dv, causal, window, group, scale, maps[0], maps[1], maps[2]);
+  return (int)cudaGetLastError();
+}
+
+// The body flash_attention_fwd runs for (dtype, d, dv), by the code
+// `ops.flash_body` names: 1 fp32 (d <= 256), 2 fp32 d-sliced, 3 bf16
+// (d <= 128), 4 bf16 warp-specialised (d <= 256), 5 bf16 single-pass
+// (d <= 576, dv <= 512), 6 bf16 d-sliced.
+int flash_body(int dtype, int d, int dv) {
+  if (dtype == 0) return d <= 256 ? 1 : 2;
+  if (d <= 128) return 3;
+  if (d <= 256) return 4;
+  return d <= 576 && dv <= 512 ? 5 : 6;
+}
+
+// d > 256 with fp32 operands, or past the single-pass body's reach: grid
+// (bh, query tile, dv-slice).
 template <typename OutT>
 int launch_wide(int dtype, const void* q, const void* k, const void* v,
                 void* out, int bh, int tq, int tk, int d, int dv, int causal,
@@ -2018,8 +2465,8 @@ int dispatch(int dtype, int out_dtype, const void* q, const void* k,
 // window > 0: also qpos - kpos < window) v[bh / group] for contiguous q
 // [bh, tq, d], k [bh / group, tk, d], v [bh / group, tk, dv] and out [bh,
 // tq, dv]; dtype 0 is fp32, 1 is bf16 (q, k and v), out_dtype the same
-// codes for out (converted in the epilogue), any d >= 1 (past 256 the
-// d-sliced bodies) and 1 <= dv <= d, group >= 1 divides bh, bh < 2^31, tq
+// codes for out (converted in the epilogue), any d >= 1 (`flash_body` says
+// which body runs) and 1 <= dv <= d, group >= 1 divides bh, bh < 2^31, tq
 // <= 4,194,240; a window needs causal and tq <= tk (window 0: none).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // arguments the kernel does not take; 0 when there is nothing to compute).
@@ -2035,6 +2482,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       window < 0 || (window > 0 && (!causal || tq > tk)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (flash_body(dtype, d, dv) == 5) {
+    // DQK 512 for d <= 512 (DV 256 for dv <= 256, else 512), else 576.
+    if (d > 512)
+      return launch_sp<576, 512>(q, k, v, out, out_dtype, bh, tq, tk, d, dv,
+                                 causal, window, group, scale, s);
+    return dv <= 256
+               ? launch_sp<512, 256>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                     dv, causal, window, group, scale, s)
+               : launch_sp<512, 512>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                     dv, causal, window, group, scale, s);
+  }
   if (d > 256) {
     if (out_dtype == 0)
       return launch_wide<float>(dtype, q, k, v, out, bh, tq, tk, d, dv,
@@ -2053,4 +2511,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                      s);
   return dispatch<256>(dtype, out_dtype, q, k, v, out, bh, tq, tk, d, dv,
                        causal, window, group, scale, s);
+}
+
+// Which body flash_attention_fwd runs for these operands (`flash_body`'s
+// code; 0 for arguments it refuses by type).
+extern "C" int flash_attention_body(int dtype, int d, int dv) {
+  if ((dtype != 0 && dtype != 1) || d <= 0 || dv <= 0 || dv > d) return 0;
+  return flash_body(dtype, d, dv);
 }

@@ -453,6 +453,34 @@ def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
 
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The flash kernel's bodies, by the code of its C entry
+# ``flash_attention_body``.
+FLASH_BODIES = {1: "fp32", 2: "fp32 d-sliced", 3: "bf16",
+                4: "bf16 warp-specialised", 5: "bf16 single-pass",
+                6: "bf16 d-sliced"}
+
+
+def flash_body(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The body ``flash_attention`` runs on the card for q / k of head dim
+    ``d``, v of width ``dv`` and operands of ``dtype``
+    (``csrc/flash_attention.cu``'s ``flash_body``, which the C entry
+    ``flash_attention_body`` reports): fp32 on CUDA cores up to d = 256,
+    d-sliced past it; bf16 on the tensor cores up to d = 128, the
+    warp-specialised body up to 256, the single-pass body up to d = 576
+    with dv <= 512, and the d-sliced body past that."""
+    if dtype not in _FLASH_DTYPES:
+        raise TypeError(f"flash_body: expected float32 or bfloat16, got "
+                        f"{dtype}")
+    if not 1 <= dv <= d:
+        raise ValueError(f"flash_body: need 1 <= dv <= d, got d={d}, "
+                         f"dv={dv}")
+    if dtype == torch.float32:
+        code = 1 if d <= 256 else 2
+    elif d <= 256:
+        code = 3 if d <= 128 else 4
+    else:
+        code = 5 if d <= 576 and dv <= 512 else 6
+    return FLASH_BODIES[code]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -463,8 +491,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel's contract), all fp32 or all bf16, contiguous, any d >= 1;
     returns [BH, Tq, dv] in ``out_dtype`` (fp32 or bf16; None is q's
     dtype, as in the Pallas kernel), fp32 math inside and one rounding at
-    the store (past d = 256 the kernel's d-sliced bodies).  The causal mask is the
-    Pallas kernel's ``qpos >= kpos``, both counted from 0; ``window`` W > 0
+    the store (:func:`flash_body` names the kernel's body: past d = 256
+    the bf16 single-pass body up to d = 576 with dv <= 512, the d-sliced
+    bodies beyond it and in fp32).  The causal mask is the Pallas
+    kernel's ``qpos >= kpos``, both counted from 0; ``window`` W > 0
     (causal only, Tq <= Tk) also masks ``qpos - kpos >= W``, JAX's
     ``_mask_bias`` (0 is no window).  With G > 1 (G must divide BH) the
     query heads of a group are adjacent: query head ``bh`` reads KV head

@@ -4,11 +4,12 @@
   refuses a device-resident run over budget, as JAX's ``Engine`` does for
   the same program and budget; ``residency="host"`` streams within it bit
   for bit the unbudgeted device run; None lifts the refusal.
-* ``ops.flash_attention`` at head dims past 256 (the kernel's d-sliced
-  bodies on the card; here the plain version), causal or not, with
-  grouped KV heads, against JAX's ``flash_attention_ref`` in fp32 at
-  rtol 1e-5 / atol 1e-4, and with ``out_dtype=bfloat16`` against the
-  reference cast to bf16 at JAX's bf16 tolerance (rtol 2e-2 / atol 1e-2).
+* ``ops.flash_attention`` at head dims past 256 (the kernel's
+  single-pass and d-sliced bodies on the card; here the plain version),
+  causal or not, with grouped KV heads, against JAX's
+  ``flash_attention_ref`` in fp32 at rtol 1e-5 / atol 1e-4, and with
+  ``out_dtype=bfloat16`` against the reference cast to bf16 at JAX's bf16
+  tolerance (rtol 2e-2 / atol 1e-2).
 * ``ops.spdmm`` / ``ops.sddmm`` with ``out_dtype=bfloat16``, and
   ``sddmm`` on bf16 operands, against JAX's Pallas ``spdmm`` / ``sddmm``
   run with ``out_dtype=jnp.bfloat16`` in interpret mode, at 2e-2 / 1e-2.

@@ -26,8 +26,10 @@ bound, bit for bit across row slices, load routes, acc aliasing C and a
 CUDA-graph replay; bf16 SpDMM and SDDMM operands against the plain
 versions and bit for bit against the fp32 kernels on the widened
 operands; flash past d = 256 (the
-d-sliced bodies: causal, non-causal, windowed, grouped, ragged; two
-launches bit for bit) and the bf16 / fp32 ``out_dtype`` of flash, SpDMM
+bf16 single-pass body at d 257-576 with dv 100-512, its staged route bit
+for bit the TMA route, the d-sliced bodies past it and in fp32: causal,
+non-causal, windowed, grouped, ragged, both output types; two launches bit
+for bit; the body rule of ``ops.flash_body`` the C entry's) and the bf16 / fp32 ``out_dtype`` of flash, SpDMM
 and SDDMM against the plain versions.  The warp-specialised bf16 flash
 body past d = 128 (d 136-256, V d or 128 wide, G 1 / 2 / 8, causal,
 windowed and non-causal at ragged Tq / Tk, the plain-load producer at d =
@@ -1699,7 +1701,12 @@ FLASH_WIDE_CASES = [(130, 130, 2, 1, 257, True, 0, "float32"),
                     (77, 150, 2, 1, 512, False, 0, "float32"),
                     (256, 256, 4, 4, 512, True, 0, "bfloat16"),
                     (65, 65, 1, 1, 1024, True, 0, "float32"),
-                    (128, 96, 2, 1, 1024, False, 0, "bfloat16")]
+                    (128, 96, 2, 1, 1024, False, 0, "bfloat16"),
+                    (300, 300, 4, 2, 384, True, 0, "bfloat16"),
+                    (200, 300, 2, 1, 385, False, 0, "bfloat16"),
+                    (130, 130, 2, 2, 513, True, 50, "bfloat16"),
+                    (150, 150, 4, 4, 576, True, 0, "bfloat16"),
+                    (100, 100, 2, 1, 576, True, 0, "float32")]
 
 
 def _flash_limits(got, want, dtype):
@@ -1728,6 +1735,90 @@ def test_cuda_flash_wide_head_dims_match_plain(cuda, tq, tk, h, grp, d,
     _flash_limits(got, ref.flash_attention_plain(q, k, v, causal, window),
                   dt)
     assert torch.equal(ops.flash_attention(q, k, v, causal, window), got)
+
+
+# The single-pass bf16 body past d = 256 (d <= 576, dv <= 512): (tq, tk,
+# heads, G, d, dv, causal, window).  d 257-512 take DQK = 512 (dv <= 256
+# its DV = 256), 513 and 576 DQK = 576; d = 257 / 330 / 385 / 513 and dv =
+# 100 the producer's plain loads (d or dv not a multiple of 8); causal,
+# non-causal at ragged Tq != Tk, windowed, G = 4; dv > 512 the d-sliced
+# body, at each instantiation's edge.
+FLASH_SP_CASES = [(300, 300, 4, 1, 257, 257, True, 0),
+                  (200, 333, 4, 2, 264, 256, False, 0),
+                  (300, 300, 4, 4, 320, 320, True, 0),
+                  (300, 300, 2, 1, 330, 100, True, 0),
+                  (257, 257, 4, 2, 384, 384, True, 100),
+                  (130, 200, 4, 4, 385, 256, False, 0),
+                  (300, 300, 2, 1, 512, 512, True, 0),
+                  (129, 65, 8, 4, 512, 100, False, 0),
+                  (300, 400, 4, 2, 512, 256, True, 64),
+                  (200, 200, 2, 2, 513, 513, True, 0),
+                  (300, 300, 4, 1, 513, 512, True, 0),
+                  (300, 300, 8, 8, 576, 512, True, 0),
+                  (77, 300, 4, 2, 576, 256, False, 0),
+                  (300, 300, 4, 4, 576, 100, True, 30),
+                  (200, 200, 2, 1, 576, 576, True, 0)]
+
+
+def _flash_bf16_qkv(h, grp, tq, tk, d, dv, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(h, tq, d, generator=g, device=device).bfloat16(),
+            torch.randn(h // grp, tk, d, generator=g, device=device
+                        ).bfloat16(),
+            torch.randn(h // grp, tk, dv, generator=g, device=device
+                        ).bfloat16())
+
+
+@pytest.mark.parametrize("tq,tk,h,grp,d,dv,causal,window", FLASH_SP_CASES)
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_cuda_flash_single_pass_body_matches_plain(cuda, tq, tk, h, grp, d,
+                                                   dv, causal, window, out):
+    ot = getattr(torch, out)
+    body = ops.flash_body(torch.bfloat16, d, dv)
+    assert body == ("bf16 single-pass" if d <= 576 and dv <= 512
+                    else "bf16 d-sliced")
+    assert ops.FLASH_BODIES[ops.entry("flash_body")(1, d, dv)] == body
+    q, k, v = _flash_bf16_qkv(h, grp, tq, tk, d, dv, d + dv + tq + tk, cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal, window, out_dtype=ot)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.shape == (h, tq, dv) and got.dtype == ot
+    want = ref.flash_attention_plain(q, k, v, causal, window, out_dtype=ot)
+    _flash_limits(got, want, torch.bfloat16)
+    assert torch.equal(ops.flash_attention(q, k, v, causal, window,
+                                           out_dtype=ot), got)
+
+
+def _off_16_bytes(t):
+    # The same values, contiguous, from one element past a 16-byte boundary.
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("d,dv", [(512, 512), (320, 256), (576, 512)])
+def test_cuda_flash_single_pass_staged_route_equals_tma(cuda, d, dv):
+    # A base off 16 bytes sends the body's producer to its plain loads,
+    # which write TMA's layout: the consumers run the same products.
+    q, k, v = _flash_bf16_qkv(4, 2, 300, 300, d, dv, d + dv, cuda)
+    tma = ops.flash_attention(q, k, v, True)
+    staged = ops.flash_attention(*(_off_16_bytes(t) for t in (q, k, v)),
+                                 True)
+    assert torch.equal(staged, tma)
+    _flash_limits(staged, ref.flash_attention_plain(q, k, v, True),
+                  torch.bfloat16)
+
+
+def test_cuda_flash_body_rule_is_the_kernel_s(cuda):
+    entry = ops.entry("flash_body")
+    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in (1, 64, 128, 129, 256, 257, 512, 513, 576, 577, 1024):
+            for dv in sorted({1, 100, 256, 257, 512, 513, d}):
+                if dv <= d:
+                    assert ops.FLASH_BODIES[entry(code, d, dv)] == \
+                        ops.flash_body(dt, d, dv), (dt, d, dv)
+    assert entry(2, 64, 64) == 0 and entry(1, 64, 65) == 0
 
 
 # The warp-specialised bf16 body past d = 128: (tq, tk, heads, G, d, dv,
