@@ -8,10 +8,10 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Card and build: the card's name and power limit (``nvidia-smi``), then
    every hand kernel built from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once), with the build time and ``ptxas``
-   report; then the warp-specialised and single-pass flash bodies' and
-   the bf16 GEMM body's registers a thread and spill bytes per
-   instantiation from that report (the script fails if one spills or
-   ptxas ignored a flash body's ``setmaxnreg``).
+   report; then the warp-specialised and single-pass flash bodies', the
+   two fp32 flash bodies' and the bf16 GEMM body's registers a thread
+   and spill bytes per instantiation from that report (the script fails
+   if one spills or ptxas ignored a flash body's ``setmaxnreg``).
 2. Kernels: each kernel against its plain torch version on the card, at
    the executor's tile shapes (GEMM 4096x128xN, N in {128, 64, 8},
    without and with the accumulator, against torch.matmul / torch.addmm;
@@ -406,15 +406,17 @@ Phases (any failure exits non-zero; nothing is caught):
    compiler_tour, minibatch_serve, trace_inference, and
    lm_pretrain_smoke on qwen3-0.6b, the flash route) in subprocesses
    started together, each exit code checked and each one's kernel
-   launches read back; meanwhile flash past d = 256 (the bf16
-   single-pass body up to d = 576 with dv <= 512, the d-sliced bodies
-   past it and in fp32) at d in {257, 264, 320, 512, 1024}, fp32 and
-   bf16, and at (d, dv) in {(330, 100), (385, 256), (513, 512), (576,
-   512), (576, 256)} in bf16, causal, non-causal at ragged Tq / Tk,
-   windowed and grouped (G = 4) against the plain version (fp32 rtol 1e-5
-   / atol 1e-4, bf16 ``check_rows``), the single-pass body's staged route
-   (bases 2 bytes past 16) bit for bit its TMA route, two launches bit
-   for bit at d = 512, and ``out_dtype`` fp32 -> bf16 and bf16 -> fp32 on
+   launches read back; meanwhile flash past d = 256 (the single-pass
+   bodies up to d = 576 with dv <= 512, the d-sliced bodies past it) at
+   d in {257, 264, 320, 512, 1024}, fp32 and bf16, and at (d, dv) in
+   {(330, 100), (385, 256), (513, 512), (576, 512), (576, 256)} in both
+   and {(576, 513), (577, 512)} in fp32 (past the fp32 single pass),
+   causal, non-causal at ragged Tq / Tk, windowed and grouped (G = 4)
+   against the plain version (fp32 rtol 1e-5 / atol 1e-4, bf16
+   ``check_rows``), the single-pass bodies' and the fp32 body's staged
+   routes (bases 2 or 4 bytes past 16) bit for bit their TMA or
+   16-byte-copy routes, two launches bit for bit at d = 512, and
+   ``out_dtype`` fp32 -> bf16 and bf16 -> fp32 on
    flash (d 128, 512, 1024), SpDMM and SDDMM at rtol 2e-2 / atol 1e-2
    (the bf16 store bit for bit the fp32 result rounded, bf16 SDDMM
    operands bit for bit the fp32 kernel on the widened operands); then
@@ -428,7 +430,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the single-pass body at d = 512 (BH = 32, bf16) and at the
    absorbed-MLA shape (BH = 128 over one KV head, d = 576, dv = 512,
    bf16; on no path), the fp32 body at qwen3-0.6b's prefill shape (BH =
-   64 over 32, d = 128) and the fp32 d-sliced body at d = 512 (BH =
+   64 over 32, d = 128) and the fp32 single-pass body at d = 512 (BH =
    32).  The FL-slice entries of phases 3 and 5 also time
    SpDMM's bf16 store and SDDMM's bf16 store and bf16 operands, each
    beside the one PyTorch call of the same function where PyTorch takes
@@ -451,6 +453,11 @@ fp32 forward runs of phase 20, the ZeRO-1 steps and the pipeline of
 phase 21, the real train steps of phase 22 and the six examples of
 phase 23, read back from their processes),
 each counted from zero just before the path runs and read just after.
+The script also tallies its own flash calls on the card by the body
+``ops.flash_body`` names (``FLASH_TALLY``, the examples' in their
+processes), apart for the driven paths, for their timed or profiled
+repeats and for the kernel checks and timed rows, and prints them per
+body before the last lines.
 
 Kernel times are device times: each trial queues a spin kernel first, so
 the host enqueues 20 back-to-back calls while the device is busy, and a
@@ -535,12 +542,67 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+class FlashTally:
+    """The script's own count of ``ops.flash_attention`` calls on the
+    card, by the body ``ops.flash_body`` names, in three buckets: "paths"
+    (the driven paths, their warm-up and comparison runs included),
+    "timing" (the repeated calls of a timed or profiled path run) and
+    "checks" (a kernel held to its plain version, a timed kernel row).
+    ``install`` wraps the wrapper once; ``attention_as`` and the models
+    see the wrapped one."""
+
+    def __init__(self):
+        self.counts = {"paths": {}, "timing": {}, "checks": {}}
+        self.bucket = "paths"
+
+    def install(self, ops):
+        real = ops.flash_attention
+
+        def counted(q, k, v, *args, **kwargs):
+            if q.device.type == "cuda":
+                try:
+                    body = ops.flash_body(q.dtype, q.shape[-1], v.shape[-1])
+                except (TypeError, ValueError):
+                    body = "refused"
+                got = self.counts[self.bucket]
+                got[body] = got.get(body, 0) + 1
+            return real(q, k, v, *args, **kwargs)
+        ops.flash_attention = counted
+
+    @contextlib.contextmanager
+    def into(self, bucket):
+        """Count into ``bucket`` while open; a path's timing inside a
+        kernel check stays a check."""
+        prev = self.bucket
+        if not (bucket == "timing" and prev == "checks"):
+            self.bucket = bucket
+        try:
+            yield
+        finally:
+            self.bucket = prev
+
+
+FLASH_TALLY = FlashTally()
+
+
+def tallied_as(bucket):
+    """``fn``'s flash calls count into ``bucket`` of ``FLASH_TALLY``."""
+    def wrap(fn):
+        def wrapped(*args, **kwargs):
+            with FLASH_TALLY.into(bucket):
+                return fn(*args, **kwargs)
+        wrapped.__name__, wrapped.__doc__ = fn.__name__, fn.__doc__
+        return wrapped
+    return wrap
+
+
 def bound_ms(nbytes: float, flops: float, peak_flop_s=PEAK_FP32_FLOP_S):
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
     t_o = flops / peak_flop_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+@tallied_as("timing")
 def median_ms(torch, fn, reps: int = 5, launches: int = 20) -> float:
     """Device time of one ``fn()`` call: the median over ``reps`` trials of
     (event pair around ``launches`` back-to-back calls) / ``launches``.
@@ -613,18 +675,14 @@ SP_KERNEL = "flash_bf16_sp_kernel"      # the single-pass body past d = 256
 SP_INSTANTIATIONS = 3                   # (512, 256 / 512), (576, 512)
 
 
-def ws_nvcc_report(report: str, kernel: str = WS_KERNEL) -> dict:
-    """A setmaxnreg flash body's lines (``kernel``: the warp-specialised or
-    the single-pass one) of an ``nvcc -Xptxas -v`` report: per
-    instantiation "DQK=.. DV=.." its registers a thread at entry (before
-    ``setmaxnreg``) and spill bytes; and every ptxas warning that names
-    ``setmaxnreg`` or ``wgmma`` (C7508: setmaxnreg ignored; wgmma
-    serialized)."""
+def nvcc_rows(report: str, key_of) -> dict:
+    """Registers a thread and spill bytes per kernel instantiation in an
+    ``nvcc -Xptxas -v`` report, keyed by ``key_of(line)`` on a line that
+    names an entry function (None: not one of the kernels read)."""
     rows, cur = {}, None
     for ln in report.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            m = re.search(kernel + r"ILi(\d+)ELi(\d+)E", ln)
-            cur = f"DQK={m.group(1)} DV={m.group(2)}" if m else None
+            cur = key_of(ln)
             if cur:
                 rows.setdefault(cur, {})
         elif cur and "spill stores" in ln:
@@ -635,6 +693,20 @@ def ws_nvcc_report(report: str, kernel: str = WS_KERNEL) -> dict:
         elif cur and re.search(r"Used \d+ registers", ln):
             rows[cur]["registers"] = int(
                 re.search(r"Used (\d+) registers", ln).group(1))
+    return rows
+
+
+def ws_nvcc_report(report: str, kernel: str = WS_KERNEL) -> dict:
+    """A setmaxnreg flash body's lines (``kernel``: the warp-specialised or
+    the single-pass one) of an ``nvcc -Xptxas -v`` report: per
+    instantiation "DQK=.. DV=.." its registers a thread at entry (before
+    ``setmaxnreg``) and spill bytes; and every ptxas warning that names
+    ``setmaxnreg`` or ``wgmma`` (C7508: setmaxnreg ignored; wgmma
+    serialized)."""
+    def key_of(ln):
+        m = re.search(kernel + r"ILi(\d+)ELi(\d+)E", ln)
+        return f"DQK={m.group(1)} DV={m.group(2)}" if m else None
+    rows = nvcc_rows(report, key_of)
     warns = [ln.strip() for ln in report.splitlines()
              if "warning" in ln.lower() and ("setmaxnreg" in ln
                                              or "wgmma" in ln
@@ -669,6 +741,43 @@ def ws_nvcc_check(report: str, kernel: str = WS_KERNEL,
     if any("setmaxnreg" in w or "C7508" in w for w in got["warnings"]):
         fail(f"{kernel}: ptxas ignored setmaxnreg: {got['warnings']}")
     return got
+
+
+F32_KERNEL = re.compile(r"(flash_f32_(?:sp_)?kernel)I(\w*?)EEv")
+F32_INSTANTIATIONS = 12                 # (DQK, DV) of the fp32 body: (32,
+                                        # 32), (64, 64), (128, 128), (256,
+                                        # 128 / 256); and the single pass;
+                                        # each with both output types
+
+
+def f32_nvcc_check(report: str) -> dict:
+    """Print the fp32 flash bodies' registers a thread and spill bytes
+    per instantiation (``flash_f32_kernel<DQK, DV, out>``,
+    ``flash_f32_sp_kernel<out>``) from the flash build's nvcc report; fail
+    if one spills or is missing.  A cached build (no report) is said so
+    and not checked."""
+    if report.strip() == "cached":
+        log("nvcc fp32 flash bodies: cached build, no report in this run")
+        return {"cached": True}
+    def key_of(ln):
+        m = F32_KERNEL.search(ln)
+        if not m:
+            return None
+        args = re.findall(r"Li(\d+)E", m.group(2))
+        args.append("bf16" if "bfloat16" in m.group(2) else "fp32")
+        return f"{m.group(1)}<{', '.join(args)}>"
+    rows = nvcc_rows(report, key_of)
+    for key, r in sorted(rows.items()):
+        log(f"nvcc {key}: {r.get('registers')} registers a thread, "
+            f"{r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads")
+    if len(rows) != F32_INSTANTIATIONS:
+        fail(f"fp32 flash bodies: {len(rows)} instantiations in the nvcc "
+             f"report, expected {F32_INSTANTIATIONS}")
+    if any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+           for r in rows.values()):
+        fail(f"fp32 flash bodies spill: {rows}")
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -1290,6 +1399,7 @@ def _busy_us(ivs) -> float:
     return busy
 
 
+@tallied_as("timing")
 def profile_call(torch, fn, label: str, split=None, out=None, cpu=True):
     """``fn()`` under torch.profiler: device time by kernel name (with
     each kernel's launches and their median and longest duration) and the
@@ -3420,6 +3530,7 @@ GRANITE_B, GRANITE_T = 4, 2048
 GRANITE_DECODE_LAYERS = 4       # the fp32 witness: weights near 5 GB
 
 
+@tallied_as("checks")
 def flash_at_shape(torch, ops, ref, cfg, b, t, label, window=0):
     """The flash kernel at ``cfg``'s attention shape for b sequences of
     t tokens (bf16, causal, under ``window`` when > 0; random q / k / v
@@ -4140,6 +4251,7 @@ def drive_serve(torch, arch, label, cfg=None):
     return float(m.group(1)), float(m.group(3)), drv_s
 
 
+@tallied_as("checks")
 def flash_noncausal_rows(torch, ops, ref):
     """The kernel's non-causal mode at the two shapes the new paths give
     it: llama-3.2-vision's cross layers at B=4 (128 query heads over 32 KV
@@ -4533,6 +4645,7 @@ XLSTM_TRAIN_B, XLSTM_TRAIN_T, XLSTM_TRAIN_STEPS = 2, 1024, 2
 MLSTM_LONG_T = 4096             # one mLSTM layer's gradient, finite
 
 
+@tallied_as("timing")
 def loop_cost(torch, label, fn, steps):
     """A host-paced piece of the model (a scan's loop): the synchronized
     wall ms of ``fn()`` (median of 3 after a warm-up), and one call under
@@ -5142,6 +5255,7 @@ def kimi_phase(torch, ops, ref):
                         "serve_decode_ms_per_token": srv[1]}
 
 
+@tallied_as("checks")
 def mla_flash_row(torch, ops, ref, cfg, b, t):
     """The flash kernel as MLA calls it at b x t: BH = b heads, G = 1, dqk
     = qk_nope + qk_rope (192), V at its own width v_head_dim (128), bf16,
@@ -5344,6 +5458,7 @@ def sdpa_yardstick(torch, q, k, v, window=0, causal=True):
         "KV heads repeated (no enable_gqa)" + how
 
 
+@tallied_as("checks")
 def flash_kernel_phase(torch, ops, ref):
     """The flash kernel against its plain version on the JAX sweep, its
     bf16 case, ragged and grouped-head cases, gemma3's head dims and
@@ -6092,10 +6207,17 @@ MLA_ABS_BH, MLA_ABS_D, MLA_ABS_DV = 128, 576, 512
 # (d, dv) of the single-pass body at its instantiations' edges beyond
 # CONTRACT_DS (dv = d there), in every mode; bf16.
 CONTRACT_SP = ((330, 100), (385, 256), (513, 512), (576, 512), (576, 256))
+# ... in fp32 too, and just past the fp32 single-pass body's reach (the
+# fp32 d-sliced body).
+CONTRACT_F32 = CONTRACT_SP + ((576, 513), (577, 512))
+# (d, dv) whose fp32 staged route (bases 4 bytes past 16: 4-byte copies)
+# is held bit for bit to the 16-byte copies: each fp32 body's widths.
+CONTRACT_F32_STAGED = ((128, 128), (192, 128), (256, 256), (WIDE_D, WIDE_D),
+                       (576, 512))
 # fp32 rows timed beside fp32 SDPA: (label, query heads, KV heads, d), T =
 # WIDE_T, causal.
 FP32_ROWS = (("fp32 body, qwen3-0.6b prefill", 64, 32, 128),
-             ("fp32 d-sliced body", WIDE_BH, WIDE_BH, WIDE_D))
+             ("fp32 single-pass body", WIDE_BH, WIDE_BH, WIDE_D))
 OUT_DTYPE_TOL = (2e-2, 1e-2)    # JAX's bf16 sweep tolerance (rtol, atol)
 # (script, arguments): the user entry points, at their JAX twins' sizes.
 EXAMPLES = (("torch_quickstart.py",), ("torch_serve_gnn.py",),
@@ -6106,6 +6228,14 @@ EXAMPLE_TIMEOUT = 300
 # Runs an example's main() and prints the kernel launches it made.
 EXAMPLE_RUNNER = (
     "import json, runpy, sys\n"
+    "from repro_torch.kernels import ops\n"
+    "bodies, real = {}, ops.flash_attention\n"
+    "def counted(q, k, v, *a, **kw):\n"
+    "    if q.device.type == 'cuda':\n"
+    "        b = ops.flash_body(q.dtype, q.shape[-1], v.shape[-1])\n"
+    "        bodies[b] = bodies.get(b, 0) + 1\n"
+    "    return real(q, k, v, *a, **kw)\n"
+    "ops.flash_attention = counted\n"
     "path = sys.argv[1]\n"
     "sys.argv = sys.argv[1:]\n"
     "try:\n"
@@ -6114,7 +6244,8 @@ EXAMPLE_RUNNER = (
     "    if e.code not in (0, None):\n"
     "        raise\n"
     "from repro_torch.kernels import ops\n"
-    "print('LAUNCHES ' + json.dumps(ops.launch_totals()))\n")
+    "print('LAUNCHES ' + json.dumps(ops.launch_totals()))\n"
+    "print('FLASH_BODIES ' + json.dumps(bodies))\n")
 
 
 def start_examples(tmp):
@@ -6136,7 +6267,8 @@ def start_examples(tmp):
 
 def finish_examples(procs):
     """Wait for every example; fail on a non-zero exit.  Returns name ->
-    {"seconds", "launches"} and the launches summed over all six."""
+    {"seconds", "launches"} and the launches summed over all six (and,
+    under "flash_bodies", their flash calls on the card by body)."""
     t0, out, total = time.perf_counter(), {}, {}
     try:
         for name, (proc, log_path) in procs.items():
@@ -6156,6 +6288,10 @@ def finish_examples(procs):
             ran = json.loads(found[-1])
             for k, n in ran.items():
                 total[k] = total.get(k, 0) + n
+            bodies = re.findall(r"^FLASH_BODIES (\{.*\})$", text, re.M)
+            for b, n in (json.loads(bodies[-1]) if bodies else {}).items():
+                total.setdefault("flash_bodies", {})
+                total["flash_bodies"][b] = total["flash_bodies"].get(b, 0) + n
             out[name] = {"seconds": time.perf_counter() - t0,
                          "launches": ran}
             lines = text.strip().splitlines()
@@ -6191,15 +6327,18 @@ def sdpa_backend(torch, fn):
     return "not found"
 
 
+@tallied_as("checks")
 def contract_flash_cases(torch, ops, ref, qkv):
-    """Flash past d = 256 against the plain version in every mode (the
-    single-pass body and both d-sliced bodies), V also narrower than d for
-    the single-pass body, and its staged route (bases off 16 bytes) bit for
-    bit its TMA route; returns the number of cases."""
+    """Flash past d = 256 against the plain version in every mode (both
+    single-pass bodies and both d-sliced bodies), V also narrower than d
+    for the single-pass bodies, their staged routes (bases off 16 bytes)
+    bit for bit their TMA / 16-byte-copy routes, and the fp32 body's
+    likewise; returns the number of cases."""
     n = 0
     cases = [(d, d, dt) for d in CONTRACT_DS
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(d, dv, torch.bfloat16) for d, dv in CONTRACT_SP]
+    cases += [(d, dv, torch.float32) for d, dv in CONTRACT_F32]
     for d, dv, dt in cases:
         for label, tq, tk, h, g, causal, window in CONTRACT_MODES:
             q, k, v = qkv(h, tq, tk, d, dt, g)
@@ -6215,22 +6354,31 @@ def contract_flash_cases(torch, ops, ref, qkv):
             else:
                 check_rows(torch, name, got, want)
             n += 1
-    for d, dv in ((WIDE_D, WIDE_D), (MLA_ABS_D, MLA_ABS_DV)):
-        q, k, v = qkv(4, 300, 300, d, torch.bfloat16, 2)
+    staged = [(d, dv, torch.bfloat16)
+              for d, dv in ((WIDE_D, WIDE_D), (MLA_ABS_D, MLA_ABS_DV))]
+    staged += [(d, dv, torch.float32) for d, dv in CONTRACT_F32_STAGED]
+    for d, dv, dt in staged:
+        q, k, v = qkv(4, 300, 300, d, dt, 2)
         v = v[..., :dv].contiguous()
         off = []
-        for t in (q, k, v):    # the same values from 2 bytes past 16
+        for t in (q, k, v):    # the same values from one element past 16
             buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
             off.append(buf[1:].view(t.shape))
             off[-1].copy_(t)
-        if not torch.equal(ops.flash_attention(*off, True),
-                           ops.flash_attention(q, k, v, True)):
-            fail(f"flash d={d} dv={dv}: the staged route's bits differ "
-                 "from the TMA route's")
+        got = ops.flash_attention(*off, True)
+        if not torch.equal(got, ops.flash_attention(q, k, v, True)):
+            fail(f"flash d={d} dv={dv} {str(dt)[6:]} "
+                 f"({ops.flash_body(dt, d, dv)}): the staged route's bits "
+                 "differ from the TMA / 16-byte-copy route's")
+        if dt == torch.float32:
+            check_close(torch, f"flash d={d} dv={dv} fp32 staged route", got,
+                        ref.flash_attention_plain(q, k, v, True),
+                        KERNEL_RTOL, KERNEL_ATOL)
         n += 1
     return n
 
 
+@tallied_as("checks")
 def out_dtype_cases(torch, ops, ref, qkv, gen):
     """fp32 -> bf16 and bf16 -> fp32 on flash (both bodies), SpDMM and
     SDDMM against the plain versions; returns the number of cases."""
@@ -6302,8 +6450,10 @@ def contracts_phase(torch, ops, ref):
         try:     # the kernel checks run while the examples do
             n_flash = contract_flash_cases(torch, ops, ref, qkv)
             log(f"flash past d = 256: {n_flash} cases (d in {CONTRACT_DS},"
-                " fp32 and bf16, causal / non-causal / windowed / G=4, "
-                "ragged) within tolerance")
+                f" fp32 and bf16; (d, dv) in {CONTRACT_SP} in both, "
+                f"{CONTRACT_F32[len(CONTRACT_SP):]} in fp32; causal / "
+                "non-causal / windowed / G=4, ragged; the staged routes) "
+                "within tolerance")
             n_out = out_dtype_cases(torch, ops, ref, qkv, gen)
             log(f"out_dtype: {n_out} flash / SpDMM / SDDMM cases within "
                 f"rtol {OUT_DTYPE_TOL[0]} / atol {OUT_DTYPE_TOL[1]}, each "
@@ -6321,12 +6471,13 @@ def contracts_phase(torch, ops, ref):
 
     # Two identical launches, then the timed rows, each counted from zero
     # around the one call that drives it.
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = qkv(8, 700, 700, WIDE_D, dt, 2)
-        if not torch.equal(ops.flash_attention(q, k, v, True),
-                           ops.flash_attention(q, k, v, True)):
-            fail(f"flash d={WIDE_D} {dt}: two launches differ")
-    del q, k, v
+    with FLASH_TALLY.into("checks"):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(8, 700, 700, WIDE_D, dt, 2)
+            if not torch.equal(ops.flash_attention(q, k, v, True),
+                               ops.flash_attention(q, k, v, True)):
+                fail(f"flash d={WIDE_D} {dt}: two launches differ")
+        del q, k, v
     bf16, fp32 = torch.bfloat16, torch.float32
     entries, rows = [], {}
     for label, bh, kvh, d, dv, dt in (
@@ -6345,6 +6496,7 @@ def contracts_phase(torch, ops, ref):
         "examples": examples, "timed_rows": rows, "seconds": seconds}
 
 
+@tallied_as("checks")
 def timed_flash_row(torch, ops, ref, gen, label, bh, kvh, d, dv, dt):
     """One timed flash row at T = WIDE_T, causal, with ``bh`` query heads
     over ``kvh`` KV heads: the body ``ops.flash_body`` names, which the C
@@ -6446,6 +6598,7 @@ def main() -> int:
 
     from repro_torch.core import graph as G
     from repro_torch.kernels import build, ops, ref
+    FLASH_TALLY.install(ops)
 
     t_start = time.perf_counter()
     card = card_line()
@@ -6458,6 +6611,7 @@ def main() -> int:
     ws_build = ws_nvcc_check(build.build_log.get("flash_attention", ""))
     sp_build = ws_nvcc_check(build.build_log.get("flash_attention", ""),
                              SP_KERNEL, SP_INSTANTIATIONS)
+    f32_build = f32_nvcc_check(build.build_log.get("flash_attention", ""))
     gemm_build = gemm_bf16_nvcc_check(build.build_log.get("gemm", ""))
 
     gemm_entry = kernel_phase(torch, ops, ref)
@@ -6552,6 +6706,7 @@ def main() -> int:
     wide_entries, ex_launches, contracts = contracts_phase(torch, ops, ref)
     log(f"contracts phase (examples, flash past d = 256, out_dtype): "
         f"{time.perf_counter() - t7:.1f} s")
+    ex_bodies = ex_launches.pop("flash_bodies", {})
     flash_nc["vision cross"]["launches"] = vision_nc + cross_nc["vision"]
     flash_nc["whisper encoder"]["launches"] = (whisper_nc
                                                + cross_nc["whisper"])
@@ -6609,6 +6764,21 @@ def main() -> int:
                                                "padded_bound_ms",
                                                "bf16_store")}
     kernels = [{k: e[k] for k in order} for e in kernels]
+    bodies = {**{k: dict(v) for k, v in FLASH_TALLY.counts.items()},
+              "examples": ex_bodies}
+    for body in sorted(set().union(*bodies.values())):
+        log(f"flash calls on the card, {body} body: "
+            f"{bodies['paths'].get(body, 0)} on the driven paths in this "
+            f"process (their warm-up and comparison runs included), "
+            f"{ex_bodies.get(body, 0)} in the examples, "
+            f"{bodies['timing'].get(body, 0)} in timed or profiled repeats "
+            f"of a path, {bodies['checks'].get(body, 0)} in kernel checks "
+            "and timed kernel rows")
+    log(f"flash calls on the paths and in the examples by this tally: "
+        f"{sum(bodies['paths'].values()) + sum(ex_bodies.values())} "
+        f"(the wrapper's launches in the paths' counted windows: "
+        f"{flash_entry['launches']}; a captured call counts here, its "
+        "replays there)")
     result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}
@@ -6659,6 +6829,8 @@ def main() -> int:
                        "bf16_kernels": bf16_kernels,
                        "flash_ws_build": ws_build,
                        "flash_sp_build": sp_build,
+                       "flash_f32_build": f32_build,
+                       "flash_bodies": bodies,
                        "gemm_bf16_build": gemm_build,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,

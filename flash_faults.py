@@ -19,12 +19,17 @@ reads:
   heads, T=2048, d=240, bf16, causal), which the warp-specialised body
   past d = 128 runs, and at d = 512 (BH=8 over 4 KV heads, T=2048, bf16,
   causal), which the single-pass body past d = 256 runs;
+* fp32 at d = 128 (BH=16 over 8 KV heads, T=2048, causal), which the
+  fp32 body runs, and at d = 512 (BH=8 over 4), which the fp32
+  single-pass body runs: ``chip_smoke.check_close``'s rtol 1e-5 / atol
+  1e-4 against the plain version;
 * the last-position logits of a qwen3-0.6b prefill (bf16, B=4, T=2048,
   weights from seed 0, as in ``chip_smoke.py``) against the same model
   with plain attention, beside ``chip_smoke.py``'s 2e-2 limit.
 
 It exits non-zero if the real kernel fails a check or a fault passes
-``check_rows`` at all three shapes.  The last line of the output is the readings as JSON.
+``check_rows`` at all three bf16 shapes and the fp32 check at both fp32
+shapes.  The last line of the output is the readings as JSON.
 Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
@@ -119,10 +124,57 @@ FAULTS = {
         "      float mf_lo = m_lo, mf_hi = m_hi;\n"
         "      ws_scores<BK>(s, wg ? mf_lo : m_lo, wg ? mf_hi : m_hi, l_lo, "
         "l_hi, a_lo, a_hi, kt * BK, q0,\n"),
+    "f32_slot_reused_early": (
+        "fp32 body (d <= 256): the next tile's K and V are copied into the "
+        "slot this tile's products are still reading",
+        "        f32_stage_kv<DQK, DV>(k_s, v_s, (it + SL - 1) % SL, kb, vb,",
+        "        f32_stage_kv<DQK, DV>(k_s, v_s, it % SL, kb, vb,"),
+    "f32_stale_max": (
+        "fp32 body (d <= 256): the running max is not updated past the "
+        "first tile",
+        "        const float alpha = exp2f(m[i] - mn);   // 1 where the max "
+        "held\n        m[i] = mn;\n",
+        "        const float alpha = exp2f(m[i] - mn);   // 1 where the max "
+        "held\n        if (kt == kt0) m[i] = mn;\n"),
+    "f32_diagonal_unmasked": (
+        "fp32 body (d <= 256): the mask skipped on the causal diagonal "
+        "tiles (applied only at the ragged end of Tk and the window's "
+        "edge)",
+        "      if ((causal && k0 + KB - 1 > wq0) || k0 + KB > tk ||\n"
+        "          (window > 0 && wq0 + WR - 1 - k0 >= window)) {",
+        "      if (k0 + KB > tk ||\n"
+        "          (window > 0 && wq0 + WR - 1 - k0 >= window)) {"),
+    "f32sp_stale_max": (
+        "fp32 single-pass body (d > 256): the running max is not updated "
+        "past the first tile",
+        "          const float alpha = exp2f(m[i] - mn);   // 1 where the max "
+        "held\n          m[i] = mn;\n",
+        "          const float alpha = exp2f(m[i] - mn);   // 1 where the max "
+        "held\n          if (pc < ppt) m[i] = mn;\n"),
+    "f32sp_diagonal_unmasked": (
+        "fp32 single-pass body (d > 256): the mask skipped on the causal "
+        "diagonal tiles",
+        "        if ((causal && k0 + KB - 1 > q0) || k0 + KB > tk ||",
+        "        if (k0 + KB > tk ||"),
 }
 # The wide readings: gemma3-12b's prefill heads at B=4, and d = 512 (query
 # heads, KV heads, d).
 WIDE_SHAPES = ((64, 32, 240), (8, 4, 512))
+# The fp32 readings (query heads, KV heads, d; T = 2048, causal): the fp32
+# body at qwen3-0.6b's head dim and the fp32 single-pass body at d = 512,
+# each within rtol 1e-5 / atol 1e-4 of the plain version or not.
+F32_SHAPES = ((16, 8, 128), (8, 4, 512))
+
+
+def f32_reading(torch, cs, got, want):
+    """``chip_smoke.check_close``'s fp32 test (rtol 1e-5 / atol 1e-4)
+    as a reading: whether it passes, and the largest excess over the
+    limit."""
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    lim = cs.KERNEL_ATOL + cs.KERNEL_RTOL * want.abs()
+    ok = bool(torch.isfinite(got).all()) and not bool((err > lim).any())
+    return {"check_close_passes": ok, "max_abs_err": float(err.max())}
 
 
 def main() -> int:
@@ -167,6 +219,14 @@ def main() -> int:
         wide.append((wd, wq, wk, wv,
                      ref.flash_attention_plain(wq, wk, wv, True).float()))
 
+    f32 = []
+    for fbh, fkv, fd in F32_SHAPES:
+        fq = torch.randn(fbh, t, fd, generator=gen, device="cuda")
+        fk, fv = (torch.randn(fkv, t, fd, generator=gen, device="cuda")
+                  for _ in range(2))
+        f32.append((fd, fq, fk, fv,
+                    ref.flash_attention_plain(fq, fk, fv, True)))
+
     cfg = get_config(cs.LM_ARCH)
     model = build_model(cfg, seed=0)
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
@@ -201,6 +261,10 @@ def main() -> int:
                     "check_rows_passes": (w_whole <= cs.FLASH_BF16_WHOLE
                                           and w_row <= cs.FLASH_BF16_ROW)}
                 del wgot
+            at_f32 = {}
+            for fd, fq, fk, fv, fwant in f32:
+                at_f32[fd] = f32_reading(
+                    torch, cs, ops.flash_attention(fq, fk, fv, True), fwant)
             logits = prefill(model, batch).float()
             rel = float((logits - plain).norm() / plain.norm())
         finally:
@@ -210,7 +274,8 @@ def main() -> int:
                           "rel_l2_whole": r_whole, "rel_l2_worst_row": r_row,
                           "check_rows_passes": rows_ok,
                           "prefill_rel_l2": rel,
-                          **{f"d{wd}": r for wd, r in at_d.items()}}
+                          **{f"d{wd}": r for wd, r in at_d.items()},
+                          **{f"fp32_d{fd}": r for fd, r in at_f32.items()}}
         what = "the kernel" if name == "kernel" else FAULTS[name][0]
         cs.log(f"{name} ({what}): max|err| {float(err.max()):.3e}, "
                f"elementwise 3e-2 {'passes' if elem_ok else 'fails'}; "
@@ -222,14 +287,20 @@ def main() -> int:
                    f", relative L2 {r['rel_l2_whole']:.3e} whole, "
                    f"{r['rel_l2_worst_row']:.3e} worst row: check_rows "
                    f"{'passes' if r['check_rows_passes'] else 'fails'}"
-                   for wd, r in at_d.items()))
+                   for wd, r in at_d.items()) + "".join(
+                   f"; fp32 at d = {fd}: max|err| {r['max_abs_err']:.3e}, "
+                   f"rtol 1e-5 / atol 1e-4 "
+                   f"{'passes' if r['check_close_passes'] else 'fails'}"
+                   for fd, r in at_f32.items()))
         wide_ok = all(r["check_rows_passes"] for r in at_d.values())
+        f32_ok = all(r["check_close_passes"] for r in at_f32.values())
         if name == "kernel":
-            if not (elem_ok and rows_ok and wide_ok and rel <= cs.LM_REL_L2
+            if not (elem_ok and rows_ok and wide_ok and f32_ok
+                    and rel <= cs.LM_REL_L2
                     and all(r["elementwise_3e-2_passes"]
                             for r in at_d.values())):
                 bad.append(name)
-        elif rows_ok and wide_ok:
+        elif rows_ok and wide_ok and f32_ok:
             bad.append(name)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

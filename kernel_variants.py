@@ -63,6 +63,19 @@ rows, each build's two launches bit for bit, and timed at
 shape, BH = 128 over one KV head, d = 576, dv = 512) beside
 ``F.scaled_dot_product_attention`` and the bound.
 
+The fp32 flash bodies (``--only flash_f32``; variants with one ring slot
+instead of two, 64 query rows a CTA instead of 128, 32-key slots (the
+smaller micro-tile) and, past d = 256, 32-key tiles, each a text edit
+of
+``flash_attention.cu``, and with ``--parent`` the parent tree's flash
+source) are held to the plain version at rtol 1e-5 / atol 1e-4 on
+``chip_smoke.CONTRACT_MODES`` at ``FLASH_F32_CHECKED`` and at the timed
+rows, each build's bits compared with the checkout's and with a second
+launch of its own, and timed at ``FLASH_F32_TIMED`` (qwen3-0.6b's prefill
+heads, BH = 64 over 32, d = 128; d = 512 at BH = 32; T = 2048, causal)
+beside fp32 ``F.scaled_dot_product_attention`` (``enable_gqa=True`` and on
+KV heads repeated) and the bound.
+
 The kernel in the checkout is timed first and last (change, variants,
 change), so its two readings show the drift within the call.  It exits
 non-zero if a build fails, the checkout's kernel or a variant fails its
@@ -273,6 +286,29 @@ VARIANTS = {
                      [("constexpr int SP_SLOTS = 2;",
                        "constexpr int SP_SLOTS = 1;")]),
     },
+    # The fp32 flash bodies (flash_f32_kernel up to d = 256,
+    # flash_f32_sp_kernel past it), each a text edit of flash_attention.cu
+    # called through its entry.
+    "flash_f32": {
+        "one_slot": ("fp32 bodies: one slot a ring (each tile's / piece's "
+                     "loads exposed behind a second barrier)",
+                     [("constexpr int F32_SLOTS = 2;",
+                       "constexpr int F32_SLOTS = 1;"),
+                      ("constexpr int F32SP_SLOTS = 2;",
+                       "constexpr int F32SP_SLOTS = 1;")]),
+        "rows64": ("fp32 body: four warps a CTA, 64 query rows at d <= 128 "
+                   "(32 past it), so K and V are read twice as often",
+                   [("constexpr int F32_WARPS = 8;",
+                     "constexpr int F32_WARPS = 4;")]),
+        "bk32": ("fp32 body: 32-key slots at d <= 128, the smaller "
+                 "micro-tile (8 rows x 2 keys of S a lane)",
+                 [("constexpr int F32_BK = 64;",
+                   "constexpr int F32_BK = 32;")]),
+        "sp_bk32": ("single-pass body: 32-key tiles (4 rows x 4 keys of S "
+                    "a lane), twice the barriers a key",
+                    [("constexpr int F32SP_BK = 64;",
+                      "constexpr int F32SP_BK = 32;")])
+    },
 }
 # Planted faults in the GEMM kernel's bf16 body, each of which
 # ``chip_smoke.gemm_bf16_check`` must fail: name -> (what it does, edits).
@@ -303,11 +339,13 @@ GEMM_FAULTS = {
 }
 # Variant keys built from another kernel's source, and the entry point
 # their copies are called through.
-SOURCE = {"gemm_bf16": "gemm", "flash_wide": "flash_attention"}
-ENTRY = {"gemm_bf16": "gemm_mixed", "flash_wide": "flash_attention"}
+SOURCE = {"gemm_bf16": "gemm", "flash_wide": "flash_attention",
+          "flash_f32": "flash_attention"}
+ENTRY = {"gemm_bf16": "gemm_mixed", "flash_wide": "flash_attention",
+         "flash_f32": "flash_attention"}
 # Kernels whose parent source is built as the variant "parent".
 PARENT_KERNELS = ("gemm", "gemm_bf16", "sddmm", "flash_attention",
-                  "flash_wide")
+                  "flash_wide", "flash_f32")
 # A flash entry without the dv argument (the signature before V took its
 # own width): the parent's, when its source has no dv.
 FLASH_NO_DV = "int d, int causal, int window,"
@@ -661,6 +699,104 @@ def flash_wide_phase(torch, cs, ops, ref, fns):
     return out
 
 
+# The fp32 bodies, timed: (label, query heads, KV heads, T, d, dv, the
+# body): chip_smoke.py's two fp32 rows (causal).
+FLASH_F32_TIMED = [("qwen3-0.6b", 64, 32, 2048, 128, 128, "fp32"),
+                   ("d=512", 32, 32, 2048, 512, 512, "fp32 single-pass")]
+# ... and held to the plain version (d, dv) in each of chip_smoke.py's
+# CONTRACT_MODES: each instantiation and the staged route's widths.
+FLASH_F32_CHECKED = ((33, 33), (64, 64), (128, 128), (192, 128),
+                     (255, 255), (320, 100), (512, 512), (576, 512))
+
+
+def flash_f32_phase(torch, cs, ops, ref, fns):
+    """Each build of the fp32 bodies (and the parent's: its fp32 body up
+    to d = 256, its d-sliced body past it) held to the plain version at
+    rtol 1e-5 / atol 1e-4 on ``chip_smoke.CONTRACT_MODES`` at
+    ``FLASH_F32_CHECKED`` and at the timed rows, its bits compared with
+    the checkout's bodies and with a second launch of its own, and timed
+    at ``FLASH_F32_TIMED`` (change, variants, parent, change) beside fp32
+    ``F.scaled_dot_product_attention`` (``enable_gqa`` and on repeated KV
+    heads) and the bound.  Fails if a build fails its check or two of its
+    launches differ."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    names = [n for k, n in fns if k == "flash_f32"]
+    order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
+
+    def qkv(bh, kvh, tq, tk, d, dv):
+        return (torch.randn(bh, tq, d, generator=gen, device="cuda"),
+                *(torch.randn(kvh, tk, n, generator=gen, device="cuda")
+                  for n in (d, dv)))
+
+    def run(nm, q, k, v, causal, window=0):
+        with entry_as(ops, fns[("flash_f32", nm)]):
+            return ops.flash_attention(q, k, v, causal, window)
+
+    n_checked, bits = 0, {nm: True for nm in names}
+    for d, dv in FLASH_F32_CHECKED:
+        for label, tq, tk, h, g, causal, window in cs.CONTRACT_MODES:
+            q, k, v = qkv(h, h // g, tq, tk, d, dv)
+            want = ref.flash_attention_plain(q, k, v, causal, window)
+            mine = run("change", q, k, v, causal, window)
+            for nm in names:
+                got = run(nm, q, k, v, causal, window)
+                cs.check_close(torch, f"flash {nm} d={d} dv={dv} {label}",
+                               got, want, cs.KERNEL_RTOL, cs.KERNEL_ATOL)
+                bits[nm] &= bool(torch.equal(got, mine))
+                n_checked += 1
+    log(f"fp32 flash: {len(names)} builds within rtol {cs.KERNEL_RTOL} / "
+        f"atol {cs.KERNEL_ATOL} on "
+        f"{len(FLASH_F32_CHECKED) * len(cs.CONTRACT_MODES)} cases each; "
+        "bit for bit the checkout's bodies on every case: " + ", ".join(
+            f"{nm} {'yes' if ok else 'no'}" for nm, ok in bits.items()))
+    out = {"cases_checked": n_checked, "bits_equal_on_checked": bits}
+    for label, bh, kvh, t, d, dv, body in FLASH_F32_TIMED:
+        if ops.flash_body(torch.float32, d, dv) != body:
+            cs.fail(f"flash fp32 {label}: runs "
+                    f"{ops.flash_body(torch.float32, d, dv)}, not {body}")
+        q, k, v = qkv(bh, kvh, t, t, d, dv)
+        want = ref.flash_attention_plain(q, k, v, True)
+        mine = run("change", q, k, v, True)
+        row = {}
+        for i, nm in enumerate(order):
+            with entry_as(ops, fns[("flash_f32", nm)]):
+                got = ops.flash_attention(q, k, v, True)
+                err = cs.check_close(torch, f"flash {nm} {label}", got,
+                                     want, cs.KERNEL_RTOL, cs.KERNEL_ATOL)
+                if not torch.equal(got, ops.flash_attention(q, k, v, True)):
+                    cs.fail(f"flash {nm} {label}: two launches differ")
+                ms = cs.median_ms(torch, lambda: ops.flash_attention(
+                    q, k, v, True))
+            row[nm if i < len(order) - 1 else "change_again"] = {
+                "ms": ms, "max_abs_err": err,
+                "equal_to_change": bool(torch.equal(got, mine))}
+            del got
+        lib, how = cs.sdpa_yardstick(torch, q, k, v)
+        row["sdpa"] = {"ms": cs.median_ms(torch, lib), "how": how,
+                       "backend": cs.sdpa_backend(torch, lib)}
+        if kvh < bh:
+            kr, vr = (x.repeat_interleave(bh // kvh, dim=0) for x in (k, v))
+            lib_r, _ = cs.sdpa_yardstick(torch, q, kr, vr)
+            row["sdpa_repeated_heads"] = {
+                "ms": cs.median_ms(torch, lib_r),
+                "backend": cs.sdpa_backend(torch, lib_r)}
+            del kr, vr, lib_r
+        b_ms, b_by = cs.flash_bound(bh, t, t, d, True, 4,
+                                    cs.PEAK_FP32_FLOP_S, kv_heads=kvh, dv=dv)
+        row["bound_ms"] = b_ms
+        out[label] = row
+        del q, k, v, want, mine
+        torch.cuda.empty_cache()
+        log(f"flash fp32 {label} (BH={bh} over {kvh}, T={t}, d={d}, "
+            f"dv={dv}, causal; {body}) ms: " + ", ".join(
+                f"{nm} {r['ms']:.4f}" + ("" if r.get("equal_to_change", True)
+                                         else " (bits differ)")
+                for nm, r in row.items() if nm != "bound_ms")
+            + f" (SDPA {how}, backend {row['sdpa']['backend']}); bound "
+            f"{b_ms:.4f} ({b_by})")
+    return out
+
+
 def fl_widest_slice(torch):
     """cols / mask of the widest ELL slice of full-scale Flickr at the
     engine's default geometry (n1 = 4096, n2 = 128)."""
@@ -798,7 +934,7 @@ def main() -> int:
     fns = build_variants(build, args.parent, kernels)
     phases = {"gemm": gemm_phase, "gemm_bf16": gemm_bf16_phase,
               "sddmm": sddmm_phase, "flash_attention": flash_phase,
-              "flash_wide": flash_wide_phase}
+              "flash_wide": flash_wide_phase, "flash_f32": flash_f32_phase}
     result = {"card": card,
               "variants": {k: {n: d for n, (d, _) in v.items()}
                            for k, v in VARIANTS.items() if k in kernels}}

@@ -35,8 +35,10 @@
 // (BH = 32, T = 2048, causal; 0.139 ms) and 584.4 GFLOP at the absorbed-MLA
 // shape (BH = 128 over one KV head, d = 576, dv = 512; 0.591 ms), where a
 // 64-row CTA does 64 flops per byte of K and V it reads through L2.  In
-// fp32 the products run on CUDA cores (67 TFLOP/s): 1.0 ms at qwen3's
-// shape.
+// fp32 the products run on CUDA cores (67 TFLOP/s): 1.03 ms at qwen3's
+// shape, 2.05 ms at d = 512, where a CUDA-core FMA wants at most about a
+// byte of shared memory read (an SM reads 128 bytes and issues 128 fp32
+// FMAs a clock).
 //
 // Design.  Hopper runs blocks in parallel, so the Pallas grid's sequential
 // KV walk becomes a loop inside one CTA per (bh, query tile), with the
@@ -55,7 +57,7 @@
 // masked key: the causal diagonal, the window's lower edge, the ragged end
 // of Tk.  A window needs Tq <= Tk, so every row sees at least its own key
 // and no row is empty.  Every sum runs in one fixed order with no atomics,
-// so results are deterministic.  Five bodies (`flash_body` picks one):
+// so results are deterministic.  Seven bodies (`flash_body` picks one):
 //  * bf16 inputs, d <= 128: tensor cores through wgmma, Hopper's
 //    warpgroup MMA.  A CTA owns 128 query rows, 64 per consumer warpgroup
 //    (K and V are read from L2 once per 128 rows), and one producer warp.
@@ -105,14 +107,36 @@
 //    first, so the CTAs on the card at once share the K and V of a few
 //    heads through L2.  Tensors TMA cannot take are staged by the producer
 //    warpgroup's four warps.
-//  * fp32 inputs: CUDA cores, IEEE fp32 throughout (the fp32 parities hold
-//    it to 2e-5).  256 threads over 64 query rows; thread (rg, cg) owns
-//    query rows 4rg..4rg+3, score columns cg + 16j and output columns
-//    cg + 16j; row max and sum are reduced over the 16 lanes of a row
-//    group by a fixed xor-shuffle tree; P goes through shared memory to
-//    the P.V product, and K and V share one staging buffer (85 KB at
-//    d = 128, two CTAs per SM; 147 KB at d = 256, one).  Loads and math
-//    alternate behind __syncthreads.
+//  * fp32 inputs, d <= 256: CUDA cores, IEEE fp32 throughout (no TF32;
+//    the fp32 parities hold it to 2e-5).  What bounds a CUDA-core body is
+//    the shared memory a lane reads per FMA (an LDS.128 hands 16 bytes to
+//    each of 32 lanes, four 128-byte wavefronts) and the issue slots the
+//    loads take from the FMAs, so the design is register tiles.  Eight
+//    warps; a warp owns 16 query rows (8 past d = 128), a CTA 128 (64);
+//    lane (rg, cg) of a warp (2 x 16) owns 8 rows (4), 4 keys of a 64-key
+//    tile (2 of 32) and 8 of O's columns a 64-column chunk: a step of
+//    Q.K^T reads 8 float4 of Q and 4 of K for 128 FMAs (1.5 bytes an
+//    FMA), one of P.V 8 float4 of P and 8 of V for 256 (1 byte).  K and V
+//    have a ring of two slots each, filled by cp.async (16-byte copies;
+//    4-byte ones, into the same layout, where d or dv is not a multiple
+//    of 4 or a base is off 16 bytes: the staged route, the same bits) one
+//    tile ahead of the math, behind one CTA barrier a tile.  P stays in
+//    its warp (a __syncwarp); a warp skips a tile whose keys are all
+//    masked for its rows.  Q stays in shared memory: 226 KB in all at
+//    DQK = DV = 128 (Q 64 KB, two 33 KB K slots, two 32 KB V slots, P 32
+//    KB), 201 KB at 256.  Instantiations (DQK, DV): (32, 32), (64, 64),
+//    (128, 128), (256, 128), (256, 256).
+//  * fp32 inputs, 256 < d <= 576 and dv <= 512: one pass, O split by
+//    columns.  A CTA owns 64 query rows and its 256 threads two halves;
+//    each half forms S over its 32 columns of every 64-column K piece, the
+//    partial S tiles are swapped through shared memory and summed (both
+//    halves then hold the same bits, m and l), and each half holds half
+//    of O's 64-column chunks (8 rows x 16 columns a lane: 128 fp32 at dv
+//    = 512; S 8 x 4).  Q (64 x 576, 145 KB) stays in shared memory; K
+//    pieces (64 keys x 64 columns) and V pieces (8 keys x 512 columns)
+//    stream through one ring of two slots by cp.async, the staged route
+//    as above, one CTA barrier a piece.  Each S tile is formed once, where
+//    the d-sliced body formed it ceil(dv / 128) times.
 //  * bf16 inputs, 256 < d <= 576 and dv <= 512 (the Pallas kernel takes
 //    any d; DeepSeek-V3's absorbed MLA has d = 576, dv = 512): one pass,
 //    O split by columns.  A CTA owns 64 query rows; two consumer
@@ -124,13 +148,12 @@
 //    shared memory behind named barriers and summed, so both hold the same
 //    S and run the same recurrence, then each runs P.V for its half of O.
 //    Instantiations (DQK, DV): (512, 256), (512, 512), (576, 512).
-//  * past that (d > 576 or dv > 512 in bf16, and fp32 past d = 256): one
-//    CTA per (bh, 64-row query tile, 128-column slice of the output), fp32
-//    on CUDA cores with the fp32 body's layout or bf16 through mma.sync
-//    m16n8k16.  A CTA builds its rows' whole S = Q.K^T from 64-column
-//    chunks of Q and K staged in shared memory, runs the recurrence and
-//    accumulates only its slice of O, so the Q.K^T work is done ceil(dv /
-//    128) times over.  Simple and slow.
+//  * past that (d > 576 or dv > 512, fp32 and bf16): one CTA per (bh,
+//    64-row query tile, 128-column slice of the output), fp32 on CUDA
+//    cores or bf16 through mma.sync m16n8k16.  A CTA builds its rows'
+//    whole S = Q.K^T from 64-column chunks of Q and K staged in shared
+//    memory, runs the recurrence and accumulates only its slice of O, so
+//    the Q.K^T work is done ceil(dv / 128) times over.  Simple and slow.
 // Every body writes out in fp32 or bf16 (`out_dtype`, the Pallas kernel's
 // argument), rounding the fp32 result once at the store.
 // The kernel launches on the caller's stream and allocates nothing.
@@ -143,16 +166,11 @@
 
 namespace {
 
-constexpr int BQ = 64;           // fp32 body: query rows per CTA
-constexpr int BK = 64;           // fp32 body: keys per staged KV tile
+constexpr int BQ = 64;           // d-sliced bodies: query rows per CTA
+constexpr int BK = 64;           // d-sliced bodies: keys per staged KV tile
 constexpr float NEG = -1e30f;    // initial running max (as the Pallas NEG)
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ int kv_tiles(int q0, int tk, int causal) {
-  // Keys after the query tile's last row are masked for every row.
-  const int end = causal ? min(tk, q0 + BQ) : tk;
-  return (end + BK - 1) / BK;
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 // The first KV tile (of `bk` keys) a query tile starting at row q0 walks:
 // under a window W, keys before q0 - W + 1 are masked for every row.
@@ -160,28 +178,13 @@ __device__ __forceinline__ int kv_tile_begin(int q0, int window, int bk) {
   return window > 0 ? max(0, q0 - window + 1) / bk : 0;
 }
 
-// ------------------------------------------------------------------------ //
-// fp32: CUDA cores.
-// ------------------------------------------------------------------------ //
-constexpr int SIMT_THREADS = 256;
-
-template <int DP>
-struct SimtSmem {
-  static constexpr int LD = DP + 4;      // float4-aligned, conflict-free
-  static constexpr int LDP = BK + 4;
-  static constexpr int BYTES = (BQ * LD + BK * LD + BQ * LDP) * 4;
-};
-
-template <int DP>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          int r0, int n_rows, int d) {
-  constexpr int LD = SimtSmem<DP>::LD;
-  for (int e = threadIdx.x; e < BK * DP; e += SIMT_THREADS) {
-    const int r = e / DP, c = e % DP;
-    const int gr = r0 + r;
-    dst[r * LD + c] = (gr < n_rows && c < d) ? src[(long long)gr * d + c]
-                                             : 0.0f;
-  }
+// One past the last KV tile (of `bk` keys) a query tile of `rows` rows
+// from q0 walks: under causal masking, keys after its last row are masked
+// for every row.
+__device__ __forceinline__ int kv_tile_end(int q0, int rows, int bk, int tk,
+                                           int causal) {
+  const int end = causal ? min(tk, q0 + rows) : tk;
+  return (end + bk - 1) / bk;
 }
 
 // The epilogue's store of one output element in the output's type.
@@ -204,144 +207,571 @@ __device__ __forceinline__ void store_pair(OutT* dst, int c, int w, float x0,
     if (c + 1 < w) put(dst + 1, x1);
   }
 }
+// Columns c .. c + 3 (c < w) of an output row of width w at dst (column
+// c): one 16- or 8-byte store where `vec` (w % 4 == 0 and a 16-byte base:
+// the chunk is aligned), else element by element up to w.
+template <typename OutT>
+__device__ __forceinline__ void store4(OutT* dst, int c, int w, bool vec,
+                                       float4 x) {
+  if (vec) {
+    if constexpr (sizeof(OutT) == 2) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+      uint2 u;
+      u.x = *reinterpret_cast<uint32_t*>(&lo);
+      u.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(dst) = u;
+    } else {
+      *reinterpret_cast<float4*>(dst) = x;
+    }
+  } else {
+    put(dst, x.x);
+    if (c + 1 < w) put(dst + 1, x.y);
+    if (c + 2 < w) put(dst + 2, x.z);
+    if (c + 3 < w) put(dst + 3, x.w);
+  }
+}
 
-template <int DP, typename OutT>
-__global__ void __launch_bounds__(SIMT_THREADS)
+// ------------------------------------------------------------------------ //
+// fp32: CUDA cores, IEEE fp32, operands staged by cp.async.
+// ------------------------------------------------------------------------ //
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a [n_rows, w] fp32
+// matrix into dst (row stride LD floats) by the CTA's NT threads, as
+// copies in flight, zero past n_rows and w (src-size 0).  `vec`: 16-byte
+// copies (w % 4 == 0 and a 16-byte base, so every chunk is aligned); else
+// 4-byte ones, the staged route, into the same layout, so both routes
+// hand the math the same values.
+template <int ROWS, int COLS, int LD, int NT>
+__device__ __forceinline__ void f32_stage(float* dst, const float* src,
+                                          int r0, int n_rows, int c0, int w,
+                                          bool vec) {
+  if (vec) {
+    constexpr int CH = COLS / 4;
+    for (int e = threadIdx.x; e < ROWS * CH; e += NT) {
+      const int r = e / CH, c = (e % CH) * 4;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < n_rows && gc < w;
+      cp_async16(dst + r * LD + c, ok ? src + (long long)gr * w + gc : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * COLS; e += NT) {
+      const int r = e / COLS, c = e % COLS;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < n_rows && gc < w;
+      cp_async4(dst + r * LD + c, ok ? src + (long long)gr * w + gc : src,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// d <= 256: warp w owns WR = 2 MR query rows; lane (rg, cg) of it (rg <
+// 2, cg < 16) owns rows rg + 2 i (i < MR), S columns cg + 16 j (j < KJ)
+// and O's float4 columns cg + 16 jj (jj < OJ).  A step of Q.K^T reads MR
+// float4 of Q and KJ of K for 4 MR KJ FMAs, a step of P.V MR float4 of P
+// and 4 OJ of V for 16 MR OJ: at d <= 128 (MR = 8, KJ = 4, OJ = 2) 1.5
+// and 1 bytes of shared memory a lane an FMA.  K and V have a ring each.
+constexpr int F32_WARPS = 8;       // warps a CTA
+constexpr int F32_BK = 64;         // keys a K / V slot, d <= 128
+constexpr int F32_BK_WIDE = 32;    // keys a K / V slot, 128 < d <= 256
+constexpr int F32_SLOTS = 2;       // slots a ring
+
+template <int DQK, int DV>
+struct F32Smem {
+  static constexpr int RG = 2, CG = 16;          // a warp's lane groups
+  static constexpr int MR = DQK > 128 ? 4 : 8;   // query rows a lane
+  static constexpr int WR = RG * MR;             // query rows a warp
+  static constexpr int BQ = F32_WARPS * WR;      // query rows a CTA
+  static constexpr int THREADS = 32 * F32_WARPS;
+  static constexpr int BK = DQK > 128 ? F32_BK_WIDE : F32_BK;
+  static constexpr int SLOTS = F32_SLOTS;
+  static constexpr int DVP = DV < 4 * CG ? 4 * CG : DV;   // V as staged
+  static constexpr int KJ = BK / CG;             // S columns a lane
+  static constexpr int OJ = DVP / (4 * CG);      // O float4 columns a lane
+  // A warp reads two rows of Q and of P at one column (a broadcast to
+  // each half-warp) and runs of a V row, so those are unpadded (padding
+  // them measured no faster, and at d = 128 it would not fit); it reads
+  // 16 rows of K, 4 floats longer than DQK so that 8 rows begin in
+  // distinct banks.
+  static constexpr int LDQ = DQK, LDK = DQK + 4, LDV = DVP, LDP = BK;
+  static constexpr int K_OFF = BQ * LDQ;                   // floats
+  static constexpr int V_OFF = K_OFF + SLOTS * BK * LDK;
+  static constexpr int P_OFF = V_OFF + SLOTS * BK * LDV;
+  static constexpr int BYTES = 4 * (P_OFF + BQ * LDP);
+  static_assert(KJ >= 1 && OJ >= 1, "a tile narrower than the lanes");
+  static_assert(BYTES <= 232448, "over the 227 KB of shared memory");
+};
+
+// KV tile kt (K and V) into ring slot `slot`.
+template <int DQK, int DV>
+__device__ __forceinline__ void f32_stage_kv(float* k_s, float* v_s,
+                                             int slot, const float* kb,
+                                             const float* vb, int kt, int tk,
+                                             int d, int dv, bool vec) {
+  using L = F32Smem<DQK, DV>;
+  f32_stage<L::BK, DQK, L::LDK, L::THREADS>(
+      k_s + slot * L::BK * L::LDK, kb, kt * L::BK, tk, 0, d, vec);
+  f32_stage<L::BK, L::DVP, L::LDV, L::THREADS>(
+      v_s + slot * L::BK * L::LDV, vb, kt * L::BK, tk, 0, dv, vec);
+}
+
+template <int DQK, int DV, typename OutT>
+__global__ void __launch_bounds__(F32Smem<DQK, DV>::THREADS, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, OutT* __restrict__ out,
                  int tq, int tk, int d, int dv, int causal, int window,
-                 int group, float scale) {
-  constexpr int LD = SimtSmem<DP>::LD;
-  constexpr int LDP = SimtSmem<DP>::LDP;
-  constexpr int OC = DP / 16;            // output columns per thread
-  extern __shared__ float4 smem_f4[];
-  float* Qs = reinterpret_cast<float*>(smem_f4);   // [BQ][LD]
-  float* KVs = Qs + BQ * LD;                       // [BK][LD]: K, then V
-  float* Ps = KVs + BK * LD;                       // [BQ][LDP]
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4, cg = tid & 15;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+                 int group, float scale, int vec_in, int vec_out) {
+  using L = F32Smem<DQK, DV>;
+  constexpr int RG = L::RG, CG = L::CG, MR = L::MR, WR = L::WR, KB = L::BK;
+  constexpr int KJ = L::KJ, OJ = L::OJ, SL = L::SLOTS;
+  extern __shared__ float4 f32_smem[];
+  float* q_s = reinterpret_cast<float*>(f32_smem);   // [BQ][LDQ]
+  float* k_s = q_s + L::K_OFF;                       // SL x [BK][LDK]
+  float* v_s = q_s + L::V_OFF;                       // SL x [BK][LDV]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane / CG, cg = lane % CG;
+  float* p_s = q_s + L::P_OFF + warp * WR * L::LDP;  // the warp's P
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BQ;   // heaviest first
+  const int wq0 = q0 + warp * WR;                    // the warp's first row
   const long long bh = blockIdx.x;
-  const long long bkv = (int)blockIdx.x / group;   // grouped KV heads
-  const float* qb = q + bh * tq * d;
+  const long long bkv = (int)blockIdx.x / group;     // grouped KV heads
   const float* kb = k + bkv * tk * d;
   const float* vb = v + bkv * tk * dv;
+  const bool vec = vec_in != 0;
+  const int kt0 = kv_tile_begin(q0, window, KB);
+  const int n_kt = kv_tile_end(q0, L::BQ, KB, tk, causal);
 
-  stage_f32<DP>(Qs, qb, q0, tq, d);   // BQ == BK rows
+  // Q rides in the first group of copies, with the first KV tiles.
+  f32_stage<L::BQ, DQK, L::LDQ, L::THREADS>(q_s, q + bh * tq * d, q0, tq, 0,
+                                            d, vec);
+  constexpr int AHEAD = SL > 1 ? SL - 1 : 1;
+  for (int t = 0; t < AHEAD; ++t) {
+    if (kt0 + t < n_kt)
+      f32_stage_kv<DQK, DV>(k_s, v_s, t, kb, vb, kt0 + t, tk, d, dv, vec);
+    cp_async_commit();
+  }
 
-  float m[4], l[4], o[4][OC];
+  float m[MR], l[MR], o[MR][4 * OJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MR; ++i) {
     m[i] = NEG;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < OC; ++j) o[i][j] = 0.0f;
+    for (int c = 0; c < 4 * OJ; ++c) o[i][c] = 0.0f;
   }
+  const float sl2 = LOG2E * scale;   // scores into the exp2 domain
+  const int dq = (d + 3) & ~3;       // Q.K^T's depth: zero past d
 
-  const int n_kt = kv_tiles(q0, tk, causal);
-  for (int kt = kv_tile_begin(q0, window, BK); kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                       // last tile's P.V reads done
-    stage_f32<DP>(KVs, kb, k0, tk, d);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int c = 0; c < DP; c += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&Qs[(rg * 4 + i) * LD + c]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(&KVs[(cg + 16 * j) * LD + c]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qa[i].x, ka[j].x, a);
-          a = fmaf(qa[i].y, ka[j].y, a);
-          a = fmaf(qa[i].z, ka[j].z, a);
-          a = fmaf(qa[i].w, ka[j].w, a);
-          s[i][j] = a;
-        }
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int it = kt - kt0, slot = it % SL;
+    cp_async_wait<(SL > 1 ? SL - 2 : 0)>();
+    __syncthreads();   // tile kt landed for every thread; tile kt - 1 read
+    if constexpr (SL > 1) {
+      if (kt + SL - 1 < n_kt)
+        f32_stage_kv<DQK, DV>(k_s, v_s, (it + SL - 1) % SL, kb, vb,
+                              kt + SL - 1, tk, d, dv, vec);
+      cp_async_commit();
     }
-
+    const int k0 = kt * KB;
+    // A tile whose every key is masked for every row of the warp leaves
+    // its m, l and O as they are: the warp skips it.
+    if (!((causal && k0 > wq0 + WR - 1) ||
+          (window > 0 && wq0 - (k0 + KB - 1) >= window))) {
+      float s[MR][KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + rg * 4 + i;
-      float mx = -INFINITY;
+      for (int i = 0; i < MR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + cg + 16 * j;
-        const bool ok = kpos < tk && (!causal || kpos <= qpos) &&
-                        (window <= 0 || qpos - kpos < window);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);   // masked: exp(-inf) = 0
-        Ps[(rg * 4 + i) * LDP + cg + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(FULL, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < OC; ++j) o[i][j] *= alpha;
-    }
-    __syncthreads();                       // S reads of K done, P written
-    stage_f32<DP>(KVs, vb, k0, tk, dv);   // zero past dv
-    __syncthreads();
-
+        for (int j = 0; j < KJ; ++j) s[i][j] = 0.0f;
+      const float* qr = q_s + (warp * WR + rg) * L::LDQ;
+      const float* kr = k_s + slot * KB * L::LDK + cg * L::LDK;
 #pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pa[4];
+      for (int c = 0; c < dq; c += 4) {
+        float4 a[MR], b[KJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(&Ps[(rg * 4 + i) * LDP + kk]);
+        for (int i = 0; i < MR; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qr + RG * i * L::LDQ + c);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float* vrow = &KVs[(kk + t) * LD + cg];
+        for (int j = 0; j < KJ; ++j)
+          b[j] = *reinterpret_cast<const float4*>(kr + CG * j * L::LDK + c);
 #pragma unroll
-        for (int j = 0; j < OC; ++j) {
-          const float vv = vrow[16 * j];
+        for (int i = 0; i < MR; ++i)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = t == 0 ? pa[i].x : t == 1 ? pa[i].y
-                          : t == 2 ? pa[i].z : pa[i].w;
-            o[i][j] = fmaf(p, vv, o[i][j]);
+          for (int j = 0; j < KJ; ++j) {
+            float x = s[i][j];
+            x = fmaf(a[i].x, b[j].x, x);
+            x = fmaf(a[i].y, b[j].y, x);
+            x = fmaf(a[i].z, b[j].z, x);
+            x = fmaf(a[i].w, b[j].w, x);
+            s[i][j] = x;
+          }
+      }
+      // The mask, only on a tile that holds a key masked for some row of
+      // the warp: the causal diagonal, the window's lower edge, the ragged
+      // end of Tk.
+      if ((causal && k0 + KB - 1 > wq0) || k0 + KB > tk ||
+          (window > 0 && wq0 + WR - 1 - k0 >= window)) {
+#pragma unroll
+        for (int i = 0; i < MR; ++i) {
+          const int qpos = wq0 + rg + RG * i;
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            const int kpos = k0 + cg + CG * j;
+            if (kpos >= tk || (causal && kpos > qpos) ||
+                (window > 0 && qpos - kpos >= window))
+              s[i][j] = -INFINITY;
+          }
+        }
+      }
+      // The recurrence: the max on the raw scores over the CG lanes of a
+      // row (a fixed xor tree), the scale folded into exp2's fma; l holds
+      // this lane's part of the row sum.
+#pragma unroll
+      for (int i = 0; i < MR; ++i) {
+        float mx = s[i][0];
+#pragma unroll
+        for (int j = 1; j < KJ; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+        for (int off = CG / 2; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+        const float mn = fmaxf(m[i], mx * sl2);
+        const float alpha = exp2f(m[i] - mn);   // 1 where the max held
+        m[i] = mn;
+        float rs = 0.0f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const float p = exp2f(fmaf(s[i][j], sl2, -mn));   // masked: 0
+          p_s[(rg + RG * i) * L::LDP + cg + CG * j] = p;
+          rs += p;
+        }
+        l[i] = l[i] * alpha + rs;
+#pragma unroll
+        for (int c = 0; c < 4 * OJ; ++c) o[i][c] *= alpha;
+      }
+      __syncwarp();    // the warp's P rows written
+      // O += P.V: a float4 of P (4 keys of a row) a row and, per key, a
+      // float4 of V per column chunk.
+      const float* pr = p_s + rg * L::LDP;
+      const float* vr = v_s + slot * KB * L::LDV + 4 * cg;
+#pragma unroll 2
+      for (int kk = 0; kk < KB; kk += 4) {
+        float4 pa[MR];
+#pragma unroll
+        for (int i = 0; i < MR; ++i)
+          pa[i] = *reinterpret_cast<const float4*>(pr + RG * i * L::LDP + kk);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* vrow = vr + (kk + u) * L::LDV;
+#pragma unroll
+          for (int jj = 0; jj < OJ; ++jj) {
+            const float4 b =
+                *reinterpret_cast<const float4*>(vrow + 4 * CG * jj);
+#pragma unroll
+            for (int i = 0; i < MR; ++i) {
+              const float p = u == 0 ? pa[i].x : u == 1 ? pa[i].y
+                            : u == 2 ? pa[i].z : pa[i].w;
+              o[i][4 * jj] = fmaf(p, b.x, o[i][4 * jj]);
+              o[i][4 * jj + 1] = fmaf(p, b.y, o[i][4 * jj + 1]);
+              o[i][4 * jj + 2] = fmaf(p, b.z, o[i][4 * jj + 2]);
+              o[i][4 * jj + 3] = fmaf(p, b.w, o[i][4 * jj + 3]);
+            }
           }
         }
       }
     }
+    if constexpr (SL == 1) {   // one slot: the next tile loads after this
+      __syncthreads();
+      if (kt + 1 < n_kt)
+        f32_stage_kv<DQK, DV>(k_s, v_s, 0, kb, vb, kt + 1, tk, d, dv, vec);
+      cp_async_commit();
+    }
   }
 
+  // Row sums over the CG lanes of a row (a fixed xor tree), then 1 / l.
+#pragma unroll
+  for (int i = 0; i < MR; ++i)
+#pragma unroll
+    for (int off = CG / 2; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(FULL, l[i], off);
   OutT* ob = out + bh * tq * dv;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + rg * 4 + i;
+  for (int i = 0; i < MR; ++i) {
+    const int r = wq0 + rg + RG * i;
     if (r >= tq) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < OC; ++j) {
-      const int c = cg + 16 * j;
-      if (c < dv) put(ob + (long long)r * dv + c, o[i][j] * inv);
+    for (int jj = 0; jj < OJ; ++jj) {
+      const int c = 4 * (cg + CG * jj);
+      if (c < dv)
+        store4(ob + (long long)r * dv + c, c, dv, vec_out != 0,
+               make_float4(o[i][4 * jj] * inv, o[i][4 * jj + 1] * inv,
+                           o[i][4 * jj + 2] * inv, o[i][4 * jj + 3] * inv));
+    }
+  }
+}
+
+// 256 < d <= 576 and dv <= 512: one pass, O split by columns.  A CTA owns
+// 64 query rows; its two halves (warps 0-3 and 4-7) each form S over their
+// half of every K piece (DC columns), swap the partials through shared
+// memory and sum them, so both hold the same S, m and l; each accumulates
+// half of O's 64-column chunks (2t + h for half h).  Lane (rg, cg) of a
+// half (rg < 8, cg < 16) owns rows rg + 8 i (i < 8), S columns cg + 16 j
+// (j < KJ) and, in its chunks, columns 4 cg .. 4 cg + 3: a step of Q.K^T
+// reads 8 float4 of Q and 4 of K for 128 FMAs, one of P.V a float4 of V
+// for 32.  Q stays in shared memory for the whole walk; K (in pieces of
+// BK keys x DC columns) and V (in pieces of VK keys, 512 columns) stream
+// through one ring of slots.
+constexpr int F32SP_THREADS = 256;
+constexpr int F32SP_BQ = 64;          // query rows a CTA
+constexpr int F32SP_BK = 64;          // keys a tile
+constexpr int F32SP_DC = 64;          // Q.K^T columns a K piece
+constexpr int F32SP_VK = 8;           // keys a V piece
+constexpr int F32SP_SLOTS = 2;        // slots of the ring of pieces
+constexpr int F32SP_DQK = 576;        // the reach: d <= 576,
+constexpr int F32SP_DV = 512;         //            dv <= 512
+
+struct F32SpSmem {
+  static constexpr int KJ = F32SP_BK / 16;    // S columns a lane
+  static constexpr int LDQ = F32SP_DQK + 4;   // a Q row (floats)
+  static constexpr int LDK = F32SP_DC + 4;    // a K piece row
+  static constexpr int LDV = F32SP_DV;        // a V piece row
+  static constexpr int LDX = F32SP_BK + 4;    // a partial-S / P row
+  static constexpr int SLOT = F32SP_BK * LDK > F32SP_VK * LDV
+                                  ? F32SP_BK * LDK : F32SP_VK * LDV;
+  static constexpr int X_OFF = F32SP_BQ * LDQ;              // floats
+  static constexpr int RING_OFF = X_OFF + 2 * F32SP_BQ * LDX;
+  static constexpr int BYTES = 4 * (RING_OFF + F32SP_SLOTS * SLOT);
+  static_assert(F32SP_BK % F32SP_VK == 0 && F32SP_VK % 4 == 0, "pieces");
+  static_assert(BYTES <= 232448, "over the 227 KB of shared memory");
+};
+
+template <typename OutT>
+__global__ void __launch_bounds__(F32SP_THREADS, 1)
+flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, OutT* __restrict__ out,
+                    int tq, int tk, int d, int dv, int causal, int window,
+                    int group, float scale, int vec_in, int vec_out) {
+  using L = F32SpSmem;
+  constexpr int KB = F32SP_BK, VK = F32SP_VK, SL = F32SP_SLOTS;
+  constexpr int DC = F32SP_DC, HC = F32SP_DC / 2, KJ = L::KJ;
+  constexpr int NVP = KB / VK;          // V pieces a tile
+  constexpr int OT = F32SP_DV / 128;    // O chunks of 64 columns a half
+  extern __shared__ float4 f32sp_smem[];
+  float* q_s = reinterpret_cast<float*>(f32sp_smem);   // [64][LDQ]
+  float* x_s = q_s + L::X_OFF;                         // 2 x [64][LDX]
+  float* ring = q_s + L::RING_OFF;                     // SL x SLOT
+  const int h = threadIdx.x >> 7;                      // the half
+  const int rg = (threadIdx.x & 127) >> 4, cg = threadIdx.x & 15;
+  float* x_mine = x_s + h * F32SP_BQ * L::LDX;
+  const float* x_other = x_s + (1 - h) * F32SP_BQ * L::LDX;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F32SP_BQ;   // heaviest first
+  const long long bh = blockIdx.x;
+  const long long bkv = (int)blockIdx.x / group;
+  const float* kb = k + bkv * tk * d;
+  const float* vb = v + bkv * tk * dv;
+  const bool vec = vec_in != 0;
+  const int kt0 = kv_tile_begin(q0, window, KB);
+  const int n_kt = kv_tile_end(q0, F32SP_BQ, KB, tk, causal);
+  const int nkp = (d + DC - 1) / DC;    // K pieces a tile
+  const int ppt = nkp + NVP;            // pieces a tile
+  const int n_pc = (n_kt - kt0) * ppt;
+
+  // Piece pc of the walk (tile kt0 + pc / ppt: its K pieces, then its V
+  // pieces) into its slot; one group of copies a piece, empty past the end.
+  auto issue = [&](int pc) {
+    if (pc < n_pc) {
+      const int kt = kt0 + pc / ppt, st = pc % ppt;
+      float* dst = ring + (pc % SL) * L::SLOT;
+      if (st < nkp)
+        f32_stage<KB, DC, L::LDK, F32SP_THREADS>(dst, kb, kt * KB, tk,
+                                                 st * DC, d, vec);
+      else
+        f32_stage<VK, F32SP_DV, L::LDV, F32SP_THREADS>(
+            dst, vb, kt * KB + (st - nkp) * VK, tk, 0, dv, vec);
+    }
+    cp_async_commit();
+  };
+  f32_stage<F32SP_BQ, F32SP_DQK, L::LDQ, F32SP_THREADS>(
+      q_s, q + bh * tq * d, q0, tq, 0, d, vec);    // Q: in the first group
+  constexpr int AHEAD = SL > 1 ? SL - 1 : 1;
+  for (int t = 0; t < AHEAD; ++t) issue(t);
+
+  float m[8], l[8], s[8][KJ], o[8][4 * OT];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) s[i][j] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4 * OT; ++c) o[i][c] = 0.0f;
+  }
+  const float sl2 = LOG2E * scale;   // scores into the exp2 domain
+
+  for (int pc = 0; pc < n_pc; ++pc) {
+    const int st = pc % ppt, k0 = (kt0 + pc / ppt) * KB;
+    const float* sp = ring + (pc % SL) * L::SLOT;
+    cp_async_wait<(SL > 1 ? SL - 2 : 0)>();
+    __syncthreads();   // piece pc landed for every thread; pc - 1 read
+    if constexpr (SL > 1) issue(pc + SL - 1);
+    if (st < nkp) {
+      if (st == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) s[i][j] = 0.0f;
+      }
+      if (st * DC + HC * h < d) {   // this half's columns hold some below d
+        const float* qr = q_s + rg * L::LDQ + st * DC + HC * h;
+        const float* kr = sp + cg * L::LDK + HC * h;
+#pragma unroll 2
+        for (int c = 0; c < HC; c += 4) {
+          float4 a[8], b[KJ];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            a[i] = *reinterpret_cast<const float4*>(qr + 8 * i * L::LDQ + c);
+#pragma unroll
+          for (int j = 0; j < KJ; ++j)
+            b[j] = *reinterpret_cast<const float4*>(kr + 16 * j * L::LDK + c);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < KJ; ++j) {
+              float x = s[i][j];
+              x = fmaf(a[i].x, b[j].x, x);
+              x = fmaf(a[i].y, b[j].y, x);
+              x = fmaf(a[i].z, b[j].z, x);
+              x = fmaf(a[i].w, b[j].w, x);
+              s[i][j] = x;
+            }
+        }
+      }
+      if (st == nkp - 1) {
+        // The halves' partial S swapped and summed: fp32 addition
+        // commutes, so both halves hold the same bits.
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < KJ; ++j)
+            x_mine[(rg + 8 * i) * L::LDX + cg + 16 * j] = s[i][j];
+        __syncthreads();   // both partials written
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < KJ; ++j)
+            s[i][j] += x_other[(rg + 8 * i) * L::LDX + cg + 16 * j];
+        __syncthreads();   // both read: x_mine takes this half's P
+        if ((causal && k0 + KB - 1 > q0) || k0 + KB > tk ||
+            (window > 0 && q0 + F32SP_BQ - 1 - k0 >= window)) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int qpos = q0 + rg + 8 * i;
+#pragma unroll
+            for (int j = 0; j < KJ; ++j) {
+              const int kpos = k0 + cg + 16 * j;
+              if (kpos >= tk || (causal && kpos > qpos) ||
+                  (window > 0 && qpos - kpos >= window))
+                s[i][j] = -INFINITY;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float mx = s[i][0];
+#pragma unroll
+          for (int j = 1; j < KJ; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+          const float mn = fmaxf(m[i], mx * sl2);
+          const float alpha = exp2f(m[i] - mn);   // 1 where the max held
+          m[i] = mn;
+          float rs = 0.0f;
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            const float p = exp2f(fmaf(s[i][j], sl2, -mn));   // masked: 0
+            x_mine[(rg + 8 * i) * L::LDX + cg + 16 * j] = p;
+            rs += p;
+          }
+          l[i] = l[i] * alpha + rs;
+#pragma unroll
+          for (int c = 0; c < 4 * OT; ++c) o[i][c] *= alpha;
+        }
+      }
+    } else {
+      // O += P[:, this piece's keys] . V, this half's chunks below dv.
+      const float* pr = x_mine + rg * L::LDX + (st - nkp) * VK;
+      const float* vr = sp + 4 * cg + 64 * h;
+#pragma unroll
+      for (int kk = 0; kk < VK; kk += 4) {
+        float4 pa[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          pa[i] = *reinterpret_cast<const float4*>(pr + 8 * i * L::LDX + kk);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* vrow = vr + (kk + u) * L::LDV;
+#pragma unroll
+          for (int t = 0; t < OT; ++t) {
+            if (128 * t + 64 * h >= dv) continue;
+            const float4 b = *reinterpret_cast<const float4*>(vrow + 128 * t);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float p = u == 0 ? pa[i].x : u == 1 ? pa[i].y
+                            : u == 2 ? pa[i].z : pa[i].w;
+              o[i][4 * t] = fmaf(p, b.x, o[i][4 * t]);
+              o[i][4 * t + 1] = fmaf(p, b.y, o[i][4 * t + 1]);
+              o[i][4 * t + 2] = fmaf(p, b.z, o[i][4 * t + 2]);
+              o[i][4 * t + 3] = fmaf(p, b.w, o[i][4 * t + 3]);
+            }
+          }
+        }
+      }
+    }
+    if constexpr (SL == 1) {   // one slot: the next piece loads after this
+      __syncthreads();
+      issue(pc + 1);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(FULL, l[i], off);
+  OutT* ob = out + bh * tq * dv;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + rg + 8 * i;
+    if (r >= tq) continue;
+    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int t = 0; t < OT; ++t) {
+      const int c = 128 * t + 64 * h + 4 * cg;
+      if (c < dv)
+        store4(ob + (long long)r * dv + c, c, dv, vec_out != 0,
+               make_float4(o[i][4 * t] * inv, o[i][4 * t + 1] * inv,
+                           o[i][4 * t + 2] * inv, o[i][4 * t + 3] * inv));
     }
   }
 }
@@ -350,7 +780,6 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16, d <= 128: tensor cores through wgmma, K/V ring filled by TMA.
 // ------------------------------------------------------------------------ //
 constexpr int WG_STAGES = 2;     // K/V ring depth
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
 struct WgSmem {
@@ -1832,8 +2261,8 @@ flash_bf16_sp_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ------------------------------------------------------------------------ //
-// d > 256 in fp32, and bf16 past the single-pass body's reach: the
-// output's feature dimension split across CTAs.
+// Past the single-pass bodies' reach (d > 576 or dv > 512), fp32 and bf16:
+// the output's feature dimension split across CTAs.
 // ------------------------------------------------------------------------ //
 // A CTA owns 64 query rows and one slice of WIDE_DS output columns
 // (grid: bh, query tile, slice).  For each KV tile of 64 keys it builds
@@ -1849,9 +2278,10 @@ flash_bf16_sp_kernel(const __nv_bfloat16* __restrict__ q,
 // window's first tile, ragged Tq / Tk).
 constexpr int WIDE_DC = 64;      // Q / K columns staged per d-chunk
 constexpr int WIDE_DS = 128;     // output columns per CTA (one d-slice)
+constexpr int SIMT_THREADS = 256;   // fp32: threads a CTA
 
-// fp32: CUDA cores, the fp32 body's thread layout.  Thread (rg, cg) owns
-// rows 4rg .. 4rg + 3, score columns cg + 16j and slice columns cg + 16j.
+// fp32: CUDA cores.  Thread (rg, cg) owns rows 4rg .. 4rg + 3, score
+// columns cg + 16j and slice columns cg + 16j.
 struct WideF32Smem {
   static constexpr int LDC = WIDE_DC + 4;   // a Q / K chunk row (floats)
   static constexpr int LDV = WIDE_DS + 4;   // a V slice row
@@ -1907,7 +2337,7 @@ flash_f32_wide_kernel(const float* __restrict__ q,
     for (int j = 0; j < OC; ++j) o[i][j] = 0.0f;
   }
 
-  const int n_kt = kv_tiles(q0, tk, causal);
+  const int n_kt = kv_tile_end(q0, BQ, BK, tk, causal);
   for (int kt = kv_tile_begin(q0, window, BK); kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     float s[4][4];
@@ -2097,7 +2527,7 @@ flash_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
   float m_lo = NEG, m_hi = NEG, l_lo = 0.0f, l_hi = 0.0f;
 
-  const int n_kt = kv_tiles(q0, tk, causal);
+  const int n_kt = kv_tile_end(q0, BQ, BK, tk, causal);
   for (int kt = kv_tile_begin(q0, window, BK); kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     float sc[BK / 8][4];
@@ -2273,20 +2703,74 @@ bool make_map(CUtensorMap* map, const void* base, int heads, int rows, int d,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP, typename OutT>
+// 16-byte copies of q, k and v (the fp32 bodies' fast route): rows of a
+// multiple of 4 floats from 16-byte bases; else the staged route.
+bool f32_vec(const void* q, const void* k, const void* v, int d, int dv) {
+  return d % 4 == 0 && dv % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+           reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+}
+// 4-column stores of out: rows of a multiple of 4 from a 16-byte base.
+bool f32_vec_out(const void* out, int dv) {
+  return dv % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+}
+
+// fp32, d <= 256: the body at (DQK, DV).
+template <int DQK, int DV, typename OutT>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int bh, int tq, int tk, int d, int dv, int causal, int window,
                int group, float scale, cudaStream_t stream) {
-  auto kernel = flash_f32_kernel<DP, OutT>;
-  const int smem = SimtSmem<DP>::BYTES;
+  using L = F32Smem<DQK, DV>;
+  auto kernel = flash_f32_kernel<DQK, DV, OutT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (tq + BQ - 1) / BQ);
-  kernel<<<grid, SIMT_THREADS, smem, stream>>>(
+  dim3 grid(bh, (tq + L::BQ - 1) / L::BQ);
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d, dv,
-      causal, window, group, scale);
+      causal, window, group, scale, (int)f32_vec(q, k, v, d, dv),
+      (int)f32_vec_out(out, dv));
+  return (int)cudaGetLastError();
+}
+
+// fp32, d <= 256: DQK the first of 32, 64, 128, 256 to hold d; DV = DQK,
+// but 128 for dv <= 128 at DQK 256.
+template <typename OutT>
+int dispatch_f32(const void* q, const void* k, const void* v, void* out,
+                 int bh, int tq, int tk, int d, int dv, int causal,
+                 int window, int group, float scale, cudaStream_t stream) {
+  if (d <= 32)
+    return launch_f32<32, 32, OutT>(q, k, v, out, bh, tq, tk, d, dv, causal,
+                                    window, group, scale, stream);
+  if (d <= 64)
+    return launch_f32<64, 64, OutT>(q, k, v, out, bh, tq, tk, d, dv, causal,
+                                    window, group, scale, stream);
+  if (d <= 128)
+    return launch_f32<128, 128, OutT>(q, k, v, out, bh, tq, tk, d, dv,
+                                      causal, window, group, scale, stream);
+  if (dv <= 128)
+    return launch_f32<256, 128, OutT>(q, k, v, out, bh, tq, tk, d, dv,
+                                      causal, window, group, scale, stream);
+  return launch_f32<256, 256, OutT>(q, k, v, out, bh, tq, tk, d, dv, causal,
+                                    window, group, scale, stream);
+}
+
+// fp32, 256 < d <= 576, dv <= 512: the single-pass body.
+template <typename OutT>
+int launch_f32_sp(const void* q, const void* k, const void* v, void* out,
+                  int bh, int tq, int tk, int d, int dv, int causal,
+                  int window, int group, float scale, cudaStream_t stream) {
+  auto kernel = flash_f32_sp_kernel<OutT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F32SpSmem::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bh, (tq + F32SP_BQ - 1) / F32SP_BQ);
+  kernel<<<grid, F32SP_THREADS, F32SpSmem::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d, dv,
+      causal, window, group, scale, (int)f32_vec(q, k, v, d, dv),
+      (int)f32_vec_out(out, dv));
   return (int)cudaGetLastError();
 }
 
@@ -2381,16 +2865,20 @@ int launch_sp(const void* q, const void* k, const void* v, void* out,
 // The body flash_attention_fwd runs for (dtype, d, dv), by the code
 // `ops.flash_body` names: 1 fp32 (d <= 256), 2 fp32 d-sliced, 3 bf16
 // (d <= 128), 4 bf16 warp-specialised (d <= 256), 5 bf16 single-pass
-// (d <= 576, dv <= 512), 6 bf16 d-sliced.
+// (d <= 576, dv <= 512), 6 bf16 d-sliced, 7 fp32 single-pass (d <= 576,
+// dv <= 512).
 int flash_body(int dtype, int d, int dv) {
-  if (dtype == 0) return d <= 256 ? 1 : 2;
+  if (dtype == 0) {
+    if (d <= 256) return 1;
+    return d <= F32SP_DQK && dv <= F32SP_DV ? 7 : 2;
+  }
   if (d <= 128) return 3;
   if (d <= 256) return 4;
   return d <= 576 && dv <= 512 ? 5 : 6;
 }
 
-// d > 256 with fp32 operands, or past the single-pass body's reach: grid
-// (bh, query tile, dv-slice).
+// Past the single-pass bodies' reach (d > 576 or dv > 512): grid (bh,
+// query tile, dv-slice).
 template <typename OutT>
 int launch_wide(int dtype, const void* q, const void* k, const void* v,
                 void* out, int bh, int tq, int tk, int d, int dv, int causal,
@@ -2419,19 +2907,11 @@ int launch_wide(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// bf16, d <= 256.
 template <int DP>
-int dispatch(int dtype, int out_dtype, const void* q, const void* k,
-             const void* v, void* out, int bh, int tq, int tk, int d, int dv,
-             int causal, int window, int group, float scale,
-             cudaStream_t stream) {
-  if (dtype == 0) {
-    if (out_dtype == 0)
-      return launch_f32<DP, float>(q, k, v, out, bh, tq, tk, d, dv, causal,
-                                   window, group, scale, stream);
-    return launch_f32<DP, __nv_bfloat16>(q, k, v, out, bh, tq, tk, d, dv,
-                                         causal, window, group, scale,
-                                         stream);
-  }
+int dispatch(int out_dtype, const void* q, const void* k, const void* v,
+             void* out, int bh, int tq, int tk, int d, int dv, int causal,
+             int window, int group, float scale, cudaStream_t stream) {
   if constexpr (DP > 128) {
     // DQK: 192 for d <= 192, else 256; DV: 128 for dv <= 128, else DQK.
     if (d <= 192)
@@ -2482,7 +2962,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       window < 0 || (window > 0 && (!causal || tq > tk)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (flash_body(dtype, d, dv) == 5) {
+  const int body = flash_body(dtype, d, dv);
+  if (body == 1) {
+    if (out_dtype == 0)
+      return dispatch_f32<float>(q, k, v, out, bh, tq, tk, d, dv, causal,
+                                 window, group, scale, s);
+    return dispatch_f32<__nv_bfloat16>(q, k, v, out, bh, tq, tk, d, dv,
+                                       causal, window, group, scale, s);
+  }
+  if (body == 7) {
+    if (out_dtype == 0)
+      return launch_f32_sp<float>(q, k, v, out, bh, tq, tk, d, dv, causal,
+                                  window, group, scale, s);
+    return launch_f32_sp<__nv_bfloat16>(q, k, v, out, bh, tq, tk, d, dv,
+                                        causal, window, group, scale, s);
+  }
+  if (body == 5) {
     // DQK 512 for d <= 512 (DV 256 for dv <= 256, else 512), else 576.
     if (d > 512)
       return launch_sp<576, 512>(q, k, v, out, out_dtype, bh, tq, tk, d, dv,
@@ -2500,17 +2995,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return launch_wide<__nv_bfloat16>(dtype, q, k, v, out, bh, tq, tk, d, dv,
                                       causal, window, group, scale, s);
   }
-  if (d <= 32) return dispatch<32>(dtype, out_dtype, q, k, v, out, bh, tq,
-                                   tk, d, dv, causal, window, group, scale,
-                                   s);
-  if (d <= 64) return dispatch<64>(dtype, out_dtype, q, k, v, out, bh, tq,
-                                   tk, d, dv, causal, window, group, scale,
-                                   s);
-  if (d <= 128) return dispatch<128>(dtype, out_dtype, q, k, v, out, bh, tq,
-                                     tk, d, dv, causal, window, group, scale,
-                                     s);
-  return dispatch<256>(dtype, out_dtype, q, k, v, out, bh, tq, tk, d, dv,
-                       causal, window, group, scale, s);
+  if (d <= 32) return dispatch<32>(out_dtype, q, k, v, out, bh, tq, tk, d,
+                                   dv, causal, window, group, scale, s);
+  if (d <= 64) return dispatch<64>(out_dtype, q, k, v, out, bh, tq, tk, d,
+                                   dv, causal, window, group, scale, s);
+  if (d <= 128) return dispatch<128>(out_dtype, q, k, v, out, bh, tq, tk, d,
+                                     dv, causal, window, group, scale, s);
+  return dispatch<256>(out_dtype, q, k, v, out, bh, tq, tk, d, dv, causal,
+                       window, group, scale, s);
 }
 
 // Which body flash_attention_fwd runs for these operands (`flash_body`'s

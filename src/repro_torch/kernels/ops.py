@@ -457,7 +457,7 @@ _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ``flash_attention_body``.
 FLASH_BODIES = {1: "fp32", 2: "fp32 d-sliced", 3: "bf16",
                 4: "bf16 warp-specialised", 5: "bf16 single-pass",
-                6: "bf16 d-sliced"}
+                6: "bf16 d-sliced", 7: "fp32 single-pass"}
 
 
 def flash_body(dtype: torch.dtype, d: int, dv: int) -> str:
@@ -465,21 +465,23 @@ def flash_body(dtype: torch.dtype, d: int, dv: int) -> str:
     ``d``, v of width ``dv`` and operands of ``dtype``
     (``csrc/flash_attention.cu``'s ``flash_body``, which the C entry
     ``flash_attention_body`` reports): fp32 on CUDA cores up to d = 256,
-    d-sliced past it; bf16 on the tensor cores up to d = 128, the
-    warp-specialised body up to 256, the single-pass body up to d = 576
-    with dv <= 512, and the d-sliced body past that."""
+    the fp32 single-pass body up to d = 576 with dv <= 512, d-sliced past
+    that; bf16 on the tensor cores up to d = 128, the warp-specialised
+    body up to 256, the single-pass body up to d = 576 with dv <= 512,
+    and the d-sliced body past that."""
     if dtype not in _FLASH_DTYPES:
         raise TypeError(f"flash_body: expected float32 or bfloat16, got "
                         f"{dtype}")
     if not 1 <= dv <= d:
         raise ValueError(f"flash_body: need 1 <= dv <= d, got d={d}, "
                          f"dv={dv}")
+    single_pass = d <= 576 and dv <= 512
     if dtype == torch.float32:
-        code = 1 if d <= 256 else 2
+        code = 1 if d <= 256 else 7 if single_pass else 2
     elif d <= 256:
         code = 3 if d <= 128 else 4
     else:
-        code = 5 if d <= 576 and dv <= 512 else 6
+        code = 5 if single_pass else 6
     return FLASH_BODIES[code]
 
 
@@ -492,8 +494,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     returns [BH, Tq, dv] in ``out_dtype`` (fp32 or bf16; None is q's
     dtype, as in the Pallas kernel), fp32 math inside and one rounding at
     the store (:func:`flash_body` names the kernel's body: past d = 256
-    the bf16 single-pass body up to d = 576 with dv <= 512, the d-sliced
-    bodies beyond it and in fp32).  The causal mask is the Pallas
+    the single-pass bodies up to d = 576 with dv <= 512, the d-sliced
+    bodies beyond it).  The causal mask is the Pallas
     kernel's ``qpos >= kpos``, both counted from 0; ``window`` W > 0
     (causal only, Tq <= Tk) also masks ``qpos - kpos >= W``, JAX's
     ``_mask_bias`` (0 is no window).  With G > 1 (G must divide BH) the

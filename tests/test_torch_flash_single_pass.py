@@ -110,7 +110,7 @@ def test_flash_past_d_256_matches_jax(tq, tk, h, grp, d, dv, causal,
 def test_flash_body_names_the_body_the_card_runs(d, dv, body):
     assert ops.flash_body(torch.bfloat16, d, dv) == body
     assert ops.flash_body(torch.float32, d, dv) == (
-        "fp32" if d <= 256 else "fp32 d-sliced")
+        "fp32" if d <= 256 else body.replace("bf16", "fp32"))
 
 
 def test_flash_body_refuses_what_the_kernel_refuses():

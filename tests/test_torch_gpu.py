@@ -27,10 +27,15 @@ CUDA-graph replay; bf16 SpDMM and SDDMM operands against the plain
 versions and bit for bit against the fp32 kernels on the widened
 operands; flash past d = 256 (the
 bf16 single-pass body at d 257-576 with dv 100-512, its staged route bit
-for bit the TMA route, the d-sliced bodies past it and in fp32: causal,
-non-causal, windowed, grouped, ragged, both output types; two launches bit
-for bit; the body rule of ``ops.flash_body`` the C entry's) and the bf16 / fp32 ``out_dtype`` of flash, SpDMM
-and SDDMM against the plain versions.  The warp-specialised bf16 flash
+for bit the TMA route, the d-sliced bodies past it: causal, non-causal,
+windowed, grouped, ragged, both output types; two launches bit for bit;
+the body rule of ``ops.flash_body`` the C entry's); the two fp32 flash
+bodies (d 1-256 and the single pass at 257-576 with dv <= 512) at their
+instantiation edges in every mode within rtol 1e-5 / atol 1e-4, two
+launches bit for bit, a bf16 ``out_dtype`` the fp32 result rounded once,
+and their staged routes (bases 4 bytes past 16) bit for bit the 16-byte
+copies; and the bf16 / fp32 ``out_dtype`` of flash, SpDMM and SDDMM
+against the plain versions.  The warp-specialised bf16 flash
 body past d = 128 (d 136-256, V d or 128 wide, G 1 / 2 / 8, causal,
 windowed and non-causal at ragged Tq / Tk, the plain-load producer at d =
 170, both output types, two launches bit for bit) and MLA's call with V
@@ -86,7 +91,11 @@ FLASH_CASES = [(128, 128, 2, 64, True, "float32"),
                (200, 200, 3, 128, True, "bfloat16"),
                (77, 130, 2, 40, False, "bfloat16"),
                (1, 1, 1, 16, True, "float32"),
-               (2048, 2048, 64, 128, True, "bfloat16")]   # the path shape
+               (2048, 2048, 64, 128, True, "bfloat16"),   # the path shape
+               # the fp32 body's instantiation edges (DQK 64 / 256)
+               (130, 130, 2, 33, True, "float32"),
+               (100, 170, 2, 129, False, "float32"),
+               (200, 200, 2, 255, True, "float32")]
 
 
 @pytest.fixture
@@ -1706,7 +1715,11 @@ FLASH_WIDE_CASES = [(130, 130, 2, 1, 257, True, 0, "float32"),
                     (200, 300, 2, 1, 385, False, 0, "bfloat16"),
                     (130, 130, 2, 2, 513, True, 50, "bfloat16"),
                     (150, 150, 4, 4, 576, True, 0, "bfloat16"),
-                    (100, 100, 2, 1, 576, True, 0, "float32")]
+                    (100, 100, 2, 1, 576, True, 0, "float32"),
+                    # the fp32 single-pass body's edge, and past it
+                    (130, 130, 2, 1, 513, True, 0, "float32"),
+                    (120, 90, 4, 4, 513, False, 0, "float32"),
+                    (100, 100, 2, 1, 577, True, 0, "float32")]
 
 
 def _flash_limits(got, want, dtype):
@@ -1808,6 +1821,74 @@ def test_cuda_flash_single_pass_staged_route_equals_tma(cuda, d, dv):
     assert torch.equal(staged, tma)
     _flash_limits(staged, ref.flash_attention_plain(q, k, v, True),
                   torch.bfloat16)
+
+
+# The fp32 bodies (IEEE fp32 on CUDA cores): (tq, tk, heads, G, d, dv,
+# causal, window).  d <= 32 / 64 / 128 take DQK = DV = d's bound, 129-256
+# DQK 256 with DV 128 (dv <= 128) or 256; 257-576 with dv <= 512 the
+# single-pass body, past it the d-sliced one.  d or dv not a multiple of
+# 4 takes the staged route (4-byte copies); causal, non-causal at ragged
+# Tq != Tk, windowed, G = 4.
+FLASH_F32_CASES = [(77, 77, 2, 1, 1, 1, True, 0),
+                   (130, 200, 4, 4, 31, 31, False, 0),
+                   (200, 200, 4, 2, 32, 32, True, 17),
+                   (300, 300, 2, 1, 33, 20, True, 0),
+                   (129, 129, 4, 4, 64, 64, True, 0),
+                   (150, 90, 2, 2, 127, 127, False, 0),
+                   (300, 300, 4, 2, 128, 128, True, 64),
+                   (257, 257, 2, 1, 129, 129, True, 0),
+                   (300, 300, 4, 4, 192, 128, True, 0),
+                   (100, 333, 4, 2, 192, 128, False, 0),
+                   (300, 300, 2, 1, 255, 255, True, 5),
+                   (200, 200, 4, 2, 256, 256, True, 0),
+                   (130, 130, 2, 1, 256, 100, False, 0),
+                   (300, 300, 2, 1, 257, 257, True, 0),
+                   (200, 333, 4, 4, 320, 100, False, 0),
+                   (300, 300, 4, 2, 512, 512, True, 100),
+                   (129, 65, 4, 4, 512, 256, False, 0),
+                   (300, 300, 2, 1, 513, 513, True, 0),
+                   (200, 200, 8, 4, 576, 512, True, 0),
+                   (130, 200, 2, 1, 576, 512, False, 0),
+                   (200, 200, 2, 2, 577, 577, True, 30)]
+
+
+@pytest.mark.parametrize("tq,tk,h,grp,d,dv,causal,window", FLASH_F32_CASES)
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_cuda_flash_f32_bodies_match_plain(cuda, tq, tk, h, grp, d, dv,
+                                           causal, window, out):
+    ot = getattr(torch, out)
+    body = ops.flash_body(torch.float32, d, dv)
+    assert body == ("fp32" if d <= 256 else "fp32 single-pass"
+                    if d <= 576 and dv <= 512 else "fp32 d-sliced")
+    assert ops.FLASH_BODIES[ops.entry("flash_body")(0, d, dv)] == body
+    g = torch.Generator(device=cuda).manual_seed(d + dv + tq + tk)
+    q = torch.randn(h, tq, d, generator=g, device=cuda)
+    k = torch.randn(h // grp, tk, d, generator=g, device=cuda)
+    v = torch.randn(h // grp, tk, dv, generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal, window)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.shape == (h, tq, dv) and got.dtype == torch.float32
+    _close(got, ref.flash_attention_plain(q, k, v, causal, window))
+    assert torch.equal(ops.flash_attention(q, k, v, causal, window), got)
+    low = ops.flash_attention(q, k, v, causal, window, out_dtype=ot)
+    assert low.dtype == ot and torch.equal(low, got.to(ot))
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128),
+                                  (256, 256), (512, 512), (576, 512)])
+def test_cuda_flash_f32_staged_route_equals_fast(cuda, d, dv):
+    # Bases 4 bytes past 16 send both fp32 bodies to 4-byte copies into the
+    # layout the 16-byte ones fill: the math runs on the same values.
+    g = torch.Generator(device=cuda).manual_seed(d + dv)
+    q = torch.randn(4, 300, d, generator=g, device=cuda)
+    k = torch.randn(2, 300, d, generator=g, device=cuda)
+    v = torch.randn(2, 300, dv, generator=g, device=cuda)
+    fast = ops.flash_attention(q, k, v, True)
+    staged = ops.flash_attention(*(_off_16_bytes(t) for t in (q, k, v)),
+                                 True)
+    assert torch.equal(staged, fast)
+    _close(staged, ref.flash_attention_plain(q, k, v, True))
 
 
 def test_cuda_flash_body_rule_is_the_kernel_s(cuda):
