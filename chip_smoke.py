@@ -49,13 +49,21 @@ Phases (any failure exits non-zero; nothing is caught):
    hits (the third a CUDA-graph replay: the first pass stages the tiles,
    the second is the warm pass whose stats replays keep); the kernels'
    launches over the serve loop (the wrappers' plus the replays') must
-   be > 0 and equal the executor's GEMM and SUM/MEAN SpDMM tile ops.
+   be > 0 and equal the executor's GEMM and SUM/MEAN SpDMM tile ops
+   (``LAUNCHES["spdmm"]`` counts the SpDMM steps the kernel ran), and the
+   SpDMM kernel's own launches (``KERNEL_LAUNCHES``) equal the plans'
+   runs of steps (a run of one output tile's SpDMM steps is one launch).
    One more FL request (a cache hit) under ``torch.profiler``: device
    time by kernel (each hand kernel's sum on a line of its own) and the
    device's busy share.  Then the SpDMM kernel timed again on the
    widest real ELL slice of the FL program with the executor's
    ``row_len`` (beside the full-width walk of the same slice), which is
-   the kernel's entry in the ``kernels`` line.
+   the kernel's entry in the ``kernels`` line, and on that slice's whole
+   row block (its output tile's step list, one launch) held to the plain
+   version and bit for bit to the one-step kernel chained through acc,
+   timed beside that chain, ``torch.addmm`` on the block's CSR and its
+   bound: the step-list entry, whose launches are the kernel's on the
+   main path.
 4. Host-streaming and remap paths.  (a) b2@FL with ``residency="host"``
    on a fresh ``Engine(resident_budget_bytes=B)``, B halfway between the
    largest double-buffered shard window plus the weights (from the plan,
@@ -137,8 +145,12 @@ Phases (any failure exits non-zero; nothing is caught):
 7b. Replays against the eager route (``Engine(replay=False)``) on the
    programs phases 3 and 5 staged: b2@FL and gat-dot@FL hits, one round
    of eager, replayed, replayed, eager, each bit for bit the first eager
-   hit, launches of both routes equal to hits x tile ops, a replayed
-   output against float64, one hit of each route profiled (busy share);
+   hit, launches of both routes equal to hits x tile ops (the SpDMM
+   kernel's launches to hits x the plan's runs of steps), a replayed
+   output against float64, one hit of each route profiled (busy share),
+   and one more of each with the SpDMM kernel's device ms and launches
+   (the replayed hit's launches binned by walked slots and longest row,
+   from the steps the capture recorded);
    phase 5's stream on two eager overlays and on two replaying ones
    (after its warm and capturing runs), every response bit for bit, p50
    / p99 of each.
@@ -453,6 +465,11 @@ fp32 forward runs of phase 20, the ZeRO-1 steps and the pipeline of
 phase 21, the real train steps of phase 22 and the six examples of
 phase 23, read back from their processes),
 each counted from zero just before the path runs and read just after.
+For SpDMM that count is of the tile steps the kernel ran
+(``LAUNCHES["spdmm"]``, equal to the executor's tile ops); the step-list
+entry's ``launches`` is the kernel's own launches on the main path
+(``ops.KERNEL_LAUNCHES``: a run of an output tile's steps is one launch,
+two with its hub pass).
 The script also tallies its own flash calls on the card by the body
 ``ops.flash_body`` names (``FLASH_TALLY``, the examples' in their
 processes), apart for the driven paths, for their timed or profiled
@@ -530,7 +547,7 @@ DECODE_B, DECODE_T, DECODE_TOL = 2, 64, 2e-4
 # flash_bf16_ws_kernel past d = 128, flash_bf16_wide_kernel past 256).
 FLASH_BF16 = "flash_bf16_"
 # Kernel names of the hand kernels, as the profiler reports them.
-HAND_KERNELS = ("gemm_f32_kernel", "spdmm_f32_kernel", "sddmm_f32_kernel",
+HAND_KERNELS = ("gemm_f32_kernel", "spdmm_", "sddmm_f32_kernel",
                 "flash_", "ell_densify_kernel")
 
 
@@ -1263,6 +1280,198 @@ def _spdmm_bound(n1, w, n_src, f, nnz, walked=None, h_bytes=4,
     return bound_ms(nbytes, 2.0 * nnz * f)
 
 
+def _spdmm_steps_bound(n1, n_steps, walked, src_rows, f, nnz, h_bytes=4,
+                       out_bytes=4):
+    """A step list's bound: bytes of the walked slots' cols + vals, each
+    step's row_len [n1], the ``src_rows`` rows of h the steps read
+    (``h_bytes`` an element), acc [n1, f] (fp32) and out [n1, f] once;
+    operations 2 flops per true edge and feature."""
+    nbytes = (8 * walked + 4 * n1 * n_steps + h_bytes * src_rows * f
+              + 4 * n1 * f + out_bytes * n1 * f)
+    return bound_ms(nbytes, 2.0 * nnz * f)
+
+
+def row_block_steps(torch, prog, j):
+    """The step list the executor hands the SpDMM kernel for output row
+    block j of ``prog``'s first SUM/MEAN aggregate layer (its tile's
+    steps in stream order, every step a SPDMM step in a canonical
+    program), with (its true edges, its walked slots, the source row
+    blocks it reads)."""
+    from repro_torch.core.ir import AggOp, LayerType
+    from repro_torch.engine.executor import _staged
+    pg = prog.pgraph
+    lp = next(lp for lp in prog.plan().layers
+              if lp.layer_type == LayerType.AGGREGATE
+              and AggOp(lp.mode) in (AggOp.SUM, AggOp.MEAN))
+    tp = next(tp for tp in lp.tiles if tp.out_j == j)
+    ks = tuple((ins.args[1], ins.args[3] >> 1) for ins in tp.compute)
+    st = _staged(pg, torch.device("cuda"))
+    steps = st.spdmm_steps(j, ks)
+    nnz = sum(pg.tiles[(j, k)][s].nnz for k, s in ks)
+    walked = sum(int(r.sum()) for _, _, r, _ in steps.steps)
+    return steps, nnz, walked, len({k for k, _ in ks})
+
+
+def plan_spdmm_runs(torch, prog) -> int:
+    """SpDMM kernel launches of one device-resident pass of ``prog`` (one
+    lane): per run of consecutive static-weight SPDMM steps on one source
+    fiber in each SUM/MEAN aggregate tile, one launch, two when the run's
+    step list (the executor's, from the staging) has hub rows; one per
+    step with dynamic edge weights."""
+    from repro_torch.core.ir import AggOp, LayerType
+    from repro_torch.core.isa import Opcode
+    from repro_torch.engine.executor import _staged
+    st = _staged(prog.pgraph, torch.device("cuda"))
+    launches = 0
+    for lp in prog.plan().layers:
+        if lp.layer_type != LayerType.AGGREGATE or AggOp(lp.mode) not in (
+                AggOp.SUM, AggOp.MEAN):
+            continue
+        for tp in lp.tiles:
+            runs, prev = [], None
+            for ins in tp.compute:
+                static = ins.op == Opcode.SPDMM and not ins.args[3] & 1
+                ks = (ins.args[1], ins.args[3] >> 1)
+                if static and prev == ins.args[2]:
+                    runs[-1].append(ks)
+                elif static:
+                    runs.append([ks])
+                elif ins.op == Opcode.SPDMM:
+                    launches += 1
+                prev = ins.args[2] if static else None
+            launches += sum(1 + bool(st.spdmm_steps(tp.out_j, tuple(
+                ks)).n_hub) for ks in runs)
+    return launches
+
+
+def steps_to_csr(torch, steps, n_cols):
+    """The true edges of a step list as one CSR matrix [n1, n_cols] over
+    the rows of h (duplicates summed), for the library yardstick."""
+    rows, cols, vals = [], [], []
+    for c, v, _, off in steps.steps:
+        r, k = torch.nonzero(v != 0, as_tuple=True)
+        rows.append(r)
+        cols.append(c[r, k].long() + off)
+        vals.append(v[r, k])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (steps.n1, n_cols)).coalesce()
+    return coo.to_sparse_csr()
+
+
+class StepLog:
+    """While open, records each SpDMM kernel launch the wrappers make
+    (``ops.spdmm`` and ``ops.spdmm_steps``) as (steps, walked slots,
+    longest row_len), read from the staged row_len tiles of ``prog`` by
+    address (no device read, so a capture may run inside); a launch on a
+    tile outside them records walked / longest as None.  ``passes``
+    holds one list per ``next_pass()``.  With ``lists=False`` a step-list
+    call is not recorded, only the one-step calls it makes (a build that
+    launches a step at a time)."""
+
+    def __init__(self, torch, ops, prog, lists=True):
+        from repro_torch.engine.executor import _staged
+        st = _staged(prog.pgraph, torch.device("cuda"))
+        self.ops, self.passes, self.lists = ops, [[]], lists
+        self.of = {}
+        for r in st.tiles("row_len").values():
+            rc = r.cpu()
+            self.of[r.data_ptr()] = (int(rc.sum()), int(rc.max()))
+
+    def _note(self, row_lens, hub=None):
+        got = [self.of.get(r.data_ptr()) if r is not None else None
+               for r in row_lens]
+        if hub is not None and hub.n_hub:       # the hub pass runs first
+            self.passes[-1].append((len(got), hub.hub_walked,
+                                    hub.hub_longest))
+        if any(g is None for g in got):
+            self.passes[-1].append((len(got), None, None))
+        else:
+            walked = sum(g[0] for g in got)
+            if hub is not None:
+                walked -= hub.hub_walked
+            self.passes[-1].append((len(got), walked,
+                                    max(g[1] for g in got)))
+
+    def next_pass(self):
+        self.passes.append([])
+
+    def __enter__(self):
+        ops, self.real = self.ops, (self.ops.spdmm, self.ops.spdmm_steps)
+        one, many = self.real
+
+        def spdmm(cols, vals, h, acc=None, row_len=None, *a, **k):
+            self._note([row_len])
+            return one(cols, vals, h, acc, row_len, *a, **k)
+
+        def spdmm_steps(steps, h, acc=None, *a, **k):
+            if self.lists:
+                self._note([r for _, _, r, _ in steps.steps], steps)
+            return many(steps, h, acc, *a, **k)
+        ops.spdmm, ops.spdmm_steps = spdmm, spdmm_steps
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.spdmm, self.ops.spdmm_steps = self.real
+
+
+WALKED_BINS = (1_000, 10_000, 100_000)   # walked slots of a launch
+LONGEST_BINS = (8, 64, 256)              # its longest row_len
+
+
+def launch_histogram(label, durations_us, descs) -> dict:
+    """Per-launch device times of SpDMM kernels (``durations_us``, in
+    launch order) binned by each launch's walked slots and longest row
+    (``descs``: (steps, walked, longest) in the same order); prints the
+    bins (launches, total ms, median us) and returns them."""
+    def bin_of(v, edges):
+        if v is None:
+            return "unknown"
+        for e in edges:
+            if v < e:
+                return f"< {e}"
+        return f">= {edges[-1]}"
+    if len(durations_us) != len(descs):
+        fail(f"{label}: {len(durations_us)} SpDMM kernel events for "
+             f"{len(descs)} recorded launches")
+    out = {}
+    for us, (n, walked, longest) in zip(durations_us, descs):
+        key = (f"walked {bin_of(walked, WALKED_BINS)}, longest row "
+               f"{bin_of(longest, LONGEST_BINS)}")
+        out.setdefault(key, []).append((us, n))
+    rows = {}
+    for key in sorted(out):
+        us = [u for u, _ in out[key]]
+        rows[key] = {"launches": len(us), "steps": sum(n for _, n in
+                                                       out[key]),
+                     "ms": sum(us) / 1e3,
+                     "median_us": statistics.median(us)}
+        log(f"  {label}: {key}: {len(us)} launches ({rows[key]['steps']} "
+            f"steps), {sum(us) / 1e3:.3f} ms, median "
+            f"{statistics.median(us):.2f} us")
+    log(f"  {label}: {len(durations_us)} launches, "
+        f"{sum(durations_us) / 1e3:.3f} ms in all")
+    return rows
+
+
+def spdmm_events(torch, fn):
+    """``fn()`` under torch.profiler (device activity only): the device
+    durations (us) of its SpDMM kernel launches in launch order, or None
+    when the profiler yields no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and "spdmm" in e.name]
+    if not ev:
+        return None
+    ev.sort(key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() for e in ev]
+
+
 # --------------------------------------------------------------------------- #
 def path_phase(torch):
     from repro_torch.core import graph as G
@@ -1289,7 +1498,7 @@ def path_phase(torch):
     engine = Engine()                      # device="cuda", default geometry
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    exp = {"gemm": 0, "spdmm": 0, "spdmm_sum_mean": 0}
+    exp = {"gemm": 0, "spdmm": 0, "spdmm_sum_mean": 0, "spdmm_runs": 0}
     responses, layer_times = [], []
     # ---- the main path: counts are zeroed just above, read just below.
     for req in reqs:
@@ -1299,6 +1508,7 @@ def path_phase(torch):
         exp["gemm"] += modes.get("gemm", 0)
         exp["spdmm"] += modes.get("spdmm", 0)
         prog = engine.cache.get(resp.cache_key)
+        exp["spdmm_runs"] += plan_spdmm_runs(torch, prog)
         for lp in prog.plan().layers:
             if lp.layer_type == LayerType.AGGREGATE and AggOp(lp.mode) in (
                     AggOp.SUM, AggOp.MEAN):
@@ -1309,8 +1519,10 @@ def path_phase(torch):
                              r["wall_s"] * 1e3) for r in st.per_layer])
     launches = dict(ops.LAUNCHES)
     ran = ops.launch_totals()
+    kernel_ran = ops.kernel_launch_totals()
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the main path.
+    launches["spdmm_kernel"] = kernel_ran["spdmm"]
 
     for req, resp, lt in zip(reqs, responses, layer_times):
         log(f"request {resp.request_id}: model {resp.model_name}, "
@@ -1326,6 +1538,9 @@ def path_phase(torch):
         f"spdmm {ran['spdmm']} with the replays'; executor tile ops: gemm "
         f"{exp['gemm']}, spdmm {exp['spdmm']} (SUM/MEAN "
         f"{exp['spdmm_sum_mean']})")
+    log(f"SpDMM kernel launches on the main path: {kernel_ran['spdmm']} "
+        f"(with the replays') for {ran['spdmm']} steps; the plans' runs "
+        f"{exp['spdmm_runs']}")
     hits = [r.t_loh * 1e3 for r in responses[-3:] if r.cache_hit]
     log("b2@FL cache hits: T_LoH " + ", ".join(f"{ms:.2f}" for ms in hits)
         + " ms")
@@ -1339,6 +1554,9 @@ def path_phase(torch):
     if not (ran["spdmm"] == exp["spdmm_sum_mean"] == exp["spdmm"]):
         fail(f"spdmm launches {ran['spdmm']} != SUM/MEAN tile ops "
              f"{exp['spdmm_sum_mean']} / all {exp['spdmm']}")
+    if kernel_ran["spdmm"] != exp["spdmm_runs"]:
+        fail(f"SpDMM kernel launches {kernel_ran['spdmm']} != the plans' "
+             f"runs {exp['spdmm_runs']}")
 
     worst = hold_against_reference(torch, reqs, responses)
     log(f"path: {len(responses)} outputs within rtol {PATH_RTOL} / atol "
@@ -1551,13 +1769,73 @@ def fl_spdmm_entry(torch, ops, ref, prog):
                       "fp32_store_ms": t32, "plain_ms": tp,
                       "bound_ms": b16, "bound_by": b16_by,
                       "library_ms": lib.get("ms"), "library": lib}
+    block = fl_row_block_entry(torch, ops, ref, prog, key[0], h_full[
+        :, f:2 * f], acc)
     return {"name": "spdmm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/spdmm.cu",
             "replaces": "src/repro/kernels/spdmm.py:44",
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
             "full_walk_ms": t_full, "padded_bound_ms": b_pad,
-            "bf16_store": store}
+            "bf16_store": store, "row_block": block}
+
+
+def fl_row_block_entry(torch, ops, ref, prog, j, h, acc):
+    """The SpDMM kernel on row block j's whole output tile (the widest FL
+    slice's row block: the step list the executor hands it for that tile
+    of the first aggregate layer) in one launch, over the strided [rows,
+    f] source view ``h``: held to the plain version at the kernel
+    tolerance and bit for bit to the one-step kernel chained through acc,
+    timed beside that chain, the plain version, ``torch.addmm`` on the
+    block's CSR and its bound."""
+    steps, nnz, walked, blocks = row_block_steps(torch, prog, j)
+    n1, f = steps.n1, h.shape[1]
+
+    def chain():
+        out = acc
+        for c, v, r, off in steps.steps:
+            out = ops.spdmm(c, v, h[off:off + n1], out, r)
+        return out
+    ops.reset_launches()
+    got = ops.spdmm_steps(steps, h, acc)
+    launched = (ops.kernel_launch_totals()["spdmm"],
+                ops.launch_totals()["spdmm"])
+    if launched != (1 + bool(steps.n_hub), len(steps)):
+        fail(f"spdmm FL row block: {launched} kernel launches / steps, "
+             f"expected ({1 + bool(steps.n_hub)}, {len(steps)})")
+    want = ref.spdmm_steps_ref(steps.steps, h, acc, steps.n_src)
+    err = check_close(torch, "spdmm FL row block", got, want, KERNEL_RTOL,
+                      KERNEL_ATOL)
+    if not torch.equal(got, chain()):
+        fail("spdmm FL row block: the step list is not bit-identical to "
+             "the one-step kernel chained through acc")
+    t_k = median_ms(torch, lambda: ops.spdmm_steps(steps, h, acc))
+    t_chain = median_ms(torch, chain)
+    t_p = median_ms(torch, lambda: ref.spdmm_steps_ref(
+        steps.steps, h, acc, steps.n_src), reps=3, launches=3)
+    csr, hc = steps_to_csr(torch, steps, h.shape[0]), h.contiguous()
+    lib = library_call(torch, "torch.addmm(acc, csr, h) (FL row block)",
+                       lambda: torch.addmm(acc, csr, hc), want)
+    b_ms, b_by = _spdmm_steps_bound(n1, len(steps), walked, blocks * n1, f,
+                                    nnz)
+    log(f"kernel spdmm step list on FL row block {j} (its output tile: "
+        f"{len(steps)} steps over {blocks} source blocks, {nnz} edges, "
+        f"{walked} slots walked, {steps.n_hub} hub entries walking "
+        f"{steps.hub_walked}, n1={n1} f={f}): one call {t_k:.4f} ms, "
+        f"the one-step kernel chained {t_chain:.4f} ms, plain {t_p:.4f} ms,"
+        f" bound {b_ms:.4f} ms ({b_by}), max|err| {err:.2e}; bit for bit "
+        "the chain")
+    return {"name": f"spdmm (step list: FL row block {j}, {len(steps)} "
+                    f"steps in one call)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spdmm.cu",
+            "replaces": "src/repro/kernels/spdmm.py:44",
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib.get("ms"), "library": lib,
+            "one_step_chain_ms": t_chain, "steps": len(steps), "nnz": nnz,
+            "walked": walked, "hub_entries": steps.n_hub,
+            "hub_walked": steps.hub_walked}
 
 
 # --------------------------------------------------------------------------- #
@@ -2088,8 +2366,11 @@ def replay_phase(torch, fl, fl_prog, gat_prog, rt_reqs, rt_pool):
     models = {"b2@FL": "b2", "gat-dot@FL": rt_reqs[0].model}
     for label, prog in (("b2@FL", fl_prog), ("gat-dot@FL", gat_prog)):
         want = eag.run(prog, x)
-        for _ in range(3):                  # warm eager pass, capture
-            rep.run(prog, x)
+        with StepLog(torch, ops, prog) as rec:
+            for _ in range(3):              # warm eager pass, capture
+                rec.next_pass()
+                rep.run(prog, x)
+        descs = [p for p in rec.passes if p][-1]
         times = {"eager": [], "replay": []}
         ops.reset_launches()
         # ---- hits of both routes: counts zeroed above, read below.
@@ -2105,11 +2386,17 @@ def replay_phase(torch, fl, fl_prog, gat_prog, rt_reqs, rt_pool):
                          f"first eager one by "
                          f"{float((y - want).abs().max()):.3e}")
         got, ran = dict(ops.LAUNCHES), ops.launch_totals()
+        kran = ops.kernel_launch_totals()
         # ----
         for k in launches:
             launches[k] += got[k]
         per_pass = plan_tile_ops(prog)
         hits = 2 * REPLAY_ROUNDS
+        runs = plan_spdmm_runs(torch, prog)
+        if kran["spdmm"] != 2 * hits * runs or len(descs) != runs:
+            fail(f"replay {label}: SpDMM kernel launches {kran['spdmm']} != "
+                 f"{2 * hits} hits x {runs} a pass (the capture recorded "
+                 f"{len(descs)})")
         for k in per_pass:
             if got[k] != hits * per_pass[k] or \
                     ran[k] != 2 * hits * per_pass[k]:
@@ -2124,6 +2411,21 @@ def replay_phase(torch, fl, fl_prog, gat_prog, rt_reqs, rt_pool):
             profile_call(torch, lambda: (eng.run(prog, x), eng._sync()),
                          f"{label} {mode} hit (device activity only)",
                          out=prof[mode], cpu=False)
+        spdmm = {}
+        for mode, eng in (("eager", eag), ("replay", rep)):
+            ev = spdmm_events(torch, lambda: (eng.run(prog, x), eng._sync()))
+            if ev is None:
+                log(f"replay {label} {mode} hit: SpDMM device time not "
+                    "measured (no device events)")
+                continue
+            spdmm[mode] = {"ms": sum(ev) / 1e3, "kernel_launches": len(ev),
+                           "steps": per_pass["spdmm"]}
+            log(f"replay {label} {mode} hit: SpDMM device "
+                f"{sum(ev) / 1e3:.3f} ms in {len(ev)} kernel launches "
+                f"({per_pass['spdmm']} steps)")
+            if mode == "replay":
+                spdmm[mode]["bins"] = launch_histogram(
+                    f"replay {label} hit SpDMM launches", ev, descs)
         med = {m: statistics.median(v) for m, v in times.items()}
         for mode in prof:
             if "busy_ms" in prof[mode]:
@@ -2142,7 +2444,8 @@ def replay_phase(torch, fl, fl_prog, gat_prog, rt_reqs, rt_pool):
             f"{worst:.3e} against float64")
         out[label] = {"t_loh_ms": times, "median_ms": med,
                       "launches": got, "ran": ran, "worst_err": worst,
-                      "profile": prof}
+                      "profile": prof, "spdmm_kernel_launches": kran,
+                      "spdmm": spdmm}
 
     # The runtime stream on eager and on replaying overlays.
     keys = {rt_pool.cache_key(r) for r in rt_reqs}
@@ -6723,6 +7026,11 @@ def main() -> int:
             launches, rt_launches, host_launches, co_launches, fl_launches,
             sp_launches, conf_launches, live_launches, mesh_launches,
             replay_launches, ex_launches))
+    # The step-list row: the SpDMM kernel's launches on the main path (a
+    # launch runs a run of steps; the row above counts the steps).
+    block_entry = spdmm_entry.pop("row_block")
+    block_entry["launches"] = launches["spdmm_kernel"]
+    kernels.append(block_entry)
     kernels.append(flash_entry)
     densify_entry["launches"] = co_launches["densify"] + \
         fl_launches["densify"] + conf_launches["densify"] + \
@@ -6763,6 +7071,9 @@ def main() -> int:
     spdmm_extra = {k: spdmm_entry[k] for k in ("full_walk_ms",
                                                "padded_bound_ms",
                                                "bf16_store")}
+    spdmm_extra["row_block"] = {k: block_entry[k] for k in (
+        "library", "one_step_chain_ms", "steps", "nnz", "walked",
+        "hub_entries", "hub_walked")}
     kernels = [{k: e[k] for k in order} for e in kernels]
     bodies = {**{k: dict(v) for k, v in FLASH_TALLY.counts.items()},
               "examples": ex_bodies}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Tile-shape variants of the GEMM (its fp32 kernel and its bf16 body),
-SDDMM and flash kernels, read beside the kernels themselves on one GPU,
-and planted faults in the GEMM's bf16 body.
+SpDMM, SDDMM and flash kernels, read beside the kernels themselves on one
+GPU, and planted faults in the GEMM's bf16 body.
 
     python3 kernel_variants.py [--parent DIR] [--only KERNEL ...]
                                [--json-out PATH]
@@ -75,6 +75,22 @@ launch of its own, and timed at ``FLASH_F32_TIMED`` (qwen3-0.6b's prefill
 heads, BH = 64 over 32, d = 128; d = 512 at BH = 32; T = 2048, causal)
 beside fp32 ``F.scaled_dot_product_attention`` (``enable_gqa=True`` and on
 KV heads repeated) and the bound.
+
+The SpDMM kernel (``--only spdmm``; variants of its span length, no
+span split, registers and blocks an SM, rows a block, the hub pass's
+gathers in flight and the old share of a round's spans, each a text
+edit of ``spdmm.cu`` called through its step-list and one-step entries;
+"per_step", the checkout's build called a step at a time; with
+``--parent`` the parent tree's source, whose one-step entries run each
+list a step at a time) runs on full-scale Flickr's b2 program: the
+widest slice as a one-step call, a synthetic slice with the same walked
+slots spread at <= 64 a row, and the widest slice's row block as one
+step list (every hub threshold of the checkout's build too), each held
+to the plain version and, for the builds that keep the sum order, to
+the checkout's bits, timed beside ``torch.sparse.mm`` / ``torch.addmm``
+and the bound; then a replayed b2@FL and gat-dot@FL hit per route under
+the profiler, its SpDMM launches binned by walked slots and longest row
+(``chip_smoke.launch_histogram``).
 
 The kernel in the checkout is timed first and last (change, variants,
 change), so its two readings show the drift within the call.  It exits
@@ -309,7 +325,49 @@ VARIANTS = {
                     [("constexpr int F32SP_BK = 64;",
                       "constexpr int F32SP_BK = 32;")])
     },
+    # The SpDMM kernel (spdmm.cu), called through its step-list entry
+    # spdmm_steps and its one-step entry spdmm_f32.
+    "spdmm": {
+        "span32": ("32-slot spans (other bits past 32 slots a row)",
+                   [("constexpr int SPAN = 64;", "constexpr int SPAN = 32;")]),
+        "span128": ("128-slot spans (other bits past 64 slots a row)",
+                    [("constexpr int SPAN = 64;",
+                      "constexpr int SPAN = 128;")]),
+        "no_split": ("no span split: one warp walks a row's step whole, "
+                     "as PR 30's kernel did (other bits past 64 slots)",
+                     [("constexpr int SPAN = 64;",
+                       "constexpr int SPAN = 1 << 20;")]),
+        "inflight16": ("16 row gathers in flight, 2 blocks an SM (the same "
+                       "bits)",
+                       [("constexpr int INFLIGHT = 8;",
+                         "constexpr int INFLIGHT = 16;"),
+                        ("constexpr int MIN_BLOCKS = 4;",
+                         "constexpr int MIN_BLOCKS = 2;")]),
+        "blocks3": ("3 blocks an SM (85 registers; the same bits)",
+                    [("constexpr int MIN_BLOCKS = 4;",
+                      "constexpr int MIN_BLOCKS = 3;")]),
+        "one_rows8": ("a one-step call's blocks hold 8 rows, as a step "
+                      "list's do (the same bits)",
+                      [("constexpr int ROWS_ONE = 4;",
+                        "constexpr int ROWS_ONE = 8;")]),
+        "list_rows4": ("a step list's blocks hold 4 rows, as a one-step "
+                       "call's do (the same bits)",
+                       [("constexpr int ROWS_LIST = 8;",
+                         "constexpr int ROWS_LIST = 4;")]),
+        "hub_inflight8": ("the hub pass with 8 row gathers in flight (the "
+                          "same bits)",
+                          [("constexpr int HUB_INFLIGHT = 16;",
+                            "constexpr int HUB_INFLIGHT = 8;")]),
+        "round_robin": ("each warp takes PER_WARP consecutive spans of a "
+                        "round from the first warp on, as the first "
+                        "designs did (the same bits)",
+                        [("const int share = (end - b + WARPS - 1) / WARPS;",
+                          "const int share = PER_WARP;")]),
+    },
 }
+# SpDMM variants whose sums keep the checkout's order (bit for bit).
+SPDMM_SAME_BITS = ("per_step", "inflight16", "blocks3", "one_rows8",
+                   "list_rows4", "hub_inflight8", "round_robin")
 # Planted faults in the GEMM kernel's bf16 body, each of which
 # ``chip_smoke.gemm_bf16_check`` must fail: name -> (what it does, edits).
 # None can leave a warp waiting forever (the ring's mbarrier protocol is
@@ -342,10 +400,13 @@ GEMM_FAULTS = {
 SOURCE = {"gemm_bf16": "gemm", "flash_wide": "flash_attention",
           "flash_f32": "flash_attention"}
 ENTRY = {"gemm_bf16": "gemm_mixed", "flash_wide": "flash_attention",
-         "flash_f32": "flash_attention"}
+         "flash_f32": "flash_attention", "spdmm": "spdmm_steps"}
+# The entry a parent copy is called through, where it differs (the
+# parent's SpDMM source has only the one-step entries).
+PARENT_ENTRY = {"spdmm": "spdmm"}
 # Kernels whose parent source is built as the variant "parent".
 PARENT_KERNELS = ("gemm", "gemm_bf16", "sddmm", "flash_attention",
-                  "flash_wide", "flash_f32")
+                  "flash_wide", "flash_f32", "spdmm")
 # A flash entry without the dv argument (the signature before V took its
 # own width): the parent's, when its source has no dv.
 FLASH_NO_DV = "int d, int causal, int window,"
@@ -390,7 +451,8 @@ def build_variants(build, parent, kernels):
         if parent and kern in PARENT_KERNELS:
             with open(os.path.join(parent, "src/repro_torch/kernels/csrc",
                                    f"{src}.cu")) as fh:
-                copies[f"{kern}_parent"] = (ent, fh.read())
+                copies[f"{kern}_parent"] = (PARENT_ENTRY.get(kern, ent),
+                                        fh.read())
             keys[f"{kern}_parent"] = (kern, "parent")
     t0 = time.perf_counter()
     built = build.build_copies(copies, os.path.join(build.BUILD_DIR,
@@ -904,12 +966,240 @@ def sddmm_phase(torch, cs, ops, ref, fns):
     return out
 
 
+def copy_entry(build, tag, name):
+    """Entry ``name`` of the variant copy ``tag`` (built by
+    ``build_variants``), argtypes set."""
+    import ctypes
+    fn_name, argtypes = build._ARGTYPES[name]
+    fn = getattr(ctypes.CDLL(os.path.join(build.BUILD_DIR, "variants",
+                                          f"lib{tag}.so")), fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+class spdmm_as:
+    """While open, the SpDMM wrappers launch one build: ``single`` for
+    ``ops.spdmm`` and ``steps`` for ``ops.spdmm_steps``; a build without a
+    step-list entry (``steps`` None: the parent's) runs each list as
+    ``ops.spdmm`` calls chained through acc, one launch a step, as the
+    parent's executor did."""
+
+    def __init__(self, ops, single, steps):
+        self.ops, self.single, self.steps = ops, single, steps
+
+    def __enter__(self):
+        ops = self.ops
+        self.real = ops.entry, ops.spdmm_steps
+        real_entry, table = ops.entry, {"spdmm": self.single,
+                                        "spdmm_steps": self.steps}
+        ops.entry = lambda name: table.get(name) or real_entry(name)
+        if self.steps is None:
+            def chained(steps, h, acc=None, out_dtype=None):
+                for cols, vals, row_len, off in steps.steps:
+                    acc = ops.spdmm(cols, vals, h[off:off + steps.n_src],
+                                    acc, row_len)
+                return acc
+            ops.spdmm_steps = chained
+
+    def __exit__(self, *exc):
+        self.ops.entry, self.ops.spdmm_steps = self.real
+
+
+def spread_slice(torch, gen, n1, walked, n_src):
+    """A synthetic [n1, 64] slice holding ``walked`` live slots spread
+    evenly over its rows (at most 64 a row, live slots packed at the
+    front): the widest FL slice's gathers without its hub rows."""
+    lens = torch.full((n1,), walked // n1, device="cuda")
+    lens[:walked % n1] += 1
+    w = int(lens.max())
+    live = torch.arange(w, device="cuda")[None] < lens[:, None]
+    cols = torch.where(live, torch.randint(0, n_src, (n1, w), generator=gen,
+                                           device="cuda"), 0)
+    vals = torch.where(live, torch.randn(n1, w, generator=gen,
+                                         device="cuda"), 0.0)
+    return (cols.to(torch.int32).contiguous(), vals.contiguous(),
+            lens.to(torch.int32).contiguous())
+
+
+def spdmm_phase(torch, cs, ops, ref, fns):
+    """The SpDMM builds on full-scale Flickr's b2 program (n1 = 4096, n2 =
+    128): the widest slice as a one-step call, a synthetic slice with its
+    walked slots spread at <= 64 a row, and the widest slice's whole row
+    block as one step list, each timed per build in turns (change, the
+    others, change) beside the plain version, ``torch.sparse.mm`` /
+    ``torch.addmm`` on the CSR and the bound, held to the plain version
+    and (same-order builds) to the checkout's bits; then a replayed b2@FL
+    hit per route (the checkout's step lists, the parent's launch a step)
+    under the profiler, its SpDMM launches binned by walked slots and
+    longest row."""
+    from repro_torch.core import graph as G
+    from repro_torch.engine import Engine
+    from repro_torch.engine.executor import _staged
+    from repro_torch.kernels import build
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t0 = time.perf_counter()
+    fl = G.synthesize("FL").gcn_normalized()
+    eng = Engine()
+    prog = eng.compile("b2", fl)
+    pg = prog.pgraph
+    st = _staged(pg, torch.device("cuda"))
+    cols_d, vals_d = st.tiles("cols"), st.tiles("vals")
+    key = max(cols_d, key=lambda k3: (cols_d[k3].shape[1],
+                                      pg.tiles[k3[:2]][k3[2]].nnz))
+    cols, vals, row_len = cols_d[key], vals_d[key], st.tiles("row_len")[key]
+    n1, w = cols.shape
+    f = pg.config.n2
+    nnz, walked = pg.tiles[key[:2]][key[2]].nnz, int(row_len.sum())
+    h_full = torch.randn(pg.n_blocks * n1, 4 * f, generator=gen,
+                         device="cuda")[:, f:2 * f]
+    h = h_full[key[1] * n1:(key[1] + 1) * n1]
+    acc = torch.randn(n1, f, generator=gen, device="cuda")
+    sc, sv, sl = spread_slice(torch, gen, n1, walked, n1)
+    steps, b_nnz, b_walked, b_blocks = cs.row_block_steps(torch, prog,
+                                                          key[0])
+    log(f"FL b2 program in {time.perf_counter() - t0:.1f} s; widest slice "
+        f"{key} w={w} nnz={nnz} walked={walked}; spread slice w="
+        f"{sc.shape[1]}; row block {key[0]}: {len(steps)} steps, "
+        f"{b_nnz} edges, {b_walked} slots walked, {b_blocks} source blocks")
+    want = acc + ref.spdmm_ref(cols, vals, h)
+    want_s = acc + ref.spdmm_ref(sc, sv, h)
+    want_b = ref.spdmm_steps_ref(steps.steps, h_full, acc, steps.n_src)
+    # "per_step" is the checkout's build called a step at a time (one
+    # launch a step, chained through acc, as PR 30's executor called it).
+    names = [n for k, n in fns if k == "spdmm"] + ["per_step"]
+    single, many = {}, {}
+    for nm in names:
+        if nm in ("parent", "per_step"):
+            single[nm] = (fns[("spdmm", nm)] if nm == "parent"
+                          else ops.entry("spdmm"))
+            many[nm] = None
+        else:
+            single[nm] = (ops.entry("spdmm") if nm == "change" else
+                          copy_entry(build, f"spdmm_{nm}", "spdmm"))
+            many[nm] = fns[("spdmm", nm)]
+    with spdmm_as(ops, single["change"], many["change"]):
+        mine = (ops.spdmm(cols, vals, h, acc, row_len),
+                ops.spdmm_steps(steps, h_full, acc))
+    order = ["change"] + [n for n in names if n != "change"] + ["change"]
+    rows = {}
+    for i, nm in enumerate(order):
+        with spdmm_as(ops, single[nm], many[nm]):
+            got = ops.spdmm(cols, vals, h, acc, row_len)
+            cs.check_close(torch, f"spdmm {nm} widest slice", got, want,
+                           cs.KERNEL_RTOL, cs.KERNEL_ATOL)
+            got_b = ops.spdmm_steps(steps, h_full, acc)
+            cs.check_close(torch, f"spdmm {nm} row block", got_b, want_b,
+                           cs.KERNEL_RTOL, cs.KERNEL_ATOL)
+            cs.check_close(torch, f"spdmm {nm} spread slice",
+                           ops.spdmm(sc, sv, h, acc, sl), want_s,
+                           cs.KERNEL_RTOL, cs.KERNEL_ATOL)
+            same = nm == "change" or nm in SPDMM_SAME_BITS
+            if same and not (torch.equal(got, mine[0])
+                             and torch.equal(got_b, mine[1])):
+                cs.fail(f"spdmm {nm}: not bit-identical to the checkout")
+            row = {
+                "slice_ms": cs.median_ms(torch, lambda: ops.spdmm(
+                    cols, vals, h, acc, row_len)),
+                "spread_ms": cs.median_ms(torch, lambda: ops.spdmm(
+                    sc, sv, h, acc, sl)),
+                "row_block_ms": cs.median_ms(torch, lambda: ops.spdmm_steps(
+                    steps, h_full, acc)),
+                "equal_to_change": bool(torch.equal(got, mine[0])
+                                        and torch.equal(got_b, mine[1]))}
+        rows[nm if i < len(order) - 1 else "change_again"] = row
+        log(f"spdmm {nm}: widest slice {row['slice_ms']:.4f} ms, spread "
+            f"slice {row['spread_ms']:.4f} ms, row block "
+            f"{row['row_block_ms']:.4f} ms"
+            + ("" if row["equal_to_change"] else " (bits differ)"))
+    # The checkout's build on the row block with other hub thresholds:
+    # the same bits, other times.
+    hub_rows = {}
+    with spdmm_as(ops, single["change"], many["change"]):
+        for k in (None, 64, 256, 512, 1024, ops.SPDMM_HUB_SLOTS):
+            alt = ops.SpdmmSteps(steps.steps, steps.n_src, hub_slots=k)
+            if not torch.equal(ops.spdmm_steps(alt, h_full, acc), mine[1]):
+                cs.fail(f"spdmm row block, hub_slots={k}: other bits")
+            hub_rows[str(k)] = {
+                "hub_entries": alt.n_hub, "hub_walked": alt.hub_walked,
+                "ms": cs.median_ms(torch, lambda: ops.spdmm_steps(
+                    alt, h_full, acc))}
+            log(f"spdmm change row block, hub_slots={k}: {alt.n_hub} hub "
+                f"entries walking {alt.hub_walked} slots, "
+                f"{hub_rows[str(k)]['ms']:.4f} ms")
+    live = vals != 0
+    sp, hc = cs._ell_to_csr(torch, cols, vals, live, n1), h.contiguous()
+    lib = {"slice_sparse_mm_ms": cs.median_ms(
+        torch, lambda: torch.sparse.mm(sp, hc))}
+    csr_b = cs.steps_to_csr(torch, steps, h_full.shape[0])
+    hfc = h_full.contiguous()
+    cs.check_close(torch, "torch.addmm row block", torch.addmm(acc, csr_b,
+                                                               hfc),
+                   want_b, 2e-2, 1e-2)
+    lib["row_block_addmm_ms"] = cs.median_ms(
+        torch, lambda: torch.addmm(acc, csr_b, hfc))
+    lib["slice_plain_ms"] = cs.median_ms(
+        torch, lambda: acc + ref.spdmm_ref(cols, vals, h), reps=3,
+        launches=5)
+    lib["row_block_plain_ms"] = cs.median_ms(
+        torch, lambda: ref.spdmm_steps_ref(steps.steps, h_full, acc,
+                                           steps.n_src), reps=3, launches=3)
+    b_s = cs._spdmm_bound(n1, w, n1, f, nnz, walked)
+    b_b = cs._spdmm_steps_bound(n1, len(steps), b_walked, b_blocks * n1, f,
+                                b_nnz)
+    log(f"spdmm yardsticks: widest slice torch.sparse.mm "
+        f"{lib['slice_sparse_mm_ms']:.4f} ms, plain "
+        f"{lib['slice_plain_ms']:.4f} ms, bound {b_s[0]:.4f} ms ({b_s[1]});"
+        f" row block torch.addmm {lib['row_block_addmm_ms']:.4f} ms, plain "
+        f"{lib['row_block_plain_ms']:.4f} ms, bound {b_b[0]:.4f} ms "
+        f"({b_b[1]})")
+    # Replayed b2@FL and gat-dot@FL hits (gat-dot's dynamic edge weights
+    # run the one-step route): the SpDMM launches of one hit under the
+    # profiler, binned.  Each route runs on an Engine of its own (its own
+    # capture of the same program).
+    from repro_torch.core import gnn_builders as TB
+    x = G.random_features(fl, seed=50)
+    gat = eng.compile(cs.build_gat_dot(TB, fl), fl)
+    hist = {}
+    routes = ["change", "per_step"] + (["parent"] if "parent" in names
+                                        else [])
+    for model, pr in (("b2@FL", prog), ("gat-dot@FL", gat)):
+        for nm in routes:
+            if model != "b2@FL" and nm == "per_step":
+                continue            # gat-dot's steps are one-step calls
+            with spdmm_as(ops, single[nm], many[nm]):
+                rep = Engine()
+                with cs.StepLog(torch, ops, pr,
+                                lists=many[nm] is not None) as rec:
+                    for _ in range(3):
+                        rec.next_pass()
+                        rep.run(pr, x)
+                descs = [p for p in rec.passes if p][-1]
+                ev = cs.spdmm_events(torch, lambda: (rep.run(pr, x),
+                                                     rep._sync()))
+            tag = f"replay {model} hit {nm}"
+            if ev is None:
+                log(f"{tag}: no device events (not measured)")
+                continue
+            hist[f"{model} {nm}"] = {
+                "launches": len(ev), "ms": sum(ev) / 1e3,
+                "bins": cs.launch_histogram(tag, ev, descs)}
+    return {"slice": {"key": list(key), "w": w, "nnz": nnz,
+                      "walked": walked, "bound_ms": b_s[0],
+                      "bound_by": b_s[1]},
+            "row_block": {"steps": len(steps), "nnz": b_nnz,
+                          "walked": b_walked, "bound_ms": b_b[0],
+                          "bound_by": b_b[1]},
+            "ms": rows, "hub_slots": hub_rows, "library": lib,
+            "replay": hist}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
                     help="another checkout whose gemm.cu (fp32 kernel and "
-                         "bf16 body) / sddmm.cu / flash_attention.cu to "
-                         "build and time as the variant 'parent'")
+                         "bf16 body) / spdmm.cu / sddmm.cu / "
+                         "flash_attention.cu to build and time as the "
+                         "variant 'parent'")
     ap.add_argument("--only", action="append", choices=list(VARIANTS),
                     help="build and time only this kernel's variants "
                          "(repeatable; default: every kernel)")
@@ -934,7 +1224,8 @@ def main() -> int:
     fns = build_variants(build, args.parent, kernels)
     phases = {"gemm": gemm_phase, "gemm_bf16": gemm_bf16_phase,
               "sddmm": sddmm_phase, "flash_attention": flash_phase,
-              "flash_wide": flash_wide_phase, "flash_f32": flash_f32_phase}
+              "flash_wide": flash_wide_phase, "flash_f32": flash_f32_phase,
+              "spdmm": spdmm_phase}
     result = {"card": card,
               "variants": {k: {n: d for n, (d, _) in v.items()}
                            for k, v in VARIANTS.items() if k in kernels}}

@@ -10,7 +10,8 @@ Backends:
                 the kernel's plain version, ``kernels.ref``), the
                 counterpart of the JAX package's ``xla`` backend.  CPU
                 tensors only.
-  * ``cuda``  — GEMM, SUM/MEAN SpDMM and dot-mode SDDMM run the
+  * ``cuda``  — GEMM, SUM/MEAN SpDMM (a step or a run of steps) and
+                dot-mode SDDMM run the
                 hand-written kernels of :mod:`repro_torch.kernels` (on CPU
                 tensors their wrappers use the plain versions).  MAX/MIN
                 SpDMM, pair-sum SDDMM (GAT) and the vector / activation
@@ -154,6 +155,26 @@ class ACK:
         if flag is not None:
             flag = flag | mask.any(dim=1)
         return out, flag
+
+    def spdmm_steps(self, steps, h, acc, op: str = "sum"):
+        """A run of SUM/MEAN tile steps (:class:`kernels.ops.SpdmmSteps`,
+        each reading rows [row_off, row_off + n_src) of the source matrix
+        ``h``) added to ``acc`` (None: zero) in order: one launch of the
+        SpDMM kernel on the ``cuda`` backend, the bits of :meth:`spdmm`
+        over the steps one at a time; the ``torch`` backend runs them one
+        at a time.  Each step counts as one dispatch of its tile shape."""
+        if op not in ("sum", "mean"):
+            raise ValueError(f"a step list sums (SUM/MEAN), not {op!r}")
+        n = steps.n_src
+        for cols, *_ in steps.steps:
+            _count(("spdmm", (n, int(h.shape[1])), _shape(cols), op,
+                    self.backend))
+        if self.backend == "cuda":
+            return self._kops.spdmm_steps(steps, h, acc)
+        self._torch_only(h)
+        for cols, vals, _, off in steps.steps:
+            acc = _spdmm_torch(h[off:off + n], cols, vals, None, acc, op)
+        return acc
 
     # -- SDDMM ---------------------------------------------------------- #
     def sddmm(self, h_dst, h_src, cols, mask, acc, pair_sum: bool = False):

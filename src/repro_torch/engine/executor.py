@@ -34,7 +34,13 @@ order, which is what makes their results bit-identical:
   path runs on one card or on the CPU.
 
 On a CUDA device the ACK runs the hand-written GEMM, SpDMM, SDDMM and
-densify kernels; on the CPU it runs plain torch.  A sparsity-remapped
+densify kernels; on the CPU it runs plain torch.  On the device-resident
+path an AGGREGATE tile hands each run of SUM/MEAN SpDMM steps (static
+weights, one source fiber, up to a remapped GEMM step) to the SpDMM
+kernel as one step list (:meth:`_Staged.spdmm_steps`, its table staged
+with the tiles); the host, mesh and graph-as-data paths and steps with
+dynamic edge weights call it one step at a time, with the same bits.
+``ExecStats`` counts a tile op a step either way.  A sparsity-remapped
 binary (:mod:`repro_torch.core.passes.remap`) runs its GEMM steps inside
 AGGREGATE layers on the GEMM kernel over densified tiles.
 
@@ -524,6 +530,7 @@ class _Staged(_Holder):
         self._tiles: Dict[str, Dict[Tuple[int, int, int], torch.Tensor]] = {}
         self._reserved: set = set()     # kinds held by :meth:`reserve`
         self._params: Dict[Tuple, Tuple[Any, torch.Tensor]] = {}
+        self._steps: Dict[Tuple, kops.SpdmmSteps] = {}
         # Overlays run in their own threads; two that share a program
         # must not upload (or replace) the same entry twice.
         self._lock = threading.RLock()
@@ -545,7 +552,8 @@ class _Staged(_Holder):
         weights): what a capture of a pass over this staging reads."""
         with self._lock:
             return [self.inv_deg, dict(self._tiles),
-                    [t for _, t in self._params.values()]]
+                    [t for _, t in self._params.values()],
+                    list(self._steps.values())]
 
     def kinds(self) -> List[str]:
         """The tile kinds uploaded so far."""
@@ -592,6 +600,26 @@ class _Staged(_Holder):
         t = self._put(_checked_tile_array(self.pg, kind, j, k, s))
         self.uploaded += _nbytes(t)
         return t
+
+    def spdmm_steps(self, j: int, ks: Tuple[Tuple[int, int], ...]
+                    ) -> "kops.SpdmmSteps":
+        """The SpDMM step list of slices (j, k, s), (k, s) in ``ks`` in
+        order, each over source row block k of a [blocks * n1, f] feature
+        matrix, with its staged live lengths: made (its table uploaded)
+        on first use and kept with the staging."""
+        key = (j, ks)
+        got = self._steps.get(key)      # made: no lock on the hot path
+        if got is not None:
+            return got
+        cols, vals = self.tiles("cols"), self.tiles("vals")
+        row_len, n1 = self.tiles("row_len"), self.pg.config.n1
+        with self._lock:
+            got = self._steps.get(key)
+            if got is None:
+                got = self._steps[key] = kops.SpdmmSteps(
+                    [(cols[(j, k, s)], vals[(j, k, s)], row_len[(j, k, s)],
+                      k * n1) for k, s in ks], n1)
+            return got
 
     def param(self, key: Tuple, srcs: Tuple, build) -> torch.Tensor:
         """Device tensor ``build()`` memoized under ``key`` for as long as
@@ -1038,6 +1066,16 @@ class _DeviceEnv:
                 self.h[n][k * n1:(k + 1) * n1, i * n2:(i + 1) * n2]
         return t
 
+    def h_fiber(self, n: int, i: int) -> torch.Tensor:
+        """Lane n's source fiber i, every row block ([vp, n2]): what a run
+        of SpDMM steps gathers from, block k at rows k n1 .. (k+1) n1."""
+        t = self._h_tiles.get((n, None, i))
+        if t is None:
+            n2 = self.n2
+            t = self._h_tiles[(n, None, i)] = \
+                self.h[n][:, i * n2:(i + 1) * n2]
+        return t
+
     def operand_tile(self, which: str, n: int, j: int,
                      i: int) -> torch.Tensor:
         arr = self.a if which == "a" else self.b
@@ -1413,9 +1451,28 @@ class _AggregateKernel(_ShardKernel):
                      for _ in lanes]
         per_lane = env.gd is not None
         nones = [None] * env.lanes
-        for ins in tp.compute:           # SPDMM/GEMM steps, stream order
+        # Device-resident SUM/MEAN steps over the staged tiles go to the
+        # kernel as runs: maximal sequences of SPDMM steps with static
+        # weights on one source fiber, each one launch a lane.
+        runs = not (self.extreme or per_lane) and isinstance(env, _DeviceEnv)
+        compute, t = tp.compute, 0
+        while t < len(compute):          # SPDMM/GEMM steps, stream order
+            ins = compute[t]
+            t += 1
             k, ii = ins.args[1], ins.args[2]
             s, dyn = ins.args[3] >> 1, ins.args[3] & 1
+            if runs and ins.op == Opcode.SPDMM and not dyn:
+                ks = [(k, s)]
+                while t < len(compute) and _static_spdmm(compute[t], ii):
+                    ks.append((compute[t].args[1], compute[t].args[3] >> 1))
+                    t += 1
+                steps = env.st.spdmm_steps(j, tuple(ks))
+                for n in lanes:
+                    accs[n] = self.ex.ack.spdmm_steps(
+                        steps, env.h_fiber(n, ii), accs[n], self.op)
+                for _ in ks:
+                    self._op("spdmm")
+                continue
             cols = env.tiles("cols", j, k, s)
             vals = (env.edge_weight_tiles(j, k, s) if dyn
                     else env.tiles("vals", j, k, s))
@@ -1455,6 +1512,13 @@ class _AggregateKernel(_ShardKernel):
                 acc = acc * deg[:, None]
             outs.append(acc)
         return self._finish(tp, outs, i * n2, (i + 1) * n2)
+
+
+def _static_spdmm(ins, ii: int) -> bool:
+    """Whether aggregate step ``ins`` extends a run on source fiber
+    ``ii``: an SPDMM step with static edge weights on that fiber."""
+    return (ins.op == Opcode.SPDMM and not ins.args[3] & 1
+            and ins.args[2] == ii)
 
 
 class _LinearKernel(_ShardKernel):

@@ -46,6 +46,9 @@ _ARGTYPES = {
                    + [_c_ll] * 3 + [_c_void_p]),
     "spdmm_bf16_out": ("spdmm_bf16_out", [_c_void_p] * 6 + [_c_int] * 4
                        + [_c_ll] * 3 + [_c_void_p]),
+    "spdmm_steps": ("spdmm_steps", [_c_void_p, _c_int, _c_void_p, _c_int]
+                    + [_c_void_p] * 2 + [_c_int] * 3 + [_c_ll] * 3
+                    + [_c_void_p, _c_int] + [_c_void_p] * 4),
     "sddmm": ("sddmm_f32", [_c_void_p] * 6 + [_c_int] * 4 + [_c_ll] * 2
               + [_c_void_p]),
     "sddmm_bf16": ("sddmm_bf16", [_c_void_p] * 6 + [_c_int] * 4
@@ -63,6 +66,7 @@ _SOURCE_OF = {"densify": "gemm", "gemm_mixed": "gemm",
               "flash_body": "flash_attention",
               "gemm_plan": "gemm",
               "spdmm_bf16": "spdmm", "spdmm_bf16_out": "spdmm",
+              "spdmm_steps": "spdmm",
               "sddmm_bf16": "sddmm", "sddmm_bf16_out": "sddmm"}
 
 _lock = threading.Lock()

@@ -34,16 +34,25 @@ SDDMM kernel reads no row outside ``h_src`` and scores a live slot whose
 column is out of range NaN.  On the CPU ``sddmm`` raises ValueError for
 such a column.
 
+``spdmm_steps(steps, h, acc, out_dtype)`` runs a list of SpDMM steps
+(:class:`SpdmmSteps`: ELL tiles over row blocks of one source matrix)
+added to ``acc`` in list order, in one launch of the same kernel; each
+step gives the bits of one ``spdmm`` call chained through ``acc``.
+
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, bumped
 only where a kernel is launched, under a lock since overlays launch from
-their own threads), so a run can show that it went through the kernels.
+their own threads), so a run can show that it went through the kernels;
+``LAUNCHES["spdmm"]`` counts the SpDMM tile steps the kernel ran, and
+``KERNEL_LAUNCHES["spdmm"]`` its launches (a step list is one, two with
+its hub pass).
 A wrapper called while its thread captures a CUDA graph
 (:func:`capturing`) launches nothing: the kernel is recorded into the
 graph and counted in the capture's own dict, not in ``LAUNCHES``.
 ``REPLAYED`` counts the kernels CUDA-graph replays launch, never a
 wrapper: each replay adds its graph's captured counts
 (:func:`note_replay`).  ``LAUNCHES`` plus ``REPLAYED`` is every kernel
-the card ran (:func:`launch_totals`); ``reset_launches`` zeroes both.
+the card ran (:func:`launch_totals`; :func:`kernel_launch_totals` for
+``KERNEL_LAUNCHES``); ``reset_launches`` zeroes them all.
 """
 from __future__ import annotations
 
@@ -62,6 +71,9 @@ _launch_lock = threading.Lock()
 
 
 REPLAYED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+KERNEL_LAUNCHES: Dict[str, int] = {"spdmm": 0}
+KERNEL_REPLAYED: Dict[str, int] = dict.fromkeys(KERNEL_LAUNCHES, 0)
+_KERNEL = "/kernel"             # a capture's key of KERNEL_LAUNCHES' counts
 _tls = threading.local()
 
 
@@ -70,15 +82,25 @@ def reset_launches() -> None:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
             REPLAYED[k] = 0
+        for k in KERNEL_LAUNCHES:
+            KERNEL_LAUNCHES[k] = 0
+            KERNEL_REPLAYED[k] = 0
 
 
-def _launched(name: str) -> None:
+def _launched(name: str, steps: int = 1, kernels: int = 1) -> None:
+    """Count a call of kernel ``name`` that ran ``steps`` tile steps in
+    ``kernels`` launches."""
     captured = getattr(_tls, "captured", None)
     if captured is not None:
-        captured[name] = captured.get(name, 0) + 1
+        captured[name] = captured.get(name, 0) + steps
+        if name in KERNEL_LAUNCHES:
+            key = name + _KERNEL
+            captured[key] = captured.get(key, 0) + kernels
         return
     with _launch_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += steps
+        if name in KERNEL_LAUNCHES:
+            KERNEL_LAUNCHES[name] += kernels
 
 
 @contextlib.contextmanager
@@ -98,13 +120,24 @@ def note_replay(launches: Dict[str, int]) -> None:
     """Count one replay of a graph that captured ``launches``."""
     with _launch_lock:
         for k, n in launches.items():
-            REPLAYED[k] += n
+            if k.endswith(_KERNEL):
+                KERNEL_REPLAYED[k[:-len(_KERNEL)]] += n
+            else:
+                REPLAYED[k] += n
 
 
 def launch_totals() -> Dict[str, int]:
     """``LAUNCHES`` plus ``REPLAYED``: every launch the card ran."""
     with _launch_lock:
         return {k: LAUNCHES[k] + REPLAYED[k] for k in LAUNCHES}
+
+
+def kernel_launch_totals() -> Dict[str, int]:
+    """``KERNEL_LAUNCHES`` plus the replays': every launch of the SpDMM
+    kernel the card ran (``launch_totals()["spdmm"]`` counts its steps)."""
+    with _launch_lock:
+        return {k: KERNEL_LAUNCHES[k] + KERNEL_REPLAYED[k]
+                for k in KERNEL_LAUNCHES}
 
 
 class CudaGraph:
@@ -345,7 +378,9 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``acc + ELL(cols, vals) @ h`` for one [n1, w] ELL tile (fp32 sums;
     h fp32 or bf16, widened as it is gathered; ``acc`` fp32), rounded
-    once to ``out_dtype`` (fp32 or bf16) as it is stored.
+    once to ``out_dtype`` (fp32 or bf16) as it is stored: the SpDMM
+    kernel on a list of this one step (the bits of that step in any
+    :func:`spdmm_steps` list).
     ``row_len`` (int32 [n1], optional) is each row's live length, 1 + its
     last live slot (0 for a row with no edge): slots from row_len[r] on
     are not walked, which leaves the result unchanged when they are pads
@@ -391,6 +426,155 @@ def spdmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"spdmm kernel launch failed: CUDA error {rc}")
     _launched("spdmm")
+    return out
+
+
+SPDMM_SPAN = 64     # slots a span of the SpDMM kernel (SPAN, csrc/spdmm.cu)
+# A row that walks more slots than this over a whole step list is a hub
+# row: its step sums come from the kernel's hub pass, spread over the card.
+SPDMM_HUB_SLOTS = 128
+
+
+class SpdmmSteps:
+    """A list of SpDMM steps over row blocks of one source matrix, in the
+    order :func:`spdmm_steps` adds them.  Step i is ``(cols, vals,
+    row_len, row_off)``: an [n1, w_i] ELL tile (int32 cols, fp32 vals,
+    both contiguous; ``row_len`` a contiguous int32 [n1] or None, as
+    :func:`spdmm` takes it) whose column c names row ``row_off + c`` of h;
+    its columns lie in [0, ``n_src``) (the executor checks them when it
+    stages the tiles).  On a CUDA device the kernel's table of the steps
+    (int64 [n, 5]: the three pointers, row_off and w) is uploaded here,
+    once, and the tiles are held so that its pointers stay valid: build a
+    list outside any CUDA-graph capture, and a capture uploads nothing.
+
+    Hub rows, those that walk more than ``hub_slots`` slots over the whole
+    list (``row_len`` summed, read back once here), are found here too:
+    the kernel computes each of their (row, step) sums in a hub pass spread
+    over the card, in the same order, so the bits do not depend on which
+    rows are hubs (``hub_slots`` None: no hub pass)."""
+
+    def __init__(self, steps, n_src: int,
+                 hub_slots: Optional[int] = SPDMM_HUB_SLOTS) -> None:
+        self.steps = [tuple(s) for s in steps]
+        if not self.steps:
+            raise ValueError("SpdmmSteps: no steps")
+        self.n_src = int(n_src)
+        self.n1 = int(self.steps[0][0].shape[0])
+        self.device = self.steps[0][0].device
+        for i, (cols, vals, row_len, off) in enumerate(self.steps):
+            _check_matrix(f"spdmm_steps cols[{i}]", cols, torch.int32)
+            _check_matrix(f"spdmm_steps vals[{i}]", vals, torch.float32,
+                          (self.n1, cols.shape[1]))
+            if cols.shape[0] != self.n1 or not (cols.is_contiguous()
+                                                and vals.is_contiguous()):
+                raise ValueError(f"spdmm_steps step {i}: cols and vals must "
+                                 f"be contiguous [{self.n1}, w]")
+            if row_len is not None and (row_len.dtype != torch.int32
+                                        or tuple(row_len.shape) != (self.n1,)
+                                        or not row_len.is_contiguous()):
+                raise ValueError(f"spdmm_steps row_len[{i}]: expected "
+                                 f"contiguous int32 [{self.n1}]")
+            if int(off) < 0 or any(t is not None and t.device != self.device
+                                   for t in (cols, vals, row_len)):
+                raise ValueError(f"spdmm_steps step {i}: a negative row "
+                                 "offset, or tiles on mixed devices")
+        self.rows = max(int(s[3]) for s in self.steps) + self.n_src
+        if self.rows >= 2 ** 31:
+            raise ValueError(f"spdmm_steps: the steps read {self.rows} rows "
+                             "of h; the kernel indexes fewer than 2^31")
+        self.table = self.hubs = None
+        self.n_hub = self.hub_walked = self.hub_longest = 0
+        if self.device.type == "cuda":
+            self.table = torch.tensor(
+                [[c.data_ptr(), v.data_ptr(),
+                  0 if r is None else r.data_ptr(), int(off), c.shape[1]]
+                 for c, v, r, off in self.steps],
+                dtype=torch.int64).to(self.device)
+            if hub_slots is not None:
+                self._find_hubs(int(hub_slots))
+
+    def _find_hubs(self, hub_slots: int) -> None:
+        """The hub rows' entries, row by row in step order (int64 [E, 4]:
+        cols and vals at the row, row_off, len | step << 32), each row's
+        hub index (int32 [n1], -1 elsewhere) and first entry (int32
+        [H + 1]), on the device."""
+        lens = torch.stack([
+            torch.full((self.n1,), c.shape[1], dtype=torch.int64)
+            if r is None else r.cpu().long().clamp(0, c.shape[1])
+            for c, _, r, _ in self.steps])                      # [n, n1]
+        heavy = torch.nonzero(lens.sum(0) > hub_slots).flatten()
+        if not heavy.numel():
+            return
+        per = lens[:, heavy].t()                                # [H, n]
+        h_idx, t_idx = torch.nonzero(per > 0, as_tuple=True)
+        rows = heavy[h_idx]
+        w = torch.tensor([c.shape[1] for c, *_ in self.steps])[t_idx]
+        cols0 = torch.tensor([c.data_ptr() for c, *_ in self.steps])
+        vals0 = torch.tensor([v.data_ptr() for _, v, *_ in self.steps])
+        offs = torch.tensor([int(s[3]) for s in self.steps])
+        entries = torch.stack([cols0[t_idx] + 4 * rows * w,
+                               vals0[t_idx] + 4 * rows * w, offs[t_idx],
+                               per[h_idx, t_idx] | (t_idx << 32)], 1)
+        of_row = torch.full((self.n1,), -1, dtype=torch.int32)
+        of_row[heavy] = torch.arange(heavy.numel(), dtype=torch.int32)
+        first = torch.zeros(heavy.numel() + 1, dtype=torch.int32)
+        first[1:] = torch.cumsum((per > 0).sum(1), 0)
+        self.hubs = tuple(t.contiguous().to(self.device)
+                          for t in (entries, of_row, first))
+        self.n_hub = int(entries.shape[0])
+        self.hub_walked, self.hub_longest = int(per.sum()), int(per.max())
+
+    def __len__(self) -> int:
+        return len(self.steps)
+
+
+def spdmm_steps(steps: SpdmmSteps, h: torch.Tensor,
+                acc: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(((acc + S_1) + S_2) + ...)`` over the steps of ``steps``, S_i the
+    ELL tile of step i times rows [row_off_i, row_off_i + n_src) of h:
+    fp32 sums (h fp32 or bf16, [>= ``steps.rows``, f], any row stride,
+    widened as it is gathered; ``acc`` fp32 [n1, f] or None, a zero
+    accumulator), rounded once to ``out_dtype`` as it is stored.  One
+    launch of the kernel ``spdmm`` runs, with the bits of ``spdmm`` over
+    the steps one at a time, chained through ``acc``."""
+    _check_dtype("spdmm_steps out_dtype", out_dtype)
+    route = _route(steps.steps[0][0], h, acc)
+    if route == "cpu":
+        return ref.spdmm_steps_ref(steps.steps, h, acc, steps.n_src,
+                                   out_dtype)
+    n1, f = steps.n1, h.shape[1]
+    if route == "meta":
+        out = torch.empty((n1, f), dtype=out_dtype, device="meta")
+        slots = sum(c.numel() for c, *_ in steps.steps)
+        return _meta("spdmm", out, 2.0 * slots * f,
+                     _nbytes(*(t for s in steps.steps for t in s[:3]), h,
+                             acc, out))
+    _check_dtype("spdmm_steps h", h.dtype)
+    _check_matrix("spdmm_steps h", h, h.dtype)
+    if h.shape[0] < steps.rows:
+        raise ValueError(f"spdmm_steps h: the steps read {steps.rows} rows, "
+                         f"h has {h.shape[0]}")
+    if acc is not None:
+        _check_matrix("spdmm_steps acc", acc, torch.float32, (n1, f))
+    out = torch.empty((n1, f), dtype=out_dtype, device=h.device)
+    hubs = (None,) * 3
+    scratch = None
+    if steps.n_hub:
+        hubs = tuple(t.data_ptr() for t in steps.hubs)
+        scratch = torch.empty((steps.n_hub, f), dtype=torch.float32,
+                              device=h.device)
+    rc = entry("spdmm_steps")(
+        steps.table.data_ptr(), len(steps), h.data_ptr(),
+        int(h.dtype == torch.bfloat16),
+        acc.data_ptr() if acc is not None else None, out.data_ptr(),
+        int(out_dtype == torch.bfloat16), n1, f, _ld(h),
+        _ld(acc) if acc is not None else 0, _ld(out), hubs[0], steps.n_hub,
+        hubs[1], hubs[2], scratch.data_ptr() if scratch is not None else None,
+        _stream(h))
+    if rc != 0:
+        raise RuntimeError(f"spdmm kernel launch failed: CUDA error {rc}")
+    _launched("spdmm", len(steps), 1 + bool(steps.n_hub))
     return out
 
 

@@ -5,7 +5,8 @@ They mirror ``repro/kernels/ref.py`` (``gemm_ref``, ``spdmm_ref``,
 CUDA kernel against them on the card.  ``sddmm_step_ref`` is the ACK's
 whole SDDMM step (mask and accumulator around ``sddmm_ref``), the
 function the SDDMM kernel computes, as ``spdmm_step_ref`` (accumulator
-around ``spdmm_ref``) is the SpDMM kernel's; each step and
+around ``spdmm_ref``) is the SpDMM kernel's, and ``spdmm_steps_ref``
+(those steps chained) its step list's; each step and
 ``flash_attention_plain`` round their fp32 result once to an
 ``out_dtype``, as the kernels store it; ``flash_attention_plain`` is the
 flash kernel's function in its own [BH, T, d] layout (JAX's
@@ -54,6 +55,17 @@ def spdmm_step_ref(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     is a zero accumulator."""
     y = spdmm_ref(cols, vals, h, row_len=row_len)
     return (y if acc is None else acc + y).to(out_dtype)
+
+
+def spdmm_steps_ref(steps, h: torch.Tensor, acc: Optional[torch.Tensor],
+                    n_src: int, out_dtype=torch.float32) -> torch.Tensor:
+    """The function of a list of SpDMM steps (``kernels.ops.spdmm_steps``):
+    ``spdmm_step_ref`` of each step ``(cols, vals, row_len, row_off)`` on
+    rows [row_off, row_off + n_src) of h, in list order, chained through
+    the fp32 accumulator; rounded once to ``out_dtype`` at the end."""
+    for cols, vals, row_len, off in steps:
+        acc = spdmm_step_ref(cols, vals, h[off:off + n_src], acc, row_len)
+    return acc.to(out_dtype)
 
 
 def densify_ref(cols: torch.Tensor, vals: torch.Tensor,

@@ -537,25 +537,28 @@ def test_row_len_is_one_past_the_last_live_slot():
 
 
 def test_aggregate_passes_row_len_to_the_spdmm_kernel(monkeypatch):
-    # SUM/MEAN steps hand the staged live length to the kernel wrapper;
-    # the output is the full-width walk's.
+    # SUM/MEAN runs hand each step's staged live length to the kernel's
+    # step-list wrapper; the output is the full-width walk's.
     from repro_torch.kernels import ops as kops
     _, gt = _graphs(nv=120, ne=700, seed=22, degree="powerlaw")
     x = TG.random_features(gt, seed=3)
     eng = _engine(backend="cuda")
     prog = eng.compile("b1", gt)
-    seen, real = [], kops.spdmm
+    seen, real = [], kops.spdmm_steps
 
-    def spy(cols, vals, h, acc=None, row_len=None):
-        seen.append(row_len)
-        return real(cols, vals, h, acc, row_len)
-    monkeypatch.setattr(kops, "spdmm", spy)
+    def spy(steps, h, acc=None, out_dtype=torch.float32):
+        seen.extend(row_len for _, _, row_len, _ in steps.steps)
+        return real(steps, h, acc, out_dtype)
+    monkeypatch.setattr(kops, "spdmm_steps", spy)
     got = eng.run(prog, x)
     assert seen and all(r is not None and r.dtype == torch.int32
                         for r in seen)
-    monkeypatch.setattr(kops, "spdmm",
-                        lambda c, v, h, acc=None, row_len=None:
-                        real(c, v, h, acc))
+
+    def full_width(steps, h, acc=None, out_dtype=torch.float32):
+        walk_all = kops.SpdmmSteps([(c, v, None, off) for c, v, _, off
+                                    in steps.steps], steps.n_src)
+        return real(walk_all, h, acc, out_dtype)
+    monkeypatch.setattr(kops, "spdmm_steps", full_width)
     assert torch.equal(eng.run(prog, x), got)
 
 

@@ -25,7 +25,11 @@ operands (the tensor-core body) against the plain version and a float64
 bound, bit for bit across row slices, load routes, acc aliasing C and a
 CUDA-graph replay; bf16 SpDMM and SDDMM operands against the plain
 versions and bit for bit against the fp32 kernels on the widened
-operands; flash past d = 256 (the
+operands; the SpDMM step list against its plain version in one call,
+bit for bit the one-step kernel chained through acc, a split list, the
+full-width walk, the fp32 kernel on a widened bf16 h, any choice of hub
+rows and a CUDA-graph replay, with a span-boundary sweep; flash past d =
+256 (the
 bf16 single-pass body at d 257-576 with dv 100-512, its staged route bit
 for bit the TMA route, the d-sliced bodies past it: causal, non-causal,
 windowed, grouped, ragged, both output types; two launches bit for bit;
@@ -1513,6 +1517,152 @@ def test_cuda_spdmm_bf16_h_matches_plain_and_the_fp32_kernel(cuda, n1, w,
     assert torch.equal(got, ops.spdmm(cols, vals, h.float(), acc))
     assert torch.equal(ops.spdmm(cols, vals, h, None, row_len),
                        ops.spdmm(cols, vals, h.float(), None, row_len))
+
+
+# The SpDMM step list: (n1, step widths, n_src, f); step i reads source
+# block (3 i) mod n of h.
+STEP_LISTS = [(4096, (512, 8, 64, 65, 130), 4096, 128),
+              (100, (63, 64, 65, 1), 70, 33), (64, (200, 7), 50, 8),
+              (128, (33,), 100, 200), (32, tuple([5] * 40), 16, 128)]
+
+
+def _step_list(cuda, n1, widths, n_src, f, seed, keep_len=True):
+    """A step list over a strided h of len(widths) source blocks, its
+    tiles from ``_ell_with_row_len``, and an acc."""
+    n = len(widths)
+    steps = []
+    for i, w in enumerate(widths):
+        cols, vals, row_len = (t.to(cuda) for t in _ell_with_row_len(
+            n1, w, n_src, seed + i))
+        steps.append((cols, vals, row_len if keep_len else None,
+                      (3 * i) % n * n_src))
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn(n * n_src, 2 * f + 4, generator=g,
+                    device=cuda)[:, 4:4 + f]
+    acc = torch.randn(n1, f, generator=g, device=cuda)
+    return ops.SpdmmSteps(steps, n_src), h, acc
+
+
+@pytest.mark.parametrize("n1,widths,ns,f", STEP_LISTS)
+def test_cuda_spdmm_steps_matches_plain_in_one_call(cuda, n1, widths, ns,
+                                                    f):
+    # One call: the kernel's launch, after its hub pass when the list has
+    # hub rows.
+    steps, h, acc = _step_list(cuda, n1, widths, ns, f, seed=n1 + f)
+    ops.reset_launches()
+    got = ops.spdmm_steps(steps, h, acc)
+    assert ops.LAUNCHES["spdmm"] == len(widths)
+    assert ops.KERNEL_LAUNCHES["spdmm"] == 1 + bool(steps.n_hub)
+    _close(got, ref.spdmm_steps_ref(steps.steps, h, acc, ns))
+    _close(ops.spdmm_steps(steps, h), ref.spdmm_steps_ref(steps.steps, h,
+                                                          None, ns))
+
+
+@pytest.mark.parametrize("n1,widths,ns,f", STEP_LISTS)
+def test_cuda_spdmm_steps_bits_across_routes(cuda, n1, widths, ns, f):
+    # The step list equals, bit for bit: the one-step kernel chained
+    # through acc, the list split in two and chained, a rerun, the
+    # full-width walk, and (on a bf16 h) the fp32 kernel on h widened; a
+    # bf16 store is the fp32 result rounded once.
+    steps, h, acc = _step_list(cuda, n1, widths, ns, f, seed=2 * n1 + f)
+    got = ops.spdmm_steps(steps, h, acc)
+    chain = acc
+    for cols, vals, row_len, off in steps.steps:
+        chain = ops.spdmm(cols, vals, h[off:off + ns], chain, row_len)
+    assert torch.equal(got, chain)
+    half = max(1, len(widths) // 2)
+    first = ops.SpdmmSteps(steps.steps[:half], ns)
+    if half < len(widths):
+        rest = ops.SpdmmSteps(steps.steps[half:], ns)
+        assert torch.equal(ops.spdmm_steps(
+            rest, h, ops.spdmm_steps(first, h, acc)), got)
+    assert torch.equal(ops.spdmm_steps(steps, h, acc), got)
+    walk_all = ops.SpdmmSteps([(c, v, None, off) for c, v, _, off
+                               in steps.steps], ns)
+    assert torch.equal(ops.spdmm_steps(walk_all, h, acc), got)
+    store = ops.spdmm_steps(steps, h, acc, out_dtype=torch.bfloat16)
+    assert torch.equal(store, got.bfloat16())
+    hb = h.bfloat16()
+    got16 = ops.spdmm_steps(steps, hb, acc)
+    _close(got16, ref.spdmm_steps_ref(steps.steps, hb, acc, ns), 2e-2, 1e-2)
+    assert torch.equal(got16, ops.spdmm_steps(steps, hb.float(), acc))
+    assert torch.equal(ops.spdmm_steps(steps, hb, acc, torch.bfloat16),
+                       got16.bfloat16())
+
+
+@pytest.mark.parametrize("n1,widths,ns,f", STEP_LISTS)
+def test_cuda_spdmm_hub_pass_gives_the_same_bits(cuda, n1, widths, ns, f):
+    # Which rows are hubs (their step sums computed by the hub pass) does
+    # not change a bit: no hub, the default threshold, every row a hub;
+    # fp32 and bf16 h, with and without acc.
+    steps, h, acc = _step_list(cuda, n1, widths, ns, f, seed=3 * n1 + f)
+    lists = [ops.SpdmmSteps(steps.steps, ns, hub_slots=k)
+             for k in (None, 512, ops.SPDMM_HUB_SLOTS, 0)]
+    assert lists[0].n_hub == 0 < lists[-1].n_hub
+    if n1 == 4096:
+        assert 0 < lists[1].n_hub < lists[-1].n_hub
+    for hh in (h, h.bfloat16()):
+        for a in (acc, None):
+            want = ops.spdmm_steps(lists[0], hh, a)
+            for st in lists[1:]:
+                assert torch.equal(ops.spdmm_steps(st, hh, a), want)
+            assert torch.equal(ops.spdmm_steps(lists[-1], hh, a,
+                                               torch.bfloat16),
+                               want.bfloat16())
+
+
+@pytest.mark.parametrize("f", [128, 33])
+def test_cuda_spdmm_span_boundary_sweep(cuda, f):
+    # Rows of m spans and one slot less or more (m = 1..4), in one tile:
+    # within the kernel tolerance of the plain version, the same bits
+    # with the rows permuted (no bit depends on the grid or on which
+    # warp ran a span) and with row_len dropped.
+    span = ops.SPDMM_SPAN
+    lens = [m * span + d for m in range(1, 5) for d in (-1, 0, 1)]
+    n1, w, ns = 64, 4 * span + 1, 300
+    r = np.random.default_rng(f)
+    lens = np.array((lens * n1)[:n1])
+    live = np.arange(w)[None, :] < lens[:, None]
+    cols = torch.from_numpy(np.where(live, r.integers(0, ns, (n1, w)), 0)
+                            .astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(np.where(live, r.normal(0, 1, (n1, w)), 0)
+                            .astype(np.float32)).to(cuda)
+    row_len = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(f)
+    h = torch.randn(ns, f, generator=g, device=cuda)
+    acc = torch.randn(n1, f, generator=g, device=cuda)
+    got = ops.spdmm(cols, vals, h, acc, row_len)
+    _close(got, acc + ref.spdmm_ref(cols, vals, h))
+    assert torch.equal(got, ops.spdmm(cols, vals, h, acc))
+    perm = torch.randperm(n1, generator=g, device=cuda)
+    moved = ops.spdmm(cols[perm].contiguous(), vals[perm].contiguous(), h,
+                      acc[perm].contiguous(), row_len[perm].contiguous())
+    assert torch.equal(moved, got[perm])
+
+
+def test_cuda_spdmm_steps_replays_from_a_cuda_graph(cuda):
+    # A step list captured in ops.CudaGraph (its tables staged before)
+    # replays the eager call's bits, reads h and acc anew at each replay,
+    # and counts its steps and its two launches (the hub pass, then the
+    # kernel) in the capture.
+    steps, h, acc = _step_list(cuda, *STEP_LISTS[0], seed=5)
+    want = ops.spdmm_steps(steps, h, acc)
+    graph = ops.CudaGraph(cuda)
+    with ops.capturing() as counts:
+        out = graph.capture(lambda: ops.spdmm_steps(steps, h, acc))
+    assert steps.n_hub > 0
+    assert counts == {"spdmm": len(steps), "spdmm/kernel": 2}
+    ops.reset_launches()
+    graph.replay()
+    ops.note_replay(counts)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert ops.launch_totals()["spdmm"] == len(steps)
+    assert ops.kernel_launch_totals() == {"spdmm": 2}
+    acc.mul_(2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.spdmm_steps(steps, h, acc))
 
 
 # --------------------------------------------------------------------------- #
