@@ -425,9 +425,10 @@ Phases (any failure exits non-zero; nothing is caught):
    and {(576, 513), (577, 512)} in fp32 (past the fp32 single pass),
    causal, non-causal at ragged Tq / Tk, windowed and grouped (G = 4)
    against the plain version (fp32 rtol 1e-5 / atol 1e-4, bf16
-   ``check_rows``), the single-pass bodies' and the fp32 body's staged
-   routes (bases 2 or 4 bytes past 16) bit for bit their TMA or
-   16-byte-copy routes, two launches bit for bit at d = 512, and
+   ``check_rows``), the single-pass bodies', the bf16 body's at d = 128
+   and the fp32 body's staged routes (bases 2 or 4 bytes past 16) bit
+   for bit their TMA or 16-byte-copy routes, two launches bit for bit at
+   d = 512, and
    ``out_dtype`` fp32 -> bf16 and bf16 -> fp32 on
    flash (d 128, 512, 1024), SpDMM and SDDMM at rtol 2e-2 / atol 1e-2
    (the bf16 store bit for bit the fp32 result rounded, bf16 SDDMM
@@ -474,7 +475,12 @@ The script also tallies its own flash calls on the card by the body
 ``ops.flash_body`` names (``FLASH_TALLY``, the examples' in their
 processes), apart for the driven paths, for their timed or profiled
 repeats and for the kernel checks and timed rows, and prints them per
-body before the last lines.
+body before the last lines, after one line for each of the eight path
+shapes of the bf16 body at d <= 128 (qwen3-0.6b's, granite-8b's,
+hymba-1.5b's and kimi-k2's prefill, whisper-base's encoder,
+llama-3.2-vision's cross layers, the qwen3-0.6b and hymba-1.5b train
+shapes, each timed in its phase): its body, the kernel's time, SDPA's and
+the bound.
 
 Kernel times are device times: each trial queues a spin kernel first, so
 the host enqueues 20 back-to-back calls while the device is busy, and a
@@ -543,8 +549,8 @@ FLASH_BF16_WHOLE, FLASH_BF16_ROW = BF16_U, 2 * BF16_U
 LM_ARCH, LM_B, LM_T = "qwen3-0.6b", 4, 2048
 LM_REL_L2 = 2e-2                 # bf16 prefill against plain attention
 DECODE_B, DECODE_T, DECODE_TOL = 2, 64, 2e-4
-# The bf16 flash bodies' kernel names begin so (flash_bf16_kernel,
-# flash_bf16_ws_kernel past d = 128, flash_bf16_wide_kernel past 256).
+# The bf16 flash bodies' kernel names begin so (flash_bf16_ws_kernel up
+# to d = 256, flash_bf16_sp_kernel and flash_bf16_wide_kernel past it).
 FLASH_BF16 = "flash_bf16_"
 # Kernel names of the hand kernels, as the profiler reports them.
 HAND_KERNELS = ("gemm_f32_kernel", "spdmm_", "sddmm_f32_kernel",
@@ -686,8 +692,9 @@ def check_rows(torch, name, got, want, whole=FLASH_BF16_WHOLE,
 
 
 WS_KERNEL = "flash_bf16_ws_kernel"       # the warp-specialised flash body
-WS_INSTANTIATIONS = 4                   # (DQK, DV): (192, 128 / 192),
-                                        # (256, 128 / 256)
+WS_INSTANTIATIONS = 6                   # (DQK, DV): (64, 64), (128,
+                                        # 128), (192, 128 / 192), (256,
+                                        # 128 / 256)
 SP_KERNEL = "flash_bf16_sp_kernel"      # the single-pass body past d = 256
 SP_INSTANTIATIONS = 3                   # (512, 256 / 512), (576, 512)
 
@@ -718,16 +725,18 @@ def ws_nvcc_report(report: str, kernel: str = WS_KERNEL) -> dict:
     the single-pass one) of an ``nvcc -Xptxas -v`` report: per
     instantiation "DQK=.. DV=.." its registers a thread at entry (before
     ``setmaxnreg``) and spill bytes; and every ptxas warning that names
-    ``setmaxnreg`` or ``wgmma`` (C7508: setmaxnreg ignored; wgmma
-    serialized)."""
+    ``setmaxnreg`` or ``wgmma`` (C7508: setmaxnreg ignored), and every
+    ptxas line that says wgmma instructions are serialized (a wait after
+    each product) in a function of ``kernel``."""
     def key_of(ln):
         m = re.search(kernel + r"ILi(\d+)ELi(\d+)E", ln)
         return f"DQK={m.group(1)} DV={m.group(2)}" if m else None
     rows = nvcc_rows(report, key_of)
     warns = [ln.strip() for ln in report.splitlines()
-             if "warning" in ln.lower() and ("setmaxnreg" in ln
-                                             or "wgmma" in ln
-                                             or "C7508" in ln)]
+             if ("warning" in ln.lower() and ("setmaxnreg" in ln
+                                              or "wgmma" in ln
+                                              or "C7508" in ln))
+             or ("serialized" in ln and kernel in ln)]
     return {"instantiations": rows, "warnings": warns}
 
 
@@ -736,15 +745,16 @@ def ws_nvcc_check(report: str, kernel: str = WS_KERNEL,
     """Print a setmaxnreg flash body's registers and spills (``kernel``,
     ``count`` instantiations) from the flash build's report; fail if an
     instantiation spills, is missing, or ptxas ignored its
-    ``setmaxnreg``.  A cached build (no report) is said so and not
-    checked."""
+    ``setmaxnreg`` or serialized its wgmma.  A cached build (no report)
+    is said so and not checked."""
     if report.strip() == "cached":
         log(f"nvcc {kernel}: cached build, no report in this run")
         return {"cached": True}
     got = ws_nvcc_report(report, kernel)
     for key, r in sorted(got["instantiations"].items()):
         log(f"nvcc {kernel} {key}: {r.get('registers')} registers a "
-            f"thread at entry (setmaxnreg: producer 40, consumers 232), "
+            f"thread at entry (setmaxnreg: producer 40 / 24, consumers 232 "
+            f"/ 160 at two / three consumer warpgroups), "
             f"{r.get('spill_stores')} bytes spill stores, "
             f"{r.get('spill_loads')} bytes spill loads")
     for w in got["warnings"]:
@@ -757,6 +767,8 @@ def ws_nvcc_check(report: str, kernel: str = WS_KERNEL,
         fail(f"{kernel} spills: {got['instantiations']}")
     if any("setmaxnreg" in w or "C7508" in w for w in got["warnings"]):
         fail(f"{kernel}: ptxas ignored setmaxnreg: {got['warnings']}")
+    if any("serialized" in w for w in got["warnings"]):
+        fail(f"{kernel}: ptxas serialized its wgmma: {got['warnings']}")
     return got
 
 
@@ -3848,6 +3860,7 @@ def flash_at_shape(torch, ops, ref, cfg, b, t, label, window=0):
     k, v = (torch.randn(kvh, t, d, generator=gen, device="cuda").bfloat16()
             for _ in range(2))
     name = f"flash {label} BH={bh} KV heads={kvh} G={g}"
+    body = ops.flash_body(torch.bfloat16, d, d)
     got = ops.flash_attention(q, k, v, True, window)
     want = ref.flash_attention_plain(q, k, v, True, window)
     r_whole, r_row = check_rows(torch, name, got, want)
@@ -3864,7 +3877,7 @@ def flash_at_shape(torch, ops, ref, cfg, b, t, label, window=0):
     b_ms, b_by = flash_bound(bh, t, t, d, True, 2, PEAK_BF16_FLOP_S,
                              kv_heads=kvh, window=window)
     log(f"kernel flash_attention {name} T={t} d={d} causal window={window} "
-        f"bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"bf16 ({body} body): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
         f"F.scaled_dot_product_attention ({how}) {t_l:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}); relative L2 {r_whole:.3e} whole, "
         f"{r_row:.3e} worst row, max|err| {err:.2e}")
@@ -3872,7 +3885,7 @@ def flash_at_shape(torch, ops, ref, cfg, b, t, label, window=0):
     torch.cuda.empty_cache()
     return {"shape": f"BH={bh} over {kvh} KV heads, T={t}, d={d}, bf16, "
                      "causal" + (f", window {window}" if window else ""),
-            "max_abs_err": err, "ms": t_k,
+            "body": body, "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": t_l, "library": how, "rel_l2_whole": r_whole,
             "rel_l2_worst_row": r_row}
@@ -4586,6 +4599,7 @@ def flash_noncausal_rows(torch, ops, ref):
                             ref.flash_attention_plain(q, k, v, False), 0.0,
                             FLASH_ATOL)
         q, k, v = (x.bfloat16() for x in (q, k, v))
+        body = ops.flash_body(torch.bfloat16, d, d)
         got = ops.flash_attention(q, k, v, False)
         want = ref.flash_attention_plain(q, k, v, False)
         r_whole, r_row = check_rows(torch, f"{name} bf16", got, want)
@@ -4600,14 +4614,15 @@ def flash_noncausal_rows(torch, ops, ref):
         t_l = median_ms(torch, lib)
         b_ms, b_by = flash_bound(bh, tq, tk, d, False, 2, PEAK_BF16_FLOP_S,
                                  kv_heads=kvh)
-        log(f"kernel flash_attention {name} bf16: kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f} ms, F.scaled_dot_product_attention ({how}) "
+        log(f"kernel flash_attention {name} bf16 ({body} body): kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"F.scaled_dot_product_attention ({how}) "
             f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); relative L2 "
             f"{r_whole:.3e} whole, {r_row:.3e} worst row, max|err| "
             f"{err:.2e} (fp32: max|err| {err32:.2e}, atol {FLASH_ATOL})")
         rows[label] = {
             "shape": f"BH={bh} over {kvh} KV heads, Tq={tq}, Tk={tk}, d={d},"
-                     " bf16, non-causal", "max_abs_err": err,
+                     " bf16, non-causal", "body": body, "max_abs_err": err,
             "max_abs_err_fp32": err32, "ms": t_k, "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
             "library": how, "rel_l2_whole": r_whole,
@@ -5839,12 +5854,15 @@ def flash_kernel_phase(torch, ops, ref):
             b_ms, b_by = flash_bound(bh, t, t, d, True, 2 if bf16 else 4,
                                      PEAK_BF16_FLOP_S if bf16
                                      else PEAK_FP32_FLOP_S, kv_heads=bh // g)
+            body = ops.flash_body(dt, d, d)
             log(f"kernel flash_attention BH={bh} KV heads={bh // g} T={t} "
-                f"d={d} causal {dt}: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-                f"ms, F.scaled_dot_product_attention ({how}) {t_l:.4f} ms, "
+                f"d={d} causal {dt} ({body} body): kernel {t_k:.4f} ms, "
+                f"plain {t_p:.4f} ms, F.scaled_dot_product_attention "
+                f"({how}) {t_l:.4f} ms, "
                 f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
             path_rel.setdefault("ms", {})[f"{str(dt)[6:]} G={g}"] = {
-                "kernel": t_k, "plain": t_p, "sdpa": t_l, "bound": b_ms}
+                "body": body, "kernel": t_k, "plain": t_p, "sdpa": t_l,
+                "bound": b_ms}
             if entry is None:
                 entry = {"name": "flash_attention", "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/"
@@ -6635,8 +6653,8 @@ def contract_flash_cases(torch, ops, ref, qkv):
     """Flash past d = 256 against the plain version in every mode (both
     single-pass bodies and both d-sliced bodies), V also narrower than d
     for the single-pass bodies, their staged routes (bases off 16 bytes)
-    bit for bit their TMA / 16-byte-copy routes, and the fp32 body's
-    likewise; returns the number of cases."""
+    bit for bit their TMA / 16-byte-copy routes, and the fp32 body's and
+    the bf16 body's at d = 128 likewise; returns the number of cases."""
     n = 0
     cases = [(d, d, dt) for d in CONTRACT_DS
              for dt in (torch.float32, torch.bfloat16)]
@@ -6658,7 +6676,8 @@ def contract_flash_cases(torch, ops, ref, qkv):
                 check_rows(torch, name, got, want)
             n += 1
     staged = [(d, dv, torch.bfloat16)
-              for d, dv in ((WIDE_D, WIDE_D), (MLA_ABS_D, MLA_ABS_DV))]
+              for d, dv in ((128, 128), (WIDE_D, WIDE_D),
+                            (MLA_ABS_D, MLA_ABS_DV))]
     staged += [(d, dv, torch.float32) for d, dv in CONTRACT_F32_STAGED]
     for d, dv, dt in staged:
         q, k, v = qkv(4, 300, 300, d, dt, 2)
@@ -6677,6 +6696,9 @@ def contract_flash_cases(torch, ops, ref, qkv):
             check_close(torch, f"flash d={d} dv={dv} fp32 staged route", got,
                         ref.flash_attention_plain(q, k, v, True),
                         KERNEL_RTOL, KERNEL_ATOL)
+        else:
+            check_rows(torch, f"flash d={d} dv={dv} bf16 staged route", got,
+                       ref.flash_attention_plain(q, k, v, True))
         n += 1
     return n
 
@@ -7085,6 +7107,26 @@ def main() -> int:
             f"{bodies['timing'].get(body, 0)} in timed or profiled repeats "
             f"of a path, {bodies['checks'].get(body, 0)} in kernel checks "
             "and timed kernel rows")
+    # The eight path shapes of the bf16 body at d <= 128, as timed above.
+    path_row = flash_path["ms"]["bfloat16 G=2"]
+    d128_rows = {"qwen3-0.6b prefill": {
+        "body": path_row["body"], "ms": path_row["kernel"],
+        "library_ms": path_row["sdpa"], "bound_ms": path_row["bound"]}}
+    for label, row in (("granite-8b prefill", flash_granite),
+                       ("hymba-1.5b prefill", hymba["flash_rows"]["prefill"]),
+                       ("kimi-k2 prefill", flash_kimi),
+                       ("whisper-base encoder", flash_nc["whisper encoder"]),
+                       ("llama-3.2-vision cross", flash_nc["vision cross"]),
+                       ("qwen3-0.6b train", train["flash_train_shape"]),
+                       ("hymba-1.5b train", hymba["flash_rows"]["train"])):
+        d128_rows[label] = {k: row[k] for k in ("body", "ms", "library_ms",
+                                                "bound_ms")}
+    for label, row in d128_rows.items():
+        log(f"flash d <= 128, {label}: {row['body']} body, kernel "
+            f"{row['ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (kernel / "
+            f"SDPA {row['ms'] / row['library_ms']:.2f}), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.3f} of "
+            "it)")
     log(f"flash calls on the paths and in the examples by this tally: "
         f"{sum(bodies['paths'].values()) + sum(ex_bodies.values())} "
         f"(the wrapper's launches in the paths' counted windows: "
@@ -7142,6 +7184,7 @@ def main() -> int:
                        "flash_sp_build": sp_build,
                        "flash_f32_build": f32_build,
                        "flash_bodies": bodies,
+                       "flash_d128_rows": d128_rows,
                        "gemm_bf16_build": gemm_build,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,

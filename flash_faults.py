@@ -17,8 +17,10 @@ reads:
   output and over each query row;
 * the same two readings at gemma3-12b's prefill shape (BH=64 over 32 KV
   heads, T=2048, d=240, bf16, causal), which the warp-specialised body
-  past d = 128 runs, and at d = 512 (BH=8 over 4 KV heads, T=2048, bf16,
-  causal), which the single-pass body past d = 256 runs;
+  runs at DQK 256 (at d = 128 it runs DQK 128), at d = 512 (BH=8 over 4
+  KV heads, T=2048, bf16, causal), which the single-pass body past d =
+  256 runs, and at d = 64 (BH=20 over 4 KV heads, T=2048, bf16, causal),
+  the warp-specialised body's DQK 64;
 * fp32 at d = 128 (BH=16 over 8 KV heads, T=2048, causal), which the
   fp32 body runs, and at d = 512 (BH=8 over 4), which the fp32
   single-pass body runs: ``chip_smoke.check_close``'s rtol 1e-5 / atol
@@ -27,9 +29,10 @@ reads:
   weights from seed 0, as in ``chip_smoke.py``) against the same model
   with plain attention, beside ``chip_smoke.py``'s 2e-2 limit.
 
-It exits non-zero if the real kernel fails a check or a fault passes
-``check_rows`` at all three bf16 shapes and the fp32 check at both fp32
-shapes.  The last line of the output is the readings as JSON.
+It exits non-zero if the real kernel fails a check, a fault passes
+``check_rows`` at all four bf16 shapes and the fp32 check at both fp32
+shapes, or a fault of ``PATH_FAULTS`` (the bf16 body at d <= 128) passes
+``check_rows`` at the d = 128 path shape.  The last line of the output is the readings as JSON.
 Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
@@ -68,25 +71,31 @@ _SP_RELEASE_V = ("      __syncwarp();\n"
 # name -> (what the fault does, text of flash_attention.cu, its replacement)
 FAULTS = {
     "causal_skip_early": (
-        "bf16 body: the causal skip one query tile early: the diagonal KV "
-        "tiles are skipped",
+        "bf16 tensor-core bodies (wg_kv_tiles): the causal skip one query "
+        "tile early: the diagonal KV tiles are skipped",
         "const int end = causal ? min(tk, q0 + BQ_) : tk;",
         "const int end = causal ? min(tk, q0) : tk;"),
     "drop_mid_tile_late": (
-        "bf16 body: query tiles from row 1024 on skip their middle KV tile",
-        "    mbar_wait(full + 8 * st, (step / WG_STAGES) & 1);\n",
-        "    mbar_wait(full + 8 * st, (step / WG_STAGES) & 1);\n"
-        "    if (q0 >= 1024 && kt == n_kt / 2) {\n"
-        "      __syncwarp();\n"
-        "      if (lane == 0) mbar_arrive(empty + 8 * st);\n"
-        "      continue;\n"
-        "    }\n"),
+        "warp-specialised body (d <= 256): query tiles from row 1024 on "
+        "skip their middle KV tile (its P zero, m and l kept; the rings "
+        "still fill and release it)",
+        "      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt * BK, "
+        "wq0,\n",
+        "      if (q0 >= 1024 && kt == n_kt / 2) {\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;\n"
+        "        a_lo = a_hi = 1.0f;\n"
+        "      } else\n"
+        "      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt * BK, "
+        "wq0,\n"),
     "scale_1pct": (
-        "bf16 body: scores scaled by 1.01 d^-1/2",
-        "const float sl2 = scale * LOG2E;",
-        "const float sl2 = scale * 1.01f * LOG2E;"),
+        "warp-specialised body (d <= 256): scores scaled by 1.01 d^-1/2",
+        "  const int row_lo = wq0 + 16 * warp + g, row_hi = row_lo + 8;\n"
+        "  const float sl2 = LOG2E * scale;",
+        "  const int row_lo = wq0 + 16 * warp + g, row_hi = row_lo + 8;\n"
+        "  const float sl2 = LOG2E * 1.01f * scale;"),
     "pingpong_pv_slot": (
-        "warp-specialised body (d > 128): a turn's deferred P.V reads the "
+        "warp-specialised body (d <= 256): a turn's deferred P.V reads the "
         "V slot of this turn's tile, not the last tile's",
         "    ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);",
         "    ws_pv<DQK, DV>(o, pa, v_s + slot * L::V_SLOT);"),
@@ -157,9 +166,14 @@ FAULTS = {
         "        if ((causal && k0 + KB - 1 > q0) || k0 + KB > tk ||",
         "        if (k0 + KB > tk ||"),
 }
-# The wide readings: gemma3-12b's prefill heads at B=4, and d = 512 (query
-# heads, KV heads, d).
-WIDE_SHAPES = ((64, 32, 240), (8, 4, 512))
+# The other bf16 readings: gemma3-12b's prefill heads at B=4, d = 512,
+# and hymba-1.5b's d = 64 with G = 5 at one sequence (query heads, KV
+# heads, d).
+WIDE_SHAPES = ((64, 32, 240), (8, 4, 512), (20, 4, 64))
+# Faults in the bf16 body at d <= 128 (the warp-specialised body): each
+# must fail check_rows at the d = 128 path shape itself.
+PATH_FAULTS = ("causal_skip_early", "drop_mid_tile_late", "scale_1pct",
+               "pingpong_pv_slot")
 # The fp32 readings (query heads, KV heads, d; T = 2048, causal): the fp32
 # body at qwen3-0.6b's head dim and the fp32 single-pass body at d = 512,
 # each within rtol 1e-5 / atol 1e-4 of the plain version or not.
@@ -300,7 +314,8 @@ def main() -> int:
                     and all(r["elementwise_3e-2_passes"]
                             for r in at_d.values())):
                 bad.append(name)
-        elif rows_ok and wide_ok and f32_ok:
+        elif (rows_ok and wide_ok and f32_ok) or (name in PATH_FAULTS
+                                                  and rows_ok):
             bad.append(name)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

@@ -76,6 +76,28 @@ heads, BH = 64 over 32, d = 128; d = 512 at BH = 32; T = 2048, causal)
 beside fp32 ``F.scaled_dot_product_attention`` (``enable_gqa=True`` and on
 KV heads repeated) and the bound.
 
+The bf16 flash body at d <= 128 (``--only flash_d128``: the
+warp-specialised body at DQK 64 / 128; variants without the ping-pong,
+without ``setmaxnreg``, with heads fastest (the old body's grid order) or in
+groups of 8 at every shape, with two consumer warpgroups or 64-key tiles
+at DQK 64, with three ring slots, with a quarter or half of the
+exponentials on the FMA pipe, with O's rescale skipped where its factor is
+1, and with the phase probe, each a text edit of ``flash_attention.cu``;
+the ``DIAGNOSTIC`` build without the exponentials is timed only; with
+``--parent`` the parent tree's flash source and, as ``parent_probe``,
+that source with the same probe planted in its body at d <= 128
+(``PARENT_PROBE``)) is held by ``chip_smoke.check_rows`` at
+``FLASH_D128_SHAPES`` (the eight path shapes of that body), each build's
+bits compared with the checkout's and with a second launch of its own,
+and timed beside ``F.scaled_dot_product_attention`` and the bound.  A probe build stamps
+``clock64`` in one CTA (the first head's heaviest query tile) at each
+phase of each tile for both consumer warpgroups; at
+``FLASH_D128_PROBED`` (qwen3-0.6b's and hymba-1.5b's prefill) each
+phase's share of the tiles is printed, with the share in which a
+warpgroup has no product of its own in flight and in which neither has
+(``probe_shares``).  The registers and spills of both bodies'
+instantiations come from the builds' ``-Xptxas -v`` reports.
+
 The SpDMM kernel (``--only spdmm``; variants of its span length, no
 span split, registers and blocks an SM, rows a block, the hub pass's
 gathers in flight and the old share of a round's spans, each a text
@@ -104,6 +126,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -117,6 +140,221 @@ _OPT_IN = ("  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);\n",
            "  cudaFuncSetAttribute(gemm_f32_kernel<false, OutT>,\n"
            "      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);\n"
            "  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);\n")
+
+# The warp-specialised flash body's ping-pong (named barriers 1 and 2)
+# and register split, each removed.
+_NO_PINGPONG = [('  asm volatile("bar.sync %0, %1;\\n" ::"r"(id), '
+                 '"n"(WS_CONSUMERS) : "memory");\n', ""),
+                ('  asm volatile("bar.arrive %0, %1;\\n" ::"r"(id), '
+                 '"n"(WS_CONSUMERS)\n               : "memory");\n', "")]
+_NO_SETMAXNREG = [("    regs_dec<L::PRODUCER_REGS>();\n", ""),
+                  ("    regs_inc<L::CONSUMER_REGS>();\n", "")]
+# Variants run for their time alone (their output is not held to the
+# plain version): measurements of where a tile's time goes.
+DIAGNOSTIC = ("diag_no_ex2",)
+
+
+# Part of the softmax's exponentials on the FMA pipe instead of the SFU
+# (MUFU.EX2, 16 lanes an SM): 2^x = 2^j 2^f with j = round(x), f in [-0.5,
+# 0.5], 2^f a degree-3 polynomial (relative error 1.0e-4, a fortieth of
+# a bf16 ulp) and 2^j added to its exponent bits; 0 below x = -125 (the
+# SFU's flush gives 0 below -126).  ``n`` of every 4 groups of a thread's
+# 4 scores take it.
+def _ex2_fma(n):
+    return [
+        ("__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) "
+         "{\n",
+         "__device__ __forceinline__ float ex2_fma(float x) {\n"
+         "  const float t = x + 12582912.0f;   // 1.5 * 2^23: j = round(x)\n"
+         "  const float f = x - (t - 12582912.0f);\n"
+         "  const float p = fmaf(fmaf(fmaf(0.05500893f, f, 0.24221098f), f,\n"
+         "                            0.69328290f), f, 1.0f);\n"
+         "  const int b = __float_as_int(p) + (__float_as_int(t) << 23);\n"
+         "  return x < -125.0f ? 0.0f : __int_as_float(b);\n"
+         "}\n"
+         f"constexpr int EX2_FMA_OF_4 = {n};\n"
+         "__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) "
+         "{\n"),
+        ("    s[4 * i] = ex2(fmaf(s[4 * i], sl2, -mn_lo));   // masked: "
+         "ex2(-inf) = 0\n"
+         "    s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], sl2, -mn_lo));\n"
+         "    s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], sl2, -mn_hi));\n"
+         "    s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], sl2, -mn_hi));\n",
+         "    if (i % 4 < EX2_FMA_OF_4) {\n"
+         "      s[4 * i] = ex2_fma(fmaf(s[4 * i], sl2, -mn_lo));\n"
+         "      s[4 * i + 1] = ex2_fma(fmaf(s[4 * i + 1], sl2, -mn_lo));\n"
+         "      s[4 * i + 2] = ex2_fma(fmaf(s[4 * i + 2], sl2, -mn_hi));\n"
+         "      s[4 * i + 3] = ex2_fma(fmaf(s[4 * i + 3], sl2, -mn_hi));\n"
+         "    } else {\n"
+         "      s[4 * i] = ex2(fmaf(s[4 * i], sl2, -mn_lo));\n"
+         "      s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], sl2, -mn_lo));\n"
+         "      s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], sl2, -mn_hi));\n"
+         "      s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], sl2, -mn_hi));\n"
+         "    }\n")]
+
+
+# The warp-specialised body's CTA order: heads in groups of 8 where the K
+# and V of all heads exceed WS_ALL_HEADS_KV_BYTES, else heads fastest over
+# all BH; or either everywhere.
+_WS_HEAD_RULE = ("  const int head_group = kv_bytes <= WS_ALL_HEADS_KV_BYTES ? bh\n"
+                 "                                                           "
+                 ": WS_HEAD_GROUP;\n")
+# The phase probe: clock64 stamps of one CTA's (up to three) consumer
+# warpgroups,
+# PROBE_MARKS a tile for up to PROBE_TILES tiles each, in a device array
+# the entry flash_probe_read copies out (flash_probe_clear zeroes it and
+# the grid probe's); the grid probe (the warp-specialised body's only):
+# for each of the first PROBE_CTAS CTAs, CTA_MARKS stamps (below).
+PROBE_TILES, PROBE_MARKS, PROBE_CTAS, CTA_MARKS = 32, 8, 8192, 8
+_PROBE_COMMON = [
+    ("constexpr unsigned FULL = 0xffffffffu;\n",
+     "constexpr unsigned FULL = 0xffffffffu;\n"
+     f"constexpr int PROBE_TILES = {PROBE_TILES}, PROBE_MARKS = "
+     f"{PROBE_MARKS};\n"
+     f"constexpr int PROBE_CTAS = {PROBE_CTAS}, CTA_MARKS = {CTA_MARKS};\n"
+     "__device__ long long flash_probe[3 * PROBE_TILES * PROBE_MARKS];\n"
+     "__device__ long long flash_probe_cta[PROBE_CTAS * CTA_MARKS];\n"
+     "__device__ __forceinline__ long long probe_ns() {\n"
+     "  long long t;\n"
+     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
+     "  return t;\n"
+     "}\n"
+     "__device__ __forceinline__ long long probe_sm() {\n"
+     "  unsigned id;\n"
+     '  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));\n'
+     "  return id;\n"
+     "}\n"
+     "#define PROBE_CTA(e_, v_) \\\n"
+     "  if (blockIdx.x < PROBE_CTAS) \\\n"
+     "    flash_probe_cta[blockIdx.x * CTA_MARKS + (e_)] = (v_);\n"
+     "#define PROBE_MARK(step, e) \\\n"
+     "  if (probe_on && (step) < PROBE_TILES) \\\n"
+     "    flash_probe[((threadIdx.x >> 7) * PROBE_TILES + (step)) * "
+     "PROBE_MARKS + (e)] = clock64();\n"),
+    ('extern "C" int flash_attention_body(int dtype, int d, int dv) {',
+     'extern "C" int flash_probe_read(void* dst) {\n'
+     "  return (int)cudaMemcpyFromSymbol(dst, flash_probe, "
+     "sizeof(flash_probe));\n"
+     "}\n"
+     'extern "C" int flash_probe_cta_read(void* dst) {\n'
+     "  return (int)cudaMemcpyFromSymbol(dst, flash_probe_cta, "
+     "sizeof(flash_probe_cta));\n"
+     "}\n"
+     'extern "C" int flash_probe_clear() {\n'
+     "  static long long zero[PROBE_CTAS * CTA_MARKS];\n"
+     "  const int rc = (int)cudaMemcpyToSymbol(flash_probe, zero, "
+     "sizeof(flash_probe));\n"
+     "  return rc ? rc : (int)cudaMemcpyToSymbol(flash_probe_cta, zero, "
+     "sizeof(flash_probe_cta));\n"
+     "}\n"
+     'extern "C" int flash_attention_body(int dtype, int d, int dv) {')]
+# ... in the warp-specialised body: per turn of tile kt > kt0 (its step),
+# 0 before the waits for K and V, 1 after them, 2 with the tensor cores
+# handed over, 3 with Q.K^T and the last tile's P.V issued, 4 Q.K^T done,
+# 5 scores done, 6 that P.V done, 7 O rescaled and P packed; per CTA
+# (thread 0; thread 128 w for 3 + w), 0 its start (globaltimer ns), 1 its
+# SM, 2 the first K tile landed, 3 + w warpgroup w's last store, 6 / 7
+# clock64 at the start and at warpgroup 0's last store.
+_WS_PROBE = [
+    ("  const uint32_t bars = smem_u32(smem + L::BARS);\n"
+     "  // One CTA per (head, query tile) in a 1-D grid, ordered by head "
+     "group.\n",
+     "  const uint32_t bars = smem_u32(smem + L::BARS);\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    PROBE_CTA(6, clock64());\n"
+     "    PROBE_CTA(0, probe_ns());\n"
+     "    PROBE_CTA(1, probe_sm());\n"
+     "  }\n"
+     "  // One CTA per (head, query tile) in a 1-D grid, ordered by head "
+     "group.\n"),
+    ("    // Turn 0: Q.K^T of the first tile.\n"
+     "    mbar_wait(full_k, 0);\n",
+     "    // Turn 0: Q.K^T of the first tile.\n"
+     "    mbar_wait(full_k, 0);\n"
+     "    if (threadIdx.x == 0) PROBE_CTA(2, probe_ns());\n"),
+    ("        store_pair(static_cast<float*>(out) + at, c, dv, x0, x1);\n"
+     "    }\n  }\n}\n\ntemplate <int DQK, int DV>\n"
+     "__global__ void __launch_bounds__(WsSmem<DQK, DV>::THREADS, 1)\n"
+     "flash_bf16_ws_kernel(",
+     "        store_pair(static_cast<float*>(out) + at, c, dv, x0, x1);\n"
+     "    }\n  }\n"
+     "  if ((threadIdx.x & 127) == 0) {\n"
+     "    if (threadIdx.x == 0) PROBE_CTA(7, clock64());\n"
+     "    PROBE_CTA(3 + wg, probe_ns());\n"
+     "  }\n"
+     "}\n\ntemplate <int DQK, int DV>\n"
+     "__global__ void __launch_bounds__(WsSmem<DQK, DV>::THREADS, 1)\n"
+     "flash_bf16_ws_kernel("),
+    ("  const uint32_t q_s = smem_u32(smem) + wg * 64 * 128;\n",
+     "  const uint32_t q_s = smem_u32(smem) + wg * 64 * 128;\n"
+     "  const bool probe_on = blockIdx.x == 0 && (threadIdx.x & 127) == 0;\n"),
+    ("      mbar_wait(full_k + 8 * slot, (step / SL) & 1);\n"
+     "      mbar_wait(full_v + 8 * prev, ((step - 1) / SL) & 1);\n"
+     "      turn_wait(1 + wg);\n"
+     "      wgmma_fence();\n"
+     "      ws_qk<DQK, DV>(s, q_s, k_s + slot * L::K_SLOT);\n",
+     "      PROBE_MARK(step, 0);\n"
+     "      mbar_wait(full_k + 8 * slot, (step / SL) & 1);\n"
+     "      mbar_wait(full_v + 8 * prev, ((step - 1) / SL) & 1);\n"
+     "      PROBE_MARK(step, 1);\n"
+     "      turn_wait(1 + wg);\n"
+     "      PROBE_MARK(step, 2);\n"
+     "      wgmma_fence();\n"
+     "      ws_qk<DQK, DV>(s, q_s, k_s + slot * L::K_SLOT);\n"),
+    ("      turn_pass(next);\n"
+     "      wgmma_wait_one();                  // Q.K^T done, P.V in flight\n"
+     "      fence_regs(s);\n",
+     "      turn_pass(next);\n"
+     "      PROBE_MARK(step, 3);\n"
+     "      wgmma_wait_one();                  // Q.K^T done, P.V in flight\n"
+     "      fence_regs(s);\n"
+     "      PROBE_MARK(step, 4);\n"),
+    ("      wgmma_wait_all();\n"
+     "      fence_regs(o);\n"
+     "      __syncwarp();\n"
+     "      if (lane == 0) mbar_arrive(empty_v + 8 * prev);\n"
+     "      ws_rescale_pack<BK, DV / 2>(s, o, pa, a_lo, a_hi);\n",
+     "      PROBE_MARK(step, 5);\n"
+     "      wgmma_wait_all();\n"
+     "      fence_regs(o);\n"
+     "      PROBE_MARK(step, 6);\n"
+     "      __syncwarp();\n"
+     "      if (lane == 0) mbar_arrive(empty_v + 8 * prev);\n"
+     "      ws_rescale_pack<BK, DV / 2>(s, o, pa, a_lo, a_hi);\n"
+     "      PROBE_MARK(step, 7);\n")]
+# ... in the old body at d <= 128 (the parent's flash_bf16_kernel), per tile (its
+# step): 0 before the wait for its K / V stage, 1 after it, 2 Q.K^T done,
+# 3 softmax done (P packed), 4 P.V done.  Applied to the --parent source.
+PARENT_PROBE = _PROBE_COMMON + [
+    ("  const float sl2 = scale * LOG2E;         // scores in the exp2 "
+     "domain\n",
+     "  const float sl2 = scale * LOG2E;         // scores in the exp2 "
+     "domain\n"
+     "  const bool probe_on = blockIdx.x == 0 && blockIdx.y == 0 &&\n"
+     "                        (threadIdx.x & 127) == 0;\n"),
+    ("    mbar_wait(full + 8 * st, (step / WG_STAGES) & 1);\n",
+     "    PROBE_MARK(step, 0);\n"
+     "    mbar_wait(full + 8 * st, (step / WG_STAGES) & 1);\n"
+     "    PROBE_MARK(step, 1);\n"),
+    ("    wgmma_commit();\n    wgmma_wait_all();\n    fence_regs(s);\n\n",
+     "    wgmma_commit();\n    wgmma_wait_all();\n    fence_regs(s);\n"
+     "    PROBE_MARK(step, 2);\n\n"),
+    ("    wgmma_fence();\n#pragma unroll\n"
+     "    for (int kc = 0; kc < BK / 16; ++kc) {\n"
+     "      const uint64_t vd = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, "
+     "1024);\n",
+     "    PROBE_MARK(step, 3);\n"
+     "    wgmma_fence();\n#pragma unroll\n"
+     "    for (int kc = 0; kc < BK / 16; ++kc) {\n"
+     "      const uint64_t vd = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, "
+     "1024);\n"),
+    ("    wgmma_commit();\n    wgmma_wait_all();\n    fence_regs(o);\n"
+     "    __syncwarp();                          // the stage is read: "
+     "release it\n",
+     "    wgmma_commit();\n    wgmma_wait_all();\n    fence_regs(o);\n"
+     "    PROBE_MARK(step, 4);\n"
+     "    __syncwarp();                          // the stage is read: "
+     "release it\n")]
 
 # kernel -> variant -> (what it changes, [(text, replacement), ...])
 VARIANTS = {
@@ -186,9 +424,7 @@ VARIANTS = {
     "flash_attention": {
         "wide_two_wg": ("bf16 body past d = 128: the two consumer "
                         "warpgroups without setmaxnreg (every thread at the "
-                        "launch's 168 registers)",
-                        [("    regs_dec<WS_PRODUCER_REGS>();\n", ""),
-                         ("    regs_inc<WS_CONSUMER_REGS>();\n", "")]),
+                        "launch's 168 registers)", _NO_SETMAXNREG),
         "wide_pv_halves": ("bf16 body past d = 128: P.V as two m64n128 "
                            "halves instead of one m64n256 (DV = 256)",
                            [("      wgmma_rs_n256(o, pa[kc], vd, 1);\n",
@@ -223,12 +459,7 @@ VARIANTS = {
         "wide_no_pingpong": ("bf16 body past d = 128: the consumer "
                              "warpgroups issue their products without "
                              "taking turns (no named barriers)",
-                             [('  asm volatile("bar.sync %0, %1;\\n" '
-                               '::"r"(id), "n"(WS_CONSUMERS) : "memory");\n',
-                               ""),
-                              ('  asm volatile("bar.arrive %0, %1;\\n" '
-                               '::"r"(id), "n"(WS_CONSUMERS)\n'
-                               '               : "memory");\n', "")]),
+                             _NO_PINGPONG),
         "wide_bk64": ("bf16 body past d = 128: 64-key tiles at DQK 192 / "
                       "DV 128 (MLA) instead of 128",
                       [("  static constexpr int BK = DQK + DV <= 320 ? 128 "
@@ -243,7 +474,7 @@ VARIANTS = {
               "      wgmma_commit();\n"
               "      ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);\n"
               "      wgmma_commit();\n"
-              "      turn_pass(2 - wg);\n"
+              "      turn_pass(next);\n"
               "      wgmma_wait_one();                  // Q.K^T done, P.V in "
               "flight\n"
               "      fence_regs(s);\n"
@@ -261,7 +492,7 @@ VARIANTS = {
               "      ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);\n"
               "      ws_qk<DQK, DV>(s, q_s, k_s + slot * L::K_SLOT);\n"
               "      wgmma_commit();\n"
-              "      turn_pass(2 - wg);\n"
+              "      turn_pass(next);\n"
               "      wgmma_wait_all();\n"
               "      fence_regs(o);\n"
               "      fence_regs(s);\n"
@@ -324,6 +555,86 @@ VARIANTS = {
                     "a lane), twice the barriers a key",
                     [("constexpr int F32SP_BK = 64;",
                       "constexpr int F32SP_BK = 32;")])
+    },
+    # The bf16 body at d <= 128 (flash_bf16_ws_kernel<64, 64> and <128,
+    # 128>), each a text edit of flash_attention.cu called through its
+    # entry; with --parent also the old body and its phase probe.
+    "flash_d128": {
+        "d128_no_pingpong": ("the consumer warpgroups issue their products "
+                             "without taking turns (no named barriers)",
+                             _NO_PINGPONG),
+        "d128_no_setmaxnreg": ("every thread at the launch's 168 registers "
+                               "(no setmaxnreg)", _NO_SETMAXNREG),
+        "d128_heads_fastest": ("the grid runs heads fastest over all BH, "
+                               "query tiles heaviest first (the old body's "
+                               "order) "
+                               "at every shape",
+                               [(_WS_HEAD_RULE,
+                                 "  const int head_group = bh;\n")]),
+        "d128_grouped": ("the grid runs heads in groups of 8 at every shape",
+                         [(_WS_HEAD_RULE,
+                           "  const int head_group = WS_HEAD_GROUP;\n")]),
+        "d128_lazy_rescale": ("O rescaled only where a row's max moved in "
+                              "the warp (a factor of 1 skipped: the same "
+                              "bits)",
+                              [("  for (int i = 0; i < ON / 4; ++i) {\n"
+                                "    o[4 * i] *= a_lo;\n",
+                                "  if (__any_sync(FULL, a_lo != 1.0f || "
+                                "a_hi != 1.0f))\n"
+                                "  for (int i = 0; i < ON / 4; ++i) {\n"
+                                "    o[4 * i] *= a_lo;\n")]),
+        "diag_no_ex2": ("diagnostic, not held: the softmax's exponentials "
+                        "left out (P = the exponent's argument), a "
+                        "timing of the SFU's share only",
+                        [("    s[4 * i] = ex2(fmaf(s[4 * i], sl2, -mn_lo));"
+                          "   // masked: ex2(-inf) = 0\n"
+                          "    s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], sl2, "
+                          "-mn_lo));\n"
+                          "    s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], sl2, "
+                          "-mn_hi));\n"
+                          "    s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], sl2, "
+                          "-mn_hi));\n",
+                          "    s[4 * i] = fmaf(s[4 * i], sl2, -mn_lo);\n"
+                          "    s[4 * i + 1] = fmaf(s[4 * i + 1], sl2, "
+                          "-mn_lo);\n"
+                          "    s[4 * i + 2] = fmaf(s[4 * i + 2], sl2, "
+                          "-mn_hi);\n"
+                          "    s[4 * i + 3] = fmaf(s[4 * i + 3], sl2, "
+                          "-mn_hi);\n")]),
+        "d128_two_wg64": ("DQK 64: two consumer warpgroups (128 query "
+                          "rows a CTA, 232 registers) instead of three",
+                          [("constexpr int WS_NWG_DQK64 = 3;",
+                            "constexpr int WS_NWG_DQK64 = 2;")]),
+        "d128_three_wg128": ("DQK 128: three consumer warpgroups (192 "
+                             "query rows a CTA, 160 registers) on 64-key "
+                             "tiles (other bits)",
+                             [("  static constexpr int NWG = DQK == 64 ? "
+                               "WS_NWG_DQK64 : 2;",
+                               "  static constexpr int NWG = DQK <= 128 ? 3 "
+                               ": 2;"),
+                              ("  static constexpr int BK = DQK + DV <= 320 ? "
+                               "128 : 64;",
+                               "  static constexpr int BK = DQK == 128 ? 64 : "
+                               "DQK + DV <= 320 ? 128 : 64;")]),
+        "d128_bk64": ("DQK 64: 64-key tiles instead of 128 (other bits: "
+                      "another rescale order)",
+                      [("  static constexpr int BK = DQK + DV <= 320 ? 128 "
+                        ": 64;", "  static constexpr int BK = DQK == 64 ? 64 "
+                        ": DQK + DV <= 320 ? 128 : 64;")]),
+        "d128_slots3": ("three slots a K and a V ring at DQK 64 / 128 "
+                        "(DQK 128: 224 KB)",
+                        [("  static constexpr int SLOTS = 2;               "
+                          "// slots of the K and V rings",
+                          "  static constexpr int SLOTS = DQK <= 128 ? 3 "
+                          ": 2;")]),
+        "d128_ex2_fma25": ("a quarter of the softmax's exponentials on the "
+                           "FMA pipe (other bits)", _ex2_fma(1)),
+        "d128_ex2_fma50": ("half of the softmax's exponentials on the FMA "
+                           "pipe (other bits)", _ex2_fma(2)),
+        "d128_probe": ("the body with clock64 stamps in one CTA (the first "
+                       "head's heaviest query tile) and globaltimer stamps "
+                       "of every CTA: the phase and grid probes",
+                       _PROBE_COMMON + _WS_PROBE),
     },
     # The SpDMM kernel (spdmm.cu), called through its step-list entry
     # spdmm_steps and its one-step entry spdmm_f32.
@@ -398,15 +709,16 @@ GEMM_FAULTS = {
 # Variant keys built from another kernel's source, and the entry point
 # their copies are called through.
 SOURCE = {"gemm_bf16": "gemm", "flash_wide": "flash_attention",
-          "flash_f32": "flash_attention"}
+          "flash_f32": "flash_attention", "flash_d128": "flash_attention"}
 ENTRY = {"gemm_bf16": "gemm_mixed", "flash_wide": "flash_attention",
-         "flash_f32": "flash_attention", "spdmm": "spdmm_steps"}
+         "flash_f32": "flash_attention", "flash_d128": "flash_attention",
+         "spdmm": "spdmm_steps"}
 # The entry a parent copy is called through, where it differs (the
 # parent's SpDMM source has only the one-step entries).
 PARENT_ENTRY = {"spdmm": "spdmm"}
 # Kernels whose parent source is built as the variant "parent".
 PARENT_KERNELS = ("gemm", "gemm_bf16", "sddmm", "flash_attention",
-                  "flash_wide", "flash_f32", "spdmm")
+                  "flash_wide", "flash_f32", "flash_d128", "spdmm")
 # A flash entry without the dv argument (the signature before V took its
 # own width): the parent's, when its source has no dv.
 FLASH_NO_DV = "int d, int causal, int window,"
@@ -454,6 +766,16 @@ def build_variants(build, parent, kernels):
                 copies[f"{kern}_parent"] = (PARENT_ENTRY.get(kern, ent),
                                         fh.read())
             keys[f"{kern}_parent"] = (kern, "parent")
+            if kern == "flash_d128":
+                text = copies[f"{kern}_parent"][1]
+                for old, new in PARENT_PROBE:
+                    if text.count(old) != 1:
+                        raise ValueError("the parent's flash source does "
+                                         "not hold the probe's text once: "
+                                         f"{old!r}")
+                    text = text.replace(old, new)
+                copies[f"{kern}_parent_probe"] = (ent, text)
+                keys[f"{kern}_parent_probe"] = (kern, "parent_probe")
     t0 = time.perf_counter()
     built = build.build_copies(copies, os.path.join(build.BUILD_DIR,
                                                     "variants"))
@@ -469,7 +791,12 @@ def build_variants(build, parent, kernels):
                 for ln in report.splitlines() if "Used" in ln or "spill" in ln]
         log(f"nvcc {kern} {name}: " + "; ".join(regs))
         fns[(kern, name)] = fn
+        REPORTS[(kern, name)] = report
     return fns
+
+
+# (kernel, variant) -> the nvcc -Xptxas -v report of its build.
+REPORTS = {}
 
 
 class entry_as:
@@ -859,6 +1186,244 @@ def flash_f32_phase(torch, cs, ops, ref, fns):
     return out
 
 
+# The shapes the bf16 body at d <= 128 runs on the paths (chip_smoke.py's
+# rows): (label, query heads, KV heads, Tq, Tk, d, causal, window).
+FLASH_D128_SHAPES = [
+    ("qwen3-0.6b prefill", 64, 32, 2048, 2048, 128, True, 0),
+    ("granite-8b prefill", 128, 32, 2048, 2048, 128, True, 0),
+    ("hymba-1.5b prefill", 100, 20, 2048, 2048, 64, True, 0),
+    ("kimi-k2 prefill", 256, 32, 2048, 2048, 112, True, 0),
+    ("whisper-base encoder", 32, 32, 1500, 1500, 64, False, 0),
+    ("llama-3.2-vision cross", 128, 32, 2048, 1601, 128, False, 0),
+    ("qwen3-0.6b train", 32, 16, 4096, 4096, 128, True, 0),
+    ("hymba-1.5b train", 50, 10, 4096, 4096, 64, True, 2048)]
+# The shapes the phase probes read (the heaviest query tile of head 0).
+FLASH_D128_PROBED = ("qwen3-0.6b prefill", "hymba-1.5b prefill")
+# Which clock64 marks bound each phase of a tile, per probe: (name, from,
+# to); "busy" spans are the warpgroup's own products in flight, from
+# their issue to the wait that sees them done.
+PROBE_PHASES = {
+    "parent_probe": {"phases": [("wait_full", 0, 1), ("qk", 1, 2),
+                                ("softmax", 2, 3), ("pv", 3, 4)],
+                     "busy": [(1, 2), (3, 4)], "first": 0, "last": 4},
+    "d128_probe": {"phases": [("wait_full", 0, 1), ("wait_turn", 1, 2),
+                              ("issue", 2, 3), ("qk_wait", 3, 4),
+                              ("scores", 4, 5), ("pv_wait", 5, 6),
+                              ("rescale_pack", 6, 7)],
+                   "busy": [(2, 6)], "first": 0, "last": 7}}
+
+
+def probe_read(build, name):
+    """The clock64 stamps of the probe build ``name`` (its last call), as
+    [3 warpgroups][PROBE_TILES][PROBE_MARKS] int64."""
+    import ctypes
+
+    import numpy as np
+    lib = ctypes.CDLL(os.path.join(build.BUILD_DIR, "variants",
+                                   f"libflash_d128_{name}.so"))
+    buf = np.zeros(3 * PROBE_TILES * PROBE_MARKS, dtype=np.int64)
+    rc = lib.flash_probe_read(ctypes.c_void_p(buf.ctypes.data))
+    if rc != 0:
+        raise RuntimeError(f"flash_probe_read: CUDA error {rc}")
+    return buf.reshape(3, PROBE_TILES, PROBE_MARKS)
+
+
+def probe_cta_read(build, name):
+    """The grid probe's stamps of the probe build ``name``, as
+    [PROBE_CTAS][CTA_MARKS] int64."""
+    import ctypes
+
+    import numpy as np
+    lib = ctypes.CDLL(os.path.join(build.BUILD_DIR, "variants",
+                                   f"libflash_d128_{name}.so"))
+    buf = np.zeros(PROBE_CTAS * CTA_MARKS, dtype=np.int64)
+    rc = lib.flash_probe_cta_read(ctypes.c_void_p(buf.ctypes.data))
+    if rc != 0:
+        raise RuntimeError(f"flash_probe_cta_read: CUDA error {rc}")
+    return buf.reshape(PROBE_CTAS, CTA_MARKS)
+
+
+def grid_shares(cta):
+    """From the grid probe's stamps of a launch (its first PROBE_CTAS
+    CTAs, each with a start stamp): the launch's span (first start to last store, ns),
+    the SMs' summed idle share of it, split into before an SM's first CTA,
+    between its CTAs and after its last; the share of the CTAs' time spent
+    before their first K tile landed; the mean and largest CTA; and the SM
+    clock (GHz) from clock64 against globaltimer."""
+    import numpy as np
+    c = cta[cta[:, 0] != 0]
+    start, sm, ready = c[:, 0], c[:, 1], c[:, 2]
+    end = c[:, 3:6].max(axis=1)
+    t0, t1 = int(start.min()), int(end.max())
+    span = float(t1 - t0)
+    sms = np.unique(sm)
+    head = gaps = tail = 0.0
+    for s_ in sms:
+        i = np.argsort(start[sm == s_])
+        a, b = start[sm == s_][i], end[sm == s_][i]
+        head += float(a[0] - t0)
+        tail += float(t1 - b[-1])
+        gaps += float(np.clip(a[1:] - b[:-1], 0, None).sum())
+    dur = (end - start).astype(np.float64)
+    whole = span * len(sms)
+    ghz = (c[:, 7] - c[:, 6]) / np.maximum(c[:, 3] - start, 1)
+    return {"ctas": int(len(c)), "sms": int(len(sms)), "span_us": span / 1e3,
+            "sm_idle": 1.0 - float(dur.sum()) / whole,
+            "sm_idle_head": head / whole, "sm_idle_between": gaps / whole,
+            "sm_idle_tail": tail / whole,
+            "before_first_k": float((ready - start).sum() / dur.sum()),
+            "cta_mean_us": float(dur.mean()) / 1e3,
+            "cta_max_us": float(dur.max()) / 1e3,
+            "sm_clock_ghz": float(np.median(ghz))}
+
+
+def probe_clear(build, name):
+    import ctypes
+    lib = ctypes.CDLL(os.path.join(build.BUILD_DIR, "variants",
+                                   f"libflash_d128_{name}.so"))
+    rc = lib.flash_probe_clear()
+    if rc != 0:
+        raise RuntimeError(f"flash_probe_clear: CUDA error {rc}")
+
+
+def probe_shares(marks, kind):
+    """Each phase's share of the probed CTA's tiles (clock64 cycles,
+    summed over the tiles a warpgroup stamped), the share in which the
+    warpgroup had no product of its own in flight, and the share of the
+    span in which neither warpgroup had one (the CTA's tensor work
+    idle)."""
+    spec = PROBE_PHASES[kind]
+    out, busy_all, span = {}, [], [None, None]
+    for wg in range(3):
+        rows = [r for r in marks[wg] if r[spec["first"]] > 0
+                and r[spec["last"]] > 0]
+        if not rows:
+            continue
+        t0, t1 = rows[0][spec["first"]], rows[-1][spec["last"]]
+        total = float(t1 - t0)
+        span[0] = t0 if span[0] is None else min(span[0], t0)
+        span[1] = t1 if span[1] is None else max(span[1], t1)
+        ph = {n: float(sum(r[b] - r[a] for r in rows)) / total
+              for n, a, b in spec["phases"]}
+        out[f"wg{wg}"] = {"tiles": len(rows), "cycles": total,
+                          "cycles_a_tile": total / len(rows), **ph}
+        if spec["busy"]:
+            busy = [(int(r[a]), int(r[b])) for r in rows
+                    for a, b in spec["busy"]]
+            busy_all += busy
+            out[f"wg{wg}"]["own_products_idle"] = \
+                1.0 - sum(b - a for a, b in busy) / total
+    merged, cur = 0, None
+    for a, b in sorted(busy_all):
+        if cur is None or a > cur[1]:
+            if cur:
+                merged += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur:
+        merged += cur[1] - cur[0]
+    if span[0] is not None and busy_all:
+        out["cta_products_idle"] = 1.0 - merged / float(span[1] - span[0])
+    return out
+
+
+def flash_d128_phase(torch, cs, ops, ref, fns):
+    """Each build of the bf16 body at d <= 128 (the variants; with
+    ``--parent`` the old body and its phase probe) at
+    ``FLASH_D128_SHAPES``: held by ``chip_smoke.check_rows`` against the
+    plain version, its bits compared with the checkout's body and with a
+    second launch of its own, timed (change, variants, parent, change)
+    beside ``F.scaled_dot_product_attention`` and the bound; the probes'
+    phase shares at ``FLASH_D128_PROBED``; the registers and spills of
+    both bodies' instantiations.  The ``DIAGNOSTIC`` builds are timed
+    only.  Fails if another build fails its check or two of its launches
+    differ."""
+    from repro_torch.kernels import build
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    names = [n for k, n in fns if k == "flash_d128"]
+    order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
+    out = {"nvcc": {"change": cs.ws_nvcc_report(
+        build.build_log.get("flash_attention", ""))["instantiations"]}}
+    if ("flash_d128", "parent") in REPORTS:
+        def key_of(ln):
+            m = re.search(r"flash_bf16_kernelILi(\d+)ELb(\d)E"
+                          r"(13__nv_bfloat16|f)E", ln)
+            return (f"flash_bf16_kernel<{m.group(1)}, "
+                    f"{'true' if m.group(2) == '1' else 'false'}, "
+                    f"{'bf16' if m.group(3) != 'f' else 'float'}>"
+                    if m else None)
+        out["nvcc"]["parent"] = cs.nvcc_rows(
+            REPORTS[("flash_d128", "parent")], key_of)
+    for who, rows in out["nvcc"].items():
+        for key, r in sorted(rows.items()):
+            log(f"nvcc flash d<=128 {who} {key}: {r.get('registers')} "
+                f"registers a thread, {r.get('spill_stores')} / "
+                f"{r.get('spill_loads')} bytes spill stores / loads")
+    for label, bh, kvh, tq, tk, d, causal, w in FLASH_D128_SHAPES:
+        if ops.flash_body(torch.bfloat16, d, d) != "bf16":
+            cs.fail(f"flash {label}: d = {d} runs "
+                    f"{ops.flash_body(torch.bfloat16, d, d)}")
+        q = torch.randn(bh, tq, d, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(kvh, tk, d, generator=gen, device="cuda"
+                            ).bfloat16() for _ in range(2))
+        want = ref.flash_attention_plain(q, k, v, causal, w)
+        with entry_as(ops, fns[("flash_d128", "change")]):
+            mine = ops.flash_attention(q, k, v, causal, w)
+        row = {}
+        for i, nm in enumerate(order):
+            with entry_as(ops, fns[("flash_d128", nm)]):
+                got = ops.flash_attention(q, k, v, causal, w)
+                if nm in DIAGNOSTIC:      # timed only
+                    whole = worst = None
+                else:
+                    whole, worst = cs.check_rows(
+                        torch, f"flash {nm} {label}", got, want)
+                    if not torch.equal(got, ops.flash_attention(
+                            q, k, v, causal, w)):
+                        cs.fail(f"flash {nm} {label}: two launches differ")
+                ms = cs.median_ms(torch, lambda: ops.flash_attention(
+                    q, k, v, causal, w))
+            row[nm if i < len(order) - 1 else "change_again"] = {
+                "ms": ms, "rel_l2_whole": whole, "rel_l2_worst_row": worst,
+                "equal_to_change": bool(torch.equal(got, mine))}
+            del got
+        lib, how = cs.sdpa_yardstick(torch, q, k, v, w, causal)
+        row["sdpa"] = {"ms": cs.median_ms(torch, lib), "how": how}
+        b_ms, b_by = cs.flash_bound(bh, tq, tk, d, causal, 2,
+                                    cs.PEAK_BF16_FLOP_S, kv_heads=kvh,
+                                    window=w)
+        row["bound_ms"] = b_ms
+        if label in FLASH_D128_PROBED:
+            for nm in ("d128_probe", "parent_probe"):
+                if ("flash_d128", nm) not in fns:
+                    continue
+                probe_clear(build, nm)
+                with entry_as(ops, fns[("flash_d128", nm)]):
+                    ops.flash_attention(q, k, v, causal, w)
+                torch.cuda.synchronize()
+                row[f"{nm}_shares"] = sh = probe_shares(
+                    probe_read(build, nm), nm)
+                if nm == "d128_probe":
+                    sh["grid"] = grid_shares(probe_cta_read(build, nm))
+                log(f"flash {nm} {label}: " + "; ".join(
+                    f"{part} " + ", ".join(f"{n} {x:.4g}"
+                                           for n, x in val.items())
+                    if isinstance(val, dict) else f"{part} {val:.4g}"
+                    for part, val in sh.items()))
+        out[label] = row
+        del q, k, v, want, mine
+        torch.cuda.empty_cache()
+        log(f"flash d<=128 {label} (BH={bh} over {kvh}, Tq={tq}, Tk={tk}, "
+            f"d={d}, causal={causal}, window {w}) ms: " + ", ".join(
+                f"{nm} {r['ms']:.4f}" + ("" if r.get("equal_to_change", True)
+                                         else " (bits differ)")
+                for nm, r in row.items() if isinstance(r, dict)
+                and "ms" in r)
+            + f" (SDPA {how}); bound {b_ms:.4f} ({b_by})")
+    return out
+
+
 def fl_widest_slice(torch):
     """cols / mask of the widest ELL slice of full-scale Flickr at the
     engine's default geometry (n1 = 4096, n2 = 128)."""
@@ -1225,7 +1790,7 @@ def main() -> int:
     phases = {"gemm": gemm_phase, "gemm_bf16": gemm_bf16_phase,
               "sddmm": sddmm_phase, "flash_attention": flash_phase,
               "flash_wide": flash_wide_phase, "flash_f32": flash_f32_phase,
-              "spdmm": spdmm_phase}
+              "flash_d128": flash_d128_phase, "spdmm": spdmm_phase}
     result = {"card": card,
               "variants": {k: {n: d for n, (d, _) in v.items()}
                            for k, v in VARIANTS.items() if k in kernels}}

@@ -57,56 +57,57 @@
 // masked key: the causal diagonal, the window's lower edge, the ragged end
 // of Tk.  A window needs Tq <= Tk, so every row sees at least its own key
 // and no row is empty.  Every sum runs in one fixed order with no atomics,
-// so results are deterministic.  Seven bodies (`flash_body` picks one):
-//  * bf16 inputs, d <= 128: tensor cores through wgmma, Hopper's
-//    warpgroup MMA.  A CTA owns 128 query rows, 64 per consumer warpgroup
-//    (K and V are read from L2 once per 128 rows), and one producer warp.
-//    The producer fills a ring of two shared-memory stages, each 128 keys
-//    of K and V, ahead of the math with TMA (one thread; the hardware
-//    writes the 128-byte swizzle and zero-fills past Tq, Tk, d and dv) and
-//    signals each stage on a `full` mbarrier; every consumer warp releases
-//    a stage on an `empty` mbarrier once its products have read it.  No
-//    CTA-wide barrier follows the start, so two warpgroups drift apart and
-//    one's softmax overlaps the other's products.  Q, K and V lie in shared
-//    memory as 64-column panels of 128-byte rows whose 16-byte chunks are
-//    XORed by row % 8 (wgmma's 128-byte swizzle).  S = Q.K^T is wgmma
-//    m64n128k16 with both operands from shared memory (K-major); its fp32
-//    accumulators are, per warp, the m16n8k16 A fragments of P.V, so P is
-//    rounded to bf16 in registers (as the JAX kernel rounds it) and O +=
-//    P.V is wgmma m64n{64,128}k16 with A from registers and V read in its
-//    natural [keys, dv] layout through the transpose bit (MN-major).  Max,
-//    sum and rescaling run in fp32, the max on the raw scores with the
-//    scale folded into the exponent's fma.  Q 32 KB plus two 64 KB K+V
-//    stages (160 KB; 16 KB and 2 x 32 KB at d <= 64, the staged width being
-//    at least one 64-column panel), 9 warps.  TMA loads only the panels
-//    that hold a column below d (dv for V); the others are zeroed once at
-//    the start, so every k-step runs without a branch between the wgmma of
-//    a stage.  Tensors TMA cannot take (d or dv not a multiple of 8, a base
-//    not 16-byte aligned) are staged by the producer warp with plain loads
-//    into the same layout.
-//  * bf16 inputs, 128 < d <= 256 (gemma3: 240 and 168; MLA: 192 with dv
-//    128): warp-specialised, three warpgroups.  Two consumer warpgroups of
-//    64 query rows (128 a CTA, so K and V are read once per 128 rows) and
-//    one producer warpgroup, whose one elected thread issues TMA for Q and
-//    two rings, K and V apart.  The producer lowers its registers to 40
-//    with `setmaxnreg` and the consumers raise theirs to 232, so a
-//    consumer thread holds O (dv-wide: up to 128 fp32), S (32 or 64) and P
-//    without spilling; the roles part in one if / else that never
+// so results are deterministic.  Seven bodies by `flash_body`'s code; codes
+// 3 and 4 are one kernel at two sets of instantiations:
+//  * bf16 inputs, d <= 256 (code 3 up to d = 128, 4 past it):
+//    warp-specialised.  What bounds it on an H100 is the tensor cores and,
+//    beside them, the softmax: a 128 x 128 tile of scores takes 16,384
+//    exponentials, 1,024 clocks of an SM's 16 SFU lanes, as long as its
+//    two products take on the tensor cores at d = 64 (half as long at d =
+//    128), and the max, sums and packing besides.  A warpgroup that runs
+//    a tile in series leaves the tensor cores idle through its softmax,
+//    so the design keeps other warpgroups' products running meanwhile.
+//    Consumer warpgroups own 64 query rows each: two (128 rows a CTA, so
+//    K and V are read once per 128 rows), or three at DQK = 64, where a
+//    thread's O, S and P fit the 160 registers three leave it and a third
+//    warpgroup covers the longer softmax against the shorter products.  A
+//    producer warpgroup, whose one elected thread issues TMA (the
+//    hardware writes the 128-byte swizzle and zero-fills past Tq, Tk, d
+//    and dv), fills Q once and a K ring and a V ring of two slots each.
+//    The producer lowers its registers with `setmaxnreg` (to 40 of 168,
+//    24 of 128 at three) and the consumers raise theirs (232, 160), so a
+//    consumer thread holds O (dv-wide: up to 128 fp32), S (up to 64) and
+//    P without spilling; the roles part in one if / else that never
 //    rejoins, as `setmaxnreg` needs.  The consumers take turns at the
-//    tensor cores on two named barriers (ping-pong): a turn issues this
-//    tile's Q.K^T and the last tile's P.V, then hands over, so one
-//    warpgroup's softmax runs while the other's products, and its own
-//    P.V, do.  A K slot is released when its Q.K^T has completed, a V slot
-//    one turn later, when its P.V has; each ring has two slots, so the next tile's K loads
-//    while this one's is still read.  Instantiations by DQK (192 for d <=
-//    192, else 256: Q.K^T runs DQK / 16 k-steps) and DV (P.V's width:
-//    128 for dv <= 128, else DQK), with 128-key tiles where two slots of
-//    K and of V fit beside Q in 227 KB (DQK 192 / DV 128: Q 48 KB, a K
-//    slot 48, a V slot 32; 208 KB) and 64-key tiles elsewhere.  CTAs take
-//    the query heads in groups of 8, each group's query tiles heaviest
-//    first, so the CTAs on the card at once share the K and V of a few
-//    heads through L2.  Tensors TMA cannot take are staged by the producer
-//    warpgroup's four warps.
+//    tensor cores on named barriers (ping-pong): a turn issues this
+//    tile's Q.K^T and the last tile's P.V as two wgmma groups, then hands
+//    over, and the softmax runs while the other warpgroups' products do
+//    (ptxas waits for the warpgroup's own P.V before its softmax: see
+//    ws_consume).  A K slot is released when its Q.K^T has completed, a V
+//    slot when its P.V has.  Q, K and V lie in shared memory as 64-column
+//    panels of 128-byte rows whose 16-byte chunks are XORed by row % 8
+//    (wgmma's 128-byte swizzle).  S = Q.K^T is wgmma m64n{BK}k16 with both
+//    operands from shared memory (K-major); its fp32 accumulators are, per
+//    warp, the m16n8k16 A fragments of P.V, so P is rounded to bf16 in
+//    registers (as the JAX kernel rounds it) and O = O * alpha + P.V is
+//    wgmma m64n{DV}k16 with A from registers and V read in its natural
+//    [keys, dv] layout through the transpose bit (MN-major).  Max, sum and
+//    rescaling run in fp32, the max on the raw scores with the scale
+//    folded into the exponent's fma.  Instantiations by DQK, the first of
+//    64, 128, 192 and 256 to hold d (Q.K^T runs DQK / 16 k-steps; the
+//    columns past d are zero and add exact zeros), and DV (DQK, but 128
+//    for dv <= 128 past d = 128; V panels past dv are zeroed once), with
+//    128-key tiles where two slots of K and of V fit beside Q (DQK 64 /
+//    128: Q 24 / 32 KB and 64 / 128 KB of ring, 88 / 160 KB; DQK 192 / DV
+//    128: Q 48 KB, a K slot 48, a V slot 32; 208 KB) and 64-key tiles
+//    elsewhere.  CTAs take the query heads in groups of 8, each group's
+//    query tiles heaviest first, so the CTAs on the card at once share the
+//    K and V of a few heads through L2; where the K and V of all heads take
+//    at most 16 MB, heads run fastest over all of them instead (query
+//    tiles heaviest first over the grid: a causal grid's tail is
+//    shorter).  Tensors TMA cannot take (d or dv not a multiple of 8, a
+//    base not 16-byte aligned) are staged by the producer warpgroup's four
+//    warps with plain loads into the same layout.
 //  * fp32 inputs, d <= 256: CUDA cores, IEEE fp32 throughout (no TF32;
 //    the fp32 parities hold it to 2e-5).  What bounds a CUDA-core body is
 //    the shared memory a lane reads per FMA (an LDS.128 hands 16 bytes to
@@ -777,31 +778,8 @@ flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------------------ //
-// bf16, d <= 128: tensor cores through wgmma, K/V ring filled by TMA.
+// bf16: wgmma, TMA and mbarrier helpers of the tensor-core bodies.
 // ------------------------------------------------------------------------ //
-constexpr int WG_STAGES = 2;     // K/V ring depth
-
-template <int DP>
-struct WgSmem {
-  static_assert(DP <= 128, "past d = 128 the warp-specialised body runs");
-  static constexpr int PN = DP < 64 ? 64 : DP;  // staged width, whole panels
-  static constexpr int NP = PN / 64;            // 64-column panels
-  static constexpr int BK = 128;                // keys per K/V stage
-  // Consumer warpgroups of 64 query rows each; the producer is one warp.
-  static constexpr int NWG = 2;
-  static constexpr int BQ = 64 * NWG;           // query rows per CTA
-  static constexpr int CONSUMERS = 128 * NWG;   // consumer threads
-  static constexpr int THREADS = CONSUMERS + 32;
-  static constexpr int Q_PANEL = BQ * 128;      // bytes: BQ rows of 128 B
-  static constexpr int KV_PANEL = BK * 128;     // bytes: BK rows of 128 B
-  static constexpr int Q_BYTES = NP * Q_PANEL;
-  static constexpr int STAGE = 2 * NP * KV_PANEL;  // K panels, then V panels
-  static constexpr int BARS = Q_BYTES + WG_STAGES * STAGE;  // mbarriers
-  // Barriers: full[STAGES], empty[STAGES], Q; + 1 KB to align the base to
-  // the 1 KB swizzle period.
-  static constexpr int BYTES = BARS + 8 * (2 * WG_STAGES + 1) + 1024;
-};
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -1154,29 +1132,6 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
         "r"(scale_d));
 }
 
-// The producer warp's fallback when TMA cannot take the tensors (d not a
-// multiple of 8, or a base not 16-byte aligned): rows [r0, r0 + ROWS) x
-// [0, PN) of a [n_rows, d] bf16 matrix, zero padded, by plain loads into
-// the same swizzled panels (`panel` bytes each) that TMA writes.
-template <int DP, int ROWS>
-__device__ __forceinline__ void stage_tile_warp(uint8_t* dst,
-                                                const __nv_bfloat16* src,
-                                                int r0, int n_rows, int d,
-                                                int panel, int lane) {
-  constexpr int CPR = WgSmem<DP>::PN / 8;     // 16-byte chunks per row
-  for (int e = lane; e < ROWS * CPR; e += 32) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    const int gr = r0 + r;
-    __align__(16) __nv_bfloat16 h[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      h[i] = (gr < n_rows && c + i < d) ? src[(long long)gr * d + c + i]
-                                        : __float2bfloat16(0.0f);
-    *reinterpret_cast<uint4*>(dst + swz(r, c, panel)) =
-        *reinterpret_cast<uint4*>(h);
-  }
-}
-
 template <int BQ_, int BK_>
 __device__ __forceinline__ int wg_kv_tiles(int q0, int tk, int causal) {
   // Keys after the CTA's last query row are masked for every row.
@@ -1184,302 +1139,67 @@ __device__ __forceinline__ int wg_kv_tiles(int q0, int tk, int causal) {
   return (end + BK_ - 1) / BK_;
 }
 
-// Warp 8 fills Q once and the K/V ring ahead of the consumers, over KV
-// tiles kt0 .. n_kt - 1: with TMA (one thread, hardware swizzle, zero fill
-// past Tq / Tk / d / dv; only the panels that hold a column below d, dv
-// for V) or, for tensors TMA cannot take, by the whole warp with plain
-// loads.  Each stage is reused once both warpgroups have released it.
-template <int DP, bool TMA>
-__device__ __forceinline__ void produce(
-    uint8_t* Qs, uint8_t* ring, uint32_t bars, const __nv_bfloat16* qb,
-    const __nv_bfloat16* kb, const __nv_bfloat16* vb, int q0, int tq,
-    int tk, int d, int dv, int kt0, int n_kt, int bh, int bkv,
-    const CUtensorMap* qmap, const CUtensorMap* kmap,
-    const CUtensorMap* vmap) {
-  using L = WgSmem<DP>;
-  const int lane = threadIdx.x & 31;
-  const uint32_t full = bars, empty = bars + 8 * WG_STAGES;
-  const uint32_t qbar = bars + 16 * WG_STAGES;
-  const int np_live = (d + 63) / 64;       // panels holding a column < d
-  const int np_v = (dv + 63) / 64;         // ... and of V, a column < dv
-  if (TMA) {
-    if (lane != 0) return;
-    mbar_expect_tx(qbar, np_live * L::Q_PANEL);
-    for (int p = 0; p < np_live; ++p)
-      tma_load_3d(smem_u32(Qs + p * L::Q_PANEL), qmap, qbar, 64 * p, q0, bh);
-  } else {
-    stage_tile_warp<DP, L::BQ>(Qs, qb, q0, tq, d, L::Q_PANEL, lane);
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(qbar);
-  }
-  for (int kt = kt0; kt < n_kt; ++kt) {
-    const int step = kt - kt0;
-    const int st = step % WG_STAGES;
-    // Step `step - STAGES` used this stage: wait for its release.
-    if (step >= WG_STAGES)
-      mbar_wait(empty + 8 * st, ((step / WG_STAGES) & 1) ^ 1);
-    uint8_t* ks = ring + st * L::STAGE;
-    uint8_t* vs = ks + L::NP * L::KV_PANEL;
-    const int k0 = kt * L::BK;
-    if (TMA) {
-      mbar_expect_tx(full + 8 * st, (np_live + np_v) * L::KV_PANEL);
-      for (int p = 0; p < np_live; ++p) {
-        tma_load_3d(smem_u32(ks + p * L::KV_PANEL), kmap, full + 8 * st,
-                    64 * p, k0, bkv);
-        if (p < np_v)
-          tma_load_3d(smem_u32(vs + p * L::KV_PANEL), vmap, full + 8 * st,
-                      64 * p, k0, bkv);
-      }
-    } else {
-      stage_tile_warp<DP, L::BK>(ks, kb, k0, tk, d, L::KV_PANEL, lane);
-      stage_tile_warp<DP, L::BK>(vs, vb, k0, tk, dv, L::KV_PANEL, lane);
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(full + 8 * st);
-    }
-  }
-}
-
-template <int DP, bool TMA, typename OutT>
-__global__ void __launch_bounds__(WgSmem<DP>::THREADS, 1)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  OutT* __restrict__ out, int tq, int tk, int d, int dv,
-                  int causal, int window, int group, float scale,
-                  const __grid_constant__ CUtensorMap qmap,
-                  const __grid_constant__ CUtensorMap kmap,
-                  const __grid_constant__ CUtensorMap vmap) {
-  using L = WgSmem<DP>;
-  constexpr int KS = DP / 16;              // k-steps of Q.K^T
-  constexpr int BK = L::BK;                // keys per stage
-  constexpr int ON = L::PN / 2;            // O accumulators per thread
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* Qs = smem;                      // [NP][128 rows][128 B]
-  uint8_t* ring = smem + L::Q_BYTES;       // stage s: K at s * STAGE, V after
-  const uint32_t bars = smem_u32(smem + L::BARS);
-  const uint32_t full = bars, empty = bars + 8 * WG_STAGES;
-  const uint32_t qbar = bars + 16 * WG_STAGES;
-
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BQ;
-  const int bh = blockIdx.x;
-  const int bkv = bh / group;              // grouped KV heads: bh / G
-  const int kt0 = kv_tile_begin(q0, window, BK);
-  const int n_kt = wg_kv_tiles<L::BQ, BK>(q0, tk, causal);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);          // the producer's arrival (+ bytes)
-      mbar_init(empty + 8 * s, 4 * L::NWG);  // one per consumer warp
-    }
-    mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  // Panels past d's last 64-column panel (dv's for V) are never loaded
-  // (TMA fetches the live ones): zero them once, so Q.K^T adds 0 there and
-  // P.V fills O's unstored columns with 0.
-  const int np_live = (d + 63) / 64, np_v = (dv + 63) / 64;
-  for (int p = np_v; p < L::NP; ++p) {
-    const int chunks = L::Q_PANEL / 16, kv_chunks = L::KV_PANEL / 16;
-    if (p >= np_live)
-      for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-        reinterpret_cast<uint4*>(Qs + p * L::Q_PANEL)[c] =
-            make_uint4(0, 0, 0, 0);
-    for (int st = 0; st < WG_STAGES; ++st)
-      for (int kv = p >= np_live ? 0 : 1; kv < 2; ++kv) {
-        uint8_t* pan = ring + st * L::STAGE + (kv * L::NP + p) * L::KV_PANEL;
-        for (int c = threadIdx.x; c < kv_chunks; c += blockDim.x)
-          reinterpret_cast<uint4*>(pan)[c] = make_uint4(0, 0, 0, 0);
-      }
-  }
-  fence_proxy_async();
-  __syncthreads();   // the last CTA-wide barrier: the roles part here
-
-  if (threadIdx.x >= L::CONSUMERS) {
-    produce<DP, TMA>(Qs, ring, bars, q + (long long)bh * tq * d,
-                     k + (long long)bkv * tk * d,
-                     v + (long long)bkv * tk * dv, q0, tq, tk, d, dv, kt0,
-                     n_kt, bh, bkv, &qmap, &kmap, &vmap);
-    return;
-  }
-
-  const int wg = threadIdx.x >> 7;
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wq0 = q0 + 64 * wg;            // this warpgroup's first row
-  const int row_lo = wq0 + 16 * warp + g, row_hi = row_lo + 8;
-  const float sl2 = scale * LOG2E;         // scores in the exp2 domain
-  float o[ON];
-#pragma unroll
-  for (int i = 0; i < ON; ++i) o[i] = 0.0f;
-  float m_lo = NEG, m_hi = NEG, l_lo = 0.0f, l_hi = 0.0f;
-  const uint32_t q_s = smem_u32(Qs) + wg * 64 * 128;
-  mbar_wait(qbar, 0);
-
-  for (int kt = kt0; kt < n_kt; ++kt) {
-    const int step = kt - kt0;
-    const int st = step % WG_STAGES;
-    const int k0 = kt * BK;
-    mbar_wait(full + 8 * st, (step / WG_STAGES) & 1);
-    const uint32_t k_s = smem_u32(ring + st * L::STAGE);
-    const uint32_t v_s = k_s + L::NP * L::KV_PANEL;
-
-    // S = Q.K^T: 64 rows x BK keys, fp32.
-    float s[BK / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const uint32_t koff = (ks & 3) * 32;   // 16 columns = 32 B
-      const uint64_t da = gmma_desc(q_s + (ks >> 2) * L::Q_PANEL + koff, 16,
-                                    1024);
-      const uint64_t db = gmma_desc(k_s + (ks >> 2) * L::KV_PANEL + koff, 16,
-                                    1024);
-      wgmma_ss_n128(s, da, db, ks > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-
-    // Mask where a key of the tile is masked for a row of this warpgroup
-    // (past its first row's diagonal, at or below its last row's window
-    // edge, past Tk); s[4i + e] is row row_lo (e < 2) or row_hi, key
-    // k0 + 8i + 2 t4 + (e & 1).  A row with no key left in the tile keeps
-    // its max and adds 0.  The max is taken on the raw scores (the scale
-    // is positive) and the scale folded into the exponent's fma.
-    const bool masked = (causal && k0 + BK - 1 > wq0) || k0 + BK > tk ||
-                        (window > 0 && wq0 + 63 - k0 >= window);
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {
-      if (masked) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + 8 * i + 2 * t4 + (e & 1);
-          const int qpos = e < 2 ? row_lo : row_hi;
-          if (kpos >= tk || (causal && kpos > qpos) ||
-              (window > 0 && qpos - kpos >= window))
-            s[4 * i + e] = -INFINITY;
-        }
-      }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * i + 2], s[4 * i + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(FULL, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(FULL, mx_hi, off));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo * sl2);
-    const float mn_hi = fmaxf(m_hi, mx_hi * sl2);
-    const float a_lo = ex2(m_lo - mn_lo), a_hi = ex2(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float rs_lo = 0.0f, rs_hi = 0.0f;   // this thread's part of the row sum
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {
-      s[4 * i] = ex2(fmaf(s[4 * i], sl2, -mn_lo));   // masked: ex2(-inf) = 0
-      s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], sl2, -mn_lo));
-      s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], sl2, -mn_hi));
-      s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], sl2, -mn_hi));
-      rs_lo += s[4 * i] + s[4 * i + 1];
-      rs_hi += s[4 * i + 2] + s[4 * i + 3];
-    }
-    l_lo = l_lo * a_lo + rs_lo;
-    l_hi = l_hi * a_hi + rs_hi;
-#pragma unroll
-    for (int i = 0; i < ON / 4; ++i) {
-      o[4 * i] *= a_lo;
-      o[4 * i + 1] *= a_lo;
-      o[4 * i + 2] *= a_hi;
-      o[4 * i + 3] *= a_hi;
-    }
-
-    // O += P.V: the S accumulators of keys 16 kc .. 16 kc + 15 are the A
-    // fragment of k-step kc.
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
-      pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
-      pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
-      pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint64_t vd = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, 1024);
-      if constexpr (L::PN == 128)
-        wgmma_rs_n128(o, pa[kc], vd, 1);
-      else
-        wgmma_rs_n64(o, pa[kc], vd, 1);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o);
-    __syncwarp();                          // the stage is read: release it
-    if (lane == 0) mbar_arrive(empty + 8 * st);
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(FULL, l_lo, off);
-    l_hi += __shfl_xor_sync(FULL, l_hi, off);
-  }
-  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
-  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
-  OutT* ob = out + (long long)bh * tq * dv;
-#pragma unroll
-  for (int i = 0; i < ON / 4; ++i) {
-    const int c = 8 * i + 2 * t4;
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int r = hi ? row_hi : row_lo;
-      const float inv = hi ? inv_hi : inv_lo;
-      if (r >= tq) continue;
-      store_pair(ob + (long long)r * dv + c, c, dv,
-                 o[4 * i + 2 * hi] * inv, o[4 * i + 2 * hi + 1] * inv);
-    }
-  }
-}
-
 // ------------------------------------------------------------------------ //
-// bf16, 128 < d <= 256: warp-specialised, two consumer warpgroups.
+// bf16, d <= 256: warp-specialised, two or three consumer warpgroups.
 // ------------------------------------------------------------------------ //
-// Registers a thread after the roles part (setmaxnreg): the launch gives
-// 168 to each of 384 threads; the producer warpgroup hands 128 of them
-// back, the two consumer warpgroups take 64 more: 40 x 128 + 232 x 256 =
-// 168 x 384.
+// Registers a thread after the roles part (setmaxnreg) with two consumer
+// warpgroups: the launch gives 168 to each of 384 threads; the producer
+// warpgroup hands 128 of them back, the two consumer warpgroups take 64
+// more: 40 x 128 + 232 x 256 = 168 x 384.
 constexpr int WS_PRODUCER_REGS = 40;
 constexpr int WS_CONSUMER_REGS = 232;
-constexpr int WS_BQ = 128;               // query rows a CTA
+// Consumer warpgroups at DQK = 64: three (192 query rows a CTA), since a
+// thread's O, S and P there fit the 160 registers three leave it.
+constexpr int WS_NWG_DQK64 = 3;
 // CTAs walk the query heads in groups of 8, a group's query tiles
 // heaviest first and its heads fastest, so the CTAs of a wave share the K
 // and V of a few heads through L2 (heads fastest over all BH would give
-// each CTA of a wave a head of its own, re-read from device memory).
+// each CTA of a wave a head of its own, re-read from device memory).  The
+// warp-specialised body runs heads fastest over all BH (the query tiles
+// heaviest first over the whole grid, which balances a causal grid's
+// tail) where the K and V of all heads take at most a third of the 50 MB
+// L2.
 constexpr int WS_HEAD_GROUP = 8;
+constexpr long long WS_ALL_HEADS_KV_BYTES = 16ll << 20;
 constexpr int WS_CONSUMERS = 256;        // two consumer warpgroups
 constexpr int WS_THREADS = WS_CONSUMERS + 128;
 
 template <int DQK, int DV>
 struct WsSmem {
-  static_assert(DQK == 192 || DQK == 256, "DQK is 192 or 256");
-  static_assert(DV == 128 || DV == DQK, "DV is 128 or DQK");
+  static_assert(DQK == 64 || DQK == 128 || DQK == 192 || DQK == 256,
+                "DQK is 64, 128, 192 or 256");
+  static_assert(DV == DQK || (DV == 128 && DQK > 128),
+                "DV is DQK, or 128 past DQK = 128");
   static constexpr int NQ = DQK / 64;           // Q / K panels
   static constexpr int NV = DV / 64;            // V panels
   static constexpr int KS = DQK / 16;           // k-steps of Q.K^T
+  // Consumer warpgroups of 64 query rows, and the launch's threads.
+  static constexpr int NWG = DQK == 64 ? WS_NWG_DQK64 : 2;
+  static constexpr int BQ = 64 * NWG;           // query rows a CTA
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int THREADS = CONSUMERS + 128;
+  // setmaxnreg: the launch gives 65536 / THREADS registers a thread; the
+  // producer keeps 40 of 168 at two consumer warpgroups, 24 of 128 at
+  // three (24 x 128 + 160 x 384 = 64,512), the consumers the rest.
+  static constexpr int PRODUCER_REGS = NWG == 2 ? WS_PRODUCER_REGS : 24;
+  static constexpr int CONSUMER_REGS = NWG == 2 ? WS_CONSUMER_REGS : 160;
   // Keys per K / V slot: 128 where two slots of each fit beside Q.
   static constexpr int BK = DQK + DV <= 320 ? 128 : 64;
-  static constexpr int Q_PANEL = WS_BQ * 128;   // bytes: 128 rows of 128 B
+  static constexpr int SLOTS = 2;               // slots of the K and V rings
+  static constexpr int Q_PANEL = BQ * 128;      // bytes: BQ rows of 128 B
   static constexpr int KV_PANEL = BK * 128;     // bytes: BK rows of 128 B
   static constexpr int K_SLOT = NQ * KV_PANEL;
   static constexpr int V_SLOT = NV * KV_PANEL;
-  static constexpr int K_OFF = NQ * Q_PANEL;    // Q, two K slots, two V
-  static constexpr int V_OFF = K_OFF + 2 * K_SLOT;
-  static constexpr int BARS = V_OFF + 2 * V_SLOT;
-  // Barriers: full K[2], full V[2], empty K[2], empty V[2], Q; + 1 KB to
-  // align the base to the 1 KB swizzle period.
-  static constexpr int BYTES = BARS + 8 * 9 + 1024;
+  static constexpr int K_OFF = NQ * Q_PANEL;    // Q, the K slots, the V's
+  static constexpr int V_OFF = K_OFF + SLOTS * K_SLOT;
+  static constexpr int BARS = V_OFF + SLOTS * V_SLOT;
+  // Barriers (8 bytes each, from BARS): full K[SLOTS], full V[SLOTS],
+  // empty K[SLOTS], empty V[SLOTS], Q; + 1 KB to align the base to the
+  // 1 KB swizzle period.
+  static constexpr int FULL_K = 0, FULL_V = 8 * SLOTS;
+  static constexpr int EMPTY_K = 16 * SLOTS, EMPTY_V = 24 * SLOTS;
+  static constexpr int Q_BAR = 32 * SLOTS;
+  static constexpr int BYTES = BARS + Q_BAR + 8 + 1024;
   static_assert(BYTES <= 232448, "227 KB of shared memory a block");
 };
 
@@ -1491,8 +1211,9 @@ template <int R>
 __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
-// Named barriers 1 and 2 (0 is __syncthreads'), over the 256 consumer
-// threads: a warpgroup waits on its own and arrives on the other's.
+// Named barriers 1 .. NWG (0 is __syncthreads'), each over 256 threads:
+// consumer warpgroup w waits on barrier 1 + w, and the warpgroup before it
+// in turn arrives on it.
 __device__ __forceinline__ void turn_wait(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WS_CONSUMERS) : "memory");
 }
@@ -1525,7 +1246,7 @@ __device__ __forceinline__ void ws_stage(uint8_t* dst,
 }
 
 // The producer warpgroup: Q once, then K and V of tiles kt0 .. n_kt - 1
-// into their two-slot rings.  With TMA one thread issues every copy (the
+// into their rings (tile step s in slot s % SLOTS).  With TMA one thread issues every copy (the
 // hardware zero-fills past Tq, Tk, d and dv; V only in the panels that
 // hold a column below dv); otherwise the four warps stage with plain
 // loads and each arrives on the barrier it filled.  A K slot is refilled
@@ -1539,10 +1260,11 @@ __device__ __forceinline__ void ws_produce(
     const CUtensorMap* qmap, const CUtensorMap* kmap,
     const CUtensorMap* vmap) {
   using L = WsSmem<DQK, DV>;
-  const int pt = threadIdx.x - WS_CONSUMERS, lane = threadIdx.x & 31;
-  const uint32_t full_k = bars, full_v = bars + 16;
-  const uint32_t empty_k = bars + 32, empty_v = bars + 48;
-  const uint32_t qbar = bars + 64;
+  constexpr int SL = L::SLOTS;
+  const int pt = threadIdx.x - L::CONSUMERS, lane = threadIdx.x & 31;
+  const uint32_t full_k = bars + L::FULL_K, full_v = bars + L::FULL_V;
+  const uint32_t empty_k = bars + L::EMPTY_K, empty_v = bars + L::EMPTY_V;
+  const uint32_t qbar = bars + L::Q_BAR;
   const int np_v = (dv + 63) / 64;
   if (tma) {
     if (pt != 0) return;
@@ -1551,18 +1273,18 @@ __device__ __forceinline__ void ws_produce(
       tma_load_3d(smem_u32(smem + p * L::Q_PANEL), qmap, qbar, 64 * p, q0,
                   bh);
   } else {
-    ws_stage<WS_BQ>(smem, qb, q0, tq, d, L::NQ, L::Q_PANEL, pt);
+    ws_stage<L::BQ>(smem, qb, q0, tq, d, L::NQ, L::Q_PANEL, pt);
     fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(qbar);
   }
   for (int kt = kt0; kt < n_kt; ++kt) {
-    const int step = kt - kt0, slot = step & 1;
+    const int step = kt - kt0, slot = step % SL, fill = step / SL;
     const int k0 = kt * L::BK;
     uint8_t* ks = smem + L::K_OFF + slot * L::K_SLOT;
     uint8_t* vs = smem + L::V_OFF + slot * L::V_SLOT;
-    // Tile step - 2 used these slots: wait for their release.
-    if (step >= 2) mbar_wait(empty_k + 8 * slot, ((step >> 1) & 1) ^ 1);
+    // Tile step - SLOTS used these slots: wait for their release.
+    if (fill > 0) mbar_wait(empty_k + 8 * slot, (fill & 1) ^ 1);
     if (tma) {
       mbar_expect_tx(full_k + 8 * slot, L::K_SLOT);
       for (int p = 0; p < L::NQ; ++p)
@@ -1574,7 +1296,7 @@ __device__ __forceinline__ void ws_produce(
       __syncwarp();
       if (lane == 0) mbar_arrive(full_k + 8 * slot);
     }
-    if (step >= 2) mbar_wait(empty_v + 8 * slot, ((step >> 1) & 1) ^ 1);
+    if (fill > 0) mbar_wait(empty_v + 8 * slot, (fill & 1) ^ 1);
     if (tma) {
       mbar_expect_tx(full_v + 8 * slot, np_v * L::KV_PANEL);
       for (int p = 0; p < np_v; ++p)
@@ -1622,8 +1344,10 @@ __device__ __forceinline__ void ws_pv(
       wgmma_rs_n256(o, pa[kc], vd, 1);
     else if constexpr (DV == 192)
       wgmma_rs_n192(o, pa[kc], vd, 1);
-    else
+    else if constexpr (DV == 128)
       wgmma_rs_n128(o, pa[kc], vd, 1);
+    else
+      wgmma_rs_n64(o, pa[kc], vd, 1);
   }
 }
 
@@ -1710,22 +1434,28 @@ __device__ __forceinline__ void ws_rescale_pack(const float (&s)[BK / 2],
 
 // A consumer warpgroup: 64 query rows, tiles kt0 .. n_kt - 1.  Turn j
 // (one per tile, then one more) issues Q.K^T of tile j and P.V of tile
-// j - 1 as two wgmma groups and passes the tensor cores to the other
+// j - 1 as two wgmma groups and passes the tensor cores to the next
 // warpgroup; once Q.K^T is done it releases the K slot of j and takes
-// tile j's scores (max, exponentials, sums) while its P.V and the other
-// warpgroup's products run; once P.V is done it releases the V slot of
-// j - 1, rescales O and packs P.  Warpgroup 0 takes the first turn.
+// tile j's scores (max, exponentials, sums); once P.V is done it releases
+// the V slot of j - 1, rescales O and packs P.  Warpgroup 0 takes the
+// first turn, then 1, ..., NWG - 1, 0, ...  The source takes the scores
+// while P.V runs, but ptxas places the wait for P.V at the head of the
+// softmax (to interleave the packing of P, which overwrites the registers
+// P.V reads, with the exponentials), so a warpgroup's softmax overlaps
+// the other warpgroups' products, not its own P.V; a second P buffer, or
+// waiting a turn later, measured slower (PERF.md).
 template <int DQK, int DV>
 __device__ __forceinline__ void ws_consume(
     uint8_t* smem, uint32_t bars, void* out, bool out_bf16, int q0, int tq,
     int tk, int dv, int causal, int window, float scale, int kt0, int n_kt,
     int bh) {
   using L = WsSmem<DQK, DV>;
-  constexpr int BK = L::BK;
-  const uint32_t full_k = bars, full_v = bars + 16;
-  const uint32_t empty_k = bars + 32, empty_v = bars + 48;
-  const uint32_t qbar = bars + 64;
+  constexpr int BK = L::BK, SL = L::SLOTS, NWG = L::NWG;
+  const uint32_t full_k = bars + L::FULL_K, full_v = bars + L::FULL_V;
+  const uint32_t empty_k = bars + L::EMPTY_K, empty_v = bars + L::EMPTY_V;
+  const uint32_t qbar = bars + L::Q_BAR;
   const int wg = threadIdx.x >> 7;
+  const int next = 1 + (wg + 1) % NWG;     // the next warpgroup's barrier
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int wq0 = q0 + 64 * wg;            // this warpgroup's first row
@@ -1742,7 +1472,7 @@ __device__ __forceinline__ void ws_consume(
   uint32_t pa[BK / 16][4];
   mbar_wait(qbar, 0);
   if (kt0 < n_kt) {                        // else every row stores 0
-    if (wg == 1) turn_pass(1);
+    if (wg == NWG - 1) turn_pass(1);
 
     // Turn 0: Q.K^T of the first tile.
     mbar_wait(full_k, 0);
@@ -1750,7 +1480,7 @@ __device__ __forceinline__ void ws_consume(
     wgmma_fence();
     ws_qk<DQK, DV>(s, q_s, k_s);
     wgmma_commit();
-    turn_pass(2 - wg);
+    turn_pass(next);
     wgmma_wait_all();
     fence_regs(s);
     __syncwarp();
@@ -1761,16 +1491,16 @@ __device__ __forceinline__ void ws_consume(
     ws_rescale_pack<BK, DV / 2>(s, o, pa, a_lo, a_hi);
 
     for (int kt = kt0 + 1; kt < n_kt; ++kt) {
-      const int step = kt - kt0, slot = step & 1, prev = slot ^ 1;
-      mbar_wait(full_k + 8 * slot, (step >> 1) & 1);
-      mbar_wait(full_v + 8 * prev, ((step - 1) >> 1) & 1);
+      const int step = kt - kt0, slot = step % SL, prev = (step - 1) % SL;
+      mbar_wait(full_k + 8 * slot, (step / SL) & 1);
+      mbar_wait(full_v + 8 * prev, ((step - 1) / SL) & 1);
       turn_wait(1 + wg);
       wgmma_fence();
       ws_qk<DQK, DV>(s, q_s, k_s + slot * L::K_SLOT);
       wgmma_commit();
       ws_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);
       wgmma_commit();
-      turn_pass(2 - wg);
+      turn_pass(next);
       wgmma_wait_one();                  // Q.K^T done, P.V in flight
       fence_regs(s);
       __syncwarp();
@@ -1784,15 +1514,16 @@ __device__ __forceinline__ void ws_consume(
       ws_rescale_pack<BK, DV / 2>(s, o, pa, a_lo, a_hi);
     }
 
-    // The last turn: P.V of the last tile.  Warpgroup 1 passes no turn on
-    // (warpgroup 0 takes none after it), so every barrier phase completes.
+    // The last turn: P.V of the last tile.  The last warpgroup passes no
+    // turn on (warpgroup 0 takes none after it), so every barrier phase
+    // completes.
     const int last = n_kt - 1 - kt0;
-    mbar_wait(full_v + 8 * (last & 1), (last >> 1) & 1);
+    mbar_wait(full_v + 8 * (last % SL), (last / SL) & 1);
     turn_wait(1 + wg);
     wgmma_fence();
-    ws_pv<DQK, DV>(o, pa, v_s + (last & 1) * L::V_SLOT);
+    ws_pv<DQK, DV>(o, pa, v_s + (last % SL) * L::V_SLOT);
     wgmma_commit();
-    if (wg == 0) turn_pass(2);
+    if (wg != NWG - 1) turn_pass(next);
     wgmma_wait_all();
     fence_regs(o);
   }
@@ -1825,13 +1556,13 @@ __device__ __forceinline__ void ws_consume(
 }
 
 template <int DQK, int DV>
-__global__ void __launch_bounds__(WS_THREADS, 1)
+__global__ void __launch_bounds__(WsSmem<DQK, DV>::THREADS, 1)
 flash_bf16_ws_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, void* out,
                      int out_bf16, int tma, int tq, int tk, int d, int dv,
-                     int causal, int window, int group, float scale,
-                     const __grid_constant__ CUtensorMap qmap,
+                     int causal, int window, int group, int head_group,
+                     float scale, const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap) {
   using L = WsSmem<DQK, DV>;
@@ -1839,46 +1570,49 @@ flash_bf16_ws_kernel(const __nv_bfloat16* __restrict__ q,
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t bars = smem_u32(smem + L::BARS);
   // One CTA per (head, query tile) in a 1-D grid, ordered by head group.
-  const int n_qt = (tq + WS_BQ - 1) / WS_BQ;
-  const int per_group = WS_HEAD_GROUP * n_qt;
-  const int head0 = blockIdx.x / per_group * WS_HEAD_GROUP;
+  const int n_qt = (tq + L::BQ - 1) / L::BQ;
+  const int per_group = head_group * n_qt;
+  const int head0 = blockIdx.x / per_group * head_group;
   const int in_group = blockIdx.x % per_group;
-  const int heads = min(WS_HEAD_GROUP, (int)gridDim.x / n_qt - head0);
+  const int heads = min(head_group, (int)gridDim.x / n_qt - head0);
   const int bh = head0 + in_group % heads;
-  const int q0 = (n_qt - 1 - in_group / heads) * WS_BQ;
+  const int q0 = (n_qt - 1 - in_group / heads) * L::BQ;
   const int bkv = bh / group;              // grouped KV heads: bh / G
   const int kt0 = kv_tile_begin(q0, window, L::BK);
-  const int n_kt = wg_kv_tiles<WS_BQ, L::BK>(q0, tk, causal);
+  const int n_kt = wg_kv_tiles<L::BQ, L::BK>(q0, tk, causal);
   if (threadIdx.x == 0) {
     const int fills = tma ? 1 : 4;         // TMA's one thread, or 4 warps
-    for (int b = 0; b < 4; ++b) mbar_init(bars + 8 * b, fills);  // full
-    for (int b = 4; b < 8; ++b) mbar_init(bars + 8 * b, 8);  // consumer warps
-    mbar_init(bars + 64, fills);           // Q
+    for (int b = 0; b < 2 * L::SLOTS; ++b)  // full K and V
+      mbar_init(bars + 8 * b, fills);
+    for (int b = 2 * L::SLOTS; b < 4 * L::SLOTS; ++b)  // consumer warps
+      mbar_init(bars + 8 * b, 4 * L::NWG);
+    mbar_init(bars + L::Q_BAR, fills);     // Q
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // V panels past dv's last are never loaded: zero them once, so P.V
-  // fills O's unstored columns with 0.  (Q and K have none: d > 128 fills
-  // every panel of DQK.)
+  // fills O's unstored columns with 0.  (Q and K have none: DQK is the
+  // first of 64, 128, 192 and 256 to hold d, so d reaches into every
+  // panel of DQK.)
   const int np_v = (dv + 63) / 64;
   for (int p = np_v; p < L::NV; ++p)
-    for (int slot = 0; slot < 2; ++slot) {
+    for (int slot = 0; slot < L::SLOTS; ++slot) {
       uint4* pan = reinterpret_cast<uint4*>(smem + L::V_OFF +
                                             slot * L::V_SLOT +
                                             p * L::KV_PANEL);
-      for (int c = threadIdx.x; c < L::KV_PANEL / 16; c += WS_THREADS)
+      for (int c = threadIdx.x; c < L::KV_PANEL / 16; c += L::THREADS)
         pan[c] = make_uint4(0, 0, 0, 0);
     }
   fence_proxy_async();
   __syncthreads();   // the last CTA-wide barrier: the roles part here
 
-  if (threadIdx.x >= WS_CONSUMERS) {
-    regs_dec<WS_PRODUCER_REGS>();
+  if (threadIdx.x >= L::CONSUMERS) {
+    regs_dec<L::PRODUCER_REGS>();
     ws_produce<DQK, DV>(smem, bars, tma != 0, q + (long long)bh * tq * d,
                         k + (long long)bkv * tk * d,
                         v + (long long)bkv * tk * dv, q0, tq, tk, d, dv,
                         kt0, n_kt, bh, bkv, &qmap, &kmap, &vmap);
   } else {
-    regs_inc<WS_CONSUMER_REGS>();
+    regs_inc<L::CONSUMER_REGS>();
     ws_consume<DQK, DV>(smem, bars, out, out_bf16 != 0, q0, tq, tk, dv,
                         causal, window, scale, kt0, n_kt, bh);
   }
@@ -2782,33 +2516,7 @@ bool tma_fits(const void* q, const void* k, const void* v, int d, int dv) {
            reinterpret_cast<uintptr_t>(v)) & 15) == 0;
 }
 
-template <int DP, typename OutT>
-int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int bh, int tq, int tk, int d, int dv, int causal,
-                int window, int group, float scale, cudaStream_t stream) {
-  CUtensorMap maps[3];
-  memset(maps, 0, sizeof(maps));
-  const bool tma = tma_fits(q, k, v, d, dv) &&
-                   make_map(&maps[0], q, bh, tq, d, WgSmem<DP>::BQ) &&
-                   make_map(&maps[1], k, bh / group, tk, d, WgSmem<DP>::BK) &&
-                   make_map(&maps[2], v, bh / group, tk, dv, WgSmem<DP>::BK);
-  auto kernel = tma ? flash_bf16_kernel<DP, true, OutT>
-                    : flash_bf16_kernel<DP, false, OutT>;
-  const int smem = WgSmem<DP>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (tq + WgSmem<DP>::BQ - 1) / WgSmem<DP>::BQ);
-  kernel<<<grid, WgSmem<DP>::THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<OutT*>(out), tq, tk, d, dv, causal, window, group,
-      scale, maps[0], maps[1], maps[2]);
-  return (int)cudaGetLastError();
-}
-
-// 128 < d <= 256, bf16: the warp-specialised body at (DQK, DV).
+// bf16, d <= 256: the warp-specialised body at (DQK, DV).
 template <int DQK, int DV>
 int launch_ws(const void* q, const void* k, const void* v, void* out,
               int out_dtype, int bh, int tq, int tk, int d, int dv,
@@ -2818,20 +2526,24 @@ int launch_ws(const void* q, const void* k, const void* v, void* out,
   CUtensorMap maps[3];
   memset(maps, 0, sizeof(maps));
   const bool tma = tma_fits(q, k, v, d, dv) &&
-                   make_map(&maps[0], q, bh, tq, d, WS_BQ) &&
+                   make_map(&maps[0], q, bh, tq, d, L::BQ) &&
                    make_map(&maps[1], k, bh / group, tk, d, L::BK) &&
                    make_map(&maps[2], v, bh / group, tk, dv, L::BK);
   auto kernel = flash_bf16_ws_kernel<DQK, DV>;
-  const long long ctas = (long long)bh * ((tq + WS_BQ - 1) / WS_BQ);
+  const long long ctas = (long long)bh * ((tq + L::BQ - 1) / L::BQ);
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long kv_bytes = 2ll * (bh / group) * tk * (d + dv);
+  const int head_group = kv_bytes <= WS_ALL_HEADS_KV_BYTES ? bh
+                                                           : WS_HEAD_GROUP;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)ctas, WS_THREADS, L::BYTES, stream>>>(
+  kernel<<<(unsigned)ctas, L::THREADS, L::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), out, out_dtype, (int)tma, tq,
-      tk, d, dv, causal, window, group, scale, maps[0], maps[1], maps[2]);
+      tk, d, dv, causal, window, group, head_group, scale, maps[0],
+      maps[1], maps[2]);
   return (int)cudaGetLastError();
 }
 
@@ -2863,10 +2575,11 @@ int launch_sp(const void* q, const void* k, const void* v, void* out,
 }
 
 // The body flash_attention_fwd runs for (dtype, d, dv), by the code
-// `ops.flash_body` names: 1 fp32 (d <= 256), 2 fp32 d-sliced, 3 bf16
-// (d <= 128), 4 bf16 warp-specialised (d <= 256), 5 bf16 single-pass
-// (d <= 576, dv <= 512), 6 bf16 d-sliced, 7 fp32 single-pass (d <= 576,
-// dv <= 512).
+// `ops.flash_body` names: 1 fp32 (d <= 256), 2 fp32 d-sliced, 3 bf16 (the
+// warp-specialised body at DQK 64 / 128, d <= 128), 4 bf16
+// warp-specialised (DQK 192 / 256, d <= 256), 5 bf16 single-pass (d <=
+// 576, dv <= 512), 6 bf16 d-sliced, 7 fp32 single-pass (d <= 576, dv <=
+// 512).
 int flash_body(int dtype, int d, int dv) {
   if (dtype == 0) {
     if (d <= 256) return 1;
@@ -2907,36 +2620,31 @@ int launch_wide(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// bf16, d <= 256.
-template <int DP>
+// bf16, d <= 256: the warp-specialised body.  DQK is the first of 64,
+// 128, 192 and 256 to hold d; DV is DQK, but 128 for dv <= 128 past d =
+// 128.
 int dispatch(int out_dtype, const void* q, const void* k, const void* v,
              void* out, int bh, int tq, int tk, int d, int dv, int causal,
              int window, int group, float scale, cudaStream_t stream) {
-  if constexpr (DP > 128) {
-    // DQK: 192 for d <= 192, else 256; DV: 128 for dv <= 128, else DQK.
-    if (d <= 192)
-      return dv <= 128
-                 ? launch_ws<192, 128>(q, k, v, out, out_dtype, bh, tq, tk,
-                                       d, dv, causal, window, group, scale,
-                                       stream)
-                 : launch_ws<192, 192>(q, k, v, out, out_dtype, bh, tq, tk,
-                                       d, dv, causal, window, group, scale,
-                                       stream);
+  if (d <= 64)
+    return launch_ws<64, 64>(q, k, v, out, out_dtype, bh, tq, tk, d, dv,
+                             causal, window, group, scale, stream);
+  if (d <= 128)
+    return launch_ws<128, 128>(q, k, v, out, out_dtype, bh, tq, tk, d, dv,
+                               causal, window, group, scale, stream);
+  if (d <= 192)
     return dv <= 128
-               ? launch_ws<256, 128>(q, k, v, out, out_dtype, bh, tq, tk, d,
+               ? launch_ws<192, 128>(q, k, v, out, out_dtype, bh, tq, tk, d,
                                      dv, causal, window, group, scale,
                                      stream)
-               : launch_ws<256, 256>(q, k, v, out, out_dtype, bh, tq, tk, d,
+               : launch_ws<192, 192>(q, k, v, out, out_dtype, bh, tq, tk, d,
                                      dv, causal, window, group, scale,
                                      stream);
-  } else {
-    if (out_dtype == 1)
-      return launch_bf16<DP, __nv_bfloat16>(q, k, v, out, bh, tq, tk, d, dv,
-                                            causal, window, group, scale,
-                                            stream);
-    return launch_bf16<DP, float>(q, k, v, out, bh, tq, tk, d, dv, causal,
-                                  window, group, scale, stream);
-  }
+  return dv <= 128
+             ? launch_ws<256, 128>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                   dv, causal, window, group, scale, stream)
+             : launch_ws<256, 256>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                   dv, causal, window, group, scale, stream);
 }
 
 }  // namespace
@@ -2995,14 +2703,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return launch_wide<__nv_bfloat16>(dtype, q, k, v, out, bh, tq, tk, d, dv,
                                       causal, window, group, scale, s);
   }
-  if (d <= 32) return dispatch<32>(out_dtype, q, k, v, out, bh, tq, tk, d,
-                                   dv, causal, window, group, scale, s);
-  if (d <= 64) return dispatch<64>(out_dtype, q, k, v, out, bh, tq, tk, d,
-                                   dv, causal, window, group, scale, s);
-  if (d <= 128) return dispatch<128>(out_dtype, q, k, v, out, bh, tq, tk, d,
-                                     dv, causal, window, group, scale, s);
-  return dispatch<256>(out_dtype, q, k, v, out, bh, tq, tk, d, dv, causal,
-                       window, group, scale, s);
+  return dispatch(out_dtype, q, k, v, out, bh, tq, tk, d, dv, causal, window,
+                  group, scale, s);
 }
 
 // Which body flash_attention_fwd runs for these operands (`flash_body`'s

@@ -650,9 +650,10 @@ def flash_body(dtype: torch.dtype, d: int, dv: int) -> str:
     (``csrc/flash_attention.cu``'s ``flash_body``, which the C entry
     ``flash_attention_body`` reports): fp32 on CUDA cores up to d = 256,
     the fp32 single-pass body up to d = 576 with dv <= 512, d-sliced past
-    that; bf16 on the tensor cores up to d = 128, the warp-specialised
-    body up to 256, the single-pass body up to d = 576 with dv <= 512,
-    and the d-sliced body past that."""
+    that; bf16 on the tensor cores, the warp-specialised body up to d =
+    256 ("bf16" up to d = 128, its DQK 64 / 128 instantiations, "bf16
+    warp-specialised" past it, DQK 192 / 256), the single-pass body up to
+    d = 576 with dv <= 512, and the d-sliced body past that."""
     if dtype not in _FLASH_DTYPES:
         raise TypeError(f"flash_body: expected float32 or bfloat16, got "
                         f"{dtype}")

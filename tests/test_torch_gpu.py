@@ -40,10 +40,13 @@ launches bit for bit, a bf16 ``out_dtype`` the fp32 result rounded once,
 and their staged routes (bases 4 bytes past 16) bit for bit the 16-byte
 copies; and the bf16 / fp32 ``out_dtype`` of flash, SpDMM and SDDMM
 against the plain versions.  The warp-specialised bf16 flash
-body past d = 128 (d 136-256, V d or 128 wide, G 1 / 2 / 8, causal,
-windowed and non-causal at ragged Tq / Tk, the plain-load producer at d =
-170, both output types, two launches bit for bit) and MLA's call with V
-at its own width against the plain version.
+body at d <= 128 (DQK 64 and 128: d 1-128, V d, 64 or 1 wide, G 1 / 2 /
+4 / 5 / 8, causal, windowed and non-causal at ragged Tq / Tk, the
+plain-load producer at d = 36 and 100, both output types, two launches
+bit for bit; its staged route bit for bit the TMA route at d = 64 and
+128) and past it (d 136-256, V d or 128 wide, G 1 / 2 / 8, the same
+modes, the plain-load producer at d = 170) and MLA's call with V at its
+own width against the plain version.
 
 Every test here is marked ``gpu`` and skips without a card.  This file
 imports neither ``jax`` nor ``repro``, so it also runs where JAX is not
@@ -2090,6 +2093,74 @@ def test_cuda_flash_ws_body_matches_plain(cuda, tq, tk, h, grp, d, dv,
     _flash_limits(got, want, torch.bfloat16)
     assert torch.equal(ops.flash_attention(q, k, v, causal, window,
                                            out_dtype=ot), got)
+
+
+# The bf16 body at d <= 128: the warp-specialised body at DQK 64 (d <=
+# 64) and DQK 128: (tq, tk, heads, G, d, dv, causal, window) at its
+# instantiations' edges, V d, 64 or 1 wide; d = 1, 36, 40, 63, 65, 100 and
+# dv = 1 (not multiples of 8) the producer's plain loads; causal,
+# non-causal at ragged Tq != Tk, windows of 1, 5, 64 and one ending inside
+# a key tile; G = 1, 2, 4, 5 and 8.
+FLASH_D128_CASES = [(70, 70, 2, 1, 1, 1, True, 0),
+                    (300, 300, 4, 2, 8, 8, True, 0),
+                    (200, 333, 4, 2, 32, 32, False, 0),
+                    (300, 300, 5, 5, 36, 36, True, 0),
+                    (257, 257, 8, 8, 40, 1, True, 5),
+                    (300, 300, 4, 2, 63, 63, True, 64),
+                    (300, 300, 5, 5, 64, 64, True, 0),
+                    (129, 65, 8, 8, 64, 1, False, 0),
+                    (1100, 1100, 2, 1, 64, 64, True, 1000),
+                    (300, 300, 4, 2, 65, 65, True, 1),
+                    (200, 333, 4, 4, 100, 100, False, 0),
+                    (300, 300, 8, 8, 112, 112, True, 0),
+                    (300, 400, 4, 2, 120, 64, True, 100),
+                    (300, 300, 4, 2, 128, 128, True, 0),
+                    (77, 300, 4, 4, 128, 64, False, 0),
+                    (300, 300, 5, 5, 128, 1, True, 64),
+                    (2048, 1601, 8, 4, 128, 128, False, 0)]
+
+
+@pytest.mark.parametrize("tq,tk,h,grp,d,dv,causal,window", FLASH_D128_CASES)
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_cuda_flash_d128_body_matches_plain(cuda, tq, tk, h, grp, d, dv,
+                                            causal, window, out):
+    ot = getattr(torch, out)
+    assert ops.flash_body(torch.bfloat16, d, dv) == "bf16"
+    assert ops.FLASH_BODIES[ops.entry("flash_body")(1, d, dv)] == "bf16"
+    q, k, v = _flash_bf16_qkv(h, grp, tq, tk, d, dv, d + dv + tq + tk, cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal, window, out_dtype=ot)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.shape == (h, tq, dv) and got.dtype == ot
+    want = ref.flash_attention_plain(q, k, v, causal, window, out_dtype=ot)
+    if dv >= 8:
+        _flash_limits(got, want, torch.bfloat16)
+    else:
+        # A row of one element makes the per-row relative L2 an
+        # elementwise relative error, unbounded where the output nears 0:
+        # the whole output's limit holds, and each element within 2^-7
+        # max|v|, above what rounding P to bf16 (2^-9 of each p) and both
+        # outputs to bf16 (2^-9 each) can move sum(p v) / sum(p) together.
+        err = got.float() - want.float()
+        assert float(err.norm() / want.float().norm()) <= 2.0 ** -8
+        assert float(err.abs().max()) <= 2.0 ** -7 * float(v.float().abs()
+                                                          .max())
+    assert torch.equal(ops.flash_attention(q, k, v, causal, window,
+                                           out_dtype=ot), got)
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (64, 16), (128, 128),
+                                  (128, 64)])
+def test_cuda_flash_d128_staged_route_equals_tma(cuda, d, dv):
+    # A base off 16 bytes sends the producer warpgroup to its plain loads,
+    # which write TMA's layout: the consumers run the same products.
+    q, k, v = _flash_bf16_qkv(5, 5, 300, 300, d, dv, d + dv, cuda)
+    tma = ops.flash_attention(q, k, v, True, 64)
+    staged = ops.flash_attention(*(_off_16_bytes(t) for t in (q, k, v)),
+                                 True, 64)
+    assert torch.equal(staged, tma)
+    _flash_limits(staged, ref.flash_attention_plain(q, k, v, True, 64),
+                  torch.bfloat16)
 
 
 @pytest.mark.parametrize("d", [64, 240, 512])
