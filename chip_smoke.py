@@ -409,7 +409,7 @@ Phases (any failure exits non-zero; nothing is caught):
    growth, its predicted peak within 25% of ``max_memory_allocated``, its
    traced flops equal to ``FlopCounterMode`` on the card plus the flash
    kernel's formula, its roofline against the measured step; then
-   ``launch.dryrun`` (a subprocess started with phase 21, which sees no
+   ``launch.dryrun`` (a subprocess started with phase 17, which sees no
    card) on qwen3-0.6b, granite-8b and kimi-k2-1t-a32b at train_4k on the
    16 x 16 mesh: per-device GiB, the three roofline terms, the dominant
    one (its artifacts in ``artifacts/dryrun_torch/``).
@@ -419,12 +419,14 @@ Phases (any failure exits non-zero; nothing is caught):
    lm_pretrain_smoke on qwen3-0.6b, the flash route) in subprocesses
    started together, each exit code checked and each one's kernel
    launches read back; meanwhile flash past d = 256 (the single-pass
-   bodies up to d = 576 with dv <= 512, the d-sliced bodies past it) at
-   d in {257, 264, 320, 512, 1024}, fp32 and bf16, and at (d, dv) in
-   {(330, 100), (385, 256), (513, 512), (576, 512), (576, 256)} in both
-   and {(576, 513), (577, 512)} in fp32 (past the fp32 single pass),
-   causal, non-causal at ragged Tq / Tk, windowed and grouped (G = 4)
-   against the plain version (fp32 rtol 1e-5 / atol 1e-4, bf16
+   bodies, in one CTA up to d = 576 with dv <= 512 and in thread-block
+   clusters past it) at d in {257, 264, 320, 512, 1024}, fp32 and bf16,
+   at (d, dv) in {(330, 100), (385, 256), (513, 512), (576, 512), (576,
+   256)} in both and {(576, 513), (577, 512)} in fp32, and in clusters
+   at ``CONTRACT_CL`` in both (C = 2 and 3), causal, non-causal at
+   ragged Tq / Tk, windowed and grouped (G = 4), and at
+   ``CONTRACT_CL_WIDE`` (C = 8 and past the 8-CTA reach) in the
+   non-causal and windowed modes, against the plain version (fp32 rtol 1e-5 / atol 1e-4, bf16
    ``check_rows``), the single-pass bodies', the bf16 body's at d = 128
    and the fp32 body's staged routes (bases 2 or 4 bytes past 16) bit
    for bit their TMA or 16-byte-copy routes, two launches bit for bit at
@@ -433,8 +435,10 @@ Phases (any failure exits non-zero; nothing is caught):
    flash (d 128, 512, 1024), SpDMM and SDDMM at rtol 2e-2 / atol 1e-2
    (the bf16 store bit for bit the fp32 result rounded, bf16 SDDMM
    operands bit for bit the fp32 kernel on the widened operands); then
-   four timed flash rows at T = 2048, causal, each its body named (the C
-   entry ``flash_attention_body`` held to ``ops.flash_body``), driven
+   six timed flash rows at T = 2048, causal, each its body and its
+   cluster size named (the C entry ``flash_attention_body`` held to
+   ``ops.flash_body``; past one CTA the clusters resident at once,
+   ``cudaOccupancyMaxActiveClusters``), driven
    from zero launches, two launches bit for bit, held to the plain
    version and timed beside its bound, the plain version and
    ``F.scaled_dot_product_attention`` with the backend it dispatched to
@@ -444,7 +448,8 @@ Phases (any failure exits non-zero; nothing is caught):
    absorbed-MLA shape (BH = 128 over one KV head, d = 576, dv = 512,
    bf16; on no path), the fp32 body at qwen3-0.6b's prefill shape (BH =
    64 over 32, d = 128) and the fp32 single-pass body at d = 512 (BH =
-   32).  The FL-slice entries of phases 3 and 5 also time
+   32), and both single-pass bodies in clusters of two at d = dv = 1,024
+   (BH = 32).  The FL-slice entries of phases 3 and 5 also time
    SpDMM's bf16 store and SDDMM's bf16 store and bf16 operands, each
    beside the one PyTorch call of the same function where PyTorch takes
    it (``torch.addmm`` with a bf16 ``out``, ``torch.sparse.sampled_addmm``
@@ -696,7 +701,10 @@ WS_INSTANTIATIONS = 6                   # (DQK, DV): (64, 64), (128,
                                         # 128), (192, 128 / 192), (256,
                                         # 128 / 256)
 SP_KERNEL = "flash_bf16_sp_kernel"      # the single-pass body past d = 256
-SP_INSTANTIATIONS = 3                   # (512, 256 / 512), (576, 512)
+SP_INSTANTIATIONS = 6                   # (DQK, DV, MODE): one CTA (512,
+                                        # 256 / 512, 0), (576, 512, 0); a
+                                        # cluster (512, 256 / 512, 1), Q in
+                                        # rounds (512, 512, 2)
 
 
 def nvcc_rows(report: str, key_of) -> dict:
@@ -729,8 +737,11 @@ def ws_nvcc_report(report: str, kernel: str = WS_KERNEL) -> dict:
     ptxas line that says wgmma instructions are serialized (a wait after
     each product) in a function of ``kernel``."""
     def key_of(ln):
-        m = re.search(kernel + r"ILi(\d+)ELi(\d+)E", ln)
-        return f"DQK={m.group(1)} DV={m.group(2)}" if m else None
+        m = re.search(kernel + r"ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?", ln)
+        if not m:
+            return None
+        mode = f" MODE={m.group(3)}" if m.group(3) else ""
+        return f"DQK={m.group(1)} DV={m.group(2)}{mode}"
     rows = nvcc_rows(report, key_of)
     warns = [ln.strip() for ln in report.splitlines()
              if ("warning" in ln.lower() and ("setmaxnreg" in ln
@@ -773,18 +784,19 @@ def ws_nvcc_check(report: str, kernel: str = WS_KERNEL,
 
 
 F32_KERNEL = re.compile(r"(flash_f32_(?:sp_)?kernel)I(\w*?)EEv")
-F32_INSTANTIATIONS = 12                 # (DQK, DV) of the fp32 body: (32,
+F32_INSTANTIATIONS = 14                 # (DQK, DV) of the fp32 body: (32,
                                         # 32), (64, 64), (128, 128), (256,
-                                        # 128 / 256); and the single pass;
-                                        # each with both output types
+                                        # 128 / 256); and the single pass in
+                                        # one CTA and in a cluster; each
+                                        # with both output types
 
 
 def f32_nvcc_check(report: str) -> dict:
     """Print the fp32 flash bodies' registers a thread and spill bytes
     per instantiation (``flash_f32_kernel<DQK, DV, out>``,
-    ``flash_f32_sp_kernel<out>``) from the flash build's nvcc report; fail
-    if one spills or is missing.  A cached build (no report) is said so
-    and not checked."""
+    ``flash_f32_sp_kernel<out, cluster>``) from the flash build's nvcc
+    report; fail if one spills or is missing.  A cached build (no report)
+    is said so and not checked."""
     if report.strip() == "cached":
         log("nvcc fp32 flash bodies: cached build, no report in this run")
         return {"cached": True}
@@ -794,6 +806,8 @@ def f32_nvcc_check(report: str) -> dict:
             return None
         args = re.findall(r"Li(\d+)E", m.group(2))
         args.append("bf16" if "bfloat16" in m.group(2) else "fp32")
+        args += ["cluster" for b in re.findall(r"Lb(\d)E", m.group(2))
+                 if b == "1"]
         return f"{m.group(1)}<{', '.join(args)}>"
     rows = nvcc_rows(report, key_of)
     for key, r in sorted(rows.items()):
@@ -6134,7 +6148,7 @@ DRY_GROWTH_REL = 1e-3           # argument bytes against the allocation
 def start_dryrun_cells():
     """Phase 22's cells on ``meta`` (``launch.dryrun`` at train_4k on the
     16 x 16 mesh for ``DRY_CELLS``) in a subprocess that sees no card:
-    host work, run while phases 21-22 use the card."""
+    host work, run while phases 17-22 use the card."""
     code = ("from repro_torch.launch import dryrun\n"
             f"for a in {list(DRY_CELLS)!r}:\n"
             "    dryrun.main(['--arch', a, '--shape', 'train_4k', "
@@ -6528,13 +6542,26 @@ MLA_ABS_BH, MLA_ABS_D, MLA_ABS_DV = 128, 576, 512
 # (d, dv) of the single-pass body at its instantiations' edges beyond
 # CONTRACT_DS (dv = d there), in every mode; bf16.
 CONTRACT_SP = ((330, 100), (385, 256), (513, 512), (576, 512), (576, 256))
-# ... in fp32 too, and just past the fp32 single-pass body's reach (the
-# fp32 d-sliced body).
+# ... in fp32 too, and just past one CTA's reach (clusters of two).
 CONTRACT_F32 = CONTRACT_SP + ((576, 513), (577, 512))
+# (d, dv) of the single-pass bodies in clusters, in every mode, both
+# types: C = 2 (640; 600 with dv 513), 3 (1,100 with dv 64: two ranks
+# hold no column of v; 1,536).
+CONTRACT_CL = ((640, 640), (600, 513), (1100, 64), (1536, 1536))
+# ... and at C = 8 (4,096) and past the 8-CTA reach (4,160: Q in rounds,
+# v in two slabs), both types, in the modes of CONTRACT_CL_WIDE_MODES
+# only (the gpu tests run both causal, and 4,160 non-causal with dv =
+# 100 and G = 2; the CPU tests hold the plain version there to JAX).
+CONTRACT_CL_WIDE = ((4096, 4096), (4160, 4160))
+CONTRACT_CL_WIDE_MODES = ("non-causal", "windowed")
 # (d, dv) whose fp32 staged route (bases 4 bytes past 16: 4-byte copies)
-# is held bit for bit to the 16-byte copies: each fp32 body's widths.
+# is held bit for bit to the 16-byte copies: each fp32 body's widths, and
+# a cluster's.
 CONTRACT_F32_STAGED = ((128, 128), (192, 128), (256, 256), (WIDE_D, WIDE_D),
-                       (576, 512))
+                       (576, 512), (1024, 1000))
+# The timed rows past one CTA's reach: d = dv = CL_D, both types (a
+# cluster of two).
+CL_D = 1024
 # fp32 rows timed beside fp32 SDPA: (label, query heads, KV heads, d), T =
 # WIDE_T, causal.
 FP32_ROWS = (("fp32 body, qwen3-0.6b prefill", 64, 32, 128),
@@ -6651,22 +6678,29 @@ def sdpa_backend(torch, fn):
 @tallied_as("checks")
 def contract_flash_cases(torch, ops, ref, qkv):
     """Flash past d = 256 against the plain version in every mode (both
-    single-pass bodies and both d-sliced bodies), V also narrower than d
-    for the single-pass bodies, their staged routes (bases off 16 bytes)
-    bit for bit their TMA / 16-byte-copy routes, and the fp32 body's and
-    the bf16 body's at d = 128 likewise; returns the number of cases."""
+    single-pass bodies, in one CTA and in clusters), V also narrower than
+    d, their staged routes (bases off 16 bytes) bit for bit their TMA /
+    16-byte-copy routes (in one CTA and in a cluster), and the fp32
+    body's and the bf16 body's at d = 128 likewise; returns the number of
+    cases."""
     n = 0
     cases = [(d, d, dt) for d in CONTRACT_DS
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(d, dv, torch.bfloat16) for d, dv in CONTRACT_SP]
     cases += [(d, dv, torch.float32) for d, dv in CONTRACT_F32]
+    cases += [(d, dv, dt) for d, dv in CONTRACT_CL + CONTRACT_CL_WIDE
+              for dt in (torch.float32, torch.bfloat16)]
     for d, dv, dt in cases:
         for label, tq, tk, h, g, causal, window in CONTRACT_MODES:
+            if ((d, dv) in CONTRACT_CL_WIDE
+                    and label not in CONTRACT_CL_WIDE_MODES):
+                continue
             q, k, v = qkv(h, tq, tk, d, dt, g)
             v = v[..., :dv].contiguous()
             name = (f"flash d={d} dv={dv} {label} {tq}x{tk} h={h} G={g} "
                     f"window={window} {str(dt)[6:]} "
-                    f"({ops.flash_body(dt, d, dv)})")
+                    f"({ops.flash_body(dt, d, dv)}, C = "
+                    f"{ops.flash_cluster(dt, d, dv)})")
             got = ops.flash_attention(q, k, v, causal, window)
             want = ref.flash_attention_plain(q, k, v, causal, window)
             if dt == torch.float32:
@@ -6677,7 +6711,7 @@ def contract_flash_cases(torch, ops, ref, qkv):
             n += 1
     staged = [(d, dv, torch.bfloat16)
               for d, dv in ((128, 128), (WIDE_D, WIDE_D),
-                            (MLA_ABS_D, MLA_ABS_DV))]
+                            (MLA_ABS_D, MLA_ABS_DV), (CL_D, 1000))]
     staged += [(d, dv, torch.float32) for d, dv in CONTRACT_F32_STAGED]
     for d, dv, dt in staged:
         q, k, v = qkv(4, 300, 300, d, dt, 2)
@@ -6776,9 +6810,11 @@ def contracts_phase(torch, ops, ref):
             n_flash = contract_flash_cases(torch, ops, ref, qkv)
             log(f"flash past d = 256: {n_flash} cases (d in {CONTRACT_DS},"
                 f" fp32 and bf16; (d, dv) in {CONTRACT_SP} in both, "
-                f"{CONTRACT_F32[len(CONTRACT_SP):]} in fp32; causal / "
-                "non-causal / windowed / G=4, ragged; the staged routes) "
-                "within tolerance")
+                f"{CONTRACT_F32[len(CONTRACT_SP):]} in fp32, clusters "
+                f"{CONTRACT_CL} in both, {CONTRACT_CL_WIDE} in both in "
+                f"modes {CONTRACT_CL_WIDE_MODES}; causal / non-causal / "
+                f"windowed / "
+                "G=4, ragged; the staged routes) within tolerance")
             n_out = out_dtype_cases(torch, ops, ref, qkv, gen)
             log(f"out_dtype: {n_out} flash / SpDMM / SDDMM cases within "
                 f"rtol {OUT_DTYPE_TOL[0]} / atol {OUT_DTYPE_TOL[1]}, each "
@@ -6810,6 +6846,10 @@ def contracts_phase(torch, ops, ref):
              WIDE_D, bf16),
             ("single-pass body, absorbed MLA", MLA_ABS_BH, 1, MLA_ABS_D,
              MLA_ABS_DV, bf16),
+            (f"single-pass body in a cluster, d={CL_D}", WIDE_BH, WIDE_BH,
+             CL_D, CL_D, bf16),
+            (f"fp32 single-pass body in a cluster, d={CL_D}", WIDE_BH,
+             WIDE_BH, CL_D, CL_D, fp32),
             *((lab, bh_, kvh_, d_, d_, fp32) for lab, bh_, kvh_, d_
               in FP32_ROWS)):
         entry, rows[label] = timed_flash_row(torch, ops, ref, gen, label, bh,
@@ -6836,6 +6876,12 @@ def timed_flash_row(torch, ops, ref, gen, label, bh, kvh, d, dv, dt):
     if ops.FLASH_BODIES.get(code) != body:
         fail(f"flash {label}: the C entry runs body {code}, ops.flash_body "
              f"says {body}")
+    n_cta = ops.flash_cluster(dt, d, dv)
+    resident = ops.entry("flash_clusters_resident")(
+        int(dt == torch.bfloat16), int(dt == torch.bfloat16), d, dv)
+    if n_cta > 1 and resident < 1:
+        fail(f"flash {label}: no cluster of {n_cta} CTAs fits the card "
+             f"(cudaOccupancyMaxActiveClusters: {resident})")
     t = WIDE_T
     q = torch.randn(bh, t, d, generator=gen, device="cuda").to(dt)
     k = torch.randn(kvh, t, d, generator=gen, device="cuda").to(dt)
@@ -6877,7 +6923,10 @@ def timed_flash_row(torch, ops, ref, gen, label, bh, kvh, d, dv, dt):
     flops = 2.0 * (d + dv) * bh * t * (t + 1) / 2
     shape = (f"BH={bh} over {kvh} KV heads, T={t}, d={d}, dv={dv}, "
              f"{str(dt)[6:]}, causal")
-    log(f"kernel flash_attention {label} ({body} body; {shape}): kernel "
+    where = (f"clusters of {n_cta} CTAs, {resident} resident at once"
+             if n_cta > 1 else "one CTA a query tile")
+    log(f"kernel flash_attention {label} ({body} body, {where}; {shape}): "
+        "kernel "
         f"{t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s of useful work, "
         f"{b_ms / t_k:.3f} of the bound), plain {t_p:.4f} ms, "
         f"F.scaled_dot_product_attention ({how}; backend {backend}) "
@@ -6893,7 +6942,9 @@ def timed_flash_row(torch, ops, ref, gen, label, bh, kvh, d, dv, dt):
              "launches": launches, "max_abs_err": err, "ms": t_k,
              "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": t_l}
-    return entry, {"body": body, "kernel_ms": t_k, "plain_ms": t_p,
+    return entry, {"body": body, "cluster": n_cta,
+                   "clusters_resident": resident, "kernel_ms": t_k,
+                   "plain_ms": t_p,
                    "sdpa_ms": t_l, "sdpa_backend": backend, "sdpa_call": how,
                    "sdpa_repeated_heads": rep[2:],
                    "bound_ms": b_ms, "tflop_s": flops / t_k / 1e9,
@@ -7003,26 +7054,28 @@ def main() -> int:
     cross_launches, cross_nc, cross_train = cross_train_phase(torch, ops,
                                                               ref)
     log(f"cross-attention train phase: {time.perf_counter() - t7:.1f} s")
-    t7 = time.perf_counter()
-    hymba_launches, hymba = hymba_phase(torch, ops, ref)
-    log(f"hymba phase: {time.perf_counter() - t7:.1f} s")
-    t7 = time.perf_counter()
-    xlstm = xlstm_phase(torch, ops, ref)
-    log(f"xlstm phase: {time.perf_counter() - t7:.1f} s")
-    t7 = time.perf_counter()
-    kimi_launches, flash_kimi, kimi = kimi_phase(torch, ops, ref)
-    log(f"kimi phase: {time.perf_counter() - t7:.1f} s")
-    t7 = time.perf_counter()
-    mla_launches, flash_mla, deepseek = deepseek_phase(torch, ops, ref)
-    log(f"deepseek phase: {time.perf_counter() - t7:.1f} s")
-    t7 = time.perf_counter()
+    # Phase 22's cells trace on meta in a subprocess (host work, about a
+    # minute) while phases 17-22 use the card.
     cells_proc = start_dryrun_cells()
     try:
+        t7 = time.perf_counter()
+        hymba_launches, hymba = hymba_phase(torch, ops, ref)
+        log(f"hymba phase: {time.perf_counter() - t7:.1f} s")
+        t7 = time.perf_counter()
+        xlstm = xlstm_phase(torch, ops, ref)
+        log(f"xlstm phase: {time.perf_counter() - t7:.1f} s")
+        t7 = time.perf_counter()
+        kimi_launches, flash_kimi, kimi = kimi_phase(torch, ops, ref)
+        log(f"kimi phase: {time.perf_counter() - t7:.1f} s")
+        t7 = time.perf_counter()
+        mla_launches, flash_mla, deepseek = deepseek_phase(torch, ops, ref)
+        log(f"deepseek phase: {time.perf_counter() - t7:.1f} s")
+        t7 = time.perf_counter()
         dist_launches, distributed = distributed_phase(torch, ops)
         log(f"distributed phase: {time.perf_counter() - t7:.1f} s")
-        t8 = time.perf_counter()
+        t7 = time.perf_counter()
         dry_launches, dryrun = dryrun_phase(torch, ops, cells_proc)
-        log(f"dry-run phase: {time.perf_counter() - t8:.1f} s")
+        log(f"dry-run phase: {time.perf_counter() - t7:.1f} s")
     finally:
         if cells_proc.poll() is None:
             cells_proc.kill()

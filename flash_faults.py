@@ -19,20 +19,26 @@ reads:
   heads, T=2048, d=240, bf16, causal), which the warp-specialised body
   runs at DQK 256 (at d = 128 it runs DQK 128), at d = 512 (BH=8 over 4
   KV heads, T=2048, bf16, causal), which the single-pass body past d =
-  256 runs, and at d = 64 (BH=20 over 4 KV heads, T=2048, bf16, causal),
-  the warp-specialised body's DQK 64;
+  256 runs, at d = 64 (BH=20 over 4 KV heads, T=2048, bf16, causal),
+  the warp-specialised body's DQK 64, and at d = 1024 (BH=8 over 4),
+  which the single-pass body runs in clusters of two;
 * fp32 at d = 128 (BH=16 over 8 KV heads, T=2048, causal), which the
-  fp32 body runs, and at d = 512 (BH=8 over 4), which the fp32
-  single-pass body runs: ``chip_smoke.check_close``'s rtol 1e-5 / atol
-  1e-4 against the plain version;
+  fp32 body runs, at d = 512 (BH=8 over 4), which the fp32 single-pass
+  body runs, at d = 1024 (BH=8 over 4, clusters of two) and at d = 520
+  (BH=8 over 4, clusters of two whose rank 1 holds 4 of the 9 panels to
+  rank 0's 5, so it runs ahead of its peer):
+  ``chip_smoke.check_close``'s rtol 1e-5 / atol 1e-4 against the plain
+  version;
 * the last-position logits of a qwen3-0.6b prefill (bf16, B=4, T=2048,
   weights from seed 0, as in ``chip_smoke.py``) against the same model
   with plain attention, beside ``chip_smoke.py``'s 2e-2 limit.
 
 It exits non-zero if the real kernel fails a check, a fault passes
-``check_rows`` at all four bf16 shapes and the fp32 check at both fp32
-shapes, or a fault of ``PATH_FAULTS`` (the bf16 body at d <= 128) passes
-``check_rows`` at the d = 128 path shape.  The last line of the output is the readings as JSON.
+``check_rows`` at all five bf16 shapes and the fp32 check at all four
+fp32 shapes, a fault of ``PATH_FAULTS`` (the bf16 body at d <= 128)
+passes ``check_rows`` at the d = 128 path shape, or one of
+``CLUSTER_FAULTS`` (the clusters' exchange) passes a check it names
+(clusters of two).  The last line of the output is the readings as JSON.
 Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
@@ -51,20 +57,34 @@ _SP_TILE = (
     "      mbar_wait(full_v + 8 * prev, ((step - 1) / SL) & 1);\n"
     "{early}"
     "      wgmma_fence();\n"
-    "      sp_qk<DQK, DV, NKQ>(s, q_s, k_s + slot * L::K_SLOT, kq0);\n"
+    "      sp_qk<DQK, DV, MODE, NKQ>(s, q_s, k_s + slot * L::K_SLOT, kq0,\n"
+    "                                rounds > 1);\n"
     "      wgmma_commit();\n"
-    "      sp_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);\n"
+    "      sp_pv<DQK, DV, MODE>(o, pa, v_s + prev * L::V_SLOT);\n"
     "      wgmma_commit();\n"
     "      wgmma_wait_one();                  // Q.K^T of tile kt done\n"
     "      fence_regs(s);\n"
     "      __syncwarp();\n"
-    "      if (lane == 0) mbar_arrive(empty_k + 8 * slot);\n"
-    "      sp_exchange<BK>(s, x_mine, x_other, wg, false, kt + 1 == n_kt);\n"
+    "      if (lane == 0) {{\n"
+    "        mbar_arrive(empty_k + 8 * slot);\n"
+    "        if constexpr (MODE == 2) mbar_arrive(q_empty);\n"
+    "      }}\n"
+    "      sp_complete<DQK, DV, MODE>(s, x_mine, x_other, x_s, bars, wg,\n"
+    "                                 sl.rank, sl.nc, step, lane, false,\n"
+    "                                 kt + 1 == n_kt);\n"
     "      ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt * BK, q0,\n"
     "                    row_lo, row_hi, t4, tk, causal, window, sl2);\n"
     "      wgmma_wait_all();                  // P.V of tile kt - 1 done\n"
     "      fence_regs(o);\n"
     "{late}")
+# The clusters' gather (cl_gather, both bodies' exchange): the wait for
+# every CTA's S_r in a slot, then each half's sums over the cluster.
+_CL_WAIT = "  mbar_wait_cluster(x_full + 8 * slot, use & 1);\n"
+_CL_SUMS = ("  const uint32_t at = smem_u32(pub);\n"
+            "  if (hf == 0)\n"
+            "    cl_sum_half<N, 0>(s, at, rank, nc);\n"
+            "  else\n"
+            "    cl_sum_half<N, 1>(s, at, rank, nc);\n")
 _SP_RELEASE_V = ("      __syncwarp();\n"
                  "      if (lane == 0) mbar_arrive(empty_v + 8 * prev);\n")
 
@@ -160,6 +180,31 @@ FAULTS = {
         "held\n          m[i] = mn;\n",
         "          const float alpha = exp2f(m[i] - mn);   // 1 where the max "
         "held\n          if (pc < ppt) m[i] = mn;\n"),
+    "cl_skip_peer": (
+        "clusters (d > 576 or dv > 512), both bodies' shared gather: rank "
+        "0 leaves the last rank's S_r out of its sums (its S, m and l then "
+        "differ from its peers')",
+        "  for (int r = 0; r < nc; ++r) {\n"
+        "    if (r == rank) {\n"
+        "      if (r > 0) {\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < N; ++i)",
+        "  for (int r = 0; r < nc - (rank == 0); ++r) {\n"
+        "    if (r == rank) {\n"
+        "      if (r > 0) {\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < N; ++i)"),
+    "cl_read_before_written": (
+        "clusters, both bodies' shared gather: a thread reads its peers' "
+        "S_r before the barrier that says they are written, and waits on "
+        "it only afterwards",
+        _CL_WAIT + _CL_SUMS,
+        _CL_SUMS + _CL_WAIT),
+    "cl_dv_offset": (
+        "clusters, both bodies: ranks past 0 take their slice of v / out "
+        "one 64-column panel late (the panel before it is never stored)",
+        "  s.v0 = vs0 + rank * per_v * 64;",
+        "  s.v0 = vs0 + (rank * per_v + (rank > 0)) * 64;"),
     "f32sp_diagonal_unmasked": (
         "fp32 single-pass body (d > 256): the mask skipped on the causal "
         "diagonal tiles",
@@ -169,15 +214,27 @@ FAULTS = {
 # The other bf16 readings: gemma3-12b's prefill heads at B=4, d = 512,
 # and hymba-1.5b's d = 64 with G = 5 at one sequence (query heads, KV
 # heads, d).
-WIDE_SHAPES = ((64, 32, 240), (8, 4, 512), (20, 4, 64))
+WIDE_SHAPES = ((64, 32, 240), (8, 4, 512), (20, 4, 64), (8, 4, 1024))
 # Faults in the bf16 body at d <= 128 (the warp-specialised body): each
 # must fail check_rows at the d = 128 path shape itself.
 PATH_FAULTS = ("causal_skip_early", "drop_mid_tile_late", "scale_1pct",
                "pingpong_pv_slot")
 # The fp32 readings (query heads, KV heads, d; T = 2048, causal): the fp32
-# body at qwen3-0.6b's head dim and the fp32 single-pass body at d = 512,
-# each within rtol 1e-5 / atol 1e-4 of the plain version or not.
-F32_SHAPES = ((16, 8, 128), (8, 4, 512))
+# body at qwen3-0.6b's head dim, the fp32 single-pass body at d = 512, in
+# clusters of two at d = 1024 (the ranks' work equal) and at d = 520 (rank
+# 1 a fifth lighter), each within rtol 1e-5 / atol 1e-4 of the plain
+# version or not.
+F32_SHAPES = ((16, 8, 128), (8, 4, 512), (8, 4, 1024), (8, 4, 520))
+# Faults in the clusters' exchange, all in code both bodies share (the
+# gather, the slices): each must fail its checks named here, bf16 at d =
+# 1024 and fp32 in a cluster of two.  An early read shows only where a
+# reader runs ahead of the writer: the fp32 ranks at d = 1024 keep step
+# (it passed there on the card), so fp32 holds it at d = 520, where rank 1
+# has less work a tile than rank 0.  A v slice a panel late needs a rank
+# past 0 that stores columns (both fp32 shapes have one).
+CLUSTER_FAULTS = {"cl_skip_peer": ("d1024", "fp32_d1024", "fp32_d520"),
+                  "cl_read_before_written": ("d1024", "fp32_d520"),
+                  "cl_dv_offset": ("d1024", "fp32_d1024", "fp32_d520")}
 
 
 def f32_reading(torch, cs, got, want):
@@ -316,6 +373,12 @@ def main() -> int:
                 bad.append(name)
         elif (rows_ok and wide_ok and f32_ok) or (name in PATH_FAULTS
                                                   and rows_ok):
+            bad.append(name)
+        elif name in CLUSTER_FAULTS and any(
+                readings[name][key].get("check_rows_passes",
+                                        readings[name][key].get(
+                                            "check_close_passes"))
+                for key in CLUSTER_FAULTS[name]):
             bad.append(name)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

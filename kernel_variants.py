@@ -54,21 +54,26 @@ checkout's body passes.
 The single-pass flash body past d = 256 (``--only flash_wide``; variants
 that form the whole S in each consumer warpgroup instead of exchanging
 halves, that take 64-key tiles in one slot, or 32-key tiles in one slot,
-each a text edit of ``flash_attention.cu``, and with ``--parent`` the
-parent tree's flash source, whose d-sliced body runs there) is held to
-the plain version with ``chip_smoke.check_rows`` on
-``chip_smoke.CONTRACT_MODES`` at ``FLASH_WIDE_CHECKED`` and at the timed
-rows, each build's two launches bit for bit, and timed at
-``FLASH_WIDE_TIMED`` (d = 512 at BH = 32, T = 2048; the absorbed-MLA
-shape, BH = 128 over one KV head, d = 576, dv = 512) beside
-``F.scaled_dot_product_attention`` and the bound.
+and in a cluster (past d = 576 or dv > 512) that lock every CTA of it
+together with one barrier.cluster a tile, keep one partial-S slot a CTA
+instead of two, or have each CTA form the whole S itself, each a text
+edit of ``flash_attention.cu``, and with ``--parent`` the parent tree's
+flash source) is held to the plain version with
+``chip_smoke.check_rows`` on ``chip_smoke.CONTRACT_MODES`` at
+``FLASH_WIDE_CHECKED`` and at the timed rows, each build's two launches
+bit for bit and, within one CTA's reach, its bits against the checkout's
+and the parent's, and timed at ``FLASH_WIDE_TIMED`` (d = 512 at BH = 32,
+T = 2048; the absorbed-MLA shape, BH = 128 over one KV head, d = 576, dv
+= 512; d = 1,024 and 2,048 at BH = 32, clusters of 2 and 4, where only
+the checkout's body, the parent's and the cluster variants are timed)
+beside ``F.scaled_dot_product_attention`` (its backend named), the plain
+version and the bound.
 
 The fp32 flash bodies (``--only flash_f32``; variants with one ring slot
 instead of two, 64 query rows a CTA instead of 128, 32-key slots (the
-smaller micro-tile) and, past d = 256, 32-key tiles, each a text edit
-of
-``flash_attention.cu``, and with ``--parent`` the parent tree's flash
-source) are held to the plain version at rtol 1e-5 / atol 1e-4 on
+smaller micro-tile) and, in a cluster, one barrier.cluster a tile or one
+partial-S slot, each a text edit of ``flash_attention.cu``, and with
+``--parent`` the parent tree's flash source) are held to the plain version at rtol 1e-5 / atol 1e-4 on
 ``chip_smoke.CONTRACT_MODES`` at ``FLASH_F32_CHECKED`` and at the timed
 rows, each build's bits compared with the checkout's and with a second
 launch of its own, and timed at ``FLASH_F32_TIMED`` (qwen3-0.6b's prefill
@@ -149,9 +154,54 @@ _NO_PINGPONG = [('  asm volatile("bar.sync %0, %1;\\n" ::"r"(id), '
                  '"n"(WS_CONSUMERS)\n               : "memory");\n', "")]
 _NO_SETMAXNREG = [("    regs_dec<L::PRODUCER_REGS>();\n", ""),
                   ("    regs_inc<L::CONSUMER_REGS>();\n", "")]
+# The clusters in lock step (both bodies' cl_barrier): one barrier.cluster
+# a tile in place of the slots' written / read mbarriers.  Every thread of
+# the cluster meets it, the bf16 producers too: each after a tile's first
+# round of K (the cluster's barrier of tile kt - 1; V of kt waits for the
+# release of tile kt - 2's V, which follows the exchange of kt - 1) and
+# once more at its end; only the producer threads that load wait on the
+# slots (an idle thread could see a slot's barrier two phases on, and
+# wait for ever on a parity that came back).
+_CL_LOCKSTEP = [
+    ("  if (tma && pt != 0) return;   // one thread issues TMA\n",
+     "  constexpr bool LOCKSTEP = MODE != 0;\n"
+     "  if (tma && pt != 0 && !LOCKSTEP) return;\n"
+     "  const bool waits = !LOCKSTEP || !tma || pt == 0;\n"),
+    ("        if (rs > 0) mbar_wait(q_empty, (rs - 1) & 1);",
+     "        if (waits && rs > 0) mbar_wait(q_empty, (rs - 1) & 1);"),
+    ("      if (rs >= SL) mbar_wait(empty_k + 8 * slot, (use & 1) ^ 1);",
+     "      if (waits && rs >= SL) mbar_wait(empty_k + 8 * slot, (use & 1) "
+     "^ 1);"),
+    ("L::KV_PANEL, bkv, full_k + 8 * slot,\n                     pt);\n"
+     "    }\n",
+     "L::KV_PANEL, bkv, full_k + 8 * slot,\n                     pt);\n"
+     "      if constexpr (LOCKSTEP) {\n"
+     "        if (j == 0 && kt > kt0) cluster_sync();\n"
+     "      }\n    }\n"),
+    ("    if (step >= SL) mbar_wait(empty_v + 8 * slot, (use & 1) ^ 1);",
+     "    if (waits && step >= SL) mbar_wait(empty_v + 8 * slot, (use & 1) "
+     "^ 1);"),
+    ("L::KV_PANEL, bkv, full_v + 8 * slot,\n                   pt);\n"
+     "  }\n}\n",
+     "L::KV_PANEL, bkv, full_v + 8 * slot,\n                   pt);\n"
+     "  }\n  if constexpr (LOCKSTEP) {\n"
+     "    if (kt0 < n_kt) cluster_sync();\n  }\n}\n"),
+    ("  if (use > 0) mbar_wait_cluster(x_empty + 8 * slot, (use - 1) & 1);\n",
+     ""),
+    ('  asm volatile("bar.sync %0, %1;\\n" ::"n"(BAR), "n"(NT) : "memory");\n'
+     "  cl_arrive_all(x_full + 8 * slot, nc);\n"
+     "  mbar_wait_cluster(x_full + 8 * slot, use & 1);\n",
+     "  cluster_sync();\n"),
+    ("  __syncthreads();   // both halves' sums written, every peer read "
+     "done\n  cl_arrive_all(x_empty + 8 * slot, nc);\n",
+     "  __syncthreads();   // both halves' sums written, every peer read "
+     "done\n"),
+    ("  // Every consumer thread of the CTA has passed its peer reads.\n"
+     "  cl_arrive_all(x_empty + 8 * slot, nc);\n", ""),
+]
 # Variants run for their time alone (their output is not held to the
 # plain version): measurements of where a tile's time goes.
-DIAGNOSTIC = ("diag_no_ex2",)
+DIAGNOSTIC = ("diag_no_ex2", "cl_diag_own", "cl_diag_nowait")
 
 
 # Part of the softmax's exponentials on the FMA pipe instead of the SFU
@@ -509,29 +559,67 @@ VARIANTS = {
     # The single-pass bf16 flash body past d = 256 (flash_bf16_sp_kernel),
     # each a text edit of flash_attention.cu called through its entry.
     "flash_wide": {
-        "whole_qk": ("single-pass body: each consumer warpgroup forms the "
-                     "whole S itself (1.5x the ideal tensor work, no "
-                     "exchange of partial S)",
+        "whole_qk": ("single-pass body in one CTA: each consumer warpgroup "
+                     "forms the whole S itself (1.5x the ideal tensor work, "
+                     "no exchange of partial S)",
                      [("  constexpr int NKQ = L::KS / 2;",
-                       "  constexpr int NKQ = L::KS;"),
+                       "  constexpr int NKQ = MODE == 0 ? L::KS : L::KS / 2;"),
                       ("  const int kq0 = wg * NKQ;",
-                       "  const int kq0 = 0;"),
-                      ("    sp_exchange<BK>(s, x_mine, x_other, wg, true, "
-                       "kt0 + 1 == n_kt);\n", ""),
-                      ("      sp_exchange<BK>(s, x_mine, x_other, wg, false, "
-                       "kt + 1 == n_kt);\n", "")]),
-        "bk64_one_slot": ("single-pass body: 64-key tiles, one slot a ring, "
-                          "at DQK 512 (two do not fit beside Q; at DQK 576 "
-                          "one does not either, and 32 x 2 stays)",
+                       "  const int kq0 = MODE == 0 ? 0 : wg * NKQ;"),
+                      ("    sp_exchange<L::BK>(s, x_mine, x_other, wg, "
+                       "first, last);\n", "    ;\n")]),
+        "bk64_one_slot": ("single-pass body in one CTA: 64-key tiles, one "
+                          "slot a ring, at DQK 512 (two do not fit beside "
+                          "Q; at DQK 576 one does not either, and 32 x 2 "
+                          "stays)",
                           [("  static constexpr int BK = SP_BK;",
-                            "  static constexpr int BK = DQK == 512 ? 64 "
-                            ": SP_BK;"),
+                            "  static constexpr int BK = DQK == 512 && "
+                            "MODE == 0 ? 64 : SP_BK;"),
                            ("  static constexpr int SLOTS = SP_SLOTS;",
-                            "  static constexpr int SLOTS = DQK == 512 ? 1 "
-                            ": SP_SLOTS;")]),
+                            "  static constexpr int SLOTS = DQK == 512 && "
+                            "MODE == 0 ? 1 : SP_SLOTS;")]),
         "one_slot": ("single-pass body: 32-key tiles, one slot a ring",
                      [("constexpr int SP_SLOTS = 2;",
                        "constexpr int SP_SLOTS = 1;")]),
+        "cl_barrier": ("single-pass body in a cluster: one barrier.cluster a "
+                       "tile (every thread of the cluster in lock step, the "
+                       "producers too) in place of the written / read "
+                       "mbarriers",
+                       _CL_LOCKSTEP),
+        "cl_one_xslot": ("single-pass body in a cluster: one partial-S slot "
+                         "a CTA instead of two (a CTA writes a tile's "
+                         "partial only once every peer read the last)",
+                         [("constexpr int SP_XSLOTS = 2;",
+                           "constexpr int SP_XSLOTS = 1;")]),
+        "cl_diag_own": ("diagnostic, timed only (wrong sums): the clusters' "
+                        "exchange reads no peer's S_r (no distributed shared "
+                        "memory read; every barrier kept)",
+                        [("      const uint32_t base = peer_addr(at, r) + 16 "
+                          "* 128 * N * HF;",
+                          "      continue;\n      const uint32_t base = "
+                          "peer_addr(at, r) + 16 * 128 * N * HF;")]),
+        "cl_diag_nowait": ("diagnostic, timed only (wrong sums): as "
+                           "cl_diag_own, and no wait on the written or read "
+                           "barriers (the arrivals kept)",
+                           [("      const uint32_t base = peer_addr(at, r) + "
+                             "16 * 128 * N * HF;",
+                             "      continue;\n      const uint32_t base = "
+                             "peer_addr(at, r) + 16 * 128 * N * HF;"),
+                            ("  mbar_wait_cluster(x_full + 8 * slot, use & "
+                             "1);\n", ""),
+                            ("  if (use > 0) mbar_wait_cluster(x_empty + 8 * "
+                             "slot, (use - 1) & 1);\n", "")]),
+        "cl_whole_s": ("single-pass body in a cluster: each CTA forms the "
+                       "whole S itself (C x the Q.K^T work, Q in rounds of "
+                       "8 panels through shared memory, no exchange across "
+                       "the cluster; the CTA's two halves still swap)",
+                       [("    s.rounds = ((pq + 7) / 8 + nc - 1) / nc;\n"
+                         "    s.qc0 = rank * s.rounds * 512;",
+                         "    s.rounds = (pq + 7) / 8;\n    s.qc0 = 0;"),
+                        ("  const bool rounds = (d + 63) / 64 > 8 * nc;",
+                         "  const bool rounds = true;"),
+                        ("  if constexpr (MODE == 0) {\n    sp_exchange",
+                         "  if constexpr (true) {\n    sp_exchange")]),
     },
     # The fp32 flash bodies (flash_f32_kernel up to d = 256,
     # flash_f32_sp_kernel past it), each a text edit of flash_attention.cu
@@ -551,10 +639,13 @@ VARIANTS = {
                  "micro-tile (8 rows x 2 keys of S a lane)",
                  [("constexpr int F32_BK = 64;",
                    "constexpr int F32_BK = 32;")]),
-        "sp_bk32": ("single-pass body: 32-key tiles (4 rows x 4 keys of S "
-                    "a lane), twice the barriers a key",
-                    [("constexpr int F32SP_BK = 64;",
-                      "constexpr int F32SP_BK = 32;")])
+        "cl_barrier": ("single-pass body in a cluster: one barrier.cluster a "
+                       "tile in place of the written / read mbarriers",
+                       _CL_LOCKSTEP),
+        "cl_one_xslot": ("single-pass body in a cluster: one partial-S slot "
+                         "a CTA instead of two",
+                         [("constexpr int F32SP_XSLOTS = 2;",
+                           "constexpr int F32SP_XSLOTS = 1;")]),
     },
     # The bf16 body at d <= 128 (flash_bf16_ws_kernel<64, 64> and <128,
     # 128>), each a text edit of flash_attention.cu called through its
@@ -1014,15 +1105,44 @@ def flash_phase(torch, cs, ops, ref, fns):
 # Flash past d = 256 (bf16, causal), timed: (label, query heads, KV heads,
 # T, d, dv): chip_smoke.py's two timed rows.
 FLASH_WIDE_TIMED = [("d=512", 32, 32, 2048, 512, 512),
-                    ("absorbed MLA", 128, 1, 2048, 576, 512)]
+                    ("absorbed MLA", 128, 1, 2048, 576, 512),
+                    ("d=1024", 32, 32, 2048, 1024, 1024),
+                    ("d=2048", 32, 32, 2048, 2048, 2048)]
+# Past the single CTA's reach (d > 576 or dv > 512) only the checkout's
+# body, the parent's and the variants named CLUSTER_PREFIX* are timed (the
+# other variants run the checkout's code there), each in fewer calls.
+CLUSTER_PREFIX = "cl_"
+
+
+def cluster_row(d, dv):
+    """Whether (d, dv) lies past one CTA's reach."""
+    return d > 576 or dv > 512
+
+
+def timed_builds(names, d, dv):
+    """The builds timed at (d, dv), in the order change, the others,
+    change."""
+    keep = [nm for nm in names if nm != "change" and (
+        not cluster_row(d, dv) or nm == "parent"
+        or nm.startswith(CLUSTER_PREFIX))]
+    return ["change"] + keep + ["change"]
+
+
+def row_reps(d, dv):
+    """median_ms's (reps, launches) at (d, dv): fewer past one CTA's
+    reach, where the parent's d-sliced bodies take 0.1-0.3 s a call."""
+    return (3, 3) if cluster_row(d, dv) else (5, 20)
 # ... and held to the plain version (d, dv) in each of chip_smoke.py's
 # CONTRACT_MODES.
-FLASH_WIDE_CHECKED = ((320, 100), (385, 256), (512, 512), (576, 512))
+FLASH_WIDE_CHECKED = ((320, 100), (385, 256), (512, 512), (576, 512),
+                      (640, 640), (1024, 1024), (1100, 64), (600, 513),
+                      (4160, 4160))
 
 
 def flash_wide_phase(torch, cs, ops, ref, fns):
-    """Each build of the single-pass body (and the parent's, the d-sliced
-    body there) held to the plain version with ``check_rows`` on
+    """Each build of the single-pass body (and the parent's: past d = 576
+    its d-sliced body until the clusters came) held to the plain version
+    with ``check_rows`` on
     ``chip_smoke.CONTRACT_MODES`` at ``FLASH_WIDE_CHECKED`` and at the
     timed rows, its bits compared with the checkout's body and with a
     second launch of its own, and timed at ``FLASH_WIDE_TIMED`` (change,
@@ -1030,7 +1150,6 @@ def flash_wide_phase(torch, cs, ops, ref, fns):
     Fails if a build fails its check or two of its launches differ."""
     gen = torch.Generator(device="cuda").manual_seed(29)
     names = [n for k, n in fns if k == "flash_wide"]
-    order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
 
     def qkv(bh, kvh, tq, tk, d, dv):
         return (torch.randn(bh, tq, d, generator=gen, device="cuda"
@@ -1039,40 +1158,85 @@ def flash_wide_phase(torch, cs, ops, ref, fns):
                               ).bfloat16() for n in (d, dv)))
 
     n_checked = 0
+    # Whether each build gives the checkout's and the parent's bits on
+    # every checked case within one CTA's reach.
+    checked = [nm for nm in names if nm not in DIAGNOSTIC]
+    bits = {nm: {"change": True, "parent": True} for nm in checked}
     for d, dv in FLASH_WIDE_CHECKED:
         for label, tq, tk, h, g, causal, window in cs.CONTRACT_MODES:
             q, k, v = qkv(h, h // g, tq, tk, d, dv)
             want = ref.flash_attention_plain(q, k, v, causal, window)
-            for nm in names:
+            got = {}
+            for nm in checked:
                 with entry_as(ops, fns[("flash_wide", nm)]):
+                    got[nm] = ops.flash_attention(q, k, v, causal, window)
                     cs.check_rows(torch, f"flash {nm} d={d} dv={dv} {label}",
-                                  ops.flash_attention(q, k, v, causal,
-                                                      window), want)
+                                  got[nm], want)
                 n_checked += 1
-    log(f"flash past d = 256: {len(names)} builds pass check_rows on "
-        f"{len(FLASH_WIDE_CHECKED) * len(cs.CONTRACT_MODES)} cases each")
-    out = {"cases_checked": n_checked}
+            if not cluster_row(d, dv):
+                for nm in checked:
+                    for other in ("change", "parent"):
+                        if other in got:
+                            bits[nm][other] &= bool(torch.equal(got[nm],
+                                                                got[other]))
+        log(f"flash d={d} dv={dv}: {', '.join(checked)} pass check_rows in "
+            f"every mode")
+    log(f"flash past d = 256: {len(checked)} builds pass check_rows on "
+        f"{len(FLASH_WIDE_CHECKED) * len(cs.CONTRACT_MODES)} cases each; "
+        "within one CTA's reach, bit for bit the checkout's / the "
+        "parent's: " + ", ".join(f"{nm} {b['change']} / {b['parent']}"
+                                  for nm, b in bits.items()))
+    if "parent" in names and not bits["change"]["parent"]:
+        cs.fail("flash past d = 256: the checkout's body differs from the "
+                "parent's within one CTA's reach")
+    out = {"cases_checked": n_checked, "bits_equal_within_reach": bits}
+    # Clusters resident at once (cudaOccupancyMaxActiveClusters) for each
+    # cluster size the rule gives, at d = dv = 512 C (d = 4,160: Q in
+    # rounds), each type.
+    resident = {}
+    for d in [512 * c for c in range(2, 9)] + [4160]:
+        for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+            resident[f"{str(dt)[6:]} d={d}"] = {
+                "cluster": ops.flash_cluster(dt, d, d),
+                "resident": ops.entry("flash_clusters_resident")(code, code,
+                                                                 d, d)}
+    log("clusters resident at once: " + ", ".join(
+        f"{k} (C = {r['cluster']}) {r['resident']}"
+        for k, r in resident.items()))
+    out["clusters_resident"] = resident
     for label, bh, kvh, t, d, dv in FLASH_WIDE_TIMED:
         q, k, v = qkv(bh, kvh, t, t, d, dv)
         want = ref.flash_attention_plain(q, k, v, True)
         with entry_as(ops, fns[("flash_wide", "change")]):
             mine = ops.flash_attention(q, k, v, True)
-        row = {}
-        for i, nm in enumerate(order):
+        reps, calls = row_reps(d, dv)
+        builds = timed_builds(names, d, dv)
+        row = {"body": ops.flash_body(torch.bfloat16, d, dv),
+               "cluster": ops.flash_cluster(torch.bfloat16, d, dv)}
+        for i, nm in enumerate(builds):
             with entry_as(ops, fns[("flash_wide", nm)]):
                 got = ops.flash_attention(q, k, v, True)
-                whole, worst = cs.check_rows(torch, f"flash {nm} {label}",
-                                             got, want)
-                if not torch.equal(got, ops.flash_attention(q, k, v, True)):
-                    cs.fail(f"flash {nm} {label}: two launches differ")
+                if nm in DIAGNOSTIC:      # timed only
+                    whole = worst = None
+                else:
+                    whole, worst = cs.check_rows(
+                        torch, f"flash {nm} {label}", got, want)
+                    if not torch.equal(got, ops.flash_attention(q, k, v,
+                                                                True)):
+                        cs.fail(f"flash {nm} {label}: two launches differ")
                 ms = cs.median_ms(torch, lambda: ops.flash_attention(
-                    q, k, v, True))
-            row[nm if i < len(order) - 1 else "change_again"] = {
+                    q, k, v, True), reps=reps, launches=calls)
+            row[nm if i < len(builds) - 1 else "change_again"] = {
                 "ms": ms, "rel_l2_whole": whole, "rel_l2_worst_row": worst,
                 "equal_to_change": bool(torch.equal(got, mine))}
             del got
         lib, how = cs.sdpa_yardstick(torch, q, k, v)
-        row["sdpa"] = {"ms": cs.median_ms(torch, lib), "how": how}
+        row["sdpa"] = {"ms": cs.median_ms(torch, lib, reps=reps,
+                                          launches=calls), "how": how,
+                       "backend": cs.sdpa_backend(torch, lib)}
+        row["plain"] = {"ms": cs.median_ms(
+            torch, lambda: ref.flash_attention_plain(q, k, v, True),
+            reps=3, launches=3)}
         b_ms, b_by = cs.flash_bound(bh, t, t, d, True, 2,
                                     cs.PEAK_BF16_FLOP_S, kv_heads=kvh, dv=dv)
         row["bound_ms"] = b_ms
@@ -1083,24 +1247,29 @@ def flash_wide_phase(torch, cs, ops, ref, fns):
             "causal) ms: " + ", ".join(
                 f"{nm} {r['ms']:.4f}" + ("" if r.get("equal_to_change", True)
                                          else " (bits differ)")
-                for nm, r in row.items() if nm != "bound_ms")
-            + f" ({how}); bound {b_ms:.4f} ({b_by})")
+                for nm, r in row.items() if isinstance(r, dict))
+            + f" ({how}, backend {row['sdpa']['backend']}; body "
+            f"{row['body']}, C = {row['cluster']}); bound {b_ms:.4f} "
+            f"({b_by})")
     return out
 
 
 # The fp32 bodies, timed: (label, query heads, KV heads, T, d, dv, the
 # body): chip_smoke.py's two fp32 rows (causal).
 FLASH_F32_TIMED = [("qwen3-0.6b", 64, 32, 2048, 128, 128, "fp32"),
-                   ("d=512", 32, 32, 2048, 512, 512, "fp32 single-pass")]
+                   ("d=512", 32, 32, 2048, 512, 512, "fp32 single-pass"),
+                   ("d=1024", 32, 32, 2048, 1024, 1024, "fp32 single-pass"),
+                   ("d=2048", 32, 32, 2048, 2048, 2048, "fp32 single-pass")]
 # ... and held to the plain version (d, dv) in each of chip_smoke.py's
 # CONTRACT_MODES: each instantiation and the staged route's widths.
 FLASH_F32_CHECKED = ((33, 33), (64, 64), (128, 128), (192, 128),
-                     (255, 255), (320, 100), (512, 512), (576, 512))
+                     (255, 255), (320, 100), (512, 512), (576, 512),
+                     (640, 640), (1024, 1024), (1100, 64), (4160, 4160))
 
 
 def flash_f32_phase(torch, cs, ops, ref, fns):
-    """Each build of the fp32 bodies (and the parent's: its fp32 body up
-    to d = 256, its d-sliced body past it) held to the plain version at
+    """Each build of the fp32 bodies (and the parent's: past d = 576 its
+    d-sliced body until the clusters came) held to the plain version at
     rtol 1e-5 / atol 1e-4 on ``chip_smoke.CONTRACT_MODES`` at
     ``FLASH_F32_CHECKED`` and at the timed rows, its bits compared with
     the checkout's bodies and with a second launch of its own, and timed
@@ -1110,7 +1279,6 @@ def flash_f32_phase(torch, cs, ops, ref, fns):
     launches differ."""
     gen = torch.Generator(device="cuda").manual_seed(30)
     names = [n for k, n in fns if k == "flash_f32"]
-    order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
 
     def qkv(bh, kvh, tq, tk, d, dv):
         return (torch.randn(bh, tq, d, generator=gen, device="cuda"),
@@ -1121,23 +1289,35 @@ def flash_f32_phase(torch, cs, ops, ref, fns):
         with entry_as(ops, fns[("flash_f32", nm)]):
             return ops.flash_attention(q, k, v, causal, window)
 
-    n_checked, bits = 0, {nm: True for nm in names}
+    # Whether each build gives the checkout's bits on every checked case,
+    # and the parent's on those within one CTA's reach.
+    n_checked = 0
+    bits = {nm: {"change": True, "parent": True} for nm in names}
     for d, dv in FLASH_F32_CHECKED:
         for label, tq, tk, h, g, causal, window in cs.CONTRACT_MODES:
             q, k, v = qkv(h, h // g, tq, tk, d, dv)
             want = ref.flash_attention_plain(q, k, v, causal, window)
-            mine = run("change", q, k, v, causal, window)
+            got = {}
             for nm in names:
-                got = run(nm, q, k, v, causal, window)
+                got[nm] = run(nm, q, k, v, causal, window)
                 cs.check_close(torch, f"flash {nm} d={d} dv={dv} {label}",
-                               got, want, cs.KERNEL_RTOL, cs.KERNEL_ATOL)
-                bits[nm] &= bool(torch.equal(got, mine))
+                               got[nm], want, cs.KERNEL_RTOL, cs.KERNEL_ATOL)
                 n_checked += 1
+            for nm in names:
+                bits[nm]["change"] &= bool(torch.equal(got[nm],
+                                                       got["change"]))
+                if "parent" in got and not cluster_row(d, dv):
+                    bits[nm]["parent"] &= bool(torch.equal(got[nm],
+                                                           got["parent"]))
     log(f"fp32 flash: {len(names)} builds within rtol {cs.KERNEL_RTOL} / "
         f"atol {cs.KERNEL_ATOL} on "
         f"{len(FLASH_F32_CHECKED) * len(cs.CONTRACT_MODES)} cases each; "
-        "bit for bit the checkout's bodies on every case: " + ", ".join(
-            f"{nm} {'yes' if ok else 'no'}" for nm, ok in bits.items()))
+        "bit for bit the checkout's bodies on every case / the parent's "
+        "within one CTA's reach: " + ", ".join(
+            f"{nm} {b['change']} / {b['parent']}" for nm, b in bits.items()))
+    if "parent" in names and not bits["change"]["parent"]:
+        cs.fail("fp32 flash: the checkout's bodies differ from the "
+                "parent's within one CTA's reach")
     out = {"cases_checked": n_checked, "bits_equal_on_checked": bits}
     for label, bh, kvh, t, d, dv, body in FLASH_F32_TIMED:
         if ops.flash_body(torch.float32, d, dv) != body:
@@ -1146,8 +1326,10 @@ def flash_f32_phase(torch, cs, ops, ref, fns):
         q, k, v = qkv(bh, kvh, t, t, d, dv)
         want = ref.flash_attention_plain(q, k, v, True)
         mine = run("change", q, k, v, True)
-        row = {}
-        for i, nm in enumerate(order):
+        reps, calls = row_reps(d, dv)
+        builds = timed_builds(names, d, dv)
+        row = {"cluster": ops.flash_cluster(torch.float32, d, dv)}
+        for i, nm in enumerate(builds):
             with entry_as(ops, fns[("flash_f32", nm)]):
                 got = ops.flash_attention(q, k, v, True)
                 err = cs.check_close(torch, f"flash {nm} {label}", got,
@@ -1155,14 +1337,18 @@ def flash_f32_phase(torch, cs, ops, ref, fns):
                 if not torch.equal(got, ops.flash_attention(q, k, v, True)):
                     cs.fail(f"flash {nm} {label}: two launches differ")
                 ms = cs.median_ms(torch, lambda: ops.flash_attention(
-                    q, k, v, True))
-            row[nm if i < len(order) - 1 else "change_again"] = {
+                    q, k, v, True), reps=reps, launches=calls)
+            row[nm if i < len(builds) - 1 else "change_again"] = {
                 "ms": ms, "max_abs_err": err,
                 "equal_to_change": bool(torch.equal(got, mine))}
             del got
         lib, how = cs.sdpa_yardstick(torch, q, k, v)
-        row["sdpa"] = {"ms": cs.median_ms(torch, lib), "how": how,
+        row["sdpa"] = {"ms": cs.median_ms(torch, lib, reps=reps,
+                                          launches=calls), "how": how,
                        "backend": cs.sdpa_backend(torch, lib)}
+        row["plain"] = {"ms": cs.median_ms(
+            torch, lambda: ref.flash_attention_plain(q, k, v, True),
+            reps=3, launches=3)}
         if kvh < bh:
             kr, vr = (x.repeat_interleave(bh // kvh, dim=0) for x in (k, v))
             lib_r, _ = cs.sdpa_yardstick(torch, q, kr, vr)
@@ -1180,9 +1366,9 @@ def flash_f32_phase(torch, cs, ops, ref, fns):
             f"dv={dv}, causal; {body}) ms: " + ", ".join(
                 f"{nm} {r['ms']:.4f}" + ("" if r.get("equal_to_change", True)
                                          else " (bits differ)")
-                for nm, r in row.items() if nm != "bound_ms")
-            + f" (SDPA {how}, backend {row['sdpa']['backend']}); bound "
-            f"{b_ms:.4f} ({b_by})")
+                for nm, r in row.items() if isinstance(r, dict))
+            + f" (SDPA {how}, backend {row['sdpa']['backend']}; C = "
+            f"{row['cluster']}); bound {b_ms:.4f} ({b_by})")
     return out
 
 

@@ -58,12 +58,17 @@ _ARGTYPES = {
     "flash_attention": ("flash_attention_fwd", [_c_void_p] * 4
                         + [_c_int] * 10 + [_c_float, _c_void_p]),
     "flash_body": ("flash_attention_body", [_c_int] * 3),
+    "flash_cluster": ("flash_attention_cluster", [_c_int] * 3),
+    "flash_clusters_resident": ("flash_attention_clusters_resident",
+                                [_c_int] * 4),
     "densify": ("ell_densify_f32", [_c_void_p] * 3 + [_c_int] * 3
                 + [_c_ll, _c_void_p]),
 }
 # Entry points that live in another kernel's source (library).
 _SOURCE_OF = {"densify": "gemm", "gemm_mixed": "gemm",
               "flash_body": "flash_attention",
+              "flash_cluster": "flash_attention",
+              "flash_clusters_resident": "flash_attention",
               "gemm_plan": "gemm",
               "spdmm_bf16": "spdmm", "spdmm_bf16_out": "spdmm",
               "spdmm_steps": "spdmm",

@@ -34,11 +34,12 @@
 // kept pair costs 2 (d + dv) flops.  Past d = 256: 137.5 GFLOP at d = 512
 // (BH = 32, T = 2048, causal; 0.139 ms) and 584.4 GFLOP at the absorbed-MLA
 // shape (BH = 128 over one KV head, d = 576, dv = 512; 0.591 ms), where a
-// 64-row CTA does 64 flops per byte of K and V it reads through L2.  In
-// fp32 the products run on CUDA cores (67 TFLOP/s): 1.03 ms at qwen3's
-// shape, 2.05 ms at d = 512, where a CUDA-core FMA wants at most about a
-// byte of shared memory read (an SM reads 128 bytes and issues 128 fp32
-// FMAs a clock).
+// 64-row CTA does 64 flops per byte of K and V it reads through L2; 275.0
+// GFLOP at d = dv = 1,024 (0.278 ms).  In fp32 the products run on CUDA
+// cores (67 TFLOP/s): 1.03 ms at qwen3's shape, 2.05 ms at d = 512, 4.10
+// ms at d = 1,024, where a CUDA-core FMA wants at most about a byte of
+// shared memory read (an SM reads 128 bytes and issues 128 fp32 FMAs a
+// clock).
 //
 // Design.  Hopper runs blocks in parallel, so the Pallas grid's sequential
 // KV walk becomes a loop inside one CTA per (bh, query tile), with the
@@ -127,34 +128,59 @@
 //    DQK = DV = 128 (Q 64 KB, two 33 KB K slots, two 32 KB V slots, P 32
 //    KB), 201 KB at 256.  Instantiations (DQK, DV): (32, 32), (64, 64),
 //    (128, 128), (256, 128), (256, 256).
-//  * fp32 inputs, 256 < d <= 576 and dv <= 512: one pass, O split by
-//    columns.  A CTA owns 64 query rows and its 256 threads two halves;
-//    each half forms S over its 32 columns of every 64-column K piece, the
+//  * fp32 inputs past d = 256: one pass, O split by columns (code 7).  Up
+//    to d = 576 with dv <= 512 a CTA owns 64 query rows and its 256
+//    threads two halves; each half forms S over its 32 columns of every
+//    64-column K piece, the
 //    partial S tiles are swapped through shared memory and summed (both
 //    halves then hold the same bits, m and l), and each half holds half
 //    of O's 64-column chunks (8 rows x 16 columns a lane: 128 fp32 at dv
 //    = 512; S 8 x 4).  Q (64 x 576, 145 KB) stays in shared memory; K
 //    pieces (64 keys x 64 columns) and V pieces (8 keys x 512 columns)
 //    stream through one ring of two slots by cp.async, the staged route
-//    as above, one CTA barrier a piece.  Each S tile is formed once, where
-//    the d-sliced body formed it ceil(dv / 128) times.
-//  * bf16 inputs, 256 < d <= 576 and dv <= 512 (the Pallas kernel takes
-//    any d; DeepSeek-V3's absorbed MLA has d = 576, dv = 512): one pass,
-//    O split by columns.  A CTA owns 64 query rows; two consumer
-//    warpgroups each hold half of O's columns in registers (64 x 256 fp32
+//    as above, one CTA barrier a piece.  Each S tile is formed once.
+//    Past that reach, a cluster (below) whose ranks stream Q's pieces
+//    with K's (Q is not resident), so a rank's slice of d may be any width.
+//  * bf16 inputs past d = 256 (the Pallas kernel takes any d;
+//    DeepSeek-V3's absorbed MLA has d = 576, dv = 512): one pass, O split
+//    by columns (code 5).  Up to d = 576 with dv <= 512 a CTA owns 64
+//    query rows; two consumer warpgroups each hold half of O's columns in
+//    registers (64 x 256 fp32
 //    at dv = 512: 128 a thread), a producer warpgroup fills Q once and
 //    two-slot K and V rings of 32 keys by TMA (setmaxnreg 40 / 232, heads
 //    in groups of 8, the staged route, as above).  Each warpgroup runs
 //    Q.K^T over half of d; the two partial S tiles are exchanged through
 //    shared memory behind named barriers and summed, so both hold the same
 //    S and run the same recurrence, then each runs P.V for its half of O.
-//    Instantiations (DQK, DV): (512, 256), (512, 512), (576, 512).
-//  * past that (d > 576 or dv > 512, fp32 and bf16): one CTA per (bh,
-//    64-row query tile, 128-column slice of the output), fp32 on CUDA
-//    cores or bf16 through mma.sync m16n8k16.  A CTA builds its rows'
-//    whole S = Q.K^T from 64-column chunks of Q and K staged in shared
-//    memory, runs the recurrence and accumulates only its slice of O, so
-//    the Q.K^T work is done ceil(dv / 128) times over.  Simple and slow.
+//    Instantiations (DQK, DV, MODE): (512, 256, 0), (512, 512, 0), (576,
+//    512, 0); in clusters (512, 256 / 512, 1) and (512, 512, 2).
+//  * past one CTA's reach (d > 576 or dv > 512), both single-pass bodies
+//    run in thread-block clusters: what bounds them is still the
+//    products, but neither a CTA's shared memory (Q 64 x d) nor its
+//    registers (O 64 x dv) hold a query tile past that reach.  C =
+//    ceil(d / 512) CTAs (at most 8, the portable cluster size) share a
+//    (head, 64-row query tile): rank r owns the r-th run of q / k's
+//    64-column panels and of v / out's (at most 512 columns each), forms
+//    partial S over its slice of d in its two halves as above and sums
+//    them (S_r), then reads the other ranks' S_r from their shared memory
+//    (mapa / ld.shared::cluster): each half of the CTA sums half of the
+//    tile's elements over the ranks in one fixed order, rank 0 first, and
+//    the halves swap, so every CTA holds the same S, m and l bit for bit,
+//    and each runs P.V and stores only its slice of O.  So S = Q.K^T is
+//    formed once and K and V cross L2 once (the d-sliced bodies this
+//    replaces formed S ceil(dv / 128) times).  The S_r sit in a ring of
+//    two slots a CTA; once the CTA has written one, C threads arrive
+//    (release, cluster scope) on the slot's "written" mbarrier in every
+//    CTA, readers wait (acquire) on their own CTA's, and once the CTA has
+//    read, C threads arrive on every CTA's "read" mbarrier, which a
+//    writer waits on before it reuses the slot: CTAs drift by up to a
+//    tile and nobody waits on a peer's P.V.  The launch sets the cluster
+//    size at run time (cudaLaunchKernelEx); a cluster barrier follows the
+//    barriers' set-up and ends each role, so no CTA leaves while a peer
+//    may read its shared memory.  Past C = 8 (d > 4,096) a bf16 rank
+//    streams its slice of Q.K^T in rounds of 8 panels, each round's Q and
+//    K loaded together (MODE 2), and v / out past 4,096 columns run as
+//    slabs of 4,096, one launch each (S formed once a slab).
 // Every body writes out in fp32 or bf16 (`out_dtype`, the Pallas kernel's
 // argument), rounding the fp32 result once at the store.
 // The kernel launches on the caller's stream and allocates nothing.
@@ -167,8 +193,9 @@
 
 namespace {
 
-constexpr int BQ = 64;           // d-sliced bodies: query rows per CTA
-constexpr int BK = 64;           // d-sliced bodies: keys per staged KV tile
+// The fewest query rows a CTA of any body holds: the entry's bound on Tq
+// keeps the fp32 bodies' grid y (ceil(Tq / rows a CTA)) within 65,535.
+constexpr int BQ = 64;
 constexpr float NEG = -1e30f;    // initial running max (as the Pallas NEG)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -256,6 +283,229 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ------------------------------------------------------------------------ //
+// mbarriers, and thread-block clusters: distributed shared memory and its
+// barriers.
+// ------------------------------------------------------------------------ //
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(bar) : "memory");
+}
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+__device__ __forceinline__ int cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+// The address in CTA `rank`'s shared memory of the variable at `local` in
+// this CTA's (a shared::cluster address).
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+// x = the 4 floats at shared::cluster address `addr` (ADD: x += them),
+// the load and the additions in one block, so that no scheduler hoists a
+// run of loads ahead of their additions (registers are scarce where this
+// runs).
+template <bool ADD>
+__device__ __forceinline__ void ld_peer4(float& x0, float& x1, float& x2,
+                                         float& x3, uint32_t addr) {
+  if constexpr (ADD)
+    asm volatile(
+        "{\n.reg .f32 a, b, c, d;\n"
+        "ld.shared::cluster.v4.f32 {a, b, c, d}, [%4];\n"
+        "add.f32 %0, %0, a;\nadd.f32 %1, %1, b;\n"
+        "add.f32 %2, %2, c;\nadd.f32 %3, %3, d;\n}\n"
+        : "+f"(x0), "+f"(x1), "+f"(x2), "+f"(x3) : "r"(addr) : "memory");
+  else
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(x0), "=f"(x1), "=f"(x2), "=f"(x3)
+                 : "r"(addr) : "memory");
+}
+// The same from this CTA's own shared memory (a shared::cta address).
+template <bool ADD>
+__device__ __forceinline__ void ld_own4(float& x0, float& x1, float& x2,
+                                        float& x3, uint32_t addr) {
+  if constexpr (ADD)
+    asm volatile(
+        "{\n.reg .f32 a, b, c, d;\n"
+        "ld.shared.v4.f32 {a, b, c, d}, [%4];\n"
+        "add.f32 %0, %0, a;\nadd.f32 %1, %1, b;\n"
+        "add.f32 %2, %2, c;\nadd.f32 %3, %3, d;\n}\n"
+        : "+f"(x0), "+f"(x1), "+f"(x2), "+f"(x3) : "r"(addr) : "memory");
+  else
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(x0), "=f"(x1), "=f"(x2), "=f"(x3)
+                 : "r"(addr) : "memory");
+}
+// One arrival on the barrier at shared::cluster address `addr` (in any CTA
+// of the cluster), releasing this thread's earlier accesses (and those
+// ordered before them, as a __syncwarp orders its warp's) at cluster scope.
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, "
+               "[%0];\n" ::"r"(addr) : "memory");
+}
+// mbar_wait, acquiring at cluster scope what the arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+// Every non-exited thread of the cluster: arrive, then wait for the rest.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// Threads 0 .. C - 1 each arrive once on the barrier at `bar` (a slot's
+// written or read barrier) of CTA `threadIdx.x` of the cluster.
+__device__ __forceinline__ void cl_arrive_all(uint32_t bar, int nc) {
+  if (threadIdx.x < nc) mbar_arrive_peer(peer_addr(bar, threadIdx.x));
+}
+// Half HF of a thread's S (its float4s N HF .. N HF + N - 1 of 2N)
+// summed over the cluster in rank order, in place in `s`: each rank's S_r
+// read at `at` (the slot, offset to this thread's float4; its float4 i
+// lies 16 * 128 * i bytes on) in its shared memory, this CTA's with a
+// plain shared load (`s` holds it until its turn only at rank 0).
+template <int N, int HF>
+__device__ __forceinline__ void cl_sum_half(float (&s)[8 * N], uint32_t at,
+                                            int rank, int nc) {
+  constexpr int F = 4 * N * HF;           // the half's first element
+  for (int r = 0; r < nc; ++r) {
+    if (r == rank) {
+      if (r > 0) {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          ld_own4<true>(s[F + 4 * i], s[F + 4 * i + 1], s[F + 4 * i + 2],
+                        s[F + 4 * i + 3], at + 16 * 128 * (N * HF + i));
+      }
+    } else {
+      const uint32_t base = peer_addr(at, r) + 16 * 128 * N * HF;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if (r == 0)
+          ld_peer4<false>(s[F + 4 * i], s[F + 4 * i + 1], s[F + 4 * i + 2],
+                          s[F + 4 * i + 3], base + 16 * 128 * i);
+        else
+          ld_peer4<true>(s[F + 4 * i], s[F + 4 * i + 1], s[F + 4 * i + 2],
+                         s[F + 4 * i + 3], base + 16 * 128 * i);
+      }
+    }
+  }
+}
+// The clusters' gather of partial S, both bodies' (bf16 cl_exchange and
+// fp32 f32_cl_exchange, which sum the CTA's S_r first and swap the halves
+// after).  A CTA's S_r sit in a ring of slots (float4 [2N][128 threads]);
+// the use `use` of slot `slot` waits until every CTA has read its last
+// use (the slot's "read" barrier), this thread writes its half `hf` of
+// S_r there (`pub`: its float4 0 in the slot), and once the CTA's NT
+// threads have (CTA barrier BAR) threads 0 .. C - 1 arrive (release,
+// cluster scope) on the slot's "written" barrier of every CTA; after this
+// CTA's completes (acquire), half `hf` is summed over the ranks.  The
+// caller arrives on every CTA's read barrier (cl_arrive_all) once the
+// CTA's every thread has passed its sums.
+template <int N, int BAR, int NT>
+__device__ __forceinline__ void cl_gather(float (&s)[8 * N], float4* pub,
+                                          uint32_t x_full, uint32_t x_empty,
+                                          int slot, int use, int hf,
+                                          int rank, int nc) {
+  if (use > 0) mbar_wait_cluster(x_empty + 8 * slot, (use - 1) & 1);
+#pragma unroll
+  for (int i = 0; i < 2 * N; ++i)
+    if (i / N == hf)
+      pub[128 * i] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2],
+                                 s[4 * i + 3]);
+  asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(NT) : "memory");
+  cl_arrive_all(x_full + 8 * slot, nc);
+  mbar_wait_cluster(x_full + 8 * slot, use & 1);
+  const uint32_t at = smem_u32(pub);
+  if (hf == 0)
+    cl_sum_half<N, 0>(s, at, rank, nc);
+  else
+    cl_sum_half<N, 1>(s, at, rank, nc);
+}
+
+// A CTA's share of a call spread over a cluster (bodies' MODE 1 and 2),
+// or the whole call (MODE 0).  Rank r of C owns the r-th run of 64-column
+// panels of q / k (whole panels, ceil(panels / C) a rank: at most 8, 512
+// columns, as C = ceil(d / 512)) and of v / out (the same split of dv's
+// panels).  Past C = 8 (d > 4,096) a rank's q / k run is whole rounds of 8
+// panels (MODE 2: Q streams through shared memory a round at a time).
+struct Slice {
+  int rank, nc;     // this CTA's rank, the cluster's CTAs
+  int qc0;          // the first column of q / k this rank reads
+  int np_q;         // q / k panels loaded a round (zero past d)
+  int rounds;       // rounds of Q.K^T a key tile (MODE 2), else 1
+  int v0;           // the first column of v / out this rank owns
+  int np_v;         // v panels loaded (zero past dv)
+  int vend;         // one past the last column of out this rank stores
+};
+
+// The slice of rank `rank` of `nc` for q / k of width d and the columns
+// [vs0, vs0 + dvs) of v / out.
+template <int MODE>
+__device__ __forceinline__ Slice make_slice(int rank, int nc, int d, int dv,
+                                            int vs0, int dvs) {
+  Slice s;
+  s.rank = rank;
+  s.nc = nc;
+  const int pq = (d + 63) / 64;
+  if constexpr (MODE == 0) {
+    s.qc0 = 0;
+    s.np_q = pq;
+    s.rounds = 1;
+    s.v0 = 0;
+    s.np_v = (dv + 63) / 64;
+    s.vend = dv;
+    return s;
+  }
+  if constexpr (MODE == 2) {
+    s.rounds = ((pq + 7) / 8 + nc - 1) / nc;
+    s.qc0 = rank * s.rounds * 512;
+    s.np_q = 8;
+  } else {
+    const int per = (pq + nc - 1) / nc;
+    s.rounds = 1;
+    s.qc0 = rank * per * 64;
+    s.np_q = max(0, min(per, pq - rank * per));
+  }
+  const int per_v = ((dvs + 63) / 64 + nc - 1) / nc;
+  s.v0 = vs0 + rank * per_v * 64;
+  s.vend = min(s.v0 + per_v * 64, vs0 + dvs);
+  s.np_v = s.vend > s.v0 ? (s.vend - s.v0 + 63) / 64 : 0;
+  return s;
+}
+
 
 // Rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a [n_rows, w] fp32
 // matrix into dst (row stride LD floats) by the CTA's NT threads, as
@@ -542,6 +792,18 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // for 32.  Q stays in shared memory for the whole walk; K (in pieces of
 // BK keys x DC columns) and V (in pieces of VK keys, 512 columns) stream
 // through one ring of slots.
+//
+// Past one CTA's reach (d > 576 or dv > 512) the same CTA runs as rank r of
+// a cluster of C = min(8, ceil(d / 512)) sharing a (head, query tile), as
+// the bf16 body does: rank r's halves form partial S over the r-th slice
+// of d's 64-column pieces and sum them (S_r), each half sums its rows of
+// S_0 + ... + S_{C-1} in rank order, the peers' through distributed shared
+// memory (a ring of F32SP_XSLOTS slots, each with its written / read
+// barriers), the halves swap, and each CTA holds and stores its own slice
+// of O (at most 512 columns).  Q is not
+// resident there: each K piece's slot also holds the 64 x 64 Q piece it
+// meets, so a slice may be any width (no rounds past C = 8).  dv past
+// 4,096 runs as column slabs of 4,096, one launch each.
 constexpr int F32SP_THREADS = 256;
 constexpr int F32SP_BQ = 64;          // query rows a CTA
 constexpr int F32SP_BK = 64;          // keys a tile
@@ -550,70 +812,172 @@ constexpr int F32SP_VK = 8;           // keys a V piece
 constexpr int F32SP_SLOTS = 2;        // slots of the ring of pieces
 constexpr int F32SP_DQK = 576;        // the reach: d <= 576,
 constexpr int F32SP_DV = 512;         //            dv <= 512
+constexpr int F32SP_XSLOTS = 2;       // a cluster's partial-S slots a CTA
 
+// CL: a rank of a cluster (Q streamed with K, partial slots and their
+// barriers, P in a buffer of its own); else one CTA (Q resident, P in the
+// half's partial buffer).
+template <bool CL>
 struct F32SpSmem {
   static constexpr int KJ = F32SP_BK / 16;    // S columns a lane
-  static constexpr int LDQ = F32SP_DQK + 4;   // a Q row (floats)
-  static constexpr int LDK = F32SP_DC + 4;    // a K piece row
+  static constexpr int LDK = F32SP_DC + 4;    // a K (or Q) piece row
+  static constexpr int LDQ = CL ? LDK : F32SP_DQK + 4;   // a Q row (floats)
   static constexpr int LDV = F32SP_DV;        // a V piece row
   static constexpr int LDX = F32SP_BK + 4;    // a partial-S / P row
-  static constexpr int SLOT = F32SP_BK * LDK > F32SP_VK * LDV
-                                  ? F32SP_BK * LDK : F32SP_VK * LDV;
-  static constexpr int X_OFF = F32SP_BQ * LDQ;              // floats
-  static constexpr int RING_OFF = X_OFF + 2 * F32SP_BQ * LDX;
-  static constexpr int BYTES = 4 * (RING_OFF + F32SP_SLOTS * SLOT);
+  static constexpr int XS = CL ? F32SP_XSLOTS : 0;      // cluster slots
+  static constexpr int KQ = (CL ? 2 : 1) * F32SP_BK * LDK;   // K (+ Q)
+  static constexpr int Q_PIECE = F32SP_BK * LDK;   // Q's offset in a slot
+  static constexpr int SLOT = KQ > F32SP_VK * LDV ? KQ : F32SP_VK * LDV;
+  // A half's partial S, [64][LDX] (in a cluster float4 [8][128
+  // threads]), the halves' two; then a cluster's slots of the CTA's S_r.
+  static constexpr int X_PART = CL ? 8 * 128 * 4 : F32SP_BQ * LDX;
+  static constexpr int X_OFF = CL ? 0 : F32SP_BQ * LDQ;     // floats
+  static constexpr int XC_OFF = X_OFF + 2 * X_PART;
+  static constexpr int P_OFF = XC_OFF + XS * X_PART;
+  static constexpr int RING_OFF = P_OFF + (CL ? F32SP_BQ * LDX : 0);
+  static constexpr int BARS = RING_OFF + F32SP_SLOTS * SLOT;
+  // Barriers (CL, 8 bytes each, from BARS): written X[XS], read X[XS].
+  static constexpr int BYTES = 4 * BARS + (CL ? 16 * XS : 0);
   static_assert(F32SP_BK % F32SP_VK == 0 && F32SP_VK % 4 == 0, "pieces");
+  static_assert(F32SP_BQ == F32SP_BK, "a Q piece fills a K piece's rows");
   static_assert(BYTES <= 232448, "over the 227 KB of shared memory");
 };
 
-template <typename OutT>
+// The cluster's exchange of tile step `step`, as the bf16 body's
+// cl_exchange (below): the CTA's two halves' partials summed in shared
+// memory (S_r; a lane's S as float4 [8][128 threads]: no bank conflict),
+// then cl_gather on slot step % XS, half h summing rows 4 h .. 4 h + 3
+// of a lane's 8 over the cluster; the halves swap their sums, and threads
+// 0 .. C - 1 arrive on every CTA's "read" barrier of the slot.  Every
+// thread of the cluster holding an element then holds the same bits of
+// S = S_0 + ... + S_{C-1}.  `xl` holds the halves' two local buffers,
+// `xc` the slots.
+template <int XS>
+__device__ __forceinline__ void f32_cl_exchange(
+    float (&s)[8][F32SP_BK / 16], float* xl, float* xc, uint32_t x_full,
+    uint32_t x_empty, int h, int tid, int rank, int nc, int step) {
+  static_assert(F32SP_BK / 16 == 4, "a float4 a row of a lane's S");
+  constexpr int X_PART = 8 * 128 * 4;     // floats: one S as float4s
+  float4* mine = reinterpret_cast<float4*>(xl + h * X_PART) + tid;
+  const float4* other =
+      reinterpret_cast<const float4*>(xl + (1 - h) * X_PART) + tid;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    mine[128 * i] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+  __syncthreads();   // both partials written
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    ld_own4<true>(s[i][0], s[i][1], s[i][2], s[i][3],
+                  smem_u32(other + 128 * i));
+  const int slot = step % XS, use = step / XS;
+  // Its CTA barrier (all 256 threads) also orders every read of `other`
+  // before the swap below overwrites it.
+  cl_gather<4, 0, F32SP_THREADS>(
+      reinterpret_cast<float (&)[32]>(s),
+      reinterpret_cast<float4*>(xc + slot * X_PART) + tid, x_full, x_empty,
+      slot, use, h, rank, nc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (i / 4 == h)
+      mine[128 * (i % 4)] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+  __syncthreads();   // both halves' sums written, every peer read done
+  cl_arrive_all(x_empty + 8 * slot, nc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (i / 4 != h) {
+      const float4 x = other[128 * (i % 4)];
+      s[i][0] = x.x;
+      s[i][1] = x.y;
+      s[i][2] = x.z;
+      s[i][3] = x.w;
+    }
+  }
+}
+
+template <typename OutT, bool CL>
 __global__ void __launch_bounds__(F32SP_THREADS, 1)
 flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, OutT* __restrict__ out,
                     int tq, int tk, int d, int dv, int causal, int window,
-                    int group, float scale, int vec_in, int vec_out) {
-  using L = F32SpSmem;
+                    int group, float scale, int vec_in, int vec_out,
+                    int vs0, int dvs) {
+  using L = F32SpSmem<CL>;
   constexpr int KB = F32SP_BK, VK = F32SP_VK, SL = F32SP_SLOTS;
   constexpr int DC = F32SP_DC, HC = F32SP_DC / 2, KJ = L::KJ;
   constexpr int NVP = KB / VK;          // V pieces a tile
   constexpr int OT = F32SP_DV / 128;    // O chunks of 64 columns a half
   extern __shared__ float4 f32sp_smem[];
   float* q_s = reinterpret_cast<float*>(f32sp_smem);   // [64][LDQ]
-  float* x_s = q_s + L::X_OFF;                         // 2 x [64][LDX]
+  float* x_s = q_s + L::X_OFF;                         // the partials
   float* ring = q_s + L::RING_OFF;                     // SL x SLOT
+  const uint32_t x_full = smem_u32(q_s + L::BARS);     // CL: XS each
+  const uint32_t x_empty = x_full + 8 * L::XS;
   const int h = threadIdx.x >> 7;                      // the half
   const int rg = (threadIdx.x & 127) >> 4, cg = threadIdx.x & 15;
   float* x_mine = x_s + h * F32SP_BQ * L::LDX;
   const float* x_other = x_s + (1 - h) * F32SP_BQ * L::LDX;
+  float* p_s = CL ? q_s + L::P_OFF : x_mine;           // P: [64][LDX]
+  const int nc = CL ? cluster_nctarank() : 1;
+  // The rank's slice; in a cluster worked out afresh where it is used
+  // (the rank's special register read again), since no register is left
+  // to keep it across the walk.
+  auto slice = [&]() {
+    return make_slice<CL ? 1 : 0>(CL ? cluster_ctarank() : 0,
+                                  CL ? cluster_nctarank() : 1, d, dv, vs0,
+                                  dvs);
+  };
+  const Slice sl = slice();
   const int q0 = (gridDim.y - 1 - blockIdx.y) * F32SP_BQ;   // heaviest first
-  const long long bh = blockIdx.x;
-  const long long bkv = (int)blockIdx.x / group;
+  const long long bh = (int)blockIdx.x / nc;
+  const long long bkv = bh / group;
+  const float* qb = q + bh * tq * d;
   const float* kb = k + bkv * tk * d;
   const float* vb = v + bkv * tk * dv;
   const bool vec = vec_in != 0;
   const int kt0 = kv_tile_begin(q0, window, KB);
   const int n_kt = kv_tile_end(q0, F32SP_BQ, KB, tk, causal);
-  const int nkp = (d + DC - 1) / DC;    // K pieces a tile
+  const int nkp = sl.np_q;              // K pieces a tile (of the slice)
   const int ppt = nkp + NVP;            // pieces a tile
   const int n_pc = (n_kt - kt0) * ppt;
+  if constexpr (CL) {
+    if (threadIdx.x == 0) {
+      for (int b = 0; b < 2 * L::XS; ++b)   // one arrival a CTA
+        mbar_init(x_full + 8 * b, nc);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_sync();   // every CTA's barriers set before a peer arrives
+  }
 
-  // Piece pc of the walk (tile kt0 + pc / ppt: its K pieces, then its V
-  // pieces) into its slot; one group of copies a piece, empty past the end.
+  // Piece pc of the walk (tile kt0 + pc / ppt: its K pieces, with their Q
+  // pieces in a cluster, then its V pieces) into its slot; one group of
+  // copies a piece, empty past the end.
   auto issue = [&](int pc) {
     if (pc < n_pc) {
       const int kt = kt0 + pc / ppt, st = pc % ppt;
       float* dst = ring + (pc % SL) * L::SLOT;
-      if (st < nkp)
-        f32_stage<KB, DC, L::LDK, F32SP_THREADS>(dst, kb, kt * KB, tk,
-                                                 st * DC, d, vec);
-      else
+      // In a cluster no register is left to keep the copies' addresses
+      // across the walk: the bases are made opaque here, so they are
+      // worked out afresh each piece.
+      const float *kp = kb, *qp = qb, *vp = vb;
+      if constexpr (CL)
+        asm volatile("" : "+l"(kp), "+l"(qp), "+l"(vp));
+      const Slice sc = slice();
+      if (st < nkp) {
+        f32_stage<KB, DC, L::LDK, F32SP_THREADS>(dst, kp, kt * KB, tk,
+                                                 sc.qc0 + st * DC, d, vec);
+        if constexpr (CL)
+          f32_stage<F32SP_BQ, DC, L::LDK, F32SP_THREADS>(
+              dst + L::Q_PIECE, qp, q0, tq, sc.qc0 + st * DC, d, vec);
+      } else {
         f32_stage<VK, F32SP_DV, L::LDV, F32SP_THREADS>(
-            dst, vb, kt * KB + (st - nkp) * VK, tk, 0, dv, vec);
+            dst, vp, kt * KB + (st - nkp) * VK, tk, sc.v0, dv, vec);
+      }
     }
     cp_async_commit();
   };
-  f32_stage<F32SP_BQ, F32SP_DQK, L::LDQ, F32SP_THREADS>(
-      q_s, q + bh * tq * d, q0, tq, 0, d, vec);    // Q: in the first group
+  if constexpr (!CL)
+    f32_stage<F32SP_BQ, F32SP_DQK, L::LDQ, F32SP_THREADS>(
+        q_s, qb, q0, tq, 0, d, vec);    // Q: in the first group
   constexpr int AHEAD = SL > 1 ? SL - 1 : 1;
   for (int t = 0; t < AHEAD; ++t) issue(t);
 
@@ -642,46 +1006,89 @@ flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int j = 0; j < KJ; ++j) s[i][j] = 0.0f;
       }
-      if (st * DC + HC * h < d) {   // this half's columns hold some below d
-        const float* qr = q_s + rg * L::LDQ + st * DC + HC * h;
+      if (slice().qc0 + st * DC + HC * h < d) {   // this half's: some
+        const float* qr = CL ? sp + L::Q_PIECE + rg * L::LDQ + HC * h
+                             : q_s + rg * L::LDQ + st * DC + HC * h;
         const float* kr = sp + cg * L::LDK + HC * h;
-#pragma unroll 2
-        for (int c = 0; c < HC; c += 4) {
-          float4 a[8], b[KJ];
+        if constexpr (CL) {
+          // A cluster's exchange and slice leave fewer registers than one
+          // CTA has: one step at a time, Q's rows in two batches of 4
+          // (each S element's FMAs in the same order).
+#pragma unroll 1
+          for (int c = 0; c < HC; c += 4) {
+            float4 b[KJ];
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
-            a[i] = *reinterpret_cast<const float4*>(qr + 8 * i * L::LDQ + c);
+            for (int j = 0; j < KJ; ++j)
+              b[j] = *reinterpret_cast<const float4*>(kr + 16 * j * L::LDK +
+                                                      c);
 #pragma unroll
-          for (int j = 0; j < KJ; ++j)
-            b[j] = *reinterpret_cast<const float4*>(kr + 16 * j * L::LDK + c);
+            for (int i0 = 0; i0 < 8; i0 += 4) {
+              float4 a[4];
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+              for (int i = 0; i < 4; ++i)
+                a[i] = *reinterpret_cast<const float4*>(
+                    qr + 8 * (i0 + i) * L::LDQ + c);
 #pragma unroll
-            for (int j = 0; j < KJ; ++j) {
-              float x = s[i][j];
-              x = fmaf(a[i].x, b[j].x, x);
-              x = fmaf(a[i].y, b[j].y, x);
-              x = fmaf(a[i].z, b[j].z, x);
-              x = fmaf(a[i].w, b[j].w, x);
-              s[i][j] = x;
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < KJ; ++j) {
+                  float x = s[i0 + i][j];
+                  x = fmaf(a[i].x, b[j].x, x);
+                  x = fmaf(a[i].y, b[j].y, x);
+                  x = fmaf(a[i].z, b[j].z, x);
+                  x = fmaf(a[i].w, b[j].w, x);
+                  s[i0 + i][j] = x;
+                }
             }
+          }
+        } else {
+#pragma unroll 2
+          for (int c = 0; c < HC; c += 4) {
+            float4 a[8], b[KJ];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              a[i] = *reinterpret_cast<const float4*>(qr + 8 * i * L::LDQ +
+                                                      c);
+#pragma unroll
+            for (int j = 0; j < KJ; ++j)
+              b[j] = *reinterpret_cast<const float4*>(kr + 16 * j * L::LDK +
+                                                      c);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < KJ; ++j) {
+                float x = s[i][j];
+                x = fmaf(a[i].x, b[j].x, x);
+                x = fmaf(a[i].y, b[j].y, x);
+                x = fmaf(a[i].z, b[j].z, x);
+                x = fmaf(a[i].w, b[j].w, x);
+                s[i][j] = x;
+              }
+          }
         }
       }
       if (st == nkp - 1) {
-        // The halves' partial S swapped and summed: fp32 addition
-        // commutes, so both halves hold the same bits.
+        if constexpr (CL) {
+          const Slice sx = slice();
+          f32_cl_exchange<L::XS>(s, x_s, q_s + L::XC_OFF, x_full, x_empty,
+                                 h, threadIdx.x & 127, sx.rank, sx.nc,
+                                 pc / ppt);
+        } else {
+          // The halves' partial S swapped and summed: fp32 addition
+          // commutes, so both halves hold the same bits.
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < KJ; ++j)
-            x_mine[(rg + 8 * i) * L::LDX + cg + 16 * j] = s[i][j];
-        __syncthreads();   // both partials written
+            for (int j = 0; j < KJ; ++j)
+              x_mine[(rg + 8 * i) * L::LDX + cg + 16 * j] = s[i][j];
+          __syncthreads();   // both partials written
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < KJ; ++j)
-            s[i][j] += x_other[(rg + 8 * i) * L::LDX + cg + 16 * j];
-        __syncthreads();   // both read: x_mine takes this half's P
+            for (int j = 0; j < KJ; ++j)
+              s[i][j] += x_other[(rg + 8 * i) * L::LDX + cg + 16 * j];
+          __syncthreads();   // both read: x_mine takes this half's P
+        }
         if ((causal && k0 + KB - 1 > q0) || k0 + KB > tk ||
             (window > 0 && q0 + F32SP_BQ - 1 - k0 >= window)) {
 #pragma unroll
@@ -711,7 +1118,9 @@ flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int j = 0; j < KJ; ++j) {
             const float p = exp2f(fmaf(s[i][j], sl2, -mn));   // masked: 0
-            x_mine[(rg + 8 * i) * L::LDX + cg + 16 * j] = p;
+            // In a cluster the halves share one P: each writes half of it.
+            if (!CL || i / 4 == h)
+              p_s[(rg + 8 * i) * L::LDX + cg + 16 * j] = p;
             rs += p;
           }
           l[i] = l[i] * alpha + rs;
@@ -721,7 +1130,9 @@ flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     } else {
       // O += P[:, this piece's keys] . V, this half's chunks below dv.
-      const float* pr = x_mine + rg * L::LDX + (st - nkp) * VK;
+      const float* pr = p_s + rg * L::LDX + (st - nkp) * VK;
+      const Slice sv = slice();
+      const int v_cols = sv.vend - sv.v0;     // this rank's columns of O
       const float* vr = sp + 4 * cg + 64 * h;
 #pragma unroll
       for (int kk = 0; kk < VK; kk += 4) {
@@ -734,7 +1145,7 @@ flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* vrow = vr + (kk + u) * L::LDV;
 #pragma unroll
           for (int t = 0; t < OT; ++t) {
-            if (128 * t + 64 * h >= dv) continue;
+            if (128 * t + 64 * h >= v_cols) continue;
             const float4 b = *reinterpret_cast<const float4*>(vrow + 128 * t);
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
@@ -761,6 +1172,7 @@ flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int off = 8; off > 0; off >>= 1)
       l[i] += __shfl_xor_sync(FULL, l[i], off);
   OutT* ob = out + bh * tq * dv;
+  const Slice so = slice();
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = q0 + rg + 8 * i;
@@ -768,21 +1180,20 @@ flash_f32_sp_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int t = 0; t < OT; ++t) {
-      const int c = 128 * t + 64 * h + 4 * cg;
-      if (c < dv)
+      const int c = so.v0 + 128 * t + 64 * h + 4 * cg;
+      if (c < so.vend)
         store4(ob + (long long)r * dv + c, c, dv, vec_out != 0,
                make_float4(o[i][4 * t] * inv, o[i][4 * t + 1] * inv,
                            o[i][4 * t + 2] * inv, o[i][4 * t + 3] * inv));
     }
   }
+  // No CTA leaves while a peer may still read its partial slots.
+  if constexpr (CL) cluster_sync();
 }
 
 // ------------------------------------------------------------------------ //
-// bf16: wgmma, TMA and mbarrier helpers of the tensor-core bodies.
+// bf16: wgmma and TMA helpers of the tensor-core bodies.
 // ------------------------------------------------------------------------ //
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Byte offset of the 16-byte chunk holding columns c .. c+7 of row r, in
 // 64-column panels of `panel` bytes with the 128-byte swizzle.
@@ -790,28 +1201,9 @@ __device__ __forceinline__ uint32_t swz(int r, int c, int panel) {
   return (c >> 6) * panel + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               ::"r"(bar) : "memory");
-}
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                ::"r"(bar), "r"(bytes) : "memory");
-}
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
 }
 // TMA: the box at (c0, c1, c2) of a 3-D tensor map into shared memory,
 // completing `bar`'s transaction bytes.
@@ -1222,15 +1614,15 @@ __device__ __forceinline__ void turn_pass(int id) {
                : "memory");
 }
 
-// Rows [r0, r0 + ROWS) x columns [0, 64 np) of a [n_rows, w] bf16 matrix,
-// zero past n_rows and w, by the producer warpgroup's 128 threads (pt =
-// 0 .. 127) with plain loads into 128-byte-swizzled panels of `panel`
-// bytes: the layout TMA writes.
+// Rows [r0, r0 + ROWS) x columns [c0, c0 + 64 np) of a [n_rows, w] bf16
+// matrix, zero past n_rows and w, by the producer warpgroup's 128 threads
+// (pt = 0 .. 127) with plain loads into 128-byte-swizzled panels of
+// `panel` bytes: the layout TMA writes.
 template <int ROWS>
 __device__ __forceinline__ void ws_stage(uint8_t* dst,
                                          const __nv_bfloat16* src, int r0,
                                          int n_rows, int w, int np,
-                                         int panel, int pt) {
+                                         int panel, int pt, int c0 = 0) {
   const int cpr = 8 * np;                       // 16-byte chunks a row
   for (int e = pt; e < ROWS * cpr; e += 128) {
     const int r = e / cpr, c = (e % cpr) * 8;
@@ -1238,8 +1630,9 @@ __device__ __forceinline__ void ws_stage(uint8_t* dst,
     __align__(16) __nv_bfloat16 h[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      h[i] = (gr < n_rows && c + i < w) ? src[(long long)gr * w + c + i]
-                                        : __float2bfloat16(0.0f);
+      h[i] = (gr < n_rows && c0 + c + i < w)
+                 ? src[(long long)gr * w + c0 + c + i]
+                 : __float2bfloat16(0.0f);
     *reinterpret_cast<uint4*>(dst + swz(r, c, panel)) =
         *reinterpret_cast<uint4*>(h);
   }
@@ -1619,7 +2012,8 @@ flash_bf16_ws_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ------------------------------------------------------------------------ //
-// bf16, 256 < d <= 576 (dv <= 512): one pass, O split by columns.
+// bf16 past d = 256: one pass, O split by columns; past one CTA's reach
+// (d > 576 or dv > 512) spread over a cluster.
 // ------------------------------------------------------------------------ //
 // A CTA owns 64 query rows and all of O's columns.  64 rows of a 512-wide
 // fp32 O (128 KB) fit no one warpgroup's registers, so each of two consumer
@@ -1637,21 +2031,49 @@ flash_bf16_ws_kernel(const __nv_bfloat16* __restrict__ q,
 // issued behind its Q.K^T of tile j and runs while it exchanges and takes
 // tile j's scores.  (Each warpgroup forming the whole S itself, 1.5x the
 // ideal tensor work and no exchange, is `kernel_variants.py`'s whole_qk.)
+//
+// Past one CTA's reach the same CTA runs as one of a cluster of C =
+// ceil(d / 512) (at most 8) that share a (head, query tile): rank r holds
+// the r-th slice of q / k's 64-column panels (at most 512 columns: Q 64 KB)
+// and of v / out's, so each CTA's warpgroups form partial S over 1 / (2C)
+// of d.  A CTA sums its two partials (S_r, as in one CTA); then S = S_0 +
+// S_1 + ... + S_{C-1} in that fixed order, each warpgroup summing half of
+// the tile's elements over the ranks (its own S_r from registers, the
+// peers' read from their shared memory with ld.shared::cluster) and the
+// two swapping their halves, so every CTA holds the same S, m and l bit
+// for bit and runs P.V for its own slice of O.  A CTA's S_r slots form a
+// ring of SP_XSLOTS; once both warpgroups have written theirs (a named
+// barrier), C threads arrive (release, cluster scope) on the slot's
+// "written" barrier of every CTA; a reader waits on its own CTA's
+// (acquire), sums, and once the CTA's readers are done C threads arrive
+// on every CTA's "read" barrier of the slot, which a writer waits on
+// before it reuses the slot, so CTAs drift by up to a tile.  A CTA reads
+// each peer's S_r once (8 KB a tile): every warpgroup reading all 2C
+// partials read 8x as much at C = 2 and measured slower (PERF.md).  Past C = 8 (d > 4,096) Q is not resident: each
+// tile's Q.K^T runs in rounds of 8 panels, each round's Q and K loaded
+// together (MODE 2), and dv past 4,096 runs as column slabs of 4,096, one
+// launch each.  A CTA leaves only after every peer has passed the last
+// read of its slots (a cluster barrier at the end of both roles).
 constexpr int SP_PRODUCER_REGS = WS_PRODUCER_REGS;   // setmaxnreg's
 constexpr int SP_CONSUMER_REGS = WS_CONSUMER_REGS;   // split, as above
 constexpr int SP_BQ = 64;            // query rows a CTA
 constexpr int SP_BK = 32;            // keys a K / V slot
 constexpr int SP_SLOTS = 2;          // slots a ring
+constexpr int SP_XSLOTS = 2;         // a cluster's partial-S slots a CTA
 // Named barriers over the 256 consumer threads (0 is __syncthreads'):
 // both partials of a tile written; 2 + w: warpgroup w's partial was read
 // (the reader arrives, the writer waits before it writes the next).
 constexpr int SP_BAR_WRITTEN = 1;
 constexpr int SP_BAR_READ = 2;
+// In a cluster: both warpgroups' halves of the CTA's S_r published.
+constexpr int SP_BAR_PUB = 4;
 
-template <int DQK, int DV>
+// MODE 0: one CTA (d <= 576, dv <= 512); 1: a rank of a cluster, Q
+// resident; 2: a rank of a cluster of 8, Q in rounds.
+template <int DQK, int DV, int MODE>
 struct SpSmem {
   static_assert((DQK == 512 && (DV == 256 || DV == 512)) ||
-                    (DQK == 576 && DV == 512),
+                    (DQK == 576 && DV == 512 && MODE == 0),
                 "(DQK, DV) is (512, 256), (512, 512) or (576, 512)");
   static constexpr int BK = SP_BK;
   static constexpr int SLOTS = SP_SLOTS;
@@ -1664,88 +2086,107 @@ struct SpSmem {
   static constexpr int K_SLOT = NQ * KV_PANEL;
   static constexpr int V_SLOT = NV * KV_PANEL;
   static constexpr int X_WG = SP_BQ * BK * 4;   // one partial S, fp32
-  // Q, the K slots, the V slots, the two partial S buffers, the barriers.
+  static constexpr int XS = MODE == 0 ? 0 : SP_XSLOTS;   // cluster slots
+  // Q, the K slots, the V slots, the two warpgroups' partial S buffers, a
+  // cluster's slots of the CTA's S_r (X_WG bytes each), the barriers.
   static constexpr int K_OFF = NQ * Q_PANEL;
   static constexpr int V_OFF = K_OFF + SLOTS * K_SLOT;
   static constexpr int X_OFF = V_OFF + SLOTS * V_SLOT;
-  static constexpr int BARS = X_OFF + 2 * X_WG;
-  // Barriers: full K[SLOTS], full V[SLOTS], empty K[SLOTS], empty V[SLOTS],
-  // Q; + 1 KB to align the base to the 1 KB swizzle period.
-  static constexpr int BYTES = BARS + 8 * (4 * SLOTS + 1) + 1024;
+  static constexpr int XC_OFF = X_OFF + 2 * X_WG;
+  static constexpr int BARS = XC_OFF + XS * X_WG;
+  // Barriers (8 bytes each, from BARS): full K[SLOTS], full V[SLOTS], empty
+  // K[SLOTS], empty V[SLOTS], Q; in a cluster also Q empty, written X[XS],
+  // read X[XS]; + 1 KB to align the base to the 1 KB swizzle period.
+  static constexpr int Q_EMPTY = 8 * (4 * SLOTS + 1);
+  static constexpr int X_FULL = Q_EMPTY + 8;
+  static constexpr int X_EMPTY = X_FULL + 8 * XS;
+  static constexpr int NBARS = 4 * SLOTS + 1 + (MODE == 0 ? 0 : 1 + 2 * XS);
+  static constexpr int BYTES = BARS + 8 * NBARS + 1024;
   static_assert(BYTES <= 232448, "227 KB of shared memory a block");
   static_assert(KS % 2 == 0 && HALF % 64 == 0, "halves of whole steps");
 };
 
-// The producer warpgroup: Q once, then K and V of tiles kt0 .. n_kt - 1
-// into their rings, as ws_produce does, loading only the panels that hold a
-// column below d (Q, K) or dv (V): the others stay zero.  A slot is
-// refilled once both consumer warpgroups have released its last use.
-template <int DQK, int DV>
+// Columns [c0, c0 + 64 np) of rows [r0, r0 + ROWS) of a [n_rows, w] bf16
+// matrix by TMA (one thread) into `np` panels of `panel` bytes, completing
+// `bar`'s transaction bytes, or by the producer's four warps (`pt`) with
+// plain loads, each warp arriving on `bar`; zero past n_rows and w.
+template <int ROWS>
+__device__ __forceinline__ void sp_load(uint8_t* dst, bool tma,
+                                        const CUtensorMap* map,
+                                        const __nv_bfloat16* src, int r0,
+                                        int n_rows, int w, int c0, int np,
+                                        int panel, int head, uint32_t bar,
+                                        int pt) {
+  if (tma) {
+    if (pt != 0) return;
+    mbar_expect_tx(bar, np * panel);
+    for (int p = 0; p < np; ++p)
+      tma_load_3d(smem_u32(dst + p * panel), map, bar, c0 + 64 * p, r0,
+                  head);
+  } else {
+    ws_stage<ROWS>(dst, src, r0, n_rows, w, np, panel, pt, c0);
+    fence_proxy_async();
+    __syncwarp();
+    if ((pt & 31) == 0) mbar_arrive(bar);
+  }
+}
+
+// The producer warpgroup: Q once (or a round at a time, MODE 2), then K
+// and V of tiles kt0 .. n_kt - 1 into their rings, as ws_produce does,
+// loading only this slice's panels that hold a column below d (Q, K) or dv
+// (V): the others stay zero.  A slot is refilled once both consumer
+// warpgroups have released its last use.
+template <int DQK, int DV, int MODE>
 __device__ __forceinline__ void sp_produce(
     uint8_t* smem, uint32_t bars, bool tma, const __nv_bfloat16* qb,
     const __nv_bfloat16* kb, const __nv_bfloat16* vb, int q0, int tq,
     int tk, int d, int dv, int kt0, int n_kt, int bh, int bkv,
-    const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const Slice& sl, const CUtensorMap* qmap, const CUtensorMap* kmap,
     const CUtensorMap* vmap) {
-  using L = SpSmem<DQK, DV>;
+  using L = SpSmem<DQK, DV, MODE>;
   constexpr int SL = L::SLOTS;
-  const int pt = threadIdx.x - WS_CONSUMERS, lane = threadIdx.x & 31;
+  const int pt = threadIdx.x - WS_CONSUMERS;
   const uint32_t full_k = bars, full_v = bars + 8 * SL;
   const uint32_t empty_k = bars + 16 * SL, empty_v = bars + 24 * SL;
-  const uint32_t qbar = bars + 32 * SL;
-  const int np_q = (d + 63) / 64, np_v = (dv + 63) / 64;
-  if (tma) {
-    if (pt != 0) return;
-    mbar_expect_tx(qbar, np_q * L::Q_PANEL);
-    for (int p = 0; p < np_q; ++p)
-      tma_load_3d(smem_u32(smem + p * L::Q_PANEL), qmap, qbar, 64 * p, q0,
-                  bh);
-  } else {
-    ws_stage<SP_BQ>(smem, qb, q0, tq, d, np_q, L::Q_PANEL, pt);
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(qbar);
-  }
+  const uint32_t qbar = bars + 32 * SL, q_empty = bars + L::Q_EMPTY;
+  const int rounds = MODE == 2 ? sl.rounds : 1;
+  if (tma && pt != 0) return;   // one thread issues TMA
+  if constexpr (MODE != 2)
+    sp_load<SP_BQ>(smem, tma, qmap, qb, q0, tq, d, sl.qc0, sl.np_q,
+                   L::Q_PANEL, bh, qbar, pt);
   for (int kt = kt0; kt < n_kt; ++kt) {
-    const int step = kt - kt0, slot = step % SL, use = step / SL;
-    const int k0 = kt * L::BK;
-    uint8_t* ks = smem + L::K_OFF + slot * L::K_SLOT;
-    uint8_t* vs = smem + L::V_OFF + slot * L::V_SLOT;
-    // Use `use - 1` of these slots (tile step - SL): wait for its release.
-    if (step >= SL) mbar_wait(empty_k + 8 * slot, (use & 1) ^ 1);
-    if (tma) {
-      mbar_expect_tx(full_k + 8 * slot, np_q * L::KV_PANEL);
-      for (int p = 0; p < np_q; ++p)
-        tma_load_3d(smem_u32(ks + p * L::KV_PANEL), kmap, full_k + 8 * slot,
-                    64 * p, k0, bkv);
-    } else {
-      ws_stage<L::BK>(ks, kb, k0, tk, d, np_q, L::KV_PANEL, pt);
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(full_k + 8 * slot);
+    const int step = kt - kt0, k0 = kt * L::BK;
+    for (int j = 0; j < rounds; ++j) {
+      // Ring step rs of K (a tile's rounds in turn); use `use - 1` of its
+      // slot (step rs - SL) must be released first.
+      const int rs = step * rounds + j, slot = rs % SL, use = rs / SL;
+      const int c0 = sl.qc0 + 512 * j;
+      if constexpr (MODE == 2) {
+        if (rs > 0) mbar_wait(q_empty, (rs - 1) & 1);
+        sp_load<SP_BQ>(smem, tma, qmap, qb, q0, tq, d, c0, sl.np_q,
+                       L::Q_PANEL, bh, qbar, pt);
+      }
+      if (rs >= SL) mbar_wait(empty_k + 8 * slot, (use & 1) ^ 1);
+      sp_load<L::BK>(smem + L::K_OFF + slot * L::K_SLOT, tma, kmap, kb, k0,
+                     tk, d, c0, sl.np_q, L::KV_PANEL, bkv, full_k + 8 * slot,
+                     pt);
     }
+    const int slot = step % SL, use = step / SL;
     if (step >= SL) mbar_wait(empty_v + 8 * slot, (use & 1) ^ 1);
-    if (tma) {
-      mbar_expect_tx(full_v + 8 * slot, np_v * L::KV_PANEL);
-      for (int p = 0; p < np_v; ++p)
-        tma_load_3d(smem_u32(vs + p * L::KV_PANEL), vmap, full_v + 8 * slot,
-                    64 * p, k0, bkv);
-    } else {
-      ws_stage<L::BK>(vs, vb, k0, tk, dv, np_v, L::KV_PANEL, pt);
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(full_v + 8 * slot);
-    }
+    sp_load<L::BK>(smem + L::V_OFF + slot * L::V_SLOT, tma, vmap, vb, k0, tk,
+                   dv, sl.v0, sl.np_v, L::KV_PANEL, bkv, full_v + 8 * slot,
+                   pt);
   }
 }
 
 // S (+)= Q.K^T over k-steps kq0 .. kq0 + NKQ - 1 (d's columns 16 kq0 ..)
 // for the 64 query rows and the BK keys of a K slot: wgmma m64n{BK}k16,
-// both operands K-major.
-template <int DQK, int DV, int NKQ>
-__device__ __forceinline__ void sp_qk(float (&s)[SpSmem<DQK, DV>::BK / 2],
-                                      uint32_t q_s, uint32_t k_s, int kq0) {
-  using L = SpSmem<DQK, DV>;
+// both operands K-major; `acc` adds to S from the first step on.
+template <int DQK, int DV, int MODE, int NKQ>
+__device__ __forceinline__ void sp_qk(
+    float (&s)[SpSmem<DQK, DV, MODE>::BK / 2], uint32_t q_s, uint32_t k_s,
+    int kq0, int acc) {
+  using L = SpSmem<DQK, DV, MODE>;
 #pragma unroll
   for (int i = 0; i < NKQ; ++i) {
     const int kq = kq0 + i;
@@ -1754,20 +2195,20 @@ __device__ __forceinline__ void sp_qk(float (&s)[SpSmem<DQK, DV>::BK / 2],
     const uint64_t db = gmma_desc(
         k_s + (kq >> 2) * L::KV_PANEL + (kq & 3) * 32, 16, 1024);
     if constexpr (L::BK == 64)
-      wgmma_ss_n64(s, da, db, i > 0);
+      wgmma_ss_n64(s, da, db, i > 0 || acc);
     else
-      wgmma_ss_n32(s, da, db, i > 0);
+      wgmma_ss_n32(s, da, db, i > 0 || acc);
   }
 }
 
 // O[:, this warpgroup's half] += P.V[:, half] for the BK keys of a V slot
 // (v_s at the half's first panel): wgmma m64n{DV/2}k16, P from registers,
 // V MN-major (lbo steps a 64-column panel).
-template <int DQK, int DV>
+template <int DQK, int DV, int MODE>
 __device__ __forceinline__ void sp_pv(
-    float (&o)[DV / 4], uint32_t (&pa)[SpSmem<DQK, DV>::BK / 16][4],
+    float (&o)[DV / 4], uint32_t (&pa)[SpSmem<DQK, DV, MODE>::BK / 16][4],
     uint32_t v_s) {
-  using L = SpSmem<DQK, DV>;
+  using L = SpSmem<DQK, DV, MODE>;
 #pragma unroll
   for (int kc = 0; kc < L::BK / 16; ++kc) {
     const uint64_t db = gmma_desc(v_s + kc * 16 * 128, L::KV_PANEL, 1024);
@@ -1805,28 +2246,120 @@ __device__ __forceinline__ void sp_exchange(float (&s)[BK / 2], float4* mine,
   if (!last) turn_pass(SP_BAR_READ + (wg ^ 1));
 }
 
+// The cluster's exchange of tile step `step`.  The CTA's two partials are
+// summed first (sp_exchange: S_r, the same bits in both warpgroups); then
+// cl_gather on the CTA's slot step % XS (float4 [BK / 8][128 threads]),
+// each warpgroup publishing and summing over the cluster its half of S_r
+// (float4s H wg .. H wg + H - 1 of a thread's 2H) behind named barrier
+// SP_BAR_PUB; the warpgroups swap the halves they summed (sp_exchange's
+// buffers and barriers), and the first warp arrives on every CTA's "read"
+// barrier of the slot.  Every warpgroup of every CTA then holds S = S_0 +
+// S_1 + ... + S_{C-1} with the same bits, and a CTA reads each peer's S_r
+// once, 8 KB a tile.  `x_s` is the CTA's slot 0 offset to this thread's
+// float4.
+template <int BK, int XS>
+__device__ __forceinline__ void cl_exchange(
+    float (&s)[BK / 2], float4* x_mine, const float4* x_other, uint32_t x_s,
+    uint32_t x_full, uint32_t x_empty, int wg, int rank, int nc, int step,
+    bool last) {
+  constexpr int X_SLOT = SP_BQ * BK * 4;   // bytes: one S_r
+  constexpr int H = BK / 16;               // float4s in a thread's half
+  sp_exchange<BK>(s, x_mine, x_other, wg, step == 0, false);
+  const int slot = step % XS, use = step / XS;
+  cl_gather<H, SP_BAR_PUB, WS_CONSUMERS>(
+      s, reinterpret_cast<float4*>(
+             __cvta_shared_to_generic(x_s + slot * X_SLOT)),
+      x_full, x_empty, slot, use, wg, rank, nc);
+  // The halves swapped: this warpgroup's sums out, the other's in.
+  turn_wait(SP_BAR_READ + wg);
+#pragma unroll
+  for (int i = 0; i < 2 * H; ++i)
+    if (i / H == wg)
+      x_mine[128 * (i % H)] = make_float4(s[4 * i], s[4 * i + 1],
+                                          s[4 * i + 2], s[4 * i + 3]);
+  turn_wait(SP_BAR_WRITTEN);
+  // Every consumer thread of the CTA has passed its peer reads.
+  cl_arrive_all(x_empty + 8 * slot, nc);
+#pragma unroll
+  for (int i = 0; i < 2 * H; ++i) {
+    if (i / H != wg) {
+      const float4 x = x_other[128 * (i % H)];
+      s[4 * i] = x.x;
+      s[4 * i + 1] = x.y;
+      s[4 * i + 2] = x.z;
+      s[4 * i + 3] = x.w;
+    }
+  }
+  if (!last) turn_pass(SP_BAR_READ + (wg ^ 1));
+}
+
+// S of tile step `step` completed: the CTA's two partials summed (MODE
+// 0), or the cluster's (cl_exchange, on the barriers after `bars`).
+template <int DQK, int DV, int MODE>
+__device__ __forceinline__ void sp_complete(
+    float (&s)[SpSmem<DQK, DV, MODE>::BK / 2], float4* x_mine,
+    const float4* x_other, uint32_t x_s, uint32_t bars, int wg, int rank,
+    int nc, int step, int lane, bool first, bool last) {
+  using L = SpSmem<DQK, DV, MODE>;
+  if constexpr (MODE == 0) {
+    sp_exchange<L::BK>(s, x_mine, x_other, wg, first, last);
+  } else {
+    (void)lane;
+    cl_exchange<L::BK, L::XS>(s, x_mine, x_other, x_s, bars + L::X_FULL,
+                              bars + L::X_EMPTY, wg, rank, nc, step, last);
+  }
+}
+
+// MODE 2: the Q.K^T rounds of tile step `step` but its last, each waited
+// for and its Q and K slot released (nothing else is in flight then).
+template <int DQK, int DV, int MODE, int NKQ>
+__device__ __forceinline__ void sp_early_rounds(
+    float (&s)[SpSmem<DQK, DV, MODE>::BK / 2], uint32_t q_s, uint32_t k_s,
+    int kq0, uint32_t bars, int step, int rounds, int lane) {
+  using L = SpSmem<DQK, DV, MODE>;
+  constexpr int SL = L::SLOTS;
+  for (int j = 0; j + 1 < rounds; ++j) {
+    const int rs = step * rounds + j, slot = rs % SL;
+    mbar_wait(bars + 32 * SL, rs & 1);                   // Q
+    mbar_wait(bars + 8 * slot, (rs / SL) & 1);           // full K
+    wgmma_fence();
+    sp_qk<DQK, DV, MODE, NKQ>(s, q_s, k_s + slot * L::K_SLOT, kq0, j > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(bars + 16 * SL + 8 * slot);            // empty K
+      mbar_arrive(bars + L::Q_EMPTY);
+    }
+  }
+}
+
 // A consumer warpgroup: the CTA's 64 query rows and O's columns [wg DV / 2,
-// (wg + 1) DV / 2), over tiles kt0 .. n_kt - 1.  Each tile: Q.K^T of this
-// tile and P.V of the last as two wgmma groups; once Q.K^T is done, its K
-// slot released, S completed by the exchange and its scores taken while
-// P.V runs; once P.V is done, its V slot released, O rescaled and P packed.
-template <int DQK, int DV>
+// (wg + 1) DV / 2) of its slice, over tiles kt0 .. n_kt - 1.  Each tile:
+// Q.K^T of this tile and P.V of the last as two wgmma groups; once Q.K^T
+// is done, its K slot released, S completed by the exchange and its scores
+// taken while P.V runs; once P.V is done, its V slot released, O rescaled
+// and P packed.  In MODE 2 a tile's Q.K^T rounds but its last run first,
+// each to completion (nothing else is in flight then).
+template <int DQK, int DV, int MODE>
 __device__ __forceinline__ void sp_consume(
     uint8_t* smem, uint32_t bars, void* out, bool out_bf16, int q0,
     int tq, int tk, int dv, int causal, int window, float scale, int kt0,
-    int n_kt, int bh) {
-  using L = SpSmem<DQK, DV>;
+    int n_kt, int bh, const Slice& sl) {
+  using L = SpSmem<DQK, DV, MODE>;
   constexpr int BK = L::BK, SL = L::SLOTS, ON = DV / 4;
   constexpr int NKQ = L::KS / 2;           // k-steps a warpgroup
   const uint32_t full_k = bars, full_v = bars + 8 * SL;
   const uint32_t empty_k = bars + 16 * SL, empty_v = bars + 24 * SL;
-  const uint32_t qbar = bars + 32 * SL;
+  const uint32_t qbar = bars + 32 * SL, q_empty = bars + L::Q_EMPTY;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int row_lo = q0 + 16 * warp + g, row_hi = row_lo + 8;
   const float sl2 = LOG2E * scale;         // scores in the exp2 domain
   const int kq0 = wg * NKQ;                // its half of d's k-steps
+  const int rounds = MODE == 2 ? sl.rounds : 1;
   const uint32_t q_s = smem_u32(smem);
   const uint32_t k_s = smem_u32(smem + L::K_OFF);
   const uint32_t v_s = smem_u32(smem + L::V_OFF) +
@@ -1836,42 +2369,64 @@ __device__ __forceinline__ void sp_consume(
   const float4* x_other =
       reinterpret_cast<const float4*>(smem + L::X_OFF + (wg ^ 1) * L::X_WG) +
       tid;
+  const uint32_t x_s = smem_u32(smem + L::XC_OFF) + 16 * tid;
   float o[ON];
 #pragma unroll
   for (int i = 0; i < ON; ++i) o[i] = 0.0f;
   float m_lo = NEG, m_hi = NEG, l_lo = 0.0f, l_hi = 0.0f, a_lo, a_hi;
   float s[BK / 2];
   uint32_t pa[BK / 16][4];
-  mbar_wait(qbar, 0);
+  if constexpr (MODE != 2) mbar_wait(qbar, 0);
   if (kt0 < n_kt) {                        // else every row stores 0
     // The first tile: Q.K^T alone.
-    mbar_wait(full_k, 0);
+    if constexpr (MODE == 2)
+      sp_early_rounds<DQK, DV, MODE, NKQ>(s, q_s, k_s, kq0, bars, 0,
+                                          rounds, lane);
+    const int rs0 = rounds - 1;            // the first tile's last round
+    if constexpr (MODE == 2) mbar_wait(qbar, rs0 & 1);
+    mbar_wait(full_k + 8 * (rs0 % SL), (rs0 / SL) & 1);
     wgmma_fence();
-    sp_qk<DQK, DV, NKQ>(s, q_s, k_s, kq0);
+    sp_qk<DQK, DV, MODE, NKQ>(s, q_s, k_s + (rs0 % SL) * L::K_SLOT, kq0,
+                              rs0 > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty_k);
-    sp_exchange<BK>(s, x_mine, x_other, wg, true, kt0 + 1 == n_kt);
+    if (lane == 0) {
+      mbar_arrive(empty_k + 8 * (rs0 % SL));
+      if constexpr (MODE == 2) mbar_arrive(q_empty);
+    }
+    sp_complete<DQK, DV, MODE>(s, x_mine, x_other, x_s, bars, wg, sl.rank,
+                               sl.nc, 0, lane, true, kt0 + 1 == n_kt);
     ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt0 * BK, q0,
                   row_lo, row_hi, t4, tk, causal, window, sl2);
     ws_rescale_pack<BK, ON>(s, o, pa, a_lo, a_hi);
 
     for (int kt = kt0 + 1; kt < n_kt; ++kt) {
-      const int step = kt - kt0, slot = step % SL, prev = (step - 1) % SL;
-      mbar_wait(full_k + 8 * slot, (step / SL) & 1);
+      const int step = kt - kt0, prev = (step - 1) % SL;
+      if constexpr (MODE == 2)
+        sp_early_rounds<DQK, DV, MODE, NKQ>(s, q_s, k_s, kq0, bars, step,
+                                            rounds, lane);
+      const int rs = step * rounds + rounds - 1, slot = rs % SL;
+      if constexpr (MODE == 2) mbar_wait(qbar, rs & 1);
+      mbar_wait(full_k + 8 * slot, (rs / SL) & 1);
       mbar_wait(full_v + 8 * prev, ((step - 1) / SL) & 1);
       wgmma_fence();
-      sp_qk<DQK, DV, NKQ>(s, q_s, k_s + slot * L::K_SLOT, kq0);
+      sp_qk<DQK, DV, MODE, NKQ>(s, q_s, k_s + slot * L::K_SLOT, kq0,
+                                rounds > 1);
       wgmma_commit();
-      sp_pv<DQK, DV>(o, pa, v_s + prev * L::V_SLOT);
+      sp_pv<DQK, DV, MODE>(o, pa, v_s + prev * L::V_SLOT);
       wgmma_commit();
       wgmma_wait_one();                  // Q.K^T of tile kt done
       fence_regs(s);
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty_k + 8 * slot);
-      sp_exchange<BK>(s, x_mine, x_other, wg, false, kt + 1 == n_kt);
+      if (lane == 0) {
+        mbar_arrive(empty_k + 8 * slot);
+        if constexpr (MODE == 2) mbar_arrive(q_empty);
+      }
+      sp_complete<DQK, DV, MODE>(s, x_mine, x_other, x_s, bars, wg,
+                                 sl.rank, sl.nc, step, lane, false,
+                                 kt + 1 == n_kt);
       ws_scores<BK>(s, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi, kt * BK, q0,
                     row_lo, row_hi, t4, tk, causal, window, sl2);
       wgmma_wait_all();                  // P.V of tile kt - 1 done
@@ -1885,7 +2440,7 @@ __device__ __forceinline__ void sp_consume(
     const int last = n_kt - 1 - kt0;
     mbar_wait(full_v + 8 * (last % SL), (last / SL) & 1);
     wgmma_fence();
-    sp_pv<DQK, DV>(o, pa, v_s + (last % SL) * L::V_SLOT);
+    sp_pv<DQK, DV, MODE>(o, pa, v_s + (last % SL) * L::V_SLOT);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -1901,12 +2456,12 @@ __device__ __forceinline__ void sp_consume(
   const long long ob = (long long)bh * tq * dv;
 #pragma unroll
   for (int i = 0; i < L::HALF / 8; ++i) {
-    const int c = wg * L::HALF + 8 * i + 2 * t4;
+    const int c = sl.v0 + wg * L::HALF + 8 * i + 2 * t4;
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
       const int r = hi ? row_hi : row_lo;
       const float inv = hi ? inv_hi : inv_lo;
-      if (r >= tq || c >= dv) continue;
+      if (r >= tq || c >= sl.vend) continue;
       const long long at = ob + (long long)r * dv + c;
       const float x0 = o[4 * i + 2 * hi] * inv;
       const float x1 = o[4 * i + 2 * hi + 1] * inv;
@@ -1918,27 +2473,33 @@ __device__ __forceinline__ void sp_consume(
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, int MODE>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_bf16_sp_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, void* out,
                      int out_bf16, int tma, int tq, int tk, int d, int dv,
                      int causal, int window, int group, float scale,
+                     int vs0, int dvs,
                      const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap) {
-  using L = SpSmem<DQK, DV>;
+  using L = SpSmem<DQK, DV, MODE>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t bars = smem_u32(smem + L::BARS);
-  // One CTA per (head, 64-row query tile) in a 1-D grid, ordered by head
-  // group as the body above orders its 128-row tiles.
+  // One CTA (one cluster of nc) per (head, 64-row query tile) in a 1-D
+  // grid, ordered by head group as the body above orders its 128-row
+  // tiles.
+  const int nc = MODE == 0 ? 1 : cluster_nctarank();
+  const Slice sl = make_slice<MODE>(MODE == 0 ? 0 : cluster_ctarank(), nc,
+                                    d, dv, vs0, dvs);
+  const int tile = (int)blockIdx.x / nc, tiles = (int)gridDim.x / nc;
   const int n_qt = (tq + SP_BQ - 1) / SP_BQ;
   const int per_group = WS_HEAD_GROUP * n_qt;
-  const int head0 = blockIdx.x / per_group * WS_HEAD_GROUP;
-  const int in_group = blockIdx.x % per_group;
-  const int heads = min(WS_HEAD_GROUP, (int)gridDim.x / n_qt - head0);
+  const int head0 = tile / per_group * WS_HEAD_GROUP;
+  const int in_group = tile % per_group;
+  const int heads = min(WS_HEAD_GROUP, tiles / n_qt - head0);
   const int bh = head0 + in_group % heads;
   const int q0 = (n_qt - 1 - in_group / heads) * SP_BQ;
   const int bkv = bh / group;              // grouped KV heads: bh / G
@@ -1951,12 +2512,17 @@ flash_bf16_sp_kernel(const __nv_bfloat16* __restrict__ q,
     for (int b = 2 * L::SLOTS; b < 4 * L::SLOTS; ++b)  // empty K, empty V
       mbar_init(bars + 8 * b, 8);          // one per consumer warp
     mbar_init(bars + 32 * L::SLOTS, fills);  // Q
+    if constexpr (MODE != 0) {
+      mbar_init(bars + L::Q_EMPTY, 8);
+      for (int b = 0; b < 2 * L::XS; ++b)  // written X, read X: one
+        mbar_init(bars + L::X_FULL + 8 * b, nc);       // arrival a CTA
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // Panels past d's last 64-column panel (dv's for V) are never loaded:
-  // zero them once, so Q.K^T adds 0 there and P.V fills O's unstored
-  // columns with 0.
-  const int np_q = (d + 63) / 64, np_v = (dv + 63) / 64;
+  // Panels past the slice's last 64-column panel below d (dv for V) are
+  // never loaded: zero them once, so Q.K^T adds 0 there and P.V fills O's
+  // unstored columns with 0.  (MODE 2 loads every panel every round.)
+  const int np_q = MODE == 2 ? L::NQ : sl.np_q, np_v = sl.np_v;
   const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int p = np_q; p < L::NQ; ++p) {
     uint4* qp = reinterpret_cast<uint4*>(smem + p * L::Q_PANEL);
@@ -1980,415 +2546,27 @@ flash_bf16_sp_kernel(const __nv_bfloat16* __restrict__ q,
     }
   fence_proxy_async();
   __syncthreads();   // the last CTA-wide barrier: the roles part here
+  // Every CTA's barriers initialised before any peer arrives on them.
+  if constexpr (MODE != 0) cluster_sync();
 
   if (threadIdx.x >= WS_CONSUMERS) {
     regs_dec<SP_PRODUCER_REGS>();
-    sp_produce<DQK, DV>(smem, bars, tma != 0, q + (long long)bh * tq * d,
-                        k + (long long)bkv * tk * d,
-                        v + (long long)bkv * tk * dv, q0, tq, tk, d, dv,
-                        kt0, n_kt, bh, bkv, &qmap, &kmap, &vmap);
+    sp_produce<DQK, DV, MODE>(smem, bars, tma != 0,
+                              q + (long long)bh * tq * d,
+                              k + (long long)bkv * tk * d,
+                              v + (long long)bkv * tk * dv, q0, tq, tk, d,
+                              dv, kt0, n_kt, bh, bkv, sl, &qmap, &kmap,
+                              &vmap);
+    if constexpr (MODE != 0) cluster_sync();
   } else {
     regs_inc<SP_CONSUMER_REGS>();
-    sp_consume<DQK, DV>(smem, bars, out, out_bf16 != 0, q0, tq, tk,
-                        dv, causal, window, scale, kt0, n_kt, bh);
+    sp_consume<DQK, DV, MODE>(smem, bars, out, out_bf16 != 0, q0, tq, tk,
+                              dv, causal, window, scale, kt0, n_kt, bh, sl);
+    // No CTA leaves while a peer may still read its partial slots.
+    if constexpr (MODE != 0) cluster_sync();
   }
 }
 
-// ------------------------------------------------------------------------ //
-// Past the single-pass bodies' reach (d > 576 or dv > 512), fp32 and bf16:
-// the output's feature dimension split across CTAs.
-// ------------------------------------------------------------------------ //
-// A CTA owns 64 query rows and one slice of WIDE_DS output columns
-// (grid: bh, query tile, slice).  For each KV tile of 64 keys it builds
-// the whole S = Q.K^T of its rows, streaming Q and K through shared
-// memory in chunks of WIDE_DC columns (the last one zero-padded past d in
-// shared memory; global memory is never read past d), runs the online
-// max / sum recurrence on S, and accumulates only O[:, slice] += P.V[:,
-// slice].  Every slice of a query tile recomputes the same S and
-// statistics (ceil(d / WIDE_DS) times the Q.K^T work), so no CTA needs
-// another's result and no sum crosses CTAs: the chunks are summed in
-// order from column 0, with no atomics, and a rerun gives the same bits.
-// The masking is the bodies' above (causal skip of later KV tiles, the
-// window's first tile, ragged Tq / Tk).
-constexpr int WIDE_DC = 64;      // Q / K columns staged per d-chunk
-constexpr int WIDE_DS = 128;     // output columns per CTA (one d-slice)
-constexpr int SIMT_THREADS = 256;   // fp32: threads a CTA
-
-// fp32: CUDA cores.  Thread (rg, cg) owns rows 4rg .. 4rg + 3, score
-// columns cg + 16j and slice columns cg + 16j.
-struct WideF32Smem {
-  static constexpr int LDC = WIDE_DC + 4;   // a Q / K chunk row (floats)
-  static constexpr int LDV = WIDE_DS + 4;   // a V slice row
-  static constexpr int LDP = BK + 4;        // a P row
-  static constexpr int BYTES = (BQ * LDC + BK * LDC + BK * LDV + BQ * LDP) * 4;
-};
-
-// rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a [n_rows, d] fp32
-// matrix into dst (row stride LD), zero past n_rows and d.
-template <int ROWS, int COLS, int LD>
-__device__ __forceinline__ void stage_wide_f32(float* dst, const float* src,
-                                               int r0, int n_rows, int c0,
-                                               int d) {
-  for (int e = threadIdx.x; e < ROWS * COLS; e += SIMT_THREADS) {
-    const int r = e / COLS, c = e % COLS;
-    const int gr = r0 + r, gc = c0 + c;
-    dst[r * LD + c] = (gr < n_rows && gc < d)
-                          ? src[(long long)gr * d + gc] : 0.0f;
-  }
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(SIMT_THREADS)
-flash_f32_wide_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v, OutT* __restrict__ out,
-                      int tq, int tk, int d, int dv, int causal, int window,
-                      int group, float scale) {
-  using L = WideF32Smem;
-  constexpr int OC = WIDE_DS / 16;       // slice columns per thread
-  extern __shared__ float4 wide_f4[];
-  float* Qc = reinterpret_cast<float*>(wide_f4);   // [BQ][LDC]
-  float* Kc = Qc + BQ * L::LDC;                    // [BK][LDC]
-  float* Vs = Kc + BK * L::LDC;                    // [BK][LDV]
-  float* Ps = Vs + BK * L::LDV;                    // [BQ][LDP]
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4, cg = tid & 15;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int s0 = blockIdx.z * WIDE_DS;             // the slice's column 0
-  const long long bh = blockIdx.x;
-  const long long bkv = (int)blockIdx.x / group;
-  const float* qb = q + bh * tq * d;
-  const float* kb = k + bkv * tk * d;
-  const float* vb = v + bkv * tk * dv;
-
-  float m[4], l[4], o[4][OC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < OC; ++j) o[i][j] = 0.0f;
-  }
-
-  const int n_kt = kv_tile_end(q0, BQ, BK, tk, causal);
-  for (int kt = kv_tile_begin(q0, window, BK); kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int c0 = 0; c0 < d; c0 += WIDE_DC) {
-      __syncthreads();                     // the last reads of Qc / Kc / Vs
-      stage_wide_f32<BQ, WIDE_DC, L::LDC>(Qc, qb, q0, tq, c0, d);
-      stage_wide_f32<BK, WIDE_DC, L::LDC>(Kc, kb, k0, tk, c0, d);
-      if (c0 == 0)
-        stage_wide_f32<BK, WIDE_DS, L::LDV>(Vs, vb, k0, tk, s0, dv);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < WIDE_DC; c += 4) {
-        float4 qa[4], ka[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          qa[i] = *reinterpret_cast<const float4*>(
-              &Qc[(rg * 4 + i) * L::LDC + c]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          ka[j] = *reinterpret_cast<const float4*>(
-              &Kc[(cg + 16 * j) * L::LDC + c]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float a = s[i][j];
-            a = fmaf(qa[i].x, ka[j].x, a);
-            a = fmaf(qa[i].y, ka[j].y, a);
-            a = fmaf(qa[i].z, ka[j].z, a);
-            a = fmaf(qa[i].w, ka[j].w, a);
-            s[i][j] = a;
-          }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + rg * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + cg + 16 * j;
-        const bool ok = kpos < tk && (!causal || kpos <= qpos) &&
-                        (window <= 0 || qpos - kpos < window);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);   // masked: exp(-inf) = 0
-        Ps[(rg * 4 + i) * L::LDP + cg + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(FULL, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < OC; ++j) o[i][j] *= alpha;
-    }
-    __syncwarp();                          // a row's P lies in one warp
-
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(
-            &Ps[(rg * 4 + i) * L::LDP + kk]);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float* vrow = &Vs[(kk + t) * L::LDV + cg];
-#pragma unroll
-        for (int j = 0; j < OC; ++j) {
-          const float vv = vrow[16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = t == 0 ? pa[i].x : t == 1 ? pa[i].y
-                          : t == 2 ? pa[i].z : pa[i].w;
-            o[i][j] = fmaf(p, vv, o[i][j]);
-          }
-        }
-      }
-    }
-  }
-
-  OutT* ob = out + bh * tq * dv;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + rg * 4 + i;
-    if (r >= tq) continue;
-    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < OC; ++j) {
-      const int c = s0 + cg + 16 * j;
-      if (c < dv) put(ob + (long long)r * dv + c, o[i][j] * inv);
-    }
-  }
-}
-
-// bf16: tensor cores through mma.sync m16n8k16 (fp32 accumulation).  Four
-// warps, warp w owning query rows 16w .. 16w + 15 of the tile; operand
-// fragments are read from padded shared-memory rows with 32-bit loads
-// (rows 144 bytes apart: the eight rows of a fragment fall in distinct
-// banks).  V's slice is staged transposed (V^T[column][key]), so P.V's B
-// fragments are pairs of adjacent keys like Q.K^T's.  S's accumulators
-// are P.V's A fragments, P rounded to bf16 in registers as the wgmma body
-// rounds it.
-constexpr int WIDE_THREADS = 128;
-constexpr int WIDE_LDC = WIDE_DC + 8;    // bf16: a Q / K chunk row
-constexpr int WIDE_LDV = BK + 8;         // bf16: a V^T row (BK keys)
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// C (+)= A.B, m16n8k16, bf16 in, fp32 accumulators.
-__device__ __forceinline__ void mma_16816(float (&c)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 8 bf16 of row gr from column gc of a [n_rows, d] matrix, zero past
-// n_rows and d; VEC: d % 8 == 0 and the base 16-byte aligned.
-template <bool VEC>
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, int gr,
-                                       int n_rows, int gc, int d) {
-  if (gr >= n_rows) return make_uint4(0, 0, 0, 0);
-  const __nv_bfloat16* p = src + (long long)gr * d + gc;
-  if (VEC) {
-    if (gc < d) return *reinterpret_cast<const uint4*>(p);
-    return make_uint4(0, 0, 0, 0);
-  }
-  __align__(16) __nv_bfloat16 h[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    h[i] = gc + i < d ? p[i] : __float2bfloat16(0.0f);
-  return *reinterpret_cast<uint4*>(h);
-}
-
-template <bool VEC, typename OutT>
-__global__ void __launch_bounds__(WIDE_THREADS)
-flash_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       OutT* __restrict__ out, int tq, int tk, int d,
-                       int dv, int causal, int window, int group,
-                       float scale) {
-  constexpr int NT = WIDE_DS / 8;        // n-tiles of the O slice
-  __shared__ __align__(16) __nv_bfloat16 Qc[BQ * WIDE_LDC];
-  __shared__ __align__(16) __nv_bfloat16 Kc[BK * WIDE_LDC];
-  __shared__ __align__(16) __nv_bfloat16 Vt[WIDE_DS * WIDE_LDV];
-
-  const int tid = threadIdx.x;
-  const int w = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int s0 = blockIdx.z * WIDE_DS;
-  const int bh = blockIdx.x;
-  const int bkv = bh / group;
-  const __nv_bfloat16* qb = q + (long long)bh * tq * d;
-  const __nv_bfloat16* kb = k + (long long)bkv * tk * d;
-  const __nv_bfloat16* vb = v + (long long)bkv * tk * dv;
-  const int row_lo = q0 + 16 * w + g, row_hi = row_lo + 8;
-
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
-  float m_lo = NEG, m_hi = NEG, l_lo = 0.0f, l_hi = 0.0f;
-
-  const int n_kt = kv_tile_end(q0, BQ, BK, tk, causal);
-  for (int kt = kv_tile_begin(q0, window, BK); kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    float sc[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
-    for (int c0 = 0; c0 < d; c0 += WIDE_DC) {
-      __syncthreads();                     // the last reads of Qc / Kc / Vt
-      for (int e = tid; e < BQ * (WIDE_DC / 8); e += WIDE_THREADS) {
-        const int r = e / (WIDE_DC / 8), c = (e % (WIDE_DC / 8)) * 8;
-        *reinterpret_cast<uint4*>(&Qc[r * WIDE_LDC + c]) =
-            load8<VEC>(qb, q0 + r, tq, c0 + c, d);
-        *reinterpret_cast<uint4*>(&Kc[r * WIDE_LDC + c]) =
-            load8<VEC>(kb, k0 + r, tk, c0 + c, d);
-      }
-      if (c0 == 0) {
-        // V[k0 + key][s0 + c .. + 7] to V^T[c .. c + 7][key]; consecutive
-        // threads take consecutive keys.
-        for (int e = tid; e < BK * (WIDE_DS / 8); e += WIDE_THREADS) {
-          const int key = e % BK, c = (e / BK) * 8;
-          uint4 x = load8<VEC>(vb, k0 + key, tk, s0 + c, dv);
-          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) Vt[(c + i) * WIDE_LDV + key] = h[i];
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kq = 0; kq < WIDE_DC / 16; ++kq) {
-        const __nv_bfloat16* qa = &Qc[(16 * w + g) * WIDE_LDC + 16 * kq
-                                      + 2 * t4];
-        const uint32_t a[4] = {ld_pair(qa), ld_pair(qa + 8 * WIDE_LDC),
-                               ld_pair(qa + 8),
-                               ld_pair(qa + 8 * WIDE_LDC + 8)};
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          const __nv_bfloat16* kp = &Kc[(8 * j + g) * WIDE_LDC + 16 * kq
-                                        + 2 * t4];
-          mma_16816(sc[j], a, ld_pair(kp), ld_pair(kp + 8));
-        }
-      }
-    }
-
-    // sc[j][e]: row row_lo (e < 2) or row_hi, key k0 + 8j + 2 t4 + (e & 1).
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
-        const int qpos = e < 2 ? row_lo : row_hi;
-        const bool ok = kpos < tk && (!causal || kpos <= qpos) &&
-                        (window <= 0 || qpos - kpos < window);
-        sc[j][e] = ok ? sc[j][e] * scale : -INFINITY;
-        if (e < 2) mx_lo = fmaxf(mx_lo, sc[j][e]);
-        else mx_hi = fmaxf(mx_hi, sc[j][e]);
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(FULL, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(FULL, mx_hi, off));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float rs_lo = 0.0f, rs_hi = 0.0f;      // this thread's part of the sum
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      sc[j][0] = expf(sc[j][0] - mn_lo);   // masked: exp(-inf) = 0
-      sc[j][1] = expf(sc[j][1] - mn_lo);
-      sc[j][2] = expf(sc[j][2] - mn_hi);
-      sc[j][3] = expf(sc[j][3] - mn_hi);
-      rs_lo += sc[j][0] + sc[j][1];
-      rs_hi += sc[j][2] + sc[j][3];
-    }
-    l_lo = l_lo * al_lo + rs_lo;
-    l_hi = l_hi * al_hi + rs_hi;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= al_lo;
-      o[n][1] *= al_lo;
-      o[n][2] *= al_hi;
-      o[n][3] *= al_hi;
-    }
-
-    // O[:, slice] += P.V[:, slice]: keys 16 kc .. 16 kc + 15 are n-tiles
-    // 2 kc and 2 kc + 1 of S.
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
-                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
-                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
-                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vp = &Vt[(8 * n + g) * WIDE_LDV + 16 * kc
-                                      + 2 * t4];
-        mma_16816(o[n], pa, ld_pair(vp), ld_pair(vp + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(FULL, l_lo, off);
-    l_hi += __shfl_xor_sync(FULL, l_hi, off);
-  }
-  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
-  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
-  OutT* ob = out + (long long)bh * tq * dv;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = s0 + 8 * n + 2 * t4;
-    if (row_lo < tq) {
-      if (c < dv) put(ob + (long long)row_lo * dv + c, o[n][0] * inv_lo);
-      if (c + 1 < dv)
-        put(ob + (long long)row_lo * dv + c + 1, o[n][1] * inv_lo);
-    }
-    if (row_hi < tq) {
-      if (c < dv) put(ob + (long long)row_hi * dv + c, o[n][2] * inv_hi);
-      if (c + 1 < dv)
-        put(ob + (long long)row_hi * dv + c + 1, o[n][3] * inv_hi);
-    }
-  }
-}
 
 // cuTensorMapEncodeTiled from the driver, fetched through the runtime, so
 // the library needs no link to libcuda.
@@ -2490,22 +2668,104 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* out,
                                     window, group, scale, stream);
 }
 
-// fp32, 256 < d <= 576, dv <= 512: the single-pass body.
+// Past d = 256 the single-pass bodies run in one CTA a (head, query
+// tile) up to d = 576 with dv <= 512, else in clusters of C = ceil(d /
+// 512) CTAs, at most CL_MAX (the portable cluster size), each rank holding
+// at most CL_SLICE columns of q / k (but past CL_MAX x CL_SLICE) and of v /
+// out; v / out past CL_SLAB columns run as slabs of CL_SLAB, one launch
+// each.
+constexpr int CL_SLICE = 512;
+constexpr int CL_MAX = 8;
+constexpr int CL_SLAB = CL_MAX * CL_SLICE;
+
+int flash_cluster(int d, int dv) {
+  if (d <= F32SP_DQK && dv <= F32SP_DV) return 1;
+  return min(CL_MAX, (d + CL_SLICE - 1) / CL_SLICE);
+}
+
+// A launch of `kernel` in clusters of `nc` CTAs along x.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
+                   int smem, int nc, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Clusters of `nc` CTAs of `kernel` resident on the card at once.
+template <typename... Params>
+int resident_clusters(void (*kernel)(Params...), int threads, int smem,
+                      int nc) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nc);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// fp32 past d = 256: the single-pass body, in one CTA or in clusters
+// (flash_cluster).
 template <typename OutT>
 int launch_f32_sp(const void* q, const void* k, const void* v, void* out,
                   int bh, int tq, int tk, int d, int dv, int causal,
                   int window, int group, float scale, cudaStream_t stream) {
-  auto kernel = flash_f32_sp_kernel<OutT>;
+  const int nc = flash_cluster(d, dv);
+  const int vec = (int)f32_vec(q, k, v, d, dv);
+  const int vec_out = (int)f32_vec_out(out, dv);
+  if (nc == 1) {
+    auto kernel = flash_f32_sp_kernel<OutT, false>;
+    using L = F32SpSmem<false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(bh, (tq + F32SP_BQ - 1) / F32SP_BQ);
+    kernel<<<grid, F32SP_THREADS, L::BYTES, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d,
+        dv, causal, window, group, scale, vec, vec_out, 0, dv);
+    return (int)cudaGetLastError();
+  }
+  if ((long long)bh * nc > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_f32_sp_kernel<OutT, true>;
+  using L = F32SpSmem<true>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F32SpSmem::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (tq + F32SP_BQ - 1) / F32SP_BQ);
-  kernel<<<grid, F32SP_THREADS, F32SpSmem::BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d, dv,
-      causal, window, group, scale, (int)f32_vec(q, k, v, d, dv),
-      (int)f32_vec_out(out, dv));
-  return (int)cudaGetLastError();
+  dim3 grid(bh * nc, (tq + F32SP_BQ - 1) / F32SP_BQ);
+  for (int vs0 = 0; vs0 < dv; vs0 += CL_SLAB) {
+    const int rc = launch_cluster(
+        kernel, grid, F32SP_THREADS, L::BYTES, nc, stream,
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d,
+        dv, causal, window, group, scale, vec, vec_out, vs0,
+        min(CL_SLAB, dv - vs0));
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 // TMA needs 16-byte row strides and bases (per-head offsets are then
@@ -2547,77 +2807,94 @@ int launch_ws(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// bf16, 256 < d <= 576, dv <= 512: the single-pass body at (DQK, DV).
-template <int DQK, int DV>
+// bf16 past d = 256: the single-pass body at (DQK, DV, MODE) over the
+// columns [vs0, vs0 + dvs) of v / out, in clusters of nc CTAs (MODE > 0).
+template <int DQK, int DV, int MODE>
 int launch_sp(const void* q, const void* k, const void* v, void* out,
               int out_dtype, int bh, int tq, int tk, int d, int dv,
-              int causal, int window, int group, float scale,
-              cudaStream_t stream) {
-  using L = SpSmem<DQK, DV>;
+              int causal, int window, int group, float scale, int nc,
+              int vs0, int dvs, cudaStream_t stream) {
+  using L = SpSmem<DQK, DV, MODE>;
   CUtensorMap maps[3];
   memset(maps, 0, sizeof(maps));
   const bool tma = tma_fits(q, k, v, d, dv) &&
                    make_map(&maps[0], q, bh, tq, d, SP_BQ) &&
                    make_map(&maps[1], k, bh / group, tk, d, L::BK) &&
                    make_map(&maps[2], v, bh / group, tk, dv, L::BK);
-  auto kernel = flash_bf16_sp_kernel<DQK, DV>;
-  const long long ctas = (long long)bh * ((tq + SP_BQ - 1) / SP_BQ);
+  auto kernel = flash_bf16_sp_kernel<DQK, DV, MODE>;
+  const long long ctas = (long long)bh * ((tq + SP_BQ - 1) / SP_BQ) * nc;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)ctas, WS_THREADS, L::BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), out, out_dtype, (int)tma, tq,
-      tk, d, dv, causal, window, group, scale, maps[0], maps[1], maps[2]);
-  return (int)cudaGetLastError();
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+  if (MODE == 0) {
+    kernel<<<(unsigned)ctas, WS_THREADS, L::BYTES, stream>>>(
+        qb, kb, vb, out, out_dtype, (int)tma, tq, tk, d, dv, causal, window,
+        group, scale, vs0, dvs, maps[0], maps[1], maps[2]);
+    return (int)cudaGetLastError();
+  }
+  return launch_cluster(kernel, dim3((unsigned)ctas), WS_THREADS, L::BYTES,
+                        nc, stream, qb, kb, vb, out, out_dtype, (int)tma, tq,
+                        tk, d, dv, causal, window, group, scale, vs0, dvs,
+                        maps[0], maps[1], maps[2]);
+}
+
+// bf16 past d = 256.  One CTA (d <= 576, dv <= 512): DQK 512 for d <=
+// 512 (DV 256 for dv <= 256, else 512), else 576.  A cluster: DQK 512, DV
+// 256 where a rank's v slice holds at most 4 panels, else 512; Q in rounds
+// (MODE 2) where a rank's q / k slice passes 8 panels.
+int launch_bf16_sp(const void* q, const void* k, const void* v, void* out,
+                   int out_dtype, int bh, int tq, int tk, int d, int dv,
+                   int causal, int window, int group, float scale,
+                   cudaStream_t stream) {
+  const int nc = flash_cluster(d, dv);
+  if (nc == 1) {
+    if (d > 512)
+      return launch_sp<576, 512, 0>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                    dv, causal, window, group, scale, 1, 0,
+                                    dv, stream);
+    return dv <= 256
+               ? launch_sp<512, 256, 0>(q, k, v, out, out_dtype, bh, tq, tk,
+                                        d, dv, causal, window, group, scale,
+                                        1, 0, dv, stream)
+               : launch_sp<512, 512, 0>(q, k, v, out, out_dtype, bh, tq, tk,
+                                        d, dv, causal, window, group, scale,
+                                        1, 0, dv, stream);
+  }
+  const bool rounds = (d + 63) / 64 > 8 * nc;
+  for (int vs0 = 0; vs0 < dv; vs0 += CL_SLAB) {
+    const int dvs = min(CL_SLAB, dv - vs0);
+    const int per_v = ((dvs + 63) / 64 + nc - 1) / nc;
+    const int rc =
+        rounds ? launch_sp<512, 512, 2>(q, k, v, out, out_dtype, bh, tq, tk,
+                                        d, dv, causal, window, group, scale,
+                                        nc, vs0, dvs, stream)
+        : per_v <= 4
+            ? launch_sp<512, 256, 1>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                     dv, causal, window, group, scale, nc,
+                                     vs0, dvs, stream)
+            : launch_sp<512, 512, 1>(q, k, v, out, out_dtype, bh, tq, tk, d,
+                                     dv, causal, window, group, scale, nc,
+                                     vs0, dvs, stream);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 // The body flash_attention_fwd runs for (dtype, d, dv), by the code
-// `ops.flash_body` names: 1 fp32 (d <= 256), 2 fp32 d-sliced, 3 bf16 (the
-// warp-specialised body at DQK 64 / 128, d <= 128), 4 bf16
-// warp-specialised (DQK 192 / 256, d <= 256), 5 bf16 single-pass (d <=
-// 576, dv <= 512), 6 bf16 d-sliced, 7 fp32 single-pass (d <= 576, dv <=
-// 512).
+// `ops.flash_body` names: 1 fp32 (d <= 256), 3 bf16 (the warp-specialised
+// body at DQK 64 / 128, d <= 128), 4 bf16 warp-specialised (DQK 192 /
+// 256, d <= 256), 5 bf16 single-pass (any d > 256), 7 fp32 single-pass
+// (any d > 256); past d = 576 or dv > 512 the single-pass bodies run in
+// clusters (flash_cluster).  (Codes 2 and 6 were the d-sliced bodies.)
 int flash_body(int dtype, int d, int dv) {
-  if (dtype == 0) {
-    if (d <= 256) return 1;
-    return d <= F32SP_DQK && dv <= F32SP_DV ? 7 : 2;
-  }
+  (void)dv;
+  if (dtype == 0) return d <= 256 ? 1 : 7;
   if (d <= 128) return 3;
-  if (d <= 256) return 4;
-  return d <= 576 && dv <= 512 ? 5 : 6;
-}
-
-// Past the single-pass bodies' reach (d > 576 or dv > 512): grid (bh,
-// query tile, dv-slice).
-template <typename OutT>
-int launch_wide(int dtype, const void* q, const void* k, const void* v,
-                void* out, int bh, int tq, int tk, int d, int dv, int causal,
-                int window, int group, float scale, cudaStream_t stream) {
-  dim3 grid(bh, (tq + BQ - 1) / BQ, (dv + WIDE_DS - 1) / WIDE_DS);
-  if (dtype == 0) {
-    auto kernel = flash_f32_wide_kernel<OutT>;
-    const int smem = WideF32Smem::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, SIMT_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<OutT*>(out), tq, tk, d,
-        dv, causal, window, group, scale);
-  } else {
-    auto kernel = tma_fits(q, k, v, d, dv)
-                      ? flash_bf16_wide_kernel<true, OutT>
-                      : flash_bf16_wide_kernel<false, OutT>;
-    kernel<<<grid, WIDE_THREADS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<OutT*>(out), tq,
-        tk, d, dv, causal, window, group, scale);
-  }
-  return (int)cudaGetLastError();
+  return d <= 256 ? 4 : 5;
 }
 
 // bf16, d <= 256: the warp-specialised body.  DQK is the first of 64,
@@ -2685,24 +2962,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return launch_f32_sp<__nv_bfloat16>(q, k, v, out, bh, tq, tk, d, dv,
                                         causal, window, group, scale, s);
   }
-  if (body == 5) {
-    // DQK 512 for d <= 512 (DV 256 for dv <= 256, else 512), else 576.
-    if (d > 512)
-      return launch_sp<576, 512>(q, k, v, out, out_dtype, bh, tq, tk, d, dv,
-                                 causal, window, group, scale, s);
-    return dv <= 256
-               ? launch_sp<512, 256>(q, k, v, out, out_dtype, bh, tq, tk, d,
-                                     dv, causal, window, group, scale, s)
-               : launch_sp<512, 512>(q, k, v, out, out_dtype, bh, tq, tk, d,
-                                     dv, causal, window, group, scale, s);
-  }
-  if (d > 256) {
-    if (out_dtype == 0)
-      return launch_wide<float>(dtype, q, k, v, out, bh, tq, tk, d, dv,
-                                causal, window, group, scale, s);
-    return launch_wide<__nv_bfloat16>(dtype, q, k, v, out, bh, tq, tk, d, dv,
-                                      causal, window, group, scale, s);
-  }
+  if (body == 5)
+    return launch_bf16_sp(q, k, v, out, out_dtype, bh, tq, tk, d, dv, causal,
+                          window, group, scale, s);
   return dispatch(out_dtype, q, k, v, out, bh, tq, tk, d, dv, causal, window,
                   group, scale, s);
 }
@@ -2712,4 +2974,40 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 extern "C" int flash_attention_body(int dtype, int d, int dv) {
   if ((dtype != 0 && dtype != 1) || d <= 0 || dv <= 0 || dv > d) return 0;
   return flash_body(dtype, d, dv);
+}
+
+// The CTAs a cluster of flash_attention_fwd holds for these operands (1:
+// no cluster; 0 for arguments it refuses by type).
+extern "C" int flash_attention_cluster(int dtype, int d, int dv) {
+  if ((dtype != 0 && dtype != 1) || d <= 0 || dv <= 0 || dv > d) return 0;
+  return flash_body(dtype, d, dv) == 5 || flash_body(dtype, d, dv) == 7
+             ? flash_cluster(d, dv)
+             : 1;
+}
+
+// Clusters of the instantiation flash_attention_fwd launches for these
+// operands (v / out as in its first slab) that the card holds at once
+// (cudaOccupancyMaxActiveClusters); 0 where it launches no cluster, minus
+// a CUDA error code where the query fails.
+extern "C" int flash_attention_clusters_resident(int dtype, int out_dtype,
+                                                 int d, int dv) {
+  const int nc = flash_attention_cluster(dtype, d, dv);
+  if (nc <= 1) return 0;
+  if (dtype == 0)
+    return out_dtype == 0
+               ? resident_clusters(flash_f32_sp_kernel<float, true>,
+                                   F32SP_THREADS, F32SpSmem<true>::BYTES, nc)
+               : resident_clusters(flash_f32_sp_kernel<__nv_bfloat16, true>,
+                                   F32SP_THREADS, F32SpSmem<true>::BYTES,
+                                   nc);
+  const int dvs = min(CL_SLAB, dv);
+  const int per_v = ((dvs + 63) / 64 + nc - 1) / nc;
+  if ((d + 63) / 64 > 8 * nc)
+    return resident_clusters(flash_bf16_sp_kernel<512, 512, 2>, WS_THREADS,
+                             SpSmem<512, 512, 2>::BYTES, nc);
+  return per_v <= 4
+             ? resident_clusters(flash_bf16_sp_kernel<512, 256, 1>,
+                                 WS_THREADS, SpSmem<512, 256, 1>::BYTES, nc)
+             : resident_clusters(flash_bf16_sp_kernel<512, 512, 1>,
+                                 WS_THREADS, SpSmem<512, 512, 1>::BYTES, nc);
 }

@@ -638,10 +638,10 @@ def sddmm(h_dst: torch.Tensor, h_src: torch.Tensor, cols: torch.Tensor,
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The flash kernel's bodies, by the code of its C entry
-# ``flash_attention_body``.
-FLASH_BODIES = {1: "fp32", 2: "fp32 d-sliced", 3: "bf16",
-                4: "bf16 warp-specialised", 5: "bf16 single-pass",
-                6: "bf16 d-sliced", 7: "fp32 single-pass"}
+# ``flash_attention_body`` (codes 2 and 6 were the d-sliced bodies, which
+# the single-pass bodies in clusters replaced).
+FLASH_BODIES = {1: "fp32", 3: "bf16", 4: "bf16 warp-specialised",
+                5: "bf16 single-pass", 7: "fp32 single-pass"}
 
 
 def flash_body(dtype: torch.dtype, d: int, dv: int) -> str:
@@ -649,25 +649,39 @@ def flash_body(dtype: torch.dtype, d: int, dv: int) -> str:
     ``d``, v of width ``dv`` and operands of ``dtype``
     (``csrc/flash_attention.cu``'s ``flash_body``, which the C entry
     ``flash_attention_body`` reports): fp32 on CUDA cores up to d = 256,
-    the fp32 single-pass body up to d = 576 with dv <= 512, d-sliced past
-    that; bf16 on the tensor cores, the warp-specialised body up to d =
-    256 ("bf16" up to d = 128, its DQK 64 / 128 instantiations, "bf16
-    warp-specialised" past it, DQK 192 / 256), the single-pass body up to
-    d = 576 with dv <= 512, and the d-sliced body past that."""
+    the fp32 single-pass body past it; bf16 on the tensor cores, the
+    warp-specialised body up to d = 256 ("bf16" up to d = 128, its DQK 64
+    / 128 instantiations, "bf16 warp-specialised" past it, DQK 192 /
+    256), the single-pass body past it.  Each single-pass body runs in one
+    CTA a (head, query tile) up to d = 576 with dv <= 512, and beyond that
+    in a thread-block cluster of CTAs that split d and dv between them
+    (:func:`flash_cluster` says how many)."""
     if dtype not in _FLASH_DTYPES:
         raise TypeError(f"flash_body: expected float32 or bfloat16, got "
                         f"{dtype}")
     if not 1 <= dv <= d:
         raise ValueError(f"flash_body: need 1 <= dv <= d, got d={d}, "
                          f"dv={dv}")
-    single_pass = d <= 576 and dv <= 512
     if dtype == torch.float32:
-        code = 1 if d <= 256 else 7 if single_pass else 2
-    elif d <= 256:
-        code = 3 if d <= 128 else 4
+        code = 1 if d <= 256 else 7
     else:
-        code = 5 if single_pass else 6
+        code = 3 if d <= 128 else 4 if d <= 256 else 5
     return FLASH_BODIES[code]
+
+
+def flash_cluster(dtype: torch.dtype, d: int, dv: int) -> int:
+    """The CTAs of one thread-block cluster the flash kernel launches for
+    these operands (1: no cluster), as its C entry
+    ``flash_attention_cluster`` reports; the rule lives in the C source
+    only.  Needs the built library (a card)."""
+    if dtype not in _FLASH_DTYPES:
+        raise TypeError(f"flash_cluster: expected float32 or bfloat16, got "
+                        f"{dtype}")
+    n = entry("flash_cluster")(_FLASH_DTYPES[dtype], d, dv)
+    if n < 1:
+        raise ValueError(f"flash_cluster: need 1 <= dv <= d, got d={d}, "
+                         f"dv={dv}")
+    return n
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -679,8 +693,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     returns [BH, Tq, dv] in ``out_dtype`` (fp32 or bf16; None is q's
     dtype, as in the Pallas kernel), fp32 math inside and one rounding at
     the store (:func:`flash_body` names the kernel's body: past d = 256
-    the single-pass bodies up to d = 576 with dv <= 512, the d-sliced
-    bodies beyond it).  The causal mask is the Pallas
+    the single-pass bodies, in one CTA a query tile up to d = 576 with dv
+    <= 512 and in a thread-block cluster beyond it, any d).  The causal
+    mask is the Pallas
     kernel's ``qpos >= kpos``, both counted from 0; ``window`` W > 0
     (causal only, Tq <= Tk) also masks ``qpos - kpos >= W``, JAX's
     ``_mask_bias`` (0 is no window).  With G > 1 (G must divide BH) the

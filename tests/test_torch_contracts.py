@@ -5,7 +5,8 @@
   the same program and budget; ``residency="host"`` streams within it bit
   for bit the unbudgeted device run; None lifts the refusal.
 * ``ops.flash_attention`` at head dims past 256 (the kernel's
-  single-pass and d-sliced bodies on the card; here the plain version),
+  single-pass bodies on the card, in clusters past d = 576; here the plain
+  version),
   causal or not, with grouped KV heads, against JAX's
   ``flash_attention_ref`` in fp32 at rtol 1e-5 / atol 1e-4, and with
   ``out_dtype=bfloat16`` against the reference cast to bf16 at JAX's bf16

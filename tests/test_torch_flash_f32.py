@@ -1,6 +1,7 @@
 """The port's fp32 flash attention, where the card runs the fp32 body (d <=
-256) or the fp32 single-pass body (256 < d <= 576, dv <= 512), against
-the JAX package on the CPU.
+256) or the fp32 single-pass body past it (in one CTA a query tile up to
+d = 576 with dv <= 512, in a thread-block cluster beyond), against the
+JAX package on the CPU.
 
 Here the port's ``ops.flash_attention`` runs its plain version (the
 tensors lie on the CPU) or, on ``meta``, reports its cost; the kernels
@@ -13,14 +14,16 @@ pass.py``'s ``_jax_flash``).
 
 * ``ops.flash_attention`` in fp32 at the bodies' instantiation edges (d
   in {1, 31, 32, 33, 64, 127, 128, 129, 192 with dv = 128, 255, 256, 257,
-  512, 513, 576 with dv = 512, 577}) in each mode (causal, non-causal at
+  512, 513, 576 with dv = 512, 577}) and the clusters' (640, 1,024, 1,100
+  with dv = 64, 600 with dv = 513, 4,160) in each mode (causal, non-causal at
   ragged Tq != Tk, windowed, G = 4) against JAX at rtol 1e-5 / atol 1e-4
   (``tests/test_kernels.py``'s fp32 tolerance), and ``out_dtype`` bf16 as
   the fp32 result rounded once.
 * ``ops.flash_body(torch.float32, d, dv)`` at every edge.
 * The meta route's flops and bytes in fp32 at d = 128 and 512, unchanged.
 
-About 25 s alone (24.3-25.5 s measured), JAX's start included.
+About 25 s alone (24.3-25.5 s measured before the cluster edges, which
+add about 2 s), JAX's start included.
 """
 import os
 import sys
@@ -39,10 +42,13 @@ RTOL, ATOL = 1e-5, 1e-4          # tests/test_kernels.py's fp32 flash
 
 # (d, dv): the fp32 body's instantiation edges (DQK 32 / 64 / 128 / 256,
 # DV 128 at DQK 256 for dv <= 128; d or dv not a multiple of 4 takes its
-# 4-byte copies), the single-pass body's (d 257-576, dv <= 512) and past it.
+# 4-byte copies), the single-pass body's in one CTA (d 257-576, dv <= 512)
+# and in clusters past it (C = 2, 2, 2, 3 with ranks holding no column of
+# v, 2, and 8 past the 8-CTA reach at 4,160).
 EDGES = [(1, 1), (31, 31), (32, 32), (33, 33), (64, 64), (127, 127),
          (128, 128), (129, 129), (192, 128), (255, 255), (256, 256),
-         (257, 257), (512, 512), (513, 513), (576, 512), (577, 577)]
+         (257, 257), (512, 512), (513, 513), (576, 512), (577, 577),
+         (640, 640), (1024, 1024), (1100, 64), (600, 513), (4160, 4160)]
 # (label, tq, tk, heads, G, causal, window): Tq / Tk ragged against every
 # body's tiles, Tq < Tk in the non-causal mode.
 MODES = [("causal", 37, 37, 2, 1, True, 0),
@@ -69,8 +75,7 @@ def test_flash_f32_matches_jax(d, dv, mode):
 
 @pytest.mark.parametrize("d,dv", EDGES + [(576, 513), (320, 1), (1024, 512)])
 def test_flash_body_names_the_fp32_body(d, dv):
-    want = ("fp32" if d <= 256 else "fp32 single-pass"
-            if d <= 576 and dv <= 512 else "fp32 d-sliced")
+    want = "fp32" if d <= 256 else "fp32 single-pass"
     assert ops.flash_body(torch.float32, d, dv) == want
     assert want in ops.FLASH_BODIES.values()
 

@@ -101,7 +101,8 @@ def test_flash_plain_window_matches_jax_sdpa(d, window):
 def test_flash_wrapper_takes_gemma3_head_dims_and_windows_on_cpu():
     # The wrapper's contract is the kernel's on both devices: any head dim
     # >= 1 (gemma3-12b's 240 among them; past 256 the kernel's single-pass
-    # and d-sliced bodies), a window only with causal masking and Tq <= Tk.
+    # bodies, in clusters past 576), a window only with causal masking and
+    # Tq <= Tk.
     r = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(r.normal(0, 1, (2, 30, 240)).astype(
         np.float32)) for _ in range(3))

@@ -29,12 +29,13 @@ operands; the SpDMM step list against its plain version in one call,
 bit for bit the one-step kernel chained through acc, a split list, the
 full-width walk, the fp32 kernel on a widened bf16 h, any choice of hub
 rows and a CUDA-graph replay, with a span-boundary sweep; flash past d =
-256 (the
-bf16 single-pass body at d 257-576 with dv 100-512, its staged route bit
-for bit the TMA route, the d-sliced bodies past it: causal, non-causal,
-windowed, grouped, ragged, both output types; two launches bit for bit;
-the body rule of ``ops.flash_body`` the C entry's); the two fp32 flash
-bodies (d 1-256 and the single pass at 257-576 with dv <= 512) at their
+256 (the bf16 single-pass body at d 257-576 with dv 100-512 and in
+clusters past it up to d = 4,160, its staged route bit for bit the TMA
+route: causal, non-causal, windowed, grouped, ragged, both output types;
+two launches bit for bit; the body rule of ``ops.flash_body`` and the
+cluster sizes the C entry's); the two fp32 flash bodies (d 1-256 and the
+single pass, in one CTA at 257-576 with dv <= 512 and in clusters past
+it) at their
 instantiation edges in every mode within rtol 1e-5 / atol 1e-4, two
 launches bit for bit, a bf16 ``out_dtype`` the fp32 result rounded once,
 and their staged routes (bases 4 bytes past 16) bit for bit the 16-byte
@@ -516,7 +517,7 @@ def test_cuda_flash_rejects_bad_operands(cuda):
         ops.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(TypeError):
         ops.flash_attention(q, q.bfloat16(), q)
-    # d = 264 takes the d-sliced body (any head dim, as in Pallas); d = 0
+    # d = 264 takes the single-pass body (any head dim, as in Pallas); d = 0
     # is refused
     g = torch.Generator(device=cuda).manual_seed(3)
     big = torch.randn(2, 8, 264, generator=g, device=cuda)
@@ -1903,12 +1904,15 @@ def test_cuda_flash_wide_head_dims_match_plain(cuda, tq, tk, h, grp, d,
     assert torch.equal(ops.flash_attention(q, k, v, causal, window), got)
 
 
-# The single-pass bf16 body past d = 256 (d <= 576, dv <= 512): (tq, tk,
-# heads, G, d, dv, causal, window).  d 257-512 take DQK = 512 (dv <= 256
-# its DV = 256), 513 and 576 DQK = 576; d = 257 / 330 / 385 / 513 and dv =
-# 100 the producer's plain loads (d or dv not a multiple of 8); causal,
-# non-causal at ragged Tq != Tk, windowed, G = 4; dv > 512 the d-sliced
-# body, at each instantiation's edge.
+# The single-pass bf16 body past d = 256: (tq, tk, heads, G, d, dv, causal,
+# window).  In one CTA (d <= 576, dv <= 512) d 257-512 take DQK = 512 (dv
+# <= 256 its DV = 256), 513 and 576 DQK = 576; d = 257 / 330 / 385 / 513
+# and dv = 100 the producer's plain loads (d or dv not a multiple of 8);
+# causal, non-causal at ragged Tq != Tk, windowed, G = 4.  Past it, in
+# clusters: C = 2 (576 with dv 576, 600 / 513, 640, 1,024 at ragged Tq !=
+# Tk), 3 (1,100 with dv 64 under a window at G = 4: two ranks hold no
+# column of v; 1,536), 8 (4,096), and past the 8-CTA reach (4,160: Q in
+# rounds, dv 4,160 in two slabs; dv 100: seven ranks without v).
 FLASH_SP_CASES = [(300, 300, 4, 1, 257, 257, True, 0),
                   (200, 333, 4, 2, 264, 256, False, 0),
                   (300, 300, 4, 4, 320, 320, True, 0),
@@ -1923,7 +1927,21 @@ FLASH_SP_CASES = [(300, 300, 4, 1, 257, 257, True, 0),
                   (300, 300, 8, 8, 576, 512, True, 0),
                   (77, 300, 4, 2, 576, 256, False, 0),
                   (300, 300, 4, 4, 576, 100, True, 30),
-                  (200, 200, 2, 1, 576, 576, True, 0)]
+                  (200, 200, 2, 1, 576, 576, True, 0),
+                  (200, 200, 2, 1, 600, 513, True, 0),
+                  (300, 300, 4, 1, 640, 640, True, 0),
+                  (200, 333, 4, 1, 1024, 1024, False, 0),
+                  (300, 300, 8, 4, 1100, 64, True, 100),
+                  (150, 150, 2, 1, 1536, 1536, True, 0),
+                  (70, 70, 2, 1, 4096, 4096, True, 0),
+                  (16, 16, 2, 1, 4160, 4160, True, 0),
+                  (16, 13, 4, 2, 4160, 100, False, 0)]
+# (d, dv, CTAs a cluster) of the cases above: one CTA within d = 576, dv
+# = 512; ceil(d / 512) past it, at most 8.
+FLASH_CLUSTER_SIZES = [(576, 512, 1), (257, 257, 1), (576, 576, 2),
+                       (600, 513, 2), (640, 640, 2), (1024, 1024, 2),
+                       (1100, 64, 3), (1536, 1536, 3), (4096, 4096, 8),
+                       (4160, 4160, 8), (4160, 100, 8)]
 
 
 def _flash_bf16_qkv(h, grp, tq, tk, d, dv, seed, device):
@@ -1941,8 +1959,7 @@ def test_cuda_flash_single_pass_body_matches_plain(cuda, tq, tk, h, grp, d,
                                                    dv, causal, window, out):
     ot = getattr(torch, out)
     body = ops.flash_body(torch.bfloat16, d, dv)
-    assert body == ("bf16 single-pass" if d <= 576 and dv <= 512
-                    else "bf16 d-sliced")
+    assert body == "bf16 single-pass"
     assert ops.FLASH_BODIES[ops.entry("flash_body")(1, d, dv)] == body
     q, k, v = _flash_bf16_qkv(h, grp, tq, tk, d, dv, d + dv + tq + tk, cuda)
     ops.reset_launches()
@@ -1963,7 +1980,8 @@ def _off_16_bytes(t):
     return view
 
 
-@pytest.mark.parametrize("d,dv", [(512, 512), (320, 256), (576, 512)])
+@pytest.mark.parametrize("d,dv", [(512, 512), (320, 256), (576, 512),
+                                  (1024, 1000), (4160, 4160)])
 def test_cuda_flash_single_pass_staged_route_equals_tma(cuda, d, dv):
     # A base off 16 bytes sends the body's producer to its plain loads,
     # which write TMA's layout: the consumers run the same products.
@@ -1978,10 +1996,11 @@ def test_cuda_flash_single_pass_staged_route_equals_tma(cuda, d, dv):
 
 # The fp32 bodies (IEEE fp32 on CUDA cores): (tq, tk, heads, G, d, dv,
 # causal, window).  d <= 32 / 64 / 128 take DQK = DV = d's bound, 129-256
-# DQK 256 with DV 128 (dv <= 128) or 256; 257-576 with dv <= 512 the
-# single-pass body, past it the d-sliced one.  d or dv not a multiple of
-# 4 takes the staged route (4-byte copies); causal, non-causal at ragged
-# Tq != Tk, windowed, G = 4.
+# DQK 256 with DV 128 (dv <= 128) or 256; past it the single-pass body, in
+# one CTA up to d = 576 with dv <= 512, else in clusters (the bf16 cases'
+# sizes: C = 2, 3 with ranks holding no column of v, 8, and past the
+# 8-CTA reach).  d or dv not a multiple of 4 takes the staged route
+# (4-byte copies); causal, non-causal at ragged Tq != Tk, windowed, G = 4.
 FLASH_F32_CASES = [(77, 77, 2, 1, 1, 1, True, 0),
                    (130, 200, 4, 4, 31, 31, False, 0),
                    (200, 200, 4, 2, 32, 32, True, 17),
@@ -2002,7 +2021,14 @@ FLASH_F32_CASES = [(77, 77, 2, 1, 1, 1, True, 0),
                    (300, 300, 2, 1, 513, 513, True, 0),
                    (200, 200, 8, 4, 576, 512, True, 0),
                    (130, 200, 2, 1, 576, 512, False, 0),
-                   (200, 200, 2, 2, 577, 577, True, 30)]
+                   (200, 200, 2, 2, 577, 577, True, 30),
+                   (300, 300, 4, 1, 640, 640, True, 0),
+                   (200, 333, 4, 1, 1024, 1024, False, 0),
+                   (300, 300, 8, 4, 1100, 64, True, 100),
+                   (150, 150, 2, 1, 1536, 1536, True, 0),
+                   (70, 70, 2, 1, 4096, 4096, True, 0),
+                   (16, 16, 2, 1, 4160, 4160, True, 0),
+                   (16, 13, 4, 2, 4160, 100, False, 0)]
 
 
 @pytest.mark.parametrize("tq,tk,h,grp,d,dv,causal,window", FLASH_F32_CASES)
@@ -2011,8 +2037,7 @@ def test_cuda_flash_f32_bodies_match_plain(cuda, tq, tk, h, grp, d, dv,
                                            causal, window, out):
     ot = getattr(torch, out)
     body = ops.flash_body(torch.float32, d, dv)
-    assert body == ("fp32" if d <= 256 else "fp32 single-pass"
-                    if d <= 576 and dv <= 512 else "fp32 d-sliced")
+    assert body == ("fp32" if d <= 256 else "fp32 single-pass")
     assert ops.FLASH_BODIES[ops.entry("flash_body")(0, d, dv)] == body
     g = torch.Generator(device=cuda).manual_seed(d + dv + tq + tk)
     q = torch.randn(h, tq, d, generator=g, device=cuda)
@@ -2029,7 +2054,8 @@ def test_cuda_flash_f32_bodies_match_plain(cuda, tq, tk, h, grp, d, dv,
 
 
 @pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128),
-                                  (256, 256), (512, 512), (576, 512)])
+                                  (256, 256), (512, 512), (576, 512),
+                                  (1024, 1000)])
 def test_cuda_flash_f32_staged_route_equals_fast(cuda, d, dv):
     # Bases 4 bytes past 16 send both fp32 bodies to 4-byte copies into the
     # layout the 16-byte ones fill: the math runs on the same values.
@@ -2042,6 +2068,15 @@ def test_cuda_flash_f32_staged_route_equals_fast(cuda, d, dv):
                                  True)
     assert torch.equal(staged, fast)
     _close(staged, ref.flash_attention_plain(q, k, v, True))
+
+
+@pytest.mark.parametrize("d,dv,nc", FLASH_CLUSTER_SIZES)
+def test_cuda_flash_cluster_sizes(cuda, d, dv, nc):
+    # The C entry's cluster rule; a cluster of nc is resident somewhere.
+    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        assert ops.flash_cluster(dt, d, dv) == nc
+        resident = ops.entry("flash_clusters_resident")(code, code, d, dv)
+        assert resident == 0 if nc == 1 else resident >= 1
 
 
 def test_cuda_flash_body_rule_is_the_kernel_s(cuda):
