@@ -86,7 +86,11 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels timed): decision counts, predicted gain, a device-resident
    hit's T_LoH and the float64 reference.  (d) The densify kernel on the
    widest real FL slice, bit-identical to its plain version, timed beside
-   it and ``index_put_(accumulate=True)`` (its ``kernels`` entry), and the
+   it and ``index_put_(accumulate=True)`` (its ``kernels`` entry), and
+   bit for bit the plain version, twice alike, on ``densify_cases``
+   (n_src 45 and 4,097, so rows start off 16-byte boundaries; duplicates
+   over the kernel's quads and segments; full rows; out-of-range
+   columns; the hub-heavy tile); the
    GEMM kernel at the remapped shape 4096x4096x128 (C = A.B and + acc),
    bit-identical on a copy of the densified block and to
    ``ACK.gemm_agg``, timed beside its plain version and torch.matmul /
@@ -336,7 +340,7 @@ Phases (any failure exits non-zero; nothing is caught):
    2e-4 of max |logit|); ``launch.serve --arch hymba-1.5b``; step 1's
    loss and every gradient at B=2, T=4096 against the plain route, held
    within 2e-2 in fp32 and printed in bf16; the bf16 train step at B=2,
-   T=4096 under remat "full" (a warm-up and 3 timed steps, peak memory).
+   T=4096 under remat "full" (a warm-up and one timed step, peak memory).
 18. xlstm-125m at full width (12 layers: six mLSTM / sLSTM pairs with no
    FFN; d_model 768, 4 heads, vocab 50,304, tied head; 112.78 M
    parameters): the bf16 prefill at B=4, T=2048 (a warm-up and 2 timed,
@@ -454,7 +458,13 @@ Phases (any failure exits non-zero; nothing is caught):
    beside the one PyTorch call of the same function where PyTorch takes
    it (``torch.addmm`` with a bf16 ``out``, ``torch.sparse.sampled_addmm``
    with a bf16 ``out`` or bf16 operands; where it refuses, the error is
-   printed and ``library_ms`` is null).
+   printed and ``library_ms`` is null); bf16 SDDMM operands run both
+   routes there (8-byte loads, and rows one element off for the scalar
+   route), each bit for bit the fp32 kernel on the widened operands with
+   an fp32 and a bf16 store, the scalar route timed beside the vector
+   one (``sddmm_bf16_routes``).  The build's nvcc report gives the
+   densify kernel's and every SDDMM instantiation's registers and spills
+   (``sparse_nvcc_check``; a spill fails).
 
 ``launches`` in the ``kernels`` line is a kernel's count over the driven
 paths, through its wrapper (``kernels.ops.LAUNCHES``; a CUDA-graph
@@ -1040,6 +1050,53 @@ def gemm_bf16_check(torch, ops, ref, randn) -> dict:
         fail("gemm bf16 path shape: the staged route gives other bits")
     worst["f64_excess_path"] = over
     return worst
+
+
+SDDMM_KERNEL = re.compile(r"sddmm_f32_kernelILb([01])E(\w+?)EEv")
+SDDMM_INSTANTIATIONS = 8     # (vector, h type, out type): both routes of
+                             # fp32 / bf16 operands and fp32 / bf16 stores
+
+
+def sddmm_nvcc_key(ln: str):
+    """``sddmm_f32_kernel<route, h type, out type>`` for an nvcc report
+    line that names an instantiation of the SDDMM body, else None."""
+    m = SDDMM_KERNEL.search(ln)
+    if not m:
+        return None
+    bf = "13__nv_bfloat16"
+    h = "bf16" if m.group(2).startswith(bf) else "fp32"
+    rest = m.group(2)[len(bf) if h == "bf16" else 1:]
+    vec = "vector" if m.group(1) == "1" else "scalar"
+    out = "fp32" if rest == "f" else "bf16"
+    return f"sddmm_f32_kernel<{vec}, {h}, {out}>"
+
+
+def sparse_nvcc_check(gemm_report: str, sddmm_report: str) -> dict:
+    """Print the densify kernel's and the SDDMM body's registers and spill
+    bytes (``sddmm_f32_kernel<VEC, T, OutT>``, each instantiation) from
+    the gemm and sddmm builds' nvcc reports; fail if one spills or is
+    missing.  A cached build (no report) is said so and not checked."""
+    rows = {}
+    for report, key_of, count in (
+            (gemm_report, lambda ln: "ell_densify_kernel"
+             if "ell_densify_kernel" in ln else None, 1),
+            (sddmm_report, sddmm_nvcc_key, SDDMM_INSTANTIATIONS)):
+        if report.strip() == "cached":
+            log("nvcc densify / sddmm: cached build, no report in this run")
+            continue
+        got = nvcc_rows(report, key_of)
+        for key, r in sorted(got.items()):
+            log(f"nvcc {key}: {r.get('registers')} registers a thread, "
+                f"{r.get('spill_stores')} bytes spill stores, "
+                f"{r.get('spill_loads')} bytes spill loads")
+        if len(got) != count:
+            fail(f"{len(got)} instantiations of {sorted(got)} in the nvcc "
+                 f"report, expected {count}")
+        if any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+               for r in got.values()):
+            fail(f"densify / sddmm spills: {got}")
+        rows.update(got)
+    return rows
 
 
 def gemm_bf16_nvcc_check(report: str) -> dict:
@@ -2107,6 +2164,81 @@ def remap_fl_phase(torch, heng, fl, x):
     return total, out
 
 
+# Columns that straddle the densify kernel's quads, its lanes' quads
+# (128 positions apart) and its 2,048-position segments, at every row
+# alignment of an n_src off a multiple of 4; the row's ends (4,094 and
+# up count back from n_src); and columns out of range.
+DENSIFY_EDGE_COLS = (-1, 0, 1, 3, 4, 127, 128, 1022, 1023, 1024, 1025,
+                     2047, 2048, 4094, 4095, 4096, 4097, 4100)
+
+
+def densify_cases(torch, gen):
+    """[(label, cols, vals, n_src)] the densify kernel is held on bit for
+    bit: rows of an n_src that is not a multiple of 4 (so rows start off
+    16-byte boundaries; 45 and 4,097), widths that are not multiples of
+    32, rows with every slot live, duplicate-heavy rows whose columns
+    fall in different quads and segments, out-of-range columns, and
+    values of mixed sign and scale with zeros of either sign."""
+    edges = torch.tensor(DENSIFY_EDGE_COLS, dtype=torch.int32,
+                         device="cuda")
+
+    def tile(n1, w, n_src, cols):
+        vals = torch.randn(n1, w, generator=gen, device="cuda") * \
+            torch.where(torch.rand(n1, w, generator=gen, device="cuda")
+                        > 0.5, 1e4, 1.0)
+        z = torch.rand(n1, w, generator=gen, device="cuda")
+        vals = torch.where(z < 0.1, -0.0, torch.where(z < 0.2, 0.0, vals))
+        return cols.to(torch.int32).contiguous(), vals.contiguous()
+
+    out = []
+    for n1, w, n_src in ((64, 37, 45), (256, 70, 4097), (128, 512, 4097),
+                         (96, 33, 4096)):
+        pick = torch.randint(0, edges.numel(), (n1, w), generator=gen,
+                             device="cuda")
+        cols = torch.where(edges[pick] >= 4094, edges[pick] - 4096 + n_src,
+                           edges[pick])
+        out.append((f"duplicates over quads and segments n1={n1} w={w} "
+                    f"n_src={n_src}", *tile(n1, w, n_src, cols), n_src))
+    cols = torch.randint(-3, 4097 + 3, (512, 45), generator=gen,
+                         device="cuda")
+    out.append(("spread, out-of-range columns n1=512 w=45 n_src=4097",
+                *tile(512, 45, 4097, cols), 4097))
+    n1, w = 4096, 512
+    lens = torch.full((n1,), 25, device="cuda")
+    lens[torch.randperm(n1, generator=gen, device="cuda")[:256]] = w
+    live = torch.arange(w, device="cuda")[None] < lens[:, None]
+    cols = torch.where(live, torch.randint(0, n1, (n1, w), generator=gen,
+                                           device="cuda"), 0)
+    c, v = tile(n1, w, n1, cols)
+    out.append(("hub-heavy n1=4096 w=512 n_src=4096 (256 rows of 512 live "
+                "slots, the rest 25)", c, torch.where(live, v, 0.0)
+                .contiguous(), n1))
+    return out
+
+
+def densify_bound(torch, vals, n_src):
+    """bound_ms of densify on this tile: every value read, a column read
+    only under a live (non-zero) value, the block written once; an add a
+    live slot.  Returns (ms, what binds, live slots)."""
+    n1, w = vals.shape
+    live = int(torch.count_nonzero(vals))
+    return (*bound_ms(4 * n1 * w + 4 * live + 4 * n1 * n_src, float(live)),
+            live)
+
+
+def densify_same_bits(torch, ops, ref, label, cols, vals, n_src):
+    """The densify kernel on one tile: bit for bit the plain version
+    (signs of zero included), twice alike; returns max |err| (0)."""
+    got = ops.densify(cols, vals, n_src)
+    want = ref.densify_ref(cols, vals, n_src)
+    err = check_close(torch, f"densify {label}", got, want, 0.0, 0.0)
+    if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+            and torch.equal(ops.densify(cols, vals, n_src).view(torch.int32),
+                            want.view(torch.int32))):
+        fail(f"densify {label}: not bit for bit the plain version")
+    return err
+
+
 def remap_gemm_entry(torch, ops, ref, prog):
     """GEMM at the remapped shape, dense [4096, 4096] @ [4096, 128] with the
     block densified from the widest real FL slice (C = A.B and + acc),
@@ -2128,12 +2260,16 @@ def remap_gemm_entry(torch, ops, ref, prog):
     h = torch.randn(n1, 4 * f, generator=gen, device="cuda")[:, f:2 * f]
     acc = torch.randn(n1, f, generator=gen, device="cuda")
 
+    d_err = densify_same_bits(torch, ops, ref, "FL slice", cols, vals, n1)
     dense = ops.densify(cols, vals, n1)
-    d_err = check_close(torch, "densify FL slice", dense,
-                        ref.densify_ref(cols, vals, n1), 0.0, 0.0)
-    if not torch.equal(dense.view(torch.int32),
-                       ref.densify_ref(cols, vals, n1).view(torch.int32)):
-        fail("densify FL slice: not bit-identical to the plain version")
+    cases = densify_cases(torch, gen)
+    for label, c, v, n_src in cases:
+        d_err = max(d_err, densify_same_bits(torch, ops, ref, label, c, v,
+                                             n_src))
+    log(f"kernel densify: bit for bit the plain version, twice alike, on "
+        f"the FL slice and {len(cases)} more tiles: "
+        + "; ".join(label for label, *_ in cases))
+    del cases
     rows = torch.arange(n1, device="cuda")[:, None].expand(n1, w)
     cl = cols.long()
 
@@ -2144,9 +2280,9 @@ def remap_gemm_entry(torch, ops, ref, prog):
     t_dp = median_ms(torch, lambda: ref.densify_ref(cols, vals, n1),
                      reps=3, launches=3)
     t_dl = median_ms(torch, library)
-    db_ms, db_by = bound_ms(8 * n1 * w + 4 * n1 * n1, float(n1 * w))
+    db_ms, db_by, live = densify_bound(torch, vals, n1)
     log(f"kernel densify on FL slice (j,k,s)={key} n1={n1} w={w} nnz={nnz}"
-        f": kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, index_put_"
+        f" live={live}: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, index_put_"
         f"(accumulate) {t_dl:.4f} ms, bound {db_ms:.4f} ms ({db_by}), "
         "bit-identical to the plain version")
     densify_entry = {
@@ -2634,7 +2770,45 @@ def sddmm_bf16_cases(torch, ops, ref, hd, hs, cols, mask, acc):
         out[tag] = {"launches": n_l, "max_abs_err": err, "ms": t_k,
                     "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": libs[0].get("ms"), "library": libs}
+    out["bf16 operands"]["loads"] = "8-byte loads of four features"
+    out["bf16 operands, scalar route"] = sddmm_bf16_routes(
+        torch, ops, hd16, hs16, cols, mask, acc)
     return out
+
+
+def off_by_one(torch, t):
+    """``t``'s values in a view whose rows start one element past its
+    buffer's, with a row stride one more than its width (so off every
+    16-byte boundary: bf16 SDDMM operands take the scalar route)."""
+    buf = torch.empty(t.shape[0], t.shape[1] + 1, dtype=t.dtype,
+                      device=t.device)
+    buf[:, 1:].copy_(t)
+    return buf[:, 1:]
+
+
+def sddmm_bf16_routes(torch, ops, hd16, hs16, cols, mask, acc):
+    """bf16 SDDMM operands on both routes: as given (the vector route
+    where f, the row strides and the bases allow 8-byte loads of four
+    features) and off by one element (``off_by_one``: the scalar route's
+    2-byte loads); each bit for bit the fp32 kernel on the widened
+    operands, with an fp32 and a bf16 store.  Returns the scalar route's
+    time and, beside it, the vector route's in the same call."""
+    hdu, hsu = off_by_one(torch, hd16), off_by_one(torch, hs16)
+    want = ops.sddmm(hd16.float(), hs16.float(), cols, mask, acc)
+    for label, a, b in (("vector", hd16, hs16), ("scalar", hdu, hsu)):
+        if not (torch.equal(ops.sddmm(a, b, cols, mask, acc), want)
+                and torch.equal(ops.sddmm(a, b, cols, mask, acc,
+                                          out_dtype=torch.bfloat16),
+                                want.bfloat16())):
+            fail(f"sddmm bf16 operands, {label} route: not bit for bit the "
+                 "fp32 kernel on the widened operands")
+    t_s = median_ms(torch, lambda: ops.sddmm(hdu, hsu, cols, mask, acc))
+    t_v = median_ms(torch, lambda: ops.sddmm(hd16, hs16, cols, mask, acc))
+    log(f"kernel sddmm bf16 operands: scalar route (rows one element off, "
+        f"stride f + 1) {t_s:.4f} ms, vector route {t_v:.4f} ms in the "
+        "same call; both bit for bit the fp32 kernel on the widened "
+        "operands, fp32 and bf16 stores")
+    return {"ms": t_s, "vector_ms": t_v}
 
 
 def sddmm_tile(torch, ops, ref, label, hd, hs, cols, mask, acc):
@@ -6989,6 +7163,8 @@ def main() -> int:
                              SP_KERNEL, SP_INSTANTIATIONS)
     f32_build = f32_nvcc_check(build.build_log.get("flash_attention", ""))
     gemm_build = gemm_bf16_nvcc_check(build.build_log.get("gemm", ""))
+    sparse_build = sparse_nvcc_check(build.build_log.get("gemm", ""),
+                                     build.build_log.get("sddmm", ""))
 
     gemm_entry = kernel_phase(torch, ops, ref)
     bf16_kernels = gemm_entry.pop("bf16")
@@ -7239,6 +7415,7 @@ def main() -> int:
                        "flash_bodies": bodies,
                        "flash_d128_rows": d128_rows,
                        "gemm_bf16_build": gemm_build,
+                       "densify_sddmm_build": sparse_build,
                        "flash_launches": {
                            "lm": flash_launches, "granite": granite_launches,
                            "gemma3": gemma_launches,

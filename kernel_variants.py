@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Tile-shape variants of the GEMM (its fp32 kernel and its bf16 body),
-SpDMM, SDDMM and flash kernels, read beside the kernels themselves on one
-GPU, and planted faults in the GEMM's bf16 body.
+the densify kernel, SpDMM, SDDMM and flash kernels, read beside the
+kernels themselves on one GPU, and planted faults in the GEMM's bf16
+body.
 
     python3 kernel_variants.py [--parent DIR] [--only KERNEL ...]
                                [--json-out PATH]
@@ -38,6 +39,26 @@ through the unchanged ``ops.gemm`` / ``ops.sddmm`` /
   MLA call (BH = 512, d = 192, V 128 wide) and qwen3-0.6b (d = 128), each
   under ``chip_smoke.check_rows`` against the plain version, with its
   bound and whether its bits equal the checkout's kernel's.
+
+The densify kernel (``--only densify``; variants that store zeros first
+and the sums over them, store without the streaming hint, own 1,024- or
+4,096-position segments, read every slot's column, load 4 or 16 chunks
+ahead, or broadcast a chunk's slots one at a time, each a text edit of
+``gemm.cu`` called through its entry; the ``DIAGNOSTIC`` builds that
+only store the zeros or only walk are timed only; with ``--parent`` the
+parent tree's ``gemm.cu``) is held bit for bit to ``ref.densify_ref``,
+twice alike, on the widest FL slice (its real values) and
+``chip_smoke.densify_cases`` (unaligned n_src, duplicates over quads and
+segments, out-of-range columns, the hub-heavy tile), and timed on the FL
+slice and the hub-heavy tile beside ``index_put_(accumulate=True)``, a
+``zero_`` of the same block (the write rate a library call reaches) and
+the bound; each build's registers and spills are printed.  ``--only
+sddmm`` also runs bf16 operands through every build's ``sddmm_bf16``
+entry on both routes (8-byte loads, and rows one element off), bit for
+bit the fp32 kernel on the widened operands (``bf16_load16``, 16-byte
+loads in another sum order, and the parent only to tolerance), and times
+the vector route per build beside the checkout's scalar route and its
+fp32 operands on the four tiles.
 
 The GEMM's bf16 body (``--only gemm_bf16``; variants of its tile width,
 stage count and consumer warpgroups, each a text edit of ``gemm.cu``
@@ -201,7 +222,8 @@ _CL_LOCKSTEP = [
 ]
 # Variants run for their time alone (their output is not held to the
 # plain version): measurements of where a tile's time goes.
-DIAGNOSTIC = ("diag_no_ex2", "cl_diag_own", "cl_diag_nowait")
+DIAGNOSTIC = ("diag_no_ex2", "cl_diag_own", "cl_diag_nowait",
+              "diag_fill", "diag_no_store")
 
 
 # Part of the softmax's exponentials on the FMA pipe instead of the SFU
@@ -470,6 +492,168 @@ VARIANTS = {
         "warps16": ("16 warps a block",
                     [("constexpr int WARPS = 4;",
                       "constexpr int WARPS = 16;")]),
+        "bf16_load16": ("bf16 operands: 16-byte loads of eight features a "
+                        "lane in the first 128 (lane l holds features "
+                        "8 l .. + 7 and 64 + 8 l .. + 7; another sum "
+                        "order, held to tolerance), where f and the row "
+                        "strides are multiples of 8 and the bases of 16 "
+                        "bytes",
+                        [("template <typename T, int Q = 4>\n",
+                          "template <typename T, int Q = sizeof(T) == 2 ? 8 "
+                          ": 4>\n"),
+                         ("#pragma unroll\n  for (int i = 0; i < 4; ++i) "
+                          "x[i] = quad<VEC, T>(row, 4 * (l + 8 * i), f);\n",
+                          "  if constexpr (VEC && sizeof(T) == 2) {\n"
+                          "#pragma unroll\n"
+                          "    for (int i = 0; i < 2; ++i) {\n"
+                          "      const int c = 8 * (l + 8 * i);\n"
+                          "      x[2 * i] = x[2 * i + 1] = make_float4(0.0f, "
+                          "0.0f, 0.0f, 0.0f);\n"
+                          "      if (c < f) {\n"
+                          "        const uint4 u = *reinterpret_cast<const "
+                          "uint4*>(row + c);\n"
+                          "        x[2 * i] = widen4(u.x, u.y);\n"
+                          "        x[2 * i + 1] = widen4(u.z, u.w);\n"
+                          "      }\n"
+                          "    }\n"
+                          "  } else {\n"
+                          "#pragma unroll\n"
+                          "    for (int i = 0; i < 4; ++i)\n"
+                          "      x[i] = quad<VEC, T>(row, 4 * (l + 8 * i), "
+                          "f);\n"
+                          "  }\n")]),
+        "bf16_two_slots": ("bf16 operands on the vector route at f <= 128: "
+                           "two slots a group per round (slots b0 + g and "
+                           "b0 + 4 + g, each summed in the checkout's "
+                           "order), eight a warp",
+                           [("    for (int b0 = 0; b0 < n_live; b0 += 4) {\n",
+                             "    for (int b0 = 0; b0 < n_live; b0 += 4) {\n"
+                             "      if constexpr (VEC && sizeof(T) == 2) {\n"
+                             "        if (f <= 128) {\n"
+                             "          const int i0 = b0 + g, i1 = b0 + 4 + "
+                             "g;\n"
+                             "          const int c0 = i0 < n_live ? "
+                             "list_c[wid][i0] : 0;\n"
+                             "          const int c1 = i1 < n_live ? "
+                             "list_c[wid][i1] : 0;\n"
+                             "          const bool bad0 = (unsigned)c0 >= "
+                             "(unsigned)n_src;\n"
+                             "          const bool bad1 = (unsigned)c1 >= "
+                             "(unsigned)n_src;\n"
+                             "          float4 x0[4], x1[4];\n"
+                             "          lane_quads<VEC, T>(hs + (long long)"
+                             "(bad0 ? 0 : c0) * lds, l, f, x0);\n"
+                             "          lane_quads<VEC, T>(hs + (long long)"
+                             "(bad1 ? 0 : c1) * lds, l, f, x1);\n"
+                             "          float p0 = 0.0f, p1 = 0.0f;\n"
+                             "#pragma unroll\n"
+                             "          for (int i = 0; i < 4; ++i) {\n"
+                             "            p0 = dot4(p0, d[i], x0[i]);\n"
+                             "            p1 = dot4(p1, d[i], x1[i]);\n"
+                             "          }\n"
+                             "#pragma unroll\n"
+                             "          for (int off = 4; off > 0; off >>= 1)"
+                             " {\n"
+                             "            p0 += __shfl_xor_sync(FULL, p0, "
+                             "off);\n"
+                             "            p1 += __shfl_xor_sync(FULL, p1, "
+                             "off);\n"
+                             "          }\n"
+                             "          if (l == 0 && i0 < n_live)\n"
+                             "            list_s[wid][i0] = bad0 ? "
+                             "__int_as_float(0x7fc00000) : p0;\n"
+                             "          if (l == 0 && i1 < n_live)\n"
+                             "            list_s[wid][i1] = bad1 ? "
+                             "__int_as_float(0x7fc00000) : p1;\n"
+                             "          b0 += 4;\n"
+                             "          continue;\n"
+                             "        }\n"
+                             "      }\n")]),
+    },
+    # The densify kernel (ell_densify_kernel in gemm.cu), each a text edit
+    # called through its entry; every build keeps each element's sum
+    # (0.0f plus its slots in slot order), so each is held bit for bit.
+    "densify": {
+        "early_zeros": ("each segment's zeros stored first, before its "
+                        "slots are read, and after the walk only the quads "
+                        "whose sums are not all +0.0f (over the zeros, by "
+                        "the same lane)",
+                        [("  float4* seg = seg_all[threadIdx.x >> 5];\n",
+                          "  float* base = row - m;\n"
+                          "#pragma unroll\n"
+                          "  for (int i = 0; i < DQ; ++i)\n"
+                          "    densify_put(base, p0 + 4 * (lane + 32 * i), m, "
+                          "n_src,\n                make_float4(0.0f, 0.0f, "
+                          "0.0f, 0.0f));\n"
+                          "  float4* seg = seg_all[threadIdx.x >> 5];\n"),
+                         ("  float* base = row - m;\n#pragma unroll\n"
+                          "  for (int i = 0; i < DQ; ++i)\n"
+                          "    densify_put(base, p0 + 4 * (lane + 32 * i), m, "
+                          "n_src, seg[lane + 32 * i]);\n",
+                          "#pragma unroll\n"
+                          "  for (int i = 0; i < DQ; ++i) {\n"
+                          "    const float4 x = seg[lane + 32 * i];\n"
+                          "    if (__float_as_uint(x.x) | __float_as_uint(x.y)"
+                          " |\n        __float_as_uint(x.z) | "
+                          "__float_as_uint(x.w))\n"
+                          "      densify_put(base, p0 + 4 * (lane + 32 * i), "
+                          "m, n_src, x);\n  }\n")]),
+        "plain_stores": ("stores without the streaming hint",
+                         [("    __stcs(reinterpret_cast<float4*>(base + p), "
+                           "x);", "    *reinterpret_cast<float4*>(base + p) "
+                           "= x;"),
+                          ("__stcs(base + p + j, e[j]);",
+                           "base[p + j] = e[j];")]),
+        "seg1024": ("1,024-position segments, 8 warps a CTA (a "
+                    "4096-column row is 4 warps' work, each reading the "
+                    "row's slots)",
+                    [("constexpr int DSEG = 2048;",
+                      "constexpr int DSEG = 1024;"),
+                     ("constexpr int DWARPS = 4;",
+                      "constexpr int DWARPS = 8;")]),
+        "seg4096": ("4,096-position segments, 2 warps a CTA (16 KB of "
+                    "shared memory a warp; a 4096-column row is one warp's "
+                    "work)",
+                    [("constexpr int DSEG = 2048;",
+                      "constexpr int DSEG = 4096;"),
+                     ("constexpr int DWARPS = 4;",
+                      "constexpr int DWARPS = 2;")]),
+        "cols_always": ("every slot's column read, pads' too (a pad "
+                        "still lands nowhere)",
+                        [("      cb[b] = vb[b] != 0.0f ? cr[k0 + 32 * b + "
+                          "lane] : -1;",
+                          "      cb[b] = k0 + 32 * b + lane < w ? cr[k0 + 32 "
+                          "* b + lane] : -1,\n"
+                          "      cb[b] = vb[b] != 0.0f || cb[b] == "
+                          "-2147483647 - 1 ? cb[b] : -1;")]),
+        "db4": ("4 chunks of 32 slots loaded a lane before a walk",
+                [("constexpr int DB = 8;", "constexpr int DB = 4;")]),
+        "db16": ("16 chunks of 32 slots loaded a lane before a walk",
+                 [("constexpr int DB = 8;", "constexpr int DB = 16;")]),
+        "serial": ("a chunk's live slots broadcast one at a time in slot "
+                   "order, the lane that owns each one's quad adding it "
+                   "(the first design's loop)",
+                   [("  const unsigned same = __match_any_sync(0xffffffffu, "
+                     "p);\n",
+                     "  for (unsigned t = __ballot_sync(0xffffffffu, p >= 0);"
+                     " t;\n       t &= t - 1) {\n"
+                     "    const int q = __ffs(t) - 1;\n"
+                     "    const int pq = __shfl_sync(0xffffffffu, p, q);\n"
+                     "    const float vq = __shfl_sync(0xffffffffu, v, q);\n"
+                     "    if (((pq >> 2) & 31) == lane) segf[pq] += vq;\n"
+                     "  }\n"
+                     "  if (p > -2) return;\n"
+                     "  const unsigned same = __match_any_sync(0xffffffffu, "
+                     "p);\n")]),
+        "diag_fill": ("diagnostic, timed only (wrong sums): the segments' "
+                      "zeros stored, no slot read",
+                      [("  for (int k0 = 0; k0 < w; k0 += 32 * DB) {",
+                        "  for (int k0 = 0; k0 < 0; k0 += 32 * DB) {")]),
+        "diag_no_store": ("diagnostic, timed only (nothing written): the "
+                          "walk and its sums, no global store",
+                          [("  const int c = p - m;\n",
+                            "  const int c = p - m;\n"
+                            "  if (x.x != -7.25e-30f) return;\n")]),
     },
     "flash_attention": {
         "wide_two_wg": ("bf16 body past d = 128: the two consumer "
@@ -799,7 +983,8 @@ GEMM_FAULTS = {
 }
 # Variant keys built from another kernel's source, and the entry point
 # their copies are called through.
-SOURCE = {"gemm_bf16": "gemm", "flash_wide": "flash_attention",
+SOURCE = {"gemm_bf16": "gemm", "densify": "gemm",
+          "flash_wide": "flash_attention",
           "flash_f32": "flash_attention", "flash_d128": "flash_attention"}
 ENTRY = {"gemm_bf16": "gemm_mixed", "flash_wide": "flash_attention",
          "flash_f32": "flash_attention", "flash_d128": "flash_attention",
@@ -808,8 +993,9 @@ ENTRY = {"gemm_bf16": "gemm_mixed", "flash_wide": "flash_attention",
 # parent's SpDMM source has only the one-step entries).
 PARENT_ENTRY = {"spdmm": "spdmm"}
 # Kernels whose parent source is built as the variant "parent".
-PARENT_KERNELS = ("gemm", "gemm_bf16", "sddmm", "flash_attention",
-                  "flash_wide", "flash_f32", "flash_d128", "spdmm")
+PARENT_KERNELS = ("gemm", "gemm_bf16", "densify", "sddmm",
+                  "flash_attention", "flash_wide", "flash_f32", "flash_d128",
+                  "spdmm")
 # A flash entry without the dv argument (the signature before V took its
 # own width): the parent's, when its source has no dv.
 FLASH_NO_DV = "int d, int causal, int window,"
@@ -1610,22 +1796,30 @@ def flash_d128_phase(torch, cs, ops, ref, fns):
     return out
 
 
+_FL_TILE = []
+
+
 def fl_widest_slice(torch):
-    """cols / mask of the widest ELL slice of full-scale Flickr at the
-    engine's default geometry (n1 = 4096, n2 = 128)."""
-    from repro_torch.core import graph as G
-    from repro_torch.core.passes.partition import (PartitionConfig,
-                                                   partition_graph)
-    t0 = time.perf_counter()
-    fl = G.synthesize("FL").gcn_normalized()
-    pg = partition_graph(fl, PartitionConfig(n1=4096, n2=128))
-    tile = max((t for ts in pg.tiles.values() for t in ts),
-               key=lambda t: (t.width, t.nnz))
-    log(f"FL partition in {time.perf_counter() - t0:.1f} s; widest slice "
-        f"(j,k)=({tile.shard_row},{tile.shard_col}) w={tile.width} "
-        f"nnz={tile.nnz}")
+    """cols / mask / vals of the widest ELL slice of full-scale Flickr at
+    the engine's default geometry (n1 = 4096, n2 = 128), partitioned once
+    a run."""
+    if not _FL_TILE:
+        from repro_torch.core import graph as G
+        from repro_torch.core.passes.partition import (PartitionConfig,
+                                                       partition_graph)
+        t0 = time.perf_counter()
+        fl = G.synthesize("FL").gcn_normalized()
+        pg = partition_graph(fl, PartitionConfig(n1=4096, n2=128))
+        tile = max((t for ts in pg.tiles.values() for t in ts),
+                   key=lambda t: (t.width, t.nnz))
+        log(f"FL partition in {time.perf_counter() - t0:.1f} s; widest "
+            f"slice (j,k)=({tile.shard_row},{tile.shard_col}) "
+            f"w={tile.width} nnz={tile.nnz}")
+        _FL_TILE.append(tile)
+    tile = _FL_TILE[0]
     return (torch.as_tensor(tile.cols, device="cuda").contiguous(),
-            torch.as_tensor(tile.edge_pos >= 0, device="cuda").contiguous())
+            torch.as_tensor(tile.edge_pos >= 0, device="cuda").contiguous(),
+            torch.as_tensor(tile.vals, device="cuda").contiguous())
 
 
 def narrow_tile(torch, gen, w, n1=4096):
@@ -1649,12 +1843,66 @@ def hub_tile(torch, gen, n1=4096, w=512):
     return cols.to(torch.int32).contiguous(), mask
 
 
+# SDDMM variants whose bf16-operand sums take another order (held to
+# tolerance there; their fp32 route is the checkout's).
+SDDMM_BF16_OTHER_ORDER = ("bf16_load16",)
+
+
+def sddmm_bf16_check(torch, cs, ops, ref, bf16_fns, hd, hs, cols, mask,
+                     acc, label):
+    """Every build's bf16-operand route on bf16 copies of ``hd`` / ``hs``
+    (as given and off by one element: both routes), fp32 and bf16
+    stores: bit for bit the checkout's fp32 kernel on the widened
+    operands where the build keeps the sum order (the parent's only
+    noted), else within the masked-step tolerance.  Returns the builds
+    whose bits differ."""
+    hd16, hs16 = hd.bfloat16(), hs.bfloat16()
+    want = ops.sddmm(hd16.float(), hs16.float(), cols, mask, acc)
+    differ = []
+    for nm, fn in bf16_fns.items():
+        for route, a, b in (("vector", hd16, hs16),
+                            ("scalar", cs.off_by_one(torch, hd16),
+                             cs.off_by_one(torch, hs16))):
+            with entry_as(ops, fn, "sddmm_bf16"):
+                got = ops.sddmm(a, b, cols, mask, acc)
+            cs.check_close(torch, f"sddmm bf16 {nm} {route} {label}", got,
+                           ref.sddmm_step_ref(a, b, cols, mask, acc),
+                           cs.KERNEL_RTOL, cs.KERNEL_ATOL)
+            if torch.equal(got, want):
+                continue
+            if nm == "parent" or nm in SDDMM_BF16_OTHER_ORDER:
+                differ.append(f"{nm} {route} {label}")
+            else:
+                cs.fail(f"sddmm bf16 {nm} {route} {label}: not bit for bit "
+                        "the fp32 kernel on the widened operands")
+    for route, a, b in (("vector", hd16, hs16),
+                        ("scalar", cs.off_by_one(torch, hd16),
+                         cs.off_by_one(torch, hs16))):
+        if not torch.equal(ops.sddmm(a, b, cols, mask, acc,
+                                     out_dtype=torch.bfloat16),
+                           want.bfloat16()):
+            cs.fail(f"sddmm bf16 {route} {label}, bf16 store: not the fp32 "
+                    "kernel's result rounded once")
+    return differ
+
+
 def sddmm_phase(torch, cs, ops, ref, fns):
+    """The SDDMM builds (fp32 operands through ``sddmm_f32``, bf16 ones
+    through ``sddmm_bf16`` of the same copy) held on ``chip_smoke``'s
+    sweep and two ragged shapes, then timed on the widest FL slice, the
+    hub tile and two narrow tiles: fp32 per build beside
+    ``torch.sparse.sampled_addmm``; bf16 operands per build on the vector
+    route, and the checkout's scalar route (rows off by one element)."""
+    from repro_torch.kernels import build
     gen = torch.Generator(device="cuda").manual_seed(2)
     names = [n for k, n in fns if k == "sddmm"]
+    bf16_fns = {nm: (ops.entry("sddmm_bf16") if nm == "change" else
+                     copy_entry(build, f"sddmm_{nm}", "sddmm_bf16"))
+                for nm in names}
     # The parent's per-slot sum order may differ: held to tolerance only.
     same_order = [n for n in names if n != "parent"]
     sweep = cs.SDDMM_SWEEP + [(40, 200, 50, 256), (33, 77, 60, 33)]
+    bf16_differ = []
     for n1, w, ns, f in sweep:
         cols = torch.randint(0, ns, (n1, w), generator=gen, device="cuda",
                              dtype=torch.int32)
@@ -1677,11 +1925,15 @@ def sddmm_phase(torch, cs, ops, ref, fns):
             if nm in same_order and not torch.equal(got, mine):
                 cs.fail(f"sddmm {nm} {n1}x{w}: not bit-identical to the "
                         "checkout's kernel")
+        bf16_differ += sddmm_bf16_check(torch, cs, ops, ref, bf16_fns, hd,
+                                        hs, cols, mask, acc,
+                                        f"{n1}x{w} f={f}")
     log(f"sddmm: {len(names)} builds within tolerance on {len(sweep)} "
-        "shapes")
+        "shapes, fp32 and bf16 operands (both routes); bf16 bits that "
+        f"differ from the widened fp32 call: {bf16_differ or 'none'}")
     order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
     out = {}
-    for tname, (cols, mask) in (("FL", fl_widest_slice(torch)),
+    for tname, (cols, mask) in (("FL", fl_widest_slice(torch)[:2]),
                                 ("hub", hub_tile(torch, gen)),
                                 ("w8", narrow_tile(torch, gen, 8)),
                                 ("w64", narrow_tile(torch, gen, 64))):
@@ -1711,9 +1963,106 @@ def sddmm_phase(torch, cs, ops, ref, fns):
         hdc, hst = hd.contiguous(), hs.t().contiguous()
         row["sampled_addmm"] = cs.median_ms(
             torch, lambda: torch.sparse.sampled_addmm(csr, hdc, hst))
-        out[tname] = {"live": int(rows.numel()), "ms": row}
-        log(f"sddmm {tname} tile n1={n1} w={w} f=128 live={rows.numel()} "
+        bf16_differ += sddmm_bf16_check(torch, cs, ops, ref, bf16_fns, hd,
+                                        hs, cols, mask, acc, tname)
+        hd16, hs16 = hd.bfloat16(), hs.bfloat16()
+        hdu = cs.off_by_one(torch, hd16)
+        hsu = cs.off_by_one(torch, hs16)
+        row16 = {}
+        for i, nm in enumerate(order):
+            with entry_as(ops, bf16_fns[nm], "sddmm_bf16"):
+                t = cs.median_ms(torch, lambda: ops.sddmm(hd16, hs16, cols,
+                                                          mask, acc))
+            row16[nm if i < len(order) - 1 else "change_again"] = t
+        row16["change_scalar_route"] = cs.median_ms(
+            torch, lambda: ops.sddmm(hdu, hsu, cols, mask, acc))
+        row16["change_fp32"] = cs.median_ms(
+            torch, lambda: ops.sddmm(hd, hs, cols, mask, acc))
+        nnz = int(rows.numel())
+        src_rows = int(torch.unique(cols[rows, slots]).numel())
+        dst_rows = int(torch.unique(rows).numel())
+        b16 = cs.bound_ms(9 * n1 * w + 4 * nnz + 2 * 128 * (dst_rows
+                                                            + src_rows),
+                          2.0 * nnz * 128)
+        out[tname] = {"live": nnz, "ms": row, "bf16_ms": row16,
+                      "bf16_bound_ms": b16[0], "bf16_bound_by": b16[1]}
+        log(f"sddmm {tname} tile n1={n1} w={w} f=128 live={nnz} "
             "ms: " + ", ".join(f"{nm} {t:.4f}" for nm, t in row.items()))
+        log(f"sddmm bf16 operands, {tname} tile ms (vector route per "
+            "build; the checkout's scalar route and fp32 operands in the "
+            "same call): " + ", ".join(f"{nm} {t:.4f}"
+                                       for nm, t in row16.items())
+            + f"; bound {b16[0]:.4f} ({b16[1]})")
+    out["bf16_bits_differ"] = bf16_differ
+    out["ptxas"] = {}
+    for nm in names:
+        report = (build.build_log.get("sddmm", "") if nm == "change"
+                  else REPORTS.get(("sddmm", nm), ""))
+        out["ptxas"][nm] = cs.nvcc_rows(report, cs.sddmm_nvcc_key)
+        log(f"nvcc sddmm {nm}: " + "; ".join(
+            f"{k} {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spilled"
+            for k, r in sorted(out["ptxas"][nm].items())))
+    return out
+
+
+def densify_phase(torch, cs, ops, ref, fns):
+    """Each densify build (the checkout's kernel, the variants and the
+    parent's) held bit for bit to ``ref.densify_ref``, twice alike, on the
+    widest FL slice and ``chip_smoke.densify_cases`` (unaligned n_src,
+    duplicates over quads and segments, full rows, out-of-range columns,
+    the hub-heavy tile); then timed on the FL slice and the hub-heavy
+    tile (change, variants, parent, change) beside
+    ``index_put_(accumulate=True)``, a ``zero_`` of the block and the
+    bound; and each build's ptxas registers and spills."""
+    from repro_torch.kernels import build
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    names = [n for k, n in fns if k == "densify"]
+    cols, _, vals = fl_widest_slice(torch)
+    cases = [("FL widest slice", cols, vals, cols.shape[0])] + \
+        cs.densify_cases(torch, gen)
+    for label, c, v, n_src in cases:
+        for nm in names:
+            if nm in DIAGNOSTIC:      # timed only
+                continue
+            with entry_as(ops, fns[("densify", nm)], "densify"):
+                cs.densify_same_bits(torch, ops, ref, f"{nm}, {label}", c, v,
+                                     n_src)
+    log(f"densify: {len([n for n in names if n not in DIAGNOSTIC])} builds "
+        f"bit for bit the plain version, twice alike, on {len(cases)} tiles")
+    order = ["change"] + [nm for nm in names if nm != "change"] + ["change"]
+    out = {"ptxas": {}}
+    for tname, (label, c, v, n_src) in (("FL", cases[0]),
+                                        ("hub", cases[-1])):
+        n1, w = c.shape
+        row = {}
+        for i, nm in enumerate(order):
+            with entry_as(ops, fns[("densify", nm)], "densify"):
+                t = cs.median_ms(torch, lambda: ops.densify(c, v, n_src))
+            row[nm if i < len(order) - 1 else "change_again"] = t
+        rr = torch.arange(n1, device="cuda")[:, None].expand(n1, w)
+        cl = c.long()
+        row["index_put_"] = cs.median_ms(
+            torch, lambda: torch.zeros(n1, n_src, device="cuda").index_put_(
+                (rr, cl), v, accumulate=True))
+        # The write rate a library call reaches on the same block.
+        blk = torch.empty(n1, n_src, device="cuda")
+        row["zero_"] = cs.median_ms(torch, blk.zero_)
+        del blk
+        b_ms, b_by, live = cs.densify_bound(torch, v, n_src)
+        out[tname] = {"n1": n1, "w": w, "n_src": n_src, "live": live,
+                      "ms": row, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"densify {tname} ({label}) n1={n1} w={w} n_src={n_src} "
+            f"live={live} ms: " + ", ".join(f"{nm} {t:.4f}"
+                                              for nm, t in row.items())
+            + f"; bound {b_ms:.4f} ({b_by})")
+    for nm in names:
+        report = (build.build_log.get("gemm", "") if nm == "change"
+                  else REPORTS.get(("densify", nm), ""))
+        got = cs.nvcc_rows(report, lambda ln: "ell_densify_kernel"
+                           if "ell_densify_kernel" in ln else None)
+        out["ptxas"][nm] = got.get("ell_densify_kernel", "no report")
+        log(f"nvcc ell_densify_kernel, {nm}: {out['ptxas'][nm]}")
     return out
 
 
@@ -1947,8 +2296,8 @@ def spdmm_phase(torch, cs, ops, ref, fns):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="another checkout whose gemm.cu (fp32 kernel and "
-                         "bf16 body) / spdmm.cu / sddmm.cu / "
+                    help="another checkout whose gemm.cu (fp32 kernel, "
+                         "densify and bf16 body) / spdmm.cu / sddmm.cu / "
                          "flash_attention.cu to build and time as the "
                          "variant 'parent'")
     ap.add_argument("--only", action="append", choices=list(VARIANTS),
@@ -1974,7 +2323,8 @@ def main() -> int:
     kernels = args.only or list(VARIANTS)
     fns = build_variants(build, args.parent, kernels)
     phases = {"gemm": gemm_phase, "gemm_bf16": gemm_bf16_phase,
-              "sddmm": sddmm_phase, "flash_attention": flash_phase,
+              "densify": densify_phase, "sddmm": sddmm_phase,
+              "flash_attention": flash_phase,
               "flash_wide": flash_wide_phase, "flash_f32": flash_f32_phase,
               "flash_d128": flash_d128_phase, "spdmm": spdmm_phase}
     result = {"card": card,

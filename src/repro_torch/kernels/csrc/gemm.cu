@@ -105,19 +105,32 @@
 // scatter-add of src/repro/core/ack.py `densify_tile` / `_gemm_agg_xla`,
 // which has no Pallas kernel.  A graph may hold the same column twice in
 // one row, and a scatter-add on the card sums such duplicates in no fixed
-// order, so the block would change from call to call.  Here one warp owns
-// row r and lane l owns the row's columns c with c % 32 == l.  The row is
-// built in shared memory, DCOLS columns a pass: each lane zeroes its
-// columns, the warp reads the row's slots 32 at a time (one coalesced load
-// a lane) and broadcasts the non-zero ones in slot order with shuffles,
-// the owning lane adds each to its column (lane l only touches bank l),
-// and the lanes write the pass's columns out coalesced.  Every element is
-// therefore 0.0f plus its slots in slot order, the sum a serial
-// scatter-add makes, with no atomics; skipping the zero-valued slots (the
-// pads, over 99% of a Flickr slice) changes no bit, as the loop says.  What
-// bounds it is writing the block (64 MiB at n1 = n_src = 4096, 0.02 ms at
-// 3.35 TB/s); a first design, one 256-thread CTA a row adding into global
-// memory, took 16x that (PERF.md).
+// order, so the block would change from call to call.  What bounds it is
+// writing the block: 64 MiB at n1 = n_src = 4096, with 16.8 MB of slots
+// (0.025 ms at 3.35 TB/s); most slots are pads, so nearly every byte
+// written is a zero.  A row is cut into segments of DSEG = 2048 positions
+// counted from the 16-byte boundary at or before its first column (a row
+// of an n_src not a multiple of 4 starts 4, 8 or 12 bytes past one), and
+// one warp owns a segment, its sums in shared memory (8 KB); lane l owns
+// quads l + 32 i.  The warp reads the row's slots 32 at a time, eight
+// chunks in flight a lane, a slot's column only where its value is not
+// zero, and adds each chunk's slots that land in its segment
+// (`densify_chunk`: the slots of one position find each other with a
+// match, and the first adds them in slot order; a chunk with none costs a
+// vote).  Every element is therefore 0.0f plus its slots in slot order,
+// the sum a serial scatter-add makes, with no atomics; skipping the
+// zero-valued slots (the pads) changes no bit, as the walk says.  Then
+// each quad is written once, 16 bytes a lane and 512 contiguous bytes a
+// warp store, scalars for a quad cut by the row's ends, with the
+// streaming hint.  Measured on an H100 80GB HBM3 at 700 W (PERF.md):
+// plain stores of the block ran at 0.6x the write rate of the same
+// stores marked streaming, or of a memset; zeros stored first and the
+// sums over them later cost 10-19% more; 1,024-position segments (each of
+// four warps reading the row's slots) 7% more on a Flickr slice; every
+// column read, pads' too, 9-12% more; one warp broadcasting a chunk's
+// slots one at a time (the first design's loop) 42-81% more: it stalls
+// on Flickr's hub columns, where one column takes hundreds of a row's
+// slots.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -754,43 +767,102 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
   }
 }
 
-constexpr int DW = 4;           // densify rows (warps) per CTA
-constexpr int DCOLS = 2048;     // columns a warp builds per pass (8 KB)
+constexpr int DSEG = 2048;      // positions of a row a densify warp owns
+constexpr int DQ = DSEG / 128;  // 16-byte quads a lane owns in its segment
+constexpr int DWARPS = 4;       // densify warps per CTA
+constexpr int DB = 8;           // chunks of 32 slots loaded before a walk
 
-__global__ void __launch_bounds__(DW * 32)
+// Quad p .. p + 3 of a row (positions: `base` is 16-byte aligned and
+// position p is column p - m): one 16-byte store where all four columns
+// lie in [0, n_src), else a scalar store for each column that does.  The
+// stores are marked streaming (evict first): the block is written once,
+// and plain stores left it to L2 and wrote it at 0.6x the rate.
+__device__ __forceinline__ void densify_put(float* base, int p, int m,
+                                            int n_src, float4 x) {
+  const int c = p - m;
+  if (c >= 0 && c + 3 < n_src) {
+    __stcs(reinterpret_cast<float4*>(base + p), x);
+    return;
+  }
+  const float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c + j >= 0 && c + j < n_src) __stcs(base + p + j, e[j]);
+}
+
+// Adds one chunk of 32 slots to the warp's segment in shared memory: lane
+// l's slot (slot order is lane order) lands at position p of the segment,
+// or p = -1 (a pad, zero-valued, out of range or in another segment).  The
+// slots of one position find each other (match); the first of them reads
+// the position's sum, adds its own value and then the others', in slot
+// order, and writes it back, so every element's sum is taken in slot
+// order, and positions are summed side by side.
+__device__ __forceinline__ void densify_chunk(float* segf, int p, float v,
+                                              int lane) {
+  if (!__any_sync(0xffffffffu, p >= 0)) return;
+  const unsigned same = __match_any_sync(0xffffffffu, p);
+  const bool lead = p >= 0 && (same & ((1u << lane) - 1)) == 0;
+  const int n = lead ? __popc(same) : 0;
+  const int rounds = __reduce_max_sync(0xffffffffu, n);
+  float sum = lead ? segf[p] : 0.0f;
+  unsigned rest = same;
+  for (int j = 0; j < rounds; ++j) {   // the same count in every lane
+    const int q = __ffs(rest) - 1;
+    rest &= rest - 1;
+    const float vq = __shfl_sync(0xffffffffu, v, q < 0 ? lane : q);
+    if (j < n) sum += vq;
+  }
+  if (lead) segf[p] = sum;
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(DWARPS * 32)
 ell_densify_kernel(const int* __restrict__ cols,
                    const float* __restrict__ vals, float* D, int n1, int w,
-                   int n_src, long long ldd) {
-  __shared__ float acc_all[DW][DCOLS];
+                   int n_src, long long ldd, int nseg) {
+  __shared__ float4 seg_all[DWARPS][DSEG / 4];
   const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * DW + (threadIdx.x >> 5);
-  if (r >= n1) return;                 // whole warps; no block barrier
-  float* acc = acc_all[threadIdx.x >> 5];
+  const long long u = (long long)blockIdx.x * DWARPS + (threadIdx.x >> 5);
+  if (u >= (long long)n1 * nseg) return;  // whole warps; no block barrier
+  const long long r = u / nseg;
+  const int p0 = (int)(u - r * nseg) * DSEG;
   float* row = D + r * ldd;
+  const int m = (int)((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
+  if (p0 >= n_src + m) return;
+  float4* seg = seg_all[threadIdx.x >> 5];
+  float* segf = reinterpret_cast<float*>(seg);
+#pragma unroll
+  for (int i = 0; i < DQ; ++i)
+    seg[lane + 32 * i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncwarp();
   const int* cr = cols + r * (long long)w;
   const float* vr = vals + r * (long long)w;
-  for (int c0 = 0; c0 < n_src; c0 += DCOLS) {
-    const int nc = min(DCOLS, n_src - c0);
-    for (int c = lane; c < nc; c += 32) acc[c] = 0.0f;
-    for (int k0 = 0; k0 < w; k0 += 32) {
-      const int k = k0 + lane;
-      const int my_c = k < w ? cr[k] - c0 : -1;
-      const float my_v = k < w ? vr[k] : 0.0f;
-      // A sum that starts at +0.0f is never -0.0f, so adding 0.0f of
-      // either sign leaves it unchanged: zero-valued slots (the pads)
-      // are skipped without changing a bit.
-      unsigned todo = __ballot_sync(0xffffffffu, my_v != 0.0f &&
-                                                     my_c >= 0 && my_c < nc);
-      while (todo) {                   // the same mask in every lane
-        const int q = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const int c = __shfl_sync(0xffffffffu, my_c, q);
-        const float v = __shfl_sync(0xffffffffu, my_v, q);
-        if ((c & 31) == lane) acc[c] += v;
-      }
+  for (int k0 = 0; k0 < w; k0 += 32 * DB) {
+    int cb[DB];
+    float vb[DB];
+#pragma unroll
+    for (int b = 0; b < DB; ++b) {   // DB loads a lane in flight at once
+      const int k = k0 + 32 * b + lane;
+      vb[b] = k < w ? vr[k] : 0.0f;
     }
-    for (int c = lane; c < nc; c += 32) row[c0 + c] = acc[c];
+#pragma unroll
+    for (int b = 0; b < DB; ++b)     // a pad's column is not read
+      cb[b] = vb[b] != 0.0f ? cr[k0 + 32 * b + lane] : -1;
+#pragma unroll
+    for (int b = 0; b < DB; ++b) {
+      // A sum that starts at +0.0f is never -0.0f, so adding 0.0f of
+      // either sign leaves it unchanged: zero-valued slots (the pads) are
+      // skipped without changing a bit.
+      const int p = cb[b] >= 0 && cb[b] < n_src ? cb[b] + m - p0 : -1;
+      densify_chunk(segf, p >= 0 && p < DSEG ? p : -1, vb[b], lane);
+    }
   }
+  // Each quad is written once: lane l stores quads l + 32 i, so a warp
+  // store is 512 contiguous bytes.
+  float* base = row - m;
+#pragma unroll
+  for (int i = 0; i < DQ; ++i)
+    densify_put(base, p0 + 4 * (lane + 32 * i), m, n_src, seg[lane + 32 * i]);
 }
 
 inline bool aligned16(const void* p) {
@@ -980,8 +1052,15 @@ extern "C" int ell_densify_f32(const int* cols, const float* vals, float* D,
                                int n1, int w, int n_src, long long ldd,
                                void* stream) {
   if (n1 <= 0 || n_src <= 0) return 0;
-  ell_densify_kernel<<<(n1 + DW - 1) / DW, DW * 32, 0,
-                       (cudaStream_t)stream>>>(cols, vals, D, n1, w, n_src,
-                                               ldd);
+  // A row's positions run from its 16-byte boundary: m floats before its
+  // first column, the same m for every row where ldd is a multiple of 4,
+  // at most 3 where rows differ.
+  const int m =
+      ldd % 4 == 0 ? (int)((reinterpret_cast<uintptr_t>(D) >> 2) & 3) : 3;
+  const int nseg = (n_src + m + DSEG - 1) / DSEG;
+  const long long warps = (long long)n1 * nseg;
+  ell_densify_kernel<<<(unsigned)((warps + DWARPS - 1) / DWARPS),
+                       DWARPS * 32, 0, (cudaStream_t)stream>>>(
+      cols, vals, D, n1, w, n_src, ldd, nseg);
   return (int)cudaGetLastError();
 }

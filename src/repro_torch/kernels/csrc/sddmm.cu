@@ -59,10 +59,15 @@
 //
 // h_dst / h_src may also be bf16 (the Pallas kernel widens any float
 // operand to fp32) and out bf16 (its `out_dtype`): `sddmm_bf16` and
-// `sddmm_bf16_out` run the same body, widening each bf16 element as it is
-// read with the scalar lane layout (the same sums, so on fp32 operands
-// widened from bf16 the same bits as `sddmm_f32`), and round each fp32
-// result, acc included, once as it is stored.
+// `sddmm_bf16_out` run the same body and round each fp32 result, acc
+// included, once as it is stored.  A bf16 quad is one 8-byte load of four
+// features, widened in registers, where f and both row strides are
+// multiples of four and both bases of 8 bytes (`vec_ok`); else four 2-byte
+// loads, each behind its bound check (the scalar route, which took 1.45x
+// the fp32 body's time on the widest Flickr slice while gathering half its
+// bytes, on an H100 80GB HBM3 at 700 W; PERF.md).  Either way a lane holds
+// the same features and sums them in the same order, so on fp32 operands
+// widened from bf16 the bits are `sddmm_f32`'s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,14 +88,28 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Features c .. c + 3 of `row` (zeros from f on).  VEC (fp32 only): f and
-// the row start are multiples of four floats, so a quad is all in or all
-// out.
+// Four bf16 (two 32-bit words, the lower feature in the lower half)
+// widened to fp32: a bf16 is the upper half of its fp32 value.
+__device__ __forceinline__ float4 widen4(unsigned a, unsigned b) {
+  return make_float4(__uint_as_float(a << 16),
+                     __uint_as_float(a & 0xffff0000u),
+                     __uint_as_float(b << 16),
+                     __uint_as_float(b & 0xffff0000u));
+}
+
+// Features c .. c + 3 of `row` (zeros from f on).  VEC: f and the row
+// start are multiples of four elements, so a quad is all in or all out,
+// and it is one load: a float4 of fp32, 8 bytes of bf16 widened.
 template <bool VEC, typename T>
 __device__ __forceinline__ float4 quad(const T* row, int c, int f) {
   if constexpr (VEC) {
-    if (c < f) return *reinterpret_cast<const float4*>(row + c);
-    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c >= f) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (sizeof(T) == 4) {
+      return *reinterpret_cast<const float4*>(row + c);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(row + c);
+      return widen4(u.x, u.y);
+    }
   }
   float4 x;
   x.x = c < f ? widen(row[c]) : 0.0f;
@@ -98,6 +117,14 @@ __device__ __forceinline__ float4 quad(const T* row, int c, int f) {
   x.z = c + 2 < f ? widen(row[c + 2]) : 0.0f;
   x.w = c + 3 < f ? widen(row[c + 3]) : 0.0f;
   return x;
+}
+
+// Lane l's features of a row's first 128: quads l + 8 i.
+template <bool VEC, typename T>
+__device__ __forceinline__ void lane_quads(const T* row, int l, int f,
+                                           float4 (&x)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = quad<VEC, T>(row, 4 * (l + 8 * i), f);
 }
 
 __device__ __forceinline__ float dot4(float p, const float4& a,
@@ -150,8 +177,7 @@ sddmm_f32_kernel(const T* __restrict__ hd, const T* __restrict__ hs,
     const int g = lane >> 3, l = lane & 7;
     const T* drow = hd + r * ldd;
     float4 d[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) d[i] = quad<VEC, T>(drow, 4 * (l + 8 * i), f);
+    lane_quads<VEC, T>(drow, l, f, d);
     for (int b0 = 0; b0 < n_live; b0 += 4) {
       // Slot b0 + g of the list goes to group g; an index past the list
       // gathers row 0 and is discarded.
@@ -160,9 +186,7 @@ sddmm_f32_kernel(const T* __restrict__ hd, const T* __restrict__ hs,
       const bool bad = (unsigned)c >= (unsigned)n_src;
       const T* srow = hs + (long long)(bad ? 0 : c) * lds;
       float4 x[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        x[i] = quad<VEC, T>(srow, 4 * (l + 8 * i), f);
+      lane_quads<VEC, T>(srow, l, f, x);
       float p = 0.0f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) p = dot4(p, d[i], x[i]);
@@ -189,6 +213,17 @@ sddmm_f32_kernel(const T* __restrict__ hd, const T* __restrict__ hs,
   }
 }
 
+// The vector route (`quad`'s VEC) for T operands: f and both row strides
+// a multiple of Q elements and both bases of Q * sizeof(T) bytes (16 for a
+// float4 of fp32, 8 for four bf16).
+template <typename T, int Q = 4>
+inline bool vec_ok(const void* hd, const void* hs, int f, long long ldd,
+                   long long lds) {
+  return f % Q == 0 && ldd % Q == 0 && lds % Q == 0 &&
+         (reinterpret_cast<uintptr_t>(hd) |
+          reinterpret_cast<uintptr_t>(hs)) % (Q * sizeof(T)) == 0;
+}
+
 }  // namespace
 
 // out = acc + where(mask, SDDMM(h_dst, h_src, cols), 0).  mask (bool, one
@@ -200,15 +235,10 @@ extern "C" int sddmm_f32(const float* h_dst, const float* h_src,
                          int n_src, long long ldd, long long lds,
                          void* stream) {
   if (n1 <= 0 || w <= 0) return 0;
-  // float4 rows: f, the row strides and the base addresses all a multiple
-  // of four floats.
-  const bool vec = f % 4 == 0 && ldd % 4 == 0 && lds % 4 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(h_dst) |
-                     reinterpret_cast<uintptr_t>(h_src)) & 15) == 0;
   const long long warps = (long long)n1 * ((w + SPAN - 1) / SPAN);
   dim3 grid((unsigned)((warps + WARPS - 1) / WARPS));
   cudaStream_t s = (cudaStream_t)stream;
-  if (vec)
+  if (vec_ok<float>(h_dst, h_src, f, ldd, lds))
     sddmm_f32_kernel<true><<<grid, WARPS * 32, 0, s>>>(
         h_dst, h_src, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
   else
@@ -227,9 +257,13 @@ extern "C" int sddmm_bf16(const __nv_bfloat16* h_dst,
   if (n1 <= 0 || w <= 0) return 0;
   const long long warps = (long long)n1 * ((w + SPAN - 1) / SPAN);
   dim3 grid((unsigned)((warps + WARPS - 1) / WARPS));
-  sddmm_f32_kernel<false, __nv_bfloat16>
-      <<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-          h_dst, h_src, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec_ok<__nv_bfloat16>(h_dst, h_src, f, ldd, lds))
+    sddmm_f32_kernel<true, __nv_bfloat16><<<grid, WARPS * 32, 0, s>>>(
+        h_dst, h_src, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
+  else
+    sddmm_f32_kernel<false, __nv_bfloat16><<<grid, WARPS * 32, 0, s>>>(
+        h_dst, h_src, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
   return (int)cudaGetLastError();
 }
 
@@ -242,19 +276,22 @@ extern "C" int sddmm_bf16_out(const void* h_dst, const void* h_src,
                               int in_bf16, int n1, int w, int f, int n_src,
                               long long ldd, long long lds, void* stream) {
   if (n1 <= 0 || w <= 0) return 0;
-  const bool vec = !in_bf16 && f % 4 == 0 && ldd % 4 == 0 && lds % 4 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(h_dst) |
-                     reinterpret_cast<uintptr_t>(h_src)) & 15) == 0;
+  using bf = __nv_bfloat16;
+  const bool vec = in_bf16 ? vec_ok<bf>(h_dst, h_src, f, ldd, lds)
+                           : vec_ok<float>(h_dst, h_src, f, ldd, lds);
   const long long warps = (long long)n1 * ((w + SPAN - 1) / SPAN);
   dim3 grid((unsigned)((warps + WARPS - 1) / WARPS));
   cudaStream_t s = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
   const float *df = static_cast<const float*>(h_dst),
               *sf = static_cast<const float*>(h_src);
-  if (in_bf16)
+  const bf *db = static_cast<const bf*>(h_dst),
+           *sb = static_cast<const bf*>(h_src);
+  if (in_bf16 && vec)
+    sddmm_f32_kernel<true, bf, bf><<<grid, WARPS * 32, 0, s>>>(
+        db, sb, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
+  else if (in_bf16)
     sddmm_f32_kernel<false, bf, bf><<<grid, WARPS * 32, 0, s>>>(
-        static_cast<const bf*>(h_dst), static_cast<const bf*>(h_src), cols,
-        mask, acc, out, n1, w, f, n_src, ldd, lds);
+        db, sb, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);
   else if (vec)
     sddmm_f32_kernel<true, float, bf><<<grid, WARPS * 32, 0, s>>>(
         df, sf, cols, mask, acc, out, n1, w, f, n_src, ldd, lds);

@@ -58,6 +58,8 @@ left out:
         tests/test_torch_gpu.py
 """
 import dataclasses
+import functools
+import importlib.util
 import os
 import sys
 
@@ -140,14 +142,22 @@ GEMM_BITS_CASES = [(4096, 128, 128, 37, 1001), (130, 70, 258, 3, 129),
                    (4096, 128, 8, 63, 65), (130, 200, 100, 3, 129)]
 
 
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    # The repository's chip_smoke.py (it imports neither jax nor repro),
+    # whose densify tiles and off-by-one views are also checked here.
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _unaligned_copy(t):
     # The same values in a view whose rows start one element past a
     # 16-byte boundary (row stride not a multiple of 16 bytes either).
-    buf = torch.empty(t.shape[0], t.shape[1] + 1, dtype=t.dtype,
-                      device=t.device)
-    view = buf[:, 1:]
-    view.copy_(t)
-    return view
+    return _chip_smoke().off_by_one(torch, t)
 
 
 @pytest.mark.parametrize("m,k,n,r0,r1", GEMM_BITS_CASES)
@@ -916,16 +926,37 @@ def test_cuda_forced_gemm_equal_across_residencies(cuda):
     _close(y, want, rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("n1,w,n_src", [(64, 24, 45), (4096, 64, 4096)])
-def test_cuda_densify_duplicates_same_bits(cuda, n1, w, n_src):
+# The six tiles of chip_smoke.densify_cases, by index: duplicates over
+# quads and segments at (n1, w, n_src) (64, 37, 45), (256, 70, 4097),
+# (128, 512, 4097) and (96, 33, 4096), columns spread over and past
+# [0, 4097), and the hub-heavy 4096 x 512 tile.
+DENSIFY_SMOKE_TILES = 6
+
+
+@pytest.mark.parametrize("tile", [
+    pytest.param((64, 24, 45), id="64-24-45"),
+    pytest.param((4096, 64, 4096), id="4096-64-4096")] + [
+    pytest.param(i, id=f"chip_smoke-{i}")
+    for i in range(DENSIFY_SMOKE_TILES)])
+def test_cuda_densify_duplicates_same_bits(cuda, tile):
     # A tile whose rows hold the same column many times (values of mixed
     # sign and scale, so the sum order shows in the bits): ten calls give
-    # the same bits, those of the plain version's slot-order sum.
+    # the same bits, those of the plain version's slot-order sum.  The
+    # first two hold four columns; chip_smoke's rows start off 16-byte
+    # boundaries where n_src is not a multiple of 4, repeat columns
+    # across quads and segments, and name columns out of range.
     g = torch.Generator(device=cuda).manual_seed(5)
-    cols = torch.randint(0, 4, (n1, w), generator=g, device=cuda,
-                         dtype=torch.int32)
-    vals = torch.randn(n1, w, generator=g, device=cuda) * torch.where(
-        torch.rand(n1, w, generator=g, device=cuda) > 0.5, 1e4, 1.0)
+    if isinstance(tile, int):
+        cases = _chip_smoke().densify_cases(torch, g)
+        assert len(cases) == DENSIFY_SMOKE_TILES
+        _, cols, vals, n_src = cases[tile]
+        n1, w = cols.shape
+    else:
+        n1, w, n_src = tile
+        cols = torch.randint(0, 4, (n1, w), generator=g, device=cuda,
+                             dtype=torch.int32)
+        vals = torch.randn(n1, w, generator=g, device=cuda) * torch.where(
+            torch.rand(n1, w, generator=g, device=cuda) > 0.5, 1e4, 1.0)
     # Zero-valued slots of either sign (which the kernel skips) and sums
     # that cancel exactly: the bits, signs of zero included, are still
     # the plain version's.
@@ -941,7 +972,18 @@ def test_cuda_densify_duplicates_same_bits(cuda, n1, w, n_src):
                            bits)
     assert torch.equal(ref.densify_ref(cols, vals, n_src).view(torch.int32),
                        bits)
-    assert float(first[:, 4:].abs().max()) == 0.0
+    if not isinstance(tile, int):
+        assert float(first[:, 4:].abs().max()) == 0.0
+    # Into a view of a wider buffer through the C entry's row stride (ldd
+    # = n_src + 3, one element in: rows at every 16-byte alignment): the
+    # same bits, and nothing outside the view written.
+    buf = torch.full((n1, n_src + 3), float("nan"), device=cuda)
+    view = buf[:, 1:n_src + 1]
+    assert ops.entry("densify")(cols.data_ptr(), vals.data_ptr(),
+                                view.data_ptr(), n1, w, n_src, n_src + 3,
+                                ops._stream(cols)) == 0
+    assert torch.equal(view.view(torch.int32), bits)
+    assert bool(buf[:, 0].isnan().all() and buf[:, n_src + 1:].isnan().all())
 
 
 def test_cuda_host_path_survives_delayed_streams(cuda):
@@ -2233,6 +2275,10 @@ def test_cuda_spdmm_bf16_out_matches_plain(cuda, n1, w, ns, f):
 
 @pytest.mark.parametrize("n1,w,ns,f", SDDMM_SHAPES)
 def test_cuda_sddmm_bf16_operands_and_out(cuda, n1, w, ns, f):
+    # Both routes of bf16 operands: contiguous rows (8-byte loads of four
+    # features where f % 4 == 0) and views one element off with a row
+    # stride of f + 1 (2-byte loads); each bit for bit the fp32 kernel on
+    # the widened operands, with an fp32 and a bf16 store.
     g = torch.Generator(device=cuda).manual_seed(n1 + f)
     cols = torch.randint(0, ns, (n1, w), generator=g, device=cuda,
                          dtype=torch.int32)
@@ -2240,14 +2286,14 @@ def test_cuda_sddmm_bf16_operands_and_out(cuda, n1, w, ns, f):
     hs = torch.randn(ns, f, generator=g, device=cuda).bfloat16()
     mask = torch.rand(n1, w, generator=g, device=cuda) > 0.3
     acc = torch.randn(n1, w, generator=g, device=cuda)
-    ops.reset_launches()
-    got = ops.sddmm(hd, hs, cols, mask, acc)
-    assert ops.LAUNCHES["sddmm"] == 1 and got.dtype == torch.float32
-    # bit for bit the fp32 kernel on the widened operands
-    assert torch.equal(got, ops.sddmm(hd.float(), hs.float(), cols, mask,
-                                      acc))
-    _close(got, ref.sddmm_step_ref(hd, hs, cols, mask, acc), 1e-4, 1e-4)
-    for a, b in ((hd, hs), (hd.float(), hs.float())):
-        out = ops.sddmm(a, b, cols, mask, acc, out_dtype=torch.bfloat16)
-        assert out.dtype == torch.bfloat16
-        assert torch.equal(out, got.bfloat16())
+    want = ops.sddmm(hd.float(), hs.float(), cols, mask, acc)
+    for a16, b16 in ((hd, hs), (_unaligned_copy(hd), _unaligned_copy(hs))):
+        ops.reset_launches()
+        got = ops.sddmm(a16, b16, cols, mask, acc)
+        assert ops.LAUNCHES["sddmm"] == 1 and got.dtype == torch.float32
+        assert torch.equal(got, want)
+        _close(got, ref.sddmm_step_ref(hd, hs, cols, mask, acc), 1e-4, 1e-4)
+        for a, b in ((a16, b16), (hd.float(), hs.float())):
+            out = ops.sddmm(a, b, cols, mask, acc, out_dtype=torch.bfloat16)
+            assert out.dtype == torch.bfloat16
+            assert torch.equal(out, want.bfloat16())

@@ -370,3 +370,67 @@ def test_edited_refuses_text_not_in_the_source_once():
         build.edited("gemm", [("no such text in the source", "x")])
     with pytest.raises(ValueError, match="exactly once"):
         build.edited("gemm", [("float", "double")])
+
+
+def _sparse_report(spill=0, drop_last=False):
+    # A ptxas -v report in nvcc's layout: the densify kernel and the eight
+    # instantiations of the SDDMM body (route, h type, out type).
+    names = ["_ZN12_GLOBAL__N_118ell_densify_kernelEPKiPKfPfiiixi"]
+    for vec in "01":
+        for args in ("ff", "f13__nv_bfloat16", "13__nv_bfloat16f",
+                     "13__nv_bfloat16S1_"):
+            names.append(f"_ZN12_GLOBAL__N_116sddmm_f32_kernelILb{vec}E"
+                         f"{args}EEvPKT0_S4_PKiPKhPKfPT1_iiiixx")
+    if drop_last:
+        names = names[:-1]
+    lines = []
+    for i, n in enumerate(names):
+        s = spill if i == 3 else 0
+        lines += [f"ptxas info    : Compiling entry function '{n}' for "
+                  "'sm_90a'",
+                  f"ptxas info    : Function properties for {n}",
+                  f"    0 bytes stack frame, {s} bytes spill stores, {s} "
+                  "bytes spill loads",
+                  f"ptxas info    : Used {40 + i} registers, used 0 "
+                  "barriers, 2048 bytes smem"]
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("case", ["clean", "spill", "missing"])
+def test_sparse_nvcc_check_reads_densify_and_every_sddmm_route(case):
+    # chip_smoke's reading of the build reports: one row per kernel,
+    # each SDDMM instantiation named by its route and types; a spill or
+    # a missing instantiation fails the run.
+    cs = _root_script("chip_smoke")
+    sddmm = _sparse_report(spill=8 if case == "spill" else 0,
+                           drop_last=case == "missing")
+    gemm = sddmm.split("\nptxas info    : Compiling entry function "
+                       "'_ZN12_GLOBAL__N_116sddmm")[0]
+    if case != "clean":
+        with pytest.raises(SystemExit):
+            cs.sparse_nvcc_check(gemm, sddmm)
+        return
+    rows = cs.sparse_nvcc_check(gemm, sddmm)
+    assert rows["ell_densify_kernel"] == {"registers": 40,
+                                          "spill_stores": 0,
+                                          "spill_loads": 0}
+    keys = {k for k in rows if k.startswith("sddmm")}
+    assert keys == {f"sddmm_f32_kernel<{r}, {h}, {o}>"
+                    for r in ("scalar", "vector") for h in ("fp32", "bf16")
+                    for o in ("fp32", "bf16")}
+    assert rows["sddmm_f32_kernel<vector, bf16, bf16>"]["registers"] == 48
+    assert cs.sparse_nvcc_check("cached", "cached") == {}
+
+
+def test_densify_bound_counts_only_the_columns_it_reads():
+    # Densify's bound: every value read, a column only under a non-zero
+    # value (a zero of either sign adds nothing to 0.0f), the block
+    # written once, an add a live slot.
+    cs = _root_script("chip_smoke")
+    vals = torch.zeros(6, 5)
+    vals[0, :3] = torch.tensor([1.0, -2.0, 3.0])
+    vals[4, 4] = 0.5
+    vals[5, 0] = -0.0
+    ms, by, live = cs.densify_bound(torch, vals, 45)
+    assert live == 4 and by == "bytes"
+    assert (ms, by) == cs.bound_ms(4 * 6 * 5 + 4 * 4 + 4 * 6 * 45, 4.0)

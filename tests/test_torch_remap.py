@@ -286,15 +286,24 @@ def test_forced_gemm_matches_jax(name):
         assert eng.exec_stats.tiles_remapped == je.exec_stats.tiles_remapped
 
 
-@pytest.mark.parametrize("n_src", [32, 45])
-def test_densify_and_gemm_agg_match_jax(n_src):
+@pytest.mark.parametrize("n_src,w", [
+    pytest.param(32, 12, id="32"), pytest.param(45, 12, id="45"),
+    pytest.param(4097, 12, id="4097"), pytest.param(45, 40, id="45-w40")])
+def test_densify_and_gemm_agg_match_jax(n_src, w):
     r = np.random.default_rng(4)
-    n1, w, f = 32, 12, 8
+    n1, f = 32, 8
     mask = r.random((n1, w)) > 0.3
     cols = np.where(mask, r.integers(0, n_src, (n1, w)), 0).astype(np.int32)
     vals = np.where(mask, r.normal(0, 1, (n1, w)), 0.0).astype(np.float32)
     cols[5, :4] = 7                     # one column four times in a row
     vals[5, :4] = [0.1, 1e4, -1e4, 0.3]
+    if w > 32:
+        # One column in every slot of a row (past one 32-slot chunk),
+        # with zeros of either sign and sums that cancel.
+        cols[6] = 3
+        vals[6] = r.normal(0, 1, w) * np.where(r.random(w) > 0.5, 1e4, 1.0)
+        vals[6, :8] = [-0.0, 2.5, -2.5, -0.0, 0.0, 1e4, -1e4, -0.0]
+        vals[6, 30:36] = [-0.0, 0.0, -0.0, 7.0, -0.0, 0.0]
     h = r.normal(0, 1, (n_src, f)).astype(np.float32)
     acc = r.normal(0, 1, (n1, f)).astype(np.float32)
     want = np.asarray(jack.densify_tile(jnp.asarray(cols),
@@ -308,6 +317,13 @@ def test_densify_and_gemm_agg_match_jax(n_src):
     for v in vals[5, :4]:
         s = np.float32(s + v)
     assert dense[5, 7].item() == float(s)
+    if w > 32:
+        s = np.float32(0.0)
+        for v in vals[6]:
+            s = np.float32(s + v)
+        got = dense[6, 3].numpy()
+        assert got.view(np.int32) == s.view(np.int32)
+        assert float(dense[6].abs().sum() - abs(dense[6, 3])) == 0.0
     j_out = np.asarray(jack.ACK().gemm_agg(
         jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(h),
         jnp.asarray(acc)))
